@@ -1,8 +1,10 @@
-"""Model configuration for the PyTorch port.
+"""Model and experiment configuration for the PyTorch port.
 
-A copy of ``tagan_tpu.core.config.TAGANConfig``: field names, defaults
-and validation are identical to the JAX package's. The port keeps its
-own copy so that it never imports the JAX package. Two fields are TPU geometry that the port does not read:
+Copies of ``tagan_tpu.core.config.TAGANConfig`` and ``ExperimentConfig``:
+field names, defaults, validation and the dict/JSON round trip are
+identical to the JAX package's. The port keeps its own copies so that it
+never imports the JAX package. Two fields are TPU geometry that the
+port does not read:
 ``flash_block_m``/``flash_block_n`` pick the Pallas kernel's block
 shape; the CUDA kernel has its own fixed tile
 (``tagan_torch.ops.flash_geometric.BLOCK_M``/``BLOCK_N``).
@@ -10,7 +12,9 @@ shape; the CUDA kernel has its own fixed tile
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import json
+from dataclasses import dataclass, field
 from typing import Optional
 
 VALID_LOSS_TYPES = ("ce", "bce", "mse", "focal", "classification",
@@ -158,3 +162,76 @@ class TAGANConfig:
         if self.distance_metric is not None:
             return self.distance_metric
         return "scaled_dot_product" if self.learnable_distance else "euclidean"
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TAGANConfig":
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """Training-run settings: batching, epochs, early stopping on a
+    validation metric, the learning-rate schedule, checkpoints, logging
+    and the loader's shuffle and workers."""
+    model: TAGANConfig = field(default_factory=TAGANConfig)
+    experiment_name: str = "tagan_experiment"
+    data_path: str = "data/"
+    output_path: str = "outputs/"
+    batch_size: int = 16
+    num_epochs: int = 50
+    num_folds: int = 5                     # folds of `cross_validate`
+    seed: int = 42
+    eval_every: int = 1
+    early_stopping_patience: int = 10
+    early_stopping_metric: str = "f1"
+    lr_scheduler: Optional[str] = None     # None | 'cosine' | 'plateau' | 'step'
+    lr_scheduler_factor: float = 0.5
+    lr_scheduler_patience: int = 5
+    lr_scheduler_step_size: int = 10       # epochs per 'step' decay
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_every: int = 0              # 0 = only the best
+    log_every: int = 10
+    # a timestamped training_<ts>.log and a console handler when set
+    log_dir: str = ""
+    # training_history.png/json into checkpoint_dir at the end of train()
+    plot_history: bool = False
+    shuffle: bool = True
+    num_workers: int = 0                   # loader prefetch threads
+    # the JAX package runs an epoch as one scanned device program; the
+    # port runs the same per-step loop either way
+    fused_epochs: bool = False
+
+    def __post_init__(self):
+        if self.num_folds <= 0:
+            raise ValueError(
+                f"Number of folds must be positive, got {self.num_folds}")
+        if self.batch_size <= 0:
+            raise ValueError(
+                f"batch_size must be positive, got {self.batch_size}")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ExperimentConfig":
+        d = dict(d)
+        if "model" in d and isinstance(d["model"], dict):
+            d["model"] = TAGANConfig.from_dict(d["model"])
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    def to_json(self, path: str):
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @classmethod
+    def from_json(cls, path: str) -> "ExperimentConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)

@@ -10,7 +10,8 @@ names follow the JAX parameter tree, so a converted JAX tree loads with
 Initialisation draws from an explicit ``torch.Generator`` on the CPU:
 Xavier/Glorot-uniform weights, constant biases, LayerNorm scale 1 and
 shift 0, as the JAX package does. The numbers differ from JAX's for the
-same seed, so parity tests load converted weights.
+same seed, so parity tests load converted weights. Dropout, likewise,
+draws from an explicit generator and is off without one.
 """
 
 from __future__ import annotations
@@ -93,6 +94,21 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.g, self.b)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each entry with probability 1 - rate and
+    scale it by 1 / (1 - rate). The identity when ``generator`` is None
+    (the deterministic forward) or at rate 0. The keep mask is drawn from
+    ``generator`` on the generator's device, so the same generator state
+    gives the same mask."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    return torch.where(u.to(x.device) < keep, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:

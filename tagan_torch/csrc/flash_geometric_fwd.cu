@@ -42,61 +42,15 @@
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_geometric_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;            // query rows per tile
-constexpr int BN = 64;            // keys per walk step
-constexpr int THREADS = 256;      // 16 row groups x 16 lanes
+using namespace tagan_flash;
+
 constexpr int ROWS = BM / 16;     // query rows per thread
 constexpr int COLS = BN / 16;     // keys per thread and step
 constexpr int MAX_DV_LANES = 8;   // output columns per thread: Dv <= 128
-constexpr int MAX_D = 128;
-constexpr float NEG_INF = -1e30f;
-constexpr float LSE_DEAD = 1e30f;
-
-// Order of tagan_torch.ops.flash_geometric.MXU_METRICS.
-enum Metric : int {
-  SCALED_DOT = 0, DOT = 1, SQ_EUCLID = 2, EUCLID = 3,
-  GAUSSIAN = 4, RBF = 5, COS_SIM = 6, COS_DIST = 7,
-};
-
-__device__ __forceinline__ float score_of(int metric, float qk, float qn,
-                                          float kn, float scale,
-                                          float sqrt_d) {
-  switch (metric) {
-    case SCALED_DOT: return qk / sqrt_d;
-    case DOT: return qk;
-    case COS_SIM: return fminf(fmaxf(qk, -1.f), 1.f);
-    case COS_DIST: return fminf(fmaxf(qk, -1.f), 1.f) - 1.f;
-    default: break;
-  }
-  const float sq = fmaxf(qn + kn - 2.f * qk, 0.f);
-  switch (metric) {
-    case SQ_EUCLID: return -sq;
-    case EUCLID: return -sqrtf(sq + 1e-8f);
-    case GAUSSIAN: return expf(-sq / (2.f * scale * scale));
-    default: return expf(-scale * sq);  // RBF
-  }
-}
-
-// _keep_mask's hash: `mix` is seed ^ (head * 0xC2B2AE3D).
-__device__ __forceinline__ uint32_t keep_hash(uint32_t mix, uint32_t r,
-                                              uint32_t c) {
-  uint32_t x = r * 0x9E3779B1u;
-  x ^= c * 0x85EBCA77u;
-  x += mix;
-  x ^= x >> 17;
-  x *= 0xED5AD4BBu;
-  x ^= x >> 11;
-  x *= 0xAC4C1B51u;
-  x ^= x >> 15;
-  x *= 0x31848BABu;
-  x ^= x >> 14;
-  return x;
-}
 
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -277,6 +231,7 @@ extern "C" int tagan_flash_geometric_fwd(
     const void* seed, void* out, void* lse, int G, int H, int N, int D,
     int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
     unsigned int keep_thresh, float inv_keep, void* stream) {
+  using namespace tagan_flash;
   if (G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
       Dv > 16 * MAX_DV_LANES || metric < 0 || metric > COS_DIST ||
       n_i != (N + BM - 1) / BM || W < 0)

@@ -3,25 +3,32 @@
 Counterpart of ``tagan_tpu.nn.geometric``: ``GeometricAttention`` with
 its dense path (``forward``: pre-LN, QKV, metric scores, masked softmax,
 attention @ V, output projection, residual, post-LN) and its flash path
-(``apply_flash``: the same layer through the block-sparse forward in
+(``apply_flash``: the same layer through the block-sparse attention in
 ``ops.flash_geometric``), and the ``GraphAttention`` adapter.
 
-Inference only: the port serves with dropout off, so the layers take no
-dropout; attention dropout lives in the kernel (``ops.flash_geometric``)
-for the training slice. Parameter names follow the JAX tree.
+Dropout runs when a ``torch.Generator`` is passed (the training forward)
+and never otherwise. The dense path drops the attention weights and the
+projected output; the flash path drops the attention weights inside the
+kernel (one int32 hash seed per folded snapshot, drawn from the
+generator) and the projected output outside it. Parameter names follow
+the JAX tree.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
-from ..core.module import LayerNorm, Linear, default_generator, xavier_uniform
+from ..core.module import (LayerNorm, Linear, default_generator, dropout,
+                           xavier_uniform)
 from ..ops import distances as D
 from ..ops import flash_geometric as FG
 from ..ops.masked import masked_softmax
+
+INT32_MAX = 2 ** 31 - 1
 
 
 class GeometricAttention(nn.Module):
@@ -29,6 +36,7 @@ class GeometricAttention(nn.Module):
                  distance_metric: str = "scaled_dot_product",
                  use_layer_norm: bool = True,
                  learnable_distance: bool = False, *,
+                 dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_dim % num_heads != 0:
@@ -41,6 +49,7 @@ class GeometricAttention(nn.Module):
         self.distance_metric = distance_metric
         self.use_layer_norm = use_layer_norm
         self.learnable_distance = learnable_distance
+        self.dropout = dropout
         h = hidden_dim
         self.q = Linear(h, h, generator=g)
         self.k = Linear(h, h, generator=g)
@@ -88,15 +97,17 @@ class GeometricAttention(nn.Module):
         return (self._split_heads(self.q(h)), self._split_heads(self.k(h)),
                 self._split_heads(self.v(h)))
 
-    def _finish(self, ctx, identity):
-        out = self.o(self._merge_heads(ctx)) + identity
+    def _finish(self, ctx, identity, generator):
+        ctx = dropout(self.o(self._merge_heads(ctx)), self.dropout, generator)
+        out = ctx + identity
         return self.ln2(out) if self.use_layer_norm else out
 
     def forward(self, x: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
+                attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """Dense path. x [..., N, hidden], attention_mask bool
-        [..., N, N]."""
+        [..., N, N]; dropout from ``generator`` when given."""
         q, k, v = self._qkv(x)
         sigma, gamma, cov_inv = self._metric_params()
         scores = D.pairwise_scores(self.distance_metric, q, k, sigma=sigma,
@@ -104,26 +115,37 @@ class GeometricAttention(nn.Module):
         mask = attention_mask
         if mask is not None and mask.dim() == scores.dim() - 1:
             mask = mask[..., None, :, :]
-        weights = masked_softmax(scores, mask)
-        return self._finish(weights @ v, x)
+        weights = dropout(masked_softmax(scores, mask), self.dropout,
+                          generator)
+        return self._finish(weights @ v, x, generator)
 
-    def apply_flash(self, x: torch.Tensor, mask: torch.Tensor
+    def apply_flash(self, x: torch.Tensor, mask: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
         """Flash path: the same layer with the attention core in the
-        block-sparse forward kernel. x [..., N, hidden], mask [..., N, N]
-        (nonzero where query i attends to key j). Manhattan is not
-        written through q.k and takes the dense path; mahalanobis runs
-        euclidean in factor space (|Fq - Fk|^2 = maha(q, k; F^T F))."""
-        return self._apply_flash(x, mask, FG.make_block_plan(mask))
+        block-sparse kernels (forward and, under autograd, backward).
+        x [..., N, hidden], mask [..., N, N] (nonzero where query i
+        attends to key j). Manhattan is not written through q.k and takes
+        the dense path; mahalanobis runs euclidean in factor space
+        (|Fq - Fk|^2 = maha(q, k; F^T F))."""
+        plan, plan_t = FG.make_block_plans_from_mask(mask)
+        return self._apply_flash(x, mask, plan, plan_t, generator)
 
-    def _apply_flash(self, x, mask, plan):
-        """`apply_flash` with the forward walk ``plan`` built by the model
+    def _apply_flash(self, x, mask, plan, plan_t=None, generator=None):
+        """`apply_flash` with the walk plans built by the model
         (``flash_structures``), shared by every layer."""
         metric = self.distance_metric
         if metric not in FG.MXU_METRICS and metric != "mahalanobis":
-            return self(x, mask != 0)
+            return self(x, mask != 0, generator)
         sigma, gamma, _ = self._metric_params()
         scale = sigma if sigma is not None else gamma
+        rate, seed = 0.0, None
+        if generator is not None and self.dropout > 0.0:
+            # one int32 hash seed per folded snapshot
+            rate = self.dropout
+            seed = torch.randint(0, INT32_MAX, (math.prod(x.shape[:-2]),),
+                                 generator=generator, device=generator.device,
+                                 dtype=torch.int32)
         q, k, v = self._qkv(x)
         if metric == "mahalanobis":
             metric = "euclidean"
@@ -131,20 +153,21 @@ class GeometricAttention(nn.Module):
                 f = self.cov_factors                          # [H, R, Dh]
                 q = torch.einsum("...hnd,hrd->...hnr", q, f)
                 k = torch.einsum("...hnd,hrd->...hnr", k, f)
-        ctx = FG._flash_attention(q, k, v, mask, metric, scale, plan)
-        return self._finish(ctx, x)
+        ctx = FG._flash_attention(q, k, v, mask, metric, scale, plan,
+                                  dropout_rate=rate, dropout_seed=seed,
+                                  plan_t=plan_t)
+        return self._finish(ctx, x, generator)
 
 
 class GraphAttention(nn.Module):
     """Adapter: graph snapshot -> geometric attention over the edge mask
-    (adjacency + self loops). Edge-feature bias is outside the port's
-    first slice."""
+    (adjacency + self loops). Edge-feature bias is not ported yet."""
 
     def __init__(self, hidden_dim: int, num_heads: int = 8,
                  distance_metric: str = "scaled_dot_product",
                  use_layer_norm: bool = True,
                  learnable_distance: bool = False,
-                 use_edge_bias: bool = False, *,
+                 use_edge_bias: bool = False, *, dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if use_edge_bias:
@@ -153,8 +176,9 @@ class GraphAttention(nn.Module):
                 "are not ported yet")
         self.attn = GeometricAttention(
             hidden_dim, num_heads, distance_metric, use_layer_norm,
-            learnable_distance, generator=generator)
+            learnable_distance, dropout=dropout, generator=generator)
 
-    def forward(self, x: torch.Tensor, adj_mask: torch.Tensor
+    def forward(self, x: torch.Tensor, adj_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        return self.attn(x, adj_mask)
+        return self.attn(x, adj_mask, generator)

@@ -16,7 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.module import LayerNorm, Linear, activation, default_generator
+from ..core.module import (LayerNorm, Linear, activation, default_generator,
+                           dropout)
 from ..ops.masked import masked_max, masked_mean
 
 
@@ -120,16 +121,18 @@ def pool_temporal(pooling_type: str, x: torch.Tensor,
 
 
 class MLP(nn.Module):
-    """``num_layers`` linears with LayerNorm + activation between them
-    (the JAX package's ``_build_mlp`` / ``_apply_mlp``)."""
+    """``num_layers`` linears with LayerNorm + activation (+ dropout)
+    between them (the JAX package's ``_build_mlp`` / ``_apply_mlp``)."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int, use_layer_norm: bool,
                  act: str = "relu", final_bias_init: float = 0.0, *,
+                 dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         self.num_layers = num_layers
+        self.dropout = dropout
         self.use_layer_norm = use_layer_norm
         self.act = activation(act)
         for i in range(num_layers):
@@ -142,13 +145,15 @@ class MLP(nn.Module):
             if use_layer_norm and not last:
                 setattr(self, f"ln_{i}", LayerNorm(fo))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         for i in range(self.num_layers):
             x = getattr(self, f"linear_{i}")(x)
             if i < self.num_layers - 1:
                 if self.use_layer_norm:
                     x = getattr(self, f"ln_{i}")(x)
-                x = self.act(x)
+                x = dropout(self.act(x), self.dropout, generator)
         return x
 
 
@@ -158,7 +163,7 @@ class TemporalClassificationHead(nn.Module):
     def __init__(self, hidden_dim: int, num_classes: int,
                  pooling_type: str = "attention", act: str = "relu",
                  num_layers: int = 2, use_layer_norm: bool = True,
-                 multi_label: bool = False, *,
+                 multi_label: bool = False, *, dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
@@ -166,18 +171,21 @@ class TemporalClassificationHead(nn.Module):
         self.num_classes = num_classes
         self.multi_label = multi_label
         self.classifier = MLP(hidden_dim, hidden_dim, num_classes,
-                              num_layers, use_layer_norm, act, generator=g)
+                              num_layers, use_layer_norm, act,
+                              dropout=dropout, generator=g)
         if pooling_type == "attention":
             self.attention = AttentionPool(hidden_dim, generator=g)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None,
-                class_weights: Optional[torch.Tensor] = None):
+                class_weights: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """x [B, T, H], mask bool[B, T] -> logits [B, C] (and the mean
-        loss first when ``labels`` is given)."""
+        loss first when ``labels`` is given); dropout in the classifier
+        from ``generator`` when given."""
         pooled = pool_temporal(self.pooling_type, x, mask,
                                getattr(self, "attention", None))
-        logits = self.classifier(pooled)
+        logits = self.classifier(pooled, generator)
         if labels is None:
             return logits
         if self.multi_label:
@@ -197,11 +205,11 @@ class ClassificationModule(TemporalClassificationHead):
                  task_type: str = "classification",
                  pooling_type: str = "attention", act: str = "relu",
                  num_layers: int = 2, use_layer_norm: bool = True,
-                 multi_task: bool = False, *,
+                 multi_task: bool = False, *, dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         if multi_task:
             raise NotImplementedError("the multi-task head is not ported yet")
         super().__init__(hidden_dim, output_dim, pooling_type, act,
                          num_layers, use_layer_norm,
                          multi_label=(task_type == "multi_label"),
-                         generator=generator)
+                         dropout=dropout, generator=generator)

@@ -10,6 +10,10 @@ a Python loop over T on a batch of sequences at once:
     node_mask  bool[B, T, N]
     time_stamps [B, T], time_mask bool[B, T]
 
+Dropout (the cell's new state, the evolution and skip projections, the
+gate output and the propagation output) runs when a ``torch.Generator``
+is passed and never otherwise.
+
 The cell runs per node only on its active steps (inactive steps carry
 the state and emit zeros), which also keeps LayerNorm off all-zero rows.
 The memory pass gates reappearing nodes with bias
@@ -25,17 +29,19 @@ import torch
 from torch import nn
 
 from ..core.memory import MemoryState, init_memory, memory_read, memory_update
-from ..core.module import LayerNorm, Linear, default_generator, gelu_exact
+from ..core.module import (LayerNorm, Linear, default_generator, dropout,
+                           gelu_exact)
 
 
 class TemporalGRUCell(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int,
-                 use_layer_norm: bool = True, *,
+                 use_layer_norm: bool = True, *, dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         self.hidden_dim = hidden_dim
         self.use_layer_norm = use_layer_norm
+        self.dropout = dropout
         d = input_dim + hidden_dim
         # gate biases start at 1.0
         self.reset = Linear(d, hidden_dim, bias_init=1.0, generator=g)
@@ -48,7 +54,9 @@ class TemporalGRUCell(nn.Module):
 
     def forward(self, x: torch.Tensor, h: Optional[torch.Tensor] = None,
                 time_diff: Optional[torch.Tensor] = None, *,
-                h_is_initial: bool = False) -> torch.Tensor:
+                h_is_initial: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """One GRU step; ``h_is_initial`` marks a state that must not be
         layer-normalised (the zero initial state)."""
         if self.use_layer_norm:
@@ -63,7 +71,7 @@ class TemporalGRUCell(nn.Module):
         r = torch.sigmoid(self.reset(xh))
         z = torch.sigmoid(self.update(xh))
         h_tilde = torch.tanh(self.candidate(torch.cat([x, r * h], dim=-1)))
-        h_new = (1.0 - z) * h + z * h_tilde
+        h_new = dropout((1.0 - z) * h + z * h_tilde, self.dropout, generator)
         return self.ln_out(h_new) if self.use_layer_norm else h_new
 
 
@@ -71,20 +79,25 @@ class TemporalEvolutionLayer(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: int,
                  time_aware: bool = True, bidirectional: bool = False,
                  use_layer_norm: bool = True, residual: bool = True, *,
+                 dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         self.input_dim, self.hidden_dim = input_dim, hidden_dim
+        self.dropout = dropout
         self.time_aware = time_aware
         self.bidirectional = bidirectional
         self.use_layer_norm = use_layer_norm
         self.residual = residual
         cell_dim = hidden_dim // 2 if bidirectional else hidden_dim
         self.forward_cell = TemporalGRUCell(input_dim, cell_dim,
-                                            use_layer_norm, generator=g)
+                                            use_layer_norm, dropout=dropout,
+                                            generator=g)
         if bidirectional:
             self.backward_cell = TemporalGRUCell(input_dim, cell_dim,
-                                                 use_layer_norm, generator=g)
+                                                 use_layer_norm,
+                                                 dropout=dropout,
+                                                 generator=g)
             self.proj = Linear(hidden_dim, hidden_dim, generator=g)
         else:
             self.proj = Linear(cell_dim, hidden_dim, generator=g)
@@ -92,7 +105,7 @@ class TemporalEvolutionLayer(nn.Module):
             self.ln = LayerNorm(hidden_dim)
 
     @staticmethod
-    def _scan_cell(cell: TemporalGRUCell, xs, tds, valid):
+    def _scan_cell(cell: TemporalGRUCell, xs, tds, valid, generator):
         """Run the cell over the time axis of xs [B, T, N, F]; tds
         [B, T, N] are per-step time diffs, valid bool[B, T, N]. A node's
         first valid step starts from the un-normalised zero state."""
@@ -104,7 +117,8 @@ class TemporalEvolutionLayer(nn.Module):
             h_prev = cell.ln_h(h) if cell.use_layer_norm else h
             h_in = torch.where(started[..., None], h_prev,
                                torch.zeros_like(h))
-            h_new = cell(xs[:, t], h_in, tds[:, t], h_is_initial=True)
+            h_new = cell(xs[:, t], h_in, tds[:, t], h_is_initial=True,
+                         generator=generator)
             v_t = valid[:, t, :, None]
             h = torch.where(v_t, h_new, h)
             outs.append(torch.where(v_t, h_new, torch.zeros_like(h_new)))
@@ -114,7 +128,9 @@ class TemporalEvolutionLayer(nn.Module):
     def forward(self, x_seq: torch.Tensor,
                 time_stamps: Optional[torch.Tensor] = None,
                 time_mask: Optional[torch.Tensor] = None,
-                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                node_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         B, T, N, _ = x_seq.shape
         if time_stamps is not None and self.time_aware:
             td = torch.cat([x_seq.new_zeros(B, 1),
@@ -130,7 +146,8 @@ class TemporalEvolutionLayer(nn.Module):
         run_valid = valid if valid is not None else torch.ones(
             B, T, N, dtype=torch.bool, device=x_seq.device)
 
-        h = self._scan_cell(self.forward_cell, x_seq, tds, run_valid)
+        h = self._scan_cell(self.forward_cell, x_seq, tds, run_valid,
+                            generator)
         if self.bidirectional:
             if time_stamps is not None and self.time_aware:
                 tdb = torch.cat([time_stamps[:, 1:] - time_stamps[:, :-1],
@@ -139,10 +156,11 @@ class TemporalEvolutionLayer(nn.Module):
                 tdb = x_seq.new_zeros(B, T)
             tdsb = tdb[:, :, None].expand(B, T, N)
             bwd = self._scan_cell(self.backward_cell, x_seq.flip(1),
-                                  tdsb.flip(1), run_valid.flip(1)).flip(1)
+                                  tdsb.flip(1), run_valid.flip(1),
+                                  generator).flip(1)
             h = torch.cat([h, bwd], dim=-1)
 
-        out = self.proj(h)
+        out = dropout(self.proj(h), self.dropout, generator)
         if self.residual and self.input_dim == self.hidden_dim:
             out = out + x_seq
         if self.use_layer_norm:
@@ -156,11 +174,12 @@ class TemporalSkipConnection(nn.Module):
     def __init__(self, input_dim: int, hidden_dim: Optional[int] = None,
                  window_size: int = 3, aggregation: str = "mean",
                  use_layer_norm: bool = True, apply_activation: bool = True,
-                 residual: bool = True, *,
+                 residual: bool = True, *, dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         h_dim = hidden_dim if hidden_dim is not None else input_dim
+        self.dropout = dropout
         self.window_size = window_size
         self.aggregation = aggregation
         self.use_layer_norm = use_layer_norm
@@ -182,7 +201,9 @@ class TemporalSkipConnection(nn.Module):
         return band
 
     def forward(self, x_seq: torch.Tensor,
-                time_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                time_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """x_seq [B, T, N, F], time_mask bool[B, T]."""
         B, T = x_seq.shape[:2]
         proj = self.in_proj(x_seq)
@@ -190,6 +211,7 @@ class TemporalSkipConnection(nn.Module):
             proj = gelu_exact(proj)
         if self.use_layer_norm:
             proj = self.ln1(proj)
+        proj = dropout(proj, self.dropout, generator)
         band = self._band(T, time_mask, x_seq.device).expand(B, T, T)
         if self.aggregation == "max":
             expanded = torch.where(band[:, :, :, None, None],
@@ -201,7 +223,8 @@ class TemporalSkipConnection(nn.Module):
             if self.aggregation == "mean":
                 op = op / torch.clamp(op.sum(-1, keepdim=True), min=1.0)
             agg = torch.einsum("bts,bsnh->btnh", op, proj)
-        out = self.out_proj(gelu_exact(agg))
+        out = dropout(self.out_proj(gelu_exact(agg)), self.dropout,
+                      generator)
         if self.residual:
             out = out + x_seq
         return self.ln2(out) if self.use_layer_norm else out
@@ -209,11 +232,12 @@ class TemporalSkipConnection(nn.Module):
 
 class TemporalGatingUnit(nn.Module):
     def __init__(self, input_dim: int, use_layer_norm: bool = True,
-                 residual: bool = True, *,
+                 residual: bool = True, *, dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         d = input_dim
+        self.dropout = dropout
         self.use_layer_norm = use_layer_norm
         self.residual = residual
         self.update_gate = Linear(2 * d, d, generator=g)
@@ -226,7 +250,9 @@ class TemporalGatingUnit(nn.Module):
 
     def forward(self, current_feat: torch.Tensor,
                 previous_feat: torch.Tensor,
-                memory_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                memory_bias: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """GRU-style merge of current features with memory;
         ``memory_bias`` in (0, 1) (per node) adds logit(bias) to the
         update gate, 0.5 being neutral."""
@@ -247,7 +273,8 @@ class TemporalGatingUnit(nn.Module):
         reset = torch.sigmoid(self.reset_gate(combined))
         candidate = torch.tanh(self.output_gate(
             torch.cat([current_feat, reset * previous_feat], dim=-1)))
-        output = (1.0 - update) * current_feat + update * candidate
+        output = dropout((1.0 - update) * current_feat + update * candidate,
+                         self.dropout, generator)
         if self.residual:
             output = output + current_feat
         return self.ln_out(output) if self.use_layer_norm else output
@@ -266,27 +293,29 @@ class TemporalPropagation(nn.Module):
                  window_size: int = 3, aggregation: str = "mean",
                  residual: bool = True, memory_decay_factor: float = 0.8,
                  max_inactivity: int = 5, add_timestep_marker: bool = True,
-                 *, generator: Optional[torch.Generator] = None):
+                 *, dropout: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         self.hidden_dim = hidden_dim
+        self.dropout = dropout
         self.use_layer_norm = use_layer_norm
         self.memory_decay_factor = memory_decay_factor
         self.max_inactivity = max_inactivity
         self.add_timestep_marker = add_timestep_marker
         self.evolution = TemporalEvolutionLayer(
             input_dim, hidden_dim, time_aware, bidirectional,
-            use_layer_norm, residual, generator=g)
+            use_layer_norm, residual, dropout=dropout, generator=g)
         self.out_proj = Linear(hidden_dim, hidden_dim, generator=g)
         if use_skip_connection:
             self.skip = TemporalSkipConnection(
                 input_dim=hidden_dim, window_size=window_size,
                 aggregation=aggregation, use_layer_norm=use_layer_norm,
-                residual=residual, generator=g)
+                residual=residual, dropout=dropout, generator=g)
         if use_gating:
             self.gating = TemporalGatingUnit(
                 hidden_dim, use_layer_norm=use_layer_norm,
-                residual=residual, generator=g)
+                residual=residual, dropout=dropout, generator=g)
         if use_layer_norm:
             self.ln = LayerNorm(hidden_dim)
 
@@ -294,7 +323,8 @@ class TemporalPropagation(nn.Module):
                 node_mask: Optional[torch.Tensor] = None,
                 time_stamps: Optional[torch.Tensor] = None,
                 memory: Optional[MemoryState] = None,
-                time_mask: Optional[torch.Tensor] = None
+                time_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> PropagationOutput:
         B, T, N, _ = x_seq.shape
         dev = x_seq.device
@@ -307,9 +337,10 @@ class TemporalPropagation(nn.Module):
             memory = init_memory(N, self.hidden_dim, batch=(B,),
                                  dtype=x_seq.dtype, device=dev)
 
-        evolved = self.evolution(x_seq, time_stamps, time_mask, node_mask)
+        evolved = self.evolution(x_seq, time_stamps, time_mask, node_mask,
+                                 generator)
         if hasattr(self, "skip"):
-            evolved = self.skip(evolved, time_mask)
+            evolved = self.skip(evolved, time_mask, generator)
 
         gating = getattr(self, "gating", None)
         last_seen = torch.zeros(B, N, dtype=torch.int32, device=dev)
@@ -328,7 +359,8 @@ class TemporalPropagation(nn.Module):
                     0.9 - 0.1 * torch.clamp(gapf, max=4.0), min=0.5)
                 bias = torch.where(reappearing, bias_reappear,
                                    torch.full_like(bias_reappear, 0.6))
-                gated = gating(feats, prev, memory_bias=bias)
+                gated = gating(feats, prev, memory_bias=bias,
+                               generator=generator)
                 merged = torch.where((reappearing | continuing)[..., None],
                                      gated, feats)
             else:
@@ -353,7 +385,8 @@ class TemporalPropagation(nn.Module):
             seen = seen | active
             merged_steps.append(merged)
 
-        out = self.out_proj(torch.stack(merged_steps, dim=1))
+        out = dropout(self.out_proj(torch.stack(merged_steps, dim=1)),
+                      self.dropout, generator)
         if self.use_layer_norm:
             out = self.ln(out)
         return PropagationOutput(features=out, memory=memory)

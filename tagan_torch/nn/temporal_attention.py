@@ -16,7 +16,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core.module import LayerNorm, Linear, default_generator, xavier_uniform
+from ..core.module import (LayerNorm, Linear, default_generator, dropout,
+                           xavier_uniform)
 from ..ops.masked import masked_softmax
 from .time_encoding import TimeEncoding
 
@@ -30,6 +31,7 @@ def causal_mask(seq_len: int, device=None) -> torch.Tensor:
 class TemporalAttention(nn.Module):
     def __init__(self, hidden_dim: int, num_heads: int = 8,
                  causal: bool = False, use_layer_norm: bool = True, *,
+                 dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_dim % num_heads != 0:
@@ -40,6 +42,7 @@ class TemporalAttention(nn.Module):
         self.head_dim = hidden_dim // num_heads
         self.causal = causal
         self.use_layer_norm = use_layer_norm
+        self.dropout = dropout
         h = hidden_dim
         self.q = Linear(h, h, generator=g)
         self.k = Linear(h, h, generator=g)
@@ -58,31 +61,35 @@ class TemporalAttention(nn.Module):
         h = self.ln1(x) if self.use_layer_norm else x
         return split(self.q(h)), split(self.k(h)), split(self.v(h))
 
-    def _finish(self, weights, v, identity):
+    def _finish(self, weights, v, identity, generator):
         ctx = (weights @ v).movedim(-3, -2)
         ctx = ctx.reshape(*ctx.shape[:-2], self.hidden_dim)
-        out = self.o(ctx) + identity
+        out = dropout(self.o(ctx), self.dropout, generator) + identity
         return self.ln2(out) if self.use_layer_norm else out
 
     def _scores(self, q, k):
         return q @ k.transpose(-1, -2) / math.sqrt(self.head_dim)
 
-    def _softmax_finish(self, scores, mask, v, x):
+    def _softmax_finish(self, scores, mask, v, x, generator):
         t = x.shape[-2]
         if self.causal:
             cm = causal_mask(t, x.device)
             mask = cm if mask is None else mask & cm
         if mask is not None and mask.dim() == scores.dim() - 1:
             mask = mask[..., None, :, :]
-        return self._finish(masked_softmax(scores, mask), v, x)
+        weights = dropout(masked_softmax(scores, mask), self.dropout,
+                          generator)
+        return self._finish(weights, v, x, generator)
 
     def forward(self, x: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None
+                attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """x [..., T, hidden], attention_mask bool [T, T] or
-        [..., T, T]."""
+        [..., T, T]; dropout from ``generator`` when given."""
         q, k, v = self._qkv(x)
-        return self._softmax_finish(self._scores(q, k), attention_mask, v, x)
+        return self._softmax_finish(self._scores(q, k), attention_mask, v, x,
+                                    generator)
 
 
 class AsymmetricTemporalAttention(TemporalAttention):
@@ -96,10 +103,11 @@ class AsymmetricTemporalAttention(TemporalAttention):
                  time_encoding_type: str = "basis",
                  use_time_masks: bool = True, max_time_diff: float = 10.0,
                  orient_past_high: bool = False, *,
+                 dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         g = default_generator(generator)
         super().__init__(hidden_dim, num_heads, causal, use_layer_norm,
-                         generator=g)
+                         dropout=dropout, generator=g)
         self.time_aware = time_aware
         self.window = asymmetric_window_size
         self.future_discount = future_discount
@@ -117,7 +125,7 @@ class AsymmetricTemporalAttention(TemporalAttention):
             self.time_encoding = TimeEncoding(
                 d_model=hidden_dim, learnable=True,
                 encoding_type=time_encoding_type,
-                num_bases=hidden_dim // 4, generator=g)
+                num_bases=hidden_dim // 4, dropout=dropout, generator=g)
             self.time_q_proj = Linear(hidden_dim, num_heads, generator=g)
         self.asymmetric_kernel = nn.Parameter(self._init_asymmetric_kernel())
 
@@ -145,11 +153,14 @@ class AsymmetricTemporalAttention(TemporalAttention):
     def forward(self, x: torch.Tensor,
                 time_stamps: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                batch_dims: int = 0) -> torch.Tensor:
+                batch_dims: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """x [..., T, hidden], time_stamps [..., T] (broadcast against
         x's leading dims), attention_mask bool [..., T, T]. The first
         ``batch_dims`` dims of ``time_stamps`` are independent sequences
-        for the time encoding's normalisation."""
+        for the time encoding's normalisation. Dropout (time encoding,
+        weights, output) from ``generator`` when given."""
         t = x.shape[-2]
         q, k, v = self._qkv(x)
         scores = self._scores(q, k)                       # [..., H, T, T]
@@ -168,9 +179,10 @@ class AsymmetricTemporalAttention(TemporalAttention):
             mask = mask != 0
         if self.time_aware and time_stamps is not None:
             diffs = time_stamps[..., :, None] - time_stamps[..., None, :]
-            enc = self.time_encoding(diffs, batch_dims=batch_dims)
+            enc = self.time_encoding(diffs, batch_dims=batch_dims,
+                                     generator=generator)
             scores = scores + self.time_q_proj(enc).movedim(-1, -3)
             if self.use_time_masks:
                 tm = self.time_mask(time_stamps)
                 mask = tm if mask is None else mask & tm
-        return self._softmax_finish(scores, mask, v, x)
+        return self._softmax_finish(scores, mask, v, x, generator)

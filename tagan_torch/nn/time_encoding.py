@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core.module import Linear, default_generator
+from ..core.module import Linear, default_generator, dropout
 
 
 def sinusoidal_table(max_len: int, d_model: int) -> torch.Tensor:
@@ -43,6 +43,7 @@ class TimeEncoding(nn.Module):
     def __init__(self, d_model: int, max_len: int = 5000,
                  learnable: bool = False, encoding_type: str = "sinusoidal",
                  num_bases: int = 16, scale: float = 1.0, *,
+                 dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
@@ -50,6 +51,7 @@ class TimeEncoding(nn.Module):
         self.max_len = max_len
         self.encoding_type = encoding_type
         self.scale = scale
+        self.dropout = dropout
         if encoding_type == "basis":
             self.basis_mu = nn.Parameter(torch.linspace(0.0, 1.0, num_bases))
             self.basis_sigma = nn.Parameter(torch.full((num_bases,), 0.1))
@@ -82,9 +84,12 @@ class TimeEncoding(nn.Module):
 
     def forward(self, time_values: Optional[torch.Tensor] = None,
                 x: Optional[torch.Tensor] = None,
-                batch_dims: int = 0) -> torch.Tensor:
+                batch_dims: int = 0,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         """The encoding (shape of ``time_values`` + [d]), or
-        ``x + encoding`` when ``x`` is given."""
+        ``x + encoding`` when ``x`` is given; the encoding is dropped
+        out with ``generator``."""
         if time_values is None and x is None:
             raise ValueError("Either time_values or x must be provided")
         if self.encoding_type == "basis" and time_values is None:
@@ -117,5 +122,5 @@ class TimeEncoding(nn.Module):
             table = self.pe if hasattr(self, "pe") else \
                 self._fixed_table().to(pos.device)
             encoding = table[pos.long()]
-        encoding = encoding * self.scale
+        encoding = dropout(encoding * self.scale, self.dropout, generator)
         return x + encoding if x is not None else encoding

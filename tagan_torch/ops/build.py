@@ -3,9 +3,10 @@
 Each ``tagan_torch/csrc/<name>.cu`` has a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into ``tagan_torch/_build/`` (listed
 in ``.gitignore``) at first use and loaded with ctypes. The library's
-file name carries a hash of the source and the flags, so an edited
-source is rebuilt. Nothing is built when a module is imported: the CPU
-tests import every module, and this machine may have no ``nvcc``.
+file name carries a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header is rebuilt.
+Nothing is built when a module is imported: the CPU tests import every
+module, and this machine may have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, tagged with a hash of the
+    source, every shared header in ``csrc/`` and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
@@ -52,7 +56,7 @@ def build(names: Iterable[str]) -> None:
     """Compile every named source that has no current library, all
     ``nvcc`` processes started together. Raises with the compiler's
     output if one fails."""
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in dict.fromkeys(names) if not library_path(n).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -4,7 +4,7 @@ Counterpart of ``tagan_tpu.serve.Predictor``: sequences in the wire
 format are packed into a shape bucket (``dims``), stacked into batches of
 ``batch_size`` and run through the model with autograd off. PyTorch runs
 eagerly, so there is no compile cache and the final batch is not padded.
-``StreamingSession``, artifact export and checkpoint loading are not
+``StreamingSession``, artifact export and ``from_checkpoint`` are not
 ported yet and raise ``NotImplementedError``.
 """
 
@@ -44,7 +44,8 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "Predictor":
-        raise NotImplementedError("checkpoints are not ported yet")
+        raise NotImplementedError(
+            "Predictor.from_checkpoint is not ported yet")
 
     def _pack(self, sequences) -> List[SnapshotSequence]:
         if isinstance(sequences, SnapshotSequence):

@@ -101,9 +101,16 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         kern(q, k, v, mask.cpu(), jlist, jcount, "dot_product", ones, seed,
              0.0)
-    with pytest.raises(NotImplementedError, match="backward"):
-        kern(q.requires_grad_(), k, v, mask, jlist, jcount, "dot_product",
-             ones, seed, 0.0)
+    lse = torch.zeros(1, 2, 70, device=cuda)
+    ilist, icount = FG._transposed_plan(mask)
+    with pytest.raises(ValueError, match="lse shape"):
+        FG.flash_geometric_bwd_fused_kernel(
+            q, k, v, mask, v, lse[..., :-1], lse, ilist, icount,
+            "dot_product", ones, seed, 0.0, False)
+    with pytest.raises(ValueError, match="float32"):
+        FG.flash_geometric_bwd_dq_kernel(
+            q, k, v, mask, v.double(), lse, lse, jlist, jcount,
+            "dot_product", ones, seed, 0.0, False)
 
 
 @pytest.mark.gpu
@@ -123,6 +130,150 @@ def test_bad_plan_raises_before_launch(field, value, cuda):
         FG.flash_geometric_attention(q, k, v, mask, metric="dot_product",
                                      plan=(jlist, jcount))
     assert FG.flash_geometric_fwd_kernel.launches == before
+
+
+def _bwd_inputs(G, H, N, D, Dv, seed=0):
+    """`_inputs` plus an empty key strip (snapshot 0, keys 64..127), the
+    output cotangent do and an lse cotangent."""
+    q, k, v, mask = _inputs(G, H, N, D, Dv, seed)
+    mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
+    rng = np.random.default_rng(seed + 100)
+    do = torch.from_numpy(rng.standard_normal((G, H, N, Dv)).astype(np.float32))
+    dlse = torch.from_numpy(rng.standard_normal((G, H, N)).astype(np.float32))
+    return q, k, v, mask, do, dlse
+
+
+def _close(got, want):
+    """Max abs error over the largest entry (at least 1): fp32 on both
+    sides, sums in another order (and dq by atomics under B2)."""
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
+
+
+def _backward_vs_plain(cuda, G, H, N, D, Dv, metric, rate, fused, dlse=True):
+    q, k, v, mask, do, dl = (t.to(cuda) for t in _bwd_inputs(G, H, N, D, Dv))
+    if metric in FG._COSINE:
+        q, k = FG._l2_normalize(q), FG._l2_normalize(k)
+    scale = torch.linspace(0.7, 2.0, H, device=cuda)
+    seed = torch.tensor([-7, 12345][:G], dtype=torch.int32, device=cuda)
+    need = metric in FG.SCALED_METRICS
+    dl = dl if dlse else None
+    out, lse = FG.flash_geometric_forward_plain(q, k, v, mask, metric, scale,
+                                                rate, seed)
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    kern = FG.flash_geometric_bwd_fused_kernel if fused \
+        else FG.flash_geometric_bwd_dkv_kernel
+    before = kern.launches
+    got = FG.flash_geometric_attention_bwd(
+        q, k, v, mask, out, lse, do, metric=metric, scale=scale, plan=plan,
+        plan_t=plan_t, seed=seed, dropout_rate=rate, need_dscale=need,
+        fused=fused, dlse=dl)
+    assert kern.launches == before + 1
+    want = FG.flash_geometric_backward_plain(q, k, v, mask, out, lse, do,
+                                             metric, scale, rate, seed, need,
+                                             dl)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _close(g, w) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_backward_kernels_match_plain(metric, rate, fused, cuda):
+    """B2 (fused) and B3a + B3b against the plain backward: N=150, D != Dv,
+    dead rows, an empty query tile and an empty key strip, per-head
+    scales with their gradient, dropout bits from per-snapshot seeds, and
+    an lse cotangent."""
+    _backward_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate, fused)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("D,Dv", [(7, 3), (40, 72), (128, 128)])
+def test_backward_kernel_head_dims(D, Dv, fused, cuda):
+    _backward_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel", 0.1, fused,
+                       dlse=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+def test_autograd_on_gpu_matches_cpu(fused, cuda, monkeypatch):
+    """flash_geometric_attention under autograd: B1 and the picked backward
+    on the card against the plain versions on the CPU, with a learnable
+    scale."""
+    monkeypatch.setattr(FG, "FUSED_BWD", fused)
+    q, k, v, mask, do, _ = _bwd_inputs(2, 2, 130, 16, 16)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        sigma = torch.tensor([0.8, 1.5], device=dev, requires_grad=True)
+        out = FG.flash_geometric_attention(
+            *leaves, mask.to(dev), metric="gaussian_kernel",
+            scale_param=sigma, dropout_rate=0.1,
+            dropout_seed=torch.tensor([3, 4], dtype=torch.int32))
+        (out * do.to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in leaves + [sigma]]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert _close(g, w) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["euclidean", "gaussian_kernel"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_trainer_step_on_gpu_matches_cpu(fused, metric, cuda, monkeypatch):
+    """One TAGANTrainer step of the flash model, card (kernels) vs CPU
+    (plain versions): the loss, every parameter's gradient (learnable
+    sigma included) and the kernels launched (B1 and the picked backward
+    once per layer)."""
+    monkeypatch.setattr(FG, "FUSED_BWD", fused)
+    rng = np.random.default_rng(4)
+    n, e, T = 100, 800, 3
+    seqs = [[{"x": rng.standard_normal((n, 8)).astype(np.float32),
+              "edge_index": rng.integers(0, n, (2, e)),
+              "node_ids": np.arange(n), "timestep": float(t)}
+             for t in range(T)] for _ in range(2)]
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, output_dim=1, loss_type="bce",
+                         dropout=0.0, spatial_backend="flash",
+                         distance_metric=metric,
+                         learnable_distance=metric == "gaussian_kernel")
+    ds = pt.TemporalGraphDataset(seqs, [1.0, 0.0])
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        ds, batch_size=2, dense_adj=False)))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
+        before = {k.name: k.launches for k in FG.KERNELS}
+        loss, _ = tr._loss(batch, labels, smask, True)
+        loss.backward()
+        launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
+        got[dev] = (loss.item(), {n: p.grad.detach().cpu().clone()
+                                  for n, p in model.named_parameters()})
+        tr.optimizer.step()
+        if dev == "cuda":
+            want = {k.name: 0 for k in FG.KERNELS}
+            want[FG.flash_geometric_fwd_kernel.name] = 2
+            for kern in ((FG.flash_geometric_bwd_fused_kernel,) if fused else
+                         (FG.flash_geometric_bwd_dq_kernel,
+                          FG.flash_geometric_bwd_dkv_kernel)):
+                want[kern.name] = 2
+            assert launched == want
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
+    # each gradient against its own largest entry; one that is zero in
+    # exact arithmetic (below 1e-6 of the largest gradient) is fp32 noise
+    # on both sides
+    noise = 1e-6 * max(g.abs().max() for g in got["cpu"][1].values())
+    for name, g in got["cpu"][1].items():
+        card = got["cuda"][1][name]
+        assert torch.isfinite(card).all(), name
+        if g.abs().max() < noise:
+            assert card.abs().max() < noise, name
+        else:
+            assert (card - g).abs().max() <= TOL * g.abs().max(), name
 
 
 @pytest.mark.gpu

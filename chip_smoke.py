@@ -14,6 +14,9 @@ Phases, in order; any failure raises and exits non-zero:
    (2b) the backward kernels, B2 and B3a + B3b, against the plain
    backward on the same grid plus learnable scales (dscale), an empty key
    strip, an lse cotangent and (D, Dv) of (7, 3), (40, 72), (128, 128);
+   (2c) the edge-biased forward kernels B4 (lse1) and B5 (out, lse2)
+   against their plain versions on the same grid with a bias that sums
+   duplicate edges, and the three (D, Dv);
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -21,14 +24,27 @@ Phases, in order; any failure raises and exits non-zero:
    after; the forward alone, and one layer's B1 launch over the request's
    folded snapshots, timed; then the first layer's B1 output on one
    snapshot against the plain version at full width;
+   (3b) the same with edge features (``bench_tgn.py``'s Fe = 4, N(0, 1)
+   features, ``use_edge_features=True``): 3 requests, launch counts set
+   to 0 just before and read just after (B4 and B5 once per layer per
+   request, B1 never); the forward, one layer's B4 and B5 over the
+   folded snapshots, and the first layer's B4 and B5 on one snapshot
+   against the plain versions at full width;
 4. end to end at 1,000 nodes: the same Predictor's probabilities on the
    card (kernels) and on the CPU (plain versions), and the per-node
-   features after the attention layers (``encode_spatial``);
+   features after the attention layers (``encode_spatial``); (4b) the
+   same for the edge-feature model, and its flash form against its csr
+   form on the card (an independent O(E) formula), on distinct edges;
 5. times at the main path's shape (one snapshot, 4 heads, 10,000 nodes,
    head dim 16) with CUDA events, in turns: B1, B2, B3a, B3b and
    B3a + B3b against the plain versions, and ``scaled_dot_product_attention``
    (forward; backward = forward+backward - forward) with the boolean mask
    as the library yardstick; each kernel's bound from this run's inputs;
+   (5b) B4 and B5 at one snapshot of the edge-feature request against
+   their plain versions, compiled ``flex_attention`` at the scaled-dot
+   metric as the library yardstick (held against B4 and B5 at that
+   metric), the csr ``edge_attention`` on the same graph and bias, and
+   their bounds;
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -66,6 +82,10 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 TOL = 1e-4
 
 N_FULL, E_FULL, T_FULL, F_NODE = 10_000, 160_000, 8, 16
+F_EDGE = 4                  # bench_tgn.py's edge_feature_dim
+# the flash model against the csr model: the flash path's norm expansion
+# of squared distances against csr's subtract-then-square
+TOL_CSR = 2e-4
 REQUESTS, SEQS_PER_REQUEST = 3, 2
 N_MID = 1_000
 TRAIN_STEPS = 3
@@ -130,10 +150,11 @@ def phase_build(build, FG):
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                k = re.search(r"(\w+_kernel)(I(?:Li\d+E)+E)?", m.group(1))
+                k = re.search(r"(\w+_kernel)(I(?:L[ib]\d+E)+E)?",
+                              m.group(1))
                 fn = k.group(1) if k else m.group(1)
                 if k and k.group(2):
-                    fn += "<" + ",".join(re.findall(r"Li(\d+)E",
+                    fn += "<" + ",".join(re.findall(r"L[ib](\d+)E",
                                                     k.group(2))) + ">"
             elif "registers" in line or "spill" in line:
                 log(f"[1] {name} {fn}: {line.strip()}")
@@ -271,6 +292,66 @@ def phase_small_bwd(FG):
     return out
 
 
+# -- phase 2c -----------------------------------------------------------------
+
+def biased_small_inputs(FG, G, H, N, D, Dv, metric, seed):
+    """`small_inputs` plus a bias on the mask's pairs built as the model
+    builds it (per-edge values added at (src, dst), every edge given
+    twice, so duplicates add) and two hash seeds per snapshot."""
+    q, k, v, _, _, mask, scale, seeds = small_inputs(FG, G, H, N, D, Dv,
+                                                     metric, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    pairs = mask.nonzero(as_tuple=True)
+    b = torch.randn(pairs[0].shape[0], device=DEV, generator=g)
+    bias = torch.zeros(G, N, N, device=DEV)
+    bias.index_put_(pairs, b, accumulate=True)
+    bias.index_put_(pairs, 0.5 * b, accumulate=True)
+    return q, k, v, mask, bias, scale, FG.biased_seeds(seeds, G, DEV)
+
+
+def biased_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
+    """B4 against the plain lse1, and B5 against the plain second walk
+    on the same lse1; returns the max abs error of out, lse1 and lse2
+    over live rows after checking dead rows exactly."""
+    q, k, v, mask, bias, scale, seeds = biased_small_inputs(
+        FG, G, H, N, D, Dv, metric, seed)
+    jlist, jcount = FG.make_block_plan(mask)
+    lse1 = FG.flash_lse1_kernel(q, k, mask, jlist, jcount, metric, scale)
+    p_lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale)
+    out, lse2 = FG.flash_biased_fwd_kernel(q, k, v, mask, bias, p_lse1,
+                                           jlist, jcount, metric, scale,
+                                           seeds, rate)
+    p_out, p_lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias,
+                                                  p_lse1, metric, scale,
+                                                  rate, seeds)
+    sync()
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    if not all(torch.all(t[dead] == FG.LSE_DEAD)
+               for t in (lse1, p_lse1, lse2, p_lse2)) or \
+            not (torch.all(out[dead] == 0) and torch.all(p_out[dead] == 0)):
+        raise AssertionError(f"{metric} rate={rate}: dead rows differ")
+    err = max((out - p_out)[~dead].abs().max().item(),
+              (lse1 - p_lse1)[~dead].abs().max().item(),
+              (lse2 - p_lse2)[~dead].abs().max().item())
+    if not err <= TOL:
+        raise AssertionError(f"biased {metric} rate={rate} D={D} Dv={Dv}: "
+                             f"max abs err {err} > {TOL}")
+    return err
+
+
+def phase_small_biased(FG):
+    errs = []
+    for metric in FG.MXU_METRICS:
+        for rate in (0.0, 0.1):
+            errs.append(biased_vs_plain(FG, 2, 3, 150, 16, 8, metric, rate))
+    for D, Dv in ((7, 3), (40, 72), (128, 128)):
+        errs.append(biased_vs_plain(FG, 2, 2, 200, D, Dv, "gaussian_kernel",
+                                    0.1, 1))
+    log(f"[2c] B4 and B5 vs plain: {len(errs)} cases, max abs err of out, "
+        f"lse1 and lse2 {max(errs):.3e} (tol {TOL})")
+    return max(errs)
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 def make_sequence(rng, n, e, t_len):
@@ -356,8 +437,9 @@ def phase_serve(tt, FG):
     with torch.inference_mode():
         layer_ms = cuda_ms(lambda: FG.flash_geometric_fwd_kernel(
             *folded[:6], "euclidean", ones, seeds, 0.0), 3)
-        # one snapshot at full width against the plain version
-        args = tuple(t[:1].contiguous() for t in folded)
+        # one snapshot at full width against the plain version; copies,
+        # so that the folded mask is freed when this phase returns
+        args = tuple(t[:1].clone() for t in folded)
         out, lse = FG.flash_geometric_fwd_kernel(
             *args[:6], "euclidean", ones, seeds[:1], 0.0)
         p_out, p_lse = FG.flash_geometric_forward_plain(
@@ -412,6 +494,215 @@ def phase_mid(tt, FG):
         raise AssertionError(f"end-to-end error {err}, per-node error "
                              f"{node_err} > {TOL}")
     return dict(prob_err=err, node_err=node_err)
+
+
+# -- phase 3b -----------------------------------------------------------------
+
+def make_edge_sequence(rng, n, e, t_len, unique=False):
+    """`make_sequence` with N(0, 1) edge features [e, F_EDGE]; with
+    ``unique`` the e edges of a snapshot are distinct and none is a self
+    edge (the flash model adds a duplicate's biases into one pair, the
+    csr model keeps both copies, so they agree only without them)."""
+    seq = []
+    for t in range(t_len):
+        x = rng.standard_normal((n, F_NODE)).astype(np.float32)
+        if unique:
+            pick = rng.choice(n * (n - 1), e, replace=False)
+            src, dst = pick // (n - 1), pick % (n - 1)
+            ei = np.stack([src, dst + (dst >= src)])
+        else:
+            ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+        seq.append({"x": x, "edge_index": ei, "node_ids": np.arange(n),
+                    "edge_attr": rng.standard_normal(
+                        (e, F_EDGE)).astype(np.float32),
+                    "timestep": float(t)})
+    return seq
+
+
+def edge_model_config(tt, backend="flash"):
+    """`model_config` with ``bench_tgn.py``'s edge features."""
+    return tt.TAGANConfig(hidden_dim=64, num_heads=4, num_layers=2,
+                          node_feature_dim=F_NODE, edge_feature_dim=F_EDGE,
+                          use_edge_features=True, output_dim=1,
+                          loss_type="bce", dropout=0.0,
+                          spatial_backend=backend)
+
+
+def layer0_biased_inputs(FG, model, batch, n):
+    """Layer 0's B4/B5 inputs of a packed batch, its B*T snapshots
+    folded: (q, k, v, mask, bias, jlist, jcount), and the csr form of
+    its first snapshot: (edge_q, edge_k, edge_mask, edge_bias) with the
+    self loops appended."""
+    from tagan_torch.nn.model import edge_bias_matrix
+    from tagan_torch.ops.sparse import add_self_loops
+    q, k, v, mask, jlist, jcount, _, _ = layer0_inputs(FG, model, batch, n)
+    G = q.shape[0]
+    with torch.no_grad():
+        b = model.geometric_layers["layer_0"].edge_bias(
+            model.edge_embedding(batch.edge_attr))[..., 0]
+        bias = edge_bias_matrix(b, batch.edge_src, batch.edge_dst,
+                                batch.edge_mask, n).reshape(G, n, n)
+        first = (batch.edge_src[:1, 0], batch.edge_dst[:1, 0],
+                 batch.edge_mask[:1, 0])
+        eq, ek, em = add_self_loops(*first, batch.node_mask[:1, 0])
+        b0 = torch.where(first[2], b[:1, 0], torch.zeros_like(b[:1, 0]))
+        eb = torch.cat([b0, b0.new_zeros(1, n)], -1)
+    return (q, k, v, mask, bias, jlist, jcount), (eq, ek, em, eb)
+
+
+def phase_serve_edge(tt, FG):
+    cfg = edge_model_config(tt)
+    model = tt.TAGAN(cfg, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+    pred = tt.Predictor(model, dims=(T_FULL, N_FULL, E_FULL, F_EDGE),
+                        batch_size=SEQS_PER_REQUEST)
+    rng = np.random.default_rng(4)
+    requests = [[make_edge_sequence(rng, N_FULL, E_FULL, T_FULL)
+                 for _ in range(SEQS_PER_REQUEST)] for _ in range(REQUESTS)]
+    pred.warmup()
+    sync()
+
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reset_counts(FG)
+    lat, probs = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        probs.append(pred.predict_proba(req))   # host copy: synchronises
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launched = counts(FG)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    expected = {k.name: 0 for k in FG.KERNELS}
+    for kern in (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel):
+        expected[kern.name] = cfg.num_layers * REQUESTS
+    probs = np.concatenate(probs)
+    finite = bool(np.isfinite(probs).all())
+    log(f"[3b] edge features (Fe={F_EDGE}): request latency ms "
+        f"{[round(x, 3) for x in lat]}; sequences/s "
+        f"{REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3):.3f}; peak device "
+        f"memory of the requests {peak_gb:.3f} GB above the {held_gb:.3f} GB "
+        f"held before them; kernel launches {launched} (expected "
+        f"{expected}); probabilities finite: {finite}, shape {probs.shape}")
+    if launched != expected:
+        raise AssertionError(f"launches {launched} != {expected}")
+    if not finite or probs.shape != (REQUESTS * SEQS_PER_REQUEST, 1):
+        raise AssertionError("bad probabilities")
+
+    batch = tt.batch_sequences(pred._pack(requests[0])).to(DEV)
+    with torch.inference_mode():
+        model(batch)
+        sync()
+        t0 = time.perf_counter()
+        model(batch)
+        sync()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        # one layer's bias build: the per-edge projection scattered into
+        # the folded [G, N, N] f32 matrix
+        from tagan_torch.nn.model import edge_bias_matrix
+        ea = model.edge_embedding(batch.edge_attr)
+        eb = model.geometric_layers["layer_0"].edge_bias
+        build_ms = cuda_ms(lambda: edge_bias_matrix(
+            eb(ea)[..., 0], batch.edge_src, batch.edge_dst, batch.edge_mask,
+            N_FULL), 3)
+        del ea
+    log(f"[3b] forward on a packed request: {fwd_ms:.3f} ms; one layer's "
+        f"bias build ({tuple(batch.edge_src.shape[:2])} snapshots of "
+        f"[{N_FULL}, {N_FULL}] f32): {build_ms:.3f} ms")
+
+    H = cfg.num_heads
+    folded, graph = layer0_biased_inputs(FG, model, batch, N_FULL)
+    q, k, v, mask, bias, jlist, jcount = folded
+    G = q.shape[0]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
+    # one snapshot, copied (not a view, so that ``del folded`` frees the
+    # rest) outside inference mode: phase 5b hands it to torch.compile
+    args = tuple(t[:1].clone() for t in folded)
+    q1, k1, v1, m1, bias1, jl1, jc1 = args
+    with torch.inference_mode():
+        b4_ms = cuda_ms(lambda: FG.flash_lse1_kernel(
+            q, k, mask, jlist, jcount, "euclidean", ones), 3)
+        lse1 = FG.flash_lse1_kernel(q, k, mask, jlist, jcount, "euclidean",
+                                    ones)
+        b5_ms = cuda_ms(lambda: FG.flash_biased_fwd_kernel(
+            q, k, v, mask, bias, lse1, jlist, jcount, "euclidean", ones,
+            seeds, 0.0), 3)
+        # one snapshot at full width against the plain versions
+        lse1_k = FG.flash_lse1_kernel(q1, k1, m1, jl1, jc1, "euclidean", ones)
+        p_lse1 = FG.flash_lse1_plain(q1, k1, m1, "euclidean", ones)
+        out, lse2 = FG.flash_biased_fwd_kernel(
+            q1, k1, v1, m1, bias1, p_lse1, jl1, jc1, "euclidean", ones,
+            seeds[:1], 0.0)
+        p_out, p_lse2 = FG.flash_biased_forward_plain(
+            q1, k1, v1, m1, bias1, p_lse1, "euclidean", ones, 0.0,
+            seeds[:1])
+        sync()
+    del folded, q, k, v, mask, bias, lse1
+    share = cfg.num_layers * (b4_ms + b5_ms) / fwd_ms
+    log(f"[3b] one layer's launches over the {G} folded snapshots: B4 "
+        f"{b4_ms:.3f} ms, B5 {b5_ms:.3f} ms; {cfg.num_layers} layers = "
+        f"{share:.3f} of the forward")
+    err = max((lse1_k - p_lse1).abs().max().item(),
+              (out - p_out).abs().max().item(),
+              (lse2 - p_lse2).abs().max().item())
+    log(f"[3b] layer-0 B4 and B5 vs plain at N={N_FULL}: max abs err of "
+        f"lse1, out and lse2 {err:.3e}")
+    if not err <= TOL:
+        raise AssertionError(f"full-width biased kernel error {err} > {TOL}")
+    return dict(latency_ms=lat, launches=launched, forward_ms=fwd_ms,
+                peak_memory_gb=peak_gb, held_gb=held_gb,
+                bias_build_ms=build_ms,
+                b4_layer_launch_ms=b4_ms, b5_layer_launch_ms=b5_ms,
+                kernel_share_of_forward=share, full_err=err, args=args,
+                graph=graph,
+                sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
+
+
+# -- phase 4b -----------------------------------------------------------------
+
+def phase_mid_edge(tt, FG):
+    """The edge-feature model at 1,000 nodes: the flash model on the card
+    (B4, B5) against the CPU (plain versions), and against the csr model
+    on the card (an O(E) formula of its own), on distinct non-loop
+    edges."""
+    rng = np.random.default_rng(5)
+    req = [make_edge_sequence(rng, N_MID, 16 * N_MID, T_FULL, unique=True)
+           for _ in range(SEQS_PER_REQUEST)]
+    dims = (T_FULL, N_MID, 16 * N_MID, F_EDGE)
+    got, nodes, launched = {}, {}, {}
+    for side, backend, dev in (("card", "flash", DEV), ("cpu", "flash", "cpu"),
+                               ("csr", "csr", DEV)):
+        model = tt.TAGAN(edge_model_config(tt, backend), device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        pred = tt.Predictor(model, dims=dims)
+        before = counts(FG)
+        got[side] = pred.predict_proba(req)
+        launched[side] = {n: c - before[n] for n, c in counts(FG).items()
+                          if c != before[n]}
+        batch = tt.batch_sequences(pred._pack(req)).to(dev)
+        with torch.inference_mode():
+            nodes[side] = model.encode_spatial(batch).cpu()
+    err = float(np.abs(got["card"] - got["cpu"]).max())
+    node_err = (nodes["card"] - nodes["cpu"]).abs().max().item()
+    csr_err = float(np.abs(got["card"] - got["csr"]).max())
+    csr_node_err = (nodes["card"] - nodes["csr"]).abs().max().item()
+    log(f"[4b] N={N_MID}, edge features: probabilities card vs cpu max abs "
+        f"err {err:.3e}, per-node features {node_err:.3e}; flash vs csr on "
+        f"the card: probabilities {csr_err:.3e}, per-node features "
+        f"{csr_node_err:.3e}; launches {launched}")
+    want = {"card": {FG.flash_lse1_kernel.name: 2,
+                     FG.flash_biased_fwd_kernel.name: 2},
+            "cpu": {}, "csr": {}}
+    if launched != want:
+        raise AssertionError(f"launches {launched} != {want}")
+    if not (err <= TOL and node_err <= TOL):
+        raise AssertionError(f"card vs cpu: {err}, per-node {node_err} > "
+                             f"{TOL}")
+    if not (csr_err <= TOL_CSR and csr_node_err <= TOL_CSR):
+        raise AssertionError(f"flash vs csr: {csr_err}, per-node "
+                             f"{csr_node_err} > {TOL_CSR}")
+    return dict(prob_err=err, node_err=node_err, csr_prob_err=csr_err,
+                csr_node_err=csr_node_err)
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -552,6 +843,137 @@ def backward_times(FG, args, out, lse, pairs):
         r = res[name]
         log(f"[5] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
             f"({r['bytes']} bytes, {r['flops']} flops)")
+    return res
+
+
+# -- phase 5b -----------------------------------------------------------------
+
+def flex_yardstick(q, k, v, mask, bias):
+    """The library's form of B4 and B5 at the scaled-dot metric:
+    ``flex_attention`` (compiled; the port never calls it) under a block
+    mask built from the int8 mask, with return_lse. The identity
+    score_mod gives lse1 (B4); score_mod exp(s - lse1) + bias gives B5's
+    out and lse2. Returns (call_b4, call_b5, lse1, out, lse2)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    G, _, N, _ = q.shape
+    valid = mask != 0
+    block_mask = create_block_mask(lambda b, h, qi, kv: valid[b, qi, kv],
+                                   G, None, N, N, device=DEV)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call_b4():
+        return flex(q, k, v, block_mask=block_mask, return_lse=True)
+
+    lse1 = call_b4()[1]
+
+    def biased(s, b, h, qi, kv):
+        return torch.exp(s - lse1[b, h, qi]) + bias[b, qi, kv]
+
+    def call_b5():
+        return flex(q, k, v, score_mod=biased, block_mask=block_mask,
+                    return_lse=True)
+
+    out, lse2 = call_b5()
+    return call_b4, call_b5, lse1, out, lse2
+
+
+def phase_times_biased(FG, args, graph):
+    """B4 and B5 at one snapshot of the edge-feature request, against
+    their plain versions, with their bounds. The library yardstick is
+    ``flex_attention`` at the scaled-dot metric (B4 and B5 are timed at
+    that metric too, and held against it); the csr ``edge_attention``
+    with the same bias on the same graph is the port's own O(E) form."""
+    from tagan_torch.ops.sparse import edge_attention
+    q, k, v, mask, bias, jlist, jcount = args
+    eq, ek, em, eb = graph
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
+    sdp = "scaled_dot_product"
+    with torch.inference_mode():
+        lse1 = FG.flash_lse1_kernel(q, k, mask, jlist, jcount, "euclidean",
+                                    ones)
+        lse1_sdp = FG.flash_lse1_kernel(q, k, mask, jlist, jcount, sdp, ones)
+
+        def b4(metric="euclidean"):
+            FG.flash_lse1_kernel(q, k, mask, jlist, jcount, metric, ones)
+
+        def b5(metric="euclidean", l1=lse1):
+            FG.flash_biased_fwd_kernel(q, k, v, mask, bias, l1, jlist,
+                                       jcount, metric, ones, seeds, 0.0)
+
+        def plain4():
+            FG.flash_lse1_plain(q, k, mask, "euclidean", ones)
+
+        def plain5():
+            FG.flash_biased_forward_plain(q, k, v, mask, bias, lse1,
+                                          "euclidean", ones, 0.0, seeds)
+
+        def csr():
+            edge_attention("euclidean", q, k, v, eq, ek, em, N, edge_bias=eb)
+
+        p4a, k4a, k4b, p4b = (cuda_ms(plain4, 5), cuda_ms(b4, 20),
+                              cuda_ms(b4, 20), cuda_ms(plain4, 5))
+        p5a, k5a, k5b, p5b = (cuda_ms(plain5, 5), cuda_ms(b5, 20),
+                              cuda_ms(b5, 20), cuda_ms(plain5, 5))
+        csr_ms = [cuda_ms(csr, 20), cuda_ms(csr, 20)]
+        k4_sdp = cuda_ms(lambda: b4(sdp), 20)
+        k5_sdp = cuda_ms(lambda: b5(sdp, lse1_sdp), 20)
+        out_sdp, lse2_sdp = FG.flash_biased_fwd_kernel(
+            q, k, v, mask, bias, lse1_sdp, jlist, jcount, sdp, ones, seeds,
+            0.0)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lib4, lib5, f_lse1, f_out, f_lse2 = flex_yardstick(q, k, v, mask,
+                                                          bias)
+        sync()
+        flex_setup_s = time.perf_counter() - t0
+        lib4_ms, lib5_ms = cuda_ms(lib4, 20), cuda_ms(lib5, 20)
+    # the library's function is the kernels' at this metric: rows with no
+    # valid key excepted (flex gives lse -inf there, the kernels LSE_DEAD)
+    live = (mask != 0).any(-1)[:, None].expand(G, H, N)
+    flex_err = max((f_lse1 - lse1_sdp)[live].abs().max().item(),
+                   (f_lse2 - lse2_sdp)[live].abs().max().item(),
+                   (f_out - out_sdp)[live].abs().max().item())
+    pairs = int((mask != 0).sum().item())
+    plan_b = 4 * (jlist.numel() + jcount.numel())
+    qk = 4 * G * H * N * 2 * D
+    rows = 4 * G * H * N                                  # one [G, H, N]
+    # B5's result depends on the bias only at the valid pairs: 4 bytes each
+    res = {
+        "B4": dict(ms=[k4a, k4b], plain_ms=[p4a, p4b], sdp_ms=k4_sdp,
+                   library_ms=lib4_ms, **bound(
+                       qk + mask.numel() + plan_b + 4 * H + rows,
+                       2 * H * pairs * D)),               # q.k
+        "B5": dict(ms=[k5a, k5b], plain_ms=[p5a, p5b], sdp_ms=k5_sdp,
+                   library_ms=lib5_ms, **bound(
+                       qk + 4 * G * H * N * Dv + mask.numel() + 4 * pairs
+                       + rows + plan_b + 4 * (H + 2 * G)
+                       + 4 * G * H * N * Dv + rows,
+                       2 * H * pairs * (D + Dv))),        # q.k and p.v
+        "csr_ms": csr_ms, "valid_pairs": pairs,
+        "csr_edges": int(em.sum().item()), "flex_err": flex_err,
+        "flex_setup_s": flex_setup_s}
+    log(f"[5b] H={H} N={N} D={D} Dv={Dv}, one snapshot, edge bias: B4 ms "
+        f"{k4a:.4f} {k4b:.4f} (plain {p4a:.4f} {p4b:.4f}); B5 ms {k5a:.4f} "
+        f"{k5b:.4f} (plain {p5a:.4f} {p5b:.4f}); csr edge_attention with "
+        f"the bias on the same graph ({res['csr_edges']} edges) ms "
+        f"{csr_ms[0]:.4f} {csr_ms[1]:.4f}")
+    log(f"[5b] library: compiled flex_attention at the scaled-dot metric "
+        f"(block mask and compile {flex_setup_s:.3f} s): lse1 {lib4_ms:.4f} "
+        f"ms (B4 at the same metric {k4_sdp:.4f}), out and lse2 "
+        f"{lib5_ms:.4f} ms (B5 at the same metric {k5_sdp:.4f}); max abs "
+        f"err against B4/B5 at that metric {flex_err:.3e}")
+    if not flex_err <= TOL:
+        raise AssertionError(f"flex_attention yardstick differs from B4/B5: "
+                             f"{flex_err} > {TOL}")
+    for name in ("B4", "B5"):
+        r = res[name]
+        log(f"[5b] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({r['bytes']} bytes, {r['flops']} flops over {pairs} valid "
+            f"pairs)")
     return res
 
 
@@ -812,9 +1234,14 @@ def main() -> int:
 
     small_err = phase_small(FG)
     small_bwd = phase_small_bwd(FG)
+    small_biased = phase_small_biased(FG)
     serve = phase_serve(tt, FG)
+    serve_edge = phase_serve_edge(tt, FG)
     mid = phase_mid(tt, FG)
+    mid_edge = phase_mid_edge(tt, FG)
     times = phase_times(FG, serve.pop("args"))
+    times_biased = phase_times_biased(FG, serve_edge.pop("args"),
+                                      serve_edge.pop("graph"))
     train = phase_train(tt, FG)
     train_mid = phase_train_mid(tt, FG)
 
@@ -844,12 +1271,25 @@ def main() -> int:
             ("B3a", FG.flash_geometric_bwd_dq_kernel,
              "flash_geometric_bwd.cu", 1455),
             ("B3b", FG.flash_geometric_bwd_dkv_kernel,
-             "flash_geometric_bwd.cu", 1534))]
+             "flash_geometric_bwd.cu", 1534))] + [
+        dict(kernel_record(
+            FG, kern, "flash_biased_fwd.cu", line,
+            serve_edge["launches"][kern.name],
+            max(small_biased, serve_edge["full_err"]),
+            min(times_biased[name]["ms"]), min(times_biased[name]["plain_ms"]),
+            plain_of, times_biased[name], times_biased[name]["library_ms"]),
+             csr_ms=min(times_biased["csr_ms"]))
+        for name, kern, line, plain_of in (
+            ("B4", FG.flash_lse1_kernel, 885, "flash_lse1_plain"),
+            ("B5", FG.flash_biased_fwd_kernel, 944,
+             "flash_biased_forward_plain"))]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, small_err=small_err, small_bwd_err=small_bwd, mid=mid,
-        serve=serve, times=times, train=train, train_mid=train_mid,
+        card=card, small_err=small_err, small_bwd_err=small_bwd,
+        small_biased_err=small_biased, mid=mid, mid_edge=mid_edge,
+        serve=serve, serve_edge=serve_edge, times=times,
+        times_biased=times_biased, train=train, train_mid=train_mid,
         kernels=kernels), indent=1, default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -2,16 +2,19 @@
 
 Counterpart of ``tagan_tpu.nn.geometric``: ``GeometricAttention`` with
 its dense path (``forward``: pre-LN, QKV, metric scores, masked softmax,
-attention @ V, output projection, residual, post-LN) and its flash path
-(``apply_flash``: the same layer through the block-sparse attention in
-``ops.flash_geometric``), and the ``GraphAttention`` adapter.
+the optional edge-bias re-softmax, attention @ V, output projection,
+residual, post-LN), its flash path (``apply_flash``: the same layer
+through the block-sparse attention in ``ops.flash_geometric``) and its
+csr path (``apply_sparse``: over an edge list, ``ops.sparse``), and the
+``GraphAttention`` adapter.
 
 Dropout runs when a ``torch.Generator`` is passed (the training forward)
-and never otherwise. The dense path drops the attention weights and the
-projected output; the flash path drops the attention weights inside the
-kernel (one int32 hash seed per folded snapshot, drawn from the
-generator) and the projected output outside it. Parameter names follow
-the JAX tree.
+and never otherwise. The dense and csr paths drop the attention weights
+(after each softmax when biased) and the projected output; the flash
+path drops the attention weights inside the kernel (one int32 hash seed
+per folded snapshot, drawn from the generator; the biased variant
+derives its second seed from it) and the projected output outside it.
+Parameter names follow the JAX tree.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..core.module import (LayerNorm, Linear, default_generator, dropout,
                            xavier_uniform)
 from ..ops import distances as D
 from ..ops import flash_geometric as FG
+from ..ops import sparse as S
 from ..ops.masked import masked_softmax
 
 INT32_MAX = 2 ** 31 - 1
@@ -104,10 +108,15 @@ class GeometricAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                geometric_bias: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """Dense path. x [..., N, hidden], attention_mask bool
-        [..., N, N]; dropout from ``generator`` when given."""
+        [..., N, N]; dropout from ``generator`` when given.
+        ``geometric_bias`` [..., N, N] (shared by the heads) adds the
+        re-softmax: the dropped weights plus the bias go through a second
+        masked softmax (restricted to the mask, so padding gets no
+        weight) and a second dropout."""
         q, k, v = self._qkv(x)
         sigma, gamma, cov_inv = self._metric_params()
         scores = D.pairwise_scores(self.distance_metric, q, k, sigma=sigma,
@@ -117,26 +126,35 @@ class GeometricAttention(nn.Module):
             mask = mask[..., None, :, :]
         weights = dropout(masked_softmax(scores, mask), self.dropout,
                           generator)
+        if geometric_bias is not None:
+            gb = geometric_bias
+            if gb.dim() == weights.dim() - 1:
+                gb = gb[..., None, :, :]
+            weights = dropout(masked_softmax(weights + gb, mask),
+                              self.dropout, generator)
         return self._finish(weights @ v, x, generator)
 
     def apply_flash(self, x: torch.Tensor, mask: torch.Tensor,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Flash path: the same layer with the attention core in the
         block-sparse kernels (forward and, under autograd, backward).
         x [..., N, hidden], mask [..., N, N] (nonzero where query i
         attends to key j). Manhattan is not written through q.k and takes
         the dense path; mahalanobis runs euclidean in factor space
-        (|Fq - Fk|^2 = maha(q, k; F^T F))."""
+        (|Fq - Fk|^2 = maha(q, k; F^T F)). ``bias`` [..., N, N] is the
+        dense path's ``geometric_bias``, served by the edge-biased
+        kernels (forward only)."""
         plan, plan_t = FG.make_block_plans_from_mask(mask)
-        return self._apply_flash(x, mask, plan, plan_t, generator)
+        return self._apply_flash(x, mask, plan, plan_t, generator, bias)
 
-    def _apply_flash(self, x, mask, plan, plan_t=None, generator=None):
+    def _apply_flash(self, x, mask, plan, plan_t=None, generator=None,
+                     bias=None):
         """`apply_flash` with the walk plans built by the model
         (``flash_structures``), shared by every layer."""
         metric = self.distance_metric
         if metric not in FG.MXU_METRICS and metric != "mahalanobis":
-            return self(x, mask != 0, generator)
+            return self(x, mask != 0, generator, geometric_bias=bias)
         sigma, gamma, _ = self._metric_params()
         scale = sigma if sigma is not None else gamma
         rate, seed = 0.0, None
@@ -155,13 +173,37 @@ class GeometricAttention(nn.Module):
                 k = torch.einsum("...hnd,hrd->...hnr", k, f)
         ctx = FG._flash_attention(q, k, v, mask, metric, scale, plan,
                                   dropout_rate=rate, dropout_seed=seed,
-                                  plan_t=plan_t)
+                                  plan_t=plan_t, bias=bias)
         return self._finish(ctx, x, generator)
+
+    def apply_sparse(self, x: torch.Tensor, edge_q: torch.Tensor,
+                     edge_k: torch.Tensor, edge_mask: torch.Tensor,
+                     node_mask: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     edge_bias: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """csr path: the same layer on an explicit edge list, O(E).
+        x [..., N, hidden], edge arrays [..., E'] with the self loops
+        already appended (`ops.sparse.add_self_loops`), node_mask
+        [..., N]. ``edge_bias`` [..., E'] is the per-edge re-softmax
+        bias (zero on the appended self loops). Inactive nodes keep
+        their input, unlike on the flash path."""
+        q, k, v = self._qkv(x)
+        sigma, gamma, cov_inv = self._metric_params()
+        ctx = S.edge_attention(
+            self.distance_metric, q, k, v, edge_q, edge_k, edge_mask,
+            x.shape[-2], sigma=sigma, gamma=gamma, cov_inv=cov_inv,
+            edge_bias=edge_bias, dropout_rate=self.dropout,
+            generator=generator)
+        out = self._finish(ctx, x, generator)
+        return torch.where(node_mask[..., None], out, x)
 
 
 class GraphAttention(nn.Module):
     """Adapter: graph snapshot -> geometric attention over the edge mask
-    (adjacency + self loops). Edge-feature bias is not ported yet."""
+    (adjacency + self loops). With ``use_edge_bias`` the embedded edge
+    features, projected to one scalar per pair (``edge_bias``), bias the
+    re-softmax."""
 
     def __init__(self, hidden_dim: int, num_heads: int = 8,
                  distance_metric: str = "scaled_dot_product",
@@ -170,15 +212,26 @@ class GraphAttention(nn.Module):
                  use_edge_bias: bool = False, *, dropout: float = 0.1,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if use_edge_bias:
-            raise NotImplementedError(
-                "edge-feature bias needs the edge-biased kernels, which "
-                "are not ported yet")
+        g = default_generator(generator)
         self.attn = GeometricAttention(
             hidden_dim, num_heads, distance_metric, use_layer_norm,
-            learnable_distance, dropout=dropout, generator=generator)
+            learnable_distance, dropout=dropout, generator=g)
+        self.use_edge_bias = use_edge_bias
+        if use_edge_bias:
+            self.edge_bias = Linear(hidden_dim, 1, generator=g)
 
     def forward(self, x: torch.Tensor, adj_mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                edge_features: Optional[torch.Tensor] = None,
+                edge_presence: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        return self.attn(x, adj_mask, generator)
+        """Dense path. ``edge_features`` [..., N, N, hidden] (the embedded
+        edge features scattered per pair); the bias exists only where
+        ``edge_presence`` (default: the mask) marks a real edge, so the
+        implicit self loops carry none."""
+        bias = None
+        if self.use_edge_bias and edge_features is not None:
+            bias = self.edge_bias(edge_features)[..., 0]
+            present = adj_mask if edge_presence is None else edge_presence
+            bias = torch.where(present, bias, torch.zeros_like(bias))
+        return self.attn(x, adj_mask, generator, geometric_bias=bias)

@@ -1,9 +1,9 @@
 """TAGAN model assembly.
 
 Counterpart of ``tagan_tpu.nn.model``: ``TAGAN`` (``encode_spatial``
-for the dense and flash backends, ``forward`` = the JAX ``_forward`` in
-``compat_mode="intended"``, ``compute_loss``, ``infer``) and
-``batched_forward``.
+for the dense, csr and flash backends, with or without edge features;
+``forward`` = the JAX ``_forward`` in ``compat_mode="intended"``,
+``compute_loss``, ``infer``) and ``batched_forward``.
 
 The JAX package runs one sequence per call and ``vmap``s over a batch,
 with ``lax.map`` over snapshots. Here the batch and the snapshots are
@@ -41,6 +41,7 @@ from ..core.memory import MemoryState
 from ..core.module import (LayerNorm, Linear, default_generator,
                            resolve_device)
 from ..ops.flash_geometric import make_block_plans_from_edges
+from ..ops.sparse import add_self_loops, segment_sum
 from .geometric import GraphAttention
 from .heads import AttentionPool, ClassificationModule, temporal_loss
 from .propagation import TemporalPropagation
@@ -57,14 +58,12 @@ class TAGANOutput(NamedTuple):
 def check_in_slice(c: TAGANConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     missing = []
-    if c.spatial_backend not in ("dense", "flash"):
+    if c.spatial_backend not in ("dense", "csr", "flash"):
         missing.append(f"spatial_backend={c.spatial_backend!r}")
     if c.compat_mode != "intended":
         missing.append(f"compat_mode={c.compat_mode!r}")
     if c.temporal_attention_type != "asymmetric":
         missing.append(f"temporal_attention_type={c.temporal_attention_type!r}")
-    if c.use_edge_features and c.edge_feature_dim > 0:
-        missing.append("use_edge_features (edge-biased kernels)")
     if c.bf16_matmul:
         missing.append("bf16_matmul")
     if missing:
@@ -95,6 +94,27 @@ def flash_structures(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     return mask, plan, plan_t
 
 
+def _scatter_pairs(values: torch.Tensor, edge_src: torch.Tensor,
+                   edge_dst: torch.Tensor, n: int) -> torch.Tensor:
+    """values [..., E, *F] added into [..., n, n, *F] at (src, dst) per
+    leading index: duplicate edges add up."""
+    out = segment_sum(values, edge_src.long() * n + edge_dst.long(), n * n)
+    return out.reshape(edge_src.shape[:-1] + (n, n)
+                       + values.shape[edge_src.dim():])
+
+
+def edge_bias_matrix(b: torch.Tensor, edge_src: torch.Tensor,
+                     edge_dst: torch.Tensor, edge_mask: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """The flash backend's per-layer bias f32[..., n, n]: the per-edge
+    scalar ``b`` [..., E] of the valid edges added at (src, dst). The
+    mask sets a duplicate edge's pair once, so that pair gets the sum of
+    its copies' biases; the diagonal is 0 unless a self edge is given.
+    Built just before the layer's launch and freed after it."""
+    b = torch.where(edge_mask, b, torch.zeros_like(b)).to(torch.float32)
+    return _scatter_pairs(b, edge_src, edge_dst, n)
+
+
 class TAGAN(nn.Module):
     def __init__(self, config: TAGANConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -104,6 +124,7 @@ class TAGAN(nn.Module):
         g = default_generator(generator)
         c = self.config = config
         h = c.hidden_dim
+        self.edge_bias_on = c.use_edge_features and c.edge_feature_dim > 0
         self.node_embedding = Linear(c.node_feature_dim, h, generator=g)
         if c.node_pooling == "attention":
             self.node_pool = AttentionPool(h, score_bias=True, generator=g)
@@ -112,7 +133,8 @@ class TAGAN(nn.Module):
         self.geometric_layers = nn.ModuleDict({
             f"layer_{i}": GraphAttention(
                 h, c.num_heads, c.effective_distance_metric,
-                c.use_layer_norm, c.learnable_distance, dropout=c.dropout,
+                c.use_layer_norm, c.learnable_distance,
+                use_edge_bias=self.edge_bias_on, dropout=c.dropout,
                 generator=g)
             for i in range(c.num_layers)})
         self.temporal_propagation = TemporalPropagation(
@@ -148,24 +170,53 @@ class TAGAN(nn.Module):
                        ) -> torch.Tensor:
         """Node embedding + geometric attention per snapshot of a batched
         sequence; [B, T, N, hidden]. Dropout from ``generator`` when
-        given."""
+        given. With edge features, each layer's bias comes from the
+        embedded ``edge_attr``: scattered per pair over hidden on the
+        dense backend, projected per edge to a scalar on csr and flash."""
         c = self.config
         x = self.node_embedding(seq.x)
         skip = x
         layers = list(self.geometric_layers.values())
+        ea = self.edge_embedding(seq.edge_attr) if self.edge_bias_on else None
         if c.spatial_backend == "flash":
             mask, plan, plan_t = flash_structures(
                 seq.edge_src, seq.edge_dst, seq.edge_mask, seq.node_mask,
                 seq.max_nodes)
 
             def attend(layer, xx):
+                bias = None if ea is None else edge_bias_matrix(
+                    layer.edge_bias(ea)[..., 0], seq.edge_src, seq.edge_dst,
+                    seq.edge_mask, seq.max_nodes)
                 return layer.attn._apply_flash(xx, mask, plan, plan_t,
-                                               generator)
-        else:
-            adj = seq.attention_mask()
+                                               generator, bias)
+        elif c.spatial_backend == "csr":
+            eq, ek, em = add_self_loops(seq.edge_src, seq.edge_dst,
+                                        seq.edge_mask, seq.node_mask)
 
             def attend(layer, xx):
-                return layer(xx, adj, generator)
+                eb = None
+                if ea is not None:
+                    # the appended self loops carry zero bias, as the
+                    # dense scatter leaves the diagonal without an edge
+                    b = layer.edge_bias(ea)[..., 0]
+                    b = torch.where(seq.edge_mask, b, torch.zeros_like(b))
+                    eb = torch.cat(
+                        [b, b.new_zeros(b.shape[:-1] + (seq.max_nodes,))], -1)
+                return layer.attn.apply_sparse(xx, eq, ek, em, seq.node_mask,
+                                               generator, eb)
+        else:
+            adj = seq.attention_mask()
+            feats = None
+            if ea is not None:
+                # [B, T, N, N, hidden]: the embedded features of the valid
+                # edges added per (src, dst) pair
+                feats = _scatter_pairs(ea * seq.edge_mask[..., None],
+                                       seq.edge_src, seq.edge_dst,
+                                       seq.max_nodes)
+
+            def attend(layer, xx):
+                return layer(xx, adj, generator, feats,
+                             None if feats is None else seq.adj)
         for i, layer in enumerate(layers):
             x = attend(layer, x)
             if i == 0:

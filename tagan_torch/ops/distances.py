@@ -8,7 +8,8 @@ norm expansion the flash kernel uses), cosine guards zero norms with
 1e-8 and clips to [-1, 1], euclidean and mahalanobis add 1e-8 inside
 the square root. ``pairwise_scores`` negates the distance-like metrics
 into similarities. Per-head parameters (sigma/gamma ``[H]``, cov_inv
-``[H, D, D]``) broadcast over the head axis.
+``[H, D, D]``) broadcast over the head axis. ``edgewise_scores`` is the
+same arithmetic on pairs gathered per edge (the csr path).
 """
 
 from __future__ import annotations
@@ -127,4 +128,54 @@ def pairwise_scores(
         return pairwise_rbf_kernel(q, k, 1.0 if gamma is None else gamma)
     if metric == "mahalanobis":
         return -pairwise_mahalanobis(q, k, cov_inv)
+    raise ValueError(f"Unknown distance metric: {metric}")
+
+
+def _edge_norm(x):
+    n = torch.linalg.vector_norm(x, dim=-1)
+    return torch.where(n == 0, torch.full_like(n, 1e-8), n)
+
+
+def _edge_per_head(s: Scale, like: torch.Tensor):
+    s = torch.as_tensor(s, dtype=like.dtype, device=like.device)
+    return s[..., :, None] if s.dim() > 0 else s
+
+
+def edgewise_scores(
+    metric: str,
+    q_e: torch.Tensor,
+    k_e: torch.Tensor,
+    *,
+    sigma: Optional[torch.Tensor] = None,
+    gamma: Optional[torch.Tensor] = None,
+    cov_inv: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Scores of gathered pairs (the csr path): q_e, k_e
+    ``[..., H, E, D]`` -> ``[..., H, E]``, with `pairwise_scores`'s
+    numerics per pair."""
+    if metric == "scaled_dot_product":
+        return (q_e * k_e).sum(-1) / math.sqrt(q_e.shape[-1])
+    if metric == "dot_product":
+        return (q_e * k_e).sum(-1)
+    if metric in ("cosine_similarity", "cosine_distance"):
+        sim = ((q_e * k_e).sum(-1) / (_edge_norm(q_e) * _edge_norm(k_e))
+               ).clamp(-1.0, 1.0)
+        return sim if metric == "cosine_similarity" else -(1.0 - sim)
+    diff = q_e - k_e
+    if metric == "euclidean":
+        return -torch.sqrt(diff.square().sum(-1) + 1e-8)
+    if metric == "squared_euclidean":
+        return -diff.square().sum(-1)
+    if metric == "manhattan":
+        return -diff.abs().sum(-1)
+    if metric == "gaussian_kernel":
+        s = _edge_per_head(1.0 if sigma is None else sigma, q_e)
+        return torch.exp(-diff.square().sum(-1) / (2.0 * s ** 2))
+    if metric == "rbf_kernel":
+        g = _edge_per_head(1.0 if gamma is None else gamma, q_e)
+        return torch.exp(-g * diff.square().sum(-1))
+    if metric == "mahalanobis":
+        m = diff.square().sum(-1) if cov_inv is None \
+            else ((diff @ cov_inv) * diff).sum(-1)
+        return -torch.sqrt(m + 1e-8)
     raise ValueError(f"Unknown distance metric: {metric}")

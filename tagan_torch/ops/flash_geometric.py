@@ -9,6 +9,12 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B2   _flash_bwd_fused_kernel  csrc/flash_geometric_bwd_fused.cu
     B3a  _flash_bwd_dq_kernel     csrc/flash_geometric_bwd.cu
     B3b  _flash_bwd_dkv_kernel    csrc/flash_geometric_bwd.cu
+    B4   _lse1_kernel             csrc/flash_biased_fwd.cu
+    B5   _flash_biased_kernel     csrc/flash_biased_fwd.cu
+
+B4 and B5 are the forward of the edge-biased variant (``bias=``), the
+dense path's double softmax; its backward (B6, B7a, B7b) is not ported
+yet and raises.
 
 Supported metrics are those written through the cross term q.k and the
 row norms (``MXU_METRICS``); cosine metrics run on L2-normalised q/k;
@@ -258,9 +264,7 @@ def flash_geometric_forward_plain(
     outs, lses = [], []
     for r0 in range(0, N, _ROW_CHUNK):
         r1 = min(N, r0 + _ROW_CHUNK)
-        qk, sq = _qk_sq(metric, q[:, :, r0:r1], k)
-        s = _scores_from(metric, qk, sq, sc, D)
-        valid = (mask[:, None, r0:r1, :] != 0)
+        s, valid = _chunk_scores(metric, q, k, mask, sc, r0, r1)
         s = torch.where(valid, s, torch.full_like(s, NEG_INF))
         m = s.amax(-1, keepdim=True)
         p = torch.exp(s - m)
@@ -284,6 +288,84 @@ def _keep_rows(seed, H, r0, r1, N, dev) -> torch.Tensor:
                       torch.arange(H, device=dev).reshape(1, H, 1, 1),
                       torch.arange(r0, r1, device=dev).reshape(1, 1, -1, 1),
                       torch.arange(N, device=dev).reshape(1, 1, 1, -1))
+
+
+def _chunk_scores(metric, q, k, mask, sc, r0, r1):
+    """(scores [G, H, r1 - r0, N], valid) of query rows r0..r1."""
+    qk, sq = _qk_sq(metric, q[:, :, r0:r1], k)
+    s = _scores_from(metric, qk, sq, sc, q.shape[-1])
+    return s, mask[:, None, r0:r1, :] != 0
+
+
+def flash_lse1_plain(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+                     metric: str, scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """What B4 computes: lse1 f32[G, H, N], the logsumexp of the masked
+    scores (the first softmax of the edge-biased variant), ``LSE_DEAD``
+    on rows with no valid key. Shapes as in
+    `flash_geometric_forward_plain`."""
+    G, H, N, _ = q.shape
+    if scale is None:
+        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    sc = scale.reshape(1, H, 1, 1)
+    lses = []
+    for r0 in range(0, N, _ROW_CHUNK):
+        s, valid = _chunk_scores(metric, q, k, mask, sc, r0,
+                                 min(N, r0 + _ROW_CHUNK))
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m = s.amax(-1)
+        dead = m <= NEG_INF
+        l = torch.exp(s - m[..., None]).sum(-1)
+        lses.append(torch.where(dead, torch.full_like(m, LSE_DEAD),
+                                m + torch.log(torch.where(dead,
+                                                          torch.ones_like(l),
+                                                          l))))
+    return torch.cat(lses, dim=2)
+
+
+def flash_biased_forward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    bias: torch.Tensor, lse1: torch.Tensor, metric: str,
+    scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+    seeds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What B5 computes, given lse1 (B4's output, or a logsumexp over a
+    superset of the mask's pairs): per valid pair w1 = exp(s - lse1),
+    w1d = drop1(w1), z = w1d + bias; out = drop2(softmax_j z) @ v with
+    the un-dropped denominator, and lse2 = logsumexp_j z. A dropped w1 is
+    not a masked pair: it enters the second softmax as z = bias. bias
+    f32[G, N, N] (shared by the heads), lse1 [G, H, N], seeds i32[G, 2]
+    (drop1's seed, drop2's seed) -> (out [G, H, N, Dv], lse2 [G, H, N]),
+    zero and ``LSE_DEAD`` on rows with no valid key."""
+    G, H, N, _ = q.shape
+    if scale is None:
+        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    sc = scale.reshape(1, H, 1, 1)
+    thresh = _keep_thresh(dropout_rate)
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    outs, lses = [], []
+    for r0 in range(0, N, _ROW_CHUNK):
+        r1 = min(N, r0 + _ROW_CHUNK)
+        s, valid = _chunk_scores(metric, q, k, mask, sc, r0, r1)
+        neg = torch.full_like(s, NEG_INF)
+        w1 = torch.exp(torch.where(valid, s - lse1[:, :, r0:r1, None], neg))
+        if dropout_rate > 0.0:
+            keep1 = _keep_rows(seeds[:, 0], H, r0, r1, N, q.device) < thresh
+            w1 = torch.where(keep1, w1 * inv_keep, torch.zeros_like(w1))
+        z = torch.where(valid, w1 + bias[:, None, r0:r1, :], neg)
+        m = z.amax(-1, keepdim=True)
+        p = torch.exp(z - m)
+        l = p.sum(-1, keepdim=True)
+        if dropout_rate > 0.0:
+            keep2 = _keep_rows(seeds[:, 1], H, r0, r1, N, q.device) < thresh
+            p = torch.where(keep2, p * inv_keep, torch.zeros_like(p))
+        acc = p @ v
+        dead = m <= NEG_INF
+        safe = torch.where(dead, torch.ones_like(l), l)
+        outs.append(torch.where(dead, torch.zeros_like(acc), acc / safe))
+        lses.append(torch.where(dead, torch.full_like(m, LSE_DEAD),
+                                m + torch.log(safe))[..., 0])
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
 def _clip_grad(x: torch.Tensor) -> torch.Tensor:
@@ -587,12 +669,88 @@ class _FlashBwdFusedKernel(_FlashBackwardKernel):
         return dq, dk, dv, (part.sum((0, 2)) if need_dscale else None)
 
 
+def _check_walk(name, dev, q, mask, jlist, jcount):
+    """The checks B4 and B5 share: q [G, H, N, D] fp32 and the forward
+    walk at the kernel's tile; returns (G, H, N, D, n_i, W)."""
+    G, H, N, D = q.shape
+    n_i = -(-N // BLOCK_M)
+    _check_args(name, dev, (
+        ("q", q, torch.float32, (G, H, N, D)),
+        ("mask", mask, None, (G, N, N)),
+        ("jlist", jlist, torch.int32, (G, n_i, jlist.shape[-1])),
+        ("jcount", jcount, torch.int32, (G, n_i))))
+    return G, H, N, D, n_i, jlist.shape[-1]
+
+
+class _FlashLse1Kernel(_CudaKernel):
+    """B4, ``tagan_flash_lse1``: lse1 [G, H, N] of the forward walk."""
+    name = "flash_lse1"
+    source = "flash_biased_fwd"
+    symbol = "tagan_flash_lse1"
+    argtypes = (_P,) * 7 + (_I,) * 7 + (_F,)
+
+    def __call__(self, q, k, mask, jlist, jcount, metric: str,
+                 scale: torch.Tensor) -> torch.Tensor:
+        dev = self._device_of(self.name, q)
+        G, H, N, D, n_i, W = _check_walk(self.name, dev, q, mask, jlist,
+                                         jcount)
+        _check_args(self.name, dev, (
+            ("k", k, torch.float32, (G, H, N, D)),
+            ("scale", scale, torch.float32, (H,))))
+        self._check_dims(self.name, mask, D, 1)
+        lse1 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        self._launch(dev, q.data_ptr(), k.data_ptr(), mask.data_ptr(),
+                     jlist.data_ptr(), jcount.data_ptr(), scale.data_ptr(),
+                     lse1.data_ptr(), G, H, N, D, n_i, W,
+                     MXU_METRICS.index(metric), math.sqrt(D))
+        return lse1
+
+
+class _FlashBiasedKernel(_CudaKernel):
+    """B5, ``tagan_flash_biased_fwd``: (out, lse2) of the second softmax
+    over z = drop1(exp(s - lse1)) + bias, on the forward walk; lse1 is
+    an input."""
+    name = "flash_biased_fwd"
+    source = "flash_biased_fwd"
+    symbol = "tagan_flash_biased_fwd"
+    argtypes = (_P,) * 12 + (_I,) * 8 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, mask, bias, lse1, jlist, jcount,
+                 metric: str, scale: torch.Tensor, seeds: torch.Tensor,
+                 dropout_rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = self._device_of(self.name, q)
+        G, H, N, D, n_i, W = _check_walk(self.name, dev, q, mask, jlist,
+                                         jcount)
+        Dv = v.shape[-1]
+        _check_args(self.name, dev, (
+            ("k", k, torch.float32, (G, H, N, D)),
+            ("v", v, torch.float32, (G, H, N, Dv)),
+            ("bias", bias, torch.float32, (G, N, N)),
+            ("lse1", lse1, torch.float32, (G, H, N)),
+            ("scale", scale, torch.float32, (H,)),
+            ("seeds", seeds, torch.int32, (G, 2))))
+        self._check_dims(self.name, mask, D, Dv)
+        out = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
+        lse2 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        self._launch(
+            dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            bias.data_ptr(), lse1.data_ptr(), jlist.data_ptr(),
+            jcount.data_ptr(), scale.data_ptr(), seeds.data_ptr(),
+            out.data_ptr(), lse2.data_ptr(), G, H, N, D, Dv, n_i, W,
+            MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate))
+        return out, lse2
+
+
 flash_geometric_fwd_kernel = _FlashForwardKernel()
 flash_geometric_bwd_fused_kernel = _FlashBwdFusedKernel()
 flash_geometric_bwd_dq_kernel = _FlashBwdDqKernel()
 flash_geometric_bwd_dkv_kernel = _FlashBwdDkvKernel()
+flash_lse1_kernel = _FlashLse1Kernel()
+flash_biased_fwd_kernel = _FlashBiasedKernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
-           flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel)
+           flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
+           flash_lse1_kernel, flash_biased_fwd_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -749,12 +907,92 @@ class _FlashAttention(torch.autograd.Function):
         return (dq, dk, dv, dscale) + (None,) * 8
 
 
+def _biased_forward(q, k, v, mask, bias, jlist, jcount, metric, scale,
+                    dropout_rate, seeds):
+    """(out, lse1, lse2) of folded inputs: B4 then B5 for CUDA tensors,
+    the plain versions for CPU tensors; trusts the plan."""
+    if q.device.type == "cpu":
+        lse1 = flash_lse1_plain(q, k, mask, metric, scale)
+        out, lse2 = flash_biased_forward_plain(q, k, v, mask, bias, lse1,
+                                               metric, scale, dropout_rate,
+                                               seeds)
+        return out, lse1, lse2
+    lse1 = flash_lse1_kernel(q, k, mask, jlist, jcount, metric, scale)
+    out, lse2 = flash_biased_fwd_kernel(q, k, v, mask, bias, lse1, jlist,
+                                        jcount, metric, scale, seeds,
+                                        dropout_rate)
+    return out, lse1, lse2
+
+
+def _fold_seed(dropout_seed, G: int, device) -> torch.Tensor:
+    """i32[G]: one hash seed per folded snapshot from one int32 or one
+    per snapshot; zeros without a seed."""
+    if dropout_seed is None:
+        return torch.zeros(G, dtype=torch.int32, device=device)
+    s = torch.as_tensor(dropout_seed, dtype=torch.int32,
+                        device=device).reshape(-1)
+    return (s.expand(G) if s.numel() == 1 else s.reshape(G)).contiguous()
+
+
+def biased_seeds(dropout_seed, G: int, device) -> torch.Tensor:
+    """The edge-biased variant's two hash seeds per folded snapshot,
+    i32[G, 2] (the TPU package's rule): zeros without a seed, else the
+    snapshot's seed s for the first dropout and s ^ 0x5BD1E995 for the
+    second. ``dropout_seed`` is one int32 or one per snapshot."""
+    if dropout_seed is None:
+        return torch.zeros((G, 2), dtype=torch.int32, device=device)
+    s = _fold_seed(dropout_seed, G, device)
+    return torch.stack([s, s ^ 0x5BD1E995], dim=-1).contiguous()
+
+
+def flash_biased_fwd(q, k, v, mask, bias, jlist, jcount, *, metric: str,
+                     scale: Optional[torch.Tensor] = None,
+                     dropout_rate: float = 0.0,
+                     seeds: Optional[torch.Tensor] = None):
+    """(out, lse1, lse2) of the batched edge-biased forward (the TPU
+    package's ``_flash_biased_forward(..., return_lse=True)``): B4 then
+    B5, or their plain versions for CPU tensors. bias f32[G, N, N],
+    seeds i32[G, 2] (`biased_seeds`); the other shapes and the plan
+    check as in `flash_geometric_fwd`."""
+    check_plan(jlist, jcount, q.shape[2])
+    scale, _ = _defaults(q, scale, None)
+    if seeds is None:
+        seeds = biased_seeds(None, q.shape[0], q.device)
+    return _biased_forward(q, k, v, mask, bias, jlist, jcount, metric, scale,
+                           dropout_rate, seeds)
+
+
+class _FlashBiasedAttention(torch.autograd.Function):
+    """The edge-biased forward of folded inputs (the forward half of the
+    TPU package's ``_flash_diff_biased``): B4 then B5, or the plain
+    versions on the CPU. It has no backward yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, bias, mask, jlist, jcount, seeds,
+                metric, dropout_rate):
+        out, lse1, lse2 = _biased_forward(q, k, v, mask, bias, jlist, jcount,
+                                          metric, scale, dropout_rate, seeds)
+        ctx.save_for_backward(lse1, lse2)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        # autograd of the plain forward is no substitute: it is a backward
+        # the TPU package does not have, and it differs from the kernels'
+        # chain at the clamp max(sq, 0)
+        raise NotImplementedError(
+            "the backward of the edge-biased flash attention needs kernels "
+            "B6 (_biased_bwd_pre_kernel), B7a and B7b (_biased_bwd_dq_kernel"
+            ", _biased_bwd_dkv_kernel), which are not ported yet; train "
+            "edge-feature models on the 'dense' or 'csr' backend")
+
+
 def flash_geometric_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     metric: str = "scaled_dot_product",
     scale_param: Optional[torch.Tensor] = None, plan=None, plan_t=None,
     dropout_rate: float = 0.0, dropout_seed: Optional[torch.Tensor] = None,
-    return_lse: bool = False,
+    return_lse: bool = False, bias: Optional[torch.Tensor] = None,
 ):
     """Differentiable edge-masked attention (the TPU package's
     ``flash_geometric_attention``): the forward kernel B1 and, under
@@ -769,7 +1007,15 @@ def flash_geometric_attention(
     Returns out [..., H, N, Dv] (zero on rows with no valid key) and,
     with ``return_lse``, lse [..., H, N] (``LSE_DEAD`` on those rows).
     ``scale_param`` (gaussian sigma, rbf gamma) gets a gradient when it
-    requires one."""
+    requires one.
+
+    ``bias`` [..., N, N] (shared by the heads) takes the edge-biased
+    variant, the dense path's double softmax: out = drop2(softmax(
+    drop1(softmax(s)) + bias)) @ v over the mask, through kernels B4 and
+    B5, with the two dropout seeds of `biased_seeds`. It returns out
+    only and has no backward yet."""
+    if bias is not None and return_lse:
+        raise ValueError("return_lse is not available with bias")
     if plan is None:
         plan, plan_t = make_block_plans_from_mask(mask)
     else:
@@ -777,12 +1023,13 @@ def flash_geometric_attention(
         if plan_t is not None:
             check_plan(*plan_t, q.shape[-2])
     return _flash_attention(q, k, v, mask, metric, scale_param, plan,
-                            dropout_rate, dropout_seed, return_lse, plan_t)
+                            dropout_rate, dropout_seed, return_lse, plan_t,
+                            bias)
 
 
 def _flash_attention(q, k, v, mask, metric, scale_param, plan,
                      dropout_rate=0.0, dropout_seed=None, return_lse=False,
-                     plan_t=None):
+                     plan_t=None, bias=None):
     """`flash_geometric_attention` with plans from the builders above,
     taken unchecked (the model's path). The cosine normalisation and the
     folding of leading dims stay outside the autograd Function, where
@@ -798,11 +1045,6 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
     G = math.prod(lead)
     if metric in _COSINE:
         q, k = _l2_normalize(q), _l2_normalize(k)
-    seed = torch.zeros(G, dtype=torch.int32, device=q.device)
-    if dropout_seed is not None:
-        s = torch.as_tensor(dropout_seed, dtype=torch.int32,
-                            device=q.device).reshape(-1)
-        seed = (s.expand(G) if s.numel() == 1 else s.reshape(G)).contiguous()
     scale = torch.ones(H, dtype=torch.float32, device=q.device) \
         if scale_param is None else scale_param.to(torch.float32).contiguous()
 
@@ -813,11 +1055,19 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
         return (lst.reshape(G, *lst.shape[-2:]).to(torch.int32).contiguous(),
                 cnt.reshape(G, -1).to(torch.int32).contiguous())
 
+    qf, kf = (t.reshape(G, H, N, D).contiguous() for t in (q, k))
+    vf = v.reshape(G, H, N, Dv).contiguous()
+    mf = mask.reshape(G, N, N).contiguous()
+    if bias is not None:
+        out = _FlashBiasedAttention.apply(
+            qf, kf, vf, scale,
+            bias.to(torch.float32).reshape(G, N, N).contiguous(), mf,
+            *fold_plan(plan), biased_seeds(dropout_seed, G, q.device),
+            metric, dropout_rate)
+        return out.reshape(*lead, H, N, Dv)
     out, lse = _FlashAttention.apply(
-        q.reshape(G, H, N, D).contiguous(), k.reshape(G, H, N, D).contiguous(),
-        v.reshape(G, H, N, Dv).contiguous(), scale,
-        mask.reshape(G, N, N).contiguous(), *fold_plan(plan),
-        *fold_plan(plan_t), seed, metric, dropout_rate)
+        qf, kf, vf, scale, mf, *fold_plan(plan), *fold_plan(plan_t),
+        _fold_seed(dropout_seed, G, q.device), metric, dropout_rate)
     out = out.reshape(*lead, H, N, Dv)
     if return_lse:
         return out, lse.reshape(*lead, H, N)

@@ -299,3 +299,122 @@ def test_predictor_on_gpu_matches_cpu(cuda):
         assert launched == (2 * cfg.num_layers if dev == "cuda" else 0)
     assert np.isfinite(got["cuda"]).all() and got["cuda"].shape == (3, 1)
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=0, atol=TOL)
+
+
+def _biased_inputs(G, H, N, D, Dv, metric, seed=0):
+    """`_inputs` with cosine q/k normalised, a per-head scale, two hash
+    seeds per snapshot and a bias on the mask's pairs built as the model
+    builds it: per-edge values added at (src, dst), with every edge
+    given twice (duplicates add)."""
+    q, k, v, mask = _inputs(G, H, N, D, Dv, seed)
+    if metric in FG._COSINE:
+        q, k = FG._l2_normalize(q), FG._l2_normalize(k)
+    rng = np.random.default_rng(seed + 200)
+    g, src, dst = (torch.from_numpy(a) for a in np.nonzero(mask.numpy()))
+    b = torch.from_numpy(rng.standard_normal(len(g)).astype(np.float32))
+    bias = torch.zeros(G, N, N)
+    bias.index_put_((g, src, dst), b, accumulate=True)
+    bias.index_put_((g, src, dst), 0.5 * b, accumulate=True)
+    scale = torch.linspace(0.7, 2.0, H)
+    seeds = FG.biased_seeds(torch.tensor([-7, 12345, 3][:G],
+                                         dtype=torch.int32), G, "cpu")
+    return q, k, v, mask, bias, scale, seeds
+
+
+def _biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
+    """B4 against the plain lse1 and B5 against the plain second walk on
+    the same lse1: out, lse1 and lse2 within TOL, dead rows exactly, one
+    launch each."""
+    args = [t.to(cuda) for t in _biased_inputs(G, H, N, D, Dv, metric, seed)]
+    q, k, v, mask, bias, scale, seeds = args
+    jlist, jcount = FG.make_block_plan(mask)
+    before = [kern.launches for kern in (FG.flash_lse1_kernel,
+                                         FG.flash_biased_fwd_kernel)]
+    lse1 = FG.flash_lse1_kernel(q, k, mask, jlist, jcount, metric, scale)
+    p_lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale)
+    out, lse2 = FG.flash_biased_fwd_kernel(q, k, v, mask, bias, p_lse1,
+                                           jlist, jcount, metric, scale,
+                                           seeds, rate)
+    p_out, p_lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias,
+                                                  p_lse1, metric, scale,
+                                                  rate, seeds)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in (FG.flash_lse1_kernel,
+                                       FG.flash_biased_fwd_kernel)] == \
+        [n + 1 for n in before]
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    for lse in (lse1, lse2):
+        assert torch.all(lse[dead] == FG.LSE_DEAD)
+    assert torch.all(out[dead] == 0)
+    assert (out - p_out).abs().max().item() <= TOL
+    assert (lse1 - p_lse1)[~dead].abs().max().item() <= TOL
+    assert (lse2 - p_lse2)[~dead].abs().max().item() <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_biased_kernels_match_plain(metric, rate, cuda):
+    """B4 and B5: N=150 (not a tile multiple), D != Dv, dead rows and an
+    empty query tile, per-head scales, both dropouts from per-snapshot
+    seed pairs, a bias with duplicate-edge sums."""
+    _biased_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(7, 3), (40, 72), (128, 128)])
+def test_biased_kernel_head_dims(D, Dv, cuda):
+    _biased_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel", 0.1, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field,value", [("jlist", -1), ("jlist", 3),
+                                         ("jcount", 4)])
+def test_biased_bad_plan_raises_before_launch(field, value, cuda):
+    """A plan pointing outside the 3 key tiles of N=150 is refused on the
+    host; neither B4 nor B5 is launched."""
+    q, k, v, mask, bias, _, _ = (t.to(cuda) for t in _biased_inputs(
+        1, 2, 150, 16, 16, "dot_product"))
+    jlist, jcount = FG.make_block_plan(mask)
+    (jlist if field == "jlist" else jcount)[0, 1] = value
+    before = [kern.launches for kern in (FG.flash_lse1_kernel,
+                                         FG.flash_biased_fwd_kernel)]
+    with pytest.raises(ValueError, match="plan"):
+        FG.flash_biased_fwd(q, k, v, mask, bias, jlist, jcount,
+                            metric="dot_product")
+    with pytest.raises(ValueError, match="plan"):
+        FG.flash_geometric_attention(q, k, v, mask, metric="dot_product",
+                                     plan=(jlist, jcount), bias=bias)
+    assert [kern.launches for kern in (FG.flash_lse1_kernel,
+                                       FG.flash_biased_fwd_kernel)] == before
+
+
+@pytest.mark.gpu
+def test_edge_predictor_on_gpu_matches_cpu(cuda):
+    """The flash model with edge features through Predictor: card (B4
+    and B5 once per layer per batch, no B1) vs CPU (plain versions)."""
+    rng = np.random.default_rng(3)
+    n, e, T = 100, 800, 3
+    seqs = [[{"x": rng.standard_normal((n, 8)).astype(np.float32),
+              "edge_index": rng.integers(0, n, (2, e)),
+              "edge_attr": rng.standard_normal((e, 4)).astype(np.float32),
+              "node_ids": np.arange(n), "timestep": float(t)}
+             for t in range(T)] for _ in range(3)]
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, edge_feature_dim=4,
+                         use_edge_features=True, output_dim=1,
+                         loss_type="bce", spatial_backend="flash")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        before = {k.name: k.launches for k in FG.KERNELS}
+        got[dev] = pt.Predictor(model, batch_size=2).predict_proba(seqs)
+        launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
+        want = {k.name: 0 for k in FG.KERNELS}
+        if dev == "cuda":
+            want[FG.flash_lse1_kernel.name] = 2 * cfg.num_layers
+            want[FG.flash_biased_fwd_kernel.name] = 2 * cfg.num_layers
+        assert launched == want
+    assert np.isfinite(got["cuda"]).all() and got["cuda"].shape == (3, 1)
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=0, atol=TOL)

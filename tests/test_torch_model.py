@@ -61,7 +61,7 @@ def churn_batch():
 
 
 @pytest.mark.parametrize("pooling", ["mean", "max", "attention", "logit"])
-@pytest.mark.parametrize("backend", ["dense", "flash"])
+@pytest.mark.parametrize("backend", ["dense", "csr", "flash"])
 def test_tagan_matches_jax(backend, pooling, churn_batch, interpret):
     seqs, (T, N, E, _) = churn_batch
     jm, jp, tm = _models(spatial_backend=backend, node_pooling=pooling)
@@ -141,7 +141,7 @@ def test_build_sequence_matches_jax(dense_adj):
         pt.build_sequence([snap])
 
 
-@pytest.mark.parametrize("backend", ["flash", "dense"])
+@pytest.mark.parametrize("backend", ["flash", "dense", "csr"])
 def test_predictor_matches_jax(backend, interpret):
     data = create_synthetic_data(
         num_samples=5, num_nodes_range=(6, 12), node_feature_dim=8,
@@ -169,12 +169,9 @@ def test_predictor_matches_jax(backend, interpret):
 
 
 @pytest.mark.parametrize("override", [
-    {"spatial_backend": "csr"}, {"spatial_backend": "hybrid"},
-    {"spatial_backend": "ring"}, {"compat_mode": "executed"},
-    {"temporal_attention_type": "standard"},
-    {"temporal_attention_type": "multi_scale"},
-    {"use_edge_features": True, "edge_feature_dim": 3},
-    {"bf16_matmul": True}])
+    {"spatial_backend": "hybrid"}, {"spatial_backend": "ring"},
+    {"compat_mode": "executed"}, {"temporal_attention_type": "standard"},
+    {"temporal_attention_type": "multi_scale"}, {"bf16_matmul": True}])
 def test_outside_the_slice_raises(override):
     with pytest.raises(NotImplementedError):
         pt.TAGAN(pt.TAGANConfig(**_config(**override)), device="cpu")

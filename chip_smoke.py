@@ -16,7 +16,10 @@ Phases, in order; any failure raises and exits non-zero:
    strip, an lse cotangent and (D, Dv) of (7, 3), (40, 72), (128, 128);
    (2c) the edge-biased forward kernels B4 (lse1) and B5 (out, lse2)
    against their plain versions on the same grid with a bias that sums
-   duplicate edges, and the three (D, Dv);
+   duplicate edges, and the three (D, Dv); (2d) the edge-biased backward
+   kernels B6 (delta1, dB), B7a (dq, dscale) and B7b (dk, dv) against
+   their plain versions on 2c's grid, dB at the mask's pairs (and 0 at
+   the other pairs of the walked blocks);
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -44,7 +47,10 @@ Phases, in order; any failure raises and exits non-zero:
    their plain versions, compiled ``flex_attention`` at the scaled-dot
    metric as the library yardstick (held against B4 and B5 at that
    metric), the csr ``edge_attention`` on the same graph and bias, and
-   their bounds;
+   their bounds; (5c) B6, B7a, B7b and the three together at the same
+   snapshot against the plain biased backward, compiled
+   ``flex_attention``'s backward of B4 and B5's function at the
+   scaled-dot metric as the library yardstick, and their bounds;
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -54,9 +60,18 @@ Phases, in order; any failure raises and exits non-zero:
    snapshots and their share of the step, finite losses, finite non-zero
    gradients and parameters moved after the warm-up; then one snapshot
    at full width, both backward forms against the plain backward;
+   (6b) the same for the edge-feature model (B4, B5 forward; B6, B7a,
+   B7b backward, each exactly once per layer per step, B1-B3 never):
+   step times, split, peak memory, one layer's B6+B7a+B7b over the
+   folded snapshots and its share of the step, finite non-zero
+   gradients (``edge_embedding`` and each ``edge_bias`` included) and
+   every parameter moved; one snapshot at full width against the plain
+   backward;
 7. training at 1,000 nodes on the card and on the CPU from the same
    weights and batches: the first step's gradients and the losses and
-   parameters of 3 AdamW steps.
+   parameters of 3 AdamW steps; (7b) the same for the edge-feature
+   model, and its first-step gradients on the card against its csr form
+   (csr's autograd, an independent formula for dB) on distinct edges.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -350,6 +365,98 @@ def phase_small_biased(FG):
     log(f"[2c] B4 and B5 vs plain: {len(errs)} cases, max abs err of out, "
         f"lse1 and lse2 {max(errs):.3e} (tol {TOL})")
     return max(errs)
+
+
+# -- phase 2d -----------------------------------------------------------------
+
+def walked_pairs(FG, mask):
+    """bool [G, N, N]: the pairs of the 64 x 64 blocks the forward walk
+    visits."""
+    N = mask.shape[-1]
+    occ = FG._occ_from_mask(mask, FG.BLOCK_M, FG.BLOCK_N)
+    return occ.repeat_interleave(FG.BLOCK_M, 1).repeat_interleave(
+        FG.BLOCK_N, 2)[:, :N, :N]
+
+
+def biased_bwd_kernels(FG, q, k, v, mask, bias, do, lse1, lse2, delta2,
+                       plan, plan_t, metric, scale, seeds, rate, need):
+    """B6, then B7a and B7b on B6's delta1: (delta1, dB, dq, dscale, dk,
+    dv)."""
+    common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
+    d1, db = FG.flash_biased_bwd_pre_kernel(*common, *plan, metric, scale,
+                                            seeds, rate)
+    dq, dsc = FG.flash_biased_bwd_dq_kernel(*common, d1, *plan, metric,
+                                            scale, seeds, rate, need)
+    dk, dv = FG.flash_biased_bwd_dkv_kernel(*common, d1, *plan_t, metric,
+                                            scale, seeds, rate)
+    return d1, db, dq, dsc, dk, dv
+
+
+def biased_bwd_errors(FG, label, got, q, k, v, mask, bias, do, lse1, lse2,
+                      delta2, metric, scale, seeds, rate, need):
+    """{B6, B7a, B7b: error} of the kernels' outputs ``got`` against the
+    plain parts on the same inputs: each output's max abs error over its
+    largest entry (at least 1), dB at the mask's pairs; raises past TOL,
+    on a non-finite output, or where dB is not 0 at the other pairs of
+    the walked blocks."""
+    d1, db, dq, dsc, dk, dv = got
+    common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
+    p_d1, p_db = FG.flash_biased_bwd_pre_plain(*common, metric, scale, rate,
+                                               seeds)
+    p_dq, p_dsc = FG.flash_biased_bwd_dq_plain(*common, p_d1, metric, scale,
+                                               rate, seeds, need)
+    p_dk, p_dv = FG.flash_biased_bwd_dkv_plain(*common, p_d1, metric, scale,
+                                               rate, seeds)
+    sync()
+    on = mask != 0
+    for name, t in (("delta1", d1), ("dq", dq), ("dk", dk), ("dv", dv),
+                    ("dB", db[on])):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    if not bool((db[walked_pairs(FG, mask) & ~on] == 0).all()):
+        raise AssertionError(f"{label}: dB not 0 off the mask in a walked "
+                             f"block")
+    err = {"B6": max(rel_err(d1, p_d1), rel_err(db[on], p_db[on])),
+           "B7a": max(rel_err(dq, p_dq),
+                      rel_err(dsc, p_dsc) if need else 0.0),
+           "B7b": max(rel_err(dk, p_dk), rel_err(dv, p_dv))}
+    if not max(err.values()) <= TOL:
+        raise AssertionError(f"{label}: errors {err} > {TOL}")
+    return err
+
+
+def biased_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
+    """B6, B7a and B7b against the plain parts on 2c's inputs, the plain
+    forward's statistics and the cotangent of `small_inputs`."""
+    q, k, v, mask, bias, scale, seeds = biased_small_inputs(
+        FG, G, H, N, D, Dv, metric, seed)
+    do = small_inputs(FG, G, H, N, D, Dv, metric, seed)[3]
+    need = metric in FG.SCALED_METRICS
+    lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale)
+    out, lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias, lse1,
+                                              metric, scale, rate, seeds)
+    delta2 = (do * out).sum(-1)
+    args = (q, k, v, mask, bias, do, lse1, lse2, delta2)
+    got = biased_bwd_kernels(FG, *args, *FG.make_block_plans_from_mask(mask),
+                             metric, scale, seeds, rate, need)
+    return biased_bwd_errors(FG, f"biased {metric} rate={rate} D={D} Dv={Dv}",
+                             got, *args, metric, scale, seeds, rate, need)
+
+
+def phase_small_biased_bwd(FG):
+    errs = []
+    for metric in FG.MXU_METRICS:
+        for rate in (0.0, 0.1):
+            errs.append(biased_bwd_vs_plain(FG, 2, 3, 150, 16, 8, metric,
+                                            rate))
+    for D, Dv in ((7, 3), (40, 72), (128, 128)):
+        errs.append(biased_bwd_vs_plain(FG, 2, 2, 200, D, Dv,
+                                        "gaussian_kernel", 0.1, 1))
+    out = {name: max(e[name] for e in errs) for name in ("B6", "B7a", "B7b")}
+    log(f"[2d] B6, B7a and B7b vs plain: {len(errs)} cases; max err B6 "
+        f"(delta1, dB at the mask's pairs) {out['B6']:.3e}, B7a (dq, dscale) "
+        f"{out['B7a']:.3e}, B7b (dk, dv) {out['B7b']:.3e} (tol {TOL})")
+    return out
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -848,19 +955,25 @@ def backward_times(FG, args, out, lse, pairs):
 
 # -- phase 5b -----------------------------------------------------------------
 
-def flex_yardstick(q, k, v, mask, bias):
-    """The library's form of B4 and B5 at the scaled-dot metric:
-    ``flex_attention`` (compiled; the port never calls it) under a block
-    mask built from the int8 mask, with return_lse. The identity
-    score_mod gives lse1 (B4); score_mod exp(s - lse1) + bias gives B5's
-    out and lse2. Returns (call_b4, call_b5, lse1, out, lse2)."""
+def flex_setup(q, mask):
+    """(block mask of the int8 mask, compiled ``flex_attention``): the
+    library's form of the masked walk (the port never calls it)."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
     G, _, N, _ = q.shape
     valid = mask != 0
     block_mask = create_block_mask(lambda b, h, qi, kv: valid[b, qi, kv],
                                    G, None, N, N, device=DEV)
-    flex = torch.compile(flex_attention, dynamic=False)
+    return block_mask, torch.compile(flex_attention, dynamic=False)
+
+
+def flex_yardstick(q, k, v, mask, bias):
+    """The library's form of B4 and B5 at the scaled-dot metric:
+    compiled ``flex_attention`` under a block mask built from the int8
+    mask, with return_lse. The identity score_mod gives lse1 (B4);
+    score_mod exp(s - lse1) + bias gives B5's out and lse2. Returns
+    (call_b4, call_b5, lse1, out, lse2)."""
+    block_mask, flex = flex_setup(q, mask)
 
     def call_b4():
         return flex(q, k, v, block_mask=block_mask, return_lse=True)
@@ -977,7 +1090,186 @@ def phase_times_biased(FG, args, graph):
     return res
 
 
+# -- phase 5c -----------------------------------------------------------------
+
+def flex_bwd_yardstick(q, k, v, mask, bias, do):
+    """The library's backward of B4 and B5's function at the scaled-dot
+    metric: compiled ``flex_attention``, forward+backward minus forward
+    of `flex_yardstick`'s two calls, with lse1 flowing from the first
+    call into the second's score_mod and the bias requiring grad (PyTorch
+    2.11 differentiates both). Where the installed PyTorch cannot, ms is
+    None and ``error`` says why."""
+    block_mask, flex = flex_setup(q, mask)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+
+    def two_calls(ql, kl, vl, bl):
+        l1 = flex(ql, kl, vl, block_mask=block_mask, return_lse=True)[1]
+
+        def biased(s, b, h, qi, kv):
+            return torch.exp(s - l1[b, h, qi]) + bl[b, qi, kv]
+        return flex(ql, kl, vl, score_mod=biased, block_mask=block_mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(two_calls(*leaves), leaves, do)
+
+    def fwd():
+        with torch.no_grad():
+            two_calls(*leaves)
+
+    try:
+        fwd_bwd()
+        sync()
+    except Exception as e:          # the yardstick only: never the port
+        return dict(ms=None, error=f"{type(e).__name__}: {e}"[:300])
+    return dict(ms=cuda_ms(fwd_bwd, 5) - cuda_ms(fwd, 5),
+                form="both calls; gradients of q, k, v and the bias, "
+                     "lse1 differentiated")
+
+
+def biased_bwd_bounds(FG, q, v, mask, plan, plan_t):
+    """Each biased backward kernel's least time from these inputs: every
+    input read once (q, k, v, do, the row statistics, the int8 mask, the
+    bias at the valid pairs only, the plan, scale, seeds) and every output
+    written once (dB at the valid pairs), against the products on the
+    valid pairs at the fp32 peak."""
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    HN = G * H * N
+    pairs = int((mask != 0).sum().item())
+    common = (4 * HN * (2 * D + 2 * Dv) + 3 * 4 * HN + mask.numel()
+              + 4 * pairs + 4 * (H + 2 * G))
+    plan_b = 4 * sum(t.numel() for t in plan)
+    plan_tb = 4 * sum(t.numel() for t in plan_t)
+    return pairs, {
+        "B6": bound(common + plan_b + 4 * HN + 4 * pairs,
+                    2 * H * pairs * (D + Dv)),              # q.k and do.v
+        "B7a": bound(common + 4 * HN + plan_b + 4 * HN * D,
+                     2 * H * pairs * (2 * D + Dv)),
+        "B7b": bound(common + 4 * HN + plan_tb + 4 * HN * (D + Dv),
+                     2 * H * pairs * (2 * D + 2 * Dv))}
+
+
+def phase_times_biased_bwd(FG, args):
+    """B6, B7a, B7b and the three together at one snapshot of the
+    edge-feature request, against the plain backward, the library's
+    (`flex_bwd_yardstick`) and each kernel's bound."""
+    q, k, v, mask, bias, jlist, jcount = args
+    G, H, N, D = q.shape
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
+    plan, plan_t = (jlist, jcount), FG._transposed_plan(mask)
+    sdp = "scaled_dot_product"
+    stats = {}
+    with torch.no_grad():
+        for metric in ("euclidean", sdp):
+            lse1 = FG.flash_lse1_kernel(q, k, mask, *plan, metric, ones)
+            out, lse2 = FG.flash_biased_fwd_kernel(q, k, v, mask, bias, lse1,
+                                                   *plan, metric, ones,
+                                                   seeds, 0.0)
+            stats[metric] = (out, lse1, lse2)
+        out, lse1, lse2 = stats["euclidean"]
+        do = torch.randn(out.shape, device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(7))
+        stats = {m: (l1, l2, (do * o).sum(-1))
+                 for m, (o, l1, l2) in stats.items()}
+        delta2 = stats["euclidean"][2]
+        common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
+        d1 = FG.flash_biased_bwd_pre_kernel(*common, *plan, "euclidean",
+                                            ones, seeds, 0.0)[0]
+
+        def b6():
+            FG.flash_biased_bwd_pre_kernel(*common, *plan, "euclidean", ones,
+                                           seeds, 0.0)
+
+        def b7a():
+            FG.flash_biased_bwd_dq_kernel(*common, d1, *plan, "euclidean",
+                                          ones, seeds, 0.0, False)
+
+        def b7b():
+            FG.flash_biased_bwd_dkv_kernel(*common, d1, *plan_t, "euclidean",
+                                           ones, seeds, 0.0)
+
+        def all3(metric="euclidean"):
+            biased_bwd_kernels(FG, q, k, v, mask, bias, do, *stats[metric],
+                               plan, plan_t, metric, ones, seeds, 0.0, False)
+
+        def plain():
+            FG.flash_biased_backward_plain(q, k, v, mask, bias, out, lse1,
+                                           lse2, do, "euclidean", ones, 0.0,
+                                           seeds)
+
+        p1, a1, a2, p2 = (cuda_ms(plain, 3), cuda_ms(all3, 10),
+                          cuda_ms(all3, 10), cuda_ms(plain, 3))
+        t6, t7a, t7b = cuda_ms(b6, 10), cuda_ms(b7a, 10), cuda_ms(b7b, 10)
+        a_sdp = cuda_ms(lambda: all3(sdp), 10)
+    t0 = time.perf_counter()
+    lib = flex_bwd_yardstick(q, k, v, mask, bias, do)
+    lib["setup_and_timing_s"] = time.perf_counter() - t0
+    pairs, bounds = biased_bwd_bounds(FG, q, v, mask, plan, plan_t)
+    walked = int(jcount.sum().item()) * FG.BLOCK_M * FG.BLOCK_N
+    res = {"B6": dict(ms=[t6], **bounds["B6"]),
+           "B7a": dict(ms=[t7a], **bounds["B7a"]),
+           "B7b": dict(ms=[t7b], **bounds["B7b"]),
+           "B6+B7a+B7b_ms": [a1, a2], "B6+B7a+B7b_sdp_ms": a_sdp,
+           "plain_ms": [p1, p2], "library": lib, "valid_pairs": pairs,
+           "walked_pairs": walked,
+           "db_whole_tile_write_ms": 4 * walked / PEAK_BYTES * 1e3}
+    log(f"[5c] H={H} N={N} D={D}, one snapshot, biased backward: B6 ms "
+        f"{t6:.4f}, B7a {t7a:.4f}, B7b {t7b:.4f}; B6+B7a+B7b ms {a1:.4f} "
+        f"{a2:.4f} (scaled-dot metric {a_sdp:.4f}); plain ms {p1:.4f} "
+        f"{p2:.4f}")
+    log(f"[5c] library: compiled flex_attention backward of B4 and B5's "
+        f"function at the scaled-dot metric: {lib}")
+    for name in ("B6", "B7a", "B7b"):
+        r = res[name]
+        log(f"[5c] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({r['bytes']} bytes, {r['flops']} flops over {pairs} valid "
+            f"pairs)")
+    log(f"[5c] B6 writes dB on every pair of the {walked} walked: "
+        f"{res['db_whole_tile_write_ms']:.5f} ms of the memory rate")
+    return res
+
+
 # -- phase 6 ------------------------------------------------------------------
+
+def step_times(trainer, batches):
+    """ms of one synchronised training step per batch, on the host clock."""
+    out = []
+    for b, y, m in batches:
+        sync()
+        t0 = time.perf_counter()
+        trainer._train_step(b, y, m)
+        sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def step_split(trainer, b, y, m):
+    """[forward, backward, optimizer] ms of two steps, CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    splits = []
+    for _ in range(2):
+        trainer.optimizer.zero_grad()
+        sync()
+        ev[0].record()
+        loss, _ = trainer._loss(b, y, m, True)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        trainer.optimizer.step()
+        ev[3].record()
+        sync()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    return splits
+
+
+def check_grads(model):
+    """Names of the parameters whose gradient is missing, not finite, or
+    zero where it is not zero in exact arithmetic."""
+    return [n for n, p in model.named_parameters() if p.grad is None
+            or not bool(torch.isfinite(p.grad).all())
+            or (n not in ZERO_GRAD and not bool((p.grad != 0).any()))]
+
 
 def phase_train(tt, FG):
     cfg = model_config(tt)
@@ -1019,19 +1311,11 @@ def phase_train(tt, FG):
                       FG.flash_geometric_bwd_dkv_kernel)):
             want[kern.name] = cfg.num_layers * TRAIN_STEPS
         losses = res["history"]["train_loss"]
-        step_ms = []
-        for b, y, m in batches:
-            sync()
-            t0 = time.perf_counter()
-            trainer._train_step(b, y, m)
-            sync()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms = step_times(trainer, batches)
         # the last step's (clipped) gradients: every one finite, and every
         # one non-zero but those that are zero in exact arithmetic
-        grads = {n: p.grad for n, p in model.named_parameters()}
-        no_grad = [n for n, g in grads.items() if g is None
-                   or not bool(torch.isfinite(g).all())
-                   or (n not in ZERO_GRAD and not bool((g != 0).any()))]
+        grads = dict(model.named_parameters())
+        no_grad = check_grads(model)
         log(f"[6] {'B2' if fused else 'B3a+B3b'} backward: {TRAIN_STEPS} "
             f"steps of TAGANTrainer.train in {epoch_ms:.3f} ms; mean loss "
             f"{losses}; launches {launched} (expected {want}); step ms "
@@ -1056,20 +1340,7 @@ def phase_train(tt, FG):
 
     # the step split with CUDA events, the picker's default backward
     b, y, m = batches[0]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    splits = []
-    for _ in range(2):
-        trainer.optimizer.zero_grad()
-        sync()
-        ev[0].record()
-        loss, _ = trainer._loss(b, y, m, True)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        trainer.optimizer.step()
-        ev[3].record()
-        sync()
-        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    splits = step_split(trainer, b, y, m)
     log(f"[6] step split (CUDA events) forward / backward / optimizer ms: "
         f"{[[round(x, 3) for x in s] for s in splits]}")
 
@@ -1128,6 +1399,124 @@ def phase_train(tt, FG):
                 launches={f: runs[f]["launches"] for f in runs})
 
 
+# -- phase 6b -----------------------------------------------------------------
+
+def phase_train_edge(tt, FG):
+    """`TAGANTrainer.train` on the 10K-node edge-feature flash model: one
+    warm-up step, then 3 steps with launch counts set to 0 just before and
+    read just after; step times, split, peak memory, one layer's biased
+    backward over the folded snapshots, and one snapshot at full width
+    against the plain backward."""
+    cfg = edge_model_config(tt)
+    model = tt.TAGAN(cfg, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+    exp = tt.ExperimentConfig(model=cfg, batch_size=1, num_epochs=1, seed=0,
+                              checkpoint_dir="", shuffle=False)
+    rng = np.random.default_rng(8)
+    ds = tt.TemporalGraphDataset(
+        [make_edge_sequence(rng, N_FULL, E_FULL, T_FULL)
+         for _ in range(TRAIN_STEPS + 1)], [1.0, 0.0, 1.0, 0.0])
+    kw = dict(batch_size=1, dense_adj=False, max_time=T_FULL,
+              max_nodes=N_FULL, max_edges=E_FULL)
+    warm = tt.TemporalGraphDataLoader(ds.subset([0]), **kw)
+    loader = tt.TemporalGraphDataLoader(
+        ds.subset(list(range(1, TRAIN_STEPS + 1))), **kw)
+    batches = list(loader)                  # packs and caches the sequences
+    trainer = tt.TAGANTrainer(model, exp)
+    trainer.train(warm, verbose=False)
+    sync()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(FG)
+    t0 = time.perf_counter()
+    res = trainer.train(loader, verbose=False)
+    sync()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts(FG)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    want = {k.name: 0 for k in FG.KERNELS}
+    for kern in (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
+                 FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
+                 FG.flash_biased_bwd_dkv_kernel):
+        want[kern.name] = cfg.num_layers * TRAIN_STEPS
+    losses = res["history"]["train_loss"]
+    no_grad = check_grads(model)
+    edge_grads = {n: p.grad.abs().max().item()
+                  for n, p in model.named_parameters() if "edge" in n}
+    moved = sum(int(not torch.equal(p.detach(), before[n]))
+                for n, p in model.named_parameters())
+    log(f"[6b] edge features: {TRAIN_STEPS} steps of TAGANTrainer.train in "
+        f"{epoch_ms:.3f} ms; mean loss {losses}; peak device memory "
+        f"{peak_gb:.3f} GB above the {held_gb:.3f} GB held before; launches "
+        f"{launched} (expected {want}); {len(before) - len(no_grad)} of "
+        f"{len(before)} gradients finite and non-zero where not zero in exact "
+        f"arithmetic; largest |gradient| of the edge parameters {edge_grads}; "
+        f"parameters moved {moved} of {len(before)}")
+    if launched != want:
+        raise AssertionError(f"launches {launched} != {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"loss not finite: {losses}")
+    if no_grad:
+        raise AssertionError(f"no finite non-zero gradient: {no_grad}")
+    if moved != len(before):
+        raise AssertionError(f"only {moved} of {len(before)} parameters moved")
+
+    step_ms = step_times(trainer, batches)
+    b, y, m = batches[0]
+    splits = step_split(trainer, b, y, m)
+    log(f"[6b] step ms (host clock, synchronised) "
+        f"{[round(x, 3) for x in step_ms]}; split (CUDA events) forward / "
+        f"backward / optimizer ms {[[round(x, 3) for x in s] for s in splits]}")
+
+    # one layer's kernels over the batch's 8 folded snapshots
+    trainer.optimizer.zero_grad()
+    folded, _ = layer0_biased_inputs(FG, model, b.to(DEV), N_FULL)
+    q, k, v, mask, bias, jlist, jcount = folded
+    del folded
+    G, H = q.shape[:2]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
+    plan, plan_t = (jlist, jcount), FG._transposed_plan(mask)
+    with torch.no_grad():
+        lse1 = FG.flash_lse1_kernel(q, k, mask, *plan, "euclidean", ones)
+        out, lse2 = FG.flash_biased_fwd_kernel(q, k, v, mask, bias, lse1,
+                                               *plan, "euclidean", ones,
+                                               seeds, 0.0)
+        do = torch.randn(out.shape, device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(9))
+        delta2 = (do * out).sum(-1)
+        args = (q, k, v, mask, bias, do, lse1, lse2, delta2)
+        fold_fwd = cuda_ms(lambda: FG._biased_forward(
+            q, k, v, mask, bias, *plan, "euclidean", ones, 0.0, seeds), 3)
+        fold_bwd = cuda_ms(lambda: biased_bwd_kernels(
+            FG, *args, plan, plan_t, "euclidean", ones, seeds, 0.0, False), 3)
+    step = min(step_ms)
+    share = cfg.num_layers * fold_bwd / step
+    log(f"[6b] one layer's launches over the {G} folded snapshots: B4+B5 "
+        f"{fold_fwd:.3f} ms, B6+B7a+B7b {fold_bwd:.3f} ms; {cfg.num_layers} "
+        f"layers' B6+B7a+B7b = {share:.3f} and with B4+B5 "
+        f"{cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the fastest "
+        f"step ({step:.3f} ms)")
+
+    # one snapshot at full width against the plain parts
+    one = tuple(t[:1].contiguous() for t in args)
+    plans = tuple(tuple(t[:1].contiguous() for t in p) for p in (plan, plan_t))
+    del args, q, k, v, mask, bias, do, lse1, lse2, delta2, out
+    got = biased_bwd_kernels(FG, *one, *plans, "euclidean", ones, seeds[:1],
+                             0.0, False)
+    full = biased_bwd_errors(FG, f"N={N_FULL}", got, *one, "euclidean", ones,
+                             seeds[:1], 0.0, False)
+    log(f"[6b] biased backward at N={N_FULL}, one snapshot, vs plain: max err "
+        f"B6 {full['B6']:.3e}, B7a {full['B7a']:.3e}, B7b {full['B7b']:.3e}")
+    return dict(epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
+                loss=losses, launches=launched, peak_memory_gb=peak_gb,
+                held_gb=held_gb, edge_grad_max=edge_grads, moved=moved,
+                fold_b4_b5_ms=fold_fwd, fold_b6_b7_ms=fold_bwd,
+                b6_b7_share_of_step=share, full_err=full)
+
+
 # -- phase 7 ------------------------------------------------------------------
 
 def grad_errors(got, want):
@@ -1151,33 +1540,35 @@ def grad_errors(got, want):
     return worst, zero
 
 
-def phase_train_mid(tt, FG):
-    cfg = model_config(tt)
-    rng = np.random.default_rng(3)
-    ds = tt.TemporalGraphDataset(
-        [make_sequence(rng, N_MID, 16 * N_MID, T_FULL) for _ in range(3)],
-        [1.0, 0.0, 1.0])
-    runs = {}
-    for side, dev in (("card", DEV), ("cpu", "cpu")):
-        model = tt.TAGAN(cfg, device=dev,
-                         generator=torch.Generator().manual_seed(0))
-        trainer = tt.TAGANTrainer(model, tt.ExperimentConfig(
-            model=cfg, batch_size=1, seed=0))
-        loader = tt.TemporalGraphDataLoader(ds, batch_size=1,
-                                            dense_adj=False)
-        losses, grads = [], None
-        for b, y, m in loader:
-            trainer.optimizer.zero_grad()
-            loss, _ = trainer._loss(b, y, m, True)
-            loss.backward()
-            if grads is None:
-                grads = {n: p.grad.detach().cpu().clone()
-                         for n, p in model.named_parameters()}
-            trainer.optimizer.step()
-            losses.append(loss.item())
-        runs[side] = dict(losses=losses, grads=grads, params={
-            n: p.detach().cpu() for n, p in model.named_parameters()})
-    card, cpu = runs["card"], runs["cpu"]
+def train_steps(tt, FG, cfg, dev, ds):
+    """AdamW steps of a fresh model (weights from seed 0) over ``ds``,
+    one sequence per batch: the losses, the first step's gradients, the
+    parameters after the last step and the kernels launched."""
+    model = tt.TAGAN(cfg, device=dev,
+                     generator=torch.Generator().manual_seed(0))
+    trainer = tt.TAGANTrainer(model, tt.ExperimentConfig(
+        model=cfg, batch_size=1, seed=0))
+    loader = tt.TemporalGraphDataLoader(ds, batch_size=1, dense_adj=False)
+    losses, grads = [], None
+    start = counts(FG)
+    for b, y, m in loader:
+        trainer.optimizer.zero_grad()
+        loss, _ = trainer._loss(b, y, m, True)
+        loss.backward()
+        if grads is None:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+        trainer.optimizer.step()
+        losses.append(loss.item())
+    launched = {n: c - start[n] for n, c in counts(FG).items()
+                if c != start[n]}
+    return dict(losses=losses, grads=grads, launched=launched, params={
+        n: p.detach().cpu() for n, p in model.named_parameters()})
+
+
+def card_vs_cpu(label, card, cpu):
+    """(gradient, loss, parameter errors, names at noise) of two
+    `train_steps` runs; raises past TOL."""
     grad_err, zero = grad_errors(card["grads"], cpu["grads"])
     loss_err = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
     # parameters only where the first gradient stands above fp32 noise:
@@ -1190,7 +1581,7 @@ def phase_train_mid(tt, FG):
         if sel.any():
             param_err = max(param_err,
                             (card["params"][n] - p)[sel].abs().max().item())
-    log(f"[7] training at N={N_MID}, card vs cpu: losses "
+    log(f"[{label}] training at N={N_MID}, card vs cpu: losses "
         f"{card['losses']} vs {cpu['losses']} (max abs err {loss_err:.3e}); "
         f"first-step gradients max err over each tensor's largest entry "
         f"{grad_err:.3e} ({len(cpu['grads']) - len(zero)} tensors; "
@@ -1202,6 +1593,49 @@ def phase_train_mid(tt, FG):
     return dict(losses={"card": card["losses"], "cpu": cpu["losses"]},
                 grad_err=grad_err, noise_tensors=zero, loss_err=loss_err,
                 param_err=param_err)
+
+
+def phase_train_mid(tt, FG):
+    cfg = model_config(tt)
+    rng = np.random.default_rng(3)
+    ds = tt.TemporalGraphDataset(
+        [make_sequence(rng, N_MID, 16 * N_MID, T_FULL) for _ in range(3)],
+        [1.0, 0.0, 1.0])
+    return card_vs_cpu("7", train_steps(tt, FG, cfg, DEV, ds),
+                       train_steps(tt, FG, cfg, "cpu", ds))
+
+
+
+# -- phase 7b -----------------------------------------------------------------
+
+def phase_train_mid_edge(tt, FG):
+    """The edge-feature flash model at 1,000 nodes: 3 AdamW steps on the
+    card (B4-B7) and on the CPU (plain versions) from the same weights and
+    batches, and its first-step gradients against its csr form on the card
+    (csr's autograd, an independent formula for dB), on distinct non-loop
+    edges."""
+    rng = np.random.default_rng(9)
+    ds = tt.TemporalGraphDataset(
+        [make_edge_sequence(rng, N_MID, 16 * N_MID, T_FULL, unique=True)
+         for _ in range(3)], [1.0, 0.0, 1.0])
+    card = train_steps(tt, FG, edge_model_config(tt), DEV, ds)
+    cpu = train_steps(tt, FG, edge_model_config(tt), "cpu", ds)
+    csr = train_steps(tt, FG, edge_model_config(tt, "csr"), DEV, ds)
+    res = card_vs_cpu("7b", card, cpu)
+    csr_err, csr_zero = grad_errors(card["grads"], csr["grads"])
+    launched = [r["launched"] for r in (card, cpu, csr)]
+    want = {k.name: 3 * 2 for k in (
+        FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
+        FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
+        FG.flash_biased_bwd_dkv_kernel)}
+    log(f"[7b] edge features: first-step gradients flash vs csr on the card "
+        f"{csr_err:.3e} (tol {TOL_CSR}; at noise {csr_zero}); launches card, "
+        f"cpu, csr {launched}")
+    if launched != [want, {}, {}]:
+        raise AssertionError(f"launches {launched}, card expected {want}")
+    if not csr_err <= TOL_CSR:
+        raise AssertionError(f"flash vs csr gradients {csr_err} > {TOL_CSR}")
+    return dict(res, csr_grad_err=csr_err)
 
 
 def kernel_record(FG, kern, source, replaces, launches, err, ms, plain_ms,
@@ -1235,15 +1669,20 @@ def main() -> int:
     small_err = phase_small(FG)
     small_bwd = phase_small_bwd(FG)
     small_biased = phase_small_biased(FG)
+    small_biased_bwd = phase_small_biased_bwd(FG)
     serve = phase_serve(tt, FG)
     serve_edge = phase_serve_edge(tt, FG)
     mid = phase_mid(tt, FG)
     mid_edge = phase_mid_edge(tt, FG)
     times = phase_times(FG, serve.pop("args"))
-    times_biased = phase_times_biased(FG, serve_edge.pop("args"),
-                                      serve_edge.pop("graph"))
+    edge_args = serve_edge.pop("args")
+    times_biased = phase_times_biased(FG, edge_args, serve_edge.pop("graph"))
+    times_biased_bwd = phase_times_biased_bwd(FG, edge_args)
+    del edge_args
     train = phase_train(tt, FG)
+    train_edge = phase_train_edge(tt, FG)
     train_mid = phase_train_mid(tt, FG)
+    train_mid_edge = phase_train_mid_edge(tt, FG)
 
     bwd = times["bwd"]
     plain_bwd = min(bwd["plain_ms"])
@@ -1283,13 +1722,30 @@ def main() -> int:
             ("B4", FG.flash_lse1_kernel, 885, "flash_lse1_plain"),
             ("B5", FG.flash_biased_fwd_kernel, 944,
              "flash_biased_forward_plain"))]
+    # the plain biased backward, like the plain backward above, forms
+    # every output in one pass: its time is the whole backward's
+    tb = times_biased_bwd
+    kernels += [
+        dict(kernel_record(
+            FG, kern, "flash_biased_bwd.cu", line,
+            train_edge["launches"][kern.name],
+            max(small_biased_bwd[name], train_edge["full_err"][name]),
+            min(tb[name]["ms"]), min(tb["plain_ms"]),
+            "flash_biased_backward_plain (dq, dk, dv and dB)", tb[name],
+            tb["library"]["ms"]), library_of=tb["library"].get("form"))
+        for name, kern, line in (
+            ("B6", FG.flash_biased_bwd_pre_kernel, 1038),
+            ("B7a", FG.flash_biased_bwd_dq_kernel, 1102),
+            ("B7b", FG.flash_biased_bwd_dkv_kernel, 1176))]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, small_err=small_err, small_bwd_err=small_bwd,
-        small_biased_err=small_biased, mid=mid, mid_edge=mid_edge,
-        serve=serve, serve_edge=serve_edge, times=times,
-        times_biased=times_biased, train=train, train_mid=train_mid,
+        small_biased_err=small_biased, small_biased_bwd_err=small_biased_bwd,
+        mid=mid, mid_edge=mid_edge, serve=serve, serve_edge=serve_edge,
+        times=times, times_biased=times_biased,
+        times_biased_bwd=times_biased_bwd, train=train, train_edge=train_edge,
+        train_mid=train_mid, train_mid_edge=train_mid_edge,
         kernels=kernels), indent=1, default=str))
     log(card)
     log(json.dumps({"kernels": kernels}))

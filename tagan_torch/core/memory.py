@@ -25,6 +25,8 @@ from typing import Tuple
 
 import torch
 
+from .module import resolve_device
+
 # a reappearing slot keeps at least this share of its old state, and the
 # gap that sets the share is counted up to this many steps
 REAPPEAR_MIN_WEIGHT = 0.4
@@ -51,8 +53,11 @@ class MemoryState:
 
 
 def init_memory(max_nodes: int, hidden_dim: int, *, batch: Tuple[int, ...] = (),
-                dtype=torch.float32, device="cpu") -> MemoryState:
+                dtype=torch.float32, device="cuda") -> MemoryState:
+    """An empty memory over ``max_nodes`` slots, on ``cuda`` unless
+    ``device="cpu"`` is given."""
     lead = tuple(batch)
+    device = resolve_device(device)
     return MemoryState(
         states=torch.zeros(lead + (max_nodes, hidden_dim), dtype=dtype,
                            device=device),

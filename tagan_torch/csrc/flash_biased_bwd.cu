@@ -1,0 +1,585 @@
+// Edge-biased geometric attention, backward, for Hopper (sm_90a): three
+// kernels.
+//
+// Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
+// that differentiate the dense path's double softmax (host side
+// flash_biased_attention_bwd), in their dense-mask form. The forward (B4, B5 in
+// flash_biased_fwd.cu) computed, per query row i, head h and valid key j
+// (mask[i, j] != 0), with s_ij the metric score:
+//
+//   w1 = exp(s - lse1),  w1d = drop1(w1),  z = w1d + B,
+//   w2 = exp(z - lse2),  out_i = sum_j drop2(w2)_ij v_j.
+//
+// Each kernel recomputes these per pair (_bwd_biased_common) and, with
+// dp2 = drop2(do_i . v_j), dz = w2 (dp2 - delta2_i), dw1 = drop1(dz) and
+// ds = w1 (dw1 - delta1_i):
+//
+//   B6   _biased_bwd_pre_kernel   delta1_i = sum_j w1 dw1    (per head)
+//                                 dB_ij    = sum_h dz        (B is head-shared)
+//   B7a  _biased_bwd_dq_kernel    dq_i = sum_j W_ij k_j, and d(scale)
+//   B7b  _biased_bwd_dkv_kernel   dk_j = sum_i W_ij q_i,  dv_j = sum_i drop2(w2)_ij do_i
+//
+// where W is the metric's chain weight of ds (flash_geometric_common.cuh:
+// chain_weight; the squared-distance metrics also subtract (sum_j W_ij) q_i
+// and (sum_i W_ij) k_j). A dropped w1 is not a masked pair: z = B there, so dz
+// and dB are non-zero while dw1 = 0. lse1, lse2, delta2 = rowsum(do * out) and
+// (for B7) delta1 are inputs, as in the TPU kernels: the hybrid backend passes
+// statistics of a union of walks. Rows with lse = 1e30 (no valid key) give 0.
+//
+// Design. B6 keeps the TPU's order with the heads innermost: one thread block
+// per (64-row query tile, folded batch index g) walks jlist[g, tile, :jcount]
+// and, at each walked 64x64 block, loops over the H heads. Each thread sums
+// its 4x4 pairs' dz over the heads in registers and writes its part of the dB
+// tile once: no atomics, and every pair of a walked block is written (0 off
+// the mask), while blocks the walk never visits are left as they were (the
+// caller reads dB at edge positions only, which lie in walked blocks). delta1
+// is summed per (row, head) in shared memory across the walk and written at
+// the end; it is deterministic. B7a and B7b are B3a and B3b
+// (flash_geometric_bwd.cu) with this recompute: one block per (tile, head, g)
+// on the forward walk (dq, and a d(scale) partial per block summed by the
+// caller) or on the transposed walk (dk, dv), accumulators in registers,
+// templated on the 16-wide feature lanes. Thread (rg, lane) owns query rows
+// 4*rg..4*rg+3 and keys lane + 16*b (b < 4), as in every kernel here.
+//
+// What bounds it on the H100. The work the data needs is ~2 to 6 products of
+// head dim per valid pair and head; what must move is q, k, v, do, the row
+// statistics, the int8 [N, N] mask, the f32 bias and dB at the valid pairs
+// (4 bytes each) and the outputs, so the least time is the mask's bytes over
+// the memory rate. Like B3, the walks visit nearly every 64x64 block when the
+// edges are spread uniformly, and fp32 issue on the CUDA cores per walked pair
+// sets the pace, far above that bound. B6 also writes every pair of every
+// walked block of dB (4 bytes each: at the model's shape 400 MB per snapshot,
+// ~0.12 ms of the memory rate). Tensor cores, TMA and a walk over edges are
+// later steps.
+//
+// Interface: plain C, loaded with ctypes. Launches on the given stream,
+// allocates nothing, returns the cudaError_t of the launch.
+
+#include "flash_geometric_common.cuh"
+
+namespace {
+
+using namespace tagan_flash;
+
+enum Mode : int { PRE = 0, DQ = 1, DKV = 2 };
+
+// Shared floats: BwdTiles (t.lse holds lse1, t.delta delta1), then lse2 and
+// delta2 of the query rows, then for B6 the delta1 sums [H][BM].
+__host__ __device__ inline size_t biased_smem_floats(int D, int Dv, int H,
+                                                     bool pre) {
+  return bwd_smem_floats(D, Dv) + 2 * BM + (pre ? (size_t)H * BM : 0);
+}
+
+// The valid bits of this thread's 4 x 4 pairs of the block at (row0, col0):
+// bit 4a + b for query row 4*rg + a and key lane + 16*b.
+__device__ __forceinline__ unsigned valid_bits(const uint8_t* __restrict__ mg,
+                                               int N, int row0, int col0) {
+  const int rg = threadIdx.x >> 4, lane = threadIdx.x & 15;
+  unsigned bits = 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int gr = row0 + rg * 4 + a;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int gc = col0 + lane + 16 * b;
+      if (gr < N && gc < N && mg[(size_t)gr * N + gc] != 0)
+        bits |= 1u << (4 * a + b);
+    }
+  }
+  return bits;
+}
+
+// lse1 (t.lse), lse2, delta2 and, where given, delta1 (t.delta) of rows
+// [row0, row0 + 64): LSE_DEAD and 0 past N.
+__device__ __forceinline__ void load_row_stats(
+    const BwdTiles& t, float* lse2_s, float* delta2_s, const float* lse1g,
+    const float* lse2g, const float* delta2g, const float* delta1g, int row0,
+    int N) {
+  const int tid = threadIdx.x;
+  if (tid < BM) {
+    const int gr = row0 + tid;
+    const bool in = gr < N;
+    t.lse[tid] = in ? lse1g[gr] : LSE_DEAD;
+    lse2_s[tid] = in ? lse2g[gr] : LSE_DEAD;
+    delta2_s[tid] = in ? delta2g[gr] : 0.f;
+    if (delta1g != nullptr) t.delta[tid] = in ? delta1g[gr] : 0.f;
+  }
+}
+
+// The recompute of one pair of tiles, for the pairs set in `valid`. PRE adds
+// dz to db and w1 * dw1 to this thread's row sums d1; DQ and DKV write the
+// chain weight W of ds = w1 (dw1 - delta1) to Ws (0 on other pairs), DKV also
+// drop2(w2) to Ps, and both return this thread's part of sum ds * s * sq.
+template <int kMode>
+__device__ __forceinline__ float biased_pairs(
+    const BwdTiles& t, const float* lse2_s, const float* delta2_s,
+    const float* __restrict__ bg, unsigned valid, int N, int D, int Dv,
+    int row0, int col0, int metric, float sc, float sqrt_d, int use_dropout,
+    uint32_t mix1, uint32_t mix2, uint32_t keep_thresh, float inv_keep,
+    float (&db)[4][4], float (&d1)[4]) {
+  const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
+  const int PS = BN + 1;
+  float s[4][4], dp[4][4];
+  tile_products(t, D, Dv, s, dp);
+  float dsc = 0.f;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int lr = rg * 4 + a, gr = row0 + lr;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int lc = lane + 16 * b, gc = col0 + lc;
+      float w = 0.f, pd = 0.f;
+      if (valid & (1u << (4 * a + b))) {
+        const float qk = s[a][b];
+        const float qn = t.qn[lr], kn = t.kn[lc];
+        const float sv = score_of(metric, qk, qn, kn, sc, sqrt_d);
+        const float w1 = expf(sv - t.lse[lr]);   // lse1 >= s: w1 <= 1
+        float w1d = w1, dpv = dp[a][b];
+        bool keep1 = true, keep2 = true;
+        if (use_dropout) {
+          keep1 = keep_hash(mix1, (uint32_t)gr, (uint32_t)gc) < keep_thresh;
+          keep2 = keep_hash(mix2, (uint32_t)gr, (uint32_t)gc) < keep_thresh;
+          w1d = keep1 ? w1 * inv_keep : 0.f;
+          dpv = keep2 ? dpv * inv_keep : 0.f;
+        }
+        const float w2 = expf(w1d + bg[(size_t)gr * N + gc] - lse2_s[lr]);
+        const float dz = w2 * (dpv - delta2_s[lr]);
+        const float dw1 = use_dropout ? (keep1 ? dz * inv_keep : 0.f) : dz;
+        if constexpr (kMode == PRE) {
+          db[a][b] += dz;
+          d1[a] = fmaf(w1, dw1, d1[a]);
+        } else {
+          const float ds = w1 * (dw1 - t.delta[lr]);
+          const float sq = fmaxf(qn + kn - 2.f * qk, 0.f);
+          w = chain_weight(metric, ds, sv, sq, qk, sc, sqrt_d);
+          dsc = fmaf(ds * sv, sq, dsc);
+          pd = use_dropout ? (keep2 ? w2 * inv_keep : 0.f) : w2;
+        }
+      }
+      if constexpr (kMode != PRE) t.Ws[lr * PS + lc] = w;
+      if constexpr (kMode == DKV) t.Ps[lr * PS + lc] = pd;
+    }
+  }
+  return dsc;
+}
+
+// B6: one block per (query tile, g); heads innermost at each walked block.
+__global__ void __launch_bounds__(THREADS)
+biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const uint8_t* __restrict__ mask,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse1,
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ delta2,
+                      const int* __restrict__ jlist,
+                      const int* __restrict__ jcount,
+                      const float* __restrict__ scale,
+                      const int* __restrict__ seeds,
+                      float* __restrict__ delta1, float* __restrict__ dbias,
+                      int H, int N, int D, int Dv, int n_i, int W, int metric,
+                      float sqrt_d, int use_dropout, uint32_t keep_thresh,
+                      float inv_keep) {
+  const int ib = blockIdx.x, g = blockIdx.y;
+  const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
+  extern __shared__ float smem[];
+  const BwdTiles t = bwd_tiles(smem, D, Dv);
+  float* lse2_s = smem + bwd_smem_floats(D, Dv);
+  float* delta2_s = lse2_s + BM;
+  float* d1_s = delta2_s + BM;                    // [H][BM]
+  for (int idx = tid; idx < H * BM; idx += THREADS) d1_s[idx] = 0.f;
+
+  const size_t gnn = (size_t)g * N * N;
+  const uint8_t* mg = mask + gnn;
+  const float* bg = bias + gnn;
+  const int row0 = ib * BM;
+  const uint32_t s1 = (uint32_t)seeds[2 * g], s2 = (uint32_t)seeds[2 * g + 1];
+  const int cnt = jcount[(size_t)g * n_i + ib];
+  const int* jl = jlist + ((size_t)g * n_i + ib) * W;
+  for (int step = 0; step < cnt; ++step) {
+    const int col0 = jl[step] * BN;
+    const unsigned valid = valid_bits(mg, N, row0, col0);
+    float db[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) db[a][b] = 0.f;
+    for (int h = 0; h < H; ++h) {
+      const size_t gh = (size_t)g * H + h;
+      __syncthreads();  // the previous head is done with the tiles
+      load_rows(t.Qs, q + gh * N * D, row0, N, D);
+      load_rows(t.dOs, dout + gh * N * Dv, row0, N, Dv);
+      load_rows(t.Ks, k + gh * N * D, col0, N, D);
+      load_rows(t.Vs, v + gh * N * Dv, col0, N, Dv);
+      load_row_stats(t, lse2_s, delta2_s, lse1 + gh * N, lse2 + gh * N,
+                     delta2 + gh * N, nullptr, row0, N);
+      __syncthreads();
+      tile_norms(t, D, true, true);
+      __syncthreads();
+      const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
+      float d1[4] = {0.f, 0.f, 0.f, 0.f};
+      biased_pairs<PRE>(t, lse2_s, delta2_s, bg, valid, N, D, Dv, row0, col0,
+                        metric, scale[h], sqrt_d, use_dropout, s1 ^ hmix,
+                        s2 ^ hmix, keep_thresh, inv_keep, db, d1);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          d1[a] += __shfl_xor_sync(0xffffffffu, d1[a], o);
+        // one writer per (row, head): the row group's lane 0
+        if (lane == 0) d1_s[h * BM + rg * 4 + a] += d1[a];
+      }
+    }
+    // the whole tile, every in-range pair: dz is 0 off the mask
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int gr = row0 + rg * 4 + a;
+      if (gr >= N) continue;
+      float* o = dbias + gnn + (size_t)gr * N;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int gc = col0 + lane + 16 * b;
+        if (gc < N) o[gc] = db[a][b];
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < H * BM; idx += THREADS) {
+    const int h = idx / BM, gr = row0 + idx - h * BM;
+    if (gr < N) delta1[((size_t)g * H + h) * N + gr] = d1_s[idx];
+  }
+}
+
+// B7a: dq and the d(scale) partials over the forward walk.
+template <int LANES>
+__global__ void __launch_bounds__(THREADS)
+biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const uint8_t* __restrict__ mask,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse1,
+                     const float* __restrict__ lse2,
+                     const float* __restrict__ delta2,
+                     const float* __restrict__ delta1,
+                     const int* __restrict__ jlist,
+                     const int* __restrict__ jcount,
+                     const float* __restrict__ scale,
+                     const int* __restrict__ seeds, float* __restrict__ dq,
+                     float* __restrict__ dscale_part, int H, int N, int D,
+                     int Dv, int n_i, int W, int metric, float sqrt_d,
+                     int use_dropout, uint32_t keep_thresh, float inv_keep,
+                     int need_dscale) {
+  const int ib = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
+  const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
+  const int DS = D + 1, PS = BN + 1;
+  extern __shared__ float smem[];
+  const BwdTiles t = bwd_tiles(smem, D, Dv);
+  float* lse2_s = smem + bwd_smem_floats(D, Dv);
+  float* delta2_s = lse2_s + BM;
+
+  const size_t gh = (size_t)g * H + h;
+  const float* kg = k + gh * N * D;
+  const float* vg = v + gh * N * Dv;
+  const uint8_t* mg = mask + (size_t)g * N * N;
+  const float* bg = bias + (size_t)g * N * N;
+  const int row0 = ib * BM;
+  load_rows(t.Qs, q + gh * N * D, row0, N, D);
+  load_rows(t.dOs, dout + gh * N * Dv, row0, N, Dv);
+  load_row_stats(t, lse2_s, delta2_s, lse1 + gh * N, lse2 + gh * N,
+                 delta2 + gh * N, delta1 + gh * N, row0, N);
+  __syncthreads();
+  tile_norms(t, D, true, false);
+
+  const float sc = scale[h];
+  const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
+  const uint32_t mix1 = (uint32_t)seeds[2 * g] ^ hmix;
+  const uint32_t mix2 = (uint32_t)seeds[2 * g + 1] ^ hmix;
+  float acc[4][LANES], wsum[4], db[4][4], d1[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    wsum[a] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < LANES; ++jj) acc[a][jj] = 0.f;
+  }
+  float dsc = 0.f;
+
+  const int cnt = jcount[(size_t)g * n_i + ib];
+  const int* jl = jlist + ((size_t)g * n_i + ib) * W;
+  for (int step = 0; step < cnt; ++step) {
+    const int col0 = jl[step] * BN;
+    const unsigned valid = valid_bits(mg, N, row0, col0);
+    __syncthreads();  // the previous step is done with Ks, Vs and Ws
+    load_rows(t.Ks, kg, col0, N, D);
+    load_rows(t.Vs, vg, col0, N, Dv);
+    __syncthreads();
+    tile_norms(t, D, false, true);
+    __syncthreads();
+    dsc += biased_pairs<DQ>(t, lse2_s, delta2_s, bg, valid, N, D, Dv, row0,
+                            col0, metric, sc, sqrt_d, use_dropout, mix1, mix2,
+                            keep_thresh, inv_keep, db, d1);
+    __syncthreads();
+    for (int j = 0; j < BN; ++j) {
+      float w[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        w[a] = t.Ws[(rg * 4 + a) * PS + j];
+        wsum[a] += w[a];
+      }
+#pragma unroll
+      for (int jj = 0; jj < LANES; ++jj) {
+        const int d = lane + 16 * jj;
+        if (d < D) {
+          const float kv = t.Ks[j * DS + d];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) acc[a][jj] = fmaf(w[a], kv, acc[a][jj]);
+        }
+      }
+    }
+  }
+
+  const bool sqm = is_sq_metric(metric);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int lr = rg * 4 + a, gr = row0 + lr;
+    if (gr >= N) continue;
+    float* o = dq + (gh * N + gr) * D;
+#pragma unroll
+    for (int jj = 0; jj < LANES; ++jj) {
+      const int d = lane + 16 * jj;
+      if (d < D)
+        o[d] = sqm ? acc[a][jj] - wsum[a] * t.Qs[lr * DS + d] : acc[a][jj];
+    }
+  }
+  if (need_dscale) {
+    const float s = block_sum(dsc, t.red);
+    if (tid == 0) dscale_part[gh * n_i + ib] = s * dscale_factor(metric, sc);
+  }
+}
+
+// B7b: dk and dv over the transposed walk.
+template <int LANES>
+__global__ void __launch_bounds__(THREADS)
+biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const uint8_t* __restrict__ mask,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse1,
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ delta2,
+                      const float* __restrict__ delta1,
+                      const int* __restrict__ ilist,
+                      const int* __restrict__ icount,
+                      const float* __restrict__ scale,
+                      const int* __restrict__ seeds, float* __restrict__ dk,
+                      float* __restrict__ dv, int H, int N, int D, int Dv,
+                      int n_j, int W, int metric, float sqrt_d,
+                      int use_dropout, uint32_t keep_thresh, float inv_keep) {
+  const int jb = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
+  const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
+  const int DS = D + 1, VS = Dv + 1, PS = BN + 1;
+  extern __shared__ float smem[];
+  const BwdTiles t = bwd_tiles(smem, D, Dv);
+  float* lse2_s = smem + bwd_smem_floats(D, Dv);
+  float* delta2_s = lse2_s + BM;
+
+  const size_t gh = (size_t)g * H + h;
+  const float* qg = q + gh * N * D;
+  const float* dog = dout + gh * N * Dv;
+  const uint8_t* mg = mask + (size_t)g * N * N;
+  const float* bg = bias + (size_t)g * N * N;
+  const int col0 = jb * BN;
+  load_rows(t.Ks, k + gh * N * D, col0, N, D);
+  load_rows(t.Vs, v + gh * N * Dv, col0, N, Dv);
+  __syncthreads();
+  tile_norms(t, D, false, true);
+
+  const float sc = scale[h];
+  const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
+  const uint32_t mix1 = (uint32_t)seeds[2 * g] ^ hmix;
+  const uint32_t mix2 = (uint32_t)seeds[2 * g + 1] ^ hmix;
+  float dka[4][LANES], dva[4][LANES], wsum[4], db[4][4], d1[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    wsum[a] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < LANES; ++jj) dka[a][jj] = dva[a][jj] = 0.f;
+  }
+
+  const int cnt = icount[(size_t)g * n_j + jb];
+  const int* il = ilist + ((size_t)g * n_j + jb) * W;
+  for (int step = 0; step < cnt; ++step) {
+    const int row0 = il[step] * BM;
+    const unsigned valid = valid_bits(mg, N, row0, col0);
+    __syncthreads();  // the previous step is done with the query side
+    load_rows(t.Qs, qg, row0, N, D);
+    load_rows(t.dOs, dog, row0, N, Dv);
+    load_row_stats(t, lse2_s, delta2_s, lse1 + gh * N, lse2 + gh * N,
+                   delta2 + gh * N, delta1 + gh * N, row0, N);
+    __syncthreads();
+    tile_norms(t, D, true, false);
+    __syncthreads();
+    biased_pairs<DKV>(t, lse2_s, delta2_s, bg, valid, N, D, Dv, row0, col0,
+                      metric, sc, sqrt_d, use_dropout, mix1, mix2,
+                      keep_thresh, inv_keep, db, d1);
+    __syncthreads();
+    for (int i = 0; i < BM; ++i) {
+      float w[4], p[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        w[a] = t.Ws[i * PS + rg * 4 + a];
+        p[a] = t.Ps[i * PS + rg * 4 + a];
+        wsum[a] += w[a];
+      }
+#pragma unroll
+      for (int jj = 0; jj < LANES; ++jj) {
+        const int d = lane + 16 * jj;
+        if (d < D) {
+          const float qv = t.Qs[i * DS + d];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) dka[a][jj] = fmaf(w[a], qv, dka[a][jj]);
+        }
+        if (d < Dv) {
+          const float ov = t.dOs[i * VS + d];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) dva[a][jj] = fmaf(p[a], ov, dva[a][jj]);
+        }
+      }
+    }
+  }
+
+  const bool sqm = is_sq_metric(metric);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int lc = rg * 4 + a, gc = col0 + lc;
+    if (gc >= N) continue;
+    float* ok = dk + (gh * N + gc) * D;
+    float* ov = dv + (gh * N + gc) * Dv;
+#pragma unroll
+    for (int jj = 0; jj < LANES; ++jj) {
+      const int d = lane + 16 * jj;
+      if (d < D)
+        ok[d] = sqm ? dka[a][jj] - wsum[a] * t.Ks[lc * DS + d] : dka[a][jj];
+      if (d < Dv) ov[d] = dva[a][jj];
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+bool bad_args(int G, int H, int N, int D, int Dv, int n_tiles, int W,
+              int metric) {
+  return G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
+         Dv > MAX_D || metric < 0 || metric > COS_DIST ||
+         n_tiles != (N + BM - 1) / BM || W < 0;
+}
+
+}  // namespace
+
+// B6: delta1 [G, H, N] and dB [G, N, N] (written on the walked blocks only)
+// over the forward walk (jlist, jcount), given lse1, lse2 and delta2
+// [G, H, N] and two seeds per g, [G, 2].
+extern "C" int tagan_flash_biased_bwd_pre(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* jlist, const void* jcount,
+    const void* scale, const void* seeds, void* delta1, void* dbias, int G,
+    int H, int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
+  if (bad_args(G, H, N, D, Dv, n_i, W, metric))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const size_t smem = sizeof(float) * biased_smem_floats(D, Dv, H, true);
+  const cudaError_t e = prepare(biased_bwd_pre_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  biased_bwd_pre_kernel<<<dim3(n_i, G), THREADS, smem,
+                          (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v,
+      (const uint8_t*)mask, (const float*)bias, (const float*)dout,
+      (const float*)lse1, (const float*)lse2, (const float*)delta2,
+      (const int*)jlist, (const int*)jcount, (const float*)scale,
+      (const int*)seeds, (float*)delta1, (float*)dbias, H, N, D, Dv, n_i, W,
+      metric, sqrt_d, use_dropout, keep_thresh, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+// B7a: dq [G, H, N, D] and, with need_dscale, the d(scale) partials
+// [G, H, n_i] of the forward walk, given B6's delta1.
+extern "C" int tagan_flash_biased_bwd_dq(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* jlist,
+    const void* jcount, const void* scale, const void* seeds, void* dq,
+    void* dscale_part, int G, int H, int N, int D, int Dv, int n_i, int W,
+    int metric, float sqrt_d, int use_dropout, unsigned int keep_thresh,
+    float inv_keep, int need_dscale, void* stream) {
+  if (bad_args(G, H, N, D, Dv, n_i, W, metric))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const size_t smem = sizeof(float) * biased_smem_floats(D, Dv, H, false);
+  const dim3 grid(n_i, H, G);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes_for(D)) {
+#define TAGAN_BDQ(L)                                                         \
+  case L: {                                                                  \
+    const cudaError_t e = prepare(biased_bwd_dq_kernel<L>, smem);            \
+    if (e != cudaSuccess) return (int)e;                                     \
+    biased_bwd_dq_kernel<L><<<grid, THREADS, smem, s>>>(                     \
+        (const float*)q, (const float*)k, (const float*)v,                   \
+        (const uint8_t*)mask, (const float*)bias, (const float*)dout,        \
+        (const float*)lse1, (const float*)lse2, (const float*)delta2,        \
+        (const float*)delta1, (const int*)jlist, (const int*)jcount,         \
+        (const float*)scale, (const int*)seeds, (float*)dq,                  \
+        (float*)dscale_part, H, N, D, Dv, n_i, W, metric, sqrt_d,            \
+        use_dropout, keep_thresh, inv_keep, need_dscale);                    \
+    return (int)cudaGetLastError();                                          \
+  }
+    TAGAN_BDQ(1) TAGAN_BDQ(2) TAGAN_BDQ(4) TAGAN_BDQ(8)
+#undef TAGAN_BDQ
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// B7b: dk [G, H, N, D] and dv [G, H, N, Dv] over the transposed walk
+// (ilist, icount), given B6's delta1.
+extern "C" int tagan_flash_biased_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* ilist,
+    const void* icount, const void* scale, const void* seeds, void* dk,
+    void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  if (bad_args(G, H, N, D, Dv, n_j, W, metric))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const size_t smem = sizeof(float) * biased_smem_floats(D, Dv, H, false);
+  const dim3 grid(n_j, H, G);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes_for(D > Dv ? D : Dv)) {
+#define TAGAN_BDKV(L)                                                         \
+  case L: {                                                                   \
+    const cudaError_t e = prepare(biased_bwd_dkv_kernel<L>, smem);            \
+    if (e != cudaSuccess) return (int)e;                                      \
+    biased_bwd_dkv_kernel<L><<<grid, THREADS, smem, s>>>(                     \
+        (const float*)q, (const float*)k, (const float*)v,                    \
+        (const uint8_t*)mask, (const float*)bias, (const float*)dout,         \
+        (const float*)lse1, (const float*)lse2, (const float*)delta2,         \
+        (const float*)delta1, (const int*)ilist, (const int*)icount,          \
+        (const float*)scale, (const int*)seeds, (float*)dk, (float*)dv, H, N, \
+        D, Dv, n_j, W, metric, sqrt_d, use_dropout, keep_thresh, inv_keep);   \
+    return (int)cudaGetLastError();                                           \
+  }
+    TAGAN_BDKV(1) TAGAN_BDKV(2) TAGAN_BDKV(4) TAGAN_BDKV(8)
+#undef TAGAN_BDKV
+  }
+  return (int)cudaErrorInvalidValue;
+}

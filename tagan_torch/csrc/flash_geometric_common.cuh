@@ -1,6 +1,7 @@
 // Device helpers shared by the flash geometric attention kernels:
 // flash_geometric_fwd.cu (forward), flash_geometric_bwd.cu (two-walk
-// backward) and flash_geometric_bwd_fused.cu (single-walk backward).
+// backward), flash_geometric_bwd_fused.cu (single-walk backward) and the
+// edge-biased flash_biased_fwd.cu and flash_biased_bwd.cu.
 //
 // The metric scores, the dropout hash and the backward's recompute of one
 // (64-query tile, 64-key tile) pair. Every kernel takes the folded layout
@@ -177,22 +178,14 @@ __device__ __forceinline__ void tile_norms(const BwdTiles& t, int D,
   }
 }
 
-// The recompute of one pair of tiles. Thread (rg, lane) owns query rows
-// 4*rg..4*rg+3 and keys lane + 16*b (b < 4). For each valid pair (mask
-// set, both indices < N) it forms
-//   p  = exp(s - lse_i),  dp = drop(do_i . v_j),  ds = p (dp - delta_i)
-// and writes W_ij to Ws and, with kWantP, drop(p)_ij to Ps; invalid pairs
-// write 0. p is formed only on valid pairs, where lse_i >= s_ij, so no
-// exp of a large positive number is taken (dead rows have no valid pair).
-// Returns this thread's part of sum ds * s * sq (the dscale numerator).
-template <bool kWantP>
-__device__ __forceinline__ float pair_weights(
-    const BwdTiles& t, const uint8_t* __restrict__ mg, int N, int D, int Dv,
-    int row0, int col0, int metric, float sc, float sqrt_d, int use_dropout,
-    uint32_t mix, uint32_t keep_thresh, float inv_keep) {
+// The products of one pair of tiles for thread (rg, lane), which owns
+// query rows 4*rg..4*rg+3 and keys lane + 16*b (b < 4):
+// s[a][b] = q . k and dp[a][b] = do . v of those rows and keys.
+__device__ __forceinline__ void tile_products(const BwdTiles& t, int D, int Dv,
+                                              float (&s)[4][4],
+                                              float (&dp)[4][4]) {
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
-  const int DS = D + 1, VS = Dv + 1, PS = BN + 1;
-  float s[4][4], dp[4][4];
+  const int DS = D + 1, VS = Dv + 1;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -222,6 +215,25 @@ __device__ __forceinline__ float pair_weights(
 #pragma unroll
       for (int b = 0; b < 4; ++b) dp[a][b] = fmaf(ov[a], vv[b], dp[a][b]);
   }
+}
+
+// The recompute of one pair of tiles. Thread (rg, lane) owns query rows
+// 4*rg..4*rg+3 and keys lane + 16*b (b < 4). For each valid pair (mask
+// set, both indices < N) it forms
+//   p  = exp(s - lse_i),  dp = drop(do_i . v_j),  ds = p (dp - delta_i)
+// and writes W_ij to Ws and, with kWantP, drop(p)_ij to Ps; invalid pairs
+// write 0. p is formed only on valid pairs, where lse_i >= s_ij, so no
+// exp of a large positive number is taken (dead rows have no valid pair).
+// Returns this thread's part of sum ds * s * sq (the dscale numerator).
+template <bool kWantP>
+__device__ __forceinline__ float pair_weights(
+    const BwdTiles& t, const uint8_t* __restrict__ mg, int N, int D, int Dv,
+    int row0, int col0, int metric, float sc, float sqrt_d, int use_dropout,
+    uint32_t mix, uint32_t keep_thresh, float inv_keep) {
+  const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
+  const int PS = BN + 1;
+  float s[4][4], dp[4][4];
+  tile_products(t, D, Dv, s, dp);
   float dsc = 0.f;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {

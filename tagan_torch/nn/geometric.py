@@ -144,7 +144,7 @@ class GeometricAttention(nn.Module):
         the dense path; mahalanobis runs euclidean in factor space
         (|Fq - Fk|^2 = maha(q, k; F^T F)). ``bias`` [..., N, N] is the
         dense path's ``geometric_bias``, served by the edge-biased
-        kernels (forward only)."""
+        kernels (forward and backward)."""
         plan, plan_t = FG.make_block_plans_from_mask(mask)
         return self._apply_flash(x, mask, plan, plan_t, generator, bias)
 

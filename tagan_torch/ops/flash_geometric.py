@@ -11,10 +11,12 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B3b  _flash_bwd_dkv_kernel    csrc/flash_geometric_bwd.cu
     B4   _lse1_kernel             csrc/flash_biased_fwd.cu
     B5   _flash_biased_kernel     csrc/flash_biased_fwd.cu
+    B6   _biased_bwd_pre_kernel   csrc/flash_biased_bwd.cu
+    B7a  _biased_bwd_dq_kernel    csrc/flash_biased_bwd.cu
+    B7b  _biased_bwd_dkv_kernel   csrc/flash_biased_bwd.cu
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
-dense path's double softmax; its backward (B6, B7a, B7b) is not ported
-yet and raises.
+dense path's double softmax, and B6, B7a and B7b its backward.
 
 Supported metrics are those written through the cross term q.k and the
 row norms (``MXU_METRICS``); cosine metrics run on L2-normalised q/k;
@@ -366,6 +368,158 @@ def flash_biased_forward_plain(
         lses.append(torch.where(dead, torch.full_like(m, LSE_DEAD),
                                 m + torch.log(safe))[..., 0])
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def _biased_chunks(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
+                   scale, dropout_rate, seeds):
+    """The biased backward's recompute (the TPU kernels'
+    ``_bwd_biased_common``) over the row chunks of the plain forward:
+    per chunk (r0, r1, w1, dw1, dz, w2d, s, sq, qk) [G, H, r1 - r0, N],
+    with w1 = exp(s - lse1) on the mask, z = drop1(w1) + bias, w2 =
+    exp(z - lse2), dz = w2 (drop2(do v^T) - delta2), dw1 = drop1(dz) and
+    w2d = drop2(w2); all 0 off the mask."""
+    G, H, N, D = q.shape
+    sc = scale.reshape(1, H, 1, 1)
+    thresh = _keep_thresh(dropout_rate)
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    for r0 in range(0, N, _ROW_CHUNK):
+        r1 = min(N, r0 + _ROW_CHUNK)
+        qk, sq = _qk_sq(metric, q[:, :, r0:r1], k)
+        s = _scores_from(metric, qk, sq, sc, D)
+        valid = mask[:, None, r0:r1, :] != 0
+        neg = torch.full_like(s, NEG_INF)
+        w1 = torch.exp(torch.where(valid, s - lse1[:, :, r0:r1, None], neg))
+        dp2 = do[:, :, r0:r1] @ v.transpose(-1, -2)
+        w1d = w1
+        if dropout_rate > 0.0:
+            keep1 = _keep_rows(seeds[:, 0], H, r0, r1, N, q.device) < thresh
+            keep2 = _keep_rows(seeds[:, 1], H, r0, r1, N, q.device) < thresh
+            w1d = torch.where(keep1, w1 * inv_keep, torch.zeros_like(w1))
+            dp2 = torch.where(keep2, dp2 * inv_keep, torch.zeros_like(dp2))
+        z = torch.where(valid, w1d + bias[:, None, r0:r1, :], neg)
+        w2 = torch.exp(z - lse2[:, :, r0:r1, None])
+        dz = w2 * (dp2 - delta2[:, :, r0:r1, None])
+        dw1, w2d = dz, w2
+        if dropout_rate > 0.0:
+            dw1 = torch.where(keep1, dz * inv_keep, torch.zeros_like(dz))
+            w2d = torch.where(keep2, w2 * inv_keep, torch.zeros_like(w2))
+        yield r0, r1, w1, dw1, dz, w2d, s, sq, qk
+
+
+def _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
+                      scale, dropout_rate, seeds, delta1=None,
+                      need_dscale=False, parts=("pre", "dq", "dkv")):
+    """The plain biased backward over row chunks; ``parts`` picks what is
+    formed: "pre" (delta1, dB), "dq" (dq, dscale), "dkv" (dk, dv).
+    ``delta1`` None takes each chunk's own row sums (the whole walk);
+    given, it is used as it is, as in B7a and B7b. Returns a dict."""
+    G, H, N, D = q.shape
+    if scale is None:
+        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    if seeds is None:
+        seeds = torch.zeros((G, 2), dtype=torch.int32, device=q.device)
+    sc = scale.reshape(1, H, 1, 1)
+    sq_metric = metric in _SQ_METRICS
+    res = {}
+    if "pre" in parts:
+        res["delta1"] = torch.empty(G, H, N, dtype=q.dtype, device=q.device)
+        res["dbias"] = torch.empty(G, N, N, dtype=q.dtype, device=q.device)
+    if "dq" in parts:
+        res["dq"] = torch.empty_like(q)
+        dsc = torch.zeros(H, dtype=q.dtype, device=q.device)
+    if "dkv" in parts:
+        res["dk"], res["dv"] = torch.zeros_like(k), torch.zeros_like(v)
+        wcol = torch.zeros(G, H, N, dtype=q.dtype, device=q.device)
+    for r0, r1, w1, dw1, dz, w2d, s, sq, qk in _biased_chunks(
+            q, k, v, mask, bias, do, lse1, lse2, delta2, metric, scale,
+            dropout_rate, seeds):
+        d1 = (w1 * dw1).sum(-1) if delta1 is None else delta1[:, :, r0:r1]
+        if "pre" in parts:
+            res["delta1"][:, :, r0:r1] = d1
+            res["dbias"][:, r0:r1] = dz.sum(1)
+        if "dq" not in parts and "dkv" not in parts:
+            continue
+        ds = w1 * (dw1 - d1[..., None])
+        w = _chain_weight(metric, ds, s, sq, qk, sc, D)
+        qc = q[:, :, r0:r1]
+        if "dq" in parts:
+            dqc = w @ k
+            if sq_metric:
+                dqc = dqc - w.sum(-1, keepdim=True) * qc
+            res["dq"][:, :, r0:r1] = dqc
+            if need_dscale:
+                dsc += (ds * s * sq).sum((0, 2, 3))
+        if "dkv" in parts:
+            res["dk"] += w.transpose(-1, -2) @ qc
+            res["dv"] += w2d.transpose(-1, -2) @ do[:, :, r0:r1]
+            if sq_metric:
+                wcol += w.sum(-2)
+    if "dkv" in parts and sq_metric:
+        res["dk"] -= wcol[..., None] * k
+    if "dq" in parts:
+        res["dscale"] = None
+        if need_dscale:
+            res["dscale"] = dsc / scale ** 3 \
+                if metric == "gaussian_kernel" else -dsc
+    return res
+
+
+def flash_biased_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    bias: torch.Tensor, out: torch.Tensor, lse1: torch.Tensor,
+    lse2: torch.Tensor, do: torch.Tensor, metric: str,
+    scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+    seeds: Optional[torch.Tensor] = None, need_dscale: bool = False,
+):
+    """What B6, B7a and B7b compute together (the TPU package's
+    ``flash_biased_attention_bwd``), written out over the row chunks of
+    `flash_biased_forward_plain` (not autograd of it: the kernels' chain
+    takes the clamp max(sq, 0) as the identity). Per pair on the mask,
+    w1 = exp(s - lse1), z = drop1(w1) + bias, w2 = exp(z - lse2),
+    dz = w2 (drop2(do v^T) - delta2) with delta2 = rowsum(do out),
+    dw1 = drop1(dz); then delta1 = rowsum(w1 dw1), dB = sum_h dz, ds =
+    w1 (dw1 - delta1), the metric chain (`_chain_weight`) to dq and dk,
+    dv = drop2(w2)^T do, and for gaussian/rbf dscale as in
+    `flash_geometric_backward_plain`. Shapes as in
+    `flash_biased_forward_plain`; out and do like the forward's out.
+    Returns (dq, dk, dv, dB f32[G, N, N] (0 off the mask), dscale f32[H]
+    or None). Cosine metrics expect q/k already normalised."""
+    r = _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2,
+                          (do * out).sum(-1), metric, scale, dropout_rate,
+                          seeds, need_dscale=need_dscale)
+    return r["dq"], r["dk"], r["dv"], r["dbias"], r["dscale"]
+
+
+def flash_biased_bwd_pre_plain(q, k, v, mask, bias, do, lse1, lse2, delta2,
+                               metric: str, scale=None,
+                               dropout_rate: float = 0.0, seeds=None):
+    """What B6 computes: (delta1 f32[G, H, N], dB f32[G, N, N]) given
+    lse1, lse2 and delta2 [G, H, N] (dB 0 off the mask)."""
+    r = _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
+                          scale, dropout_rate, seeds, parts=("pre",))
+    return r["delta1"], r["dbias"]
+
+
+def flash_biased_bwd_dq_plain(q, k, v, mask, bias, do, lse1, lse2, delta2,
+                              delta1, metric: str, scale=None,
+                              dropout_rate: float = 0.0, seeds=None,
+                              need_dscale: bool = False):
+    """What B7a computes: (dq, dscale f32[H] or None) given B6's
+    delta1."""
+    r = _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
+                          scale, dropout_rate, seeds, delta1, need_dscale,
+                          ("dq",))
+    return r["dq"], r["dscale"]
+
+
+def flash_biased_bwd_dkv_plain(q, k, v, mask, bias, do, lse1, lse2, delta2,
+                               delta1, metric: str, scale=None,
+                               dropout_rate: float = 0.0, seeds=None):
+    """What B7b computes: (dk, dv) given B6's delta1."""
+    r = _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
+                          scale, dropout_rate, seeds, delta1,
+                          parts=("dkv",))
+    return r["dk"], r["dv"]
 
 
 def _clip_grad(x: torch.Tensor) -> torch.Tensor:
@@ -742,15 +896,116 @@ class _FlashBiasedKernel(_CudaKernel):
         return out, lse2
 
 
+class _FlashBiasedBackwardKernel(_CudaKernel):
+    """Shared checks of the biased backward kernels B6, B7a and B7b: q, k
+    [G, H, N, D], v, do [G, H, N, Dv], bias [G, N, N], lse1, lse2, delta2
+    (and delta1) [G, H, N], the walk (lst, cnt), scale f32[H], seeds
+    i32[G, 2]."""
+    source = "flash_biased_bwd"
+
+    def _check(self, q, k, v, mask, bias, do, rows, lst, cnt, scale, seeds):
+        dev = self._device_of(self.name, q)
+        G, H, N, D, n, W = _check_walk(self.name, dev, q, mask, lst, cnt)
+        Dv = v.shape[-1]
+        _check_args(self.name, dev, (
+            ("k", k, torch.float32, (G, H, N, D)),
+            ("v", v, torch.float32, (G, H, N, Dv)),
+            ("bias", bias, torch.float32, (G, N, N)),
+            ("do", do, torch.float32, (G, H, N, Dv)),
+            *((label, t, torch.float32, (G, H, N)) for label, t in rows),
+            ("scale", scale, torch.float32, (H,)),
+            ("seeds", seeds, torch.int32, (G, 2))))
+        self._check_dims(self.name, mask, D, Dv)
+        return dev, (G, H, N, D, Dv, n, W)
+
+
+class _FlashBiasedBwdPreKernel(_FlashBiasedBackwardKernel):
+    """B6, ``tagan_flash_biased_bwd_pre``: (delta1 [G, H, N], dB
+    [G, N, N]) over the forward walk, heads innermost. dB is written on
+    the walked 64 x 64 blocks only (every pair there, 0 off the mask);
+    elsewhere it is left unset. Deterministic."""
+    name = "flash_biased_bwd_pre"
+    symbol = "tagan_flash_biased_bwd_pre"
+    argtypes = (_P,) * 15 + (_I,) * 8 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, jlist,
+                 jcount, metric: str, scale, seeds, dropout_rate: float):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2))
+        dev, (G, H, N, D, Dv, n_i, W) = self._check(
+            q, k, v, mask, bias, do, rows, jlist, jcount, scale, seeds)
+        delta1 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        dbias = torch.empty((G, N, N), dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, mask, bias, do, lse1, lse2, delta2, jlist, jcount, scale,
+            seeds, delta1, dbias)), G, H, N, D, Dv, n_i, W,
+            MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate))
+        return delta1, dbias
+
+
+class _FlashBiasedBwdDqKernel(_FlashBiasedBackwardKernel):
+    """B7a, ``tagan_flash_biased_bwd_dq``: dq (and dscale) over the
+    forward walk, given B6's delta1. Deterministic."""
+    name = "flash_biased_bwd_dq"
+    symbol = "tagan_flash_biased_bwd_dq"
+    argtypes = (_P,) * 16 + (_I,) * 8 + (_F, _I, _U, _F, _I)
+
+    def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, delta1,
+                 jlist, jcount, metric: str, scale, seeds,
+                 dropout_rate: float, need_dscale: bool):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
+                ("delta1", delta1))
+        dev, (G, H, N, D, Dv, n_i, W) = self._check(
+            q, k, v, mask, bias, do, rows, jlist, jcount, scale, seeds)
+        dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        part = torch.empty((G, H, n_i) if need_dscale else (1,),
+                           dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, mask, bias, do, lse1, lse2, delta2, delta1, jlist,
+            jcount, scale, seeds, dq, part)), G, H, N, D, Dv, n_i, W,
+            MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate), int(need_dscale))
+        return dq, (part.sum((0, 2)) if need_dscale else None)
+
+
+class _FlashBiasedBwdDkvKernel(_FlashBiasedBackwardKernel):
+    """B7b, ``tagan_flash_biased_bwd_dkv``: dk and dv over the transposed
+    walk (ilist, icount), given B6's delta1. Deterministic."""
+    name = "flash_biased_bwd_dkv"
+    symbol = "tagan_flash_biased_bwd_dkv"
+    argtypes = (_P,) * 16 + (_I,) * 8 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, delta1,
+                 ilist, icount, metric: str, scale, seeds,
+                 dropout_rate: float):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
+                ("delta1", delta1))
+        dev, (G, H, N, D, Dv, n_j, W) = self._check(
+            q, k, v, mask, bias, do, rows, ilist, icount, scale, seeds)
+        dk = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        dv = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, mask, bias, do, lse1, lse2, delta2, delta1, ilist,
+            icount, scale, seeds, dk, dv)), G, H, N, D, Dv, n_j, W,
+            MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate))
+        return dk, dv
+
+
 flash_geometric_fwd_kernel = _FlashForwardKernel()
 flash_geometric_bwd_fused_kernel = _FlashBwdFusedKernel()
 flash_geometric_bwd_dq_kernel = _FlashBwdDqKernel()
 flash_geometric_bwd_dkv_kernel = _FlashBwdDkvKernel()
 flash_lse1_kernel = _FlashLse1Kernel()
 flash_biased_fwd_kernel = _FlashBiasedKernel()
+flash_biased_bwd_pre_kernel = _FlashBiasedBwdPreKernel()
+flash_biased_bwd_dq_kernel = _FlashBiasedBwdDqKernel()
+flash_biased_bwd_dkv_kernel = _FlashBiasedBwdDkvKernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
-           flash_lse1_kernel, flash_biased_fwd_kernel)
+           flash_lse1_kernel, flash_biased_fwd_kernel,
+           flash_biased_bwd_pre_kernel, flash_biased_bwd_dq_kernel,
+           flash_biased_bwd_dkv_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -962,29 +1217,97 @@ def flash_biased_fwd(q, k, v, mask, bias, jlist, jcount, *, metric: str,
                            dropout_rate, seeds)
 
 
+def _biased_backward(q, k, v, mask, bias, out, lse1, lse2, do, plan, plan_t,
+                     metric, scale, dropout_rate, seeds, need_dscale):
+    """(dq, dk, dv, dB, dscale or None) of folded inputs: B6, B7a then B7b
+    for CUDA tensors, the plain version for CPU tensors; trusts the
+    plans. ``plan_t`` None is built from the mask. On CUDA, dB is set
+    on the walked 64 x 64 blocks only (the TPU kernels' contract: read
+    it at the mask's pairs); the plain version sets it everywhere."""
+    if q.device.type == "cpu":
+        return flash_biased_backward_plain(q, k, v, mask, bias, out, lse1,
+                                           lse2, do, metric, scale,
+                                           dropout_rate, seeds, need_dscale)
+    delta2 = (do * out).sum(-1).contiguous()
+    if plan_t is None:
+        plan_t = _transposed_plan(mask)
+    rows = (lse1, lse2, delta2)
+    delta1, dbias = flash_biased_bwd_pre_kernel(
+        q, k, v, mask, bias, do, *rows, *plan, metric, scale, seeds,
+        dropout_rate)
+    dq, dscale = flash_biased_bwd_dq_kernel(
+        q, k, v, mask, bias, do, *rows, delta1, *plan, metric, scale, seeds,
+        dropout_rate, need_dscale)
+    dk, dv = flash_biased_bwd_dkv_kernel(
+        q, k, v, mask, bias, do, *rows, delta1, *plan_t, metric, scale,
+        seeds, dropout_rate)
+    return dq, dk, dv, dbias, dscale
+
+
+def flash_biased_attention_bwd(
+    q, k, v, bias, mask, out, lse1, lse2, do, *,
+    metric: str = "scaled_dot_product", scale: Optional[torch.Tensor] = None,
+    plan=None, plan_t=None, seeds: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0, need_dscale: bool = False,
+):
+    """The backward of the batched edge-biased forward (the TPU package's
+    ``flash_biased_attention_bwd``): (dq, dk, dv, dB), plus dscale f32[H]
+    with ``need_dscale``. Folded shapes as in `flash_biased_fwd`; out,
+    lse1 and lse2 are the forward's, do the cotangent of out. Cosine
+    metrics expect q/k already normalised. Plans given by the caller are
+    checked; missing ones are built from the mask. CPU tensors take the
+    plain version, CUDA tensors B6, B7a and B7b. dB [G, N, N] is defined
+    at the mask's pairs (and, on CUDA, on every pair of a walked 64 x 64
+    block); read it there only."""
+    N = q.shape[2]
+    if plan is None:
+        plan, plan_t = make_block_plans_from_mask(mask)
+    else:
+        check_plan(*plan, N)
+        if plan_t is not None:
+            check_plan(*plan_t, N)
+    scale, _ = _defaults(q, scale, None)
+    if seeds is None:
+        seeds = biased_seeds(None, q.shape[0], q.device)
+    dq, dk, dv, dbias, dscale = _biased_backward(
+        q, k, v, mask, bias, out, lse1, lse2, do, plan, plan_t, metric,
+        scale, dropout_rate, seeds, need_dscale)
+    return (dq, dk, dv, dbias) + ((dscale,) if need_dscale else ())
+
+
 class _FlashBiasedAttention(torch.autograd.Function):
-    """The edge-biased forward of folded inputs (the forward half of the
-    TPU package's ``_flash_diff_biased``): B4 then B5, or the plain
-    versions on the CPU. It has no backward yet."""
+    """The edge-biased attention of folded inputs (the TPU package's
+    ``_flash_diff_biased``): B4 then B5 forward, B6, B7a and B7b
+    backward (or the plain versions on the CPU). The backward reads the
+    dropout seeds saved by the forward. dscale is formed only when the
+    scale requires grad, dB only when the bias does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, bias, mask, jlist, jcount, seeds,
-                metric, dropout_rate):
+    def forward(ctx, q, k, v, scale, bias, mask, jlist, jcount, ilist, icount,
+                seeds, metric, dropout_rate):
         out, lse1, lse2 = _biased_forward(q, k, v, mask, bias, jlist, jcount,
                                           metric, scale, dropout_rate, seeds)
-        ctx.save_for_backward(lse1, lse2)
+        # the bias as given: no second copy of the [G, N, N] matrix
+        ctx.save_for_backward(q, k, v, scale, bias, mask, out, lse1, lse2,
+                              jlist, jcount, ilist, icount, seeds)
+        ctx.args = (metric, dropout_rate)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        # autograd of the plain forward is no substitute: it is a backward
-        # the TPU package does not have, and it differs from the kernels'
-        # chain at the clamp max(sq, 0)
-        raise NotImplementedError(
-            "the backward of the edge-biased flash attention needs kernels "
-            "B6 (_biased_bwd_pre_kernel), B7a and B7b (_biased_bwd_dq_kernel"
-            ", _biased_bwd_dkv_kernel), which are not ported yet; train "
-            "edge-feature models on the 'dense' or 'csr' backend")
+        (q, k, v, scale, bias, mask, out, lse1, lse2, jlist, jcount, ilist,
+         icount, seeds) = ctx.saved_tensors
+        metric, dropout_rate = ctx.args
+        need_dscale = ctx.needs_input_grad[3] and metric in SCALED_METRICS
+        dq, dk, dv, dbias, dscale = _biased_backward(
+            q, k, v, mask, bias, out, lse1, lse2, dout.contiguous(),
+            (jlist, jcount), None if ilist is None else (ilist, icount),
+            metric, scale, dropout_rate, seeds, need_dscale)
+        if ctx.needs_input_grad[3] and dscale is None:
+            dscale = torch.zeros_like(scale)
+        if not ctx.needs_input_grad[4]:
+            dbias = None
+        return (dq, dk, dv, dscale, dbias) + (None,) * 8
 
 
 def flash_geometric_attention(
@@ -1012,8 +1335,11 @@ def flash_geometric_attention(
     ``bias`` [..., N, N] (shared by the heads) takes the edge-biased
     variant, the dense path's double softmax: out = drop2(softmax(
     drop1(softmax(s)) + bias)) @ v over the mask, through kernels B4 and
-    B5, with the two dropout seeds of `biased_seeds`. It returns out
-    only and has no backward yet."""
+    B5 and, under autograd, B6, B7a and B7b
+    (`flash_biased_attention_bwd`), with the two dropout seeds of
+    `biased_seeds`. It returns out only; the bias gets its gradient at
+    the mask's pairs, which are the only ones its result depends on
+    (elsewhere it is unset on CUDA: read it there only)."""
     if bias is not None and return_lse:
         raise ValueError("return_lse is not available with bias")
     if plan is None:
@@ -1062,8 +1388,8 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
         out = _FlashBiasedAttention.apply(
             qf, kf, vf, scale,
             bias.to(torch.float32).reshape(G, N, N).contiguous(), mf,
-            *fold_plan(plan), biased_seeds(dropout_seed, G, q.device),
-            metric, dropout_rate)
+            *fold_plan(plan), *fold_plan(plan_t),
+            biased_seeds(dropout_seed, G, q.device), metric, dropout_rate)
         return out.reshape(*lead, H, N, Dv)
     out, lse = _FlashAttention.apply(
         qf, kf, vf, scale, mf, *fold_plan(plan), *fold_plan(plan_t),

@@ -126,14 +126,6 @@ class TAGANTrainer:
     def __init__(self, model: TAGAN,
                  experiment: Optional[ExperimentConfig] = None,
                  generator: Optional[torch.Generator] = None):
-        c = model.config
-        if (c.spatial_backend == "flash" and c.use_edge_features
-                and c.edge_feature_dim > 0):
-            raise NotImplementedError(
-                "training the edge-feature model on the flash backend needs "
-                "the edge-biased backward kernels B6 (_biased_bwd_pre_kernel)"
-                ", B7a and B7b (_biased_bwd_dq/_dkv_kernel), which are not "
-                "ported yet; train it on the 'dense' or 'csr' backend")
         self.model = model
         self.config = model.config
         self.device = model.device

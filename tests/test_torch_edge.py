@@ -142,17 +142,35 @@ def test_biased_folds_leading_dims_and_cpu_takes_plain():
         TFG.flash_geometric_attention(*one[:4], bias=one[4], return_lse=True)
 
 
-def test_biased_backward_raises():
-    """The edge-biased flash forward has no backward yet: autograd
-    raises, naming the kernels it waits for, instead of differentiating
-    the plain forward."""
-    q, k, v, adj, bias = (_t(a)[None] for a in _bias_data(N=20))
-    q.requires_grad_()
-    b = bias.clone().requires_grad_()
-    out = TFG.flash_geometric_attention(q, k, v, adj, metric="euclidean",
-                                        bias=b)
-    with pytest.raises(NotImplementedError, match="B6"):
-        out.sum().backward()
+def test_biased_backward_matches_plain():
+    """The edge-biased flash attention under autograd (on CPU tensors)
+    gives the plain biased backward's dq, dk, dv and dB, with dropout and
+    folded leading dims; a bias that requires no grad gets none."""
+    slices = [_bias_data(seed=s, N=20) for s in range(2)]
+    q, k, v, adj, bias = (_t(np.stack([s[i] for s in slices]))
+                          for i in range(5))
+    do = _t(np.random.default_rng(3).standard_normal(
+        v.shape).astype(np.float32))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    seed = torch.tensor([11, -12], dtype=torch.int32)
+    out = TFG.flash_geometric_attention(*leaves[:3], adj, metric="euclidean",
+                                        dropout_rate=0.2, dropout_seed=seed,
+                                        bias=leaves[3])
+    (out * do).sum().backward()
+    seeds = TFG.biased_seeds(seed, 2, "cpu")
+    fwd = TFG.flash_biased_fwd(q, k, v, adj, bias, *TFG.make_block_plan(adj),
+                               metric="euclidean", dropout_rate=0.2,
+                               seeds=seeds)
+    want = TFG.flash_biased_backward_plain(
+        q, k, v, adj, bias, fwd[0], fwd[1], fwd[2], do, "euclidean", None,
+        0.2, seeds)
+    for t, w in zip(leaves, want):
+        torch.testing.assert_close(t.grad, w, rtol=0, atol=0)
+    assert bool((leaves[3].grad != 0).any())
+    q2 = q.clone().requires_grad_()
+    TFG.flash_geometric_attention(q2, k, v, adj, metric="euclidean",
+                                  bias=bias).sum().backward()
+    assert bias.grad is None and torch.isfinite(q2.grad).all()
 
 
 # ---------------------------------------------------------------------------
@@ -363,11 +381,12 @@ def _check_grads(got, want):
             assert (g - w).abs().max().item() <= TOL * m, name
 
 
-@pytest.mark.parametrize("backend", ["dense", "csr"])
-def test_edge_model_gradients_match_jax(backend):
+@pytest.mark.parametrize("backend", ["dense", "csr", "flash"])
+def test_edge_model_gradients_match_jax(backend, interpret):
     """d(batch loss)/d(every parameter), edge_embedding and each layer's
-    edge_bias included, against jax.grad: the dense and csr backends
-    train edge-feature models through autograd of plain torch."""
+    edge_bias included, against jax.grad, with duplicate edges and a
+    self edge: dense and csr through autograd of plain torch, flash
+    through the biased backward (dB read at the edges' pairs)."""
     seqs = _edge_sequences(9, duplicates=True)
     jm, jp, tm = _models(spatial_backend=backend)
     jb, tb = _batches(seqs, backend == "dense")
@@ -380,7 +399,9 @@ def test_edge_model_gradients_match_jax(backend):
     names = dict(tm.named_parameters())
     assert "edge_embedding.w" in names
     assert "geometric_layers.layer_1.edge_bias.w" in names
-    assert names["edge_embedding.w"].grad.abs().max() > 0
+    for name in ("edge_embedding.w", "geometric_layers.layer_0.edge_bias.w",
+                 "geometric_layers.layer_1.edge_bias.w"):
+        assert names[name].grad.abs().max() > 0, name
     _check_grads(names, pt.params_from_jax(
         jax.tree_util.tree_map(np.asarray, jg)))
 
@@ -414,19 +435,23 @@ def test_edge_bias_matrix_adds_duplicates():
     torch.testing.assert_close(m, want, rtol=0, atol=0)
 
 
-def test_flash_edge_training_raises_dense_and_csr_train():
-    """TAGANTrainer refuses the flash edge-feature model (its backward
-    kernels B6/B7 are not ported) and trains it on dense and csr."""
-    cfg = pt.TAGANConfig(**_config(spatial_backend="flash"))
-    with pytest.raises(NotImplementedError, match="B6"):
-        pt.TAGANTrainer(pt.TAGAN(cfg, device="cpu"))
+@pytest.mark.parametrize("backend", ["dense", "csr", "flash"])
+def test_edge_training_all_backends(backend):
+    """TAGANTrainer trains the edge-feature model with dropout on every
+    backend (flash through B4-B7's plain versions here): finite losses,
+    and the edge embedding and each layer's edge bias move."""
     seqs = _edge_sequences(11, duplicates=True, num=4)
     ds = pt.TemporalGraphDataset(seqs, [1.0, 0.0, 1.0, 0.0])
-    for backend in ("dense", "csr"):
-        cfg = pt.TAGANConfig(**_config(spatial_backend=backend, dropout=0.1))
-        tr = pt.TAGANTrainer(pt.TAGAN(cfg, device="cpu"),
-                             pt.ExperimentConfig(model=cfg, batch_size=2))
-        res = tr.train(pt.TemporalGraphDataLoader(
-            ds, batch_size=2, dense_adj=backend == "dense"), num_epochs=2,
-            verbose=False)
-        assert np.all(np.isfinite(res["history"]["train_loss"]))
+    cfg = pt.TAGANConfig(**_config(spatial_backend=backend, dropout=0.1))
+    model = pt.TAGAN(cfg, device="cpu")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if "edge" in n}
+    tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg, batch_size=2))
+    res = tr.train(pt.TemporalGraphDataLoader(
+        ds, batch_size=2, dense_adj=backend == "dense"), num_epochs=2,
+        verbose=False)
+    assert np.all(np.isfinite(res["history"]["train_loss"]))
+    params = dict(model.named_parameters())
+    assert len(before) == 6
+    for name, p in before.items():
+        assert not torch.equal(params[name].detach(), p), name

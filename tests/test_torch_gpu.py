@@ -263,12 +263,16 @@ def test_trainer_step_on_gpu_matches_cpu(fused, metric, cuda, monkeypatch):
                 want[kern.name] = 2
             assert launched == want
     assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
-    # each gradient against its own largest entry; one that is zero in
-    # exact arithmetic (below 1e-6 of the largest gradient) is fp32 noise
-    # on both sides
-    noise = 1e-6 * max(g.abs().max() for g in got["cpu"][1].values())
-    for name, g in got["cpu"][1].items():
-        card = got["cuda"][1][name]
+    _grads_close(got["cuda"][1], got["cpu"][1])
+
+
+def _grads_close(got, want):
+    """The card's gradients against the CPU's, each against its own largest
+    entry; one that is zero in exact arithmetic (below 1e-6 of the largest
+    gradient) is fp32 noise on both sides."""
+    noise = 1e-6 * max(g.abs().max() for g in want.values())
+    for name, g in want.items():
+        card = got[name]
         assert torch.isfinite(card).all(), name
         if g.abs().max() < noise:
             assert card.abs().max() < noise, name
@@ -418,3 +422,192 @@ def test_edge_predictor_on_gpu_matches_cpu(cuda):
         assert launched == want
     assert np.isfinite(got["cuda"]).all() and got["cuda"].shape == (3, 1)
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=0, atol=TOL)
+
+
+def _biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
+    """B6, B7a and B7b against the plain parts on the plain forward's
+    statistics, with an empty key strip (snapshot 0, keys 64..127): delta1,
+    dq, dscale (gaussian/rbf), dk and dv within TOL over their largest
+    entry, dB at the mask's pairs, 0 at the other pairs of the walked
+    blocks; one launch each."""
+    args = [t.to(cuda) for t in _biased_inputs(G, H, N, D, Dv, metric, seed)]
+    q, k, v, mask, bias, scale, seeds = args
+    mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
+    bias = torch.where(mask != 0, bias, torch.zeros_like(bias))
+    do = torch.from_numpy(np.random.default_rng(seed + 300).standard_normal(
+        (G, H, N, Dv)).astype(np.float32)).to(cuda)
+    need = metric in FG.SCALED_METRICS
+    lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale)
+    out, lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias, lse1,
+                                              metric, scale, rate, seeds)
+    d2 = (do * out).sum(-1)
+    common = (q, k, v, mask, bias, do, lse1, lse2, d2)
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    kernels = (FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
+               FG.flash_biased_bwd_dkv_kernel)
+    before = [kern.launches for kern in kernels]
+    d1, db = FG.flash_biased_bwd_pre_kernel(*common, *plan, metric, scale,
+                                            seeds, rate)
+    dq, dsc = FG.flash_biased_bwd_dq_kernel(*common, d1, *plan, metric,
+                                            scale, seeds, rate, need)
+    dk, dv = FG.flash_biased_bwd_dkv_kernel(*common, d1, *plan_t, metric,
+                                            scale, seeds, rate)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
+    p_d1, p_db = FG.flash_biased_bwd_pre_plain(*common, metric, scale, rate,
+                                               seeds)
+    p_dq, p_dsc = FG.flash_biased_bwd_dq_plain(*common, p_d1, metric, scale,
+                                               rate, seeds, need)
+    p_dk, p_dv = FG.flash_biased_bwd_dkv_plain(*common, p_d1, metric, scale,
+                                               rate, seeds)
+    for g, w in ((d1, p_d1), (dq, p_dq), (dk, p_dk), (dv, p_dv)):
+        assert torch.isfinite(g).all()
+        assert _close(g, w) <= TOL
+    on = mask != 0
+    walked = FG._occ_from_mask(mask, FG.BLOCK_M, FG.BLOCK_N)
+    walked = walked.repeat_interleave(FG.BLOCK_M, 1).repeat_interleave(
+        FG.BLOCK_N, 2)[:, :N, :N]
+    assert _close(db[on], p_db[on]) <= TOL
+    assert torch.all(db[walked & ~on] == 0)
+    assert (dsc is None) == (not need)
+    if need:
+        assert _close(dsc, p_dsc) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_biased_backward_kernels_match_plain(metric, rate, cuda):
+    """B6, B7a and B7b: N=150 (not a tile multiple), D != Dv, dead rows,
+    an empty query tile and an empty key strip, per-head scales with
+    their gradient, both dropouts from per-snapshot seed pairs, a bias
+    with duplicate-edge sums."""
+    _biased_bwd_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(7, 3), (40, 72), (128, 128)])
+def test_biased_backward_kernel_head_dims(D, Dv, cuda):
+    _biased_bwd_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel", 0.1,
+                         seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field,value", [("jlist", -1), ("jlist", 3),
+                                         ("jcount", 4)])
+def test_biased_backward_bad_plan_raises_before_launch(field, value, cuda):
+    """A forward or transposed plan pointing outside the 3 tiles of N=150
+    is refused on the host; none of B6, B7a, B7b is launched."""
+    q, k, v, mask, bias, _, _ = (t.to(cuda) for t in _biased_inputs(
+        1, 2, 150, 16, 16, "dot_product"))
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    out = torch.zeros_like(v)
+    lse = torch.zeros(q.shape[:3], device=cuda)
+    kernels = (FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
+               FG.flash_biased_bwd_dkv_kernel)
+    before = [kern.launches for kern in kernels]
+    for which in (0, 1):
+        bad = [t.clone() for t in (plan, plan_t)[which]]
+        (bad[0] if field == "jlist" else bad[1])[0, 1] = value
+        plans = (bad, plan_t) if which == 0 else (plan, bad)
+        with pytest.raises(ValueError, match="plan"):
+            FG.flash_biased_attention_bwd(
+                q, k, v, bias, mask, out, lse, lse, out, metric="dot_product",
+                plan=tuple(plans[0]), plan_t=tuple(plans[1]))
+    assert [kern.launches for kern in kernels] == before
+
+
+def _edge_seqs(rng, n, e, T, num, short=False):
+    """``num`` sequences of T snapshots with 4 edge features; with
+    ``short`` the second is one snapshot shorter and its snapshots have
+    fewer edges, so a batch of them has padded edges (at (0, 0)) and a
+    padded snapshot in which the walk visits no block."""
+    seqs = []
+    for s in range(num):
+        snaps = []
+        for t in range(T - (short and s == 1)):
+            ee = e - (short and s == 1) * e // 4
+            snaps.append({"x": rng.standard_normal((n, 8)).astype(np.float32),
+                          "edge_index": rng.integers(0, n, (2, ee)),
+                          "edge_attr": rng.standard_normal(
+                              (ee, 4)).astype(np.float32),
+                          "node_ids": np.arange(n), "timestep": float(t)})
+        seqs.append(snaps)
+    return seqs
+
+
+def _edge_step(cfg, batch, labels, smask, dev):
+    """One TAGANTrainer step's loss, gradients and launches on ``dev``."""
+    model = pt.TAGAN(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
+    before = {k.name: k.launches for k in FG.KERNELS}
+    loss, _ = tr._loss(batch, labels, smask, True)
+    loss.backward()
+    launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters()}
+    tr.optimizer.step()
+    return loss.item(), grads, launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["euclidean", "gaussian_kernel"])
+def test_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
+    """One TAGANTrainer step of the flash model with edge features, card
+    (B4, B5, B6, B7a, B7b once per layer) vs CPU (plain versions): the
+    loss and every gradient, edge_embedding, edge_bias and a learnable
+    sigma included."""
+    seqs = _edge_seqs(np.random.default_rng(5), 100, 800, 3, 2)
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, edge_feature_dim=4,
+                         use_edge_features=True, output_dim=1,
+                         loss_type="bce", dropout=0.0,
+                         spatial_backend="flash", distance_metric=metric,
+                         learnable_distance=metric == "gaussian_kernel")
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        pt.TemporalGraphDataset(seqs, [1.0, 0.0]), batch_size=2,
+        dense_adj=False)))
+    got = {dev: _edge_step(cfg, batch, labels, smask, dev)
+           for dev in ("cuda", "cpu")}
+    want = {k.name: 0 for k in FG.KERNELS}
+    for kern in (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
+                 FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
+                 FG.flash_biased_bwd_dkv_kernel):
+        want[kern.name] = cfg.num_layers
+    assert got["cuda"][2] == want
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
+    for name in ("edge_embedding.w", "geometric_layers.layer_0.edge_bias.w",
+                 "geometric_layers.layer_1.edge_bias.w"):
+        assert got["cuda"][1][name].abs().max() > 0, name
+    _grads_close(got["cuda"][1], got["cpu"][1])
+
+
+@pytest.mark.gpu
+def test_edge_padded_edges_on_unwalked_blocks(cuda):
+    """A batch whose padded edges (at (0, 0)) lie in a padded snapshot
+    where the walk visits no block, so B6 leaves its dB unset: with the
+    allocator's memory filled with NaN first, the gradients stay finite
+    and equal the CPU's (the model reads dB at edges through a select)."""
+    seqs = _edge_seqs(np.random.default_rng(6), 100, 800, 3, 2, short=True)
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, edge_feature_dim=4,
+                         use_edge_features=True, output_dim=1,
+                         loss_type="bce", dropout=0.0,
+                         spatial_backend="flash")
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        pt.TemporalGraphDataset(seqs, [1.0, 0.0]), batch_size=2,
+        dense_adj=False)))
+    em = batch.edge_mask
+    assert not bool(em[1, -1].any()) and not bool(batch.node_mask[1, -1].any())
+    from tagan_torch.nn.model import flash_structures
+    _, (_, jcount), _ = flash_structures(
+        batch.edge_src, batch.edge_dst, em, batch.node_mask, batch.max_nodes)
+    assert int(jcount[1, -1].sum()) == 0
+    N = batch.max_nodes
+    nan = torch.full((4 * batch.x.shape[0] * batch.x.shape[1] * N * N,),
+                     float("nan"), device=cuda)
+    del nan
+    got = {dev: _edge_step(cfg, batch, labels, smask, dev)
+           for dev in ("cuda", "cpu")}
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
+    _grads_close(got["cuda"][1], got["cpu"][1])

@@ -122,7 +122,7 @@ def test_asymmetric_temporal_attention(causal, orient, enc):
 def test_memory_update_matches_jax():
     rng = np.random.default_rng(4)
     n, h = 12, 5
-    jm, tm = JMEM.init_memory(n, h), TMEM.init_memory(n, h)
+    jm, tm = JMEM.init_memory(n, h), TMEM.init_memory(n, h, device="cpu")
     for t in range(9):
         active = rng.random(n) < 0.4
         states = rng.standard_normal((n, h)).astype(np.float32)

@@ -34,6 +34,13 @@ CFG = dict(hidden_dim=16, num_heads=2, num_layers=2, node_feature_dim=8,
            gradient_clip_val=0.1)
 
 
+# gradients that are zero in exact arithmetic: the temporal attention's
+# key and time-query biases add one constant to every score of a row
+ZERO_GRAD = ("temporal_attention.k.b",
+             "temporal_attention.time_encoding.basis_proj.b",
+             "temporal_attention.time_q_proj.b")
+
+
 def _data(n=5, seed=3):
     return create_synthetic_data(num_samples=n, num_nodes_range=(6, 12),
                                  node_feature_dim=8, edge_feature_dim=0,
@@ -51,17 +58,19 @@ def _flat(tree):
     return params_from_jax(jax.tree_util.tree_map(np.asarray, tree))
 
 
-def test_trainer_steps_match_jax():
+def _trainer_steps_match(data, noise=(), **cfg):
     """3 steps (the last batch padded) of both trainers from the same
-    parameters and batches: global-norm clipping that triggers, AdamW
-    with weight decay on the cosine schedule, dropout 0. The losses and
-    the parameters after every step agree."""
-    data = _data()
+    parameters and batches; the losses, predictions and parameters after
+    every step agree. Parameters named in ``noise`` have a gradient that
+    is zero in exact arithmetic (a bias that adds one constant to every
+    score of a softmax row): fp32 noise of either sign, which Adam turns
+    into steps of up to the learning rate, so they are only required to
+    stay finite."""
     exp = dict(batch_size=2, num_epochs=2, lr_scheduler="cosine", seed=0)
-    jm = JTAGAN(tt.TAGANConfig(**CFG))
+    jm = JTAGAN(tt.TAGANConfig(**{**CFG, **cfg}))
     jp = jm.init(jax.random.key(0))
     jt = JTrainer(jm, tt.ExperimentConfig(model=jm.config, **exp), params=jp)
-    tm = _torch_model(jp)
+    tm = _torch_model(jp, **cfg)
     tr = pt.TAGANTrainer(tm, pt.ExperimentConfig(model=tm.config, **exp))
     jl = JLoader(JDataset(data), batch_size=2, shuffle=True, seed=4)
     tl = pt.TemporalGraphDataLoader(pt.TemporalGraphDataset(data),
@@ -78,9 +87,37 @@ def test_trainer_steps_match_jax():
                                    rtol=TOL, atol=TOL)
         want = _flat(jt.params)
         for name, param in tm.named_parameters():
+            if name in noise:
+                assert torch.isfinite(param).all(), name
+                continue
             np.testing.assert_allclose(param.detach().numpy(), want[name],
                                        rtol=TOL, atol=TOL, err_msg=name)
     assert steps == 3 and tr.global_step == 3 and tr.optimizer.count == 3
+    return tm
+
+
+def test_trainer_steps_match_jax():
+    """3 steps (the last batch padded) of both trainers from the same
+    parameters and batches: global-norm clipping that triggers, AdamW
+    with weight decay on the cosine schedule, dropout 0. The losses and
+    the parameters after every step agree."""
+    _trainer_steps_match(_data())
+
+
+def test_flash_edge_trainer_steps_match_jax():
+    """The same 3 steps for the edge-feature model on the flash backend
+    (the biased backward's plain version against the Pallas kernels in
+    interpret mode): the edge embedding and both layers' edge bias are
+    held against the JAX trainer's after every step."""
+    data = create_synthetic_data(num_samples=5, num_nodes_range=(6, 12),
+                                 node_feature_dim=8, edge_feature_dim=4,
+                                 sequence_length=3, seed=6)
+    tm = _trainer_steps_match(data, ZERO_GRAD, edge_feature_dim=4,
+                              use_edge_features=True,
+                              spatial_backend="flash")
+    assert {"edge_embedding.w", "geometric_layers.layer_0.edge_bias.w",
+            "geometric_layers.layer_1.edge_bias.w"} <= \
+        dict(tm.named_parameters()).keys()
 
 
 @pytest.mark.parametrize("sched", [None, "cosine", "step"])

@@ -19,7 +19,10 @@ Phases, in order; any failure raises and exits non-zero:
    duplicate edges, and the three (D, Dv); (2d) the edge-biased backward
    kernels B6 (delta1, dB), B7a (dq, dscale) and B7b (dk, dv) against
    their plain versions on 2c's grid, dB at the mask's pairs (and 0 at
-   the other pairs of the walked blocks);
+   the other pairs of the walked blocks); (2e) the compact-store forward
+   kernels of the hybrid backend, B1c, B4c and B5c, against their compact
+   plain versions on 2c's grid, with the bit and the int8 store (a row
+   tile with jcount = 0 among the dead rows);
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -33,11 +36,24 @@ Phases, in order; any failure raises and exits non-zero:
    request, B1 never); the forward, one layer's B4 and B5 over the
    folded snapshots, and the first layer's B4 and B5 on one snapshot
    against the plain versions at full width;
+   (3c) the hybrid backend at ``bench_partition_stress.py`` part C's
+   width (131,072 nodes, 16 edges per node, 95% of them within +-512 of
+   their source, 2 snapshots, node features 8, hidden 64, 4 heads, 2
+   layers): 3 requests of 2 sequences with the plans pinned over them,
+   launch counts set to 0 just before and read just after (B1c once per
+   layer per request, nothing else); host packing and planning, the
+   forward, the peak memory, one layer's B1c over the folded snapshots,
+   and the first layer's B1c on one snapshot against its plain version;
+   (3d) the same with 4 N(0, 1) edge features (B4c and B5c once per layer
+   per request, B1 and B1c never), one layer's bias store build;
 4. end to end at 1,000 nodes: the same Predictor's probabilities on the
    card (kernels) and on the CPU (plain versions), and the per-node
    features after the attention layers (``encode_spatial``); (4b) the
    same for the edge-feature model, and its flash form against its csr
    form on the card (an independent O(E) formula), on distinct edges;
+   (4c) the hybrid Predictor at 4,096 nodes, plain and edge-feature
+   models, card against CPU; (4d) at 131,072 nodes on distinct non-loop
+   edges, the hybrid models against their csr forms on the card;
 5. times at the main path's shape (one snapshot, 4 heads, 10,000 nodes,
    head dim 16) with CUDA events, in turns: B1, B2, B3a, B3b and
    B3a + B3b against the plain versions, and ``scaled_dot_product_attention``
@@ -51,6 +67,12 @@ Phases, in order; any failure raises and exits non-zero:
    snapshot against the plain biased backward, compiled
    ``flex_attention``'s backward of B4 and B5's function at the
    scaled-dot metric as the library yardstick, and their bounds;
+   (5d) B1c, B4c and B5c at one 131K snapshot of 3c/3d against their
+   plain versions and bounds, compiled ``flex_attention`` under a block
+   mask built from the compact plan (a bit-store mask_mod) at the
+   scaled-dot metric as the library yardstick (held against the kernels
+   at that metric; null with the reason if it does not build), and the
+   csr ``edge_attention`` over the layer's whole edge set;
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -98,6 +120,9 @@ TOL = 1e-4
 
 N_FULL, E_FULL, T_FULL, F_NODE = 10_000, 160_000, 8, 16
 F_EDGE = 4                  # bench_tgn.py's edge_feature_dim
+# the hybrid model's graphs (bench_partition_stress.py part C, :194-238)
+N_HYB, DEG_HYB, T_HYB, F_HYB = 131_072, 16, 2, 8
+N_MID_HYB = 4_096
 # the flash model against the csr model: the flash path's norm expansion
 # of squared distances against csr's subtract-then-square
 TOL_CSR = 2e-4
@@ -110,6 +135,7 @@ ZERO_GRAD = ("temporal_attention.k.b",
              "temporal_attention.time_encoding.basis_proj.b",
              "temporal_attention.time_q_proj.b")
 FG_SRC = "tagan_tpu/ops/pallas/flash_geometric.py"
+HB_SRC = "tagan_tpu/ops/pallas/hybrid_biased.py"
 
 
 def log(*a):
@@ -1638,13 +1664,606 @@ def phase_train_mid_edge(tt, FG):
     return dict(res, csr_grad_err=csr_err)
 
 
+# -- phase 2e -----------------------------------------------------------------
+
+def compact_small_inputs(FG, G, H, N, D, Dv, metric, seed, pack):
+    """`biased_small_inputs` moved to the compact store (bits or int8):
+    the store, a bias store in its slots and the plan (jlist, jcount,
+    jslot); the mask keeps its dead rows and, for G > 1, a row tile with
+    jcount = 0."""
+    q, k, v, mask, bias, scale, seeds = biased_small_inputs(
+        FG, G, H, N, D, Dv, metric, seed)
+    store, plan = FG.compact_from_mask(mask, pack=pack)
+    return (q, k, v, mask, store, FG.compact_values(mask, bias), plan, scale,
+            seeds)
+
+
+def compact_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
+    """B1c, B4c and B5c (on B4c's lse1 merged with a second one, as the
+    hybrid band's union lse1 is) against their compact plain versions;
+    returns {kernel: max abs error over live rows} after checking dead
+    rows exactly."""
+    q, k, v, mask, store, bias_store, plan, scale, seeds = \
+        compact_small_inputs(FG, G, H, N, D, Dv, metric, seed, pack)
+    from tagan_torch.ops.hybrid_biased import lse_union
+    out, lse = FG.flash_geometric_fwd_compact_kernel(
+        q, k, v, store, *plan, metric, scale, seeds[:, 0].contiguous(), rate)
+    lse1 = FG.flash_lse1_compact_kernel(q, k, store, *plan, metric, scale)
+    other = torch.randn(lse1.shape, device=DEV,
+                        generator=torch.Generator(device=DEV).manual_seed(3))
+    lse1_u = lse_union(lse1, other).contiguous()
+    out2, lse2 = FG.flash_biased_fwd_compact_kernel(
+        q, k, v, store, bias_store, lse1_u, *plan, metric, scale, seeds, rate)
+    p_out, p_lse = FG.flash_geometric_forward_compact_plain(
+        q, k, v, store, *plan, metric, scale, rate, seeds[:, 0])
+    p_lse1 = FG.flash_lse1_compact_plain(q, k, store, *plan, metric, scale)
+    p_out2, p_lse2 = FG.flash_biased_forward_compact_plain(
+        q, k, v, store, bias_store, lse1_u, *plan, metric, scale, rate, seeds)
+    sync()
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    if not (all(torch.all(t[dead] == FG.LSE_DEAD)
+                for t in (lse, p_lse, lse1, p_lse1, lse2, p_lse2))
+            and all(torch.all(t[dead] == 0)
+                    for t in (out, p_out, out2, p_out2))):
+        raise AssertionError(f"compact {metric} rate={rate}: dead rows differ")
+    live = ~dead
+    err = {"B1c": max((out - p_out)[live].abs().max().item(),
+                      (lse - p_lse)[live].abs().max().item()),
+           "B4c": (lse1 - p_lse1)[live].abs().max().item(),
+           "B5c": max((out2 - p_out2)[live].abs().max().item(),
+                      (lse2 - p_lse2)[live].abs().max().item())}
+    if not max(err.values()) <= TOL:
+        raise AssertionError(f"compact {metric} rate={rate} D={D} Dv={Dv} "
+                             f"pack={pack}: errors {err} > {TOL}")
+    return err
+
+
+def phase_small_compact(FG):
+    errs = []
+    for pack in (True, False):
+        for metric in FG.MXU_METRICS:
+            for rate in (0.0, 0.1):
+                errs.append(compact_vs_plain(FG, 2, 3, 150, 16, 8, metric,
+                                             rate, pack))
+        for D, Dv in ((7, 3), (40, 72), (128, 128)):
+            errs.append(compact_vs_plain(FG, 2, 2, 200, D, Dv,
+                                         "gaussian_kernel", 0.1, pack, 1))
+    out = {name: max(e[name] for e in errs) for name in ("B1c", "B4c", "B5c")}
+    log(f"[2e] B1c, B4c and B5c vs their compact plain versions, bit and "
+        f"int8 stores: {len(errs)} cases; max abs err {out} (tol {TOL})")
+    return out
+
+
+# -- phases 3c, 3d, 4c, 4d, 5d: the hybrid backend at 131,072 nodes -----------
+
+def hybrid_snaps(n, deg, t_len, seed, locality=0.95, width=None,
+                 edge_dim=0, unique=False):
+    """``benchmarks/bench_partition_stress.py``'s ``_snaps`` (its part C,
+    the hybrid model's graphs): deg * n edges per snapshot, a fraction
+    ``locality`` of them within +-width of their source, the rest
+    uniform; N(0, 1) edge features from ``default_rng(seed + 1)`` with
+    ``edge_dim``. ``unique`` keeps the distinct non-loop edges only."""
+    rng = np.random.default_rng(seed)
+    rng_b = np.random.default_rng(seed + 1)
+    e = n * deg
+    w = width or max(n // 256, 8)
+    out = []
+    for t in range(t_len):
+        src = rng.integers(0, n, e)
+        dst = rng.integers(0, n, e)
+        sel = rng.random(e) < locality
+        near = np.clip(src + rng.integers(-w, w + 1, e), 0, n - 1)
+        dst = np.where(sel, near, dst)
+        if unique:
+            key = np.unique(src * n + dst)
+            key = key[key // n != key % n]
+            src, dst = key // n, key % n
+        s = {"x": rng.standard_normal((n, F_HYB)).astype(np.float32),
+             "edge_index": np.stack([src, dst]), "node_ids": np.arange(n),
+             "timestep": float(t)}
+        if edge_dim:
+            s["edge_attr"] = rng_b.standard_normal(
+                (len(src), edge_dim)).astype(np.float32)
+        out.append(s)
+    return out
+
+
+def hybrid_config(tt, edge=False, backend="hybrid"):
+    """``bench_partition_stress.py`` part C's model (:226-238): hidden 64,
+    4 heads, 2 layers, node features 8, bce, no dropout; with ``edge``
+    its edge features (Fe = 4, ``use_edge_features``)."""
+    return tt.TAGANConfig(hidden_dim=64, num_heads=4, num_layers=2,
+                          node_feature_dim=F_HYB, output_dim=1,
+                          loss_type="bce", dropout=0.0,
+                          edge_feature_dim=F_EDGE if edge else 0,
+                          use_edge_features=edge, spatial_backend=backend)
+
+
+def hybrid_layer0(FG, model, batch):
+    """Layer 0's compact-kernel inputs of a packed hybrid batch, its B*T
+    snapshots folded: (q, k, v, store, plan, residual (eq, ek, em)) and,
+    with edge features, (bias store, residual bias)."""
+    from tagan_torch.nn.model import hybrid_bias_store, hybrid_residual_bias
+    layer = model.geometric_layers["layer_0"]
+    with torch.no_grad():
+        q, k, v = layer.attn._qkv(model.node_embedding(batch.x))
+        G = q.shape[0] * q.shape[1]
+        fold = tuple(t.reshape(G, *t.shape[2:]).contiguous()
+                     for t in (q, k, v))
+        store, plan = FG.fold_compact(batch.hyb_mask_blocks, batch.hyb_plan,
+                                      G)
+        res = tuple(t.reshape(G, -1) for t in batch.hyb_res)
+        extra = None
+        if model.edge_bias_on:
+            b = layer.edge_bias(model.edge_embedding(batch.edge_attr))[..., 0]
+            b = torch.where(batch.edge_mask, b, torch.zeros_like(b))
+            bst = hybrid_bias_store(b, batch)
+            extra = (bst.reshape(G, *bst.shape[2:]).contiguous(),
+                     hybrid_residual_bias(b, batch).reshape(G, -1))
+    return fold + (store, plan, res), extra
+
+
+def hybrid_requests(tt, edge, seed0):
+    """REQUESTS requests of SEQS_PER_REQUEST 131K sequences, their dims,
+    and the plan pin over all of them (host time of the planning)."""
+    from tagan_torch.core.graph import attach_hybrid_plans
+    reqs = [[hybrid_snaps(N_HYB, DEG_HYB, T_HYB, seed0 + 10 * r + s,
+                          edge_dim=F_EDGE if edge else 0)
+             for s in range(SEQS_PER_REQUEST)] for r in range(REQUESTS)]
+    dims = (T_HYB, N_HYB, N_HYB * DEG_HYB, F_EDGE if edge else 0)
+    t0 = time.perf_counter()
+    seqs = [tt.build_sequence(s, max_nodes=N_HYB, max_edges=dims[2],
+                              max_time=T_HYB, edge_feature_dim=dims[3],
+                              dense_adj=False)
+            for r in reqs for s in r]
+    pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, pin = attach_hybrid_plans(seqs)
+    plan_s = time.perf_counter() - t0
+    return reqs, dims, pin, pack_s, plan_s
+
+
+def phase_serve_hybrid(tt, FG, edge):
+    """Serve the 131K hybrid model (``edge``: with edge features) with
+    `Predictor`: REQUESTS requests, launch counts set to 0 just before and
+    read just after; forward, host plan build, peak memory, one layer's
+    compact launches over the folded snapshots; the first layer's kernels
+    on one snapshot against their plain versions at full width."""
+    from tagan_torch.ops.hybrid_biased import lse_union, residual_lse1
+    label = "3d" if edge else "3c"
+    cfg = hybrid_config(tt, edge)
+    model = tt.TAGAN(cfg, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+    reqs, dims, pin, pack_s, plan_s = hybrid_requests(tt, edge,
+                                                      300 if edge else 100)
+    pred = tt.Predictor(model, dims=dims, batch_size=SEQS_PER_REQUEST,
+                        plan_pin=pin)
+    pred.warmup()
+    sync()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(FG)
+    lat, probs = [], []
+    for req in reqs:
+        t0 = time.perf_counter()
+        probs.append(pred.predict_proba(req))   # host copy: synchronises
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launched = counts(FG)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    expected = {k.name: 0 for k in FG.KERNELS}
+    for kern in ((FG.flash_lse1_compact_kernel,
+                  FG.flash_biased_fwd_compact_kernel) if edge else
+                 (FG.flash_geometric_fwd_compact_kernel,)):
+        expected[kern.name] = cfg.num_layers * REQUESTS
+    probs = np.concatenate(probs)
+    finite = bool(np.isfinite(probs).all())
+    log(f"[{label}] hybrid N={N_HYB}, E={N_HYB * DEG_HYB}/snapshot, T={T_HYB}"
+        f"{', edge features' if edge else ''}: plan pin {pin}; host packing "
+        f"of the {REQUESTS * SEQS_PER_REQUEST} sequences {pack_s:.3f} s, "
+        f"plans {plan_s:.3f} s; request latency ms "
+        f"{[round(x, 3) for x in lat]}; sequences/s "
+        f"{REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3):.3f}; peak device "
+        f"memory {peak_gb:.3f} GB above {held_gb:.3f} GB held; launches "
+        f"{launched} (expected {expected}); probabilities finite {finite}, "
+        f"shape {probs.shape}")
+    if launched != expected:
+        raise AssertionError(f"launches {launched} != {expected}")
+    if not finite or probs.shape != (REQUESTS * SEQS_PER_REQUEST, 1):
+        raise AssertionError("bad probabilities")
+
+    # one request's host side alone: packing and planning with the pin
+    t0 = time.perf_counter()
+    seqs = pred._pack(reqs[0])
+    req_pack_s = time.perf_counter() - t0
+    batch = tt.batch_sequences(seqs).to(DEV)
+    with torch.inference_mode():
+        model(batch)
+        sync()
+        t0 = time.perf_counter()
+        model(batch)
+        sync()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    (q, k, v, store, plan, rs), extra = hybrid_layer0(FG, model, batch)
+    G, H = q.shape[:2]
+    ones = torch.ones(H, device=DEV)
+    res = dict(latency_ms=lat, launches=launched, forward_ms=fwd_ms,
+               peak_memory_gb=peak_gb, held_gb=held_gb, pin=pin,
+               pack_s=pack_s, plan_s=plan_s, request_pack_plan_s=req_pack_s,
+               sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
+    with torch.inference_mode():
+        if not edge:
+            seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
+            res["b1c_layer_ms"] = cuda_ms(
+                lambda: FG.flash_geometric_fwd_compact_kernel(
+                    q, k, v, store, *plan, "euclidean", ones, seeds, 0.0), 3)
+            one = (q[:1], k[:1], v[:1], store[:1], tuple(p[:1] for p in plan),
+                   tuple(t[:1] for t in rs))
+            out, lse = FG.flash_geometric_fwd_compact_kernel(
+                *one[:4], *one[4], "euclidean", ones, seeds[:1], 0.0)
+            p_out, p_lse = FG.flash_geometric_forward_compact_plain(
+                *one[:4], *one[4], "euclidean", ones, 0.0, seeds[:1])
+            sync()
+            res["full_err"] = max((out - p_out).abs().max().item(),
+                                  (lse - p_lse).abs().max().item())
+            share = cfg.num_layers * res["b1c_layer_ms"] / fwd_ms
+            log(f"[{label}] forward on a packed request {fwd_ms:.3f} ms; one "
+                f"request's packing and planning {req_pack_s:.3f} s; one "
+                f"layer's B1c over the {G} folded snapshots "
+                f"{res['b1c_layer_ms']:.3f} ms ({cfg.num_layers} layers = "
+                f"{share:.3f} of the forward); layer-0 B1c vs plain on one "
+                f"snapshot: max abs err {res['full_err']:.3e}")
+            args = one
+        else:
+            bst, rb = extra
+            seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
+            from tagan_torch.nn.model import hybrid_bias_store
+            emb = model.edge_embedding(batch.edge_attr)
+            eb = model.geometric_layers["layer_0"].edge_bias
+            res["bias_store_build_ms"] = cuda_ms(lambda: hybrid_bias_store(
+                eb(emb)[..., 0], batch), 3)
+            del emb
+            lse1_b = FG.flash_lse1_compact_kernel(q, k, store, *plan,
+                                                  "euclidean", ones)
+            lse1_u = lse_union(lse1_b, residual_lse1(
+                "euclidean", q, k, *rs, N_HYB, ones)).contiguous()
+            res["b4c_layer_ms"] = cuda_ms(
+                lambda: FG.flash_lse1_compact_kernel(q, k, store, *plan,
+                                                     "euclidean", ones), 3)
+            res["b5c_layer_ms"] = cuda_ms(
+                lambda: FG.flash_biased_fwd_compact_kernel(
+                    q, k, v, store, bst, lse1_u, *plan, "euclidean", ones,
+                    seeds, 0.0), 3)
+            one = (q[:1], k[:1], v[:1], store[:1], tuple(p[:1] for p in plan),
+                   tuple(t[:1] for t in rs))
+            bst1, l1u = bst[:1].clone(), lse1_u[:1].contiguous()
+            del bst, lse1_u
+            l1 = FG.flash_lse1_compact_kernel(*one[:2], one[3], *one[4],
+                                              "euclidean", ones)
+            p_l1 = FG.flash_lse1_compact_plain(*one[:2], one[3], *one[4],
+                                               "euclidean", ones)
+            out, l2 = FG.flash_biased_fwd_compact_kernel(
+                *one[:4], bst1, l1u, *one[4], "euclidean", ones, seeds[:1],
+                0.0)
+            p_out, p_l2 = FG.flash_biased_forward_compact_plain(
+                *one[:4], bst1, l1u, *one[4], "euclidean", ones, 0.0,
+                seeds[:1])
+            sync()
+            live = l1 < 1e29
+            res["full_err"] = max((l1 - p_l1)[live].abs().max().item(),
+                                  (out - p_out).abs().max().item(),
+                                  (l2 - p_l2)[live].abs().max().item())
+            share = cfg.num_layers * (res["b4c_layer_ms"]
+                                      + res["b5c_layer_ms"]) / fwd_ms
+            log(f"[{label}] forward on a packed request {fwd_ms:.3f} ms; one "
+                f"request's packing and planning {req_pack_s:.3f} s; one "
+                f"layer's bias store build {res['bias_store_build_ms']:.3f} "
+                f"ms; one layer over the {G} folded snapshots: B4c "
+                f"{res['b4c_layer_ms']:.3f} ms, B5c {res['b5c_layer_ms']:.3f}"
+                f" ms ({cfg.num_layers} layers = {share:.3f} of the forward); "
+                f"layer-0 B4c and B5c vs plain on one snapshot: max abs err "
+                f"{res['full_err']:.3e}")
+            args = one + (bst1, l1u, rb[:1])
+        res["kernel_share_of_forward"] = share
+    if not res["full_err"] <= TOL:
+        raise AssertionError(f"full-width compact kernel error "
+                             f"{res['full_err']} > {TOL}")
+    res["args"] = args
+    return res
+
+
+def phase_mid_hybrid(tt, FG):
+    """The hybrid Predictor at N_MID_HYB nodes (the same generator), plain
+    and edge-feature models: probabilities and per-node features on the
+    card (compact kernels) against the CPU (plain versions)."""
+    out = {}
+    for edge in (False, True):
+        req = [hybrid_snaps(N_MID_HYB, DEG_HYB, T_HYB, 40 + s,
+                            edge_dim=F_EDGE if edge else 0)
+               for s in range(SEQS_PER_REQUEST)]
+        dims = (T_HYB, N_MID_HYB, N_MID_HYB * DEG_HYB, F_EDGE if edge else 0)
+        got, nodes, launched = {}, {}, {}
+        for side, dev in (("card", DEV), ("cpu", "cpu")):
+            model = tt.TAGAN(hybrid_config(tt, edge), device=dev,
+                             generator=torch.Generator().manual_seed(0))
+            pred = tt.Predictor(model, dims=dims)
+            before = counts(FG)
+            got[side] = pred.predict_proba(req)
+            launched[side] = {n: c - before[n] for n, c in counts(FG).items()
+                              if c != before[n]}
+            batch = tt.batch_sequences(pred._pack(req)).to(dev)
+            with torch.inference_mode():
+                nodes[side] = model.encode_spatial(batch).cpu()
+        err = float(np.abs(got["card"] - got["cpu"]).max())
+        node_err = (nodes["card"] - nodes["cpu"]).abs().max().item()
+        kern = ((FG.flash_lse1_compact_kernel,
+                 FG.flash_biased_fwd_compact_kernel) if edge else
+                (FG.flash_geometric_fwd_compact_kernel,))
+        want = {"card": {k.name: 2 for k in kern}, "cpu": {}}   # 2 layers
+        log(f"[4c] hybrid N={N_MID_HYB}{', edge features' if edge else ''}: "
+            f"probabilities card vs cpu max abs err {err:.3e}, per-node "
+            f"features {tuple(nodes['cpu'].shape)} {node_err:.3e}; launches "
+            f"{launched}")
+        if launched != want:
+            raise AssertionError(f"launches {launched} != {want}")
+        if not (err <= TOL and node_err <= TOL):
+            raise AssertionError(f"hybrid card vs cpu: {err}, per-node "
+                                 f"{node_err} > {TOL}")
+        out["edge" if edge else "plain"] = dict(prob_err=err,
+                                                node_err=node_err)
+    return out
+
+
+def phase_hybrid_vs_csr(tt, FG):
+    """At full width, one sequence of distinct non-loop edges: the hybrid
+    model against the csr model (an O(E) formula of its own) on the card,
+    plain and edge-feature models, the same weights."""
+    out = {}
+    for edge in (False, True):
+        seq = hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 50, edge_dim=F_EDGE if edge
+                           else 0, unique=True)
+        E = max(s["edge_index"].shape[1] for s in seq)
+        dims = (T_HYB, N_HYB, E, F_EDGE if edge else 0)
+        got, nodes = {}, {}
+        for backend in ("hybrid", "csr"):
+            model = tt.TAGAN(hybrid_config(tt, edge, backend), device=DEV,
+                             generator=torch.Generator().manual_seed(0))
+            pred = tt.Predictor(model, dims=dims)
+            got[backend] = pred.predict_proba([seq])
+            batch = tt.batch_sequences(pred._pack([seq])).to(DEV)
+            with torch.inference_mode():
+                nodes[backend] = model.encode_spatial(batch).cpu()
+            del model, pred, batch
+        err = float(np.abs(got["hybrid"] - got["csr"]).max())
+        node_err = (nodes["hybrid"] - nodes["csr"]).abs().max().item()
+        log(f"[4d] N={N_HYB}, {E} distinct non-loop edges/snapshot"
+            f"{', edge features' if edge else ''}: hybrid vs csr on the card: "
+            f"probabilities {got['hybrid'].ravel().tolist()} vs "
+            f"{got['csr'].ravel().tolist()}, max abs err {err:.3e}; per-node "
+            f"features {node_err:.3e} (tol {TOL_CSR})")
+        if not (err <= TOL_CSR and node_err <= TOL_CSR):
+            raise AssertionError(f"hybrid vs csr: {err}, per-node {node_err}"
+                                 f" > {TOL_CSR}")
+        out["edge" if edge else "plain"] = dict(prob_err=err,
+                                                node_err=node_err, edges=E)
+    return out
+
+
+def flex_compact_setup(FG, q, store, plan):
+    """(block mask, compiled ``flex_attention``): the library's form of the
+    compact walk. kv_num_blocks / kv_indices are jcount / jlist at block
+    size 64, and the mask_mod reads the bit store through a [n_i, n_j]
+    slot map (the port never calls it)."""
+    from torch.nn.attention.flex_attention import BlockMask, flex_attention
+    N = q.shape[2]
+    jlist, jcount, jslot = (p[0] for p in plan)
+    n_i = jcount.shape[0]
+    bm = FG.BLOCK_M
+    live = torch.arange(jlist.shape[1], device=DEV) < jcount[:, None]
+    kv_idx = torch.zeros(n_i, n_i, dtype=torch.int32, device=DEV)
+    kv_idx[:, :jlist.shape[1]] = torch.where(live, jlist, 0)
+    slot_map = torch.full((n_i, n_i), -1, dtype=torch.int64, device=DEV)
+    rows = torch.arange(n_i, device=DEV)[:, None].expand_as(jlist)
+    slot_map[rows[live], jlist[live].long()] = jslot[live].long()
+    words = store[0]
+
+    def mask_mod(b, h, qi, kv):
+        s = slot_map[qi // bm, kv // bm]
+        w = words[s.clamp(min=0), qi % bm]
+        return (s >= 0) & (((w >> (kv % bm)) & 1) != 0)
+
+    block_mask = BlockMask.from_kv_blocks(
+        jcount[None, None].to(torch.int32), kv_idx[None, None],
+        BLOCK_SIZE=bm, mask_mod=mask_mod, seq_lengths=(N, N))
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def call(*a, **kw):
+        # the kernel's tiles must divide the block mask's 64
+        return flex(*a, kernel_options={"BLOCK_M": bm, "BLOCK_N": bm}, **kw)
+    return block_mask, call, slot_map
+
+
+def phase_times_hybrid(FG, plain_args, edge_args):
+    """At one 131K snapshot, CUDA events: B1c, B4c and B5c against their
+    plain versions, their bounds, compiled ``flex_attention`` over the
+    compact plan at the scaled-dot metric (held against B1c and B5c at
+    that metric), and the csr form of the whole layer's attention."""
+    from tagan_torch.ops.sparse import add_self_loops, edge_attention
+    q, k, v, store, plan, (res_eq, res_ek, res_em) = plain_args
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    ones = torch.ones(H, device=DEV)
+    seed0 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    seeds = torch.zeros(1, 2, dtype=torch.int32, device=DEV)
+    sdp = "scaled_dot_product"
+    res = {}
+    with torch.inference_mode():
+        def b1(metric="euclidean"):
+            return FG.flash_geometric_fwd_compact_kernel(
+                q, k, v, store, *plan, metric, ones, seed0, 0.0)
+
+        def plain1():
+            FG.flash_geometric_forward_compact_plain(
+                q, k, v, store, *plan, "euclidean", ones, 0.0, seed0)
+        p1, k1, k2, p2 = (cuda_ms(plain1, 3), cuda_ms(b1, 20), cuda_ms(b1, 20),
+                          cuda_ms(plain1, 3))
+        k_sdp = cuda_ms(lambda: b1(sdp), 20)
+        out_sdp, lse_sdp = b1(sdp)
+        pairs = int(FG.unpack_bits(store).sum().item())
+        walked = int(plan[1].sum().item())
+        plan_b = 4 * sum(p.numel() for p in plan)
+        qkv = 4 * G * H * N * (2 * D + Dv)
+        res["B1c"] = dict(ms=[k1, k2], plain_ms=[p1, p2], sdp_ms=k_sdp,
+                          **bound(qkv + store.numel() * 8 + plan_b + 4 * H
+                                  + 4 * G + 4 * G * H * N * (Dv + 1),
+                                  2 * H * pairs * (D + Dv)))
+        # B4c and B5c on the edge-feature model's snapshot
+        qe, ke, ve, st_e, plan_e, rs, bst, l1u, rb = edge_args
+        pairs_e = int(FG.unpack_bits(st_e).sum().item())
+        plan_be = 4 * sum(p.numel() for p in plan_e)
+
+        def b4(metric="euclidean"):
+            return FG.flash_lse1_compact_kernel(qe, ke, st_e, *plan_e, metric,
+                                                ones)
+
+        def b5(metric="euclidean", l1=l1u):
+            return FG.flash_biased_fwd_compact_kernel(
+                qe, ke, ve, st_e, bst, l1, *plan_e, metric, ones, seeds, 0.0)
+
+        def plain4():
+            FG.flash_lse1_compact_plain(qe, ke, st_e, *plan_e, "euclidean",
+                                        ones)
+
+        def plain5():
+            FG.flash_biased_forward_compact_plain(
+                qe, ke, ve, st_e, bst, l1u, *plan_e, "euclidean", ones, 0.0,
+                seeds)
+        p4a, k4a, k4b, p4b = (cuda_ms(plain4, 3), cuda_ms(b4, 20),
+                              cuda_ms(b4, 20), cuda_ms(plain4, 3))
+        p5a, k5a, k5b, p5b = (cuda_ms(plain5, 3), cuda_ms(b5, 20),
+                              cuda_ms(b5, 20), cuda_ms(plain5, 3))
+        l1_sdp = b4(sdp)
+        k4_sdp = cuda_ms(lambda: b4(sdp), 20)
+        k5_sdp = cuda_ms(lambda: b5(sdp, l1_sdp), 20)
+        out5_sdp, l2_sdp = b5(sdp, l1_sdp)
+        qk = 4 * G * H * N * 2 * D
+        rows = 4 * G * H * N
+        res["B4c"] = dict(ms=[k4a, k4b], plain_ms=[p4a, p4b], sdp_ms=k4_sdp,
+                          **bound(qk + st_e.numel() * 8 + plan_be + 4 * H
+                                  + rows, 2 * H * pairs_e * D))
+        res["B5c"] = dict(ms=[k5a, k5b], plain_ms=[p5a, p5b], sdp_ms=k5_sdp,
+                          **bound(qk + 4 * G * H * N * Dv + st_e.numel() * 8
+                                  + 4 * pairs_e + rows + plan_be
+                                  + 4 * (H + 2 * G) + 4 * G * H * N * Dv
+                                  + rows, 2 * H * pairs_e * (D + Dv)))
+
+        # the csr form of the whole layer's attention on the same graphs:
+        # band edges, residual edges and self loops as one edge list
+        def csr_lists(st, pl):
+            words = FG.unpack_bits(st[0])                  # [S, 64, 64]
+            jl, jc, js = (p[0] for p in pl)
+            live = torch.arange(jl.shape[1], device=DEV) < jc[:, None]
+            i = torch.arange(jl.shape[0], device=DEV)[:, None].expand_as(jl)
+            tiles = words[js[live].long()]                 # [n, 64, 64]
+            t_, r_, c_ = tiles.nonzero(as_tuple=True)
+            eq = i[live][t_] * FG.BLOCK_M + r_
+            ek = jl[live].long()[t_] * FG.BLOCK_N + c_
+            return eq, ek, tiles, (t_, r_, c_)
+        eq_b, ek_b, _, _ = csr_lists(store, plan)
+        eq = torch.cat([eq_b, res_eq[0][res_em[0]].long()])[None]
+        ek = torch.cat([ek_b, res_ek[0][res_em[0]].long()])[None]
+        em = torch.ones_like(eq, dtype=torch.bool)
+
+        def csr():
+            edge_attention("euclidean", q, k, v, eq, ek, em, N)
+        csr_ms = [cuda_ms(csr, 10), cuda_ms(csr, 10)]
+        eq_e, ek_e, _, (t_, r_, c_) = csr_lists(st_e, plan_e)
+        jl, jc, js = (p[0] for p in plan_e)
+        live = torch.arange(jl.shape[1], device=DEV) < jc[:, None]
+        b_band = bst[0][js[live].long()][t_, r_, c_]
+        e_eq, e_ek, e_em = rs
+        eqe = torch.cat([eq_e, e_eq[0][e_em[0]].long()])[None]
+        eke = torch.cat([ek_e, e_ek[0][e_em[0]].long()])[None]
+        ebe = torch.cat([b_band, rb[0][e_em[0]]])[None]
+        eme = torch.ones_like(eqe, dtype=torch.bool)
+
+        def csr_b():
+            edge_attention("euclidean", qe, ke, ve, eqe, eke, eme, N,
+                           edge_bias=ebe)
+        csr_b_ms = [cuda_ms(csr_b, 10), cuda_ms(csr_b, 10)]
+    res["csr_ms"], res["csr_biased_ms"] = csr_ms, csr_b_ms
+    res.update(valid_pairs=pairs, walked_tiles=walked,
+               valid_pairs_edge=pairs_e, csr_edges=int(eq.shape[-1]),
+               csr_biased_edges=int(eqe.shape[-1]))
+    # the library: compiled flex_attention over the compact plan. Phases
+    # 5b and 5c compiled it under other score and mask functions: past
+    # dynamo's recompile limit it would run unfused, [H, N, N] scores
+    torch._dynamo.reset()
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            bmask, flex, _ = flex_compact_setup(FG, q, store, plan)
+            f_out, f_lse = flex(q, k, v, block_mask=bmask, return_lse=True)
+            lib1 = cuda_ms(lambda: flex(q, k, v, block_mask=bmask,
+                                        return_lse=True), 20)
+            bmask_e, flex_e, slot_map = flex_compact_setup(FG, qe, st_e,
+                                                           plan_e)
+            f_l1 = flex_e(qe, ke, ve, block_mask=bmask_e, return_lse=True)[1]
+            bs = bst[0]
+
+            def biased(s, b, h, qi, kv):
+                bm = FG.BLOCK_M
+                sl = slot_map[qi // bm, kv // bm].clamp(min=0)
+                return torch.exp(s - f_l1[b, h, qi]) + \
+                    bs[sl, qi % bm, kv % bm]
+
+            def call5():
+                return flex_e(qe, ke, ve, score_mod=biased,
+                              block_mask=bmask_e, return_lse=True)
+            f_out5, f_l2 = call5()
+            lib4 = cuda_ms(lambda: flex_e(qe, ke, ve, block_mask=bmask_e,
+                                          return_lse=True), 20)
+            lib5 = cuda_ms(call5, 20)
+            sync()
+        live = lse_sdp < 1e29
+        live_e = l1_sdp < 1e29
+        flex_err = max((f_lse - lse_sdp)[live].abs().max().item(),
+                       (f_out - out_sdp)[live].abs().max().item(),
+                       (f_l1 - l1_sdp)[live_e].abs().max().item(),
+                       (f_l2 - l2_sdp)[live_e].abs().max().item(),
+                       (f_out5 - out5_sdp)[live_e].abs().max().item())
+        lib = dict(B1c=lib1, B4c=lib4, B5c=lib5, err=flex_err, error=None)
+    except Exception as e:          # the yardstick only: never the port
+        lib = dict(B1c=None, B4c=None, B5c=None, err=None,
+                   error=f"{type(e).__name__}: {e}"[:300])
+    lib["setup_and_timing_s"] = time.perf_counter() - t0
+    res["library"] = lib
+    for name in ("B1c", "B4c", "B5c"):
+        r = res[name]
+        r["library_ms"] = lib[name]
+        log(f"[5d] {name} one snapshot of N={N}: ms {r['ms'][0]:.4f} "
+            f"{r['ms'][1]:.4f} (scaled-dot {r['sdp_ms']:.4f}); plain ms "
+            f"{r['plain_ms'][0]:.4f} {r['plain_ms'][1]:.4f}; library "
+            f"{r['library_ms']}; bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops)")
+    log(f"[5d] {pairs} valid band pairs ({pairs_e} on the edge-feature "
+        f"snapshot) on {walked} walked tiles per head; csr edge_attention "
+        f"over all {res['csr_edges']} edges ms {csr_ms[0]:.4f} "
+        f"{csr_ms[1]:.4f}, with the bias ({res['csr_biased_edges']} edges) "
+        f"{csr_b_ms[0]:.4f} {csr_b_ms[1]:.4f}; library: {lib}")
+    if lib["err"] is not None and not lib["err"] <= TOL:
+        raise AssertionError(f"flex_attention yardstick differs from the "
+                             f"compact kernels: {lib['err']} > {TOL}")
+    return res
+
+
 def kernel_record(FG, kern, source, replaces, launches, err, ms, plain_ms,
-                  plain_of, b, library_ms):
+                  plain_of, b, library_ms, src=FG_SRC):
     """One kernel's entry of the ``{"kernels": [...]}`` line; ``plain_of``
-    says which plain function ``plain_ms`` timed."""
+    says which plain function ``plain_ms`` timed, ``src`` which file
+    holds the TPU kernel's call site ``replaces``."""
     return {"name": kern.name, "route": "cuda",
             "source": f"tagan_torch/csrc/{source}",
-            "replaces": f"{FG_SRC}:{replaces}", "launches": launches,
+            "replaces": f"{src}:{replaces}", "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "plain_of": plain_of,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
@@ -1670,15 +2289,22 @@ def main() -> int:
     small_bwd = phase_small_bwd(FG)
     small_biased = phase_small_biased(FG)
     small_biased_bwd = phase_small_biased_bwd(FG)
+    small_compact = phase_small_compact(FG)
     serve = phase_serve(tt, FG)
     serve_edge = phase_serve_edge(tt, FG)
+    serve_hyb = phase_serve_hybrid(tt, FG, edge=False)
+    serve_hyb_edge = phase_serve_hybrid(tt, FG, edge=True)
     mid = phase_mid(tt, FG)
     mid_edge = phase_mid_edge(tt, FG)
+    mid_hyb = phase_mid_hybrid(tt, FG)
+    hyb_csr = phase_hybrid_vs_csr(tt, FG)
     times = phase_times(FG, serve.pop("args"))
     edge_args = serve_edge.pop("args")
     times_biased = phase_times_biased(FG, edge_args, serve_edge.pop("graph"))
     times_biased_bwd = phase_times_biased_bwd(FG, edge_args)
     del edge_args
+    times_hyb = phase_times_hybrid(FG, serve_hyb.pop("args"),
+                                   serve_hyb_edge.pop("args"))
     train = phase_train(tt, FG)
     train_edge = phase_train_edge(tt, FG)
     train_mid = phase_train_mid(tt, FG)
@@ -1737,12 +2363,37 @@ def main() -> int:
             ("B6", FG.flash_biased_bwd_pre_kernel, 1038),
             ("B7a", FG.flash_biased_bwd_dq_kernel, 1102),
             ("B7b", FG.flash_biased_bwd_dkv_kernel, 1176))]
+    # the compact forms: launches on the hybrid serving paths (3c, 3d),
+    # times at one 131K snapshot (5d), the library's compact walk or null
+    th, lib = times_hyb, times_hyb["library"]
+    kernels += [
+        dict(kernel_record(
+            FG, kern, source, line, serving["launches"][kern.name],
+            max(small_compact[name], serving["full_err"]),
+            min(th[name]["ms"]), min(th[name]["plain_ms"]), plain_of,
+            th[name], th[name]["library_ms"], src),
+             csr_ms=min(th["csr_biased_ms" if name != "B1c" else "csr_ms"]),
+             library_of=("compiled flex_attention, BlockMask from the compact "
+                         "plan, bit-store mask_mod, scaled-dot metric"
+                         if lib["error"] is None else lib["error"]))
+        for name, kern, source, src, line, serving, plain_of in (
+            ("B1c", FG.flash_geometric_fwd_compact_kernel,
+             "flash_geometric_fwd.cu", FG_SRC, 1315, serve_hyb,
+             "flash_geometric_forward_compact_plain"),
+            ("B4c", FG.flash_lse1_compact_kernel, "flash_biased_fwd.cu",
+             HB_SRC, 197, serve_hyb_edge, "flash_lse1_compact_plain"),
+            ("B5c", FG.flash_biased_fwd_compact_kernel, "flash_biased_fwd.cu",
+             HB_SRC, 236, serve_hyb_edge,
+             "flash_biased_forward_compact_plain"))]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, small_err=small_err, small_bwd_err=small_bwd,
         small_biased_err=small_biased, small_biased_bwd_err=small_biased_bwd,
+        small_compact_err=small_compact,
         mid=mid, mid_edge=mid_edge, serve=serve, serve_edge=serve_edge,
+        serve_hybrid=serve_hyb, serve_hybrid_edge=serve_hyb_edge,
+        mid_hybrid=mid_hyb, hybrid_vs_csr=hyb_csr, times_hybrid=times_hyb,
         times=times, times_biased=times_biased,
         times_biased_bwd=times_biased_bwd, train=train, train_edge=train_edge,
         train_mid=train_mid, train_mid_edge=train_mid_edge,

@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of TAGAN: serving and training of the dense and
-flash models.
+"""PyTorch/CUDA port of TAGAN: serving and training of the dense, csr and
+flash models, and serving of the hybrid (band + residual) model.
 
 Beside ``tagan_tpu`` (the JAX reference), never importing it or JAX.
 Entry points run on CUDA unless ``device="cpu"`` is passed."""

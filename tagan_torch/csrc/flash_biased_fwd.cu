@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
 // that serve the dense path's double softmax (host side
-// _flash_biased_forward), in their dense-mask form. For each query row i and
-// head h, over the valid keys j (mask[i, j] != 0), with s_ij the metric score:
+// _flash_biased_forward), in their dense-mask form (B4, B5), and their compact
+// occupied-block form (B4c, B5c: hybrid_biased.py _band_lse1 and
+// _band_biased_main). For each query row i and head h, over the valid keys j
+// (mask[i, j] != 0), with s_ij the metric score:
 //
 //   B4  _lse1_kernel          lse1_i = logsumexp_j s_ij
 //   B5  _flash_biased_kernel  w1_ij  = exp(s_ij - lse1_i)
@@ -39,6 +41,11 @@
 // but once per head. Reading each bias tile once, with the heads innermost
 // in one block, is the first thing a later redesign changes.
 //
+// The compact form reads the mask tile from the store slot of each walk step
+// (flash_geometric_common.cuh) and the bias from the same slot of a bias
+// store f32[G, S, 64, 64]: a contiguous 16 KB tile, not strided [N, N] rows.
+// At the hybrid band lse1 is the union of the band's and the residual's.
+//
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
 
@@ -60,20 +67,21 @@ __host__ inline size_t smem_floats(bool main_walk, int D, int Dv) {
   return n;
 }
 
-template <bool kMain>
+template <bool kMain, int kForm>
 __global__ void __launch_bounds__(THREADS)
 biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v,
-                  const uint8_t* __restrict__ mask,
+                  const void* __restrict__ mask,
                   const float* __restrict__ bias,
                   const float* __restrict__ lse1,
                   const int* __restrict__ jlist,
                   const int* __restrict__ jcount,
+                  const int* __restrict__ jslot,
                   const float* __restrict__ scale,
                   const int* __restrict__ seeds, float* __restrict__ out,
                   float* __restrict__ lse_out, int H, int N, int D, int Dv,
-                  int n_i, int W, int metric, float sqrt_d, int use_dropout,
-                  uint32_t keep_thresh, float inv_keep) {
+                  int n_i, int W, int S, int metric, float sqrt_d,
+                  int use_dropout, uint32_t keep_thresh, float inv_keep) {
   const int ib = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1;        // odd row stride: no bank conflicts on K
@@ -87,11 +95,14 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* l1_s = kn_s + BN;     // [BM]      B5 only
   float* Vs = l1_s + BM;       // [BN][Dv]  B5 only
   float* Ps = Vs + BN * Dv;    // [BM][PS]  B5 only
+  __shared__ uint64_t mrow[BM];  // the compact forms' mask tile
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* kg = k + gh * N * D;
-  const uint8_t* mg = mask + (size_t)g * N * N;
+  constexpr bool dense = kForm == DENSE_MASK;
+  const uint8_t* mg =
+      static_cast<const uint8_t*>(mask) + (dense ? (size_t)g * N * N : 0);
   const int row0 = ib * BM;
 
   for (int idx = tid; idx < BM * D; idx += THREADS) {
@@ -118,7 +129,7 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if constexpr (kMain) {
     mix1 = (uint32_t)seeds[2 * g] ^ hmix;
     mix2 = (uint32_t)seeds[2 * g + 1] ^ hmix;
-    bg = bias + (size_t)g * N * N;
+    if (dense) bg = bias + (size_t)g * N * N;
   }
   const int n_lanes = (Dv + 15) / 16;
 
@@ -133,9 +144,15 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int cnt = jcount[(size_t)g * n_i + ib];
   const int* jl = jlist + ((size_t)g * n_i + ib) * W;
+  const int* js = jslot + ((size_t)g * n_i + ib) * W;
   for (int t = 0; t < cnt; ++t) {
     const int col0 = jl[t] * BN;
-    __syncthreads();  // the previous step is done with Ks, Vs and Ps
+    __syncthreads();  // the previous step is done with Ks, Vs, Ps and mrow
+    if constexpr (!dense) {
+      const size_t slot = (size_t)g * S + js[t];
+      load_mask_tile<kForm>(mrow, mask, slot);
+      if constexpr (kMain) bg = bias + slot * (BM * BN);
+    }
     for (int idx = tid; idx < BN * D; idx += THREADS) {
       const int r = idx / D, d = idx - r * D, gc = col0 + r;
       Ks[r * DS + d] = gc < N ? kg[(size_t)gc * D + d] : 0.f;
@@ -180,7 +197,7 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int b = 0; b < COLS; ++b) {
         const int lc = lane + 16 * b, gc = col0 + lc;
         float val = NEG_INF;
-        if (gr < N && gc < N && mg[(size_t)gr * N + gc] != 0) {
+        if (pair_on<kForm>(mg, mrow, N, gr, gc, lr, lc)) {
           val = score_of(metric, s[a][b], qn_s[lr], kn_s[lc], sc, sqrt_d);
           if constexpr (kMain) {
             // lse1 >= the row's valid scores, so w1 <= 1
@@ -190,7 +207,7 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   keep_hash(mix1, (uint32_t)gr, (uint32_t)gc) < keep_thresh;
               w1 = keep ? w1 * inv_keep : 0.f;
             }
-            val = w1 + bg[(size_t)gr * N + gc];
+            val = w1 + (dense ? bg[(size_t)gr * N + gc] : bg[lr * BN + lc]);
           }
         }
         s[a][b] = val;
@@ -268,32 +285,36 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <bool kMain>
+template <bool kMain, int kForm>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* bias, const void* lse1, const void* jlist,
-           const void* jcount, const void* scale, const void* seeds,
-           void* out, void* lse_out, int G, int H, int N, int D, int Dv,
-           int n_i, int W, int metric, float sqrt_d, int use_dropout,
-           unsigned int keep_thresh, float inv_keep, void* stream) {
+           const void* jcount, const void* jslot, const void* scale,
+           const void* seeds, void* out, void* lse_out, int G, int H, int N,
+           int D, int Dv, int n_i, int W, int S, int metric, float sqrt_d,
+           int use_dropout, unsigned int keep_thresh, float inv_keep,
+           void* stream) {
   if (G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D ||
       (kMain && (Dv < 1 || Dv > 16 * MAX_DV_LANES)) || metric < 0 ||
-      metric > COS_DIST || n_i != (N + BM - 1) / BM || W < 0)
+      metric > COS_DIST || n_i != (N + BM - 1) / BM || W < 0 ||
+      (kForm != DENSE_MASK && S < 1))
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
   const size_t smem = sizeof(float) * smem_floats(kMain, D, kMain ? Dv : 0);
-  if (smem > 48 * 1024) {
+  if (smem > 48 * 1024 - sizeof(uint64_t) * BM) {
     const cudaError_t e = cudaFuncSetAttribute(
-        biased_fwd_kernel<kMain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        biased_fwd_kernel<kMain, kForm>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(n_i, H, G);
-  biased_fwd_kernel<kMain><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const uint8_t*)mask,
-      (const float*)bias, (const float*)lse1, (const int*)jlist,
-      (const int*)jcount, (const float*)scale, (const int*)seeds,
-      (float*)out, (float*)lse_out, H, N, D, kMain ? Dv : 0, n_i, W, metric,
-      sqrt_d, use_dropout, keep_thresh, inv_keep);
+  biased_fwd_kernel<kMain, kForm>
+      <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+          (const float*)q, (const float*)k, (const float*)v, mask,
+          (const float*)bias, (const float*)lse1, (const int*)jlist,
+          (const int*)jcount, (const int*)jslot, (const float*)scale,
+          (const int*)seeds, (float*)out, (float*)lse_out, H, N, D,
+          kMain ? Dv : 0, n_i, W, S, metric, sqrt_d, use_dropout,
+          keep_thresh, inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -306,9 +327,11 @@ extern "C" int tagan_flash_lse1(const void* q, const void* k,
                                 void* lse1, int G, int H, int N, int D,
                                 int n_i, int W, int metric, float sqrt_d,
                                 void* stream) {
-  return launch<false>(q, k, nullptr, mask, nullptr, nullptr, jlist, jcount,
-                       scale, nullptr, nullptr, lse1, G, H, N, D, 0, n_i, W,
-                       metric, sqrt_d, 0, 0u, 1.f, stream);
+  using namespace tagan_flash;
+  return launch<false, DENSE_MASK>(q, k, nullptr, mask, nullptr, nullptr,
+                                   jlist, jcount, jlist, scale, nullptr,
+                                   nullptr, lse1, G, H, N, D, 0, n_i, W, 0,
+                                   metric, sqrt_d, 0, 0u, 1.f, stream);
 }
 
 // B5: out [G, H, N, Dv] and lse2 [G, H, N] of the second softmax, given
@@ -319,7 +342,39 @@ extern "C" int tagan_flash_biased_fwd(
     const void* scale, const void* seeds, void* out, void* lse2, int G, int H,
     int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
     int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
-  return launch<true>(q, k, v, mask, bias, lse1, jlist, jcount, scale, seeds,
-                      out, lse2, G, H, N, D, Dv, n_i, W, metric, sqrt_d,
-                      use_dropout, keep_thresh, inv_keep, stream);
+  using namespace tagan_flash;
+  return launch<true, DENSE_MASK>(q, k, v, mask, bias, lse1, jlist, jcount,
+                                  jlist, scale, seeds, out, lse2, G, H, N, D,
+                                  Dv, n_i, W, 0, metric, sqrt_d, use_dropout,
+                                  keep_thresh, inv_keep, stream);
+}
+
+// B4c: lse1 over the compact store (bits i64[G, S, 64] when packed, else
+// int8 [G, S, 64, 64]) with the slot of each walk step, jslot [G, n_i, W].
+extern "C" int tagan_flash_lse1_compact(
+    const void* q, const void* k, const void* store, const void* jlist,
+    const void* jcount, const void* jslot, const void* scale, void* lse1,
+    int G, int H, int N, int D, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, void* stream) {
+  using namespace tagan_flash;
+  return (packed ? launch<false, COMPACT_BITS> : launch<false, COMPACT_I8>)(
+      q, k, nullptr, store, nullptr, nullptr, jlist, jcount, jslot, scale,
+      nullptr, nullptr, lse1, G, H, N, D, 0, n_i, W, S, metric, sqrt_d, 0, 0u,
+      1.f, stream);
+}
+
+// B5c: B5 over the compact store, the bias in the same slots,
+// f32[G, S, 64, 64].
+extern "C" int tagan_flash_biased_fwd_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* lse1, const void* jlist, const void* jcount,
+    const void* jslot, const void* scale, const void* seeds, void* out,
+    void* lse2, int G, int H, int N, int D, int Dv, int n_i, int W, int S,
+    int packed, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, void* stream) {
+  using namespace tagan_flash;
+  return (packed ? launch<true, COMPACT_BITS> : launch<true, COMPACT_I8>)(
+      q, k, v, store, bias, lse1, jlist, jcount, jslot, scale, seeds, out,
+      lse2, G, H, N, D, Dv, n_i, W, S, metric, sqrt_d, use_dropout,
+      keep_thresh, inv_keep, stream);
 }

@@ -28,6 +28,56 @@ enum Metric : int {
   GAUSSIAN = 4, RBF = 5, COS_SIM = 6, COS_DIST = 7,
 };
 
+// ---------------------------------------------------------------------------
+// Mask forms of the forward walks. DENSE: an int8 [N, N] mask per folded
+// batch index, read per pair. The compact occupied-block store of the hybrid
+// backend's band holds only the occupied 64 x 64 tiles, slot s of batch
+// index g at (g * S + s), and the walk names each step's slot (jslot):
+// COMPACT_I8 stores a tile as int8 [64][64], COMPACT_BITS as 64 uint64 words,
+// bit c of word r for pair (r, c). A compact step first loads its tile into
+// shared memory as 64 row words (`load_mask_tile`); `pair_on` then tests one
+// bit. The plan sets no bit past N; `pair_on` masks the ragged edge
+// anyway.
+// ---------------------------------------------------------------------------
+
+enum MaskForm : int { DENSE_MASK = 0, COMPACT_I8 = 1, COMPACT_BITS = 2 };
+
+// The tile of `slot` (g * S + s) into rows[0..64), by all THREADS threads.
+// COMPACT_I8: each thread turns 16 bytes of a row (one 16-byte load) into
+// 16 bits; the store is 16-byte aligned (the wrapper checks it).
+template <int kForm>
+__device__ __forceinline__ void load_mask_tile(uint64_t* rows,
+                                               const void* store,
+                                               size_t slot) {
+  const int tid = threadIdx.x;
+  if constexpr (kForm == COMPACT_BITS) {
+    if (tid < BM)
+      rows[tid] = static_cast<const uint64_t*>(store)[slot * BM + tid];
+  } else if constexpr (kForm == COMPACT_I8) {
+    static_assert(THREADS == BM * BN / 16, "one 16-byte load per thread");
+    const int r = tid >> 2, part = tid & 3;
+    const uint4 w = reinterpret_cast<const uint4*>(
+        static_cast<const uint8_t*>(store) + slot * (BM * BN) + r * BN)[part];
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+    uint32_t bits = 0;
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      bits |= ((words[b >> 2] >> (8 * (b & 3))) & 0xffu) != 0 ? 1u << b : 0u;
+    reinterpret_cast<uint16_t*>(rows)[r * 4 + part] = (uint16_t)bits;
+  }
+}
+
+// Whether pair (gr, gc) (tile row lr, column lc) is on the mask: the dense
+// byte, or the bit of the tile loaded by `load_mask_tile`.
+template <int kForm>
+__device__ __forceinline__ bool pair_on(const uint8_t* __restrict__ mg,
+                                        const uint64_t* rows, int N, int gr,
+                                        int gc, int lr, int lc) {
+  if (gr >= N || gc >= N) return false;
+  if constexpr (kForm == DENSE_MASK) return mg[(size_t)gr * N + gc] != 0;
+  else return (rows[lr] >> lc) & 1ull;
+}
+
 __device__ __forceinline__ bool is_sq_metric(int metric) {
   return metric >= SQ_EUCLID && metric <= RBF;
 }

@@ -1,8 +1,9 @@
 // Block-sparse edge-masked geometric attention, forward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel tagan_tpu/ops/pallas/flash_geometric.py::
-// _flash_kernel (host side _flash_forward), in its dense-mask form: for each
-// query row i and head h,
+// _flash_kernel (host side _flash_forward), in its dense-mask form (B1) and
+// its compact occupied-block form (B1c, _flash_forward with a 3-tuple plan):
+// for each query row i and head h,
 //
 //     s_ij  = metric score from q_i.k_j and the row norms (8 metrics)
 //     w_ij  = softmax_j over {j : mask[i, j] != 0} of s_ij
@@ -30,6 +31,10 @@
 //  - The repeat-last padding of jlist exists for the TPU pipeline's DMA
 //    dedup; here jcount bounds the loop.
 //  - Scores and P@V run in fp32 on the CUDA cores, not the tensor cores.
+//  - The compact form (B1c) is the same walk, the mask tile read from the
+//    store slot jslot[g, tile, t] (flash_geometric_common.cuh: int8 tiles or
+//    64 uint64 row words; the TPU's interleaved byte packing is a
+//    pltpu.repeat rule and is not carried over).
 //
 // What bounds it on the H100. The work the data needs is tiny (one score per
 // edge); what the kernel moves is the dense int8 mask, N^2 bytes per
@@ -38,6 +43,12 @@
 // edge, so the walk computes ~N^2 scores per head: the kernel is bound by
 // fp32 issue on the CUDA cores, far above that bound. Tensor cores and a
 // walk over edges instead of blocks are the next steps.
+//
+// The compact form at the hybrid band (131,072 nodes, a band of +-512 slots):
+// ~18 of 2,048 key tiles per row tile are occupied, and all of a walked
+// tile's pairs are near-diagonal band pairs or empty, so the walk visits
+// ~37K tiles per head where the valid pairs fill ~1/2 of them; the store
+// (512 bytes a tile as bits) is read once per head.
 //
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
@@ -52,18 +63,19 @@ constexpr int ROWS = BM / 16;     // query rows per thread
 constexpr int COLS = BN / 16;     // keys per thread and step
 constexpr int MAX_DV_LANES = 8;   // output columns per thread: Dv <= 128
 
+template <int kForm>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
-                 const uint8_t* __restrict__ mask,
+                 const float* __restrict__ v, const void* __restrict__ mask,
                  const int* __restrict__ jlist,
                  const int* __restrict__ jcount,
+                 const int* __restrict__ jslot,
                  const float* __restrict__ scale,
                  const int* __restrict__ seed,
                  float* __restrict__ out, float* __restrict__ lse,
-                 int H, int N, int D, int Dv, int n_i, int W, int metric,
-                 float sqrt_d, int use_dropout, uint32_t keep_thresh,
-                 float inv_keep) {
+                 int H, int N, int D, int Dv, int n_i, int W, int S,
+                 int metric, float sqrt_d, int use_dropout,
+                 uint32_t keep_thresh, float inv_keep) {
   const int ib = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1;        // odd row stride: no bank conflicts on K
@@ -76,12 +88,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Ps = Vs + BN * Dv;    // [BM][PS]
   float* qn_s = Ps + BM * PS;  // [BM]
   float* kn_s = qn_s + BM;     // [BN]
+  __shared__ uint64_t mrow[BM];  // the compact forms' mask tile
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* kg = k + gh * N * D;
   const float* vg = v + gh * N * Dv;
-  const uint8_t* mg = mask + (size_t)g * N * N;
+  constexpr bool dense = kForm == DENSE_MASK;
+  const uint8_t* mg =
+      static_cast<const uint8_t*>(mask) + (dense ? (size_t)g * N * N : 0);
   const int row0 = ib * BM;
 
   for (int idx = tid; idx < BM * D; idx += THREADS) {
@@ -110,9 +125,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int cnt = jcount[(size_t)g * n_i + ib];
   const int* jl = jlist + ((size_t)g * n_i + ib) * W;
+  const int* js = jslot + ((size_t)g * n_i + ib) * W;
   for (int t = 0; t < cnt; ++t) {
     const int col0 = jl[t] * BN;
-    __syncthreads();  // the previous step is done with Ks, Vs and Ps
+    __syncthreads();  // the previous step is done with Ks, Vs, Ps and mrow
+    if constexpr (!dense)
+      load_mask_tile<kForm>(mrow, mask, (size_t)g * S + js[t]);
     for (int idx = tid; idx < BN * D; idx += THREADS) {
       const int r = idx / D, d = idx - r * D, gc = col0 + r;
       Ks[r * DS + d] = gc < N ? kg[(size_t)gc * D + d] : 0.f;
@@ -153,7 +171,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int b = 0; b < COLS; ++b) {
         const int lc = lane + 16 * b, gc = col0 + lc;
-        const bool ok = gr < N && gc < N && mg[(size_t)gr * N + gc] != 0;
+        const bool ok = pair_on<kForm>(mg, mrow, N, gr, gc, lr, lc);
         const float val = ok ? score_of(metric, s[a][b], qn_s[lr], kn_s[lc],
                                         sc, sqrt_d)
                              : NEG_INF;
@@ -223,8 +241,39 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int kForm>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           const void* jlist, const void* jcount, const void* jslot,
+           const void* scale, const void* seed, void* out, void* lse, int G,
+           int H, int N, int D, int Dv, int n_i, int W, int S, int metric,
+           float sqrt_d, int use_dropout, unsigned int keep_thresh,
+           float inv_keep, void* stream) {
+  if (G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
+      Dv > 16 * MAX_DV_LANES || metric < 0 || metric > COS_DIST ||
+      n_i != (N + BM - 1) / BM || W < 0 || (kForm != DENSE_MASK && S < 1))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const size_t smem =
+      sizeof(float) * ((size_t)(BM + BN) * (D + 1) + (size_t)BN * Dv +
+                       (size_t)BM * (BN + 1) + BM + BN);
+  if (smem > 48 * 1024 - sizeof(uint64_t) * BM) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid(n_i, H, G);
+  flash_fwd_kernel<kForm><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, mask,
+      (const int*)jlist, (const int*)jcount, (const int*)jslot,
+      (const float*)scale, (const int*)seed, (float*)out, (float*)lse, H, N,
+      D, Dv, n_i, W, S, metric, sqrt_d, use_dropout, keep_thresh, inv_keep);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// B1: the dense int8 mask [G, N, N].
 extern "C" int tagan_flash_geometric_fwd(
     const void* q, const void* k, const void* v, const void* mask,
     const void* jlist, const void* jcount, const void* scale,
@@ -232,25 +281,24 @@ extern "C" int tagan_flash_geometric_fwd(
     int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
     unsigned int keep_thresh, float inv_keep, void* stream) {
   using namespace tagan_flash;
-  if (G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
-      Dv > 16 * MAX_DV_LANES || metric < 0 || metric > COS_DIST ||
-      n_i != (N + BM - 1) / BM || W < 0)
-    return (int)cudaErrorInvalidValue;
-  if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem =
-      sizeof(float) * ((size_t)(BM + BN) * (D + 1) + (size_t)BN * Dv +
-                       (size_t)BM * (BN + 1) + BM + BN);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(n_i, H, G);
-  flash_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const uint8_t*)mask,
-      (const int*)jlist, (const int*)jcount, (const float*)scale,
-      (const int*)seed, (float*)out, (float*)lse, H, N, D, Dv, n_i, W, metric,
-      sqrt_d, use_dropout, keep_thresh, inv_keep);
-  return (int)cudaGetLastError();
+  return launch<DENSE_MASK>(q, k, v, mask, jlist, jcount, jlist, scale, seed,
+                            out, lse, G, H, N, D, Dv, n_i, W, 0, metric,
+                            sqrt_d, use_dropout, keep_thresh, inv_keep,
+                            stream);
+}
+
+// B1c: the compact store of S slots per g, bits i64[G, S, 64] (packed) or
+// int8 [G, S, 64, 64], and the slot of each walk step, jslot [G, n_i, W].
+extern "C" int tagan_flash_geometric_fwd_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* jlist, const void* jcount, const void* jslot,
+    const void* scale, const void* seed, void* out, void* lse, int G, int H,
+    int N, int D, int Dv, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  using namespace tagan_flash;
+  return (packed ? launch<COMPACT_BITS> : launch<COMPACT_I8>)(
+      q, k, v, store, jlist, jcount, jslot, scale, seed, out, lse, G, H, N,
+      D, Dv, n_i, W, S, metric, sqrt_d, use_dropout, keep_thresh, inv_keep,
+      stream);
 }

@@ -4,8 +4,10 @@ Counterpart of ``tagan_tpu.nn.geometric``: ``GeometricAttention`` with
 its dense path (``forward``: pre-LN, QKV, metric scores, masked softmax,
 the optional edge-bias re-softmax, attention @ V, output projection,
 residual, post-LN), its flash path (``apply_flash``: the same layer
-through the block-sparse attention in ``ops.flash_geometric``) and its
-csr path (``apply_sparse``: over an edge list, ``ops.sparse``), and the
+through the block-sparse attention in ``ops.flash_geometric``), its csr
+path (``apply_sparse``: over an edge list, ``ops.sparse``) and its hybrid
+path (``apply_hybrid``: band edges through the compact-store kernels,
+residual edges through the csr partial, merged exactly), and the
 ``GraphAttention`` adapter.
 
 Dropout runs when a ``torch.Generator`` is passed (the training forward)
@@ -29,6 +31,7 @@ from ..core.module import (LayerNorm, Linear, default_generator, dropout,
                            xavier_uniform)
 from ..ops import distances as D
 from ..ops import flash_geometric as FG
+from ..ops import hybrid_biased as HB
 from ..ops import sparse as S
 from ..ops.masked import masked_softmax
 
@@ -175,6 +178,64 @@ class GeometricAttention(nn.Module):
                                   dropout_rate=rate, dropout_seed=seed,
                                   plan_t=plan_t, bias=bias)
         return self._finish(ctx, x, generator)
+
+    def apply_hybrid(self, x: torch.Tensor, store: torch.Tensor, plan,
+                     res, node_mask: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     band_bias: Optional[torch.Tensor] = None,
+                     res_bias: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """Hybrid path (the JAX package's ``apply_hybrid``): the same
+        layer with the BAND edges (self loops included) through the
+        compact-store kernels and the long-range RESIDUAL edges through
+        the O(E) partial, merged exactly through their logsumexps
+        (`ops.sparse.merge_attention_partials`). x [..., N, hidden];
+        ``store`` and ``plan`` (jlist, jcount, jslot) the band's compact
+        store and walk, ``res`` (edge_q, edge_k, edge_mask) [..., Er] the
+        residual, node_mask [..., N]; all as `SnapshotSequence.
+        with_hybrid_plan` builds them. ``band_bias`` f32[..., S, BM, BN]
+        (the band edges' bias in the store's slots) and ``res_bias``
+        [..., Er] take the edge-biased double softmax
+        (`ops.hybrid_biased`). Mahalanobis runs euclidean in factor space
+        on both parts; inactive nodes keep their input. Forward only: a
+        backward through the attention raises until hybrid training is
+        ported."""
+        metric = self.distance_metric
+        if metric not in FG.MXU_METRICS and metric != "mahalanobis":
+            raise NotImplementedError(
+                f"metric {metric} is not written through q.k; the hybrid "
+                "backend needs the flash kernels - use 'csr'")
+        sigma, gamma, _ = self._metric_params()
+        scale = sigma if sigma is not None else gamma
+        biased = band_bias is not None
+        rate, seed = 0.0, None
+        if generator is not None and self.dropout > 0.0:
+            # one int32 hash seed per folded snapshot for the band; the
+            # residual draws from the generator itself
+            rate = self.dropout
+            seed = torch.randint(0, INT32_MAX, (math.prod(x.shape[:-2]),),
+                                 generator=generator, device=generator.device,
+                                 dtype=torch.int32)
+        q, k, v = self._qkv(x)
+        if metric == "mahalanobis":
+            metric = "euclidean"
+            if self.learnable_distance:
+                f = self.cov_factors                          # [H, R, Dh]
+                q = torch.einsum("...hnd,hrd->...hnr", q, f)
+                k = torch.einsum("...hnd,hrd->...hnr", k, f)
+        if biased:
+            ctx = HB.hybrid_biased_attention(
+                q, k, v, store, plan, res, band_bias, res_bias, metric,
+                scale, rate, seed, generator)
+        else:
+            band = FG._flash_compact(q, k, v, store, plan, metric, scale,
+                                     rate, seed)
+            part = S.edge_attention_partial(
+                metric, q, k, v, *res, x.shape[-2], sigma=sigma, gamma=gamma,
+                dropout_rate=rate, generator=generator)
+            ctx, _ = S.merge_attention_partials([band, part])
+        out = self._finish(ctx, x, generator)
+        return torch.where(node_mask[..., None], out, x)
 
     def apply_sparse(self, x: torch.Tensor, edge_q: torch.Tensor,
                      edge_k: torch.Tensor, edge_mask: torch.Tensor,

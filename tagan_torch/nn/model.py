@@ -1,15 +1,19 @@
 """TAGAN model assembly.
 
 Counterpart of ``tagan_tpu.nn.model``: ``TAGAN`` (``encode_spatial``
-for the dense, csr and flash backends, with or without edge features;
+for the dense, csr, flash and hybrid backends, with or without edge
+features;
 ``forward`` = the JAX ``_forward`` in ``compat_mode="intended"``,
 ``compute_loss``, ``infer``) and ``batched_forward``.
 
 The JAX package runs one sequence per call and ``vmap``s over a batch,
 with ``lax.map`` over snapshots. Here the batch and the snapshots are
 written-out leading dims: every op takes ``[B, T, N, ...]``, and the
-flash backend folds the B*T snapshots into one kernel launch per
-attention layer. A single (unbatched) sequence runs as a batch of one.
+flash and hybrid backends fold the B*T snapshots into one kernel launch
+per attention layer. A single (unbatched) sequence runs as a batch of
+one. The hybrid backend reads the band + residual plan a sequence
+carries (`SnapshotSequence.with_hybrid_plan`; `Predictor` attaches it)
+and runs forward only: its backward is not ported yet.
 
 Pipeline: node embedding; ``num_layers`` geometric attention layers per
 snapshot with the first layer's skip ``x = attn(x) + LN(skip)``;
@@ -18,7 +22,7 @@ per node slot over time; node -> graph pooling per step (mean, max,
 attention, or the per-node ``logit`` readout); classification head.
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is given; on the
-CPU the flash backend runs the kernels' plain versions.
+CPU the flash and hybrid backends run the kernels' plain versions.
 
 ``forward(..., deterministic=False, generator=g)`` is the training
 forward: dropout at every site the JAX package has, drawn from the
@@ -58,7 +62,7 @@ class TAGANOutput(NamedTuple):
 def check_in_slice(c: TAGANConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     missing = []
-    if c.spatial_backend not in ("dense", "csr", "flash"):
+    if c.spatial_backend not in ("dense", "csr", "flash", "hybrid"):
         missing.append(f"spatial_backend={c.spatial_backend!r}")
     if c.compat_mode != "intended":
         missing.append(f"compat_mode={c.compat_mode!r}")
@@ -113,6 +117,37 @@ def edge_bias_matrix(b: torch.Tensor, edge_src: torch.Tensor,
     Built just before the layer's launch and freed after it."""
     b = torch.where(edge_mask, b, torch.zeros_like(b)).to(torch.float32)
     return _scatter_pairs(b, edge_src, edge_dst, n)
+
+
+def hybrid_bias_store(b: torch.Tensor, seq: SnapshotSequence
+                      ) -> torch.Tensor:
+    """The hybrid band's per-layer bias in the store's slots,
+    f32[..., S, BM, BN]: the per-edge scalar ``b`` [..., E] of each band
+    edge added at (its slot, src % BM, dst % BN), so duplicates add (the
+    JAX ``_scatter_bias_store``); self loops, residual and invalid edges
+    (slot -1) carry none. Flat positions are int64: S * BM * BN passes
+    2**31 past ~130K slots."""
+    store = seq.hyb_mask_blocks
+    packed = store.dtype == torch.int64
+    S, bm = store.shape[-2:] if packed else store.shape[-3:-1]
+    bn = 64 if packed else store.shape[-1]
+    slot = seq.hyb_band_slot.long()
+    pos = slot * (bm * bn) + (seq.edge_src.long() % bm) * bn \
+        + seq.edge_dst.long() % bn
+    on = slot >= 0
+    vals = torch.where(on, b, torch.zeros_like(b)).to(torch.float32)
+    flat = segment_sum(vals, torch.where(on, pos, torch.zeros_like(pos)),
+                       S * bm * bn)
+    return flat.reshape(*b.shape[:-1], S, bm, bn)
+
+
+def hybrid_residual_bias(b: torch.Tensor, seq: SnapshotSequence
+                         ) -> torch.Tensor:
+    """The per-edge scalar ``b`` [..., E] at the residual slots
+    [..., Er] (0 on padding)."""
+    eid = seq.hyb_res_eid.long()
+    got = b.gather(-1, eid.clamp(min=0))
+    return torch.where(eid >= 0, got, torch.zeros_like(got))
 
 
 class TAGAN(nn.Module):
@@ -178,7 +213,25 @@ class TAGAN(nn.Module):
         skip = x
         layers = list(self.geometric_layers.values())
         ea = self.edge_embedding(seq.edge_attr) if self.edge_bias_on else None
-        if c.spatial_backend == "flash":
+        if c.spatial_backend == "hybrid":
+            if seq.hyb_mask_blocks is None:
+                raise ValueError(
+                    "spatial_backend='hybrid' requires sequences built "
+                    "with SnapshotSequence.with_hybrid_plan()")
+
+            def attend(layer, xx):
+                bb = rb = None
+                if ea is not None:
+                    # one bias store per layer, built just before the
+                    # layer's launch and freed after it
+                    b = layer.edge_bias(ea)[..., 0]
+                    b = torch.where(seq.edge_mask, b, torch.zeros_like(b))
+                    bb = hybrid_bias_store(b, seq)
+                    rb = hybrid_residual_bias(b, seq)
+                return layer.attn.apply_hybrid(
+                    xx, seq.hyb_mask_blocks, seq.hyb_plan, seq.hyb_res,
+                    seq.node_mask, generator, bb, rb)
+        elif c.spatial_backend == "flash":
             mask, plan, plan_t = flash_structures(
                 seq.edge_src, seq.edge_dst, seq.edge_mask, seq.node_mask,
                 seq.max_nodes)

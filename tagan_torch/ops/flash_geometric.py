@@ -14,9 +14,15 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B6   _biased_bwd_pre_kernel   csrc/flash_biased_bwd.cu
     B7a  _biased_bwd_dq_kernel    csrc/flash_biased_bwd.cu
     B7b  _biased_bwd_dkv_kernel   csrc/flash_biased_bwd.cu
+    B1c  _flash_kernel, compact   csrc/flash_geometric_fwd.cu
+    B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
+    B5c  _flash_biased_kernel, compact  csrc/flash_biased_fwd.cu
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
-dense path's double softmax, and B6, B7a and B7b its backward.
+dense path's double softmax, and B6, B7a and B7b its backward. B1c, B4c
+and B5c walk the compact occupied-block store of the hybrid backend's
+band (the mask, and the bias, only in the occupied tiles; a slot per
+walk step), forward only.
 
 Supported metrics are those written through the cross term q.k and the
 row norms (``MXU_METRICS``); cosine metrics run on L2-normalised q/k;
@@ -297,6 +303,293 @@ def _chunk_scores(metric, q, k, mask, sc, r0, r1):
     qk, sq = _qk_sq(metric, q[:, :, r0:r1], k)
     s = _scores_from(metric, qk, sq, sc, q.shape[-1])
     return s, mask[:, None, r0:r1, :] != 0
+
+
+# ---------------------------------------------------------------------------
+# The compact occupied-block store: the mask only in the occupied tiles,
+# and a slot per walk step (jslot). Bits: i64[..., S, BM], bit c of word r
+# is pair (r, c) of the tile (BN = 64); or int8 [..., S, BM, BN].
+# ---------------------------------------------------------------------------
+
+def store_tile(store: torch.Tensor) -> Tuple[int, int, bool]:
+    """(BM, BN, packed) of a compact store [..., S, BM(, BN)]."""
+    if store.dtype == torch.int64 and store.dim() >= 2:
+        return store.shape[-1], 64, True
+    if store.dtype in (torch.int8, torch.uint8, torch.bool) \
+            and store.dim() >= 3:
+        return store.shape[-2], store.shape[-1], False
+    raise ValueError(f"compact store must be int64 bits [..., S, BM] or "
+                     f"int8 [..., S, BM, BN], got {store.dtype} "
+                     f"{tuple(store.shape)}")
+
+
+def unpack_bits(words: torch.Tensor) -> torch.Tensor:
+    """bool[..., 64] of int64 words: bit c of each word at column c."""
+    c = torch.arange(64, device=words.device)
+    return ((words[..., None] >> c) & 1) != 0
+
+
+def pack_bits(rows: torch.Tensor) -> torch.Tensor:
+    """int64 words of bool[..., 64] rows, the inverse of `unpack_bits`
+    (bit 63 is the sign bit)."""
+    c = torch.arange(63, device=rows.device)
+    low = (rows[..., :63].to(torch.int64) << c).sum(-1)
+    return low + torch.where(rows[..., 63], torch.iinfo(torch.int64).min, 0)
+
+
+def _compact_slots(mask: torch.Tensor, block_m: int, block_n: int):
+    """(occupancy [G, n_i, n_j], each tile's row-major slot [G, n_i * n_j]
+    (valid where occupied), S the most slots any g has)."""
+    occ = _occ_from_mask(mask, block_m, block_n)
+    slot = occ.reshape(occ.shape[0], -1).long().cumsum(-1) - 1
+    return occ, slot, max(int(slot[:, -1].max()) + 1, 1)
+
+
+def compact_values(mask: torch.Tensor, values: torch.Tensor,
+                   block_m: int = BLOCK_M, block_n: int = BLOCK_N
+                   ) -> torch.Tensor:
+    """values [G, N, N] in the slots `compact_from_mask` gives the mask's
+    occupied tiles: [G, S, BM, BN] (a bias store; unused slots zero)."""
+    G, N = mask.shape[0], mask.shape[-1]
+    occ, slot, S = _compact_slots(mask, block_m, block_n)
+    n_i, n_j = occ.shape[1:]
+    tiles = torch.nn.functional.pad(
+        values, (0, n_j * block_n - N, 0, n_i * block_m - N)).reshape(
+        G, n_i, block_m, n_j, block_n).transpose(2, 3)
+    out = torch.zeros((G, S, block_m, block_n), dtype=values.dtype,
+                      device=mask.device)
+    g, i, j = occ.nonzero(as_tuple=True)
+    out[g, slot[g, i * n_j + j]] = tiles[g, i, j]
+    return out
+
+
+def compact_from_mask(mask: torch.Tensor, block_m: int = BLOCK_M,
+                      block_n: int = BLOCK_N, pack: bool = True):
+    """(store, (jlist, jcount, jslot)) of a dense mask [G, N, N]: its
+    occupied tiles in row-major slots, bits or int8 as `store_tile` reads
+    them."""
+    occ, slot, S = _compact_slots(mask, block_m, block_n)
+    n_i, n_j = occ.shape[1:]
+    jlist, jcount = _plan_from_occ(occ)
+    jslot = slot.gather(-1, (torch.arange(n_i, device=mask.device)[:, None]
+                             * n_j + jlist.long()).reshape(mask.shape[0], -1))
+    jslot = jslot.clamp(0, S - 1).reshape(jlist.shape).to(torch.int32)
+    tiles = compact_values(mask, mask != 0, block_m, block_n)
+    store = pack_bits(tiles) if pack else tiles.to(torch.int8)
+    return store, (jlist, jcount, jslot)
+
+
+def check_compact_plan(jlist, jcount, jslot, store, n: int) -> None:
+    """Raise ValueError unless (jlist, jcount, jslot) is a walk over the
+    store of ``n`` keys: shapes that match each other and the store, 0 <=
+    jcount <= W, 0 <= jlist < ceil(n / BN) and 0 <= jslot < S. The
+    kernels read tiles at these indices unchecked. One host
+    synchronisation."""
+    bm, bn, packed = store_tile(store)
+    S = store.shape[-2 if packed else -3]
+    if jslot.shape != jlist.shape or jlist.shape[:-1] != jcount.shape \
+            or jcount.numel() == 0:
+        raise ValueError(f"compact plan shapes {tuple(jlist.shape)}, "
+                         f"{tuple(jcount.shape)}, {tuple(jslot.shape)} do "
+                         f"not match")
+    if jcount.shape[-1] * bm < n:
+        raise ValueError(f"{jcount.shape[-1]} row tiles of {bm} do not "
+                         f"cover {n} rows")
+    if S == 0:
+        raise ValueError("compact store has no slot")
+    n_j, W = -(-n // bn), jlist.shape[-1]
+    ends = [*torch.aminmax(jcount)]
+    if jlist.numel():
+        ends += [*torch.aminmax(jlist), *torch.aminmax(jslot)]
+    ends = torch.stack(ends).tolist()
+    if ends[0] < 0 or ends[1] > W:
+        raise ValueError(f"plan jcount outside [0, {W}]: {ends[:2]}")
+    if len(ends) > 2 and (ends[2] < 0 or ends[3] >= n_j):
+        raise ValueError(f"plan jlist outside [0, {n_j}): {ends[2:4]}")
+    if len(ends) > 2 and (ends[4] < 0 or ends[5] >= S):
+        raise ValueError(f"plan jslot outside [0, {S}): {ends[4:]}")
+
+
+def _key_tiles(x, rows_p, bn):
+    """x [G, H, N, F] padded to whole key tiles: [G, H, n_t, BN, F], with
+    every tile index a plan over ``rows_p`` padded rows can name."""
+    G, H, N, F = x.shape
+    keys_p = _round_up(max(rows_p, N), bn)
+    return torch.nn.functional.pad(x, (0, 0, 0, keys_p - N)).reshape(
+        G, H, keys_p // bn, bn, F)
+
+
+def _gather_tiles(xt, jb):
+    """Tiles jb [G, n_i] of xt [G, H, n_t, BN, F]: [G, H, n_i, BN, F]."""
+    gi = torch.arange(xt.shape[0], device=xt.device)[:, None]
+    return xt[gi, :, jb].permute(0, 2, 1, 3, 4)
+
+
+def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale):
+    """The compact walk of the plain versions, all row tiles at once: per
+    step w, (scores [G, H, n_i, BM, BN], valid [G, 1, n_i, BM, BN],
+    key tile index [G, n_i], global rows [n_i, BM, 1], global columns
+    [G, n_i, 1, BN]). Step w of row tile i scores the key tile
+    jlist[g, i, w] against the mask tile store[g, jslot[g, i, w]]; pairs
+    of steps at or past jcount, and rows or columns past N, are not
+    valid."""
+    G, H, N, D = q.shape
+    bm, bn, packed = store_tile(store)
+    n_i, W = jlist.shape[-2], jlist.shape[-1]
+    rows_p = n_i * bm
+    qt = torch.nn.functional.pad(q, (0, 0, 0, rows_p - N)).reshape(
+        G, H, n_i, bm, D)
+    kt = _key_tiles(k, rows_p, bn)
+    sc = scale.reshape(1, H, 1, 1, 1)
+    rows = torch.arange(rows_p, device=q.device).reshape(n_i, bm, 1)
+    gi = torch.arange(G, device=q.device)[:, None]
+    for w in range(W):
+        jb = jlist[..., w].long()                                # [G, n_i]
+        qk, sq = _qk_sq(metric, qt, _gather_tiles(kt, jb))
+        s = _scores_from(metric, qk, sq, sc, D)
+        tile = store[gi, jslot[..., w].long()]
+        tile = unpack_bits(tile) if packed else tile != 0   # [G, n_i, bm, bn]
+        cols = (jb * bn)[..., None, None] + torch.arange(bn, device=q.device)
+        valid = tile & (rows < N) & (cols < N) \
+            & (w < jcount)[..., None, None]
+        yield s, valid[:, None], jb, rows, cols
+
+
+def _tile_keep(seed, H, rows, cols) -> torch.Tensor:
+    """Hash bits [G, H, n_i, BM, BN] of the tiles' global (row, column)
+    pairs: the TPU kernel's coordinate hash, so the keep mask does not
+    depend on the tile."""
+    dev = rows.device
+    return _keep_bits(seed.to(dev, torch.int64).reshape(-1, 1, 1, 1, 1),
+                      torch.arange(H, device=dev).reshape(1, H, 1, 1, 1),
+                      rows[None, None], cols[:, None])
+
+
+def _finish_online(m, l, acc, N):
+    """(out [G, H, N, Dv] or None, lse [G, H, N]) of the online softmax
+    state over row tiles [G, H, n_i, BM(, Dv)]."""
+    G, H = m.shape[:2]
+    dead = m <= NEG_INF
+    safe = torch.where(dead, torch.ones_like(l), l)
+    lse = torch.where(dead, torch.full_like(m, LSE_DEAD), m + torch.log(safe))
+    lse = lse.reshape(G, H, -1)[..., :N]
+    if acc is None:
+        return None, lse
+    out = torch.where(dead[..., None], torch.zeros_like(acc),
+                      acc / safe[..., None])
+    return out.reshape(G, H, -1, acc.shape[-1])[:, :, :N], lse
+
+
+def _online_step(m, l, acc, z, valid, p_fn=None, vt=None):
+    """One step of the online softmax of z (masked by ``valid``):
+    updates (m, l, acc); ``p_fn`` drops the weights before P@V."""
+    m_new = torch.maximum(m, torch.where(valid, z, NEG_INF).amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.where(valid, torch.exp(z - m_new[..., None]),
+                    torch.zeros_like(z))
+    l = l * alpha + p.sum(-1)
+    if acc is not None:
+        pd = p if p_fn is None else p_fn(p)
+        acc = acc * alpha[..., None] + pd @ vt
+    return m_new, l, acc
+
+
+def _online_init(q, store, jlist, Dv=None):
+    G, H = q.shape[:2]
+    bm = store_tile(store)[0]
+    shape = (G, H, jlist.shape[-2], bm)
+    m = torch.full(shape, NEG_INF, dtype=q.dtype, device=q.device)
+    acc = None if Dv is None else torch.zeros(shape + (Dv,), dtype=q.dtype,
+                                              device=q.device)
+    return m, torch.zeros_like(m), acc
+
+
+def flash_geometric_forward_compact_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, store: torch.Tensor,
+    jlist: torch.Tensor, jcount: torch.Tensor, jslot: torch.Tensor,
+    metric: str, scale: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0, seed: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What B1c computes: the forward over the compact store, an online
+    softmax over the walk steps, every row tile at once. q, k [G, H, N,
+    D], v [G, H, N, Dv], store and plan as in `check_compact_plan` with
+    leading dim G, scale f32[H], seed i32[G] -> (out [G, H, N, Dv], lse
+    [G, H, N]), zero and ``LSE_DEAD`` on rows with no valid key. The
+    dropout hash takes global coordinates, as B1's does."""
+    G, H, N, D = q.shape
+    if scale is None:
+        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    thresh = _keep_thresh(dropout_rate)
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    bm, bn, _ = store_tile(store)
+    vt = _key_tiles(v, jlist.shape[-2] * bm, bn)
+    m, l, acc = _online_init(q, store, jlist, v.shape[-1])
+    for s, valid, jb, rows, cols in _compact_steps(
+            q, k, store, jlist, jcount, jslot, metric, scale):
+        drop = None
+        if dropout_rate > 0.0:
+            keep = _tile_keep(seed, H, rows, cols) < thresh
+
+            def drop(p, keep=keep):
+                return torch.where(keep, p * inv_keep, torch.zeros_like(p))
+        m, l, acc = _online_step(m, l, acc, s, valid, drop,
+                                 _gather_tiles(vt, jb))
+    return _finish_online(m, l, acc, N)
+
+
+def flash_lse1_compact_plain(q, k, store, jlist, jcount, jslot, metric: str,
+                             scale: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """What B4c computes: lse1 [G, H, N] over the compact store
+    (``LSE_DEAD`` on rows with no valid key)."""
+    H, N = q.shape[1], q.shape[2]
+    if scale is None:
+        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    m, l, _ = _online_init(q, store, jlist)
+    for s, valid, _, _, _ in _compact_steps(q, k, store, jlist, jcount,
+                                            jslot, metric, scale):
+        m, l, _ = _online_step(m, l, None, s, valid)
+    return _finish_online(m, l, None, N)[1]
+
+
+def flash_biased_forward_compact_plain(
+    q, k, v, store, bias_store, lse1, jlist, jcount, jslot, metric: str,
+    scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+    seeds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What B5c computes: `flash_biased_forward_plain` over the compact
+    store, with the bias in the same slots, f32[G, S, BM, BN], and lse1
+    [G, H, N] given (the hybrid backend's union lse1: a logsumexp over a
+    superset of the walked pairs). -> (out [G, H, N, Dv], lse2
+    [G, H, N])."""
+    G, H, N, _ = q.shape
+    if scale is None:
+        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    thresh = _keep_thresh(dropout_rate)
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    bm, bn, _ = store_tile(store)
+    n_i = jlist.shape[-2]
+    l1 = torch.nn.functional.pad(lse1, (0, n_i * bm - N),
+                                 value=LSE_DEAD).reshape(G, H, n_i, bm, 1)
+    gi = torch.arange(G, device=q.device)[:, None]
+    vt = _key_tiles(v, n_i * bm, bn)
+    m, l, acc = _online_init(q, store, jlist, v.shape[-1])
+    for w, (s, valid, jb, rows, cols) in enumerate(_compact_steps(
+            q, k, store, jlist, jcount, jslot, metric, scale)):
+        w1 = torch.exp(torch.where(valid, s - l1, NEG_INF))
+        if dropout_rate > 0.0:
+            keep1 = _tile_keep(seeds[:, 0], H, rows, cols) < thresh
+            w1 = torch.where(keep1, w1 * inv_keep, torch.zeros_like(w1))
+        z = w1 + bias_store[gi, jslot[..., w].long()][:, None]
+        drop = None
+        if dropout_rate > 0.0:
+            keep2 = _tile_keep(seeds[:, 1], H, rows, cols) < thresh
+
+            def drop(p, keep=keep2):
+                return torch.where(keep, p * inv_keep, torch.zeros_like(p))
+        m, l, acc = _online_step(m, l, acc, z, valid, drop,
+                                 _gather_tiles(vt, jb))
+    return _finish_online(m, l, acc, N)
 
 
 def flash_lse1_plain(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
@@ -678,9 +971,13 @@ class _CudaKernel:
     def _check_dims(name: str, mask: torch.Tensor, D: int, Dv: int) -> None:
         if mask.dtype not in (torch.int8, torch.uint8, torch.bool):
             raise ValueError(f"{name}: mask must be int8/uint8/bool")
-        if not (1 <= D <= 128 and 1 <= Dv <= 128):
-            raise ValueError(f"{name}: needs 1 <= D, Dv <= 128, "
-                             f"got D={D}, Dv={Dv}")
+        _check_widths(name, D, Dv)
+
+
+def _check_widths(name: str, D: int, Dv: int) -> None:
+    if not (1 <= D <= 128 and 1 <= Dv <= 128):
+        raise ValueError(f"{name}: needs 1 <= D, Dv <= 128, "
+                         f"got D={D}, Dv={Dv}")
 
 
 def _dropout_args(dropout_rate: float):
@@ -896,6 +1193,121 @@ class _FlashBiasedKernel(_CudaKernel):
         return out, lse2
 
 
+def _check_compact(name, dev, q, store, jlist, jcount, jslot):
+    """The checks B1c, B4c and B5c share: q [G, H, N, D] fp32, the
+    store at the kernels' tile (bits i64[G, S, 64] or int8
+    [G, S, 64, 64], 16-byte aligned) and the walk at that tile; returns
+    (G, H, N, D, n_i, W, S, packed)."""
+    G, H, N, D = q.shape
+    n_i = -(-N // BLOCK_M)
+    bm, bn, packed = store_tile(store)
+    if (bm, bn) != (BLOCK_M, BLOCK_N) or store.dim() != (3 if packed else 4):
+        raise ValueError(f"{name}: the kernels walk a store of "
+                         f"{BLOCK_M} x {BLOCK_N} tiles, got "
+                         f"{tuple(store.shape)} {store.dtype}")
+    S, W = store.shape[1], jlist.shape[-1]
+    _check_args(name, dev, (
+        ("q", q, torch.float32, (G, H, N, D)),
+        ("store", store, None, (G, S) + store.shape[2:]),
+        ("jlist", jlist, torch.int32, (G, n_i, W)),
+        ("jcount", jcount, torch.int32, (G, n_i)),
+        ("jslot", jslot, torch.int32, (G, n_i, W))))
+    if S < 1 or store.data_ptr() % 16:
+        raise ValueError(f"{name}: the store needs a slot and 16-byte "
+                         f"alignment")
+    return G, H, N, D, n_i, W, S, int(packed)
+
+
+class _FlashForwardCompactKernel(_CudaKernel):
+    """B1c, ``tagan_flash_geometric_fwd_compact``: B1 over the compact
+    store, (out, lse)."""
+    name = "flash_geometric_fwd_compact"
+    source = "flash_geometric_fwd"
+    symbol = "tagan_flash_geometric_fwd_compact"
+    argtypes = (_P,) * 11 + (_I,) * 10 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, store, jlist, jcount, jslot, metric: str,
+                 scale: torch.Tensor, seed: torch.Tensor,
+                 dropout_rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = self._device_of(self.name, q)
+        G, H, N, D, n_i, W, S, packed = _check_compact(
+            self.name, dev, q, store, jlist, jcount, jslot)
+        Dv = v.shape[-1]
+        _check_args(self.name, dev, (
+            ("k", k, torch.float32, (G, H, N, D)),
+            ("v", v, torch.float32, (G, H, N, Dv)),
+            ("scale", scale, torch.float32, (H,)),
+            ("seed", seed, torch.int32, (G,))))
+        _check_widths(self.name, D, Dv)
+        out = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
+        lse = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, store, jlist, jcount, jslot, scale, seed, out, lse)),
+            G, H, N, D, Dv, n_i, W, S, packed, MXU_METRICS.index(metric),
+            math.sqrt(D), *_dropout_args(dropout_rate))
+        return out, lse
+
+
+class _FlashLse1CompactKernel(_CudaKernel):
+    """B4c, ``tagan_flash_lse1_compact``: B4 over the compact store,
+    lse1 [G, H, N]."""
+    name = "flash_lse1_compact"
+    source = "flash_biased_fwd"
+    symbol = "tagan_flash_lse1_compact"
+    argtypes = (_P,) * 8 + (_I,) * 9 + (_F,)
+
+    def __call__(self, q, k, store, jlist, jcount, jslot, metric: str,
+                 scale: torch.Tensor) -> torch.Tensor:
+        dev = self._device_of(self.name, q)
+        G, H, N, D, n_i, W, S, packed = _check_compact(
+            self.name, dev, q, store, jlist, jcount, jslot)
+        _check_args(self.name, dev, (
+            ("k", k, torch.float32, (G, H, N, D)),
+            ("scale", scale, torch.float32, (H,))))
+        _check_widths(self.name, D, 1)
+        lse1 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, store, jlist, jcount, jslot, scale, lse1)),
+            G, H, N, D, n_i, W, S, packed, MXU_METRICS.index(metric),
+            math.sqrt(D))
+        return lse1
+
+
+class _FlashBiasedCompactKernel(_CudaKernel):
+    """B5c, ``tagan_flash_biased_fwd_compact``: B5 over the compact
+    store, the bias in the same slots (f32[G, S, 64, 64]); (out,
+    lse2)."""
+    name = "flash_biased_fwd_compact"
+    source = "flash_biased_fwd"
+    symbol = "tagan_flash_biased_fwd_compact"
+    argtypes = (_P,) * 13 + (_I,) * 10 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, store, bias_store, lse1, jlist, jcount,
+                 jslot, metric: str, scale: torch.Tensor,
+                 seeds: torch.Tensor, dropout_rate: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = self._device_of(self.name, q)
+        G, H, N, D, n_i, W, S, packed = _check_compact(
+            self.name, dev, q, store, jlist, jcount, jslot)
+        Dv = v.shape[-1]
+        _check_args(self.name, dev, (
+            ("k", k, torch.float32, (G, H, N, D)),
+            ("v", v, torch.float32, (G, H, N, Dv)),
+            ("bias", bias_store, torch.float32, (G, S, BLOCK_M, BLOCK_N)),
+            ("lse1", lse1, torch.float32, (G, H, N)),
+            ("scale", scale, torch.float32, (H,)),
+            ("seeds", seeds, torch.int32, (G, 2))))
+        _check_widths(self.name, D, Dv)
+        out = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
+        lse2 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, store, bias_store, lse1, jlist, jcount, jslot, scale,
+            seeds, out, lse2)),
+            G, H, N, D, Dv, n_i, W, S, packed, MXU_METRICS.index(metric),
+            math.sqrt(D), *_dropout_args(dropout_rate))
+        return out, lse2
+
+
 class _FlashBiasedBackwardKernel(_CudaKernel):
     """Shared checks of the biased backward kernels B6, B7a and B7b: q, k
     [G, H, N, D], v, do [G, H, N, Dv], bias [G, N, N], lse1, lse2, delta2
@@ -1001,11 +1413,15 @@ flash_biased_fwd_kernel = _FlashBiasedKernel()
 flash_biased_bwd_pre_kernel = _FlashBiasedBwdPreKernel()
 flash_biased_bwd_dq_kernel = _FlashBiasedBwdDqKernel()
 flash_biased_bwd_dkv_kernel = _FlashBiasedBwdDkvKernel()
+flash_geometric_fwd_compact_kernel = _FlashForwardCompactKernel()
+flash_lse1_compact_kernel = _FlashLse1CompactKernel()
+flash_biased_fwd_compact_kernel = _FlashBiasedCompactKernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
            flash_biased_bwd_pre_kernel, flash_biased_bwd_dq_kernel,
-           flash_biased_bwd_dkv_kernel)
+           flash_biased_bwd_dkv_kernel, flash_geometric_fwd_compact_kernel,
+           flash_lse1_compact_kernel, flash_biased_fwd_compact_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -1398,3 +1814,173 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
     if return_lse:
         return out, lse.reshape(*lead, H, N)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The compact forms (the hybrid backend's band): forward only
+# ---------------------------------------------------------------------------
+
+def _forward_compact(q, k, v, store, plan, metric, scale, dropout_rate,
+                     seed):
+    """(out, lse) of folded inputs over the compact store: B1c for CUDA
+    tensors, the plain version for CPU tensors; trusts the plan."""
+    if q.device.type == "cpu":
+        return flash_geometric_forward_compact_plain(
+            q, k, v, store, *plan, metric, scale, dropout_rate, seed)
+    return flash_geometric_fwd_compact_kernel(q, k, v, store, *plan, metric,
+                                              scale, seed, dropout_rate)
+
+
+def _lse1_compact(q, k, store, plan, metric, scale):
+    """lse1 of folded inputs over the compact store: B4c, or its plain
+    version for CPU tensors; trusts the plan."""
+    if q.device.type == "cpu":
+        return flash_lse1_compact_plain(q, k, store, *plan, metric, scale)
+    return flash_lse1_compact_kernel(q, k, store, *plan, metric, scale)
+
+
+def _biased_forward_compact(q, k, v, store, bias_store, lse1, plan, metric,
+                            scale, dropout_rate, seeds):
+    """(out, lse2) of folded inputs over the compact store given lse1:
+    B5c, or its plain version for CPU tensors; trusts the plan."""
+    if q.device.type == "cpu":
+        return flash_biased_forward_compact_plain(
+            q, k, v, store, bias_store, lse1, *plan, metric, scale,
+            dropout_rate, seeds)
+    return flash_biased_fwd_compact_kernel(q, k, v, store, bias_store, lse1,
+                                           *plan, metric, scale, seeds,
+                                           dropout_rate)
+
+
+def flash_geometric_fwd_compact(q, k, v, store, jlist, jcount, jslot, *,
+                                metric: str,
+                                scale: Optional[torch.Tensor] = None,
+                                dropout_rate: float = 0.0,
+                                seed: Optional[torch.Tensor] = None):
+    """(out, lse) of the batched forward over a compact store: B1c, or
+    its plain version for CPU tensors. Shapes as in
+    `flash_geometric_forward_compact_plain`; the plan is checked by
+    `check_compact_plan`."""
+    check_compact_plan(jlist, jcount, jslot, store, q.shape[2])
+    scale, seed = _defaults(q, scale, seed)
+    return _forward_compact(q, k, v, store, (jlist, jcount, jslot), metric,
+                            scale, dropout_rate, seed)
+
+
+def flash_lse1_compact(q, k, store, jlist, jcount, jslot, *, metric: str,
+                       scale: Optional[torch.Tensor] = None):
+    """lse1 [G, H, N] over a compact store: B4c, or its plain version for
+    CPU tensors; the plan is checked."""
+    check_compact_plan(jlist, jcount, jslot, store, q.shape[2])
+    scale, _ = _defaults(q, scale, None)
+    return _lse1_compact(q, k, store, (jlist, jcount, jslot), metric, scale)
+
+
+def flash_biased_fwd_compact(q, k, v, store, bias_store, lse1, jlist, jcount,
+                             jslot, *, metric: str,
+                             scale: Optional[torch.Tensor] = None,
+                             dropout_rate: float = 0.0,
+                             seeds: Optional[torch.Tensor] = None):
+    """(out, lse2) of the second softmax over a compact store given lse1
+    (the JAX package's ``_band_biased_main``): B5c, or its plain version
+    for CPU tensors; the plan is checked, seeds i32[G, 2]
+    (`biased_seeds`)."""
+    check_compact_plan(jlist, jcount, jslot, store, q.shape[2])
+    scale, _ = _defaults(q, scale, None)
+    if seeds is None:
+        seeds = biased_seeds(None, q.shape[0], q.device)
+    return _biased_forward_compact(q, k, v, store, bias_store, lse1,
+                                   (jlist, jcount, jslot), metric, scale,
+                                   dropout_rate, seeds)
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """The identity on its first ``n`` inputs, whose backward raises: the
+    compact forms run forward only until their backward kernels (hybrid
+    training) are ported, and a gradient must not silently miss them."""
+
+    @staticmethod
+    def forward(ctx, n, *tensors):
+        return tuple(t.clone() for t in tensors[:n])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the backward of the compact-store kernels (hybrid training) "
+            "is not ported to tagan_torch yet")
+
+
+def forward_only(outs: Tuple[torch.Tensor, ...], inputs) -> Tuple:
+    """``outs``, computed without autograd from ``inputs``, tied to them
+    so that a backward through them raises (`_ForwardOnly`)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        return _ForwardOnly.apply(len(outs), *outs,
+                                  *(t for t in inputs if t is not None))
+    return outs
+
+
+def fold_compact(store, plan, G: int):
+    """The store [..., S, BM(, BN)] and plan [..., n, W] with their
+    leading dims folded into G, int32 and contiguous."""
+    lead = store.dim() - (2 if store_tile(store)[2] else 3)
+    return (store.reshape(G, *store.shape[lead:]).contiguous(),
+            tuple(p.reshape(G, *p.shape[lead:]).to(torch.int32).contiguous()
+                  for p in plan))
+
+
+def _flash_compact(q, k, v, store, plan, metric, scale_param,
+                   dropout_rate=0.0, dropout_seed=None):
+    """(out, lse) of the compact forward with leading dims, the plan
+    taken unchecked (the model's path): the cosine normalisation and the
+    folding outside the kernel, as in `_flash_attention`."""
+    if metric not in MXU_METRICS:
+        raise NotImplementedError(
+            f"metric {metric} is not written through q.k; use the dense path")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    lead = q.shape[:-3]
+    H, N, D = q.shape[-3:]
+    Dv = v.shape[-1]
+    G = math.prod(lead)
+    inputs = (q, k, v, scale_param)
+    with torch.no_grad():
+        if metric in _COSINE:
+            q, k = _l2_normalize(q), _l2_normalize(k)
+        scale = torch.ones(H, dtype=torch.float32, device=q.device) \
+            if scale_param is None \
+            else scale_param.to(torch.float32).contiguous()
+        st, pl = fold_compact(store, plan, G)
+        out, lse = _forward_compact(
+            q.reshape(G, H, N, D).contiguous(),
+            k.reshape(G, H, N, D).contiguous(),
+            v.reshape(G, H, N, Dv).contiguous(), st, pl, metric, scale,
+            dropout_rate, _fold_seed(dropout_seed, G, q.device))
+    out, lse = forward_only((out.reshape(*lead, H, N, Dv),
+                             lse.reshape(*lead, H, N)), inputs)
+    return out, lse
+
+
+def flash_geometric_attention_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+    metric: str = "scaled_dot_product",
+    scale_param: Optional[torch.Tensor] = None, plan=None, plan_t=None,
+    dropout_rate: float = 0.0, dropout_seed: Optional[torch.Tensor] = None,
+):
+    """(out, lse) of the edge-masked attention (the TPU package's
+    ``flash_geometric_attention_lse``), leading dims folded into one
+    launch. A 3-tuple ``plan`` (jlist, jcount, jslot) takes the compact
+    form: ``mask`` is then the occupied-block store (`store_tile`) and
+    the walk runs B1c, forward only (a backward through it raises until
+    hybrid training is ported); the plan is checked
+    (`check_compact_plan`). Otherwise the dense `flash_geometric_attention`
+    with ``return_lse``."""
+    if plan is None or len(plan) != 3:
+        return flash_geometric_attention(
+            q, k, v, mask, metric, scale_param, plan, plan_t, dropout_rate,
+            dropout_seed, return_lse=True)
+    G = math.prod(q.shape[:-3])
+    st, pl = fold_compact(mask, plan, G)
+    check_compact_plan(*pl, st, q.shape[-2])
+    return _flash_compact(q, k, v, mask, plan, metric, scale_param,
+                          dropout_rate, dropout_seed)

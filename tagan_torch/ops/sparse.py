@@ -2,7 +2,9 @@
 
 Counterpart of ``tagan_tpu.ops.sparse`` (``sddmm``, ``segment_softmax``,
 ``spmm``, ``edge_attention``, ``add_self_loops``): the csr backend, the
-same attention as the dense masked softmax in O(E). The JAX package
+same attention as the dense masked softmax in O(E); and the partial over
+one edge subset with its merge (``edge_attention_partial``,
+``merge_attention_partials``), the hybrid backend's residual. The JAX package
 leaves these to XLA (gathers and segment sums), so they are plain
 PyTorch here: gathers, ``scatter_reduce("amax")`` and ``index_add``.
 
@@ -118,6 +120,72 @@ def edge_attention(metric: str, q: torch.Tensor, k: torch.Tensor,
         w = dropout(segment_softmax(w + b, edge_q, edge_mask, num_nodes),
                     dropout_rate, generator)
     return spmm(w, v, edge_q, edge_k, num_nodes)
+
+
+def _segment_max(s: torch.Tensor, idx: torch.Tensor,
+                 num_nodes: int) -> torch.Tensor:
+    """Max of s [..., H, E] per segment idx [..., H, E]; ``NEG_INF``
+    where a segment has no entry."""
+    out = torch.full(s.shape[:-1] + (num_nodes,), NEG_INF, dtype=s.dtype,
+                     device=s.device)
+    return out.scatter_reduce(-1, idx, s, "amax")
+
+
+def edge_attention_partial(metric: str, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, edge_q: torch.Tensor,
+                           edge_k: torch.Tensor, edge_mask: torch.Tensor,
+                           num_nodes: int, *, sigma=None, gamma=None,
+                           cov_inv=None, dropout_rate: float = 0.0,
+                           generator: Optional[torch.Generator] = None):
+    """Attention over ONE edge subset (the JAX package's
+    ``edge_attention_partial``): (out [..., H, N, D], the softmax over
+    these edges only, and lse [..., H, N], the logsumexp of their scores,
+    ``NEG_INF`` where a query has no valid edge). Partials over disjoint
+    subsets merge into the one softmax over their union
+    (`merge_attention_partials`); dropout (``generator``) drops the
+    normalised weights, which is linear, so a dropped partial merges into
+    the dropped union. No self loops are added here."""
+    scores = sddmm(metric, q, k, edge_q, edge_k, sigma=sigma, gamma=gamma,
+                   cov_inv=cov_inv)
+    em = edge_mask[..., None, :]
+    s = torch.where(em, scores, torch.full_like(scores, NEG_INF))
+    idx = _per_head_index(edge_q, scores.shape[-2])
+    seg_max = _segment_max(s, idx, num_nodes)
+    dead = seg_max <= NEG_INF * 0.5
+    m_safe = torch.where(dead, torch.zeros_like(seg_max), seg_max)
+    e = torch.exp(s - torch.gather(m_safe, -1, idx)) * em.to(s.dtype)
+    denom = segment_sum(e, idx, num_nodes)
+    safe = torch.where(denom == 0, torch.ones_like(denom), denom)
+    w = dropout(e / torch.gather(safe, -1, idx), dropout_rate, generator)
+    out = spmm(w, v, edge_q, edge_k, num_nodes)
+    lse = torch.where(dead, torch.full_like(seg_max, NEG_INF),
+                      m_safe + torch.log(safe))
+    return out, lse
+
+
+def merge_attention_partials(parts):
+    """The union softmax from partials over disjoint edge subsets (the
+    JAX package's ``merge_attention_partials``): ``parts`` is a sequence
+    of (out [..., H, N, D], lse [..., H, N]). Either dead-row mark counts:
+    the csr partial's ``NEG_INF`` and the flash kernels' ``LSE_DEAD``
+    (any |lse| >= 1e29). Returns (out, lse), zero and ``NEG_INF`` on rows
+    dead in every part."""
+    lses = [torch.where(lse.abs() >= 1e29, torch.full_like(lse, NEG_INF),
+                        lse) for _, lse in parts]
+    m = lses[0]
+    for lse in lses[1:]:
+        m = torch.maximum(m, lse)
+    all_dead = m <= NEG_INF * 0.5
+    m_safe = torch.where(all_dead, torch.zeros_like(m), m).detach()
+    ws = [torch.exp(lse - m_safe) for lse in lses]
+    denom = sum(ws)
+    safe = torch.where(denom == 0, torch.ones_like(denom), denom)
+    out = sum(o * w[..., None] for (o, _), w in zip(parts, ws)) \
+        / safe[..., None]
+    out = torch.where(all_dead[..., None], torch.zeros_like(out), out)
+    lse = torch.where(all_dead, torch.full_like(m, NEG_INF),
+                      m_safe + torch.log(safe))
+    return out, lse
 
 
 def add_self_loops(edge_q: torch.Tensor, edge_k: torch.Tensor,

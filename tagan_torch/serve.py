@@ -15,8 +15,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .core.graph import (SnapshotSequence, batch_sequences, build_sequence,
-                         pad_dims_for)
+from .core.graph import (SnapshotSequence, attach_hybrid_plans,
+                         batch_sequences, build_sequence, pad_dims_for)
 from .nn.model import TAGAN
 
 
@@ -30,17 +30,28 @@ class Predictor:
     batch_size: sequences per forward.
     dense_adj:  pack the dense adjacency (default: only for the dense
                 backend, which needs it).
+    plan_pin, plan_kwargs:
+                the hybrid backend's plan, attached at pack time
+                (`attach_hybrid_plans`): ``plan_kwargs`` go to
+                `SnapshotSequence.with_hybrid_plan`; ``plan_pin`` fixes
+                its padded sizes (`hybrid_plan_dims`). Without a pin the
+                first request's becomes the pin, and a later request
+                whose plan exceeds it raises ValueError.
     """
 
     def __init__(self, model: TAGAN, *,
                  dims: Optional[Tuple[int, int, int, int]] = None,
-                 batch_size: int = 8, dense_adj: Optional[bool] = None):
+                 batch_size: int = 8, dense_adj: Optional[bool] = None,
+                 plan_pin: Optional[dict] = None,
+                 plan_kwargs: Optional[dict] = None):
         self.model = model
         self.dims = dims
         self.batch_size = int(batch_size)
         if dense_adj is None:
             dense_adj = model.config.spatial_backend == "dense"
         self.dense_adj = dense_adj
+        self.plan_pin = plan_pin
+        self.plan_kwargs = dict(plan_kwargs or {})
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "Predictor":
@@ -54,10 +65,16 @@ class Predictor:
             return [sequences.map(lambda t, i=i: t[i])
                     for i in range(sequences.x.shape[0])]
         T, N, E, Fe = self.dims or pad_dims_for(sequences)
-        return [build_sequence(s, max_nodes=N, max_edges=max(E, 1),
+        seqs = [build_sequence(s, max_nodes=N, max_edges=max(E, 1),
                                max_time=T, edge_feature_dim=Fe,
                                dense_adj=self.dense_adj)
                 for s in sequences]
+        if self.model.config.spatial_backend == "hybrid":
+            seqs, pin = attach_hybrid_plans(seqs, pin=self.plan_pin,
+                                            **self.plan_kwargs)
+            if self.plan_pin is None:
+                self.plan_pin = pin          # a stable bucket from now on
+        return seqs
 
     def predict_proba(self, sequences) -> np.ndarray:
         """``[num, 1]`` sigmoid probabilities for binary models,
@@ -85,6 +102,7 @@ class Predictor:
         ``dims`` (builds the kernels and initialises the device)."""
         if self.dims is None:
             raise ValueError("warmup needs pinned dims")
+        pin = self.plan_pin                 # the warm-up's plan pins nothing
         Fe = self.dims[3]
         snap = {"x": np.zeros((2, self.model.config.node_feature_dim),
                               np.float32),
@@ -92,6 +110,7 @@ class Predictor:
                 "edge_attr": np.zeros((1, Fe), np.float32) if Fe else None,
                 "node_ids": [0, 1], "timestep": 0.0}
         self.predict_proba([[snap]] * max(num_sequences, 1))
+        self.plan_pin = pin
 
 
 class StreamingSession:

@@ -611,3 +611,166 @@ def test_edge_padded_edges_on_unwalked_blocks(cuda):
            for dev in ("cuda", "cpu")}
     assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
     _grads_close(got["cuda"][1], got["cpu"][1])
+
+
+# ---------------------------------------------------------------------------
+# B1c, B4c, B5c: the compact-store forms of the hybrid backend's band
+# ---------------------------------------------------------------------------
+
+COMPACT = (FG.flash_geometric_fwd_compact_kernel, FG.flash_lse1_compact_kernel,
+           FG.flash_biased_fwd_compact_kernel)
+
+
+def _compact_inputs(G, H, N, D, Dv, metric, pack, seed=0):
+    """`_biased_inputs` with the mask and the bias moved to a compact
+    store (bits or int8) and a bias store in its slots: dead rows, a
+    query tile with jcount = 0 (snapshot 1, rows 64..127), the ragged
+    edge of N."""
+    q, k, v, mask, bias, scale, seeds = _biased_inputs(G, H, N, D, Dv,
+                                                       metric, seed)
+    store, plan = FG.compact_from_mask(mask, pack=pack)
+    bias_store = FG.compact_values(mask, bias)
+    if G > 1:
+        assert int(plan[1][1, 1]) == 0
+    return q, k, v, mask, bias, store, bias_store, plan, scale, seeds
+
+
+def _compact_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack, seed=0):
+    """B1c, B4c and B5c (on a union-like lse1: B4c's plus a constant)
+    against their compact plain versions and B1c, B4c against the dense
+    plain versions: within TOL, dead rows exactly, one launch each."""
+    q, k, v, mask, bias, store, bias_store, plan, scale, seeds = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_inputs(G, H, N, D, Dv, metric, pack, seed))
+    seed1 = seeds[:, 0].contiguous()
+    before = [kern.launches for kern in COMPACT]
+    out, lse = FG.flash_geometric_fwd_compact(
+        q, k, v, store, *plan, metric=metric, scale=scale, seed=seed1,
+        dropout_rate=rate)
+    lse1 = FG.flash_lse1_compact(q, k, store, *plan, metric=metric,
+                                 scale=scale)
+    lse1_u = torch.where(lse1 < 1e29, lse1 + 0.25, lse1).contiguous()
+    out2, lse2 = FG.flash_biased_fwd_compact(
+        q, k, v, store, bias_store, lse1_u, *plan, metric=metric, scale=scale,
+        seeds=seeds, dropout_rate=rate)
+    assert [kern.launches for kern in COMPACT] == [n + 1 for n in before]
+    p_out, p_lse = FG.flash_geometric_forward_compact_plain(
+        q, k, v, store, *plan, metric, scale, rate, seed1)
+    p_lse1 = FG.flash_lse1_compact_plain(q, k, store, *plan, metric, scale)
+    p_out2, p_lse2 = FG.flash_biased_forward_compact_plain(
+        q, k, v, store, bias_store, lse1_u, *plan, metric, scale, rate, seeds)
+    d_out, d_lse = FG.flash_geometric_forward_plain(q, k, v, mask, metric,
+                                                    scale, rate, seed1)
+    torch.cuda.synchronize()
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    for t in (lse, lse1, lse2):
+        assert torch.all(t[dead] == FG.LSE_DEAD)
+    assert torch.all(out[dead] == 0) and torch.all(out2[dead] == 0)
+    for got, want in ((out, p_out), (out2, p_out2), (out, d_out)):
+        assert (got - want).abs().max().item() <= TOL
+    for got, want in ((lse, p_lse), (lse1, p_lse1), (lse2, p_lse2),
+                      (lse, d_lse)):
+        assert (got - want)[~dead].abs().max().item() <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_kernels_match_plain(metric, rate, pack, cuda):
+    """B1c, B4c and B5c, bit and int8 stores: N=150 (not a tile
+    multiple), D != Dv, dead rows, a row tile with jcount = 0, per-head
+    scales, dropout from per-snapshot seeds (negative included)."""
+    _compact_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(7, 3), (40, 72), (128, 128)])
+def test_compact_kernel_head_dims(D, Dv, cuda):
+    _compact_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel", 0.1, True,
+                      seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["jslot_low", "jslot_high", "jlist",
+                                   "tile", "dtype"])
+def test_compact_bad_plan_raises_before_launch(fault, cuda):
+    """A caller's jslot outside [0, S), jlist outside the key tiles, a
+    store at another tile or of another dtype: ValueError on the host,
+    no compact kernel launched."""
+    q, k, v, mask, bias, store, bias_store, plan, scale, seeds = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_inputs(1, 2, 150, 16, 16, "dot_product", True))
+    jlist, jcount, jslot = (p.clone() for p in plan)
+    S = store.shape[1]
+    if fault == "jslot_low":
+        jslot[0, 1, 0] = -1
+    elif fault == "jslot_high":
+        jslot[0, 1, 0] = S
+    elif fault == "jlist":
+        jlist[0, 1, 0] = 3
+    elif fault == "tile":
+        store = store.reshape(1, S * 2, 32)
+    else:
+        store = store.to(torch.int32)
+    before = [kern.launches for kern in COMPACT]
+    lse1 = torch.zeros(1, 2, 150, device=cuda)
+    for call in (
+            lambda: FG.flash_geometric_fwd_compact(
+                q, k, v, store, jlist, jcount, jslot, metric="dot_product"),
+            lambda: FG.flash_lse1_compact(q, k, store, jlist, jcount, jslot,
+                                          metric="dot_product"),
+            lambda: FG.flash_biased_fwd_compact(
+                q, k, v, store, bias_store, lse1, jlist, jcount, jslot,
+                metric="dot_product")):
+        with pytest.raises(ValueError):
+            call()
+    assert [kern.launches for kern in COMPACT] == before
+
+
+def _hybrid_seqs(rng, n, e, T, num, fe):
+    seqs = []
+    for _ in range(num):
+        snaps = []
+        for t in range(T):
+            src = rng.integers(0, n, e)
+            near = np.clip(src + rng.integers(-40, 41, e), 0, n - 1)
+            dst = np.where(rng.random(e) < 0.9, near, rng.integers(0, n, e))
+            s = {"x": rng.standard_normal((n, 8)).astype(np.float32),
+                 "edge_index": np.stack([src, dst]),
+                 "node_ids": np.arange(n), "timestep": float(t)}
+            if fe:
+                s["edge_attr"] = rng.standard_normal((e, fe)).astype(
+                    np.float32)
+            snaps.append(s)
+        seqs.append(snaps)
+    return seqs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fe", [0, 4])
+def test_hybrid_predictor_on_gpu_matches_cpu(fe, cuda):
+    """The hybrid model through Predictor, without and with edge
+    features: card (B1c, or B4c and B5c, once per layer per batch; no
+    other kernel) vs CPU (plain versions)."""
+    seqs = _hybrid_seqs(np.random.default_rng(7), 300, 2400, 2, 3, fe)
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, edge_feature_dim=fe,
+                         use_edge_features=fe > 0, output_dim=1,
+                         loss_type="bce", spatial_backend="hybrid")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        before = {k.name: k.launches for k in FG.KERNELS}
+        got[dev] = pt.Predictor(model, batch_size=2).predict_proba(seqs)
+        launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
+        want = {k.name: 0 for k in FG.KERNELS}
+        if dev == "cuda":
+            for kern in ((FG.flash_lse1_compact_kernel,
+                          FG.flash_biased_fwd_compact_kernel) if fe else
+                         (FG.flash_geometric_fwd_compact_kernel,)):
+                want[kern.name] = 2 * cfg.num_layers
+        assert launched == want
+    assert np.isfinite(got["cuda"]).all() and got["cuda"].shape == (3, 1)
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=0, atol=TOL)

@@ -173,6 +173,21 @@ def test_predictor_matches_jax(backend, interpret):
     {"compat_mode": "executed"}, {"temporal_attention_type": "standard"},
     {"temporal_attention_type": "multi_scale"}, {"bf16_matmul": True}])
 def test_outside_the_slice_raises(override):
+    """What the port does not run raises NotImplementedError: at
+    construction, or for the hybrid backend, which serves but does not
+    train yet, at the backward of its forward."""
+    if override.get("spatial_backend") == "hybrid":
+        model = pt.TAGAN(pt.TAGANConfig(**_config(**override)), device="cpu")
+        rng = np.random.default_rng(0)
+        snaps = [{"x": rng.standard_normal((12, 8)).astype(np.float32),
+                  "edge_index": rng.integers(0, 12, (2, 30)),
+                  "node_ids": np.arange(12), "timestep": float(t)}
+                 for t in range(2)]
+        seq = pt.build_sequence(snaps, dense_adj=False).with_hybrid_plan()
+        loss = model(seq, torch.tensor(1.0)).loss
+        with pytest.raises(NotImplementedError):
+            loss.backward()
+        return
     with pytest.raises(NotImplementedError):
         pt.TAGAN(pt.TAGANConfig(**_config(**override)), device="cpu")
 

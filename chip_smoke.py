@@ -1803,41 +1803,30 @@ def hybrid_layer0(FG, model, batch):
     return fold + (store, plan, res), extra
 
 
-def hybrid_requests(tt, edge, seed0):
-    """REQUESTS requests of SEQS_PER_REQUEST 131K sequences, their dims,
-    and the plan pin over all of them (host time of the planning)."""
-    from tagan_torch.core.graph import attach_hybrid_plans
+def hybrid_requests(edge, seed0):
+    """REQUESTS requests of SEQS_PER_REQUEST 131K sequences and their
+    dims."""
     reqs = [[hybrid_snaps(N_HYB, DEG_HYB, T_HYB, seed0 + 10 * r + s,
                           edge_dim=F_EDGE if edge else 0)
              for s in range(SEQS_PER_REQUEST)] for r in range(REQUESTS)]
-    dims = (T_HYB, N_HYB, N_HYB * DEG_HYB, F_EDGE if edge else 0)
-    t0 = time.perf_counter()
-    seqs = [tt.build_sequence(s, max_nodes=N_HYB, max_edges=dims[2],
-                              max_time=T_HYB, edge_feature_dim=dims[3],
-                              dense_adj=False)
-            for r in reqs for s in r]
-    pack_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _, pin = attach_hybrid_plans(seqs)
-    plan_s = time.perf_counter() - t0
-    return reqs, dims, pin, pack_s, plan_s
+    return reqs, (T_HYB, N_HYB, N_HYB * DEG_HYB, F_EDGE if edge else 0)
 
 
 def phase_serve_hybrid(tt, FG, edge):
     """Serve the 131K hybrid model (``edge``: with edge features) with
-    `Predictor`: REQUESTS requests, launch counts set to 0 just before and
-    read just after; forward, host plan build, peak memory, one layer's
-    compact launches over the folded snapshots; the first layer's kernels
-    on one snapshot against their plain versions at full width."""
+    `Predictor` (each request planned at its own sizes): REQUESTS
+    requests, launch counts set to 0 just before and read just after;
+    forward, one request's host packing and plan build, peak memory, one
+    layer's compact launches over the folded snapshots; the first layer's
+    kernels on one snapshot against their plain versions at full width."""
+    from tagan_torch.core.graph import attach_hybrid_plans
     from tagan_torch.ops.hybrid_biased import lse_union, residual_lse1
     label = "3d" if edge else "3c"
     cfg = hybrid_config(tt, edge)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
-    reqs, dims, pin, pack_s, plan_s = hybrid_requests(tt, edge,
-                                                      300 if edge else 100)
-    pred = tt.Predictor(model, dims=dims, batch_size=SEQS_PER_REQUEST,
-                        plan_pin=pin)
+    reqs, dims = hybrid_requests(edge, 300 if edge else 100)
+    pred = tt.Predictor(model, dims=dims, batch_size=SEQS_PER_REQUEST)
     pred.warmup()
     sync()
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -1858,9 +1847,7 @@ def phase_serve_hybrid(tt, FG, edge):
     probs = np.concatenate(probs)
     finite = bool(np.isfinite(probs).all())
     log(f"[{label}] hybrid N={N_HYB}, E={N_HYB * DEG_HYB}/snapshot, T={T_HYB}"
-        f"{', edge features' if edge else ''}: plan pin {pin}; host packing "
-        f"of the {REQUESTS * SEQS_PER_REQUEST} sequences {pack_s:.3f} s, "
-        f"plans {plan_s:.3f} s; request latency ms "
+        f"{', edge features' if edge else ''}: request latency ms "
         f"{[round(x, 3) for x in lat]}; sequences/s "
         f"{REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3):.3f}; peak device "
         f"memory {peak_gb:.3f} GB above {held_gb:.3f} GB held; launches "
@@ -1871,10 +1858,16 @@ def phase_serve_hybrid(tt, FG, edge):
     if not finite or probs.shape != (REQUESTS * SEQS_PER_REQUEST, 1):
         raise AssertionError("bad probabilities")
 
-    # one request's host side alone: packing and planning with the pin
+    # one request's host side alone: packing and planning, then the
+    # planning again on its packed sequences
     t0 = time.perf_counter()
     seqs = pred._pack(reqs[0])
     req_pack_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, pin = attach_hybrid_plans(seqs)
+    req_plan_s = time.perf_counter() - t0
+    log(f"[{label}] one request's packing and planning {req_pack_s:.3f} s, "
+        f"of which planning {req_plan_s:.3f} s; its plan sizes {pin}")
     batch = tt.batch_sequences(seqs).to(DEV)
     with torch.inference_mode():
         model(batch)
@@ -1888,7 +1881,7 @@ def phase_serve_hybrid(tt, FG, edge):
     ones = torch.ones(H, device=DEV)
     res = dict(latency_ms=lat, launches=launched, forward_ms=fwd_ms,
                peak_memory_gb=peak_gb, held_gb=held_gb, pin=pin,
-               pack_s=pack_s, plan_s=plan_s, request_pack_plan_s=req_pack_s,
+               request_pack_plan_s=req_pack_s, request_plan_s=req_plan_s,
                sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
     with torch.inference_mode():
         if not edge:

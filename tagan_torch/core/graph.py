@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 MAX_ID = 2 ** 31   # ids and slots are stored as int32
-# the hybrid plan's tile: the CUDA kernels' (ops.flash_geometric.BLOCK_M,
-# BLOCK_N); one uint64 word holds a tile row of the bit store
+# the hybrid plan's square tile: the CUDA kernels' (ops.flash_geometric.
+# BLOCK_M, BLOCK_N); one uint64 word holds a tile row of the bit store
 HYBRID_TILE = 64
 
 
@@ -46,16 +46,15 @@ class SnapshotSequence:
     time_mask  bool[T]             snapshot validity
     node_ids   i32[N]              global node ID per slot (-1 padding)
 
-    The hybrid plan (``None`` until `with_hybrid_plan`), per snapshot:
+    The hybrid plan (``None`` until `with_hybrid_plan`), per snapshot, at
+    64 x 64 tiles (`HYBRID_TILE`):
 
     hyb_mask_blocks  the band's occupied-block store: bits
-                     i64[T, S, BM] (bit c of word r is pair (r, c) of
-                     the tile) or int8[T, S, BM, BN]
+                     i64[T, S, 64] (bit c of word r is pair (r, c) of
+                     the tile) or int8[T, S, 64, 64]
     hyb_plan         (jlist, jcount, jslot) i32 [T, n_i, Wj], [T, n_i],
                      [T, n_i, Wj]: the row tiles' walks and the store
                      slot of each step
-    hyb_plan_t       (ilist, icount, islot) [T, n_j, Wi], ...: the
-                     transposed walk
     hyb_res          (eq, ek, em) [T, Er]: the residual edges as COO
     hyb_res_eid      i32[T, Er]: each residual slot's edge id (-1 padding)
     hyb_band_slot    i32[T, E]: each band edge's store slot (-1 residual
@@ -73,7 +72,6 @@ class SnapshotSequence:
     node_ids: torch.Tensor
     hyb_mask_blocks: Optional[torch.Tensor] = None
     hyb_plan: Optional[Tuple[torch.Tensor, ...]] = None
-    hyb_plan_t: Optional[Tuple[torch.Tensor, ...]] = None
     hyb_res: Optional[Tuple[torch.Tensor, ...]] = None
     hyb_res_eid: Optional[torch.Tensor] = None
     hyb_band_slot: Optional[torch.Tensor] = None
@@ -130,50 +128,29 @@ class SnapshotSequence:
         return self.map(lambda t: t.to(device))
 
     def with_hybrid_plan(self, band_width: Optional[int] = None,
-                         block_m: int = HYBRID_TILE,
-                         block_n: int = HYBRID_TILE, pack: bool = True,
-                         band_quantile: float = 0.95,
+                         pack: bool = True, band_quantile: float = 0.95,
                          pin: Optional[dict] = None) -> "SnapshotSequence":
         """Attach the band + residual split consumed by
         ``spatial_backend="hybrid"`` (the JAX package's
         ``with_hybrid_plan``, host-side numpy). Valid edges with
         |src - dst| <= ``band_width`` form the BAND: an occupied-block
-        store of their [block_m, block_n] tiles with the self loops of
-        active nodes, and the walks over it; the rest form the RESIDUAL,
-        a COO list for the O(E) partial. ``band_width=None`` takes the
-        ``band_quantile`` quantile of |src - dst| over the valid edges.
+        store of their 64 x 64 tiles with the self loops of active nodes,
+        and the walks over it; the rest form the RESIDUAL, a COO list for
+        the O(E) partial. ``band_width=None`` takes the ``band_quantile``
+        quantile of |src - dst| over the valid edges.
 
-        The split does not depend on the tile. The store does: the
-        default tile is the CUDA kernels' 64 x 64, and ``pack=True``
-        stores one uint64 word per tile row (512 bytes a tile; needs
-        block_n = 64), ``pack=False`` int8 tiles. ``pin`` (from
+        ``pack=True`` stores one uint64 word per tile row (512 bytes a
+        tile), ``pack=False`` int8 tiles. ``pin`` (from
         `hybrid_plan_dims`, merged with `merge_hybrid_dims`) fixes the
-        tile, the form and the padded sizes S, Wj, Wi and Er so that
-        sequences stack; a plan that exceeds it raises ValueError."""
+        form and the padded sizes S, Wj and Er so that sequences stack;
+        a plan that exceeds it raises ValueError."""
         if self.is_batched:
             raise ValueError("with_hybrid_plan takes one sequence, not a "
                              "batch")
-        if pin is not None:
-            block_m, block_n = pin["block_m"], pin["block_n"]
-            pack = pin["pack"]
-        if pack and block_n != HYBRID_TILE:
-            raise ValueError(f"pack=True needs block_n == {HYBRID_TILE} "
-                             f"(one uint64 word per tile row)")
-        src, dst, em, nm = (np.asarray(t) for t in (
-            self.edge_src, self.edge_dst, self.edge_mask, self.node_mask))
-        band_sel, res_sel = _hybrid_split(src, dst, em, band_width,
-                                          band_quantile, block_n)
-        occs, n_j = _band_occupancy(src, dst, band_sel, nm, self.max_nodes,
-                                    block_m, block_n)
-        dims = _plan_dims(occs, res_sel)
-        if pin is not None:
-            over = {k: (dims[k], pin[k]) for k in dims if dims[k] > pin[k]}
-            if over:
-                raise ValueError(f"hybrid plan exceeds its pin: {over}")
-            dims = {k: pin[k] for k in dims}
-        return dataclasses.replace(self, **_build_hybrid(
-            src, dst, nm, band_sel, res_sel, occs, n_j, block_m, block_n,
-            pack, **dims))
+        layout = _hybrid_layout(self, band_width, band_quantile)
+        if pin is None:
+            pin = dict(pack=pack, **_plan_dims(layout))
+        return _attach_plan(self, layout, pin)
 
 
 def _map_field(fn, value):
@@ -189,73 +166,93 @@ def _map_field(fn, value):
 # hybrid_plan_dims, merge_hybrid_dims, attach_hybrid_plans), numpy
 # ---------------------------------------------------------------------------
 
-def _hybrid_split(src, dst, em, band_width, band_quantile, block_n):
+def _hybrid_layout(seq: SnapshotSequence, band_width, band_quantile):
+    """What a plan is built from, before its padded sizes are known:
+    (src, dst, node_mask, band bool[T, E], residual bool[T, E], the band
+    tiles' occupancy bool[n_i, n_i] per snapshot)."""
+    src, dst, em, nm = (np.asarray(t) for t in (
+        seq.edge_src, seq.edge_dst, seq.edge_mask, seq.node_mask))
+    band_sel, res_sel = _hybrid_split(src, dst, em, band_width,
+                                      band_quantile)
+    occs = _band_occupancy(src, dst, band_sel, nm, seq.max_nodes)
+    return src, dst, nm, band_sel, res_sel, occs
+
+
+def _hybrid_split(src, dst, em, band_width, band_quantile):
     """(band, residual) bool[T, E]: valid edges within ``band_width``
     slots of the diagonal, and the other valid ones."""
     gap = np.abs(src.astype(np.int64) - dst.astype(np.int64))
     if band_width is None:
         valid = gap[em]
         band_width = int(np.quantile(valid, band_quantile)) \
-            if valid.size else block_n
+            if valid.size else HYBRID_TILE
     band = em & (gap <= band_width)
     return band, em & ~band
 
 
-def _band_occupancy(src, dst, band_sel, nm, n, bm, bn):
-    """Per snapshot, bool[n_i, n_j]: the tiles holding a band edge or
-    the self loop of an active node; and n_j."""
-    big = max(bm, bn)
-    n_pad = -(-n // big) * big
-    n_i, n_j = n_pad // bm, n_pad // bn
+def _band_occupancy(src, dst, band_sel, nm, n):
+    """Per snapshot, bool[n_i, n_i]: the tiles holding a band edge or
+    the self loop of an active node."""
+    n_t = -(-n // HYBRID_TILE)
     occs = []
     for t in range(src.shape[0]):
-        occ = np.zeros((n_i, n_j), bool)
+        occ = np.zeros((n_t, n_t), bool)
         b = band_sel[t]
-        occ[src[t][b] // bm, dst[t][b] // bn] = True
-        d = np.nonzero(nm[t])[0]
-        occ[d // bm, d // bn] = True
+        occ[src[t][b] // HYBRID_TILE, dst[t][b] // HYBRID_TILE] = True
+        d = np.nonzero(nm[t])[0] // HYBRID_TILE
+        occ[d, d] = True
         occs.append(occ)
-    return occs, n_j
+    return occs
 
 
-def _plan_dims(occs, res_sel) -> Dict[str, int]:
-    """The padded sizes a plan needs: store slots S, walk widths Wj and
-    Wi, residual slots Er (each at least 1)."""
+def _plan_dims(layout) -> Dict[str, int]:
+    """The padded sizes a plan needs: store slots S, walk width Wj,
+    residual slots Er (each at least 1)."""
+    occs, res_sel = layout[5], layout[4]
     return dict(S=max(max(int(o.sum()) for o in occs), 1),
                 Wj=max(max(int(o.sum(1).max()) for o in occs), 1),
-                Wi=max(max(int(o.sum(0).max()) for o in occs), 1),
                 Er=max(int(res_sel.sum(1).max()), 1))
 
 
 def _rows_plan(occ: np.ndarray, W: int):
     """(list i32[R, W], count i32[R]) of an occupancy matrix: each row's
     occupied columns in order, padded by repeating the last (zeros on an
-    empty row), and their count (the JAX package's ``_rows_plan``)."""
-    R, C = occ.shape
-    cols = np.sort(np.where(occ, np.arange(C), C), axis=1)
-    cnt = occ.sum(1).astype(np.int32)
-    if W > C:
-        cols = np.pad(cols, ((0, 0), (0, W - C)), constant_values=C)
-    cols = cols[:, :W]
-    last = np.take_along_axis(cols, np.clip(cnt - 1, 0, None)[:, None], 1)
-    lst = np.where(np.arange(W) < cnt[:, None], cols, last)
-    lst = np.where(cnt[:, None] > 0, lst, 0).astype(np.int32)
-    return lst, np.minimum(cnt, W).astype(np.int32)
+    empty row), and their count (the JAX package's ``_rows_plan``; W is
+    at least the largest count)."""
+    R = occ.shape[0]
+    r, c = np.nonzero(occ)            # row-major: columns ascending per row
+    cnt = np.bincount(r, minlength=R).astype(np.int32)
+    lst = np.zeros((R, W), np.int32)
+    lst[r, np.arange(r.size) - (np.cumsum(cnt) - cnt)[r]] = c
+    last = lst[np.arange(R), np.maximum(cnt - 1, 0)]
+    return np.where(np.arange(W) < cnt[:, None], lst, last[:, None]), cnt
 
 
-def _build_hybrid(src, dst, nm, band_sel, res_sel, occs, n_j, bm, bn, pack,
-                  S, Wj, Wi, Er) -> Dict[str, Any]:
+def _attach_plan(seq: SnapshotSequence, layout, pin: dict
+                 ) -> SnapshotSequence:
+    """``seq`` with its plan built from ``layout`` at the form and padded
+    sizes of ``pin`` (raises ValueError if the plan needs more)."""
+    dims = _plan_dims(layout)
+    over = {k: (dims[k], pin[k]) for k in dims if dims[k] > pin[k]}
+    if over:
+        raise ValueError(f"hybrid plan exceeds its pin: {over}")
+    return dataclasses.replace(seq, **_build_hybrid(
+        *layout, pin["pack"], pin["S"], pin["Wj"], pin["Er"]))
+
+
+def _build_hybrid(src, dst, nm, band_sel, res_sel, occs, pack, S, Wj, Er
+                  ) -> Dict[str, Any]:
     """The plan's arrays for `with_hybrid_plan`, padded to the given
-    sizes, as CPU tensors."""
+    sizes, as CPU tensors. The bit store's words are set straight from
+    the edges: the work grows with E, not with the S * 64 * 64 pairs."""
     T, E = src.shape
-    n_i = occs[0].shape[0]
-    store = np.zeros((T, S * bm * bn), bool)
-    jl = np.zeros((T, n_i, Wj), np.int32)
-    jc = np.zeros((T, n_i), np.int32)
-    js = np.zeros((T, n_i, Wj), np.int32)
-    il = np.zeros((T, n_j, Wi), np.int32)
-    ic = np.zeros((T, n_j), np.int32)
-    isl = np.zeros((T, n_j, Wi), np.int32)
+    tile = HYBRID_TILE
+    n_t = occs[0].shape[0]
+    store = np.zeros((T, S * tile), np.uint64) if pack \
+        else np.zeros((T, S * tile * tile), np.int8)
+    jl = np.zeros((T, n_t, Wj), np.int32)
+    jc = np.zeros((T, n_t), np.int32)
+    js = np.zeros((T, n_t, Wj), np.int32)
     req = np.zeros((T, Er), np.int32)
     rek = np.zeros((T, Er), np.int32)
     rem = np.zeros((T, Er), bool)
@@ -265,89 +262,71 @@ def _build_hybrid(src, dst, nm, band_sel, res_sel, occs, n_j, bm, bn, pack,
         occ = occs[t]
         slot_flat = np.cumsum(occ.reshape(-1)).astype(np.int64) - 1
         jl[t], jc[t] = _rows_plan(occ, Wj)
-        il[t], ic[t] = _rows_plan(occ.T, Wi)
-        js[t] = np.clip(slot_flat[np.arange(n_i)[:, None] * n_j + jl[t]],
+        js[t] = np.clip(slot_flat[np.arange(n_t)[:, None] * n_t + jl[t]],
                         0, S - 1)
-        isl[t] = np.clip(slot_flat[il[t] * n_j + np.arange(n_j)[:, None]],
-                         0, S - 1)
         b = np.nonzero(band_sel[t])[0]
         d = np.nonzero(nm[t])[0]
         rows = np.concatenate([src[t][b], d]).astype(np.int64)
         cols = np.concatenate([dst[t][b], d]).astype(np.int64)
-        slot_e = slot_flat[(rows // bm) * n_j + cols // bn]
+        slot_e = slot_flat[(rows // tile) * n_t + cols // tile]
         # self loops carry no edge, so no bias slot
         band_slot[t, b] = slot_e[:b.size]
-        store[t, (slot_e * bm + rows % bm) * bn + cols % bn] = True
+        word = slot_e * tile + rows % tile
+        if pack:
+            # bit c of the word of tile row r is pair (r, c)
+            np.bitwise_or.at(store[t], word, np.left_shift(
+                np.uint64(1), (cols % tile).astype(np.uint64)))
+        else:
+            store[t, word * tile + cols % tile] = 1
         r = np.nonzero(res_sel[t])[0]
         req[t, :r.size] = src[t][r]
         rek[t, :r.size] = dst[t][r]
         rem[t, :r.size] = True
         reid[t, :r.size] = r
-    if pack:
-        # 64 bools of a tile row -> 8 bytes, bit c of the little-endian
-        # word at column c
-        store = np.packbits(store.reshape(T, S * bm, bn), axis=-1,
-                            bitorder="little").view("<i8")
-    else:
-        store = store.view(np.int8)
+    store = store.view(np.int64).reshape(T, S, tile) if pack \
+        else store.reshape(T, S, tile, tile)
     t_ = torch.from_numpy
     return dict(
-        hyb_mask_blocks=t_(np.ascontiguousarray(
-            store.reshape((T, S, bm) if pack else (T, S, bm, bn)))),
-        hyb_plan=(t_(jl), t_(jc), t_(js)),
-        hyb_plan_t=(t_(il), t_(ic), t_(isl)),
+        hyb_mask_blocks=t_(store), hyb_plan=(t_(jl), t_(jc), t_(js)),
         hyb_res=(t_(req), t_(rek), t_(rem)),
         hyb_res_eid=t_(reid), hyb_band_slot=t_(band_slot))
 
 
 def hybrid_plan_dims(seq: SnapshotSequence) -> dict:
-    """A hybrid plan's tile, form and padded sizes as a ``pin`` dict
+    """A hybrid plan's store form and padded sizes as a ``pin`` dict
     (`SnapshotSequence.with_hybrid_plan`)."""
     if seq.hyb_mask_blocks is None:
         raise ValueError("sequence has no hybrid plan")
-    mb = seq.hyb_mask_blocks
-    pack = mb.dtype == torch.int64
+    pack = seq.hyb_mask_blocks.dtype == torch.int64
     lead = seq.hyb_plan[1].dim() - 1
-    return dict(block_m=int(mb.shape[lead + 1]),
-                block_n=HYBRID_TILE if pack else int(mb.shape[lead + 2]),
-                pack=bool(pack), S=int(mb.shape[lead]),
+    return dict(pack=bool(pack), S=int(seq.hyb_mask_blocks.shape[lead]),
                 Wj=int(seq.hyb_plan[0].shape[-1]),
-                Wi=int(seq.hyb_plan_t[0].shape[-1]),
                 Er=int(seq.hyb_res[0].shape[-1]))
 
 
 def merge_hybrid_dims(dims: Sequence[dict]) -> dict:
-    """Elementwise max of `hybrid_plan_dims` dicts of one tile and
-    form."""
-    out = dict(dims[0])
-    for d in dims[1:]:
-        if (d["block_m"], d["block_n"], d["pack"]) != \
-                (out["block_m"], out["block_n"], out["pack"]):
-            raise ValueError("mixed block geometries cannot merge")
-        for k in ("S", "Wj", "Wi", "Er"):
-            out[k] = max(out[k], d[k])
-    return out
+    """Elementwise max of `hybrid_plan_dims` dicts of one store form."""
+    if len({d["pack"] for d in dims}) > 1:
+        raise ValueError("bit and int8 stores cannot merge")
+    return dict(pack=dims[0]["pack"],
+                **{k: max(d[k] for d in dims) for k in ("S", "Wj", "Er")})
 
 
 def attach_hybrid_plans(seqs: Sequence[SnapshotSequence],
-                        pin: Optional[dict] = None, **plan_kwargs
+                        pin: Optional[dict] = None, pack: bool = True,
+                        band_width: Optional[int] = None,
+                        band_quantile: float = 0.95
                         ) -> Tuple[List[SnapshotSequence], dict]:
     """Hybrid plans for several sequences with shared padded sizes, so
     that they stack into one batch: (planned sequences, pin). Without a
-    ``pin`` each sequence is planned, the sizes merged, and the
-    sequences whose sizes fall short planned again with the merged pin;
-    reuse the pin for later sequences (a Predictor's bucket)."""
-    kw = {k: v for k, v in plan_kwargs.items()
-          if pin is None or k not in ("block_m", "block_n", "pack")}
-    if pin is not None:
-        return [s.with_hybrid_plan(pin=pin, **kw) for s in seqs], pin
-    planned = [s.with_hybrid_plan(**kw) for s in seqs]
-    dims = [hybrid_plan_dims(s) for s in planned]
-    pin = merge_hybrid_dims(dims)
-    kw = {k: v for k, v in kw.items()
-          if k not in ("block_m", "block_n", "pack")}
-    return [p if d == pin else s.with_hybrid_plan(pin=pin, **kw)
-            for s, p, d in zip(seqs, planned, dims)], pin
+    ``pin`` the sizes are the most any of them needs; each plan is built
+    once, after the sizes are known. Arguments as in
+    `SnapshotSequence.with_hybrid_plan`."""
+    layouts = [_hybrid_layout(s, band_width, band_quantile) for s in seqs]
+    if pin is None:
+        pin = merge_hybrid_dims([dict(pack=pack, **_plan_dims(l))
+                                 for l in layouts])
+    return [_attach_plan(s, l, pin) for s, l in zip(seqs, layouts)], pin
 
 
 SnapshotLike = Union[Dict[str, Any], Tuple]

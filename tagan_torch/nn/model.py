@@ -40,7 +40,7 @@ import torch
 from torch import nn
 
 from ..core.config import TAGANConfig
-from ..core.graph import SnapshotSequence
+from ..core.graph import HYBRID_TILE, SnapshotSequence
 from ..core.memory import MemoryState
 from ..core.module import (LayerNorm, Linear, default_generator,
                            resolve_device)
@@ -122,23 +122,21 @@ def edge_bias_matrix(b: torch.Tensor, edge_src: torch.Tensor,
 def hybrid_bias_store(b: torch.Tensor, seq: SnapshotSequence
                       ) -> torch.Tensor:
     """The hybrid band's per-layer bias in the store's slots,
-    f32[..., S, BM, BN]: the per-edge scalar ``b`` [..., E] of each band
-    edge added at (its slot, src % BM, dst % BN), so duplicates add (the
+    f32[..., S, 64, 64]: the per-edge scalar ``b`` [..., E] of each band
+    edge added at (its slot, src % 64, dst % 64), so duplicates add (the
     JAX ``_scatter_bias_store``); self loops, residual and invalid edges
-    (slot -1) carry none. Flat positions are int64: S * BM * BN passes
+    (slot -1) carry none. Flat positions are int64: S * 64 * 64 passes
     2**31 past ~130K slots."""
-    store = seq.hyb_mask_blocks
-    packed = store.dtype == torch.int64
-    S, bm = store.shape[-2:] if packed else store.shape[-3:-1]
-    bn = 64 if packed else store.shape[-1]
+    store, tile = seq.hyb_mask_blocks, HYBRID_TILE
+    S = store.shape[-2 if store.dtype == torch.int64 else -3]
     slot = seq.hyb_band_slot.long()
-    pos = slot * (bm * bn) + (seq.edge_src.long() % bm) * bn \
-        + seq.edge_dst.long() % bn
+    pos = (slot * tile + seq.edge_src.long() % tile) * tile \
+        + seq.edge_dst.long() % tile
     on = slot >= 0
     vals = torch.where(on, b, torch.zeros_like(b)).to(torch.float32)
     flat = segment_sum(vals, torch.where(on, pos, torch.zeros_like(pos)),
-                       S * bm * bn)
-    return flat.reshape(*b.shape[:-1], S, bm, bn)
+                       S * tile * tile)
+    return flat.reshape(*b.shape[:-1], S, tile, tile)
 
 
 def hybrid_residual_bias(b: torch.Tensor, seq: SnapshotSequence

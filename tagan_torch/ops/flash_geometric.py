@@ -306,21 +306,24 @@ def _chunk_scores(metric, q, k, mask, sc, r0, r1):
 
 
 # ---------------------------------------------------------------------------
-# The compact occupied-block store: the mask only in the occupied tiles,
-# and a slot per walk step (jslot). Bits: i64[..., S, BM], bit c of word r
-# is pair (r, c) of the tile (BN = 64); or int8 [..., S, BM, BN].
+# The compact occupied-block store: the mask only in the occupied tiles
+# (the kernels' BLOCK_M x BLOCK_N = 64 x 64), and a slot per walk step
+# (jslot). Bits: i64[..., S, 64], bit c of word r is pair (r, c) of the
+# tile; or int8 [..., S, 64, 64].
 # ---------------------------------------------------------------------------
 
-def store_tile(store: torch.Tensor) -> Tuple[int, int, bool]:
-    """(BM, BN, packed) of a compact store [..., S, BM(, BN)]."""
-    if store.dtype == torch.int64 and store.dim() >= 2:
-        return store.shape[-1], 64, True
+def store_packed(store: torch.Tensor) -> bool:
+    """Whether a compact store is bits (i64[..., S, 64]) rather than int8
+    ([..., S, 64, 64]); ValueError for any other shape or type."""
+    if store.dtype == torch.int64 and store.dim() >= 2 \
+            and store.shape[-1] == BLOCK_M:
+        return True
     if store.dtype in (torch.int8, torch.uint8, torch.bool) \
-            and store.dim() >= 3:
-        return store.shape[-2], store.shape[-1], False
-    raise ValueError(f"compact store must be int64 bits [..., S, BM] or "
-                     f"int8 [..., S, BM, BN], got {store.dtype} "
-                     f"{tuple(store.shape)}")
+            and store.dim() >= 3 and store.shape[-2:] == (BLOCK_M, BLOCK_N):
+        return False
+    raise ValueError(f"compact store must be int64 bits [..., S, {BLOCK_M}] "
+                     f"or int8 [..., S, {BLOCK_M}, {BLOCK_N}], got "
+                     f"{store.dtype} {tuple(store.shape)}")
 
 
 def unpack_bits(words: torch.Tensor) -> torch.Tensor:
@@ -337,44 +340,41 @@ def pack_bits(rows: torch.Tensor) -> torch.Tensor:
     return low + torch.where(rows[..., 63], torch.iinfo(torch.int64).min, 0)
 
 
-def _compact_slots(mask: torch.Tensor, block_m: int, block_n: int):
+def _compact_slots(mask: torch.Tensor):
     """(occupancy [G, n_i, n_j], each tile's row-major slot [G, n_i * n_j]
     (valid where occupied), S the most slots any g has)."""
-    occ = _occ_from_mask(mask, block_m, block_n)
+    occ = _occ_from_mask(mask, BLOCK_M, BLOCK_N)
     slot = occ.reshape(occ.shape[0], -1).long().cumsum(-1) - 1
     return occ, slot, max(int(slot[:, -1].max()) + 1, 1)
 
 
-def compact_values(mask: torch.Tensor, values: torch.Tensor,
-                   block_m: int = BLOCK_M, block_n: int = BLOCK_N
+def compact_values(mask: torch.Tensor, values: torch.Tensor
                    ) -> torch.Tensor:
     """values [G, N, N] in the slots `compact_from_mask` gives the mask's
-    occupied tiles: [G, S, BM, BN] (a bias store; unused slots zero)."""
+    occupied tiles: [G, S, 64, 64] (a bias store; unused slots zero)."""
     G, N = mask.shape[0], mask.shape[-1]
-    occ, slot, S = _compact_slots(mask, block_m, block_n)
+    occ, slot, S = _compact_slots(mask)
     n_i, n_j = occ.shape[1:]
     tiles = torch.nn.functional.pad(
-        values, (0, n_j * block_n - N, 0, n_i * block_m - N)).reshape(
-        G, n_i, block_m, n_j, block_n).transpose(2, 3)
-    out = torch.zeros((G, S, block_m, block_n), dtype=values.dtype,
+        values, (0, n_j * BLOCK_N - N, 0, n_i * BLOCK_M - N)).reshape(
+        G, n_i, BLOCK_M, n_j, BLOCK_N).transpose(2, 3)
+    out = torch.zeros((G, S, BLOCK_M, BLOCK_N), dtype=values.dtype,
                       device=mask.device)
     g, i, j = occ.nonzero(as_tuple=True)
     out[g, slot[g, i * n_j + j]] = tiles[g, i, j]
     return out
 
 
-def compact_from_mask(mask: torch.Tensor, block_m: int = BLOCK_M,
-                      block_n: int = BLOCK_N, pack: bool = True):
+def compact_from_mask(mask: torch.Tensor, pack: bool = True):
     """(store, (jlist, jcount, jslot)) of a dense mask [G, N, N]: its
-    occupied tiles in row-major slots, bits or int8 as `store_tile` reads
-    them."""
-    occ, slot, S = _compact_slots(mask, block_m, block_n)
+    occupied tiles in row-major slots, bits or int8 (`store_packed`)."""
+    occ, slot, S = _compact_slots(mask)
     n_i, n_j = occ.shape[1:]
     jlist, jcount = _plan_from_occ(occ)
     jslot = slot.gather(-1, (torch.arange(n_i, device=mask.device)[:, None]
                              * n_j + jlist.long()).reshape(mask.shape[0], -1))
     jslot = jslot.clamp(0, S - 1).reshape(jlist.shape).to(torch.int32)
-    tiles = compact_values(mask, mask != 0, block_m, block_n)
+    tiles = compact_values(mask, mask != 0)
     store = pack_bits(tiles) if pack else tiles.to(torch.int8)
     return store, (jlist, jcount, jslot)
 
@@ -385,19 +385,19 @@ def check_compact_plan(jlist, jcount, jslot, store, n: int) -> None:
     jcount <= W, 0 <= jlist < ceil(n / BN) and 0 <= jslot < S. The
     kernels read tiles at these indices unchecked. One host
     synchronisation."""
-    bm, bn, packed = store_tile(store)
+    packed = store_packed(store)
     S = store.shape[-2 if packed else -3]
     if jslot.shape != jlist.shape or jlist.shape[:-1] != jcount.shape \
             or jcount.numel() == 0:
         raise ValueError(f"compact plan shapes {tuple(jlist.shape)}, "
                          f"{tuple(jcount.shape)}, {tuple(jslot.shape)} do "
                          f"not match")
-    if jcount.shape[-1] * bm < n:
-        raise ValueError(f"{jcount.shape[-1]} row tiles of {bm} do not "
-                         f"cover {n} rows")
+    if jcount.shape[-1] * BLOCK_M < n:
+        raise ValueError(f"{jcount.shape[-1]} row tiles of {BLOCK_M} do "
+                         f"not cover {n} rows")
     if S == 0:
         raise ValueError("compact store has no slot")
-    n_j, W = -(-n // bn), jlist.shape[-1]
+    n_j, W = -(-n // BLOCK_N), jlist.shape[-1]
     ends = [*torch.aminmax(jcount)]
     if jlist.numel():
         ends += [*torch.aminmax(jlist), *torch.aminmax(jslot)]
@@ -410,13 +410,13 @@ def check_compact_plan(jlist, jcount, jslot, store, n: int) -> None:
         raise ValueError(f"plan jslot outside [0, {S}): {ends[4:]}")
 
 
-def _key_tiles(x, rows_p, bn):
+def _key_tiles(x, rows_p):
     """x [G, H, N, F] padded to whole key tiles: [G, H, n_t, BN, F], with
     every tile index a plan over ``rows_p`` padded rows can name."""
     G, H, N, F = x.shape
-    keys_p = _round_up(max(rows_p, N), bn)
+    keys_p = _round_up(max(rows_p, N), BLOCK_N)
     return torch.nn.functional.pad(x, (0, 0, 0, keys_p - N)).reshape(
-        G, H, keys_p // bn, bn, F)
+        G, H, keys_p // BLOCK_N, BLOCK_N, F)
 
 
 def _gather_tiles(xt, jb):
@@ -434,22 +434,23 @@ def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale):
     of steps at or past jcount, and rows or columns past N, are not
     valid."""
     G, H, N, D = q.shape
-    bm, bn, packed = store_tile(store)
+    packed = store_packed(store)
     n_i, W = jlist.shape[-2], jlist.shape[-1]
-    rows_p = n_i * bm
+    rows_p = n_i * BLOCK_M
     qt = torch.nn.functional.pad(q, (0, 0, 0, rows_p - N)).reshape(
-        G, H, n_i, bm, D)
-    kt = _key_tiles(k, rows_p, bn)
+        G, H, n_i, BLOCK_M, D)
+    kt = _key_tiles(k, rows_p)
     sc = scale.reshape(1, H, 1, 1, 1)
-    rows = torch.arange(rows_p, device=q.device).reshape(n_i, bm, 1)
+    rows = torch.arange(rows_p, device=q.device).reshape(n_i, BLOCK_M, 1)
     gi = torch.arange(G, device=q.device)[:, None]
     for w in range(W):
         jb = jlist[..., w].long()                                # [G, n_i]
         qk, sq = _qk_sq(metric, qt, _gather_tiles(kt, jb))
         s = _scores_from(metric, qk, sq, sc, D)
         tile = store[gi, jslot[..., w].long()]
-        tile = unpack_bits(tile) if packed else tile != 0   # [G, n_i, bm, bn]
-        cols = (jb * bn)[..., None, None] + torch.arange(bn, device=q.device)
+        tile = unpack_bits(tile) if packed else tile != 0   # [G, n_i, BM, BN]
+        cols = (jb * BLOCK_N)[..., None, None] \
+            + torch.arange(BLOCK_N, device=q.device)
         valid = tile & (rows < N) & (cols < N) \
             & (w < jcount)[..., None, None]
         yield s, valid[:, None], jb, rows, cols
@@ -494,10 +495,9 @@ def _online_step(m, l, acc, z, valid, p_fn=None, vt=None):
     return m_new, l, acc
 
 
-def _online_init(q, store, jlist, Dv=None):
+def _online_init(q, jlist, Dv=None):
     G, H = q.shape[:2]
-    bm = store_tile(store)[0]
-    shape = (G, H, jlist.shape[-2], bm)
+    shape = (G, H, jlist.shape[-2], BLOCK_M)
     m = torch.full(shape, NEG_INF, dtype=q.dtype, device=q.device)
     acc = None if Dv is None else torch.zeros(shape + (Dv,), dtype=q.dtype,
                                               device=q.device)
@@ -521,9 +521,8 @@ def flash_geometric_forward_compact_plain(
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
-    bm, bn, _ = store_tile(store)
-    vt = _key_tiles(v, jlist.shape[-2] * bm, bn)
-    m, l, acc = _online_init(q, store, jlist, v.shape[-1])
+    vt = _key_tiles(v, jlist.shape[-2] * BLOCK_M)
+    m, l, acc = _online_init(q, jlist, v.shape[-1])
     for s, valid, jb, rows, cols in _compact_steps(
             q, k, store, jlist, jcount, jslot, metric, scale):
         drop = None
@@ -545,7 +544,7 @@ def flash_lse1_compact_plain(q, k, store, jlist, jcount, jslot, metric: str,
     H, N = q.shape[1], q.shape[2]
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
-    m, l, _ = _online_init(q, store, jlist)
+    m, l, _ = _online_init(q, jlist)
     for s, valid, _, _, _ in _compact_steps(q, k, store, jlist, jcount,
                                             jslot, metric, scale):
         m, l, _ = _online_step(m, l, None, s, valid)
@@ -567,13 +566,13 @@ def flash_biased_forward_compact_plain(
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
-    bm, bn, _ = store_tile(store)
     n_i = jlist.shape[-2]
-    l1 = torch.nn.functional.pad(lse1, (0, n_i * bm - N),
-                                 value=LSE_DEAD).reshape(G, H, n_i, bm, 1)
+    l1 = torch.nn.functional.pad(lse1, (0, n_i * BLOCK_M - N),
+                                 value=LSE_DEAD).reshape(G, H, n_i, BLOCK_M,
+                                                         1)
     gi = torch.arange(G, device=q.device)[:, None]
-    vt = _key_tiles(v, n_i * bm, bn)
-    m, l, acc = _online_init(q, store, jlist, v.shape[-1])
+    vt = _key_tiles(v, n_i * BLOCK_M)
+    m, l, acc = _online_init(q, jlist, v.shape[-1])
     for w, (s, valid, jb, rows, cols) in enumerate(_compact_steps(
             q, k, store, jlist, jcount, jslot, metric, scale)):
         w1 = torch.exp(torch.where(valid, s - l1, NEG_INF))
@@ -1200,11 +1199,10 @@ def _check_compact(name, dev, q, store, jlist, jcount, jslot):
     (G, H, N, D, n_i, W, S, packed)."""
     G, H, N, D = q.shape
     n_i = -(-N // BLOCK_M)
-    bm, bn, packed = store_tile(store)
-    if (bm, bn) != (BLOCK_M, BLOCK_N) or store.dim() != (3 if packed else 4):
-        raise ValueError(f"{name}: the kernels walk a store of "
-                         f"{BLOCK_M} x {BLOCK_N} tiles, got "
-                         f"{tuple(store.shape)} {store.dtype}")
+    packed = store_packed(store)
+    if store.dim() != (3 if packed else 4):
+        raise ValueError(f"{name}: the store must be [G, S, ...], got "
+                         f"{tuple(store.shape)}")
     S, W = store.shape[1], jlist.shape[-1]
     _check_args(name, dev, (
         ("q", q, torch.float32, (G, H, N, D)),
@@ -1923,7 +1921,7 @@ def forward_only(outs: Tuple[torch.Tensor, ...], inputs) -> Tuple:
 def fold_compact(store, plan, G: int):
     """The store [..., S, BM(, BN)] and plan [..., n, W] with their
     leading dims folded into G, int32 and contiguous."""
-    lead = store.dim() - (2 if store_tile(store)[2] else 3)
+    lead = store.dim() - (2 if store_packed(store) else 3)
     return (store.reshape(G, *store.shape[lead:]).contiguous(),
             tuple(p.reshape(G, *p.shape[lead:]).to(torch.int32).contiguous()
                   for p in plan))
@@ -1970,7 +1968,7 @@ def flash_geometric_attention_lse(
     """(out, lse) of the edge-masked attention (the TPU package's
     ``flash_geometric_attention_lse``), leading dims folded into one
     launch. A 3-tuple ``plan`` (jlist, jcount, jslot) takes the compact
-    form: ``mask`` is then the occupied-block store (`store_tile`) and
+    form: ``mask`` is then the occupied-block store (`store_packed`) and
     the walk runs B1c, forward only (a backward through it raises until
     hybrid training is ported); the plan is checked
     (`check_compact_plan`). Otherwise the dense `flash_geometric_attention`

@@ -32,11 +32,11 @@ class Predictor:
                 backend, which needs it).
     plan_pin, plan_kwargs:
                 the hybrid backend's plan, attached at pack time
-                (`attach_hybrid_plans`): ``plan_kwargs`` go to
-                `SnapshotSequence.with_hybrid_plan`; ``plan_pin`` fixes
-                its padded sizes (`hybrid_plan_dims`). Without a pin the
-                first request's becomes the pin, and a later request
-                whose plan exceeds it raises ValueError.
+                (`attach_hybrid_plans`; ``plan_kwargs`` are its
+                ``pack``, ``band_width`` and ``band_quantile``). Each
+                request is planned at the sizes its own sequences need;
+                a ``plan_pin`` (`hybrid_plan_dims`) fixes them instead,
+                and a request whose plan exceeds it raises ValueError.
     """
 
     def __init__(self, model: TAGAN, *,
@@ -70,10 +70,8 @@ class Predictor:
                                dense_adj=self.dense_adj)
                 for s in sequences]
         if self.model.config.spatial_backend == "hybrid":
-            seqs, pin = attach_hybrid_plans(seqs, pin=self.plan_pin,
-                                            **self.plan_kwargs)
-            if self.plan_pin is None:
-                self.plan_pin = pin          # a stable bucket from now on
+            seqs, _ = attach_hybrid_plans(seqs, pin=self.plan_pin,
+                                          **self.plan_kwargs)
         return seqs
 
     def predict_proba(self, sequences) -> np.ndarray:
@@ -102,7 +100,6 @@ class Predictor:
         ``dims`` (builds the kernels and initialises the device)."""
         if self.dims is None:
             raise ValueError("warmup needs pinned dims")
-        pin = self.plan_pin                 # the warm-up's plan pins nothing
         Fe = self.dims[3]
         snap = {"x": np.zeros((2, self.model.config.node_feature_dim),
                               np.float32),
@@ -110,7 +107,6 @@ class Predictor:
                 "edge_attr": np.zeros((1, Fe), np.float32) if Fe else None,
                 "node_ids": [0, 1], "timestep": 0.0}
         self.predict_proba([[snap]] * max(num_sequences, 1))
-        self.plan_pin = pin
 
 
 class StreamingSession:

@@ -16,7 +16,8 @@ import torch
 
 import tagan_torch as pt
 import tagan_tpu as tt
-from tagan_torch.core.graph import attach_hybrid_plans, hybrid_plan_dims
+from tagan_torch.core.graph import (attach_hybrid_plans, hybrid_plan_dims,
+                                    merge_hybrid_dims)
 from tagan_torch.nn.geometric import GeometricAttention as TGA
 from tagan_torch.nn.model import hybrid_bias_store, hybrid_residual_bias
 from tagan_torch.ops import flash_geometric as TFG
@@ -151,7 +152,9 @@ def test_store_matches_jax_band_mask(pack):
         assert len(set(slots)) == len(slots)
     TFG.check_compact_plan(*ts.hyb_plan, ts.hyb_mask_blocks, N)
     dims = hybrid_plan_dims(ts)
-    assert (dims["block_m"], dims["block_n"], dims["pack"]) == (64, 64, pack)
+    assert sorted(dims) == ["Er", "S", "Wj", "pack"] and dims["pack"] == pack
+    with pytest.raises(ValueError, match="cannot merge"):
+        merge_hybrid_dims([dims, dict(dims, pack=not pack)])
     seqs = [pt.build_sequence(s, max_nodes=N, max_edges=E, max_time=T,
                               dense_adj=False)
             for s in (_snaps(3), _snaps(4))]
@@ -437,4 +440,29 @@ def test_model_matches_jax(fe, interpret):
     probs = pred.predict_proba(reqs)
     np.testing.assert_allclose(probs, np.stack([w[2] for w in want]),
                                rtol=TOL, atol=TOL)
-    assert pred.plan_pin is not None and pred.plan_pin["pack"]
+    assert pred.plan_pin is None and batch.hyb_mask_blocks.dtype == torch.int64
+
+
+def test_predictor_plans_each_request():
+    """Without a pin, each request is planned at its own sizes, so a
+    later request that needs more residual slots than the first is
+    served; a caller's pin fixes the sizes, and
+    a request past it raises."""
+    cfg = pt.TAGANConfig(hidden_dim=16, num_heads=2, num_layers=1,
+                         node_feature_dim=F, output_dim=1, loss_type="bce",
+                         dropout=0.0, spatial_backend="hybrid")
+    model = pt.TAGAN(cfg, device="cpu",
+                     generator=torch.Generator().manual_seed(0))
+    small = [_snaps(30, e=40)]
+    large = [_snaps(31, e=E)]
+    pred = pt.Predictor(model, dims=(T, N, E, 0))
+    sizes = [hybrid_plan_dims(pred._pack(r)[0]) for r in (small, large)]
+    assert sizes[1]["Er"] > sizes[0]["Er"]
+    for req in (small, large):
+        probs = pred.predict_proba(req)
+        assert probs.shape == (1, 1) and np.isfinite(probs).all()
+    assert pred.plan_pin is None
+    pinned = pt.Predictor(model, dims=(T, N, E, 0), plan_pin=sizes[0])
+    assert pinned.predict_proba(small).shape == (1, 1)
+    with pytest.raises(ValueError, match="exceeds its pin"):
+        pinned.predict_proba(large)

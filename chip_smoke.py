@@ -22,7 +22,10 @@ Phases, in order; any failure raises and exits non-zero:
    the other pairs of the walked blocks); (2e) the compact-store forward
    kernels of the hybrid backend, B1c, B4c and B5c, against their compact
    plain versions on 2c's grid, with the bit and the int8 store (a row
-   tile with jcount = 0 among the dead rows);
+   tile with jcount = 0 among the dead rows); (2f) the compact-store
+   backward kernels B3a c (dq, dscale) and B3b c (dk, dv) against the
+   compact plain backward on 2e's grid with an lse cotangent, dead rows
+   and an empty key strip (icount = 0) exactly zero;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -53,7 +56,9 @@ Phases, in order; any failure raises and exits non-zero:
    form on the card (an independent O(E) formula), on distinct edges;
    (4c) the hybrid Predictor at 4,096 nodes, plain and edge-feature
    models, card against CPU; (4d) at 131,072 nodes on distinct non-loop
-   edges, the hybrid models against their csr forms on the card;
+   edges, the hybrid models against their csr forms on the card; (4e)
+   the same graph, the hybrid model's first-step gradients against its
+   csr form's on the card (within 1e-3 of each tensor's largest entry);
 5. times at the main path's shape (one snapshot, 4 heads, 10,000 nodes,
    head dim 16) with CUDA events, in turns: B1, B2, B3a, B3b and
    B3a + B3b against the plain versions, and ``scaled_dot_product_attention``
@@ -72,7 +77,13 @@ Phases, in order; any failure raises and exits non-zero:
    mask built from the compact plan (a bit-store mask_mod) at the
    scaled-dot metric as the library yardstick (held against the kernels
    at that metric; null with the reason if it does not build), and the
-   csr ``edge_attention`` over the layer's whole edge set;
+   csr ``edge_attention`` over the layer's whole edge set; (5e) B3a c,
+   B3b c and the two together at one 131K snapshot of 6c against the
+   compact plain backward and their bounds, compiled ``flex_attention``'s
+   backward under the compact plan's block mask at the scaled-dot metric
+   as the library yardstick (forward+backward minus forward; null with
+   the reason if it does not build or differs), and csr
+   ``edge_attention``'s autograd backward over the layer's whole edge set;
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -88,12 +99,21 @@ Phases, in order; any failure raises and exits non-zero:
    folded snapshots and its share of the step, finite non-zero
    gradients (``edge_embedding`` and each ``edge_bias`` included) and
    every parameter moved; one snapshot at full width against the plain
-   backward;
+   backward; (6c) the hybrid model at part C's width over a
+   ``plan="hybrid"`` loader: the loader's planning batch apart from its
+   cached ones, one warm-up step, then 3 steps (B1c, B3a c and B3b c
+   each exactly once per layer per step, nothing else), step times,
+   split, peak memory, one layer's B3a c + B3b c over the folded
+   snapshots and their share of the step, finite non-zero gradients,
+   every parameter moved, and one snapshot at full width against the
+   compact plain backward;
 7. training at 1,000 nodes on the card and on the CPU from the same
    weights and batches: the first step's gradients and the losses and
    parameters of 3 AdamW steps; (7b) the same for the edge-feature
    model, and its first-step gradients on the card against its csr form
-   (csr's autograd, an independent formula for dB) on distinct edges.
+   (csr's autograd, an independent formula for dB) on distinct edges;
+   (7c) the hybrid model at 4,096 nodes over a ``plan="hybrid"`` loader,
+   card against CPU.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -126,6 +146,10 @@ N_MID_HYB = 4_096
 # the flash model against the csr model: the flash path's norm expansion
 # of squared distances against csr's subtract-then-square
 TOL_CSR = 2e-4
+# the hybrid model's first-step gradients against the csr model's at
+# 131,072 nodes, over each tensor's largest entry: the same conventions,
+# summed over 2.2M edges in other orders
+TOL_HYB_CSR_GRAD = 1e-3
 REQUESTS, SEQS_PER_REQUEST = 3, 2
 N_MID = 1_000
 TRAIN_STEPS = 3
@@ -1566,15 +1590,17 @@ def grad_errors(got, want):
     return worst, zero
 
 
-def train_steps(tt, FG, cfg, dev, ds):
+def train_steps(tt, FG, cfg, dev, ds, plan=None):
     """AdamW steps of a fresh model (weights from seed 0) over ``ds``,
-    one sequence per batch: the losses, the first step's gradients, the
-    parameters after the last step and the kernels launched."""
+    one sequence per batch (the loader's ``plan``): the losses, the first
+    step's gradients, the parameters after the last step and the kernels
+    launched."""
     model = tt.TAGAN(cfg, device=dev,
                      generator=torch.Generator().manual_seed(0))
     trainer = tt.TAGANTrainer(model, tt.ExperimentConfig(
         model=cfg, batch_size=1, seed=0))
-    loader = tt.TemporalGraphDataLoader(ds, batch_size=1, dense_adj=False)
+    loader = tt.TemporalGraphDataLoader(ds, batch_size=1, dense_adj=False,
+                                        plan=plan)
     losses, grads = [], None
     start = counts(FG)
     for b, y, m in loader:
@@ -1592,7 +1618,7 @@ def train_steps(tt, FG, cfg, dev, ds):
         n: p.detach().cpu() for n, p in model.named_parameters()})
 
 
-def card_vs_cpu(label, card, cpu):
+def card_vs_cpu(label, card, cpu, nodes=N_MID):
     """(gradient, loss, parameter errors, names at noise) of two
     `train_steps` runs; raises past TOL."""
     grad_err, zero = grad_errors(card["grads"], cpu["grads"])
@@ -1607,7 +1633,7 @@ def card_vs_cpu(label, card, cpu):
         if sel.any():
             param_err = max(param_err,
                             (card["params"][n] - p)[sel].abs().max().item())
-    log(f"[{label}] training at N={N_MID}, card vs cpu: losses "
+    log(f"[{label}] training at N={nodes}, card vs cpu: losses "
         f"{card['losses']} vs {cpu['losses']} (max abs err {loss_err:.3e}); "
         f"first-step gradients max err over each tensor's largest entry "
         f"{grad_err:.3e} ({len(cpu['grads']) - len(zero)} tensors; "
@@ -1731,6 +1757,74 @@ def phase_small_compact(FG):
     out = {name: max(e[name] for e in errs) for name in ("B1c", "B4c", "B5c")}
     log(f"[2e] B1c, B4c and B5c vs their compact plain versions, bit and "
         f"int8 stores: {len(errs)} cases; max abs err {out} (tol {TOL})")
+    return out
+
+
+# -- phase 2f -----------------------------------------------------------------
+
+def compact_bwd_inputs(FG, G, H, N, D, Dv, metric, seed, pack):
+    """`small_inputs` moved to the compact store (bits or int8): q, k, v,
+    do, dlse, the mask (dead rows, a key strip whose transposed walk is
+    empty, icount = 0, and for G > 1 a row tile with jcount = 0), the
+    store, both walks, scale and seeds."""
+    q, k, v, do, dlse, mask, scale, seeds = small_inputs(FG, G, H, N, D, Dv,
+                                                         metric, seed)
+    store, plan = FG.compact_from_mask(mask, pack=pack)
+    return (q, k, v, do, dlse, mask, store, plan,
+            FG.compact_transposed_plan(mask), scale, seeds)
+
+
+def compact_errors(res):
+    """Each compact backward kernel's error from its own outputs, given
+    `check_backward`'s {output: error}: B3a c dq and dscale, B3b c dk and
+    dv."""
+    return {"B3a c": max(res["dq"], res["dscale"]),
+            "B3b c": max(res["dk"], res["dv"])}
+
+
+def compact_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
+    """B3a c then B3b c against the compact plain backward on one input,
+    with an lse cotangent and dscale where the metric has a scale;
+    dq exactly 0 on dead rows and dk, dv on the empty key strip. Returns
+    {kernel: error} (`compact_errors`)."""
+    q, k, v, do, dlse, mask, store, plan, plan_t, scale, seeds = \
+        compact_bwd_inputs(FG, G, H, N, D, Dv, metric, seed, pack)
+    need = metric in FG.SCALED_METRICS
+    out, lse = (t.contiguous() for t in
+                FG.flash_geometric_forward_compact_plain(
+                    q, k, v, store, *plan, metric, scale, rate, seeds))
+    want = FG.flash_geometric_backward_compact_plain(
+        q, k, v, store, out, lse, do, *plan, metric, scale, rate, seeds, need,
+        dlse)
+    got = FG._backward_compact(q, k, v, store, out, lse, do, plan, plan_t,
+                               metric, scale, rate, seeds, need, dlse)
+    sync()
+    label = f"compact {metric} rate={rate} D={D} Dv={Dv} pack={pack}"
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    strip = slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
+    if not (torch.all(got[0][dead] == 0) and torch.all(want[0][dead] == 0)
+            and (N <= 2 * FG.BLOCK_M or (torch.all(got[1][0, :, strip] == 0)
+                                         and torch.all(got[2][0, :, strip]
+                                                       == 0)))):
+        raise AssertionError(f"{label}: dead rows or the empty key strip "
+                             f"not exactly 0")
+    return compact_errors(check_backward(label, got, want, False))
+
+
+def phase_small_compact_bwd(FG):
+    errs = []
+    for pack in (True, False):
+        for metric in FG.MXU_METRICS:
+            for rate in (0.0, 0.1):
+                errs.append(compact_bwd_vs_plain(FG, 2, 3, 150, 16, 8, metric,
+                                                 rate, pack))
+        for D, Dv in ((7, 3), (40, 72), (128, 128)):
+            errs.append(compact_bwd_vs_plain(FG, 2, 2, 200, D, Dv,
+                                             "gaussian_kernel", 0.1, pack, 1))
+    out = {name: max(e[name] for e in errs) for name in ("B3a c", "B3b c")}
+    log(f"[2f] B3a c (dq, dscale) and B3b c (dk, dv) vs the compact plain "
+        f"backward, bit and int8 stores, lse cotangent: {len(errs)} cases; "
+        f"max err {out} (tol {TOL})")
     return out
 
 
@@ -2075,6 +2169,19 @@ def flex_compact_setup(FG, q, store, plan):
     return block_mask, call, slot_map
 
 
+def band_edges(FG, store, plan):
+    """The band's pairs (self loops included) of snapshot 0 of a bit
+    store as an edge list: (query, key, (walk step, tile row, tile
+    column) of each pair)."""
+    words = FG.unpack_bits(store[0])                  # [S, 64, 64]
+    jl, jc, js = (p[0] for p in plan)
+    live = torch.arange(jl.shape[1], device=DEV) < jc[:, None]
+    i = torch.arange(jl.shape[0], device=DEV)[:, None].expand_as(jl)
+    t_, r_, c_ = words[js[live].long()].nonzero(as_tuple=True)
+    return (i[live][t_] * FG.BLOCK_M + r_,
+            jl[live].long()[t_] * FG.BLOCK_N + c_, (t_, r_, c_))
+
+
 def phase_times_hybrid(FG, plain_args, edge_args):
     """At one 131K snapshot, CUDA events: B1c, B4c and B5c against their
     plain versions, their bounds, compiled ``flex_attention`` over the
@@ -2151,17 +2258,7 @@ def phase_times_hybrid(FG, plain_args, edge_args):
 
         # the csr form of the whole layer's attention on the same graphs:
         # band edges, residual edges and self loops as one edge list
-        def csr_lists(st, pl):
-            words = FG.unpack_bits(st[0])                  # [S, 64, 64]
-            jl, jc, js = (p[0] for p in pl)
-            live = torch.arange(jl.shape[1], device=DEV) < jc[:, None]
-            i = torch.arange(jl.shape[0], device=DEV)[:, None].expand_as(jl)
-            tiles = words[js[live].long()]                 # [n, 64, 64]
-            t_, r_, c_ = tiles.nonzero(as_tuple=True)
-            eq = i[live][t_] * FG.BLOCK_M + r_
-            ek = jl[live].long()[t_] * FG.BLOCK_N + c_
-            return eq, ek, tiles, (t_, r_, c_)
-        eq_b, ek_b, _, _ = csr_lists(store, plan)
+        eq_b, ek_b, _ = band_edges(FG, store, plan)
         eq = torch.cat([eq_b, res_eq[0][res_em[0]].long()])[None]
         ek = torch.cat([ek_b, res_ek[0][res_em[0]].long()])[None]
         em = torch.ones_like(eq, dtype=torch.bool)
@@ -2169,7 +2266,7 @@ def phase_times_hybrid(FG, plain_args, edge_args):
         def csr():
             edge_attention("euclidean", q, k, v, eq, ek, em, N)
         csr_ms = [cuda_ms(csr, 10), cuda_ms(csr, 10)]
-        eq_e, ek_e, _, (t_, r_, c_) = csr_lists(st_e, plan_e)
+        eq_e, ek_e, (t_, r_, c_) = band_edges(FG, st_e, plan_e)
         jl, jc, js = (p[0] for p in plan_e)
         live = torch.arange(jl.shape[1], device=DEV) < jc[:, None]
         b_band = bst[0][js[live].long()][t_, r_, c_]
@@ -2249,6 +2346,344 @@ def phase_times_hybrid(FG, plain_args, edge_args):
     return res
 
 
+# -- phases 4e, 5e, 6c, 7c: training the hybrid model -------------------------
+
+def phase_hybrid_train_vs_csr(tt, FG):
+    """At full width, one sequence of distinct non-loop edges: the hybrid
+    model's first-step gradients (B1c forward, B3a c + B3b c backward,
+    the residual and the merge under autograd) against the csr model's
+    (an O(E) formula of its own under autograd) on the card, the same
+    weights."""
+    seq = hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 60, unique=True)
+    ds = tt.TemporalGraphDataset([seq], [1.0])
+    grads, losses = {}, {}
+    for backend in ("hybrid", "csr"):
+        model = tt.TAGAN(hybrid_config(tt, backend=backend), device=DEV,
+                         generator=torch.Generator().manual_seed(0))
+        loader = tt.TemporalGraphDataLoader(
+            ds, batch_size=1, dense_adj=False,
+            plan="hybrid" if backend == "hybrid" else None)
+        b, y, _ = next(iter(loader))
+        loss = model(b, y).loss
+        loss.backward()
+        losses[backend] = loss.item()
+        grads[backend] = {n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()}
+        del model, loader, b, loss
+    err, zero = grad_errors(grads["hybrid"], grads["csr"])
+    E = seq[0]["edge_index"].shape[1]
+    log(f"[4e] N={N_HYB}, {E} distinct non-loop edges in snapshot 0: "
+        f"first-step gradients hybrid vs csr on the card: max err over each "
+        f"tensor's largest entry {err:.3e} (tol {TOL_HYB_CSR_GRAD}; at fp32 "
+        f"noise {zero}); losses {losses}")
+    if not err <= TOL_HYB_CSR_GRAD:
+        raise AssertionError(f"hybrid vs csr gradients {err} > "
+                             f"{TOL_HYB_CSR_GRAD}")
+    return dict(grad_err=err, noise_tensors=zero, losses=losses, edges=E)
+
+
+def hybrid_layer0_bwd(FG, model, batch):
+    """`hybrid_layer0`'s inputs with the folded transposed walk, B1c's
+    (out, lse) over them, and cotangents dO and dlse (N(0, 1), seed 11):
+    the layer's compact backward launch."""
+    (q, k, v, store, plan, res), _ = hybrid_layer0(FG, model, batch)
+    G, H = q.shape[:2]
+    plan_t = FG.fold_compact(batch.hyb_mask_blocks, batch.hyb_plan_t, G)[1]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        out, lse = FG.flash_geometric_fwd_compact_kernel(
+            q, k, v, store, *plan, "euclidean", ones, seeds, 0.0)
+    g = torch.Generator(device=DEV).manual_seed(11)
+    do = torch.randn(out.shape, device=DEV, generator=g)
+    dlse = torch.randn(lse.shape, device=DEV, generator=g)
+    return q, k, v, store, plan, plan_t, res, out, lse, do, dlse
+
+
+def phase_train_hybrid(tt, FG):
+    """`TAGANTrainer.train` on the 131K hybrid model (part C) over a
+    ``plan="hybrid"`` loader, one sequence per batch: the loader's
+    planning batch apart from the cached ones, one warm-up step, then
+    3 steps with launch counts set to 0 just before and read just after;
+    step times, split, peak memory, one layer's B3a c + B3b c over the
+    folded snapshots and their share of the step, finite losses and
+    gradients, every parameter moved; one snapshot at full width against
+    the compact plain backward."""
+    cfg = hybrid_config(tt)
+    model = tt.TAGAN(cfg, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+    exp = tt.ExperimentConfig(model=cfg, batch_size=1, num_epochs=1, seed=0,
+                              checkpoint_dir="", shuffle=False)
+    ds = tt.TemporalGraphDataset(
+        [hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 600 + s)
+         for s in range(TRAIN_STEPS + 1)], [1.0, 0.0, 1.0, 0.0])
+    kw = dict(batch_size=1, dense_adj=False, plan="hybrid")
+    warm = tt.TemporalGraphDataLoader(ds.subset([0]), **kw)
+    loader = tt.TemporalGraphDataLoader(
+        ds.subset(list(range(1, TRAIN_STEPS + 1))), **kw)
+    # the first batch packs and plans every sequence of the bucket; the
+    # later ones, and every later epoch, stack cached sequences
+    batch_s, batches = [], []
+    it = iter(loader)
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batches.append(next(it))
+        batch_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    list(loader)
+    cached_epoch_s = time.perf_counter() - t0
+    log(f"[6c] hybrid N={N_HYB}, T={T_HYB}: the loader's batches "
+        f"(plan='hybrid') s {[round(x, 3) for x in batch_s]} (the first "
+        f"packs and plans all {TRAIN_STEPS} sequences), a cached epoch "
+        f"{cached_epoch_s:.3f} s; bucket pin {loader.plan_pins}")
+    trainer = tt.TAGANTrainer(model, exp)
+    trainer.train(warm, verbose=False)
+    sync()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(FG)
+    t0 = time.perf_counter()
+    res = trainer.train(loader, verbose=False)
+    sync()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts(FG)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    want = {k.name: 0 for k in FG.KERNELS}
+    for kern in (FG.flash_geometric_fwd_compact_kernel,
+                 FG.flash_geometric_bwd_dq_compact_kernel,
+                 FG.flash_geometric_bwd_dkv_compact_kernel):
+        want[kern.name] = cfg.num_layers * TRAIN_STEPS
+    losses = res["history"]["train_loss"]
+    no_grad = check_grads(model)
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    moved = len(before) - len(still)
+    log(f"[6c] {TRAIN_STEPS} steps of TAGANTrainer.train in {epoch_ms:.3f} "
+        f"ms; mean loss {losses}; peak device memory {peak_gb:.3f} GB above "
+        f"the {held_gb:.3f} GB held before; launches {launched} (expected "
+        f"{want}); {len(before) - len(no_grad)} of {len(before)} gradients "
+        f"finite and non-zero where not zero in exact arithmetic; "
+        f"parameters moved {moved} of {len(before)} (not moved: {still})")
+    if launched != want:
+        raise AssertionError(f"launches {launched} != {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"loss not finite: {losses}")
+    if no_grad:
+        raise AssertionError(f"no finite non-zero gradient: {no_grad}")
+    # a zero bias whose gradient is zero in exact arithmetic may stay put
+    # (weight decay keeps zero at zero); fp32 noise usually moves it
+    if set(still) - set(ZERO_GRAD):
+        raise AssertionError(f"parameters not moved: {still}")
+
+    step_ms = step_times(trainer, batches)
+    b, y, m = batches[0]
+    splits = step_split(trainer, b, y, m)
+    log(f"[6c] step ms (host clock, synchronised) "
+        f"{[round(x, 3) for x in step_ms]}; split (CUDA events) forward / "
+        f"backward / optimizer ms "
+        f"{[[round(x, 3) for x in s] for s in splits]}")
+
+    # one layer's compact launches over the batch's folded snapshots
+    trainer.optimizer.zero_grad()
+    q, k, v, store, plan, plan_t, rs, out, lse, do, dlse = \
+        hybrid_layer0_bwd(FG, model, b.to(DEV))
+    G, H = q.shape[:2]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        fold_fwd = cuda_ms(lambda: FG.flash_geometric_fwd_compact_kernel(
+            q, k, v, store, *plan, "euclidean", ones, seeds, 0.0), 3)
+        fold_bwd = cuda_ms(lambda: FG._backward_compact(
+            q, k, v, store, out, lse, do, plan, plan_t, "euclidean", ones,
+            0.0, seeds, False, dlse), 3)
+    step = min(step_ms)
+    share = cfg.num_layers * fold_bwd / step
+    log(f"[6c] one layer's launches over the {G} folded snapshots: B1c "
+        f"{fold_fwd:.3f} ms, B3a c+B3b c {fold_bwd:.3f} ms; {cfg.num_layers} "
+        f"layers' B3a c+B3b c = {share:.3f} and with B1c "
+        f"{cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the fastest "
+        f"step ({step:.3f} ms)")
+
+    # one snapshot at full width against the compact plain backward
+    one = tuple(t[:1].contiguous() for t in (q, k, v, store))
+    plan1, plan_t1 = (tuple(t[:1].contiguous() for t in p)
+                      for p in (plan, plan_t))
+    o1, l1, do1, dl1 = (t[:1].contiguous() for t in (out, lse, do, dlse))
+    res1 = tuple(t[:1] for t in rs)
+    del q, k, v, store, out, lse, do, dlse
+    got = FG._backward_compact(*one, o1, l1, do1, plan1, plan_t1,
+                               "euclidean", ones, 0.0, seeds[:1], False, dl1)
+    want_g = FG.flash_geometric_backward_compact_plain(
+        *one, o1, l1, do1, *plan1, "euclidean", ones, 0.0, seeds[:1], False,
+        dl1)
+    sync()
+    full = compact_errors(check_backward(f"N={N_HYB}", got, want_g, False))
+    del got, want_g
+    log(f"[6c] compact backward at N={N_HYB}, one snapshot, lse cotangent, "
+        f"vs the compact plain backward: max abs err B3a c "
+        f"{full['B3a c']:.3e}, B3b c {full['B3b c']:.3e}")
+    return dict(batch_s=batch_s, cached_epoch_s=cached_epoch_s,
+                pins={str(k): v for k, v in loader.plan_pins.items()},
+                epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
+                loss=losses, launches=launched, peak_memory_gb=peak_gb,
+                held_gb=held_gb, moved=moved, fold_b1c_ms=fold_fwd,
+                fold_b3c_ms=fold_bwd, b3c_share_of_step=share, full_err=full,
+                args=(*one, plan1, plan_t1, res1, o1, l1, do1, dl1))
+
+
+def compact_bwd_bounds(FG, q, v, store, plan, plan_t, pairs):
+    """B3a c's and B3b c's least time from these inputs: q, k, v, dO, lse
+    and delta, the store, the walk, scale and seed read once, dq (or dk
+    and dv) written once, against the products on the valid pairs at the
+    fp32 peak."""
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    HN = G * H * N
+    reads = (4 * HN * (2 * D + 2 * Dv) + 8 * HN + store.numel()
+             * store.element_size() + 4 * (H + G))
+    plan_b, plan_tb = (4 * sum(t.numel() for t in p) for p in (plan, plan_t))
+    return {"B3a c": bound(reads + plan_b + 4 * HN * D,
+                           2 * H * pairs * (2 * D + Dv)),
+            "B3b c": bound(reads + plan_tb + 4 * HN * (D + Dv),
+                           2 * H * pairs * (2 * D + 2 * Dv))}
+
+
+def phase_times_hybrid_bwd(FG, args):
+    """At one 131K snapshot of 6c, CUDA events: B3a c, B3b c and the two
+    together against the compact plain backward, compiled
+    ``flex_attention``'s backward under the BlockMask of the compact plan
+    at the scaled-dot metric (forward+backward minus forward; held
+    against the kernels at that metric), csr ``edge_attention``'s autograd
+    backward over the layer's whole edge set, and the bounds."""
+    from tagan_torch.ops.sparse import edge_attention
+    q, k, v, store, plan, plan_t, (res_eq, res_ek, res_em), out, lse, do, \
+        dlse = args
+    G, H, N, D = q.shape
+    ones = torch.ones(H, device=DEV)
+    seed0 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    sdp = "scaled_dot_product"
+    with torch.no_grad():
+        delta = ((do * out).sum(-1) - dlse).contiguous()
+        common = (q, k, v, store, do, lse, delta)
+
+        def b3a(metric="euclidean", c=common):
+            FG.flash_geometric_bwd_dq_compact_kernel(
+                *c, *plan, metric, ones, seed0, 0.0, False)
+
+        def b3b(metric="euclidean", c=common):
+            FG.flash_geometric_bwd_dkv_compact_kernel(
+                *c, *plan_t, metric, ones, seed0, 0.0)
+
+        def both(metric="euclidean", c=common):
+            b3a(metric, c)
+            b3b(metric, c)
+
+        def plain():
+            FG.flash_geometric_backward_compact_plain(
+                q, k, v, store, out, lse, do, *plan, "euclidean", ones, 0.0,
+                seed0, False, dlse)
+        p1, a1, a2, p2 = (cuda_ms(plain, 3), cuda_ms(both, 10),
+                          cuda_ms(both, 10), cuda_ms(plain, 3))
+        ta, tb = cuda_ms(b3a, 10), cuda_ms(b3b, 10)
+        out_s, lse_s = FG.flash_geometric_fwd_compact_kernel(
+            q, k, v, store, *plan, sdp, ones, seed0, 0.0)
+        c_sdp = (q, k, v, store, do, lse_s, (do * out_s).sum(-1).contiguous())
+        a_sdp = cuda_ms(lambda: both(sdp, c_sdp), 10)
+        g_sdp = FG._backward_compact(q, k, v, store, out_s, lse_s, do, plan,
+                                     plan_t, sdp, ones, 0.0, seed0, False,
+                                     None)
+        pairs = int(FG.unpack_bits(store).sum().item())
+        walked = int(plan[1].sum().item())
+
+        # the csr form of the layer's whole edge set: the band's pairs
+        # and the residual edges as one edge list
+        eq_b, ek_b, _ = band_edges(FG, store, plan)
+        eq = torch.cat([eq_b, res_eq[0][res_em[0]].long()])[None]
+        ek = torch.cat([ek_b, res_ek[0][res_em[0]].long()])[None]
+        em = torch.ones_like(eq, dtype=torch.bool)
+        del eq_b, ek_b
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def csr_fb():
+        o = edge_attention("euclidean", *leaves, eq, ek, em, N)
+        torch.autograd.grad(o, leaves, do)
+
+    def csr_f():
+        with torch.no_grad():
+            edge_attention("euclidean", *leaves, eq, ek, em, N)
+    csr_ms = [cuda_ms(csr_fb, 5) - cuda_ms(csr_f, 5),
+              cuda_ms(csr_fb, 5) - cuda_ms(csr_f, 5)]
+    # the library: compiled flex_attention's backward over the compact
+    # plan; 5b-5d compiled it under other functions (dynamo's recompile
+    # limit), so start afresh
+    torch._dynamo.reset()
+    t0 = time.perf_counter()
+    try:
+        bmask, flex, _ = flex_compact_setup(FG, q, store, plan)
+
+        def lib_fb():
+            o = flex(*leaves, block_mask=bmask)
+            return torch.autograd.grad(o, leaves, do)
+
+        def lib_f():
+            with torch.no_grad():
+                flex(*leaves, block_mask=bmask)
+        f_grads = lib_fb()
+        sync()
+        flex_err = max(rel_err(f, g) for f, g in zip(f_grads, g_sdp[:3]))
+        del f_grads
+        ms = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
+        lib = dict(ms=ms if flex_err <= TOL else None, err=flex_err,
+                   error=None if flex_err <= TOL else
+                   f"differs from B3a c + B3b c by {flex_err:.3e}")
+    except Exception as e:          # the yardstick only: never the port
+        lib = dict(ms=None, err=None, error=f"{type(e).__name__}: {e}"[:300])
+    lib["setup_and_timing_s"] = time.perf_counter() - t0
+    bounds = compact_bwd_bounds(FG, q, v, store, plan, plan_t, pairs)
+    res = {"B3a c": dict(ms=[ta], **bounds["B3a c"]),
+           "B3b c": dict(ms=[tb], **bounds["B3b c"]),
+           "B3a c+B3b c_ms": [a1, a2], "B3a c+B3b c_sdp_ms": a_sdp,
+           "plain_ms": [p1, p2], "library": lib, "csr_ms": csr_ms,
+           "csr_edges": int(eq.shape[-1]), "valid_pairs": pairs,
+           "walked_tiles": walked}
+    log(f"[5e] H={H} N={N} D={D}, one snapshot, compact backward: B3a c ms "
+        f"{ta:.4f}, B3b c {tb:.4f}; both ms {a1:.4f} {a2:.4f} (scaled-dot "
+        f"metric {a_sdp:.4f}); compact plain backward ms {p1:.4f} {p2:.4f}; "
+        f"csr edge_attention backward over all {res['csr_edges']} edges ms "
+        f"{csr_ms[0]:.4f} {csr_ms[1]:.4f}")
+    log(f"[5e] library: compiled flex_attention backward under the compact "
+        f"plan's BlockMask at the scaled-dot metric: {lib}")
+    for name in ("B3a c", "B3b c"):
+        r = res[name]
+        log(f"[5e] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({r['bytes']} bytes, {r['flops']} flops over {pairs} valid "
+            f"pairs on {walked} walked tiles per head)")
+    return res
+
+
+def phase_train_mid_hybrid(tt, FG):
+    """The hybrid model at N_MID_HYB nodes: 3 AdamW steps over a
+    ``plan="hybrid"`` loader on the card (B1c, B3a c, B3b c) and on the
+    CPU (plain versions) from the same weights and batches."""
+    ds = tt.TemporalGraphDataset(
+        [hybrid_snaps(N_MID_HYB, DEG_HYB, T_HYB, 70 + s) for s in range(3)],
+        [1.0, 0.0, 1.0])
+    card = train_steps(tt, FG, hybrid_config(tt), DEV, ds, "hybrid")
+    cpu = train_steps(tt, FG, hybrid_config(tt), "cpu", ds, "hybrid")
+    res = card_vs_cpu("7c", card, cpu, N_MID_HYB)
+    launched = [card["launched"], cpu["launched"]]
+    want = {k.name: 3 * 2 for k in (
+        FG.flash_geometric_fwd_compact_kernel,
+        FG.flash_geometric_bwd_dq_compact_kernel,
+        FG.flash_geometric_bwd_dkv_compact_kernel)}
+    log(f"[7c] hybrid launches card, cpu {launched}")
+    if launched != [want, {}]:
+        raise AssertionError(f"launches {launched}, card expected {want}")
+    return res
+
+
 def kernel_record(FG, kern, source, replaces, launches, err, ms, plain_ms,
                   plain_of, b, library_ms, src=FG_SRC):
     """One kernel's entry of the ``{"kernels": [...]}`` line; ``plain_of``
@@ -2283,6 +2718,7 @@ def main() -> int:
     small_biased = phase_small_biased(FG)
     small_biased_bwd = phase_small_biased_bwd(FG)
     small_compact = phase_small_compact(FG)
+    small_compact_bwd = phase_small_compact_bwd(FG)
     serve = phase_serve(tt, FG)
     serve_edge = phase_serve_edge(tt, FG)
     serve_hyb = phase_serve_hybrid(tt, FG, edge=False)
@@ -2291,6 +2727,7 @@ def main() -> int:
     mid_edge = phase_mid_edge(tt, FG)
     mid_hyb = phase_mid_hybrid(tt, FG)
     hyb_csr = phase_hybrid_vs_csr(tt, FG)
+    hyb_train_csr = phase_hybrid_train_vs_csr(tt, FG)
     times = phase_times(FG, serve.pop("args"))
     edge_args = serve_edge.pop("args")
     times_biased = phase_times_biased(FG, edge_args, serve_edge.pop("graph"))
@@ -2302,6 +2739,9 @@ def main() -> int:
     train_edge = phase_train_edge(tt, FG)
     train_mid = phase_train_mid(tt, FG)
     train_mid_edge = phase_train_mid_edge(tt, FG)
+    train_hyb = phase_train_hybrid(tt, FG)
+    times_hyb_bwd = phase_times_hybrid_bwd(FG, train_hyb.pop("args"))
+    train_mid_hyb = phase_train_mid_hybrid(tt, FG)
 
     bwd = times["bwd"]
     plain_bwd = min(bwd["plain_ms"])
@@ -2378,12 +2818,36 @@ def main() -> int:
             ("B5c", FG.flash_biased_fwd_compact_kernel, "flash_biased_fwd.cu",
              HB_SRC, 236, serve_hyb_edge,
              "flash_biased_forward_compact_plain"))]
+    # the compact backward: launches on the hybrid training path (6c),
+    # times at one 131K snapshot (5e); the plain version forms dq, dk and
+    # dv in one walk, so its time is the whole backward's
+    tbh = times_hyb_bwd
+    kernels += [
+        dict(kernel_record(
+            FG, kern, "flash_geometric_bwd.cu", line,
+            train_hyb["launches"][kern.name],
+            max(small_compact_bwd[name], train_hyb["full_err"][name]),
+            min(tbh[name]["ms"]), min(tbh["plain_ms"]),
+            "flash_geometric_backward_compact_plain (dq, dk and dv)",
+            tbh[name], tbh["library"]["ms"]),
+             csr_ms=min(tbh["csr_ms"]),
+             library_of=("compiled flex_attention fwd+bwd - fwd, BlockMask "
+                         "from the compact plan, bit-store mask_mod, "
+                         "scaled-dot metric"
+                         if tbh["library"]["error"] is None
+                         else tbh["library"]["error"]))
+        for name, kern, line in (
+            ("B3a c", FG.flash_geometric_bwd_dq_compact_kernel, 2009),
+            ("B3b c", FG.flash_geometric_bwd_dkv_compact_kernel, 2074))]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, small_err=small_err, small_bwd_err=small_bwd,
         small_biased_err=small_biased, small_biased_bwd_err=small_biased_bwd,
         small_compact_err=small_compact,
+        small_compact_bwd_err=small_compact_bwd,
+        hybrid_train_vs_csr=hyb_train_csr, train_hybrid=train_hyb,
+        times_hybrid_bwd=times_hyb_bwd, train_mid_hybrid=train_mid_hyb,
         mid=mid, mid_edge=mid_edge, serve=serve, serve_edge=serve_edge,
         serve_hybrid=serve_hyb, serve_hybrid_edge=serve_hyb_edge,
         mid_hybrid=mid_hyb, hybrid_vs_csr=hyb_csr, times_hybrid=times_hyb,

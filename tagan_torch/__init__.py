@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of TAGAN: serving and training of the dense, csr and
-flash models, and serving of the hybrid (band + residual) model.
+"""PyTorch/CUDA port of TAGAN: serving and training of the dense, csr,
+flash and hybrid (band + residual) models; the hybrid model with edge
+features serves only.
 
 Beside ``tagan_tpu`` (the JAX reference), never importing it or JAX.
 Entry points run on CUDA unless ``device="cpu"`` is passed."""

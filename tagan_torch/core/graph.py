@@ -55,6 +55,11 @@ class SnapshotSequence:
     hyb_plan         (jlist, jcount, jslot) i32 [T, n_i, Wj], [T, n_i],
                      [T, n_i, Wj]: the row tiles' walks and the store
                      slot of each step
+    hyb_plan_t       (ilist, icount, islot) i32 [T, n_i, Wi], [T, n_i],
+                     [T, n_i, Wi]: the transposed walk (each key tile's
+                     occupied row tiles, and the slot of the same store
+                     tile), which the backward's dk/dv kernel walks;
+                     ``None`` unless planned with ``transposed=True``
     hyb_res          (eq, ek, em) [T, Er]: the residual edges as COO
     hyb_res_eid      i32[T, Er]: each residual slot's edge id (-1 padding)
     hyb_band_slot    i32[T, E]: each band edge's store slot (-1 residual
@@ -72,6 +77,7 @@ class SnapshotSequence:
     node_ids: torch.Tensor
     hyb_mask_blocks: Optional[torch.Tensor] = None
     hyb_plan: Optional[Tuple[torch.Tensor, ...]] = None
+    hyb_plan_t: Optional[Tuple[torch.Tensor, ...]] = None
     hyb_res: Optional[Tuple[torch.Tensor, ...]] = None
     hyb_res_eid: Optional[torch.Tensor] = None
     hyb_band_slot: Optional[torch.Tensor] = None
@@ -129,7 +135,8 @@ class SnapshotSequence:
 
     def with_hybrid_plan(self, band_width: Optional[int] = None,
                          pack: bool = True, band_quantile: float = 0.95,
-                         pin: Optional[dict] = None) -> "SnapshotSequence":
+                         pin: Optional[dict] = None,
+                         transposed: bool = False) -> "SnapshotSequence":
         """Attach the band + residual split consumed by
         ``spatial_backend="hybrid"`` (the JAX package's
         ``with_hybrid_plan``, host-side numpy). Valid edges with
@@ -140,16 +147,19 @@ class SnapshotSequence:
         quantile of |src - dst| over the valid edges.
 
         ``pack=True`` stores one uint64 word per tile row (512 bytes a
-        tile), ``pack=False`` int8 tiles. ``pin`` (from
-        `hybrid_plan_dims`, merged with `merge_hybrid_dims`) fixes the
-        form and the padded sizes S, Wj and Er so that sequences stack;
-        a plan that exceeds it raises ValueError."""
+        tile), ``pack=False`` int8 tiles. ``transposed=True`` also builds
+        the transposed walk (``hyb_plan_t``) that training's backward
+        walks; serving does without it. ``pin`` (from `hybrid_plan_dims`,
+        merged with `merge_hybrid_dims`) fixes the form, the padded sizes
+        S, Wj and Er, and with a ``Wi`` the transposed walk and its width,
+        so that sequences stack; a plan that exceeds it raises
+        ValueError."""
         if self.is_batched:
             raise ValueError("with_hybrid_plan takes one sequence, not a "
                              "batch")
         layout = _hybrid_layout(self, band_width, band_quantile)
         if pin is None:
-            pin = dict(pack=pack, **_plan_dims(layout))
+            pin = dict(pack=pack, **_plan_dims(layout, transposed))
         return _attach_plan(self, layout, pin)
 
 
@@ -205,13 +215,17 @@ def _band_occupancy(src, dst, band_sel, nm, n):
     return occs
 
 
-def _plan_dims(layout) -> Dict[str, int]:
+def _plan_dims(layout, transposed: bool = False) -> Dict[str, int]:
     """The padded sizes a plan needs: store slots S, walk width Wj,
-    residual slots Er (each at least 1)."""
+    residual slots Er and, with ``transposed``, the transposed walk's
+    width Wi (each at least 1)."""
     occs, res_sel = layout[5], layout[4]
-    return dict(S=max(max(int(o.sum()) for o in occs), 1),
+    dims = dict(S=max(max(int(o.sum()) for o in occs), 1),
                 Wj=max(max(int(o.sum(1).max()) for o in occs), 1),
                 Er=max(int(res_sel.sum(1).max()), 1))
+    if transposed:
+        dims["Wi"] = max(max(int(o.sum(0).max()) for o in occs), 1)
+    return dims
 
 
 def _rows_plan(occ: np.ndarray, W: int):
@@ -231,20 +245,23 @@ def _rows_plan(occ: np.ndarray, W: int):
 def _attach_plan(seq: SnapshotSequence, layout, pin: dict
                  ) -> SnapshotSequence:
     """``seq`` with its plan built from ``layout`` at the form and padded
-    sizes of ``pin`` (raises ValueError if the plan needs more)."""
-    dims = _plan_dims(layout)
+    sizes of ``pin``, the transposed walk too where it has a ``Wi``
+    (raises ValueError if the plan needs more)."""
+    dims = _plan_dims(layout, "Wi" in pin)
     over = {k: (dims[k], pin[k]) for k in dims if dims[k] > pin[k]}
     if over:
         raise ValueError(f"hybrid plan exceeds its pin: {over}")
     return dataclasses.replace(seq, **_build_hybrid(
-        *layout, pin["pack"], pin["S"], pin["Wj"], pin["Er"]))
+        *layout, pin["pack"], pin["S"], pin["Wj"], pin["Er"],
+        pin.get("Wi")))
 
 
-def _build_hybrid(src, dst, nm, band_sel, res_sel, occs, pack, S, Wj, Er
-                  ) -> Dict[str, Any]:
+def _build_hybrid(src, dst, nm, band_sel, res_sel, occs, pack, S, Wj, Er,
+                  Wi=None) -> Dict[str, Any]:
     """The plan's arrays for `with_hybrid_plan`, padded to the given
-    sizes, as CPU tensors. The bit store's words are set straight from
-    the edges: the work grows with E, not with the S * 64 * 64 pairs."""
+    sizes, as CPU tensors; the transposed walk at width ``Wi`` unless it
+    is None. The bit store's words are set straight from the edges: the
+    work grows with E, not with the S * 64 * 64 pairs."""
     T, E = src.shape
     tile = HYBRID_TILE
     n_t = occs[0].shape[0]
@@ -253,6 +270,9 @@ def _build_hybrid(src, dst, nm, band_sel, res_sel, occs, pack, S, Wj, Er
     jl = np.zeros((T, n_t, Wj), np.int32)
     jc = np.zeros((T, n_t), np.int32)
     js = np.zeros((T, n_t, Wj), np.int32)
+    il = np.zeros((T, n_t, Wi or 1), np.int32)
+    ic = np.zeros((T, n_t), np.int32)
+    isl = np.zeros((T, n_t, Wi or 1), np.int32)
     req = np.zeros((T, Er), np.int32)
     rek = np.zeros((T, Er), np.int32)
     rem = np.zeros((T, Er), bool)
@@ -264,6 +284,12 @@ def _build_hybrid(src, dst, nm, band_sel, res_sel, occs, pack, S, Wj, Er
         jl[t], jc[t] = _rows_plan(occ, Wj)
         js[t] = np.clip(slot_flat[np.arange(n_t)[:, None] * n_t + jl[t]],
                         0, S - 1)
+        if Wi is not None:
+            # key tile j's occupied row tiles, and the slot of the same
+            # (row tile, key tile) store tile
+            il[t], ic[t] = _rows_plan(occ.T, Wi)
+            isl[t] = np.clip(
+                slot_flat[il[t] * n_t + np.arange(n_t)[:, None]], 0, S - 1)
         b = np.nonzero(band_sel[t])[0]
         d = np.nonzero(nm[t])[0]
         rows = np.concatenate([src[t][b], d]).astype(np.int64)
@@ -288,43 +314,56 @@ def _build_hybrid(src, dst, nm, band_sel, res_sel, occs, pack, S, Wj, Er
     t_ = torch.from_numpy
     return dict(
         hyb_mask_blocks=t_(store), hyb_plan=(t_(jl), t_(jc), t_(js)),
+        hyb_plan_t=None if Wi is None else (t_(il), t_(ic), t_(isl)),
         hyb_res=(t_(req), t_(rek), t_(rem)),
         hyb_res_eid=t_(reid), hyb_band_slot=t_(band_slot))
 
 
 def hybrid_plan_dims(seq: SnapshotSequence) -> dict:
     """A hybrid plan's store form and padded sizes as a ``pin`` dict
-    (`SnapshotSequence.with_hybrid_plan`)."""
+    (`SnapshotSequence.with_hybrid_plan`), with ``Wi`` where the plan has
+    the transposed walk."""
     if seq.hyb_mask_blocks is None:
         raise ValueError("sequence has no hybrid plan")
     pack = seq.hyb_mask_blocks.dtype == torch.int64
     lead = seq.hyb_plan[1].dim() - 1
-    return dict(pack=bool(pack), S=int(seq.hyb_mask_blocks.shape[lead]),
+    dims = dict(pack=bool(pack), S=int(seq.hyb_mask_blocks.shape[lead]),
                 Wj=int(seq.hyb_plan[0].shape[-1]),
                 Er=int(seq.hyb_res[0].shape[-1]))
+    if seq.hyb_plan_t is not None:
+        dims["Wi"] = int(seq.hyb_plan_t[0].shape[-1])
+    return dims
 
 
 def merge_hybrid_dims(dims: Sequence[dict]) -> dict:
-    """Elementwise max of `hybrid_plan_dims` dicts of one store form."""
+    """Elementwise max of `hybrid_plan_dims` dicts of one store form,
+    all with the transposed walk's ``Wi`` or all without it."""
     if len({d["pack"] for d in dims}) > 1:
         raise ValueError("bit and int8 stores cannot merge")
+    if len({"Wi" in d for d in dims}) > 1:
+        raise ValueError("plans with and without the transposed walk "
+                         "(Wi) cannot merge")
+    keys = ("S", "Wj", "Er") + (("Wi",) if "Wi" in dims[0] else ())
     return dict(pack=dims[0]["pack"],
-                **{k: max(d[k] for d in dims) for k in ("S", "Wj", "Er")})
+                **{k: max(d[k] for d in dims) for k in keys})
 
 
 def attach_hybrid_plans(seqs: Sequence[SnapshotSequence],
                         pin: Optional[dict] = None, pack: bool = True,
                         band_width: Optional[int] = None,
-                        band_quantile: float = 0.95
+                        band_quantile: float = 0.95,
+                        transposed: bool = False
                         ) -> Tuple[List[SnapshotSequence], dict]:
     """Hybrid plans for several sequences with shared padded sizes, so
     that they stack into one batch: (planned sequences, pin). Without a
     ``pin`` the sizes are the most any of them needs; each plan is built
     once, after the sizes are known. Arguments as in
-    `SnapshotSequence.with_hybrid_plan`."""
+    `SnapshotSequence.with_hybrid_plan` (``transposed``: the transposed
+    walk too, for training; a ``pin`` decides by its ``Wi``)."""
     layouts = [_hybrid_layout(s, band_width, band_quantile) for s in seqs]
     if pin is None:
-        pin = merge_hybrid_dims([dict(pack=pack, **_plan_dims(l))
+        pin = merge_hybrid_dims([dict(pack=pack,
+                                      **_plan_dims(l, transposed))
                                  for l in layouts])
     return [_attach_plan(s, l, pin) for s, l in zip(seqs, layouts)], pin
 

@@ -3,8 +3,10 @@
 //
 // Replaces the Pallas TPU kernels tagan_tpu/ops/pallas/flash_geometric.py::
 // _flash_bwd_dq_kernel (B3a) and _flash_bwd_dkv_kernel (B3b), host side
-// flash_geometric_attention_bwd with fused=False. For query row i, key j,
-// head h, with p_ij = exp(s_ij - lse_i) on the mask,
+// flash_geometric_attention_bwd with fused=False, in their dense-mask form
+// and their compact occupied-block form (B3a c, B3b c: 3-tuple plans, the
+// hybrid backend's band). For query row i, key j, head h, with
+// p_ij = exp(s_ij - lse_i) on the mask,
 //
 //     dp_ij = drop(do_i . v_j),   ds_ij = p_ij (dp_ij - delta_i)
 //     dq_i  = sum_j W_ij k_j,     dk_j = sum_i W_ij q_i,
@@ -13,8 +15,10 @@
 // where W is the metric's chain weight (flash_geometric_common.cuh:
 // chain_weight; the squared-distance metrics also subtract
 // (sum_j W_ij) q_i and (sum_i W_ij) k_j) and delta_i = do_i . out_i - dlse_i
-// comes from the caller. The dropout keep bits are the forward's hash on
-// global (row, col, head) coordinates, so both walks see the forward's mask.
+// comes from the caller (dlse: the cotangent of the forward's lse, which
+// the hybrid band's logsumexp merge gives). The dropout keep bits are the
+// forward's hash on global (row, col, head) coordinates, so both walks see
+// the forward's mask.
 //
 // Design. B3a: one thread block per (64-row query tile, head, folded index
 // g), walking jlist[g, tile, :jcount] as the forward does; the query tile,
@@ -24,20 +28,32 @@
 // transposed plan ilist[g, tile, :icount]; dk and dv accumulate in
 // registers. Both are deterministic: every output element is written by
 // one block in a fixed order. A key strip or query tile with an empty walk
-// writes zeros. Thread (rg, lane) recomputes the 4 x 4 pairs of B1's
-// layout; the accumulators are templated on the 16-wide feature lanes
-// (D, Dv <= 16, 32, 64 or 128) so head dim 16 holds one lane.
+// writes zeros, and a dead row (lse = 1e30) gives p = 0 on every pair.
+// Thread (rg, lane) recomputes the 4 x 4 pairs of B1's layout; the
+// accumulators are templated on the 16-wide feature lanes (D, Dv <= 16,
+// 32, 64 or 128) so head dim 16 holds one lane.
+//
+// The compact forms are the same walks templated on the mask form
+// (flash_geometric_common.cuh: MaskForm). Each step first loads its store
+// tile (slot g * S + jslot or islot, bits or int8) into 64 row words in
+// dynamic shared memory past the dense form's tiles, so the dense form's
+// layout and code are unchanged. Both walks read the same tile, row =
+// query and column = key: B3b c names it through islot, no transposed copy
+// of the store exists. Store offsets are size_t: a folded int8 store
+// passes 2^31 bytes at a few 131K snapshots.
 //
 // What bounds it on the H100. The work the data needs is ~5 products of
 // head dim per valid pair; what must move is q, k, v, do, lse, delta, the
-// dense int8 [N, N] mask and dq, dk, dv, so the least time is the mask's
-// bytes over the memory rate. With uniformly random edges nearly every
-// 64 x 64 block is occupied and both walks visit ~N^2 pairs per head, so
-// like B1 the kernels are bound by fp32 issue on the CUDA cores, far above
-// that bound. At the model's shape (one snapshot, H=4, N=10,000, head dim
-// 16) the bound is 0.034 ms for each kernel (~113-116 MB at 3.35 TB/s);
-// chip_smoke.py phase 5 times both kernels against it. Tensor cores, TMA
-// and a walk over edges are later steps.
+// mask (dense int8 [N, N], or the compact store) and dq, dk, dv, so the
+// least time is those bytes over the memory rate. With uniformly random
+// edges nearly every 64 x 64 block is occupied and both walks visit ~N^2
+// pairs per head, so like B1 the kernels are bound by fp32 issue on the
+// CUDA cores, far above that bound. At the model's shape (one snapshot,
+// H=4, N=10,000, head dim 16) the bound is 0.034 ms for each kernel
+// (~113-116 MB at 3.35 TB/s); chip_smoke.py phase 5 times both kernels
+// against it, and phase 5e the compact forms at one 131K hybrid snapshot
+// (~35K walked tiles per head, ~1/60 of their pairs valid). Tensor cores,
+// TMA and a walk over edges are later steps.
 //
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
@@ -48,20 +64,36 @@ namespace {
 
 using namespace tagan_flash;
 
-template <int LANES>
+// The mask of batch index g: the dense [N, N] bytes (compact forms: none).
+template <int kForm>
+__device__ __forceinline__ const uint8_t* dense_mask(const void* mask, int g,
+                                                     int N) {
+  if constexpr (kForm == DENSE_MASK)
+    return static_cast<const uint8_t*>(mask) + (size_t)g * N * N;
+  else
+    return nullptr;
+}
+
+// The compact forms' 64 mask-tile row words, past the dense tiles.
+__device__ __forceinline__ uint64_t* tile_rows(float* smem, int D, int Dv) {
+  return reinterpret_cast<uint64_t*>(smem + bwd_smem_floats(D, Dv));
+}
+
+template <int LANES, int kForm>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
-                    const uint8_t* __restrict__ mask,
+                    const void* __restrict__ mask,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const int* __restrict__ jlist,
                     const int* __restrict__ jcount,
+                    const int* __restrict__ jslot,
                     const float* __restrict__ scale,
                     const int* __restrict__ seed, float* __restrict__ dq,
                     float* __restrict__ dscale_part, int H, int N, int D,
-                    int Dv, int n_i, int W, int metric, float sqrt_d,
+                    int Dv, int n_i, int W, int S, int metric, float sqrt_d,
                     int use_dropout, uint32_t keep_thresh, float inv_keep,
                     int need_dscale) {
   const int ib = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
@@ -69,11 +101,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int DS = D + 1, PS = BN + 1;
   extern __shared__ float smem[];
   const BwdTiles t = bwd_tiles(smem, D, Dv);
+  uint64_t* rows = tile_rows(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
   const float* kg = k + gh * N * D;
   const float* vg = v + gh * N * Dv;
-  const uint8_t* mg = mask + (size_t)g * N * N;
+  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int row0 = ib * BM;
   load_query_side(t, q + gh * N * D, dout + gh * N * Dv, lse + gh * N,
                   delta + gh * N, row0, N, D, Dv);
@@ -91,19 +124,23 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   float dsc = 0.f;
 
-  const int cnt = jcount[(size_t)g * n_i + ib];
-  const int* jl = jlist + ((size_t)g * n_i + ib) * W;
+  const size_t walk = (size_t)g * n_i + ib;
+  const int cnt = jcount[walk];
+  const int* jl = jlist + walk * W;
+  const int* js = jslot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int col0 = jl[step] * BN;
-    __syncthreads();  // the previous step is done with Ks, Vs and Ws
+    __syncthreads();  // the previous step is done with Ks, Vs, Ws and rows
+    if constexpr (kForm != DENSE_MASK)
+      load_mask_tile<kForm>(rows, mask, (size_t)g * S + js[step]);
     load_rows(t.Ks, kg, col0, N, D);
     load_rows(t.Vs, vg, col0, N, Dv);
     __syncthreads();
     tile_norms(t, D, false, true);
     __syncthreads();
-    dsc += pair_weights<false>(t, mg, N, D, Dv, row0, col0, metric, sc,
-                               sqrt_d, use_dropout, mix, keep_thresh,
-                               inv_keep);
+    dsc += pair_weights<false, kForm>(t, mg, rows, N, D, Dv, row0, col0,
+                                      metric, sc, sqrt_d, use_dropout, mix,
+                                      keep_thresh, inv_keep);
     __syncthreads();
     for (int j = 0; j < BN; ++j) {
       float w[4];
@@ -144,31 +181,33 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int LANES>
+template <int LANES, int kForm>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
-                     const uint8_t* __restrict__ mask,
+                     const void* __restrict__ mask,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const int* __restrict__ ilist,
                      const int* __restrict__ icount,
+                     const int* __restrict__ islot,
                      const float* __restrict__ scale,
                      const int* __restrict__ seed, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int N, int D, int Dv,
-                     int n_j, int W, int metric, float sqrt_d,
+                     int n_j, int W, int S, int metric, float sqrt_d,
                      int use_dropout, uint32_t keep_thresh, float inv_keep) {
   const int jb = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1, VS = Dv + 1, PS = BN + 1;
   extern __shared__ float smem[];
   const BwdTiles t = bwd_tiles(smem, D, Dv);
+  uint64_t* rows = tile_rows(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* dog = dout + gh * N * Dv;
-  const uint8_t* mg = mask + (size_t)g * N * N;
+  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int col0 = jb * BN;
   load_rows(t.Ks, k + gh * N * D, col0, N, D);
   load_rows(t.Vs, v + gh * N * Dv, col0, N, Dv);
@@ -185,18 +224,23 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < LANES; ++jj) dka[a][jj] = dva[a][jj] = 0.f;
   }
 
-  const int cnt = icount[(size_t)g * n_j + jb];
-  const int* il = ilist + ((size_t)g * n_j + jb) * W;
+  const size_t walk = (size_t)g * n_j + jb;
+  const int cnt = icount[walk];
+  const int* il = ilist + walk * W;
+  const int* is = islot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int row0 = il[step] * BM;
-    __syncthreads();  // the previous step is done with Qs, dOs, Ws and Ps
+    __syncthreads();  // the previous step is done with Qs, dOs, Ws, Ps, rows
+    if constexpr (kForm != DENSE_MASK)
+      load_mask_tile<kForm>(rows, mask, (size_t)g * S + is[step]);
     load_query_side(t, qg, dog, lse + gh * N, delta + gh * N, row0, N, D,
                     Dv);
     __syncthreads();
     tile_norms(t, D, true, false);
     __syncthreads();
-    pair_weights<true>(t, mg, N, D, Dv, row0, col0, metric, sc, sqrt_d,
-                       use_dropout, mix, keep_thresh, inv_keep);
+    pair_weights<true, kForm>(t, mg, rows, N, D, Dv, row0, col0, metric, sc,
+                              sqrt_d, use_dropout, mix, keep_thresh,
+                              inv_keep);
     __syncthreads();
     for (int i = 0; i < BM; ++i) {
       float w[4], p[4];
@@ -255,53 +299,120 @@ bool bad_args(int G, int H, int N, int D, int Dv, int n_tiles, int W,
          n_tiles != (N + BM - 1) / BM || W < 0;
 }
 
-template <int LANES>
-cudaError_t launch_dq(const dim3& grid, size_t smem, cudaStream_t stream,
-                      const void* q, const void* k, const void* v,
-                      const void* mask, const void* dout, const void* lse,
-                      const void* delta, const void* jlist,
-                      const void* jcount, const void* scale,
-                      const void* seed, void* dq, void* dscale_part, int H,
-                      int N, int D, int Dv, int n_i, int W, int metric,
-                      float sqrt_d, int use_dropout, unsigned int thresh,
-                      float inv_keep, int need_dscale) {
-  const cudaError_t e = prepare(flash_bwd_dq_kernel<LANES>, smem);
+// Dynamic shared memory: the dense form's tiles, and the compact forms'
+// mask-tile row words past them.
+template <int kForm>
+size_t smem_bytes(int D, int Dv) {
+  return sizeof(float) * bwd_smem_floats(D, Dv) +
+         (kForm == DENSE_MASK ? 0 : sizeof(uint64_t) * BM);
+}
+
+template <int LANES, int kForm>
+cudaError_t launch_dq(const dim3& grid, cudaStream_t stream, const void* q,
+                      const void* k, const void* v, const void* mask,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* jlist, const void* jcount,
+                      const void* jslot, const void* scale, const void* seed,
+                      void* dq, void* dscale_part, int H, int N, int D,
+                      int Dv, int n_i, int W, int S, int metric, float sqrt_d,
+                      int use_dropout, unsigned int thresh, float inv_keep,
+                      int need_dscale) {
+  const size_t smem = smem_bytes<kForm>(D, Dv);
+  const cudaError_t e = prepare(flash_bwd_dq_kernel<LANES, kForm>, smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<LANES><<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v,
-      (const uint8_t*)mask, (const float*)dout, (const float*)lse,
-      (const float*)delta, (const int*)jlist, (const int*)jcount,
+  flash_bwd_dq_kernel<LANES, kForm><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, mask,
+      (const float*)dout, (const float*)lse, (const float*)delta,
+      (const int*)jlist, (const int*)jcount, (const int*)jslot,
       (const float*)scale, (const int*)seed, (float*)dq,
-      (float*)dscale_part, H, N, D, Dv, n_i, W, metric, sqrt_d,
+      (float*)dscale_part, H, N, D, Dv, n_i, W, S, metric, sqrt_d,
       use_dropout, thresh, inv_keep, need_dscale);
   return cudaGetLastError();
 }
 
-template <int LANES>
-cudaError_t launch_dkv(const dim3& grid, size_t smem, cudaStream_t stream,
-                       const void* q, const void* k, const void* v,
-                       const void* mask, const void* dout, const void* lse,
-                       const void* delta, const void* ilist,
-                       const void* icount, const void* scale,
-                       const void* seed, void* dk, void* dv, int H, int N,
-                       int D, int Dv, int n_j, int W, int metric,
-                       float sqrt_d, int use_dropout, unsigned int thresh,
-                       float inv_keep) {
-  const cudaError_t e = prepare(flash_bwd_dkv_kernel<LANES>, smem);
+template <int LANES, int kForm>
+cudaError_t launch_dkv(const dim3& grid, cudaStream_t stream, const void* q,
+                       const void* k, const void* v, const void* mask,
+                       const void* dout, const void* lse, const void* delta,
+                       const void* ilist, const void* icount,
+                       const void* islot, const void* scale, const void* seed,
+                       void* dk, void* dv, int H, int N, int D, int Dv,
+                       int n_j, int W, int S, int metric, float sqrt_d,
+                       int use_dropout, unsigned int thresh, float inv_keep) {
+  const size_t smem = smem_bytes<kForm>(D, Dv);
+  const cudaError_t e = prepare(flash_bwd_dkv_kernel<LANES, kForm>, smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<LANES><<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v,
-      (const uint8_t*)mask, (const float*)dout, (const float*)lse,
-      (const float*)delta, (const int*)ilist, (const int*)icount,
+  flash_bwd_dkv_kernel<LANES, kForm><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, mask,
+      (const float*)dout, (const float*)lse, (const float*)delta,
+      (const int*)ilist, (const int*)icount, (const int*)islot,
       (const float*)scale, (const int*)seed, (float*)dk, (float*)dv, H, N,
-      D, Dv, n_j, W, metric, sqrt_d, use_dropout, thresh, inv_keep);
+      D, Dv, n_j, W, S, metric, sqrt_d, use_dropout, thresh, inv_keep);
   return cudaGetLastError();
+}
+
+template <int kForm>
+int dq_entry(const void* q, const void* k, const void* v, const void* mask,
+             const void* dout, const void* lse, const void* delta,
+             const void* jlist, const void* jcount, const void* jslot,
+             const void* scale, const void* seed, void* dq,
+             void* dscale_part, int G, int H, int N, int D, int Dv, int n_i,
+             int W, int S, int metric, float sqrt_d, int use_dropout,
+             unsigned int keep_thresh, float inv_keep, int need_dscale,
+             void* stream) {
+  if (bad_args(G, H, N, D, Dv, n_i, W, metric) ||
+      (kForm != DENSE_MASK && S < 1))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const dim3 grid(n_i, H, G);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes_for(D)) {
+#define TAGAN_DQ(L)                                                           \
+  case L:                                                                     \
+    return (int)launch_dq<L, kForm>(                                          \
+        grid, s, q, k, v, mask, dout, lse, delta, jlist, jcount, jslot,       \
+        scale, seed, dq, dscale_part, H, N, D, Dv, n_i, W, S, metric, sqrt_d, \
+        use_dropout, keep_thresh, inv_keep, need_dscale);
+    TAGAN_DQ(1) TAGAN_DQ(2) TAGAN_DQ(4) TAGAN_DQ(8)
+#undef TAGAN_DQ
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int kForm>
+int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
+              const void* dout, const void* lse, const void* delta,
+              const void* ilist, const void* icount, const void* islot,
+              const void* scale, const void* seed, void* dk, void* dv, int G,
+              int H, int N, int D, int Dv, int n_j, int W, int S, int metric,
+              float sqrt_d, int use_dropout, unsigned int keep_thresh,
+              float inv_keep, void* stream) {
+  if (bad_args(G, H, N, D, Dv, n_j, W, metric) ||
+      (kForm != DENSE_MASK && S < 1))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const dim3 grid(n_j, H, G);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes_for(D > Dv ? D : Dv)) {
+#define TAGAN_DKV(L)                                                       \
+  case L:                                                                  \
+    return (int)launch_dkv<L, kForm>(                                      \
+        grid, s, q, k, v, mask, dout, lse, delta, ilist, icount, islot,    \
+        scale, seed, dk, dv, H, N, D, Dv, n_j, W, S, metric, sqrt_d,       \
+        use_dropout, keep_thresh, inv_keep);
+    TAGAN_DKV(1) TAGAN_DKV(2) TAGAN_DKV(4) TAGAN_DKV(8)
+#undef TAGAN_DKV
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dq [G, H, N, D] and, with need_dscale, the d(scale) partials
-// [G, H, n_i] of the forward walk (jlist, jcount).
+using namespace tagan_flash;
+
+// B3a: dq [G, H, N, D] and, with need_dscale, the d(scale) partials
+// [G, H, n_i] of the forward walk (jlist, jcount) over the dense int8 mask
+// [G, N, N].
 extern "C" int tagan_flash_geometric_bwd_dq(
     const void* q, const void* k, const void* v, const void* mask,
     const void* dout, const void* lse, const void* delta, const void* jlist,
@@ -309,27 +420,14 @@ extern "C" int tagan_flash_geometric_bwd_dq(
     void* dscale_part, int G, int H, int N, int D, int Dv, int n_i, int W,
     int metric, float sqrt_d, int use_dropout, unsigned int keep_thresh,
     float inv_keep, int need_dscale, void* stream) {
-  if (bad_args(G, H, N, D, Dv, n_i, W, metric))
-    return (int)cudaErrorInvalidValue;
-  if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = sizeof(float) * bwd_smem_floats(D, Dv);
-  const dim3 grid(n_i, H, G);
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes_for(D)) {
-#define TAGAN_DQ(L)                                                          \
-  case L:                                                                    \
-    return (int)launch_dq<L>(grid, smem, s, q, k, v, mask, dout, lse, delta, \
-                             jlist, jcount, scale, seed, dq, dscale_part, H, \
-                             N, D, Dv, n_i, W, metric, sqrt_d, use_dropout,  \
-                             keep_thresh, inv_keep, need_dscale);
-    TAGAN_DQ(1) TAGAN_DQ(2) TAGAN_DQ(4) TAGAN_DQ(8)
-#undef TAGAN_DQ
-  }
-  return (int)cudaErrorInvalidValue;
+  return dq_entry<DENSE_MASK>(q, k, v, mask, dout, lse, delta, jlist, jcount,
+                              jlist, scale, seed, dq, dscale_part, G, H, N, D,
+                              Dv, n_i, W, 0, metric, sqrt_d, use_dropout,
+                              keep_thresh, inv_keep, need_dscale, stream);
 }
 
-// dk [G, H, N, D] and dv [G, H, N, Dv] over the transposed walk
-// (ilist, icount).
+// B3b: dk [G, H, N, D] and dv [G, H, N, Dv] over the transposed walk
+// (ilist, icount) and the dense mask.
 extern "C" int tagan_flash_geometric_bwd_dkv(
     const void* q, const void* k, const void* v, const void* mask,
     const void* dout, const void* lse, const void* delta, const void* ilist,
@@ -337,21 +435,41 @@ extern "C" int tagan_flash_geometric_bwd_dkv(
     void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
     float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
     void* stream) {
-  if (bad_args(G, H, N, D, Dv, n_j, W, metric))
-    return (int)cudaErrorInvalidValue;
-  if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = sizeof(float) * bwd_smem_floats(D, Dv);
-  const dim3 grid(n_j, H, G);
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes_for(D > Dv ? D : Dv)) {
-#define TAGAN_DKV(L)                                                          \
-  case L:                                                                     \
-    return (int)launch_dkv<L>(grid, smem, s, q, k, v, mask, dout, lse, delta, \
-                              ilist, icount, scale, seed, dk, dv, H, N, D,    \
-                              Dv, n_j, W, metric, sqrt_d, use_dropout,        \
-                              keep_thresh, inv_keep);
-    TAGAN_DKV(1) TAGAN_DKV(2) TAGAN_DKV(4) TAGAN_DKV(8)
-#undef TAGAN_DKV
-  }
-  return (int)cudaErrorInvalidValue;
+  return dkv_entry<DENSE_MASK>(q, k, v, mask, dout, lse, delta, ilist,
+                               icount, ilist, scale, seed, dk, dv, G, H, N, D,
+                               Dv, n_j, W, 0, metric, sqrt_d, use_dropout,
+                               keep_thresh, inv_keep, stream);
+}
+
+// B3a c: B3a over the compact store of S slots per g, bits i64[G, S, 64]
+// (packed) or int8 [G, S, 64, 64], with the slot of each walk step,
+// jslot [G, n_i, W].
+extern "C" int tagan_flash_geometric_bwd_dq_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* dout, const void* lse, const void* delta, const void* jlist,
+    const void* jcount, const void* jslot, const void* scale,
+    const void* seed, void* dq, void* dscale_part, int G, int H, int N,
+    int D, int Dv, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    int need_dscale, void* stream) {
+  return (packed ? dq_entry<COMPACT_BITS> : dq_entry<COMPACT_I8>)(
+      q, k, v, store, dout, lse, delta, jlist, jcount, jslot, scale, seed, dq,
+      dscale_part, G, H, N, D, Dv, n_i, W, S, metric, sqrt_d, use_dropout,
+      keep_thresh, inv_keep, need_dscale, stream);
+}
+
+// B3b c: B3b over the compact store, the transposed walk (ilist, icount)
+// naming each step's slot of the same store, islot [G, n_j, W].
+extern "C" int tagan_flash_geometric_bwd_dkv_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* dout, const void* lse, const void* delta, const void* ilist,
+    const void* icount, const void* islot, const void* scale,
+    const void* seed, void* dk, void* dv, int G, int H, int N, int D, int Dv,
+    int n_j, int W, int S, int packed, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return (packed ? dkv_entry<COMPACT_BITS> : dkv_entry<COMPACT_I8>)(
+      q, k, v, store, dout, lse, delta, ilist, icount, islot, scale, seed, dk,
+      dv, G, H, N, D, Dv, n_j, W, S, metric, sqrt_d, use_dropout, keep_thresh,
+      inv_keep, stream);
 }

@@ -146,8 +146,8 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
     __syncthreads();
     tile_norms(t, D, true, false);
     __syncthreads();
-    dsc += pair_weights<true>(t, mg, N, D, Dv, row0, col0, metric, sc,
-                              sqrt_d, use_dropout, mix, keep_thresh,
+    dsc += pair_weights<true>(t, mg, nullptr, N, D, Dv, row0, col0, metric,
+                              sc, sqrt_d, use_dropout, mix, keep_thresh,
                               inv_keep);
     __syncthreads();
     for (int i = 0; i < BM; ++i) {

@@ -274,12 +274,15 @@ __device__ __forceinline__ void tile_products(const BwdTiles& t, int D, int Dv,
 // and writes W_ij to Ws and, with kWantP, drop(p)_ij to Ps; invalid pairs
 // write 0. p is formed only on valid pairs, where lse_i >= s_ij, so no
 // exp of a large positive number is taken (dead rows have no valid pair).
+// The pair test is `pair_on<kForm>`: the dense mask mg, or the tile's row
+// words `rows` of the compact forms (loaded by `load_mask_tile`).
 // Returns this thread's part of sum ds * s * sq (the dscale numerator).
-template <bool kWantP>
+template <bool kWantP, int kForm = DENSE_MASK>
 __device__ __forceinline__ float pair_weights(
-    const BwdTiles& t, const uint8_t* __restrict__ mg, int N, int D, int Dv,
-    int row0, int col0, int metric, float sc, float sqrt_d, int use_dropout,
-    uint32_t mix, uint32_t keep_thresh, float inv_keep) {
+    const BwdTiles& t, const uint8_t* __restrict__ mg, const uint64_t* rows,
+    int N, int D, int Dv, int row0, int col0, int metric, float sc,
+    float sqrt_d, int use_dropout, uint32_t mix, uint32_t keep_thresh,
+    float inv_keep) {
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int PS = BN + 1;
   float s[4][4], dp[4][4];
@@ -292,7 +295,7 @@ __device__ __forceinline__ float pair_weights(
     for (int b = 0; b < 4; ++b) {
       const int lc = lane + 16 * b, gc = col0 + lc;
       float w = 0.f, pd = 0.f;
-      if (gr < N && gc < N && mg[(size_t)gr * N + gc] != 0) {
+      if (pair_on<kForm>(mg, rows, N, gr, gc, lr, lc)) {
         const float qk = s[a][b];
         const float qn = t.qn[lr], kn = t.kn[lc];
         const float sv = score_of(metric, qk, qn, kn, sc, sqrt_d);

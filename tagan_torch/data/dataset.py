@@ -13,20 +13,22 @@ Counterpart of ``tagan_tpu.data.dataset``:
 
 For the same seed the loader gives the JAX package's batches in the same
 order: the same numpy permutations, the same buckets, the same padding.
-The spatial-backend plans (``plan="hybrid"``/``"ring"``) and the slot
-reordering (``reorder="rcm"``) belong to backends that are not ported
-and raise `NotImplementedError`.
+``plan="hybrid"`` attaches the hybrid backend's plan, with the transposed
+walk that training's backward reads, at pinned sizes per bucket. The ring
+plan (``plan="ring"``) and the slot reordering (``reorder="rcm"``) belong
+to a backend that is not ported and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.graph import (SnapshotSequence, batch_sequences, build_sequence,
-                          pad_dims_for)
+from ..core.graph import (SnapshotSequence, attach_hybrid_plans,
+                          batch_sequences, build_sequence, pad_dims_for)
 
 
 class TemporalGraphDataset:
@@ -115,7 +117,15 @@ class TemporalGraphDataLoader:
     ``num_workers > 0`` packs upcoming batches on a thread pool with
     ``prefetch`` batches in flight; order and contents are those of the
     synchronous path. ``dense_adj=False`` skips the [T, N, N] adjacency
-    (the flash backend builds its masks from the edge lists)."""
+    (the flash backend builds its masks from the edge lists).
+
+    ``plan="hybrid"`` attaches the hybrid backend's band + residual plan
+    with its transposed walk (`core.graph.attach_hybrid_plans`,
+    ``transposed=True``; ``plan_kwargs`` go to it as given): the first
+    batch that needs a bucket plans every member of the bucket once, at
+    the sizes the bucket needs, records the bucket's pin
+    (``plan_pins[bucket]``) and caches the planned sequences, so later
+    batches and epochs never plan again."""
 
     def __init__(self, dataset: TemporalGraphDataset, batch_size: int = 16,
                  shuffle: bool = False, seed: int = 0,
@@ -134,9 +144,9 @@ class TemporalGraphDataLoader:
         if reorder is not None:
             raise NotImplementedError(
                 f"reorder={reorder!r}: the slot reordering is not ported")
-        if plan is not None:
+        if plan not in (None, "hybrid"):
             raise NotImplementedError(
-                f"plan={plan!r}: the hybrid and ring backends are not ported")
+                f"plan={plan!r}: only the hybrid plan is ported")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -155,6 +165,10 @@ class TemporalGraphDataLoader:
         self.num_workers = max(0, num_workers)
         self.prefetch = max(1, prefetch)
         self.dense_adj = dense_adj
+        self.plan = plan
+        self.plan_kwargs = dict(plan_kwargs or {})
+        self.plan_pins: Dict[int, dict] = {}
+        self._plan_lock = threading.Lock()
         self._bucket_of, self._bucket_dims = self._assign_buckets()
 
     def _seq_node_count(self, i: int) -> int:
@@ -185,13 +199,35 @@ class TemporalGraphDataLoader:
                 bucket_of[int(i)] = b
         return bucket_of, dims
 
+    def _base_built(self, i: int) -> SnapshotSequence:
+        Tm, Nm, Em = self._bucket_dims[self._bucket_of[i]]
+        return build_sequence(
+            self.dataset.sequences[i], max_nodes=Nm, max_edges=Em,
+            max_time=Tm, edge_feature_dim=self.edge_feature_dim,
+            dense_adj=self.dense_adj)
+
+    def _plan_bucket(self, b: int) -> None:
+        """Plan every member of bucket ``b`` at the bucket's shared sizes
+        (one planning pass per sequence) and cache them."""
+        members = [i for i in range(len(self.dataset))
+                   if self._bucket_of[i] == b]
+        planned, pin = attach_hybrid_plans(
+            [self._base_built(i) for i in members],
+            **{"transposed": True, **self.plan_kwargs})
+        self.plan_pins[b] = pin
+        for i, s in zip(members, planned):
+            self._cache[i] = s
+
     def _built(self, i: int) -> SnapshotSequence:
         if self._cache[i] is None:
-            Tm, Nm, Em = self._bucket_dims[self._bucket_of[i]]
-            self._cache[i] = build_sequence(
-                self.dataset.sequences[i], max_nodes=Nm, max_edges=Em,
-                max_time=Tm, edge_feature_dim=self.edge_feature_dim,
-                dense_adj=self.dense_adj)
+            if self.plan is None:
+                self._cache[i] = self._base_built(i)
+            else:
+                # worker threads may ask for one bucket at once: it is
+                # planned by the first, under the lock
+                with self._plan_lock:
+                    if self._cache[i] is None:
+                        self._plan_bucket(self._bucket_of[i])
         return self._cache[i]
 
     def __len__(self) -> int:

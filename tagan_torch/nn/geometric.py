@@ -183,8 +183,8 @@ class GeometricAttention(nn.Module):
                      res, node_mask: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
                      band_bias: Optional[torch.Tensor] = None,
-                     res_bias: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     res_bias: Optional[torch.Tensor] = None,
+                     plan_t=None) -> torch.Tensor:
         """Hybrid path (the JAX package's ``apply_hybrid``): the same
         layer with the BAND edges (self loops included) through the
         compact-store kernels and the long-range RESIDUAL edges through
@@ -197,9 +197,11 @@ class GeometricAttention(nn.Module):
         (the band edges' bias in the store's slots) and ``res_bias``
         [..., Er] take the edge-biased double softmax
         (`ops.hybrid_biased`). Mahalanobis runs euclidean in factor space
-        on both parts; inactive nodes keep their input. Forward only: a
-        backward through the attention raises until hybrid training is
-        ported."""
+        on both parts; inactive nodes keep their input. ``plan_t`` is the
+        band's transposed walk (ilist, icount, islot), which the unbiased
+        band's backward (B3a c + B3b c) needs: without it a backward
+        raises ValueError. The edge-biased form runs forward only: a
+        backward through it raises NotImplementedError."""
         metric = self.distance_metric
         if metric not in FG.MXU_METRICS and metric != "mahalanobis":
             raise NotImplementedError(
@@ -229,7 +231,7 @@ class GeometricAttention(nn.Module):
                 scale, rate, seed, generator)
         else:
             band = FG._flash_compact(q, k, v, store, plan, metric, scale,
-                                     rate, seed)
+                                     rate, seed, plan_t)
             part = S.edge_attention_partial(
                 metric, q, k, v, *res, x.shape[-2], sigma=sigma, gamma=gamma,
                 dropout_rate=rate, generator=generator)

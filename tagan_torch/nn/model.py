@@ -12,8 +12,10 @@ written-out leading dims: every op takes ``[B, T, N, ...]``, and the
 flash and hybrid backends fold the B*T snapshots into one kernel launch
 per attention layer. A single (unbatched) sequence runs as a batch of
 one. The hybrid backend reads the band + residual plan a sequence
-carries (`SnapshotSequence.with_hybrid_plan`; `Predictor` attaches it)
-and runs forward only: its backward is not ported yet.
+carries (`SnapshotSequence.with_hybrid_plan`; `Predictor` attaches it,
+the loader's ``plan="hybrid"`` with the transposed walk that training's
+backward reads); with edge features it runs forward only: its backward
+is not ported yet.
 
 Pipeline: node embedding; ``num_layers`` geometric attention layers per
 snapshot with the first layer's skip ``x = attn(x) + LN(skip)``;
@@ -228,7 +230,7 @@ class TAGAN(nn.Module):
                     rb = hybrid_residual_bias(b, seq)
                 return layer.attn.apply_hybrid(
                     xx, seq.hyb_mask_blocks, seq.hyb_plan, seq.hyb_res,
-                    seq.node_mask, generator, bb, rb)
+                    seq.node_mask, generator, bb, rb, seq.hyb_plan_t)
         elif c.spatial_backend == "flash":
             mask, plan, plan_t = flash_structures(
                 seq.edge_src, seq.edge_dst, seq.edge_mask, seq.node_mask,

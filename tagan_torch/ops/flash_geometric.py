@@ -15,14 +15,17 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7a  _biased_bwd_dq_kernel    csrc/flash_biased_bwd.cu
     B7b  _biased_bwd_dkv_kernel   csrc/flash_biased_bwd.cu
     B1c  _flash_kernel, compact   csrc/flash_geometric_fwd.cu
+    B3a c  _flash_bwd_dq_kernel, compact   csrc/flash_geometric_bwd.cu
+    B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_geometric_bwd.cu
     B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
     B5c  _flash_biased_kernel, compact  csrc/flash_biased_fwd.cu
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
-dense path's double softmax, and B6, B7a and B7b its backward. B1c, B4c
-and B5c walk the compact occupied-block store of the hybrid backend's
-band (the mask, and the bias, only in the occupied tiles; a slot per
-walk step), forward only.
+dense path's double softmax, and B6, B7a and B7b its backward. B1c, B3a c,
+B3b c, B4c and B5c walk the compact occupied-block store of the hybrid
+backend's band (the mask, and the bias, only in the occupied tiles; a
+slot per walk step): B1c with B3a c and B3b c is differentiable, B4c and
+B5c (the edge-biased band) run forward only.
 
 Supported metrics are those written through the cross term q.k and the
 row norms (``MXU_METRICS``); cosine metrics run on L2-normalised q/k;
@@ -379,6 +382,21 @@ def compact_from_mask(mask: torch.Tensor, pack: bool = True):
     return store, (jlist, jcount, jslot)
 
 
+def compact_transposed_plan(mask: torch.Tensor):
+    """(ilist, icount, islot) of a dense mask [G, N, N]: the transposed
+    walk (each key tile's occupied row tiles) over the store
+    `compact_from_mask` builds, islot naming the same (row tile, key
+    tile) slot, so both walks read one store."""
+    occ, slot, S = _compact_slots(mask)
+    n_j = occ.shape[-1]
+    ilist, icount = _plan_from_occ(occ.transpose(-1, -2))
+    keys = torch.arange(n_j, device=mask.device)[:, None]
+    islot = slot.gather(-1, (ilist.long() * n_j + keys).reshape(
+        mask.shape[0], -1))
+    return ilist, icount, islot.clamp(0, S - 1).reshape(ilist.shape).to(
+        torch.int32)
+
+
 def check_compact_plan(jlist, jcount, jslot, store, n: int) -> None:
     """Raise ValueError unless (jlist, jcount, jslot) is a walk over the
     store of ``n`` keys: shapes that match each other and the store, 0 <=
@@ -410,6 +428,15 @@ def check_compact_plan(jlist, jcount, jslot, store, n: int) -> None:
         raise ValueError(f"plan jslot outside [0, {S}): {ends[4:]}")
 
 
+def _row_tiles(x, n_i, value=0.0):
+    """x [G, H, N(, F)] padded to n_i whole row tiles with ``value``:
+    [G, H, n_i, BM(, F)]."""
+    G, H, N = x.shape[:3]
+    pad = (0, 0) * (x.dim() - 3) + (0, n_i * BLOCK_M - N)
+    return torch.nn.functional.pad(x, pad, value=value).reshape(
+        G, H, n_i, BLOCK_M, *x.shape[3:])
+
+
 def _key_tiles(x, rows_p):
     """x [G, H, N, F] padded to whole key tiles: [G, H, n_t, BN, F], with
     every tile index a plan over ``rows_p`` padded rows can name."""
@@ -432,13 +459,13 @@ def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale):
     [G, n_i, 1, BN]). Step w of row tile i scores the key tile
     jlist[g, i, w] against the mask tile store[g, jslot[g, i, w]]; pairs
     of steps at or past jcount, and rows or columns past N, are not
-    valid."""
+    valid. Also yields the step's cross terms and squared distances
+    (`_qk_sq`) last, for the backward's chain weights."""
     G, H, N, D = q.shape
     packed = store_packed(store)
     n_i, W = jlist.shape[-2], jlist.shape[-1]
     rows_p = n_i * BLOCK_M
-    qt = torch.nn.functional.pad(q, (0, 0, 0, rows_p - N)).reshape(
-        G, H, n_i, BLOCK_M, D)
+    qt = _row_tiles(q, n_i)
     kt = _key_tiles(k, rows_p)
     sc = scale.reshape(1, H, 1, 1, 1)
     rows = torch.arange(rows_p, device=q.device).reshape(n_i, BLOCK_M, 1)
@@ -453,7 +480,7 @@ def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale):
             + torch.arange(BLOCK_N, device=q.device)
         valid = tile & (rows < N) & (cols < N) \
             & (w < jcount)[..., None, None]
-        yield s, valid[:, None], jb, rows, cols
+        yield s, valid[:, None], jb, rows, cols, qk, sq
 
 
 def _tile_keep(seed, H, rows, cols) -> torch.Tensor:
@@ -523,7 +550,7 @@ def flash_geometric_forward_compact_plain(
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     vt = _key_tiles(v, jlist.shape[-2] * BLOCK_M)
     m, l, acc = _online_init(q, jlist, v.shape[-1])
-    for s, valid, jb, rows, cols in _compact_steps(
+    for s, valid, jb, rows, cols, _, _ in _compact_steps(
             q, k, store, jlist, jcount, jslot, metric, scale):
         drop = None
         if dropout_rate > 0.0:
@@ -545,8 +572,9 @@ def flash_lse1_compact_plain(q, k, store, jlist, jcount, jslot, metric: str,
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
     m, l, _ = _online_init(q, jlist)
-    for s, valid, _, _, _ in _compact_steps(q, k, store, jlist, jcount,
-                                            jslot, metric, scale):
+    for s, valid, _, _, _, _, _ in _compact_steps(q, k, store, jlist,
+                                                  jcount, jslot, metric,
+                                                  scale):
         m, l, _ = _online_step(m, l, None, s, valid)
     return _finish_online(m, l, None, N)[1]
 
@@ -573,7 +601,7 @@ def flash_biased_forward_compact_plain(
     gi = torch.arange(G, device=q.device)[:, None]
     vt = _key_tiles(v, n_i * BLOCK_M)
     m, l, acc = _online_init(q, jlist, v.shape[-1])
-    for w, (s, valid, jb, rows, cols) in enumerate(_compact_steps(
+    for w, (s, valid, jb, rows, cols, _, _) in enumerate(_compact_steps(
             q, k, store, jlist, jcount, jslot, metric, scale)):
         w1 = torch.exp(torch.where(valid, s - l1, NEG_INF))
         if dropout_rate > 0.0:
@@ -846,6 +874,28 @@ def _chain_weight(metric: str, ds, s, sq, qk, scale, true_d: int):
     raise NotImplementedError(metric)
 
 
+def _pair_grads(metric, s, sq, qk, valid, lse, dp, delta, keep, inv_keep,
+                scale, true_d: int):
+    """The backward's recompute of a block of pairs: p = exp(s - lse) on
+    ``valid`` pairs (0 elsewhere), dp and p dropped where ``keep`` (None
+    without dropout) is False, ds = p (dp - delta) -> (ds, the chain
+    weight W, drop(p))."""
+    p = torch.exp(torch.where(valid, s - lse, NEG_INF))
+    pd = p
+    if keep is not None:
+        dp = torch.where(keep, dp * inv_keep, torch.zeros_like(dp))
+        pd = torch.where(keep, p * inv_keep, torch.zeros_like(p))
+    ds = p * (dp - delta)
+    return ds, _chain_weight(metric, ds, s, sq, qk, scale, true_d), pd
+
+
+def _delta(do, out, dlse):
+    """rowsum(do * out), less the lse cotangent ``dlse`` when there is
+    one: the backward's per-row term (the TPU package's delta')."""
+    delta = (do * out).sum(-1)
+    return delta if dlse is None else delta - dlse
+
+
 def flash_geometric_backward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, metric: str,
@@ -868,9 +918,7 @@ def flash_geometric_backward_plain(
     sc = scale.reshape(1, H, 1, 1)
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
-    delta = (do * out).sum(-1)
-    if dlse is not None:
-        delta = delta - dlse
+    delta = _delta(do, out, dlse)
     sq_metric = metric in _SQ_METRICS
     dq = torch.empty_like(q)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
@@ -881,17 +929,13 @@ def flash_geometric_backward_plain(
         qc, doc = q[:, :, r0:r1], do[:, :, r0:r1]
         qk, sq = _qk_sq(metric, qc, k)
         s = _scores_from(metric, qk, sq, sc, D)
-        valid = mask[:, None, r0:r1, :] != 0
-        p = torch.exp(torch.where(valid, s - lse[:, :, r0:r1, None],
-                                  torch.full_like(s, NEG_INF)))
-        dp = doc @ v.transpose(-1, -2)
-        pd = p
+        keep = None
         if dropout_rate > 0.0:
             keep = _keep_rows(seed, H, r0, r1, N, q.device) < thresh
-            dp = torch.where(keep, dp * inv_keep, torch.zeros_like(dp))
-            pd = torch.where(keep, p * inv_keep, torch.zeros_like(p))
-        ds = p * (dp - delta[:, :, r0:r1, None])
-        w = _chain_weight(metric, ds, s, sq, qk, sc, D)
+        ds, w, pd = _pair_grads(
+            metric, s, sq, qk, mask[:, None, r0:r1, :] != 0,
+            lse[:, :, r0:r1, None], doc @ v.transpose(-1, -2),
+            delta[:, :, r0:r1, None], keep, inv_keep, sc, D)
         dqc = w @ k
         if sq_metric:
             dqc = dqc - w.sum(-1, keepdim=True) * qc
@@ -907,6 +951,85 @@ def flash_geometric_backward_plain(
     if need_dscale:
         dscale = dsc / scale ** 3 if metric == "gaussian_kernel" else -dsc
     return dq, dk, dv, dscale
+
+
+def flash_geometric_backward_compact_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, store: torch.Tensor,
+    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    jlist: torch.Tensor, jcount: torch.Tensor, jslot: torch.Tensor,
+    metric: str, scale: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0, seed: Optional[torch.Tensor] = None,
+    need_dscale: bool = False, dlse: Optional[torch.Tensor] = None,
+):
+    """What B3a c and B3b c compute: `flash_geometric_backward_plain`
+    over the compact store, walking the forward walk's occupied tiles
+    with the gathers of `flash_geometric_forward_compact_plain`, every
+    row tile at once, in memory that grows with the row tiles, never
+    with N^2. dq accumulates per row tile; each step's dk and dv go back
+    to their key tiles by index (`index_add_`), so the transposed walk is
+    not read. Shapes as in `flash_geometric_forward_compact_plain`; do
+    like out, dlse (the cotangent of lse) like lse. Returns (dq, dk, dv,
+    dscale f32[H] or None)."""
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    if scale is None:
+        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    sc = scale.reshape(1, H, 1, 1, 1)
+    thresh = _keep_thresh(dropout_rate)
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    delta = _delta(do, out, dlse)
+    n_i = jlist.shape[-2]
+    qt, dot = _row_tiles(q, n_i), _row_tiles(do, n_i)
+    lse_t = _row_tiles(lse, n_i, LSE_DEAD)[..., None]
+    delta_t = _row_tiles(delta, n_i)[..., None]
+    kt, vt = (_key_tiles(x, n_i * BLOCK_M) for x in (k, v))
+    n_t = kt.shape[2]
+    sq_metric = metric in _SQ_METRICS
+    dq = torch.zeros_like(qt)
+    wrow = torch.zeros(qt.shape[:-1], dtype=q.dtype, device=q.device)
+    # key-side sums per (g, key tile), flat so that index_add_ can take
+    # each step's [G * n_i] tiles at once
+    dk = torch.zeros((G * n_t, H, BLOCK_N, D), dtype=q.dtype,
+                     device=q.device)
+    dv = torch.zeros((G * n_t, H, BLOCK_N, Dv), dtype=q.dtype,
+                     device=q.device)
+    wcol = torch.zeros((G * n_t, H, BLOCK_N), dtype=q.dtype, device=q.device)
+    dsc = torch.zeros(H, dtype=q.dtype, device=q.device)
+    gi = torch.arange(G, device=q.device)[:, None]
+
+    def to_keys(x):                 # [G, H, n_i, BN, ...] -> [G * n_i, H, ...]
+        return x.transpose(1, 2).reshape(G * n_i, H, *x.shape[3:])
+    for s, valid, jb, rows, cols, qk, sq in _compact_steps(
+            q, k, store, jlist, jcount, jslot, metric, scale):
+        kb, vb = _gather_tiles(kt, jb), _gather_tiles(vt, jb)
+        keep = None
+        if dropout_rate > 0.0:
+            keep = _tile_keep(seed, H, rows, cols) < thresh
+        ds, w, pd = _pair_grads(metric, s, sq, qk, valid, lse_t,
+                                dot @ vb.transpose(-1, -2), delta_t, keep,
+                                inv_keep, sc, D)
+        dq += w @ kb
+        idx = (gi * n_t + jb).reshape(-1)
+        dk.index_add_(0, idx, to_keys(w.transpose(-1, -2) @ qt))
+        dv.index_add_(0, idx, to_keys(pd.transpose(-1, -2) @ dot))
+        if sq_metric:
+            wrow += w.sum(-1)
+            wcol.index_add_(0, idx, to_keys(w.sum(-2)))
+        if need_dscale:
+            dsc += (ds * s * sq).sum((0, 2, 3, 4))
+    if sq_metric:
+        dq -= wrow[..., None] * qt
+
+    def from_keys(x):               # [G * n_t, H, BN, ...] -> [G, H, N, ...]
+        x = x.reshape(G, n_t, H, *x.shape[2:]).transpose(1, 2)
+        return x.reshape(G, H, n_t * BLOCK_N, *x.shape[4:])[:, :, :N]
+    dk, dv = from_keys(dk), from_keys(dv)
+    if sq_metric:
+        dk = dk - from_keys(wcol)[..., None] * k
+    dscale = None
+    if need_dscale:
+        dscale = dsc / scale ** 3 if metric == "gaussian_kernel" else -dsc
+    return dq.reshape(G, H, -1, D)[:, :, :N], dk, dv, dscale
 
 
 # ---------------------------------------------------------------------------
@@ -1306,6 +1429,80 @@ class _FlashBiasedCompactKernel(_CudaKernel):
         return out, lse2
 
 
+class _FlashBackwardCompactKernel(_CudaKernel):
+    """Shared checks of B3a c and B3b c: `_check_compact`'s on the store
+    and the walk (lst, cnt, slot) [G, ceil(N/64), W], the walk's values
+    (`check_compact_plan`, one host synchronisation: a bad count or slot
+    raises before any launch), and k [G, H, N, D], v, do [G, H, N, Dv],
+    lse and delta [G, H, N], scale f32[H], seed i32[G]."""
+
+    def _check(self, q, k, v, store, do, lse, delta, lst, cnt, slot, scale,
+               seed):
+        dev = self._device_of(self.name, q)
+        G, H, N, D, n, W, S, packed = _check_compact(
+            self.name, dev, q, store, lst, cnt, slot)
+        Dv = v.shape[-1]
+        _check_args(self.name, dev, (
+            ("k", k, torch.float32, (G, H, N, D)),
+            ("v", v, torch.float32, (G, H, N, Dv)),
+            ("do", do, torch.float32, (G, H, N, Dv)),
+            ("lse", lse, torch.float32, (G, H, N)),
+            ("delta", delta, torch.float32, (G, H, N)),
+            ("scale", scale, torch.float32, (H,)),
+            ("seed", seed, torch.int32, (G,))))
+        _check_widths(self.name, D, Dv)
+        check_compact_plan(lst, cnt, slot, store, N)
+        ptrs = tuple(t.data_ptr() for t in (q, k, v, store, do, lse, delta,
+                                            lst, cnt, slot, scale, seed))
+        return dev, (G, H, N, D, Dv, n, W, S, packed), ptrs
+
+
+class _FlashBwdDqCompactKernel(_FlashBackwardCompactKernel):
+    """B3a c, ``tagan_flash_geometric_bwd_dq_compact``: B3a over the
+    compact store, dq (and dscale) over the forward walk (jlist, jcount,
+    jslot). Deterministic."""
+    name = "flash_geometric_bwd_dq_compact"
+    source = "flash_geometric_bwd"
+    symbol = "tagan_flash_geometric_bwd_dq_compact"
+    argtypes = (_P,) * 14 + (_I,) * 10 + (_F, _I, _U, _F, _I)
+
+    def __call__(self, q, k, v, store, do, lse, delta, jlist, jcount, jslot,
+                 metric: str, scale, seed, dropout_rate: float,
+                 need_dscale: bool):
+        dev, (G, H, N, D, Dv, n_i, W, S, packed), ptrs = self._check(
+            q, k, v, store, do, lse, delta, jlist, jcount, jslot, scale, seed)
+        dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        part = torch.empty((G, H, n_i) if need_dscale else (1,),
+                           dtype=torch.float32, device=dev)
+        self._launch(dev, *ptrs, dq.data_ptr(), part.data_ptr(), G, H, N, D,
+                     Dv, n_i, W, S, packed, MXU_METRICS.index(metric),
+                     math.sqrt(D), *_dropout_args(dropout_rate),
+                     int(need_dscale))
+        return dq, (part.sum((0, 2)) if need_dscale else None)
+
+
+class _FlashBwdDkvCompactKernel(_FlashBackwardCompactKernel):
+    """B3b c, ``tagan_flash_geometric_bwd_dkv_compact``: B3b over the
+    compact store, dk and dv over the transposed walk (ilist, icount,
+    islot), whose slots name the same store tiles (row = query, column =
+    key). Deterministic."""
+    name = "flash_geometric_bwd_dkv_compact"
+    source = "flash_geometric_bwd"
+    symbol = "tagan_flash_geometric_bwd_dkv_compact"
+    argtypes = (_P,) * 14 + (_I,) * 10 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, store, do, lse, delta, ilist, icount, islot,
+                 metric: str, scale, seed, dropout_rate: float):
+        dev, (G, H, N, D, Dv, n_j, W, S, packed), ptrs = self._check(
+            q, k, v, store, do, lse, delta, ilist, icount, islot, scale, seed)
+        dk = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        dv = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
+        self._launch(dev, *ptrs, dk.data_ptr(), dv.data_ptr(), G, H, N, D,
+                     Dv, n_j, W, S, packed, MXU_METRICS.index(metric),
+                     math.sqrt(D), *_dropout_args(dropout_rate))
+        return dk, dv
+
+
 class _FlashBiasedBackwardKernel(_CudaKernel):
     """Shared checks of the biased backward kernels B6, B7a and B7b: q, k
     [G, H, N, D], v, do [G, H, N, Dv], bias [G, N, N], lse1, lse2, delta2
@@ -1414,12 +1611,16 @@ flash_biased_bwd_dkv_kernel = _FlashBiasedBwdDkvKernel()
 flash_geometric_fwd_compact_kernel = _FlashForwardCompactKernel()
 flash_lse1_compact_kernel = _FlashLse1CompactKernel()
 flash_biased_fwd_compact_kernel = _FlashBiasedCompactKernel()
+flash_geometric_bwd_dq_compact_kernel = _FlashBwdDqCompactKernel()
+flash_geometric_bwd_dkv_compact_kernel = _FlashBwdDkvCompactKernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
            flash_biased_bwd_pre_kernel, flash_biased_bwd_dq_kernel,
            flash_biased_bwd_dkv_kernel, flash_geometric_fwd_compact_kernel,
-           flash_lse1_compact_kernel, flash_biased_fwd_compact_kernel)
+           flash_lse1_compact_kernel, flash_biased_fwd_compact_kernel,
+           flash_geometric_bwd_dq_compact_kernel,
+           flash_geometric_bwd_dkv_compact_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -1457,10 +1658,7 @@ def _backward(q, k, v, mask, out, lse, do, plan, plan_t, metric, scale,
         return flash_geometric_backward_plain(
             q, k, v, mask, out, lse, do, metric, scale, dropout_rate, seed,
             need_dscale, dlse)
-    delta = (do * out).sum(-1)
-    if dlse is not None:
-        delta = delta - dlse
-    delta = delta.contiguous()
+    delta = _delta(do, out, dlse).contiguous()
     fused = FUSED_BWD if fused is None else fused
     if plan_t is None:
         plan_t = _transposed_plan(mask)
@@ -1525,8 +1723,23 @@ def flash_geometric_attention_bwd(
     scoped-VMEM budget) nothing depends on the size: both forms use
     fixed 64 x 64 tiles and O(N D) memory besides the mask. B2 sums dq
     with atomics, so its last bits vary from run to run; ``fused=False``
-    is deterministic."""
+    is deterministic.
+
+    3-tuple plans (jlist, jcount, jslot) and (ilist, icount, islot) take
+    the compact form: ``mask`` is then the occupied-block store
+    (`store_packed`), the plans are checked (`check_compact_plan`), and
+    CUDA tensors take B3a c then B3b c (which walks ``plan_t``; without
+    it the compact backward raises ValueError)."""
     N = q.shape[2]
+    if plan is not None and len(plan) == 3:
+        check_compact_plan(*plan, mask, N)
+        if plan_t is not None:
+            check_compact_plan(*plan_t, mask, N)
+        scale, seed = _defaults(q, scale, seed)
+        dq, dk, dv, dscale = _backward_compact(
+            q, k, v, mask, out, lse, do, plan, plan_t, metric, scale,
+            dropout_rate, seed, need_dscale, dlse)
+        return (dq, dk, dv, dscale) if need_dscale else (dq, dk, dv)
     if plan is None:
         plan, plan_t = make_block_plans_from_mask(mask)
     else:
@@ -1815,7 +2028,8 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
 
 
 # ---------------------------------------------------------------------------
-# The compact forms (the hybrid backend's band): forward only
+# The compact forms (the hybrid backend's band): B1c with its backward
+# B3a c + B3b c; the edge-biased B4c and B5c forward only
 # ---------------------------------------------------------------------------
 
 def _forward_compact(q, k, v, store, plan, metric, scale, dropout_rate,
@@ -1827,6 +2041,70 @@ def _forward_compact(q, k, v, store, plan, metric, scale, dropout_rate,
             q, k, v, store, *plan, metric, scale, dropout_rate, seed)
     return flash_geometric_fwd_compact_kernel(q, k, v, store, *plan, metric,
                                               scale, seed, dropout_rate)
+
+
+def _backward_compact(q, k, v, store, out, lse, do, plan, plan_t, metric,
+                      scale, dropout_rate, seed, need_dscale, dlse):
+    """(dq, dk, dv, dscale or None) of folded inputs over the compact
+    store: B3a c then B3b c for CUDA tensors, the compact plain backward
+    for CPU tensors. Raises ValueError without the transposed walk
+    ``plan_t``, which B3b c walks."""
+    if plan_t is None:
+        raise ValueError(
+            "the compact backward (B3b c) walks the transposed plan "
+            "(ilist, icount, islot), and none was given: build the plan "
+            "with the transposed walk (SnapshotSequence.with_hybrid_plan("
+            "transposed=True), attach_hybrid_plans(..., transposed=True), "
+            "or TemporalGraphDataLoader(plan='hybrid'))")
+    if q.device.type == "cpu":
+        return flash_geometric_backward_compact_plain(
+            q, k, v, store, out, lse, do, *plan, metric, scale,
+            dropout_rate, seed, need_dscale, dlse)
+    delta = _delta(do, out, dlse).contiguous()
+    dq, dscale = flash_geometric_bwd_dq_compact_kernel(
+        q, k, v, store, do, lse, delta, *plan, metric, scale, seed,
+        dropout_rate, need_dscale)
+    dk, dv = flash_geometric_bwd_dkv_compact_kernel(
+        q, k, v, store, do, lse, delta, *plan_t, metric, scale, seed,
+        dropout_rate)
+    return dq, dk, dv, dscale
+
+
+class _FlashCompactAttention(torch.autograd.Function):
+    """The differentiable compact forward of folded inputs (the TPU
+    package's ``_flash_diff`` with 3-tuple plans): B1c forward, B3a c then
+    B3b c backward (the plain versions on the CPU). Returns (out, lse);
+    the cotangent of lse (the hybrid merge gives one) rides on delta.
+    dscale is formed only when the scale requires grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, store, jlist, jcount, jslot, ilist,
+                icount, islot, seed, metric, dropout_rate):
+        out, lse = _forward_compact(q, k, v, store, (jlist, jcount, jslot),
+                                    metric, scale, dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, scale, store, out, lse, jlist, jcount,
+                              jslot, ilist, icount, islot, seed)
+        ctx.args = (metric, dropout_rate)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        (q, k, v, scale, store, out, lse, jlist, jcount, jslot, ilist,
+         icount, islot, seed) = ctx.saved_tensors
+        metric, dropout_rate = ctx.args
+        if dout is None:
+            dout = torch.zeros_like(out)
+        need_dscale = ctx.needs_input_grad[3] and metric in SCALED_METRICS
+        dq, dk, dv, dscale = _backward_compact(
+            q, k, v, store, out, lse, dout.contiguous(),
+            (jlist, jcount, jslot),
+            None if ilist is None else (ilist, icount, islot), metric, scale,
+            dropout_rate, seed, need_dscale,
+            None if dlse is None else dlse.contiguous())
+        if ctx.needs_input_grad[3] and dscale is None:
+            dscale = torch.zeros_like(scale)
+        return (dq, dk, dv, dscale) + (None,) * 10
 
 
 def _lse1_compact(q, k, store, plan, metric, scale):
@@ -1894,8 +2172,8 @@ def flash_biased_fwd_compact(q, k, v, store, bias_store, lse1, jlist, jcount,
 
 class _ForwardOnly(torch.autograd.Function):
     """The identity on its first ``n`` inputs, whose backward raises: the
-    compact forms run forward only until their backward kernels (hybrid
-    training) are ported, and a gradient must not silently miss them."""
+    edge-biased band (B4c, B5c) runs forward only until its backward
+    kernels are ported, and a gradient must not silently miss them."""
 
     @staticmethod
     def forward(ctx, n, *tensors):
@@ -1904,8 +2182,9 @@ class _ForwardOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "the backward of the compact-store kernels (hybrid training) "
-            "is not ported to tagan_torch yet")
+            "the backward of the edge-feature hybrid attention (the "
+            "compact-store kernels B6c, B7a c and B7b c and the biased "
+            "residual's backward) is not ported to tagan_torch yet")
 
 
 def forward_only(outs: Tuple[torch.Tensor, ...], inputs) -> Tuple:
@@ -1928,10 +2207,13 @@ def fold_compact(store, plan, G: int):
 
 
 def _flash_compact(q, k, v, store, plan, metric, scale_param,
-                   dropout_rate=0.0, dropout_seed=None):
-    """(out, lse) of the compact forward with leading dims, the plan
-    taken unchecked (the model's path): the cosine normalisation and the
-    folding outside the kernel, as in `_flash_attention`."""
+                   dropout_rate=0.0, dropout_seed=None, plan_t=None):
+    """(out, lse) of the differentiable compact attention with leading
+    dims, the plans taken unchecked (the model's path): the cosine
+    normalisation and the folding stay outside the autograd Function,
+    where autograd pulls them back, as in `_flash_attention`. The
+    backward needs the transposed walk ``plan_t`` (ilist, icount, islot)
+    and raises ValueError without it."""
     if metric not in MXU_METRICS:
         raise NotImplementedError(
             f"metric {metric} is not written through q.k; use the dense path")
@@ -1941,22 +2223,18 @@ def _flash_compact(q, k, v, store, plan, metric, scale_param,
     H, N, D = q.shape[-3:]
     Dv = v.shape[-1]
     G = math.prod(lead)
-    inputs = (q, k, v, scale_param)
-    with torch.no_grad():
-        if metric in _COSINE:
-            q, k = _l2_normalize(q), _l2_normalize(k)
-        scale = torch.ones(H, dtype=torch.float32, device=q.device) \
-            if scale_param is None \
-            else scale_param.to(torch.float32).contiguous()
-        st, pl = fold_compact(store, plan, G)
-        out, lse = _forward_compact(
-            q.reshape(G, H, N, D).contiguous(),
-            k.reshape(G, H, N, D).contiguous(),
-            v.reshape(G, H, N, Dv).contiguous(), st, pl, metric, scale,
-            dropout_rate, _fold_seed(dropout_seed, G, q.device))
-    out, lse = forward_only((out.reshape(*lead, H, N, Dv),
-                             lse.reshape(*lead, H, N)), inputs)
-    return out, lse
+    if metric in _COSINE:
+        q, k = _l2_normalize(q), _l2_normalize(k)
+    scale = torch.ones(H, dtype=torch.float32, device=q.device) \
+        if scale_param is None else scale_param.to(torch.float32).contiguous()
+    st, pl = fold_compact(store, plan, G)
+    pl_t = (None,) * 3 if plan_t is None else fold_compact(store, plan_t,
+                                                           G)[1]
+    out, lse = _FlashCompactAttention.apply(
+        q.reshape(G, H, N, D).contiguous(), k.reshape(G, H, N, D).contiguous(),
+        v.reshape(G, H, N, Dv).contiguous(), scale, st, *pl, *pl_t,
+        _fold_seed(dropout_seed, G, q.device), metric, dropout_rate)
+    return out.reshape(*lead, H, N, Dv), lse.reshape(*lead, H, N)
 
 
 def flash_geometric_attention_lse(
@@ -1967,12 +2245,15 @@ def flash_geometric_attention_lse(
 ):
     """(out, lse) of the edge-masked attention (the TPU package's
     ``flash_geometric_attention_lse``), leading dims folded into one
-    launch. A 3-tuple ``plan`` (jlist, jcount, jslot) takes the compact
-    form: ``mask`` is then the occupied-block store (`store_packed`) and
-    the walk runs B1c, forward only (a backward through it raises until
-    hybrid training is ported); the plan is checked
-    (`check_compact_plan`). Otherwise the dense `flash_geometric_attention`
-    with ``return_lse``."""
+    launch, differentiable in q, k, v and the scale. A 3-tuple ``plan``
+    (jlist, jcount, jslot) takes the compact form: ``mask`` is then the
+    occupied-block store (`store_packed`), the forward runs B1c and the
+    backward B3a c then B3b c, which walk the 3-tuple transposed plan
+    ``plan_t`` (ilist, icount, islot): a backward without it raises
+    ValueError. Both plans are checked (`check_compact_plan`); the
+    cotangent of lse (the hybrid merge's) joins the backward through
+    delta. Otherwise the dense `flash_geometric_attention` with
+    ``return_lse``."""
     if plan is None or len(plan) != 3:
         return flash_geometric_attention(
             q, k, v, mask, metric, scale_param, plan, plan_t, dropout_rate,
@@ -1980,5 +2261,8 @@ def flash_geometric_attention_lse(
     G = math.prod(q.shape[:-3])
     st, pl = fold_compact(mask, plan, G)
     check_compact_plan(*pl, st, q.shape[-2])
+    if plan_t is not None:
+        check_compact_plan(*fold_compact(mask, plan_t, G)[1], st,
+                           q.shape[-2])
     return _flash_compact(q, k, v, mask, plan, metric, scale_param,
-                          dropout_rate, dropout_seed)
+                          dropout_rate, dropout_seed, plan_t)

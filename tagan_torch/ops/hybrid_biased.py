@@ -25,7 +25,9 @@ does. Band dropout is the kernels' coordinate hash with the two seeds of
 `biased_seeds`; residual dropout draws keep factors from a
 ``torch.Generator`` (the two edge sets are disjoint, so the union's drop
 pattern is exact, as in JAX, with other random bits). Forward only: a
-backward through it raises until hybrid training is ported.
+backward through it raises NotImplementedError until the edge-feature
+hybrid backward (B6c, B7a c, B7b c and the residual's two sides) is
+ported.
 """
 
 from __future__ import annotations

@@ -728,6 +728,152 @@ def test_compact_bad_plan_raises_before_launch(fault, cuda):
     assert [kern.launches for kern in COMPACT] == before
 
 
+COMPACT_BWD = (FG.flash_geometric_bwd_dq_compact_kernel,
+               FG.flash_geometric_bwd_dkv_compact_kernel)
+
+
+def _compact_bwd_inputs(G, H, N, D, Dv, metric, pack, seed=0):
+    """`_biased_inputs`' q, k, v, mask, scale and first seeds, plus a key
+    tile with icount = 0 (snapshot 0, keys 64..127) beside the row tile
+    with jcount = 0 and the dead rows; the store, both walks, a forward
+    (out, lse) from the compact plain version, dO and an lse
+    cotangent."""
+    q, k, v, mask, _, scale, seeds = _biased_inputs(G, H, N, D, Dv, metric,
+                                                    seed)
+    mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
+    store, plan = FG.compact_from_mask(mask, pack=pack)
+    plan_t = FG.compact_transposed_plan(mask)
+    assert int(plan_t[1][0, 1]) == 0
+    rng = np.random.default_rng(seed + 300)
+    do = torch.from_numpy(rng.standard_normal((G, H, N, Dv)).astype(
+        np.float32))
+    dlse = torch.from_numpy(rng.standard_normal((G, H, N)).astype(
+        np.float32))
+    return q, k, v, mask, store, plan, plan_t, scale, \
+        seeds[:, 0].contiguous(), do, dlse
+
+
+def _compact_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack, seed=0):
+    """B3a c then B3b c (through `flash_geometric_attention_bwd` with
+    3-tuple plans) against the compact plain backward: dq, dk, dv and
+    dscale within TOL of the largest entry, dq zero on dead rows and dk,
+    dv zero on the key tile with icount = 0, one launch each."""
+    q, k, v, mask, store, plan, plan_t, scale, seed1, do, dlse = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_bwd_inputs(G, H, N, D, Dv, metric, pack, seed))
+    out, lse = (t.contiguous() for t in
+                FG.flash_geometric_forward_compact_plain(
+                    q, k, v, store, *plan, metric, scale, rate, seed1))
+    need = metric in FG.SCALED_METRICS
+    before = [kern.launches for kern in COMPACT_BWD]
+    got = FG.flash_geometric_attention_bwd(
+        q, k, v, store, out, lse, do, metric=metric, scale=scale, plan=plan,
+        plan_t=plan_t, seed=seed1, dropout_rate=rate, need_dscale=need,
+        dlse=dlse)
+    assert [kern.launches for kern in COMPACT_BWD] == [n + 1 for n in before]
+    want = FG.flash_geometric_backward_compact_plain(
+        q, k, v, store, out, lse, do, *plan, metric, scale, rate, seed1,
+        need, dlse)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item() \
+            <= TOL
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    assert torch.all(got[0][dead] == 0)
+    assert torch.all(got[1][0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+    assert torch.all(got[2][0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_backward_kernels_match_plain(metric, rate, pack, cuda):
+    """B3a c and B3b c, bit and int8 stores: N=150 (not a tile multiple),
+    D != Dv, dead rows, a row tile with jcount = 0 and a key tile with
+    icount = 0, per-head scales with dscale, dropout from per-snapshot
+    seeds (negative included), a non-zero lse cotangent."""
+    _compact_bwd_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(7, 3), (40, 72), (128, 128)])
+def test_compact_backward_head_dims(D, Dv, cuda):
+    _compact_bwd_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel", 0.1,
+                          False, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["islot", "icount", "ilist", "jslot"])
+def test_compact_backward_bad_plan_raises_before_launch(fault, cuda):
+    """The wrappers of B3a c and B3b c check the walk's values: an islot
+    or jslot past the store, a count past the walk's width or a tile past
+    N raises ValueError on the host, and no kernel is launched."""
+    q, k, v, mask, store, plan, plan_t, scale, seed1, do, dlse = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_bwd_inputs(1, 2, 150, 16, 16, "dot_product", True))
+    jl, jc, js = (p.clone() for p in plan)
+    il, ic, isl = (p.clone() for p in plan_t)
+    S = store.shape[1]
+    if fault == "islot":
+        isl[0, 0, 0] = S
+    elif fault == "icount":
+        ic[0, 0] = il.shape[-1] + 1
+    elif fault == "ilist":
+        il[0, 0, 0] = 3
+    else:
+        js[0, 0, 0] = -1
+    lse = torch.zeros(1, 2, 150, device=cuda)
+    before = [kern.launches for kern in COMPACT_BWD]
+    with pytest.raises(ValueError):
+        if fault == "jslot":
+            FG.flash_geometric_bwd_dq_compact_kernel(
+                q, k, v, store, do, lse, lse, jl, jc, js, "dot_product",
+                scale, seed1, 0.0, False)
+        else:
+            FG.flash_geometric_bwd_dkv_compact_kernel(
+                q, k, v, store, do, lse, lse, il, ic, isl, "dot_product",
+                scale, seed1, 0.0)
+    assert [kern.launches for kern in COMPACT_BWD] == before
+
+
+@pytest.mark.gpu
+def test_hybrid_trainer_step_on_gpu_matches_cpu(cuda):
+    """One training step of the hybrid model over a ``plan="hybrid"``
+    loader on the card (B1c, B3a c and B3b c once per layer; no other
+    kernel) and on the CPU (plain versions), from the same weights: the
+    loss and every gradient."""
+    seqs = _hybrid_seqs(np.random.default_rng(8), 300, 2400, 2, 1, 0)
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, output_dim=1, loss_type="bce",
+                         dropout=0.0, spatial_backend="hybrid")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        loader = pt.TemporalGraphDataLoader(
+            pt.TemporalGraphDataset(seqs, [1.0]), batch_size=1,
+            dense_adj=False, plan="hybrid")
+        batch, labels, _ = next(iter(loader))
+        before = {k.name: k.launches for k in FG.KERNELS}
+        loss = model(batch, labels).loss
+        loss.backward()
+        launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
+        want = {k.name: 0 for k in FG.KERNELS}
+        if dev == "cuda":
+            for kern in (FG.flash_geometric_fwd_compact_kernel,) + COMPACT_BWD:
+                want[kern.name] = cfg.num_layers
+        assert launched == want
+        got[dev] = (loss.item(), {n: p.grad.cpu()
+                                  for n, p in model.named_parameters()})
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
+    scale = max(g.abs().max().item() for g in got["cpu"][1].values())
+    for name, g in got["cpu"][1].items():
+        assert torch.isfinite(got["cuda"][1][name]).all(), name
+        assert (got["cuda"][1][name] - g).abs().max().item() <= TOL * scale, \
+            name
+
+
 def _hybrid_seqs(rng, n, e, T, num, fe):
     seqs = []
     for _ in range(num):

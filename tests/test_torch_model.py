@@ -173,18 +173,28 @@ def test_predictor_matches_jax(backend, interpret):
     {"compat_mode": "executed"}, {"temporal_attention_type": "standard"},
     {"temporal_attention_type": "multi_scale"}, {"bf16_matmul": True}])
 def test_outside_the_slice_raises(override):
-    """What the port does not run raises NotImplementedError: at
-    construction, or for the hybrid backend, which serves but does not
-    train yet, at the backward of its forward."""
+    """What the port does not run raises NotImplementedError at
+    construction. The hybrid backend trains, but not with edge features:
+    that backward raises NotImplementedError, and the plain model's
+    backward on a plan without the transposed walk raises ValueError."""
     if override.get("spatial_backend") == "hybrid":
-        model = pt.TAGAN(pt.TAGANConfig(**_config(**override)), device="cpu")
         rng = np.random.default_rng(0)
         snaps = [{"x": rng.standard_normal((12, 8)).astype(np.float32),
                   "edge_index": rng.integers(0, 12, (2, 30)),
+                  "edge_attr": rng.standard_normal((30, 3)).astype(
+                      np.float32),
                   "node_ids": np.arange(12), "timestep": float(t)}
                  for t in range(2)]
-        seq = pt.build_sequence(snaps, dense_adj=False).with_hybrid_plan()
-        loss = model(seq, torch.tensor(1.0)).loss
+        seq = pt.build_sequence(snaps, dense_adj=False)
+        model = pt.TAGAN(pt.TAGANConfig(**_config(**override)), device="cpu")
+        loss = model(seq.with_hybrid_plan(), torch.tensor(1.0)).loss
+        with pytest.raises(ValueError, match="transposed walk"):
+            loss.backward()
+        edge = pt.TAGAN(pt.TAGANConfig(**_config(
+            edge_feature_dim=3, use_edge_features=True, **override)),
+            device="cpu")
+        loss = edge(seq.with_hybrid_plan(transposed=True),
+                    torch.tensor(1.0)).loss
         with pytest.raises(NotImplementedError):
             loss.backward()
         return

@@ -172,9 +172,10 @@ def test_dataset_split_kfold_and_unported_options():
         assert a.labels == b.labels
     for (ta, va), (tb, vb) in zip(td.kfold(4, seed=2), jd.kfold(4, seed=2)):
         assert ta.labels == tb.labels and va.labels == vb.labels
-    for bad in ({"plan": "hybrid"}, {"plan": "ring"}, {"reorder": "rcm"}):
+    for bad in ({"plan": "ring"}, {"reorder": "rcm"}):
         with pytest.raises(NotImplementedError):
             pt.TemporalGraphDataLoader(td, **bad)
+    assert pt.TemporalGraphDataLoader(td, plan="hybrid").plan == "hybrid"
 
 
 @pytest.mark.parametrize("multi", [False, True])

@@ -25,7 +25,12 @@ Phases, in order; any failure raises and exits non-zero:
    tile with jcount = 0 among the dead rows); (2f) the compact-store
    backward kernels B3a c (dq, dscale) and B3b c (dk, dv) against the
    compact plain backward on 2e's grid with an lse cotangent, dead rows
-   and an empty key strip (icount = 0) exactly zero;
+   and an empty key strip (icount = 0) exactly zero; (2g) the
+   compact-store biased backward kernels B6c (delta1, dB store), B7a c
+   (dq, dscale) and B7b c (dk, dv) against the compact plain parts on
+   2e's grid with union-like statistics (a residual's delta1 added, the
+   merge's NEG_INF lse2 on dead rows), both stores, the whole dB store
+   (0 in the slots no walk visits);
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -59,6 +64,9 @@ Phases, in order; any failure raises and exits non-zero:
    edges, the hybrid models against their csr forms on the card; (4e)
    the same graph, the hybrid model's first-step gradients against its
    csr form's on the card (within 1e-3 of each tensor's largest entry);
+   (4f) the same for the edge-feature hybrid model (4 N(0, 1) edge
+   features; csr's autograd is an independent formula for dB), the edge
+   parameters' gradients non-zero;
 5. times at the main path's shape (one snapshot, 4 heads, 10,000 nodes,
    head dim 16) with CUDA events, in turns: B1, B2, B3a, B3b and
    B3a + B3b against the plain versions, and ``scaled_dot_product_attention``
@@ -84,6 +92,14 @@ Phases, in order; any failure raises and exits non-zero:
    as the library yardstick (forward+backward minus forward; null with
    the reason if it does not build or differs), and csr
    ``edge_attention``'s autograd backward over the layer's whole edge set;
+   (5f) B6c, B7a c, B7b c and the three together at one 131K snapshot of
+   6d (union statistics) against the compact plain parts and their
+   bounds (the bias and dB at the valid pairs only), compiled
+   ``flex_attention``'s backward of B4c and B5c's function under the
+   compact plan's BlockMask at the scaled-dot metric as the library
+   yardstick (held against the kernels on band statistics; null with the
+   reason if it does not build or differs), and csr ``edge_attention``'s
+   biased autograd backward over the layer's whole edge set;
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -106,14 +122,19 @@ Phases, in order; any failure raises and exits non-zero:
    split, peak memory, one layer's B3a c + B3b c over the folded
    snapshots and their share of the step, finite non-zero gradients,
    every parameter moved, and one snapshot at full width against the
-   compact plain backward;
+   compact plain backward; (6d) the same for the edge-feature hybrid
+   model (Fe = 4: B4c, B5c, B6c, B7a c and B7b c each exactly once per
+   layer per step, nothing else), one layer's B6c + B7a c + B7b c over
+   the folded snapshots and their share of the step, the edge
+   parameters' gradients non-zero, one snapshot at full width against
+   the compact plain parts with the layer's union statistics;
 7. training at 1,000 nodes on the card and on the CPU from the same
    weights and batches: the first step's gradients and the losses and
    parameters of 3 AdamW steps; (7b) the same for the edge-feature
    model, and its first-step gradients on the card against its csr form
    (csr's autograd, an independent formula for dB) on distinct edges;
    (7c) the hybrid model at 4,096 nodes over a ``plan="hybrid"`` loader,
-   card against CPU.
+   card against CPU; (7d) the same for the edge-feature hybrid model.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -2684,6 +2705,536 @@ def phase_train_mid_hybrid(tt, FG):
     return res
 
 
+# -- phase 2g -----------------------------------------------------------------
+
+def compact_biased_bwd_inputs(FG, G, H, N, D, Dv, metric, seed, pack, rate):
+    """2d's inputs on the compact store (bits or int8) with a bias store
+    in its slots and both walks; in snapshot 1 the keys from 128 cleared,
+    so that it has fewer occupied tiles than the store's S (slots no walk
+    visits); union-like row statistics, as the hybrid backward passes
+    them: the compact plain forward's lse1 and lse2 raised by a constant
+    on live rows, lse2 = NEG_INF on dead rows (the merge's mark), delta2 =
+    rowsum(dO out), and a residual delta1 (0.25 N(0, 1) on live rows)."""
+    q, k, v, mask, bias, scale, seeds = biased_small_inputs(
+        FG, G, H, N, D, Dv, metric, seed)
+    do = small_inputs(FG, G, H, N, D, Dv, metric, seed)[3]
+    if G > 1 and N > 2 * FG.BLOCK_N:
+        mask[1, :, 2 * FG.BLOCK_N:] = 0
+        bias = torch.where(mask != 0, bias, torch.zeros((), device=DEV))
+    store, plan = FG.compact_from_mask(mask, pack=pack)
+    plan_t = FG.compact_transposed_plan(mask)
+    bias_store = FG.compact_values(mask, bias)
+    lse1 = FG.flash_lse1_compact_plain(q, k, store, *plan, metric, scale)
+    live = lse1 < 1e29
+    lse1 = torch.where(live, lse1 + 0.25, lse1).contiguous()
+    out, lse2 = FG.flash_biased_forward_compact_plain(
+        q, k, v, store, bias_store, lse1, *plan, metric, scale, rate, seeds)
+    lse2 = torch.where(live, lse2 + 0.1,
+                       torch.full_like(lse2, -1e30)).contiguous()
+    g = torch.Generator(device=DEV).manual_seed(seed + 2)
+    d1_rest = 0.25 * torch.randn(lse1.shape, device=DEV, generator=g) * live
+    return (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do,
+            lse1, lse2, (do * out).sum(-1).contiguous(), d1_rest)
+
+
+def compact_biased_bwd_errors(FG, label, got, q, k, v, store, bias_store,
+                              plan, metric, scale, seeds, rate, do, lse1,
+                              lse2, delta2, d1_rest):
+    """{B6c, B7a c, B7b c: error} of `_biased_backward_compact`'s outputs
+    ``got`` (dq, dk, dv, dB, dscale, delta1) against the compact plain
+    parts on the same inputs (delta1 = B6c's plus ``d1_rest``): each
+    output's max abs error over its largest entry (at least 1), the whole
+    dB store; raises past TOL, on a non-finite output, or where dB is not
+    0 in the slots no walk visits."""
+    dq, dk, dv, db, dsc, d1 = got
+    need = dsc is not None
+    common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
+    p_d1, p_db = FG.flash_biased_bwd_pre_compact_plain(
+        *common, *plan, metric, scale, rate, seeds)
+    d1u = p_d1 + d1_rest
+    p_dq, p_dsc = FG.flash_biased_bwd_dq_compact_plain(
+        *common, d1u, *plan, metric, scale, rate, seeds, need)
+    p_dk, p_dv = FG.flash_biased_bwd_dkv_compact_plain(
+        *common, d1u, *plan, metric, scale, rate, seeds)
+    sync()
+    for name, t in (("delta1", d1), ("dB", db), ("dq", dq), ("dk", dk),
+                    ("dv", dv)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+    walked = plan[1].sum(-1).tolist()
+    if not all(bool((db[g, w:] == 0).all()) for g, w in enumerate(walked)):
+        raise AssertionError(f"{label}: dB not 0 in unvisited slots")
+    err = {"B6c": max(rel_err(d1, d1u), rel_err(db, p_db)),
+           "B7a c": max(rel_err(dq, p_dq),
+                        rel_err(dsc, p_dsc) if need else 0.0),
+           "B7b c": max(rel_err(dk, p_dk), rel_err(dv, p_dv))}
+    if not max(err.values()) <= TOL:
+        raise AssertionError(f"{label}: errors {err} > {TOL}")
+    return err
+
+
+def compact_biased_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack,
+                                seed=0):
+    """B6c, then B7a c and B7b c on B6c's delta1 plus a residual's
+    (`_biased_backward_compact`), against the compact plain parts; dq
+    exactly 0 on dead rows, dk and dv on the empty key strip."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, d1_rest) = compact_biased_bwd_inputs(
+        FG, G, H, N, D, Dv, metric, seed, pack, rate)
+    need = metric in FG.SCALED_METRICS
+    got = FG._biased_backward_compact(q, k, v, store, bias_store, do, lse1,
+                                      lse2, delta2, plan, plan_t, metric,
+                                      scale, rate, seeds, need, d1_rest)
+    label = f"compact biased {metric} rate={rate} D={D} Dv={Dv} pack={pack}"
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    strip = slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
+    if not (torch.all(got[0][dead] == 0)
+            and (N <= 2 * FG.BLOCK_M or (torch.all(got[1][0, :, strip] == 0)
+                                         and torch.all(got[2][0, :, strip]
+                                                       == 0)))):
+        raise AssertionError(f"{label}: dead rows or the empty key strip "
+                             f"not exactly 0")
+    return compact_biased_bwd_errors(FG, label, got, q, k, v, store,
+                                     bias_store, plan, metric, scale, seeds,
+                                     rate, do, lse1, lse2, delta2, d1_rest)
+
+
+def phase_small_compact_biased_bwd(FG):
+    errs = []
+    for pack in (True, False):
+        for metric in FG.MXU_METRICS:
+            for rate in (0.0, 0.1):
+                errs.append(compact_biased_bwd_vs_plain(
+                    FG, 2, 3, 150, 16, 8, metric, rate, pack))
+        for D, Dv in ((7, 3), (40, 72), (128, 128)):
+            errs.append(compact_biased_bwd_vs_plain(
+                FG, 2, 2, 200, D, Dv, "gaussian_kernel", 0.1, pack, 1))
+    out = {name: max(e[name] for e in errs)
+           for name in ("B6c", "B7a c", "B7b c")}
+    log(f"[2g] B6c (delta1, dB store), B7a c (dq, dscale) and B7b c (dk, dv) "
+        f"vs the compact plain parts, bit and int8 stores, union statistics: "
+        f"{len(errs)} cases; max err {out} (tol {TOL})")
+    return out
+
+
+# -- phases 4f, 5f, 6d, 7d: training the edge-feature hybrid model ------------
+
+def phase_hybrid_edge_train_vs_csr(tt, FG):
+    """At full width, one sequence of distinct non-loop edges with 4 edge
+    features: the edge-feature hybrid model's first-step gradients (B4c
+    and B5c forward, B6c, B7a c and B7b c backward, the residual's two
+    sides, the bias store's gather) against the csr model's (its own
+    O(E) formula under autograd, an independent one for dB) on the card,
+    the same weights."""
+    seq = hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 61, edge_dim=F_EDGE,
+                       unique=True)
+    ds = tt.TemporalGraphDataset([seq], [1.0])
+    grads, losses = {}, {}
+    for backend in ("hybrid", "csr"):
+        model = tt.TAGAN(hybrid_config(tt, edge=True, backend=backend),
+                         device=DEV,
+                         generator=torch.Generator().manual_seed(0))
+        loader = tt.TemporalGraphDataLoader(
+            ds, batch_size=1, dense_adj=False,
+            plan="hybrid" if backend == "hybrid" else None)
+        b, y, _ = next(iter(loader))
+        loss = model(b, y).loss
+        loss.backward()
+        losses[backend] = loss.item()
+        grads[backend] = {n: p.grad.detach().cpu()
+                          for n, p in model.named_parameters()}
+        del model, loader, b, loss
+    err, zero = grad_errors(grads["hybrid"], grads["csr"])
+    edge = {n: g.abs().max().item() for n, g in grads["hybrid"].items()
+            if "edge" in n}
+    E = seq[0]["edge_index"].shape[1]
+    log(f"[4f] N={N_HYB}, {E} distinct non-loop edges in snapshot 0, edge "
+        f"features: first-step gradients hybrid vs csr on the card: max err "
+        f"over each tensor's largest entry {err:.3e} (tol {TOL_HYB_CSR_GRAD}; "
+        f"at fp32 noise {zero}); largest |gradient| of the edge parameters "
+        f"{edge}; losses {losses}")
+    if not err <= TOL_HYB_CSR_GRAD:
+        raise AssertionError(f"edge hybrid vs csr gradients {err} > "
+                             f"{TOL_HYB_CSR_GRAD}")
+    if not all(m > 0 for m in edge.values()):
+        raise AssertionError(f"zero edge-parameter gradient: {edge}")
+    return dict(grad_err=err, noise_tensors=zero, losses=losses, edges=E,
+                edge_grad_max=edge)
+
+
+def hybrid_edge_layer0_bwd(FG, model, batch):
+    """Layer 0's edge-feature hybrid inputs (`hybrid_layer0`) with the
+    folded transposed walk, and the union statistics of its backward as
+    ``_HybridBiasedAttention`` forms them: lse1 (B4c's and the residual's
+    union), out and lse2 (B5c's partial merged with the residual's), a
+    cotangent dO (N(0, 1), seed 13), delta2 and the residual's delta1."""
+    from tagan_torch.ops import hybrid_biased as HB
+    from tagan_torch.ops.sparse import merge_attention_partials
+    (q, k, v, store, plan, res), (bst, rb) = hybrid_layer0(FG, model, batch)
+    G, H, N = q.shape[:3]
+    plan_t = FG.fold_compact(batch.hyb_mask_blocks, batch.hyb_plan_t, G)[1]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
+    m = "euclidean"
+    with torch.no_grad():
+        lse1 = HB.lse_union(
+            FG.flash_lse1_compact_kernel(q, k, store, *plan, m, ones),
+            HB.residual_lse1(m, q, k, *res, N, ones)).contiguous()
+        band = FG.flash_biased_fwd_compact_kernel(
+            q, k, v, store, bst, lse1, *plan, m, ones, seeds, 0.0)
+        part = HB.residual_biased_partial(m, q, k, v, *res, N, rb, lse1,
+                                          ones)
+        out, lse2 = merge_attention_partials([band, part])
+        lse2 = lse2.contiguous()
+        do = torch.randn(out.shape, device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(13))
+        delta2 = (do * out).sum(-1).contiguous()
+        d1_rest = HB._residual_backward(m, q, k, v, do, *res, N, rb, lse1,
+                                        lse2, delta2, ones)[1]
+    return (q, k, v, store, bst, plan, plan_t, res, rb, do, lse1, lse2,
+            delta2, d1_rest)
+
+
+def phase_train_hybrid_edge(tt, FG):
+    """`TAGANTrainer.train` on the 131K edge-feature hybrid model (part C,
+    Fe = 4) over a ``plan="hybrid"`` loader, one sequence per batch: the
+    loader's planning batch apart from the cached ones, one warm-up step,
+    then 3 steps with launch counts set to 0 just before and read just
+    after; step times, split, peak memory, one layer's B6c + B7a c +
+    B7b c over the folded snapshots and their share of the step, finite
+    losses and non-zero gradients (the edge parameters included), every
+    parameter moved; one snapshot at full width against the compact plain
+    parts."""
+    cfg = hybrid_config(tt, edge=True)
+    model = tt.TAGAN(cfg, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+    exp = tt.ExperimentConfig(model=cfg, batch_size=1, num_epochs=1, seed=0,
+                              checkpoint_dir="", shuffle=False)
+    ds = tt.TemporalGraphDataset(
+        [hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 700 + s, edge_dim=F_EDGE)
+         for s in range(TRAIN_STEPS + 1)], [1.0, 0.0, 1.0, 0.0])
+    kw = dict(batch_size=1, dense_adj=False, plan="hybrid")
+    warm = tt.TemporalGraphDataLoader(ds.subset([0]), **kw)
+    loader = tt.TemporalGraphDataLoader(
+        ds.subset(list(range(1, TRAIN_STEPS + 1))), **kw)
+    batch_s, batches = [], []
+    it = iter(loader)
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batches.append(next(it))
+        batch_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    list(loader)
+    cached_epoch_s = time.perf_counter() - t0
+    log(f"[6d] edge-feature hybrid N={N_HYB}, T={T_HYB}, Fe={F_EDGE}: the "
+        f"loader's batches (plan='hybrid') s {[round(x, 3) for x in batch_s]}"
+        f" (the first packs and plans all {TRAIN_STEPS} sequences), a cached "
+        f"epoch {cached_epoch_s:.3f} s; bucket pin {loader.plan_pins}")
+    trainer = tt.TAGANTrainer(model, exp)
+    trainer.train(warm, verbose=False)
+    sync()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(FG)
+    t0 = time.perf_counter()
+    res = trainer.train(loader, verbose=False)
+    sync()
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts(FG)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    want = {k.name: 0 for k in FG.KERNELS}
+    for kern in (FG.flash_lse1_compact_kernel,
+                 FG.flash_biased_fwd_compact_kernel,
+                 FG.flash_biased_bwd_pre_compact_kernel,
+                 FG.flash_biased_bwd_dq_compact_kernel,
+                 FG.flash_biased_bwd_dkv_compact_kernel):
+        want[kern.name] = cfg.num_layers * TRAIN_STEPS
+    losses = res["history"]["train_loss"]
+    no_grad = check_grads(model)
+    edge_grads = {n: p.grad.abs().max().item()
+                  for n, p in model.named_parameters() if "edge" in n}
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    moved = len(before) - len(still)
+    log(f"[6d] {TRAIN_STEPS} steps of TAGANTrainer.train in {epoch_ms:.3f} "
+        f"ms; mean loss {losses}; peak device memory {peak_gb:.3f} GB above "
+        f"the {held_gb:.3f} GB held before; launches {launched} (expected "
+        f"{want}); {len(before) - len(no_grad)} of {len(before)} gradients "
+        f"finite and non-zero where not zero in exact arithmetic; largest "
+        f"|gradient| of the edge parameters {edge_grads}; parameters moved "
+        f"{moved} of {len(before)} (not moved: {still})")
+    if launched != want:
+        raise AssertionError(f"launches {launched} != {want}")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"loss not finite: {losses}")
+    if no_grad:
+        raise AssertionError(f"no finite non-zero gradient: {no_grad}")
+    if not all(m > 0 for m in edge_grads.values()):
+        raise AssertionError(f"zero edge-parameter gradient: {edge_grads}")
+    if set(still) - set(ZERO_GRAD):
+        raise AssertionError(f"parameters not moved: {still}")
+
+    step_ms = step_times(trainer, batches)
+    b, y, m = batches[0]
+    splits = step_split(trainer, b, y, m)
+    log(f"[6d] step ms (host clock, synchronised) "
+        f"{[round(x, 3) for x in step_ms]}; split (CUDA events) forward / "
+        f"backward / optimizer ms "
+        f"{[[round(x, 3) for x in s] for s in splits]}")
+
+    # one layer's backward launches over the batch's folded snapshots
+    trainer.optimizer.zero_grad()
+    (q, k, v, store, bst, plan, plan_t, rs, rb, do, lse1, lse2, delta2,
+     d1_rest) = hybrid_edge_layer0_bwd(FG, model, b.to(DEV))
+    G, H = q.shape[:2]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
+    rows = (do, lse1, lse2, delta2)
+    with torch.no_grad():
+        fold_fwd = cuda_ms(lambda: (
+            FG.flash_lse1_compact_kernel(q, k, store, *plan, "euclidean",
+                                         ones),
+            FG.flash_biased_fwd_compact_kernel(
+                q, k, v, store, bst, lse1, *plan, "euclidean", ones, seeds,
+                0.0)), 3)
+        fold_bwd = cuda_ms(lambda: FG._biased_backward_compact(
+            q, k, v, store, bst, *rows, plan, plan_t, "euclidean", ones, 0.0,
+            seeds, False, d1_rest), 3)
+    step = min(step_ms)
+    share = cfg.num_layers * fold_bwd / step
+    log(f"[6d] one layer's launches over the {G} folded snapshots: B4c+B5c "
+        f"{fold_fwd:.3f} ms, B6c+B7a c+B7b c {fold_bwd:.3f} ms; "
+        f"{cfg.num_layers} layers' B6c+B7a c+B7b c = {share:.3f} and with "
+        f"B4c+B5c {cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the "
+        f"fastest step ({step:.3f} ms)")
+
+    # one snapshot at full width against the compact plain parts
+    one = tuple(t[:1].contiguous() for t in (q, k, v, store, bst))
+    plan1, plan_t1 = (tuple(t[:1].contiguous() for t in p)
+                      for p in (plan, plan_t))
+    rows1 = tuple(t[:1].contiguous() for t in (*rows, d1_rest))
+    res1 = (tuple(t[:1] for t in rs), rb[:1])
+    del q, k, v, store, bst, rows, do, lse1, lse2, delta2, d1_rest
+    got = FG._biased_backward_compact(*one, *rows1[:4], plan1, plan_t1,
+                                      "euclidean", ones, 0.0, seeds[:1],
+                                      False, rows1[4])
+    full = compact_biased_bwd_errors(
+        FG, f"N={N_HYB}", got, *one, plan1, "euclidean", ones, seeds[:1],
+        0.0, *rows1)
+    del got
+    log(f"[6d] compact biased backward at N={N_HYB}, one snapshot, union "
+        f"statistics, vs the compact plain parts: max err B6c "
+        f"{full['B6c']:.3e}, B7a c {full['B7a c']:.3e}, B7b c "
+        f"{full['B7b c']:.3e}")
+    return dict(batch_s=batch_s, cached_epoch_s=cached_epoch_s,
+                pins={str(k): v for k, v in loader.plan_pins.items()},
+                epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
+                loss=losses, launches=launched, peak_memory_gb=peak_gb,
+                held_gb=held_gb, edge_grad_max=edge_grads, moved=moved,
+                fold_b4c_b5c_ms=fold_fwd, fold_b6c_b7c_ms=fold_bwd,
+                b6c_b7c_share_of_step=share, full_err=full,
+                args=(*one, plan1, plan_t1, res1, rows1))
+
+
+def compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs):
+    """B6c's, B7a c's and B7b c's least time from these inputs: q, k, v,
+    dO, lse1, lse2 and delta2, the store, the bias at the valid pairs
+    only (4 bytes each: the result depends on no other entry), the walk,
+    scale and seeds read once; delta1 and dB at the valid pairs (B6c),
+    dq (B7a c, which also reads delta1) or dk and dv (B7b c) written
+    once; against the products on the valid pairs at the fp32 peak."""
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    HN = G * H * N
+    common = (4 * HN * (2 * D + 2 * Dv) + 3 * 4 * HN
+              + store.numel() * store.element_size() + 4 * pairs
+              + 4 * (H + 2 * G))
+    plan_b, plan_tb = (4 * sum(t.numel() for t in p) for p in (plan, plan_t))
+    return {"B6c": bound(common + plan_b + 4 * HN + 4 * pairs,
+                         2 * H * pairs * (D + Dv)),
+            "B7a c": bound(common + 4 * HN + plan_b + 4 * HN * D,
+                           2 * H * pairs * (2 * D + Dv)),
+            "B7b c": bound(common + 4 * HN + plan_tb + 4 * HN * (D + Dv),
+                           2 * H * pairs * (2 * D + 2 * Dv))}
+
+
+def phase_times_hybrid_edge_bwd(FG, args):
+    """At one 131K snapshot of 6d, CUDA events: B6c, B7a c, B7b c and the
+    three together against the compact plain parts (pre, then dq and
+    dk/dv), compiled ``flex_attention``'s backward of B4c and B5c's
+    function under the compact plan's BlockMask at the scaled-dot metric
+    (forward+backward minus forward; held against the kernels at that
+    metric on band-only statistics), csr ``edge_attention``'s biased
+    autograd backward over the layer's whole edge set, and the bounds."""
+    from tagan_torch.ops.sparse import edge_attention
+    (q, k, v, store, bst, plan, plan_t, ((res_eq, res_ek, res_em), rb),
+     (do, lse1, lse2, delta2, d1_rest)) = args
+    _, H, N, D = q.shape
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(1, 2, dtype=torch.int32, device=DEV)
+    sdp = "scaled_dot_product"
+    with torch.no_grad():
+        common = (q, k, v, store, bst, do, lse1, lse2, delta2)
+        d1 = (FG.flash_biased_bwd_pre_compact_kernel(
+            *common, *plan, "euclidean", ones, seeds, 0.0)[0]
+            + d1_rest).contiguous()
+
+        def b6c():
+            FG.flash_biased_bwd_pre_compact_kernel(
+                *common, *plan, "euclidean", ones, seeds, 0.0)
+
+        def b7ac():
+            FG.flash_biased_bwd_dq_compact_kernel(
+                *common, d1, *plan, "euclidean", ones, seeds, 0.0, False)
+
+        def b7bc():
+            FG.flash_biased_bwd_dkv_compact_kernel(
+                *common, d1, *plan_t, "euclidean", ones, seeds, 0.0)
+
+        def all3(metric="euclidean", c=common, rest=d1_rest):
+            return FG._biased_backward_compact(
+                *c, plan, plan_t, metric, ones, 0.0, seeds, False, rest)
+
+        def plain():
+            p_d1 = FG.flash_biased_bwd_pre_compact_plain(
+                *common, *plan, "euclidean", ones, 0.0, seeds)[0]
+            FG._biased_bwd_compact_plain(
+                *common, *plan, "euclidean", ones, 0.0, seeds,
+                p_d1 + d1_rest, False, ("dq", "dkv"))
+        p1, a1, a2, p2 = (cuda_ms(plain, 2), cuda_ms(all3, 10),
+                          cuda_ms(all3, 10), cuda_ms(plain, 2))
+        t6, t7a, t7b = cuda_ms(b6c, 10), cuda_ms(b7ac, 10), cuda_ms(b7bc, 10)
+        # the band alone at the scaled-dot metric: the function the
+        # library computes
+        l1_s = FG.flash_lse1_compact_kernel(q, k, store, *plan, sdp, ones)
+        out_s, l2_s = FG.flash_biased_fwd_compact_kernel(
+            q, k, v, store, bst, l1_s, *plan, sdp, ones, seeds, 0.0)
+        c_sdp = (q, k, v, store, bst, do, l1_s, l2_s,
+                 (do * out_s).sum(-1).contiguous())
+        a_sdp = cuda_ms(lambda: all3(sdp, c_sdp, None), 10)
+        g_sdp = all3(sdp, c_sdp, None)
+        pairs = int(FG.unpack_bits(store).sum().item())
+        walked = int(plan[1].sum().item())
+
+        # the csr form of the layer's whole edge set: the band's pairs
+        # with their store bias and the residual edges with theirs
+        eq_b, ek_b, (t_, r_, c_) = band_edges(FG, store, plan)
+        jl, jc, js = (p[0] for p in plan)
+        live = torch.arange(jl.shape[1], device=DEV) < jc[:, None]
+        b_band = bst[0][js[live].long()][t_, r_, c_]
+        eq = torch.cat([eq_b, res_eq[0][res_em[0]].long()])[None]
+        ek = torch.cat([ek_b, res_ek[0][res_em[0]].long()])[None]
+        eb = torch.cat([b_band, rb[0][res_em[0]]])[None]
+        em = torch.ones_like(eq, dtype=torch.bool)
+        del eq_b, ek_b, b_band, t_, r_, c_
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, eb)]
+
+    def csr_fb():
+        o = edge_attention("euclidean", *leaves[:3], eq, ek, em, N,
+                           edge_bias=leaves[3])
+        torch.autograd.grad(o, leaves, do)
+
+    def csr_f():
+        with torch.no_grad():
+            edge_attention("euclidean", *leaves[:3], eq, ek, em, N,
+                           edge_bias=leaves[3])
+    csr_ms = [cuda_ms(csr_fb, 5) - cuda_ms(csr_f, 5),
+              cuda_ms(csr_fb, 5) - cuda_ms(csr_f, 5)]
+    del leaves
+    # the library: compiled flex_attention, B4c's then B5c's function
+    # under the compact plan's BlockMask (lse1 flows from the first call
+    # into the second's score_mod; the bias store requires grad)
+    torch._dynamo.reset()
+    t0 = time.perf_counter()
+    try:
+        bmask, flex, slot_map = flex_compact_setup(FG, q, store, plan)
+        fl = [t.detach().clone().requires_grad_() for t in (q, k, v, bst[0])]
+        bm = FG.BLOCK_M
+
+        def two_calls(ql, kl, vl, bl):
+            l1 = flex(ql, kl, vl, block_mask=bmask, return_lse=True)[1]
+
+            def biased(s, b, h, qi, kv):
+                sl = slot_map[qi // bm, kv // bm].clamp(min=0)
+                return torch.exp(s - l1[b, h, qi]) + bl[sl, qi % bm, kv % bm]
+            return flex(ql, kl, vl, score_mod=biased, block_mask=bmask)
+
+        def lib_fb():
+            return torch.autograd.grad(two_calls(*fl), fl, do)
+
+        def lib_f():
+            with torch.no_grad():
+                two_calls(*fl)
+        f_grads = lib_fb()
+        sync()
+        flex_err = max(rel_err(f_grads[0], g_sdp[0]),
+                       rel_err(f_grads[1], g_sdp[1]),
+                       rel_err(f_grads[2], g_sdp[2]),
+                       rel_err(f_grads[3], g_sdp[3][0]))
+        del f_grads
+        ms = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
+        lib = dict(ms=ms if flex_err <= TOL else None, err=flex_err,
+                   error=None if flex_err <= TOL else
+                   f"differs from B6c + B7a c + B7b c by {flex_err:.3e}")
+    except Exception as e:          # the yardstick only: never the port
+        lib = dict(ms=None, err=None, error=f"{type(e).__name__}: {e}"[:300])
+    lib["setup_and_timing_s"] = time.perf_counter() - t0
+    bounds = compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs)
+    res = {"B6c": dict(ms=[t6], **bounds["B6c"]),
+           "B7a c": dict(ms=[t7a], **bounds["B7a c"]),
+           "B7b c": dict(ms=[t7b], **bounds["B7b c"]),
+           "B6c+B7a c+B7b c_ms": [a1, a2], "B6c+B7a c+B7b c_sdp_ms": a_sdp,
+           "plain_ms": [p1, p2], "library": lib, "csr_ms": csr_ms,
+           "csr_edges": int(eq.shape[-1]), "valid_pairs": pairs,
+           "walked_tiles": walked,
+           "db_whole_tile_write_ms": 4 * walked * FG.BLOCK_M * FG.BLOCK_N
+           / PEAK_BYTES * 1e3}
+    log(f"[5f] H={H} N={N} D={D}, one snapshot, compact biased backward "
+        f"(union statistics): B6c ms {t6:.4f}, B7a c {t7a:.4f}, B7b c "
+        f"{t7b:.4f}; the three ms {a1:.4f} {a2:.4f} (scaled-dot metric, band "
+        f"statistics {a_sdp:.4f}); compact plain parts ms {p1:.4f} {p2:.4f}; "
+        f"csr biased edge_attention backward over all {res['csr_edges']} "
+        f"edges ms {csr_ms[0]:.4f} {csr_ms[1]:.4f}")
+    log(f"[5f] library: compiled flex_attention backward of B4c and B5c's "
+        f"function under the compact plan's BlockMask at the scaled-dot "
+        f"metric: {lib}")
+    for name in ("B6c", "B7a c", "B7b c"):
+        r = res[name]
+        log(f"[5f] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({r['bytes']} bytes, {r['flops']} flops over {pairs} valid "
+            f"pairs on {walked} walked tiles per head)")
+    log(f"[5f] B6c writes dB on every pair of the {walked} walked tiles: "
+        f"{res['db_whole_tile_write_ms']:.5f} ms of the memory rate")
+    return res
+
+
+def phase_train_mid_hybrid_edge(tt, FG):
+    """The edge-feature hybrid model at N_MID_HYB nodes: 3 AdamW steps
+    over a ``plan="hybrid"`` loader on the card (B4c, B5c, B6c, B7a c,
+    B7b c) and on the CPU (plain versions) from the same weights and
+    batches."""
+    ds = tt.TemporalGraphDataset(
+        [hybrid_snaps(N_MID_HYB, DEG_HYB, T_HYB, 80 + s, edge_dim=F_EDGE)
+         for s in range(3)], [1.0, 0.0, 1.0])
+    card = train_steps(tt, FG, hybrid_config(tt, edge=True), DEV, ds,
+                       "hybrid")
+    cpu = train_steps(tt, FG, hybrid_config(tt, edge=True), "cpu", ds,
+                      "hybrid")
+    res = card_vs_cpu("7d", card, cpu, N_MID_HYB)
+    launched = [card["launched"], cpu["launched"]]
+    want = {k.name: 3 * 2 for k in (
+        FG.flash_lse1_compact_kernel, FG.flash_biased_fwd_compact_kernel,
+        FG.flash_biased_bwd_pre_compact_kernel,
+        FG.flash_biased_bwd_dq_compact_kernel,
+        FG.flash_biased_bwd_dkv_compact_kernel)}
+    log(f"[7d] edge-feature hybrid launches card, cpu {launched}")
+    if launched != [want, {}]:
+        raise AssertionError(f"launches {launched}, card expected {want}")
+    return res
+
+
 def kernel_record(FG, kern, source, replaces, launches, err, ms, plain_ms,
                   plain_of, b, library_ms, src=FG_SRC):
     """One kernel's entry of the ``{"kernels": [...]}`` line; ``plain_of``
@@ -2719,6 +3270,7 @@ def main() -> int:
     small_biased_bwd = phase_small_biased_bwd(FG)
     small_compact = phase_small_compact(FG)
     small_compact_bwd = phase_small_compact_bwd(FG)
+    small_compact_biased_bwd = phase_small_compact_biased_bwd(FG)
     serve = phase_serve(tt, FG)
     serve_edge = phase_serve_edge(tt, FG)
     serve_hyb = phase_serve_hybrid(tt, FG, edge=False)
@@ -2728,6 +3280,7 @@ def main() -> int:
     mid_hyb = phase_mid_hybrid(tt, FG)
     hyb_csr = phase_hybrid_vs_csr(tt, FG)
     hyb_train_csr = phase_hybrid_train_vs_csr(tt, FG)
+    hyb_edge_train_csr = phase_hybrid_edge_train_vs_csr(tt, FG)
     times = phase_times(FG, serve.pop("args"))
     edge_args = serve_edge.pop("args")
     times_biased = phase_times_biased(FG, edge_args, serve_edge.pop("graph"))
@@ -2742,6 +3295,10 @@ def main() -> int:
     train_hyb = phase_train_hybrid(tt, FG)
     times_hyb_bwd = phase_times_hybrid_bwd(FG, train_hyb.pop("args"))
     train_mid_hyb = phase_train_mid_hybrid(tt, FG)
+    train_hyb_edge = phase_train_hybrid_edge(tt, FG)
+    times_hyb_edge_bwd = phase_times_hybrid_edge_bwd(
+        FG, train_hyb_edge.pop("args"))
+    train_mid_hyb_edge = phase_train_mid_hybrid_edge(tt, FG)
 
     bwd = times["bwd"]
     plain_bwd = min(bwd["plain_ms"])
@@ -2839,6 +3396,29 @@ def main() -> int:
         for name, kern, line in (
             ("B3a c", FG.flash_geometric_bwd_dq_compact_kernel, 2009),
             ("B3b c", FG.flash_geometric_bwd_dkv_compact_kernel, 2074))]
+    # the compact biased backward: launches on the edge-feature hybrid
+    # training path (6d), times at one 131K snapshot (5f); the plain
+    # version is its three parts, so its time is the whole backward's
+    tbe = times_hyb_edge_bwd
+    kernels += [
+        dict(kernel_record(
+            FG, kern, "flash_biased_bwd.cu", line,
+            train_hyb_edge["launches"][kern.name],
+            max(small_compact_biased_bwd[name],
+                train_hyb_edge["full_err"][name]),
+            min(tbe[name]["ms"]), min(tbe["plain_ms"]),
+            "flash_biased_bwd_{pre,dq,dkv}_compact_plain (delta1, dB, dq, "
+            "dk and dv)", tbe[name], tbe["library"]["ms"], HB_SRC),
+             csr_ms=min(tbe["csr_ms"]),
+             library_of=("compiled flex_attention fwd+bwd - fwd of B4c and "
+                         "B5c's function, BlockMask from the compact plan, "
+                         "scaled-dot metric"
+                         if tbe["library"]["error"] is None
+                         else tbe["library"]["error"]))
+        for name, kern, line in (
+            ("B6c", FG.flash_biased_bwd_pre_compact_kernel, 298),
+            ("B7a c", FG.flash_biased_bwd_dq_compact_kernel, 371),
+            ("B7b c", FG.flash_biased_bwd_dkv_compact_kernel, 405))]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
@@ -2846,6 +3426,11 @@ def main() -> int:
         small_biased_err=small_biased, small_biased_bwd_err=small_biased_bwd,
         small_compact_err=small_compact,
         small_compact_bwd_err=small_compact_bwd,
+        small_compact_biased_bwd_err=small_compact_biased_bwd,
+        hybrid_edge_train_vs_csr=hyb_edge_train_csr,
+        train_hybrid_edge=train_hyb_edge,
+        times_hybrid_edge_bwd=times_hyb_edge_bwd,
+        train_mid_hybrid_edge=train_mid_hyb_edge,
         hybrid_train_vs_csr=hyb_train_csr, train_hybrid=train_hyb,
         times_hybrid_bwd=times_hyb_bwd, train_mid_hybrid=train_mid_hyb,
         mid=mid, mid_edge=mid_edge, serve=serve, serve_edge=serve_edge,

@@ -2,10 +2,12 @@
 // kernels.
 //
 // Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
-// that differentiate the dense path's double softmax (host side
-// flash_biased_attention_bwd), in their dense-mask form. The forward (B4, B5 in
-// flash_biased_fwd.cu) computed, per query row i, head h and valid key j
-// (mask[i, j] != 0), with s_ij the metric score:
+// that differentiate the dense path's double softmax, in their dense-mask form
+// (host side flash_biased_attention_bwd) and their compact occupied-block form
+// (B6c, B7a c, B7b c: the hybrid backend's band, host side
+// tagan_tpu/ops/pallas/hybrid_biased.py _band_bwd_pre and _band_bwd_dq_dkv).
+// The forward (B4, B5 in flash_biased_fwd.cu) computed, per query row i, head
+// h and valid key j (mask[i, j] != 0), with s_ij the metric score:
 //
 //   w1 = exp(s - lse1),  w1d = drop1(w1),  z = w1d + B,
 //   w2 = exp(z - lse2),  out_i = sum_j drop2(w2)_ij v_j.
@@ -41,6 +43,16 @@
 // templated on the 16-wide feature lanes. Thread (rg, lane) owns query rows
 // 4*rg..4*rg+3 and keys lane + 16*b (b < 4), as in every kernel here.
 //
+// The compact forms are the same three walks templated on the mask form
+// (flash_geometric_common.cuh: MaskForm), as B3a c and B3b c are. Each step
+// loads its store tile (slot g * S + jslot, or islot for B7b c: the same tile,
+// row = query, column = key; there is no transposed store) into 64 row words
+// in dynamic shared memory past the dense layout, and reads the bias from the
+// same slot of the bias store, [G, S, 64, 64]. B6c writes dB into the slots
+// of the walked tiles, every pair (0 off the mask); slots no walk visits are
+// left as they were, so the caller passes dB zeroed. Slot offsets are size_t:
+// S * 64 * 64 passes 2^31 past ~130K slots.
+//
 // What bounds it on the H100. The work the data needs is ~2 to 6 products of
 // head dim per valid pair and head; what must move is q, k, v, do, the row
 // statistics, the int8 [N, N] mask, the f32 bias and dB at the valid pairs
@@ -50,7 +62,9 @@
 // sets the pace, far above that bound. B6 also writes every pair of every
 // walked block of dB (4 bytes each: at the model's shape 400 MB per snapshot,
 // ~0.12 ms of the memory rate). Tensor cores, TMA and a walk over edges are
-// later steps.
+// later steps. The compact forms walk only the band's occupied tiles: at one
+// 131K hybrid snapshot ~35K tiles per head with ~1/60 of their pairs valid,
+// and dB is written at 16 KB per walked tile.
 //
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
@@ -64,25 +78,66 @@ using namespace tagan_flash;
 enum Mode : int { PRE = 0, DQ = 1, DKV = 2 };
 
 // Shared floats: BwdTiles (t.lse holds lse1, t.delta delta1), then lse2 and
-// delta2 of the query rows, then for B6 the delta1 sums [H][BM].
+// delta2 of the query rows, then for B6 the delta1 sums [H][BM]. The compact
+// forms' 64 mask-tile row words follow (an even count of floats before them,
+// so they are 8-byte aligned).
 __host__ __device__ inline size_t biased_smem_floats(int D, int Dv, int H,
                                                      bool pre) {
   return bwd_smem_floats(D, Dv) + 2 * BM + (pre ? (size_t)H * BM : 0);
 }
 
+template <int kForm>
+size_t smem_bytes(int D, int Dv, int H, bool pre) {
+  return sizeof(float) * biased_smem_floats(D, Dv, H, pre) +
+         (kForm == DENSE_MASK ? 0 : sizeof(uint64_t) * BM);
+}
+
+// The mask of batch index g: the dense [N, N] bytes (compact forms: none).
+template <int kForm>
+__device__ __forceinline__ const uint8_t* dense_mask(const void* mask, int g,
+                                                     int N) {
+  if constexpr (kForm == DENSE_MASK)
+    return static_cast<const uint8_t*>(mask) + (size_t)g * N * N;
+  else
+    return nullptr;
+}
+
+// One walk step's mask and bias tile: the compact forms load the store tile
+// of `slot` into `rows` (all threads, between barriers) and read the bias at
+// slot * 64 * 64 with row stride 64; the dense form reads the mask per pair
+// and the bias of batch index g at (row0, col0) with row stride N. Returns
+// the bias tile's origin; `bstride` gets its row stride.
+template <int kForm>
+__device__ __forceinline__ const float* step_tile(
+    uint64_t* rows, const void* mask, const float* bias, int g, int N,
+    size_t slot, int row0, int col0, int& bstride) {
+  if constexpr (kForm == DENSE_MASK) {
+    bstride = N;
+    return bias + (size_t)g * N * N + (size_t)row0 * N + col0;
+  } else {
+    __syncthreads();  // every thread is done with the previous step's rows
+    load_mask_tile<kForm>(rows, mask, slot);
+    __syncthreads();
+    bstride = BN;
+    return bias + slot * (BM * BN);
+  }
+}
+
 // The valid bits of this thread's 4 x 4 pairs of the block at (row0, col0):
 // bit 4a + b for query row 4*rg + a and key lane + 16*b.
+template <int kForm>
 __device__ __forceinline__ unsigned valid_bits(const uint8_t* __restrict__ mg,
-                                               int N, int row0, int col0) {
+                                               const uint64_t* rows, int N,
+                                               int row0, int col0) {
   const int rg = threadIdx.x >> 4, lane = threadIdx.x & 15;
   unsigned bits = 0;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int gr = row0 + rg * 4 + a;
+    const int lr = rg * 4 + a;
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      const int gc = col0 + lane + 16 * b;
-      if (gr < N && gc < N && mg[(size_t)gr * N + gc] != 0)
+      const int lc = lane + 16 * b;
+      if (pair_on<kForm>(mg, rows, N, row0 + lr, col0 + lc, lr, lc))
         bits |= 1u << (4 * a + b);
     }
   }
@@ -106,14 +161,15 @@ __device__ __forceinline__ void load_row_stats(
   }
 }
 
-// The recompute of one pair of tiles, for the pairs set in `valid`. PRE adds
-// dz to db and w1 * dw1 to this thread's row sums d1; DQ and DKV write the
-// chain weight W of ds = w1 (dw1 - delta1) to Ws (0 on other pairs), DKV also
-// drop2(w2) to Ps, and both return this thread's part of sum ds * s * sq.
+// The recompute of one pair of tiles, for the pairs set in `valid`; the bias
+// of pair (lr, lc) is bt[lr * bstride + lc]. PRE adds dz to db and w1 * dw1
+// to this thread's row sums d1; DQ and DKV write the chain weight W of
+// ds = w1 (dw1 - delta1) to Ws (0 on other pairs), DKV also drop2(w2) to Ps,
+// and both return this thread's part of sum ds * s * sq.
 template <int kMode>
 __device__ __forceinline__ float biased_pairs(
     const BwdTiles& t, const float* lse2_s, const float* delta2_s,
-    const float* __restrict__ bg, unsigned valid, int N, int D, int Dv,
+    const float* __restrict__ bt, int bstride, unsigned valid, int D, int Dv,
     int row0, int col0, int metric, float sc, float sqrt_d, int use_dropout,
     uint32_t mix1, uint32_t mix2, uint32_t keep_thresh, float inv_keep,
     float (&db)[4][4], float (&d1)[4]) {
@@ -142,7 +198,8 @@ __device__ __forceinline__ float biased_pairs(
           w1d = keep1 ? w1 * inv_keep : 0.f;
           dpv = keep2 ? dpv * inv_keep : 0.f;
         }
-        const float w2 = expf(w1d + bg[(size_t)gr * N + gc] - lse2_s[lr]);
+        const float w2 =
+            expf(w1d + bt[(size_t)lr * bstride + lc] - lse2_s[lr]);
         const float dz = w2 * (dpv - delta2_s[lr]);
         const float dw1 = use_dropout ? (keep1 ? dz * inv_keep : 0.f) : dz;
         if constexpr (kMode == PRE) {
@@ -163,11 +220,13 @@ __device__ __forceinline__ float biased_pairs(
   return dsc;
 }
 
-// B6: one block per (query tile, g); heads innermost at each walked block.
+// B6 / B6c: one block per (query tile, g); heads innermost at each walked
+// block.
+template <int kForm>
 __global__ void __launch_bounds__(THREADS)
 biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
-                      const uint8_t* __restrict__ mask,
+                      const void* __restrict__ mask,
                       const float* __restrict__ bias,
                       const float* __restrict__ dout,
                       const float* __restrict__ lse1,
@@ -175,12 +234,13 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ delta2,
                       const int* __restrict__ jlist,
                       const int* __restrict__ jcount,
+                      const int* __restrict__ jslot,
                       const float* __restrict__ scale,
                       const int* __restrict__ seeds,
                       float* __restrict__ delta1, float* __restrict__ dbias,
-                      int H, int N, int D, int Dv, int n_i, int W, int metric,
-                      float sqrt_d, int use_dropout, uint32_t keep_thresh,
-                      float inv_keep) {
+                      int H, int N, int D, int Dv, int n_i, int W, int S,
+                      int metric, float sqrt_d, int use_dropout,
+                      uint32_t keep_thresh, float inv_keep) {
   const int ib = blockIdx.x, g = blockIdx.y;
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   extern __shared__ float smem[];
@@ -188,18 +248,25 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* lse2_s = smem + bwd_smem_floats(D, Dv);
   float* delta2_s = lse2_s + BM;
   float* d1_s = delta2_s + BM;                    // [H][BM]
+  uint64_t* rows =
+      reinterpret_cast<uint64_t*>(smem + biased_smem_floats(D, Dv, H, true));
   for (int idx = tid; idx < H * BM; idx += THREADS) d1_s[idx] = 0.f;
 
-  const size_t gnn = (size_t)g * N * N;
-  const uint8_t* mg = mask + gnn;
-  const float* bg = bias + gnn;
+  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int row0 = ib * BM;
   const uint32_t s1 = (uint32_t)seeds[2 * g], s2 = (uint32_t)seeds[2 * g + 1];
-  const int cnt = jcount[(size_t)g * n_i + ib];
-  const int* jl = jlist + ((size_t)g * n_i + ib) * W;
+  const size_t walk = (size_t)g * n_i + ib;
+  const int cnt = jcount[walk];
+  const int* jl = jlist + walk * W;
+  const int* js = jslot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int col0 = jl[step] * BN;
-    const unsigned valid = valid_bits(mg, N, row0, col0);
+    const size_t slot =
+        kForm == DENSE_MASK ? 0 : (size_t)g * S + (size_t)js[step];
+    int bstride;
+    const float* bt = step_tile<kForm>(rows, mask, bias, g, N, slot, row0,
+                                       col0, bstride);
+    const unsigned valid = valid_bits<kForm>(mg, rows, N, row0, col0);
     float db[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
@@ -219,9 +286,9 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
       float d1[4] = {0.f, 0.f, 0.f, 0.f};
-      biased_pairs<PRE>(t, lse2_s, delta2_s, bg, valid, N, D, Dv, row0, col0,
-                        metric, scale[h], sqrt_d, use_dropout, s1 ^ hmix,
-                        s2 ^ hmix, keep_thresh, inv_keep, db, d1);
+      biased_pairs<PRE>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv, row0,
+                        col0, metric, scale[h], sqrt_d, use_dropout,
+                        s1 ^ hmix, s2 ^ hmix, keep_thresh, inv_keep, db, d1);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
 #pragma unroll
@@ -231,16 +298,19 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (lane == 0) d1_s[h * BM + rg * 4 + a] += d1[a];
       }
     }
-    // the whole tile, every in-range pair: dz is 0 off the mask
+    // the whole tile, every pair: dz is 0 off the mask (the dense form
+    // stops at N; a compact slot holds the whole tile)
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int gr = row0 + rg * 4 + a;
-      if (gr >= N) continue;
-      float* o = dbias + gnn + (size_t)gr * N;
+      const int lr = rg * 4 + a, gr = row0 + lr;
+      if (kForm == DENSE_MASK && gr >= N) continue;
+      float* o = kForm == DENSE_MASK
+                     ? dbias + ((size_t)g * N + gr) * N + col0
+                     : dbias + slot * (BM * BN) + (size_t)lr * BN;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int gc = col0 + lane + 16 * b;
-        if (gc < N) o[gc] = db[a][b];
+        const int lc = lane + 16 * b;
+        if (kForm != DENSE_MASK || col0 + lc < N) o[lc] = db[a][b];
       }
     }
   }
@@ -251,12 +321,12 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B7a: dq and the d(scale) partials over the forward walk.
-template <int LANES>
+// B7a / B7a c: dq and the d(scale) partials over the forward walk.
+template <int LANES, int kForm>
 __global__ void __launch_bounds__(THREADS)
 biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
-                     const uint8_t* __restrict__ mask,
+                     const void* __restrict__ mask,
                      const float* __restrict__ bias,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse1,
@@ -265,10 +335,11 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta1,
                      const int* __restrict__ jlist,
                      const int* __restrict__ jcount,
+                     const int* __restrict__ jslot,
                      const float* __restrict__ scale,
                      const int* __restrict__ seeds, float* __restrict__ dq,
                      float* __restrict__ dscale_part, int H, int N, int D,
-                     int Dv, int n_i, int W, int metric, float sqrt_d,
+                     int Dv, int n_i, int W, int S, int metric, float sqrt_d,
                      int use_dropout, uint32_t keep_thresh, float inv_keep,
                      int need_dscale) {
   const int ib = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
@@ -278,12 +349,13 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const BwdTiles t = bwd_tiles(smem, D, Dv);
   float* lse2_s = smem + bwd_smem_floats(D, Dv);
   float* delta2_s = lse2_s + BM;
+  uint64_t* rows =
+      reinterpret_cast<uint64_t*>(smem + biased_smem_floats(D, Dv, H, false));
 
   const size_t gh = (size_t)g * H + h;
   const float* kg = k + gh * N * D;
   const float* vg = v + gh * N * Dv;
-  const uint8_t* mg = mask + (size_t)g * N * N;
-  const float* bg = bias + (size_t)g * N * N;
+  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int row0 = ib * BM;
   load_rows(t.Qs, q + gh * N * D, row0, N, D);
   load_rows(t.dOs, dout + gh * N * Dv, row0, N, Dv);
@@ -305,20 +377,27 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   float dsc = 0.f;
 
-  const int cnt = jcount[(size_t)g * n_i + ib];
-  const int* jl = jlist + ((size_t)g * n_i + ib) * W;
+  const size_t walk = (size_t)g * n_i + ib;
+  const int cnt = jcount[walk];
+  const int* jl = jlist + walk * W;
+  const int* js = jslot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int col0 = jl[step] * BN;
-    const unsigned valid = valid_bits(mg, N, row0, col0);
+    const size_t slot =
+        kForm == DENSE_MASK ? 0 : (size_t)g * S + (size_t)js[step];
+    int bstride;
+    const float* bt = step_tile<kForm>(rows, mask, bias, g, N, slot, row0,
+                                       col0, bstride);
+    const unsigned valid = valid_bits<kForm>(mg, rows, N, row0, col0);
     __syncthreads();  // the previous step is done with Ks, Vs and Ws
     load_rows(t.Ks, kg, col0, N, D);
     load_rows(t.Vs, vg, col0, N, Dv);
     __syncthreads();
     tile_norms(t, D, false, true);
     __syncthreads();
-    dsc += biased_pairs<DQ>(t, lse2_s, delta2_s, bg, valid, N, D, Dv, row0,
-                            col0, metric, sc, sqrt_d, use_dropout, mix1, mix2,
-                            keep_thresh, inv_keep, db, d1);
+    dsc += biased_pairs<DQ>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv,
+                            row0, col0, metric, sc, sqrt_d, use_dropout, mix1,
+                            mix2, keep_thresh, inv_keep, db, d1);
     __syncthreads();
     for (int j = 0; j < BN; ++j) {
       float w[4];
@@ -358,12 +437,12 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B7b: dk and dv over the transposed walk.
-template <int LANES>
+// B7b / B7b c: dk and dv over the transposed walk.
+template <int LANES, int kForm>
 __global__ void __launch_bounds__(THREADS)
 biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
-                      const uint8_t* __restrict__ mask,
+                      const void* __restrict__ mask,
                       const float* __restrict__ bias,
                       const float* __restrict__ dout,
                       const float* __restrict__ lse1,
@@ -372,10 +451,11 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ delta1,
                       const int* __restrict__ ilist,
                       const int* __restrict__ icount,
+                      const int* __restrict__ islot,
                       const float* __restrict__ scale,
                       const int* __restrict__ seeds, float* __restrict__ dk,
                       float* __restrict__ dv, int H, int N, int D, int Dv,
-                      int n_j, int W, int metric, float sqrt_d,
+                      int n_j, int W, int S, int metric, float sqrt_d,
                       int use_dropout, uint32_t keep_thresh, float inv_keep) {
   const int jb = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
@@ -384,12 +464,13 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const BwdTiles t = bwd_tiles(smem, D, Dv);
   float* lse2_s = smem + bwd_smem_floats(D, Dv);
   float* delta2_s = lse2_s + BM;
+  uint64_t* rows =
+      reinterpret_cast<uint64_t*>(smem + biased_smem_floats(D, Dv, H, false));
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* dog = dout + gh * N * Dv;
-  const uint8_t* mg = mask + (size_t)g * N * N;
-  const float* bg = bias + (size_t)g * N * N;
+  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int col0 = jb * BN;
   load_rows(t.Ks, k + gh * N * D, col0, N, D);
   load_rows(t.Vs, v + gh * N * Dv, col0, N, Dv);
@@ -408,11 +489,18 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < LANES; ++jj) dka[a][jj] = dva[a][jj] = 0.f;
   }
 
-  const int cnt = icount[(size_t)g * n_j + jb];
-  const int* il = ilist + ((size_t)g * n_j + jb) * W;
+  const size_t walk = (size_t)g * n_j + jb;
+  const int cnt = icount[walk];
+  const int* il = ilist + walk * W;
+  const int* is = islot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int row0 = il[step] * BM;
-    const unsigned valid = valid_bits(mg, N, row0, col0);
+    const size_t slot =
+        kForm == DENSE_MASK ? 0 : (size_t)g * S + (size_t)is[step];
+    int bstride;
+    const float* bt = step_tile<kForm>(rows, mask, bias, g, N, slot, row0,
+                                       col0, bstride);
+    const unsigned valid = valid_bits<kForm>(mg, rows, N, row0, col0);
     __syncthreads();  // the previous step is done with the query side
     load_rows(t.Qs, qg, row0, N, D);
     load_rows(t.dOs, dog, row0, N, Dv);
@@ -421,8 +509,8 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     tile_norms(t, D, true, false);
     __syncthreads();
-    biased_pairs<DKV>(t, lse2_s, delta2_s, bg, valid, N, D, Dv, row0, col0,
-                      metric, sc, sqrt_d, use_dropout, mix1, mix2,
+    biased_pairs<DKV>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv, row0,
+                      col0, metric, sc, sqrt_d, use_dropout, mix1, mix2,
                       keep_thresh, inv_keep, db, d1);
     __syncthreads();
     for (int i = 0; i < BM; ++i) {
@@ -475,11 +563,112 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+template <int kForm>
 bool bad_args(int G, int H, int N, int D, int Dv, int n_tiles, int W,
-              int metric) {
+              int S, int metric) {
   return G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
          Dv > MAX_D || metric < 0 || metric > COS_DIST ||
-         n_tiles != (N + BM - 1) / BM || W < 0;
+         n_tiles != (N + BM - 1) / BM || W < 0 ||
+         (kForm != DENSE_MASK && S < 1);
+}
+
+template <int kForm>
+int pre_entry(const void* q, const void* k, const void* v, const void* mask,
+              const void* bias, const void* dout, const void* lse1,
+              const void* lse2, const void* delta2, const void* jlist,
+              const void* jcount, const void* jslot, const void* scale,
+              const void* seeds, void* delta1, void* dbias, int G, int H,
+              int N, int D, int Dv, int n_i, int W, int S, int metric,
+              float sqrt_d, int use_dropout, unsigned int keep_thresh,
+              float inv_keep, void* stream) {
+  if (bad_args<kForm>(G, H, N, D, Dv, n_i, W, S, metric))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const size_t smem = smem_bytes<kForm>(D, Dv, H, true);
+  const cudaError_t e = prepare(biased_bwd_pre_kernel<kForm>, smem);
+  if (e != cudaSuccess) return (int)e;
+  biased_bwd_pre_kernel<kForm><<<dim3(n_i, G), THREADS, smem,
+                                 (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, mask,
+      (const float*)bias, (const float*)dout, (const float*)lse1,
+      (const float*)lse2, (const float*)delta2, (const int*)jlist,
+      (const int*)jcount, (const int*)jslot, (const float*)scale,
+      (const int*)seeds, (float*)delta1, (float*)dbias, H, N, D, Dv, n_i, W,
+      S, metric, sqrt_d, use_dropout, keep_thresh, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <int kForm>
+int dq_entry(const void* q, const void* k, const void* v, const void* mask,
+             const void* bias, const void* dout, const void* lse1,
+             const void* lse2, const void* delta2, const void* delta1,
+             const void* jlist, const void* jcount, const void* jslot,
+             const void* scale, const void* seeds, void* dq,
+             void* dscale_part, int G, int H, int N, int D, int Dv, int n_i,
+             int W, int S, int metric, float sqrt_d, int use_dropout,
+             unsigned int keep_thresh, float inv_keep, int need_dscale,
+             void* stream) {
+  if (bad_args<kForm>(G, H, N, D, Dv, n_i, W, S, metric))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const size_t smem = smem_bytes<kForm>(D, Dv, H, false);
+  const dim3 grid(n_i, H, G);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes_for(D)) {
+#define TAGAN_BDQ(L)                                                         \
+  case L: {                                                                  \
+    const cudaError_t e = prepare(biased_bwd_dq_kernel<L, kForm>, smem);     \
+    if (e != cudaSuccess) return (int)e;                                     \
+    biased_bwd_dq_kernel<L, kForm><<<grid, THREADS, smem, s>>>(              \
+        (const float*)q, (const float*)k, (const float*)v, mask,             \
+        (const float*)bias, (const float*)dout, (const float*)lse1,          \
+        (const float*)lse2, (const float*)delta2, (const float*)delta1,      \
+        (const int*)jlist, (const int*)jcount, (const int*)jslot,            \
+        (const float*)scale, (const int*)seeds, (float*)dq,                  \
+        (float*)dscale_part, H, N, D, Dv, n_i, W, S, metric, sqrt_d,         \
+        use_dropout, keep_thresh, inv_keep, need_dscale);                    \
+    return (int)cudaGetLastError();                                          \
+  }
+    TAGAN_BDQ(1) TAGAN_BDQ(2) TAGAN_BDQ(4) TAGAN_BDQ(8)
+#undef TAGAN_BDQ
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int kForm>
+int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
+              const void* bias, const void* dout, const void* lse1,
+              const void* lse2, const void* delta2, const void* delta1,
+              const void* ilist, const void* icount, const void* islot,
+              const void* scale, const void* seeds, void* dk, void* dv,
+              int G, int H, int N, int D, int Dv, int n_j, int W, int S,
+              int metric, float sqrt_d, int use_dropout,
+              unsigned int keep_thresh, float inv_keep, void* stream) {
+  if (bad_args<kForm>(G, H, N, D, Dv, n_j, W, S, metric))
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const size_t smem = smem_bytes<kForm>(D, Dv, H, false);
+  const dim3 grid(n_j, H, G);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (lanes_for(D > Dv ? D : Dv)) {
+#define TAGAN_BDKV(L)                                                        \
+  case L: {                                                                  \
+    const cudaError_t e = prepare(biased_bwd_dkv_kernel<L, kForm>, smem);    \
+    if (e != cudaSuccess) return (int)e;                                     \
+    biased_bwd_dkv_kernel<L, kForm><<<grid, THREADS, smem, s>>>(             \
+        (const float*)q, (const float*)k, (const float*)v, mask,             \
+        (const float*)bias, (const float*)dout, (const float*)lse1,          \
+        (const float*)lse2, (const float*)delta2, (const float*)delta1,      \
+        (const int*)ilist, (const int*)icount, (const int*)islot,            \
+        (const float*)scale, (const int*)seeds, (float*)dk, (float*)dv, H,   \
+        N, D, Dv, n_j, W, S, metric, sqrt_d, use_dropout, keep_thresh,       \
+        inv_keep);                                                           \
+    return (int)cudaGetLastError();                                          \
+  }
+    TAGAN_BDKV(1) TAGAN_BDKV(2) TAGAN_BDKV(4) TAGAN_BDKV(8)
+#undef TAGAN_BDKV
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -494,21 +683,11 @@ extern "C" int tagan_flash_biased_bwd_pre(
     const void* scale, const void* seeds, void* delta1, void* dbias, int G,
     int H, int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
     int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
-  if (bad_args(G, H, N, D, Dv, n_i, W, metric))
-    return (int)cudaErrorInvalidValue;
-  if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = sizeof(float) * biased_smem_floats(D, Dv, H, true);
-  const cudaError_t e = prepare(biased_bwd_pre_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  biased_bwd_pre_kernel<<<dim3(n_i, G), THREADS, smem,
-                          (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v,
-      (const uint8_t*)mask, (const float*)bias, (const float*)dout,
-      (const float*)lse1, (const float*)lse2, (const float*)delta2,
-      (const int*)jlist, (const int*)jcount, (const float*)scale,
-      (const int*)seeds, (float*)delta1, (float*)dbias, H, N, D, Dv, n_i, W,
-      metric, sqrt_d, use_dropout, keep_thresh, inv_keep);
-  return (int)cudaGetLastError();
+  return pre_entry<DENSE_MASK>(q, k, v, mask, bias, dout, lse1, lse2, delta2,
+                               jlist, jcount, jlist, scale, seeds, delta1,
+                               dbias, G, H, N, D, Dv, n_i, W, 0, metric,
+                               sqrt_d, use_dropout, keep_thresh, inv_keep,
+                               stream);
 }
 
 // B7a: dq [G, H, N, D] and, with need_dscale, the d(scale) partials
@@ -521,31 +700,11 @@ extern "C" int tagan_flash_biased_bwd_dq(
     void* dscale_part, int G, int H, int N, int D, int Dv, int n_i, int W,
     int metric, float sqrt_d, int use_dropout, unsigned int keep_thresh,
     float inv_keep, int need_dscale, void* stream) {
-  if (bad_args(G, H, N, D, Dv, n_i, W, metric))
-    return (int)cudaErrorInvalidValue;
-  if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = sizeof(float) * biased_smem_floats(D, Dv, H, false);
-  const dim3 grid(n_i, H, G);
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes_for(D)) {
-#define TAGAN_BDQ(L)                                                         \
-  case L: {                                                                  \
-    const cudaError_t e = prepare(biased_bwd_dq_kernel<L>, smem);            \
-    if (e != cudaSuccess) return (int)e;                                     \
-    biased_bwd_dq_kernel<L><<<grid, THREADS, smem, s>>>(                     \
-        (const float*)q, (const float*)k, (const float*)v,                   \
-        (const uint8_t*)mask, (const float*)bias, (const float*)dout,        \
-        (const float*)lse1, (const float*)lse2, (const float*)delta2,        \
-        (const float*)delta1, (const int*)jlist, (const int*)jcount,         \
-        (const float*)scale, (const int*)seeds, (float*)dq,                  \
-        (float*)dscale_part, H, N, D, Dv, n_i, W, metric, sqrt_d,            \
-        use_dropout, keep_thresh, inv_keep, need_dscale);                    \
-    return (int)cudaGetLastError();                                          \
-  }
-    TAGAN_BDQ(1) TAGAN_BDQ(2) TAGAN_BDQ(4) TAGAN_BDQ(8)
-#undef TAGAN_BDQ
-  }
-  return (int)cudaErrorInvalidValue;
+  return dq_entry<DENSE_MASK>(q, k, v, mask, bias, dout, lse1, lse2, delta2,
+                              delta1, jlist, jcount, jlist, scale, seeds, dq,
+                              dscale_part, G, H, N, D, Dv, n_i, W, 0, metric,
+                              sqrt_d, use_dropout, keep_thresh, inv_keep,
+                              need_dscale, stream);
 }
 
 // B7b: dk [G, H, N, D] and dv [G, H, N, Dv] over the transposed walk
@@ -558,28 +717,61 @@ extern "C" int tagan_flash_biased_bwd_dkv(
     void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
     float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
     void* stream) {
-  if (bad_args(G, H, N, D, Dv, n_j, W, metric))
-    return (int)cudaErrorInvalidValue;
-  if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = sizeof(float) * biased_smem_floats(D, Dv, H, false);
-  const dim3 grid(n_j, H, G);
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes_for(D > Dv ? D : Dv)) {
-#define TAGAN_BDKV(L)                                                         \
-  case L: {                                                                   \
-    const cudaError_t e = prepare(biased_bwd_dkv_kernel<L>, smem);            \
-    if (e != cudaSuccess) return (int)e;                                      \
-    biased_bwd_dkv_kernel<L><<<grid, THREADS, smem, s>>>(                     \
-        (const float*)q, (const float*)k, (const float*)v,                    \
-        (const uint8_t*)mask, (const float*)bias, (const float*)dout,         \
-        (const float*)lse1, (const float*)lse2, (const float*)delta2,         \
-        (const float*)delta1, (const int*)ilist, (const int*)icount,          \
-        (const float*)scale, (const int*)seeds, (float*)dk, (float*)dv, H, N, \
-        D, Dv, n_j, W, metric, sqrt_d, use_dropout, keep_thresh, inv_keep);   \
-    return (int)cudaGetLastError();                                           \
-  }
-    TAGAN_BDKV(1) TAGAN_BDKV(2) TAGAN_BDKV(4) TAGAN_BDKV(8)
-#undef TAGAN_BDKV
-  }
-  return (int)cudaErrorInvalidValue;
+  return dkv_entry<DENSE_MASK>(q, k, v, mask, bias, dout, lse1, lse2, delta2,
+                               delta1, ilist, icount, ilist, scale, seeds, dk,
+                               dv, G, H, N, D, Dv, n_j, W, 0, metric, sqrt_d,
+                               use_dropout, keep_thresh, inv_keep, stream);
+}
+
+// B6c: B6 over the compact store of S slots per g, bits i64[G, S, 64]
+// (packed) or int8 [G, S, 64, 64], with the slot of each walk step, jslot
+// [G, n_i, W]; the bias and dB in the same slots, f32[G, S, 64, 64]. dB is
+// written on the walked slots only: pass it zeroed.
+extern "C" int tagan_flash_biased_bwd_pre_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* jlist, const void* jcount,
+    const void* jslot, const void* scale, const void* seeds, void* delta1,
+    void* dbias, int G, int H, int N, int D, int Dv, int n_i, int W, int S,
+    int packed, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, void* stream) {
+  return (packed ? pre_entry<COMPACT_BITS> : pre_entry<COMPACT_I8>)(
+      q, k, v, store, bias, dout, lse1, lse2, delta2, jlist, jcount, jslot,
+      scale, seeds, delta1, dbias, G, H, N, D, Dv, n_i, W, S, metric, sqrt_d,
+      use_dropout, keep_thresh, inv_keep, stream);
+}
+
+// B7a c: B7a over the compact store and the bias store, the forward walk
+// with its slots.
+extern "C" int tagan_flash_biased_bwd_dq_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* jlist,
+    const void* jcount, const void* jslot, const void* scale,
+    const void* seeds, void* dq, void* dscale_part, int G, int H, int N,
+    int D, int Dv, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    int need_dscale, void* stream) {
+  return (packed ? dq_entry<COMPACT_BITS> : dq_entry<COMPACT_I8>)(
+      q, k, v, store, bias, dout, lse1, lse2, delta2, delta1, jlist, jcount,
+      jslot, scale, seeds, dq, dscale_part, G, H, N, D, Dv, n_i, W, S, metric,
+      sqrt_d, use_dropout, keep_thresh, inv_keep, need_dscale, stream);
+}
+
+// B7b c: B7b over the compact store and the bias store, the transposed walk
+// (ilist, icount) naming each step's slot of the same stores, islot
+// [G, n_j, W].
+extern "C" int tagan_flash_biased_bwd_dkv_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* ilist,
+    const void* icount, const void* islot, const void* scale,
+    const void* seeds, void* dk, void* dv, int G, int H, int N, int D,
+    int Dv, int n_j, int W, int S, int packed, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return (packed ? dkv_entry<COMPACT_BITS> : dkv_entry<COMPACT_I8>)(
+      q, k, v, store, bias, dout, lse1, lse2, delta2, delta1, ilist, icount,
+      islot, scale, seeds, dk, dv, G, H, N, D, Dv, n_j, W, S, metric, sqrt_d,
+      use_dropout, keep_thresh, inv_keep, stream);
 }

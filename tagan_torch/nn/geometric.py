@@ -198,10 +198,9 @@ class GeometricAttention(nn.Module):
         [..., Er] take the edge-biased double softmax
         (`ops.hybrid_biased`). Mahalanobis runs euclidean in factor space
         on both parts; inactive nodes keep their input. ``plan_t`` is the
-        band's transposed walk (ilist, icount, islot), which the unbiased
-        band's backward (B3a c + B3b c) needs: without it a backward
-        raises ValueError. The edge-biased form runs forward only: a
-        backward through it raises NotImplementedError."""
+        band's transposed walk (ilist, icount, islot), which the band's
+        backward needs (B3a c + B3b c, or with the biases B6c, B7a c and
+        B7b c): without it a backward raises ValueError."""
         metric = self.distance_metric
         if metric not in FG.MXU_METRICS and metric != "mahalanobis":
             raise NotImplementedError(
@@ -228,7 +227,7 @@ class GeometricAttention(nn.Module):
         if biased:
             ctx = HB.hybrid_biased_attention(
                 q, k, v, store, plan, res, band_bias, res_bias, metric,
-                scale, rate, seed, generator)
+                scale, rate, seed, generator, plan_t)
         else:
             band = FG._flash_compact(q, k, v, store, plan, metric, scale,
                                      rate, seed, plan_t)

@@ -14,8 +14,10 @@ per attention layer. A single (unbatched) sequence runs as a batch of
 one. The hybrid backend reads the band + residual plan a sequence
 carries (`SnapshotSequence.with_hybrid_plan`; `Predictor` attaches it,
 the loader's ``plan="hybrid"`` with the transposed walk that training's
-backward reads); with edge features it runs forward only: its backward
-is not ported yet.
+backward reads), with or without edge features. The bias store's
+gradient (`hybrid_bias_store`) is autograd's gather of its segment sum:
+each band edge reads the store's cotangent at its pair, duplicates
+alike, and residual and invalid edges get 0 there.
 
 Pipeline: node embedding; ``num_layers`` geometric attention layers per
 snapshot with the first layer's skip ``x = attn(x) + LN(skip)``;
@@ -128,7 +130,9 @@ def hybrid_bias_store(b: torch.Tensor, seq: SnapshotSequence
     edge added at (its slot, src % 64, dst % 64), so duplicates add (the
     JAX ``_scatter_bias_store``); self loops, residual and invalid edges
     (slot -1) carry none. Flat positions are int64: S * 64 * 64 passes
-    2**31 past ~130K slots."""
+    2**31 past ~130K slots. Its backward is autograd's (the JAX custom
+    vjp's ``_sbs_bwd``): the store's cotangent gathered at each band
+    edge's position, 0 for the others."""
     store, tile = seq.hyb_mask_blocks, HYBRID_TILE
     S = store.shape[-2 if store.dtype == torch.int64 else -3]
     slot = seq.hyb_band_slot.long()

@@ -19,13 +19,17 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_geometric_bwd.cu
     B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
     B5c  _flash_biased_kernel, compact  csrc/flash_biased_fwd.cu
+    B6c  _biased_bwd_pre_kernel, compact  csrc/flash_biased_bwd.cu
+    B7a c  _biased_bwd_dq_kernel, compact   csrc/flash_biased_bwd.cu
+    B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
-dense path's double softmax, and B6, B7a and B7b its backward. B1c, B3a c,
-B3b c, B4c and B5c walk the compact occupied-block store of the hybrid
-backend's band (the mask, and the bias, only in the occupied tiles; a
-slot per walk step): B1c with B3a c and B3b c is differentiable, B4c and
-B5c (the edge-biased band) run forward only.
+dense path's double softmax, and B6, B7a and B7b its backward. The
+compact forms (a "c" after the name) walk the compact occupied-block
+store of the hybrid backend's band (the mask, and the bias, only in the
+occupied tiles; a slot per walk step): B1c with B3a c and B3b c here,
+and B4c and B5c with B6c, B7a c and B7b c under the edge-biased band's
+autograd Function in ``ops.hybrid_biased``.
 
 Supported metrics are those written through the cross term q.k and the
 row norms (``MXU_METRICS``); cosine metrics run on L2-normalised q/k;
@@ -953,6 +957,67 @@ def flash_geometric_backward_plain(
     return dq, dk, dv, dscale
 
 
+def _compact_grads(steps, q, k, v, do, n_i, metric, scale, need_dscale,
+                   parts=("dq", "dkv")):
+    """The gradients of a compact walk, every row tile at once, from
+    ``steps``: per walk step (jb, ds, w, pd, s, sq), the key tiles
+    [G, n_i] and, per pair [G, H, n_i, BM, BN], ds = dL/ds, its chain
+    weight w, the dropped weight pd that multiplies dO into dv, the
+    scores and squared distances. dq accumulates per row tile; dk and dv
+    go back to their key tiles by index (`index_add_`), so the
+    transposed walk is not read. ``parts`` picks "dq" (with dscale) and
+    "dkv". Returns a dict."""
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    qt, dot = _row_tiles(q, n_i), _row_tiles(do, n_i)
+    kt = _key_tiles(k, n_i * BLOCK_M)
+    n_t = kt.shape[2]
+    sq_metric = metric in _SQ_METRICS
+    dq = torch.zeros_like(qt)
+    wrow = torch.zeros(qt.shape[:-1], dtype=q.dtype, device=q.device)
+    dsc = torch.zeros(H, dtype=q.dtype, device=q.device)
+    # key-side sums per (g, key tile), flat so that index_add_ can take
+    # each step's [G * n_i] tiles at once
+    dk = torch.zeros((G * n_t, H, BLOCK_N, D), dtype=q.dtype, device=q.device)
+    dv = torch.zeros((G * n_t, H, BLOCK_N, Dv), dtype=q.dtype,
+                     device=q.device)
+    wcol = torch.zeros((G * n_t, H, BLOCK_N), dtype=q.dtype, device=q.device)
+    gi = torch.arange(G, device=q.device)[:, None]
+
+    def to_keys(x):                 # [G, H, n_i, BN, ...] -> [G * n_i, H, ...]
+        return x.transpose(1, 2).reshape(G * n_i, H, *x.shape[3:])
+    for jb, ds, w, pd, s, sq in steps:
+        if "dq" in parts:
+            dq += w @ _gather_tiles(kt, jb)
+            if sq_metric:
+                wrow += w.sum(-1)
+            if need_dscale:
+                dsc += (ds * s * sq).sum((0, 2, 3, 4))
+        if "dkv" in parts:
+            idx = (gi * n_t + jb).reshape(-1)
+            dk.index_add_(0, idx, to_keys(w.transpose(-1, -2) @ qt))
+            dv.index_add_(0, idx, to_keys(pd.transpose(-1, -2) @ dot))
+            if sq_metric:
+                wcol.index_add_(0, idx, to_keys(w.sum(-2)))
+    res = {}
+    if "dq" in parts:
+        if sq_metric:
+            dq -= wrow[..., None] * qt
+        res["dq"] = dq.reshape(G, H, -1, D)[:, :, :N]
+        res["dscale"] = None
+        if need_dscale:
+            res["dscale"] = dsc / scale ** 3 \
+                if metric == "gaussian_kernel" else -dsc
+    if "dkv" in parts:
+        def from_keys(x):           # [G * n_t, H, BN, ...] -> [G, H, N, ...]
+            x = x.reshape(G, n_t, H, *x.shape[2:]).transpose(1, 2)
+            return x.reshape(G, H, n_t * BLOCK_N, *x.shape[4:])[:, :, :N]
+        res["dk"], res["dv"] = from_keys(dk), from_keys(dv)
+        if sq_metric:
+            res["dk"] = res["dk"] - from_keys(wcol)[..., None] * k
+    return res
+
+
 def flash_geometric_backward_compact_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, store: torch.Tensor,
     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
@@ -965,71 +1030,191 @@ def flash_geometric_backward_compact_plain(
     over the compact store, walking the forward walk's occupied tiles
     with the gathers of `flash_geometric_forward_compact_plain`, every
     row tile at once, in memory that grows with the row tiles, never
-    with N^2. dq accumulates per row tile; each step's dk and dv go back
-    to their key tiles by index (`index_add_`), so the transposed walk is
-    not read. Shapes as in `flash_geometric_forward_compact_plain`; do
-    like out, dlse (the cotangent of lse) like lse. Returns (dq, dk, dv,
-    dscale f32[H] or None)."""
-    G, H, N, D = q.shape
-    Dv = v.shape[-1]
+    with N^2 (`_compact_grads`: the transposed walk is not read). Shapes
+    as in `flash_geometric_forward_compact_plain`; do like out, dlse (the
+    cotangent of lse) like lse. Returns (dq, dk, dv, dscale f32[H] or
+    None)."""
+    H, D = q.shape[1], q.shape[-1]
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
     sc = scale.reshape(1, H, 1, 1, 1)
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
-    delta = _delta(do, out, dlse)
     n_i = jlist.shape[-2]
-    qt, dot = _row_tiles(q, n_i), _row_tiles(do, n_i)
+    dot = _row_tiles(do, n_i)
     lse_t = _row_tiles(lse, n_i, LSE_DEAD)[..., None]
-    delta_t = _row_tiles(delta, n_i)[..., None]
-    kt, vt = (_key_tiles(x, n_i * BLOCK_M) for x in (k, v))
-    n_t = kt.shape[2]
-    sq_metric = metric in _SQ_METRICS
-    dq = torch.zeros_like(qt)
-    wrow = torch.zeros(qt.shape[:-1], dtype=q.dtype, device=q.device)
-    # key-side sums per (g, key tile), flat so that index_add_ can take
-    # each step's [G * n_i] tiles at once
-    dk = torch.zeros((G * n_t, H, BLOCK_N, D), dtype=q.dtype,
-                     device=q.device)
-    dv = torch.zeros((G * n_t, H, BLOCK_N, Dv), dtype=q.dtype,
-                     device=q.device)
-    wcol = torch.zeros((G * n_t, H, BLOCK_N), dtype=q.dtype, device=q.device)
-    dsc = torch.zeros(H, dtype=q.dtype, device=q.device)
+    delta_t = _row_tiles(_delta(do, out, dlse), n_i)[..., None]
+    vt = _key_tiles(v, n_i * BLOCK_M)
+
+    def steps():
+        for s, valid, jb, rows, cols, qk, sq in _compact_steps(
+                q, k, store, jlist, jcount, jslot, metric, scale):
+            keep = None
+            if dropout_rate > 0.0:
+                keep = _tile_keep(seed, H, rows, cols) < thresh
+            ds, w, pd = _pair_grads(
+                metric, s, sq, qk, valid, lse_t,
+                dot @ _gather_tiles(vt, jb).transpose(-1, -2), delta_t, keep,
+                inv_keep, sc, D)
+            yield jb, ds, w, pd, s, sq
+    r = _compact_grads(steps(), q, k, v, do, n_i, metric, scale, need_dscale)
+    return r["dq"], r["dk"], r["dv"], r["dscale"]
+
+
+def _biased_compact_steps(q, k, v, store, bias_store, do, lse1, lse2, delta2,
+                          jlist, jcount, jslot, metric, scale, dropout_rate,
+                          seeds):
+    """`_biased_chunks`' recompute over the compact walk, every row tile
+    at once: per step w, (jb, w1, dw1, dz, w2d, s, sq, qk) [G, H, n_i,
+    BM, BN] (jb [G, n_i] the key tiles), the bias read from the step's
+    slot of ``bias_store``; all 0 off the valid pairs."""
+    G, H = q.shape[:2]
+    n_i = jlist.shape[-2]
+    thresh = _keep_thresh(dropout_rate)
+    inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
+    dot = _row_tiles(do, n_i)
+    l1, l2 = (_row_tiles(x, n_i, LSE_DEAD)[..., None] for x in (lse1, lse2))
+    d2 = _row_tiles(delta2, n_i)[..., None]
+    vt = _key_tiles(v, n_i * BLOCK_M)
     gi = torch.arange(G, device=q.device)[:, None]
-
-    def to_keys(x):                 # [G, H, n_i, BN, ...] -> [G * n_i, H, ...]
-        return x.transpose(1, 2).reshape(G * n_i, H, *x.shape[3:])
-    for s, valid, jb, rows, cols, qk, sq in _compact_steps(
-            q, k, store, jlist, jcount, jslot, metric, scale):
-        kb, vb = _gather_tiles(kt, jb), _gather_tiles(vt, jb)
-        keep = None
+    for w, (s, valid, jb, rows, cols, qk, sq) in enumerate(_compact_steps(
+            q, k, store, jlist, jcount, jslot, metric, scale)):
+        w1 = torch.exp(torch.where(valid, s - l1, NEG_INF))
+        dp2 = dot @ _gather_tiles(vt, jb).transpose(-1, -2)
+        w1d = w1
         if dropout_rate > 0.0:
-            keep = _tile_keep(seed, H, rows, cols) < thresh
-        ds, w, pd = _pair_grads(metric, s, sq, qk, valid, lse_t,
-                                dot @ vb.transpose(-1, -2), delta_t, keep,
-                                inv_keep, sc, D)
-        dq += w @ kb
-        idx = (gi * n_t + jb).reshape(-1)
-        dk.index_add_(0, idx, to_keys(w.transpose(-1, -2) @ qt))
-        dv.index_add_(0, idx, to_keys(pd.transpose(-1, -2) @ dot))
-        if sq_metric:
-            wrow += w.sum(-1)
-            wcol.index_add_(0, idx, to_keys(w.sum(-2)))
-        if need_dscale:
-            dsc += (ds * s * sq).sum((0, 2, 3, 4))
-    if sq_metric:
-        dq -= wrow[..., None] * qt
+            keep1 = _tile_keep(seeds[:, 0], H, rows, cols) < thresh
+            keep2 = _tile_keep(seeds[:, 1], H, rows, cols) < thresh
+            w1d = torch.where(keep1, w1 * inv_keep, torch.zeros_like(w1))
+            dp2 = torch.where(keep2, dp2 * inv_keep, torch.zeros_like(dp2))
+        z = w1d + bias_store[gi, jslot[..., w].long()][:, None]
+        w2 = torch.exp(torch.where(valid, z - l2, NEG_INF))
+        dz = w2 * (dp2 - d2)
+        dw1, w2d = dz, w2
+        if dropout_rate > 0.0:
+            dw1 = torch.where(keep1, dz * inv_keep, torch.zeros_like(dz))
+            w2d = torch.where(keep2, w2 * inv_keep, torch.zeros_like(w2))
+        yield jb, w1, dw1, dz, w2d, s, sq, qk
 
-    def from_keys(x):               # [G * n_t, H, BN, ...] -> [G, H, N, ...]
-        x = x.reshape(G, n_t, H, *x.shape[2:]).transpose(1, 2)
-        return x.reshape(G, H, n_t * BLOCK_N, *x.shape[4:])[:, :, :N]
-    dk, dv = from_keys(dk), from_keys(dv)
-    if sq_metric:
-        dk = dk - from_keys(wcol)[..., None] * k
-    dscale = None
-    if need_dscale:
-        dscale = dsc / scale ** 3 if metric == "gaussian_kernel" else -dsc
-    return dq.reshape(G, H, -1, D)[:, :, :N], dk, dv, dscale
+
+def _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
+                              delta2, jlist, jcount, jslot, metric, scale,
+                              dropout_rate, seeds, delta1=None,
+                              need_dscale=False, parts=("pre", "dq", "dkv")):
+    """The plain biased backward over the compact walk, in memory that
+    grows with the row tiles; ``parts`` as in `_biased_bwd_plain`. "pre"
+    walks once for delta1 (the walk's own row sums) and dB, into the
+    store's slots [G, S, BM, BN] (0 in slots no step walks); dq and dk/dv
+    walk again (`_compact_grads`) with ``delta1`` as given, as in B7a c
+    and B7b c, or with the first walk's when it is None. Returns a
+    dict."""
+    G, H, N, D = q.shape
+    if scale is None:
+        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    if seeds is None:
+        seeds = torch.zeros((G, 2), dtype=torch.int32, device=q.device)
+    args = (q, k, v, store, bias_store, do, lse1, lse2, delta2, jlist,
+            jcount, jslot, metric, scale, dropout_rate, seeds)
+    n_i, S = jlist.shape[-2], bias_store.shape[1]
+    gi = torch.arange(G, device=q.device)[:, None]
+    grads = [p for p in parts if p != "pre"]
+    if not grads:
+        d1 = torch.zeros((G, H, n_i, BLOCK_M), dtype=q.dtype, device=q.device)
+        dbias = torch.zeros((G * S, BLOCK_M, BLOCK_N), dtype=q.dtype,
+                            device=q.device)
+        for w, (_, w1, dw1, dz, *_) in enumerate(
+                _biased_compact_steps(*args)):
+            d1 += (w1 * dw1).sum(-1)
+            # each occupied tile has one slot, walked once; a step past
+            # jcount adds its zeros to a slot in range
+            dbias.index_add_(0, (gi * S + jslot[..., w].long()).reshape(-1),
+                             dz.sum(1).reshape(G * n_i, BLOCK_M, BLOCK_N))
+        return {"delta1": d1.reshape(G, H, -1)[..., :N],
+                "dbias": dbias.reshape(G, S, BLOCK_M, BLOCK_N)}
+    res = {}
+    if "pre" in parts or delta1 is None:
+        res = _biased_bwd_compact_plain(*args, parts=("pre",))
+        if delta1 is None:
+            delta1 = res["delta1"]
+        if "pre" not in parts:
+            res = {}
+    sc = scale.reshape(1, H, 1, 1, 1)
+    d1_t = _row_tiles(delta1, n_i)[..., None]
+
+    def steps():
+        for jb, w1, dw1, _, w2d, s, sq, qk in _biased_compact_steps(*args):
+            ds = w1 * (dw1 - d1_t)
+            yield jb, ds, _chain_weight(metric, ds, s, sq, qk, sc, D), w2d, \
+                s, sq
+    return {**res, **_compact_grads(steps(), q, k, v, do, n_i, metric, scale,
+                                    need_dscale, grads)}
+
+
+def flash_biased_backward_compact_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, store: torch.Tensor,
+    bias_store: torch.Tensor, out: torch.Tensor, lse1: torch.Tensor,
+    lse2: torch.Tensor, do: torch.Tensor, jlist: torch.Tensor,
+    jcount: torch.Tensor, jslot: torch.Tensor, metric: str,
+    scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+    seeds: Optional[torch.Tensor] = None, need_dscale: bool = False,
+):
+    """What B6c, B7a c and B7b c compute together:
+    `flash_biased_backward_plain` over the compact store, walking the
+    forward walk's occupied tiles with the gathers of
+    `flash_biased_forward_compact_plain`, every row tile at once, in
+    memory that grows with the row tiles, never with N^2 (a first walk
+    for delta1 and dB, a second for dq, dk and dv). bias_store and the
+    returned dB are f32[G, S, BM, BN] in the store's slots, dB 0 in slots
+    the walk does not visit; the other shapes as in
+    `flash_biased_forward_compact_plain`, out and do like its out.
+    Returns (dq, dk, dv, dB, dscale f32[H] or None)."""
+    r = _biased_bwd_compact_plain(
+        q, k, v, store, bias_store, do, lse1, lse2, (do * out).sum(-1),
+        jlist, jcount, jslot, metric, scale, dropout_rate, seeds,
+        need_dscale=need_dscale)
+    return r["dq"], r["dk"], r["dv"], r["dbias"], r["dscale"]
+
+
+def flash_biased_bwd_pre_compact_plain(q, k, v, store, bias_store, do, lse1,
+                                       lse2, delta2, jlist, jcount, jslot,
+                                       metric: str, scale=None,
+                                       dropout_rate: float = 0.0, seeds=None):
+    """What B6c computes (the JAX package's ``_band_bwd_pre``): (delta1
+    f32[G, H, N], dB f32[G, S, BM, BN]) given lse1, lse2 and delta2
+    [G, H, N] (the hybrid band's union statistics)."""
+    r = _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
+                                  delta2, jlist, jcount, jslot, metric, scale,
+                                  dropout_rate, seeds, parts=("pre",))
+    return r["delta1"], r["dbias"]
+
+
+def flash_biased_bwd_dq_compact_plain(q, k, v, store, bias_store, do, lse1,
+                                      lse2, delta2, delta1, jlist, jcount,
+                                      jslot, metric: str, scale=None,
+                                      dropout_rate: float = 0.0, seeds=None,
+                                      need_dscale: bool = False):
+    """What B7a c computes (walk B of the JAX package's
+    ``_band_bwd_dq_dkv``): (dq, dscale f32[H] or None) given delta1 (the
+    union's)."""
+    r = _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
+                                  delta2, jlist, jcount, jslot, metric, scale,
+                                  dropout_rate, seeds, delta1, need_dscale,
+                                  ("dq",))
+    return r["dq"], r["dscale"]
+
+
+def flash_biased_bwd_dkv_compact_plain(q, k, v, store, bias_store, do, lse1,
+                                       lse2, delta2, delta1, jlist, jcount,
+                                       jslot, metric: str, scale=None,
+                                       dropout_rate: float = 0.0, seeds=None):
+    """What B7b c computes (walk C of ``_band_bwd_dq_dkv``): (dk, dv)
+    given delta1, over the forward walk (the transposed walk that B7b c
+    takes visits the same tiles)."""
+    r = _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
+                                  delta2, jlist, jcount, jslot, metric, scale,
+                                  dropout_rate, seeds, delta1,
+                                  parts=("dkv",))
+    return r["dk"], r["dv"]
 
 
 # ---------------------------------------------------------------------------
@@ -1599,6 +1784,117 @@ class _FlashBiasedBwdDkvKernel(_FlashBiasedBackwardKernel):
         return dk, dv
 
 
+class _FlashBiasedBackwardCompactKernel(_CudaKernel):
+    """Shared checks of B6c, B7a c and B7b c: `_check_compact`'s on the
+    store and the walk (lst, cnt, slot) [G, ceil(N/64), W], the walk's
+    values (`check_compact_plan`, one host synchronisation: a bad count
+    or slot raises before any launch), and k [G, H, N, D], v, do
+    [G, H, N, Dv], the bias store f32[G, S, 64, 64] in the store's slots,
+    the row statistics ``rows`` [G, H, N], scale f32[H], seeds
+    i32[G, 2]."""
+    source = "flash_biased_bwd"
+
+    def _check(self, q, k, v, store, bias_store, do, rows, lst, cnt, slot,
+               scale, seeds):
+        dev = self._device_of(self.name, q)
+        G, H, N, D, n, W, S, packed = _check_compact(
+            self.name, dev, q, store, lst, cnt, slot)
+        Dv = v.shape[-1]
+        _check_args(self.name, dev, (
+            ("k", k, torch.float32, (G, H, N, D)),
+            ("v", v, torch.float32, (G, H, N, Dv)),
+            ("bias", bias_store, torch.float32, (G, S, BLOCK_M, BLOCK_N)),
+            ("do", do, torch.float32, (G, H, N, Dv)),
+            *((label, t, torch.float32, (G, H, N)) for label, t in rows),
+            ("scale", scale, torch.float32, (H,)),
+            ("seeds", seeds, torch.int32, (G, 2))))
+        _check_widths(self.name, D, Dv)
+        check_compact_plan(lst, cnt, slot, store, N)
+        return dev, (G, H, N, D, Dv, n, W, S, packed)
+
+
+class _FlashBiasedBwdPreCompactKernel(_FlashBiasedBackwardCompactKernel):
+    """B6c, ``tagan_flash_biased_bwd_pre_compact``: B6 over the compact
+    store, (delta1 [G, H, N], dB f32[G, S, 64, 64] in the store's slots)
+    over the forward walk (jlist, jcount, jslot). dB is allocated zeroed
+    and written on the walked slots, every pair (0 off the mask), so
+    slots no walk visits read 0. Deterministic."""
+    name = "flash_biased_bwd_pre_compact"
+    symbol = "tagan_flash_biased_bwd_pre_compact"
+    argtypes = (_P,) * 16 + (_I,) * 10 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
+                 jlist, jcount, jslot, metric: str, scale, seeds,
+                 dropout_rate: float):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2))
+        dev, (G, H, N, D, Dv, n_i, W, S, packed) = self._check(
+            q, k, v, store, bias_store, do, rows, jlist, jcount, jslot,
+            scale, seeds)
+        delta1 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        dbias = torch.zeros((G, S, BLOCK_M, BLOCK_N), dtype=torch.float32,
+                            device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, store, bias_store, do, lse1, lse2, delta2, jlist, jcount,
+            jslot, scale, seeds, delta1, dbias)), G, H, N, D, Dv, n_i, W, S,
+            packed, MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate))
+        return delta1, dbias
+
+
+class _FlashBiasedBwdDqCompactKernel(_FlashBiasedBackwardCompactKernel):
+    """B7a c, ``tagan_flash_biased_bwd_dq_compact``: B7a over the compact
+    store and the bias store, dq (and dscale) over the forward walk,
+    given delta1 (the hybrid band takes the union's). Deterministic."""
+    name = "flash_biased_bwd_dq_compact"
+    symbol = "tagan_flash_biased_bwd_dq_compact"
+    argtypes = (_P,) * 17 + (_I,) * 10 + (_F, _I, _U, _F, _I)
+
+    def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
+                 delta1, jlist, jcount, jslot, metric: str, scale, seeds,
+                 dropout_rate: float, need_dscale: bool):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
+                ("delta1", delta1))
+        dev, (G, H, N, D, Dv, n_i, W, S, packed) = self._check(
+            q, k, v, store, bias_store, do, rows, jlist, jcount, jslot,
+            scale, seeds)
+        dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        part = torch.empty((G, H, n_i) if need_dscale else (1,),
+                           dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, store, bias_store, do, lse1, lse2, delta2, delta1, jlist,
+            jcount, jslot, scale, seeds, dq, part)), G, H, N, D, Dv, n_i, W,
+            S, packed, MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate), int(need_dscale))
+        return dq, (part.sum((0, 2)) if need_dscale else None)
+
+
+class _FlashBiasedBwdDkvCompactKernel(_FlashBiasedBackwardCompactKernel):
+    """B7b c, ``tagan_flash_biased_bwd_dkv_compact``: B7b over the
+    compact store and the bias store, dk and dv over the transposed walk
+    (ilist, icount, islot), whose slots name the same tiles of both
+    stores (row = query, column = key), given delta1. Deterministic."""
+    name = "flash_biased_bwd_dkv_compact"
+    symbol = "tagan_flash_biased_bwd_dkv_compact"
+    argtypes = (_P,) * 17 + (_I,) * 10 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
+                 delta1, ilist, icount, islot, metric: str, scale, seeds,
+                 dropout_rate: float):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
+                ("delta1", delta1))
+        dev, (G, H, N, D, Dv, n_j, W, S, packed) = self._check(
+            q, k, v, store, bias_store, do, rows, ilist, icount, islot,
+            scale, seeds)
+        dk = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        dv = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, store, bias_store, do, lse1, lse2, delta2, delta1, ilist,
+            icount, islot, scale, seeds, dk, dv)), G, H, N, D, Dv, n_j, W, S,
+            packed, MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate))
+        return dk, dv
+
+
 flash_geometric_fwd_kernel = _FlashForwardKernel()
 flash_geometric_bwd_fused_kernel = _FlashBwdFusedKernel()
 flash_geometric_bwd_dq_kernel = _FlashBwdDqKernel()
@@ -1613,6 +1909,9 @@ flash_lse1_compact_kernel = _FlashLse1CompactKernel()
 flash_biased_fwd_compact_kernel = _FlashBiasedCompactKernel()
 flash_geometric_bwd_dq_compact_kernel = _FlashBwdDqCompactKernel()
 flash_geometric_bwd_dkv_compact_kernel = _FlashBwdDkvCompactKernel()
+flash_biased_bwd_pre_compact_kernel = _FlashBiasedBwdPreCompactKernel()
+flash_biased_bwd_dq_compact_kernel = _FlashBiasedBwdDqCompactKernel()
+flash_biased_bwd_dkv_compact_kernel = _FlashBiasedBwdDkvCompactKernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
@@ -1620,7 +1919,10 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_biased_bwd_dkv_kernel, flash_geometric_fwd_compact_kernel,
            flash_lse1_compact_kernel, flash_biased_fwd_compact_kernel,
            flash_geometric_bwd_dq_compact_kernel,
-           flash_geometric_bwd_dkv_compact_kernel)
+           flash_geometric_bwd_dkv_compact_kernel,
+           flash_biased_bwd_pre_compact_kernel,
+           flash_biased_bwd_dq_compact_kernel,
+           flash_biased_bwd_dkv_compact_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -2029,7 +2331,8 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
 
 # ---------------------------------------------------------------------------
 # The compact forms (the hybrid backend's band): B1c with its backward
-# B3a c + B3b c; the edge-biased B4c and B5c forward only
+# B3a c + B3b c; the edge-biased B4c and B5c with their backward B6c, B7a c
+# and B7b c
 # ---------------------------------------------------------------------------
 
 def _forward_compact(q, k, v, store, plan, metric, scale, dropout_rate,
@@ -2043,19 +2346,23 @@ def _forward_compact(q, k, v, store, plan, metric, scale, dropout_rate,
                                               scale, seed, dropout_rate)
 
 
+def _need_transposed(plan_t, kernel: str) -> None:
+    if plan_t is None:
+        raise ValueError(
+            f"the compact backward ({kernel}) walks the transposed plan "
+            "(ilist, icount, islot), and none was given: build the plan "
+            "with the transposed walk (SnapshotSequence.with_hybrid_plan("
+            "transposed=True), attach_hybrid_plans(..., transposed=True), "
+            "or TemporalGraphDataLoader(plan='hybrid'))")
+
+
 def _backward_compact(q, k, v, store, out, lse, do, plan, plan_t, metric,
                       scale, dropout_rate, seed, need_dscale, dlse):
     """(dq, dk, dv, dscale or None) of folded inputs over the compact
     store: B3a c then B3b c for CUDA tensors, the compact plain backward
     for CPU tensors. Raises ValueError without the transposed walk
     ``plan_t``, which B3b c walks."""
-    if plan_t is None:
-        raise ValueError(
-            "the compact backward (B3b c) walks the transposed plan "
-            "(ilist, icount, islot), and none was given: build the plan "
-            "with the transposed walk (SnapshotSequence.with_hybrid_plan("
-            "transposed=True), attach_hybrid_plans(..., transposed=True), "
-            "or TemporalGraphDataLoader(plan='hybrid'))")
+    _need_transposed(plan_t, "B3b c")
     if q.device.type == "cpu":
         return flash_geometric_backward_compact_plain(
             q, k, v, store, out, lse, do, *plan, metric, scale,
@@ -2128,6 +2435,45 @@ def _biased_forward_compact(q, k, v, store, bias_store, lse1, plan, metric,
                                            dropout_rate)
 
 
+def _biased_backward_compact(q, k, v, store, bias_store, do, lse1, lse2,
+                             delta2, plan, plan_t, metric, scale,
+                             dropout_rate, seeds, need_dscale,
+                             delta1_rest=None):
+    """(dq, dk, dv, dB, dscale or None, delta1) of folded inputs over the
+    compact store, given the row statistics lse1, lse2 and delta2
+    [G, H, N]: B6c, then B7a c and B7b c for CUDA tensors, the compact
+    plain parts for CPU tensors. delta1 is B6c's row sums plus
+    ``delta1_rest`` [G, H, N] where given (the hybrid band adds the
+    residual's, so that B7a c and B7b c take the union's). dB f32[G, S,
+    64, 64] is 0 in slots the walk does not visit. Raises ValueError
+    without the transposed walk ``plan_t``, which B7b c walks."""
+    _need_transposed(plan_t, "B7b c")
+    rows = (do, lse1, lse2, delta2)
+    if q.device.type == "cpu":
+        delta1, dbias = flash_biased_bwd_pre_compact_plain(
+            q, k, v, store, bias_store, *rows, *plan, metric, scale,
+            dropout_rate, seeds)
+        if delta1_rest is not None:
+            delta1 = delta1 + delta1_rest
+        r = _biased_bwd_compact_plain(q, k, v, store, bias_store, *rows,
+                                      *plan, metric, scale, dropout_rate,
+                                      seeds, delta1, need_dscale,
+                                      ("dq", "dkv"))
+        return r["dq"], r["dk"], r["dv"], dbias, r["dscale"], delta1
+    delta1, dbias = flash_biased_bwd_pre_compact_kernel(
+        q, k, v, store, bias_store, *rows, *plan, metric, scale, seeds,
+        dropout_rate)
+    if delta1_rest is not None:
+        delta1 = (delta1 + delta1_rest).contiguous()
+    dq, dscale = flash_biased_bwd_dq_compact_kernel(
+        q, k, v, store, bias_store, *rows, delta1, *plan, metric, scale,
+        seeds, dropout_rate, need_dscale)
+    dk, dv = flash_biased_bwd_dkv_compact_kernel(
+        q, k, v, store, bias_store, *rows, delta1, *plan_t, metric, scale,
+        seeds, dropout_rate)
+    return dq, dk, dv, dbias, dscale, delta1
+
+
 def flash_geometric_fwd_compact(q, k, v, store, jlist, jcount, jslot, *,
                                 metric: str,
                                 scale: Optional[torch.Tensor] = None,
@@ -2168,33 +2514,6 @@ def flash_biased_fwd_compact(q, k, v, store, bias_store, lse1, jlist, jcount,
     return _biased_forward_compact(q, k, v, store, bias_store, lse1,
                                    (jlist, jcount, jslot), metric, scale,
                                    dropout_rate, seeds)
-
-
-class _ForwardOnly(torch.autograd.Function):
-    """The identity on its first ``n`` inputs, whose backward raises: the
-    edge-biased band (B4c, B5c) runs forward only until its backward
-    kernels are ported, and a gradient must not silently miss them."""
-
-    @staticmethod
-    def forward(ctx, n, *tensors):
-        return tuple(t.clone() for t in tensors[:n])
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "the backward of the edge-feature hybrid attention (the "
-            "compact-store kernels B6c, B7a c and B7b c and the biased "
-            "residual's backward) is not ported to tagan_torch yet")
-
-
-def forward_only(outs: Tuple[torch.Tensor, ...], inputs) -> Tuple:
-    """``outs``, computed without autograd from ``inputs``, tied to them
-    so that a backward through them raises (`_ForwardOnly`)."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in inputs):
-        return _ForwardOnly.apply(len(outs), *outs,
-                                  *(t for t in inputs if t is not None))
-    return outs
 
 
 def fold_compact(store, plan, G: int):

@@ -920,3 +920,199 @@ def test_hybrid_predictor_on_gpu_matches_cpu(fe, cuda):
         assert launched == want
     assert np.isfinite(got["cuda"]).all() and got["cuda"].shape == (3, 1)
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=0, atol=TOL)
+
+
+# ---------------------------------------------------------------------------
+# B6c, B7a c, B7b c: the compact-store biased backward of the edge-feature
+# hybrid band
+# ---------------------------------------------------------------------------
+
+COMPACT_BIASED_BWD = (FG.flash_biased_bwd_pre_compact_kernel,
+                      FG.flash_biased_bwd_dq_compact_kernel,
+                      FG.flash_biased_bwd_dkv_compact_kernel)
+
+
+def _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack, rate, seed=0):
+    """`_biased_inputs` on the compact store with a key tile whose
+    transposed walk is empty (snapshot 0, keys 64..127, icount = 0), the
+    row tile with jcount = 0 and, in snapshot 1, fewer occupied tiles
+    than the store's S (slots no walk visits); union-like statistics as
+    the hybrid backward passes them: the compact plain forward's lse1 and
+    lse2 raised by a constant on live rows, lse2 = NEG_INF on dead rows
+    (the merge's mark), delta2 = rowsum(dO out) and a residual delta1."""
+    q, k, v, mask, bias, scale, seeds = _biased_inputs(G, H, N, D, Dv,
+                                                       metric, seed)
+    mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
+    if G > 1:
+        mask[1, :, 2 * FG.BLOCK_N:] = 0
+    bias = torch.where(mask != 0, bias, torch.zeros(()))
+    store, plan = FG.compact_from_mask(mask, pack=pack)
+    plan_t = FG.compact_transposed_plan(mask)
+    assert int(plan_t[1][0, 1]) == 0
+    bias_store = FG.compact_values(mask, bias)
+    lse1 = FG.flash_lse1_compact_plain(q, k, store, *plan, metric, scale)
+    live = lse1 < 1e29
+    lse1 = torch.where(live, lse1 + 0.25, lse1)
+    out, lse2 = FG.flash_biased_forward_compact_plain(
+        q, k, v, store, bias_store, lse1, *plan, metric, scale, rate, seeds)
+    lse2 = torch.where(live, lse2 + 0.1, torch.full_like(lse2, -1e30))
+    rng = np.random.default_rng(seed + 400)
+    do = torch.from_numpy(rng.standard_normal((G, H, N, Dv)).astype(
+        np.float32))
+    d1_rest = torch.from_numpy(rng.standard_normal((G, H, N)).astype(
+        np.float32)) * live
+    return (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do,
+            lse1, lse2, (do * out).sum(-1), d1_rest)
+
+
+def _compact_biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
+                                 seed=0):
+    """B6c, then B7a c and B7b c on B6c's delta1 plus the residual's
+    (`_biased_backward_compact`), against the compact plain parts: delta1,
+    the whole dB store (0 off the mask and in the slots no walk visits),
+    dq, dk, dv and dscale within TOL of the largest entry; dq zero on dead
+    rows, dk and dv zero on the key tile with icount = 0; one launch
+    each."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, d1_rest) = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack,
+                                            rate, seed))
+    need = metric in FG.SCALED_METRICS
+    rows = (do, lse1, lse2, delta2)
+    before = [kern.launches for kern in COMPACT_BIASED_BWD]
+    got = FG._biased_backward_compact(q, k, v, store, bias_store, *rows, plan,
+                                      plan_t, metric, scale, rate, seeds,
+                                      need, d1_rest)
+    assert [kern.launches for kern in COMPACT_BIASED_BWD] == \
+        [n + 1 for n in before]
+    common = (q, k, v, store, bias_store, *rows)
+    p_d1, p_db = FG.flash_biased_bwd_pre_compact_plain(
+        *common, *plan, metric, scale, rate, seeds)
+    d1u = p_d1 + d1_rest
+    p_dq, p_dsc = FG.flash_biased_bwd_dq_compact_plain(
+        *common, d1u, *plan, metric, scale, rate, seeds, need)
+    p_dk, p_dv = FG.flash_biased_bwd_dkv_compact_plain(
+        *common, d1u, *plan, metric, scale, rate, seeds)
+    torch.cuda.synchronize()
+    dq, dk, dv, db, dsc, d1 = got
+    for g, w in ((d1, d1u), (db, p_db), (dq, p_dq), (dk, p_dk), (dv, p_dv)) \
+            + (((dsc, p_dsc),) if need else ()):
+        assert torch.isfinite(g).all()
+        assert ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item() \
+            <= TOL
+    if not need:
+        assert dsc is None
+    assert db.abs().max() > 0
+    walked = plan[1].sum(-1)
+    for g in range(G):
+        assert torch.all(db[g, int(walked[g]):] == 0)
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    assert torch.all(dq[dead] == 0)
+    assert torch.all(dk[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+    assert torch.all(dv[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_biased_backward_kernels_match_plain(metric, rate, pack,
+                                                     cuda):
+    """B6c, B7a c and B7b c, bit and int8 stores: N=150 (not a tile
+    multiple), D != Dv, dead rows (lse2 the merge's NEG_INF), a row tile
+    with jcount = 0, a key tile with icount = 0, unvisited slots,
+    per-head scales with dscale, both dropouts from per-snapshot seed
+    pairs (negative included)."""
+    _compact_biased_bwd_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,Dv", [(7, 3), (40, 72), (128, 128)])
+def test_compact_biased_backward_head_dims(D, Dv, cuda):
+    _compact_biased_bwd_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel",
+                                 0.1, False, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["jslot", "jcount", "islot", "ilist"])
+def test_compact_biased_backward_bad_plan_raises_before_launch(fault, cuda):
+    """The wrappers of B6c, B7a c and B7b c check the walk's values: a
+    jslot or islot past the store, a count past the walk's width or a
+    tile past N raises ValueError on the host, and no kernel is
+    launched."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, _) = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_biased_bwd_inputs(1, 2, 150, 16, 16, "dot_product",
+                                            True, 0.0))
+    jl, jc, js = (p.clone() for p in plan)
+    il, ic, isl = (p.clone() for p in plan_t)
+    S = store.shape[1]
+    if fault == "jslot":
+        js[0, 0, 0] = S
+    elif fault == "jcount":
+        jc[0, 0] = jl.shape[-1] + 1
+    elif fault == "islot":
+        isl[0, 0, 0] = -1
+    else:
+        il[0, 0, 0] = 3
+    common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
+    before = [kern.launches for kern in COMPACT_BIASED_BWD]
+    calls = [lambda: FG.flash_biased_bwd_dkv_compact_kernel(
+        *common, lse1, il, ic, isl, "dot_product", scale, seeds, 0.0)] \
+        if fault in ("islot", "ilist") else [
+        lambda: FG.flash_biased_bwd_pre_compact_kernel(
+            *common, jl, jc, js, "dot_product", scale, seeds, 0.0),
+        lambda: FG.flash_biased_bwd_dq_compact_kernel(
+            *common, lse1, jl, jc, js, "dot_product", scale, seeds, 0.0,
+            False)]
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+    assert [kern.launches for kern in COMPACT_BIASED_BWD] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["euclidean", "gaussian_kernel"])
+def test_hybrid_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
+    """One training step of the edge-feature hybrid model over a
+    ``plan="hybrid"`` loader on the card (B4c, B5c, B6c, B7a c and B7b c
+    once per layer; no other kernel) and on the CPU (plain versions),
+    from the same weights: the loss and every gradient, the edge
+    embedding's and each layer's edge bias's included."""
+    seqs = _hybrid_seqs(np.random.default_rng(9), 300, 2400, 2, 1, 4)
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, edge_feature_dim=4,
+                         use_edge_features=True, output_dim=1,
+                         loss_type="bce", dropout=0.0,
+                         spatial_backend="hybrid", distance_metric=metric,
+                         learnable_distance=metric == "gaussian_kernel")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        loader = pt.TemporalGraphDataLoader(
+            pt.TemporalGraphDataset(seqs, [1.0]), batch_size=1,
+            dense_adj=False, plan="hybrid")
+        batch, labels, _ = next(iter(loader))
+        before = {k.name: k.launches for k in FG.KERNELS}
+        loss = model(batch, labels).loss
+        loss.backward()
+        launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
+        want = {k.name: 0 for k in FG.KERNELS}
+        if dev == "cuda":
+            for kern in (FG.flash_lse1_compact_kernel,
+                         FG.flash_biased_fwd_compact_kernel) \
+                    + COMPACT_BIASED_BWD:
+                want[kern.name] = cfg.num_layers
+        assert launched == want
+        got[dev] = (loss.item(), {n: p.grad.cpu()
+                                  for n, p in model.named_parameters()})
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
+    scale = max(g.abs().max().item() for g in got["cpu"][1].values())
+    assert got["cpu"][1]["edge_embedding.w"].abs().max() > 0
+    for name, g in got["cpu"][1].items():
+        assert torch.isfinite(got["cuda"][1][name]).all(), name
+        assert (got["cuda"][1][name] - g).abs().max().item() <= TOL * scale, \
+            name

@@ -522,14 +522,22 @@ def test_bad_transposed_plan_raises(field):
 
 
 def test_edge_feature_hybrid_backward_raises():
-    """The edge-feature hybrid model (B4c, B5c; its backward kernels B6c,
-    B7a c, B7b c are not ported) still serves, and its backward raises
-    NotImplementedError, with the transposed walk or without it."""
+    """The edge-feature hybrid model (B4c, B5c forward; B6c, B7a c, B7b c
+    backward) serves and trains: its backward raises ValueError without
+    the transposed walk, and with it gives finite gradients, non-zero on
+    the edge embedding and on each layer's edge bias (their values are
+    held against ``jax.grad`` in `test_torch_hybrid_edge_train.py`)."""
     tm = _models(fe=4)[2]
-    ts = pt.build_sequence(_snaps(6, fe=4), max_nodes=N, max_edges=E,
-                           max_time=T, dense_adj=False).with_hybrid_plan(
-        transposed=True)
-    loss = tm(ts, torch.tensor(1.0)).loss
+    base = pt.build_sequence(_snaps(6, fe=4), max_nodes=N, max_edges=E,
+                             max_time=T, dense_adj=False)
+    loss = tm(base.with_hybrid_plan(), torch.tensor(1.0)).loss
     assert torch.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="edge-feature hybrid"):
+    with pytest.raises(ValueError, match="transposed walk"):
         loss.backward()
+    tm.zero_grad()
+    tm(base.with_hybrid_plan(transposed=True),
+       torch.tensor(1.0)).loss.backward()
+    for name, param in tm.named_parameters():
+        assert torch.isfinite(param.grad).all(), name
+        if "edge" in name and name.endswith(".w"):
+            assert param.grad.abs().max() > 0, name

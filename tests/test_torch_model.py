@@ -174,9 +174,10 @@ def test_predictor_matches_jax(backend, interpret):
     {"temporal_attention_type": "multi_scale"}, {"bf16_matmul": True}])
 def test_outside_the_slice_raises(override):
     """What the port does not run raises NotImplementedError at
-    construction. The hybrid backend trains, but not with edge features:
-    that backward raises NotImplementedError, and the plain model's
-    backward on a plan without the transposed walk raises ValueError."""
+    construction. The hybrid backend trains, with and without edge
+    features: a backward on a plan without the transposed walk raises
+    ValueError for both models, and with it the edge-feature model's
+    gradients are finite."""
     if override.get("spatial_backend") == "hybrid":
         rng = np.random.default_rng(0)
         snaps = [{"x": rng.standard_normal((12, 8)).astype(np.float32),
@@ -193,10 +194,15 @@ def test_outside_the_slice_raises(override):
         edge = pt.TAGAN(pt.TAGANConfig(**_config(
             edge_feature_dim=3, use_edge_features=True, **override)),
             device="cpu")
-        loss = edge(seq.with_hybrid_plan(transposed=True),
-                    torch.tensor(1.0)).loss
-        with pytest.raises(NotImplementedError):
+        loss = edge(seq.with_hybrid_plan(), torch.tensor(1.0)).loss
+        with pytest.raises(ValueError, match="transposed walk"):
             loss.backward()
+        edge.zero_grad()
+        edge(seq.with_hybrid_plan(transposed=True),
+             torch.tensor(1.0)).loss.backward()
+        assert all(torch.isfinite(p.grad).all()
+                   for p in edge.parameters() if p.grad is not None)
+        assert edge.edge_embedding.w.grad.abs().max() > 0
         return
     with pytest.raises(NotImplementedError):
         pt.TAGAN(pt.TAGANConfig(**_config(**override)), device="cpu")

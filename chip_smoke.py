@@ -30,7 +30,13 @@ Phases, in order; any failure raises and exits non-zero:
    (dq, dscale) and B7b c (dk, dv) against the compact plain parts on
    2e's grid with union-like statistics (a residual's delta1 added, the
    merge's NEG_INF lse2 on dead rows), both stores, the whole dB store
-   (0 in the slots no walk visits);
+   (0 in the slots no walk visits); (2h) the bf16 forms of B1, B2, B3a
+   and B3b (bf16 dot operands, fp32 sums) against the plain bf16
+   versions on 2's grid and head dims 8 and 12, under three gates over
+   the plain version's largest entry: max error <= 2e-3 (bf16-class: an
+   fp32 sum in another order may flip a bf16 rounding), mean error <=
+   1e-5 (fp32-class), and the mean distance from the fp32 result at
+   least 100 times the mean error;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -54,6 +60,11 @@ Phases, in order; any failure raises and exits non-zero:
    and the first layer's B1c on one snapshot against its plain version;
    (3d) the same with 4 N(0, 1) edge features (B4c and B5c once per layer
    per request, B1 and B1c never), one layer's bias store build;
+   (3e) phase 3 with ``bf16_matmul=True`` (B1's bf16 form once per layer
+   per request, nothing else), the peak memory, the fp32 model's logits
+   on the same request and weights beside the bf16 model's, and the
+   first layer's B1 bf16 on one snapshot against the plain bf16 version
+   under the bf16 gates;
 4. end to end at 1,000 nodes: the same Predictor's probabilities on the
    card (kernels) and on the CPU (plain versions), and the per-node
    features after the attention layers (``encode_spatial``); (4b) the
@@ -100,6 +111,11 @@ Phases, in order; any failure raises and exits non-zero:
    yardstick (held against the kernels on band statistics; null with the
    reason if it does not build or differs), and csr ``edge_attention``'s
    biased autograd backward over the layer's whole edge set;
+   (5g) B1, B2, B3a and B3b in their bf16 forms at one snapshot of 3e's
+   request, each beside its fp32 form in turns, the plain bf16 versions,
+   ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask
+   as the library yardstick, and their bounds (the fp32 forms' bytes,
+   operations at the bf16 tensor-core rate);
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -128,13 +144,23 @@ Phases, in order; any failure raises and exits non-zero:
    the folded snapshots and their share of the step, the edge
    parameters' gradients non-zero, one snapshot at full width against
    the compact plain parts with the layer's union statistics;
+   (6e) phase 6 with ``bf16_matmul=True``, ``bench.py``'s bf16 step
+   (:129-151): B1's and B2's bf16 forms (and B3a's and B3b's with the
+   other backward) launched exactly as the fp32 forms are in 6, the fp32
+   forms never; step times, split, peak memory, one layer's bf16 B1 and
+   backward over the folded snapshots and their share of the step; one
+   snapshot at full width against the plain bf16 backward;
 7. training at 1,000 nodes on the card and on the CPU from the same
    weights and batches: the first step's gradients and the losses and
    parameters of 3 AdamW steps; (7b) the same for the edge-feature
    model, and its first-step gradients on the card against its csr form
    (csr's autograd, an independent formula for dB) on distinct edges;
    (7c) the hybrid model at 4,096 nodes over a ``plan="hybrid"`` loader,
-   card against CPU; (7d) the same for the edge-feature hybrid model.
+   card against CPU; (7d) the same for the edge-feature hybrid model;
+   (7e) the same with ``bf16_matmul=True``, the card's fp32 model the
+   witness, twice: with the kernels alone at bf16 (the plain
+   contractions pinned to fp32) under model-level bf16 gates, and as
+   the model runs, every contraction at bf16, at bf16-class tolerances.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -181,6 +207,36 @@ ZERO_GRAD = ("temporal_attention.k.b",
              "temporal_attention.time_q_proj.b")
 FG_SRC = "tagan_tpu/ops/pallas/flash_geometric.py"
 HB_SRC = "tagan_tpu/ops/pallas/hybrid_biased.py"
+# the bf16 forms against their plain versions (both bf16), three gates
+# over the plain version's largest entry: the max error is bf16-class (an
+# fp32 sum in another order can put a value on the other side of a bf16
+# rounding midpoint, which moves one term by up to 2^-8 of itself), the
+# mean error fp32-class (a systematic slip moves every entry), and the
+# witness: the mean distance from the fp32 result is at least 100 times
+# the mean error, so that the rounding really happens
+BF16_MAX_TOL = 2e-3
+BF16_MEAN_TOL = 1e-5
+BF16_WITNESS = 100
+# the bf16 model end to end at 1,000 nodes, card against CPU. With the
+# kernels alone at bf16, a flip in one layer's kernel moves the next
+# layer's inputs and flips some of its roundings in turn, so the mean gate
+# is a model's: each gradient's mean error over its largest entry
+# (measured 5.4e-5 at most, max 2.0e-4; a systematic slip such as a
+# rounded norm moves every entry by ~2^-9), the witness over the model 10
+# times it (measured 2.0e-3), and the parameters after 3 AdamW steps at
+# learning rate 1e-3 within half a step (measured 8.1e-5). With every
+# contraction at bf16 the roundings flip throughout the model: each
+# gradient's max error over its largest entry (measured 2.2e-2; the CPU
+# tests hold the model to JAX's at this tolerance), the losses (4.1e-3)
+# and the parameters, which a step turned by a flipped small gradient
+# moves by up to a few learning rates (5.7e-3)
+BF16_MODEL_MEAN_TOL = 1e-4
+BF16_MODEL_WITNESS = 10
+BF16_KERNELS_PARAM = 5e-4
+BF16_MODEL_GRAD = 1e-1
+BF16_MODEL_LOSS = 2e-2
+BF16_MODEL_PARAM = 1e-2
+PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
 
 
 def log(*a):
@@ -223,6 +279,40 @@ def counts(FG):
 def rel_err(got, want):
     return ((got - want).abs().max()
             / want.abs().max().clamp(min=1.0)).item()
+
+
+def bf16_gates(label, got, want, f32, witness=True, mean=True):
+    """The bf16 gates of ``got`` against ``want`` (the fp32 result
+    ``f32`` is the witness's); returns (max abs error, max error, mean
+    error, witness), the last three over ``want``'s largest entry.
+    ``mean=False`` keeps the max gate alone (a reduction of a few
+    entries, such as dscale)."""
+    m = want.abs().max().clamp(min=1e-30)
+    err = (got - want).abs()
+    mx, mn = (err.max() / m).item(), (err.mean() / m).item()
+    wit = ((f32 - want).abs().mean() / m).item()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: not finite")
+    if not mx <= BF16_MAX_TOL or (mean and not mn <= BF16_MEAN_TOL):
+        raise AssertionError(f"{label}: max err {mx}, mean err {mn} over "
+                             f"the largest entry; tolerances {BF16_MAX_TOL}, "
+                             f"{BF16_MEAN_TOL}")
+    if witness and not wit >= max(BF16_WITNESS * mn, BF16_MEAN_TOL):
+        raise AssertionError(f"{label}: witness {wit} < {BF16_WITNESS} x "
+                             f"mean err {mn}")
+    return err.max().item(), mx, mn, wit
+
+
+def flash_kernels(FG, bf16):
+    """The wrappers of B1, B2, B3a and B3b: the fp32 or the bf16 forms."""
+    if bf16:
+        return (FG.flash_geometric_fwd_bf16_kernel,
+                FG.flash_geometric_bwd_fused_bf16_kernel,
+                FG.flash_geometric_bwd_dq_bf16_kernel,
+                FG.flash_geometric_bwd_dkv_bf16_kernel)
+    return (FG.flash_geometric_fwd_kernel, FG.flash_geometric_bwd_fused_kernel,
+            FG.flash_geometric_bwd_dq_kernel,
+            FG.flash_geometric_bwd_dkv_kernel)
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -376,6 +466,78 @@ def phase_small_bwd(FG):
         f"dscale) {out['B2']:.3e}, B3a (dq, dscale) {out['B3a']:.3e}, B3b "
         f"(dk, dv) {out['B3b']:.3e} (tol {TOL})")
     return out
+
+
+# -- phase 2h -----------------------------------------------------------------
+
+def bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
+    """B1, B2, B3a and B3b in their bf16 forms against the plain bf16
+    versions on one input (the forward walking the same plan), under the
+    bf16 gates with the plain fp32 versions as the witness; dead rows
+    exactly. Returns {kernel: (max abs error, max error, mean error,
+    witness)} of its worst output."""
+    q, k, v, do, dlse, mask, scale, seeds = small_inputs(
+        FG, G, H, N, D, Dv, metric, seed)
+    label = f"bf16 {metric} rate={rate} D={D} Dv={Dv}"
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    out, lse = FG.flash_geometric_fwd_bf16_kernel(
+        q, k, v, mask, *plan, metric, scale, seeds, rate)
+    sync()
+    p_out, p_lse = FG.flash_geometric_forward_plain(
+        q, k, v, mask, metric, scale, rate, seeds, True, plan)
+    f_out, f_lse = FG.flash_geometric_forward_plain(
+        q, k, v, mask, metric, scale, rate, seeds)
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    if not (torch.all(out[dead] == 0) and torch.all(lse[dead] == FG.LSE_DEAD)
+            and torch.all(p_out[dead] == 0)):
+        raise AssertionError(f"{label}: dead rows differ")
+    res = {"B1": max(
+        bf16_gates(f"{label} out", out[~dead], p_out[~dead], f_out[~dead]),
+        bf16_gates(f"{label} lse", lse[~dead], p_lse[~dead], f_lse[~dead],
+                   witness=False))}
+    need = metric in FG.SCALED_METRICS
+    want = FG.flash_geometric_backward_plain(
+        q, k, v, mask, p_out, p_lse, do, metric, scale, rate, seeds, need,
+        dlse, True)
+    f32 = FG.flash_geometric_backward_plain(
+        q, k, v, mask, p_out, p_lse, do, metric, scale, rate, seeds, need,
+        dlse)
+    for fused, parts in ((True, {"B2": (0, 1, 2, 3)}),
+                         (False, {"B3a": (0, 3), "B3b": (1, 2)})):
+        got = FG._backward(q, k, v, mask, p_out, p_lse, do, plan, plan_t,
+                           metric, scale, rate, seeds, need, fused, dlse,
+                           True)
+        sync()
+        for name, idx in parts.items():
+            res[name] = max(
+                bf16_gates(f"{label} {name} {'dq dk dv dscale'.split()[i]}",
+                           got[i], want[i], f32[i], witness=i < 3,
+                           mean=i < 3)
+                for i in idx if want[i] is not None)
+    return res
+
+
+def phase_small_bf16(FG):
+    """[2h] every metric with dropout 0 and 0.1 at head dim 16, and head
+    dims 8 and 12 (sqrt(d) not a power of two), dscale for gaussian/rbf,
+    dead rows, an empty query tile and key strip, N not a multiple of the
+    tile."""
+    cases = [(metric, 16, 8, rate) for metric in FG.MXU_METRICS
+             for rate in (0.0, 0.1)]
+    cases += [("scaled_dot_product", 8, 8, 0.1), ("gaussian_kernel", 12, 12,
+                                                   0.0),
+              ("rbf_kernel", 8, 12, 0.1), ("cosine_similarity", 12, 8, 0.0)]
+    worst = {}
+    for metric, D, Dv, rate in cases:
+        for name, r in bf16_vs_plain(FG, 2, 3, 150, D, Dv, metric,
+                                     rate).items():
+            worst[name] = max(worst.get(name, r), r)
+    log(f"[2h] bf16 forms vs plain bf16: {len(cases)} cases; worst (max abs "
+        f"err, max err, mean err, witness over the largest entry) "
+        + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
+                    for n, r in worst.items())
+        + f" (tol {BF16_MAX_TOL}, {BF16_MEAN_TOL}, witness {BF16_WITNESS}x)")
+    return {n: r[0] for n, r in worst.items()}
 
 
 # -- phase 2c -----------------------------------------------------------------
@@ -540,11 +702,13 @@ def make_sequence(rng, n, e, t_len):
             for t in range(t_len)]
 
 
-def model_config(tt):
+def model_config(tt, bf16=False):
+    """bench.py's 10K flash model (:37, :140-151), with ``bf16_matmul``
+    as its bf16 step sets it."""
     return tt.TAGANConfig(hidden_dim=64, num_heads=4, num_layers=2,
                           node_feature_dim=F_NODE, output_dim=1,
                           loss_type="bce", dropout=0.0,
-                          spatial_backend="flash")
+                          spatial_backend="flash", bf16_matmul=bf16)
 
 
 def layer0_inputs(FG, model, batch, n):
@@ -563,8 +727,13 @@ def layer0_inputs(FG, model, batch, n):
                  for t in (q, k, v, mask, *plan, *plan_t))
 
 
-def phase_serve(tt, FG):
-    cfg = model_config(tt)
+def phase_serve(tt, FG, bf16=False):
+    """[3], and with ``bf16`` [3e]: the 10K model with bf16_matmul=True,
+    B1's bf16 form held to the plain bf16 version under the bf16 gates,
+    and the fp32 model's logits on the same request beside it."""
+    tag = "3e" if bf16 else "3"
+    fwd = flash_kernels(FG, bf16)[0]
+    cfg = model_config(tt, bf16)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
     dims = (T_FULL, N_FULL, E_FULL, 0)
@@ -575,6 +744,7 @@ def phase_serve(tt, FG):
     pred.warmup()
     sync()
 
+    torch.cuda.reset_peak_memory_stats()
     reset_counts(FG)
     lat, probs = [], []
     for req in requests:
@@ -582,17 +752,20 @@ def phase_serve(tt, FG):
         probs.append(pred.predict_proba(req))   # host copy: synchronises
         lat.append((time.perf_counter() - t0) * 1e3)
     launched = counts(FG)
-    launches = launched[FG.flash_geometric_fwd_kernel.name]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = launched[fwd.name]
     expected = cfg.num_layers * REQUESTS      # one launch per layer per batch
     probs = np.concatenate(probs)
     finite = bool(np.isfinite(probs).all())
-    log(f"[3] request latency ms: {[round(x, 3) for x in lat]}; "
+    log(f"[{tag}] request latency ms: {[round(x, 3) for x in lat]}; "
         f"sequences/s {REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3):.3f}; "
-        f"kernel launches {launched} (expected B1 {expected}, no backward); "
-        f"probabilities finite: {finite}, shape {probs.shape}")
+        f"peak memory {peak_gb:.3f} GB; kernel launches {launched} (expected "
+        f"{fwd.name} {expected}, no backward); probabilities finite: "
+        f"{finite}, shape {probs.shape}")
     if launches != expected or launches == 0 or \
             sum(launched.values()) != launches:
-        raise AssertionError(f"launches {launched}, expected B1 {expected}")
+        raise AssertionError(f"launches {launched}, expected {fwd.name} "
+                             f"{expected}")
     if not finite or probs.shape != (REQUESTS * SEQS_PER_REQUEST, 1):
         raise AssertionError("bad probabilities")
 
@@ -602,10 +775,19 @@ def phase_serve(tt, FG):
         model(batch)
         sync()
         t0 = time.perf_counter()
-        model(batch)
+        logits = model(batch).logits
         sync()
         fwd_ms = (time.perf_counter() - t0) * 1e3
-    log(f"[3] forward on a packed request: {fwd_ms:.3f} ms")
+    log(f"[{tag}] forward on a packed request: {fwd_ms:.3f} ms")
+    gap = None
+    if bf16:
+        f32 = tt.TAGAN(model_config(tt), device=DEV,
+                       generator=torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            gap = (logits - f32(batch).logits).abs().max().item()
+        del f32
+        log(f"[{tag}] logits of the fp32 model on the same request and "
+            f"weights: max abs gap {gap:.4e} (logits {logits.ravel()})")
 
     H = cfg.num_heads
     folded = layer0_inputs(FG, model, batch, N_FULL)
@@ -613,28 +795,41 @@ def phase_serve(tt, FG):
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
     with torch.inference_mode():
-        layer_ms = cuda_ms(lambda: FG.flash_geometric_fwd_kernel(
-            *folded[:6], "euclidean", ones, seeds, 0.0), 3)
+        layer_ms = cuda_ms(lambda: fwd(*folded[:6], "euclidean", ones,
+                                       seeds, 0.0), 3)
         # one snapshot at full width against the plain version; copies,
         # so that the folded mask is freed when this phase returns
         args = tuple(t[:1].clone() for t in folded)
-        out, lse = FG.flash_geometric_fwd_kernel(
-            *args[:6], "euclidean", ones, seeds[:1], 0.0)
+        out, lse = fwd(*args[:6], "euclidean", ones, seeds[:1], 0.0)
         p_out, p_lse = FG.flash_geometric_forward_plain(
-            *args[:4], "euclidean", ones, 0.0, seeds[:1])
+            *args[:4], "euclidean", ones, 0.0, seeds[:1], bf16, args[4:6])
         sync()
+        if bf16:
+            f_out, f_lse = FG.flash_geometric_forward_plain(
+                *args[:4], "euclidean", ones, 0.0, seeds[:1])
     share = cfg.num_layers * layer_ms / fwd_ms
-    log(f"[3] one layer's launch over the {G} folded snapshots: "
+    log(f"[{tag}] one layer's launch over the {G} folded snapshots: "
         f"{layer_ms:.3f} ms; {cfg.num_layers} layers = {share:.3f} of the "
         f"forward")
-    err = max((out - p_out).abs().max().item(),
-              (lse - p_lse).abs().max().item())
-    log(f"[3] layer-0 kernel vs plain at N={N_FULL}: max abs err {err:.3e}")
-    if not err <= TOL:
-        raise AssertionError(f"full-width kernel error {err} > {TOL}")
+    if bf16:
+        gates = max(bf16_gates("full-width out", out, p_out, f_out),
+                    bf16_gates("full-width lse", lse, p_lse, f_lse,
+                               witness=False))
+        err = gates[0]
+        log(f"[{tag}] layer-0 bf16 kernel vs plain bf16 at N={N_FULL}: "
+            f"(max abs err, max err, mean err, witness) "
+            f"{tuple(f'{x:.3e}' for x in gates)}")
+    else:
+        err = max((out - p_out).abs().max().item(),
+                  (lse - p_lse).abs().max().item())
+        log(f"[{tag}] layer-0 kernel vs plain at N={N_FULL}: max abs err "
+            f"{err:.3e}")
+        if not err <= TOL:
+            raise AssertionError(f"full-width kernel error {err} > {TOL}")
     return dict(latency_ms=lat, launches=launches, expected=expected,
                 forward_ms=fwd_ms, layer_launch_ms=layer_ms,
                 kernel_share_of_forward=share, full_err=err, args=args,
+                peak_gb=peak_gb, fp32_logits_gap=gap,
                 sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
 
 
@@ -1024,6 +1219,126 @@ def backward_times(FG, args, out, lse, pairs):
     return res
 
 
+# -- phase 5g -----------------------------------------------------------------
+
+def phase_times_bf16(FG, args):
+    """[5g] B1, B2, B3a and B3b in their bf16 forms at one 10K snapshot of
+    the bf16 request (3e), each beside its fp32 form in turns, the plain
+    bf16 versions, and ``scaled_dot_product_attention`` on bf16 q, k, v
+    with the boolean mask as the library yardstick (backward: forward +
+    backward - forward). The bounds: the fp32 forms' bytes (the inputs
+    stay fp32: the norms and the euclidean chain read them unrounded)
+    and the pairs' operations at the bf16 tensor-core rate."""
+    q, k, v, mask, jlist, jcount, ilist, icount = args
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    ones = torch.ones(H, device=DEV)
+    seed0 = torch.zeros(G, dtype=torch.int32, device=DEV)
+    f32k, bf16k = flash_kernels(FG, False), flash_kernels(FG, True)
+
+    def fwd(kern):
+        return lambda: kern(q, k, v, mask, jlist, jcount, "euclidean", ones,
+                            seed0, 0.0)
+
+    def plain_fwd():
+        FG.flash_geometric_forward_plain(q, k, v, mask, "euclidean", ones,
+                                         0.0, seed0, True, (jlist, jcount))
+    bq, bk, bv = (t.bfloat16() for t in (q, k, v))
+    bmask = mask[:, None] != 0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    with torch.inference_mode():
+        t32a, t16a = cuda_ms(fwd(f32k[0]), 10), cuda_ms(fwd(bf16k[0]), 10)
+        t16b, t32b = cuda_ms(fwd(bf16k[0]), 10), cuda_ms(fwd(f32k[0]), 10)
+        plain = cuda_ms(plain_fwd, 2)
+        lib = cuda_ms(lambda: sdpa(bq, bk, bv, attn_mask=bmask), 10)
+        out, lse = bf16k[0](q, k, v, mask, jlist, jcount, "euclidean", ones,
+                            seed0, 0.0)
+    pairs = int((mask != 0).sum().item())
+    qkv = 4 * G * H * N * (2 * D + Dv)
+    nbytes = (qkv + mask.numel() + 4 * (jlist.numel() + jcount.numel() + H + G)
+              + 4 * G * H * N * (Dv + 1))
+
+    def bound16(nb, flops):
+        t_bytes = nb / PEAK_BYTES * 1e3
+        t_flops = flops / PEAK_BF16_FLOPS * 1e3
+        return dict(bound_ms=max(t_bytes, t_flops),
+                    bound_by="bytes" if t_bytes >= t_flops else "operations",
+                    bytes=nb, flops=flops)
+    res = {"B1": dict(ms=[t16a, t16b], fp32_ms=[t32a, t32b], plain_ms=plain,
+                      library_ms=lib,
+                      **bound16(nbytes, 2 * H * pairs * (D + Dv)))}
+    log(f"[5g] bf16, one snapshot: B1 bf16 ms {t16a:.4f} {t16b:.4f} (fp32 "
+        f"{t32a:.4f} {t32b:.4f}); plain bf16 ms {plain:.4f}; sdpa bf16 ms "
+        f"{lib:.4f}")
+
+    do = torch.randn(out.shape, device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(5))
+    delta = (do * out).sum(-1)
+    common = (q, k, v, mask, do, lse, delta)
+
+    def b2(kern):
+        return lambda: kern(*common, ilist, icount, "euclidean", ones, seed0,
+                            0.0, False)
+
+    def b3a(kern):
+        return lambda: kern(*common, jlist, jcount, "euclidean", ones, seed0,
+                            0.0, False)
+
+    def b3b(kern):
+        return lambda: kern(*common, ilist, icount, "euclidean", ones, seed0,
+                            0.0)
+
+    def plain_bwd():
+        FG.flash_geometric_backward_plain(q, k, v, mask, out, lse, do,
+                                          "euclidean", ones, 0.0, seed0,
+                                          False, None, True)
+    leaves = [t.detach().clone().requires_grad_() for t in (bq, bk, bv)]
+    bdo = do.bfloat16()
+
+    def lib_fb():
+        o = sdpa(*leaves, attn_mask=bmask)
+        torch.autograd.grad(o, leaves, bdo)
+
+    def lib_f():
+        with torch.no_grad():
+            sdpa(*leaves, attn_mask=bmask)
+
+    times = {}
+    for name, make, kern32, kern16 in (("B2", b2, f32k[1], bf16k[1]),
+                                       ("B3a", b3a, f32k[2], bf16k[2]),
+                                       ("B3b", b3b, f32k[3], bf16k[3])):
+        a32, a16 = cuda_ms(make(kern32), 10), cuda_ms(make(kern16), 10)
+        b16, b32 = cuda_ms(make(kern16), 10), cuda_ms(make(kern32), 10)
+        times[name] = ([a16, b16], [a32, b32])
+    plain_b = cuda_ms(plain_bwd, 2)
+    lib_b = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
+    HN = G * H * N
+    reads = (4 * HN * (2 * D + 2 * Dv) + 8 * HN + mask.numel() + 4 * (H + G))
+    plan_b = 4 * (jlist.numel() + jcount.numel())
+    plan_tb = 4 * (ilist.numel() + icount.numel())
+    for name, nb, flops in (
+            ("B2", reads + plan_tb + 4 * HN * (2 * D + Dv),
+             2 * H * pairs * (3 * D + 2 * Dv)),
+            ("B3a", reads + plan_b + 4 * HN * D, 2 * H * pairs * (2 * D + Dv)),
+            ("B3b", reads + plan_tb + 4 * HN * (D + Dv),
+             2 * H * pairs * (2 * D + 2 * Dv))):
+        res[name] = dict(ms=times[name][0], fp32_ms=times[name][1],
+                         plain_ms=plain_b, library_ms=lib_b,
+                         **bound16(nb, flops))
+    log(f"[5g] bf16 backward, one snapshot: "
+        + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in times[n][0])}"
+                    f" (fp32 {' '.join(f'{x:.4f}' for x in times[n][1])})"
+                    for n in times)
+        + f"; plain bf16 backward ms {plain_b:.4f}; sdpa bf16 backward ms "
+        f"{lib_b:.4f}")
+    for name, r in res.items():
+        log(f"[5g] {name} bf16 bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops at the "
+            f"bf16 rate)")
+    return res
+
+
 # -- phase 5b -----------------------------------------------------------------
 
 def flex_setup(q, mask):
@@ -1342,8 +1657,13 @@ def check_grads(model):
             or (n not in ZERO_GRAD and not bool((p.grad != 0).any()))]
 
 
-def phase_train(tt, FG):
-    cfg = model_config(tt)
+def phase_train(tt, FG, bf16=False):
+    """[6], and with ``bf16`` [6e]: bench.py's bf16 training step
+    (bf16_matmul=True), the bf16 forms' launches counted and held to the
+    plain bf16 backward under the bf16 gates."""
+    tag = "6e" if bf16 else "6"
+    b1, b2, b3a, b3b = flash_kernels(FG, bf16)
+    cfg = model_config(tt, bf16)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
     exp = tt.ExperimentConfig(model=cfg, batch_size=1, num_epochs=1, seed=0,
@@ -1367,6 +1687,7 @@ def phase_train(tt, FG):
 
     default = FG.FUSED_BWD
     runs = {}
+    torch.cuda.reset_peak_memory_stats()
     for fused in (default, not default):
         FG.FUSED_BWD = fused
         reset_counts(FG)
@@ -1376,10 +1697,8 @@ def phase_train(tt, FG):
         epoch_ms = (time.perf_counter() - t0) * 1e3
         launched = counts(FG)
         want = {k.name: 0 for k in FG.KERNELS}
-        want[FG.flash_geometric_fwd_kernel.name] = 2 * TRAIN_STEPS
-        for kern in ((FG.flash_geometric_bwd_fused_kernel,) if fused else
-                     (FG.flash_geometric_bwd_dq_kernel,
-                      FG.flash_geometric_bwd_dkv_kernel)):
+        want[b1.name] = 2 * TRAIN_STEPS
+        for kern in (b2,) if fused else (b3a, b3b):
             want[kern.name] = cfg.num_layers * TRAIN_STEPS
         losses = res["history"]["train_loss"]
         step_ms = step_times(trainer, batches)
@@ -1387,7 +1706,7 @@ def phase_train(tt, FG):
         # one non-zero but those that are zero in exact arithmetic
         grads = dict(model.named_parameters())
         no_grad = check_grads(model)
-        log(f"[6] {'B2' if fused else 'B3a+B3b'} backward: {TRAIN_STEPS} "
+        log(f"[{tag}] {'B2' if fused else 'B3a+B3b'} backward: {TRAIN_STEPS} "
             f"steps of TAGANTrainer.train in {epoch_ms:.3f} ms; mean loss "
             f"{losses}; launches {launched} (expected {want}); step ms "
             f"(host clock, synchronised) {[round(x, 3) for x in step_ms]}; "
@@ -1402,18 +1721,20 @@ def phase_train(tt, FG):
         runs[fused] = dict(epoch_ms=epoch_ms, step_ms=step_ms,
                            launches=launched, loss=losses)
     FG.FUSED_BWD = default
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     moved = sum(int(not torch.equal(p.detach(), before[n]))
                 for n, p in model.named_parameters())
-    log(f"[6] parameters moved by the measured steps: {moved} of "
-        f"{len(before)} tensors")
+    log(f"[{tag}] parameters moved by the measured steps: {moved} of "
+        f"{len(before)} tensors; peak memory of the measured steps "
+        f"{peak_gb:.3f} GB")
     if moved != len(before):
         raise AssertionError(f"only {moved} of {len(before)} parameters moved")
 
     # the step split with CUDA events, the picker's default backward
     b, y, m = batches[0]
     splits = step_split(trainer, b, y, m)
-    log(f"[6] step split (CUDA events) forward / backward / optimizer ms: "
-        f"{[[round(x, 3) for x in s] for s in splits]}")
+    log(f"[{tag}] step split (CUDA events) forward / backward / optimizer "
+        f"ms: {[[round(x, 3) for x in s] for s in splits]}")
 
     # one layer's backward launch over the batch's 8 folded snapshots
     args = layer0_inputs(FG, model, b.to(DEV), N_FULL)
@@ -1422,27 +1743,23 @@ def phase_train(tt, FG):
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
     with torch.no_grad():
-        out, lse = FG.flash_geometric_fwd_kernel(
-            q, k, v, mask, jlist, jcount, "euclidean", ones, seeds, 0.0)
-        fold_b1 = cuda_ms(lambda: FG.flash_geometric_fwd_kernel(
-            q, k, v, mask, jlist, jcount, "euclidean", ones, seeds, 0.0), 3)
+        out, lse = b1(q, k, v, mask, jlist, jcount, "euclidean", ones, seeds,
+                      0.0)
+        fold_b1 = cuda_ms(lambda: b1(q, k, v, mask, jlist, jcount,
+                                     "euclidean", ones, seeds, 0.0), 3)
         do = torch.randn(out.shape, device=DEV,
                          generator=torch.Generator(device=DEV).manual_seed(6))
         delta = (do * out).sum(-1)
         common = (q, k, v, mask, do, lse, delta)
-        fold_b2 = cuda_ms(lambda: FG.flash_geometric_bwd_fused_kernel(
-            *common, ilist, icount, "euclidean", ones, seeds, 0.0, False), 3)
+        fold_b2 = cuda_ms(lambda: b2(*common, ilist, icount, "euclidean",
+                                     ones, seeds, 0.0, False), 3)
         fold_b3 = cuda_ms(lambda: (
-            FG.flash_geometric_bwd_dq_kernel(*common, jlist, jcount,
-                                             "euclidean", ones, seeds, 0.0,
-                                             False),
-            FG.flash_geometric_bwd_dkv_kernel(*common, ilist, icount,
-                                              "euclidean", ones, seeds,
-                                              0.0)), 3)
+            b3a(*common, jlist, jcount, "euclidean", ones, seeds, 0.0, False),
+            b3b(*common, ilist, icount, "euclidean", ones, seeds, 0.0)), 3)
     fold = {True: fold_b2, False: fold_b3}[default]
     step = min(runs[default]["step_ms"])
     share = cfg.num_layers * (fold_b1 + fold) / step
-    log(f"[6] one layer's launches over the {G} folded snapshots: B1 "
+    log(f"[{tag}] one layer's launches over the {G} folded snapshots: B1 "
         f"{fold_b1:.3f} ms; backward B2 {fold_b2:.3f} ms, B3a+B3b "
         f"{fold_b3:.3f} ms; {cfg.num_layers} layers' B1 and "
         f"{'B2' if default else 'B3a+B3b'} = {share:.3f} of the fastest step "
@@ -1453,20 +1770,31 @@ def phase_train(tt, FG):
     plan = tuple(t[:1].contiguous() for t in (jlist, jcount))
     plan_t = tuple(t[:1].contiguous() for t in (ilist, icount))
     want = FG.flash_geometric_backward_plain(*one, "euclidean", ones, 0.0,
-                                             seeds[:1])
+                                             seeds[:1], False, None, bf16)
+    if bf16:
+        f32 = FG.flash_geometric_backward_plain(*one, "euclidean", ones, 0.0,
+                                                seeds[:1])
     full = {}
     for fused in (True, False):
         got = FG._backward(*one, plan, plan_t, "euclidean", ones, 0.0,
-                           seeds[:1], False, fused, None)
+                           seeds[:1], False, fused, None, bf16)
         sync()
-        full[fused] = check_backward(f"N={N_FULL}", got, want, fused)
+        if bf16:
+            full[fused] = {n: bf16_gates(f"N={N_FULL} fused={fused} {n}",
+                                         g, w, f)[0]
+                           for n, g, w, f in zip(("dq", "dk", "dv"), got,
+                                                 want, f32)}
+            full[fused]["dscale"] = 0.0
+        else:
+            full[fused] = check_backward(f"N={N_FULL}", got, want, fused)
     full = kernel_errors(full)
-    log(f"[6] backward at N={N_FULL}, one snapshot, vs plain: max abs err "
+    log(f"[{tag}] backward at N={N_FULL}, one snapshot, vs plain"
+        f"{' bf16 (bf16 gates)' if bf16 else ''}: max abs err "
         f"B2 {full['B2']:.3e}, B3a {full['B3a']:.3e}, B3b {full['B3b']:.3e}")
     return dict(pack_s=pack_s, runs={str(k): v for k, v in runs.items()},
                 default_fused=default, moved=moved, split_ms=splits,
                 fold_b1_ms=fold_b1, fold_b2_ms=fold_b2, fold_b3_ms=fold_b3,
-                kernel_share_of_step=share, full_err=full,
+                kernel_share_of_step=share, full_err=full, peak_gb=peak_gb,
                 launches={f: runs[f]["launches"] for f in runs})
 
 
@@ -1611,13 +1939,17 @@ def grad_errors(got, want):
     return worst, zero
 
 
-def train_steps(tt, FG, cfg, dev, ds, plan=None):
+def train_steps(tt, FG, cfg, dev, ds, plan=None, contractions=None):
     """AdamW steps of a fresh model (weights from seed 0) over ``ds``,
     one sequence per batch (the loader's ``plan``): the losses, the first
     step's gradients, the parameters after the last step and the kernels
-    launched."""
+    launched. ``contractions`` pins the precision of the model's plain
+    contractions (`default_matmul_precision`), the kernels' aside."""
+    from tagan_torch.core.module import default_matmul_precision
     model = tt.TAGAN(cfg, device=dev,
                      generator=torch.Generator().manual_seed(0))
+    if contractions is not None:
+        model.precision = lambda: default_matmul_precision(contractions)
     trainer = tt.TAGANTrainer(model, tt.ExperimentConfig(
         model=cfg, batch_size=1, seed=0))
     loader = tt.TemporalGraphDataLoader(ds, batch_size=1, dense_adj=False,
@@ -1677,6 +2009,84 @@ def phase_train_mid(tt, FG):
     return card_vs_cpu("7", train_steps(tt, FG, cfg, DEV, ds),
                        train_steps(tt, FG, cfg, "cpu", ds))
 
+
+
+# -- phase 7e -----------------------------------------------------------------
+
+def phase_train_mid_bf16(tt, FG):
+    """[7e] the bf16 model (bf16_matmul=True) at 1,000 nodes: 3 AdamW steps
+    on the card (the bf16 kernels) and on the CPU (their plain versions)
+    from the same weights and batches: the first step's gradients (but
+    those zero in exact arithmetic), the losses, and the parameters where
+    the first gradient stands above fp32 noise (as in phase 7), twice.
+    (a) The kernels alone at bf16, the plain contractions pinned to fp32
+    on both sides: the bf16 gates per gradient, the card's fp32 model the
+    witness. (b) The model as it runs, every contraction at bf16: there a
+    rounding that an fp32 sum order flips moves its value by 2^-8, and the
+    roundings of what it feeds then flip in turn, so the two sides part at
+    bf16 class throughout the model; held at bf16-class tolerances."""
+    rng = np.random.default_rng(3)
+    ds = tt.TemporalGraphDataset(
+        [make_sequence(rng, N_MID, 16 * N_MID, T_FULL) for _ in range(3)],
+        [1.0, 0.0, 1.0])
+    cfg16 = model_config(tt, True)
+    f32 = train_steps(tt, FG, model_config(tt), DEV, ds)
+    want = {FG.flash_geometric_fwd_bf16_kernel.name: 3 * 2}
+    for kern in (flash_kernels(FG, True)[1:2] if FG.FUSED_BWD
+                 else flash_kernels(FG, True)[2:]):
+        want[kern.name] = 3 * 2
+    res = {}
+    for part, contractions in (("a", "highest"), ("b", None)):
+        card = train_steps(tt, FG, cfg16, DEV, ds, contractions=contractions)
+        cpu = train_steps(tt, FG, cfg16, "cpu", ds, contractions=contractions)
+        launched = [r["launched"] for r in (card, cpu)]
+        if launched != [want, {}]:
+            raise AssertionError(f"launches {launched}, card expected {want}")
+        grads = []
+        for n, w in cpu["grads"].items():
+            if n in ZERO_GRAD:
+                continue
+            m = w.abs().max()
+            err = (card["grads"][n] - w).abs()
+            grads.append(((err.max() / m).item(), (err.mean() / m).item(),
+                          ((f32["grads"][n] - w).abs().mean() / m).item()))
+        worst = (max(g[0] for g in grads), max(g[1] for g in grads),
+                 max(g[2] for g in grads))
+        # the witness over the model: some tensors lie far from the
+        # attention layers, where the kernels' rounding barely reaches
+        if part == "a" and not (
+                worst[0] <= BF16_MAX_TOL and worst[1] <= BF16_MODEL_MEAN_TOL
+                and worst[2] >= BF16_MODEL_WITNESS * worst[1]):
+            raise AssertionError(f"gradients: max err {worst[0]}, mean err "
+                                 f"{worst[1]}, witness {worst[2]}")
+        loss_err = max(abs(a - b) for a, b in zip(card["losses"],
+                                                  cpu["losses"]))
+        param_err = 0.0
+        for n, p in cpu["params"].items():
+            g = cpu["grads"][n].abs()
+            sel = g > 1e-4 * g.max().clamp(min=1e-30)
+            if sel.any():
+                param_err = max(param_err, (card["params"][n]
+                                            - p)[sel].abs().max().item())
+        what = "kernels alone" if part == "a" else "every contraction"
+        log(f"[7e{part}] bf16 training at N={N_MID}, card vs cpu, {what} "
+            f"at bf16: losses {card['losses']} vs {cpu['losses']} (max abs err "
+            f"{loss_err:.3e}); first-step gradients over each tensor's "
+            f"largest entry: worst max err, worst mean err, largest mean "
+            f"fp32 distance {tuple(f'{x:.3e}' for x in worst)}; parameters "
+            f"after "
+            f"3 steps max abs err {param_err:.3e}; launches {launched}")
+        tols = (TOL, BF16_KERNELS_PARAM) if part == "a" else (
+            BF16_MODEL_LOSS, BF16_MODEL_PARAM)
+        if part == "b" and not worst[0] <= BF16_MODEL_GRAD:
+            raise AssertionError(f"gradients {worst[0]} > {BF16_MODEL_GRAD}")
+        if not (loss_err <= tols[0] and param_err <= tols[1]):
+            raise AssertionError(f"losses {loss_err}, parameters {param_err}"
+                                 f" > {tols}")
+        res[part] = dict(losses={"card": card["losses"], "cpu": cpu["losses"]},
+                         grad_worst=worst, loss_err=loss_err,
+                         param_err=param_err)
+    return res
 
 
 # -- phase 7b -----------------------------------------------------------------
@@ -3271,7 +3681,9 @@ def main() -> int:
     small_compact = phase_small_compact(FG)
     small_compact_bwd = phase_small_compact_bwd(FG)
     small_compact_biased_bwd = phase_small_compact_biased_bwd(FG)
+    small_bf16 = phase_small_bf16(FG)
     serve = phase_serve(tt, FG)
+    serve_bf16 = phase_serve(tt, FG, bf16=True)
     serve_edge = phase_serve_edge(tt, FG)
     serve_hyb = phase_serve_hybrid(tt, FG, edge=False)
     serve_hyb_edge = phase_serve_hybrid(tt, FG, edge=True)
@@ -3282,6 +3694,7 @@ def main() -> int:
     hyb_train_csr = phase_hybrid_train_vs_csr(tt, FG)
     hyb_edge_train_csr = phase_hybrid_edge_train_vs_csr(tt, FG)
     times = phase_times(FG, serve.pop("args"))
+    times_bf16 = phase_times_bf16(FG, serve_bf16.pop("args"))
     edge_args = serve_edge.pop("args")
     times_biased = phase_times_biased(FG, edge_args, serve_edge.pop("graph"))
     times_biased_bwd = phase_times_biased_bwd(FG, edge_args)
@@ -3289,8 +3702,10 @@ def main() -> int:
     times_hyb = phase_times_hybrid(FG, serve_hyb.pop("args"),
                                    serve_hyb_edge.pop("args"))
     train = phase_train(tt, FG)
+    train_bf16 = phase_train(tt, FG, bf16=True)
     train_edge = phase_train_edge(tt, FG)
     train_mid = phase_train_mid(tt, FG)
+    train_mid_bf16 = phase_train_mid_bf16(tt, FG)
     train_mid_edge = phase_train_mid_edge(tt, FG)
     train_hyb = phase_train_hybrid(tt, FG)
     times_hyb_bwd = phase_times_hybrid_bwd(FG, train_hyb.pop("args"))
@@ -3419,9 +3834,37 @@ def main() -> int:
             ("B6c", FG.flash_biased_bwd_pre_compact_kernel, 298),
             ("B7a c", FG.flash_biased_bwd_dq_compact_kernel, 371),
             ("B7b c", FG.flash_biased_bwd_dkv_compact_kernel, 405))]
+    # the bf16 forms: launches on the bf16 serving (3e) and training (6e)
+    # paths, times at one 10K snapshot of the bf16 request (5g), each
+    # beside its fp32 form's in the same run
+    t16 = times_bf16
+    launches16 = {**train_bf16["launches"][False], **{
+        k: v for k, v in train_bf16["launches"][True].items() if v}}
+    kernels += [
+        dict(kernel_record(
+            FG, kern, source, line,
+            serve_bf16["launches"] if name == "B1" else launches16[kern.name],
+            max(small_bf16[name], serve_bf16["full_err"] if name == "B1"
+                else train_bf16["full_err"][name]),
+            min(t16[name]["ms"]), t16[name]["plain_ms"],
+            ("flash_geometric_forward_plain" if name == "B1" else
+             "flash_geometric_backward_plain (dq, dk and dv)")
+            + " with bf16=True", t16[name], t16[name]["library_ms"]),
+             fp32_ms=min(t16[name]["fp32_ms"]),
+             library_of="scaled_dot_product_attention on bf16 q, k, v with "
+                        "the boolean mask" + ("" if name == "B1" else
+                                              ", forward+backward - forward"))
+        for name, kern, source, line in zip(
+            ("B1", "B2", "B3a", "B3b"), flash_kernels(FG, True),
+            ("flash_geometric_fwd.cu", "flash_geometric_bwd_fused.cu",
+             "flash_geometric_bwd.cu", "flash_geometric_bwd.cu"),
+            (259, 1590, 1455, 1534))]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
+        small_bf16_err=small_bf16, serve_bf16=serve_bf16,
+        times_bf16=times_bf16, train_bf16=train_bf16,
+        train_mid_bf16=train_mid_bf16,
         card=card, small_err=small_err, small_bwd_err=small_bwd,
         small_biased_err=small_biased, small_biased_bwd_err=small_biased_bwd,
         small_compact_err=small_compact,

@@ -7,6 +7,12 @@ LayerNorm's scale and shift under ``g`` and ``b``. Module attribute
 names follow the JAX parameter tree, so a converted JAX tree loads with
 ``load_state_dict`` (``tagan_torch.convert``).
 
+``default_matmul_precision("bfloat16")`` is the counterpart of JAX's
+context of the same name, which the model enters under
+``bf16_matmul``: every contraction that goes through `matmul` or
+`einsum` (and so `linear`) then rounds both operands to bfloat16 and
+multiplies in float32, the TPU's single-pass bf16 contraction.
+
 Initialisation draws from an explicit ``torch.Generator`` on the CPU:
 Xavier/Glorot-uniform weights, constant biases, LayerNorm scale 1 and
 shift 0, as the JAX package does. The numbers differ from JAX's for the
@@ -16,8 +22,10 @@ draws from an explicit generator and is off without one.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -56,9 +64,86 @@ def xavier_uniform(shape: Sequence[int],
     return u * (2.0 * bound) - bound
 
 
+_PRECISION = contextvars.ContextVar("tagan_matmul_precision",
+                                    default="highest")
+
+
+@contextlib.contextmanager
+def default_matmul_precision(precision: str) -> Iterator[None]:
+    """Within the block, `matmul` and `einsum` run at ``precision``:
+    "highest" (float32) or "bfloat16" (operands rounded to bf16, float32
+    products and sums). JAX's ``jax.default_matmul_precision``."""
+    if precision not in ("highest", "bfloat16"):
+        raise ValueError(f"unknown matmul precision {precision!r}")
+    token = _PRECISION.set(precision)
+    try:
+        yield
+    finally:
+        _PRECISION.reset(token)
+
+
+def bf16_contractions() -> bool:
+    """Whether contractions round their operands to bf16 here."""
+    return _PRECISION.get() == "bfloat16"
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bfloat16 (ties to even), kept in its
+    dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class _Bf16Operand(torch.autograd.Function):
+    """A contraction's operand rounded to bf16, its cotangent passed on
+    as it is: the cotangent's rounding is `_Bf16Cotangent`'s."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return round_bf16(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Bf16Cotangent(torch.autograd.Function):
+    """The identity on a contraction's result, whose cotangent is rounded
+    to bf16: the backward's products then take bf16 operands too, as the
+    transposes of a bf16 ``dot_general`` do under JAX."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return round_bf16(g)
+
+
+def _contract(fn, *operands):
+    if not bf16_contractions():
+        return fn(*operands)
+    # a product of two bf16 values is exact in float32 (and in TF32), so
+    # the result is the single-pass bf16 contraction up to the order of
+    # the sum, on the CPU and on the card alike
+    return _Bf16Cotangent.apply(fn(*(_Bf16Operand.apply(t)
+                                      for t in operands)))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` at the current precision (`default_matmul_precision`)."""
+    return _contract(torch.matmul, a, b)
+
+
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` of a contraction at the current precision; only
+    for equations that contract an index, as JAX's ``dot_general``."""
+    return _contract(lambda *t: torch.einsum(equation, *t), *operands)
+
+
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = x @ w
+    y = matmul(x, w)
     return y if b is None else y + b
 
 

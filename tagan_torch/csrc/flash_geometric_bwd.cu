@@ -3,9 +3,10 @@
 //
 // Replaces the Pallas TPU kernels tagan_tpu/ops/pallas/flash_geometric.py::
 // _flash_bwd_dq_kernel (B3a) and _flash_bwd_dkv_kernel (B3b), host side
-// flash_geometric_attention_bwd with fused=False, in their dense-mask form
-// and their compact occupied-block form (B3a c, B3b c: 3-tuple plans, the
-// hybrid backend's band). For query row i, key j, head h, with
+// flash_geometric_attention_bwd with fused=False, in their dense-mask form,
+// its bf16 form (bf16=True) and their compact occupied-block form (B3a c,
+// B3b c: 3-tuple plans, the hybrid backend's band). For query row i, key
+// j, head h, with
 // p_ij = exp(s_ij - lse_i) on the mask,
 //
 //     dp_ij = drop(do_i . v_j),   ds_ij = p_ij (dp_ij - delta_i)
@@ -32,6 +33,13 @@
 // Thread (rg, lane) recomputes the 4 x 4 pairs of B1's layout; the
 // accumulators are templated on the 16-wide feature lanes (D, Dv <= 16,
 // 32, 64 or 128) so head dim 16 holds one lane.
+//
+// The bf16 forms (kBf16, dense mask only) are the same walks with every
+// product's operands rounded to bf16 (flash_geometric_common.cuh: rd,
+// chain_weight_bf16): q.k, do.v, W k, W q and drop(p) do, from rounded
+// copies of the q and k tiles and from do and v rounded as staged; the row
+// norms, the squared-distance metrics' sums of W and their q and k terms,
+// and the d(scale) sum stay fp32.
 //
 // The compact forms are the same walks templated on the mask form
 // (flash_geometric_common.cuh: MaskForm). Each step first loads its store
@@ -79,7 +87,7 @@ __device__ __forceinline__ uint64_t* tile_rows(float* smem, int D, int Dv) {
   return reinterpret_cast<uint64_t*>(smem + bwd_smem_floats(D, Dv));
 }
 
-template <int LANES, int kForm>
+template <int LANES, int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -100,7 +108,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1, PS = BN + 1;
   extern __shared__ float smem[];
-  const BwdTiles t = bwd_tiles(smem, D, Dv);
+  const BwdTiles t = bwd_tiles(smem, D, Dv, kBf16);
   uint64_t* rows = tile_rows(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
@@ -108,10 +116,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vg = v + gh * N * Dv;
   const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int row0 = ib * BM;
-  load_query_side(t, q + gh * N * D, dout + gh * N * Dv, lse + gh * N,
-                  delta + gh * N, row0, N, D, Dv);
+  load_query_side<kBf16>(t, q + gh * N * D, dout + gh * N * Dv, lse + gh * N,
+                         delta + gh * N, row0, N, D, Dv);
   __syncthreads();
-  tile_norms(t, D, true, false);
+  tile_norms<kBf16>(t, D, true, false);
 
   const float sc = scale[h];
   const uint32_t mix = (uint32_t)seed[g] ^ ((uint32_t)h * 0xC2B2AE3Du);
@@ -134,26 +142,28 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if constexpr (kForm != DENSE_MASK)
       load_mask_tile<kForm>(rows, mask, (size_t)g * S + js[step]);
     load_rows(t.Ks, kg, col0, N, D);
-    load_rows(t.Vs, vg, col0, N, Dv);
+    load_rows<kBf16>(t.Vs, vg, col0, N, Dv);
     __syncthreads();
-    tile_norms(t, D, false, true);
+    tile_norms<kBf16>(t, D, false, true);
     __syncthreads();
-    dsc += pair_weights<false, kForm>(t, mg, rows, N, D, Dv, row0, col0,
-                                      metric, sc, sqrt_d, use_dropout, mix,
-                                      keep_thresh, inv_keep);
+    dsc += pair_weights<false, kForm, kBf16>(t, mg, rows, N, D, Dv, row0,
+                                             col0, metric, sc, sqrt_d,
+                                             use_dropout, mix, keep_thresh,
+                                             inv_keep);
     __syncthreads();
     for (int j = 0; j < BN; ++j) {
       float w[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        w[a] = t.Ws[(rg * 4 + a) * PS + j];
-        wsum[a] += w[a];
+        const float wf = t.Ws[(rg * 4 + a) * PS + j];
+        wsum[a] += wf;
+        w[a] = rd<kBf16>(wf);
       }
 #pragma unroll
       for (int jj = 0; jj < LANES; ++jj) {
         const int d = lane + 16 * jj;
         if (d < D) {
-          const float kv = t.Ks[j * DS + d];
+          const float kv = t.Kb[j * DS + d];
 #pragma unroll
           for (int a = 0; a < 4; ++a) acc[a][jj] = fmaf(w[a], kv, acc[a][jj]);
         }
@@ -171,7 +181,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < LANES; ++jj) {
       const int d = lane + 16 * jj;
       if (d < D)
-        o[d] = sqm ? acc[a][jj] - wsum[a] * t.Qs[lr * DS + d] : acc[a][jj];
+        o[d] = sqm ? acc[a][jj] - wsum[a] * t.Qs[lr * DS + d]
+                   : chain_finish<kBf16>(metric, acc[a][jj], sqrt_d);
     }
   }
   if (need_dscale) {
@@ -181,7 +192,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int LANES, int kForm>
+template <int LANES, int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -201,7 +212,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1, VS = Dv + 1, PS = BN + 1;
   extern __shared__ float smem[];
-  const BwdTiles t = bwd_tiles(smem, D, Dv);
+  const BwdTiles t = bwd_tiles(smem, D, Dv, kBf16);
   uint64_t* rows = tile_rows(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
@@ -210,9 +221,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int col0 = jb * BN;
   load_rows(t.Ks, k + gh * N * D, col0, N, D);
-  load_rows(t.Vs, v + gh * N * Dv, col0, N, Dv);
+  load_rows<kBf16>(t.Vs, v + gh * N * Dv, col0, N, Dv);
   __syncthreads();
-  tile_norms(t, D, false, true);
+  tile_norms<kBf16>(t, D, false, true);
 
   const float sc = scale[h];
   const uint32_t mix = (uint32_t)seed[g] ^ ((uint32_t)h * 0xC2B2AE3Du);
@@ -233,28 +244,29 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // the previous step is done with Qs, dOs, Ws, Ps, rows
     if constexpr (kForm != DENSE_MASK)
       load_mask_tile<kForm>(rows, mask, (size_t)g * S + is[step]);
-    load_query_side(t, qg, dog, lse + gh * N, delta + gh * N, row0, N, D,
-                    Dv);
+    load_query_side<kBf16>(t, qg, dog, lse + gh * N, delta + gh * N, row0, N,
+                           D, Dv);
     __syncthreads();
-    tile_norms(t, D, true, false);
+    tile_norms<kBf16>(t, D, true, false);
     __syncthreads();
-    pair_weights<true, kForm>(t, mg, rows, N, D, Dv, row0, col0, metric, sc,
-                              sqrt_d, use_dropout, mix, keep_thresh,
-                              inv_keep);
+    pair_weights<true, kForm, kBf16>(t, mg, rows, N, D, Dv, row0, col0,
+                                     metric, sc, sqrt_d, use_dropout, mix,
+                                     keep_thresh, inv_keep);
     __syncthreads();
     for (int i = 0; i < BM; ++i) {
       float w[4], p[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        w[a] = t.Ws[i * PS + rg * 4 + a];
+        const float wf = t.Ws[i * PS + rg * 4 + a];
+        wsum[a] += wf;
+        w[a] = rd<kBf16>(wf);
         p[a] = t.Ps[i * PS + rg * 4 + a];
-        wsum[a] += w[a];
       }
 #pragma unroll
       for (int jj = 0; jj < LANES; ++jj) {
         const int d = lane + 16 * jj;
         if (d < D) {
-          const float qv = t.Qs[i * DS + d];
+          const float qv = t.Qb[i * DS + d];
 #pragma unroll
           for (int a = 0; a < 4; ++a) dka[a][jj] = fmaf(w[a], qv, dka[a][jj]);
         }
@@ -278,7 +290,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < LANES; ++jj) {
       const int d = lane + 16 * jj;
       if (d < D)
-        ok[d] = sqm ? dka[a][jj] - wsum[a] * t.Ks[lc * DS + d] : dka[a][jj];
+        ok[d] = sqm ? dka[a][jj] - wsum[a] * t.Ks[lc * DS + d]
+                    : chain_finish<kBf16>(metric, dka[a][jj], sqrt_d);
       if (d < Dv) ov[d] = dva[a][jj];
     }
   }
@@ -299,15 +312,15 @@ bool bad_args(int G, int H, int N, int D, int Dv, int n_tiles, int W,
          n_tiles != (N + BM - 1) / BM || W < 0;
 }
 
-// Dynamic shared memory: the dense form's tiles, and the compact forms'
-// mask-tile row words past them.
-template <int kForm>
+// Dynamic shared memory: the dense form's tiles (and the bf16 forms'
+// rounded q and k), and the compact forms' mask-tile row words past them.
+template <int kForm, bool kBf16>
 size_t smem_bytes(int D, int Dv) {
-  return sizeof(float) * bwd_smem_floats(D, Dv) +
+  return sizeof(float) * bwd_smem_floats(D, Dv, kBf16) +
          (kForm == DENSE_MASK ? 0 : sizeof(uint64_t) * BM);
 }
 
-template <int LANES, int kForm>
+template <int LANES, int kForm, bool kBf16>
 cudaError_t launch_dq(const dim3& grid, cudaStream_t stream, const void* q,
                       const void* k, const void* v, const void* mask,
                       const void* dout, const void* lse, const void* delta,
@@ -317,10 +330,11 @@ cudaError_t launch_dq(const dim3& grid, cudaStream_t stream, const void* q,
                       int Dv, int n_i, int W, int S, int metric, float sqrt_d,
                       int use_dropout, unsigned int thresh, float inv_keep,
                       int need_dscale) {
-  const size_t smem = smem_bytes<kForm>(D, Dv);
-  const cudaError_t e = prepare(flash_bwd_dq_kernel<LANES, kForm>, smem);
+  const size_t smem = smem_bytes<kForm, kBf16>(D, Dv);
+  const cudaError_t e =
+      prepare(flash_bwd_dq_kernel<LANES, kForm, kBf16>, smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<LANES, kForm><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<LANES, kForm, kBf16><<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, mask,
       (const float*)dout, (const float*)lse, (const float*)delta,
       (const int*)jlist, (const int*)jcount, (const int*)jslot,
@@ -330,7 +344,7 @@ cudaError_t launch_dq(const dim3& grid, cudaStream_t stream, const void* q,
   return cudaGetLastError();
 }
 
-template <int LANES, int kForm>
+template <int LANES, int kForm, bool kBf16>
 cudaError_t launch_dkv(const dim3& grid, cudaStream_t stream, const void* q,
                        const void* k, const void* v, const void* mask,
                        const void* dout, const void* lse, const void* delta,
@@ -339,10 +353,12 @@ cudaError_t launch_dkv(const dim3& grid, cudaStream_t stream, const void* q,
                        void* dk, void* dv, int H, int N, int D, int Dv,
                        int n_j, int W, int S, int metric, float sqrt_d,
                        int use_dropout, unsigned int thresh, float inv_keep) {
-  const size_t smem = smem_bytes<kForm>(D, Dv);
-  const cudaError_t e = prepare(flash_bwd_dkv_kernel<LANES, kForm>, smem);
+  const size_t smem = smem_bytes<kForm, kBf16>(D, Dv);
+  const cudaError_t e =
+      prepare(flash_bwd_dkv_kernel<LANES, kForm, kBf16>, smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<LANES, kForm><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<LANES, kForm, kBf16>
+      <<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, mask,
       (const float*)dout, (const float*)lse, (const float*)delta,
       (const int*)ilist, (const int*)icount, (const int*)islot,
@@ -351,7 +367,7 @@ cudaError_t launch_dkv(const dim3& grid, cudaStream_t stream, const void* q,
   return cudaGetLastError();
 }
 
-template <int kForm>
+template <int kForm, bool kBf16 = false>
 int dq_entry(const void* q, const void* k, const void* v, const void* mask,
              const void* dout, const void* lse, const void* delta,
              const void* jlist, const void* jcount, const void* jslot,
@@ -369,7 +385,7 @@ int dq_entry(const void* q, const void* k, const void* v, const void* mask,
   switch (lanes_for(D)) {
 #define TAGAN_DQ(L)                                                           \
   case L:                                                                     \
-    return (int)launch_dq<L, kForm>(                                          \
+    return (int)launch_dq<L, kForm, kBf16>(                                   \
         grid, s, q, k, v, mask, dout, lse, delta, jlist, jcount, jslot,       \
         scale, seed, dq, dscale_part, H, N, D, Dv, n_i, W, S, metric, sqrt_d, \
         use_dropout, keep_thresh, inv_keep, need_dscale);
@@ -379,7 +395,7 @@ int dq_entry(const void* q, const void* k, const void* v, const void* mask,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int kForm>
+template <int kForm, bool kBf16 = false>
 int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
               const void* dout, const void* lse, const void* delta,
               const void* ilist, const void* icount, const void* islot,
@@ -396,7 +412,7 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
   switch (lanes_for(D > Dv ? D : Dv)) {
 #define TAGAN_DKV(L)                                                       \
   case L:                                                                  \
-    return (int)launch_dkv<L, kForm>(                                      \
+    return (int)launch_dkv<L, kForm, kBf16>(                               \
         grid, s, q, k, v, mask, dout, lse, delta, ilist, icount, islot,    \
         scale, seed, dk, dv, H, N, D, Dv, n_j, W, S, metric, sqrt_d,       \
         use_dropout, keep_thresh, inv_keep);
@@ -439,6 +455,36 @@ extern "C" int tagan_flash_geometric_bwd_dkv(
                                icount, ilist, scale, seed, dk, dv, G, H, N, D,
                                Dv, n_j, W, 0, metric, sqrt_d, use_dropout,
                                keep_thresh, inv_keep, stream);
+}
+
+// B3a's bf16 form: the same arguments.
+extern "C" int tagan_flash_geometric_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* dout, const void* lse, const void* delta, const void* jlist,
+    const void* jcount, const void* scale, const void* seed, void* dq,
+    void* dscale_part, int G, int H, int N, int D, int Dv, int n_i, int W,
+    int metric, float sqrt_d, int use_dropout, unsigned int keep_thresh,
+    float inv_keep, int need_dscale, void* stream) {
+  return dq_entry<DENSE_MASK, true>(q, k, v, mask, dout, lse, delta, jlist,
+                                    jcount, jlist, scale, seed, dq,
+                                    dscale_part, G, H, N, D, Dv, n_i, W, 0,
+                                    metric, sqrt_d, use_dropout, keep_thresh,
+                                    inv_keep, need_dscale, stream);
+}
+
+// B3b's bf16 form: the same arguments.
+extern "C" int tagan_flash_geometric_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* dout, const void* lse, const void* delta, const void* ilist,
+    const void* icount, const void* scale, const void* seed, void* dk,
+    void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return dkv_entry<DENSE_MASK, true>(q, k, v, mask, dout, lse, delta, ilist,
+                                     icount, ilist, scale, seed, dk, dv, G, H,
+                                     N, D, Dv, n_j, W, 0, metric, sqrt_d,
+                                     use_dropout, keep_thresh, inv_keep,
+                                     stream);
 }
 
 // B3a c: B3a over the compact store of S slots per g, bits i64[G, S, 64]

@@ -7,9 +7,21 @@
 // (64-query tile, 64-key tile) pair. Every kernel takes the folded layout
 // [G, H, N, D] (G = snapshots x sequences), fp32, the true D and Dv, and
 // masks the ragged edge of N itself.
+//
+// The bf16 forms (template flag kBf16; the TPU kernels' bf16=True) round
+// every operand of a product to bf16 (`rd`) and keep the fp32 FMAs: a
+// product of two bf16 values is exact in fp32, so this is the TPU's bf16
+// contraction with an fp32 accumulator up to the order of the sum. Only
+// the operands are rounded: the row norms, the squared-distance metrics'
+// q and k terms, the sums of the chain weights and the softmax
+// denominator take fp32 values, as the TPU kernels do. So the backward's
+// q and k tiles stay fp32 in shared memory beside rounded copies for the
+// products (BwdTiles::Qb, Kb), do and v (operands only) are rounded as
+// they are staged, and W is rounded as each product loads it.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -78,6 +90,13 @@ __device__ __forceinline__ bool pair_on(const uint8_t* __restrict__ mg,
   else return (rows[lr] >> lc) & 1ull;
 }
 
+// x rounded to the nearest bf16 (ties to even) under kBf16, else x.
+template <bool kBf16>
+__device__ __forceinline__ float rd(float x) {
+  if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(x));
+  else return x;
+}
+
 __device__ __forceinline__ bool is_sq_metric(int metric) {
   return metric >= SQ_EUCLID && metric <= RBF;
 }
@@ -144,6 +163,36 @@ __device__ __forceinline__ float chain_weight(int metric, float ds, float s,
   }
 }
 
+// The chain weight of the bf16 forms: W = u / c, with u the quantity the
+// TPU kernel rounds before its dq and dk products (_chain_dq, _chain_dk:
+// ds for the dot metrics, ds clip'(qk) for cosine, dsq = dL/dsq for the
+// squared-distance metrics, computed as _dsq_from_ds does) and c = 1,
+// sqrt(d) or -1/2. c = -1/2 is exact in any rounding, so W = -2 dsq is
+// returned; the scaled dot's 1/sqrt(d) does not commute with rounding, so
+// it returns ds and the kernels divide their dq and dk sums by sqrt(d).
+__device__ __forceinline__ float chain_weight_bf16(int metric, float ds,
+                                                   float s, float sq,
+                                                   float qk, float scale) {
+  switch (metric) {
+    case SCALED_DOT:
+    case DOT: return ds;
+    case COS_SIM:
+    case COS_DIST: return ds * clip_grad(qk);
+    case SQ_EUCLID: return -2.f * -ds;
+    case EUCLID: return -2.f * (ds * (-0.5f * rsqrtf(sq + 1e-8f)));
+    case GAUSSIAN: return -2.f * (ds * s * (-1.f / (2.f * scale * scale)));
+    default: return -2.f * (ds * (-scale * s));  // RBF
+  }
+}
+
+// The factor of a bf16 form's dq and dk sums: 1 / sqrt(d) for the scaled
+// dot (`chain_weight_bf16`), else 1; the fp32 forms fold it into W.
+template <bool kBf16>
+__device__ __forceinline__ float chain_finish(int metric, float x,
+                                              float sqrt_d) {
+  return kBf16 && metric == SCALED_DOT ? x / sqrt_d : x;
+}
+
 // ---------------------------------------------------------------------------
 // Backward: shared-memory tiles of one (query tile, key tile) pair.
 // Row strides are odd (D + 1, Dv + 1, BN + 1) so that a column read across
@@ -152,6 +201,8 @@ __device__ __forceinline__ float chain_weight(int metric, float ds, float s,
 
 struct BwdTiles {
   float* Qs;     // [BM][D + 1]
+  float* Qb;     // the products' q: Qs rounded to bf16 (bf16 forms), or Qs
+  float* Kb;     // the products' k: Ks rounded to bf16 (bf16 forms), or Ks
   float* dOs;    // [BM][Dv + 1]
   float* Ks;     // [BN][D + 1]
   float* Vs;     // [BN][Dv + 1]
@@ -164,13 +215,16 @@ struct BwdTiles {
   float* red;    // [THREADS / 32] block reduction scratch
 };
 
-__host__ __device__ inline size_t bwd_smem_floats(int D, int Dv) {
+__host__ __device__ inline size_t bwd_smem_floats(int D, int Dv,
+                                                 bool bf16 = false) {
   return (size_t)BM * (D + 1) + (size_t)BM * (Dv + 1) +
          (size_t)BN * (D + 1) + (size_t)BN * (Dv + 1) +
-         2 * (size_t)BM * (BN + 1) + 3 * BM + BN + THREADS / 32;
+         2 * (size_t)BM * (BN + 1) + 3 * BM + BN + THREADS / 32 +
+         (bf16 ? (size_t)(BM + BN) * (D + 1) : 0);
 }
 
-__device__ __forceinline__ BwdTiles bwd_tiles(float* smem, int D, int Dv) {
+__device__ __forceinline__ BwdTiles bwd_tiles(float* smem, int D, int Dv,
+                                              bool bf16 = false) {
   BwdTiles t;
   t.Qs = smem;
   t.dOs = t.Qs + BM * (D + 1);
@@ -183,26 +237,32 @@ __device__ __forceinline__ BwdTiles bwd_tiles(float* smem, int D, int Dv) {
   t.delta = t.lse + BM;
   t.kn = t.delta + BM;
   t.red = t.kn + BN;
+  t.Qb = bf16 ? t.red + THREADS / 32 : t.Qs;
+  t.Kb = bf16 ? t.Qb + BM * (D + 1) : t.Ks;
   return t;
 }
 
 // rows [row0, row0 + 64) of a [N, width] matrix into dst with row stride
-// width + 1; rows past N read as 0.
+// width + 1, rounded to bf16 with kRound; rows past N read as 0.
+template <bool kRound = false>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int N, int width) {
   const int stride = width + 1;
   for (int idx = threadIdx.x; idx < 64 * width; idx += THREADS) {
     const int r = idx / width, d = idx - r * width, gr = row0 + r;
-    dst[r * stride + d] = gr < N ? src[(size_t)gr * width + d] : 0.f;
+    dst[r * stride + d] = rd<kRound>(gr < N ? src[(size_t)gr * width + d]
+                                            : 0.f);
   }
 }
 
-// Query-side tiles: Q, dO, lse and delta of rows [row0, row0 + 64).
+// Query-side tiles: Q, dO (rounded in the bf16 forms: an operand only),
+// lse and delta of rows [row0, row0 + 64).
+template <bool kBf16 = false>
 __device__ __forceinline__ void load_query_side(
     const BwdTiles& t, const float* qg, const float* dog, const float* lseg,
     const float* deltag, int row0, int N, int D, int Dv) {
   load_rows(t.Qs, qg, row0, N, D);
-  load_rows(t.dOs, dog, row0, N, Dv);
+  load_rows<kBf16>(t.dOs, dog, row0, N, Dv);
   const int tid = threadIdx.x;
   if (tid < BM) {
     const int gr = row0 + tid;
@@ -212,25 +272,36 @@ __device__ __forceinline__ void load_query_side(
 }
 
 // Row norms |q|^2 of the query tile (threads 0..63) and |k|^2 of the key
-// tile (threads 64..127), after the tiles are in shared memory.
+// tile (threads 64..127), after the tiles are in shared memory; the bf16
+// forms' rounded copies Qb, Kb by the same threads.
+template <bool kBf16 = false>
 __device__ __forceinline__ void tile_norms(const BwdTiles& t, int D,
                                            bool queries, bool keys) {
   const int tid = threadIdx.x, DS = D + 1;
   if (queries && tid < BM) {
     float s = 0.f;
-    for (int d = 0; d < D; ++d) s += t.Qs[tid * DS + d] * t.Qs[tid * DS + d];
+    for (int d = 0; d < D; ++d) {
+      const float x = t.Qs[tid * DS + d];
+      s += x * x;
+      if (kBf16) t.Qb[tid * DS + d] = rd<true>(x);
+    }
     t.qn[tid] = s;
   } else if (keys && tid >= BM && tid < BM + BN) {
     const int r = tid - BM;
     float s = 0.f;
-    for (int d = 0; d < D; ++d) s += t.Ks[r * DS + d] * t.Ks[r * DS + d];
+    for (int d = 0; d < D; ++d) {
+      const float x = t.Ks[r * DS + d];
+      s += x * x;
+      if (kBf16) t.Kb[r * DS + d] = rd<true>(x);
+    }
     t.kn[r] = s;
   }
 }
 
 // The products of one pair of tiles for thread (rg, lane), which owns
 // query rows 4*rg..4*rg+3 and keys lane + 16*b (b < 4):
-// s[a][b] = q . k and dp[a][b] = do . v of those rows and keys.
+// s[a][b] = q . k and dp[a][b] = do . v of those rows and keys (from Qb,
+// Kb and the staged dO, V: rounded in the bf16 forms).
 __device__ __forceinline__ void tile_products(const BwdTiles& t, int D, int Dv,
                                               float (&s)[4][4],
                                               float (&dp)[4][4]) {
@@ -246,9 +317,9 @@ __device__ __forceinline__ void tile_products(const BwdTiles& t, int D, int Dv,
   for (int d = 0; d < D; ++d) {
     float qv[4], kv[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) qv[a] = t.Qs[(rg * 4 + a) * DS + d];
+    for (int a = 0; a < 4; ++a) qv[a] = t.Qb[(rg * 4 + a) * DS + d];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) kv[b] = t.Ks[(lane + 16 * b) * DS + d];
+    for (int b = 0; b < 4; ++b) kv[b] = t.Kb[(lane + 16 * b) * DS + d];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -276,8 +347,13 @@ __device__ __forceinline__ void tile_products(const BwdTiles& t, int D, int Dv,
 // exp of a large positive number is taken (dead rows have no valid pair).
 // The pair test is `pair_on<kForm>`: the dense mask mg, or the tile's row
 // words `rows` of the compact forms (loaded by `load_mask_tile`).
+// kBf16 (the tiles staged for it by load_rows, load_query_side and
+// tile_norms): W is `chain_weight_bf16`'s (unrounded: the squared-distance
+// metrics' row and column sums of W are fp32, and the product loops round
+// W as they load it) and drop(p) is stored rounded, being only an operand
+// of dv's product.
 // Returns this thread's part of sum ds * s * sq (the dscale numerator).
-template <bool kWantP, int kForm = DENSE_MASK>
+template <bool kWantP, int kForm = DENSE_MASK, bool kBf16 = false>
 __device__ __forceinline__ float pair_weights(
     const BwdTiles& t, const uint8_t* __restrict__ mg, const uint64_t* rows,
     int N, int D, int Dv, int row0, int col0, int metric, float sc,
@@ -310,11 +386,12 @@ __device__ __forceinline__ float pair_weights(
           pd = keep ? p * inv_keep : 0.f;
         }
         const float ds = p * (dpv - t.delta[lr]);
-        w = chain_weight(metric, ds, sv, sq, qk, sc, sqrt_d);
+        w = kBf16 ? chain_weight_bf16(metric, ds, sv, sq, qk, sc)
+                  : chain_weight(metric, ds, sv, sq, qk, sc, sqrt_d);
         dsc = fmaf(ds * sv, sq, dsc);
       }
       t.Ws[lr * PS + lc] = w;
-      if (kWantP) t.Ps[lr * PS + lc] = pd;
+      if (kWantP) t.Ps[lr * PS + lc] = rd<kBf16>(pd);
     }
   }
   return dsc;

@@ -1,8 +1,9 @@
 // Block-sparse edge-masked geometric attention, forward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel tagan_tpu/ops/pallas/flash_geometric.py::
-// _flash_kernel (host side _flash_forward), in its dense-mask form (B1) and
-// its compact occupied-block form (B1c, _flash_forward with a 3-tuple plan):
+// _flash_kernel (host side _flash_forward), in its dense-mask form (B1),
+// B1's bf16 form (bf16=True) and its compact occupied-block form (B1c,
+// _flash_forward with a 3-tuple plan):
 // for each query row i and head h,
 //
 //     s_ij  = metric score from q_i.k_j and the row norms (8 metrics)
@@ -31,6 +32,13 @@
 //  - The repeat-last padding of jlist exists for the TPU pipeline's DMA
 //    dedup; here jcount bounds the loop.
 //  - Scores and P@V run in fp32 on the CUDA cores, not the tensor cores.
+//  - The bf16 form (kBf16) rounds the q and k tiles in shared memory once
+//    their row norms are taken (nothing else reads them), v as its tile is
+//    staged (v enters nothing but P@V), and the dropped p as it is stored
+//    for P@V; the running max, the un-dropped sum and the norms stay fp32,
+//    as in the TPU kernel. p is rounded relative to the running
+//    max after each key tile, so the result depends on the walk, as the
+//    TPU kernel's does on its block size.
 //  - The compact form (B1c) is the same walk, the mask tile read from the
 //    store slot jslot[g, tile, t] (flash_geometric_common.cuh: int8 tiles or
 //    64 uint64 row words; the TPU's interleaved byte packing is a
@@ -63,7 +71,7 @@ constexpr int ROWS = BM / 16;     // query rows per thread
 constexpr int COLS = BN / 16;     // keys per thread and step
 constexpr int MAX_DV_LANES = 8;   // output columns per thread: Dv <= 128
 
-template <int kForm>
+template <int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const void* __restrict__ mask,
@@ -104,9 +112,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     Qs[r * DS + d] = gr < N ? qg[(size_t)gr * D + d] : 0.f;
   }
   __syncthreads();
-  if (tid < BM) {
+  if (tid < BM) {    // the norm of row tid, then (bf16) the row rounded
     float s = 0.f;
-    for (int d = 0; d < D; ++d) s += Qs[tid * DS + d] * Qs[tid * DS + d];
+    for (int d = 0; d < D; ++d) {
+      const float x = Qs[tid * DS + d];
+      s += x * x;
+      if (kBf16) Qs[tid * DS + d] = rd<true>(x);
+    }
     qn_s[tid] = s;
   }
 
@@ -137,12 +149,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     for (int idx = tid; idx < BN * Dv; idx += THREADS) {
       const int r = idx / Dv, d = idx - r * Dv, gc = col0 + r;
-      Vs[idx] = gc < N ? vg[(size_t)gc * Dv + d] : 0.f;
+      Vs[idx] = rd<kBf16>(gc < N ? vg[(size_t)gc * Dv + d] : 0.f);
     }
     __syncthreads();
     if (tid < BN) {
       float s = 0.f;
-      for (int d = 0; d < D; ++d) s += Ks[tid * DS + d] * Ks[tid * DS + d];
+      for (int d = 0; d < D; ++d) {
+        const float x = Ks[tid * DS + d];
+        s += x * x;
+        if (kBf16) Ks[tid * DS + d] = rd<true>(x);
+      }
       kn_s[tid] = s;
     }
     __syncthreads();
@@ -197,7 +213,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
               keep_hash(mix, (uint32_t)gr, (uint32_t)(col0 + lc)) < keep_thresh;
           p = keep ? p * inv_keep : 0.f;
         }
-        Ps[lr * PS + lc] = p;
+        Ps[lr * PS + lc] = rd<kBf16>(p);
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1)
@@ -241,7 +257,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int kForm>
+template <int kForm, bool kBf16 = false>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* jlist, const void* jcount, const void* jslot,
            const void* scale, const void* seed, void* out, void* lse, int G,
@@ -258,12 +274,13 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
                        (size_t)BM * (BN + 1) + BM + BN);
   if (smem > 48 * 1024 - sizeof(uint64_t) * BM) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd_kernel<kForm, kBf16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(n_i, H, G);
-  flash_fwd_kernel<kForm><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  flash_fwd_kernel<kForm, kBf16>
+      <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, mask,
       (const int*)jlist, (const int*)jcount, (const int*)jslot,
       (const float*)scale, (const int*)seed, (float*)out, (float*)lse, H, N,
@@ -285,6 +302,20 @@ extern "C" int tagan_flash_geometric_fwd(
                             out, lse, G, H, N, D, Dv, n_i, W, 0, metric,
                             sqrt_d, use_dropout, keep_thresh, inv_keep,
                             stream);
+}
+
+// B1's bf16 form: the same arguments.
+extern "C" int tagan_flash_geometric_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* jlist, const void* jcount, const void* scale,
+    const void* seed, void* out, void* lse, int G, int H, int N, int D,
+    int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, void* stream) {
+  using namespace tagan_flash;
+  return launch<DENSE_MASK, true>(q, k, v, mask, jlist, jcount, jlist, scale,
+                                  seed, out, lse, G, H, N, D, Dv, n_i, W, 0,
+                                  metric, sqrt_d, use_dropout, keep_thresh,
+                                  inv_keep, stream);
 }
 
 // B1c: the compact store of S slots per g, bits i64[G, S, 64] (packed) or

@@ -29,6 +29,7 @@ from torch import nn
 
 from ..core.module import (LayerNorm, Linear, default_generator, dropout,
                            xavier_uniform)
+from ..core import module as M
 from ..ops import distances as D
 from ..ops import flash_geometric as FG
 from ..ops import hybrid_biased as HB
@@ -85,7 +86,7 @@ class GeometricAttention(nn.Module):
                 gamma = self.distance_param
             elif self.distance_metric == "mahalanobis":
                 f = self.cov_factors                          # [H, R, Dh]
-                cov_inv = torch.einsum("hrd,hre->hde", f, f)
+                cov_inv = M.einsum("hrd,hre->hde", f, f)
         return sigma, gamma, cov_inv
 
     def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
@@ -135,11 +136,12 @@ class GeometricAttention(nn.Module):
                 gb = gb[..., None, :, :]
             weights = dropout(masked_softmax(weights + gb, mask),
                               self.dropout, generator)
-        return self._finish(weights @ v, x, generator)
+        return self._finish(M.matmul(weights, v), x, generator)
 
     def apply_flash(self, x: torch.Tensor, mask: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
-                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    bias: Optional[torch.Tensor] = None,
+                    bf16: bool = False) -> torch.Tensor:
         """Flash path: the same layer with the attention core in the
         block-sparse kernels (forward and, under autograd, backward).
         x [..., N, hidden], mask [..., N, N] (nonzero where query i
@@ -147,12 +149,16 @@ class GeometricAttention(nn.Module):
         the dense path; mahalanobis runs euclidean in factor space
         (|Fq - Fk|^2 = maha(q, k; F^T F)). ``bias`` [..., N, N] is the
         dense path's ``geometric_bias``, served by the edge-biased
-        kernels (forward and backward)."""
+        kernels (forward and backward). ``bf16`` takes the kernels' bf16
+        forms (bf16 dot operands, float32 sums; the biased kernels have
+        none yet); the layer's other contractions follow
+        `core.module.default_matmul_precision`."""
         plan, plan_t = FG.make_block_plans_from_mask(mask)
-        return self._apply_flash(x, mask, plan, plan_t, generator, bias)
+        return self._apply_flash(x, mask, plan, plan_t, generator, bias,
+                                 bf16)
 
     def _apply_flash(self, x, mask, plan, plan_t=None, generator=None,
-                     bias=None):
+                     bias=None, bf16=False):
         """`apply_flash` with the walk plans built by the model
         (``flash_structures``), shared by every layer."""
         metric = self.distance_metric
@@ -172,11 +178,11 @@ class GeometricAttention(nn.Module):
             metric = "euclidean"
             if self.learnable_distance:
                 f = self.cov_factors                          # [H, R, Dh]
-                q = torch.einsum("...hnd,hrd->...hnr", q, f)
-                k = torch.einsum("...hnd,hrd->...hnr", k, f)
+                q = M.einsum("...hnd,hrd->...hnr", q, f)
+                k = M.einsum("...hnd,hrd->...hnr", k, f)
         ctx = FG._flash_attention(q, k, v, mask, metric, scale, plan,
                                   dropout_rate=rate, dropout_seed=seed,
-                                  plan_t=plan_t, bias=bias)
+                                  plan_t=plan_t, bias=bias, bf16=bf16)
         return self._finish(ctx, x, generator)
 
     def apply_hybrid(self, x: torch.Tensor, store: torch.Tensor, plan,
@@ -222,8 +228,8 @@ class GeometricAttention(nn.Module):
             metric = "euclidean"
             if self.learnable_distance:
                 f = self.cov_factors                          # [H, R, Dh]
-                q = torch.einsum("...hnd,hrd->...hnr", q, f)
-                k = torch.einsum("...hnd,hrd->...hnr", k, f)
+                q = M.einsum("...hnd,hrd->...hnr", q, f)
+                k = M.einsum("...hnd,hrd->...hnr", k, f)
         if biased:
             ctx = HB.hybrid_biased_attention(
                 q, k, v, store, plan, res, band_bias, res_bias, metric,

@@ -45,9 +45,10 @@ from torch import nn
 
 from ..core.config import TAGANConfig
 from ..core.graph import HYBRID_TILE, SnapshotSequence
+from ..core import module as M
 from ..core.memory import MemoryState
 from ..core.module import (LayerNorm, Linear, default_generator,
-                           resolve_device)
+                           default_matmul_precision, resolve_device)
 from ..ops.flash_geometric import make_block_plans_from_edges
 from ..ops.sparse import add_self_loops, segment_sum
 from .geometric import GraphAttention
@@ -72,8 +73,11 @@ def check_in_slice(c: TAGANConfig) -> None:
         missing.append(f"compat_mode={c.compat_mode!r}")
     if c.temporal_attention_type != "asymmetric":
         missing.append(f"temporal_attention_type={c.temporal_attention_type!r}")
-    if c.bf16_matmul:
-        missing.append("bf16_matmul")
+    if c.bf16_matmul and c.spatial_backend == "hybrid":
+        missing.append("bf16_matmul with spatial_backend='hybrid'")
+    if c.bf16_matmul and c.spatial_backend == "flash" \
+            and c.use_edge_features and c.edge_feature_dim > 0:
+        missing.append("bf16_matmul with edge features on the flash backend")
     if missing:
         raise NotImplementedError(
             "not ported to tagan_torch yet: " + ", ".join(missing))
@@ -211,7 +215,20 @@ class TAGAN(nn.Module):
         sequence; [B, T, N, hidden]. Dropout from ``generator`` when
         given. With edge features, each layer's bias comes from the
         embedded ``edge_attr``: scattered per pair over hidden on the
-        dense backend, projected per edge to a scalar on csr and flash."""
+        dense backend, projected per edge to a scalar on csr and flash.
+        Under ``bf16_matmul`` its contractions run at bf16
+        (`precision`)."""
+        with self.precision():
+            return self._encode_spatial(seq, generator)
+
+    def precision(self):
+        """The contraction precision of the config: JAX's
+        ``default_matmul_precision("bfloat16")`` under ``bf16_matmul``
+        (`core.module.default_matmul_precision`), else float32."""
+        return default_matmul_precision(
+            "bfloat16" if self.config.bf16_matmul else "highest")
+
+    def _encode_spatial(self, seq, generator):
         c = self.config
         x = self.node_embedding(seq.x)
         skip = x
@@ -245,7 +262,8 @@ class TAGAN(nn.Module):
                     layer.edge_bias(ea)[..., 0], seq.edge_src, seq.edge_dst,
                     seq.edge_mask, seq.max_nodes)
                 return layer.attn._apply_flash(xx, mask, plan, plan_t,
-                                               generator, bias)
+                                               generator, bias,
+                                               bf16=c.bf16_matmul)
         elif c.spatial_backend == "csr":
             eq, ek, em = add_self_loops(seq.edge_src, seq.edge_dst,
                                         seq.edge_mask, seq.node_mask)
@@ -292,7 +310,15 @@ class TAGAN(nn.Module):
         the mean over the batch, or with ``reduction="none"`` one loss
         per sequence ([B]; a scalar for one sequence), as the JAX
         package's per-sequence forward under ``vmap`` gives it. Dropout
-        runs only when ``not deterministic and generator is not None``."""
+        runs only when ``not deterministic and generator is not None``.
+        Under ``bf16_matmul`` every contraction, the flash kernels' too,
+        takes bf16 operands (`precision`)."""
+        with self.precision():
+            return self._forward(seq, labels, memory, deterministic,
+                                 generator, reduction)
+
+    def _forward(self, seq, labels, memory, deterministic, generator,
+                 reduction):
         single = not seq.is_batched
         if single:
             seq = seq.map(lambda t: t[None])
@@ -340,7 +366,7 @@ class TAGAN(nn.Module):
                 sc = self.node_pool(back)[..., 0]                  # [B, T, N]
                 sc = torch.where(nmask, sc, torch.full_like(sc, -1e30))
                 w = torch.where(nmask, torch.softmax(sc, dim=2), zero)
-                graph = torch.einsum("btn,btnh->bth", w, back)
+                graph = M.einsum("btn,btnh->bth", w, back)
             else:
                 m = nmask[..., None].to(back.dtype)
                 graph = (back * m).sum(2) / torch.clamp(m.sum(2), min=1.0)

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..core import module as M
 from ..core.memory import MemoryState, init_memory, memory_read, memory_update
 from ..core.module import (LayerNorm, Linear, default_generator, dropout,
                            gelu_exact)
@@ -222,7 +223,7 @@ class TemporalSkipConnection(nn.Module):
             op = band.to(proj.dtype)
             if self.aggregation == "mean":
                 op = op / torch.clamp(op.sum(-1, keepdim=True), min=1.0)
-            agg = torch.einsum("bts,bsnh->btnh", op, proj)
+            agg = M.einsum("bts,bsnh->btnh", op, proj)
         out = dropout(self.out_proj(gelu_exact(agg)), self.dropout,
                       generator)
         if self.residual:

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..core import module as M
 from ..core.module import (LayerNorm, Linear, default_generator, dropout,
                            xavier_uniform)
 from ..ops.masked import masked_softmax
@@ -62,13 +63,13 @@ class TemporalAttention(nn.Module):
         return split(self.q(h)), split(self.k(h)), split(self.v(h))
 
     def _finish(self, weights, v, identity, generator):
-        ctx = (weights @ v).movedim(-3, -2)
+        ctx = M.matmul(weights, v).movedim(-3, -2)
         ctx = ctx.reshape(*ctx.shape[:-2], self.hidden_dim)
         out = dropout(self.o(ctx), self.dropout, generator) + identity
         return self.ln2(out) if self.use_layer_norm else out
 
     def _scores(self, q, k):
-        return q @ k.transpose(-1, -2) / math.sqrt(self.head_dim)
+        return M.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.head_dim)
 
     def _softmax_finish(self, scores, mask, v, x, generator):
         t = x.shape[-2]

@@ -19,6 +19,8 @@ from typing import Optional, Union
 
 import torch
 
+from ..core import module as M
+
 DISTANCE_LIKE = ("euclidean", "squared_euclidean", "manhattan",
                  "cosine_distance", "mahalanobis")
 SIMILARITY_LIKE = ("cosine_similarity", "dot_product", "scaled_dot_product",
@@ -54,7 +56,7 @@ def _safe_norm(x):
 
 
 def pairwise_cosine_similarity(q, k):
-    dots = q @ k.transpose(-1, -2)
+    dots = M.matmul(q, k.transpose(-1, -2))
     sim = dots / (_safe_norm(q) * _safe_norm(k).transpose(-1, -2))
     return sim.clamp(-1.0, 1.0)
 
@@ -64,7 +66,7 @@ def pairwise_cosine_distance(q, k):
 
 
 def pairwise_dot(q, k):
-    return q @ k.transpose(-1, -2)
+    return M.matmul(q, k.transpose(-1, -2))
 
 
 def pairwise_scaled_dot(q, k):
@@ -78,7 +80,7 @@ def pairwise_mahalanobis(q, k, cov_inv: Optional[torch.Tensor] = None):
         m = diff.square().sum(-1)
     else:
         ci = cov_inv[:, None] if cov_inv.dim() == 3 else cov_inv
-        m = ((diff @ ci) * diff).sum(-1)
+        m = (M.matmul(diff, ci) * diff).sum(-1)
     return torch.sqrt(m + 1e-8)
 
 
@@ -176,6 +178,6 @@ def edgewise_scores(
         return torch.exp(-g * diff.square().sum(-1))
     if metric == "mahalanobis":
         m = diff.square().sum(-1) if cov_inv is None \
-            else ((diff @ cov_inv) * diff).sum(-1)
+            else (M.matmul(diff, cov_inv) * diff).sum(-1)
         return -torch.sqrt(m + 1e-8)
     raise ValueError(f"Unknown distance metric: {metric}")

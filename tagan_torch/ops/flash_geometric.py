@@ -23,6 +23,11 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7a c  _biased_bwd_dq_kernel, compact   csrc/flash_biased_bwd.cu
     B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
 
+B1, B2, B3a and B3b also have bf16 forms (the TPU kernels' ``bf16=True``:
+every product's operands rounded to bf16, float32 sums), in the same
+sources under their own entry points and launch counts; the model takes
+them under ``bf16_matmul``. The other kernels have no bf16 form yet.
+
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
 dense path's double softmax, and B6, B7a and B7b its backward. The
 compact forms (a "c" after the name) walk the compact occupied-block
@@ -52,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.module import round_bf16
 from ..ops import build
 
 NEG_INF = -1e30
@@ -105,10 +111,20 @@ def _scores_from(metric: str, qk, sq, scale, true_d: int):
     raise NotImplementedError(metric)
 
 
-def _qk_sq(metric: str, q, k):
+def _mm(a, b, bf16: bool = False):
+    """``a @ b``; with ``bf16`` the TPU kernels' bf16 contraction: both
+    operands rounded to bf16, products and sums in float32."""
+    if bf16:
+        return round_bf16(a) @ round_bf16(b)
+    return a @ b
+
+
+def _qk_sq(metric: str, q, k, bf16: bool = False):
     """Cross term ``q @ k^T`` and, for the squared-distance metrics, the
-    squared distance by the norm expansion."""
-    qk = q @ k.transpose(-1, -2)
+    squared distance by the norm expansion. With ``bf16`` only the cross
+    term's operands are rounded: the norms take q and k as they are, as
+    the TPU kernel's ``_qk_sq`` does."""
+    qk = _mm(q, k.transpose(-1, -2), bf16)
     sq = None
     if metric in _SQ_METRICS:
         qn = (q * q).sum(-1, keepdim=True)
@@ -265,14 +281,26 @@ def flash_geometric_forward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     metric: str, scale: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0, seed: Optional[torch.Tensor] = None,
+    bf16: bool = False, plan=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What the kernel computes, as a dense masked softmax over row
     chunks. q, k [G, H, N, D], v [G, H, N, Dv], mask [G, N, N], scale
     f32[H], seed i32[G] -> (out f32[G, H, N, Dv], lse f32[G, H, N]).
-    Cosine metrics expect q/k already normalised, as the kernel does."""
+    Cosine metrics expect q/k already normalised, as the kernel does.
+
+    ``bf16``: what B1's bf16 form computes. q.k and drop(p) v take bf16
+    operands, and p is rounded relative to the running max of the walk,
+    so this form walks the plan (jlist, jcount) [G, ceil(N/64), W] at the
+    kernel's 64 x 64 tile (built from the mask when None), in its order,
+    with the kernel's online softmax."""
     G, H, N, D = q.shape
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    if bf16:
+        jlist, jcount = make_block_plan(mask) if plan is None else plan
+        return _walk_forward(
+            _dense_steps(q, k, mask, jlist, jcount, metric, scale, True),
+            q, v, jlist, dropout_rate, seed, True)
     sc = scale.reshape(1, H, 1, 1)
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
@@ -457,32 +485,60 @@ def _gather_tiles(xt, jb):
 
 
 def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale):
-    """The compact walk of the plain versions, all row tiles at once: per
-    step w, (scores [G, H, n_i, BM, BN], valid [G, 1, n_i, BM, BN],
-    key tile index [G, n_i], global rows [n_i, BM, 1], global columns
-    [G, n_i, 1, BN]). Step w of row tile i scores the key tile
-    jlist[g, i, w] against the mask tile store[g, jslot[g, i, w]]; pairs
-    of steps at or past jcount, and rows or columns past N, are not
-    valid. Also yields the step's cross terms and squared distances
-    (`_qk_sq`) last, for the backward's chain weights."""
-    G, H, N, D = q.shape
+    """The compact walk of the plain versions, all row tiles at once
+    (`_walk_steps`): step w of row tile i reads the mask tile
+    store[g, jslot[g, i, w]]."""
     packed = store_packed(store)
+    gi = torch.arange(q.shape[0], device=q.device)[:, None]
+
+    def tile_of(w, jb):
+        tile = store[gi, jslot[..., w].long()]
+        return unpack_bits(tile) if packed else tile != 0
+    return _walk_steps(q, k, tile_of, jlist, jcount, metric, scale)
+
+
+def _dense_steps(q, k, mask, jlist, jcount, metric, scale, bf16=False):
+    """The walk of the plan (jlist, jcount) over a dense mask [G, N, N]
+    (`_walk_steps`): step w of row tile i reads the mask's tile (i,
+    jlist[g, i, w])."""
+    G, N = mask.shape[0], mask.shape[-1]
+    n_i = jlist.shape[-2]
+    keys_p = _round_up(max(n_i * BLOCK_M, N), BLOCK_N)
+    tiles = torch.nn.functional.pad(
+        mask != 0, (0, keys_p - N, 0, n_i * BLOCK_M - N)).reshape(
+        G, n_i, BLOCK_M, keys_p // BLOCK_N, BLOCK_N)
+    gi = torch.arange(G, device=q.device)[:, None]
+    ri = torch.arange(n_i, device=q.device)[None, :]
+
+    def tile_of(w, jb):
+        return tiles[gi, ri, :, jb]                     # [G, n_i, BM, BN]
+    return _walk_steps(q, k, tile_of, jlist, jcount, metric, scale, bf16)
+
+
+def _walk_steps(q, k, tile_of, jlist, jcount, metric, scale, bf16=False):
+    """The walk of the plain versions, all row tiles at once: per step w,
+    (scores [G, H, n_i, BM, BN], valid [G, 1, n_i, BM, BN], key tile
+    index [G, n_i], global rows [n_i, BM, 1], global columns
+    [G, n_i, 1, BN]). Step w of row tile i scores the key tile
+    jlist[g, i, w] against the mask tile ``tile_of(w, jlist[..., w])``
+    (bool [G, n_i, BM, BN]); pairs of steps at or past jcount, and rows or
+    columns past N, are not valid. Also yields the step's cross terms and
+    squared distances (`_qk_sq`, with ``bf16``) last, for the backward's
+    chain weights."""
+    G, H, N, D = q.shape
     n_i, W = jlist.shape[-2], jlist.shape[-1]
     rows_p = n_i * BLOCK_M
     qt = _row_tiles(q, n_i)
     kt = _key_tiles(k, rows_p)
     sc = scale.reshape(1, H, 1, 1, 1)
     rows = torch.arange(rows_p, device=q.device).reshape(n_i, BLOCK_M, 1)
-    gi = torch.arange(G, device=q.device)[:, None]
     for w in range(W):
         jb = jlist[..., w].long()                                # [G, n_i]
-        qk, sq = _qk_sq(metric, qt, _gather_tiles(kt, jb))
+        qk, sq = _qk_sq(metric, qt, _gather_tiles(kt, jb), bf16)
         s = _scores_from(metric, qk, sq, sc, D)
-        tile = store[gi, jslot[..., w].long()]
-        tile = unpack_bits(tile) if packed else tile != 0   # [G, n_i, BM, BN]
         cols = (jb * BLOCK_N)[..., None, None] \
             + torch.arange(BLOCK_N, device=q.device)
-        valid = tile & (rows < N) & (cols < N) \
+        valid = tile_of(w, jb) & (rows < N) & (cols < N) \
             & (w < jcount)[..., None, None]
         yield s, valid[:, None], jb, rows, cols, qk, sq
 
@@ -504,17 +560,18 @@ def _finish_online(m, l, acc, N):
     dead = m <= NEG_INF
     safe = torch.where(dead, torch.ones_like(l), l)
     lse = torch.where(dead, torch.full_like(m, LSE_DEAD), m + torch.log(safe))
-    lse = lse.reshape(G, H, -1)[..., :N]
+    lse = lse.reshape(G, H, -1)[..., :N].contiguous()
     if acc is None:
         return None, lse
     out = torch.where(dead[..., None], torch.zeros_like(acc),
                       acc / safe[..., None])
-    return out.reshape(G, H, -1, acc.shape[-1])[:, :, :N], lse
+    return out.reshape(G, H, -1, acc.shape[-1])[:, :, :N].contiguous(), lse
 
 
-def _online_step(m, l, acc, z, valid, p_fn=None, vt=None):
+def _online_step(m, l, acc, z, valid, p_fn=None, vt=None, bf16=False):
     """One step of the online softmax of z (masked by ``valid``):
-    updates (m, l, acc); ``p_fn`` drops the weights before P@V."""
+    updates (m, l, acc); ``p_fn`` drops the weights before P@V, which
+    takes bf16 operands with ``bf16`` (the sum l does not)."""
     m_new = torch.maximum(m, torch.where(valid, z, NEG_INF).amax(-1))
     alpha = torch.exp(m - m_new)
     p = torch.where(valid, torch.exp(z - m_new[..., None]),
@@ -522,7 +579,7 @@ def _online_step(m, l, acc, z, valid, p_fn=None, vt=None):
     l = l * alpha + p.sum(-1)
     if acc is not None:
         pd = p if p_fn is None else p_fn(p)
-        acc = acc * alpha[..., None] + pd @ vt
+        acc = acc * alpha[..., None] + _mm(pd, vt, bf16)
     return m_new, l, acc
 
 
@@ -547,15 +604,22 @@ def flash_geometric_forward_compact_plain(
     leading dim G, scale f32[H], seed i32[G] -> (out [G, H, N, Dv], lse
     [G, H, N]), zero and ``LSE_DEAD`` on rows with no valid key. The
     dropout hash takes global coordinates, as B1's does."""
-    G, H, N, D = q.shape
     if scale is None:
-        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+        scale = torch.ones(q.shape[1], dtype=q.dtype, device=q.device)
+    return _walk_forward(
+        _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale),
+        q, v, jlist, dropout_rate, seed)
+
+
+def _walk_forward(steps, q, v, jlist, dropout_rate, seed, bf16=False):
+    """(out, lse) of the online softmax over a walk's ``steps``
+    (`_walk_steps`), P@V at bf16 with ``bf16``."""
+    H, N = q.shape[1], q.shape[2]
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     vt = _key_tiles(v, jlist.shape[-2] * BLOCK_M)
     m, l, acc = _online_init(q, jlist, v.shape[-1])
-    for s, valid, jb, rows, cols, _, _ in _compact_steps(
-            q, k, store, jlist, jcount, jslot, metric, scale):
+    for s, valid, jb, rows, cols, _, _ in steps:
         drop = None
         if dropout_rate > 0.0:
             keep = _tile_keep(seed, H, rows, cols) < thresh
@@ -563,7 +627,7 @@ def flash_geometric_forward_compact_plain(
             def drop(p, keep=keep):
                 return torch.where(keep, p * inv_keep, torch.zeros_like(p))
         m, l, acc = _online_step(m, l, acc, s, valid, drop,
-                                 _gather_tiles(vt, jb))
+                                 _gather_tiles(vt, jb), bf16)
     return _finish_online(m, l, acc, N)
 
 
@@ -878,6 +942,29 @@ def _chain_weight(metric: str, ds, s, sq, qk, scale, true_d: int):
     raise NotImplementedError(metric)
 
 
+def _chain_operand(metric: str, ds, s, sq, qk, scale, true_d: int):
+    """(u, c): the chain weight written W = u / c, with u the quantity
+    the TPU kernels round at bf16 before their dq and dk products
+    (``_chain_dq``/``_chain_dk``: ds for the dot metrics, ds clip'(qk)
+    for cosine, dL/dsq by ``_dsq_from_ds`` for the squared distances) and
+    c = 1, sqrt(d) or -1/2, applied after the product as they apply it."""
+    if metric == "dot_product":
+        return ds, 1.0
+    if metric == "scaled_dot_product":
+        return ds, math.sqrt(true_d)
+    if metric in _COSINE:
+        return ds * _clip_grad(qk), 1.0
+    if metric == "squared_euclidean":
+        return -ds, -0.5
+    if metric == "euclidean":
+        return ds * (-0.5 * torch.rsqrt(sq + 1e-8)), -0.5
+    if metric == "gaussian_kernel":
+        return ds * s * (-1.0 / (2.0 * scale * scale)), -0.5
+    if metric == "rbf_kernel":
+        return ds * (-scale * s), -0.5
+    raise NotImplementedError(metric)
+
+
 def _pair_grads(metric, s, sq, qk, valid, lse, dp, delta, keep, inv_keep,
                 scale, true_d: int):
     """The backward's recompute of a block of pairs: p = exp(s - lse) on
@@ -905,7 +992,7 @@ def flash_geometric_backward_plain(
     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, metric: str,
     scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
     seed: Optional[torch.Tensor] = None, need_dscale: bool = False,
-    dlse: Optional[torch.Tensor] = None,
+    dlse: Optional[torch.Tensor] = None, bf16: bool = False,
 ):
     """What the backward kernels compute (the TPU package's
     ``flash_geometric_attention_bwd``), written out over the same row
@@ -915,7 +1002,13 @@ def flash_geometric_backward_plain(
     drop(p)^T do, and for gaussian/rbf d(scale) = sum ds s sq / sigma^3
     or -sum ds s sq. Shapes as in `flash_geometric_forward_plain`; do
     like out, dlse like lse. Returns (dq, dk, dv, dscale f32[H] or
-    None). Cosine metrics expect q/k already normalised."""
+    None). Cosine metrics expect q/k already normalised.
+
+    ``bf16``: what the bf16 forms of B2, B3a and B3b compute. The
+    products q.k, do.v, dv's and the chain's take bf16 operands, the
+    chain's being the quantity the TPU kernels round (`_chain_operand`),
+    in their order; norms, sums of W and delta stay float32. p is
+    normalised by lse, so no walk order enters."""
     G, H, N, D = q.shape
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
@@ -931,22 +1024,25 @@ def flash_geometric_backward_plain(
     for r0 in range(0, N, _ROW_CHUNK):
         r1 = min(N, r0 + _ROW_CHUNK)
         qc, doc = q[:, :, r0:r1], do[:, :, r0:r1]
-        qk, sq = _qk_sq(metric, qc, k)
+        qk, sq = _qk_sq(metric, qc, k, bf16)
         s = _scores_from(metric, qk, sq, sc, D)
         keep = None
         if dropout_rate > 0.0:
             keep = _keep_rows(seed, H, r0, r1, N, q.device) < thresh
         ds, w, pd = _pair_grads(
             metric, s, sq, qk, mask[:, None, r0:r1, :] != 0,
-            lse[:, :, r0:r1, None], doc @ v.transpose(-1, -2),
+            lse[:, :, r0:r1, None], _mm(doc, v.transpose(-1, -2), bf16),
             delta[:, :, r0:r1, None], keep, inv_keep, sc, D)
-        dqc = w @ k
+        u, c = _chain_operand(metric, ds, s, sq, qk, sc, D) if bf16 \
+            else (w, 1.0)
+        dqc = _mm(u, k, bf16) / c
+        dkc = _mm(u.transpose(-1, -2), qc, bf16) / c
         if sq_metric:
             dqc = dqc - w.sum(-1, keepdim=True) * qc
             wcol += w.sum(-2)
         dq[:, :, r0:r1] = dqc
-        dk += w.transpose(-1, -2) @ qc
-        dv += pd.transpose(-1, -2) @ doc
+        dk += dkc
+        dv += _mm(pd.transpose(-1, -2), doc, bf16)
         if need_dscale:
             dsc += (ds * s * sq).sum((0, 2, 3))
     if sq_metric:
@@ -1425,6 +1521,31 @@ class _FlashBwdFusedKernel(_FlashBackwardKernel):
                      MXU_METRICS.index(metric), math.sqrt(D),
                      *_dropout_args(dropout_rate), int(need_dscale))
         return dq, dk, dv, (part.sum((0, 2)) if need_dscale else None)
+
+
+class _FlashForwardBf16Kernel(_FlashForwardKernel):
+    """B1's bf16 form, ``tagan_flash_geometric_fwd_bf16``: B1 with bf16
+    dot operands (the TPU kernel's ``bf16=True``)."""
+    name = "flash_geometric_fwd_bf16"
+    symbol = "tagan_flash_geometric_fwd_bf16"
+
+
+class _FlashBwdFusedBf16Kernel(_FlashBwdFusedKernel):
+    """B2's bf16 form, ``tagan_flash_geometric_bwd_fused_bf16``."""
+    name = "flash_geometric_bwd_fused_bf16"
+    symbol = "tagan_flash_geometric_bwd_fused_bf16"
+
+
+class _FlashBwdDqBf16Kernel(_FlashBwdDqKernel):
+    """B3a's bf16 form, ``tagan_flash_geometric_bwd_dq_bf16``."""
+    name = "flash_geometric_bwd_dq_bf16"
+    symbol = "tagan_flash_geometric_bwd_dq_bf16"
+
+
+class _FlashBwdDkvBf16Kernel(_FlashBwdDkvKernel):
+    """B3b's bf16 form, ``tagan_flash_geometric_bwd_dkv_bf16``."""
+    name = "flash_geometric_bwd_dkv_bf16"
+    symbol = "tagan_flash_geometric_bwd_dkv_bf16"
 
 
 def _check_walk(name, dev, q, mask, jlist, jcount):
@@ -1912,6 +2033,10 @@ flash_geometric_bwd_dkv_compact_kernel = _FlashBwdDkvCompactKernel()
 flash_biased_bwd_pre_compact_kernel = _FlashBiasedBwdPreCompactKernel()
 flash_biased_bwd_dq_compact_kernel = _FlashBiasedBwdDqCompactKernel()
 flash_biased_bwd_dkv_compact_kernel = _FlashBiasedBwdDkvCompactKernel()
+flash_geometric_fwd_bf16_kernel = _FlashForwardBf16Kernel()
+flash_geometric_bwd_fused_bf16_kernel = _FlashBwdFusedBf16Kernel()
+flash_geometric_bwd_dq_bf16_kernel = _FlashBwdDqBf16Kernel()
+flash_geometric_bwd_dkv_bf16_kernel = _FlashBwdDkvBf16Kernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
@@ -1922,7 +2047,11 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dkv_compact_kernel,
            flash_biased_bwd_pre_compact_kernel,
            flash_biased_bwd_dq_compact_kernel,
-           flash_biased_bwd_dkv_compact_kernel)
+           flash_biased_bwd_dkv_compact_kernel,
+           flash_geometric_fwd_bf16_kernel,
+           flash_geometric_bwd_fused_bf16_kernel,
+           flash_geometric_bwd_dq_bf16_kernel,
+           flash_geometric_bwd_dkv_bf16_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -1937,14 +2066,18 @@ FUSED_BWD = True
 # ---------------------------------------------------------------------------
 
 def _forward(q, k, v, mask, jlist, jcount, metric, scale, dropout_rate,
-             seed):
+             seed, bf16=False):
     """(out, lse) of folded [G, H, N, .] inputs; trusts the plan. scale
-    f32[H] and seed i32[G] are given."""
+    f32[H] and seed i32[G] are given. ``bf16`` takes B1's bf16 form (on
+    the CPU, the plain version's, which walks the plan)."""
     if q.device.type == "cpu":
         return flash_geometric_forward_plain(q, k, v, mask, metric, scale,
-                                             dropout_rate, seed)
-    return flash_geometric_fwd_kernel(q, k, v, mask, jlist, jcount, metric,
-                                      scale, seed, dropout_rate)
+                                             dropout_rate, seed, bf16,
+                                             (jlist, jcount))
+    kern = flash_geometric_fwd_bf16_kernel if bf16 \
+        else flash_geometric_fwd_kernel
+    return kern(q, k, v, mask, jlist, jcount, metric, scale, seed,
+                dropout_rate)
 
 
 def _transposed_plan(mask: torch.Tensor):
@@ -1953,27 +2086,31 @@ def _transposed_plan(mask: torch.Tensor):
 
 
 def _backward(q, k, v, mask, out, lse, do, plan, plan_t, metric, scale,
-              dropout_rate, seed, need_dscale, fused, dlse):
+              dropout_rate, seed, need_dscale, fused, dlse, bf16=False):
     """(dq, dk, dv, dscale or None) of folded inputs; trusts the plans.
-    ``plan_t`` None is built from the mask where a kernel walks it."""
+    ``plan_t`` None is built from the mask where a kernel walks it.
+    ``bf16`` takes the kernels' bf16 forms."""
     if q.device.type == "cpu":
         return flash_geometric_backward_plain(
             q, k, v, mask, out, lse, do, metric, scale, dropout_rate, seed,
-            need_dscale, dlse)
+            need_dscale, dlse, bf16)
     delta = _delta(do, out, dlse).contiguous()
     fused = FUSED_BWD if fused is None else fused
     if plan_t is None:
         plan_t = _transposed_plan(mask)
     if fused:
-        return flash_geometric_bwd_fused_kernel(
-            q, k, v, mask, do, lse, delta, *plan_t, metric, scale, seed,
-            dropout_rate, need_dscale)
-    dq, dscale = flash_geometric_bwd_dq_kernel(
-        q, k, v, mask, do, lse, delta, *plan, metric, scale, seed,
-        dropout_rate, need_dscale)
-    dk, dv = flash_geometric_bwd_dkv_kernel(
-        q, k, v, mask, do, lse, delta, *plan_t, metric, scale, seed,
-        dropout_rate)
+        kern = flash_geometric_bwd_fused_bf16_kernel if bf16 \
+            else flash_geometric_bwd_fused_kernel
+        return kern(q, k, v, mask, do, lse, delta, *plan_t, metric, scale,
+                    seed, dropout_rate, need_dscale)
+    dq_kern, dkv_kern = (
+        (flash_geometric_bwd_dq_bf16_kernel,
+         flash_geometric_bwd_dkv_bf16_kernel) if bf16 else
+        (flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel))
+    dq, dscale = dq_kern(q, k, v, mask, do, lse, delta, *plan, metric,
+                         scale, seed, dropout_rate, need_dscale)
+    dk, dv = dkv_kern(q, k, v, mask, do, lse, delta, *plan_t, metric, scale,
+                      seed, dropout_rate)
     return dq, dk, dv, dscale
 
 
@@ -1989,16 +2126,18 @@ def _defaults(q, scale, seed):
 def flash_geometric_fwd(q, k, v, mask, jlist, jcount, *, metric: str,
                         scale: Optional[torch.Tensor] = None,
                         dropout_rate: float = 0.0,
-                        seed: Optional[torch.Tensor] = None):
+                        seed: Optional[torch.Tensor] = None,
+                        bf16: bool = False):
     """(out, lse) of the batched forward: the plain version for CPU
     tensors, the CUDA kernel otherwise. Shapes as in
     `flash_geometric_forward_plain`; jlist/jcount i32[G, ceil(N/64), W]
     and [G, ceil(N/64)] at the kernel's tile, checked by `check_plan`
-    (the plain version does not read them)."""
+    (the float32 plain version does not read them). ``bf16`` takes B1's
+    bf16 form, whose result depends on the walk."""
     check_plan(jlist, jcount, q.shape[2])
     scale, seed = _defaults(q, scale, seed)
     return _forward(q, k, v, mask, jlist, jcount, metric, scale,
-                    dropout_rate, seed)
+                    dropout_rate, seed, bf16)
 
 
 def flash_geometric_attention_bwd(
@@ -2006,7 +2145,7 @@ def flash_geometric_attention_bwd(
     scale: Optional[torch.Tensor] = None, plan=None, plan_t=None,
     seed: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
     need_dscale: bool = False, fused: Optional[bool] = None,
-    dlse: Optional[torch.Tensor] = None,
+    dlse: Optional[torch.Tensor] = None, bf16: bool = False,
 ):
     """The backward of the batched forward (the TPU package's
     ``flash_geometric_attention_bwd``): (dq, dk, dv), plus dscale f32[H]
@@ -2027,13 +2166,20 @@ def flash_geometric_attention_bwd(
     with atomics, so its last bits vary from run to run; ``fused=False``
     is deterministic.
 
+    ``bf16`` takes the bf16 forms (B2, B3a and B3b with bf16 dot
+    operands; the plain version on the CPU).
+
     3-tuple plans (jlist, jcount, jslot) and (ilist, icount, islot) take
     the compact form: ``mask`` is then the occupied-block store
     (`store_packed`), the plans are checked (`check_compact_plan`), and
     CUDA tensors take B3a c then B3b c (which walks ``plan_t``; without
-    it the compact backward raises ValueError)."""
+    it the compact backward raises ValueError). The compact form has no
+    bf16 form yet: ``bf16`` raises NotImplementedError there."""
     N = q.shape[2]
     if plan is not None and len(plan) == 3:
+        if bf16:
+            raise NotImplementedError(
+                "the compact backward (B3a c, B3b c) has no bf16 form yet")
         check_compact_plan(*plan, mask, N)
         if plan_t is not None:
             check_compact_plan(*plan_t, mask, N)
@@ -2051,25 +2197,26 @@ def flash_geometric_attention_bwd(
     scale, seed = _defaults(q, scale, seed)
     dq, dk, dv, dscale = _backward(q, k, v, mask, out, lse, do, plan, plan_t,
                                    metric, scale, dropout_rate, seed,
-                                   need_dscale, fused, dlse)
+                                   need_dscale, fused, dlse, bf16)
     return (dq, dk, dv, dscale) if need_dscale else (dq, dk, dv)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The differentiable forward of folded inputs (the TPU package's
     ``_flash_diff`` and ``_flash_diff_scaled``): B1 forward, the picked
-    backward (or the plain versions on the CPU). Returns (out, lse); the
-    cotangent of lse rides on delta. dscale is formed only when the scale
-    requires grad."""
+    backward (or the plain versions on the CPU), in their bf16 forms with
+    ``bf16`` (the TPU custom_vjp's static ``bf16``). Returns (out, lse);
+    the cotangent of lse rides on delta. dscale is formed only when the
+    scale requires grad."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, mask, jlist, jcount, ilist, icount,
-                seed, metric, dropout_rate):
+                seed, metric, dropout_rate, bf16):
         out, lse = _forward(q, k, v, mask, jlist, jcount, metric, scale,
-                            dropout_rate, seed)
+                            dropout_rate, seed, bf16)
         ctx.save_for_backward(q, k, v, scale, mask, out, lse, jlist, jcount,
                               ilist, icount, seed)
-        ctx.args = (metric, dropout_rate)
+        ctx.args = (metric, dropout_rate, bf16)
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -2077,7 +2224,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         (q, k, v, scale, mask, out, lse, jlist, jcount, ilist, icount,
          seed) = ctx.saved_tensors
-        metric, dropout_rate = ctx.args
+        metric, dropout_rate, bf16 = ctx.args
         if dout is None:
             dout = torch.zeros_like(out)
         need_dscale = ctx.needs_input_grad[3] and metric in SCALED_METRICS
@@ -2085,10 +2232,10 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, mask, out, lse, dout.contiguous(), (jlist, jcount),
             None if ilist is None else (ilist, icount), metric, scale,
             dropout_rate, seed, need_dscale, None,
-            None if dlse is None else dlse.contiguous())
+            None if dlse is None else dlse.contiguous(), bf16)
         if ctx.needs_input_grad[3] and dscale is None:
             dscale = torch.zeros_like(scale)
-        return (dq, dk, dv, dscale) + (None,) * 8
+        return (dq, dk, dv, dscale) + (None,) * 9
 
 
 def _biased_forward(q, k, v, mask, bias, jlist, jcount, metric, scale,
@@ -2245,6 +2392,7 @@ def flash_geometric_attention(
     scale_param: Optional[torch.Tensor] = None, plan=None, plan_t=None,
     dropout_rate: float = 0.0, dropout_seed: Optional[torch.Tensor] = None,
     return_lse: bool = False, bias: Optional[torch.Tensor] = None,
+    bf16: bool = False,
 ):
     """Differentiable edge-masked attention (the TPU package's
     ``flash_geometric_attention``): the forward kernel B1 and, under
@@ -2268,7 +2416,12 @@ def flash_geometric_attention(
     (`flash_biased_attention_bwd`), with the two dropout seeds of
     `biased_seeds`. It returns out only; the bias gets its gradient at
     the mask's pairs, which are the only ones its result depends on
-    (elsewhere it is unset on CUDA: read it there only)."""
+    (elsewhere it is unset on CUDA: read it there only).
+
+    ``bf16`` takes the kernels' bf16 forms (the TPU package's ``bf16``:
+    bf16 dot operands, float32 sums), forward and backward; the
+    edge-biased kernels have none yet, so ``bf16`` with ``bias`` raises
+    NotImplementedError."""
     if bias is not None and return_lse:
         raise ValueError("return_lse is not available with bias")
     if plan is None:
@@ -2279,12 +2432,12 @@ def flash_geometric_attention(
             check_plan(*plan_t, q.shape[-2])
     return _flash_attention(q, k, v, mask, metric, scale_param, plan,
                             dropout_rate, dropout_seed, return_lse, plan_t,
-                            bias)
+                            bias, bf16)
 
 
 def _flash_attention(q, k, v, mask, metric, scale_param, plan,
                      dropout_rate=0.0, dropout_seed=None, return_lse=False,
-                     plan_t=None, bias=None):
+                     plan_t=None, bias=None, bf16=False):
     """`flash_geometric_attention` with plans from the builders above,
     taken unchecked (the model's path). The cosine normalisation and the
     folding of leading dims stay outside the autograd Function, where
@@ -2292,6 +2445,9 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
     if metric not in MXU_METRICS:
         raise NotImplementedError(
             f"metric {metric} is not written through q.k; use the dense path")
+    if bf16 and bias is not None:
+        raise NotImplementedError(
+            "the edge-biased kernels (B4-B7) have no bf16 form yet")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     lead = q.shape[:-3]
@@ -2322,7 +2478,7 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
         return out.reshape(*lead, H, N, Dv)
     out, lse = _FlashAttention.apply(
         qf, kf, vf, scale, mf, *fold_plan(plan), *fold_plan(plan_t),
-        _fold_seed(dropout_seed, G, q.device), metric, dropout_rate)
+        _fold_seed(dropout_seed, G, q.device), metric, dropout_rate, bf16)
     out = out.reshape(*lead, H, N, Dv)
     if return_lse:
         return out, lse.reshape(*lead, H, N)

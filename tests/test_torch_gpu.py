@@ -1116,3 +1116,205 @@ def test_hybrid_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
         assert torch.isfinite(got["cuda"][1][name]).all(), name
         assert (got["cuda"][1][name] - g).abs().max().item() <= TOL * scale, \
             name
+
+
+# -- the bf16 forms (bf16_matmul=True) ----------------------------------------
+
+# the bf16 forms against the plain bf16 versions, three gates over the
+# plain version's largest entry: max error bf16-class (an fp32 sum in
+# another order can flip a bf16 rounding, which moves one term by up to
+# 2^-8 of itself), mean error fp32-class (a systematic slip moves every
+# entry), and the witness: the mean distance from the fp32 result at least
+# 100 times the mean error
+BF16_MAX_TOL = 2e-3
+BF16_MEAN_TOL = 1e-5
+BF16_WITNESS = 100
+BF16_KERNELS = (FG.flash_geometric_fwd_bf16_kernel,
+                FG.flash_geometric_bwd_fused_bf16_kernel,
+                FG.flash_geometric_bwd_dq_bf16_kernel,
+                FG.flash_geometric_bwd_dkv_bf16_kernel)
+
+
+def _bf16_gates(got, want, f32, witness=True, mean=True):
+    m = want.abs().max().clamp(min=1e-30)
+    err = (got - want).abs()
+    mx, mn = (err.max() / m).item(), (err.mean() / m).item()
+    assert torch.isfinite(got).all()
+    assert mx <= BF16_MAX_TOL
+    if mean:
+        assert mn <= BF16_MEAN_TOL
+    if witness:
+        wit = ((f32 - want).abs().mean() / m).item()
+        assert wit >= max(BF16_WITNESS * mn, BF16_MEAN_TOL)
+
+
+def _bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate):
+    q, k, v, mask, do, dl = (t.to(cuda) for t in _bwd_inputs(G, H, N, D, Dv))
+    if metric in FG._COSINE:
+        q, k = FG._l2_normalize(q), FG._l2_normalize(k)
+    scale = torch.linspace(0.7, 2.0, H, device=cuda)
+    seed = torch.tensor([-7, 12345][:G], dtype=torch.int32, device=cuda)
+    need = metric in FG.SCALED_METRICS
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    before = [k_.launches for k_ in BF16_KERNELS]
+    out, lse = FG.flash_geometric_fwd(q, k, v, mask, *plan, metric=metric,
+                                      scale=scale, seed=seed,
+                                      dropout_rate=rate, bf16=True)
+    p_out, p_lse = FG.flash_geometric_forward_plain(
+        q, k, v, mask, metric, scale, rate, seed, True, plan)
+    f_out, _ = FG.flash_geometric_forward_plain(q, k, v, mask, metric, scale,
+                                                rate, seed)
+    torch.cuda.synchronize()
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    assert torch.all(out[dead] == 0) and torch.all(lse[dead] == FG.LSE_DEAD)
+    _bf16_gates(out[~dead], p_out[~dead], f_out[~dead])
+    _bf16_gates(lse[~dead], p_lse[~dead], p_lse[~dead], witness=False)
+    args = (q, k, v, mask, p_out, p_lse, do)
+    kw = dict(metric=metric, scale=scale, plan=plan, plan_t=plan_t,
+              seed=seed, dropout_rate=rate, need_dscale=need, dlse=dl)
+    want = FG.flash_geometric_backward_plain(*args, metric, scale, rate, seed,
+                                             need, dl, True)
+    f32 = FG.flash_geometric_backward_plain(*args, metric, scale, rate, seed,
+                                            need, dl)
+    for fused in (True, False):
+        got = FG.flash_geometric_attention_bwd(*args, fused=fused, bf16=True,
+                                               **kw)
+        torch.cuda.synchronize()
+        for i, (g, w, f) in enumerate(zip(got, want, f32)):
+            _bf16_gates(g, w, f, witness=i < 3, mean=i < 3)
+    assert [k_.launches - b for k_, b in zip(BF16_KERNELS, before)] \
+        == [1, 1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_bf16_kernels_match_plain(metric, rate, cuda):
+    """B1, B2, B3a and B3b in their bf16 forms against the plain bf16
+    versions (the forward walking the same plan): N=150, D != Dv, dead
+    rows, an empty query tile and key strip, per-head scales with their
+    gradient (the max gate alone: dscale is a sum of many terms), dropout
+    and an lse cotangent."""
+    _bf16_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv", [(8, 8), (12, 12), (40, 72)])
+def test_bf16_kernel_head_dims(D, Dv, metric, cuda):
+    """Head dims whose sqrt is not a power of two (the scaled dot's factor
+    comes after the rounded product) and a multi-lane width."""
+    _bf16_vs_plain(cuda, 1, 2, 200, D, Dv, metric, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+def test_bf16_autograd_on_gpu_matches_cpu(fused, cuda, monkeypatch):
+    """flash_geometric_attention(bf16=True) under autograd: the bf16 forms
+    on the card against the plain bf16 versions on the CPU, a learnable
+    scale, dropout; the CPU's fp32 gradients the witness."""
+    monkeypatch.setattr(FG, "FUSED_BWD", fused)
+    q, k, v, mask, do, _ = _bwd_inputs(2, 2, 130, 16, 16)
+    grads = {}
+    for dev, bf16 in (("cuda", True), ("cpu", True), ("cpu", False)):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (q, k, v)]
+        sigma = torch.tensor([0.8, 1.5], device=dev, requires_grad=True)
+        out = FG.flash_geometric_attention(
+            *leaves, mask.to(dev), metric="gaussian_kernel",
+            scale_param=sigma, dropout_rate=0.1,
+            dropout_seed=torch.tensor([3, 4], dtype=torch.int32), bf16=bf16)
+        (out * do.to(dev)).sum().backward()
+        grads[dev, bf16] = [t.grad.cpu() for t in leaves + [sigma]]
+    for i, (g, w, f) in enumerate(zip(grads["cuda", True], grads["cpu", True],
+                                      grads["cpu", False])):
+        _bf16_gates(g, w, f, witness=i < 3, mean=i < 3)
+
+
+def _bf16_model_cfg(**kw):
+    return pt.TAGANConfig(**{**dict(
+        hidden_dim=32, num_heads=2, num_layers=2, node_feature_dim=8,
+        output_dim=1, loss_type="bce", dropout=0.0, spatial_backend="flash",
+        bf16_matmul=True), **kw})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+def test_bf16_trainer_step_on_gpu_matches_cpu(fused, cuda, monkeypatch):
+    """One TAGANTrainer step of the bf16 flash model, card against CPU,
+    the bf16 forms launched once per layer (the fp32 forms never). With
+    the plain contractions pinned to fp32 the card's kernels alone differ
+    from the CPU's plain versions: each gradient within the max gate.
+    With every contraction at bf16 (the model as it runs) a rounding
+    flipped by an fp32 sum order moves its value by 2^-8 and the
+    roundings it feeds flip in turn: bf16-class tolerances (the loss
+    within 2e-2, each gradient within 1e-1 of its largest entry)."""
+    from tagan_torch.core.module import default_matmul_precision
+    monkeypatch.setattr(FG, "FUSED_BWD", fused)
+    rng = np.random.default_rng(4)
+    n, e, T = 100, 800, 3
+    seqs = [[{"x": rng.standard_normal((n, 8)).astype(np.float32),
+              "edge_index": rng.integers(0, n, (2, e)),
+              "node_ids": np.arange(n), "timestep": float(t)}
+             for t in range(T)] for _ in range(2)]
+    cfg = _bf16_model_cfg(distance_metric="gaussian_kernel",
+                          learnable_distance=True)
+    ds = pt.TemporalGraphDataset(seqs, [1.0, 0.0])
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        ds, batch_size=2, dense_adj=False)))
+    for contractions, loss_tol, grad_tol in (("highest", BF16_MAX_TOL,
+                                              BF16_MAX_TOL),
+                                             (None, 2e-2, 1e-1)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            model = pt.TAGAN(cfg, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+            if contractions is not None:
+                model.precision = \
+                    lambda: default_matmul_precision(contractions)
+            tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
+            before = {k.name: k.launches for k in FG.KERNELS}
+            loss, _ = tr._loss(batch, labels, smask, True)
+            loss.backward()
+            launched = {k.name: k.launches - before[k.name]
+                        for k in FG.KERNELS}
+            got[dev] = (loss.item(), {n_: p.grad.detach().cpu().clone()
+                                      for n_, p in model.named_parameters()})
+            if dev == "cuda":
+                want = {k.name: 0 for k in FG.KERNELS}
+                want[FG.flash_geometric_fwd_bf16_kernel.name] = 2
+                for kern in BF16_KERNELS[1:2] if fused else BF16_KERNELS[2:]:
+                    want[kern.name] = 2
+                assert launched == want
+        assert abs(got["cuda"][0] - got["cpu"][0]) <= loss_tol
+        for name, g in got["cpu"][1].items():
+            if name in ("temporal_attention.k.b",
+                        "temporal_attention.time_encoding.basis_proj.b",
+                        "temporal_attention.time_q_proj.b"):
+                continue    # zero in exact arithmetic: fp32 noise
+            card = got["cuda"][1][name]
+            assert torch.isfinite(card).all(), name
+            assert (card - g).abs().max() <= grad_tol * g.abs().max(), name
+
+
+@pytest.mark.gpu
+def test_bf16_refused_before_launch(cuda):
+    """What has no bf16 form raises before any launch on CUDA tensors: the
+    edge-biased entry, the compact backward, and the model's combinations
+    that would need them (check_in_slice, on the card)."""
+    q, k, v, mask = (t.to(cuda) for t in _inputs(1, 2, 70, 16, 16))
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    with pytest.raises(NotImplementedError, match="bf16"):
+        FG.flash_geometric_attention(q, k, v, mask,
+                                     bias=torch.zeros(1, 70, 70, device=cuda),
+                                     bf16=True)
+    store, plan = FG.compact_from_mask(mask)
+    plan_t = FG.compact_transposed_plan(mask)
+    lse = torch.zeros(1, 2, 70, device=cuda)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        FG.flash_geometric_attention_bwd(q, k, v, store, v, lse, v,
+                                         plan=plan, plan_t=plan_t, bf16=True)
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
+    for kw in (dict(spatial_backend="hybrid"),
+               dict(use_edge_features=True, edge_feature_dim=3)):
+        with pytest.raises(NotImplementedError, match="bf16_matmul"):
+            pt.TAGAN(_bf16_model_cfg(**kw), device=cuda)

@@ -171,13 +171,16 @@ def test_predictor_matches_jax(backend, interpret):
 @pytest.mark.parametrize("override", [
     {"spatial_backend": "hybrid"}, {"spatial_backend": "ring"},
     {"compat_mode": "executed"}, {"temporal_attention_type": "standard"},
-    {"temporal_attention_type": "multi_scale"}, {"bf16_matmul": True}])
+    {"temporal_attention_type": "multi_scale"},
+    {"bf16_matmul": True, "use_edge_features": True, "edge_feature_dim": 3,
+     "spatial_backend": "flash"}])
 def test_outside_the_slice_raises(override):
     """What the port does not run raises NotImplementedError at
-    construction. The hybrid backend trains, with and without edge
-    features: a backward on a plan without the transposed walk raises
-    ValueError for both models, and with it the edge-feature model's
-    gradients are finite."""
+    construction: bf16_matmul runs on the flash backend without edge
+    features only (the edge-biased kernels have no bf16 form). The
+    hybrid backend trains, with and without edge features: a backward on
+    a plan without the transposed walk raises ValueError for both models,
+    and with it the edge-feature model's gradients are finite."""
     if override.get("spatial_backend") == "hybrid":
         rng = np.random.default_rng(0)
         snaps = [{"x": rng.standard_normal((12, 8)).astype(np.float32),
@@ -206,6 +209,16 @@ def test_outside_the_slice_raises(override):
         return
     with pytest.raises(NotImplementedError):
         pt.TAGAN(pt.TAGANConfig(**_config(**override)), device="cpu")
+
+
+def test_bf16_hybrid_raises():
+    """bf16_matmul on the hybrid backend raises NotImplementedError at
+    construction: the compact-store kernels have no bf16 form."""
+    for edge in ({}, {"use_edge_features": True, "edge_feature_dim": 3}):
+        with pytest.raises(NotImplementedError, match="hybrid"):
+            pt.TAGAN(pt.TAGANConfig(**_config(
+                spatial_backend="hybrid", bf16_matmul=True, **edge)),
+                device="cpu")
 
 
 def test_edge_dim_without_edge_features_matches_jax(churn_batch):

@@ -32,11 +32,14 @@ Phases, in order; any failure raises and exits non-zero:
    merge's NEG_INF lse2 on dead rows), both stores, the whole dB store
    (0 in the slots no walk visits); (2h) the bf16 forms of B1, B2, B3a
    and B3b (bf16 dot operands, fp32 sums) against the plain bf16
-   versions on 2's grid and head dims 8 and 12, under three gates over
-   the plain version's largest entry: max error <= 2e-3 (bf16-class: an
-   fp32 sum in another order may flip a bf16 rounding), mean error <=
+   versions on 2's grid and head dims 8, 12 and 128, under three gates
+   over the plain version's largest entry: max error <= 2e-3 (bf16-class:
+   an fp32 sum in another order may flip a bf16 rounding), mean error <=
    1e-5 (fp32-class), and the mean distance from the fp32 result at
-   least 100 times the mean error;
+   least 100 times the mean error; (2i) the bf16 forms of B4, B5, B6,
+   B7a and B7b against their plain bf16 versions on 2c/2d's grid, (D,
+   Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), under the
+   same gates, dB at the mask's pairs;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -64,7 +67,11 @@ Phases, in order; any failure raises and exits non-zero:
    per request, nothing else), the peak memory, the fp32 model's logits
    on the same request and weights beside the bf16 model's, and the
    first layer's B1 bf16 on one snapshot against the plain bf16 version
-   under the bf16 gates;
+   under the bf16 gates; (3f) phase 3b with ``bf16_matmul=True`` (the
+   bf16 forms of B4 and B5 once per layer per request, nothing else),
+   the peak memory, the fp32 edge model's logits beside the bf16
+   model's, and the first layer's bf16 B4 and B5 on one snapshot at full
+   width against the plain bf16 versions under the bf16 gates;
 4. end to end at 1,000 nodes: the same Predictor's probabilities on the
    card (kernels) and on the CPU (plain versions), and the per-node
    features after the attention layers (``encode_spatial``); (4b) the
@@ -115,7 +122,13 @@ Phases, in order; any failure raises and exits non-zero:
    request, each beside its fp32 form in turns, the plain bf16 versions,
    ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask
    as the library yardstick, and their bounds (the fp32 forms' bytes,
-   operations at the bf16 tensor-core rate);
+   operations at the bf16 tensor-core rate); (5h) the bf16 forms of B4,
+   B5, B6, B7a and B7b at one snapshot of 3f's request, each beside its
+   fp32 form in turns, the plain bf16 versions, compiled
+   ``flex_attention`` on bf16 q, k, v at the scaled-dot metric as the
+   library yardstick (held against the bf16 B4 and B5 at that metric,
+   null with the reason if it does not build or differs; its backward
+   forward+backward minus forward), and their bounds;
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -149,7 +162,12 @@ Phases, in order; any failure raises and exits non-zero:
    other backward) launched exactly as the fp32 forms are in 6, the fp32
    forms never; step times, split, peak memory, one layer's bf16 B1 and
    backward over the folded snapshots and their share of the step; one
-   snapshot at full width against the plain bf16 backward;
+   snapshot at full width against the plain bf16 backward; (6f) phase 6b
+   with ``bf16_matmul=True``: the bf16 forms of B4-B7b each exactly once
+   per layer per step, nothing else; step times, split, peak memory, one
+   layer's bf16 B6 + B7a + B7b over the folded snapshots and their share
+   of the step, finite non-zero gradients (the edge parameters' included),
+   one snapshot at full width against the plain bf16 biased backward;
 7. training at 1,000 nodes on the card and on the CPU from the same
    weights and batches: the first step's gradients and the losses and
    parameters of 3 AdamW steps; (7b) the same for the edge-feature
@@ -160,7 +178,9 @@ Phases, in order; any failure raises and exits non-zero:
    (7e) the same with ``bf16_matmul=True``, the card's fp32 model the
    witness, twice: with the kernels alone at bf16 (the plain
    contractions pinned to fp32) under model-level bf16 gates, and as
-   the model runs, every contraction at bf16, at bf16-class tolerances.
+   the model runs, every contraction at bf16, at bf16-class tolerances;
+   (7f) the same for the edge-feature model on 7b's graphs (the bf16
+   forms of B4-B7b).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -231,12 +251,27 @@ BF16_WITNESS = 100
 # and the parameters, which a step turned by a flipped small gradient
 # moves by up to a few learning rates (5.7e-3)
 BF16_MODEL_MEAN_TOL = 1e-4
+# the edge-feature model with the kernels alone at bf16 (7f): the edge
+# parameters' gradients are sums of dB over every edge, and dB = sum_h dz
+# sums to ~0 over each row (a softmax's cotangent), so they are differences
+# of nearly equal sums, and every entry of such a tensor carries the same
+# sum's flips (edge_embedding.b: each entry that sum times a weight; each
+# edge_bias.b: the sum itself, one entry): each gradient's mean error over
+# its largest entry (measured 3.2e-4 on edge_embedding.b, 7.9e-4 on the
+# one-entry edge_bias.b; the max gate, 7e's, 7.9e-4)
+BF16_EDGE_MEAN_TOL = 1e-3
 BF16_MODEL_WITNESS = 10
 BF16_KERNELS_PARAM = 5e-4
 BF16_MODEL_GRAD = 1e-1
 BF16_MODEL_LOSS = 2e-2
 BF16_MODEL_PARAM = 1e-2
 PEAK_BF16_FLOPS = 989e12    # H100 SXM, dense bf16 on the tensor cores
+# compiled flex_attention on bf16 q, k, v against the bf16 forms of B4 and
+# B5 at the scaled-dot metric (5h), max abs error over the largest entry
+# (at least 1): flex returns out in bf16 (2^-9 of each entry) and rounds p
+# against the running max of its own 128-key tiles, the kernels of their
+# 64-key tiles (a flip moves a term by 2^-8)
+FLEX_BF16_TOL = 1e-2
 
 
 def log(*a):
@@ -301,6 +336,19 @@ def bf16_gates(label, got, want, f32, witness=True, mean=True):
         raise AssertionError(f"{label}: witness {wit} < {BF16_WITNESS} x "
                              f"mean err {mn}")
     return err.max().item(), mx, mn, wit
+
+
+def biased_kernels(FG, bf16):
+    """The wrappers of B4, B5, B6, B7a and B7b: the fp32 or the bf16
+    forms."""
+    if bf16:
+        return (FG.flash_lse1_bf16_kernel, FG.flash_biased_fwd_bf16_kernel,
+                FG.flash_biased_bwd_pre_bf16_kernel,
+                FG.flash_biased_bwd_dq_bf16_kernel,
+                FG.flash_biased_bwd_dkv_bf16_kernel)
+    return (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
+            FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
+            FG.flash_biased_bwd_dkv_kernel)
 
 
 def flash_kernels(FG, bf16):
@@ -518,15 +566,18 @@ def bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
 
 
 def phase_small_bf16(FG):
-    """[2h] every metric with dropout 0 and 0.1 at head dim 16, and head
-    dims 8 and 12 (sqrt(d) not a power of two), dscale for gaussian/rbf,
-    dead rows, an empty query tile and key strip, N not a multiple of the
-    tile."""
+    """[2h] every metric with dropout 0 and 0.1 at head dim 16, head
+    dims 8 and 12 (sqrt(d) not a power of two) and 128 (the widest,
+    whose q and k tiles the bf16 backward rounds in place: rounded copies
+    beside them would pass a block's 227 KB of shared memory), dscale for
+    gaussian/rbf, dead rows, an empty query tile and key strip, N not a
+    multiple of the tile."""
     cases = [(metric, 16, 8, rate) for metric in FG.MXU_METRICS
              for rate in (0.0, 0.1)]
     cases += [("scaled_dot_product", 8, 8, 0.1), ("gaussian_kernel", 12, 12,
                                                    0.0),
-              ("rbf_kernel", 8, 12, 0.1), ("cosine_similarity", 12, 8, 0.0)]
+              ("rbf_kernel", 8, 12, 0.1), ("cosine_similarity", 12, 8, 0.0),
+              ("euclidean", 128, 128, 0.1)]
     worst = {}
     for metric, D, Dv, rate in cases:
         for name, r in bf16_vs_plain(FG, 2, 3, 150, D, Dv, metric,
@@ -612,36 +663,64 @@ def walked_pairs(FG, mask):
 
 
 def biased_bwd_kernels(FG, q, k, v, mask, bias, do, lse1, lse2, delta2,
-                       plan, plan_t, metric, scale, seeds, rate, need):
-    """B6, then B7a and B7b on B6's delta1: (delta1, dB, dq, dscale, dk,
-    dv)."""
+                       plan, plan_t, metric, scale, seeds, rate, need,
+                       bf16=False):
+    """B6, then B7a and B7b on B6's delta1 (their bf16 forms with
+    ``bf16``): (delta1, dB, dq, dscale, dk, dv)."""
+    _, _, pre, dq_k, dkv_k = biased_kernels(FG, bf16)
     common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
-    d1, db = FG.flash_biased_bwd_pre_kernel(*common, *plan, metric, scale,
-                                            seeds, rate)
-    dq, dsc = FG.flash_biased_bwd_dq_kernel(*common, d1, *plan, metric,
-                                            scale, seeds, rate, need)
-    dk, dv = FG.flash_biased_bwd_dkv_kernel(*common, d1, *plan_t, metric,
-                                            scale, seeds, rate)
+    d1, db = pre(*common, *plan, metric, scale, seeds, rate)
+    dq, dsc = dq_k(*common, d1, *plan, metric, scale, seeds, rate, need)
+    dk, dv = dkv_k(*common, d1, *plan_t, metric, scale, seeds, rate)
+    return d1, db, dq, dsc, dk, dv
+
+
+def biased_bwd_plain_parts(FG, common, metric, scale, seeds, rate, need,
+                           bf16=False):
+    """The plain parts (delta1, dB, dq, dscale, dk, dv) on ``common`` =
+    (q, k, v, mask, bias, do, lse1, lse2, delta2)."""
+    d1, db = FG.flash_biased_bwd_pre_plain(*common, metric, scale, rate,
+                                           seeds, bf16)
+    dq, dsc = FG.flash_biased_bwd_dq_plain(*common, d1, metric, scale, rate,
+                                           seeds, need, bf16)
+    dk, dv = FG.flash_biased_bwd_dkv_plain(*common, d1, metric, scale, rate,
+                                           seeds, bf16)
     return d1, db, dq, dsc, dk, dv
 
 
 def biased_bwd_errors(FG, label, got, q, k, v, mask, bias, do, lse1, lse2,
-                      delta2, metric, scale, seeds, rate, need):
+                      delta2, metric, scale, seeds, rate, need, bf16=False):
     """{B6, B7a, B7b: error} of the kernels' outputs ``got`` against the
     plain parts on the same inputs: each output's max abs error over its
     largest entry (at least 1), dB at the mask's pairs; raises past TOL,
     on a non-finite output, or where dB is not 0 at the other pairs of
-    the walked blocks."""
+    the walked blocks. ``bf16``: the bf16 forms against the plain bf16
+    parts under the bf16 gates (the plain fp32 parts the witness; dscale
+    the max gate alone); the errors are then each kernel's worst (max abs
+    error, max error, mean error, witness)."""
     d1, db, dq, dsc, dk, dv = got
     common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
-    p_d1, p_db = FG.flash_biased_bwd_pre_plain(*common, metric, scale, rate,
-                                               seeds)
-    p_dq, p_dsc = FG.flash_biased_bwd_dq_plain(*common, p_d1, metric, scale,
-                                               rate, seeds, need)
-    p_dk, p_dv = FG.flash_biased_bwd_dkv_plain(*common, p_d1, metric, scale,
-                                               rate, seeds)
+    plain = biased_bwd_plain_parts(FG, common, metric, scale, seeds, rate,
+                                   need, bf16)
+    p_d1, p_db, p_dq, p_dsc, p_dk, p_dv = plain
     sync()
     on = mask != 0
+    if bf16:
+        if not bool((db[walked_pairs(FG, mask) & ~on] == 0).all()):
+            raise AssertionError(f"{label}: dB not 0 off the mask in a "
+                                 f"walked block")
+        f32 = biased_bwd_plain_parts(FG, common, metric, scale, seeds, rate,
+                                     need)
+        g = {n: bf16_gates(f"{label} {n}", a, b, c) for n, a, b, c in (
+            ("delta1", d1, p_d1, f32[0]), ("dB", db[on], p_db[on], f32[1][on]),
+            ("dq", dq, p_dq, f32[2]), ("dk", dk, p_dk, f32[4]),
+            ("dv", dv, p_dv, f32[5]))}
+        if need:
+            g["dscale"] = bf16_gates(f"{label} dscale", dsc, p_dsc, f32[3],
+                                     witness=False, mean=False)
+        return {"B6": max(g["delta1"], g["dB"]),
+                "B7a": max(g["dq"], g.get("dscale", g["dq"])),
+                "B7b": max(g["dk"], g["dv"])}
     for name, t in (("delta1", d1), ("dq", dq), ("dk", dk), ("dv", dv),
                     ("dB", db[on])):
         if not bool(torch.isfinite(t).all()):
@@ -690,6 +769,80 @@ def phase_small_biased_bwd(FG):
         f"(delta1, dB at the mask's pairs) {out['B6']:.3e}, B7a (dq, dscale) "
         f"{out['B7a']:.3e}, B7b (dk, dv) {out['B7b']:.3e} (tol {TOL})")
     return out
+
+
+# -- phase 2i -----------------------------------------------------------------
+
+def biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
+    """B4, B5, B6, B7a and B7b in their bf16 forms against the plain bf16
+    versions on 2c's inputs and 2d's cotangent, under the bf16 gates (the
+    plain fp32 versions the witness): lse1, then out and lse2 (B5 on the
+    plain lse1, the plain B5 walking the same plan), then the backward
+    parts on the plain bf16 forward's statistics (dB at the mask's pairs,
+    0 at the other pairs of the walked blocks); dead rows exactly.
+    Returns {kernel: (max abs error, max error, mean error, witness)} of
+    its worst output."""
+    q, k, v, mask, bias, scale, seeds = biased_small_inputs(
+        FG, G, H, N, D, Dv, metric, seed)
+    do = small_inputs(FG, G, H, N, D, Dv, metric, seed)[3]
+    label = f"bf16 biased {metric} rate={rate} D={D} Dv={Dv}"
+    need = metric in FG.SCALED_METRICS
+    b4, b5 = biased_kernels(FG, True)[:2]
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    lse1 = b4(q, k, mask, *plan, metric, scale)
+    p_lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, True)
+    f_lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale)
+    fwd = (q, k, v, mask, bias, p_lse1, metric, scale, rate, seeds)
+    out, lse2 = b5(q, k, v, mask, bias, p_lse1, *plan, metric, scale, seeds,
+                   rate)
+    p_out, p_lse2 = FG.flash_biased_forward_plain(*fwd, True, plan)
+    f_out, f_lse2 = FG.flash_biased_forward_plain(*fwd)
+    sync()
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    if not (all(torch.all(t[dead] == FG.LSE_DEAD)
+                for t in (lse1, lse2, p_lse2))
+            and torch.all(out[dead] == 0) and torch.all(p_out[dead] == 0)):
+        raise AssertionError(f"{label}: dead rows differ")
+    live = ~dead
+    res = {"B4": bf16_gates(f"{label} lse1", lse1[live], p_lse1[live],
+                            f_lse1[live], witness=False),
+           "B5": max(bf16_gates(f"{label} out", out[live], p_out[live],
+                                f_out[live]),
+                     bf16_gates(f"{label} lse2", lse2[live], p_lse2[live],
+                                f_lse2[live], witness=False))}
+    delta2 = (do * p_out).sum(-1)
+    args = (q, k, v, mask, bias, do, p_lse1, p_lse2, delta2)
+    got = biased_bwd_kernels(FG, *args, plan, plan_t, metric, scale, seeds,
+                             rate, need, True)
+    res.update(biased_bwd_errors(FG, label, got, *args, metric, scale, seeds,
+                                 rate, need, True))
+    return res
+
+
+def phase_small_biased_bf16(FG):
+    """[2i] 2c/2d's grid for the bf16 forms of B4-B7b: every metric with
+    dropout 0 and 0.1 at (D, Dv) = (16, 8), and (16, 16), (8, 8),
+    (12, 12), (7, 3), (128, 128) (sqrt(d) not a power of two, D != Dv,
+    the widest, whose tiles are rounded in place), dscale for
+    gaussian/rbf, dead rows, an empty query tile and key strip, N not a
+    multiple of the tile."""
+    cases = [(metric, 16, 8, rate, 2, 3, 150, 0) for metric in FG.MXU_METRICS
+             for rate in (0.0, 0.1)]
+    cases += [(metric, D, Dv, 0.1, 2, 2, 200, 1) for metric, D, Dv in (
+        ("scaled_dot_product", 16, 16), ("gaussian_kernel", 8, 8),
+        ("rbf_kernel", 12, 12), ("euclidean", 7, 3),
+        ("gaussian_kernel", 128, 128))]
+    worst = {}
+    for metric, D, Dv, rate, G, H, N, seed in cases:
+        for name, r in biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate,
+                                            seed).items():
+            worst[name] = max(worst.get(name, r), r)
+    log(f"[2i] bf16 forms of B4-B7b vs plain bf16: {len(cases)} cases; worst "
+        f"(max abs err, max err, mean err, witness over the largest entry) "
+        + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
+                    for n, r in worst.items())
+        + f" (tol {BF16_MAX_TOL}, {BF16_MEAN_TOL}, witness {BF16_WITNESS}x)")
+    return {n: r[0] for n, r in worst.items()}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -892,13 +1045,14 @@ def make_edge_sequence(rng, n, e, t_len, unique=False):
     return seq
 
 
-def edge_model_config(tt, backend="flash"):
-    """`model_config` with ``bench_tgn.py``'s edge features."""
+def edge_model_config(tt, backend="flash", bf16=False):
+    """`model_config` with ``bench_tgn.py``'s edge features, and
+    ``bf16_matmul`` with ``bf16``."""
     return tt.TAGANConfig(hidden_dim=64, num_heads=4, num_layers=2,
                           node_feature_dim=F_NODE, edge_feature_dim=F_EDGE,
                           use_edge_features=True, output_dim=1,
                           loss_type="bce", dropout=0.0,
-                          spatial_backend=backend)
+                          spatial_backend=backend, bf16_matmul=bf16)
 
 
 def layer0_biased_inputs(FG, model, batch, n):
@@ -923,8 +1077,14 @@ def layer0_biased_inputs(FG, model, batch, n):
     return (q, k, v, mask, bias, jlist, jcount), (eq, ek, em, eb)
 
 
-def phase_serve_edge(tt, FG):
-    cfg = edge_model_config(tt)
+def phase_serve_edge(tt, FG, bf16=False):
+    """[3b], and with ``bf16`` [3f]: the edge-feature model with
+    bf16_matmul=True, the bf16 forms of B4 and B5 held to the plain bf16
+    versions under the bf16 gates, and the fp32 model's logits on the
+    same request beside it."""
+    tag = "3f" if bf16 else "3b"
+    b4, b5 = biased_kernels(FG, bf16)[:2]
+    cfg = edge_model_config(tt, bf16=bf16)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
     pred = tt.Predictor(model, dims=(T_FULL, N_FULL, E_FULL, F_EDGE),
@@ -946,11 +1106,12 @@ def phase_serve_edge(tt, FG):
     launched = counts(FG)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
     expected = {k.name: 0 for k in FG.KERNELS}
-    for kern in (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel):
+    for kern in (b4, b5):
         expected[kern.name] = cfg.num_layers * REQUESTS
     probs = np.concatenate(probs)
     finite = bool(np.isfinite(probs).all())
-    log(f"[3b] edge features (Fe={F_EDGE}): request latency ms "
+    log(f"[{tag}] edge features (Fe={F_EDGE}"
+        f"{', bf16_matmul=True' if bf16 else ''}): request latency ms "
         f"{[round(x, 3) for x in lat]}; sequences/s "
         f"{REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3):.3f}; peak device "
         f"memory of the requests {peak_gb:.3f} GB above the {held_gb:.3f} GB "
@@ -966,7 +1127,7 @@ def phase_serve_edge(tt, FG):
         model(batch)
         sync()
         t0 = time.perf_counter()
-        model(batch)
+        logits = model(batch).logits
         sync()
         fwd_ms = (time.perf_counter() - t0) * 1e3
         # one layer's bias build: the per-edge projection scattered into
@@ -978,9 +1139,18 @@ def phase_serve_edge(tt, FG):
             eb(ea)[..., 0], batch.edge_src, batch.edge_dst, batch.edge_mask,
             N_FULL), 3)
         del ea
-    log(f"[3b] forward on a packed request: {fwd_ms:.3f} ms; one layer's "
+    log(f"[{tag}] forward on a packed request: {fwd_ms:.3f} ms; one layer's "
         f"bias build ({tuple(batch.edge_src.shape[:2])} snapshots of "
         f"[{N_FULL}, {N_FULL}] f32): {build_ms:.3f} ms")
+    gap = None
+    if bf16:
+        f32 = tt.TAGAN(edge_model_config(tt), device=DEV,
+                       generator=torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            gap = (logits - f32(batch).logits).abs().max().item()
+        del f32
+        log(f"[{tag}] logits of the fp32 model on the same request and "
+            f"weights: max abs gap {gap:.4e} (logits {logits.ravel()})")
 
     H = cfg.num_heads
     folded, graph = layer0_biased_inputs(FG, model, batch, N_FULL)
@@ -993,41 +1163,56 @@ def phase_serve_edge(tt, FG):
     args = tuple(t[:1].clone() for t in folded)
     q1, k1, v1, m1, bias1, jl1, jc1 = args
     with torch.inference_mode():
-        b4_ms = cuda_ms(lambda: FG.flash_lse1_kernel(
-            q, k, mask, jlist, jcount, "euclidean", ones), 3)
-        lse1 = FG.flash_lse1_kernel(q, k, mask, jlist, jcount, "euclidean",
-                                    ones)
-        b5_ms = cuda_ms(lambda: FG.flash_biased_fwd_kernel(
-            q, k, v, mask, bias, lse1, jlist, jcount, "euclidean", ones,
-            seeds, 0.0), 3)
-        # one snapshot at full width against the plain versions
-        lse1_k = FG.flash_lse1_kernel(q1, k1, m1, jl1, jc1, "euclidean", ones)
-        p_lse1 = FG.flash_lse1_plain(q1, k1, m1, "euclidean", ones)
-        out, lse2 = FG.flash_biased_fwd_kernel(
-            q1, k1, v1, m1, bias1, p_lse1, jl1, jc1, "euclidean", ones,
-            seeds[:1], 0.0)
-        p_out, p_lse2 = FG.flash_biased_forward_plain(
-            q1, k1, v1, m1, bias1, p_lse1, "euclidean", ones, 0.0,
-            seeds[:1])
+        b4_ms = cuda_ms(lambda: b4(q, k, mask, jlist, jcount, "euclidean",
+                                   ones), 3)
+        lse1 = b4(q, k, mask, jlist, jcount, "euclidean", ones)
+        b5_ms = cuda_ms(lambda: b5(q, k, v, mask, bias, lse1, jlist, jcount,
+                                   "euclidean", ones, seeds, 0.0), 3)
+        # one snapshot at full width against the plain versions (bf16:
+        # the plain B5 walks the same plan)
+        lse1_k = b4(q1, k1, m1, jl1, jc1, "euclidean", ones)
+        p_lse1 = FG.flash_lse1_plain(q1, k1, m1, "euclidean", ones, bf16)
+        out, lse2 = b5(q1, k1, v1, m1, bias1, p_lse1, jl1, jc1, "euclidean",
+                       ones, seeds[:1], 0.0)
+        fwd = (q1, k1, v1, m1, bias1, p_lse1, "euclidean", ones, 0.0,
+               seeds[:1])
+        p_out, p_lse2 = FG.flash_biased_forward_plain(*fwd, bf16, (jl1, jc1))
+        if bf16:
+            f_lse1 = FG.flash_lse1_plain(q1, k1, m1, "euclidean", ones)
+            f_out, f_lse2 = FG.flash_biased_forward_plain(*fwd)
         sync()
     del folded, q, k, v, mask, bias, lse1
     share = cfg.num_layers * (b4_ms + b5_ms) / fwd_ms
-    log(f"[3b] one layer's launches over the {G} folded snapshots: B4 "
+    log(f"[{tag}] one layer's launches over the {G} folded snapshots: B4 "
         f"{b4_ms:.3f} ms, B5 {b5_ms:.3f} ms; {cfg.num_layers} layers = "
         f"{share:.3f} of the forward")
-    err = max((lse1_k - p_lse1).abs().max().item(),
-              (out - p_out).abs().max().item(),
-              (lse2 - p_lse2).abs().max().item())
-    log(f"[3b] layer-0 B4 and B5 vs plain at N={N_FULL}: max abs err of "
-        f"lse1, out and lse2 {err:.3e}")
-    if not err <= TOL:
-        raise AssertionError(f"full-width biased kernel error {err} > {TOL}")
+    if bf16:
+        # no row of the full-width snapshot is dead (every node keeps its
+        # diagonal)
+        gates = max(bf16_gates("full-width lse1", lse1_k, p_lse1, f_lse1,
+                               witness=False),
+                    bf16_gates("full-width out", out, p_out, f_out),
+                    bf16_gates("full-width lse2", lse2, p_lse2, f_lse2,
+                               witness=False))
+        err = gates[0]
+        log(f"[{tag}] layer-0 bf16 B4 and B5 vs plain bf16 at N={N_FULL}: "
+            f"worst of lse1, out and lse2 (max abs err, max err, mean err, "
+            f"witness) {tuple(f'{x:.3e}' for x in gates)}")
+    else:
+        err = max((lse1_k - p_lse1).abs().max().item(),
+                  (out - p_out).abs().max().item(),
+                  (lse2 - p_lse2).abs().max().item())
+        log(f"[{tag}] layer-0 B4 and B5 vs plain at N={N_FULL}: max abs err "
+            f"of lse1, out and lse2 {err:.3e}")
+        if not err <= TOL:
+            raise AssertionError(f"full-width biased kernel error {err} > "
+                                 f"{TOL}")
     return dict(latency_ms=lat, launches=launched, forward_ms=fwd_ms,
                 peak_memory_gb=peak_gb, held_gb=held_gb,
                 bias_build_ms=build_ms,
                 b4_layer_launch_ms=b4_ms, b5_layer_launch_ms=b5_ms,
                 kernel_share_of_forward=share, full_err=err, args=args,
-                graph=graph,
+                graph=graph, fp32_logits_gap=gap,
                 sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
 
 
@@ -1258,13 +1443,6 @@ def phase_times_bf16(FG, args):
     qkv = 4 * G * H * N * (2 * D + Dv)
     nbytes = (qkv + mask.numel() + 4 * (jlist.numel() + jcount.numel() + H + G)
               + 4 * G * H * N * (Dv + 1))
-
-    def bound16(nb, flops):
-        t_bytes = nb / PEAK_BYTES * 1e3
-        t_flops = flops / PEAK_BF16_FLOPS * 1e3
-        return dict(bound_ms=max(t_bytes, t_flops),
-                    bound_by="bytes" if t_bytes >= t_flops else "operations",
-                    bytes=nb, flops=flops)
     res = {"B1": dict(ms=[t16a, t16b], fp32_ms=[t32a, t32b], plain_ms=plain,
                       library_ms=lib,
                       **bound16(nbytes, 2 * H * pairs * (D + Dv)))}
@@ -1616,6 +1794,139 @@ def phase_times_biased_bwd(FG, args):
     return res
 
 
+# -- phase 5h -----------------------------------------------------------------
+
+def bound16(nbytes, flops):
+    """`bound` with the operations at the bf16 tensor-core rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_flops = flops / PEAK_BF16_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def phase_times_biased_bf16(FG, args):
+    """[5h] B4, B5, B6, B7a and B7b in their bf16 forms at one 10K
+    snapshot of the bf16 edge-feature request (3f), each beside its fp32
+    form in turns, the plain bf16 versions, and their bounds: the fp32
+    forms' bytes (the inputs stay fp32) and the valid pairs' operations at
+    the bf16 tensor-core rate. The library yardstick is compiled
+    ``flex_attention`` on bf16 q, k, v at the scaled-dot metric, as in 5b
+    and 5c: held against the bf16 B4 and B5 at that metric (null with
+    the reason where it does not build or differs); its backward is
+    forward+backward minus forward of B4 and B5's function."""
+    q, k, v, mask, bias, jlist, jcount = args
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
+    plan, plan_t = (jlist, jcount), FG._transposed_plan(mask)
+    k32, k16 = biased_kernels(FG, False), biased_kernels(FG, True)
+    sdp = "scaled_dot_product"
+    with torch.no_grad():
+        lse1 = k16[0](q, k, mask, *plan, "euclidean", ones)
+        out, lse2 = k16[1](q, k, v, mask, bias, lse1, *plan, "euclidean",
+                           ones, seeds, 0.0)
+        do = torch.randn(out.shape, device=DEV,
+                         generator=torch.Generator(device=DEV).manual_seed(7))
+        delta2 = (do * out).sum(-1)
+        common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
+        d1 = k16[2](*common, *plan, "euclidean", ones, seeds, 0.0)[0]
+        calls = {
+            "B4": lambda kern: lambda: kern(q, k, mask, *plan, "euclidean",
+                                            ones),
+            "B5": lambda kern: lambda: kern(q, k, v, mask, bias, lse1, *plan,
+                                            "euclidean", ones, seeds, 0.0),
+            "B6": lambda kern: lambda: kern(*common, *plan, "euclidean",
+                                            ones, seeds, 0.0),
+            "B7a": lambda kern: lambda: kern(*common, d1, *plan, "euclidean",
+                                             ones, seeds, 0.0, False),
+            "B7b": lambda kern: lambda: kern(*common, d1, *plan_t,
+                                             "euclidean", ones, seeds, 0.0)}
+        times = {}
+        for i, (name, make) in enumerate(calls.items()):
+            a32, a16 = cuda_ms(make(k32[i]), 10), cuda_ms(make(k16[i]), 10)
+            b16, b32 = cuda_ms(make(k16[i]), 10), cuda_ms(make(k32[i]), 10)
+            times[name] = ([a16, b16], [a32, b32])
+        plain4 = cuda_ms(lambda: FG.flash_lse1_plain(
+            q, k, mask, "euclidean", ones, True), 2)
+        plain5 = cuda_ms(lambda: FG.flash_biased_forward_plain(
+            q, k, v, mask, bias, lse1, "euclidean", ones, 0.0, seeds, True,
+            plan), 2)
+        plain_b = cuda_ms(lambda: FG.flash_biased_backward_plain(
+            q, k, v, mask, bias, out, lse1, lse2, do, "euclidean", ones, 0.0,
+            seeds, False, True), 2)
+        l1_sdp = k16[0](q, k, mask, *plan, sdp, ones)
+        out_sdp, l2_sdp = k16[1](q, k, v, mask, bias, l1_sdp, *plan, sdp,
+                                 ones, seeds, 0.0)
+        k4_sdp = cuda_ms(lambda: k16[0](q, k, mask, *plan, sdp, ones), 10)
+        k5_sdp = cuda_ms(lambda: k16[1](q, k, v, mask, bias, l1_sdp, *plan,
+                                        sdp, ones, seeds, 0.0), 10)
+    bq, bk, bv = (t.bfloat16() for t in (q, k, v))
+    live = (mask != 0).any(-1)[:, None].expand(G, H, N)
+    lib = {"B4": None, "B5": None, "error": None}
+    # phases 5b and 5c compiled flex_attention under other score functions
+    # and dtypes: past dynamo's recompile limit it would run unfused
+    torch._dynamo.reset()
+    t0 = time.perf_counter()
+    try:                            # the yardstick only: never the port
+        with torch.no_grad():
+            lib4, lib5, f_lse1, f_out, f_lse2 = flex_yardstick(bq, bk, bv,
+                                                              mask, bias)
+            sync()
+            lib["B4"], lib["B5"] = cuda_ms(lib4, 20), cuda_ms(lib5, 20)
+        flex_err = max(rel_err(f_lse1.float()[live], l1_sdp[live]),
+                       rel_err(f_lse2.float()[live], l2_sdp[live]),
+                       rel_err(f_out.float()[live], out_sdp[live]))
+        lib["err"] = flex_err
+        if not flex_err <= FLEX_BF16_TOL:
+            lib.update(B4=None, B5=None, error=(
+                f"flex_attention on bf16 inputs differs from the bf16 B4/B5 "
+                f"at the scaled-dot metric: {flex_err} > {FLEX_BF16_TOL}"))
+    except Exception as e:
+        lib["error"] = f"{type(e).__name__}: {e}"[:300]
+    lib["setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lib_bwd = flex_bwd_yardstick(bq, bk, bv, mask, bias, do.bfloat16())
+    lib_bwd["setup_and_timing_s"] = time.perf_counter() - t0
+    pairs, bounds = biased_bwd_bounds(FG, q, v, mask, plan, plan_t)
+    plan_b = 4 * (jlist.numel() + jcount.numel())
+    qk = 4 * G * H * N * 2 * D
+    rows = 4 * G * H * N
+    nbytes = {
+        "B4": qk + mask.numel() + plan_b + 4 * H + rows,
+        "B5": (qk + 4 * G * H * N * Dv + mask.numel() + 4 * pairs + rows
+               + plan_b + 4 * (H + 2 * G) + 4 * G * H * N * Dv + rows)}
+    nbytes.update({n: b["bytes"] for n, b in bounds.items()})
+    flops = {"B4": 2 * H * pairs * D, "B5": 2 * H * pairs * (D + Dv),
+             **{n: b["flops"] for n, b in bounds.items()}}
+    res = {}
+    for name in calls:
+        plain, library = ((plain4, lib["B4"]) if name == "B4" else
+                          (plain5, lib["B5"]) if name == "B5" else
+                          (plain_b, lib_bwd["ms"]))
+        res[name] = dict(ms=times[name][0], fp32_ms=times[name][1],
+                         plain_ms=plain, library_ms=library,
+                         **bound16(nbytes[name], flops[name]))
+    res.update(library=lib, library_bwd=lib_bwd, valid_pairs=pairs,
+               b4_sdp_ms=k4_sdp, b5_sdp_ms=k5_sdp)
+    log(f"[5h] bf16 edge bias, one snapshot: "
+        + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])} (fp32 "
+                    f"{' '.join(f'{x:.4f}' for x in t[1])})"
+                    for n, t in times.items())
+        + f"; plain bf16 ms B4 {plain4:.4f}, B5 {plain5:.4f}, backward "
+        f"{plain_b:.4f}")
+    log(f"[5h] library: compiled flex_attention on bf16 q, k, v at the "
+        f"scaled-dot metric: {lib} (bf16 B4 at that metric {k4_sdp:.4f} ms, "
+        f"B5 {k5_sdp:.4f}); backward of B4 and B5's function {lib_bwd}")
+    for name in calls:
+        r = res[name]
+        log(f"[5h] {name} bf16 bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops over "
+            f"{pairs} valid pairs at the bf16 rate)")
+    return res
+
+
 # -- phase 6 ------------------------------------------------------------------
 
 def step_times(trainer, batches):
@@ -1800,13 +2111,17 @@ def phase_train(tt, FG, bf16=False):
 
 # -- phase 6b -----------------------------------------------------------------
 
-def phase_train_edge(tt, FG):
-    """`TAGANTrainer.train` on the 10K-node edge-feature flash model: one
-    warm-up step, then 3 steps with launch counts set to 0 just before and
-    read just after; step times, split, peak memory, one layer's biased
-    backward over the folded snapshots, and one snapshot at full width
-    against the plain backward."""
-    cfg = edge_model_config(tt)
+def phase_train_edge(tt, FG, bf16=False):
+    """[6b] `TAGANTrainer.train` on the 10K-node edge-feature flash model:
+    one warm-up step, then 3 steps with launch counts set to 0 just before
+    and read just after; step times, split, peak memory, one layer's
+    biased backward over the folded snapshots, and one snapshot at full
+    width against the plain backward. With ``bf16`` [6f]: the model with
+    bf16_matmul=True, the bf16 forms of B4-B7b held to the plain bf16
+    parts under the bf16 gates."""
+    tag = "6f" if bf16 else "6b"
+    kerns = biased_kernels(FG, bf16)
+    cfg = edge_model_config(tt, bf16=bf16)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
     exp = tt.ExperimentConfig(model=cfg, batch_size=1, num_epochs=1, seed=0,
@@ -1836,9 +2151,7 @@ def phase_train_edge(tt, FG):
     launched = counts(FG)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
     want = {k.name: 0 for k in FG.KERNELS}
-    for kern in (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
-                 FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
-                 FG.flash_biased_bwd_dkv_kernel):
+    for kern in kerns:
         want[kern.name] = cfg.num_layers * TRAIN_STEPS
     losses = res["history"]["train_loss"]
     no_grad = check_grads(model)
@@ -1846,7 +2159,8 @@ def phase_train_edge(tt, FG):
                   for n, p in model.named_parameters() if "edge" in n}
     moved = sum(int(not torch.equal(p.detach(), before[n]))
                 for n, p in model.named_parameters())
-    log(f"[6b] edge features: {TRAIN_STEPS} steps of TAGANTrainer.train in "
+    log(f"[{tag}] edge features{', bf16_matmul=True' if bf16 else ''}: "
+        f"{TRAIN_STEPS} steps of TAGANTrainer.train in "
         f"{epoch_ms:.3f} ms; mean loss {losses}; peak device memory "
         f"{peak_gb:.3f} GB above the {held_gb:.3f} GB held before; launches "
         f"{launched} (expected {want}); {len(before) - len(no_grad)} of "
@@ -1865,7 +2179,7 @@ def phase_train_edge(tt, FG):
     step_ms = step_times(trainer, batches)
     b, y, m = batches[0]
     splits = step_split(trainer, b, y, m)
-    log(f"[6b] step ms (host clock, synchronised) "
+    log(f"[{tag}] step ms (host clock, synchronised) "
         f"{[round(x, 3) for x in step_ms]}; split (CUDA events) forward / "
         f"backward / optimizer ms {[[round(x, 3) for x in s] for s in splits]}")
 
@@ -1879,21 +2193,22 @@ def phase_train_edge(tt, FG):
     seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
     plan, plan_t = (jlist, jcount), FG._transposed_plan(mask)
     with torch.no_grad():
-        lse1 = FG.flash_lse1_kernel(q, k, mask, *plan, "euclidean", ones)
-        out, lse2 = FG.flash_biased_fwd_kernel(q, k, v, mask, bias, lse1,
-                                               *plan, "euclidean", ones,
-                                               seeds, 0.0)
+        lse1 = kerns[0](q, k, mask, *plan, "euclidean", ones)
+        out, lse2 = kerns[1](q, k, v, mask, bias, lse1, *plan, "euclidean",
+                             ones, seeds, 0.0)
         do = torch.randn(out.shape, device=DEV,
                          generator=torch.Generator(device=DEV).manual_seed(9))
         delta2 = (do * out).sum(-1)
         args = (q, k, v, mask, bias, do, lse1, lse2, delta2)
         fold_fwd = cuda_ms(lambda: FG._biased_forward(
-            q, k, v, mask, bias, *plan, "euclidean", ones, 0.0, seeds), 3)
+            q, k, v, mask, bias, *plan, "euclidean", ones, 0.0, seeds, bf16),
+            3)
         fold_bwd = cuda_ms(lambda: biased_bwd_kernels(
-            FG, *args, plan, plan_t, "euclidean", ones, seeds, 0.0, False), 3)
+            FG, *args, plan, plan_t, "euclidean", ones, seeds, 0.0, False,
+            bf16), 3)
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
-    log(f"[6b] one layer's launches over the {G} folded snapshots: B4+B5 "
+    log(f"[{tag}] one layer's launches over the {G} folded snapshots: B4+B5 "
         f"{fold_fwd:.3f} ms, B6+B7a+B7b {fold_bwd:.3f} ms; {cfg.num_layers} "
         f"layers' B6+B7a+B7b = {share:.3f} and with B4+B5 "
         f"{cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the fastest "
@@ -1904,11 +2219,19 @@ def phase_train_edge(tt, FG):
     plans = tuple(tuple(t[:1].contiguous() for t in p) for p in (plan, plan_t))
     del args, q, k, v, mask, bias, do, lse1, lse2, delta2, out
     got = biased_bwd_kernels(FG, *one, *plans, "euclidean", ones, seeds[:1],
-                             0.0, False)
+                             0.0, False, bf16)
     full = biased_bwd_errors(FG, f"N={N_FULL}", got, *one, "euclidean", ones,
-                             seeds[:1], 0.0, False)
-    log(f"[6b] biased backward at N={N_FULL}, one snapshot, vs plain: max err "
-        f"B6 {full['B6']:.3e}, B7a {full['B7a']:.3e}, B7b {full['B7b']:.3e}")
+                             seeds[:1], 0.0, False, bf16)
+    if bf16:
+        log(f"[{tag}] bf16 biased backward at N={N_FULL}, one snapshot, vs "
+            f"plain bf16 (bf16 gates): worst (max abs err, max err, mean err, "
+            f"witness) " + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
+                                     for n, r in full.items()))
+        full = {n: r[0] for n, r in full.items()}
+    else:
+        log(f"[{tag}] biased backward at N={N_FULL}, one snapshot, vs plain: "
+            f"max err B6 {full['B6']:.3e}, B7a {full['B7a']:.3e}, B7b "
+            f"{full['B7b']:.3e}")
     return dict(epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
                 loss=losses, launches=launched, peak_memory_gb=peak_gb,
                 held_gb=held_gb, edge_grad_max=edge_grads, moved=moved,
@@ -2013,7 +2336,7 @@ def phase_train_mid(tt, FG):
 
 # -- phase 7e -----------------------------------------------------------------
 
-def phase_train_mid_bf16(tt, FG):
+def phase_train_mid_bf16(tt, FG, edge=False):
     """[7e] the bf16 model (bf16_matmul=True) at 1,000 nodes: 3 AdamW steps
     on the card (the bf16 kernels) and on the CPU (their plain versions)
     from the same weights and batches: the first step's gradients (but
@@ -2024,17 +2347,29 @@ def phase_train_mid_bf16(tt, FG):
     witness. (b) The model as it runs, every contraction at bf16: there a
     rounding that an fp32 sum order flips moves its value by 2^-8, and the
     roundings of what it feeds then flip in turn, so the two sides part at
-    bf16 class throughout the model; held at bf16-class tolerances."""
-    rng = np.random.default_rng(3)
-    ds = tt.TemporalGraphDataset(
-        [make_sequence(rng, N_MID, 16 * N_MID, T_FULL) for _ in range(3)],
-        [1.0, 0.0, 1.0])
-    cfg16 = model_config(tt, True)
-    f32 = train_steps(tt, FG, model_config(tt), DEV, ds)
-    want = {FG.flash_geometric_fwd_bf16_kernel.name: 3 * 2}
-    for kern in (flash_kernels(FG, True)[1:2] if FG.FUSED_BWD
-                 else flash_kernels(FG, True)[2:]):
-        want[kern.name] = 3 * 2
+    bf16 class throughout the model; held at bf16-class tolerances.
+    With ``edge`` [7f]: the edge-feature model on 7b's graphs, the bf16
+    forms of B4-B7b."""
+    tag = "7f" if edge else "7e"
+    if edge:
+        rng = np.random.default_rng(9)
+        ds = tt.TemporalGraphDataset(
+            [make_edge_sequence(rng, N_MID, 16 * N_MID, T_FULL, unique=True)
+             for _ in range(3)], [1.0, 0.0, 1.0])
+        cfg16 = edge_model_config(tt, bf16=True)
+        f32 = train_steps(tt, FG, edge_model_config(tt), DEV, ds)
+        want = {kern.name: 3 * 2 for kern in biased_kernels(FG, True)}
+    else:
+        rng = np.random.default_rng(3)
+        ds = tt.TemporalGraphDataset(
+            [make_sequence(rng, N_MID, 16 * N_MID, T_FULL) for _ in range(3)],
+            [1.0, 0.0, 1.0])
+        cfg16 = model_config(tt, True)
+        f32 = train_steps(tt, FG, model_config(tt), DEV, ds)
+        want = {FG.flash_geometric_fwd_bf16_kernel.name: 3 * 2}
+        for kern in (flash_kernels(FG, True)[1:2] if FG.FUSED_BWD
+                     else flash_kernels(FG, True)[2:]):
+            want[kern.name] = 3 * 2
     res = {}
     for part, contractions in (("a", "highest"), ("b", None)):
         card = train_steps(tt, FG, cfg16, DEV, ds, contractions=contractions)
@@ -2042,23 +2377,36 @@ def phase_train_mid_bf16(tt, FG):
         launched = [r["launched"] for r in (card, cpu)]
         if launched != [want, {}]:
             raise AssertionError(f"launches {launched}, card expected {want}")
-        grads = []
+        grads = {}
         for n, w in cpu["grads"].items():
             if n in ZERO_GRAD:
                 continue
             m = w.abs().max()
             err = (card["grads"][n] - w).abs()
-            grads.append(((err.max() / m).item(), (err.mean() / m).item(),
-                          ((f32["grads"][n] - w).abs().mean() / m).item()))
-        worst = (max(g[0] for g in grads), max(g[1] for g in grads),
-                 max(g[2] for g in grads))
+            grads[n] = ((err.max() / m).item(), (err.mean() / m).item(),
+                        ((f32["grads"][n] - w).abs().mean() / m).item(),
+                        w.numel())
+        worst = tuple(max(g[i] for g in grads.values()) for i in range(3))
+        top = {i: sorted(grads, key=lambda n: -grads[n][i])[:3]
+               for i in (0, 1)}
+        log(f"[{tag}{part}] largest max errors "
+            f"{[(n, f'{grads[n][0]:.3e}', grads[n][3]) for n in top[0]]}; "
+            f"largest mean errors "
+            f"{[(n, f'{grads[n][1]:.3e}', grads[n][3]) for n in top[1]]}")
         # the witness over the model: some tensors lie far from the
-        # attention layers, where the kernels' rounding barely reaches
+        # attention layers, where the kernels' rounding barely reaches. With
+        # edge features it is held against the mean errors of the tensors
+        # of more than one entry: a one-entry tensor's mean error is its
+        # max error, which the max gate holds
+        mean_tol = BF16_EDGE_MEAN_TOL if edge else BF16_MODEL_MEAN_TOL
+        wit_mean = max(g[1] for g in grads.values()
+                       if g[3] > 1 or not edge)
         if part == "a" and not (
-                worst[0] <= BF16_MAX_TOL and worst[1] <= BF16_MODEL_MEAN_TOL
-                and worst[2] >= BF16_MODEL_WITNESS * worst[1]):
+                worst[0] <= BF16_MAX_TOL and worst[1] <= mean_tol
+                and worst[2] >= BF16_MODEL_WITNESS * wit_mean):
             raise AssertionError(f"gradients: max err {worst[0]}, mean err "
-                                 f"{worst[1]}, witness {worst[2]}")
+                                 f"{worst[1]} ({wit_mean} over tensors of "
+                                 f"more than one entry), witness {worst[2]}")
         loss_err = max(abs(a - b) for a, b in zip(card["losses"],
                                                   cpu["losses"]))
         param_err = 0.0
@@ -2069,7 +2417,7 @@ def phase_train_mid_bf16(tt, FG):
                 param_err = max(param_err, (card["params"][n]
                                             - p)[sel].abs().max().item())
         what = "kernels alone" if part == "a" else "every contraction"
-        log(f"[7e{part}] bf16 training at N={N_MID}, card vs cpu, {what} "
+        log(f"[{tag}{part}] bf16 training at N={N_MID}, card vs cpu, {what} "
             f"at bf16: losses {card['losses']} vs {cpu['losses']} (max abs err "
             f"{loss_err:.3e}); first-step gradients over each tensor's "
             f"largest entry: worst max err, worst mean err, largest mean "
@@ -3682,9 +4030,11 @@ def main() -> int:
     small_compact_bwd = phase_small_compact_bwd(FG)
     small_compact_biased_bwd = phase_small_compact_biased_bwd(FG)
     small_bf16 = phase_small_bf16(FG)
+    small_biased_bf16 = phase_small_biased_bf16(FG)
     serve = phase_serve(tt, FG)
     serve_bf16 = phase_serve(tt, FG, bf16=True)
     serve_edge = phase_serve_edge(tt, FG)
+    serve_edge_bf16 = phase_serve_edge(tt, FG, bf16=True)
     serve_hyb = phase_serve_hybrid(tt, FG, edge=False)
     serve_hyb_edge = phase_serve_hybrid(tt, FG, edge=True)
     mid = phase_mid(tt, FG)
@@ -3699,14 +4049,19 @@ def main() -> int:
     times_biased = phase_times_biased(FG, edge_args, serve_edge.pop("graph"))
     times_biased_bwd = phase_times_biased_bwd(FG, edge_args)
     del edge_args
+    serve_edge_bf16.pop("graph")
+    times_biased_bf16 = phase_times_biased_bf16(FG,
+                                                serve_edge_bf16.pop("args"))
     times_hyb = phase_times_hybrid(FG, serve_hyb.pop("args"),
                                    serve_hyb_edge.pop("args"))
     train = phase_train(tt, FG)
     train_bf16 = phase_train(tt, FG, bf16=True)
     train_edge = phase_train_edge(tt, FG)
+    train_edge_bf16 = phase_train_edge(tt, FG, bf16=True)
     train_mid = phase_train_mid(tt, FG)
     train_mid_bf16 = phase_train_mid_bf16(tt, FG)
     train_mid_edge = phase_train_mid_edge(tt, FG)
+    train_mid_edge_bf16 = phase_train_mid_bf16(tt, FG, edge=True)
     train_hyb = phase_train_hybrid(tt, FG)
     times_hyb_bwd = phase_times_hybrid_bwd(FG, train_hyb.pop("args"))
     train_mid_hyb = phase_train_mid_hybrid(tt, FG)
@@ -3859,9 +4214,43 @@ def main() -> int:
             ("flash_geometric_fwd.cu", "flash_geometric_bwd_fused.cu",
              "flash_geometric_bwd.cu", "flash_geometric_bwd.cu"),
             (259, 1590, 1455, 1534))]
+    # the bf16 forms of B4-B7b: launches on the bf16 edge-feature serving
+    # (3f) and training (6f) paths, times at one 10K snapshot of 3f's
+    # request (5h), each beside its fp32 form's in the same run
+    t16e = times_biased_bf16
+    lib16 = t16e["library"]
+    kernels += [
+        dict(kernel_record(
+            FG, kern, source, line,
+            (serve_edge_bf16 if name in ("B4", "B5")
+             else train_edge_bf16)["launches"][kern.name],
+            max(small_biased_bf16[name], serve_edge_bf16["full_err"]
+                if name in ("B4", "B5") else train_edge_bf16["full_err"][name]),
+            min(t16e[name]["ms"]), t16e[name]["plain_ms"], plain_of,
+            t16e[name], t16e[name]["library_ms"]),
+             fp32_ms=min(t16e[name]["fp32_ms"]),
+             library_of=(
+                 ("compiled flex_attention on bf16 q, k, v, block mask from "
+                  "the int8 mask, scaled-dot metric"
+                  if lib16["error"] is None else lib16["error"])
+                 if name in ("B4", "B5") else
+                 t16e["library_bwd"].get("form",
+                                         t16e["library_bwd"].get("error"))))
+        for name, kern, source, line, plain_of in zip(
+            ("B4", "B5", "B6", "B7a", "B7b"), biased_kernels(FG, True),
+            ("flash_biased_fwd.cu",) * 2 + ("flash_biased_bwd.cu",) * 3,
+            (885, 944, 1038, 1102, 1176),
+            ("flash_lse1_plain with bf16=True",
+             "flash_biased_forward_plain with bf16=True (walks the plan)")
+            + ("flash_biased_backward_plain with bf16=True (dq, dk, dv and "
+               "dB)",) * 3)]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
+        small_biased_bf16_err=small_biased_bf16,
+        serve_edge_bf16=serve_edge_bf16, times_biased_bf16=times_biased_bf16,
+        train_edge_bf16=train_edge_bf16,
+        train_mid_edge_bf16=train_mid_edge_bf16,
         small_bf16_err=small_bf16, serve_bf16=serve_bf16,
         times_bf16=times_bf16, train_bf16=train_bf16,
         train_mid_bf16=train_mid_bf16,

@@ -43,6 +43,16 @@
 // templated on the 16-wide feature lanes. Thread (rg, lane) owns query rows
 // 4*rg..4*rg+3 and keys lane + 16*b (b < 4), as in every kernel here.
 //
+// The bf16 forms (kBf16, dense mask only; the TPU kernels' bf16=True) round
+// the operands of every product as B3a's and B3b's bf16 forms do
+// (flash_geometric_common.cuh): q.k from tiles rounded in place after their
+// norms, do.v from do and v rounded as staged, the chain's W k and W q with
+// W = chain_weight_bf16 rounded as each product loads it (dq and dk sums
+// finished by chain_finish), and dv = drop2(w2)^T do with drop2(w2) stored
+// rounded. w1, z, w2, dz, delta1, dB and the squared-distance metrics' sums
+// of W and their q and k terms (read unrounded from global memory) stay
+// fp32. The backward normalises by lse1 and lse2, so no walk order enters.
+//
 // The compact forms are the same three walks templated on the mask form
 // (flash_geometric_common.cuh: MaskForm), as B3a c and B3b c are. Each step
 // loads its store tile (slot g * S + jslot, or islot for B7b c: the same tile,
@@ -165,8 +175,10 @@ __device__ __forceinline__ void load_row_stats(
 // of pair (lr, lc) is bt[lr * bstride + lc]. PRE adds dz to db and w1 * dw1
 // to this thread's row sums d1; DQ and DKV write the chain weight W of
 // ds = w1 (dw1 - delta1) to Ws (0 on other pairs), DKV also drop2(w2) to Ps,
-// and both return this thread's part of sum ds * s * sq.
-template <int kMode>
+// and both return this thread's part of sum ds * s * sq. kBf16: W is
+// `chain_weight_bf16`'s and drop2(w2) is stored rounded (an operand of dv's
+// product only).
+template <int kMode, bool kBf16>
 __device__ __forceinline__ float biased_pairs(
     const BwdTiles& t, const float* lse2_s, const float* delta2_s,
     const float* __restrict__ bt, int bstride, unsigned valid, int D, int Dv,
@@ -208,13 +220,14 @@ __device__ __forceinline__ float biased_pairs(
         } else {
           const float ds = w1 * (dw1 - t.delta[lr]);
           const float sq = fmaxf(qn + kn - 2.f * qk, 0.f);
-          w = chain_weight(metric, ds, sv, sq, qk, sc, sqrt_d);
+          w = kBf16 ? chain_weight_bf16(metric, ds, sv, sq, qk, sc)
+                    : chain_weight(metric, ds, sv, sq, qk, sc, sqrt_d);
           dsc = fmaf(ds * sv, sq, dsc);
           pd = use_dropout ? (keep2 ? w2 * inv_keep : 0.f) : w2;
         }
       }
       if constexpr (kMode != PRE) t.Ws[lr * PS + lc] = w;
-      if constexpr (kMode == DKV) t.Ps[lr * PS + lc] = pd;
+      if constexpr (kMode == DKV) t.Ps[lr * PS + lc] = rd<kBf16>(pd);
     }
   }
   return dsc;
@@ -222,7 +235,7 @@ __device__ __forceinline__ float biased_pairs(
 
 // B6 / B6c: one block per (query tile, g); heads innermost at each walked
 // block.
-template <int kForm>
+template <int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -276,17 +289,17 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const size_t gh = (size_t)g * H + h;
       __syncthreads();  // the previous head is done with the tiles
       load_rows(t.Qs, q + gh * N * D, row0, N, D);
-      load_rows(t.dOs, dout + gh * N * Dv, row0, N, Dv);
+      load_rows<kBf16>(t.dOs, dout + gh * N * Dv, row0, N, Dv);
       load_rows(t.Ks, k + gh * N * D, col0, N, D);
-      load_rows(t.Vs, v + gh * N * Dv, col0, N, Dv);
+      load_rows<kBf16>(t.Vs, v + gh * N * Dv, col0, N, Dv);
       load_row_stats(t, lse2_s, delta2_s, lse1 + gh * N, lse2 + gh * N,
                      delta2 + gh * N, nullptr, row0, N);
       __syncthreads();
-      tile_norms(t, D, true, true);
+      tile_norms<kBf16>(t, D, true, true);
       __syncthreads();
       const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
       float d1[4] = {0.f, 0.f, 0.f, 0.f};
-      biased_pairs<PRE>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv, row0,
+      biased_pairs<PRE, kBf16>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv, row0,
                         col0, metric, scale[h], sqrt_d, use_dropout,
                         s1 ^ hmix, s2 ^ hmix, keep_thresh, inv_keep, db, d1);
 #pragma unroll
@@ -322,7 +335,7 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // B7a / B7a c: dq and the d(scale) partials over the forward walk.
-template <int LANES, int kForm>
+template <int LANES, int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -353,16 +366,17 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       reinterpret_cast<uint64_t*>(smem + biased_smem_floats(D, Dv, H, false));
 
   const size_t gh = (size_t)g * H + h;
+  const float* qg = q + gh * N * D;
   const float* kg = k + gh * N * D;
   const float* vg = v + gh * N * Dv;
   const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int row0 = ib * BM;
-  load_rows(t.Qs, q + gh * N * D, row0, N, D);
-  load_rows(t.dOs, dout + gh * N * Dv, row0, N, Dv);
+  load_rows(t.Qs, qg, row0, N, D);
+  load_rows<kBf16>(t.dOs, dout + gh * N * Dv, row0, N, Dv);
   load_row_stats(t, lse2_s, delta2_s, lse1 + gh * N, lse2 + gh * N,
                  delta2 + gh * N, delta1 + gh * N, row0, N);
   __syncthreads();
-  tile_norms(t, D, true, false);
+  tile_norms<kBf16>(t, D, true, false);
 
   const float sc = scale[h];
   const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
@@ -391,11 +405,11 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const unsigned valid = valid_bits<kForm>(mg, rows, N, row0, col0);
     __syncthreads();  // the previous step is done with Ks, Vs and Ws
     load_rows(t.Ks, kg, col0, N, D);
-    load_rows(t.Vs, vg, col0, N, Dv);
+    load_rows<kBf16>(t.Vs, vg, col0, N, Dv);
     __syncthreads();
-    tile_norms(t, D, false, true);
+    tile_norms<kBf16>(t, D, false, true);
     __syncthreads();
-    dsc += biased_pairs<DQ>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv,
+    dsc += biased_pairs<DQ, kBf16>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv,
                             row0, col0, metric, sc, sqrt_d, use_dropout, mix1,
                             mix2, keep_thresh, inv_keep, db, d1);
     __syncthreads();
@@ -403,8 +417,9 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float w[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        w[a] = t.Ws[(rg * 4 + a) * PS + j];
-        wsum[a] += w[a];
+        const float wf = t.Ws[(rg * 4 + a) * PS + j];
+        wsum[a] += wf;
+        w[a] = rd<kBf16>(wf);
       }
 #pragma unroll
       for (int jj = 0; jj < LANES; ++jj) {
@@ -428,7 +443,9 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < LANES; ++jj) {
       const int d = lane + 16 * jj;
       if (d < D)
-        o[d] = sqm ? acc[a][jj] - wsum[a] * t.Qs[lr * DS + d] : acc[a][jj];
+        o[d] = sqm ? acc[a][jj] - wsum[a] * unrounded<kBf16>(t.Qs, qg, lr,
+                                                             gr, D, d)
+                   : chain_finish<kBf16>(metric, acc[a][jj], sqrt_d);
     }
   }
   if (need_dscale) {
@@ -438,7 +455,7 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // B7b / B7b c: dk and dv over the transposed walk.
-template <int LANES, int kForm>
+template <int LANES, int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -470,12 +487,13 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* dog = dout + gh * N * Dv;
+  const float* kg = k + gh * N * D;
   const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int col0 = jb * BN;
-  load_rows(t.Ks, k + gh * N * D, col0, N, D);
-  load_rows(t.Vs, v + gh * N * Dv, col0, N, Dv);
+  load_rows(t.Ks, kg, col0, N, D);
+  load_rows<kBf16>(t.Vs, v + gh * N * Dv, col0, N, Dv);
   __syncthreads();
-  tile_norms(t, D, false, true);
+  tile_norms<kBf16>(t, D, false, true);
 
   const float sc = scale[h];
   const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
@@ -503,13 +521,13 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const unsigned valid = valid_bits<kForm>(mg, rows, N, row0, col0);
     __syncthreads();  // the previous step is done with the query side
     load_rows(t.Qs, qg, row0, N, D);
-    load_rows(t.dOs, dog, row0, N, Dv);
+    load_rows<kBf16>(t.dOs, dog, row0, N, Dv);
     load_row_stats(t, lse2_s, delta2_s, lse1 + gh * N, lse2 + gh * N,
                    delta2 + gh * N, delta1 + gh * N, row0, N);
     __syncthreads();
-    tile_norms(t, D, true, false);
+    tile_norms<kBf16>(t, D, true, false);
     __syncthreads();
-    biased_pairs<DKV>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv, row0,
+    biased_pairs<DKV, kBf16>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv, row0,
                       col0, metric, sc, sqrt_d, use_dropout, mix1, mix2,
                       keep_thresh, inv_keep, db, d1);
     __syncthreads();
@@ -517,9 +535,10 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float w[4], p[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        w[a] = t.Ws[i * PS + rg * 4 + a];
+        const float wf = t.Ws[i * PS + rg * 4 + a];
+        wsum[a] += wf;
+        w[a] = rd<kBf16>(wf);
         p[a] = t.Ps[i * PS + rg * 4 + a];
-        wsum[a] += w[a];
       }
 #pragma unroll
       for (int jj = 0; jj < LANES; ++jj) {
@@ -549,7 +568,9 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < LANES; ++jj) {
       const int d = lane + 16 * jj;
       if (d < D)
-        ok[d] = sqm ? dka[a][jj] - wsum[a] * t.Ks[lc * DS + d] : dka[a][jj];
+        ok[d] = sqm ? dka[a][jj] - wsum[a] * unrounded<kBf16>(t.Ks, kg, lc,
+                                                              gc, D, d)
+                    : chain_finish<kBf16>(metric, dka[a][jj], sqrt_d);
       if (d < Dv) ov[d] = dva[a][jj];
     }
   }
@@ -572,7 +593,7 @@ bool bad_args(int G, int H, int N, int D, int Dv, int n_tiles, int W,
          (kForm != DENSE_MASK && S < 1);
 }
 
-template <int kForm>
+template <int kForm, bool kBf16 = false>
 int pre_entry(const void* q, const void* k, const void* v, const void* mask,
               const void* bias, const void* dout, const void* lse1,
               const void* lse2, const void* delta2, const void* jlist,
@@ -585,10 +606,10 @@ int pre_entry(const void* q, const void* k, const void* v, const void* mask,
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
   const size_t smem = smem_bytes<kForm>(D, Dv, H, true);
-  const cudaError_t e = prepare(biased_bwd_pre_kernel<kForm>, smem);
+  const cudaError_t e = prepare(biased_bwd_pre_kernel<kForm, kBf16>, smem);
   if (e != cudaSuccess) return (int)e;
-  biased_bwd_pre_kernel<kForm><<<dim3(n_i, G), THREADS, smem,
-                                 (cudaStream_t)stream>>>(
+  biased_bwd_pre_kernel<kForm, kBf16><<<dim3(n_i, G), THREADS, smem,
+                                        (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, mask,
       (const float*)bias, (const float*)dout, (const float*)lse1,
       (const float*)lse2, (const float*)delta2, (const int*)jlist,
@@ -598,7 +619,7 @@ int pre_entry(const void* q, const void* k, const void* v, const void* mask,
   return (int)cudaGetLastError();
 }
 
-template <int kForm>
+template <int kForm, bool kBf16 = false>
 int dq_entry(const void* q, const void* k, const void* v, const void* mask,
              const void* bias, const void* dout, const void* lse1,
              const void* lse2, const void* delta2, const void* delta1,
@@ -617,9 +638,10 @@ int dq_entry(const void* q, const void* k, const void* v, const void* mask,
   switch (lanes_for(D)) {
 #define TAGAN_BDQ(L)                                                         \
   case L: {                                                                  \
-    const cudaError_t e = prepare(biased_bwd_dq_kernel<L, kForm>, smem);     \
+    const cudaError_t e =                                                    \
+        prepare(biased_bwd_dq_kernel<L, kForm, kBf16>, smem);                \
     if (e != cudaSuccess) return (int)e;                                     \
-    biased_bwd_dq_kernel<L, kForm><<<grid, THREADS, smem, s>>>(              \
+    biased_bwd_dq_kernel<L, kForm, kBf16><<<grid, THREADS, smem, s>>>(       \
         (const float*)q, (const float*)k, (const float*)v, mask,             \
         (const float*)bias, (const float*)dout, (const float*)lse1,          \
         (const float*)lse2, (const float*)delta2, (const float*)delta1,      \
@@ -635,7 +657,7 @@ int dq_entry(const void* q, const void* k, const void* v, const void* mask,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int kForm>
+template <int kForm, bool kBf16 = false>
 int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
               const void* bias, const void* dout, const void* lse1,
               const void* lse2, const void* delta2, const void* delta1,
@@ -653,9 +675,10 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
   switch (lanes_for(D > Dv ? D : Dv)) {
 #define TAGAN_BDKV(L)                                                        \
   case L: {                                                                  \
-    const cudaError_t e = prepare(biased_bwd_dkv_kernel<L, kForm>, smem);    \
+    const cudaError_t e =                                                    \
+        prepare(biased_bwd_dkv_kernel<L, kForm, kBf16>, smem);               \
     if (e != cudaSuccess) return (int)e;                                     \
-    biased_bwd_dkv_kernel<L, kForm><<<grid, THREADS, smem, s>>>(             \
+    biased_bwd_dkv_kernel<L, kForm, kBf16><<<grid, THREADS, smem, s>>>(      \
         (const float*)q, (const float*)k, (const float*)v, mask,             \
         (const float*)bias, (const float*)dout, (const float*)lse1,          \
         (const float*)lse2, (const float*)delta2, (const float*)delta1,      \
@@ -721,6 +744,50 @@ extern "C" int tagan_flash_biased_bwd_dkv(
                                delta1, ilist, icount, ilist, scale, seeds, dk,
                                dv, G, H, N, D, Dv, n_j, W, 0, metric, sqrt_d,
                                use_dropout, keep_thresh, inv_keep, stream);
+}
+
+// B6's bf16 form: the same arguments.
+extern "C" int tagan_flash_biased_bwd_pre_bf16(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* jlist, const void* jcount,
+    const void* scale, const void* seeds, void* delta1, void* dbias, int G,
+    int H, int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
+  return pre_entry<DENSE_MASK, true>(
+      q, k, v, mask, bias, dout, lse1, lse2, delta2, jlist, jcount, jlist,
+      scale, seeds, delta1, dbias, G, H, N, D, Dv, n_i, W, 0, metric, sqrt_d,
+      use_dropout, keep_thresh, inv_keep, stream);
+}
+
+// B7a's bf16 form: the same arguments.
+extern "C" int tagan_flash_biased_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* jlist,
+    const void* jcount, const void* scale, const void* seeds, void* dq,
+    void* dscale_part, int G, int H, int N, int D, int Dv, int n_i, int W,
+    int metric, float sqrt_d, int use_dropout, unsigned int keep_thresh,
+    float inv_keep, int need_dscale, void* stream) {
+  return dq_entry<DENSE_MASK, true>(
+      q, k, v, mask, bias, dout, lse1, lse2, delta2, delta1, jlist, jcount,
+      jlist, scale, seeds, dq, dscale_part, G, H, N, D, Dv, n_i, W, 0, metric,
+      sqrt_d, use_dropout, keep_thresh, inv_keep, need_dscale, stream);
+}
+
+// B7b's bf16 form: the same arguments.
+extern "C" int tagan_flash_biased_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* ilist,
+    const void* icount, const void* scale, const void* seeds, void* dk,
+    void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return dkv_entry<DENSE_MASK, true>(
+      q, k, v, mask, bias, dout, lse1, lse2, delta2, delta1, ilist, icount,
+      ilist, scale, seeds, dk, dv, G, H, N, D, Dv, n_j, W, 0, metric, sqrt_d,
+      use_dropout, keep_thresh, inv_keep, stream);
 }
 
 // B6c: B6 over the compact store of S slots per g, bits i64[G, S, 64]

@@ -41,6 +41,14 @@
 // but once per head. Reading each bias tile once, with the heads innermost
 // in one block, is the first thing a later redesign changes.
 //
+// The bf16 forms (kBf16, dense mask only; the TPU kernels' bf16=True) round
+// the operands of q.k and of P@V as B1's bf16 form does: the q and k tiles in
+// place once their norms are taken, v as staged, and B5's dropped p2 as it
+// is stored for P@V. The norms, w1, z, the running max and the un-dropped
+// sum l stay fp32. B5's p2 is rounded relative to the running max after
+// each key tile, so its result depends on the walk, as the TPU kernel's
+// does on its block size; B4's does not.
+//
 // The compact form reads the mask tile from the store slot of each walk step
 // (flash_geometric_common.cuh) and the bias from the same slot of a bias
 // store f32[G, S, 64, 64]: a contiguous 16 KB tile, not strided [N, N] rows.
@@ -67,7 +75,7 @@ __host__ inline size_t smem_floats(bool main_walk, int D, int Dv) {
   return n;
 }
 
-template <bool kMain, int kForm>
+template <bool kMain, int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v,
@@ -116,9 +124,13 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();
-  if (tid < BM) {
+  if (tid < BM) {    // the norm of row tid, then (bf16) the row rounded
     float s = 0.f;
-    for (int d = 0; d < D; ++d) s += Qs[tid * DS + d] * Qs[tid * DS + d];
+    for (int d = 0; d < D; ++d) {
+      const float x = Qs[tid * DS + d];
+      s += x * x;
+      if (kBf16) Qs[tid * DS + d] = rd<true>(x);
+    }
     qn_s[tid] = s;
   }
 
@@ -161,13 +173,17 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* vg = v + gh * N * Dv;
       for (int idx = tid; idx < BN * Dv; idx += THREADS) {
         const int r = idx / Dv, d = idx - r * Dv, gc = col0 + r;
-        Vs[idx] = gc < N ? vg[(size_t)gc * Dv + d] : 0.f;
+        Vs[idx] = rd<kBf16>(gc < N ? vg[(size_t)gc * Dv + d] : 0.f);
       }
     }
     __syncthreads();
     if (tid < BN) {
       float s = 0.f;
-      for (int d = 0; d < D; ++d) s += Ks[tid * DS + d] * Ks[tid * DS + d];
+      for (int d = 0; d < D; ++d) {
+        const float x = Ks[tid * DS + d];
+        s += x * x;
+        if (kBf16) Ks[tid * DS + d] = rd<true>(x);
+      }
       kn_s[tid] = s;
     }
     __syncthreads();
@@ -233,7 +249,7 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                         (uint32_t)(col0 + lc)) < keep_thresh;
             p = keep ? p * inv_keep : 0.f;
           }
-          Ps[lr * PS + lc] = p;
+          Ps[lr * PS + lc] = rd<kBf16>(p);
         }
       }
 #pragma unroll
@@ -285,7 +301,7 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <bool kMain, int kForm>
+template <bool kMain, int kForm, bool kBf16 = false>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* bias, const void* lse1, const void* jlist,
            const void* jcount, const void* jslot, const void* scale,
@@ -302,12 +318,12 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   const size_t smem = sizeof(float) * smem_floats(kMain, D, kMain ? Dv : 0);
   if (smem > 48 * 1024 - sizeof(uint64_t) * BM) {
     const cudaError_t e = cudaFuncSetAttribute(
-        biased_fwd_kernel<kMain, kForm>,
+        biased_fwd_kernel<kMain, kForm, kBf16>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(n_i, H, G);
-  biased_fwd_kernel<kMain, kForm>
+  biased_fwd_kernel<kMain, kForm, kBf16>
       <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
           (const float*)q, (const float*)k, (const float*)v, mask,
           (const float*)bias, (const float*)lse1, (const int*)jlist,
@@ -347,6 +363,34 @@ extern "C" int tagan_flash_biased_fwd(
                                   jlist, scale, seeds, out, lse2, G, H, N, D,
                                   Dv, n_i, W, 0, metric, sqrt_d, use_dropout,
                                   keep_thresh, inv_keep, stream);
+}
+
+// B4's bf16 form: the same arguments.
+extern "C" int tagan_flash_lse1_bf16(const void* q, const void* k,
+                                     const void* mask, const void* jlist,
+                                     const void* jcount, const void* scale,
+                                     void* lse1, int G, int H, int N, int D,
+                                     int n_i, int W, int metric, float sqrt_d,
+                                     void* stream) {
+  using namespace tagan_flash;
+  return launch<false, DENSE_MASK, true>(
+      q, k, nullptr, mask, nullptr, nullptr, jlist, jcount, jlist, scale,
+      nullptr, nullptr, lse1, G, H, N, D, 0, n_i, W, 0, metric, sqrt_d, 0, 0u,
+      1.f, stream);
+}
+
+// B5's bf16 form: the same arguments.
+extern "C" int tagan_flash_biased_fwd_bf16(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* lse1, const void* jlist, const void* jcount,
+    const void* scale, const void* seeds, void* out, void* lse2, int G, int H,
+    int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
+  using namespace tagan_flash;
+  return launch<true, DENSE_MASK, true>(
+      q, k, v, mask, bias, lse1, jlist, jcount, jlist, scale, seeds, out, lse2,
+      G, H, N, D, Dv, n_i, W, 0, metric, sqrt_d, use_dropout, keep_thresh,
+      inv_keep, stream);
 }
 
 // B4c: lse1 over the compact store (bits i64[G, S, 64] when packed, else

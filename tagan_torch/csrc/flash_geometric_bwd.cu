@@ -36,10 +36,11 @@
 //
 // The bf16 forms (kBf16, dense mask only) are the same walks with every
 // product's operands rounded to bf16 (flash_geometric_common.cuh: rd,
-// chain_weight_bf16): q.k, do.v, W k, W q and drop(p) do, from rounded
-// copies of the q and k tiles and from do and v rounded as staged; the row
-// norms, the squared-distance metrics' sums of W and their q and k terms,
-// and the d(scale) sum stay fp32.
+// chain_weight_bf16): q.k, do.v, W k, W q and drop(p) do, from q and k
+// tiles rounded in place after their norms and do and v rounded as staged;
+// the row norms, the squared-distance metrics' sums of W and their q and k
+// terms (read unrounded from global memory), and the d(scale) sum stay
+// fp32.
 //
 // The compact forms are the same walks templated on the mask form
 // (flash_geometric_common.cuh: MaskForm). Each step first loads its store
@@ -108,15 +109,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1, PS = BN + 1;
   extern __shared__ float smem[];
-  const BwdTiles t = bwd_tiles(smem, D, Dv, kBf16);
+  const BwdTiles t = bwd_tiles(smem, D, Dv);
   uint64_t* rows = tile_rows(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
+  const float* qg = q + gh * N * D;
   const float* kg = k + gh * N * D;
   const float* vg = v + gh * N * Dv;
   const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int row0 = ib * BM;
-  load_query_side<kBf16>(t, q + gh * N * D, dout + gh * N * Dv, lse + gh * N,
+  load_query_side<kBf16>(t, qg, dout + gh * N * Dv, lse + gh * N,
                          delta + gh * N, row0, N, D, Dv);
   __syncthreads();
   tile_norms<kBf16>(t, D, true, false);
@@ -163,7 +165,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < LANES; ++jj) {
         const int d = lane + 16 * jj;
         if (d < D) {
-          const float kv = t.Kb[j * DS + d];
+          const float kv = t.Ks[j * DS + d];
 #pragma unroll
           for (int a = 0; a < 4; ++a) acc[a][jj] = fmaf(w[a], kv, acc[a][jj]);
         }
@@ -181,7 +183,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < LANES; ++jj) {
       const int d = lane + 16 * jj;
       if (d < D)
-        o[d] = sqm ? acc[a][jj] - wsum[a] * t.Qs[lr * DS + d]
+        o[d] = sqm ? acc[a][jj] - wsum[a] * unrounded<kBf16>(t.Qs, qg, lr,
+                                                             gr, D, d)
                    : chain_finish<kBf16>(metric, acc[a][jj], sqrt_d);
     }
   }
@@ -212,15 +215,16 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1, VS = Dv + 1, PS = BN + 1;
   extern __shared__ float smem[];
-  const BwdTiles t = bwd_tiles(smem, D, Dv, kBf16);
+  const BwdTiles t = bwd_tiles(smem, D, Dv);
   uint64_t* rows = tile_rows(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* dog = dout + gh * N * Dv;
+  const float* kg = k + gh * N * D;
   const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int col0 = jb * BN;
-  load_rows(t.Ks, k + gh * N * D, col0, N, D);
+  load_rows(t.Ks, kg, col0, N, D);
   load_rows<kBf16>(t.Vs, v + gh * N * Dv, col0, N, Dv);
   __syncthreads();
   tile_norms<kBf16>(t, D, false, true);
@@ -266,7 +270,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int jj = 0; jj < LANES; ++jj) {
         const int d = lane + 16 * jj;
         if (d < D) {
-          const float qv = t.Qb[i * DS + d];
+          const float qv = t.Qs[i * DS + d];
 #pragma unroll
           for (int a = 0; a < 4; ++a) dka[a][jj] = fmaf(w[a], qv, dka[a][jj]);
         }
@@ -290,7 +294,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int jj = 0; jj < LANES; ++jj) {
       const int d = lane + 16 * jj;
       if (d < D)
-        ok[d] = sqm ? dka[a][jj] - wsum[a] * t.Ks[lc * DS + d]
+        ok[d] = sqm ? dka[a][jj] - wsum[a] * unrounded<kBf16>(t.Ks, kg, lc,
+                                                              gc, D, d)
                     : chain_finish<kBf16>(metric, dka[a][jj], sqrt_d);
       if (d < Dv) ov[d] = dva[a][jj];
     }
@@ -312,11 +317,11 @@ bool bad_args(int G, int H, int N, int D, int Dv, int n_tiles, int W,
          n_tiles != (N + BM - 1) / BM || W < 0;
 }
 
-// Dynamic shared memory: the dense form's tiles (and the bf16 forms'
-// rounded q and k), and the compact forms' mask-tile row words past them.
+// Dynamic shared memory: the dense form's tiles, and the compact forms'
+// mask-tile row words past them.
 template <int kForm, bool kBf16>
 size_t smem_bytes(int D, int Dv) {
-  return sizeof(float) * bwd_smem_floats(D, Dv, kBf16) +
+  return sizeof(float) * bwd_smem_floats(D, Dv) +
          (kForm == DENSE_MASK ? 0 : sizeof(uint64_t) * BM);
 }
 

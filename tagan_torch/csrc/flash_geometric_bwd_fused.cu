@@ -55,6 +55,7 @@ using namespace tagan_flash;
 // atomic; thread slots cover the 64 x D tile.
 template <int VEC, bool kBf16>
 __device__ __forceinline__ void add_dq_partial(const BwdTiles& t,
+                                               const float* __restrict__ qg,
                                                float* __restrict__ dqg,
                                                int row0, int N, int D,
                                                int metric, float sqrt_d) {
@@ -72,16 +73,18 @@ __device__ __forceinline__ void add_dq_partial(const BwdTiles& t,
       const float wr = rd<kBf16>(w);
 #pragma unroll
       for (int x = 0; x < VEC; ++x)
-        acc[x] = fmaf(wr, t.Kb[j * DS + d0 + x], acc[x]);
+        acc[x] = fmaf(wr, t.Ks[j * DS + d0 + x], acc[x]);
     }
+    if (gr >= N) continue;
     bool any = false;
 #pragma unroll
     for (int x = 0; x < VEC; ++x) {
-      acc[x] = sqm ? acc[x] - ws * t.Qs[r * DS + d0 + x]
+      acc[x] = sqm ? acc[x] - ws * unrounded<kBf16>(t.Qs, qg, r, gr, D,
+                                                    d0 + x)
                    : chain_finish<kBf16>(metric, acc[x], sqrt_d);
       any |= acc[x] != 0.f;
     }
-    if (gr >= N || !any) continue;
+    if (!any) continue;
     float* dst = dqg + (size_t)gr * D + d0;
 #if TAGAN_VEC4_ATOMICS
     if constexpr (VEC == 4) {
@@ -118,15 +121,16 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1, VS = Dv + 1, PS = BN + 1;
   extern __shared__ float smem[];
-  const BwdTiles t = bwd_tiles(smem, D, Dv, kBf16);
+  const BwdTiles t = bwd_tiles(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* dog = dout + gh * N * Dv;
   float* dqg = dq + gh * N * D;
   const uint8_t* mg = mask + (size_t)g * N * N;
+  const float* kg = k + gh * N * D;
   const int col0 = jb * BN;
-  load_rows(t.Ks, k + gh * N * D, col0, N, D);
+  load_rows(t.Ks, kg, col0, N, D);
   load_rows<kBf16>(t.Vs, v + gh * N * Dv, col0, N, Dv);
   __syncthreads();
   tile_norms<kBf16>(t, D, false, true);
@@ -170,7 +174,7 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
       for (int jj = 0; jj < LANES; ++jj) {
         const int d = lane + 16 * jj;
         if (d < D) {
-          const float qv = t.Qb[i * DS + d];
+          const float qv = t.Qs[i * DS + d];
 #pragma unroll
           for (int a = 0; a < 4; ++a) dka[a][jj] = fmaf(w[a], qv, dka[a][jj]);
         }
@@ -181,7 +185,7 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
         }
       }
     }
-    add_dq_partial<VEC, kBf16>(t, dqg, row0, N, D, metric, sqrt_d);
+    add_dq_partial<VEC, kBf16>(t, qg, dqg, row0, N, D, metric, sqrt_d);
   }
 
 #pragma unroll
@@ -194,7 +198,8 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
     for (int jj = 0; jj < LANES; ++jj) {
       const int d = lane + 16 * jj;
       if (d < D)
-        ok[d] = sqm ? dka[a][jj] - wsum[a] * t.Ks[lc * DS + d]
+        ok[d] = sqm ? dka[a][jj] - wsum[a] * unrounded<kBf16>(t.Ks, kg, lc,
+                                                              gc, D, d)
                     : chain_finish<kBf16>(metric, dka[a][jj], sqrt_d);
       if (d < Dv) ov[d] = dva[a][jj];
     }
@@ -247,7 +252,7 @@ int fused_entry(const void* q, const void* k, const void* v,
       n_j != (N + BN - 1) / BN || W < 0)
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = sizeof(float) * bwd_smem_floats(D, Dv, kBf16);
+  const size_t smem = sizeof(float) * bwd_smem_floats(D, Dv);
   const dim3 grid(n_j, H, G);
   const cudaStream_t s = (cudaStream_t)stream;
   const bool vec4 = D % 4 == 0;

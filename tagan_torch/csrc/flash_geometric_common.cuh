@@ -14,10 +14,14 @@
 // contraction with an fp32 accumulator up to the order of the sum. Only
 // the operands are rounded: the row norms, the squared-distance metrics'
 // q and k terms, the sums of the chain weights and the softmax
-// denominator take fp32 values, as the TPU kernels do. So the backward's
-// q and k tiles stay fp32 in shared memory beside rounded copies for the
-// products (BwdTiles::Qb, Kb), do and v (operands only) are rounded as
-// they are staged, and W is rounded as each product loads it.
+// denominator take fp32 values, as the TPU kernels do. So the q and k
+// tiles are rounded in shared memory in place once their row norms are
+// taken (`tile_norms`), do and v (operands only) are rounded as they are
+// staged, W is rounded as each product loads it, and the squared-distance
+// metrics' q and k terms read the unrounded rows from global memory. No
+// second copy of a tile is kept: at D = Dv = 128 the fp32 tiles alone take
+// 166 KB of the 227 KB a block may have, and rounded copies of q and k
+// would pass it.
 
 #pragma once
 
@@ -200,11 +204,9 @@ __device__ __forceinline__ float chain_finish(int metric, float x,
 // ---------------------------------------------------------------------------
 
 struct BwdTiles {
-  float* Qs;     // [BM][D + 1]
-  float* Qb;     // the products' q: Qs rounded to bf16 (bf16 forms), or Qs
-  float* Kb;     // the products' k: Ks rounded to bf16 (bf16 forms), or Ks
+  float* Qs;     // [BM][D + 1] (rounded to bf16 after its norms: bf16 forms)
   float* dOs;    // [BM][Dv + 1]
-  float* Ks;     // [BN][D + 1]
+  float* Ks;     // [BN][D + 1] (likewise)
   float* Vs;     // [BN][Dv + 1]
   float* Ws;     // [BM][BN + 1] chain weights W
   float* Ps;     // [BM][BN + 1] dropped probabilities (for dv)
@@ -215,16 +217,13 @@ struct BwdTiles {
   float* red;    // [THREADS / 32] block reduction scratch
 };
 
-__host__ __device__ inline size_t bwd_smem_floats(int D, int Dv,
-                                                 bool bf16 = false) {
+__host__ __device__ inline size_t bwd_smem_floats(int D, int Dv) {
   return (size_t)BM * (D + 1) + (size_t)BM * (Dv + 1) +
          (size_t)BN * (D + 1) + (size_t)BN * (Dv + 1) +
-         2 * (size_t)BM * (BN + 1) + 3 * BM + BN + THREADS / 32 +
-         (bf16 ? (size_t)(BM + BN) * (D + 1) : 0);
+         2 * (size_t)BM * (BN + 1) + 3 * BM + BN + THREADS / 32;
 }
 
-__device__ __forceinline__ BwdTiles bwd_tiles(float* smem, int D, int Dv,
-                                              bool bf16 = false) {
+__device__ __forceinline__ BwdTiles bwd_tiles(float* smem, int D, int Dv) {
   BwdTiles t;
   t.Qs = smem;
   t.dOs = t.Qs + BM * (D + 1);
@@ -237,8 +236,6 @@ __device__ __forceinline__ BwdTiles bwd_tiles(float* smem, int D, int Dv,
   t.delta = t.lse + BM;
   t.kn = t.delta + BM;
   t.red = t.kn + BN;
-  t.Qb = bf16 ? t.red + THREADS / 32 : t.Qs;
-  t.Kb = bf16 ? t.Qb + BM * (D + 1) : t.Ks;
   return t;
 }
 
@@ -273,7 +270,7 @@ __device__ __forceinline__ void load_query_side(
 
 // Row norms |q|^2 of the query tile (threads 0..63) and |k|^2 of the key
 // tile (threads 64..127), after the tiles are in shared memory; the bf16
-// forms' rounded copies Qb, Kb by the same threads.
+// forms then round each row in place, by the thread that took its norm.
 template <bool kBf16 = false>
 __device__ __forceinline__ void tile_norms(const BwdTiles& t, int D,
                                            bool queries, bool keys) {
@@ -283,7 +280,7 @@ __device__ __forceinline__ void tile_norms(const BwdTiles& t, int D,
     for (int d = 0; d < D; ++d) {
       const float x = t.Qs[tid * DS + d];
       s += x * x;
-      if (kBf16) t.Qb[tid * DS + d] = rd<true>(x);
+      if (kBf16) t.Qs[tid * DS + d] = rd<true>(x);
     }
     t.qn[tid] = s;
   } else if (keys && tid >= BM && tid < BM + BN) {
@@ -292,16 +289,27 @@ __device__ __forceinline__ void tile_norms(const BwdTiles& t, int D,
     for (int d = 0; d < D; ++d) {
       const float x = t.Ks[r * DS + d];
       s += x * x;
-      if (kBf16) t.Kb[r * DS + d] = rd<true>(x);
+      if (kBf16) t.Ks[r * DS + d] = rd<true>(x);
     }
     t.kn[r] = s;
   }
 }
 
+// Element d of tile row lr (global row gr < N) of q or k as the caller
+// gave it: the tile's value in the fp32 forms, and in the bf16 forms, whose
+// tile is rounded, the row in global memory x [N, D] (the squared-distance
+// metrics' q and k terms are fp32).
+template <bool kBf16>
+__device__ __forceinline__ float unrounded(const float* tile, const float* x,
+                                           int lr, int gr, int D, int d) {
+  if constexpr (kBf16) return x[(size_t)gr * D + d];
+  else return tile[lr * (D + 1) + d];
+}
+
 // The products of one pair of tiles for thread (rg, lane), which owns
 // query rows 4*rg..4*rg+3 and keys lane + 16*b (b < 4):
-// s[a][b] = q . k and dp[a][b] = do . v of those rows and keys (from Qb,
-// Kb and the staged dO, V: rounded in the bf16 forms).
+// s[a][b] = q . k and dp[a][b] = do . v of those rows and keys (from the
+// tiles Qs, Ks, dOs and Vs: rounded in the bf16 forms).
 __device__ __forceinline__ void tile_products(const BwdTiles& t, int D, int Dv,
                                               float (&s)[4][4],
                                               float (&dp)[4][4]) {
@@ -317,9 +325,9 @@ __device__ __forceinline__ void tile_products(const BwdTiles& t, int D, int Dv,
   for (int d = 0; d < D; ++d) {
     float qv[4], kv[4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) qv[a] = t.Qb[(rg * 4 + a) * DS + d];
+    for (int a = 0; a < 4; ++a) qv[a] = t.Qs[(rg * 4 + a) * DS + d];
 #pragma unroll
-    for (int b = 0; b < 4; ++b) kv[b] = t.Kb[(lane + 16 * b) * DS + d];
+    for (int b = 0; b < 4; ++b) kv[b] = t.Ks[(lane + 16 * b) * DS + d];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll

@@ -150,8 +150,8 @@ class GeometricAttention(nn.Module):
         (|Fq - Fk|^2 = maha(q, k; F^T F)). ``bias`` [..., N, N] is the
         dense path's ``geometric_bias``, served by the edge-biased
         kernels (forward and backward). ``bf16`` takes the kernels' bf16
-        forms (bf16 dot operands, float32 sums; the biased kernels have
-        none yet); the layer's other contractions follow
+        forms (bf16 dot operands, float32 sums; the biased kernels' too);
+        the layer's other contractions follow
         `core.module.default_matmul_precision`."""
         plan, plan_t = FG.make_block_plans_from_mask(mask)
         return self._apply_flash(x, mask, plan, plan_t, generator, bias,

@@ -75,9 +75,6 @@ def check_in_slice(c: TAGANConfig) -> None:
         missing.append(f"temporal_attention_type={c.temporal_attention_type!r}")
     if c.bf16_matmul and c.spatial_backend == "hybrid":
         missing.append("bf16_matmul with spatial_backend='hybrid'")
-    if c.bf16_matmul and c.spatial_backend == "flash" \
-            and c.use_edge_features and c.edge_feature_dim > 0:
-        missing.append("bf16_matmul with edge features on the flash backend")
     if missing:
         raise NotImplementedError(
             "not ported to tagan_torch yet: " + ", ".join(missing))

@@ -23,10 +23,11 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7a c  _biased_bwd_dq_kernel, compact   csrc/flash_biased_bwd.cu
     B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
 
-B1, B2, B3a and B3b also have bf16 forms (the TPU kernels' ``bf16=True``:
-every product's operands rounded to bf16, float32 sums), in the same
-sources under their own entry points and launch counts; the model takes
-them under ``bf16_matmul``. The other kernels have no bf16 form yet.
+B1, B2, B3a, B3b, B4, B5, B6, B7a and B7b also have bf16 forms (the TPU
+kernels' ``bf16=True``: every product's operands rounded to bf16, float32
+sums), in the same sources under their own entry points and launch
+counts; the model takes them under ``bf16_matmul``. The compact forms
+have no bf16 form yet.
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
 dense path's double softmax, and B6, B7a and B7b its backward. The
@@ -333,9 +334,10 @@ def _keep_rows(seed, H, r0, r1, N, dev) -> torch.Tensor:
                       torch.arange(N, device=dev).reshape(1, 1, 1, -1))
 
 
-def _chunk_scores(metric, q, k, mask, sc, r0, r1):
-    """(scores [G, H, r1 - r0, N], valid) of query rows r0..r1."""
-    qk, sq = _qk_sq(metric, q[:, :, r0:r1], k)
+def _chunk_scores(metric, q, k, mask, sc, r0, r1, bf16=False):
+    """(scores [G, H, r1 - r0, N], valid) of query rows r0..r1; q.k at
+    bf16 with ``bf16`` (`_qk_sq`)."""
+    qk, sq = _qk_sq(metric, q[:, :, r0:r1], k, bf16)
     s = _scores_from(metric, qk, sq, sc, q.shape[-1])
     return s, mask[:, None, r0:r1, :] != 0
 
@@ -497,22 +499,29 @@ def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale):
     return _walk_steps(q, k, tile_of, jlist, jcount, metric, scale)
 
 
+def _pair_tiles(x: torch.Tensor, n_i: int):
+    """The (row tile i, key tile jb) tiles of a pair matrix x [G, N, N],
+    padded with zeros (False) to whole tiles: a function of the walk step
+    (w, jb [G, n_i]) -> [G, n_i, BM, BN], as `_walk_steps` takes it."""
+    G, N = x.shape[0], x.shape[-1]
+    keys_p = _round_up(max(n_i * BLOCK_M, N), BLOCK_N)
+    tiles = torch.nn.functional.pad(
+        x, (0, keys_p - N, 0, n_i * BLOCK_M - N)).reshape(
+        G, n_i, BLOCK_M, keys_p // BLOCK_N, BLOCK_N)
+    gi = torch.arange(G, device=x.device)[:, None]
+    ri = torch.arange(n_i, device=x.device)[None, :]
+
+    def tile_of(w, jb):
+        return tiles[gi, ri, :, jb]
+    return tile_of
+
+
 def _dense_steps(q, k, mask, jlist, jcount, metric, scale, bf16=False):
     """The walk of the plan (jlist, jcount) over a dense mask [G, N, N]
     (`_walk_steps`): step w of row tile i reads the mask's tile (i,
     jlist[g, i, w])."""
-    G, N = mask.shape[0], mask.shape[-1]
-    n_i = jlist.shape[-2]
-    keys_p = _round_up(max(n_i * BLOCK_M, N), BLOCK_N)
-    tiles = torch.nn.functional.pad(
-        mask != 0, (0, keys_p - N, 0, n_i * BLOCK_M - N)).reshape(
-        G, n_i, BLOCK_M, keys_p // BLOCK_N, BLOCK_N)
-    gi = torch.arange(G, device=q.device)[:, None]
-    ri = torch.arange(n_i, device=q.device)[None, :]
-
-    def tile_of(w, jb):
-        return tiles[gi, ri, :, jb]                     # [G, n_i, BM, BN]
-    return _walk_steps(q, k, tile_of, jlist, jcount, metric, scale, bf16)
+    return _walk_steps(q, k, _pair_tiles(mask != 0, jlist.shape[-2]), jlist,
+                       jcount, metric, scale, bf16)
 
 
 def _walk_steps(q, k, tile_of, jlist, jcount, metric, scale, bf16=False):
@@ -657,25 +666,38 @@ def flash_biased_forward_compact_plain(
     [G, H, N] given (the hybrid backend's union lse1: a logsumexp over a
     superset of the walked pairs). -> (out [G, H, N, Dv], lse2
     [G, H, N])."""
-    G, H, N, _ = q.shape
     if scale is None:
-        scale = torch.ones(H, dtype=q.dtype, device=q.device)
+        scale = torch.ones(q.shape[1], dtype=q.dtype, device=q.device)
+    gi = torch.arange(q.shape[0], device=q.device)[:, None]
+
+    def bias_of(w, jb):
+        return bias_store[gi, jslot[..., w].long()]
+    return _walk_biased(
+        _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale),
+        q, v, lse1, bias_of, jlist, dropout_rate, seeds)
+
+
+def _walk_biased(steps, q, v, lse1, bias_of, jlist, dropout_rate, seeds,
+                 bf16=False):
+    """(out, lse2) of the second softmax over a walk's ``steps``
+    (`_walk_steps`): per step w1 = exp(s - lse1), z = drop1(w1) +
+    ``bias_of(w, jb)`` ([G, n_i, BM, BN]), then the online softmax of z
+    with drop2 before P@V, P@V at bf16 with ``bf16``."""
+    G, H, N, _ = q.shape
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     n_i = jlist.shape[-2]
     l1 = torch.nn.functional.pad(lse1, (0, n_i * BLOCK_M - N),
                                  value=LSE_DEAD).reshape(G, H, n_i, BLOCK_M,
                                                          1)
-    gi = torch.arange(G, device=q.device)[:, None]
     vt = _key_tiles(v, n_i * BLOCK_M)
     m, l, acc = _online_init(q, jlist, v.shape[-1])
-    for w, (s, valid, jb, rows, cols, _, _) in enumerate(_compact_steps(
-            q, k, store, jlist, jcount, jslot, metric, scale)):
+    for w, (s, valid, jb, rows, cols, _, _) in enumerate(steps):
         w1 = torch.exp(torch.where(valid, s - l1, NEG_INF))
         if dropout_rate > 0.0:
             keep1 = _tile_keep(seeds[:, 0], H, rows, cols) < thresh
             w1 = torch.where(keep1, w1 * inv_keep, torch.zeros_like(w1))
-        z = w1 + bias_store[gi, jslot[..., w].long()][:, None]
+        z = w1 + bias_of(w, jb)[:, None]
         drop = None
         if dropout_rate > 0.0:
             keep2 = _tile_keep(seeds[:, 1], H, rows, cols) < thresh
@@ -683,17 +705,19 @@ def flash_biased_forward_compact_plain(
             def drop(p, keep=keep2):
                 return torch.where(keep, p * inv_keep, torch.zeros_like(p))
         m, l, acc = _online_step(m, l, acc, z, valid, drop,
-                                 _gather_tiles(vt, jb))
+                                 _gather_tiles(vt, jb), bf16)
     return _finish_online(m, l, acc, N)
 
 
 def flash_lse1_plain(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
-                     metric: str, scale: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     metric: str, scale: Optional[torch.Tensor] = None,
+                     bf16: bool = False) -> torch.Tensor:
     """What B4 computes: lse1 f32[G, H, N], the logsumexp of the masked
     scores (the first softmax of the edge-biased variant), ``LSE_DEAD``
     on rows with no valid key. Shapes as in
-    `flash_geometric_forward_plain`."""
+    `flash_geometric_forward_plain`. ``bf16``: what B4's bf16 form
+    computes, q.k from bf16 operands (the norms and the sums float32);
+    no rounding follows the walk, so the row chunks serve."""
     G, H, N, _ = q.shape
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
@@ -701,7 +725,7 @@ def flash_lse1_plain(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
     lses = []
     for r0 in range(0, N, _ROW_CHUNK):
         s, valid = _chunk_scores(metric, q, k, mask, sc, r0,
-                                 min(N, r0 + _ROW_CHUNK))
+                                 min(N, r0 + _ROW_CHUNK), bf16)
         s = torch.where(valid, s, torch.full_like(s, NEG_INF))
         m = s.amax(-1)
         dead = m <= NEG_INF
@@ -717,7 +741,7 @@ def flash_biased_forward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
     bias: torch.Tensor, lse1: torch.Tensor, metric: str,
     scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-    seeds: Optional[torch.Tensor] = None,
+    seeds: Optional[torch.Tensor] = None, bf16: bool = False, plan=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What B5 computes, given lse1 (B4's output, or a logsumexp over a
     superset of the mask's pairs): per valid pair w1 = exp(s - lse1),
@@ -726,10 +750,24 @@ def flash_biased_forward_plain(
     not a masked pair: it enters the second softmax as z = bias. bias
     f32[G, N, N] (shared by the heads), lse1 [G, H, N], seeds i32[G, 2]
     (drop1's seed, drop2's seed) -> (out [G, H, N, Dv], lse2 [G, H, N]),
-    zero and ``LSE_DEAD`` on rows with no valid key."""
+    zero and ``LSE_DEAD`` on rows with no valid key.
+
+    ``bf16``: what B5's bf16 form computes. q.k and drop2(p2) v take bf16
+    operands, and p2 is rounded relative to the running max of the walk,
+    so this form walks the plan (jlist, jcount) at the kernel's 64 x 64
+    tile (built from the mask when None), in its order, as the bf16
+    `flash_geometric_forward_plain` does."""
     G, H, N, _ = q.shape
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
+    if seeds is None:
+        seeds = torch.zeros((G, 2), dtype=torch.int32, device=q.device)
+    if bf16:
+        jlist, jcount = make_block_plan(mask) if plan is None else plan
+        return _walk_biased(
+            _dense_steps(q, k, mask, jlist, jcount, metric, scale, True),
+            q, v, lse1, _pair_tiles(bias, jlist.shape[-2]), jlist,
+            dropout_rate, seeds, True)
     sc = scale.reshape(1, H, 1, 1)
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
@@ -759,25 +797,26 @@ def flash_biased_forward_plain(
 
 
 def _biased_chunks(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
-                   scale, dropout_rate, seeds):
+                   scale, dropout_rate, seeds, bf16=False):
     """The biased backward's recompute (the TPU kernels'
     ``_bwd_biased_common``) over the row chunks of the plain forward:
     per chunk (r0, r1, w1, dw1, dz, w2d, s, sq, qk) [G, H, r1 - r0, N],
     with w1 = exp(s - lse1) on the mask, z = drop1(w1) + bias, w2 =
     exp(z - lse2), dz = w2 (drop2(do v^T) - delta2), dw1 = drop1(dz) and
-    w2d = drop2(w2); all 0 off the mask."""
+    w2d = drop2(w2); all 0 off the mask. q.k and do v^T take bf16
+    operands with ``bf16``."""
     G, H, N, D = q.shape
     sc = scale.reshape(1, H, 1, 1)
     thresh = _keep_thresh(dropout_rate)
     inv_keep = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0 else 1.0
     for r0 in range(0, N, _ROW_CHUNK):
         r1 = min(N, r0 + _ROW_CHUNK)
-        qk, sq = _qk_sq(metric, q[:, :, r0:r1], k)
+        qk, sq = _qk_sq(metric, q[:, :, r0:r1], k, bf16)
         s = _scores_from(metric, qk, sq, sc, D)
         valid = mask[:, None, r0:r1, :] != 0
         neg = torch.full_like(s, NEG_INF)
         w1 = torch.exp(torch.where(valid, s - lse1[:, :, r0:r1, None], neg))
-        dp2 = do[:, :, r0:r1] @ v.transpose(-1, -2)
+        dp2 = _mm(do[:, :, r0:r1], v.transpose(-1, -2), bf16)
         w1d = w1
         if dropout_rate > 0.0:
             keep1 = _keep_rows(seeds[:, 0], H, r0, r1, N, q.device) < thresh
@@ -796,11 +835,14 @@ def _biased_chunks(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
 
 def _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
                       scale, dropout_rate, seeds, delta1=None,
-                      need_dscale=False, parts=("pre", "dq", "dkv")):
+                      need_dscale=False, parts=("pre", "dq", "dkv"),
+                      bf16=False):
     """The plain biased backward over row chunks; ``parts`` picks what is
     formed: "pre" (delta1, dB), "dq" (dq, dscale), "dkv" (dk, dv).
     ``delta1`` None takes each chunk's own row sums (the whole walk);
-    given, it is used as it is, as in B7a and B7b. Returns a dict."""
+    given, it is used as it is, as in B7a and B7b. ``bf16``: the
+    products take bf16 operands, the chain's being the quantity the TPU
+    kernels round (`_chain_operand`), in their order. Returns a dict."""
     G, H, N, D = q.shape
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
@@ -820,7 +862,7 @@ def _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
         wcol = torch.zeros(G, H, N, dtype=q.dtype, device=q.device)
     for r0, r1, w1, dw1, dz, w2d, s, sq, qk in _biased_chunks(
             q, k, v, mask, bias, do, lse1, lse2, delta2, metric, scale,
-            dropout_rate, seeds):
+            dropout_rate, seeds, bf16):
         d1 = (w1 * dw1).sum(-1) if delta1 is None else delta1[:, :, r0:r1]
         if "pre" in parts:
             res["delta1"][:, :, r0:r1] = d1
@@ -829,17 +871,19 @@ def _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
             continue
         ds = w1 * (dw1 - d1[..., None])
         w = _chain_weight(metric, ds, s, sq, qk, sc, D)
+        u, c = _chain_operand(metric, ds, s, sq, qk, sc, D) if bf16 \
+            else (w, 1.0)
         qc = q[:, :, r0:r1]
         if "dq" in parts:
-            dqc = w @ k
+            dqc = _mm(u, k, bf16) / c
             if sq_metric:
                 dqc = dqc - w.sum(-1, keepdim=True) * qc
             res["dq"][:, :, r0:r1] = dqc
             if need_dscale:
                 dsc += (ds * s * sq).sum((0, 2, 3))
         if "dkv" in parts:
-            res["dk"] += w.transpose(-1, -2) @ qc
-            res["dv"] += w2d.transpose(-1, -2) @ do[:, :, r0:r1]
+            res["dk"] += _mm(u.transpose(-1, -2), qc, bf16) / c
+            res["dv"] += _mm(w2d.transpose(-1, -2), do[:, :, r0:r1], bf16)
             if sq_metric:
                 wcol += w.sum(-2)
     if "dkv" in parts and sq_metric:
@@ -858,6 +902,7 @@ def flash_biased_backward_plain(
     lse2: torch.Tensor, do: torch.Tensor, metric: str,
     scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
     seeds: Optional[torch.Tensor] = None, need_dscale: bool = False,
+    bf16: bool = False,
 ):
     """What B6, B7a and B7b compute together (the TPU package's
     ``flash_biased_attention_bwd``), written out over the row chunks of
@@ -871,42 +916,53 @@ def flash_biased_backward_plain(
     `flash_geometric_backward_plain`. Shapes as in
     `flash_biased_forward_plain`; out and do like the forward's out.
     Returns (dq, dk, dv, dB f32[G, N, N] (0 off the mask), dscale f32[H]
-    or None). Cosine metrics expect q/k already normalised."""
+    or None). Cosine metrics expect q/k already normalised.
+
+    ``bf16``: what their bf16 forms compute. q.k, do v^T, the chain's
+    products (`_chain_operand`, in the TPU kernels' order) and dv's take
+    bf16 operands; w1, z, w2, dz, delta1, dB and the squared-distance
+    metrics' sums of W stay float32. The backward normalises by lse1 and
+    lse2, so no walk order enters."""
     r = _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2,
                           (do * out).sum(-1), metric, scale, dropout_rate,
-                          seeds, need_dscale=need_dscale)
+                          seeds, need_dscale=need_dscale, bf16=bf16)
     return r["dq"], r["dk"], r["dv"], r["dbias"], r["dscale"]
 
 
 def flash_biased_bwd_pre_plain(q, k, v, mask, bias, do, lse1, lse2, delta2,
                                metric: str, scale=None,
-                               dropout_rate: float = 0.0, seeds=None):
+                               dropout_rate: float = 0.0, seeds=None,
+                               bf16: bool = False):
     """What B6 computes: (delta1 f32[G, H, N], dB f32[G, N, N]) given
-    lse1, lse2 and delta2 [G, H, N] (dB 0 off the mask)."""
+    lse1, lse2 and delta2 [G, H, N] (dB 0 off the mask); its bf16 form
+    with ``bf16`` (`flash_biased_backward_plain`)."""
     r = _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
-                          scale, dropout_rate, seeds, parts=("pre",))
+                          scale, dropout_rate, seeds, parts=("pre",),
+                          bf16=bf16)
     return r["delta1"], r["dbias"]
 
 
 def flash_biased_bwd_dq_plain(q, k, v, mask, bias, do, lse1, lse2, delta2,
                               delta1, metric: str, scale=None,
                               dropout_rate: float = 0.0, seeds=None,
-                              need_dscale: bool = False):
+                              need_dscale: bool = False, bf16: bool = False):
     """What B7a computes: (dq, dscale f32[H] or None) given B6's
-    delta1."""
+    delta1; its bf16 form with ``bf16``."""
     r = _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
                           scale, dropout_rate, seeds, delta1, need_dscale,
-                          ("dq",))
+                          ("dq",), bf16)
     return r["dq"], r["dscale"]
 
 
 def flash_biased_bwd_dkv_plain(q, k, v, mask, bias, do, lse1, lse2, delta2,
                                delta1, metric: str, scale=None,
-                               dropout_rate: float = 0.0, seeds=None):
-    """What B7b computes: (dk, dv) given B6's delta1."""
+                               dropout_rate: float = 0.0, seeds=None,
+                               bf16: bool = False):
+    """What B7b computes: (dk, dv) given B6's delta1; its bf16 form with
+    ``bf16``."""
     r = _biased_bwd_plain(q, k, v, mask, bias, do, lse1, lse2, delta2, metric,
                           scale, dropout_rate, seeds, delta1,
-                          parts=("dkv",))
+                          parts=("dkv",), bf16=bf16)
     return r["dk"], r["dv"]
 
 
@@ -1700,6 +1756,20 @@ class _FlashLse1CompactKernel(_CudaKernel):
         return lse1
 
 
+class _FlashLse1Bf16Kernel(_FlashLse1Kernel):
+    """B4's bf16 form, ``tagan_flash_lse1_bf16``: q.k from bf16
+    operands."""
+    name = "flash_lse1_bf16"
+    symbol = "tagan_flash_lse1_bf16"
+
+
+class _FlashBiasedBf16Kernel(_FlashBiasedKernel):
+    """B5's bf16 form, ``tagan_flash_biased_fwd_bf16``: q.k and P@V from
+    bf16 operands."""
+    name = "flash_biased_fwd_bf16"
+    symbol = "tagan_flash_biased_fwd_bf16"
+
+
 class _FlashBiasedCompactKernel(_CudaKernel):
     """B5c, ``tagan_flash_biased_fwd_compact``: B5 over the compact
     store, the bias in the same slots (f32[G, S, 64, 64]); (out,
@@ -1905,6 +1975,24 @@ class _FlashBiasedBwdDkvKernel(_FlashBiasedBackwardKernel):
         return dk, dv
 
 
+class _FlashBiasedBwdPreBf16Kernel(_FlashBiasedBwdPreKernel):
+    """B6's bf16 form, ``tagan_flash_biased_bwd_pre_bf16``."""
+    name = "flash_biased_bwd_pre_bf16"
+    symbol = "tagan_flash_biased_bwd_pre_bf16"
+
+
+class _FlashBiasedBwdDqBf16Kernel(_FlashBiasedBwdDqKernel):
+    """B7a's bf16 form, ``tagan_flash_biased_bwd_dq_bf16``."""
+    name = "flash_biased_bwd_dq_bf16"
+    symbol = "tagan_flash_biased_bwd_dq_bf16"
+
+
+class _FlashBiasedBwdDkvBf16Kernel(_FlashBiasedBwdDkvKernel):
+    """B7b's bf16 form, ``tagan_flash_biased_bwd_dkv_bf16``."""
+    name = "flash_biased_bwd_dkv_bf16"
+    symbol = "tagan_flash_biased_bwd_dkv_bf16"
+
+
 class _FlashBiasedBackwardCompactKernel(_CudaKernel):
     """Shared checks of B6c, B7a c and B7b c: `_check_compact`'s on the
     store and the walk (lst, cnt, slot) [G, ceil(N/64), W], the walk's
@@ -2037,6 +2125,11 @@ flash_geometric_fwd_bf16_kernel = _FlashForwardBf16Kernel()
 flash_geometric_bwd_fused_bf16_kernel = _FlashBwdFusedBf16Kernel()
 flash_geometric_bwd_dq_bf16_kernel = _FlashBwdDqBf16Kernel()
 flash_geometric_bwd_dkv_bf16_kernel = _FlashBwdDkvBf16Kernel()
+flash_lse1_bf16_kernel = _FlashLse1Bf16Kernel()
+flash_biased_fwd_bf16_kernel = _FlashBiasedBf16Kernel()
+flash_biased_bwd_pre_bf16_kernel = _FlashBiasedBwdPreBf16Kernel()
+flash_biased_bwd_dq_bf16_kernel = _FlashBiasedBwdDqBf16Kernel()
+flash_biased_bwd_dkv_bf16_kernel = _FlashBiasedBwdDkvBf16Kernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
@@ -2051,7 +2144,10 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_fwd_bf16_kernel,
            flash_geometric_bwd_fused_bf16_kernel,
            flash_geometric_bwd_dq_bf16_kernel,
-           flash_geometric_bwd_dkv_bf16_kernel)
+           flash_geometric_bwd_dkv_bf16_kernel,
+           flash_lse1_bf16_kernel, flash_biased_fwd_bf16_kernel,
+           flash_biased_bwd_pre_bf16_kernel, flash_biased_bwd_dq_bf16_kernel,
+           flash_biased_bwd_dkv_bf16_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -2239,19 +2335,23 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _biased_forward(q, k, v, mask, bias, jlist, jcount, metric, scale,
-                    dropout_rate, seeds):
+                    dropout_rate, seeds, bf16=False):
     """(out, lse1, lse2) of folded inputs: B4 then B5 for CUDA tensors,
-    the plain versions for CPU tensors; trusts the plan."""
+    the plain versions for CPU tensors; trusts the plan. ``bf16`` takes
+    their bf16 forms (on the CPU the plain B5's, which walks the
+    plan)."""
     if q.device.type == "cpu":
-        lse1 = flash_lse1_plain(q, k, mask, metric, scale)
+        lse1 = flash_lse1_plain(q, k, mask, metric, scale, bf16)
         out, lse2 = flash_biased_forward_plain(q, k, v, mask, bias, lse1,
                                                metric, scale, dropout_rate,
-                                               seeds)
+                                               seeds, bf16, (jlist, jcount))
         return out, lse1, lse2
-    lse1 = flash_lse1_kernel(q, k, mask, jlist, jcount, metric, scale)
-    out, lse2 = flash_biased_fwd_kernel(q, k, v, mask, bias, lse1, jlist,
-                                        jcount, metric, scale, seeds,
-                                        dropout_rate)
+    lse1_kern, fwd_kern = (
+        (flash_lse1_bf16_kernel, flash_biased_fwd_bf16_kernel) if bf16 else
+        (flash_lse1_kernel, flash_biased_fwd_kernel))
+    lse1 = lse1_kern(q, k, mask, jlist, jcount, metric, scale)
+    out, lse2 = fwd_kern(q, k, v, mask, bias, lse1, jlist, jcount, metric,
+                         scale, seeds, dropout_rate)
     return out, lse1, lse2
 
 
@@ -2279,44 +2379,51 @@ def biased_seeds(dropout_seed, G: int, device) -> torch.Tensor:
 def flash_biased_fwd(q, k, v, mask, bias, jlist, jcount, *, metric: str,
                      scale: Optional[torch.Tensor] = None,
                      dropout_rate: float = 0.0,
-                     seeds: Optional[torch.Tensor] = None):
+                     seeds: Optional[torch.Tensor] = None,
+                     bf16: bool = False):
     """(out, lse1, lse2) of the batched edge-biased forward (the TPU
     package's ``_flash_biased_forward(..., return_lse=True)``): B4 then
     B5, or their plain versions for CPU tensors. bias f32[G, N, N],
     seeds i32[G, 2] (`biased_seeds`); the other shapes and the plan
-    check as in `flash_geometric_fwd`."""
+    check as in `flash_geometric_fwd`. ``bf16`` takes their bf16 forms,
+    whose out and lse2 depend on the walk."""
     check_plan(jlist, jcount, q.shape[2])
     scale, _ = _defaults(q, scale, None)
     if seeds is None:
         seeds = biased_seeds(None, q.shape[0], q.device)
     return _biased_forward(q, k, v, mask, bias, jlist, jcount, metric, scale,
-                           dropout_rate, seeds)
+                           dropout_rate, seeds, bf16)
 
 
 def _biased_backward(q, k, v, mask, bias, out, lse1, lse2, do, plan, plan_t,
-                     metric, scale, dropout_rate, seeds, need_dscale):
+                     metric, scale, dropout_rate, seeds, need_dscale,
+                     bf16=False):
     """(dq, dk, dv, dB, dscale or None) of folded inputs: B6, B7a then B7b
-    for CUDA tensors, the plain version for CPU tensors; trusts the
-    plans. ``plan_t`` None is built from the mask. On CUDA, dB is set
-    on the walked 64 x 64 blocks only (the TPU kernels' contract: read
-    it at the mask's pairs); the plain version sets it everywhere."""
+    for CUDA tensors (their bf16 forms with ``bf16``), the plain version
+    for CPU tensors; trusts the plans. ``plan_t`` None is built from the
+    mask. On CUDA, dB is set on the walked 64 x 64 blocks only (the TPU
+    kernels' contract: read it at the mask's pairs); the plain version
+    sets it everywhere."""
     if q.device.type == "cpu":
         return flash_biased_backward_plain(q, k, v, mask, bias, out, lse1,
                                            lse2, do, metric, scale,
-                                           dropout_rate, seeds, need_dscale)
+                                           dropout_rate, seeds, need_dscale,
+                                           bf16)
     delta2 = (do * out).sum(-1).contiguous()
     if plan_t is None:
         plan_t = _transposed_plan(mask)
+    pre, dq_kern, dkv_kern = (
+        (flash_biased_bwd_pre_bf16_kernel, flash_biased_bwd_dq_bf16_kernel,
+         flash_biased_bwd_dkv_bf16_kernel) if bf16 else
+        (flash_biased_bwd_pre_kernel, flash_biased_bwd_dq_kernel,
+         flash_biased_bwd_dkv_kernel))
     rows = (lse1, lse2, delta2)
-    delta1, dbias = flash_biased_bwd_pre_kernel(
-        q, k, v, mask, bias, do, *rows, *plan, metric, scale, seeds,
-        dropout_rate)
-    dq, dscale = flash_biased_bwd_dq_kernel(
-        q, k, v, mask, bias, do, *rows, delta1, *plan, metric, scale, seeds,
-        dropout_rate, need_dscale)
-    dk, dv = flash_biased_bwd_dkv_kernel(
-        q, k, v, mask, bias, do, *rows, delta1, *plan_t, metric, scale,
-        seeds, dropout_rate)
+    delta1, dbias = pre(q, k, v, mask, bias, do, *rows, *plan, metric, scale,
+                        seeds, dropout_rate)
+    dq, dscale = dq_kern(q, k, v, mask, bias, do, *rows, delta1, *plan,
+                         metric, scale, seeds, dropout_rate, need_dscale)
+    dk, dv = dkv_kern(q, k, v, mask, bias, do, *rows, delta1, *plan_t,
+                      metric, scale, seeds, dropout_rate)
     return dq, dk, dv, dbias, dscale
 
 
@@ -2324,7 +2431,7 @@ def flash_biased_attention_bwd(
     q, k, v, bias, mask, out, lse1, lse2, do, *,
     metric: str = "scaled_dot_product", scale: Optional[torch.Tensor] = None,
     plan=None, plan_t=None, seeds: Optional[torch.Tensor] = None,
-    dropout_rate: float = 0.0, need_dscale: bool = False,
+    dropout_rate: float = 0.0, need_dscale: bool = False, bf16: bool = False,
 ):
     """The backward of the batched edge-biased forward (the TPU package's
     ``flash_biased_attention_bwd``): (dq, dk, dv, dB), plus dscale f32[H]
@@ -2332,9 +2439,10 @@ def flash_biased_attention_bwd(
     lse1 and lse2 are the forward's, do the cotangent of out. Cosine
     metrics expect q/k already normalised. Plans given by the caller are
     checked; missing ones are built from the mask. CPU tensors take the
-    plain version, CUDA tensors B6, B7a and B7b. dB [G, N, N] is defined
-    at the mask's pairs (and, on CUDA, on every pair of a walked 64 x 64
-    block); read it there only."""
+    plain version, CUDA tensors B6, B7a and B7b (their bf16 forms with
+    ``bf16``). dB [G, N, N] is defined at the mask's pairs (and, on
+    CUDA, on every pair of a walked 64 x 64 block); read it there
+    only."""
     N = q.shape[2]
     if plan is None:
         plan, plan_t = make_block_plans_from_mask(mask)
@@ -2347,43 +2455,45 @@ def flash_biased_attention_bwd(
         seeds = biased_seeds(None, q.shape[0], q.device)
     dq, dk, dv, dbias, dscale = _biased_backward(
         q, k, v, mask, bias, out, lse1, lse2, do, plan, plan_t, metric,
-        scale, dropout_rate, seeds, need_dscale)
+        scale, dropout_rate, seeds, need_dscale, bf16)
     return (dq, dk, dv, dbias) + ((dscale,) if need_dscale else ())
 
 
 class _FlashBiasedAttention(torch.autograd.Function):
     """The edge-biased attention of folded inputs (the TPU package's
     ``_flash_diff_biased``): B4 then B5 forward, B6, B7a and B7b
-    backward (or the plain versions on the CPU). The backward reads the
-    dropout seeds saved by the forward. dscale is formed only when the
-    scale requires grad, dB only when the bias does."""
+    backward (or the plain versions on the CPU), in their bf16 forms with
+    ``bf16``. The backward reads the dropout seeds saved by the forward.
+    dscale is formed only when the scale requires grad, dB only when the
+    bias does."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, bias, mask, jlist, jcount, ilist, icount,
-                seeds, metric, dropout_rate):
+                seeds, metric, dropout_rate, bf16):
         out, lse1, lse2 = _biased_forward(q, k, v, mask, bias, jlist, jcount,
-                                          metric, scale, dropout_rate, seeds)
+                                          metric, scale, dropout_rate, seeds,
+                                          bf16)
         # the bias as given: no second copy of the [G, N, N] matrix
         ctx.save_for_backward(q, k, v, scale, bias, mask, out, lse1, lse2,
                               jlist, jcount, ilist, icount, seeds)
-        ctx.args = (metric, dropout_rate)
+        ctx.args = (metric, dropout_rate, bf16)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         (q, k, v, scale, bias, mask, out, lse1, lse2, jlist, jcount, ilist,
          icount, seeds) = ctx.saved_tensors
-        metric, dropout_rate = ctx.args
+        metric, dropout_rate, bf16 = ctx.args
         need_dscale = ctx.needs_input_grad[3] and metric in SCALED_METRICS
         dq, dk, dv, dbias, dscale = _biased_backward(
             q, k, v, mask, bias, out, lse1, lse2, dout.contiguous(),
             (jlist, jcount), None if ilist is None else (ilist, icount),
-            metric, scale, dropout_rate, seeds, need_dscale)
+            metric, scale, dropout_rate, seeds, need_dscale, bf16)
         if ctx.needs_input_grad[3] and dscale is None:
             dscale = torch.zeros_like(scale)
         if not ctx.needs_input_grad[4]:
             dbias = None
-        return (dq, dk, dv, dscale, dbias) + (None,) * 8
+        return (dq, dk, dv, dscale, dbias) + (None,) * 9
 
 
 def flash_geometric_attention(
@@ -2419,9 +2529,8 @@ def flash_geometric_attention(
     (elsewhere it is unset on CUDA: read it there only).
 
     ``bf16`` takes the kernels' bf16 forms (the TPU package's ``bf16``:
-    bf16 dot operands, float32 sums), forward and backward; the
-    edge-biased kernels have none yet, so ``bf16`` with ``bias`` raises
-    NotImplementedError."""
+    bf16 dot operands, float32 sums), forward and backward, with or
+    without ``bias``."""
     if bias is not None and return_lse:
         raise ValueError("return_lse is not available with bias")
     if plan is None:
@@ -2445,9 +2554,6 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
     if metric not in MXU_METRICS:
         raise NotImplementedError(
             f"metric {metric} is not written through q.k; use the dense path")
-    if bf16 and bias is not None:
-        raise NotImplementedError(
-            "the edge-biased kernels (B4-B7) have no bf16 form yet")
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires dropout_seed")
     lead = q.shape[:-3]
@@ -2474,7 +2580,8 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
             qf, kf, vf, scale,
             bias.to(torch.float32).reshape(G, N, N).contiguous(), mf,
             *fold_plan(plan), *fold_plan(plan_t),
-            biased_seeds(dropout_seed, G, q.device), metric, dropout_rate)
+            biased_seeds(dropout_seed, G, q.device), metric, dropout_rate,
+            bf16)
         return out.reshape(*lead, H, N, Dv)
     out, lse = _FlashAttention.apply(
         qf, kf, vf, scale, mf, *fold_plan(plan), *fold_plan(plan_t),

@@ -241,13 +241,14 @@ def test_plain_bf16_matches_jax(metric, rate, D, attn_inputs, interpret):
 
 
 def test_bf16_refusals():
-    """The compact and edge-biased entries have no bf16 form: asking for
-    it raises before anything runs."""
+    """The compact entries have no bf16 form: asking for it raises before
+    anything runs, at the compact backward and at the model's check of a
+    hybrid configuration with bf16_matmul. (The edge-biased entry has its
+    bf16 form: tests/test_torch_edge_bf16.py.)"""
     q = torch.zeros(1, 1, 8, 4)
     mask = torch.ones(1, 8, 8, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        TFG.flash_geometric_attention(q, q, q, mask, bias=torch.zeros(1, 8, 8),
-                                      bf16=True)
+    with pytest.raises(NotImplementedError, match="bf16_matmul"):
+        pt.TAGAN(pt.TAGANConfig(**_cfg("hybrid")), device="cpu")
     store, plan = TFG.compact_from_mask(mask)
     plan_t = TFG.compact_transposed_plan(mask)
     lse = torch.zeros(1, 1, 8)

@@ -1200,10 +1200,13 @@ def test_bf16_kernels_match_plain(metric, rate, cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
-@pytest.mark.parametrize("D,Dv", [(8, 8), (12, 12), (40, 72)])
+@pytest.mark.parametrize("D,Dv", [(8, 8), (12, 12), (40, 72), (128, 128)])
 def test_bf16_kernel_head_dims(D, Dv, metric, cuda):
     """Head dims whose sqrt is not a power of two (the scaled dot's factor
-    comes after the rounded product) and a multi-lane width."""
+    comes after the rounded product), a multi-lane width, and the widest
+    (128, 128), where rounded copies of the q and k tiles beside the
+    fp32 tiles would pass the 227 KB of shared memory a block may
+    have."""
     _bf16_vs_plain(cuda, 1, 2, 200, D, Dv, metric, 0.1)
 
 
@@ -1299,14 +1302,11 @@ def test_bf16_trainer_step_on_gpu_matches_cpu(fused, cuda, monkeypatch):
 @pytest.mark.gpu
 def test_bf16_refused_before_launch(cuda):
     """What has no bf16 form raises before any launch on CUDA tensors: the
-    edge-biased entry, the compact backward, and the model's combinations
-    that would need them (check_in_slice, on the card)."""
+    compact backward, and the model's combination that would need it
+    (check_in_slice, on the card). The edge-biased entry has its bf16
+    forms (the tests below)."""
     q, k, v, mask = (t.to(cuda) for t in _inputs(1, 2, 70, 16, 16))
     before = {k_.name: k_.launches for k_ in FG.KERNELS}
-    with pytest.raises(NotImplementedError, match="bf16"):
-        FG.flash_geometric_attention(q, k, v, mask,
-                                     bias=torch.zeros(1, 70, 70, device=cuda),
-                                     bf16=True)
     store, plan = FG.compact_from_mask(mask)
     plan_t = FG.compact_transposed_plan(mask)
     lse = torch.zeros(1, 2, 70, device=cuda)
@@ -1314,7 +1314,183 @@ def test_bf16_refused_before_launch(cuda):
         FG.flash_geometric_attention_bwd(q, k, v, store, v, lse, v,
                                          plan=plan, plan_t=plan_t, bf16=True)
     assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
-    for kw in (dict(spatial_backend="hybrid"),
-               dict(use_edge_features=True, edge_feature_dim=3)):
-        with pytest.raises(NotImplementedError, match="bf16_matmul"):
-            pt.TAGAN(_bf16_model_cfg(**kw), device=cuda)
+    with pytest.raises(NotImplementedError, match="bf16_matmul"):
+        pt.TAGAN(_bf16_model_cfg(spatial_backend="hybrid"), device=cuda)
+
+
+# -- the edge-biased bf16 forms (B4, B5, B6, B7a, B7b) --------------------------
+
+BIASED_BF16 = (FG.flash_lse1_bf16_kernel, FG.flash_biased_fwd_bf16_kernel,
+               FG.flash_biased_bwd_pre_bf16_kernel,
+               FG.flash_biased_bwd_dq_bf16_kernel,
+               FG.flash_biased_bwd_dkv_bf16_kernel)
+
+
+def _biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
+    """B4, B5, B6, B7a and B7b in their bf16 forms through the public
+    entries (``flash_biased_fwd``, ``flash_biased_attention_bwd`` with
+    bf16=True) against the plain bf16 versions under the bf16 gates, the
+    plain fp32 versions the witness: lse1, out and lse2 (B5 on the
+    kernel's lse1, walking the same plan), dq, dk, dv, dB at the mask's
+    pairs (0 at the other pairs of the walked blocks) and dscale; dead
+    rows exactly; each bf16 entry launched once and nothing else."""
+    args = [t.to(cuda) for t in _biased_inputs(G, H, N, D, Dv, metric, seed)]
+    q, k, v, mask, bias, scale, seeds = args
+    mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
+    bias = torch.where(mask != 0, bias, torch.zeros_like(bias))
+    do = torch.from_numpy(np.random.default_rng(seed + 300).standard_normal(
+        (G, H, N, Dv)).astype(np.float32)).to(cuda)
+    need = metric in FG.SCALED_METRICS
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    out, lse1, lse2 = FG.flash_biased_fwd(
+        q, k, v, mask, bias, *plan, metric=metric, scale=scale,
+        dropout_rate=rate, seeds=seeds, bf16=True)
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    for t in (lse1, lse2):
+        assert torch.all(t[dead] == FG.LSE_DEAD)
+    assert torch.all(out[dead] == 0)
+    p_lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, True)
+    _bf16_gates(lse1[~dead], p_lse1[~dead], p_lse1[~dead], witness=False)
+    fwd = (q, k, v, mask, bias, lse1, metric, scale, rate, seeds)
+    p_out, p_lse2 = FG.flash_biased_forward_plain(*fwd, True, plan)
+    f_out, _ = FG.flash_biased_forward_plain(*fwd)
+    _bf16_gates(out[~dead], p_out[~dead], f_out[~dead])
+    _bf16_gates(lse2[~dead], p_lse2[~dead], p_lse2[~dead], witness=False)
+    stats = (q, k, v, mask, bias, p_out, p_lse1, p_lse2, do, metric, scale,
+             rate, seeds, need)
+    got = FG.flash_biased_attention_bwd(
+        q, k, v, bias, mask, p_out, p_lse1, p_lse2, do, metric=metric,
+        scale=scale, plan=plan, plan_t=plan_t, seeds=seeds, dropout_rate=rate,
+        need_dscale=need, bf16=True)
+    torch.cuda.synchronize()
+    want = FG.flash_biased_backward_plain(*stats, bf16=True)
+    f32 = FG.flash_biased_backward_plain(*stats)
+    for g, w, f in zip(got[:3], want[:3], f32[:3]):
+        _bf16_gates(g, w, f)
+    on = mask != 0
+    _bf16_gates(got[3][on], want[3][on], f32[3][on])
+    walked = FG._occ_from_mask(mask, FG.BLOCK_M, FG.BLOCK_N)
+    walked = walked.repeat_interleave(FG.BLOCK_M, 1).repeat_interleave(
+        FG.BLOCK_N, 2)[:, :N, :N]
+    assert torch.all(got[3][walked & ~on] == 0)
+    if need:
+        _bf16_gates(got[4], want[4], f32[4], witness=False, mean=False)
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect.update({k_.name: 1 for k_ in BIASED_BF16})
+    assert launched == expect
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_biased_bf16_kernels_match_plain(metric, rate, cuda):
+    """B4-B7b's bf16 forms: N=150 (not a tile multiple), D != Dv, dead
+    rows, an empty query tile and key strip, per-head scales with their
+    gradient, both dropouts, a bias with duplicate-edge sums."""
+    _biased_bf16_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_biased_bf16_kernel_head_dims(D, Dv, metric, cuda):
+    """Head dims whose sqrt is not a power of two, D != Dv, and the
+    widest, whose tiles the bf16 forms round in place."""
+    _biased_bf16_vs_plain(cuda, 1, 2, 200, D, Dv, metric, 0.1, seed=1)
+
+
+@pytest.mark.gpu
+def test_biased_bf16_autograd_on_gpu_matches_cpu(cuda):
+    """flash_geometric_attention(bias=..., bf16=True) under autograd: the
+    bf16 forms on the card against the plain bf16 versions on the CPU,
+    with a learnable sigma and the bias requiring grad (read at the
+    mask's pairs), dropout on; the CPU's fp32 gradients the witness."""
+    q, k, v, mask, bias, _, _ = _biased_inputs(2, 2, 130, 16, 16,
+                                               "gaussian_kernel")
+    do = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        v.shape).astype(np.float32))
+    on = mask != 0
+    grads = {}
+    for dev, bf16 in (("cuda", True), ("cpu", True), ("cpu", False)):
+        leaves = [t.to(dev).clone().requires_grad_() for t in (q, k, v, bias)]
+        sigma = torch.tensor([0.8, 1.5], device=dev, requires_grad=True)
+        out = FG.flash_geometric_attention(
+            *leaves[:3], mask.to(dev), metric="gaussian_kernel",
+            scale_param=sigma, dropout_rate=0.1,
+            dropout_seed=torch.tensor([3, 4], dtype=torch.int32),
+            bias=leaves[3], bf16=bf16)
+        (out * do.to(dev)).sum().backward()
+        grads[dev, bf16] = [t.grad.cpu() for t in leaves[:3]] + [
+            leaves[3].grad.cpu()[on], sigma.grad.cpu()]
+    for i, (g, w, f) in enumerate(zip(grads["cuda", True], grads["cpu", True],
+                                      grads["cpu", False])):
+        _bf16_gates(g, w, f, witness=i < 4, mean=i < 4)
+
+
+# the edge-feature bf16 model with its kernels alone at bf16, card against
+# CPU: a bf16 rounding that an fp32 sum order flips (2^-8 of one term)
+# reaches the gradients through the first softmax's chain ds = w1 (dw1 -
+# delta1), whose terms cancel, so layer 0's q and k weights (gradients
+# ~1e-4 of the edge biases') carry a larger share of it: each gradient
+# within 1e-2 of its largest entry (measured 4.9e-3 at most; 3.1e-3 for
+# the plain bf16 model on the same graphs; the card's fp32 model stands
+# 2e-6 from the CPU's)
+BF16_EDGE_GRAD = 1e-2
+
+
+@pytest.mark.gpu
+def test_edge_bf16_trainer_step_on_gpu_matches_cpu(cuda):
+    """One TAGANTrainer step of the edge-feature flash model with
+    bf16_matmul=True, card against CPU: the bf16 forms of B4, B5, B6, B7a
+    and B7b launched once per layer, nothing else. With the plain
+    contractions pinned to fp32 the loss within the max gate and each
+    gradient within `BF16_EDGE_GRAD`; with every contraction at bf16
+    within bf16-class tolerances (the loss 2e-2, each gradient 1e-1 of
+    its largest entry), as in the plain bf16 model's test above; the edge
+    parameters' gradients non-zero."""
+    from tagan_torch.core.module import default_matmul_precision
+    seqs = _edge_seqs(np.random.default_rng(7), 100, 800, 3, 2)
+    cfg = _bf16_model_cfg(edge_feature_dim=4, use_edge_features=True,
+                          distance_metric="gaussian_kernel",
+                          learnable_distance=True)
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        pt.TemporalGraphDataset(seqs, [1.0, 0.0]), batch_size=2,
+        dense_adj=False)))
+    want = {k_.name: 0 for k_ in FG.KERNELS}
+    want.update({k_.name: cfg.num_layers for k_ in BIASED_BF16})
+    for contractions, loss_tol, grad_tol in (("highest", BF16_MAX_TOL,
+                                              BF16_EDGE_GRAD),
+                                             (None, 2e-2, 1e-1)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            model = pt.TAGAN(cfg, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+            if contractions is not None:
+                model.precision = \
+                    lambda: default_matmul_precision(contractions)
+            tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
+            before = {k_.name: k_.launches for k_ in FG.KERNELS}
+            loss, _ = tr._loss(batch, labels, smask, True)
+            loss.backward()
+            launched = {k_.name: k_.launches - before[k_.name]
+                        for k_ in FG.KERNELS}
+            got[dev] = (loss.item(), {n_: p.grad.detach().cpu().clone()
+                                      for n_, p in model.named_parameters()})
+            if dev == "cuda":
+                assert launched == want
+        assert abs(got["cuda"][0] - got["cpu"][0]) <= loss_tol
+        for name in ("edge_embedding.w",
+                     "geometric_layers.layer_0.edge_bias.w",
+                     "geometric_layers.layer_1.edge_bias.w"):
+            assert got["cuda"][1][name].abs().max() > 0, name
+        for name, g in got["cpu"][1].items():
+            if name in ("temporal_attention.k.b",
+                        "temporal_attention.time_encoding.basis_proj.b",
+                        "temporal_attention.time_q_proj.b"):
+                continue    # zero in exact arithmetic: fp32 noise
+            card = got["cuda"][1][name]
+            assert torch.isfinite(card).all(), name
+            assert (card - g).abs().max() <= grad_tol * g.abs().max(), name

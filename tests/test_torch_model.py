@@ -173,15 +173,17 @@ def test_predictor_matches_jax(backend, interpret):
     {"compat_mode": "executed"}, {"temporal_attention_type": "standard"},
     {"temporal_attention_type": "multi_scale"},
     {"bf16_matmul": True, "use_edge_features": True, "edge_feature_dim": 3,
-     "spatial_backend": "flash"}])
+     "spatial_backend": "hybrid"}])
 def test_outside_the_slice_raises(override):
     """What the port does not run raises NotImplementedError at
-    construction: bf16_matmul runs on the flash backend without edge
-    features only (the edge-biased kernels have no bf16 form). The
-    hybrid backend trains, with and without edge features: a backward on
-    a plan without the transposed walk raises ValueError for both models,
-    and with it the edge-feature model's gradients are finite."""
-    if override.get("spatial_backend") == "hybrid":
+    construction: bf16_matmul runs on the dense, csr and flash backends,
+    with and without edge features, but not on the hybrid backend (the
+    compact-store kernels have no bf16 form). The hybrid backend trains
+    in fp32, with and without edge features: a backward on a plan
+    without the transposed walk raises ValueError for both models, and
+    with it the edge-feature model's gradients are finite."""
+    if override.get("spatial_backend") == "hybrid" \
+            and not override.get("bf16_matmul"):
         rng = np.random.default_rng(0)
         snaps = [{"x": rng.standard_normal((12, 8)).astype(np.float32),
                   "edge_index": rng.integers(0, 12, (2, 30)),

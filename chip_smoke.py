@@ -39,7 +39,11 @@ Phases, in order; any failure raises and exits non-zero:
    least 100 times the mean error; (2i) the bf16 forms of B4, B5, B6,
    B7a and B7b against their plain bf16 versions on 2c/2d's grid, (D,
    Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), under the
-   same gates, dB at the mask's pairs;
+   same gates, dB at the mask's pairs; (2j) the bf16 forms of B1c, B3a c
+   and B3b c against the compact plain bf16 versions on 2f's grid, both
+   stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
+   under the same gates (dead rows and the empty key strip exactly 0),
+   and a jslot past the store raising before any launch;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -71,7 +75,13 @@ Phases, in order; any failure raises and exits non-zero:
    bf16 forms of B4 and B5 once per layer per request, nothing else),
    the peak memory, the fp32 edge model's logits beside the bf16
    model's, and the first layer's bf16 B4 and B5 on one snapshot at full
-   width against the plain bf16 versions under the bf16 gates;
+   width against the plain bf16 versions under the bf16 gates; (3g)
+   phase 3c with ``bf16_matmul=True`` on 3c's requests (B1c's bf16 form
+   once per layer per request, nothing else): host packing and planning,
+   the forward, the peak memory, the fp32 hybrid model's logits beside
+   the bf16 model's on the same weights and request, and the first
+   layer's bf16 B1c on one 131K snapshot against the plain bf16 version
+   under the bf16 gates;
 4. end to end at 1,000 nodes: the same Predictor's probabilities on the
    card (kernels) and on the CPU (plain versions), and the per-node
    features after the attention layers (``encode_spatial``); (4b) the
@@ -128,7 +138,14 @@ Phases, in order; any failure raises and exits non-zero:
    ``flex_attention`` on bf16 q, k, v at the scaled-dot metric as the
    library yardstick (held against the bf16 B4 and B5 at that metric,
    null with the reason if it does not build or differs; its backward
-   forward+backward minus forward), and their bounds;
+   forward+backward minus forward), and their bounds; (5i) the bf16 forms
+   of B1c, B3a c and B3b c at one 131K snapshot of 6g, each beside its
+   fp32 form in turns, the compact plain bf16 versions, compiled
+   ``flex_attention`` on bf16 q, k, v under the compact plan's BlockMask
+   at the scaled-dot metric as the library yardstick (forward, and
+   forward+backward minus forward; held against the bf16 kernels at that
+   metric, null with the reason if it does not build or differs), and
+   their bounds (the fp32 forms' bytes, operations at the bf16 rate);
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -168,6 +185,13 @@ Phases, in order; any failure raises and exits non-zero:
    layer's bf16 B6 + B7a + B7b over the folded snapshots and their share
    of the step, finite non-zero gradients (the edge parameters' included),
    one snapshot at full width against the plain bf16 biased backward;
+   (6g) phase 6c with ``bf16_matmul=True`` over 6c's loaders and planned
+   batches: one warm-up step, then 3 steps (the bf16 forms of B1c, B3a c
+   and B3b c each exactly once per layer per step, the fp32 forms
+   never), step times, split, peak memory, one layer's bf16 B3a c + B3b c
+   over the folded snapshots and their share of the step, finite non-zero
+   gradients, every parameter moved, and one snapshot at full width
+   against the compact plain bf16 backward under the bf16 gates;
 7. training at 1,000 nodes on the card and on the CPU from the same
    weights and batches: the first step's gradients and the losses and
    parameters of 3 AdamW steps; (7b) the same for the edge-feature
@@ -180,7 +204,8 @@ Phases, in order; any failure raises and exits non-zero:
    contractions pinned to fp32) under model-level bf16 gates, and as
    the model runs, every contraction at bf16, at bf16-class tolerances;
    (7f) the same for the edge-feature model on 7b's graphs (the bf16
-   forms of B4-B7b).
+   forms of B4-B7b); (7g) the same for the hybrid model on 7c's graphs at
+   4,096 nodes (the bf16 forms of B1c, B3a c and B3b c).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -261,6 +286,14 @@ BF16_MODEL_MEAN_TOL = 1e-4
 # one-entry edge_bias.b; the max gate, 7e's, 7.9e-4)
 BF16_EDGE_MEAN_TOL = 1e-3
 BF16_MODEL_WITNESS = 10
+# the hybrid model's witness (7g). Only its band runs at bf16, and its
+# gradients stand only ~2.2e-4 (mean over the largest entry) from the
+# fp32 model's, while a 1e-7 relative change of the node features moves
+# them by ~3.8e-5 on the CPU alone (flipped roundings, which 7g measures
+# and logs beside the card's error): any correct card lands ~6x closer
+# to the CPU's bf16 gradients than the fp32 model is, a card that
+# rounded nothing ~1x. 3x separates the two.
+BF16_HYB_WITNESS = 3
 BF16_KERNELS_PARAM = 5e-4
 BF16_MODEL_GRAD = 1e-1
 BF16_MODEL_LOSS = 2e-2
@@ -363,12 +396,25 @@ def flash_kernels(FG, bf16):
             FG.flash_geometric_bwd_dkv_kernel)
 
 
+def compact_kernels(FG, bf16):
+    """The wrappers of B1c, B3a c and B3b c: the fp32 or the bf16 forms."""
+    if bf16:
+        return (FG.flash_geometric_fwd_compact_bf16_kernel,
+                FG.flash_geometric_bwd_dq_compact_bf16_kernel,
+                FG.flash_geometric_bwd_dkv_compact_bf16_kernel)
+    return (FG.flash_geometric_fwd_compact_kernel,
+            FG.flash_geometric_bwd_dq_compact_kernel,
+            FG.flash_geometric_bwd_dkv_compact_kernel)
+
+
 # -- phase 1 ------------------------------------------------------------------
 
 def phase_build(build, FG):
     t0 = time.perf_counter()
     build.build([k.source for k in FG.KERNELS])
-    log(f"[1] kernels built in {time.perf_counter() - t0:.3f} s")
+    log(f"[1] kernels built in {time.perf_counter() - t0:.3f} s, each "
+        f"source (its nvcc's time, all started together) "
+        f"{ {n: round(t, 3) for n, t in build.build_seconds.items()} }")
     for name, text in build.build_logs.items():
         fn = "?"
         for line in text.splitlines():
@@ -2336,7 +2382,7 @@ def phase_train_mid(tt, FG):
 
 # -- phase 7e -----------------------------------------------------------------
 
-def phase_train_mid_bf16(tt, FG, edge=False):
+def phase_train_mid_bf16(tt, FG, edge=False, hybrid=False):
     """[7e] the bf16 model (bf16_matmul=True) at 1,000 nodes: 3 AdamW steps
     on the card (the bf16 kernels) and on the CPU (their plain versions)
     from the same weights and batches: the first step's gradients (but
@@ -2349,9 +2395,35 @@ def phase_train_mid_bf16(tt, FG, edge=False):
     roundings of what it feeds then flip in turn, so the two sides part at
     bf16 class throughout the model; held at bf16-class tolerances.
     With ``edge`` [7f]: the edge-feature model on 7b's graphs, the bf16
-    forms of B4-B7b."""
-    tag = "7f" if edge else "7e"
-    if edge:
+    forms of B4-B7b. With ``hybrid`` [7g]: the hybrid model at N_MID_HYB
+    nodes on 7c's graphs over ``plan="hybrid"`` loaders, the bf16 forms
+    of B1c, B3a c and B3b c."""
+    tag = "7f" if edge else "7g" if hybrid else "7e"
+    plan, nodes = ("hybrid", N_MID_HYB) if hybrid else (None, N_MID)
+    noise = None
+    if hybrid:
+        seqs = [hybrid_snaps(N_MID_HYB, DEG_HYB, T_HYB, 70 + s)
+                for s in range(3)]
+        ds = tt.TemporalGraphDataset(seqs, [1.0, 0.0, 1.0])
+        cfg16 = hybrid_config(tt, bf16=True)
+        f32 = train_steps(tt, FG, hybrid_config(tt), DEV, ds, plan)
+        want = {kern.name: 3 * 2 for kern in compact_kernels(FG, True)}
+        # the model's own sensitivity to flipped roundings: the CPU's
+        # kernels-alone gradients on node features changed by 1e-7 of
+        # themselves, against the same on the features as they are
+        rng = np.random.default_rng(0)
+        nudged = tt.TemporalGraphDataset([[dict(s, x=(s["x"] * (
+            1 + 1e-7 * rng.standard_normal(s["x"].shape))).astype(
+            np.float32)) for s in seq] for seq in seqs], [1.0, 0.0, 1.0])
+        base, moved = (train_steps(tt, FG, cfg16, "cpu", d, plan, "highest")
+                       for d in (ds, nudged))
+        noise = max(((moved["grads"][n] - w).abs().mean()
+                     / w.abs().max()).item()
+                    for n, w in base["grads"].items() if n not in ZERO_GRAD)
+        log(f"[{tag}] the CPU's kernels-alone bf16 gradients moved by a 1e-7 "
+            f"relative change of the node features: worst mean {noise:.3e} "
+            f"of the largest entry")
+    elif edge:
         rng = np.random.default_rng(9)
         ds = tt.TemporalGraphDataset(
             [make_edge_sequence(rng, N_MID, 16 * N_MID, T_FULL, unique=True)
@@ -2372,8 +2444,8 @@ def phase_train_mid_bf16(tt, FG, edge=False):
             want[kern.name] = 3 * 2
     res = {}
     for part, contractions in (("a", "highest"), ("b", None)):
-        card = train_steps(tt, FG, cfg16, DEV, ds, contractions=contractions)
-        cpu = train_steps(tt, FG, cfg16, "cpu", ds, contractions=contractions)
+        card = train_steps(tt, FG, cfg16, DEV, ds, plan, contractions)
+        cpu = train_steps(tt, FG, cfg16, "cpu", ds, plan, contractions)
         launched = [r["launched"] for r in (card, cpu)]
         if launched != [want, {}]:
             raise AssertionError(f"launches {launched}, card expected {want}")
@@ -2399,11 +2471,12 @@ def phase_train_mid_bf16(tt, FG, edge=False):
         # of more than one entry: a one-entry tensor's mean error is its
         # max error, which the max gate holds
         mean_tol = BF16_EDGE_MEAN_TOL if edge else BF16_MODEL_MEAN_TOL
+        witness = BF16_HYB_WITNESS if hybrid else BF16_MODEL_WITNESS
         wit_mean = max(g[1] for g in grads.values()
                        if g[3] > 1 or not edge)
         if part == "a" and not (
                 worst[0] <= BF16_MAX_TOL and worst[1] <= mean_tol
-                and worst[2] >= BF16_MODEL_WITNESS * wit_mean):
+                and worst[2] >= witness * wit_mean):
             raise AssertionError(f"gradients: max err {worst[0]}, mean err "
                                  f"{worst[1]} ({wit_mean} over tensors of "
                                  f"more than one entry), witness {worst[2]}")
@@ -2417,7 +2490,7 @@ def phase_train_mid_bf16(tt, FG, edge=False):
                 param_err = max(param_err, (card["params"][n]
                                             - p)[sel].abs().max().item())
         what = "kernels alone" if part == "a" else "every contraction"
-        log(f"[{tag}{part}] bf16 training at N={N_MID}, card vs cpu, {what} "
+        log(f"[{tag}{part}] bf16 training at N={nodes}, card vs cpu, {what} "
             f"at bf16: losses {card['losses']} vs {cpu['losses']} (max abs err "
             f"{loss_err:.3e}); first-step gradients over each tensor's "
             f"largest entry: worst max err, worst mean err, largest mean "
@@ -2434,6 +2507,7 @@ def phase_train_mid_bf16(tt, FG, edge=False):
         res[part] = dict(losses={"card": card["losses"], "cpu": cpu["losses"]},
                          grad_worst=worst, loss_err=loss_err,
                          param_err=param_err)
+    res["cpu_nudge_mean_err"] = noise
     return res
 
 
@@ -2607,6 +2681,110 @@ def phase_small_compact_bwd(FG):
     return out
 
 
+# -- phase 2j -----------------------------------------------------------------
+
+def compact_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
+    """B1c, B3a c and B3b c in their bf16 forms against the compact plain
+    bf16 versions on one input of 2f (the backward from the plain bf16
+    forward), under the bf16 gates with the compact plain fp32 versions
+    as the witness; dead rows, and dk and dv on the empty key strip,
+    exactly 0. Returns {kernel: (max abs error, max error, mean error,
+    witness)} of its worst output."""
+    q, k, v, do, dlse, mask, store, plan, plan_t, scale, seeds = \
+        compact_bwd_inputs(FG, G, H, N, D, Dv, metric, seed, pack)
+    label = f"compact bf16 {metric} rate={rate} D={D} Dv={Dv} pack={pack}"
+    out, lse = FG.flash_geometric_fwd_compact_bf16_kernel(
+        q, k, v, store, *plan, metric, scale, seeds, rate)
+    sync()
+    fwd = (q, k, v, store, *plan, metric, scale, rate, seeds)
+    p_out, p_lse = FG.flash_geometric_forward_compact_plain(*fwd, bf16=True)
+    f_out, f_lse = FG.flash_geometric_forward_compact_plain(*fwd)
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    if not (torch.all(out[dead] == 0) and torch.all(lse[dead] == FG.LSE_DEAD)
+            and torch.all(p_out[dead] == 0)):
+        raise AssertionError(f"{label}: dead rows differ")
+    res = {"B1c": max(
+        bf16_gates(f"{label} out", out[~dead], p_out[~dead], f_out[~dead]),
+        bf16_gates(f"{label} lse", lse[~dead], p_lse[~dead], f_lse[~dead],
+                   witness=False))}
+    need = metric in FG.SCALED_METRICS
+    args = (q, k, v, store, p_out.contiguous(), p_lse.contiguous(), do)
+    rest = (*plan, metric, scale, rate, seeds, need, dlse)
+    want = FG.flash_geometric_backward_compact_plain(*args, *rest, bf16=True)
+    f32 = FG.flash_geometric_backward_compact_plain(*args, *rest)
+    got = FG._backward_compact(*args, plan, plan_t, metric, scale, rate,
+                               seeds, need, dlse, True)
+    sync()
+    strip = slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
+    if not (torch.all(got[0][dead] == 0)
+            and (N <= 2 * FG.BLOCK_M or (torch.all(got[1][0, :, strip] == 0)
+                                         and torch.all(got[2][0, :, strip]
+                                                       == 0)))):
+        raise AssertionError(f"{label}: dead rows or the empty key strip "
+                             f"not exactly 0")
+    for name, idx in (("B3a c", (0, 3)), ("B3b c", (1, 2))):
+        res[name] = max(
+            bf16_gates(f"{label} {name} {'dq dk dv dscale'.split()[i]}",
+                       got[i], want[i], f32[i], witness=i < 3, mean=i < 3)
+            for i in idx if want[i] is not None)
+    return res
+
+
+def phase_small_compact_bf16(FG):
+    """[2j] B1c, B3a c and B3b c's bf16 forms, bit and int8 stores: every
+    metric with dropout 0 and 0.1 at (D, Dv) = (16, 8), and (D, Dv) of
+    (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), where the compact
+    backward's 64 tile-row words sit past the dense tiles in shared
+    memory; an lse cotangent, dscale for gaussian/rbf, dead rows, a row
+    tile with jcount = 0, an empty key strip. Then a jslot past the store
+    raises before any launch, at the forward's entry and at B3a c's and
+    B3b c's bf16 wrappers."""
+    cases = [(metric, 16, 8, rate) for metric in FG.MXU_METRICS
+             for rate in (0.0, 0.1)]
+    cases += [("scaled_dot_product", 16, 16, 0.1), ("scaled_dot_product", 8,
+                                                    8, 0.1),
+              ("gaussian_kernel", 12, 12, 0.0), ("dot_product", 7, 3, 0.1),
+              ("euclidean", 128, 128, 0.1)]
+    worst = {}
+    for pack in (True, False):
+        for metric, D, Dv, rate in cases:
+            for name, r in compact_bf16_vs_plain(FG, 2, 3, 150, D, Dv, metric,
+                                                 rate, pack).items():
+                worst[name] = max(worst.get(name, r), r)
+    q, k, v, do, _, _, store, plan, plan_t, scale, seeds = \
+        compact_bwd_inputs(FG, 1, 2, 150, 16, 16, "dot_product", 0, True)
+    jl, jc, js = (p.clone() for p in plan)
+    il, ic, isl = (p.clone() for p in plan_t)
+    js[0, 0, 0] = isl[0, 0, 0] = store.shape[1]
+    lse = torch.zeros(1, 2, 150, device=DEV)
+    before = counts(FG)
+    refused = 0
+    for call in (
+            lambda: FG.flash_geometric_fwd_compact(
+                q, k, v, store, jl, jc, js, metric="dot_product", bf16=True),
+            lambda: FG.flash_geometric_bwd_dq_compact_bf16_kernel(
+                q, k, v, store, do, lse, lse, jl, jc, js, "dot_product",
+                scale, seeds, 0.0, False),
+            lambda: FG.flash_geometric_bwd_dkv_compact_bf16_kernel(
+                q, k, v, store, do, lse, lse, il, ic, isl, "dot_product",
+                scale, seeds, 0.0)):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    if refused != 3 or counts(FG) != before:
+        raise AssertionError(f"a bad jslot: {refused} of 3 entries refused "
+                             f"it; launches {counts(FG)} vs {before}")
+    log(f"[2j] bf16 forms of B1c, B3a c and B3b c vs the compact plain bf16 "
+        f"versions, bit and int8 stores: {2 * len(cases)} cases; worst (max "
+        f"abs err, max err, mean err, witness over the largest entry) "
+        + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
+                    for n, r in worst.items())
+        + f" (tol {BF16_MAX_TOL}, {BF16_MEAN_TOL}, witness {BF16_WITNESS}x);"
+        f" a bad jslot raised before launch at all 3 entries")
+    return {n: r[0] for n, r in worst.items()}
+
+
 # -- phases 3c, 3d, 4c, 4d, 5d: the hybrid backend at 131,072 nodes -----------
 
 def hybrid_snaps(n, deg, t_len, seed, locality=0.95, width=None,
@@ -2641,15 +2819,17 @@ def hybrid_snaps(n, deg, t_len, seed, locality=0.95, width=None,
     return out
 
 
-def hybrid_config(tt, edge=False, backend="hybrid"):
+def hybrid_config(tt, edge=False, backend="hybrid", bf16=False):
     """``bench_partition_stress.py`` part C's model (:226-238): hidden 64,
     4 heads, 2 layers, node features 8, bce, no dropout; with ``edge``
-    its edge features (Fe = 4, ``use_edge_features``)."""
+    its edge features (Fe = 4, ``use_edge_features``), with ``bf16``
+    ``bf16_matmul``."""
     return tt.TAGANConfig(hidden_dim=64, num_heads=4, num_layers=2,
                           node_feature_dim=F_HYB, output_dim=1,
                           loss_type="bce", dropout=0.0,
                           edge_feature_dim=F_EDGE if edge else 0,
-                          use_edge_features=edge, spatial_backend=backend)
+                          use_edge_features=edge, spatial_backend=backend,
+                          bf16_matmul=bf16)
 
 
 def hybrid_layer0(FG, model, batch):
@@ -2685,20 +2865,29 @@ def hybrid_requests(edge, seed0):
     return reqs, (T_HYB, N_HYB, N_HYB * DEG_HYB, F_EDGE if edge else 0)
 
 
-def phase_serve_hybrid(tt, FG, edge):
+def phase_serve_hybrid(tt, FG, edge, bf16=False, reqs=None):
     """Serve the 131K hybrid model (``edge``: with edge features) with
     `Predictor` (each request planned at its own sizes): REQUESTS
     requests, launch counts set to 0 just before and read just after;
     forward, one request's host packing and plan build, peak memory, one
     layer's compact launches over the folded snapshots; the first layer's
-    kernels on one snapshot against their plain versions at full width."""
+    kernels on one snapshot against their plain versions at full width.
+    With ``bf16`` [3g]: the plain model with bf16_matmul=True on 3c's
+    requests ``reqs`` (B1c's bf16 form once per layer per request,
+    nothing else), held to the plain bf16 version under the bf16 gates,
+    and the fp32 model's logits on the same request and weights beside
+    the bf16 model's. The requests are returned under "reqs"."""
     from tagan_torch.core.graph import attach_hybrid_plans
     from tagan_torch.ops.hybrid_biased import lse_union, residual_lse1
-    label = "3d" if edge else "3c"
-    cfg = hybrid_config(tt, edge)
+    label = "3d" if edge else "3g" if bf16 else "3c"
+    cfg = hybrid_config(tt, edge, bf16=bf16)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
-    reqs, dims = hybrid_requests(edge, 300 if edge else 100)
+    if reqs is None:
+        reqs, dims = hybrid_requests(edge, 300 if edge else 100)
+    else:
+        dims = (T_HYB, N_HYB, N_HYB * DEG_HYB, 0)
+    b1c = compact_kernels(FG, bf16)[0]
     pred = tt.Predictor(model, dims=dims, batch_size=SEQS_PER_REQUEST)
     pred.warmup()
     sync()
@@ -2714,13 +2903,13 @@ def phase_serve_hybrid(tt, FG, edge):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
     expected = {k.name: 0 for k in FG.KERNELS}
     for kern in ((FG.flash_lse1_compact_kernel,
-                  FG.flash_biased_fwd_compact_kernel) if edge else
-                 (FG.flash_geometric_fwd_compact_kernel,)):
+                  FG.flash_biased_fwd_compact_kernel) if edge else (b1c,)):
         expected[kern.name] = cfg.num_layers * REQUESTS
     probs = np.concatenate(probs)
     finite = bool(np.isfinite(probs).all())
     log(f"[{label}] hybrid N={N_HYB}, E={N_HYB * DEG_HYB}/snapshot, T={T_HYB}"
-        f"{', edge features' if edge else ''}: request latency ms "
+        f"{', edge features' if edge else ''}"
+        f"{', bf16_matmul=True' if bf16 else ''}: request latency ms "
         f"{[round(x, 3) for x in lat]}; sequences/s "
         f"{REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3):.3f}; peak device "
         f"memory {peak_gb:.3f} GB above {held_gb:.3f} GB held; launches "
@@ -2746,38 +2935,68 @@ def phase_serve_hybrid(tt, FG, edge):
         model(batch)
         sync()
         t0 = time.perf_counter()
-        model(batch)
+        logits = model(batch).logits
         sync()
         fwd_ms = (time.perf_counter() - t0) * 1e3
+    gap = None
+    if bf16:
+        f32 = tt.TAGAN(hybrid_config(tt), device=DEV,
+                       generator=torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            logits32 = f32(batch).logits
+        gap = (logits - logits32).abs().max().item()
+        del f32
+        log(f"[{label}] logits of the fp32 model on the same request and "
+            f"weights: max abs gap {gap:.4e} (bf16 {logits.ravel()}, fp32 "
+            f"{logits32.ravel()})")
     (q, k, v, store, plan, rs), extra = hybrid_layer0(FG, model, batch)
     G, H = q.shape[:2]
     ones = torch.ones(H, device=DEV)
     res = dict(latency_ms=lat, launches=launched, forward_ms=fwd_ms,
                peak_memory_gb=peak_gb, held_gb=held_gb, pin=pin,
                request_pack_plan_s=req_pack_s, request_plan_s=req_plan_s,
-               sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
+               sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3),
+               fp32_logits_gap=gap)
     with torch.inference_mode():
         if not edge:
             seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
             res["b1c_layer_ms"] = cuda_ms(
-                lambda: FG.flash_geometric_fwd_compact_kernel(
-                    q, k, v, store, *plan, "euclidean", ones, seeds, 0.0), 3)
+                lambda: b1c(q, k, v, store, *plan, "euclidean", ones, seeds,
+                            0.0), 3)
             one = (q[:1], k[:1], v[:1], store[:1], tuple(p[:1] for p in plan),
                    tuple(t[:1] for t in rs))
-            out, lse = FG.flash_geometric_fwd_compact_kernel(
-                *one[:4], *one[4], "euclidean", ones, seeds[:1], 0.0)
+            out, lse = b1c(*one[:4], *one[4], "euclidean", ones, seeds[:1],
+                           0.0)
+            fwd = (*one[:4], *one[4], "euclidean", ones, 0.0, seeds[:1])
             p_out, p_lse = FG.flash_geometric_forward_compact_plain(
-                *one[:4], *one[4], "euclidean", ones, 0.0, seeds[:1])
+                *fwd, bf16=bf16)
             sync()
-            res["full_err"] = max((out - p_out).abs().max().item(),
-                                  (lse - p_lse).abs().max().item())
+            name = "B1c bf16" if bf16 else "B1c"
+            if bf16:
+                f_out, f_lse = FG.flash_geometric_forward_compact_plain(*fwd)
+                live = p_lse < 1e29
+                gates = max(bf16_gates("full-width out", out[live],
+                                       p_out[live], f_out[live]),
+                            bf16_gates("full-width lse", lse[live],
+                                       p_lse[live], f_lse[live],
+                                       witness=False))
+                if not (torch.all(out[~live] == 0)
+                        and torch.all(lse[~live] == FG.LSE_DEAD)):
+                    raise AssertionError("full-width dead rows differ")
+                res["full_err"], res["full_gates"] = gates[0], gates
+                err_text = (f"(max abs err, max err, mean err, witness) "
+                            f"{tuple(f'{x:.3e}' for x in gates)}")
+            else:
+                res["full_err"] = max((out - p_out).abs().max().item(),
+                                      (lse - p_lse).abs().max().item())
+                err_text = f"max abs err {res['full_err']:.3e}"
             share = cfg.num_layers * res["b1c_layer_ms"] / fwd_ms
             log(f"[{label}] forward on a packed request {fwd_ms:.3f} ms; one "
                 f"request's packing and planning {req_pack_s:.3f} s; one "
-                f"layer's B1c over the {G} folded snapshots "
+                f"layer's {name} over the {G} folded snapshots "
                 f"{res['b1c_layer_ms']:.3f} ms ({cfg.num_layers} layers = "
-                f"{share:.3f} of the forward); layer-0 B1c vs plain on one "
-                f"snapshot: max abs err {res['full_err']:.3e}")
+                f"{share:.3f} of the forward); layer-0 {name} vs plain"
+                f"{' bf16' if bf16 else ''} on one snapshot: {err_text}")
             args = one
         else:
             bst, rb = extra
@@ -2830,10 +3049,10 @@ def phase_serve_hybrid(tt, FG, edge):
                 f"{res['full_err']:.3e}")
             args = one + (bst1, l1u, rb[:1])
         res["kernel_share_of_forward"] = share
-    if not res["full_err"] <= TOL:
+    if not bf16 and not res["full_err"] <= TOL:
         raise AssertionError(f"full-width compact kernel error "
                              f"{res['full_err']} > {TOL}")
-    res["args"] = args
+    res["args"], res["reqs"] = args, reqs
     return res
 
 
@@ -3161,17 +3380,18 @@ def phase_hybrid_train_vs_csr(tt, FG):
     return dict(grad_err=err, noise_tensors=zero, losses=losses, edges=E)
 
 
-def hybrid_layer0_bwd(FG, model, batch):
+def hybrid_layer0_bwd(FG, model, batch, bf16=False):
     """`hybrid_layer0`'s inputs with the folded transposed walk, B1c's
-    (out, lse) over them, and cotangents dO and dlse (N(0, 1), seed 11):
-    the layer's compact backward launch."""
+    (out, lse) over them (its bf16 form's with ``bf16``), and cotangents
+    dO and dlse (N(0, 1), seed 11): the layer's compact backward
+    launch."""
     (q, k, v, store, plan, res), _ = hybrid_layer0(FG, model, batch)
     G, H = q.shape[:2]
     plan_t = FG.fold_compact(batch.hyb_mask_blocks, batch.hyb_plan_t, G)[1]
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
     with torch.no_grad():
-        out, lse = FG.flash_geometric_fwd_compact_kernel(
+        out, lse = compact_kernels(FG, bf16)[0](
             q, k, v, store, *plan, "euclidean", ones, seeds, 0.0)
     g = torch.Generator(device=DEV).manual_seed(11)
     do = torch.randn(out.shape, device=DEV, generator=g)
@@ -3179,7 +3399,7 @@ def hybrid_layer0_bwd(FG, model, batch):
     return q, k, v, store, plan, plan_t, res, out, lse, do, dlse
 
 
-def phase_train_hybrid(tt, FG):
+def phase_train_hybrid(tt, FG, bf16=False, data=None):
     """`TAGANTrainer.train` on the 131K hybrid model (part C) over a
     ``plan="hybrid"`` loader, one sequence per batch: the loader's
     planning batch apart from the cached ones, one warm-up step, then
@@ -3187,34 +3407,46 @@ def phase_train_hybrid(tt, FG):
     step times, split, peak memory, one layer's B3a c + B3b c over the
     folded snapshots and their share of the step, finite losses and
     gradients, every parameter moved; one snapshot at full width against
-    the compact plain backward."""
-    cfg = hybrid_config(tt)
+    the compact plain backward. With ``bf16`` [6g]: the model with
+    bf16_matmul=True over 6c's loaders and planned batches ``data`` (B1c,
+    B3a c and B3b c's bf16 forms each once per layer per step, the fp32
+    forms never), held to the compact plain bf16 backward under the bf16
+    gates. The loaders and batches are returned under "data"."""
+    tag = "6g" if bf16 else "6c"
+    kerns = compact_kernels(FG, bf16)
+    cfg = hybrid_config(tt, bf16=bf16)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
     exp = tt.ExperimentConfig(model=cfg, batch_size=1, num_epochs=1, seed=0,
                               checkpoint_dir="", shuffle=False)
-    ds = tt.TemporalGraphDataset(
-        [hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 600 + s)
-         for s in range(TRAIN_STEPS + 1)], [1.0, 0.0, 1.0, 0.0])
-    kw = dict(batch_size=1, dense_adj=False, plan="hybrid")
-    warm = tt.TemporalGraphDataLoader(ds.subset([0]), **kw)
-    loader = tt.TemporalGraphDataLoader(
-        ds.subset(list(range(1, TRAIN_STEPS + 1))), **kw)
-    # the first batch packs and plans every sequence of the bucket; the
-    # later ones, and every later epoch, stack cached sequences
-    batch_s, batches = [], []
-    it = iter(loader)
-    for _ in range(TRAIN_STEPS):
+    if data is None:
+        ds = tt.TemporalGraphDataset(
+            [hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 600 + s)
+             for s in range(TRAIN_STEPS + 1)], [1.0, 0.0, 1.0, 0.0])
+        kw = dict(batch_size=1, dense_adj=False, plan="hybrid")
+        warm = tt.TemporalGraphDataLoader(ds.subset([0]), **kw)
+        loader = tt.TemporalGraphDataLoader(
+            ds.subset(list(range(1, TRAIN_STEPS + 1))), **kw)
+        # the first batch packs and plans every sequence of the bucket;
+        # the later ones, and every later epoch, stack cached sequences
+        batch_s, batches = [], []
+        it = iter(loader)
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batches.append(next(it))
+            batch_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        batches.append(next(it))
-        batch_s.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    list(loader)
-    cached_epoch_s = time.perf_counter() - t0
-    log(f"[6c] hybrid N={N_HYB}, T={T_HYB}: the loader's batches "
-        f"(plan='hybrid') s {[round(x, 3) for x in batch_s]} (the first "
-        f"packs and plans all {TRAIN_STEPS} sequences), a cached epoch "
-        f"{cached_epoch_s:.3f} s; bucket pin {loader.plan_pins}")
+        list(loader)
+        cached_epoch_s = time.perf_counter() - t0
+        log(f"[6c] hybrid N={N_HYB}, T={T_HYB}: the loader's batches "
+            f"(plan='hybrid') s {[round(x, 3) for x in batch_s]} (the first "
+            f"packs and plans all {TRAIN_STEPS} sequences), a cached epoch "
+            f"{cached_epoch_s:.3f} s; bucket pin {loader.plan_pins}")
+    else:
+        warm, loader, batches, batch_s, cached_epoch_s = data
+        log(f"[{tag}] hybrid N={N_HYB}, T={T_HYB}, bf16_matmul=True: 6c's "
+            f"loaders and their planned batches (bucket pin "
+            f"{loader.plan_pins})")
     trainer = tt.TAGANTrainer(model, exp)
     trainer.train(warm, verbose=False)
     sync()
@@ -3230,16 +3462,14 @@ def phase_train_hybrid(tt, FG):
     launched = counts(FG)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
     want = {k.name: 0 for k in FG.KERNELS}
-    for kern in (FG.flash_geometric_fwd_compact_kernel,
-                 FG.flash_geometric_bwd_dq_compact_kernel,
-                 FG.flash_geometric_bwd_dkv_compact_kernel):
+    for kern in kerns:
         want[kern.name] = cfg.num_layers * TRAIN_STEPS
     losses = res["history"]["train_loss"]
     no_grad = check_grads(model)
     still = [n for n, p in model.named_parameters()
              if torch.equal(p.detach(), before[n])]
     moved = len(before) - len(still)
-    log(f"[6c] {TRAIN_STEPS} steps of TAGANTrainer.train in {epoch_ms:.3f} "
+    log(f"[{tag}] {TRAIN_STEPS} steps of TAGANTrainer.train in {epoch_ms:.3f} "
         f"ms; mean loss {losses}; peak device memory {peak_gb:.3f} GB above "
         f"the {held_gb:.3f} GB held before; launches {launched} (expected "
         f"{want}); {len(before) - len(no_grad)} of {len(before)} gradients "
@@ -3259,7 +3489,7 @@ def phase_train_hybrid(tt, FG):
     step_ms = step_times(trainer, batches)
     b, y, m = batches[0]
     splits = step_split(trainer, b, y, m)
-    log(f"[6c] step ms (host clock, synchronised) "
+    log(f"[{tag}] step ms (host clock, synchronised) "
         f"{[round(x, 3) for x in step_ms]}; split (CUDA events) forward / "
         f"backward / optimizer ms "
         f"{[[round(x, 3) for x in s] for s in splits]}")
@@ -3267,19 +3497,19 @@ def phase_train_hybrid(tt, FG):
     # one layer's compact launches over the batch's folded snapshots
     trainer.optimizer.zero_grad()
     q, k, v, store, plan, plan_t, rs, out, lse, do, dlse = \
-        hybrid_layer0_bwd(FG, model, b.to(DEV))
+        hybrid_layer0_bwd(FG, model, b.to(DEV), bf16)
     G, H = q.shape[:2]
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
     with torch.no_grad():
-        fold_fwd = cuda_ms(lambda: FG.flash_geometric_fwd_compact_kernel(
+        fold_fwd = cuda_ms(lambda: kerns[0](
             q, k, v, store, *plan, "euclidean", ones, seeds, 0.0), 3)
         fold_bwd = cuda_ms(lambda: FG._backward_compact(
             q, k, v, store, out, lse, do, plan, plan_t, "euclidean", ones,
-            0.0, seeds, False, dlse), 3)
+            0.0, seeds, False, dlse, bf16), 3)
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
-    log(f"[6c] one layer's launches over the {G} folded snapshots: B1c "
+    log(f"[{tag}] one layer's launches over the {G} folded snapshots: B1c "
         f"{fold_fwd:.3f} ms, B3a c+B3b c {fold_bwd:.3f} ms; {cfg.num_layers} "
         f"layers' B3a c+B3b c = {share:.3f} and with B1c "
         f"{cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the fastest "
@@ -3293,17 +3523,33 @@ def phase_train_hybrid(tt, FG):
     res1 = tuple(t[:1] for t in rs)
     del q, k, v, store, out, lse, do, dlse
     got = FG._backward_compact(*one, o1, l1, do1, plan1, plan_t1,
-                               "euclidean", ones, 0.0, seeds[:1], False, dl1)
-    want_g = FG.flash_geometric_backward_compact_plain(
-        *one, o1, l1, do1, *plan1, "euclidean", ones, 0.0, seeds[:1], False,
-        dl1)
+                               "euclidean", ones, 0.0, seeds[:1], False, dl1,
+                               bf16)
+    plain = (*one, o1, l1, do1, *plan1, "euclidean", ones, 0.0, seeds[:1],
+             False, dl1)
+    want_g = FG.flash_geometric_backward_compact_plain(*plain, bf16=bf16)
     sync()
-    full = compact_errors(check_backward(f"N={N_HYB}", got, want_g, False))
+    if bf16:
+        f32 = FG.flash_geometric_backward_compact_plain(*plain)
+        gates = [bf16_gates(f"N={N_HYB} {n}", g, w, f)
+                 for n, g, w, f in zip(("dq", "dk", "dv"), got, want_g, f32)]
+        full = {"B3a c": gates[0][0], "B3b c": max(gates[1], gates[2])[0]}
+        del f32
+        log(f"[{tag}] bf16 compact backward at N={N_HYB}, one snapshot, lse "
+            f"cotangent, vs the compact plain bf16 backward (bf16 gates): "
+            f"(max abs err, max err, mean err, witness) dq "
+            f"{tuple(f'{x:.3e}' for x in gates[0])}, dk "
+            f"{tuple(f'{x:.3e}' for x in gates[1])}, dv "
+            f"{tuple(f'{x:.3e}' for x in gates[2])}")
+    else:
+        full = compact_errors(check_backward(f"N={N_HYB}", got, want_g,
+                                             False))
+        log(f"[6c] compact backward at N={N_HYB}, one snapshot, lse "
+            f"cotangent, vs the compact plain backward: max abs err B3a c "
+            f"{full['B3a c']:.3e}, B3b c {full['B3b c']:.3e}")
     del got, want_g
-    log(f"[6c] compact backward at N={N_HYB}, one snapshot, lse cotangent, "
-        f"vs the compact plain backward: max abs err B3a c "
-        f"{full['B3a c']:.3e}, B3b c {full['B3b c']:.3e}")
-    return dict(batch_s=batch_s, cached_epoch_s=cached_epoch_s,
+    return dict(data=(warm, loader, batches, batch_s, cached_epoch_s),
+                batch_s=batch_s, cached_epoch_s=cached_epoch_s,
                 pins={str(k): v for k, v in loader.plan_pins.items()},
                 epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
                 loss=losses, launches=launched, peak_memory_gb=peak_gb,
@@ -3312,21 +3558,22 @@ def phase_train_hybrid(tt, FG):
                 args=(*one, plan1, plan_t1, res1, o1, l1, do1, dl1))
 
 
-def compact_bwd_bounds(FG, q, v, store, plan, plan_t, pairs):
+def compact_bwd_bounds(FG, q, v, store, plan, plan_t, pairs, rate=None):
     """B3a c's and B3b c's least time from these inputs: q, k, v, dO, lse
     and delta, the store, the walk, scale and seed read once, dq (or dk
     and dv) written once, against the products on the valid pairs at the
-    fp32 peak."""
+    fp32 peak (``rate``: `bound16` for the bf16 rate)."""
+    bound_of = rate or bound
     G, H, N, D = q.shape
     Dv = v.shape[-1]
     HN = G * H * N
     reads = (4 * HN * (2 * D + 2 * Dv) + 8 * HN + store.numel()
              * store.element_size() + 4 * (H + G))
     plan_b, plan_tb = (4 * sum(t.numel() for t in p) for p in (plan, plan_t))
-    return {"B3a c": bound(reads + plan_b + 4 * HN * D,
-                           2 * H * pairs * (2 * D + Dv)),
-            "B3b c": bound(reads + plan_tb + 4 * HN * (D + Dv),
-                           2 * H * pairs * (2 * D + 2 * Dv))}
+    return {"B3a c": bound_of(reads + plan_b + 4 * HN * D,
+                              2 * H * pairs * (2 * D + Dv)),
+            "B3b c": bound_of(reads + plan_tb + 4 * HN * (D + Dv),
+                              2 * H * pairs * (2 * D + 2 * Dv))}
 
 
 def phase_times_hybrid_bwd(FG, args):
@@ -3439,6 +3686,127 @@ def phase_times_hybrid_bwd(FG, args):
         log(f"[5e] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
             f"({r['bytes']} bytes, {r['flops']} flops over {pairs} valid "
             f"pairs on {walked} walked tiles per head)")
+    return res
+
+
+# -- phase 5i -----------------------------------------------------------------
+
+def phase_times_hybrid_bf16(FG, args):
+    """[5i] B1c, B3a c and B3b c in their bf16 forms at one 131K snapshot
+    of 6g, CUDA events, each beside its fp32 form in turns; the compact
+    plain bf16 versions; compiled ``flex_attention`` on bf16 q, k, v under
+    the compact plan's BlockMask at the scaled-dot metric as the library
+    yardstick (forward, and forward+backward minus forward), held against
+    the bf16 kernels at that metric (null with the reason where it does
+    not build or differs); the bounds: the fp32 forms' bytes (the inputs
+    stay fp32) and the valid pairs' operations at the bf16 tensor-core
+    rate."""
+    q, k, v, store, plan, plan_t, _, out, lse, do, dlse = args
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    ones = torch.ones(H, device=DEV)
+    seed0 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    sdp = "scaled_dot_product"
+    k32, k16 = compact_kernels(FG, False), compact_kernels(FG, True)
+    with torch.no_grad():
+        delta = ((do * out).sum(-1) - dlse).contiguous()
+        common = (q, k, v, store, do, lse, delta)
+        calls = {
+            "B1c": lambda kern: lambda: kern(q, k, v, store, *plan,
+                                             "euclidean", ones, seed0, 0.0),
+            "B3a c": lambda kern: lambda: kern(*common, *plan, "euclidean",
+                                               ones, seed0, 0.0, False),
+            "B3b c": lambda kern: lambda: kern(*common, *plan_t, "euclidean",
+                                               ones, seed0, 0.0)}
+        times = {}
+        for i, (name, make) in enumerate(calls.items()):
+            a32, a16 = cuda_ms(make(k32[i]), 10), cuda_ms(make(k16[i]), 10)
+            b16, b32 = cuda_ms(make(k16[i]), 10), cuda_ms(make(k32[i]), 10)
+            times[name] = ([a16, b16], [a32, b32])
+        plain_f = cuda_ms(lambda: FG.flash_geometric_forward_compact_plain(
+            q, k, v, store, *plan, "euclidean", ones, 0.0, seed0, True), 2)
+        plain_b = cuda_ms(lambda: FG.flash_geometric_backward_compact_plain(
+            q, k, v, store, out, lse, do, *plan, "euclidean", ones, 0.0,
+            seed0, False, dlse, True), 2)
+        out_s, lse_s = k16[0](q, k, v, store, *plan, sdp, ones, seed0, 0.0)
+        k1_sdp = cuda_ms(lambda: k16[0](q, k, v, store, *plan, sdp, ones,
+                                        seed0, 0.0), 10)
+        g_sdp = FG._backward_compact(q, k, v, store, out_s, lse_s, do, plan,
+                                     plan_t, sdp, ones, 0.0, seed0, False,
+                                     None, True)
+        pairs = int(FG.unpack_bits(store).sum().item())
+    bq, bk, bv = (t.bfloat16() for t in (q, k, v))
+    live = lse_s < 1e29
+    lib = {"B1c": None, "bwd": None, "error": None}
+    # 5d and 5e compiled flex_attention under other functions and dtypes:
+    # past dynamo's recompile limit it would run unfused
+    torch._dynamo.reset()
+    t0 = time.perf_counter()
+    try:                            # the yardstick only: never the port
+        bmask, flex, _ = flex_compact_setup(FG, bq, store, plan)
+        with torch.no_grad():
+            f_out, f_lse = flex(bq, bk, bv, block_mask=bmask,
+                                return_lse=True)
+            sync()
+            lib["B1c"] = cuda_ms(lambda: flex(bq, bk, bv, block_mask=bmask,
+                                              return_lse=True), 20)
+        leaves = [t.detach().clone().requires_grad_() for t in (bq, bk, bv)]
+        bdo = do.bfloat16()
+
+        def lib_fb():
+            o = flex(*leaves, block_mask=bmask)
+            return torch.autograd.grad(o, leaves, bdo)
+
+        def lib_f():
+            with torch.no_grad():
+                flex(*leaves, block_mask=bmask)
+        f_grads = lib_fb()
+        sync()
+        lib["bwd"] = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
+        flex_err = max([rel_err(f_lse.float()[live], lse_s[live]),
+                        rel_err(f_out.float()[live], out_s[live])]
+                       + [rel_err(f.float(), g)
+                          for f, g in zip(f_grads, g_sdp[:3])])
+        lib["err"] = flex_err
+        if not flex_err <= FLEX_BF16_TOL:
+            lib.update(B1c=None, bwd=None, error=(
+                f"flex_attention on bf16 inputs differs from the bf16 B1c / "
+                f"B3a c + B3b c at the scaled-dot metric: {flex_err} > "
+                f"{FLEX_BF16_TOL}"))
+        del f_grads, leaves
+    except Exception as e:
+        lib["error"] = f"{type(e).__name__}: {e}"[:300]
+    lib["setup_and_timing_s"] = time.perf_counter() - t0
+    qkv = 4 * G * H * N * (2 * D + Dv)
+    plan_b = 4 * sum(p.numel() for p in plan)
+    bounds = compact_bwd_bounds(FG, q, v, store, plan, plan_t, pairs,
+                                bound16)
+    bounds["B1c"] = bound16(qkv + store.numel() * store.element_size()
+                            + plan_b + 4 * H + 4 * G + 4 * G * H * N
+                            * (Dv + 1), 2 * H * pairs * (D + Dv))
+    res = {}
+    for name in calls:
+        fwd = name == "B1c"
+        res[name] = dict(ms=times[name][0], fp32_ms=times[name][1],
+                         plain_ms=plain_f if fwd else plain_b,
+                         library_ms=lib["B1c"] if fwd else lib["bwd"],
+                         **bounds[name])
+    res.update(library=lib, valid_pairs=pairs, b1c_sdp_ms=k1_sdp)
+    log(f"[5i] bf16 compact forms, one snapshot of N={N}: "
+        + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])} (fp32 "
+                    f"{' '.join(f'{x:.4f}' for x in t[1])})"
+                    for n, t in times.items())
+        + f"; compact plain bf16 ms forward {plain_f:.4f}, backward "
+        f"{plain_b:.4f}")
+    log(f"[5i] library: compiled flex_attention on bf16 q, k, v under the "
+        f"compact plan's BlockMask at the scaled-dot metric (forward, and "
+        f"forward+backward - forward): {lib} (bf16 B1c at that metric "
+        f"{k1_sdp:.4f} ms)")
+    for name in calls:
+        r = res[name]
+        log(f"[5i] {name} bf16 bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops over "
+            f"{pairs} valid pairs at the bf16 rate)")
     return res
 
 
@@ -4031,12 +4399,17 @@ def main() -> int:
     small_compact_biased_bwd = phase_small_compact_biased_bwd(FG)
     small_bf16 = phase_small_bf16(FG)
     small_biased_bf16 = phase_small_biased_bf16(FG)
+    small_compact_bf16 = phase_small_compact_bf16(FG)
     serve = phase_serve(tt, FG)
     serve_bf16 = phase_serve(tt, FG, bf16=True)
     serve_edge = phase_serve_edge(tt, FG)
     serve_edge_bf16 = phase_serve_edge(tt, FG, bf16=True)
     serve_hyb = phase_serve_hybrid(tt, FG, edge=False)
+    serve_hyb_bf16 = phase_serve_hybrid(tt, FG, edge=False, bf16=True,
+                                        reqs=serve_hyb.pop("reqs"))
+    del serve_hyb_bf16["reqs"], serve_hyb_bf16["args"]
     serve_hyb_edge = phase_serve_hybrid(tt, FG, edge=True)
+    del serve_hyb_edge["reqs"]
     mid = phase_mid(tt, FG)
     mid_edge = phase_mid_edge(tt, FG)
     mid_hyb = phase_mid_hybrid(tt, FG)
@@ -4064,7 +4437,12 @@ def main() -> int:
     train_mid_edge_bf16 = phase_train_mid_bf16(tt, FG, edge=True)
     train_hyb = phase_train_hybrid(tt, FG)
     times_hyb_bwd = phase_times_hybrid_bwd(FG, train_hyb.pop("args"))
+    train_hyb_bf16 = phase_train_hybrid(tt, FG, bf16=True,
+                                        data=train_hyb.pop("data"))
+    del train_hyb_bf16["data"]
+    times_hyb_bf16 = phase_times_hybrid_bf16(FG, train_hyb_bf16.pop("args"))
     train_mid_hyb = phase_train_mid_hybrid(tt, FG)
+    train_mid_hyb_bf16 = phase_train_mid_bf16(tt, FG, hybrid=True)
     train_hyb_edge = phase_train_hybrid_edge(tt, FG)
     times_hyb_edge_bwd = phase_times_hybrid_edge_bwd(
         FG, train_hyb_edge.pop("args"))
@@ -4244,9 +4622,41 @@ def main() -> int:
              "flash_biased_forward_plain with bf16=True (walks the plan)")
             + ("flash_biased_backward_plain with bf16=True (dq, dk, dv and "
                "dB)",) * 3)]
+    # the bf16 forms of B1c, B3a c and B3b c: launches on the hybrid bf16
+    # serving (3g) and training (6g) paths, times at one 131K snapshot of
+    # 6g (5i), each beside its fp32 form's in the same run
+    t16h = times_hyb_bf16
+    lib16h = t16h["library"]
+    kernels += [
+        dict(kernel_record(
+            FG, kern, source, line,
+            (serve_hyb_bf16 if name == "B1c" else
+             train_hyb_bf16)["launches"][kern.name],
+            max(small_compact_bf16[name], serve_hyb_bf16["full_err"]
+                if name == "B1c" else train_hyb_bf16["full_err"][name]),
+            min(t16h[name]["ms"]), t16h[name]["plain_ms"], plain_of,
+            t16h[name], t16h[name]["library_ms"]),
+             fp32_ms=min(t16h[name]["fp32_ms"]),
+             library_of=(
+                 ("compiled flex_attention on bf16 q, k, v, BlockMask from "
+                  "the compact plan, bit-store mask_mod, scaled-dot metric"
+                  + ("" if name == "B1c" else ", forward+backward - forward"))
+                 if lib16h["error"] is None else lib16h["error"]))
+        for name, kern, source, line, plain_of in zip(
+            ("B1c", "B3a c", "B3b c"), compact_kernels(FG, True),
+            ("flash_geometric_fwd.cu",)
+            + ("flash_geometric_bwd_compact_bf16.cu",) * 2,
+            (1315, 2009, 2074),
+            ("flash_geometric_forward_compact_plain with bf16=True (walks "
+             "the plan)",) + ("flash_geometric_backward_compact_plain with "
+                              "bf16=True (dq, dk and dv)",) * 2)]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
+        small_compact_bf16_err=small_compact_bf16,
+        serve_hybrid_bf16=serve_hyb_bf16, train_hybrid_bf16=train_hyb_bf16,
+        times_hybrid_bf16=times_hyb_bf16,
+        train_mid_hybrid_bf16=train_mid_hyb_bf16,
         small_biased_bf16_err=small_biased_bf16,
         serve_edge_bf16=serve_edge_bf16, times_biased_bf16=times_biased_bf16,
         train_edge_bf16=train_edge_bf16,

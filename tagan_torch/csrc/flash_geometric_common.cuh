@@ -1,6 +1,8 @@
 // Device helpers shared by the flash geometric attention kernels:
-// flash_geometric_fwd.cu (forward), flash_geometric_bwd.cu (two-walk
-// backward), flash_geometric_bwd_fused.cu (single-walk backward) and the
+// flash_geometric_fwd.cu (forward), flash_geometric_bwd.cuh (two-walk
+// backward, built by flash_geometric_bwd.cu and
+// flash_geometric_bwd_compact_bf16.cu), flash_geometric_bwd_fused.cu
+// (single-walk backward) and the
 // edge-biased flash_biased_fwd.cu and flash_biased_bwd.cu.
 //
 // The metric scores, the dropout hash and the backward's recompute of one

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel tagan_tpu/ops/pallas/flash_geometric.py::
 // _flash_kernel (host side _flash_forward), in its dense-mask form (B1),
-// B1's bf16 form (bf16=True) and its compact occupied-block form (B1c,
-// _flash_forward with a 3-tuple plan):
+// its compact occupied-block form (B1c, _flash_forward with a 3-tuple
+// plan) and the bf16 form (bf16=True) of each:
 // for each query row i and head h,
 //
 //     s_ij  = metric score from q_i.k_j and the row norms (8 metrics)
@@ -329,6 +329,21 @@ extern "C" int tagan_flash_geometric_fwd_compact(
     void* stream) {
   using namespace tagan_flash;
   return (packed ? launch<COMPACT_BITS> : launch<COMPACT_I8>)(
+      q, k, v, store, jlist, jcount, jslot, scale, seed, out, lse, G, H, N,
+      D, Dv, n_i, W, S, metric, sqrt_d, use_dropout, keep_thresh, inv_keep,
+      stream);
+}
+
+// B1c's bf16 form: the same arguments.
+extern "C" int tagan_flash_geometric_fwd_compact_bf16(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* jlist, const void* jcount, const void* jslot,
+    const void* scale, const void* seed, void* out, void* lse, int G, int H,
+    int N, int D, int Dv, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  using namespace tagan_flash;
+  return (packed ? launch<COMPACT_BITS, true> : launch<COMPACT_I8, true>)(
       q, k, v, store, jlist, jcount, jslot, scale, seed, out, lse, G, H, N,
       D, Dv, n_i, W, S, metric, sqrt_d, use_dropout, keep_thresh, inv_keep,
       stream);

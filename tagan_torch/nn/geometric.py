@@ -190,7 +190,7 @@ class GeometricAttention(nn.Module):
                      generator: Optional[torch.Generator] = None,
                      band_bias: Optional[torch.Tensor] = None,
                      res_bias: Optional[torch.Tensor] = None,
-                     plan_t=None) -> torch.Tensor:
+                     plan_t=None, bf16: bool = False) -> torch.Tensor:
         """Hybrid path (the JAX package's ``apply_hybrid``): the same
         layer with the BAND edges (self loops included) through the
         compact-store kernels and the long-range RESIDUAL edges through
@@ -206,12 +206,22 @@ class GeometricAttention(nn.Module):
         on both parts; inactive nodes keep their input. ``plan_t`` is the
         band's transposed walk (ilist, icount, islot), which the band's
         backward needs (B3a c + B3b c, or with the biases B6c, B7a c and
-        B7b c): without it a backward raises ValueError."""
+        B7b c): without it a backward raises ValueError. ``bf16`` takes
+        the band kernels' bf16 forms (B1c, B3a c, B3b c); the residual
+        and the merge hold no contraction and stay float32, and the
+        layer's other contractions follow
+        `core.module.default_matmul_precision`. The edge-biased band has
+        no bf16 form yet: ``band_bias`` with ``bf16`` raises
+        NotImplementedError."""
         metric = self.distance_metric
         if metric not in FG.MXU_METRICS and metric != "mahalanobis":
             raise NotImplementedError(
                 f"metric {metric} is not written through q.k; the hybrid "
                 "backend needs the flash kernels - use 'csr'")
+        if bf16 and band_bias is not None:
+            raise NotImplementedError(
+                "the edge-biased compact kernels (B4c, B5c, B6c, B7a c, "
+                "B7b c) have no bf16 form yet")
         sigma, gamma, _ = self._metric_params()
         scale = sigma if sigma is not None else gamma
         biased = band_bias is not None
@@ -236,7 +246,7 @@ class GeometricAttention(nn.Module):
                 scale, rate, seed, generator, plan_t)
         else:
             band = FG._flash_compact(q, k, v, store, plan, metric, scale,
-                                     rate, seed, plan_t)
+                                     rate, seed, plan_t, bf16)
             part = S.edge_attention_partial(
                 metric, q, k, v, *res, x.shape[-2], sigma=sigma, gamma=gamma,
                 dropout_rate=rate, generator=generator)

@@ -73,8 +73,11 @@ def check_in_slice(c: TAGANConfig) -> None:
         missing.append(f"compat_mode={c.compat_mode!r}")
     if c.temporal_attention_type != "asymmetric":
         missing.append(f"temporal_attention_type={c.temporal_attention_type!r}")
-    if c.bf16_matmul and c.spatial_backend == "hybrid":
-        missing.append("bf16_matmul with spatial_backend='hybrid'")
+    if c.bf16_matmul and c.spatial_backend == "hybrid" \
+            and c.use_edge_features and c.edge_feature_dim > 0:
+        missing.append("bf16_matmul with spatial_backend='hybrid' and edge "
+                       "features (the bf16 forms of B4c, B5c, B6c, B7a c, "
+                       "B7b c)")
     if missing:
         raise NotImplementedError(
             "not ported to tagan_torch yet: " + ", ".join(missing))
@@ -248,7 +251,8 @@ class TAGAN(nn.Module):
                     rb = hybrid_residual_bias(b, seq)
                 return layer.attn.apply_hybrid(
                     xx, seq.hyb_mask_blocks, seq.hyb_plan, seq.hyb_res,
-                    seq.node_mask, generator, bb, rb, seq.hyb_plan_t)
+                    seq.node_mask, generator, bb, rb, seq.hyb_plan_t,
+                    bf16=c.bf16_matmul)
         elif c.spatial_backend == "flash":
             mask, plan, plan_t = flash_structures(
                 seq.edge_src, seq.edge_dst, seq.edge_mask, seq.node_mask,

@@ -16,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -27,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # the compiler's output (ptxas register and spill report) of each library
-# built by this process
+# built by this process, and the seconds its nvcc ran
 build_logs: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc() -> str:
@@ -62,15 +65,24 @@ def build(names: Iterable[str]) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
     procs = {}
+    t0 = time.perf_counter()
+
+    def collect(n, proc):
+        build_logs[n] = proc.communicate()[0]
+        build_seconds[n] = time.perf_counter() - t0
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
+        proc = subprocess.Popen(
             [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        # one reader per process, so that each finish time is its own
+        reader = threading.Thread(target=collect, args=(n, proc))
+        reader.start()
+        procs[n] = (tmp, proc, reader)
     failed = []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[n] = log
+    for n, (tmp, proc, reader) in procs.items():
+        reader.join()
+        log = build_logs[n]
         if proc.returncode != 0:
             failed.append(f"{n}:\n{log}")
             continue

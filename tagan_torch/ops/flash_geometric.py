@@ -23,11 +23,14 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7a c  _biased_bwd_dq_kernel, compact   csrc/flash_biased_bwd.cu
     B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
 
-B1, B2, B3a, B3b, B4, B5, B6, B7a and B7b also have bf16 forms (the TPU
-kernels' ``bf16=True``: every product's operands rounded to bf16, float32
-sums), in the same sources under their own entry points and launch
-counts; the model takes them under ``bf16_matmul``. The compact forms
-have no bf16 form yet.
+B1, B2, B3a, B3b, B4, B5, B6, B7a, B7b, B1c, B3a c and B3b c also have
+bf16 forms (the TPU kernels' ``bf16=True``: every product's operands
+rounded to bf16, float32 sums), in the same sources under their own entry
+points and launch counts (B3a c's and B3b c's in
+csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
+csrc/flash_geometric_bwd.cuh); the model takes them under
+``bf16_matmul``. The edge-biased compact forms (B4c, B5c, B6c, B7a c,
+B7b c) have no bf16 form yet.
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
 dense path's double softmax, and B6, B7a and B7b its backward. The
@@ -486,17 +489,18 @@ def _gather_tiles(xt, jb):
     return xt[gi, :, jb].permute(0, 2, 1, 3, 4)
 
 
-def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale):
+def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale,
+                   bf16=False):
     """The compact walk of the plain versions, all row tiles at once
-    (`_walk_steps`): step w of row tile i reads the mask tile
-    store[g, jslot[g, i, w]]."""
+    (`_walk_steps`, q.k at bf16 with ``bf16``): step w of row tile i
+    reads the mask tile store[g, jslot[g, i, w]]."""
     packed = store_packed(store)
     gi = torch.arange(q.shape[0], device=q.device)[:, None]
 
     def tile_of(w, jb):
         tile = store[gi, jslot[..., w].long()]
         return unpack_bits(tile) if packed else tile != 0
-    return _walk_steps(q, k, tile_of, jlist, jcount, metric, scale)
+    return _walk_steps(q, k, tile_of, jlist, jcount, metric, scale, bf16)
 
 
 def _pair_tiles(x: torch.Tensor, n_i: int):
@@ -606,18 +610,22 @@ def flash_geometric_forward_compact_plain(
     jlist: torch.Tensor, jcount: torch.Tensor, jslot: torch.Tensor,
     metric: str, scale: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0, seed: Optional[torch.Tensor] = None,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What B1c computes: the forward over the compact store, an online
     softmax over the walk steps, every row tile at once. q, k [G, H, N,
     D], v [G, H, N, Dv], store and plan as in `check_compact_plan` with
     leading dim G, scale f32[H], seed i32[G] -> (out [G, H, N, Dv], lse
     [G, H, N]), zero and ``LSE_DEAD`` on rows with no valid key. The
-    dropout hash takes global coordinates, as B1's does."""
+    dropout hash takes global coordinates, as B1's does. ``bf16``: what
+    B1c's bf16 form computes, q.k and drop(p) v from bf16 operands, p
+    rounded relative to the running max after each step of the walk, in
+    jlist order (as the dense plain bf16 forward walks its plan)."""
     if scale is None:
         scale = torch.ones(q.shape[1], dtype=q.dtype, device=q.device)
     return _walk_forward(
-        _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale),
-        q, v, jlist, dropout_rate, seed)
+        _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale,
+                       bf16), q, v, jlist, dropout_rate, seed, bf16)
 
 
 def _walk_forward(steps, q, v, jlist, dropout_rate, seed, bf16=False):
@@ -1110,15 +1118,18 @@ def flash_geometric_backward_plain(
 
 
 def _compact_grads(steps, q, k, v, do, n_i, metric, scale, need_dscale,
-                   parts=("dq", "dkv")):
+                   parts=("dq", "dkv"), bf16=False):
     """The gradients of a compact walk, every row tile at once, from
-    ``steps``: per walk step (jb, ds, w, pd, s, sq), the key tiles
+    ``steps``: per walk step (jb, ds, w, pd, s, sq, qk), the key tiles
     [G, n_i] and, per pair [G, H, n_i, BM, BN], ds = dL/ds, its chain
     weight w, the dropped weight pd that multiplies dO into dv, the
-    scores and squared distances. dq accumulates per row tile; dk and dv
-    go back to their key tiles by index (`index_add_`), so the
-    transposed walk is not read. ``parts`` picks "dq" (with dscale) and
-    "dkv". Returns a dict."""
+    scores, squared distances and cross terms. dq accumulates per row
+    tile; dk and dv go back to their key tiles by index (`index_add_`),
+    so the transposed walk is not read. ``parts`` picks "dq" (with
+    dscale) and "dkv". ``bf16``: the chain's and dv's products take bf16
+    operands, the chain's being the quantity the TPU kernels round
+    (`_chain_operand`), as in `flash_geometric_backward_plain`; the sums
+    of w stay float32. Returns a dict."""
     G, H, N, D = q.shape
     Dv = v.shape[-1]
     qt, dot = _row_tiles(q, n_i), _row_tiles(do, n_i)
@@ -1138,17 +1149,22 @@ def _compact_grads(steps, q, k, v, do, n_i, metric, scale, need_dscale,
 
     def to_keys(x):                 # [G, H, n_i, BN, ...] -> [G * n_i, H, ...]
         return x.transpose(1, 2).reshape(G * n_i, H, *x.shape[3:])
-    for jb, ds, w, pd, s, sq in steps:
+    sc = scale.reshape(1, H, 1, 1, 1)
+    for jb, ds, w, pd, s, sq, qk in steps:
+        u, c = _chain_operand(metric, ds, s, sq, qk, sc, D) if bf16 \
+            else (w, 1.0)
         if "dq" in parts:
-            dq += w @ _gather_tiles(kt, jb)
+            dq += _mm(u, _gather_tiles(kt, jb), bf16) / c
             if sq_metric:
                 wrow += w.sum(-1)
             if need_dscale:
                 dsc += (ds * s * sq).sum((0, 2, 3, 4))
         if "dkv" in parts:
             idx = (gi * n_t + jb).reshape(-1)
-            dk.index_add_(0, idx, to_keys(w.transpose(-1, -2) @ qt))
-            dv.index_add_(0, idx, to_keys(pd.transpose(-1, -2) @ dot))
+            dk.index_add_(0, idx, to_keys(
+                _mm(u.transpose(-1, -2), qt, bf16) / c))
+            dv.index_add_(0, idx, to_keys(
+                _mm(pd.transpose(-1, -2), dot, bf16)))
             if sq_metric:
                 wcol.index_add_(0, idx, to_keys(w.sum(-2)))
     res = {}
@@ -1177,6 +1193,7 @@ def flash_geometric_backward_compact_plain(
     metric: str, scale: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0, seed: Optional[torch.Tensor] = None,
     need_dscale: bool = False, dlse: Optional[torch.Tensor] = None,
+    bf16: bool = False,
 ):
     """What B3a c and B3b c compute: `flash_geometric_backward_plain`
     over the compact store, walking the forward walk's occupied tiles
@@ -1185,7 +1202,9 @@ def flash_geometric_backward_compact_plain(
     with N^2 (`_compact_grads`: the transposed walk is not read). Shapes
     as in `flash_geometric_forward_compact_plain`; do like out, dlse (the
     cotangent of lse) like lse. Returns (dq, dk, dv, dscale f32[H] or
-    None)."""
+    None). ``bf16``: what their bf16 forms compute, the products rounded
+    as in `flash_geometric_backward_plain`'s (p is normalised by lse, so
+    no walk order enters)."""
     H, D = q.shape[1], q.shape[-1]
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
@@ -1200,16 +1219,17 @@ def flash_geometric_backward_compact_plain(
 
     def steps():
         for s, valid, jb, rows, cols, qk, sq in _compact_steps(
-                q, k, store, jlist, jcount, jslot, metric, scale):
+                q, k, store, jlist, jcount, jslot, metric, scale, bf16):
             keep = None
             if dropout_rate > 0.0:
                 keep = _tile_keep(seed, H, rows, cols) < thresh
             ds, w, pd = _pair_grads(
                 metric, s, sq, qk, valid, lse_t,
-                dot @ _gather_tiles(vt, jb).transpose(-1, -2), delta_t, keep,
-                inv_keep, sc, D)
-            yield jb, ds, w, pd, s, sq
-    r = _compact_grads(steps(), q, k, v, do, n_i, metric, scale, need_dscale)
+                _mm(dot, _gather_tiles(vt, jb).transpose(-1, -2), bf16),
+                delta_t, keep, inv_keep, sc, D)
+            yield jb, ds, w, pd, s, sq, qk
+    r = _compact_grads(steps(), q, k, v, do, n_i, metric, scale, need_dscale,
+                       bf16=bf16)
     return r["dq"], r["dk"], r["dv"], r["dscale"]
 
 
@@ -1297,7 +1317,7 @@ def _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
         for jb, w1, dw1, _, w2d, s, sq, qk in _biased_compact_steps(*args):
             ds = w1 * (dw1 - d1_t)
             yield jb, ds, _chain_weight(metric, ds, s, sq, qk, sc, D), w2d, \
-                s, sq
+                s, sq, qk
     return {**res, **_compact_grads(steps(), q, k, v, do, n_i, metric, scale,
                                     need_dscale, grads)}
 
@@ -1879,6 +1899,27 @@ class _FlashBwdDkvCompactKernel(_FlashBackwardCompactKernel):
         return dk, dv
 
 
+class _FlashForwardCompactBf16Kernel(_FlashForwardCompactKernel):
+    """B1c's bf16 form, ``tagan_flash_geometric_fwd_compact_bf16``: B1c
+    with bf16 dot operands."""
+    name = "flash_geometric_fwd_compact_bf16"
+    symbol = "tagan_flash_geometric_fwd_compact_bf16"
+
+
+class _FlashBwdDqCompactBf16Kernel(_FlashBwdDqCompactKernel):
+    """B3a c's bf16 form, ``tagan_flash_geometric_bwd_dq_compact_bf16``."""
+    name = "flash_geometric_bwd_dq_compact_bf16"
+    source = "flash_geometric_bwd_compact_bf16"
+    symbol = "tagan_flash_geometric_bwd_dq_compact_bf16"
+
+
+class _FlashBwdDkvCompactBf16Kernel(_FlashBwdDkvCompactKernel):
+    """B3b c's bf16 form, ``tagan_flash_geometric_bwd_dkv_compact_bf16``."""
+    name = "flash_geometric_bwd_dkv_compact_bf16"
+    source = "flash_geometric_bwd_compact_bf16"
+    symbol = "tagan_flash_geometric_bwd_dkv_compact_bf16"
+
+
 class _FlashBiasedBackwardKernel(_CudaKernel):
     """Shared checks of the biased backward kernels B6, B7a and B7b: q, k
     [G, H, N, D], v, do [G, H, N, Dv], bias [G, N, N], lse1, lse2, delta2
@@ -2130,6 +2171,9 @@ flash_biased_fwd_bf16_kernel = _FlashBiasedBf16Kernel()
 flash_biased_bwd_pre_bf16_kernel = _FlashBiasedBwdPreBf16Kernel()
 flash_biased_bwd_dq_bf16_kernel = _FlashBiasedBwdDqBf16Kernel()
 flash_biased_bwd_dkv_bf16_kernel = _FlashBiasedBwdDkvBf16Kernel()
+flash_geometric_fwd_compact_bf16_kernel = _FlashForwardCompactBf16Kernel()
+flash_geometric_bwd_dq_compact_bf16_kernel = _FlashBwdDqCompactBf16Kernel()
+flash_geometric_bwd_dkv_compact_bf16_kernel = _FlashBwdDkvCompactBf16Kernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
@@ -2147,7 +2191,10 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dkv_bf16_kernel,
            flash_lse1_bf16_kernel, flash_biased_fwd_bf16_kernel,
            flash_biased_bwd_pre_bf16_kernel, flash_biased_bwd_dq_bf16_kernel,
-           flash_biased_bwd_dkv_bf16_kernel)
+           flash_biased_bwd_dkv_bf16_kernel,
+           flash_geometric_fwd_compact_bf16_kernel,
+           flash_geometric_bwd_dq_compact_bf16_kernel,
+           flash_geometric_bwd_dkv_compact_bf16_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -2263,26 +2310,22 @@ def flash_geometric_attention_bwd(
     is deterministic.
 
     ``bf16`` takes the bf16 forms (B2, B3a and B3b with bf16 dot
-    operands; the plain version on the CPU).
+    operands, or B3a c and B3b c's; the plain version on the CPU).
 
     3-tuple plans (jlist, jcount, jslot) and (ilist, icount, islot) take
     the compact form: ``mask`` is then the occupied-block store
     (`store_packed`), the plans are checked (`check_compact_plan`), and
     CUDA tensors take B3a c then B3b c (which walks ``plan_t``; without
-    it the compact backward raises ValueError). The compact form has no
-    bf16 form yet: ``bf16`` raises NotImplementedError there."""
+    it the compact backward raises ValueError)."""
     N = q.shape[2]
     if plan is not None and len(plan) == 3:
-        if bf16:
-            raise NotImplementedError(
-                "the compact backward (B3a c, B3b c) has no bf16 form yet")
         check_compact_plan(*plan, mask, N)
         if plan_t is not None:
             check_compact_plan(*plan_t, mask, N)
         scale, seed = _defaults(q, scale, seed)
         dq, dk, dv, dscale = _backward_compact(
             q, k, v, mask, out, lse, do, plan, plan_t, metric, scale,
-            dropout_rate, seed, need_dscale, dlse)
+            dropout_rate, seed, need_dscale, dlse, bf16)
         return (dq, dk, dv, dscale) if need_dscale else (dq, dk, dv)
     if plan is None:
         plan, plan_t = make_block_plans_from_mask(mask)
@@ -2599,14 +2642,16 @@ def _flash_attention(q, k, v, mask, metric, scale_param, plan,
 # ---------------------------------------------------------------------------
 
 def _forward_compact(q, k, v, store, plan, metric, scale, dropout_rate,
-                     seed):
-    """(out, lse) of folded inputs over the compact store: B1c for CUDA
-    tensors, the plain version for CPU tensors; trusts the plan."""
+                     seed, bf16=False):
+    """(out, lse) of folded inputs over the compact store: B1c (its bf16
+    form with ``bf16``) for CUDA tensors, the plain version for CPU
+    tensors; trusts the plan."""
     if q.device.type == "cpu":
         return flash_geometric_forward_compact_plain(
-            q, k, v, store, *plan, metric, scale, dropout_rate, seed)
-    return flash_geometric_fwd_compact_kernel(q, k, v, store, *plan, metric,
-                                              scale, seed, dropout_rate)
+            q, k, v, store, *plan, metric, scale, dropout_rate, seed, bf16)
+    kern = flash_geometric_fwd_compact_bf16_kernel if bf16 \
+        else flash_geometric_fwd_compact_kernel
+    return kern(q, k, v, store, *plan, metric, scale, seed, dropout_rate)
 
 
 def _need_transposed(plan_t, kernel: str) -> None:
@@ -2620,41 +2665,47 @@ def _need_transposed(plan_t, kernel: str) -> None:
 
 
 def _backward_compact(q, k, v, store, out, lse, do, plan, plan_t, metric,
-                      scale, dropout_rate, seed, need_dscale, dlse):
+                      scale, dropout_rate, seed, need_dscale, dlse,
+                      bf16=False):
     """(dq, dk, dv, dscale or None) of folded inputs over the compact
-    store: B3a c then B3b c for CUDA tensors, the compact plain backward
-    for CPU tensors. Raises ValueError without the transposed walk
-    ``plan_t``, which B3b c walks."""
+    store: B3a c then B3b c (their bf16 forms with ``bf16``) for CUDA
+    tensors, the compact plain backward for CPU tensors. Raises
+    ValueError without the transposed walk ``plan_t``, which B3b c
+    walks."""
     _need_transposed(plan_t, "B3b c")
     if q.device.type == "cpu":
         return flash_geometric_backward_compact_plain(
             q, k, v, store, out, lse, do, *plan, metric, scale,
-            dropout_rate, seed, need_dscale, dlse)
+            dropout_rate, seed, need_dscale, dlse, bf16)
     delta = _delta(do, out, dlse).contiguous()
-    dq, dscale = flash_geometric_bwd_dq_compact_kernel(
-        q, k, v, store, do, lse, delta, *plan, metric, scale, seed,
-        dropout_rate, need_dscale)
-    dk, dv = flash_geometric_bwd_dkv_compact_kernel(
-        q, k, v, store, do, lse, delta, *plan_t, metric, scale, seed,
-        dropout_rate)
+    dq_kern, dkv_kern = (
+        (flash_geometric_bwd_dq_compact_bf16_kernel,
+         flash_geometric_bwd_dkv_compact_bf16_kernel) if bf16 else
+        (flash_geometric_bwd_dq_compact_kernel,
+         flash_geometric_bwd_dkv_compact_kernel))
+    dq, dscale = dq_kern(q, k, v, store, do, lse, delta, *plan, metric,
+                         scale, seed, dropout_rate, need_dscale)
+    dk, dv = dkv_kern(q, k, v, store, do, lse, delta, *plan_t, metric, scale,
+                      seed, dropout_rate)
     return dq, dk, dv, dscale
 
 
 class _FlashCompactAttention(torch.autograd.Function):
     """The differentiable compact forward of folded inputs (the TPU
     package's ``_flash_diff`` with 3-tuple plans): B1c forward, B3a c then
-    B3b c backward (the plain versions on the CPU). Returns (out, lse);
-    the cotangent of lse (the hybrid merge gives one) rides on delta.
-    dscale is formed only when the scale requires grad."""
+    B3b c backward (the plain versions on the CPU), in their bf16 forms
+    with ``bf16``. Returns (out, lse); the cotangent of lse (the hybrid
+    merge gives one) rides on delta. dscale is formed only when the scale
+    requires grad."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, store, jlist, jcount, jslot, ilist,
-                icount, islot, seed, metric, dropout_rate):
+                icount, islot, seed, metric, dropout_rate, bf16):
         out, lse = _forward_compact(q, k, v, store, (jlist, jcount, jslot),
-                                    metric, scale, dropout_rate, seed)
+                                    metric, scale, dropout_rate, seed, bf16)
         ctx.save_for_backward(q, k, v, scale, store, out, lse, jlist, jcount,
                               jslot, ilist, icount, islot, seed)
-        ctx.args = (metric, dropout_rate)
+        ctx.args = (metric, dropout_rate, bf16)
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -2662,7 +2713,7 @@ class _FlashCompactAttention(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         (q, k, v, scale, store, out, lse, jlist, jcount, jslot, ilist,
          icount, islot, seed) = ctx.saved_tensors
-        metric, dropout_rate = ctx.args
+        metric, dropout_rate, bf16 = ctx.args
         if dout is None:
             dout = torch.zeros_like(out)
         need_dscale = ctx.needs_input_grad[3] and metric in SCALED_METRICS
@@ -2671,10 +2722,10 @@ class _FlashCompactAttention(torch.autograd.Function):
             (jlist, jcount, jslot),
             None if ilist is None else (ilist, icount, islot), metric, scale,
             dropout_rate, seed, need_dscale,
-            None if dlse is None else dlse.contiguous())
+            None if dlse is None else dlse.contiguous(), bf16)
         if ctx.needs_input_grad[3] and dscale is None:
             dscale = torch.zeros_like(scale)
-        return (dq, dk, dv, dscale) + (None,) * 10
+        return (dq, dk, dv, dscale) + (None,) * 11
 
 
 def _lse1_compact(q, k, store, plan, metric, scale):
@@ -2741,15 +2792,17 @@ def flash_geometric_fwd_compact(q, k, v, store, jlist, jcount, jslot, *,
                                 metric: str,
                                 scale: Optional[torch.Tensor] = None,
                                 dropout_rate: float = 0.0,
-                                seed: Optional[torch.Tensor] = None):
+                                seed: Optional[torch.Tensor] = None,
+                                bf16: bool = False):
     """(out, lse) of the batched forward over a compact store: B1c, or
     its plain version for CPU tensors. Shapes as in
     `flash_geometric_forward_compact_plain`; the plan is checked by
-    `check_compact_plan`."""
+    `check_compact_plan`. ``bf16`` takes B1c's bf16 form, whose result
+    depends on the walk."""
     check_compact_plan(jlist, jcount, jslot, store, q.shape[2])
     scale, seed = _defaults(q, scale, seed)
     return _forward_compact(q, k, v, store, (jlist, jcount, jslot), metric,
-                            scale, dropout_rate, seed)
+                            scale, dropout_rate, seed, bf16)
 
 
 def flash_lse1_compact(q, k, store, jlist, jcount, jslot, *, metric: str,
@@ -2789,13 +2842,15 @@ def fold_compact(store, plan, G: int):
 
 
 def _flash_compact(q, k, v, store, plan, metric, scale_param,
-                   dropout_rate=0.0, dropout_seed=None, plan_t=None):
+                   dropout_rate=0.0, dropout_seed=None, plan_t=None,
+                   bf16=False):
     """(out, lse) of the differentiable compact attention with leading
     dims, the plans taken unchecked (the model's path): the cosine
     normalisation and the folding stay outside the autograd Function,
     where autograd pulls them back, as in `_flash_attention`. The
     backward needs the transposed walk ``plan_t`` (ilist, icount, islot)
-    and raises ValueError without it."""
+    and raises ValueError without it. ``bf16`` takes the kernels' bf16
+    forms, forward and backward."""
     if metric not in MXU_METRICS:
         raise NotImplementedError(
             f"metric {metric} is not written through q.k; use the dense path")
@@ -2815,7 +2870,7 @@ def _flash_compact(q, k, v, store, plan, metric, scale_param,
     out, lse = _FlashCompactAttention.apply(
         q.reshape(G, H, N, D).contiguous(), k.reshape(G, H, N, D).contiguous(),
         v.reshape(G, H, N, Dv).contiguous(), scale, st, *pl, *pl_t,
-        _fold_seed(dropout_seed, G, q.device), metric, dropout_rate)
+        _fold_seed(dropout_seed, G, q.device), metric, dropout_rate, bf16)
     return out.reshape(*lead, H, N, Dv), lse.reshape(*lead, H, N)
 
 
@@ -2824,6 +2879,7 @@ def flash_geometric_attention_lse(
     metric: str = "scaled_dot_product",
     scale_param: Optional[torch.Tensor] = None, plan=None, plan_t=None,
     dropout_rate: float = 0.0, dropout_seed: Optional[torch.Tensor] = None,
+    bf16: bool = False,
 ):
     """(out, lse) of the edge-masked attention (the TPU package's
     ``flash_geometric_attention_lse``), leading dims folded into one
@@ -2835,11 +2891,11 @@ def flash_geometric_attention_lse(
     ValueError. Both plans are checked (`check_compact_plan`); the
     cotangent of lse (the hybrid merge's) joins the backward through
     delta. Otherwise the dense `flash_geometric_attention` with
-    ``return_lse``."""
+    ``return_lse``. ``bf16`` takes the kernels' bf16 forms."""
     if plan is None or len(plan) != 3:
         return flash_geometric_attention(
             q, k, v, mask, metric, scale_param, plan, plan_t, dropout_rate,
-            dropout_seed, return_lse=True)
+            dropout_seed, return_lse=True, bf16=bf16)
     G = math.prod(q.shape[:-3])
     st, pl = fold_compact(mask, plan, G)
     check_compact_plan(*pl, st, q.shape[-2])
@@ -2847,4 +2903,4 @@ def flash_geometric_attention_lse(
         check_compact_plan(*fold_compact(mask, plan_t, G)[1], st,
                            q.shape[-2])
     return _flash_compact(q, k, v, mask, plan, metric, scale_param,
-                          dropout_rate, dropout_seed, plan_t)
+                          dropout_rate, dropout_seed, plan_t, bf16)

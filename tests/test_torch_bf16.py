@@ -241,21 +241,40 @@ def test_plain_bf16_matches_jax(metric, rate, D, attn_inputs, interpret):
 
 
 def test_bf16_refusals():
-    """The compact entries have no bf16 form: asking for it raises before
-    anything runs, at the compact backward and at the model's check of a
-    hybrid configuration with bf16_matmul. (The edge-biased entry has its
-    bf16 form: tests/test_torch_edge_bf16.py.)"""
-    q = torch.zeros(1, 1, 8, 4)
+    """What stays refused at bf16 raises before anything runs: the
+    model's check of an edge-feature hybrid configuration with
+    bf16_matmul, and ``apply_hybrid`` with a band bias and ``bf16`` (the
+    edge-biased compact kernels have no bf16 form). The compact backward
+    takes ``bf16`` now: it gives the plain compact bf16 backward's
+    result. (The edge-biased dense entry has its bf16 form:
+    tests/test_torch_edge_bf16.py.)"""
+    rng = np.random.default_rng(2)
+    q, k = (_t(rng.standard_normal((1, 1, 8, 4)).astype(np.float32))
+            for _ in range(2))
     mask = torch.ones(1, 8, 8, dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="bf16_matmul"):
-        pt.TAGAN(pt.TAGANConfig(**_cfg("hybrid")), device="cpu")
+        pt.TAGAN(pt.TAGANConfig(**dict(_cfg("hybrid"), use_edge_features=True,
+                                       edge_feature_dim=3)), device="cpu")
     store, plan = TFG.compact_from_mask(mask)
     plan_t = TFG.compact_transposed_plan(mask)
-    lse = torch.zeros(1, 1, 8)
+    res = (torch.zeros(1, 0, dtype=torch.int32),) * 2 \
+        + (torch.zeros(1, 0, dtype=torch.bool),)
     with pytest.raises(NotImplementedError, match="bf16"):
-        TFG.flash_geometric_attention_bwd(q, q, q, store, q, lse, q,
-                                          plan=plan, plan_t=plan_t,
-                                          bf16=True)
+        TGeo(4, 1, dropout=0.0).apply_hybrid(
+            torch.zeros(1, 8, 4), store, plan, res,
+            torch.ones(1, 8, dtype=torch.bool),
+            band_bias=torch.zeros(1, 1, 64, 64), res_bias=torch.zeros(1, 0),
+            plan_t=plan_t, bf16=True)
+    out, lse = TFG.flash_geometric_fwd_compact(q, k, k, store, *plan,
+                                               metric="dot_product",
+                                               bf16=True)
+    got = TFG.flash_geometric_attention_bwd(q, k, k, store, out, lse, q,
+                                            metric="dot_product", plan=plan,
+                                            plan_t=plan_t, bf16=True)
+    want = TFG.flash_geometric_backward_compact_plain(
+        q, k, k, store, out, lse, q, *plan, "dot_product", bf16=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def _check_grads(got, want, tol):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import tagan_torch as pt
+from tagan_torch.nn.geometric import GeometricAttention
 from tagan_torch.ops import flash_geometric as FG
 
 # fp32 on both sides, sums in another order (kernel: 64-key online
@@ -1301,21 +1302,191 @@ def test_bf16_trainer_step_on_gpu_matches_cpu(fused, cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_bf16_refused_before_launch(cuda):
-    """What has no bf16 form raises before any launch on CUDA tensors: the
-    compact backward, and the model's combination that would need it
-    (check_in_slice, on the card). The edge-biased entry has its bf16
+    """What has no bf16 form raises before any launch on CUDA tensors:
+    ``apply_hybrid`` with a band bias and ``bf16`` (the edge-biased
+    compact kernels), and the model's combination that would need them
+    (check_in_slice, on the card). The compact entries have their bf16
     forms (the tests below)."""
     q, k, v, mask = (t.to(cuda) for t in _inputs(1, 2, 70, 16, 16))
     before = {k_.name: k_.launches for k_ in FG.KERNELS}
     store, plan = FG.compact_from_mask(mask)
     plan_t = FG.compact_transposed_plan(mask)
-    lse = torch.zeros(1, 2, 70, device=cuda)
+    res = (torch.zeros(1, 0, dtype=torch.int32, device=cuda),) * 2 \
+        + (torch.zeros(1, 0, dtype=torch.bool, device=cuda),)
+    layer = GeometricAttention(32, 2, dropout=0.0).to(cuda)
     with pytest.raises(NotImplementedError, match="bf16"):
-        FG.flash_geometric_attention_bwd(q, k, v, store, v, lse, v,
-                                         plan=plan, plan_t=plan_t, bf16=True)
+        layer.apply_hybrid(torch.zeros(1, 70, 32, device=cuda), store, plan,
+                           res, torch.ones(1, 70, dtype=torch.bool,
+                                           device=cuda),
+                           band_bias=torch.zeros(1, store.shape[1], 64, 64,
+                                                 device=cuda),
+                           res_bias=torch.zeros(1, 0, device=cuda),
+                           plan_t=plan_t, bf16=True)
     assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
     with pytest.raises(NotImplementedError, match="bf16_matmul"):
-        pt.TAGAN(_bf16_model_cfg(spatial_backend="hybrid"), device=cuda)
+        pt.TAGAN(_bf16_model_cfg(spatial_backend="hybrid",
+                                 use_edge_features=True, edge_feature_dim=4),
+                 device=cuda)
+
+
+# -- the compact bf16 forms (B1c, B3a c, B3b c) --------------------------------
+
+COMPACT_BF16 = (FG.flash_geometric_fwd_compact_bf16_kernel,
+                FG.flash_geometric_bwd_dq_compact_bf16_kernel,
+                FG.flash_geometric_bwd_dkv_compact_bf16_kernel)
+
+
+def _compact_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack, seed=0):
+    """B1c, B3a c and B3b c in their bf16 forms through the public entries
+    (``flash_geometric_fwd_compact``, ``flash_geometric_attention_bwd``
+    with 3-tuple plans and bf16=True) on the dense bf16 forms' inputs
+    (`_bwd_inputs`) in a compact store, against the compact plain bf16
+    versions under the bf16 gates, the plain fp32 versions the witness:
+    out and lse (dead rows exactly), dq, dk, dv (dq zero on dead rows,
+    dk and dv zero on the key tile with icount = 0) and dscale; each
+    compact bf16 entry launched once and nothing else."""
+    q, k, v, mask, do, dlse = (t.to(cuda) for t in _bwd_inputs(
+        G, H, N, D, Dv, seed))
+    if metric in FG._COSINE:
+        q, k = FG._l2_normalize(q), FG._l2_normalize(k)
+    scale = torch.linspace(0.7, 2.0, H, device=cuda)
+    seed1 = torch.tensor([-7, 12345][:G], dtype=torch.int32, device=cuda)
+    store, plan = FG.compact_from_mask(mask, pack=pack)
+    plan_t = FG.compact_transposed_plan(mask)
+    need = metric in FG.SCALED_METRICS
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    out, lse = FG.flash_geometric_fwd_compact(
+        q, k, v, store, *plan, metric=metric, scale=scale, seed=seed1,
+        dropout_rate=rate, bf16=True)
+    fwd = (q, k, v, store, *plan, metric, scale, rate, seed1)
+    p_out, p_lse = FG.flash_geometric_forward_compact_plain(*fwd, bf16=True)
+    f_out, _ = FG.flash_geometric_forward_compact_plain(*fwd)
+    torch.cuda.synchronize()
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    assert torch.all(out[dead] == 0) and torch.all(lse[dead] == FG.LSE_DEAD)
+    _bf16_gates(out[~dead], p_out[~dead], f_out[~dead])
+    _bf16_gates(lse[~dead], p_lse[~dead], p_lse[~dead], witness=False)
+    args = (q, k, v, store, p_out, p_lse, do)
+    got = FG.flash_geometric_attention_bwd(
+        *args, metric=metric, scale=scale, plan=plan, plan_t=plan_t,
+        seed=seed1, dropout_rate=rate, need_dscale=need, dlse=dlse,
+        bf16=True)
+    torch.cuda.synchronize()
+    rest = (*plan, metric, scale, rate, seed1, need, dlse)
+    want = FG.flash_geometric_backward_compact_plain(*args, *rest, bf16=True)
+    f32 = FG.flash_geometric_backward_compact_plain(*args, *rest)
+    for i, (g, w, f) in enumerate(zip(got, want, f32)):
+        _bf16_gates(g, w, f, witness=i < 3, mean=i < 3)
+    assert torch.all(got[0][dead] == 0)
+    assert torch.all(got[1][0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+    assert torch.all(got[2][0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect.update({k_.name: 1 for k_ in COMPACT_BF16})
+    assert launched == expect
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_bf16_kernels_match_plain(metric, rate, pack, cuda):
+    """B1c, B3a c and B3b c's bf16 forms, bit and int8 stores: N=150 (not
+    a tile multiple), D != Dv, dead rows, a row tile with jcount = 0 and
+    a key tile with icount = 0, per-head scales with their gradient (the
+    max gate alone), dropout, an lse cotangent."""
+    _compact_bf16_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_compact_bf16_kernel_head_dims(D, Dv, pack, cuda):
+    """Head dims whose sqrt is not a power of two, D != Dv, and the
+    widest, (128, 128), where the compact backward's tile-row words sit
+    past the dense tiles in shared memory."""
+    _compact_bf16_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel", 0.1,
+                           pack, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_compact_bf16_bad_jslot_raises_before_launch(kernel, cuda):
+    """A jslot (islot) past the store raises ValueError on the host at
+    each compact bf16 entry, and no kernel is launched."""
+    q, k, v, mask, store, plan, plan_t, scale, seed1, do, dlse = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_bwd_inputs(1, 2, 150, 16, 16, "dot_product", True))
+    jl, jc, js = (p.clone() for p in plan)
+    il, ic, isl = (p.clone() for p in plan_t)
+    js[0, 0, 0] = isl[0, 0, 0] = store.shape[1]
+    lse = torch.zeros(1, 2, 150, device=cuda)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    with pytest.raises(ValueError, match="jslot"):
+        if kernel == "fwd":
+            FG.flash_geometric_fwd_compact(q, k, v, store, jl, jc, js,
+                                           metric="dot_product", bf16=True)
+        elif kernel == "dq":
+            FG.flash_geometric_bwd_dq_compact_bf16_kernel(
+                q, k, v, store, do, lse, lse, jl, jc, js, "dot_product",
+                scale, seed1, 0.0, False)
+        else:
+            FG.flash_geometric_bwd_dkv_compact_bf16_kernel(
+                q, k, v, store, do, lse, lse, il, ic, isl, "dot_product",
+                scale, seed1, 0.0)
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
+
+
+@pytest.mark.gpu
+def test_hybrid_bf16_trainer_step_on_gpu_matches_cpu(cuda):
+    """One TAGANTrainer step of the 100-node hybrid model with
+    bf16_matmul=True over a ``plan="hybrid"`` loader, card against CPU:
+    the bf16 forms of B1c, B3a c and B3b c launched once per layer,
+    nothing else. With the plain contractions pinned to fp32 the card's
+    kernels alone differ from the CPU's plain versions: the loss and
+    each gradient within the max gate (2e-3); with every contraction at
+    bf16 within bf16-class tolerances (the loss 2e-2, each gradient 1e-1
+    of its largest entry), as in the flash model's test above."""
+    from tagan_torch.core.module import default_matmul_precision
+    seqs = _hybrid_seqs(np.random.default_rng(5), 100, 800, 3, 2, 0)
+    cfg = _bf16_model_cfg(spatial_backend="hybrid",
+                          distance_metric="gaussian_kernel",
+                          learnable_distance=True)
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        pt.TemporalGraphDataset(seqs, [1.0, 0.0]), batch_size=2,
+        dense_adj=False, plan="hybrid")))
+    want = {k_.name: 0 for k_ in FG.KERNELS}
+    want.update({k_.name: cfg.num_layers for k_ in COMPACT_BF16})
+    for contractions, loss_tol, grad_tol in (("highest", BF16_MAX_TOL,
+                                              BF16_MAX_TOL),
+                                             (None, 2e-2, 1e-1)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            model = pt.TAGAN(cfg, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+            if contractions is not None:
+                model.precision = \
+                    lambda: default_matmul_precision(contractions)
+            tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
+            before = {k_.name: k_.launches for k_ in FG.KERNELS}
+            loss, _ = tr._loss(batch, labels, smask, True)
+            loss.backward()
+            launched = {k_.name: k_.launches - before[k_.name]
+                        for k_ in FG.KERNELS}
+            got[dev] = (loss.item(), {n_: p.grad.detach().cpu().clone()
+                                      for n_, p in model.named_parameters()})
+            if dev == "cuda":
+                assert launched == want
+        assert abs(got["cuda"][0] - got["cpu"][0]) <= loss_tol
+        for name, g in got["cpu"][1].items():
+            if name in ("temporal_attention.k.b",
+                        "temporal_attention.time_encoding.basis_proj.b",
+                        "temporal_attention.time_q_proj.b"):
+                continue    # zero in exact arithmetic: fp32 noise
+            card = got["cuda"][1][name]
+            assert torch.isfinite(card).all(), name
+            assert (card - g).abs().max() <= grad_tol * g.abs().max(), name
 
 
 # -- the edge-biased bf16 forms (B4, B5, B6, B7a, B7b) --------------------------

@@ -177,9 +177,10 @@ def test_predictor_matches_jax(backend, interpret):
 def test_outside_the_slice_raises(override):
     """What the port does not run raises NotImplementedError at
     construction: bf16_matmul runs on the dense, csr and flash backends,
-    with and without edge features, but not on the hybrid backend (the
-    compact-store kernels have no bf16 form). The hybrid backend trains
-    in fp32, with and without edge features: a backward on a plan
+    with and without edge features, and on the hybrid backend without
+    them, but not on the hybrid backend with edge features (the
+    edge-biased compact kernels have no bf16 form). The hybrid backend
+    trains in fp32, with and without edge features: a backward on a plan
     without the transposed walk raises ValueError for both models, and
     with it the edge-feature model's gradients are finite."""
     if override.get("spatial_backend") == "hybrid" \
@@ -214,13 +215,28 @@ def test_outside_the_slice_raises(override):
 
 
 def test_bf16_hybrid_raises():
-    """bf16_matmul on the hybrid backend raises NotImplementedError at
-    construction: the compact-store kernels have no bf16 form."""
-    for edge in ({}, {"use_edge_features": True, "edge_feature_dim": 3}):
-        with pytest.raises(NotImplementedError, match="hybrid"):
-            pt.TAGAN(pt.TAGANConfig(**_config(
-                spatial_backend="hybrid", bf16_matmul=True, **edge)),
-                device="cpu")
+    """bf16_matmul on the hybrid backend with edge features raises
+    NotImplementedError at construction, naming the edge-biased compact
+    kernels that have no bf16 form; without edge features the hybrid
+    bf16 model builds, runs and trains on the CPU (its values are held
+    against JAX's in `test_torch_hybrid_bf16.py`)."""
+    with pytest.raises(NotImplementedError, match="hybrid.*B4c"):
+        pt.TAGAN(pt.TAGANConfig(**_config(
+            spatial_backend="hybrid", bf16_matmul=True,
+            use_edge_features=True, edge_feature_dim=3)), device="cpu")
+    rng = np.random.default_rng(0)
+    snaps = [{"x": rng.standard_normal((12, 8)).astype(np.float32),
+              "edge_index": rng.integers(0, 12, (2, 30)),
+              "node_ids": np.arange(12), "timestep": float(t)}
+             for t in range(2)]
+    seq = pt.build_sequence(snaps, dense_adj=False).with_hybrid_plan(
+        transposed=True)
+    model = pt.TAGAN(pt.TAGANConfig(**_config(
+        spatial_backend="hybrid", bf16_matmul=True)), device="cpu")
+    loss = model(seq, torch.tensor(1.0)).loss
+    loss.backward()
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
 
 
 def test_edge_dim_without_edge_features_matches_jax(churn_batch):

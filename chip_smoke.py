@@ -43,7 +43,13 @@ Phases, in order; any failure raises and exits non-zero:
    and B3b c against the compact plain bf16 versions on 2f's grid, both
    stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
    under the same gates (dead rows and the empty key strip exactly 0),
-   and a jslot past the store raising before any launch;
+   and a jslot past the store raising before any launch; (2k) the bf16
+   forms of B4c, B5c, B6c, B7a c and B7b c against the compact plain
+   bf16 versions on 2g's grid and union-like statistics, both stores,
+   (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), under
+   the same gates (dB at the store's pairs and exactly 0 elsewhere, dead
+   rows and the empty key strip exactly 0), and a jslot past the store
+   raising before any launch at the five entries;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -81,7 +87,12 @@ Phases, in order; any failure raises and exits non-zero:
    the forward, the peak memory, the fp32 hybrid model's logits beside
    the bf16 model's on the same weights and request, and the first
    layer's bf16 B1c on one 131K snapshot against the plain bf16 version
-   under the bf16 gates;
+   under the bf16 gates; (3h) phase 3d with ``bf16_matmul=True`` on 3d's
+   requests (the bf16 forms of B4c and B5c once per layer per request,
+   nothing else): host packing and planning, the forward, the peak
+   memory, the fp32 edge-feature hybrid model's logits beside the bf16
+   model's, and the first layer's bf16 B4c and B5c on one 131K snapshot
+   against the plain bf16 versions under the bf16 gates;
 4. end to end at 1,000 nodes: the same Predictor's probabilities on the
    card (kernels) and on the CPU (plain versions), and the per-node
    features after the attention layers (``encode_spatial``); (4b) the
@@ -146,6 +157,15 @@ Phases, in order; any failure raises and exits non-zero:
    forward+backward minus forward; held against the bf16 kernels at that
    metric, null with the reason if it does not build or differs), and
    their bounds (the fp32 forms' bytes, operations at the bf16 rate);
+   (5j) the bf16 forms of B4c, B5c, B6c, B7a c and B7b c at one 131K
+   snapshot of 6h (union statistics), each beside its fp32 form in
+   turns, the compact plain bf16 versions, compiled ``flex_attention`` on
+   bf16 q, k, v under the compact plan's BlockMask at the scaled-dot
+   metric as the library yardstick (B4c's and B5c's functions, and the
+   two calls' forward+backward minus forward; held against the bf16
+   kernels at that metric, null with the reason if it does not build or
+   differs), and their bounds (the fp32 forms' bytes, operations at the
+   bf16 rate);
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step, then 3 steps with the picker's
    default backward and 3 with the other form, launch counts set to 0
@@ -191,7 +211,14 @@ Phases, in order; any failure raises and exits non-zero:
    never), step times, split, peak memory, one layer's bf16 B3a c + B3b c
    over the folded snapshots and their share of the step, finite non-zero
    gradients, every parameter moved, and one snapshot at full width
-   against the compact plain bf16 backward under the bf16 gates;
+   against the compact plain bf16 backward under the bf16 gates; (6h)
+   phase 6d with ``bf16_matmul=True`` over 6d's loaders and planned
+   batches (the bf16 forms of B4c, B5c, B6c, B7a c and B7b c each exactly
+   once per layer per step, the fp32 forms never): step times, split,
+   peak memory, one layer's bf16 B6c + B7a c + B7b c over the folded
+   snapshots and their share of the step, the edge parameters'
+   gradients non-zero, every parameter moved, and one snapshot at full
+   width against the compact plain bf16 parts under the bf16 gates;
 7. training at 1,000 nodes on the card and on the CPU from the same
    weights and batches: the first step's gradients and the losses and
    parameters of 3 AdamW steps; (7b) the same for the edge-feature
@@ -205,7 +232,9 @@ Phases, in order; any failure raises and exits non-zero:
    the model runs, every contraction at bf16, at bf16-class tolerances;
    (7f) the same for the edge-feature model on 7b's graphs (the bf16
    forms of B4-B7b); (7g) the same for the hybrid model on 7c's graphs at
-   4,096 nodes (the bf16 forms of B1c, B3a c and B3b c).
+   4,096 nodes (the bf16 forms of B1c, B3a c and B3b c), the CPU's own
+   flip noise measured beside it; (7h) the same for the edge-feature
+   hybrid model on 7d's graphs (the bf16 forms of B4c-B7b c).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -405,6 +434,21 @@ def compact_kernels(FG, bf16):
     return (FG.flash_geometric_fwd_compact_kernel,
             FG.flash_geometric_bwd_dq_compact_kernel,
             FG.flash_geometric_bwd_dkv_compact_kernel)
+
+
+def compact_biased_kernels(FG, bf16):
+    """The wrappers of B4c, B5c, B6c, B7a c and B7b c: the fp32 or the
+    bf16 forms."""
+    if bf16:
+        return (FG.flash_lse1_compact_bf16_kernel,
+                FG.flash_biased_fwd_compact_bf16_kernel,
+                FG.flash_biased_bwd_pre_compact_bf16_kernel,
+                FG.flash_biased_bwd_dq_compact_bf16_kernel,
+                FG.flash_biased_bwd_dkv_compact_bf16_kernel)
+    return (FG.flash_lse1_compact_kernel, FG.flash_biased_fwd_compact_kernel,
+            FG.flash_biased_bwd_pre_compact_kernel,
+            FG.flash_biased_bwd_dq_compact_kernel,
+            FG.flash_biased_bwd_dkv_compact_kernel)
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -2397,17 +2441,27 @@ def phase_train_mid_bf16(tt, FG, edge=False, hybrid=False):
     With ``edge`` [7f]: the edge-feature model on 7b's graphs, the bf16
     forms of B4-B7b. With ``hybrid`` [7g]: the hybrid model at N_MID_HYB
     nodes on 7c's graphs over ``plan="hybrid"`` loaders, the bf16 forms
-    of B1c, B3a c and B3b c."""
-    tag = "7f" if edge else "7g" if hybrid else "7e"
+    of B1c, B3a c and B3b c. With both [7h]: the edge-feature hybrid
+    model on 7d's graphs, the bf16 forms of B4c, B5c, B6c, B7a c and
+    B7b c, under 7e's witness and 7f's mean gate (the edge parameters'
+    gradients, as in 7f); the CPU's own flip noise is measured and logged
+    beside the card's error, as in 7g. Unlike 7g's model, whose band
+    alone runs at bf16 and stands close to its fp32 form, the edge bias
+    moves this model's bf16 gradients far from the fp32 model's, so 7e's
+    10x witness holds."""
+    tag = ("7h" if edge else "7g") if hybrid else ("7f" if edge else "7e")
     plan, nodes = ("hybrid", N_MID_HYB) if hybrid else (None, N_MID)
     noise = None
     if hybrid:
-        seqs = [hybrid_snaps(N_MID_HYB, DEG_HYB, T_HYB, 70 + s)
+        seqs = [hybrid_snaps(N_MID_HYB, DEG_HYB, T_HYB,
+                             (80 if edge else 70) + s,
+                             edge_dim=F_EDGE if edge else 0)
                 for s in range(3)]
         ds = tt.TemporalGraphDataset(seqs, [1.0, 0.0, 1.0])
-        cfg16 = hybrid_config(tt, bf16=True)
-        f32 = train_steps(tt, FG, hybrid_config(tt), DEV, ds, plan)
-        want = {kern.name: 3 * 2 for kern in compact_kernels(FG, True)}
+        cfg16 = hybrid_config(tt, edge, bf16=True)
+        f32 = train_steps(tt, FG, hybrid_config(tt, edge), DEV, ds, plan)
+        want = {kern.name: 3 * 2 for kern in (
+            compact_biased_kernels if edge else compact_kernels)(FG, True)}
         # the model's own sensitivity to flipped roundings: the CPU's
         # kernels-alone gradients on node features changed by 1e-7 of
         # themselves, against the same on the features as they are
@@ -2471,7 +2525,8 @@ def phase_train_mid_bf16(tt, FG, edge=False, hybrid=False):
         # of more than one entry: a one-entry tensor's mean error is its
         # max error, which the max gate holds
         mean_tol = BF16_EDGE_MEAN_TOL if edge else BF16_MODEL_MEAN_TOL
-        witness = BF16_HYB_WITNESS if hybrid else BF16_MODEL_WITNESS
+        witness = BF16_HYB_WITNESS if hybrid and not edge \
+            else BF16_MODEL_WITNESS
         wit_mean = max(g[1] for g in grads.values()
                        if g[3] > 1 or not edge)
         if part == "a" and not (
@@ -2876,18 +2931,23 @@ def phase_serve_hybrid(tt, FG, edge, bf16=False, reqs=None):
     requests ``reqs`` (B1c's bf16 form once per layer per request,
     nothing else), held to the plain bf16 version under the bf16 gates,
     and the fp32 model's logits on the same request and weights beside
-    the bf16 model's. The requests are returned under "reqs"."""
+    the bf16 model's. With ``edge`` and ``bf16`` [3h]: the edge-feature
+    model with bf16_matmul=True on 3d's requests (the bf16 forms of B4c
+    and B5c once per layer per request, nothing else), held to their
+    plain bf16 versions under the bf16 gates, the fp32 edge model's
+    logits beside. The requests are returned under "reqs"."""
     from tagan_torch.core.graph import attach_hybrid_plans
     from tagan_torch.ops.hybrid_biased import lse_union, residual_lse1
-    label = "3d" if edge else "3g" if bf16 else "3c"
+    label = ("3h" if bf16 else "3d") if edge else ("3g" if bf16 else "3c")
     cfg = hybrid_config(tt, edge, bf16=bf16)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
     if reqs is None:
         reqs, dims = hybrid_requests(edge, 300 if edge else 100)
     else:
-        dims = (T_HYB, N_HYB, N_HYB * DEG_HYB, 0)
+        dims = (T_HYB, N_HYB, N_HYB * DEG_HYB, F_EDGE if edge else 0)
     b1c = compact_kernels(FG, bf16)[0]
+    b4c, b5c = compact_biased_kernels(FG, bf16)[:2]
     pred = tt.Predictor(model, dims=dims, batch_size=SEQS_PER_REQUEST)
     pred.warmup()
     sync()
@@ -2902,8 +2962,7 @@ def phase_serve_hybrid(tt, FG, edge, bf16=False, reqs=None):
     launched = counts(FG)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
     expected = {k.name: 0 for k in FG.KERNELS}
-    for kern in ((FG.flash_lse1_compact_kernel,
-                  FG.flash_biased_fwd_compact_kernel) if edge else (b1c,)):
+    for kern in ((b4c, b5c) if edge else (b1c,)):
         expected[kern.name] = cfg.num_layers * REQUESTS
     probs = np.concatenate(probs)
     finite = bool(np.isfinite(probs).all())
@@ -2940,7 +2999,7 @@ def phase_serve_hybrid(tt, FG, edge, bf16=False, reqs=None):
         fwd_ms = (time.perf_counter() - t0) * 1e3
     gap = None
     if bf16:
-        f32 = tt.TAGAN(hybrid_config(tt), device=DEV,
+        f32 = tt.TAGAN(hybrid_config(tt, edge), device=DEV,
                        generator=torch.Generator().manual_seed(0))
         with torch.inference_mode():
             logits32 = f32(batch).logits
@@ -3007,36 +3066,53 @@ def phase_serve_hybrid(tt, FG, edge, bf16=False, reqs=None):
             res["bias_store_build_ms"] = cuda_ms(lambda: hybrid_bias_store(
                 eb(emb)[..., 0], batch), 3)
             del emb
-            lse1_b = FG.flash_lse1_compact_kernel(q, k, store, *plan,
-                                                  "euclidean", ones)
+            lse1_b = b4c(q, k, store, *plan, "euclidean", ones)
             lse1_u = lse_union(lse1_b, residual_lse1(
                 "euclidean", q, k, *rs, N_HYB, ones)).contiguous()
             res["b4c_layer_ms"] = cuda_ms(
-                lambda: FG.flash_lse1_compact_kernel(q, k, store, *plan,
-                                                     "euclidean", ones), 3)
+                lambda: b4c(q, k, store, *plan, "euclidean", ones), 3)
             res["b5c_layer_ms"] = cuda_ms(
-                lambda: FG.flash_biased_fwd_compact_kernel(
-                    q, k, v, store, bst, lse1_u, *plan, "euclidean", ones,
-                    seeds, 0.0), 3)
+                lambda: b5c(q, k, v, store, bst, lse1_u, *plan, "euclidean",
+                            ones, seeds, 0.0), 3)
             one = (q[:1], k[:1], v[:1], store[:1], tuple(p[:1] for p in plan),
                    tuple(t[:1] for t in rs))
             bst1, l1u = bst[:1].clone(), lse1_u[:1].contiguous()
             del bst, lse1_u
-            l1 = FG.flash_lse1_compact_kernel(*one[:2], one[3], *one[4],
-                                              "euclidean", ones)
-            p_l1 = FG.flash_lse1_compact_plain(*one[:2], one[3], *one[4],
-                                               "euclidean", ones)
-            out, l2 = FG.flash_biased_fwd_compact_kernel(
-                *one[:4], bst1, l1u, *one[4], "euclidean", ones, seeds[:1],
-                0.0)
-            p_out, p_l2 = FG.flash_biased_forward_compact_plain(
-                *one[:4], bst1, l1u, *one[4], "euclidean", ones, 0.0,
-                seeds[:1])
+            l1 = b4c(*one[:2], one[3], *one[4], "euclidean", ones)
+            out, l2 = b5c(*one[:4], bst1, l1u, *one[4], "euclidean", ones,
+                          seeds[:1], 0.0)
+            fwd = {}
+            for b16 in ((True, False) if bf16 else (False,)):
+                fwd[b16] = (FG.flash_lse1_compact_plain(
+                    *one[:2], one[3], *one[4], "euclidean", ones, b16),
+                    *FG.flash_biased_forward_compact_plain(
+                        *one[:4], bst1, l1u, *one[4], "euclidean", ones, 0.0,
+                        seeds[:1], b16))
+            p_l1, p_out, p_l2 = fwd[bf16]
             sync()
             live = l1 < 1e29
-            res["full_err"] = max((l1 - p_l1)[live].abs().max().item(),
-                                  (out - p_out).abs().max().item(),
-                                  (l2 - p_l2)[live].abs().max().item())
+            name = "B4c and B5c bf16" if bf16 else "B4c and B5c"
+            if bf16:
+                f_l1, f_out, f_l2 = fwd[False]
+                if not (torch.all(l1[~live] == FG.LSE_DEAD)
+                        and torch.all(out[~live] == 0)):
+                    raise AssertionError("full-width dead rows differ")
+                gates = max(bf16_gates("full-width lse1", l1[live],
+                                       p_l1[live], f_l1[live],
+                                       witness=False),
+                            bf16_gates("full-width out", out[live],
+                                       p_out[live], f_out[live]),
+                            bf16_gates("full-width lse2", l2[live],
+                                       p_l2[live], f_l2[live],
+                                       witness=False))
+                res["full_err"], res["full_gates"] = gates[0], gates
+                err_text = (f"(max abs err, max err, mean err, witness) "
+                            f"{tuple(f'{x:.3e}' for x in gates)}")
+            else:
+                res["full_err"] = max((l1 - p_l1)[live].abs().max().item(),
+                                      (out - p_out).abs().max().item(),
+                                      (l2 - p_l2)[live].abs().max().item())
+                err_text = f"max abs err {res['full_err']:.3e}"
             share = cfg.num_layers * (res["b4c_layer_ms"]
                                       + res["b5c_layer_ms"]) / fwd_ms
             log(f"[{label}] forward on a packed request {fwd_ms:.3f} ms; one "
@@ -3045,8 +3121,8 @@ def phase_serve_hybrid(tt, FG, edge, bf16=False, reqs=None):
                 f"ms; one layer over the {G} folded snapshots: B4c "
                 f"{res['b4c_layer_ms']:.3f} ms, B5c {res['b5c_layer_ms']:.3f}"
                 f" ms ({cfg.num_layers} layers = {share:.3f} of the forward); "
-                f"layer-0 B4c and B5c vs plain on one snapshot: max abs err "
-                f"{res['full_err']:.3e}")
+                f"layer-0 {name} vs plain{' bf16' if bf16 else ''} on one "
+                f"snapshot: {err_text}")
             args = one + (bst1, l1u, rb[:1])
         res["kernel_share_of_forward"] = share
     if not bf16 and not res["full_err"] <= TOL:
@@ -3217,7 +3293,6 @@ def phase_times_hybrid(FG, plain_args, edge_args):
         # B4c and B5c on the edge-feature model's snapshot
         qe, ke, ve, st_e, plan_e, rs, bst, l1u, rb = edge_args
         pairs_e = int(FG.unpack_bits(st_e).sum().item())
-        plan_be = 4 * sum(p.numel() for p in plan_e)
 
         def b4(metric="euclidean"):
             return FG.flash_lse1_compact_kernel(qe, ke, st_e, *plan_e, metric,
@@ -3243,16 +3318,11 @@ def phase_times_hybrid(FG, plain_args, edge_args):
         k4_sdp = cuda_ms(lambda: b4(sdp), 20)
         k5_sdp = cuda_ms(lambda: b5(sdp, l1_sdp), 20)
         out5_sdp, l2_sdp = b5(sdp, l1_sdp)
-        qk = 4 * G * H * N * 2 * D
-        rows = 4 * G * H * N
+        bounds = compact_biased_fwd_bounds(qe, ve, st_e, plan_e, pairs_e)
         res["B4c"] = dict(ms=[k4a, k4b], plain_ms=[p4a, p4b], sdp_ms=k4_sdp,
-                          **bound(qk + st_e.numel() * 8 + plan_be + 4 * H
-                                  + rows, 2 * H * pairs_e * D))
+                          **bounds["B4c"])
         res["B5c"] = dict(ms=[k5a, k5b], plain_ms=[p5a, p5b], sdp_ms=k5_sdp,
-                          **bound(qk + 4 * G * H * N * Dv + st_e.numel() * 8
-                                  + 4 * pairs_e + rows + plan_be
-                                  + 4 * (H + 2 * G) + 4 * G * H * N * Dv
-                                  + rows, 2 * H * pairs_e * (D + Dv)))
+                          **bounds["B5c"])
 
         # the csr form of the whole layer's attention on the same graphs:
         # band edges, residual edges and self loops as one edge list
@@ -3943,6 +4013,166 @@ def phase_small_compact_biased_bwd(FG):
     return out
 
 
+# -- phase 2k -----------------------------------------------------------------
+
+def compact_biased_bf16_errors(FG, label, got, q, k, v, store, bias_store,
+                               plan, metric, scale, seeds, rate, do, lse1,
+                               lse2, delta2, d1_rest):
+    """{B6c, B7a c, B7b c: (max abs error, max error, mean error,
+    witness)} of `_biased_backward_compact`'s bf16 outputs ``got`` (dq,
+    dk, dv, dB, dscale, delta1) against the compact plain bf16 parts on
+    the same inputs (delta1 = B6c's plus ``d1_rest``) under the bf16
+    gates, the compact plain fp32 parts the witness: delta1, dB at the
+    store's pairs (and exactly 0 at every other entry of the store, the
+    slots no walk visits included), dq, dk, dv, dscale (the max gate
+    alone). Each kernel's worst output."""
+    dq, dk, dv, db, dsc, d1 = got
+    need = dsc is not None
+    common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
+    parts = {}
+    for bf16 in (True, False):
+        p_d1, p_db = FG.flash_biased_bwd_pre_compact_plain(
+            *common, *plan, metric, scale, rate, seeds, bf16)
+        d1u = p_d1 + d1_rest
+        p_dq, p_dsc = FG.flash_biased_bwd_dq_compact_plain(
+            *common, d1u, *plan, metric, scale, rate, seeds, need, bf16)
+        p_dk, p_dv = FG.flash_biased_bwd_dkv_compact_plain(
+            *common, d1u, *plan, metric, scale, rate, seeds, bf16)
+        parts[bf16] = dict(delta1=d1u, dB=p_db, dq=p_dq, dscale=p_dsc,
+                           dk=p_dk, dv=p_dv)
+    sync()
+    want, f32 = parts[True], parts[False]
+    on = FG.unpack_bits(store) if FG.store_packed(store) else store != 0
+    if not bool((db[~on] == 0).all()):
+        raise AssertionError(f"{label}: dB not 0 off the store's pairs")
+    g = {n: bf16_gates(f"{label} {n}", x[sel], want[n][sel], f32[n][sel])
+         for n, x, sel in (("delta1", d1, ...), ("dB", db, on),
+                           ("dq", dq, ...), ("dk", dk, ...),
+                           ("dv", dv, ...))}
+    if need:
+        g["dscale"] = bf16_gates(f"{label} dscale", dsc, want["dscale"],
+                                 f32["dscale"], witness=False, mean=False)
+    return {"B6c": max(g["delta1"], g["dB"]),
+            "B7a c": max(g["dq"], g.get("dscale", g["dq"])),
+            "B7b c": max(g["dk"], g["dv"])}
+
+
+def compact_biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack,
+                                 seed=0):
+    """B4c, B5c, B6c, B7a c and B7b c in their bf16 forms against the
+    compact plain bf16 versions on one input of 2g, under the bf16 gates
+    with the compact plain fp32 versions as the witness: lse1, then out
+    and lse2 on 2g's union-like lse1 (the plain B5c walking the same
+    plan), then the backward (`_biased_backward_compact` with bf16) on
+    2g's statistics (`compact_biased_bf16_errors`); dead rows, and dk and
+    dv on the empty key strip, exactly 0. Returns {kernel: (max abs
+    error, max error, mean error, witness)} of its worst output."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, d1_rest) = compact_biased_bwd_inputs(
+        FG, G, H, N, D, Dv, metric, seed, pack, rate)
+    label = (f"compact biased bf16 {metric} rate={rate} D={D} Dv={Dv} "
+             f"pack={pack}")
+    need = metric in FG.SCALED_METRICS
+    b4c, b5c = compact_biased_kernels(FG, True)[:2]
+    l1 = b4c(q, k, store, *plan, metric, scale)
+    out, l2 = b5c(q, k, v, store, bias_store, lse1, *plan, metric, scale,
+                  seeds, rate)
+    got = FG._biased_backward_compact(q, k, v, store, bias_store, do, lse1,
+                                      lse2, delta2, plan, plan_t, metric,
+                                      scale, rate, seeds, need, d1_rest, True)
+    sync()
+    fwd = {}
+    for bf16 in (True, False):
+        p_l1 = FG.flash_lse1_compact_plain(q, k, store, *plan, metric, scale,
+                                           bf16)
+        fwd[bf16] = (p_l1, *FG.flash_biased_forward_compact_plain(
+            q, k, v, store, bias_store, lse1, *plan, metric, scale, rate,
+            seeds, bf16))
+    (p_l1, p_out, p_l2), (f_l1, f_out, f_l2) = fwd[True], fwd[False]
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    strip = slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
+    if not (torch.all(l1[dead] == FG.LSE_DEAD)
+            and torch.all(l2[dead] == FG.LSE_DEAD)
+            and torch.all(out[dead] == 0) and torch.all(got[0][dead] == 0)
+            and (N <= 2 * FG.BLOCK_M or (torch.all(got[1][0, :, strip] == 0)
+                                         and torch.all(got[2][0, :, strip]
+                                                       == 0)))):
+        raise AssertionError(f"{label}: dead rows or the empty key strip "
+                             f"not exactly 0")
+    live = ~dead
+    res = {"B4c": bf16_gates(f"{label} lse1", l1[live], p_l1[live],
+                             f_l1[live], witness=False),
+           "B5c": max(bf16_gates(f"{label} out", out[live], p_out[live],
+                                 f_out[live]),
+                      bf16_gates(f"{label} lse2", l2[live], p_l2[live],
+                                 f_l2[live], witness=False))}
+    res.update(compact_biased_bf16_errors(
+        FG, label, got, q, k, v, store, bias_store, plan, metric, scale,
+        seeds, rate, do, lse1, lse2, delta2, d1_rest))
+    return res
+
+
+def phase_small_compact_biased_bf16(FG):
+    """[2k] the bf16 forms of B4c, B5c, B6c, B7a c and B7b c, bit and int8
+    stores: every metric with dropout 0 and 0.1 at (D, Dv) = (16, 8), and
+    (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), where
+    the compact biased backward's bias tile and tile-row words sit beside
+    the widest tiles in shared memory; 2g's union-like statistics,
+    dscale for gaussian/rbf, dead rows, a row tile with jcount = 0, an
+    empty key strip, unvisited slots. Then a jslot (islot) past the store
+    raises before any launch at each of the five bf16 entries."""
+    cases = [(metric, 16, 8, rate) for metric in FG.MXU_METRICS
+             for rate in (0.0, 0.1)]
+    cases += [("scaled_dot_product", 16, 16, 0.1), ("scaled_dot_product", 8,
+                                                    8, 0.1),
+              ("gaussian_kernel", 12, 12, 0.0), ("dot_product", 7, 3, 0.1),
+              ("euclidean", 128, 128, 0.1)]
+    worst = {}
+    for pack in (True, False):
+        for metric, D, Dv, rate in cases:
+            for name, r in compact_biased_bf16_vs_plain(
+                    FG, 2, 3, 150, D, Dv, metric, rate, pack).items():
+                worst[name] = max(worst.get(name, r), r)
+    (q, k, v, _, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, _) = compact_biased_bwd_inputs(
+        FG, 1, 2, 150, 16, 16, "dot_product", 0, True, 0.0)
+    jl, jc, js = (p.clone() for p in plan)
+    il, ic, isl = (p.clone() for p in plan_t)
+    js[0, 0, 0] = isl[0, 0, 0] = store.shape[1]
+    common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
+    _, _, pre, dq_k, dkv_k = compact_biased_kernels(FG, True)
+    before = counts(FG)
+    refused = 0
+    for call in (
+            lambda: FG.flash_lse1_compact(q, k, store, jl, jc, js,
+                                          metric="dot_product", bf16=True),
+            lambda: FG.flash_biased_fwd_compact(
+                q, k, v, store, bias_store, lse1, jl, jc, js,
+                metric="dot_product", bf16=True),
+            lambda: pre(*common, jl, jc, js, "dot_product", scale, seeds,
+                        0.0),
+            lambda: dq_k(*common, lse1, jl, jc, js, "dot_product", scale,
+                         seeds, 0.0, False),
+            lambda: dkv_k(*common, lse1, il, ic, isl, "dot_product", scale,
+                          seeds, 0.0)):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    if refused != 5 or counts(FG) != before:
+        raise AssertionError(f"a bad jslot: {refused} of 5 entries refused "
+                             f"it; launches {counts(FG)} vs {before}")
+    log(f"[2k] bf16 forms of B4c, B5c, B6c, B7a c and B7b c vs the compact "
+        f"plain bf16 versions, bit and int8 stores, union statistics: "
+        f"{2 * len(cases)} cases; worst (max abs err, max err, mean err, "
+        f"witness over the largest entry) "
+        + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
+                    for n, r in worst.items())
+        + f" (tol {BF16_MAX_TOL}, {BF16_MEAN_TOL}, witness {BF16_WITNESS}x);"
+        f" a bad jslot raised before launch at all 5 entries")
+    return {n: r[0] for n, r in worst.items()}
+
+
 # -- phases 4f, 5f, 6d, 7d: training the edge-feature hybrid model ------------
 
 def phase_hybrid_edge_train_vs_csr(tt, FG):
@@ -3988,12 +4218,13 @@ def phase_hybrid_edge_train_vs_csr(tt, FG):
                 edge_grad_max=edge)
 
 
-def hybrid_edge_layer0_bwd(FG, model, batch):
+def hybrid_edge_layer0_bwd(FG, model, batch, bf16=False):
     """Layer 0's edge-feature hybrid inputs (`hybrid_layer0`) with the
     folded transposed walk, and the union statistics of its backward as
     ``_HybridBiasedAttention`` forms them: lse1 (B4c's and the residual's
-    union), out and lse2 (B5c's partial merged with the residual's), a
-    cotangent dO (N(0, 1), seed 13), delta2 and the residual's delta1."""
+    union), out and lse2 (B5c's partial merged with the residual's; their
+    bf16 forms' with ``bf16``), a cotangent dO (N(0, 1), seed 13), delta2
+    and the residual's delta1."""
     from tagan_torch.ops import hybrid_biased as HB
     from tagan_torch.ops.sparse import merge_attention_partials
     (q, k, v, store, plan, res), (bst, rb) = hybrid_layer0(FG, model, batch)
@@ -4002,12 +4233,12 @@ def hybrid_edge_layer0_bwd(FG, model, batch):
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
     m = "euclidean"
+    b4c, b5c = compact_biased_kernels(FG, bf16)[:2]
     with torch.no_grad():
         lse1 = HB.lse_union(
-            FG.flash_lse1_compact_kernel(q, k, store, *plan, m, ones),
+            b4c(q, k, store, *plan, m, ones),
             HB.residual_lse1(m, q, k, *res, N, ones)).contiguous()
-        band = FG.flash_biased_fwd_compact_kernel(
-            q, k, v, store, bst, lse1, *plan, m, ones, seeds, 0.0)
+        band = b5c(q, k, v, store, bst, lse1, *plan, m, ones, seeds, 0.0)
         part = HB.residual_biased_partial(m, q, k, v, *res, N, rb, lse1,
                                           ones)
         out, lse2 = merge_attention_partials([band, part])
@@ -4021,7 +4252,7 @@ def hybrid_edge_layer0_bwd(FG, model, batch):
             delta2, d1_rest)
 
 
-def phase_train_hybrid_edge(tt, FG):
+def phase_train_hybrid_edge(tt, FG, bf16=False, data=None):
     """`TAGANTrainer.train` on the 131K edge-feature hybrid model (part C,
     Fe = 4) over a ``plan="hybrid"`` loader, one sequence per batch: the
     loader's planning batch apart from the cached ones, one warm-up step,
@@ -4030,32 +4261,45 @@ def phase_train_hybrid_edge(tt, FG):
     B7b c over the folded snapshots and their share of the step, finite
     losses and non-zero gradients (the edge parameters included), every
     parameter moved; one snapshot at full width against the compact plain
-    parts."""
-    cfg = hybrid_config(tt, edge=True)
+    parts. With ``bf16`` [6h]: the model with bf16_matmul=True over 6d's
+    loaders and planned batches ``data`` (the bf16 forms of B4c, B5c,
+    B6c, B7a c and B7b c each once per layer per step, the fp32 forms
+    never), held to the compact plain bf16 parts under the bf16 gates.
+    The loaders and batches are returned under "data"."""
+    tag = "6h" if bf16 else "6d"
+    kerns = compact_biased_kernels(FG, bf16)
+    cfg = hybrid_config(tt, edge=True, bf16=bf16)
     model = tt.TAGAN(cfg, device=DEV,
                      generator=torch.Generator().manual_seed(0))
     exp = tt.ExperimentConfig(model=cfg, batch_size=1, num_epochs=1, seed=0,
                               checkpoint_dir="", shuffle=False)
-    ds = tt.TemporalGraphDataset(
-        [hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 700 + s, edge_dim=F_EDGE)
-         for s in range(TRAIN_STEPS + 1)], [1.0, 0.0, 1.0, 0.0])
-    kw = dict(batch_size=1, dense_adj=False, plan="hybrid")
-    warm = tt.TemporalGraphDataLoader(ds.subset([0]), **kw)
-    loader = tt.TemporalGraphDataLoader(
-        ds.subset(list(range(1, TRAIN_STEPS + 1))), **kw)
-    batch_s, batches = [], []
-    it = iter(loader)
-    for _ in range(TRAIN_STEPS):
+    if data is None:
+        ds = tt.TemporalGraphDataset(
+            [hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 700 + s, edge_dim=F_EDGE)
+             for s in range(TRAIN_STEPS + 1)], [1.0, 0.0, 1.0, 0.0])
+        kw = dict(batch_size=1, dense_adj=False, plan="hybrid")
+        warm = tt.TemporalGraphDataLoader(ds.subset([0]), **kw)
+        loader = tt.TemporalGraphDataLoader(
+            ds.subset(list(range(1, TRAIN_STEPS + 1))), **kw)
+        batch_s, batches = [], []
+        it = iter(loader)
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batches.append(next(it))
+            batch_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        batches.append(next(it))
-        batch_s.append(time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    list(loader)
-    cached_epoch_s = time.perf_counter() - t0
-    log(f"[6d] edge-feature hybrid N={N_HYB}, T={T_HYB}, Fe={F_EDGE}: the "
-        f"loader's batches (plan='hybrid') s {[round(x, 3) for x in batch_s]}"
-        f" (the first packs and plans all {TRAIN_STEPS} sequences), a cached "
-        f"epoch {cached_epoch_s:.3f} s; bucket pin {loader.plan_pins}")
+        list(loader)
+        cached_epoch_s = time.perf_counter() - t0
+        log(f"[6d] edge-feature hybrid N={N_HYB}, T={T_HYB}, Fe={F_EDGE}: "
+            f"the loader's batches (plan='hybrid') s "
+            f"{[round(x, 3) for x in batch_s]} (the first packs and plans "
+            f"all {TRAIN_STEPS} sequences), a cached epoch "
+            f"{cached_epoch_s:.3f} s; bucket pin {loader.plan_pins}")
+    else:
+        warm, loader, batches, batch_s, cached_epoch_s = data
+        log(f"[{tag}] edge-feature hybrid N={N_HYB}, T={T_HYB}, Fe={F_EDGE},"
+            f" bf16_matmul=True: 6d's loaders and their planned batches "
+            f"(bucket pin {loader.plan_pins})")
     trainer = tt.TAGANTrainer(model, exp)
     trainer.train(warm, verbose=False)
     sync()
@@ -4071,11 +4315,7 @@ def phase_train_hybrid_edge(tt, FG):
     launched = counts(FG)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
     want = {k.name: 0 for k in FG.KERNELS}
-    for kern in (FG.flash_lse1_compact_kernel,
-                 FG.flash_biased_fwd_compact_kernel,
-                 FG.flash_biased_bwd_pre_compact_kernel,
-                 FG.flash_biased_bwd_dq_compact_kernel,
-                 FG.flash_biased_bwd_dkv_compact_kernel):
+    for kern in kerns:
         want[kern.name] = cfg.num_layers * TRAIN_STEPS
     losses = res["history"]["train_loss"]
     no_grad = check_grads(model)
@@ -4084,7 +4324,7 @@ def phase_train_hybrid_edge(tt, FG):
     still = [n for n, p in model.named_parameters()
              if torch.equal(p.detach(), before[n])]
     moved = len(before) - len(still)
-    log(f"[6d] {TRAIN_STEPS} steps of TAGANTrainer.train in {epoch_ms:.3f} "
+    log(f"[{tag}] {TRAIN_STEPS} steps of TAGANTrainer.train in {epoch_ms:.3f} "
         f"ms; mean loss {losses}; peak device memory {peak_gb:.3f} GB above "
         f"the {held_gb:.3f} GB held before; launches {launched} (expected "
         f"{want}); {len(before) - len(no_grad)} of {len(before)} gradients "
@@ -4105,7 +4345,7 @@ def phase_train_hybrid_edge(tt, FG):
     step_ms = step_times(trainer, batches)
     b, y, m = batches[0]
     splits = step_split(trainer, b, y, m)
-    log(f"[6d] step ms (host clock, synchronised) "
+    log(f"[{tag}] step ms (host clock, synchronised) "
         f"{[round(x, 3) for x in step_ms]}; split (CUDA events) forward / "
         f"backward / optimizer ms "
         f"{[[round(x, 3) for x in s] for s in splits]}")
@@ -4113,24 +4353,22 @@ def phase_train_hybrid_edge(tt, FG):
     # one layer's backward launches over the batch's folded snapshots
     trainer.optimizer.zero_grad()
     (q, k, v, store, bst, plan, plan_t, rs, rb, do, lse1, lse2, delta2,
-     d1_rest) = hybrid_edge_layer0_bwd(FG, model, b.to(DEV))
+     d1_rest) = hybrid_edge_layer0_bwd(FG, model, b.to(DEV), bf16)
     G, H = q.shape[:2]
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
     rows = (do, lse1, lse2, delta2)
     with torch.no_grad():
         fold_fwd = cuda_ms(lambda: (
-            FG.flash_lse1_compact_kernel(q, k, store, *plan, "euclidean",
-                                         ones),
-            FG.flash_biased_fwd_compact_kernel(
-                q, k, v, store, bst, lse1, *plan, "euclidean", ones, seeds,
-                0.0)), 3)
+            kerns[0](q, k, store, *plan, "euclidean", ones),
+            kerns[1](q, k, v, store, bst, lse1, *plan, "euclidean", ones,
+                     seeds, 0.0)), 3)
         fold_bwd = cuda_ms(lambda: FG._biased_backward_compact(
             q, k, v, store, bst, *rows, plan, plan_t, "euclidean", ones, 0.0,
-            seeds, False, d1_rest), 3)
+            seeds, False, d1_rest, bf16), 3)
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
-    log(f"[6d] one layer's launches over the {G} folded snapshots: B4c+B5c "
+    log(f"[{tag}] one layer's launches over the {G} folded snapshots: B4c+B5c "
         f"{fold_fwd:.3f} ms, B6c+B7a c+B7b c {fold_bwd:.3f} ms; "
         f"{cfg.num_layers} layers' B6c+B7a c+B7b c = {share:.3f} and with "
         f"B4c+B5c {cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the "
@@ -4145,16 +4383,28 @@ def phase_train_hybrid_edge(tt, FG):
     del q, k, v, store, bst, rows, do, lse1, lse2, delta2, d1_rest
     got = FG._biased_backward_compact(*one, *rows1[:4], plan1, plan_t1,
                                       "euclidean", ones, 0.0, seeds[:1],
-                                      False, rows1[4])
-    full = compact_biased_bwd_errors(
-        FG, f"N={N_HYB}", got, *one, plan1, "euclidean", ones, seeds[:1],
-        0.0, *rows1)
+                                      False, rows1[4], bf16)
+    if bf16:
+        gates = compact_biased_bf16_errors(
+            FG, f"N={N_HYB}", got, *one, plan1, "euclidean", ones,
+            seeds[:1], 0.0, *rows1)
+        full = {n: r[0] for n, r in gates.items()}
+        log(f"[{tag}] bf16 compact biased backward at N={N_HYB}, one "
+            f"snapshot, union statistics, vs the compact plain bf16 parts "
+            f"(bf16 gates): (max abs err, max err, mean err, witness) "
+            + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
+                        for n, r in gates.items()))
+    else:
+        full = compact_biased_bwd_errors(
+            FG, f"N={N_HYB}", got, *one, plan1, "euclidean", ones,
+            seeds[:1], 0.0, *rows1)
+        log(f"[6d] compact biased backward at N={N_HYB}, one snapshot, "
+            f"union statistics, vs the compact plain parts: max err B6c "
+            f"{full['B6c']:.3e}, B7a c {full['B7a c']:.3e}, B7b c "
+            f"{full['B7b c']:.3e}")
     del got
-    log(f"[6d] compact biased backward at N={N_HYB}, one snapshot, union "
-        f"statistics, vs the compact plain parts: max err B6c "
-        f"{full['B6c']:.3e}, B7a c {full['B7a c']:.3e}, B7b c "
-        f"{full['B7b c']:.3e}")
-    return dict(batch_s=batch_s, cached_epoch_s=cached_epoch_s,
+    return dict(data=(warm, loader, batches, batch_s, cached_epoch_s),
+                batch_s=batch_s, cached_epoch_s=cached_epoch_s,
                 pins={str(k): v for k, v in loader.plan_pins.items()},
                 epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
                 loss=losses, launches=launched, peak_memory_gb=peak_gb,
@@ -4164,13 +4414,36 @@ def phase_train_hybrid_edge(tt, FG):
                 args=(*one, plan1, plan_t1, res1, rows1))
 
 
-def compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs):
+def compact_biased_fwd_bounds(q, v, store, plan, pairs, bound_of=None):
+    """B4c's and B5c's least time from these inputs: q and k (and for B5c
+    v and lse1), the store, the bias at the valid pairs only, the walk,
+    scale and seeds read once, lse1 (B5c: out and lse2) written once,
+    against the products on the valid pairs at the fp32 peak
+    (``bound_of``: `bound16` for the bf16 rate)."""
+    bound_of = bound_of or bound
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    qk = 4 * G * H * N * 2 * D
+    rows = 4 * G * H * N
+    st = store.numel() * store.element_size()
+    plan_b = 4 * sum(p.numel() for p in plan)
+    return {"B4c": bound_of(qk + st + plan_b + 4 * H + rows,
+                            2 * H * pairs * D),
+            "B5c": bound_of(qk + 4 * G * H * N * Dv + st + 4 * pairs + rows
+                            + plan_b + 4 * (H + 2 * G) + 4 * G * H * N * Dv
+                            + rows, 2 * H * pairs * (D + Dv))}
+
+
+def compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs,
+                              bound_of=None):
     """B6c's, B7a c's and B7b c's least time from these inputs: q, k, v,
     dO, lse1, lse2 and delta2, the store, the bias at the valid pairs
     only (4 bytes each: the result depends on no other entry), the walk,
     scale and seeds read once; delta1 and dB at the valid pairs (B6c),
     dq (B7a c, which also reads delta1) or dk and dv (B7b c) written
-    once; against the products on the valid pairs at the fp32 peak."""
+    once; against the products on the valid pairs at the fp32 peak
+    (``bound_of``: `bound16` for the bf16 rate)."""
+    bound_of = bound_of or bound
     G, H, N, D = q.shape
     Dv = v.shape[-1]
     HN = G * H * N
@@ -4178,12 +4451,12 @@ def compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs):
               + store.numel() * store.element_size() + 4 * pairs
               + 4 * (H + 2 * G))
     plan_b, plan_tb = (4 * sum(t.numel() for t in p) for p in (plan, plan_t))
-    return {"B6c": bound(common + plan_b + 4 * HN + 4 * pairs,
-                         2 * H * pairs * (D + Dv)),
-            "B7a c": bound(common + 4 * HN + plan_b + 4 * HN * D,
-                           2 * H * pairs * (2 * D + Dv)),
-            "B7b c": bound(common + 4 * HN + plan_tb + 4 * HN * (D + Dv),
-                           2 * H * pairs * (2 * D + 2 * Dv))}
+    return {"B6c": bound_of(common + plan_b + 4 * HN + 4 * pairs,
+                            2 * H * pairs * (D + Dv)),
+            "B7a c": bound_of(common + 4 * HN + plan_b + 4 * HN * D,
+                              2 * H * pairs * (2 * D + Dv)),
+            "B7b c": bound_of(common + 4 * HN + plan_tb + 4 * HN * (D + Dv),
+                              2 * H * pairs * (2 * D + 2 * Dv))}
 
 
 def phase_times_hybrid_edge_bwd(FG, args):
@@ -4336,6 +4609,163 @@ def phase_times_hybrid_edge_bwd(FG, args):
     return res
 
 
+# -- phase 5j -----------------------------------------------------------------
+
+def phase_times_hybrid_edge_bf16(FG, args):
+    """[5j] B4c, B5c, B6c, B7a c and B7b c in their bf16 forms at one 131K
+    snapshot of 6h (union statistics), CUDA events, each beside its fp32
+    form in turns; the compact plain bf16 versions; compiled
+    ``flex_attention`` on bf16 q, k, v under the compact plan's BlockMask
+    at the scaled-dot metric as the library yardstick: B4c's function
+    (lse only), B5c's (exp(s - lse1) + the bias store, lse1 given), and
+    the backward of the two calls (forward+backward minus forward), held
+    against the bf16 kernels at that metric on band statistics (null
+    with the reason where it does not build or differs); the bounds: the
+    fp32 forms' bytes (the inputs stay fp32) and the valid pairs'
+    operations at the bf16 tensor-core rate."""
+    (q, k, v, store, bst, plan, plan_t, _,
+     (do, lse1, lse2, delta2, d1_rest)) = args
+    H = q.shape[1]
+    ones = torch.ones(H, device=DEV)
+    seeds = torch.zeros(1, 2, dtype=torch.int32, device=DEV)
+    sdp = "scaled_dot_product"
+    k32, k16 = compact_biased_kernels(FG, False), compact_biased_kernels(
+        FG, True)
+    with torch.no_grad():
+        common = (q, k, v, store, bst, do, lse1, lse2, delta2)
+        d1 = (k16[2](*common, *plan, "euclidean", ones, seeds, 0.0)[0]
+              + d1_rest).contiguous()
+        calls = {
+            "B4c": lambda kern: lambda: kern(q, k, store, *plan, "euclidean",
+                                             ones),
+            "B5c": lambda kern: lambda: kern(q, k, v, store, bst, lse1, *plan,
+                                             "euclidean", ones, seeds, 0.0),
+            "B6c": lambda kern: lambda: kern(*common, *plan, "euclidean",
+                                             ones, seeds, 0.0),
+            "B7a c": lambda kern: lambda: kern(*common, d1, *plan,
+                                               "euclidean", ones, seeds, 0.0,
+                                               False),
+            "B7b c": lambda kern: lambda: kern(*common, d1, *plan_t,
+                                               "euclidean", ones, seeds,
+                                               0.0)}
+        times = {}
+        for i, (name, make) in enumerate(calls.items()):
+            a32, a16 = cuda_ms(make(k32[i]), 10), cuda_ms(make(k16[i]), 10)
+            b16, b32 = cuda_ms(make(k16[i]), 10), cuda_ms(make(k32[i]), 10)
+            times[name] = ([a16, b16], [a32, b32])
+        plain4 = cuda_ms(lambda: FG.flash_lse1_compact_plain(
+            q, k, store, *plan, "euclidean", ones, True), 2)
+        plain5 = cuda_ms(lambda: FG.flash_biased_forward_compact_plain(
+            q, k, v, store, bst, lse1, *plan, "euclidean", ones, 0.0, seeds,
+            True), 2)
+
+        def plain_bwd():
+            p_d1 = FG.flash_biased_bwd_pre_compact_plain(
+                *common, *plan, "euclidean", ones, 0.0, seeds, True)[0]
+            FG._biased_bwd_compact_plain(
+                *common, *plan, "euclidean", ones, 0.0, seeds,
+                p_d1 + d1_rest, False, ("dq", "dkv"), True)
+        plain_b = cuda_ms(plain_bwd, 2)
+        # the band alone at the scaled-dot metric: the function the
+        # library computes
+        l1_s = k16[0](q, k, store, *plan, sdp, ones)
+        out_s, l2_s = k16[1](q, k, v, store, bst, l1_s, *plan, sdp, ones,
+                             seeds, 0.0)
+        k4_sdp = cuda_ms(lambda: k16[0](q, k, store, *plan, sdp, ones), 10)
+        k5_sdp = cuda_ms(lambda: k16[1](q, k, v, store, bst, l1_s, *plan,
+                                        sdp, ones, seeds, 0.0), 10)
+        g_sdp = FG._biased_backward_compact(
+            q, k, v, store, bst, do, l1_s, l2_s,
+            (do * out_s).sum(-1).contiguous(), plan, plan_t, sdp, ones, 0.0,
+            seeds, False, None, True)
+        pairs = int(FG.unpack_bits(store).sum().item())
+    bq, bk, bv = (t.bfloat16() for t in (q, k, v))
+    live = l1_s < 1e29
+    lib = {"B4c": None, "B5c": None, "bwd": None, "error": None}
+    # 5d-5i compiled flex_attention under other functions and dtypes: past
+    # dynamo's recompile limit it would run unfused
+    torch._dynamo.reset()
+    t0 = time.perf_counter()
+    try:                            # the yardstick only: never the port
+        bmask, flex, slot_map = flex_compact_setup(FG, bq, store, plan)
+        bm = FG.BLOCK_M
+
+        def band(ql, kl, vl, bl, l1=None):
+            """B4c's function (unless ``l1`` is given), then B5c's."""
+            if l1 is None:
+                l1 = flex(ql, kl, vl, block_mask=bmask, return_lse=True)[1]
+
+            def biased(s, b, h, qi, kv):
+                sl = slot_map[qi // bm, kv // bm].clamp(min=0)
+                return torch.exp(s - l1[b, h, qi]) + bl[sl, qi % bm, kv % bm]
+            return l1, flex(ql, kl, vl, score_mod=biased, block_mask=bmask,
+                            return_lse=True)
+        with torch.no_grad():
+            f_l1, (f_out, f_l2) = band(bq, bk, bv, bst[0])
+            sync()
+            lib["B4c"] = cuda_ms(lambda: flex(bq, bk, bv, block_mask=bmask,
+                                              return_lse=True), 20)
+            lib["B5c"] = cuda_ms(lambda: band(bq, bk, bv, bst[0], f_l1), 20)
+        fl = [t.detach().clone().requires_grad_()
+              for t in (bq, bk, bv, bst[0])]
+        bdo = do.bfloat16()
+
+        def lib_fb():
+            return torch.autograd.grad(band(*fl)[1][0], fl, bdo)
+
+        def lib_f():
+            with torch.no_grad():
+                band(*fl)
+        f_grads = lib_fb()
+        sync()
+        lib["bwd"] = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
+        flex_err = max([rel_err(f_l1.float()[live], l1_s[live]),
+                        rel_err(f_l2.float()[live], l2_s[live]),
+                        rel_err(f_out.float()[live], out_s[live])]
+                       + [rel_err(f.float(), g) for f, g in
+                          zip(f_grads, (*g_sdp[:3], g_sdp[3][0]))])
+        lib["err"] = flex_err
+        if not flex_err <= FLEX_BF16_TOL:
+            lib.update(B4c=None, B5c=None, bwd=None, error=(
+                f"flex_attention on bf16 inputs differs from the bf16 "
+                f"B4c-B7b c at the scaled-dot metric: {flex_err} > "
+                f"{FLEX_BF16_TOL}"))
+        del f_grads, fl
+    except Exception as e:
+        lib["error"] = f"{type(e).__name__}: {e}"[:300]
+    lib["setup_and_timing_s"] = time.perf_counter() - t0
+    bounds = {**compact_biased_fwd_bounds(q, v, store, plan, pairs, bound16),
+              **compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t,
+                                          pairs, bound16)}
+    res = {}
+    for name in calls:
+        fwd = name in ("B4c", "B5c")
+        res[name] = dict(ms=times[name][0], fp32_ms=times[name][1],
+                         plain_ms=(plain4 if name == "B4c" else plain5
+                                   if name == "B5c" else plain_b),
+                         library_ms=lib[name] if fwd else lib["bwd"],
+                         **bounds[name])
+    res.update(library=lib, valid_pairs=pairs, b4c_sdp_ms=k4_sdp,
+               b5c_sdp_ms=k5_sdp)
+    log(f"[5j] bf16 compact biased forms, one snapshot of N={q.shape[2]}, "
+        f"union statistics: "
+        + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])} (fp32 "
+                    f"{' '.join(f'{x:.4f}' for x in t[1])})"
+                    for n, t in times.items())
+        + f"; compact plain bf16 ms B4c {plain4:.4f}, B5c {plain5:.4f}, "
+        f"backward {plain_b:.4f}")
+    log(f"[5j] library: compiled flex_attention on bf16 q, k, v under the "
+        f"compact plan's BlockMask at the scaled-dot metric (B4c's and B5c's "
+        f"functions, and forward+backward - forward of the two): {lib} "
+        f"(bf16 B4c at that metric {k4_sdp:.4f} ms, B5c {k5_sdp:.4f})")
+    for name in calls:
+        r = res[name]
+        log(f"[5j] {name} bf16 bound {r['bound_ms']:.5f} ms by "
+            f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops over "
+            f"{pairs} valid pairs at the bf16 rate)")
+    return res
+
+
 def phase_train_mid_hybrid_edge(tt, FG):
     """The edge-feature hybrid model at N_MID_HYB nodes: 3 AdamW steps
     over a ``plan="hybrid"`` loader on the card (B4c, B5c, B6c, B7a c,
@@ -4350,11 +4780,7 @@ def phase_train_mid_hybrid_edge(tt, FG):
                       "hybrid")
     res = card_vs_cpu("7d", card, cpu, N_MID_HYB)
     launched = [card["launched"], cpu["launched"]]
-    want = {k.name: 3 * 2 for k in (
-        FG.flash_lse1_compact_kernel, FG.flash_biased_fwd_compact_kernel,
-        FG.flash_biased_bwd_pre_compact_kernel,
-        FG.flash_biased_bwd_dq_compact_kernel,
-        FG.flash_biased_bwd_dkv_compact_kernel)}
+    want = {k.name: 3 * 2 for k in compact_biased_kernels(FG, False)}
     log(f"[7d] edge-feature hybrid launches card, cpu {launched}")
     if launched != [want, {}]:
         raise AssertionError(f"launches {launched}, card expected {want}")
@@ -4400,6 +4826,7 @@ def main() -> int:
     small_bf16 = phase_small_bf16(FG)
     small_biased_bf16 = phase_small_biased_bf16(FG)
     small_compact_bf16 = phase_small_compact_bf16(FG)
+    small_compact_biased_bf16 = phase_small_compact_biased_bf16(FG)
     serve = phase_serve(tt, FG)
     serve_bf16 = phase_serve(tt, FG, bf16=True)
     serve_edge = phase_serve_edge(tt, FG)
@@ -4409,7 +4836,9 @@ def main() -> int:
                                         reqs=serve_hyb.pop("reqs"))
     del serve_hyb_bf16["reqs"], serve_hyb_bf16["args"]
     serve_hyb_edge = phase_serve_hybrid(tt, FG, edge=True)
-    del serve_hyb_edge["reqs"]
+    serve_hyb_edge_bf16 = phase_serve_hybrid(
+        tt, FG, edge=True, bf16=True, reqs=serve_hyb_edge.pop("reqs"))
+    del serve_hyb_edge_bf16["reqs"], serve_hyb_edge_bf16["args"]
     mid = phase_mid(tt, FG)
     mid_edge = phase_mid_edge(tt, FG)
     mid_hyb = phase_mid_hybrid(tt, FG)
@@ -4446,7 +4875,14 @@ def main() -> int:
     train_hyb_edge = phase_train_hybrid_edge(tt, FG)
     times_hyb_edge_bwd = phase_times_hybrid_edge_bwd(
         FG, train_hyb_edge.pop("args"))
+    train_hyb_edge_bf16 = phase_train_hybrid_edge(
+        tt, FG, bf16=True, data=train_hyb_edge.pop("data"))
+    del train_hyb_edge_bf16["data"]
+    times_hyb_edge_bf16 = phase_times_hybrid_edge_bf16(
+        FG, train_hyb_edge_bf16.pop("args"))
     train_mid_hyb_edge = phase_train_mid_hybrid_edge(tt, FG)
+    train_mid_hyb_edge_bf16 = phase_train_mid_bf16(tt, FG, edge=True,
+                                                    hybrid=True)
 
     bwd = times["bwd"]
     plain_bwd = min(bwd["plain_ms"])
@@ -4650,9 +5086,47 @@ def main() -> int:
             ("flash_geometric_forward_compact_plain with bf16=True (walks "
              "the plan)",) + ("flash_geometric_backward_compact_plain with "
                               "bf16=True (dq, dk and dv)",) * 2)]
+    # the bf16 forms of B4c-B7b c: launches on the edge-feature hybrid bf16
+    # serving (3h) and training (6h) paths, times at one 131K snapshot of
+    # 6h (5j), each beside its fp32 form's in the same run
+    t16he = times_hyb_edge_bf16
+    lib16he = t16he["library"]
+    kernels += [
+        dict(kernel_record(
+            FG, kern, source, line,
+            (serve_hyb_edge_bf16 if fwd else
+             train_hyb_edge_bf16)["launches"][kern.name],
+            max(small_compact_biased_bf16[name], serve_hyb_edge_bf16[
+                "full_err"] if fwd else train_hyb_edge_bf16["full_err"][name]),
+            min(t16he[name]["ms"]), t16he[name]["plain_ms"], plain_of,
+            t16he[name], t16he[name]["library_ms"], HB_SRC),
+             fp32_ms=min(t16he[name]["fp32_ms"]),
+             library_of=(
+                 ("compiled flex_attention on bf16 q, k, v, BlockMask from "
+                  "the compact plan, scaled-dot metric, "
+                  + ("lse only" if name == "B4c" else
+                     "exp(s - lse1) + bias store" if fwd else
+                     "fwd+bwd - fwd of B4c and B5c's calls"))
+                 if lib16he["error"] is None else lib16he["error"]))
+        for name, kern, source, line, plain_of, fwd in zip(
+            ("B4c", "B5c", "B6c", "B7a c", "B7b c"),
+            compact_biased_kernels(FG, True),
+            ("flash_biased_fwd.cu",) * 2
+            + ("flash_biased_bwd_compact_bf16.cu",) * 3,
+            (197, 236, 298, 371, 405),
+            ("flash_lse1_compact_plain with bf16=True",
+             "flash_biased_forward_compact_plain with bf16=True (walks the "
+             "plan)") + ("flash_biased_bwd_{pre,dq,dkv}_compact_plain with "
+                         "bf16=True (delta1, dB, dq, dk and dv)",) * 3,
+            (True, True, False, False, False))]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
+        small_compact_biased_bf16_err=small_compact_biased_bf16,
+        serve_hybrid_edge_bf16=serve_hyb_edge_bf16,
+        train_hybrid_edge_bf16=train_hyb_edge_bf16,
+        times_hybrid_edge_bf16=times_hyb_edge_bf16,
+        train_mid_hybrid_edge_bf16=train_mid_hyb_edge_bf16,
         small_compact_bf16_err=small_compact_bf16,
         serve_hybrid_bf16=serve_hyb_bf16, train_hybrid_bf16=train_hyb_bf16,
         times_hybrid_bf16=times_hyb_bf16,

@@ -2,9 +2,10 @@
 //
 // Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
 // that serve the dense path's double softmax (host side
-// _flash_biased_forward), in their dense-mask form (B4, B5), and their compact
+// _flash_biased_forward), in their dense-mask form (B4, B5), their compact
 // occupied-block form (B4c, B5c: hybrid_biased.py _band_lse1 and
-// _band_biased_main). For each query row i and head h, over the valid keys j
+// _band_biased_main) and the bf16 form (bf16=True) of each. For each query
+// row i and head h, over the valid keys j
 // (mask[i, j] != 0), with s_ij the metric score:
 //
 //   B4  _lse1_kernel          lse1_i = logsumexp_j s_ij
@@ -41,7 +42,7 @@
 // but once per head. Reading each bias tile once, with the heads innermost
 // in one block, is the first thing a later redesign changes.
 //
-// The bf16 forms (kBf16, dense mask only; the TPU kernels' bf16=True) round
+// The bf16 forms (kBf16, either mask form; the TPU kernels' bf16=True) round
 // the operands of q.k and of P@V as B1's bf16 form does: the q and k tiles in
 // place once their norms are taken, v as staged, and B5's dropped p2 as it
 // is stored for P@V. The norms, w1, z, the running max and the un-dropped
@@ -418,6 +419,36 @@ extern "C" int tagan_flash_biased_fwd_compact(
     unsigned int keep_thresh, float inv_keep, void* stream) {
   using namespace tagan_flash;
   return (packed ? launch<true, COMPACT_BITS> : launch<true, COMPACT_I8>)(
+      q, k, v, store, bias, lse1, jlist, jcount, jslot, scale, seeds, out,
+      lse2, G, H, N, D, Dv, n_i, W, S, metric, sqrt_d, use_dropout,
+      keep_thresh, inv_keep, stream);
+}
+
+// B4c's bf16 form: the same arguments.
+extern "C" int tagan_flash_lse1_compact_bf16(
+    const void* q, const void* k, const void* store, const void* jlist,
+    const void* jcount, const void* jslot, const void* scale, void* lse1,
+    int G, int H, int N, int D, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, void* stream) {
+  using namespace tagan_flash;
+  return (packed ? launch<false, COMPACT_BITS, true>
+                 : launch<false, COMPACT_I8, true>)(
+      q, k, nullptr, store, nullptr, nullptr, jlist, jcount, jslot, scale,
+      nullptr, nullptr, lse1, G, H, N, D, 0, n_i, W, S, metric, sqrt_d, 0, 0u,
+      1.f, stream);
+}
+
+// B5c's bf16 form: the same arguments.
+extern "C" int tagan_flash_biased_fwd_compact_bf16(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* lse1, const void* jlist, const void* jcount,
+    const void* jslot, const void* scale, const void* seeds, void* out,
+    void* lse2, int G, int H, int N, int D, int Dv, int n_i, int W, int S,
+    int packed, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, void* stream) {
+  using namespace tagan_flash;
+  return (packed ? launch<true, COMPACT_BITS, true>
+                 : launch<true, COMPACT_I8, true>)(
       q, k, v, store, bias, lse1, jlist, jcount, jslot, scale, seeds, out,
       lse2, G, H, N, D, Dv, n_i, W, S, metric, sqrt_d, use_dropout,
       keep_thresh, inv_keep, stream);

@@ -3,7 +3,8 @@
 // backward, built by flash_geometric_bwd.cu and
 // flash_geometric_bwd_compact_bf16.cu), flash_geometric_bwd_fused.cu
 // (single-walk backward) and the
-// edge-biased flash_biased_fwd.cu and flash_biased_bwd.cu.
+// edge-biased flash_biased_fwd.cu and flash_biased_bwd.cuh (built by
+// flash_biased_bwd.cu and flash_biased_bwd_compact_bf16.cu).
 //
 // The metric scores, the dropout hash and the backward's recompute of one
 // (64-query tile, 64-key tile) pair. Every kernel takes the folded layout

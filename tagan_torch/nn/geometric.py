@@ -207,21 +207,15 @@ class GeometricAttention(nn.Module):
         band's transposed walk (ilist, icount, islot), which the band's
         backward needs (B3a c + B3b c, or with the biases B6c, B7a c and
         B7b c): without it a backward raises ValueError. ``bf16`` takes
-        the band kernels' bf16 forms (B1c, B3a c, B3b c); the residual
-        and the merge hold no contraction and stay float32, and the
-        layer's other contractions follow
-        `core.module.default_matmul_precision`. The edge-biased band has
-        no bf16 form yet: ``band_bias`` with ``bf16`` raises
-        NotImplementedError."""
+        the band kernels' bf16 forms (B1c, B3a c, B3b c, or with the
+        biases B4c, B5c, B6c, B7a c and B7b c); the residual and the
+        merge hold no contraction and stay float32, and the layer's other
+        contractions follow `core.module.default_matmul_precision`."""
         metric = self.distance_metric
         if metric not in FG.MXU_METRICS and metric != "mahalanobis":
             raise NotImplementedError(
                 f"metric {metric} is not written through q.k; the hybrid "
                 "backend needs the flash kernels - use 'csr'")
-        if bf16 and band_bias is not None:
-            raise NotImplementedError(
-                "the edge-biased compact kernels (B4c, B5c, B6c, B7a c, "
-                "B7b c) have no bf16 form yet")
         sigma, gamma, _ = self._metric_params()
         scale = sigma if sigma is not None else gamma
         biased = band_bias is not None
@@ -243,7 +237,7 @@ class GeometricAttention(nn.Module):
         if biased:
             ctx = HB.hybrid_biased_attention(
                 q, k, v, store, plan, res, band_bias, res_bias, metric,
-                scale, rate, seed, generator, plan_t)
+                scale, rate, seed, generator, plan_t, bf16)
         else:
             band = FG._flash_compact(q, k, v, store, plan, metric, scale,
                                      rate, seed, plan_t, bf16)

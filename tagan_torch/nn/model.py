@@ -73,11 +73,6 @@ def check_in_slice(c: TAGANConfig) -> None:
         missing.append(f"compat_mode={c.compat_mode!r}")
     if c.temporal_attention_type != "asymmetric":
         missing.append(f"temporal_attention_type={c.temporal_attention_type!r}")
-    if c.bf16_matmul and c.spatial_backend == "hybrid" \
-            and c.use_edge_features and c.edge_feature_dim > 0:
-        missing.append("bf16_matmul with spatial_backend='hybrid' and edge "
-                       "features (the bf16 forms of B4c, B5c, B6c, B7a c, "
-                       "B7b c)")
     if missing:
         raise NotImplementedError(
             "not ported to tagan_torch yet: " + ", ".join(missing))

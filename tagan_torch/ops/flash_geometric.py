@@ -23,14 +23,13 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7a c  _biased_bwd_dq_kernel, compact   csrc/flash_biased_bwd.cu
     B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
 
-B1, B2, B3a, B3b, B4, B5, B6, B7a, B7b, B1c, B3a c and B3b c also have
-bf16 forms (the TPU kernels' ``bf16=True``: every product's operands
-rounded to bf16, float32 sums), in the same sources under their own entry
-points and launch counts (B3a c's and B3b c's in
-csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
-csrc/flash_geometric_bwd.cuh); the model takes them under
-``bf16_matmul``. The edge-biased compact forms (B4c, B5c, B6c, B7a c,
-B7b c) have no bf16 form yet.
+Every kernel above also has a bf16 form (the TPU kernels' ``bf16=True``:
+every product's operands rounded to bf16, float32 sums), in the same
+sources under its own entry point and launch count (B3a c's and B3b c's
+in csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
+csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's in
+csrc/flash_biased_bwd_compact_bf16.cu, from those of
+csrc/flash_biased_bwd.cuh); the model takes them under ``bf16_matmul``.
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
 dense path's double softmax, and B6, B7a and B7b its backward. The
@@ -649,17 +648,19 @@ def _walk_forward(steps, q, v, jlist, dropout_rate, seed, bf16=False):
 
 
 def flash_lse1_compact_plain(q, k, store, jlist, jcount, jslot, metric: str,
-                             scale: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
+                             scale: Optional[torch.Tensor] = None,
+                             bf16: bool = False) -> torch.Tensor:
     """What B4c computes: lse1 [G, H, N] over the compact store
-    (``LSE_DEAD`` on rows with no valid key)."""
+    (``LSE_DEAD`` on rows with no valid key). ``bf16``: what B4c's bf16
+    form computes, q.k from bf16 operands (the norms and the sums
+    float32)."""
     H, N = q.shape[1], q.shape[2]
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
     m, l, _ = _online_init(q, jlist)
     for s, valid, _, _, _, _, _ in _compact_steps(q, k, store, jlist,
                                                   jcount, jslot, metric,
-                                                  scale):
+                                                  scale, bf16):
         m, l, _ = _online_step(m, l, None, s, valid)
     return _finish_online(m, l, None, N)[1]
 
@@ -667,13 +668,16 @@ def flash_lse1_compact_plain(q, k, store, jlist, jcount, jslot, metric: str,
 def flash_biased_forward_compact_plain(
     q, k, v, store, bias_store, lse1, jlist, jcount, jslot, metric: str,
     scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-    seeds: Optional[torch.Tensor] = None,
+    seeds: Optional[torch.Tensor] = None, bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """What B5c computes: `flash_biased_forward_plain` over the compact
     store, with the bias in the same slots, f32[G, S, BM, BN], and lse1
     [G, H, N] given (the hybrid backend's union lse1: a logsumexp over a
     superset of the walked pairs). -> (out [G, H, N, Dv], lse2
-    [G, H, N])."""
+    [G, H, N]). ``bf16``: what B5c's bf16 form computes, q.k and
+    drop2(p2) v from bf16 operands, p2 rounded relative to the running
+    max after each step of the walk, in jlist order (as the dense plain
+    bf16 B5 walks its plan)."""
     if scale is None:
         scale = torch.ones(q.shape[1], dtype=q.dtype, device=q.device)
     gi = torch.arange(q.shape[0], device=q.device)[:, None]
@@ -681,8 +685,9 @@ def flash_biased_forward_compact_plain(
     def bias_of(w, jb):
         return bias_store[gi, jslot[..., w].long()]
     return _walk_biased(
-        _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale),
-        q, v, lse1, bias_of, jlist, dropout_rate, seeds)
+        _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale,
+                       bf16), q, v, lse1, bias_of, jlist, dropout_rate,
+        seeds, bf16)
 
 
 def _walk_biased(steps, q, v, lse1, bias_of, jlist, dropout_rate, seeds,
@@ -1235,11 +1240,12 @@ def flash_geometric_backward_compact_plain(
 
 def _biased_compact_steps(q, k, v, store, bias_store, do, lse1, lse2, delta2,
                           jlist, jcount, jslot, metric, scale, dropout_rate,
-                          seeds):
+                          seeds, bf16=False):
     """`_biased_chunks`' recompute over the compact walk, every row tile
     at once: per step w, (jb, w1, dw1, dz, w2d, s, sq, qk) [G, H, n_i,
     BM, BN] (jb [G, n_i] the key tiles), the bias read from the step's
-    slot of ``bias_store``; all 0 off the valid pairs."""
+    slot of ``bias_store``; all 0 off the valid pairs. q.k and do v^T
+    take bf16 operands with ``bf16``."""
     G, H = q.shape[:2]
     n_i = jlist.shape[-2]
     thresh = _keep_thresh(dropout_rate)
@@ -1250,9 +1256,9 @@ def _biased_compact_steps(q, k, v, store, bias_store, do, lse1, lse2, delta2,
     vt = _key_tiles(v, n_i * BLOCK_M)
     gi = torch.arange(G, device=q.device)[:, None]
     for w, (s, valid, jb, rows, cols, qk, sq) in enumerate(_compact_steps(
-            q, k, store, jlist, jcount, jslot, metric, scale)):
+            q, k, store, jlist, jcount, jslot, metric, scale, bf16)):
         w1 = torch.exp(torch.where(valid, s - l1, NEG_INF))
-        dp2 = dot @ _gather_tiles(vt, jb).transpose(-1, -2)
+        dp2 = _mm(dot, _gather_tiles(vt, jb).transpose(-1, -2), bf16)
         w1d = w1
         if dropout_rate > 0.0:
             keep1 = _tile_keep(seeds[:, 0], H, rows, cols) < thresh
@@ -1272,14 +1278,15 @@ def _biased_compact_steps(q, k, v, store, bias_store, do, lse1, lse2, delta2,
 def _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
                               delta2, jlist, jcount, jslot, metric, scale,
                               dropout_rate, seeds, delta1=None,
-                              need_dscale=False, parts=("pre", "dq", "dkv")):
+                              need_dscale=False, parts=("pre", "dq", "dkv"),
+                              bf16=False):
     """The plain biased backward over the compact walk, in memory that
-    grows with the row tiles; ``parts`` as in `_biased_bwd_plain`. "pre"
-    walks once for delta1 (the walk's own row sums) and dB, into the
-    store's slots [G, S, BM, BN] (0 in slots no step walks); dq and dk/dv
-    walk again (`_compact_grads`) with ``delta1`` as given, as in B7a c
-    and B7b c, or with the first walk's when it is None. Returns a
-    dict."""
+    grows with the row tiles; ``parts`` and ``bf16`` as in
+    `_biased_bwd_plain`. "pre" walks once for delta1 (the walk's own row
+    sums) and dB, into the store's slots [G, S, BM, BN] (0 in slots no
+    step walks); dq and dk/dv walk again (`_compact_grads`) with
+    ``delta1`` as given, as in B7a c and B7b c, or with the first walk's
+    when it is None. Returns a dict."""
     G, H, N, D = q.shape
     if scale is None:
         scale = torch.ones(H, dtype=q.dtype, device=q.device)
@@ -1295,7 +1302,7 @@ def _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
         dbias = torch.zeros((G * S, BLOCK_M, BLOCK_N), dtype=q.dtype,
                             device=q.device)
         for w, (_, w1, dw1, dz, *_) in enumerate(
-                _biased_compact_steps(*args)):
+                _biased_compact_steps(*args, bf16)):
             d1 += (w1 * dw1).sum(-1)
             # each occupied tile has one slot, walked once; a step past
             # jcount adds its zeros to a slot in range
@@ -1305,7 +1312,7 @@ def _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
                 "dbias": dbias.reshape(G, S, BLOCK_M, BLOCK_N)}
     res = {}
     if "pre" in parts or delta1 is None:
-        res = _biased_bwd_compact_plain(*args, parts=("pre",))
+        res = _biased_bwd_compact_plain(*args, parts=("pre",), bf16=bf16)
         if delta1 is None:
             delta1 = res["delta1"]
         if "pre" not in parts:
@@ -1314,12 +1321,13 @@ def _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
     d1_t = _row_tiles(delta1, n_i)[..., None]
 
     def steps():
-        for jb, w1, dw1, _, w2d, s, sq, qk in _biased_compact_steps(*args):
+        for jb, w1, dw1, _, w2d, s, sq, qk in _biased_compact_steps(*args,
+                                                                    bf16):
             ds = w1 * (dw1 - d1_t)
             yield jb, ds, _chain_weight(metric, ds, s, sq, qk, sc, D), w2d, \
                 s, sq, qk
     return {**res, **_compact_grads(steps(), q, k, v, do, n_i, metric, scale,
-                                    need_dscale, grads)}
+                                    need_dscale, grads, bf16)}
 
 
 def flash_biased_backward_compact_plain(
@@ -1329,6 +1337,7 @@ def flash_biased_backward_compact_plain(
     jcount: torch.Tensor, jslot: torch.Tensor, metric: str,
     scale: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
     seeds: Optional[torch.Tensor] = None, need_dscale: bool = False,
+    bf16: bool = False,
 ):
     """What B6c, B7a c and B7b c compute together:
     `flash_biased_backward_plain` over the compact store, walking the
@@ -1339,24 +1348,30 @@ def flash_biased_backward_compact_plain(
     returned dB are f32[G, S, BM, BN] in the store's slots, dB 0 in slots
     the walk does not visit; the other shapes as in
     `flash_biased_forward_compact_plain`, out and do like its out.
-    Returns (dq, dk, dv, dB, dscale f32[H] or None)."""
+    Returns (dq, dk, dv, dB, dscale f32[H] or None). ``bf16``: what their
+    bf16 forms compute, the products rounded as in
+    `flash_biased_backward_plain`'s (w1 and w2 are normalised by lse1
+    and lse2, so no walk order enters)."""
     r = _biased_bwd_compact_plain(
         q, k, v, store, bias_store, do, lse1, lse2, (do * out).sum(-1),
         jlist, jcount, jslot, metric, scale, dropout_rate, seeds,
-        need_dscale=need_dscale)
+        need_dscale=need_dscale, bf16=bf16)
     return r["dq"], r["dk"], r["dv"], r["dbias"], r["dscale"]
 
 
 def flash_biased_bwd_pre_compact_plain(q, k, v, store, bias_store, do, lse1,
                                        lse2, delta2, jlist, jcount, jslot,
                                        metric: str, scale=None,
-                                       dropout_rate: float = 0.0, seeds=None):
+                                       dropout_rate: float = 0.0, seeds=None,
+                                       bf16: bool = False):
     """What B6c computes (the JAX package's ``_band_bwd_pre``): (delta1
     f32[G, H, N], dB f32[G, S, BM, BN]) given lse1, lse2 and delta2
-    [G, H, N] (the hybrid band's union statistics)."""
+    [G, H, N] (the hybrid band's union statistics); its bf16 form with
+    ``bf16``."""
     r = _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
                                   delta2, jlist, jcount, jslot, metric, scale,
-                                  dropout_rate, seeds, parts=("pre",))
+                                  dropout_rate, seeds, parts=("pre",),
+                                  bf16=bf16)
     return r["delta1"], r["dbias"]
 
 
@@ -1364,28 +1379,30 @@ def flash_biased_bwd_dq_compact_plain(q, k, v, store, bias_store, do, lse1,
                                       lse2, delta2, delta1, jlist, jcount,
                                       jslot, metric: str, scale=None,
                                       dropout_rate: float = 0.0, seeds=None,
-                                      need_dscale: bool = False):
+                                      need_dscale: bool = False,
+                                      bf16: bool = False):
     """What B7a c computes (walk B of the JAX package's
     ``_band_bwd_dq_dkv``): (dq, dscale f32[H] or None) given delta1 (the
-    union's)."""
+    union's); its bf16 form with ``bf16``."""
     r = _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
                                   delta2, jlist, jcount, jslot, metric, scale,
                                   dropout_rate, seeds, delta1, need_dscale,
-                                  ("dq",))
+                                  ("dq",), bf16)
     return r["dq"], r["dscale"]
 
 
 def flash_biased_bwd_dkv_compact_plain(q, k, v, store, bias_store, do, lse1,
                                        lse2, delta2, delta1, jlist, jcount,
                                        jslot, metric: str, scale=None,
-                                       dropout_rate: float = 0.0, seeds=None):
+                                       dropout_rate: float = 0.0, seeds=None,
+                                       bf16: bool = False):
     """What B7b c computes (walk C of ``_band_bwd_dq_dkv``): (dk, dv)
     given delta1, over the forward walk (the transposed walk that B7b c
-    takes visits the same tiles)."""
+    takes visits the same tiles); its bf16 form with ``bf16``."""
     r = _biased_bwd_compact_plain(q, k, v, store, bias_store, do, lse1, lse2,
                                   delta2, jlist, jcount, jslot, metric, scale,
                                   dropout_rate, seeds, delta1,
-                                  parts=("dkv",))
+                                  parts=("dkv",), bf16=bf16)
     return r["dk"], r["dv"]
 
 
@@ -2145,6 +2162,41 @@ class _FlashBiasedBwdDkvCompactKernel(_FlashBiasedBackwardCompactKernel):
         return dk, dv
 
 
+class _FlashLse1CompactBf16Kernel(_FlashLse1CompactKernel):
+    """B4c's bf16 form, ``tagan_flash_lse1_compact_bf16``: B4c with bf16
+    q.k operands."""
+    name = "flash_lse1_compact_bf16"
+    symbol = "tagan_flash_lse1_compact_bf16"
+
+
+class _FlashBiasedCompactBf16Kernel(_FlashBiasedCompactKernel):
+    """B5c's bf16 form, ``tagan_flash_biased_fwd_compact_bf16``: B5c with
+    bf16 q.k and P@V operands."""
+    name = "flash_biased_fwd_compact_bf16"
+    symbol = "tagan_flash_biased_fwd_compact_bf16"
+
+
+class _FlashBiasedBwdPreCompactBf16Kernel(_FlashBiasedBwdPreCompactKernel):
+    """B6c's bf16 form, ``tagan_flash_biased_bwd_pre_compact_bf16``."""
+    name = "flash_biased_bwd_pre_compact_bf16"
+    source = "flash_biased_bwd_compact_bf16"
+    symbol = "tagan_flash_biased_bwd_pre_compact_bf16"
+
+
+class _FlashBiasedBwdDqCompactBf16Kernel(_FlashBiasedBwdDqCompactKernel):
+    """B7a c's bf16 form, ``tagan_flash_biased_bwd_dq_compact_bf16``."""
+    name = "flash_biased_bwd_dq_compact_bf16"
+    source = "flash_biased_bwd_compact_bf16"
+    symbol = "tagan_flash_biased_bwd_dq_compact_bf16"
+
+
+class _FlashBiasedBwdDkvCompactBf16Kernel(_FlashBiasedBwdDkvCompactKernel):
+    """B7b c's bf16 form, ``tagan_flash_biased_bwd_dkv_compact_bf16``."""
+    name = "flash_biased_bwd_dkv_compact_bf16"
+    source = "flash_biased_bwd_compact_bf16"
+    symbol = "tagan_flash_biased_bwd_dkv_compact_bf16"
+
+
 flash_geometric_fwd_kernel = _FlashForwardKernel()
 flash_geometric_bwd_fused_kernel = _FlashBwdFusedKernel()
 flash_geometric_bwd_dq_kernel = _FlashBwdDqKernel()
@@ -2174,6 +2226,13 @@ flash_biased_bwd_dkv_bf16_kernel = _FlashBiasedBwdDkvBf16Kernel()
 flash_geometric_fwd_compact_bf16_kernel = _FlashForwardCompactBf16Kernel()
 flash_geometric_bwd_dq_compact_bf16_kernel = _FlashBwdDqCompactBf16Kernel()
 flash_geometric_bwd_dkv_compact_bf16_kernel = _FlashBwdDkvCompactBf16Kernel()
+flash_lse1_compact_bf16_kernel = _FlashLse1CompactBf16Kernel()
+flash_biased_fwd_compact_bf16_kernel = _FlashBiasedCompactBf16Kernel()
+flash_biased_bwd_pre_compact_bf16_kernel = \
+    _FlashBiasedBwdPreCompactBf16Kernel()
+flash_biased_bwd_dq_compact_bf16_kernel = _FlashBiasedBwdDqCompactBf16Kernel()
+flash_biased_bwd_dkv_compact_bf16_kernel = \
+    _FlashBiasedBwdDkvCompactBf16Kernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
@@ -2194,7 +2253,12 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_biased_bwd_dkv_bf16_kernel,
            flash_geometric_fwd_compact_bf16_kernel,
            flash_geometric_bwd_dq_compact_bf16_kernel,
-           flash_geometric_bwd_dkv_compact_bf16_kernel)
+           flash_geometric_bwd_dkv_compact_bf16_kernel,
+           flash_lse1_compact_bf16_kernel,
+           flash_biased_fwd_compact_bf16_kernel,
+           flash_biased_bwd_pre_compact_bf16_kernel,
+           flash_biased_bwd_dq_compact_bf16_kernel,
+           flash_biased_bwd_dkv_compact_bf16_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2
 # (single walk, dq by atomics), the faster form at the model's shape (one
@@ -2728,35 +2792,42 @@ class _FlashCompactAttention(torch.autograd.Function):
         return (dq, dk, dv, dscale) + (None,) * 11
 
 
-def _lse1_compact(q, k, store, plan, metric, scale):
-    """lse1 of folded inputs over the compact store: B4c, or its plain
-    version for CPU tensors; trusts the plan."""
+def _lse1_compact(q, k, store, plan, metric, scale, bf16=False):
+    """lse1 of folded inputs over the compact store: B4c (its bf16 form
+    with ``bf16``) for CUDA tensors, the plain version for CPU tensors;
+    trusts the plan."""
     if q.device.type == "cpu":
-        return flash_lse1_compact_plain(q, k, store, *plan, metric, scale)
-    return flash_lse1_compact_kernel(q, k, store, *plan, metric, scale)
+        return flash_lse1_compact_plain(q, k, store, *plan, metric, scale,
+                                        bf16)
+    kern = flash_lse1_compact_bf16_kernel if bf16 \
+        else flash_lse1_compact_kernel
+    return kern(q, k, store, *plan, metric, scale)
 
 
 def _biased_forward_compact(q, k, v, store, bias_store, lse1, plan, metric,
-                            scale, dropout_rate, seeds):
+                            scale, dropout_rate, seeds, bf16=False):
     """(out, lse2) of folded inputs over the compact store given lse1:
-    B5c, or its plain version for CPU tensors; trusts the plan."""
+    B5c (its bf16 form with ``bf16``) for CUDA tensors, the plain version
+    for CPU tensors; trusts the plan."""
     if q.device.type == "cpu":
         return flash_biased_forward_compact_plain(
             q, k, v, store, bias_store, lse1, *plan, metric, scale,
-            dropout_rate, seeds)
-    return flash_biased_fwd_compact_kernel(q, k, v, store, bias_store, lse1,
-                                           *plan, metric, scale, seeds,
-                                           dropout_rate)
+            dropout_rate, seeds, bf16)
+    kern = flash_biased_fwd_compact_bf16_kernel if bf16 \
+        else flash_biased_fwd_compact_kernel
+    return kern(q, k, v, store, bias_store, lse1, *plan, metric, scale, seeds,
+                dropout_rate)
 
 
 def _biased_backward_compact(q, k, v, store, bias_store, do, lse1, lse2,
                              delta2, plan, plan_t, metric, scale,
                              dropout_rate, seeds, need_dscale,
-                             delta1_rest=None):
+                             delta1_rest=None, bf16=False):
     """(dq, dk, dv, dB, dscale or None, delta1) of folded inputs over the
     compact store, given the row statistics lse1, lse2 and delta2
-    [G, H, N]: B6c, then B7a c and B7b c for CUDA tensors, the compact
-    plain parts for CPU tensors. delta1 is B6c's row sums plus
+    [G, H, N]: B6c, then B7a c and B7b c (their bf16 forms with
+    ``bf16``) for CUDA tensors, the compact plain parts for CPU tensors.
+    delta1 is B6c's row sums plus
     ``delta1_rest`` [G, H, N] where given (the hybrid band adds the
     residual's, so that B7a c and B7b c take the union's). dB f32[G, S,
     64, 64] is 0 in slots the walk does not visit. Raises ValueError
@@ -2766,23 +2837,30 @@ def _biased_backward_compact(q, k, v, store, bias_store, do, lse1, lse2,
     if q.device.type == "cpu":
         delta1, dbias = flash_biased_bwd_pre_compact_plain(
             q, k, v, store, bias_store, *rows, *plan, metric, scale,
-            dropout_rate, seeds)
+            dropout_rate, seeds, bf16)
         if delta1_rest is not None:
             delta1 = delta1 + delta1_rest
         r = _biased_bwd_compact_plain(q, k, v, store, bias_store, *rows,
                                       *plan, metric, scale, dropout_rate,
                                       seeds, delta1, need_dscale,
-                                      ("dq", "dkv"))
+                                      ("dq", "dkv"), bf16)
         return r["dq"], r["dk"], r["dv"], dbias, r["dscale"], delta1
-    delta1, dbias = flash_biased_bwd_pre_compact_kernel(
+    pre_kern, dq_kern, dkv_kern = (
+        (flash_biased_bwd_pre_compact_bf16_kernel,
+         flash_biased_bwd_dq_compact_bf16_kernel,
+         flash_biased_bwd_dkv_compact_bf16_kernel) if bf16 else
+        (flash_biased_bwd_pre_compact_kernel,
+         flash_biased_bwd_dq_compact_kernel,
+         flash_biased_bwd_dkv_compact_kernel))
+    delta1, dbias = pre_kern(
         q, k, v, store, bias_store, *rows, *plan, metric, scale, seeds,
         dropout_rate)
     if delta1_rest is not None:
         delta1 = (delta1 + delta1_rest).contiguous()
-    dq, dscale = flash_biased_bwd_dq_compact_kernel(
+    dq, dscale = dq_kern(
         q, k, v, store, bias_store, *rows, delta1, *plan, metric, scale,
         seeds, dropout_rate, need_dscale)
-    dk, dv = flash_biased_bwd_dkv_compact_kernel(
+    dk, dv = dkv_kern(
         q, k, v, store, bias_store, *rows, delta1, *plan_t, metric, scale,
         seeds, dropout_rate)
     return dq, dk, dv, dbias, dscale, delta1
@@ -2806,30 +2884,34 @@ def flash_geometric_fwd_compact(q, k, v, store, jlist, jcount, jslot, *,
 
 
 def flash_lse1_compact(q, k, store, jlist, jcount, jslot, *, metric: str,
-                       scale: Optional[torch.Tensor] = None):
+                       scale: Optional[torch.Tensor] = None,
+                       bf16: bool = False):
     """lse1 [G, H, N] over a compact store: B4c, or its plain version for
-    CPU tensors; the plan is checked."""
+    CPU tensors; the plan is checked. ``bf16`` takes B4c's bf16 form."""
     check_compact_plan(jlist, jcount, jslot, store, q.shape[2])
     scale, _ = _defaults(q, scale, None)
-    return _lse1_compact(q, k, store, (jlist, jcount, jslot), metric, scale)
+    return _lse1_compact(q, k, store, (jlist, jcount, jslot), metric, scale,
+                         bf16)
 
 
 def flash_biased_fwd_compact(q, k, v, store, bias_store, lse1, jlist, jcount,
                              jslot, *, metric: str,
                              scale: Optional[torch.Tensor] = None,
                              dropout_rate: float = 0.0,
-                             seeds: Optional[torch.Tensor] = None):
+                             seeds: Optional[torch.Tensor] = None,
+                             bf16: bool = False):
     """(out, lse2) of the second softmax over a compact store given lse1
     (the JAX package's ``_band_biased_main``): B5c, or its plain version
     for CPU tensors; the plan is checked, seeds i32[G, 2]
-    (`biased_seeds`)."""
+    (`biased_seeds`). ``bf16`` takes B5c's bf16 form, whose result
+    depends on the walk."""
     check_compact_plan(jlist, jcount, jslot, store, q.shape[2])
     scale, _ = _defaults(q, scale, None)
     if seeds is None:
         seeds = biased_seeds(None, q.shape[0], q.device)
     return _biased_forward_compact(q, k, v, store, bias_store, lse1,
                                    (jlist, jcount, jslot), metric, scale,
-                                   dropout_rate, seeds)
+                                   dropout_rate, seeds, bf16)
 
 
 def fold_compact(store, plan, G: int):

@@ -39,6 +39,12 @@ does. Band dropout is the kernels' coordinate hash with the two seeds of
 ``torch.Generator`` once, in the forward, and the backward reads the same
 factors (the two edge sets are disjoint, so the union's drop pattern is
 exact, as in JAX, with other random bits).
+
+With ``bf16`` the band takes the bf16 forms of B4c, B5c, B6c, B7a c and
+B7b c (the TPU kernels' ``bf16=True``: every product's operands rounded
+to bf16, float32 sums); the residual, `lse_union` and the merge hold no
+contraction of the kernels and stay float32, as JAX's ``_res_lse1``,
+``_res_biased_partial`` and residual backward do.
 """
 
 from __future__ import annotations
@@ -217,25 +223,26 @@ class _HybridBiasedAttention(torch.autograd.Function):
     package's ``_hybrid_biased`` custom_vjp): B4c, the residual lse1,
     B5c, the residual partial and the merge forward; B6c, B7a c and
     B7b c with the residual's two sides backward, all with union
-    statistics (the compact plain parts on the CPU). Returns out; the
-    residual's keep factors (kap1, kap2) are the forward's. dscale is
-    formed only when the scale requires grad, dB and the residual bias's
-    gradient only when theirs do."""
+    statistics (the compact plain parts on the CPU); ``bf16`` takes the
+    band kernels' bf16 forms. Returns out; the residual's keep factors
+    (kap1, kap2) are the forward's. dscale is formed only when the scale
+    requires grad, dB and the residual bias's gradient only when theirs
+    do."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, bias_store, res_bias, store, jlist,
                 jcount, jslot, ilist, icount, islot, edge_q, edge_k,
-                edge_mask, seeds, kap1, kap2, metric, dropout_rate):
+                edge_mask, seeds, kap1, kap2, metric, dropout_rate, bf16):
         N = q.shape[2]
         plan = (jlist, jcount, jslot)
         keep = None if kap1 is None else (kap1, kap2)
         lse1_u = lse_union(
-            FG._lse1_compact(q, k, store, plan, metric, scale),
+            FG._lse1_compact(q, k, store, plan, metric, scale, bf16),
             residual_lse1(metric, q, k, edge_q, edge_k, edge_mask, N,
                           scale)).contiguous()
         band = FG._biased_forward_compact(q, k, v, store, bias_store, lse1_u,
                                           plan, metric, scale, dropout_rate,
-                                          seeds)
+                                          seeds, bf16)
         res_part = residual_biased_partial(metric, q, k, v, edge_q, edge_k,
                                            edge_mask, N, res_bias, lse1_u,
                                            scale, keep)
@@ -244,7 +251,7 @@ class _HybridBiasedAttention(torch.autograd.Function):
                               jlist, jcount, jslot, ilist, icount, islot,
                               edge_q, edge_k, edge_mask, seeds, kap1, kap2,
                               lse1_u, lse2_u.contiguous(), out)
-        ctx.args = (metric, dropout_rate)
+        ctx.args = (metric, dropout_rate, bf16)
         return out
 
     @staticmethod
@@ -252,7 +259,7 @@ class _HybridBiasedAttention(torch.autograd.Function):
         (q, k, v, scale, bias_store, res_bias, store, jlist, jcount, jslot,
          ilist, icount, islot, edge_q, edge_k, edge_mask, seeds, kap1, kap2,
          lse1_u, lse2_u, out) = ctx.saved_tensors
-        metric, dropout_rate = ctx.args
+        metric, dropout_rate, bf16 = ctx.args
         need_dscale = ctx.needs_input_grad[3] and metric in FG.SCALED_METRICS
         g = dout.contiguous()
         delta2 = (g * out).sum(-1).contiguous()
@@ -264,7 +271,7 @@ class _HybridBiasedAttention(torch.autograd.Function):
             q, k, v, store, bias_store, g, lse1_u, lse2_u, delta2,
             (jlist, jcount, jslot),
             None if ilist is None else (ilist, icount, islot), metric, scale,
-            dropout_rate, seeds, need_dscale, delta1_r)
+            dropout_rate, seeds, need_dscale, delta1_r, bf16)
         dq_r, dk_r, dv_r, dscale_r = finish(delta1_u)
         if need_dscale:
             dscale = dscale + dscale_r
@@ -273,7 +280,7 @@ class _HybridBiasedAttention(torch.autograd.Function):
         return (dq + dq_r, dk + dk_r, dv + dv_r, dscale,
                 dbias if ctx.needs_input_grad[4] else None,
                 dz_r.sum(-2) if ctx.needs_input_grad[5] else None) \
-            + (None,) * 15
+            + (None,) * 16
 
 
 def hybrid_biased_attention(
@@ -282,7 +289,7 @@ def hybrid_biased_attention(
     metric: str = "scaled_dot_product",
     scale_param: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
     dropout_seed=None, generator: Optional[torch.Generator] = None,
-    plan_t=None,
+    plan_t=None, bf16: bool = False,
 ) -> torch.Tensor:
     """The edge-biased hybrid attention's output [..., H, N, Dv] (the JAX
     ``hybrid_biased_attention``), rows with no edge zero, differentiable
@@ -297,7 +304,9 @@ def hybrid_biased_attention(
     path does; the normalisation and the folding of leading dims stay
     outside the autograd Function, where autograd pulls them back.
     ``dropout_seed`` (one int32 per leading index) seeds the band's two
-    hash dropouts, ``generator`` the residual's keep factors."""
+    hash dropouts, ``generator`` the residual's keep factors. ``bf16``
+    takes the band kernels' bf16 forms, forward and backward; the
+    residual and the merge stay float32."""
     if metric not in FG.MXU_METRICS:
         raise NotImplementedError(
             f"metric {metric} is not written through q.k; use 'csr'")
@@ -327,5 +336,5 @@ def hybrid_biased_attention(
         bias_store.to(torch.float32).reshape(G, *bias_store.shape[-3:])
         .contiguous(), res_bias.to(torch.float32).reshape(G, -1), st, *pl,
         *pl_t, eq, ek, em, FG.biased_seeds(dropout_seed, G, q.device), *keep,
-        metric, dropout_rate)
+        metric, dropout_rate, bf16)
     return out.reshape(*lead, H, N, Dv)

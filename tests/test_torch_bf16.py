@@ -241,30 +241,40 @@ def test_plain_bf16_matches_jax(metric, rate, D, attn_inputs, interpret):
 
 
 def test_bf16_refusals():
-    """What stays refused at bf16 raises before anything runs: the
-    model's check of an edge-feature hybrid configuration with
-    bf16_matmul, and ``apply_hybrid`` with a band bias and ``bf16`` (the
-    edge-biased compact kernels have no bf16 form). The compact backward
-    takes ``bf16`` now: it gives the plain compact bf16 backward's
-    result. (The edge-biased dense entry has its bf16 form:
-    tests/test_torch_edge_bf16.py.)"""
+    """Nothing is refused at bf16 any more: the model builds an
+    edge-feature hybrid configuration with bf16_matmul, and
+    ``apply_hybrid`` with a band bias and ``bf16`` gives the plain
+    result, that of the flash layer's biased bf16 path (the dense plain
+    bf16 B4 and B5, walking the same 64 x 64 tile) on the same mask,
+    bias and weights when every edge lies in the band; the float32 layer
+    stands apart from it. The compact backward takes ``bf16``: it gives
+    the plain compact bf16 backward's result. (The edge-biased entries'
+    bf16 forms are held against JAX in tests/test_torch_edge_bf16.py and
+    tests/test_torch_hybrid_edge_bf16.py.)"""
     rng = np.random.default_rng(2)
     q, k = (_t(rng.standard_normal((1, 1, 8, 4)).astype(np.float32))
             for _ in range(2))
     mask = torch.ones(1, 8, 8, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="bf16_matmul"):
-        pt.TAGAN(pt.TAGANConfig(**dict(_cfg("hybrid"), use_edge_features=True,
-                                       edge_feature_dim=3)), device="cpu")
+    pt.TAGAN(pt.TAGANConfig(**dict(_cfg("hybrid"), use_edge_features=True,
+                                   edge_feature_dim=3)), device="cpu")
     store, plan = TFG.compact_from_mask(mask)
     plan_t = TFG.compact_transposed_plan(mask)
-    res = (torch.zeros(1, 0, dtype=torch.int32),) * 2 \
-        + (torch.zeros(1, 0, dtype=torch.bool),)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        TGeo(4, 1, dropout=0.0).apply_hybrid(
-            torch.zeros(1, 8, 4), store, plan, res,
-            torch.ones(1, 8, dtype=torch.bool),
-            band_bias=torch.zeros(1, 1, 64, 64), res_bias=torch.zeros(1, 0),
-            plan_t=plan_t, bf16=True)
+    # a residual of one masked slot, as a plan with every edge in the
+    # band has it
+    res = (torch.zeros(1, 1, dtype=torch.int32),) * 2 \
+        + (torch.zeros(1, 1, dtype=torch.bool),)
+    layer = TGeo(4, 1, dropout=0.0)
+    x = _t(rng.standard_normal((1, 8, 4)).astype(np.float32))
+    bias = _t(rng.standard_normal((1, 8, 8)).astype(np.float32))
+    with torch.no_grad():
+        got, got32 = (layer.apply_hybrid(
+            x, store, plan, res, torch.ones(1, 8, dtype=torch.bool),
+            band_bias=TFG.compact_values(mask, bias),
+            res_bias=torch.zeros(1, 1), plan_t=plan_t, bf16=bf16)
+            for bf16 in (True, False))
+        want = layer.apply_flash(x, mask, bias=bias, bf16=True)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert (got - got32).abs().max() > 1e-6
     out, lse = TFG.flash_geometric_fwd_compact(q, k, k, store, *plan,
                                                metric="dot_product",
                                                bf16=True)

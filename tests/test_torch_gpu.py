@@ -13,7 +13,6 @@ import pytest
 import torch
 
 import tagan_torch as pt
-from tagan_torch.nn.geometric import GeometricAttention
 from tagan_torch.ops import flash_geometric as FG
 
 # fp32 on both sides, sums in another order (kernel: 64-key online
@@ -933,16 +932,21 @@ COMPACT_BIASED_BWD = (FG.flash_biased_bwd_pre_compact_kernel,
                       FG.flash_biased_bwd_dkv_compact_kernel)
 
 
-def _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack, rate, seed=0):
+def _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack, rate, seed=0,
+                               qk_scale=1.0):
     """`_biased_inputs` on the compact store with a key tile whose
     transposed walk is empty (snapshot 0, keys 64..127, icount = 0), the
     row tile with jcount = 0 and, in snapshot 1, fewer occupied tiles
     than the store's S (slots no walk visits); union-like statistics as
     the hybrid backward passes them: the compact plain forward's lse1 and
     lse2 raised by a constant on live rows, lse2 = NEG_INF on dead rows
-    (the merge's mark), delta2 = rowsum(dO out) and a residual delta1."""
+    (the merge's mark), delta2 = rowsum(dO out) and a residual delta1.
+    ``qk_scale`` scales q and k (but cosine metrics' unit rows) before
+    the statistics are formed."""
     q, k, v, mask, bias, scale, seeds = _biased_inputs(G, H, N, D, Dv,
                                                        metric, seed)
+    if metric not in FG._COSINE:
+        q, k = qk_scale * q, qk_scale * k
     mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
     if G > 1:
         mask[1, :, 2 * FG.BLOCK_N:] = 0
@@ -1301,32 +1305,43 @@ def test_bf16_trainer_step_on_gpu_matches_cpu(fused, cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-def test_bf16_refused_before_launch(cuda):
-    """What has no bf16 form raises before any launch on CUDA tensors:
-    ``apply_hybrid`` with a band bias and ``bf16`` (the edge-biased
-    compact kernels), and the model's combination that would need them
-    (check_in_slice, on the card). The compact entries have their bf16
-    forms (the tests below)."""
-    q, k, v, mask = (t.to(cuda) for t in _inputs(1, 2, 70, 16, 16))
+@pytest.mark.parametrize("kernel", ["lse1", "fwd", "pre", "dq", "dkv"])
+def test_bf16_refused_before_launch(kernel, cuda):
+    """Every bf16 form has an entry now, and the edge-feature hybrid bf16
+    model builds on the card; what is refused before any launch is a bad
+    walk: a jslot (islot) past the store raises ValueError on the host at
+    each compact edge-biased bf16 entry (B4c and B5c through their public
+    entries, B6c, B7a c and B7b c at their wrappers), and no kernel is
+    launched."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, _) = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_biased_bwd_inputs(1, 2, 150, 16, 16, "dot_product",
+                                            True, 0.0))
+    pt.TAGAN(_bf16_model_cfg(spatial_backend="hybrid",
+                             use_edge_features=True, edge_feature_dim=4),
+             device=cuda)
+    jl, jc, js = (p.clone() for p in plan)
+    il, ic, isl = (p.clone() for p in plan_t)
+    js[0, 0, 0] = isl[0, 0, 0] = store.shape[1]
+    common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
+    calls = {
+        "lse1": lambda: FG.flash_lse1_compact(
+            q, k, store, jl, jc, js, metric="dot_product", bf16=True),
+        "fwd": lambda: FG.flash_biased_fwd_compact(
+            q, k, v, store, bias_store, lse1, jl, jc, js,
+            metric="dot_product", bf16=True),
+        "pre": lambda: FG.flash_biased_bwd_pre_compact_bf16_kernel(
+            *common, jl, jc, js, "dot_product", scale, seeds, 0.0),
+        "dq": lambda: FG.flash_biased_bwd_dq_compact_bf16_kernel(
+            *common, lse1, jl, jc, js, "dot_product", scale, seeds, 0.0,
+            False),
+        "dkv": lambda: FG.flash_biased_bwd_dkv_compact_bf16_kernel(
+            *common, lse1, il, ic, isl, "dot_product", scale, seeds, 0.0)}
     before = {k_.name: k_.launches for k_ in FG.KERNELS}
-    store, plan = FG.compact_from_mask(mask)
-    plan_t = FG.compact_transposed_plan(mask)
-    res = (torch.zeros(1, 0, dtype=torch.int32, device=cuda),) * 2 \
-        + (torch.zeros(1, 0, dtype=torch.bool, device=cuda),)
-    layer = GeometricAttention(32, 2, dropout=0.0).to(cuda)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        layer.apply_hybrid(torch.zeros(1, 70, 32, device=cuda), store, plan,
-                           res, torch.ones(1, 70, dtype=torch.bool,
-                                           device=cuda),
-                           band_bias=torch.zeros(1, store.shape[1], 64, 64,
-                                                 device=cuda),
-                           res_bias=torch.zeros(1, 0, device=cuda),
-                           plan_t=plan_t, bf16=True)
+    with pytest.raises(ValueError, match="jslot"):
+        calls[kernel]()
     assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
-    with pytest.raises(NotImplementedError, match="bf16_matmul"):
-        pt.TAGAN(_bf16_model_cfg(spatial_backend="hybrid",
-                                 use_edge_features=True, edge_feature_dim=4),
-                 device=cuda)
 
 
 # -- the compact bf16 forms (B1c, B3a c, B3b c) --------------------------------
@@ -1632,6 +1647,179 @@ def test_edge_bf16_trainer_step_on_gpu_matches_cpu(cuda):
         dense_adj=False)))
     want = {k_.name: 0 for k_ in FG.KERNELS}
     want.update({k_.name: cfg.num_layers for k_ in BIASED_BF16})
+    for contractions, loss_tol, grad_tol in (("highest", BF16_MAX_TOL,
+                                              BF16_EDGE_GRAD),
+                                             (None, 2e-2, 1e-1)):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            model = pt.TAGAN(cfg, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+            if contractions is not None:
+                model.precision = \
+                    lambda: default_matmul_precision(contractions)
+            tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
+            before = {k_.name: k_.launches for k_ in FG.KERNELS}
+            loss, _ = tr._loss(batch, labels, smask, True)
+            loss.backward()
+            launched = {k_.name: k_.launches - before[k_.name]
+                        for k_ in FG.KERNELS}
+            got[dev] = (loss.item(), {n_: p.grad.detach().cpu().clone()
+                                      for n_, p in model.named_parameters()})
+            if dev == "cuda":
+                assert launched == want
+        assert abs(got["cuda"][0] - got["cpu"][0]) <= loss_tol
+        for name in ("edge_embedding.w",
+                     "geometric_layers.layer_0.edge_bias.w",
+                     "geometric_layers.layer_1.edge_bias.w"):
+            assert got["cuda"][1][name].abs().max() > 0, name
+        for name, g in got["cpu"][1].items():
+            if name in ("temporal_attention.k.b",
+                        "temporal_attention.time_encoding.basis_proj.b",
+                        "temporal_attention.time_q_proj.b"):
+                continue    # zero in exact arithmetic: fp32 noise
+            card = got["cuda"][1][name]
+            assert torch.isfinite(card).all(), name
+            assert (card - g).abs().max() <= grad_tol * g.abs().max(), name
+
+
+# -- the compact edge-biased bf16 forms (B4c, B5c, B6c, B7a c, B7b c) ----------
+
+# q and k at half the fp32 tests' N(0, 1) for the bf16 gates. At N(0, 1) and
+# head dim 16 the raw dot product's and the squared distance's scores span
+# tens: a 1e-7 relative change of q and k (what an fp32 sum in another
+# order makes) flips bf16 roundings of chain weights that carry most of a
+# row's dq or dk, and moves the plain bf16 version itself past the max
+# gate; and rbf's scores saturate, so its bf16 dq and dk stand under the
+# witness's floor from the fp32 ones. At half scale neither happens
+BF16_QK_SCALE = 0.5
+COMPACT_BIASED_BF16 = (FG.flash_lse1_compact_bf16_kernel,
+                       FG.flash_biased_fwd_compact_bf16_kernel,
+                       FG.flash_biased_bwd_pre_compact_bf16_kernel,
+                       FG.flash_biased_bwd_dq_compact_bf16_kernel,
+                       FG.flash_biased_bwd_dkv_compact_bf16_kernel)
+
+
+def _compact_biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
+                                  seed=0):
+    """B4c and B5c in their bf16 forms through the public entries
+    (``flash_lse1_compact``, ``flash_biased_fwd_compact`` with bf16=True),
+    then B6c, B7a c and B7b c (``_biased_backward_compact`` with bf16, on
+    `_compact_biased_bwd_inputs`' union-like statistics), against the
+    compact plain bf16 versions under the bf16 gates, the plain fp32
+    versions the witness: lse1, out and lse2 (dead rows exactly), delta1,
+    dB at the mask's pairs (0 elsewhere in the store, the unvisited slots
+    included), dq (0 on dead rows), dk and dv (0 on the key tile with
+    icount = 0) and dscale (the max gate alone); each of the five
+    entries launched once and nothing else."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, d1_rest) = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack,
+                                            rate, seed, BF16_QK_SCALE))
+    need = metric in FG.SCALED_METRICS
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    l1 = FG.flash_lse1_compact(q, k, store, *plan, metric=metric,
+                               scale=scale, bf16=True)
+    out, l2 = FG.flash_biased_fwd_compact(
+        q, k, v, store, bias_store, lse1, *plan, metric=metric, scale=scale,
+        dropout_rate=rate, seeds=seeds, bf16=True)
+    got = FG._biased_backward_compact(q, k, v, store, bias_store, do, lse1,
+                                      lse2, delta2, plan, plan_t, metric,
+                                      scale, rate, seeds, need, d1_rest, True)
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect.update({k_.name: 1 for k_ in COMPACT_BIASED_BF16})
+    assert launched == expect
+    plain = {}
+    for bf16 in (True, False):
+        p_l1 = FG.flash_lse1_compact_plain(q, k, store, *plan, metric, scale,
+                                           bf16)
+        p_out, p_l2 = FG.flash_biased_forward_compact_plain(
+            q, k, v, store, bias_store, lse1, *plan, metric, scale, rate,
+            seeds, bf16)
+        common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
+        p_d1, p_db = FG.flash_biased_bwd_pre_compact_plain(
+            *common, *plan, metric, scale, rate, seeds, bf16)
+        d1u = p_d1 + d1_rest
+        p_dq, p_dsc = FG.flash_biased_bwd_dq_compact_plain(
+            *common, d1u, *plan, metric, scale, rate, seeds, need, bf16)
+        p_dk, p_dv = FG.flash_biased_bwd_dkv_compact_plain(
+            *common, d1u, *plan, metric, scale, rate, seeds, bf16)
+        plain[bf16] = (p_l1, p_out, p_l2, d1u, p_db, p_dq, p_dsc, p_dk, p_dv)
+    (p_l1, p_out, p_l2, p_d1, p_db, p_dq, p_dsc, p_dk,
+     p_dv), f32 = plain[True], plain[False]
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    assert torch.all(l1[dead] == FG.LSE_DEAD)
+    assert torch.all(out[dead] == 0) and torch.all(l2[dead] == FG.LSE_DEAD)
+    _bf16_gates(l1[~dead], p_l1[~dead], f32[0][~dead], witness=False)
+    _bf16_gates(out[~dead], p_out[~dead], f32[1][~dead])
+    _bf16_gates(l2[~dead], p_l2[~dead], f32[2][~dead], witness=False)
+    dq, dk, dv, db, dsc, d1 = got
+    on = FG.compact_values(mask, mask != 0)
+    _bf16_gates(d1, p_d1, f32[3])
+    _bf16_gates(db[on], p_db[on], f32[4][on])
+    assert torch.all(db[~on] == 0)
+    for g, w, f in ((dq, p_dq, f32[5]), (dk, p_dk, f32[7]),
+                    (dv, p_dv, f32[8])):
+        _bf16_gates(g, w, f)
+    if need:
+        _bf16_gates(dsc, p_dsc, f32[6], witness=False, mean=False)
+    else:
+        assert dsc is None
+    assert torch.all(dq[dead] == 0)
+    assert torch.all(dk[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+    assert torch.all(dv[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_biased_bf16_kernels_match_plain(metric, rate, pack, cuda):
+    """The bf16 forms of B4c, B5c, B6c, B7a c and B7b c, bit and int8
+    stores: N=150 (not a tile multiple), D != Dv, dead rows (lse2 the
+    merge's NEG_INF), a row tile with jcount = 0, a key tile with
+    icount = 0, unvisited slots, per-head scales with dscale, both
+    dropouts from per-snapshot seed pairs."""
+    _compact_biased_bf16_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate,
+                                  pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_compact_biased_bf16_kernel_head_dims(D, Dv, pack, cuda):
+    """Head dims whose sqrt is not a power of two, D != Dv, and the
+    widest, (128, 128), where the compact backward's bias tile and
+    tile-row words sit beside the widest tiles in shared memory."""
+    _compact_biased_bf16_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel",
+                                  0.1, pack, seed=1)
+
+
+@pytest.mark.gpu
+def test_hybrid_edge_bf16_trainer_step_on_gpu_matches_cpu(cuda):
+    """One TAGANTrainer step of the 100-node edge-feature hybrid model
+    (Fe = 4) with bf16_matmul=True over a ``plan="hybrid"`` loader, card
+    against CPU: the bf16 forms of B4c, B5c, B6c, B7a c and B7b c
+    launched once per layer, nothing else. With the plain contractions
+    pinned to fp32 the loss within the max gate and each gradient within
+    `BF16_EDGE_GRAD` (the edge parameters' gradients are sums of dB over
+    every edge, as on flash); with every contraction at bf16 within
+    bf16-class tolerances (the loss 2e-2, each gradient 1e-1 of its
+    largest entry); the edge parameters' gradients non-zero."""
+    from tagan_torch.core.module import default_matmul_precision
+    seqs = _hybrid_seqs(np.random.default_rng(5), 100, 800, 3, 2, 4)
+    cfg = _bf16_model_cfg(spatial_backend="hybrid", edge_feature_dim=4,
+                          use_edge_features=True,
+                          distance_metric="gaussian_kernel",
+                          learnable_distance=True)
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        pt.TemporalGraphDataset(seqs, [1.0, 0.0]), batch_size=2,
+        dense_adj=False, plan="hybrid")))
+    want = {k_.name: 0 for k_ in FG.KERNELS}
+    want.update({k_.name: cfg.num_layers for k_ in COMPACT_BIASED_BF16})
     for contractions, loss_tol, grad_tol in (("highest", BF16_MAX_TOL,
                                               BF16_EDGE_GRAD),
                                              (None, 2e-2, 1e-1)):

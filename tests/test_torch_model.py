@@ -176,15 +176,11 @@ def test_predictor_matches_jax(backend, interpret):
      "spatial_backend": "hybrid"}])
 def test_outside_the_slice_raises(override):
     """What the port does not run raises NotImplementedError at
-    construction: bf16_matmul runs on the dense, csr and flash backends,
-    with and without edge features, and on the hybrid backend without
-    them, but not on the hybrid backend with edge features (the
-    edge-biased compact kernels have no bf16 form). The hybrid backend
-    trains in fp32, with and without edge features: a backward on a plan
+    construction. The hybrid backend runs and trains, with and without
+    edge features, in fp32 and with bf16_matmul: a backward on a plan
     without the transposed walk raises ValueError for both models, and
     with it the edge-feature model's gradients are finite."""
-    if override.get("spatial_backend") == "hybrid" \
-            and not override.get("bf16_matmul"):
+    if override.get("spatial_backend") == "hybrid":
         rng = np.random.default_rng(0)
         snaps = [{"x": rng.standard_normal((12, 8)).astype(np.float32),
                   "edge_index": rng.integers(0, 12, (2, 30)),
@@ -197,8 +193,8 @@ def test_outside_the_slice_raises(override):
         loss = model(seq.with_hybrid_plan(), torch.tensor(1.0)).loss
         with pytest.raises(ValueError, match="transposed walk"):
             loss.backward()
-        edge = pt.TAGAN(pt.TAGANConfig(**_config(
-            edge_feature_dim=3, use_edge_features=True, **override)),
+        edge = pt.TAGAN(pt.TAGANConfig(**_config(**{
+            "edge_feature_dim": 3, "use_edge_features": True, **override})),
             device="cpu")
         loss = edge(seq.with_hybrid_plan(), torch.tensor(1.0)).loss
         with pytest.raises(ValueError, match="transposed walk"):
@@ -215,28 +211,32 @@ def test_outside_the_slice_raises(override):
 
 
 def test_bf16_hybrid_raises():
-    """bf16_matmul on the hybrid backend with edge features raises
-    NotImplementedError at construction, naming the edge-biased compact
-    kernels that have no bf16 form; without edge features the hybrid
-    bf16 model builds, runs and trains on the CPU (its values are held
-    against JAX's in `test_torch_hybrid_bf16.py`)."""
-    with pytest.raises(NotImplementedError, match="hybrid.*B4c"):
-        pt.TAGAN(pt.TAGANConfig(**_config(
-            spatial_backend="hybrid", bf16_matmul=True,
-            use_edge_features=True, edge_feature_dim=3)), device="cpu")
+    """bf16_matmul on the hybrid backend no longer raises: with and
+    without edge features the hybrid bf16 model builds, runs and trains
+    on the CPU, every gradient finite and the edge parameters' non-zero
+    (its values are held against JAX's in `test_torch_hybrid_bf16.py`
+    and `test_torch_hybrid_edge_bf16.py`)."""
     rng = np.random.default_rng(0)
     snaps = [{"x": rng.standard_normal((12, 8)).astype(np.float32),
               "edge_index": rng.integers(0, 12, (2, 30)),
+              "edge_attr": rng.standard_normal((30, 3)).astype(np.float32),
               "node_ids": np.arange(12), "timestep": float(t)}
              for t in range(2)]
     seq = pt.build_sequence(snaps, dense_adj=False).with_hybrid_plan(
         transposed=True)
-    model = pt.TAGAN(pt.TAGANConfig(**_config(
-        spatial_backend="hybrid", bf16_matmul=True)), device="cpu")
-    loss = model(seq, torch.tensor(1.0)).loss
-    loss.backward()
-    assert torch.isfinite(loss)
-    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+    for edge in ({}, {"use_edge_features": True, "edge_feature_dim": 3}):
+        model = pt.TAGAN(pt.TAGANConfig(**_config(
+            spatial_backend="hybrid", bf16_matmul=True, **edge)),
+            device="cpu")
+        loss = model(seq, torch.tensor(1.0)).loss
+        loss.backward()
+        assert torch.isfinite(loss)
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+        if edge:
+            assert model.edge_embedding.w.grad.abs().max() > 0
+            assert all(p.grad.abs().max() > 0
+                       for n, p in model.named_parameters()
+                       if "edge_bias" in n)
 
 
 def test_edge_dim_without_edge_features_matches_jax(churn_batch):

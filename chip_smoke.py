@@ -167,14 +167,16 @@ Phases, in order; any failure raises and exits non-zero:
    differs), and their bounds (the fp32 forms' bytes, operations at the
    bf16 rate);
 6. the training path at the same width: ``TAGANTrainer.train`` on one
-   sequence per batch, one warm-up step, then 3 steps with the picker's
-   default backward and 3 with the other form, launch counts set to 0
+   sequence per batch, one warm-up step and 3 steps with B3a+B3b, then 3
+   with B2 (the picker's default), launch counts set to 0
    just before each and read just after; step times (host clock around a
    synchronising step), the forward / backward / optimizer split (CUDA
    events), one layer's B1 and backward launches over the 8 folded
    snapshots and their share of the step, finite losses, finite non-zero
    gradients and parameters moved after the warm-up; then one snapshot
-   at full width, both backward forms against the plain backward;
+   at full width, both backward forms against the plain backward, at the
+   seeded weights and at those after the B3a+B3b steps (which sum in a
+   fixed order, so the inputs are the same in every run);
    (6b) the same for the edge-feature model (B4, B5 forward; B6, B7a,
    B7b backward, each exactly once per layer per step, B1-B3 never):
    step times, split, peak memory, one layer's B6+B7a+B7b over the
@@ -199,7 +201,9 @@ Phases, in order; any failure raises and exits non-zero:
    other backward) launched exactly as the fp32 forms are in 6, the fp32
    forms never; step times, split, peak memory, one layer's bf16 B1 and
    backward over the folded snapshots and their share of the step; one
-   snapshot at full width against the plain bf16 backward; (6f) phase 6b
+   snapshot at full width against the plain bf16 backward, the plain bf16
+   backward's own movement under a 1e-7 relative nudge of q and k logged
+   beside it; (6f) phase 6b
    with ``bf16_matmul=True``: the bf16 forms of B4-B7b each exactly once
    per layer per step, nothing else; step times, split, peak memory, one
    layer's bf16 B6 + B7a + B7b over the folded snapshots and their share
@@ -234,7 +238,26 @@ Phases, in order; any failure raises and exits non-zero:
    forms of B4-B7b); (7g) the same for the hybrid model on 7c's graphs at
    4,096 nodes (the bf16 forms of B1c, B3a c and B3b c), the CPU's own
    flip noise measured beside it; (7h) the same for the edge-feature
-   hybrid model on 7d's graphs (the bf16 forms of B4c-B7b c).
+   hybrid model on 7d's graphs (the bf16 forms of B4c-B7b c);
+8. the graph-sharded ring over g = 2, 4 and 8 virtual ranks of the card
+   (``make_mesh(graph=g, devices=["cuda"] * g)``, each rank with a
+   compute and a copy stream of its own): the main path is
+   ``ring_all_gather_sharded`` over the 10K flash model's layer-0 K as
+   [10,000, 64] fp32 and over [131,072, 64] fp32 and bf16 rows, and
+   ``ring_flash_attention`` on that layer's q, k, v and snapshot mask,
+   fp32 at every g and bf16 at g = 4, launch counts set to 0 just before
+   and read just after; (8a) B8 bit for bit against the rank-order
+   concatenation on every rank and identical over 50 rings, its ms beside
+   each rank's ``torch.cat`` of the shards and the host's time to issue
+   a ring; (8b) B9 within 1e-4 of its
+   plain version on the card and of B1 on the live rows (its dead rows
+   exactly 0), within 2e-4 of the port's collective ring
+   (``dist.edge_partition.ring_edge_attention``) on the card, repeated
+   rings identical, ms per snapshot beside SDPA with the boolean mask at
+   the scaled-dot metric (held to B9 there within 1e-4, else its time is
+   null with the reason); (8c) B9's bf16 form at g = 4 under the bf16
+   gates, the fp32 form's ms in the same run, SDPA on bf16 q, k, v as its
+   yardstick (within ``FLEX_BF16_TOL``).
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -364,6 +387,19 @@ def cuda_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def host_ms(fn, iters):
+    """ms of the host's clock to issue ``fn`` once, not waiting for the
+    card."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    sync()
+    return ms
+
+
 def reset_counts(FG):
     for k in FG.KERNELS:
         k.launches = 0
@@ -454,8 +490,9 @@ def compact_biased_kernels(FG, bf16):
 # -- phase 1 ------------------------------------------------------------------
 
 def phase_build(build, FG):
+    TG, TF = ring_modules()[2:]
     t0 = time.perf_counter()
-    build.build([k.source for k in FG.KERNELS])
+    build.build([k.source for k in FG.KERNELS + TG.KERNELS + TF.KERNELS])
     log(f"[1] kernels built in {time.perf_counter() - t0:.3f} s, each "
         f"source (its nvcc's time, all started together) "
         f"{ {n: round(t, 3) for n, t in build.build_seconds.items()} }")
@@ -2082,14 +2119,26 @@ def phase_train(tt, FG, bf16=False):
     batches = list(loader)                  # packs and caches the sequences
     pack_s = time.perf_counter() - t0
     trainer = tt.TAGANTrainer(model, exp)
+
+    def snapshot():
+        return tuple(t[:1].clone() for t in layer0_inputs(
+            FG, model, batches[0][0].to(DEV), N_FULL))
+    # the full-width check (below) runs on layer 0 of the first batch's
+    # first snapshot at two sets of weights: the seeded ones, and the
+    # trained ones after the warm-up and the B3a+B3b steps. Every step
+    # before that takes B3a+B3b, which sum in a fixed order (B2 sums dq by
+    # atomics, in an order that changes from run to run), so both inputs,
+    # and which bf16 roundings of the check flip, are the same in every run
+    checks = {"seeded": snapshot()}
+    default = FG.FUSED_BWD
+    FG.FUSED_BWD = False
     trainer.train(warm, verbose=False)
     sync()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    default = FG.FUSED_BWD
     runs = {}
     torch.cuda.reset_peak_memory_stats()
-    for fused in (default, not default):
+    for fused in (False, True):
         FG.FUSED_BWD = fused
         reset_counts(FG)
         t0 = time.perf_counter()
@@ -2097,6 +2146,8 @@ def phase_train(tt, FG, bf16=False):
         sync()
         epoch_ms = (time.perf_counter() - t0) * 1e3
         launched = counts(FG)
+        if not fused:
+            checks["trained"] = snapshot()
         want = {k.name: 0 for k in FG.KERNELS}
         want[b1.name] = 2 * TRAIN_STEPS
         for kern in (b2,) if fused else (b3a, b3b):
@@ -2166,36 +2217,72 @@ def phase_train(tt, FG, bf16=False):
         f"{'B2' if default else 'B3a+B3b'} = {share:.3f} of the fastest step "
         f"({step:.3f} ms)")
 
-    # one snapshot at full width: both forms against the plain backward
-    one = tuple(t[:1].contiguous() for t in (q, k, v, mask, out, lse, do))
-    plan = tuple(t[:1].contiguous() for t in (jlist, jcount))
-    plan_t = tuple(t[:1].contiguous() for t in (ilist, icount))
-    want = FG.flash_geometric_backward_plain(*one, "euclidean", ones, 0.0,
-                                             seeds[:1], False, None, bf16)
-    if bf16:
-        f32 = FG.flash_geometric_backward_plain(*one, "euclidean", ones, 0.0,
-                                                seeds[:1])
-    full = {}
-    for fused in (True, False):
-        got = FG._backward(*one, plan, plan_t, "euclidean", ones, 0.0,
-                           seeds[:1], False, fused, None, bf16)
-        sync()
+    # one snapshot at full width, at the seeded and the trained weights:
+    # both forms against the plain backward
+    del q, k, v, mask, out, lse, do, common, args
+    full, sums, noise = {True: {}, False: {}}, {}, {}
+    for label, (q1, k1, v1, mask1, jl1, jc1, il1, ic1) in checks.items():
+        with torch.no_grad():
+            out1, lse1 = b1(q1, k1, v1, mask1, jl1, jc1, "euclidean", ones,
+                            seeds[:1], 0.0)
+        do1 = torch.randn(out1.shape, device=DEV, generator=torch.Generator(
+            device=DEV).manual_seed(6))
+        one = (q1, k1, v1, mask1, out1, lse1, do1)
+        # the inputs' sums, to compare them between runs
+        sums[label] = [t.double().sum().item() for t in (q1, k1, v1)]
+
+        def plain(q_, k_, b16):
+            return FG.flash_geometric_backward_plain(
+                q_, k_, *one[2:], "euclidean", ones, 0.0, seeds[:1], False,
+                None, b16)
+        want = plain(q1, k1, bf16)
         if bf16:
-            full[fused] = {n: bf16_gates(f"N={N_FULL} fused={fused} {n}",
-                                         g, w, f)[0]
-                           for n, g, w, f in zip(("dq", "dk", "dv"), got,
-                                                 want, f32)}
-            full[fused]["dscale"] = 0.0
-        else:
-            full[fused] = check_backward(f"N={N_FULL}", got, want, fused)
+            f32 = plain(q1, k1, False)
+            # the plain bf16 backward's own movement, over each gradient's
+            # largest entry, when q and k change by 1e-7 of themselves (out,
+            # lse and do held): how far flipped bf16 roundings move it here
+            gen = torch.Generator(device=DEV).manual_seed(7)
+            moved_by = plain(*(t * (1 + 1e-7 * torch.randn(
+                t.shape, device=DEV, generator=gen)) for t in (q1, k1)), True)
+            noise[label] = {n: ((m_ - w).abs().max() / w.abs().max()).item()
+                            for n, m_, w in zip(("dq", "dk", "dv"), moved_by,
+                                                want)}
+            del moved_by
+        for fused in (True, False):
+            got = FG._backward(*one, (jl1, jc1), (il1, ic1), "euclidean",
+                               ones, 0.0, seeds[:1], False, fused, None, bf16)
+            sync()
+            if bf16:
+                gates = {n: bf16_gates(f"N={N_FULL} {label} fused={fused} "
+                                       f"{n}", g, w, f)
+                         for n, g, w, f in zip(("dq", "dk", "dv"), got, want,
+                                               f32)}
+                log(f"[{tag}] {'B2' if fused else 'B3a+B3b'} at N={N_FULL}, "
+                    f"{label} weights, vs plain bf16: (max abs err, max err, "
+                    f"mean err, witness) "
+                    + ", ".join(f"{n} {tuple(f'{x:.3e}' for x in t)}"
+                                for n, t in gates.items()))
+                errs = {n: t[0] for n, t in gates.items()}
+                errs["dscale"] = 0.0
+            else:
+                errs = check_backward(f"N={N_FULL} {label}", got, want, fused)
+            for n, e in errs.items():
+                full[fused][n] = max(full[fused].get(n, 0.0), e)
+        del got, want, one
     full = kernel_errors(full)
-    log(f"[{tag}] backward at N={N_FULL}, one snapshot, vs plain"
-        f"{' bf16 (bf16 gates)' if bf16 else ''}: max abs err "
-        f"B2 {full['B2']:.3e}, B3a {full['B3a']:.3e}, B3b {full['B3b']:.3e}")
+    log(f"[{tag}] full-width check's inputs (sums of q, k, v): {sums}"
+        + (f"; the plain bf16 backward's movement under a 1e-7 relative "
+           f"nudge of q and k, over each largest entry: {noise}"
+           if bf16 else ""))
+    log(f"[{tag}] backward at N={N_FULL}, one snapshot, seeded and trained "
+        f"weights, vs plain{' bf16 (bf16 gates)' if bf16 else ''}: max abs "
+        f"err B2 {full['B2']:.3e}, B3a {full['B3a']:.3e}, B3b "
+        f"{full['B3b']:.3e}")
     return dict(pack_s=pack_s, runs={str(k): v for k, v in runs.items()},
                 default_fused=default, moved=moved, split_ms=splits,
                 fold_b1_ms=fold_b1, fold_b2_ms=fold_b2, fold_b3_ms=fold_b3,
                 kernel_share_of_step=share, full_err=full, peak_gb=peak_gb,
+                check_input_sums=sums, bf16_nudge_noise=noise,
                 launches={f: runs[f]["launches"] for f in runs})
 
 
@@ -4787,6 +4874,289 @@ def phase_train_mid_hybrid_edge(tt, FG):
     return res
 
 
+# -- phase 8: the graph-sharded ring over virtual ranks (B8, B9) ---------------
+
+RG_SRC = "tagan_tpu/ops/pallas/ring_gather.py"
+RF_SRC = "tagan_tpu/ops/pallas/ring_flash.py"
+RING_GS = (2, 4, 8)
+# the g whose numbers stand in the kernels line (every g is in the json)
+RING_G_RECORD = 4
+RING_REPEATS = 50
+# the hybrid model's node count, where a graph-sharded mesh matters
+N_RING_WIDE, D_RING = 131_072, 64
+
+
+def ring_modules():
+    from tagan_torch.dist import edge_partition as TE
+    from tagan_torch.dist import mesh as TM
+    from tagan_torch.ops import ring_flash as TF
+    from tagan_torch.ops import ring_gather as TG
+    return TM, TE, TG, TF
+
+
+def phase_ring(FG, args):
+    """[8]: the ring over g in RING_GS virtual ranks of the card (8a B8,
+    8b B9, 8c B9's bf16 form). ``args`` is phase 3's one snapshot of the
+    10K flash model's layer 0 (q, k, v [1, H, N, Dh], its flash mask)."""
+    TM, TE, TG, TF = ring_modules()
+    kernels = TG.KERNELS + TF.KERNELS
+    copy, fold, fold16 = TG.ring_copy_kernel, *TF.KERNELS
+    q, k, v = (t[0].contiguous() for t in args[:3])        # [H, N, Dh]
+    mask = args[3][0]                                      # int8 [N, N]
+    H, N, Dh = q.shape
+    meshes = {g: TM.make_mesh(graph=g, devices=[DEV] * g) for g in RING_GS}
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    wide = torch.randn(N_RING_WIDE, D_RING, device=DEV, generator=gen)
+    gathers = {"K [10000, 64] fp32": k.transpose(0, 1).reshape(N, H * Dh)
+               .contiguous(),
+               "[131072, 64] fp32": wide,
+               "[131072, 64] bf16": wide.to(torch.bfloat16)}
+    scale = torch.ones(H, device=DEV)
+
+    # the main path: each entry point once per configuration, the counts
+    # set to 0 just before and read just after
+    for kern in kernels:
+        kern.launches = 0
+    with torch.inference_mode():
+        gathered = {(name, g): TG.ring_all_gather_sharded(meshes[g], x)
+                    for name, x in gathers.items() for g in RING_GS}
+        flash = {(g, False): TF.ring_flash_attention(
+            meshes[g], q, k, v, mask, metric="euclidean") for g in RING_GS}
+        flash[RING_G_RECORD, True] = TF.ring_flash_attention(
+            meshes[RING_G_RECORD], q, k, v, mask, metric="euclidean",
+            bf16=True)
+        sync()
+    launched = {k.name: k.launches for k in kernels}
+    hops = sum(2 * g * (g - 1) for g in RING_GS)
+    want = {copy.name: len(gathers) * sum(g * g for g in RING_GS) + hops
+            + 2 * RING_G_RECORD * (RING_G_RECORD - 1),
+            fold.name: sum(g * g for g in RING_GS),
+            fold16.name: RING_G_RECORD ** 2}
+    log(f"[8] main path: ring_all_gather_sharded over "
+        f"{list(gathers)} x g {RING_GS}, ring_flash_attention fp32 x g "
+        f"{RING_GS} and bf16 at g {RING_G_RECORD}; launches {launched} "
+        f"(expected {want})")
+    if launched != want or not all(launched.values()):
+        raise AssertionError(f"ring launches {launched}, expected {want}")
+    res = dict(launches=launched)
+    res["gather"] = phase_ring_gather(TM, TG, meshes, gathers, gathered)
+    del gathered
+    res["flash"] = phase_ring_flash(FG, TM, TE, TF, meshes, args, flash,
+                                    scale)
+    return res
+
+
+def phase_ring_gather(TM, TG, meshes, gathers, gathered):
+    """[8a] B8 against the rank-order concatenation, bit for bit on every
+    rank, RING_REPEATS rings identical; CUDA-event ms of one ring, and the
+    host's ms to issue one (its launches and events); the
+    bound: each rank reads the g - 1 chunks it does not own and writes
+    all N rows, at the memory rate; the library: each rank's torch.cat of
+    the shards."""
+    res = {}
+    with torch.inference_mode():
+        for name, x in gathers.items():
+            for g, mesh in meshes.items():
+                shards = TM.shard_rows(mesh, x)
+                want = TG.ring_all_gather_plain(shards)
+                exact = all(torch.equal(o, w) for o, w in
+                            zip(gathered[name, g], want))
+                stable = True
+                for _ in range(RING_REPEATS):
+                    outs = TG.ring_all_gather(shards, mesh)
+                    stable &= all(torch.equal(o, w)
+                                  for o, w in zip(outs, want))
+                del outs
+                if not (exact and stable):
+                    raise AssertionError(f"[8a] {name} g={g}: bit-exact "
+                                         f"{exact}, {RING_REPEATS} repeats "
+                                         f"identical {stable}")
+
+                def ring():
+                    TG.ring_all_gather(shards, mesh)
+
+                def plain():
+                    TG.ring_all_gather_plain(shards)
+
+                def library():
+                    for _ in range(g):
+                        torch.cat(shards)
+                p1 = cuda_ms(plain, 10)
+                k1 = cuda_ms(ring, 20)
+                k2 = cuda_ms(ring, 20)
+                p2 = cuda_ms(plain, 10)
+                lib = cuda_ms(library, 20)
+                issue = host_ms(ring, 20)
+                rows, e = x.shape[0], x.element_size() * x.shape[1]
+                chunk = rows // g
+                b = bound(g * ((g - 1) * chunk + rows) * e, 0)
+                res[f"{name} g={g}"] = dict(
+                    ms=[k1, k2], plain_ms=[p1, p2], library_ms=lib,
+                    host_issue_ms=issue, max_abs_err=0.0,
+                    repeats_identical=RING_REPEATS, **b)
+                log(f"[8a] B8 {name} over {g} virtual ranks: bit-exact, "
+                    f"{RING_REPEATS} repeats identical; ring ms {k1:.4f} "
+                    f"{k2:.4f} (host clock to issue one {issue:.4f}), plain ms {p1:.4f} {p2:.4f}, each rank's "
+                    f"torch.cat {lib:.4f}; bound {b['bound_ms']:.5f} ms by "
+                    f"{b['bound_by']} ({b['bytes']} bytes)")
+                del shards, want
+    return res
+
+
+def phase_ring_flash(FG, TM, TE, TF, meshes, args, flash, scale):
+    """[8b] B9 on the 10K model's layer-0 q/k/v and snapshot mask: its
+    plain version on the card, B1 on the same inputs (live rows; B9's dead
+    rows exactly 0) and the port's collective ring on the card; repeated
+    rings identical; ms per snapshot beside SDPA at the scaled-dot metric.
+    [8c] the bf16 form at g = RING_G_RECORD under the bf16 gates, the fp32
+    form's ms in the same run."""
+    q, k, v, mask = (t[0].contiguous() for t in args[:4])
+    H, N, D = q.shape
+    ones = torch.ones(H, device=DEV)
+    seed0 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    with torch.inference_mode():
+        b1 = FG.flash_geometric_fwd_kernel(*args[:6], "euclidean", ones,
+                                           seed0, 0.0)[0][0]
+        src, dst = (t.cpu().numpy().astype(np.int32)
+                    for t in torch.nonzero(mask, as_tuple=True))
+    dead = (mask == 0).all(-1)
+    live = ~dead
+    pairs = int(mask.count_nonzero().item())
+    # every node of the snapshot is active, so its mask has no dead row:
+    # the same rings also run on it with every 97th node inactive (its row
+    # and column cleared, as the flash mask has an inactive node)
+    off = torch.zeros(N, dtype=torch.bool, device=DEV)
+    off[::97] = True
+    mask_d = mask.masked_fill(off[:, None] | off[None, :], 0)
+    dead_d = (mask_d == 0).all(-1)
+    with torch.inference_mode():
+        b1_d = FG.flash_geometric_fwd_kernel(
+            q[None], k[None], v[None], mask_d[None],
+            *FG.make_block_plan(mask_d[None]), "euclidean", ones, seed0,
+            0.0)[0][0]
+    res = {}
+    for (g, bf16), got in flash.items():
+        mesh = meshes[g]
+        tag = "8c" if bf16 else "8b"
+        with torch.inference_mode():
+            qs, ks, vs = (TM.shard_rows(mesh, t, dim=1) for t in (q, k, v))
+            masks = TM.shard_rows(mesh, mask)
+            scales = [ones] * g
+
+            def ring(metric="euclidean", b16=bf16):
+                return TF.ring_flash_attention_local(
+                    mesh, qs, ks, vs, masks, metric=metric, bf16=b16)
+
+            def plain(b16=bf16):
+                return torch.cat([TF.ring_flash_attention_local_plain(
+                    qs[r], ks, vs, masks[r], r, "euclidean", scales[r], b16)
+                    for r in range(g)], 1)
+            want = plain()
+            again = [torch.cat(ring(), 1) for _ in range(3)]
+            sync()
+            stable = all(torch.equal(a, got) for a in again)
+            dead_zero = bool((got[:, dead] == 0).all())
+            r = dict(stable=stable, dead_rows=int(dead.sum()))
+            if bf16:
+                f32 = plain(False)
+                gates = bf16_gates(f"[8c] g={g}", got, want, f32)
+                r.update(max_abs_err=gates[0], bf16_gates=gates[1:])
+            else:
+                err = (got - want).abs().max().item()
+                err_b1 = (got - b1)[:, live].abs().max().item()
+                eq, ek, em, _ = TE.partition_edges_by_query_and_key(
+                    src, dst, np.ones_like(src, bool), N, g)
+                coll = TE.ring_edge_attention(mesh, "euclidean", q, k, v,
+                                              eq, ek, em)
+                err_coll = (got - coll).abs().max().item()
+                del coll
+                masks_d = TM.shard_rows(mesh, mask_d)
+                got_d = torch.cat(TF.ring_flash_attention_local(
+                    mesh, qs, ks, vs, masks_d, metric="euclidean"), 1)
+                want_d = torch.cat([TF.ring_flash_attention_local_plain(
+                    qs[r_], ks, vs, masks_d[r_], r_, "euclidean", ones)
+                    for r_ in range(g)], 1)
+                err_d = max((got_d - want_d).abs().max().item(),
+                            (got_d - b1_d)[:, ~dead_d].abs().max().item())
+                dead_zero &= bool((got_d[:, dead_d] == 0).all())
+                del got_d, want_d, masks_d
+                r.update(max_abs_err=max(err, err_d), err_vs_b1_live=err_b1,
+                         err_vs_collective_ring=err_coll,
+                         inactive_mask_err=err_d,
+                         inactive_dead_rows=int(dead_d.sum()))
+                if not (err <= TOL and err_b1 <= TOL and err_d <= TOL
+                        and err_coll <= TOL_CSR):
+                    raise AssertionError(
+                        f"[8b] g={g}: vs plain {err}, vs B1 {err_b1}, with "
+                        f"inactive nodes vs plain and B1 {err_d} (tolerance "
+                        f"{TOL}), vs the collective ring {err_coll} "
+                        f"(tolerance {TOL_CSR})")
+            r["dead_rows_zero"] = dead_zero
+            if not (stable and dead_zero):
+                raise AssertionError(f"[{tag}] g={g}: repeats identical "
+                                     f"{stable}, dead rows 0 {dead_zero}")
+            p1 = cuda_ms(plain, 2)
+            k1 = cuda_ms(ring, 10)
+            k2 = cuda_ms(ring, 10)
+            p2 = cuda_ms(plain, 2)
+            if bf16:
+                r["fp32_ms"] = [cuda_ms(lambda: ring(b16=False), 10)
+                                for _ in range(2)]
+            # the library: SDPA with the boolean mask on the full q, k, v
+            # (bf16 for the bf16 form), B9 at its scaled-dot metric beside
+            qf, kf, vf = (t[None].to(torch.bfloat16 if bf16 else t.dtype)
+                          for t in (q, k, v))
+            bmask = (mask != 0)[None, None]
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qf, kf, vf, attn_mask=bmask)
+            lib = cuda_ms(library, 10)
+            k_sdp = cuda_ms(lambda: ring("scaled_dot_product"), 10)
+            sdpa_err = rel_err(library()[0].float()[:, live],
+                               torch.cat(ring("scaled_dot_product"), 1)[
+                                   :, live])
+            sdpa_tol = FLEX_BF16_TOL if bf16 else TOL
+            if not sdpa_err <= sdpa_tol:
+                r["library_error"] = (
+                    f"SDPA differs from B9 at the scaled-dot metric on live "
+                    f"rows: {sdpa_err} > {sdpa_tol}")
+                lib = None
+            del want
+        # q, k, v read once, the mask's N^2 bytes, out written; q.k and p.v
+        # over the valid pairs (the kernel walks every pair of every
+        # [per, per] block by design: ``walked_flops``)
+        nbytes = 4 * 4 * H * N * D + N * N
+        flops = 2 * H * pairs * (D + D)
+        walked = 2 * H * N * N * (D + D)
+        b = bound16(nbytes, flops) if bf16 else bound(nbytes, flops)
+        r.update(ms=[k1, k2], plain_ms=[p1, p2], library_ms=lib,
+                 ring_sdp_ms=k_sdp, sdpa_err_live=sdpa_err,
+                 valid_pairs=pairs, walked_flops=walked, **b)
+        res[f"g={g}" + (" bf16" if bf16 else "")] = r
+        log(f"[{tag}] B9{' bf16' if bf16 else ''} at N={N}, H={H}, D={D} "
+            f"over {g} virtual ranks ({N // g} rows each): "
+            + (f"bf16 gates (max abs, max, mean, witness) "
+               f"{tuple(f'{x:.3e}' for x in gates)}" if bf16 else
+               f"vs plain {r['max_abs_err']:.3e}, vs B1 on live rows "
+               f"{r['err_vs_b1_live']:.3e}, vs the collective ring "
+               f"{r['err_vs_collective_ring']:.3e}; with every 97th node "
+               f"inactive vs plain and B1 {r['inactive_mask_err']:.3e}, its "
+               f"{r['inactive_dead_rows']} dead rows exactly 0")
+            + f"; {int(dead.sum())} dead rows exactly 0, 3 repeats "
+            f"identical; ms per snapshot {k1:.4f} {k2:.4f}"
+            + (f" (fp32 {' '.join(f'{x:.4f}' for x in r['fp32_ms'])})"
+               if bf16 else "")
+            + f", plain ms {p1:.4f} {p2:.4f}; SDPA ({'bf16' if bf16 else 'fp32'}"
+            f" q, k, v, bool mask) {lib} ms, B9 at the scaled-dot metric "
+            f"{k_sdp:.4f} ms, SDPA vs B9 there on live rows {sdpa_err:.3e} "
+            f"of the largest entry (tolerance {sdpa_tol}); bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({nbytes} bytes, "
+            f"{flops} flops over the {pairs} valid pairs; the walk scores all "
+            f"{N}^2 pairs, {walked} flops)")
+    return res
+
+
 def kernel_record(FG, kern, source, replaces, launches, err, ms, plain_ms,
                   plain_of, b, library_ms, src=FG_SRC):
     """One kernel's entry of the ``{"kernels": [...]}`` line; ``plain_of``
@@ -4845,6 +5215,7 @@ def main() -> int:
     hyb_csr = phase_hybrid_vs_csr(tt, FG)
     hyb_train_csr = phase_hybrid_train_vs_csr(tt, FG)
     hyb_edge_train_csr = phase_hybrid_edge_train_vs_csr(tt, FG)
+    ring_args = serve["args"]
     times = phase_times(FG, serve.pop("args"))
     times_bf16 = phase_times_bf16(FG, serve_bf16.pop("args"))
     edge_args = serve_edge.pop("args")
@@ -4883,6 +5254,8 @@ def main() -> int:
     train_mid_hyb_edge = phase_train_mid_hybrid_edge(tt, FG)
     train_mid_hyb_edge_bf16 = phase_train_mid_bf16(tt, FG, edge=True,
                                                     hybrid=True)
+    ring = phase_ring(FG, ring_args)
+    del ring_args
 
     bwd = times["bwd"]
     plain_bwd = min(bwd["plain_ms"])
@@ -5119,9 +5492,50 @@ def main() -> int:
              "plan)") + ("flash_biased_bwd_{pre,dq,dkv}_compact_plain with "
                          "bf16=True (delta1, dB, dq, dk and dv)",) * 3,
             (True, True, False, False, False))]
+    # the ring (phase 8): launches over phase 8's main path (B8's count
+    # includes the chunk moves of B9's rings), times and bounds at
+    # g = RING_G_RECORD virtual ranks (every g in chip_smoke.json), B8 at
+    # [131072, 64] fp32, B9 per 10K snapshot
+    TG, TF = ring_modules()[2:]
+    rgat, rfl = ring["gather"], ring["flash"]
+    r8 = rgat[f"[131072, 64] fp32 g={RING_G_RECORD}"]
+    r9, r9b = rfl[f"g={RING_G_RECORD}"], rfl[f"g={RING_G_RECORD} bf16"]
+    kernels += [
+        dict(kernel_record(
+            FG, TG.ring_copy_kernel, "ring_gather.cu", 92,
+            ring["launches"][TG.ring_copy_kernel.name],
+            max(r["max_abs_err"] for r in rgat.values()), min(r8["ms"]),
+            min(r8["plain_ms"]), "ring_all_gather_plain (each rank's "
+            "rank-order concatenation)", r8, r8["library_ms"], RG_SRC),
+             library_of="torch.cat of the shards, once per rank",
+             host_issue_ms=r8["host_issue_ms"],
+             shape=f"[131072, 64] fp32 over {RING_G_RECORD} virtual ranks"),
+        dict(kernel_record(
+            FG, TF.ring_flash_fold_kernel, "ring_flash.cu", 177,
+            ring["launches"][TF.ring_flash_fold_kernel.name],
+            max(r["max_abs_err"] for n, r in rfl.items() if "bf16" not in n),
+            min(r9["ms"]), min(r9["plain_ms"]),
+            "ring_flash_attention_local_plain, every rank", r9,
+            r9["library_ms"], RF_SRC),
+             library_of="scaled_dot_product_attention on the full q, k, v "
+                        "with the boolean mask, scaled-dot",
+             library_error=r9.get("library_error"),
+             shape=f"one 10K snapshot over {RING_G_RECORD} virtual ranks"),
+        dict(kernel_record(
+            FG, TF.ring_flash_fold_bf16_kernel, "ring_flash.cu", 177,
+            ring["launches"][TF.ring_flash_fold_bf16_kernel.name],
+            r9b["max_abs_err"], min(r9b["ms"]), min(r9b["plain_ms"]),
+            "ring_flash_attention_local_plain with bf16=True, every rank",
+            r9b, r9b["library_ms"], RF_SRC),
+             fp32_ms=min(r9b["fp32_ms"]),
+             library_of="scaled_dot_product_attention on the full q, k, v "
+                        "cast to bf16 with the boolean mask, scaled-dot",
+             library_error=r9b.get("library_error"),
+             shape=f"one 10K snapshot over {RING_G_RECORD} virtual ranks")]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
+        ring=ring,
         small_compact_biased_bf16_err=small_compact_biased_bf16,
         serve_hybrid_edge_bf16=serve_hyb_edge_bf16,
         train_hybrid_edge_bf16=train_hyb_edge_bf16,

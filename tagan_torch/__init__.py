@@ -1,6 +1,7 @@
 """PyTorch/CUDA port of TAGAN: serving and training of the dense, csr,
-flash and hybrid (band + residual) models; the hybrid model with edge
-features serves only.
+flash and hybrid (band + residual) models, with and without edge
+features; the graph-sharded ring over a mesh of ranks (``dist``,
+``ops.ring_gather``, ``ops.ring_flash``).
 
 Beside ``tagan_tpu`` (the JAX reference), never importing it or JAX.
 Entry points run on CUDA unless ``device="cpu"`` is passed."""

@@ -1448,10 +1448,13 @@ class _CudaKernel:
             self._fn = fn
         return self._fn
 
-    def _launch(self, dev: torch.device, *args) -> None:
+    def _launch(self, dev: torch.device, *args, stream=None) -> None:
+        """Launch on ``stream`` (a ``torch.cuda.Stream`` of ``dev``), by
+        default the current stream of ``dev``."""
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = self._function()(*args, stream)
+            if stream is None:
+                stream = torch.cuda.current_stream(dev)
+            err = self._function()(*args, stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with "
                                f"cudaError {err}")

@@ -43,6 +43,11 @@ from tagan_torch.core import module as M
 from tagan_torch.nn.geometric import GeometricAttention as TGeo
 from tagan_torch.ops import flash_geometric as TFG
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 # gate 1, the max error over the largest entry: a bf16 flip moves one term
 # by up to 2^-8 of itself (measured at most 5e-6 on the kernels' plain
 # versions, 2.6e-4 in one dv at D=8)

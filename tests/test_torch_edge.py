@@ -25,6 +25,11 @@ from tagan_torch.nn.model import edge_bias_matrix
 from tagan_torch.ops import flash_geometric as TFG
 from tagan_torch.ops import sparse as TS
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 # fp32 on both sides, sums in another order
 TOL = 1e-4
 # the flash path's norm expansion of squared distances against the dense

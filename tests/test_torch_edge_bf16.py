@@ -41,6 +41,11 @@ from tests.test_torch_bf16 import (GAP, MAX_TOL, TOL, TOL_BF16_GRAD,
                                    TOL_KERNELS, TOL_STEP, ZERO_GRAD, _check,
                                    _check_grads, _gates)
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 SEED = -987
 
 

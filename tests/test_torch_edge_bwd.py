@@ -16,6 +16,11 @@ import torch
 from tagan_tpu.ops.pallas import flash_geometric as JFG
 from tagan_torch.ops import flash_geometric as TFG
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 # fp32 on both sides, sums in another order; errors are taken over each
 # tensor's largest entry (at least 1), since gradients span many scales
 TOL = 1e-4

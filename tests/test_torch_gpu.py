@@ -13,7 +13,10 @@ import pytest
 import torch
 
 import tagan_torch as pt
+from tagan_torch.dist import mesh as TM
 from tagan_torch.ops import flash_geometric as FG
+from tagan_torch.ops import ring_flash as TF
+from tagan_torch.ops import ring_gather as TG
 
 # fp32 on both sides, sums in another order (kernel: 64-key online
 # softmax steps; plain: one dense row)
@@ -1853,3 +1856,138 @@ def test_hybrid_edge_bf16_trainer_step_on_gpu_matches_cpu(cuda):
             card = got["cuda"][1][name]
             assert torch.isfinite(card).all(), name
             assert (card - g).abs().max() <= grad_tol * g.abs().max(), name
+
+
+# -- the ring: B8 (all-gather) and B9 (ring flash) over virtual ranks ---------
+
+# each ring is run this many times in a row: rows sent on before they
+# arrived, or a slot reused before its reader finished, would give wrong
+# rows only sometimes
+RING_REPEATS = 20
+
+
+def _virtual_mesh(cuda, g):
+    """g virtual ranks of the one card, each with its own streams."""
+    return TM.make_mesh(graph=g, devices=[cuda] * g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", ["odd", 20_001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [7, 64])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8])
+def test_ring_all_gather_matches_plain(g, D, dtype, chunk, cuda):
+    """B8 on g virtual ranks against the rank-order concatenation, bit for
+    bit on every rank, over RING_REPEATS rings in a row; odd chunk lengths
+    (at D = 7 the rank blocks of out start off the 16-byte grid); one copy
+    launch per move: g own chunks, then one per rank and hop."""
+    chunk = 37 + 2 * g if chunk == "odd" else chunk
+    x = torch.randn(g * chunk, D, generator=torch.Generator().manual_seed(g))
+    mesh = _virtual_mesh(cuda, g)
+    shards = TM.shard_rows(mesh, x.to(dtype).to(cuda))
+    want = TG.ring_all_gather_plain(shards)
+    before = TG.ring_copy_kernel.launches
+    runs = [TG.ring_all_gather(shards, mesh) for _ in range(RING_REPEATS)]
+    torch.cuda.synchronize()
+    assert TG.ring_copy_kernel.launches - before == \
+        RING_REPEATS * g * g
+    for outs in runs:
+        assert len(outs) == g
+        for out, w in zip(outs, want):
+            assert out.dtype == dtype and torch.equal(out, w)
+
+
+def _ring_inputs(cuda, g, H, per, D, seed, qk_scale):
+    """q, k, v [H, N, D] (q, k times qk_scale) and an int8 mask with self
+    loops, dead rows (among them rank 0's first row and the last row) and,
+    for per > 128, a dead query tile of rank 0."""
+    N = g * per
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((H, N, D)) * qk_scale for _ in range(2))
+    v = rng.standard_normal((H, N, D))
+    mask = rng.random((N, N)) < 0.1
+    mask[np.arange(N), np.arange(N)] = True
+    mask[[0, N - 1]] = False
+    if per > 128:
+        mask[64:128] = False
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(cuda)
+                 for a in (q, k, v)) + (
+        torch.from_numpy(mask.astype(np.int8)).to(cuda),)
+
+
+def _ring_flash_vs_plain(cuda, g, metric, D, bf16, per=75, H=3):
+    """B9 on g virtual ranks against the plain version of each rank, run
+    three times in a row: identical results, one fold per rank and hop,
+    two copies (k and v) per rank and hop but the last, dead rows 0."""
+    q, k, v, mask = _ring_inputs(cuda, g, H, per, D, seed=g * 100 + D,
+                                 qk_scale=BF16_QK_SCALE if bf16 else 1.0)
+    mesh = _virtual_mesh(cuda, g)
+    qs, ks, vs = (TM.shard_rows(mesh, t, dim=1) for t in (q, k, v))
+    masks = TM.shard_rows(mesh, mask)
+    scale = torch.linspace(0.7, 2.0, H, device=cuda)
+    fold = TF.ring_flash_fold_bf16_kernel if bf16 else TF.ring_flash_fold_kernel
+    before = (fold.launches, TG.ring_copy_kernel.launches)
+    runs = [torch.cat(TF.ring_flash_attention_local(
+        mesh, qs, ks, vs, masks, metric=metric, scale_param=scale,
+        bf16=bf16), 1) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert (fold.launches - before[0], TG.ring_copy_kernel.launches
+            - before[1]) == (3 * g * g, 3 * 2 * g * (g - 1))
+    for run in runs[1:]:
+        assert torch.equal(run, runs[0])
+    if metric in FG._COSINE:
+        qs, ks = [FG._l2_normalize(x) for x in qs], \
+            [FG._l2_normalize(x) for x in ks]
+
+    def plain(b16):
+        return torch.cat([TF.ring_flash_attention_local_plain(
+            qs[r], ks, vs, masks[r], r, metric, scale, b16)
+            for r in range(g)], 1)
+    got, want = runs[0], plain(bf16)
+    dead = (mask == 0).all(-1)
+    assert bool(dead[0]) and torch.all(got[:, dead] == 0)
+    if bf16:
+        _bf16_gates(got, want, plain(False))
+    else:
+        assert (got - want).abs().max().item() <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_ring_flash_matches_plain(metric, g, bf16, cuda):
+    """Every metric, per-head scales, per = 75 rows a rank (two key tiles
+    a chunk, the second ragged); bf16 under the bf16 gates, q and k at
+    BF16_QK_SCALE."""
+    _ring_flash_vs_plain(cuda, g, metric, 16, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D", [16, 8, 12, 7, 128])
+def test_ring_flash_head_dims(D, bf16, cuda):
+    """Head dims up to the kernels' 128, at 4 ranks of 150 rows (a dead
+    query tile on rank 0)."""
+    _ring_flash_vs_plain(cuda, 4, "euclidean", D, bf16, per=150)
+
+
+@pytest.mark.gpu
+def test_ring_flash_refused_before_launch(cuda):
+    """A mask column block past N and a missing state raise before any
+    launch."""
+    H, per, D = 2, 70, 16
+    q = torch.zeros(H, per, D, device=cuda)
+    mask = torch.ones(per, 2 * per, dtype=torch.int8, device=cuda)
+    scale = torch.ones(H, device=cuda)
+    state = (torch.zeros(H, per, device=cuda),
+             torch.zeros(H, per, device=cuda), torch.zeros_like(q))
+    stream = torch.cuda.current_stream(cuda)
+    before = TF.ring_flash_fold_kernel.launches
+    with pytest.raises(ValueError):
+        TF.ring_flash_fold_kernel(q, q, q, mask, scale, state, q, per + 1,
+                                  "euclidean", True, False, stream)
+    with pytest.raises(ValueError):
+        TF.ring_flash_fold_kernel(q, q, q, mask, scale, None, q, 0,
+                                  "euclidean", True, False, stream)
+    assert TF.ring_flash_fold_kernel.launches == before

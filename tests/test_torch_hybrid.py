@@ -29,6 +29,11 @@ from tagan_tpu.ops import sparse as JS
 from tagan_tpu.ops.pallas import flash_geometric as JFG
 from tagan_tpu.ops.pallas import hybrid_biased as JHB
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 # fp32 on both sides, sums in another order (64-key tiles against 32-key
 # tiles, one online softmax against another). Every comparison here holds
 # like conventions: the band's scores take the norm expansion on both

@@ -29,6 +29,11 @@ from tagan_tpu.nn.geometric import GeometricAttention as JGA
 from tagan_tpu.ops.pallas import flash_geometric as JFG
 from tagan_tpu.train.trainer import TAGANTrainer as JTrainer
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 # fp32 on both sides, sums in another order (64 x 64 tiles against
 # 16 x 32): outputs within 1e-5, gradients and parameters within 1e-4 of
 # the largest entry

@@ -26,6 +26,11 @@ from tagan_torch.nn.temporal_attention import \
     AsymmetricTemporalAttention as TAsym
 from tagan_torch.nn.time_encoding import TimeEncoding as TTE
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 TOL = 2e-4     # fp32 on both sides; flash forward vs dense: 2e-4
 
 

@@ -19,6 +19,11 @@ from tagan_tpu.nn.model import batched_forward as j_batched_forward
 from tagan_tpu.ops.pallas import flash_geometric as JFG
 from tagan_tpu.serve import Predictor as JPredictor
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

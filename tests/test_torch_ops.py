@@ -22,6 +22,11 @@ from tagan_torch.ops import distances as TD
 from tagan_torch.ops import flash_geometric as TFG
 from tagan_torch.ops import masked as TM
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 # fp32 on both sides; the flash forward's norm expansion vs the dense
 # oracle's subtract-then-square is why tests/test_flash_kernel.py uses
 # 2e-4, and the same bound holds plain vs Pallas here

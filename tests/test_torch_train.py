@@ -25,6 +25,11 @@ from tagan_torch.train import metrics as TM
 from tagan_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from tagan_torch.train.trainer import make_schedule
 
+# torch's CPU operations on one thread: the tier-1 command runs six
+# pytest workers on 8 cores, and torch's default of a thread per core
+# oversubscribes them
+torch.set_num_threads(1)
+
 # fp32 on both sides, sums in another order
 TOL = 1e-4
 

@@ -142,14 +142,23 @@ Phases, in order; any failure raises and exits non-zero:
    (5g) B1, B2, B3a and B3b in their bf16 forms at one snapshot of 3e's
    request, each beside its fp32 form in turns, the plain bf16 versions,
    ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask
-   as the library yardstick, and their bounds (the fp32 forms' bytes,
-   operations at the bf16 tensor-core rate); (5h) the bf16 forms of B4,
+   as the library yardstick (held against B1 bf16, the pair walk, at the
+   scaled-dot metric within FLEX_BF16_TOL), and their bounds (the fp32
+   forms' bytes, operations at the bf16 tensor-core rate); B1 bf16 also
+   at the grid its path launches, 3e's 16 folded snapshots, per snapshot,
+   at the euclidean and the scaled-dot metric beside sdpa over the same
+   fold (timed in 3e, where the fold is); and a density sweep at N =
+   10,000 (degree 16, 256 and 2,048): B1 bf16 held to the plain bf16
+   version under the bf16 gates, beside the fp32 B1 and sdpa bf16 on the
+   same masks, times recorded, not gated; (5h) the bf16 forms of B4,
    B5, B6, B7a and B7b at one snapshot of 3f's request, each beside its
    fp32 form in turns, the plain bf16 versions, compiled
    ``flex_attention`` on bf16 q, k, v at the scaled-dot metric as the
    library yardstick (held against the bf16 B4 and B5 at that metric,
    null with the reason if it does not build or differs; its backward
-   forward+backward minus forward), and their bounds; (5i) the bf16 forms
+   forward+backward minus forward), and their bounds; B5 bf16 (the pair
+   walk) also over 3f's 16 folded snapshots, per snapshot, at both
+   metrics (timed in 3f); (5i) the bf16 forms
    of B1c, B3a c and B3b c at one 131K snapshot of 6g, each beside its
    fp32 form in turns, the compact plain bf16 versions, compiled
    ``flex_attention`` on bf16 q, k, v under the compact plan's BlockMask
@@ -1091,6 +1100,8 @@ def phase_serve(tt, FG, bf16=False):
     log(f"[{tag}] one layer's launch over the {G} folded snapshots: "
         f"{layer_ms:.3f} ms; {cfg.num_layers} layers = {share:.3f} of the "
         f"forward")
+    fold = fold_times_b1(fwd, folded, ones, seeds) if bf16 else None
+    del folded
     if bf16:
         gates = max(bf16_gates("full-width out", out, p_out, f_out),
                     bf16_gates("full-width lse", lse, p_lse, f_lse,
@@ -1109,8 +1120,44 @@ def phase_serve(tt, FG, bf16=False):
     return dict(latency_ms=lat, launches=launches, expected=expected,
                 forward_ms=fwd_ms, layer_launch_ms=layer_ms,
                 kernel_share_of_forward=share, full_err=err, args=args,
-                peak_gb=peak_gb, fp32_logits_gap=gap,
+                peak_gb=peak_gb, fp32_logits_gap=gap, fold=fold,
                 sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
+
+
+def fold_times_b1(fwd, folded, ones, seeds):
+    """[5g] B1's bf16 form at the grid its path launches, one layer's G
+    folded snapshots of 3e's request, per snapshot: at the model's
+    euclidean metric and at the scaled-dot metric, beside
+    ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask
+    over the same fold (the same function there), held to it within
+    FLEX_BF16_TOL on the rows with a valid key."""
+    G = folded[0].shape[0]
+    sdp = "scaled_dot_product"
+    bq, bk, bv = (t.bfloat16() for t in folded[:3])
+    bmask = folded[3][:, None] != 0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: fwd(*folded[:6], "euclidean", ones, seeds,
+                                 0.0), 10)
+        sdp_ms = cuda_ms(lambda: fwd(*folded[:6], sdp, ones, seeds, 0.0), 10)
+        lib_ms = cuda_ms(lambda: sdpa(bq, bk, bv, attn_mask=bmask), 10)
+        out = fwd(*folded[:6], sdp, ones, seeds, 0.0)[0]
+        ref = sdpa(bq, bk, bv, attn_mask=bmask).float()
+        live = bmask.any(-1).expand(-1, out.shape[1], -1)
+        err = rel_err(out[live], ref[live])
+    del bq, bk, bv, bmask, out, ref
+    res = dict(G=G, ms=ms / G, sdp_ms=sdp_ms / G, library_ms=lib_ms / G,
+               library_err=err)
+    log(f"[5g] B1 bf16 over the {G} folded snapshots of 3e's layer, per "
+        f"snapshot: euclidean {res['ms']:.5f} ms, scaled-dot "
+        f"{res['sdp_ms']:.5f} ms; sdpa bf16 over the same fold "
+        f"{res['library_ms']:.5f} ms a snapshot, {err:.3e} from B1 bf16 at "
+        f"the scaled-dot metric")
+    if not err <= FLEX_BF16_TOL:
+        raise AssertionError(f"sdpa on bf16 inputs differs from B1 bf16 at "
+                             f"the scaled-dot metric: {err} > "
+                             f"{FLEX_BF16_TOL}")
+    return res
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -1289,12 +1336,27 @@ def phase_serve_edge(tt, FG, bf16=False):
     # rest) outside inference mode: phase 5b hands it to torch.compile
     args = tuple(t[:1].clone() for t in folded)
     q1, k1, v1, m1, bias1, jl1, jc1 = args
+    fold = None
     with torch.inference_mode():
         b4_ms = cuda_ms(lambda: b4(q, k, mask, jlist, jcount, "euclidean",
                                    ones), 3)
         lse1 = b4(q, k, mask, jlist, jcount, "euclidean", ones)
         b5_ms = cuda_ms(lambda: b5(q, k, v, mask, bias, lse1, jlist, jcount,
                                    "euclidean", ones, seeds, 0.0), 3)
+        if bf16:
+            # [5h] B5's bf16 form at the grid its path launches, per
+            # snapshot, at the model's metric and at the scaled-dot one
+            sdp = "scaled_dot_product"
+            l1_sdp = b4(q, k, mask, jlist, jcount, sdp, ones)
+            fold = dict(G=G, ms=cuda_ms(lambda: b5(
+                q, k, v, mask, bias, lse1, jlist, jcount, "euclidean", ones,
+                seeds, 0.0), 10) / G, sdp_ms=cuda_ms(lambda: b5(
+                    q, k, v, mask, bias, l1_sdp, jlist, jcount, sdp, ones,
+                    seeds, 0.0), 10) / G)
+            del l1_sdp
+            log(f"[5h] B5 bf16 over the {G} folded snapshots of 3f's layer, "
+                f"per snapshot: euclidean {fold['ms']:.5f} ms, scaled-dot "
+                f"{fold['sdp_ms']:.5f} ms")
         # one snapshot at full width against the plain versions (bf16:
         # the plain B5 walks the same plan)
         lse1_k = b4(q1, k1, m1, jl1, jc1, "euclidean", ones)
@@ -1339,7 +1401,7 @@ def phase_serve_edge(tt, FG, bf16=False):
                 bias_build_ms=build_ms,
                 b4_layer_launch_ms=b4_ms, b5_layer_launch_ms=b5_ms,
                 kernel_share_of_forward=share, full_err=err, args=args,
-                graph=graph, fp32_logits_gap=gap,
+                graph=graph, fp32_logits_gap=gap, fold=fold,
                 sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
 
 
@@ -1559,23 +1621,38 @@ def phase_times_bf16(FG, args):
     bmask = mask[:, None] != 0
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
+    sdp = "scaled_dot_product"
     with torch.inference_mode():
         t32a, t16a = cuda_ms(fwd(f32k[0]), 10), cuda_ms(fwd(bf16k[0]), 10)
         t16b, t32b = cuda_ms(fwd(bf16k[0]), 10), cuda_ms(fwd(f32k[0]), 10)
         plain = cuda_ms(plain_fwd, 2)
         lib = cuda_ms(lambda: sdpa(bq, bk, bv, attn_mask=bmask), 10)
+        t16_sdp = cuda_ms(lambda: bf16k[0](q, k, v, mask, jlist, jcount, sdp,
+                                           ones, seed0, 0.0), 10)
         out, lse = bf16k[0](q, k, v, mask, jlist, jcount, "euclidean", ones,
                             seed0, 0.0)
+        # the library's function is B1 bf16's at the scaled-dot metric, on
+        # the rows with a valid key
+        live = bmask.any(-1).expand(-1, H, -1)
+        lib_err = rel_err(
+            bf16k[0](q, k, v, mask, jlist, jcount, sdp, ones, seed0,
+                     0.0)[0][live],
+            sdpa(bq, bk, bv, attn_mask=bmask).float()[live])
+    if not lib_err <= FLEX_BF16_TOL:
+        raise AssertionError(f"sdpa on bf16 inputs differs from B1 bf16 at "
+                             f"the scaled-dot metric: {lib_err} > "
+                             f"{FLEX_BF16_TOL}")
     pairs = int((mask != 0).sum().item())
     qkv = 4 * G * H * N * (2 * D + Dv)
     nbytes = (qkv + mask.numel() + 4 * (jlist.numel() + jcount.numel() + H + G)
               + 4 * G * H * N * (Dv + 1))
     res = {"B1": dict(ms=[t16a, t16b], fp32_ms=[t32a, t32b], plain_ms=plain,
-                      library_ms=lib,
+                      library_ms=lib, sdp_ms=t16_sdp, library_err=lib_err,
                       **bound16(nbytes, 2 * H * pairs * (D + Dv)))}
     log(f"[5g] bf16, one snapshot: B1 bf16 ms {t16a:.4f} {t16b:.4f} (fp32 "
         f"{t32a:.4f} {t32b:.4f}); plain bf16 ms {plain:.4f}; sdpa bf16 ms "
-        f"{lib:.4f}")
+        f"{lib:.4f} (B1 bf16 at the same metric {t16_sdp:.4f}, "
+        f"{lib_err:.3e} from it)")
 
     do = torch.randn(out.shape, device=DEV,
                      generator=torch.Generator(device=DEV).manual_seed(5))
@@ -1641,6 +1718,65 @@ def phase_times_bf16(FG, args):
         log(f"[5g] {name} bf16 bound {r['bound_ms']:.5f} ms by "
             f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops at the "
             f"bf16 rate)")
+    res["density"] = density_sweep(FG, f32k[0], bf16k[0], H, N, D, Dv)
+    return res
+
+
+# the density sweep's degrees at N = 10,000 (5g): the model's graphs
+# (bench.py's 16 edges a node), and two denser ones where the pair walk's
+# rows hold 4 and 33 pairs a walked tile
+DENSITY_DEGREES = (16, 256, 2048)
+
+
+def density_sweep(FG, f32, bf16, H, N, D, Dv):
+    """[5g] B1 bf16 (the pair walk) at one snapshot of N nodes whose rows
+    hold `DENSITY_DEGREES` uniform random keys (and their diagonal),
+    beside the fp32 B1 (the dense template) and
+    ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask,
+    on the same inputs; B1 bf16 held to the plain bf16 version under the
+    bf16 gates. Times are recorded, not gated."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    q, k, v = (0.5 * torch.randn(1, H, N, w, device=DEV, generator=gen)
+               for w in (D, D, Dv))
+    bq, bk, bv = (t.bfloat16() for t in (q, k, v))
+    ones = torch.ones(H, device=DEV)
+    seed0 = torch.zeros(1, dtype=torch.int32, device=DEV)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for deg in DENSITY_DEGREES:
+        mask = torch.zeros(1, N, N, dtype=torch.int8, device=DEV)
+        rows = torch.arange(N, device=DEV).repeat_interleave(deg)
+        mask[0, rows, torch.randint(0, N, (rows.numel(),), device=DEV,
+                                    generator=gen)] = 1
+        mask[0].fill_diagonal_(1)
+        plan = FG.make_block_plan(mask)
+        bmask = mask[:, None] != 0
+
+        def call(kern):
+            return lambda: kern(q, k, v, mask, *plan, "euclidean", ones,
+                                seed0, 0.0)
+        with torch.inference_mode():
+            a16, a32 = cuda_ms(call(bf16), 10), cuda_ms(call(f32), 5)
+            b32, b16 = cuda_ms(call(f32), 5), cuda_ms(call(bf16), 10)
+            lib = cuda_ms(lambda: sdpa(bq, bk, bv, attn_mask=bmask), 10)
+            out, lse = call(bf16)()
+            p_out, p_lse = FG.flash_geometric_forward_plain(
+                q, k, v, mask, "euclidean", ones, 0.0, seed0, True, plan)
+            f_out, _ = FG.flash_geometric_forward_plain(
+                q, k, v, mask, "euclidean", ones, 0.0, seed0)
+        gates = max(bf16_gates(f"degree {deg} out", out, p_out, f_out),
+                    bf16_gates(f"degree {deg} lse", lse, p_lse, p_lse,
+                               witness=False))
+        pairs = int(bmask.sum().item())
+        res[deg] = dict(ms=[a16, b16], fp32_ms=[a32, b32], library_ms=lib,
+                        valid_pairs=pairs, gates=gates)
+        log(f"[5g] density: N={N}, degree {deg} ({pairs} valid pairs, "
+            f"{int(plan[1].sum().item())} walked tiles): B1 bf16 ms "
+            f"{a16:.4f} {b16:.4f}, fp32 B1 (dense template) ms {a32:.4f} "
+            f"{b32:.4f}, sdpa bf16 ms {lib:.4f}; B1 bf16 vs plain bf16 (max "
+            f"abs err, max err, mean err, witness) "
+            f"{tuple(f'{x:.3e}' for x in gates)}")
+        del mask, bmask, plan, out, p_out, f_out
     return res
 
 
@@ -5171,6 +5307,19 @@ def kernel_record(FG, kern, source, replaces, launches, err, ms, plain_ms,
             "library_ms": library_ms}
 
 
+def pairwalk_fields(one, fold):
+    """The pair walks' extra fields: ms a snapshot at the scaled-dot
+    metric (one snapshot, and the path's fold), the library call's ms at
+    one snapshot over the fold's scaled-dot ms (the like-for-like factor),
+    and the share of the bound reached at the fold's model metric."""
+    return dict(sdp_ms=one["sdp_ms"], fold_snapshots=fold["G"],
+                fold_ms=fold["ms"], fold_sdp_ms=fold["sdp_ms"],
+                fold_library_ms=fold.get("library_ms"),
+                library_factor=(None if one["library_ms"] is None else
+                                one["library_ms"] / fold["sdp_ms"]),
+                bound_share=one["bound_ms"] / fold["ms"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5395,10 +5544,12 @@ def main() -> int:
              fp32_ms=min(t16[name]["fp32_ms"]),
              library_of="scaled_dot_product_attention on bf16 q, k, v with "
                         "the boolean mask" + ("" if name == "B1" else
-                                              ", forward+backward - forward"))
+                                              ", forward+backward - forward"),
+             **(pairwalk_fields(t16["B1"], serve_bf16["fold"])
+                if name == "B1" else {}))
         for name, kern, source, line in zip(
             ("B1", "B2", "B3a", "B3b"), flash_kernels(FG, True),
-            ("flash_geometric_fwd.cu", "flash_geometric_bwd_fused.cu",
+            ("flash_pairwalk_fwd.cu", "flash_geometric_bwd_fused.cu",
              "flash_geometric_bwd.cu", "flash_geometric_bwd.cu"),
             (259, 1590, 1455, 1534))]
     # the bf16 forms of B4-B7b: launches on the bf16 edge-feature serving
@@ -5422,10 +5573,14 @@ def main() -> int:
                   if lib16["error"] is None else lib16["error"])
                  if name in ("B4", "B5") else
                  t16e["library_bwd"].get("form",
-                                         t16e["library_bwd"].get("error"))))
+                                         t16e["library_bwd"].get("error"))),
+             **(pairwalk_fields(dict(t16e["B5"], sdp_ms=t16e["b5_sdp_ms"]),
+                                serve_edge_bf16["fold"])
+                if name == "B5" else {}))
         for name, kern, source, line, plain_of in zip(
             ("B4", "B5", "B6", "B7a", "B7b"), biased_kernels(FG, True),
-            ("flash_biased_fwd.cu",) * 2 + ("flash_biased_bwd.cu",) * 3,
+            ("flash_biased_fwd.cu", "flash_pairwalk_fwd.cu")
+            + ("flash_biased_bwd.cu",) * 3,
             (885, 944, 1038, 1102, 1176),
             ("flash_lse1_plain with bf16=True",
              "flash_biased_forward_plain with bf16=True (walks the plan)")

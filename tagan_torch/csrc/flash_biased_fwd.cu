@@ -4,7 +4,8 @@
 // that serve the dense path's double softmax (host side
 // _flash_biased_forward), in their dense-mask form (B4, B5), their compact
 // occupied-block form (B4c, B5c: hybrid_biased.py _band_lse1 and
-// _band_biased_main) and the bf16 form (bf16=True) of each. For each query
+// _band_biased_main) and the bf16 form (bf16=True) of each but B5 (B5's
+// bf16 form is the pair walk of flash_pairwalk_fwd.cu). For each query
 // row i and head h, over the valid keys j
 // (mask[i, j] != 0), with s_ij the metric score:
 //
@@ -378,20 +379,6 @@ extern "C" int tagan_flash_lse1_bf16(const void* q, const void* k,
       q, k, nullptr, mask, nullptr, nullptr, jlist, jcount, jlist, scale,
       nullptr, nullptr, lse1, G, H, N, D, 0, n_i, W, 0, metric, sqrt_d, 0, 0u,
       1.f, stream);
-}
-
-// B5's bf16 form: the same arguments.
-extern "C" int tagan_flash_biased_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* bias, const void* lse1, const void* jlist, const void* jcount,
-    const void* scale, const void* seeds, void* out, void* lse2, int G, int H,
-    int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
-    int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
-  using namespace tagan_flash;
-  return launch<true, DENSE_MASK, true>(
-      q, k, v, mask, bias, lse1, jlist, jcount, jlist, scale, seeds, out, lse2,
-      G, H, N, D, Dv, n_i, W, 0, metric, sqrt_d, use_dropout, keep_thresh,
-      inv_keep, stream);
 }
 
 // B4c: lse1 over the compact store (bits i64[G, S, 64] when packed, else

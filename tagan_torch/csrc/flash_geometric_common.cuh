@@ -2,9 +2,10 @@
 // flash_geometric_fwd.cu (forward), flash_geometric_bwd.cuh (two-walk
 // backward, built by flash_geometric_bwd.cu and
 // flash_geometric_bwd_compact_bf16.cu), flash_geometric_bwd_fused.cu
-// (single-walk backward) and the
+// (single-walk backward), the
 // edge-biased flash_biased_fwd.cu and flash_biased_bwd.cuh (built by
-// flash_biased_bwd.cu and flash_biased_bwd_compact_bf16.cu).
+// flash_biased_bwd.cu and flash_biased_bwd_compact_bf16.cu), and the pair
+// walks of flash_pairwalk_fwd.cu (B1's and B5's bf16 forms).
 //
 // The metric scores, the dropout hash and the backward's recompute of one
 // (64-query tile, 64-key tile) pair. Every kernel takes the folded layout

@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel tagan_tpu/ops/pallas/flash_geometric.py::
 // _flash_kernel (host side _flash_forward), in its dense-mask form (B1),
 // its compact occupied-block form (B1c, _flash_forward with a 3-tuple
-// plan) and the bf16 form (bf16=True) of each:
+// plan) and B1c's bf16 form (bf16=True; B1's bf16 form is the pair walk
+// of flash_pairwalk_fwd.cu):
 // for each query row i and head h,
 //
 //     s_ij  = metric score from q_i.k_j and the row norms (8 metrics)
@@ -302,20 +303,6 @@ extern "C" int tagan_flash_geometric_fwd(
                             out, lse, G, H, N, D, Dv, n_i, W, 0, metric,
                             sqrt_d, use_dropout, keep_thresh, inv_keep,
                             stream);
-}
-
-// B1's bf16 form: the same arguments.
-extern "C" int tagan_flash_geometric_fwd_bf16(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* jlist, const void* jcount, const void* scale,
-    const void* seed, void* out, void* lse, int G, int H, int N, int D,
-    int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
-    unsigned int keep_thresh, float inv_keep, void* stream) {
-  using namespace tagan_flash;
-  return launch<DENSE_MASK, true>(q, k, v, mask, jlist, jcount, jlist, scale,
-                                  seed, out, lse, G, H, N, D, Dv, n_i, W, 0,
-                                  metric, sqrt_d, use_dropout, keep_thresh,
-                                  inv_keep, stream);
 }
 
 // B1c: the compact store of S slots per g, bits i64[G, S, 64] (packed) or

@@ -25,7 +25,9 @@ kernels that port the Pallas ones, and the differentiable entry point:
 
 Every kernel above also has a bf16 form (the TPU kernels' ``bf16=True``:
 every product's operands rounded to bf16, float32 sums), in the same
-sources under its own entry point and launch count (B3a c's and B3b c's
+sources under its own entry point and launch count (B1's and B5's in
+csrc/flash_pairwalk_fwd.cu, pair walks that compute only the mask's
+valid pairs; B3a c's and B3b c's
 in csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
 csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's in
 csrc/flash_biased_bwd_compact_bf16.cu, from those of
@@ -1621,8 +1623,11 @@ class _FlashBwdFusedKernel(_FlashBackwardKernel):
 
 class _FlashForwardBf16Kernel(_FlashForwardKernel):
     """B1's bf16 form, ``tagan_flash_geometric_fwd_bf16``: B1 with bf16
-    dot operands (the TPU kernel's ``bf16=True``)."""
+    dot operands (the TPU kernel's ``bf16=True``), as a pair walk that
+    reads each mask tile once for all heads and computes only its valid
+    pairs (csrc/flash_pairwalk_fwd.cu)."""
     name = "flash_geometric_fwd_bf16"
+    source = "flash_pairwalk_fwd"
     symbol = "tagan_flash_geometric_fwd_bf16"
 
 
@@ -1805,8 +1810,10 @@ class _FlashLse1Bf16Kernel(_FlashLse1Kernel):
 
 class _FlashBiasedBf16Kernel(_FlashBiasedKernel):
     """B5's bf16 form, ``tagan_flash_biased_fwd_bf16``: q.k and P@V from
-    bf16 operands."""
+    bf16 operands, as B1's bf16 form's pair walk
+    (csrc/flash_pairwalk_fwd.cu)."""
     name = "flash_biased_fwd_bf16"
+    source = "flash_pairwalk_fwd"
     symbol = "tagan_flash_biased_fwd_bf16"
 
 

@@ -1991,3 +1991,136 @@ def test_ring_flash_refused_before_launch(cuda):
         TF.ring_flash_fold_kernel(q, q, q, mask, scale, None, q, 0,
                                   "euclidean", True, False, stream)
     assert TF.ring_flash_fold_kernel.launches == before
+
+
+# -- the pair walks (B1 bf16, B5 bf16) at the densities they are built for -----
+
+def sparse_mask(G, N, seed=0, deg=4):
+    """int8 [G, N, N]: ~``deg`` uniform random keys a row (the model's
+    graphs at ~deg / N density), and in every snapshot where N allows:
+    a whole 64 x 64 tile (rows 0-63, keys 64-127), a tile holding one pair
+    (rows 128-191, keys 0-63), an empty one between walked tiles (rows
+    64-127, keys 192-255), rows 200-207 whose only keys lie in the
+    last key tile (their row tile's last walked tile), rows past CAPR's
+    128 list entries (rows 260-263, 150 keys each: the walk flushes
+    before its end), dead rows (300-304 and the last row) and, in
+    snapshot 0, a dead query tile (rows 384-447). Shared by the CPU
+    test of the plain bf16 forms against JAX (test_torch_bf16_sparse.py)."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((G, N, N), np.int8)
+    for g in range(G):
+        rows = np.repeat(np.arange(N), deg)
+        mask[g, rows, rng.integers(0, N, rows.size)] = 1
+        if N >= 128:
+            mask[g, :64, 64:128] = 1
+        if N >= 192:
+            mask[g, 128:192, :64] = 0
+            mask[g, 130, 17] = 1
+        if N >= 256:
+            mask[g, 64:128, 192:256] = 0
+        last = (N - 1) // 64 * 64
+        if N >= 208:
+            mask[g, 200:208] = 0
+            for r in range(200, 208):
+                mask[g, r, rng.integers(last, N, 2)] = 1
+        if N >= 264:
+            for r in range(260, 264):
+                mask[g, r, rng.choice(N, 150, replace=False)] = 1
+        if N >= 305:
+            mask[g, 300:305] = 0
+        mask[g, N - 1] = 0
+    if N >= 448:
+        mask[0, 384:448] = 0
+    return mask
+
+
+def _sparse_inputs(G, H, N, D, Dv, metric, seed=0):
+    """q and k (at BF16_QK_SCALE), v, `sparse_mask`, a bias on the mask's
+    pairs, per-head scales and seeds."""
+    rng = np.random.default_rng(seed + 400)
+    q, k = (BF16_QK_SCALE * rng.standard_normal((G, H, N, D)).astype(
+        np.float32) for _ in range(2))
+    v = rng.standard_normal((G, H, N, Dv)).astype(np.float32)
+    mask = sparse_mask(G, N, seed)
+    bias = np.where(mask != 0, rng.standard_normal((G, N, N)),
+                    0.0).astype(np.float32)
+    q, k, v, mask, bias = (torch.from_numpy(a) for a in (q, k, v, mask, bias))
+    if metric in FG._COSINE:
+        q, k = FG._l2_normalize(q), FG._l2_normalize(k)
+    scale = torch.linspace(0.7, 2.0, H)
+    seeds = FG.biased_seeds(torch.tensor(
+        [-7, 12345, 3, 99] * (G // 4 + 1), dtype=torch.int32)[:G], G, "cpu")
+    return q, k, v, mask, bias, scale, seeds
+
+
+def _pairwalk_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
+    """B1's and B5's bf16 forms (the pair walks) through the public entries
+    (``flash_geometric_fwd``, ``flash_biased_fwd`` with bf16=True) against
+    the plain bf16 versions walking the same plan, under the bf16 gates,
+    the plain fp32 versions the witness; dead rows exactly 0 and LSE_DEAD;
+    B1 bf16 launched once, then B4 bf16 and B5 bf16 once each, nothing
+    else."""
+    q, k, v, mask, bias, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, D, Dv, metric, seed))
+    seed1 = seeds[:, 0].contiguous()
+    plan = FG.make_block_plan(mask)
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    out, lse = FG.flash_geometric_fwd(q, k, v, mask, *plan, metric=metric,
+                                      scale=scale, seed=seed1,
+                                      dropout_rate=rate, bf16=True)
+    torch.cuda.synchronize()
+    assert torch.all(out[dead] == 0) and torch.all(lse[dead] == FG.LSE_DEAD)
+    p_out, p_lse = FG.flash_geometric_forward_plain(
+        q, k, v, mask, metric, scale, rate, seed1, True, plan)
+    f_out, _ = FG.flash_geometric_forward_plain(q, k, v, mask, metric, scale,
+                                                rate, seed1)
+    _bf16_gates(out[~dead], p_out[~dead], f_out[~dead])
+    _bf16_gates(lse[~dead], p_lse[~dead], p_lse[~dead], witness=False)
+    out, lse1, lse2 = FG.flash_biased_fwd(
+        q, k, v, mask, bias, *plan, metric=metric, scale=scale,
+        dropout_rate=rate, seeds=seeds, bf16=True)
+    torch.cuda.synchronize()
+    assert torch.all(out[dead] == 0) and torch.all(lse2[dead] == FG.LSE_DEAD)
+    fwd = (q, k, v, mask, bias, lse1, metric, scale, rate, seeds)
+    p_out, p_lse2 = FG.flash_biased_forward_plain(*fwd, True, plan)
+    f_out, _ = FG.flash_biased_forward_plain(*fwd)
+    _bf16_gates(out[~dead], p_out[~dead], f_out[~dead])
+    _bf16_gates(lse2[~dead], p_lse2[~dead], p_lse2[~dead], witness=False)
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect.update({k_.name: 1 for k_ in (FG.flash_geometric_fwd_bf16_kernel,
+                                         FG.flash_lse1_bf16_kernel,
+                                         FG.flash_biased_fwd_bf16_kernel)})
+    assert launched == expect
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1000, 1536])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_pairwalk_bf16_sparse(metric, rate, N, cuda):
+    """The pair walks at sparse masks (`sparse_mask`): every metric,
+    dropout off and on, N = 1000 (not a multiple of 16: the walk's byte
+    loads) and 1536 (16-byte cp.async), H = 4 (8 rows a warp)."""
+    _pairwalk_vs_plain(cuda, 2, 4, N, 16, 16, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv", [(8, 8), (12, 12), (7, 3), (128, 128)])
+def test_pairwalk_bf16_sparse_head_dims(D, Dv, metric, cuda):
+    """Head dims of the dense bf16 tests, dropout on; H = 3 (24 of a
+    warp's lanes hold items), N = 1008 (16-byte loads, the last key tile
+    ragged)."""
+    _pairwalk_vs_plain(cuda, 1, 3, 1008, D, Dv, metric, 0.1, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 4, 40])
+def test_pairwalk_bf16_fold(H, cuda):
+    """A 16-snapshot fold, as the model launches one layer over 2
+    sequences of 8 snapshots, with dropout (each snapshot its seeds);
+    H = 1 (32 rows a warp), 4, and 40 (two head groups: the mask is read
+    once per group of 32 heads)."""
+    _pairwalk_vs_plain(cuda, 16, H, 600, 16, 16, "euclidean", 0.1, seed=2)

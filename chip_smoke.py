@@ -147,18 +147,22 @@ Phases, in order; any failure raises and exits non-zero:
    forms' bytes, operations at the bf16 tensor-core rate); B1 bf16 also
    at the grid its path launches, 3e's 16 folded snapshots, per snapshot,
    at the euclidean and the scaled-dot metric beside sdpa over the same
-   fold (timed in 3e, where the fold is); and a density sweep at N =
-   10,000 (degree 16, 256 and 2,048): B1 bf16 held to the plain bf16
-   version under the bf16 gates, beside the fp32 B1 and sdpa bf16 on the
-   same masks, times recorded, not gated; (5h) the bf16 forms of B4,
+   fold (timed in 3e, where the fold is); B2 bf16 (the backward pair
+   walk) at the scaled-dot metric beside sdpa bf16's gradients (their
+   error recorded, not gated: sdpa rounds its output, dS and gradients
+   to bf16), and over 6e's 8 folded snapshots at both metrics (timed in
+   6e); and a density sweep at N = 10,000 (degree 16, 256 and 2,048): B1
+   bf16, B4 bf16 and B2 bf16 held to the plain bf16 versions under the
+   bf16 gates, beside the fp32 B1 and sdpa bf16 on the same masks, times
+   recorded, not gated; (5h) the bf16 forms of B4,
    B5, B6, B7a and B7b at one snapshot of 3f's request, each beside its
    fp32 form in turns, the plain bf16 versions, compiled
    ``flex_attention`` on bf16 q, k, v at the scaled-dot metric as the
    library yardstick (held against the bf16 B4 and B5 at that metric,
    null with the reason if it does not build or differs; its backward
-   forward+backward minus forward), and their bounds; B5 bf16 (the pair
-   walk) also over 3f's 16 folded snapshots, per snapshot, at both
-   metrics (timed in 3f); (5i) the bf16 forms
+   forward+backward minus forward), and their bounds; B4 bf16 and B5
+   bf16 (the pair walks) also over 3f's 16 folded snapshots, per
+   snapshot, at both metrics (timed in 3f); (5i) the bf16 forms
    of B1c, B3a c and B3b c at one 131K snapshot of 6g, each beside its
    fp32 form in turns, the compact plain bf16 versions, compiled
    ``flex_attention`` on bf16 q, k, v under the compact plan's BlockMask
@@ -215,9 +219,10 @@ Phases, in order; any failure raises and exits non-zero:
    beside it; (6f) phase 6b
    with ``bf16_matmul=True``: the bf16 forms of B4-B7b each exactly once
    per layer per step, nothing else; step times, split, peak memory, one
-   layer's bf16 B6 + B7a + B7b over the folded snapshots and their share
-   of the step, finite non-zero gradients (the edge parameters' included),
-   one snapshot at full width against the plain bf16 biased backward;
+   layer's bf16 B4 + B5 (and B4 alone) and B6 + B7a + B7b over the folded
+   snapshots and their share of the step, finite non-zero gradients (the
+   edge parameters' included), one snapshot at full width against the
+   plain bf16 biased backward;
    (6g) phase 6c with ``bf16_matmul=True`` over 6c's loaders and planned
    batches: one warm-up step, then 3 steps (the bf16 forms of B1c, B3a c
    and B3b c each exactly once per layer per step, the fp32 forms
@@ -1344,19 +1349,25 @@ def phase_serve_edge(tt, FG, bf16=False):
         b5_ms = cuda_ms(lambda: b5(q, k, v, mask, bias, lse1, jlist, jcount,
                                    "euclidean", ones, seeds, 0.0), 3)
         if bf16:
-            # [5h] B5's bf16 form at the grid its path launches, per
-            # snapshot, at the model's metric and at the scaled-dot one
+            # [5h] B4's and B5's bf16 forms at the grid their path
+            # launches, per snapshot, at the model's metric and at the
+            # scaled-dot one
             sdp = "scaled_dot_product"
             l1_sdp = b4(q, k, mask, jlist, jcount, sdp, ones)
-            fold = dict(G=G, ms=cuda_ms(lambda: b5(
-                q, k, v, mask, bias, lse1, jlist, jcount, "euclidean", ones,
-                seeds, 0.0), 10) / G, sdp_ms=cuda_ms(lambda: b5(
-                    q, k, v, mask, bias, l1_sdp, jlist, jcount, sdp, ones,
-                    seeds, 0.0), 10) / G)
+            fold = {"B4": dict(G=G, ms=cuda_ms(lambda: b4(
+                q, k, mask, jlist, jcount, "euclidean", ones), 10) / G,
+                sdp_ms=cuda_ms(lambda: b4(q, k, mask, jlist, jcount, sdp,
+                                          ones), 10) / G),
+                "B5": dict(G=G, ms=cuda_ms(lambda: b5(
+                    q, k, v, mask, bias, lse1, jlist, jcount, "euclidean",
+                    ones, seeds, 0.0), 10) / G, sdp_ms=cuda_ms(lambda: b5(
+                        q, k, v, mask, bias, l1_sdp, jlist, jcount, sdp,
+                        ones, seeds, 0.0), 10) / G)}
             del l1_sdp
-            log(f"[5h] B5 bf16 over the {G} folded snapshots of 3f's layer, "
-                f"per snapshot: euclidean {fold['ms']:.5f} ms, scaled-dot "
-                f"{fold['sdp_ms']:.5f} ms")
+            log(f"[5h] over the {G} folded snapshots of 3f's layer, per "
+                f"snapshot: " + "; ".join(
+                    f"{n} bf16 euclidean {f['ms']:.5f} ms, scaled-dot "
+                    f"{f['sdp_ms']:.5f} ms" for n, f in fold.items()))
         # one snapshot at full width against the plain versions (bf16:
         # the plain B5 walks the same plan)
         lse1_k = b4(q1, k1, m1, jl1, jc1, "euclidean", ones)
@@ -1660,8 +1671,10 @@ def phase_times_bf16(FG, args):
     common = (q, k, v, mask, do, lse, delta)
 
     def b2(kern):
-        return lambda: kern(*common, ilist, icount, "euclidean", ones, seed0,
-                            0.0, False)
+        # the bf16 form is a pair walk over the forward plan
+        walk = (jlist, jcount) if kern is bf16k[1] else (ilist, icount)
+        return lambda: kern(*common, *walk, "euclidean", ones, seed0, 0.0,
+                            False)
 
     def b3a(kern):
         return lambda: kern(*common, jlist, jcount, "euclidean", ones, seed0,
@@ -1695,12 +1708,14 @@ def phase_times_bf16(FG, args):
         times[name] = ([a16, b16], [a32, b32])
     plain_b = cuda_ms(plain_bwd, 2)
     lib_b = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
+    res["B2_sdp"] = b2_vs_sdpa(FG, bf16k, q, k, v, mask, jlist, jcount, do,
+                               leaves, bmask)
     HN = G * H * N
     reads = (4 * HN * (2 * D + 2 * Dv) + 8 * HN + mask.numel() + 4 * (H + G))
     plan_b = 4 * (jlist.numel() + jcount.numel())
     plan_tb = 4 * (ilist.numel() + icount.numel())
     for name, nb, flops in (
-            ("B2", reads + plan_tb + 4 * HN * (2 * D + Dv),
+            ("B2", reads + plan_b + 4 * HN * (2 * D + Dv),
              2 * H * pairs * (3 * D + 2 * Dv)),
             ("B3a", reads + plan_b + 4 * HN * D, 2 * H * pairs * (2 * D + Dv)),
             ("B3b", reads + plan_tb + 4 * HN * (D + Dv),
@@ -1714,12 +1729,49 @@ def phase_times_bf16(FG, args):
                     for n in times)
         + f"; plain bf16 backward ms {plain_b:.4f}; sdpa bf16 backward ms "
         f"{lib_b:.4f}")
-    for name, r in res.items():
+    for name in ("B1", "B2", "B3a", "B3b"):
+        r = res[name]
         log(f"[5g] {name} bf16 bound {r['bound_ms']:.5f} ms by "
             f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops at the "
             f"bf16 rate)")
+    res["B2"]["sdp_ms"] = res["B2_sdp"]["ms"]
     res["density"] = density_sweep(FG, f32k[0], bf16k[0], H, N, D, Dv)
     return res
+
+
+def b2_vs_sdpa(FG, bf16k, q, k, v, mask, jlist, jcount, do, leaves, bmask):
+    """[5g] B2's bf16 form (the backward pair walk) at the scaled-dot
+    metric, on B1 bf16's out and lse there, beside the gradients of
+    ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask
+    (the library yardstick's function): ms, and the max abs error of dq,
+    dk and dv over each one's largest entry (dq on rows with a valid key).
+    Recorded, not gated: the library rounds its output, dS and gradients
+    to bf16, so its delta = rowsum(do out) and gradients differ from the
+    kernel's fp32 ones by more than a forward's rounding."""
+    G, H, N, _ = q.shape
+    sdp = "scaled_dot_product"
+    ones = torch.ones(H, device=DEV)
+    seed0 = torch.zeros(G, dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        out, lse = bf16k[0](q, k, v, mask, jlist, jcount, sdp, ones, seed0,
+                            0.0)
+        delta = (do * out).sum(-1)
+        args = (q, k, v, mask, do, lse, delta, jlist, jcount, sdp, ones,
+                seed0, 0.0, False)
+        ms = cuda_ms(lambda: bf16k[1](*args), 10)
+        got = bf16k[1](*args)[:3]
+    o = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                         attn_mask=bmask)
+    want = torch.autograd.grad(o, leaves, do.bfloat16())
+    live = bmask.any(-1).expand(-1, H, -1)
+    errs = {n: rel_err(g[live] if n == "dq" else g, w.float()[live]
+                       if n == "dq" else w.float())
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    log(f"[5g] B2 bf16 at the scaled-dot metric, one snapshot: {ms:.4f} ms; "
+        f"against sdpa bf16's gradients (max abs err over the largest "
+        f"entry, recorded) "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    return dict(ms=ms, library_err=errs)
 
 
 # the density sweep's degrees at N = 10,000 (5g): the model's graphs
@@ -1734,10 +1786,16 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
     beside the fp32 B1 (the dense template) and
     ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask,
     on the same inputs; B1 bf16 held to the plain bf16 version under the
-    bf16 gates. Times are recorded, not gated."""
+    bf16 gates. B4 bf16 and B2 bf16 (the other pair walks) on the same
+    inputs, held to their plain bf16 versions likewise. Times are
+    recorded, not gated."""
+    b4 = FG.flash_lse1_bf16_kernel
+    b2 = FG.flash_geometric_bwd_fused_bf16_kernel
     gen = torch.Generator(device=DEV).manual_seed(13)
     q, k, v = (0.5 * torch.randn(1, H, N, w, device=DEV, generator=gen)
                for w in (D, D, Dv))
+    do = torch.randn(1, H, N, Dv, device=DEV,
+                     generator=torch.Generator(device=DEV).manual_seed(14))
     bq, bk, bv = (t.bfloat16() for t in (q, k, v))
     ones = torch.ones(H, device=DEV)
     seed0 = torch.zeros(1, dtype=torch.int32, device=DEV)
@@ -1764,19 +1822,43 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
                 q, k, v, mask, "euclidean", ones, 0.0, seed0, True, plan)
             f_out, _ = FG.flash_geometric_forward_plain(
                 q, k, v, mask, "euclidean", ones, 0.0, seed0)
+            b4_ms = cuda_ms(lambda: b4(q, k, mask, *plan, "euclidean", ones),
+                            10)
+            lse1 = b4(q, k, mask, *plan, "euclidean", ones)
+            p_lse1 = FG.flash_lse1_plain(q, k, mask, "euclidean", ones, True)
+            # B2 bf16 on the plain bf16 forward's out and lse
+            delta = (do * p_out).sum(-1)
+            bwd = (q, k, v, mask, do, p_lse, delta, *plan, "euclidean", ones,
+                   seed0, 0.0, False)
+            b2_ms = cuda_ms(lambda: b2(*bwd), 10)
+            grads = b2(*bwd)[:3]
+            p_grads = FG.flash_geometric_backward_plain(
+                q, k, v, mask, p_out, p_lse, do, "euclidean", ones, 0.0,
+                seed0, False, None, True)[:3]
+            f_grads = FG.flash_geometric_backward_plain(
+                q, k, v, mask, p_out, p_lse, do, "euclidean", ones, 0.0,
+                seed0)[:3]
         gates = max(bf16_gates(f"degree {deg} out", out, p_out, f_out),
                     bf16_gates(f"degree {deg} lse", lse, p_lse, p_lse,
                                witness=False))
+        gates4 = bf16_gates(f"degree {deg} lse1", lse1, p_lse1, p_lse1,
+                            witness=False)
+        gates2 = max(bf16_gates(f"degree {deg} {n}", g, w, f)
+                     for n, g, w, f in zip(("dq", "dk", "dv"), grads,
+                                           p_grads, f_grads))
         pairs = int(bmask.sum().item())
         res[deg] = dict(ms=[a16, b16], fp32_ms=[a32, b32], library_ms=lib,
-                        valid_pairs=pairs, gates=gates)
+                        valid_pairs=pairs, gates=gates, b4_ms=b4_ms,
+                        b4_gates=gates4, b2_ms=b2_ms, b2_gates=gates2)
         log(f"[5g] density: N={N}, degree {deg} ({pairs} valid pairs, "
             f"{int(plan[1].sum().item())} walked tiles): B1 bf16 ms "
             f"{a16:.4f} {b16:.4f}, fp32 B1 (dense template) ms {a32:.4f} "
-            f"{b32:.4f}, sdpa bf16 ms {lib:.4f}; B1 bf16 vs plain bf16 (max "
-            f"abs err, max err, mean err, witness) "
-            f"{tuple(f'{x:.3e}' for x in gates)}")
-        del mask, bmask, plan, out, p_out, f_out
+            f"{b32:.4f}, sdpa bf16 ms {lib:.4f}; B4 bf16 ms {b4_ms:.4f}, B2 "
+            f"bf16 ms {b2_ms:.4f}; vs plain bf16 (max abs err, max err, mean "
+            f"err, witness) B1 {tuple(f'{x:.3e}' for x in gates)}, B4 "
+            f"{tuple(f'{x:.3e}' for x in gates4)}, B2 "
+            f"{tuple(f'{x:.3e}' for x in gates2)}")
+        del mask, bmask, plan, out, p_out, f_out, grads, p_grads, f_grads
     return res
 
 
@@ -2339,11 +2421,24 @@ def phase_train(tt, FG, bf16=False):
                          generator=torch.Generator(device=DEV).manual_seed(6))
         delta = (do * out).sum(-1)
         common = (q, k, v, mask, do, lse, delta)
-        fold_b2 = cuda_ms(lambda: b2(*common, ilist, icount, "euclidean",
-                                     ones, seeds, 0.0, False), 3)
+        # B2's bf16 form is a pair walk over the forward plan
+        walk = (jlist, jcount) if bf16 else (ilist, icount)
+        fold_b2 = cuda_ms(lambda: b2(*common, *walk, "euclidean", ones,
+                                     seeds, 0.0, False), 3)
         fold_b3 = cuda_ms(lambda: (
             b3a(*common, jlist, jcount, "euclidean", ones, seeds, 0.0, False),
             b3b(*common, ilist, icount, "euclidean", ones, seeds, 0.0)), 3)
+        fold_b2_sdp = None
+        if bf16:
+            # [5g] B2 bf16 at the scaled-dot metric over the same fold, on
+            # B1 bf16's out and lse there
+            sdp = "scaled_dot_product"
+            out_s, lse_s = b1(q, k, v, mask, jlist, jcount, sdp, ones,
+                              seeds, 0.0)
+            sdp_args = (q, k, v, mask, do, lse_s, (do * out_s).sum(-1),
+                        jlist, jcount, sdp, ones, seeds, 0.0, False)
+            fold_b2_sdp = cuda_ms(lambda: b2(*sdp_args), 10)
+            del out_s, lse_s, sdp_args
     fold = {True: fold_b2, False: fold_b3}[default]
     step = min(runs[default]["step_ms"])
     share = cfg.num_layers * (fold_b1 + fold) / step
@@ -2351,7 +2446,8 @@ def phase_train(tt, FG, bf16=False):
         f"{fold_b1:.3f} ms; backward B2 {fold_b2:.3f} ms, B3a+B3b "
         f"{fold_b3:.3f} ms; {cfg.num_layers} layers' B1 and "
         f"{'B2' if default else 'B3a+B3b'} = {share:.3f} of the fastest step "
-        f"({step:.3f} ms)")
+        f"({step:.3f} ms)" + (f"; B2 bf16 at the scaled-dot metric over the "
+                               f"fold {fold_b2_sdp:.3f} ms" if bf16 else ""))
 
     # one snapshot at full width, at the seeded and the trained weights:
     # both forms against the plain backward
@@ -2417,6 +2513,8 @@ def phase_train(tt, FG, bf16=False):
     return dict(pack_s=pack_s, runs={str(k): v for k, v in runs.items()},
                 default_fused=default, moved=moved, split_ms=splits,
                 fold_b1_ms=fold_b1, fold_b2_ms=fold_b2, fold_b3_ms=fold_b3,
+                fold_b2=dict(G=G, ms=fold_b2 / G, sdp_ms=(
+                    None if fold_b2_sdp is None else fold_b2_sdp / G)),
                 kernel_share_of_step=share, full_err=full, peak_gb=peak_gb,
                 check_input_sums=sums, bf16_nudge_noise=noise,
                 launches={f: runs[f]["launches"] for f in runs})
@@ -2516,13 +2614,16 @@ def phase_train_edge(tt, FG, bf16=False):
         fold_fwd = cuda_ms(lambda: FG._biased_forward(
             q, k, v, mask, bias, *plan, "euclidean", ones, 0.0, seeds, bf16),
             3)
+        fold_b4 = cuda_ms(lambda: kerns[0](q, k, mask, *plan, "euclidean",
+                                           ones), 3)
         fold_bwd = cuda_ms(lambda: biased_bwd_kernels(
             FG, *args, plan, plan_t, "euclidean", ones, seeds, 0.0, False,
             bf16), 3)
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
     log(f"[{tag}] one layer's launches over the {G} folded snapshots: B4+B5 "
-        f"{fold_fwd:.3f} ms, B6+B7a+B7b {fold_bwd:.3f} ms; {cfg.num_layers} "
+        f"{fold_fwd:.3f} ms (B4 {fold_b4:.3f} ms), B6+B7a+B7b "
+        f"{fold_bwd:.3f} ms; {cfg.num_layers} "
         f"layers' B6+B7a+B7b = {share:.3f} and with B4+B5 "
         f"{cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the fastest "
         f"step ({step:.3f} ms)")
@@ -2548,7 +2649,8 @@ def phase_train_edge(tt, FG, bf16=False):
     return dict(epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
                 loss=losses, launches=launched, peak_memory_gb=peak_gb,
                 held_gb=held_gb, edge_grad_max=edge_grads, moved=moved,
-                fold_b4_b5_ms=fold_fwd, fold_b6_b7_ms=fold_bwd,
+                fold_b4_b5_ms=fold_fwd, fold_b4_ms=fold_b4,
+                fold_b6_b7_ms=fold_bwd,
                 b6_b7_share_of_step=share, full_err=full)
 
 
@@ -5546,10 +5648,13 @@ def main() -> int:
                         "the boolean mask" + ("" if name == "B1" else
                                               ", forward+backward - forward"),
              **(pairwalk_fields(t16["B1"], serve_bf16["fold"])
-                if name == "B1" else {}))
+                if name == "B1" else
+                dict(pairwalk_fields(t16["B2"], train_bf16["fold_b2"]),
+                     library_err=t16["B2_sdp"]["library_err"])
+                if name == "B2" else {}))
         for name, kern, source, line in zip(
             ("B1", "B2", "B3a", "B3b"), flash_kernels(FG, True),
-            ("flash_pairwalk_fwd.cu", "flash_geometric_bwd_fused.cu",
+            ("flash_pairwalk_fwd.cu", "flash_pairwalk_bwd.cu",
              "flash_geometric_bwd.cu", "flash_geometric_bwd.cu"),
             (259, 1590, 1455, 1534))]
     # the bf16 forms of B4-B7b: launches on the bf16 edge-feature serving
@@ -5574,13 +5679,12 @@ def main() -> int:
                  if name in ("B4", "B5") else
                  t16e["library_bwd"].get("form",
                                          t16e["library_bwd"].get("error"))),
-             **(pairwalk_fields(dict(t16e["B5"], sdp_ms=t16e["b5_sdp_ms"]),
-                                serve_edge_bf16["fold"])
-                if name == "B5" else {}))
+             **(pairwalk_fields(dict(t16e[name], sdp_ms=t16e[
+                 f"b{name[1]}_sdp_ms"]), serve_edge_bf16["fold"][name])
+                if name in ("B4", "B5") else {}))
         for name, kern, source, line, plain_of in zip(
             ("B4", "B5", "B6", "B7a", "B7b"), biased_kernels(FG, True),
-            ("flash_biased_fwd.cu", "flash_pairwalk_fwd.cu")
-            + ("flash_biased_bwd.cu",) * 3,
+            ("flash_pairwalk_fwd.cu",) * 2 + ("flash_biased_bwd.cu",) * 3,
             (885, 944, 1038, 1102, 1176),
             ("flash_lse1_plain with bf16=True",
              "flash_biased_forward_plain with bf16=True (walks the plan)")

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
-"""Time B1's bf16 pair walk (``tagan_torch/csrc/flash_pairwalk_fwd.cu``)
-against copies of its source with one design constant changed, on one
-NVIDIA GPU, to see what bounds it:
+"""Time the bf16 pair walks, B1's (``tagan_torch/csrc/flash_pairwalk_fwd.cu``)
+and B2's (``flash_pairwalk_bwd.cu``), against copies of their sources
+with one design constant changed, on one NVIDIA GPU, to see what bounds
+them:
 
     python3 pairwalk_variants.py
 
-Each variant is the source with one edit: the flush's gathers 1 or 4
-entries a lane at a time (UNROLL), a 2- or 8-stage mask ring (NST), and
-the flush removed (the walk then only
-streams the mask and lists the pairs; its output is not the function).
-The copies are built beside the
-source into ``tagan_torch/_build/`` and timed in turns (base first and
-last) with CUDA events, per snapshot, on uniform random graphs of
-10,000 nodes: degree 16 (the model's) at one snapshot and over a
-16-snapshot fold, degree 256, and a diagonal-only mask walked over every
-key tile. Prints one line a graph; writes nothing else. Exits non-zero
-without CUDA.
+Each variant is the source, with the walk's header
+(``flash_pairwalk.cuh``) inlined, under one edit: the flush's gathers 1,
+2 or 4 entries a lane at a time (UNROLL; B1's walk takes 2, B2's 1), a
+2- or 8-stage mask ring (NST),
+the flush removed (the walk then only streams the mask and lists the
+pairs; its output is not the function), and for B2 its dk and dv
+atomics removed (likewise). The copies are built beside the source into
+``tagan_torch/_build/`` and timed in turns (base first and last) with
+CUDA events, per snapshot, on uniform random graphs of 10,000 nodes:
+degree 16 (the model's) at one snapshot and over a 16-snapshot fold,
+degree 256, and a diagonal-only mask walked over every key tile. Prints
+one line a graph and walk; writes nothing else. Exits non-zero without
+CUDA.
 """
 
 import sys
@@ -29,19 +32,40 @@ from tagan_torch.ops import flash_geometric as FG
 N, H, D = 10_000, 4, 16
 
 
-def variants(src: str):
-    edits = {
-        "unroll1": ("constexpr int UNROLL = 2;", "constexpr int UNROLL = 1;"),
-        "unroll4": ("constexpr int UNROLL = 2;", "constexpr int UNROLL = 4;"),
-        "nst2": ("constexpr int NST = 4;", "constexpr int NST = 2;"),
-        "nst8": ("constexpr int NST = 4;", "constexpr int NST = 8;"),
-        "noflush": ("    flush<kBiased>(a, it, lists + rl * CAPR, "
-                    "it.on ? rowcnt[rl] : 0, zbuf);\n", ""),
-    }
-    for name, (old, new) in edits.items():
-        if old not in src:
-            raise SystemExit(f"{name}: {old!r} not in the source")
-        yield name, src.replace(old, new)
+NST = {
+    "nst2": ("constexpr int NST = 4;", "constexpr int NST = 2;"),
+    "nst8": ("constexpr int NST = 4;", "constexpr int NST = 8;"),
+}
+EDITS = {
+    "flash_pairwalk_fwd": dict(
+        unroll1=("constexpr int UNROLL = 2;", "constexpr int UNROLL = 1;"),
+        unroll4=("constexpr int UNROLL = 2;", "constexpr int UNROLL = 4;"),
+        **NST, noflush=(
+            "    flush<kMode>(a, it, sm.lists + rl * CAPR, it.on ? "
+            "sm.rowcnt[rl] : 0,\n                 zbuf);\n", "")),
+    "flash_pairwalk_bwd": dict(
+        unroll2=("constexpr int UNROLL = 1;", "constexpr int UNROLL = 2;"),
+        unroll4=("constexpr int UNROLL = 1;", "constexpr int UNROLL = 4;"),
+        **NST, noflush=(
+            "    flush(a, it, sm.lists + rl * CAPR, it.on ? sm.rowcnt[rl] : "
+            "0);\n", ""),
+        noatomics=("float w, bool vec) {\n",
+                   "float w, bool vec) {\n  return;\n")),
+}
+
+
+def variants(name: str, src: str, header: str):
+    """(variant, source): ``src`` with the walk's header inlined, under
+    each of ``EDITS[name]``."""
+    inline = '#include "flash_pairwalk.cuh"'
+    if inline not in src:
+        raise SystemExit(f"{name}: {inline!r} not in the source")
+    src = src.replace(inline, header.replace("#pragma once\n", ""))
+    for variant, (old, new) in EDITS[name].items():
+        if src.count(old) != 1:
+            raise SystemExit(f"{name} {variant}: {old!r} not once in the "
+                             f"source")
+        yield variant, src.replace(old, new)
 
 
 def graph(G, deg, gen):
@@ -78,19 +102,24 @@ def main() -> int:
         print("needs an NVIDIA GPU with CUDA", file=sys.stderr)
         return 1
     csrc = Path(FG.__file__).resolve().parent.parent / "csrc"
-    src = (csrc / "flash_pairwalk_fwd.cu").read_text()
-    kernels = {"base": FG.flash_geometric_fwd_bf16_kernel}
+    header = (csrc / "flash_pairwalk.cuh").read_text()
+    walks = {"B1 bf16": FG.flash_geometric_fwd_bf16_kernel,
+             "B2 bf16": FG.flash_geometric_bwd_fused_bf16_kernel}
+    kernels = {w: {"base": kern} for w, kern in walks.items()}
     made = []
     try:
-        for name, text in variants(src):
-            path = csrc / f"pairwalk_variant_{name}.cu"
-            path.write_text(text)
-            made.append(path)
-            kernels[name] = FG._FlashForwardBf16Kernel()
-            kernels[name].source = path.stem
-        build.build(k.source for k in kernels.values())
-        for k in kernels.values():
-            k._function()
+        for w, base in walks.items():
+            src = (csrc / f"{base.source}.cu").read_text()
+            for name, text in variants(base.source, src, header):
+                path = csrc / f"pairwalk_variant_{base.source}_{name}.cu"
+                path.write_text(text)
+                made.append(path)
+                kernels[w][name] = type(base)()
+                kernels[w][name].source = path.stem
+        build.build(k.source for ks in kernels.values() for k in ks.values())
+        for ks in kernels.values():
+            for k in ks.values():
+                k._function()
     finally:
         for path in made:
             path.unlink()
@@ -99,21 +128,29 @@ def main() -> int:
     for label, G, deg in (("degree 16", 1, 16), ("degree 16, fold", 16, 16),
                           ("degree 256", 1, 256),
                           ("diagonal, every tile walked", 1, 0)):
-        q, k, v = (0.5 * torch.randn(G, H, N, D, device="cuda",
-                                     generator=gen) for _ in range(3))
+        q, k, v, do = (0.5 * torch.randn(G, H, N, D, device="cuda",
+                                         generator=gen) for _ in range(4))
         mask, jlist, jcount = graph(G, deg, gen)
         ones = torch.ones(H, device="cuda")
         seed = torch.zeros(G, dtype=torch.int32, device="cuda")
-        order = list(kernels) + list(kernels)[::-1]
-        res = {}
         with torch.inference_mode():
-            for name in order:
-                kern = kernels[name]
-                res.setdefault(name, []).append(round(ms(
-                    lambda: kern(q, k, v, mask, jlist, jcount, "euclidean",
-                                 ones, seed, 0.0)) / G, 5))
-        print(f"{label}: ms a snapshot {res}", flush=True)
-        del q, k, v, mask
+            out, lse = walks["B1 bf16"](q, k, v, mask, jlist, jcount,
+                                        "euclidean", ones, seed, 0.0)
+            delta = (do * out).sum(-1)
+        args = {"B1 bf16": (q, k, v, mask, jlist, jcount, "euclidean", ones,
+                            seed, 0.0),
+                "B2 bf16": (q, k, v, mask, do, lse, delta, jlist, jcount,
+                            "euclidean", ones, seed, 0.0, False)}
+        for w, ks in kernels.items():
+            order = list(ks) + list(ks)[::-1]
+            res = {}
+            with torch.inference_mode():
+                for name in order:
+                    kern = ks[name]
+                    res.setdefault(name, []).append(round(ms(
+                        lambda: kern(*args[w])) / G, 5))
+            print(f"{w}, {label}: ms a snapshot {res}", flush=True)
+        del q, k, v, do, mask, out, lse, delta
     return 0
 
 

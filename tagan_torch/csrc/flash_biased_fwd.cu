@@ -4,10 +4,10 @@
 // that serve the dense path's double softmax (host side
 // _flash_biased_forward), in their dense-mask form (B4, B5), their compact
 // occupied-block form (B4c, B5c: hybrid_biased.py _band_lse1 and
-// _band_biased_main) and the bf16 form (bf16=True) of each but B5 (B5's
-// bf16 form is the pair walk of flash_pairwalk_fwd.cu). For each query
-// row i and head h, over the valid keys j
-// (mask[i, j] != 0), with s_ij the metric score:
+// _band_biased_main) and the bf16 form (bf16=True) of B4c and B5c (B4's
+// and B5's bf16 forms are the pair walks of flash_pairwalk_fwd.cu). For
+// each query row i and head h, over the valid keys j (mask[i, j] != 0),
+// with s_ij the metric score:
 //
 //   B4  _lse1_kernel          lse1_i = logsumexp_j s_ij
 //   B5  _flash_biased_kernel  w1_ij  = exp(s_ij - lse1_i)
@@ -43,13 +43,13 @@
 // but once per head. Reading each bias tile once, with the heads innermost
 // in one block, is the first thing a later redesign changes.
 //
-// The bf16 forms (kBf16, either mask form; the TPU kernels' bf16=True) round
-// the operands of q.k and of P@V as B1's bf16 form does: the q and k tiles in
-// place once their norms are taken, v as staged, and B5's dropped p2 as it
-// is stored for P@V. The norms, w1, z, the running max and the un-dropped
-// sum l stay fp32. B5's p2 is rounded relative to the running max after
-// each key tile, so its result depends on the walk, as the TPU kernel's
-// does on its block size; B4's does not.
+// The bf16 forms (kBf16, the compact mask forms; the TPU kernels'
+// bf16=True) round the operands of q.k and of P@V as B1's bf16 form does:
+// the q and k tiles in place once their norms are taken, v as staged, and
+// B5c's dropped p2 as it is stored for P@V. The norms, w1, z, the running
+// max and the un-dropped sum l stay fp32. B5c's p2 is rounded relative to
+// the running max after each key tile, so its result depends on the walk,
+// as the TPU kernel's does on its block size; B4c's does not.
 //
 // The compact form reads the mask tile from the store slot of each walk step
 // (flash_geometric_common.cuh) and the bias from the same slot of a bias
@@ -365,20 +365,6 @@ extern "C" int tagan_flash_biased_fwd(
                                   jlist, scale, seeds, out, lse2, G, H, N, D,
                                   Dv, n_i, W, 0, metric, sqrt_d, use_dropout,
                                   keep_thresh, inv_keep, stream);
-}
-
-// B4's bf16 form: the same arguments.
-extern "C" int tagan_flash_lse1_bf16(const void* q, const void* k,
-                                     const void* mask, const void* jlist,
-                                     const void* jcount, const void* scale,
-                                     void* lse1, int G, int H, int N, int D,
-                                     int n_i, int W, int metric, float sqrt_d,
-                                     void* stream) {
-  using namespace tagan_flash;
-  return launch<false, DENSE_MASK, true>(
-      q, k, nullptr, mask, nullptr, nullptr, jlist, jcount, jlist, scale,
-      nullptr, nullptr, lse1, G, H, N, D, 0, n_i, W, 0, metric, sqrt_d, 0, 0u,
-      1.f, stream);
 }
 
 // B4c: lse1 over the compact store (bits i64[G, S, 64] when packed, else

@@ -6,11 +6,8 @@
 // d(scale) from one walk over the transposed plan, so each (query tile, key
 // tile) pair is recomputed once instead of twice (the two-walk B3a + B3b in
 // flash_geometric_bwd.cu). The math per pair is that of
-// flash_geometric_common.cuh: pair_weights and chain_weight. The bf16 form
-// (kBf16, the TPU kernel's bf16=True) rounds every product's operands to
-// bf16 as B3a's and B3b's bf16 forms do; each dq partial is finished (the
-// scaled dot's 1/sqrt(d)) before its atomics, as the TPU kernel finishes
-// each partial block.
+// flash_geometric_common.cuh: pair_weights and chain_weight. B2's bf16 form
+// (bf16=True) is the pair walk of flash_pairwalk_bwd.cu.
 //
 // Design. One thread block per (64-key tile, head, folded index g), walking
 // ilist[g, tile, :icount], the query tiles of its key strip. dk and dv
@@ -53,12 +50,11 @@ using namespace tagan_flash;
 
 // dq[row0 + r, :] += sum_j W_rj k_j (- (sum_j W_rj) q_r), VEC columns per
 // atomic; thread slots cover the 64 x D tile.
-template <int VEC, bool kBf16>
+template <int VEC>
 __device__ __forceinline__ void add_dq_partial(const BwdTiles& t,
-                                               const float* __restrict__ qg,
                                                float* __restrict__ dqg,
                                                int row0, int N, int D,
-                                               int metric, float sqrt_d) {
+                                               int metric) {
   const bool sqm = is_sq_metric(metric);
   const int DS = D + 1, PS = BN + 1, per_row = D / VEC;
   for (int slot = threadIdx.x; slot < BM * per_row; slot += THREADS) {
@@ -70,18 +66,15 @@ __device__ __forceinline__ void add_dq_partial(const BwdTiles& t,
     for (int j = 0; j < BN; ++j) {
       const float w = t.Ws[r * PS + j];
       ws += w;
-      const float wr = rd<kBf16>(w);
 #pragma unroll
       for (int x = 0; x < VEC; ++x)
-        acc[x] = fmaf(wr, t.Ks[j * DS + d0 + x], acc[x]);
+        acc[x] = fmaf(w, t.Ks[j * DS + d0 + x], acc[x]);
     }
     if (gr >= N) continue;
     bool any = false;
 #pragma unroll
     for (int x = 0; x < VEC; ++x) {
-      acc[x] = sqm ? acc[x] - ws * unrounded<kBf16>(t.Qs, qg, r, gr, D,
-                                                    d0 + x)
-                   : chain_finish<kBf16>(metric, acc[x], sqrt_d);
+      acc[x] = sqm ? acc[x] - ws * t.Qs[r * DS + d0 + x] : acc[x];
       any |= acc[x] != 0.f;
     }
     if (!any) continue;
@@ -99,7 +92,7 @@ __device__ __forceinline__ void add_dq_partial(const BwdTiles& t,
   }
 }
 
-template <int LANES, int VEC, bool kBf16>
+template <int LANES, int VEC>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_fused_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -131,9 +124,9 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
   const float* kg = k + gh * N * D;
   const int col0 = jb * BN;
   load_rows(t.Ks, kg, col0, N, D);
-  load_rows<kBf16>(t.Vs, v + gh * N * Dv, col0, N, Dv);
+  load_rows(t.Vs, v + gh * N * Dv, col0, N, Dv);
   __syncthreads();
-  tile_norms<kBf16>(t, D, false, true);
+  tile_norms(t, D, false, true);
 
   const float sc = scale[h];
   const uint32_t mix = (uint32_t)seed[g] ^ ((uint32_t)h * 0xC2B2AE3Du);
@@ -152,12 +145,12 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
   for (int step = 0; step < cnt; ++step) {
     const int row0 = il[step] * BM;
     __syncthreads();  // the previous step is done with every query tile
-    load_query_side<kBf16>(t, qg, dog, lse + gh * N, delta + gh * N, row0, N,
-                           D, Dv);
+    load_query_side(t, qg, dog, lse + gh * N, delta + gh * N, row0, N, D,
+                    Dv);
     __syncthreads();
-    tile_norms<kBf16>(t, D, true, false);
+    tile_norms(t, D, true, false);
     __syncthreads();
-    dsc += pair_weights<true, DENSE_MASK, kBf16>(
+    dsc += pair_weights<true>(
         t, mg, nullptr, N, D, Dv, row0, col0, metric, sc, sqrt_d, use_dropout,
         mix, keep_thresh, inv_keep);
     __syncthreads();
@@ -165,9 +158,8 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
       float w[4], p[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
-        const float wf = t.Ws[i * PS + rg * 4 + a];
-        wsum[a] += wf;
-        w[a] = rd<kBf16>(wf);
+        w[a] = t.Ws[i * PS + rg * 4 + a];
+        wsum[a] += w[a];
         p[a] = t.Ps[i * PS + rg * 4 + a];
       }
 #pragma unroll
@@ -185,7 +177,7 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
         }
       }
     }
-    add_dq_partial<VEC, kBf16>(t, qg, dqg, row0, N, D, metric, sqrt_d);
+    add_dq_partial<VEC>(t, dqg, row0, N, D, metric);
   }
 
 #pragma unroll
@@ -198,9 +190,8 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
     for (int jj = 0; jj < LANES; ++jj) {
       const int d = lane + 16 * jj;
       if (d < D)
-        ok[d] = sqm ? dka[a][jj] - wsum[a] * unrounded<kBf16>(t.Ks, kg, lc,
-                                                              gc, D, d)
-                    : chain_finish<kBf16>(metric, dka[a][jj], sqrt_d);
+        ok[d] = sqm ? dka[a][jj] - wsum[a] * t.Ks[lc * DS + d]
+                    : dka[a][jj];
       if (d < Dv) ov[d] = dva[a][jj];
     }
   }
@@ -211,7 +202,7 @@ flash_bwd_fused_kernel(const float* __restrict__ q,
   }
 }
 
-template <int LANES, int VEC, bool kBf16>
+template <int LANES, int VEC>
 cudaError_t launch_fused(const dim3& grid, size_t smem, cudaStream_t stream,
                          const void* q, const void* k, const void* v,
                          const void* mask, const void* dout, const void* lse,
@@ -224,11 +215,11 @@ cudaError_t launch_fused(const dim3& grid, size_t smem, cudaStream_t stream,
                          int need_dscale) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_fused_kernel<LANES, VEC, kBf16>,
+        flash_bwd_fused_kernel<LANES, VEC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  flash_bwd_fused_kernel<LANES, VEC, kBf16><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_fused_kernel<LANES, VEC><<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v,
       (const uint8_t*)mask, (const float*)dout, (const float*)lse,
       (const float*)delta, (const int*)ilist, (const int*)icount,
@@ -236,38 +227,6 @@ cudaError_t launch_fused(const dim3& grid, size_t smem, cudaStream_t stream,
       (float*)dv, (float*)dscale_part, H, N, D, Dv, n_j, W, metric, sqrt_d,
       use_dropout, thresh, inv_keep, need_dscale);
   return cudaGetLastError();
-}
-
-template <bool kBf16>
-int fused_entry(const void* q, const void* k, const void* v,
-                const void* mask, const void* dout, const void* lse,
-                const void* delta, const void* ilist, const void* icount,
-                const void* scale, const void* seed, void* dq, void* dk,
-                void* dv, void* dscale_part, int G, int H, int N, int D,
-                int Dv, int n_j, int W, int metric, float sqrt_d,
-                int use_dropout, unsigned int keep_thresh, float inv_keep,
-                int need_dscale, void* stream) {
-  if (G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
-      Dv > MAX_D || metric < 0 || metric > COS_DIST ||
-      n_j != (N + BN - 1) / BN || W < 0)
-    return (int)cudaErrorInvalidValue;
-  if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = sizeof(float) * bwd_smem_floats(D, Dv);
-  const dim3 grid(n_j, H, G);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const bool vec4 = D % 4 == 0;
-  switch (lanes_for(D > Dv ? D : Dv) * 2 + (vec4 ? 1 : 0)) {
-#define TAGAN_FUSED(L, V4)                                                 \
-  case L * 2 + V4:                                                         \
-    return (int)launch_fused<L, V4 ? 4 : 1, kBf16>(                        \
-        grid, smem, s, q, k, v, mask, dout, lse, delta, ilist, icount,     \
-        scale, seed, dq, dk, dv, dscale_part, H, N, D, Dv, n_j, W, metric, \
-        sqrt_d, use_dropout, keep_thresh, inv_keep, need_dscale);
-    TAGAN_FUSED(1, 0) TAGAN_FUSED(1, 1) TAGAN_FUSED(2, 0) TAGAN_FUSED(2, 1)
-    TAGAN_FUSED(4, 0) TAGAN_FUSED(4, 1) TAGAN_FUSED(8, 0) TAGAN_FUSED(8, 1)
-#undef TAGAN_FUSED
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -283,23 +242,25 @@ extern "C" int tagan_flash_geometric_bwd_fused(
     int Dv, int n_j, int W, int metric, float sqrt_d, int use_dropout,
     unsigned int keep_thresh, float inv_keep, int need_dscale,
     void* stream) {
-  return fused_entry<false>(q, k, v, mask, dout, lse, delta, ilist, icount,
-                            scale, seed, dq, dk, dv, dscale_part, G, H, N, D,
-                            Dv, n_j, W, metric, sqrt_d, use_dropout,
-                            keep_thresh, inv_keep, need_dscale, stream);
-}
-
-// B2's bf16 form: the same arguments.
-extern "C" int tagan_flash_geometric_bwd_fused_bf16(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* dout, const void* lse, const void* delta, const void* ilist,
-    const void* icount, const void* scale, const void* seed, void* dq,
-    void* dk, void* dv, void* dscale_part, int G, int H, int N, int D,
-    int Dv, int n_j, int W, int metric, float sqrt_d, int use_dropout,
-    unsigned int keep_thresh, float inv_keep, int need_dscale,
-    void* stream) {
-  return fused_entry<true>(q, k, v, mask, dout, lse, delta, ilist, icount,
-                           scale, seed, dq, dk, dv, dscale_part, G, H, N, D,
-                           Dv, n_j, W, metric, sqrt_d, use_dropout,
-                           keep_thresh, inv_keep, need_dscale, stream);
+  if (G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
+      Dv > MAX_D || metric < 0 || metric > COS_DIST ||
+      n_j != (N + BN - 1) / BN || W < 0)
+    return (int)cudaErrorInvalidValue;
+  if (G == 0 || H == 0 || N == 0) return 0;
+  const size_t smem = sizeof(float) * bwd_smem_floats(D, Dv);
+  const dim3 grid(n_j, H, G);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec4 = D % 4 == 0;
+  switch (lanes_for(D > Dv ? D : Dv) * 2 + (vec4 ? 1 : 0)) {
+#define TAGAN_FUSED(L, V4)                                                 \
+  case L * 2 + V4:                                                         \
+    return (int)launch_fused<L, V4 ? 4 : 1>(                               \
+        grid, smem, s, q, k, v, mask, dout, lse, delta, ilist, icount,     \
+        scale, seed, dq, dk, dv, dscale_part, H, N, D, Dv, n_j, W, metric, \
+        sqrt_d, use_dropout, keep_thresh, inv_keep, need_dscale);
+    TAGAN_FUSED(1, 0) TAGAN_FUSED(1, 1) TAGAN_FUSED(2, 0) TAGAN_FUSED(2, 1)
+    TAGAN_FUSED(4, 0) TAGAN_FUSED(4, 1) TAGAN_FUSED(8, 0) TAGAN_FUSED(8, 1)
+#undef TAGAN_FUSED
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -5,11 +5,12 @@
 // in their dense-mask bf16 form (bf16=True):
 //
 //   B1 bf16  _flash_kernel         (host side _flash_forward)
+//   B4 bf16  _lse1_kernel          (host side _flash_biased_forward)
 //   B5 bf16  _flash_biased_kernel  (host side _flash_biased_forward)
 //
 // They compute what flash_geometric_fwd.cu (B1) and flash_biased_fwd.cu
-// (B5) compute for bf16=True, over the same walk: for each query row i and
-// head h, the key tiles jlist[g, tile, :jcount[g, tile]] in that order, an
+// (B4, B5) compute for bf16=True, over the same walk: for each query row i
+// and head h, the key tiles jlist[g, tile, :jcount[g, tile]] in that order, an
 // online softmax whose running max is updated once per 64-key tile, q.k
 // from q and k rounded to bf16 after their fp32 norms, drop(p) rounded to
 // bf16 relative to that running max and multiplied by v rounded to bf16,
@@ -17,7 +18,10 @@
 // (keep_hash; B5's two seeds), out = 0 and lse = 1e30 on rows with no
 // valid key. B5 takes lse1 as an input, forms z = drop1(exp(s - lse1)) +
 // bias[g, i, j] on valid pairs only (a dropped w1 enters as z = bias), and
-// runs the same online softmax over z.
+// runs the same online softmax over z. B4 keeps only the running max and
+// the un-dropped sum of exp(s) and writes lse1 (1e30 on rows with no
+// valid key); its result depends on no walk, so a flush folds its pairs
+// into (m, l) at once.
 //
 // What bounds it on the H100. Each snapshot's int8 mask is N^2 bytes (100
 // MB at N = 10,000), more than the 50 MB L2, and the function needs it read
@@ -32,16 +36,10 @@
 // (all H where H <= 32), R * HG <= 32, each lane one (row, head) item. No
 // block barrier is taken. (Blocks of 4 independent warps measured up to
 // 10% slower: shared memory is then granted 4 warps at a time.)
-//  1. The mask is read once for all the group's heads: each walked tile's
-//     R x 64 bytes are 16-byte chunks, one or more per lane, copied by
-//     cp.async (16 bytes where N % 16 == 0 and the mask is 16-byte aligned,
-//     else byte loads) into a 4-stage ring, 3 jlist steps ahead. A lane
-//     reads back only the chunks it copied, so the ring needs no barrier.
-//  2. A chunk becomes 16 bits (one per byte); a tile whose chunks are all
-//     0 costs nothing more. Otherwise the popcounts and a prefix over each
-//     row's 4 lanes append the tile's valid columns to the row's list in
-//     shared memory (ascending, CAPR entries a row).
-//  3. When a row's list could overflow, and at the end, the warp flushes,
+//  1. The mask is read once for all the group's heads, and each row's
+//     valid columns are listed in shared memory (`walk_mask`,
+//     flash_pairwalk.cuh, shared with B2's bf16 walk).
+//  2. When a row's list could overflow, and at the end, the warp flushes,
 //     computing only the valid pairs, in three passes (`flush`): the
 //     scores of all listed pairs (q.k over D from q in shared memory,
 //     rounded once, and k gathered from global memory: one snapshot's K
@@ -54,8 +52,8 @@
 //     their gathers to follow one another. Rows with no pair in a tile are
 //     not touched, which is exact (m unchanged, alpha = 1), so the dense
 //     template's "p = 1 garbage" before a row's first valid key does not
-//     arise.
-//  4. Units are sub-tiles of R rows (8 at H = 4), so one 10K snapshot
+//     arise. B4 takes the first pass only.
+//  3. Units are sub-tiles of R rows (8 at H = 4), so one 10K snapshot
 //     gives 1,250 warps: every SM is busy at G = 1 as at G = 16.
 //
 // What it does not do yet: tensor cores for dense tiles. A tile whose rows
@@ -65,46 +63,27 @@
 // with P in registers for dense tiles is later work.
 //
 // Interface: plain C, loaded with ctypes; the same entry points and
-// arguments as the dense template's bf16 forms had. Launches on the given
+// arguments as the dense templates' bf16 forms had. Launches on the given
 // stream, allocates nothing, returns the cudaError_t of the launch.
 
-#include "flash_geometric_common.cuh"
+#include "flash_pairwalk.cuh"
 
 namespace {
 
-using namespace tagan_flash;
+using namespace tagan_pairwalk;
 
-constexpr int WARP = 32;
-constexpr int NST = 4;            // mask ring stages: 3 walk steps ahead
-constexpr int CAPR = 64;          // list entries a row between flushes
 constexpr int UNROLL = 2;         // entries a lane gathers at once
-constexpr int MAX_CPL = 4;        // 16-byte mask chunks a lane and step
-constexpr unsigned FULL = 0xffffffffu;
 
-static_assert(CAPR >= BN, "a row's list holds at least one whole tile");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(NST - 1) : "memory");
-}
+// What a walk computes: B1's out and lse, B5's out and lse2 over the
+// biased second softmax, or B4's lse1 alone.
+enum Mode : int { OUT = 0, BIASED = 1, LSE = 2 };
 
 // Bytes of one warp's (one block's) shared memory: the mask ring, the
 // rows' lists and counts, and q (rounded), the accumulators and the
-// flush's per-entry values, each [width][32 lanes].
+// flush's per-entry values, each [width][32 lanes]. B4 passes Dv = 0: it
+// keeps no accumulator.
 __host__ __device__ inline size_t warp_bytes(int R, int D, int Dv) {
-  return (size_t)NST * R * BN + (size_t)R * CAPR * 4 + WARP * 4 +
-         (size_t)WARP * (D + Dv + CAPR) * 4;
+  return walk_bytes(R) + (size_t)WARP * (D + Dv + CAPR) * 4;
 }
 
 // The pair walk's arguments.
@@ -127,47 +106,6 @@ struct Walk {
   uint32_t keep_thresh;
   float inv_keep;
 };
-
-// Step tt's chunks of this lane into ring stage `stage`: chunk c = lane +
-// 32 i holds bytes [16 p, 16 p + 16) of the tile's row r (c = 4 r + p).
-// Rows and columns past N read as 0.
-template <bool kVec16>
-__device__ __forceinline__ void load_chunks(uint8_t* stage,
-                                            const uint8_t* mg, int N,
-                                            int row0, int R, int col0,
-                                            int lane) {
-#pragma unroll
-  for (int i = 0; i < MAX_CPL; ++i) {
-    const int c = lane + WARP * i;
-    if (c >= R * 4) break;
-    const int gr = row0 + (c >> 2), gc = col0 + 16 * (c & 3);
-    uint8_t* dst = stage + c * 16;
-    if constexpr (kVec16) {
-      const bool ok = gr < N && gc < N;   // N % 16 == 0: all 16 or none
-      cp_async16(dst, ok ? mg + (size_t)gr * N + gc : mg, ok);
-    } else {
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      if (gr < N) {
-        const uint8_t* src = mg + (size_t)gr * N;
-        for (int b = 0; b < 16 && gc + b < N; ++b)
-          if (src[gc + b]) w[b >> 2] |= 0xffu << (8 * (b & 3));
-      }
-      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-// Bit b of the result: byte b of chunk c of the stage is nonzero.
-__device__ __forceinline__ uint32_t chunk_bits(const uint8_t* stage, int c) {
-  const uint4 w = *reinterpret_cast<const uint4*>(stage + c * 16);
-  if ((w.x | w.y | w.z | w.w) == 0u) return 0u;
-  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
-  uint32_t bits = 0u;
-#pragma unroll
-  for (int b = 0; b < 16; ++b)
-    if ((ws[b >> 2] >> (8 * (b & 3))) & 0xffu) bits |= 1u << b;
-  return bits;
-}
 
 // One lane's (row, head) item: where it reads and what it keeps.
 struct Item {
@@ -268,9 +206,12 @@ __device__ __forceinline__ void pair_z(const Walk& a, const Item& it,
 //     later tiles' alphas;
 //  C. acc = acc exp(m_before - m_fin) + sum of zbuf's weights times v
 //     rounded to bf16, in the entries' order.
-template <bool kBiased>
+// B4 (kMode LSE) takes pass A only, then l = l exp(m - m_fin) + sum
+// exp(z - m_fin) and m = m_fin.
+template <int kMode>
 __device__ __forceinline__ void flush(const Walk& a, Item& it,
                                       const int* list, int n, float* zbuf) {
+  constexpr bool kBiased = kMode == BIASED;
   const bool k4 = (a.D & 3) == 0 &&
                   (reinterpret_cast<uintptr_t>(a.k) & 15) == 0;
   const bool v4 = (a.Dv & 3) == 0 &&
@@ -293,6 +234,16 @@ __device__ __forceinline__ void flush(const Walk& a, Item& it,
         zbuf[(j0 + u) * WARP] = z[u];
         mA = fmaxf(mA, z[u]);
       }
+  }
+  if constexpr (kMode == LSE) {
+    if (n > 0) {
+      const float m_fin = fmaxf(it.m, mA);
+      float rs = 0.f;
+      for (int j = 0; j < n; ++j) rs += expf(zbuf[j * WARP] - m_fin);
+      it.l = it.l * expf(it.m - m_fin) + rs;
+      it.m = m_fin;
+    }
+    return;
   }
 
   float s0 = 1.f;   // acc's factor
@@ -374,7 +325,7 @@ __device__ __forceinline__ void flush(const Walk& a, Item& it,
   }
 }
 
-template <bool kBiased, bool kVec16>
+template <int kMode, bool kVec16>
 __global__ void __launch_bounds__(WARP)
 pairwalk_fwd_kernel(const Walk a) {
   const int lane = threadIdx.x;
@@ -386,10 +337,8 @@ pairwalk_fwd_kernel(const Walk a) {
   const int ib = sub / (BM / R), row0 = sub * R;
 
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* ring = smem;
-  int* lists = reinterpret_cast<int*>(ring + (size_t)NST * R * BN);
-  int* rowcnt = lists + R * CAPR;
-  float* q_s = reinterpret_cast<float*>(rowcnt + WARP);
+  const WalkSmem sm = walk_smem(smem, R);
+  float* q_s = reinterpret_cast<float*>(sm.rest);
   float* acc_s = q_s + WARP * a.D;
   float* zbuf = acc_s + WARP * a.Dv + lane;
 
@@ -417,11 +366,11 @@ pairwalk_fwd_kernel(const Walk a) {
     for (int x = 0; x < a.Dv; ++x) acc_s[x * WARP + lane] = 0.f;
     it.sc = a.scale[h];
     const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
-    if constexpr (kBiased) {
+    if constexpr (kMode == BIASED) {
       it.l1 = a.lse1[it.gh * a.N + it.gr];
       it.mix1 = (uint32_t)a.seeds[2 * g] ^ hmix;
       it.mix2 = (uint32_t)a.seeds[2 * g + 1] ^ hmix;
-    } else {
+    } else if constexpr (kMode == OUT) {
       it.mix1 = (uint32_t)a.seeds[g] ^ hmix;
     }
   }
@@ -429,115 +378,39 @@ pairwalk_fwd_kernel(const Walk a) {
   const int cnt = a.jcount[(size_t)g * a.n_i + ib];
   const int* jl = a.jlist + ((size_t)g * a.n_i + ib) * a.W;
   const uint8_t* mg = a.mask + (size_t)g * a.N * a.N;
-  const int stage_bytes = R * BN;
-  const int p = lane & 3;
-  const int cpl = R >= 8 ? R / 8 : 1;   // chunks a lane (uniform)
-  int rcount[MAX_CPL];   // entries of chunk i's row (its 4 lanes agree)
-#pragma unroll
-  for (int i = 0; i < MAX_CPL; ++i) rcount[i] = 0;
-
-  auto do_flush = [&]() {
-    if (p == 0) {
-#pragma unroll
-      for (int i = 0; i < MAX_CPL; ++i) {
-        const int r = (lane >> 2) + 8 * i;
-        if (r < R) rowcnt[r] = rcount[i];
-      }
-    }
-    __syncwarp();
-    flush<kBiased>(a, it, lists + rl * CAPR, it.on ? rowcnt[rl] : 0, zbuf);
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < MAX_CPL; ++i) rcount[i] = 0;
-  };
-
-  for (int s = 0; s < NST - 1; ++s) {
-    if (s < cnt)
-      load_chunks<kVec16>(ring + s * stage_bytes, mg, a.N, row0, R,
-                          jl[s] * BN, lane);
-    cp_async_commit();
-  }
-  for (int t = 0; t < cnt; ++t) {
-    const int tt = t + NST - 1;
-    if (tt < cnt)
-      load_chunks<kVec16>(ring + (tt % NST) * stage_bytes, mg, a.N, row0, R,
-                          jl[tt] * BN, lane);
-    cp_async_commit();
-    cp_async_wait_ring();
-    const uint8_t* stage = ring + (t % NST) * stage_bytes;
-    uint32_t bits[MAX_CPL];
-    bool any = false;
-#pragma unroll
-    for (int i = 0; i < MAX_CPL; ++i) {
-      if (i >= cpl) break;
-      const int c = lane + WARP * i;
-      bits[i] = c < R * 4 ? chunk_bits(stage, c) : 0u;
-      any |= bits[i] != 0u;
-    }
-    if (!__any_sync(FULL, any)) continue;
-    // each row's 4 chunks lie in 4 adjacent lanes: their prefix and total
-    int excl[MAX_CPL], tot[MAX_CPL];
-    bool over = false;
-#pragma unroll
-    for (int i = 0; i < MAX_CPL; ++i) {
-      if (i >= cpl) break;
-      const int n = __popc(bits[i]);
-      int x = n;
-      int y = __shfl_up_sync(FULL, x, 1, 4);
-      if (p >= 1) x += y;
-      y = __shfl_up_sync(FULL, x, 2, 4);
-      if (p >= 2) x += y;
-      excl[i] = x - n;
-      tot[i] = __shfl_sync(FULL, x, 3, 4);
-      over |= rcount[i] + tot[i] > CAPR;
-    }
-    if (__any_sync(FULL, over)) do_flush();
-    const int col0 = jl[t] * BN;
-#pragma unroll
-    for (int i = 0; i < MAX_CPL; ++i) {
-      if (i >= cpl) break;
-      uint32_t b = bits[i];
-      if (b) {
-        const int c = lane + WARP * i;
-        int* dst = lists + (c >> 2) * CAPR + rcount[i] + excl[i];
-        const int base = col0 + 16 * (c & 3);
-        while (b) {
-          *dst++ = base + __ffs(b) - 1;
-          b &= b - 1u;
-        }
-      }
-      rcount[i] += tot[i];
-    }
-  }
-  do_flush();
+  walk_mask<kVec16>(sm, mg, a.N, row0, R, jl, cnt, lane, [&]() {
+    flush<kMode>(a, it, sm.lists + rl * CAPR, it.on ? sm.rowcnt[rl] : 0,
+                 zbuf);
+  });
 
   if (it.on) {
     const bool dead = it.m <= NEG_INF;
     const float l = dead ? 1.f : it.l;
-    float* og = a.out + (it.gh * a.N + it.gr) * a.Dv;
-    for (int x = 0; x < a.Dv; ++x)
-      og[x] = dead ? 0.f : acc_s[x * WARP + lane] / l;
+    if constexpr (kMode != LSE) {
+      float* og = a.out + (it.gh * a.N + it.gr) * a.Dv;
+      for (int x = 0; x < a.Dv; ++x)
+        og[x] = dead ? 0.f : acc_s[x * WARP + lane] / l;
+    }
     a.lse[it.gh * a.N + it.gr] = dead ? LSE_DEAD : it.m + logf(l);
   }
 }
 
-template <bool kBiased>
+template <int kMode>
 int launch(Walk a, int G, void* stream) {
-  if (G < 0 || a.H < 0 || a.N < 0 || a.D < 1 || a.D > MAX_D || a.Dv < 1 ||
-      a.Dv > MAX_D || a.metric < 0 || a.metric > COS_DIST ||
+  const bool dv_ok = kMode == LSE ? a.Dv == 0 : a.Dv >= 1 && a.Dv <= MAX_D;
+  if (G < 0 || a.H < 0 || a.N < 0 || a.D < 1 || a.D > MAX_D || !dv_ok ||
+      a.metric < 0 || a.metric > COS_DIST ||
       a.n_i != (a.N + BM - 1) / BM || a.W < 0)
     return (int)cudaErrorInvalidValue;
   if (G == 0 || a.H == 0 || a.N == 0) return 0;
-  a.HG = a.H < WARP ? a.H : WARP;
-  a.R = 1;
-  while (a.R * 2 * a.HG <= WARP) a.R *= 2;   // R <= 32 divides BM
+  warp_items(a.H, &a.HG, &a.R);
   a.n_hg = (a.H + a.HG - 1) / a.HG;
   a.n_sub = a.n_i * (BM / a.R);
   const size_t smem = warp_bytes(a.R, a.D, a.Dv);
   const bool vec16 = a.N % 16 == 0 &&
                      (reinterpret_cast<uintptr_t>(a.mask) & 15) == 0;
-  const auto kern = vec16 ? pairwalk_fwd_kernel<kBiased, true>
-                          : pairwalk_fwd_kernel<kBiased, false>;
+  const auto kern = vec16 ? pairwalk_fwd_kernel<kMode, true>
+                          : pairwalk_fwd_kernel<kMode, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -572,7 +445,7 @@ extern "C" int tagan_flash_geometric_fwd_bf16(
   a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
   a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
   a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
-  return launch<false>(a, G, stream);
+  return launch<OUT>(a, G, stream);
 }
 
 // B5's bf16 form: out [G, H, N, Dv] and lse2 [G, H, N] of the second
@@ -600,5 +473,27 @@ extern "C" int tagan_flash_biased_fwd_bf16(
   a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
   a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
   a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
-  return launch<true>(a, G, stream);
+  return launch<BIASED>(a, G, stream);
+}
+
+// B4's bf16 form: lse1 [G, H, N] of the forward walk over the dense int8
+// mask [G, N, N].
+extern "C" int tagan_flash_lse1_bf16(const void* q, const void* k,
+                                     const void* mask, const void* jlist,
+                                     const void* jcount, const void* scale,
+                                     void* lse1, int G, int H, int N, int D,
+                                     int n_i, int W, int metric, float sqrt_d,
+                                     void* stream) {
+  Walk a{};
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.mask = (const uint8_t*)mask;
+  a.jlist = (const int*)jlist;
+  a.jcount = (const int*)jcount;
+  a.scale = (const float*)scale;
+  a.lse = (float*)lse1;
+  a.H = H; a.N = N; a.D = D; a.Dv = 0; a.n_i = n_i; a.W = W;
+  a.metric = metric; a.sqrt_d = sqrt_d;
+  a.inv_keep = 1.f;
+  return launch<LSE>(a, G, stream);
 }

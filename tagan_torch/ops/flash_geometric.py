@@ -25,9 +25,9 @@ kernels that port the Pallas ones, and the differentiable entry point:
 
 Every kernel above also has a bf16 form (the TPU kernels' ``bf16=True``:
 every product's operands rounded to bf16, float32 sums), in the same
-sources under its own entry point and launch count (B1's and B5's in
-csrc/flash_pairwalk_fwd.cu, pair walks that compute only the mask's
-valid pairs; B3a c's and B3b c's
+sources under its own entry point and launch count (B1's, B4's and
+B5's in csrc/flash_pairwalk_fwd.cu and B2's in csrc/flash_pairwalk_bwd.cu,
+pair walks that compute only the mask's valid pairs; B3a c's and B3b c's
 in csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
 csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's in
 csrc/flash_biased_bwd_compact_bf16.cu, from those of
@@ -1632,9 +1632,31 @@ class _FlashForwardBf16Kernel(_FlashForwardKernel):
 
 
 class _FlashBwdFusedBf16Kernel(_FlashBwdFusedKernel):
-    """B2's bf16 form, ``tagan_flash_geometric_bwd_fused_bf16``."""
+    """B2's bf16 form, ``tagan_flash_geometric_bwd_fused_bf16``: B2 with
+    bf16 product operands, as a pair walk over the forward plan (jlist,
+    jcount) that reads each mask tile once for all heads and computes
+    only its valid pairs (csrc/flash_pairwalk_bwd.cu). dq is written by
+    the lane that owns its row; dk, dv and dscale are summed with
+    atomics, so their last bits vary from run to run."""
     name = "flash_geometric_bwd_fused_bf16"
+    source = "flash_pairwalk_bwd"
     symbol = "tagan_flash_geometric_bwd_fused_bf16"
+
+    def __call__(self, q, k, v, mask, do, lse, delta, jlist, jcount,
+                 metric: str, scale, seed, dropout_rate: float,
+                 need_dscale: bool):
+        args = (q, k, v, mask, do, lse, delta, jlist, jcount, scale, seed)
+        dev, (G, H, N, D, Dv, n_i, W) = self._check(*args)
+        dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        dk = torch.zeros((G, H, N, D), dtype=torch.float32, device=dev)
+        dv = torch.zeros((G, H, N, Dv), dtype=torch.float32, device=dev)
+        part = torch.zeros((G, H) if need_dscale else (1,),
+                           dtype=torch.float32, device=dev)
+        self._launch(dev, *self._inputs(*args), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), part.data_ptr(), G, H, N, D, Dv, n_i, W,
+                     MXU_METRICS.index(metric), math.sqrt(D),
+                     *_dropout_args(dropout_rate), int(need_dscale))
+        return dq, dk, dv, (part.sum(0) if need_dscale else None)
 
 
 class _FlashBwdDqBf16Kernel(_FlashBwdDqKernel):
@@ -1803,8 +1825,10 @@ class _FlashLse1CompactKernel(_CudaKernel):
 
 class _FlashLse1Bf16Kernel(_FlashLse1Kernel):
     """B4's bf16 form, ``tagan_flash_lse1_bf16``: q.k from bf16
-    operands."""
+    operands, as B1's bf16 form's pair walk (csrc/flash_pairwalk_fwd.cu),
+    keeping only the running max and sum."""
     name = "flash_lse1_bf16"
+    source = "flash_pairwalk_fwd"
     symbol = "tagan_flash_lse1_bf16"
 
 
@@ -2274,7 +2298,11 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
 # (single walk, dq by atomics), the faster form at the model's shape (one
 # snapshot, H=4, N=10,000, head dim 16): 6.2 ms against 10.4 ms for
 # B3a + B3b on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 5;
-# PERF.md, Findings).
+# PERF.md, Findings). B2's bf16 form is a pair walk over the forward plan
+# that computes only the valid pairs, dk, dv and dscale by atomics
+# (csrc/flash_pairwalk_bwd.cu; its times beside B3a + B3b bf16's in
+# chip_smoke.py phase 5g and PERF.md). ``fused=False`` is the
+# deterministic form in both precisions.
 FUSED_BWD = True
 
 
@@ -2305,21 +2333,25 @@ def _transposed_plan(mask: torch.Tensor):
 def _backward(q, k, v, mask, out, lse, do, plan, plan_t, metric, scale,
               dropout_rate, seed, need_dscale, fused, dlse, bf16=False):
     """(dq, dk, dv, dscale or None) of folded inputs; trusts the plans.
-    ``plan_t`` None is built from the mask where a kernel walks it.
-    ``bf16`` takes the kernels' bf16 forms."""
+    ``plan_t`` None is built from the mask where a kernel walks it (B2's
+    bf16 form walks the forward plan). ``bf16`` takes the kernels' bf16
+    forms."""
     if q.device.type == "cpu":
         return flash_geometric_backward_plain(
             q, k, v, mask, out, lse, do, metric, scale, dropout_rate, seed,
             need_dscale, dlse, bf16)
     delta = _delta(do, out, dlse).contiguous()
     fused = FUSED_BWD if fused is None else fused
+    if fused and bf16:
+        return flash_geometric_bwd_fused_bf16_kernel(
+            q, k, v, mask, do, lse, delta, *plan, metric, scale, seed,
+            dropout_rate, need_dscale)
     if plan_t is None:
         plan_t = _transposed_plan(mask)
     if fused:
-        kern = flash_geometric_bwd_fused_bf16_kernel if bf16 \
-            else flash_geometric_bwd_fused_kernel
-        return kern(q, k, v, mask, do, lse, delta, *plan_t, metric, scale,
-                    seed, dropout_rate, need_dscale)
+        return flash_geometric_bwd_fused_kernel(
+            q, k, v, mask, do, lse, delta, *plan_t, metric, scale, seed,
+            dropout_rate, need_dscale)
     dq_kern, dkv_kern = (
         (flash_geometric_bwd_dq_bf16_kernel,
          flash_geometric_bwd_dkv_bf16_kernel) if bf16 else
@@ -2384,7 +2416,11 @@ def flash_geometric_attention_bwd(
     is deterministic.
 
     ``bf16`` takes the bf16 forms (B2, B3a and B3b with bf16 dot
-    operands, or B3a c and B3b c's; the plain version on the CPU).
+    operands, or B3a c and B3b c's; the plain version on the CPU). B2's
+    bf16 form is a pair walk over the forward plan that computes only
+    the valid pairs: it writes dq row by row and sums dk, dv and dscale
+    with atomics, so those vary in their last bits from run to run;
+    ``fused=False`` (B3a + B3b bf16) stays deterministic.
 
     3-tuple plans (jlist, jcount, jslot) and (ilist, icount, islot) take
     the compact form: ``mask`` is then the occupied-block store

@@ -1993,7 +1993,7 @@ def test_ring_flash_refused_before_launch(cuda):
     assert TF.ring_flash_fold_kernel.launches == before
 
 
-# -- the pair walks (B1 bf16, B5 bf16) at the densities they are built for -----
+# -- the bf16 pair walks (B1, B2, B4, B5) at the densities they are built for
 
 def sparse_mask(G, N, seed=0, deg=4):
     """int8 [G, N, N]: ~``deg`` uniform random keys a row (the model's
@@ -2054,12 +2054,12 @@ def _sparse_inputs(G, H, N, D, Dv, metric, seed=0):
 
 
 def _pairwalk_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
-    """B1's and B5's bf16 forms (the pair walks) through the public entries
-    (``flash_geometric_fwd``, ``flash_biased_fwd`` with bf16=True) against
-    the plain bf16 versions walking the same plan, under the bf16 gates,
-    the plain fp32 versions the witness; dead rows exactly 0 and LSE_DEAD;
-    B1 bf16 launched once, then B4 bf16 and B5 bf16 once each, nothing
-    else."""
+    """B1's, B4's and B5's bf16 forms (the pair walks) through the public
+    entries (``flash_geometric_fwd``, ``flash_biased_fwd`` with bf16=True)
+    against the plain bf16 versions walking the same plan, under the bf16
+    gates, the plain fp32 versions the witness; dead rows exactly 0 and
+    LSE_DEAD; B1 bf16 launched once, then B4 bf16 and B5 bf16 once each,
+    nothing else."""
     q, k, v, mask, bias, scale, seeds = (
         t.to(cuda) for t in _sparse_inputs(G, H, N, D, Dv, metric, seed))
     seed1 = seeds[:, 0].contiguous()
@@ -2082,6 +2082,9 @@ def _pairwalk_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
         dropout_rate=rate, seeds=seeds, bf16=True)
     torch.cuda.synchronize()
     assert torch.all(out[dead] == 0) and torch.all(lse2[dead] == FG.LSE_DEAD)
+    assert torch.all(lse1[dead] == FG.LSE_DEAD)
+    p_lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, True)
+    _bf16_gates(lse1[~dead], p_lse1[~dead], p_lse1[~dead], witness=False)
     fwd = (q, k, v, mask, bias, lse1, metric, scale, rate, seeds)
     p_out, p_lse2 = FG.flash_biased_forward_plain(*fwd, True, plan)
     f_out, _ = FG.flash_biased_forward_plain(*fwd)
@@ -2124,3 +2127,77 @@ def test_pairwalk_bf16_fold(H, cuda):
     H = 1 (32 rows a warp), 4, and 40 (two head groups: the mask is read
     once per group of 32 heads)."""
     _pairwalk_vs_plain(cuda, 16, H, 600, 16, 16, "euclidean", 0.1, seed=2)
+
+
+def _pairwalk_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
+    """B2's bf16 form (the backward pair walk) through
+    ``flash_geometric_attention_bwd(..., fused=True, bf16=True)`` with the
+    forward plan alone, on the plain bf16 forward's out and lse, against
+    the plain bf16 backward under the bf16 gates (dscale, for gaussian
+    and rbf, under the max gate alone), the plain fp32 backward the
+    witness; an lse cotangent; dq exactly 0 on dead rows, dk and dv
+    exactly 0 at keys no row reaches; B2 bf16 launched once, nothing
+    else."""
+    q, k, v, mask, _, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, D, Dv, metric, seed))
+    seed1 = seeds[:, 0].contiguous()
+    rng = np.random.default_rng(seed + 500)
+    do, dl = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda) for shape in ((G, H, N, Dv), (G, H, N)))
+    plan = FG.make_block_plan(mask)
+    need = metric in FG.SCALED_METRICS
+    out, lse = FG.flash_geometric_forward_plain(
+        q, k, v, mask, metric, scale, rate, seed1, True, plan)
+    args = (q, k, v, mask, out, lse, do)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    got = FG.flash_geometric_attention_bwd(
+        *args, metric=metric, scale=scale, plan=plan, seed=seed1,
+        dropout_rate=rate, need_dscale=need, fused=True, dlse=dl, bf16=True)
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect[FG.flash_geometric_bwd_fused_bf16_kernel.name] = 1
+    assert launched == expect
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    unreached = (mask == 0).all(-2)[:, None, :].expand(G, H, N)
+    assert dead.any() and unreached.any()
+    assert torch.all(got[0][dead] == 0)
+    assert torch.all(got[1][unreached] == 0)
+    assert torch.all(got[2][unreached] == 0)
+    want = FG.flash_geometric_backward_plain(*args, metric, scale, rate,
+                                             seed1, need, dl, True)
+    f32 = FG.flash_geometric_backward_plain(*args, metric, scale, rate,
+                                            seed1, need, dl)
+    assert len(got) == (4 if need else 3)
+    for i, (g, w, f) in enumerate(zip(got, want, f32)):
+        _bf16_gates(g, w, f, witness=i < 3, mean=i < 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1000, 1536])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_pairwalk_bf16_bwd_sparse(metric, rate, N, cuda):
+    """The backward pair walk at sparse masks (`sparse_mask`), as
+    `test_pairwalk_bf16_sparse`: every metric, dropout off and on, N =
+    1000 (byte loads of the mask) and 1536, H = 4."""
+    _pairwalk_bwd_vs_plain(cuda, 2, 4, N, 16, 16, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv", [(8, 8), (12, 12), (7, 3), (128, 128)])
+def test_pairwalk_bf16_bwd_sparse_head_dims(D, Dv, metric, cuda):
+    """Head dims of the dense bf16 tests, dropout on, H = 3, N = 1008:
+    widths not a multiple of 4 take scalar gathers and atomics, and (128,
+    128) sets the warp's shared memory past 48 KB."""
+    _pairwalk_bwd_vs_plain(cuda, 1, 3, 1008, D, Dv, metric, 0.1, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 4, 40])
+def test_pairwalk_bf16_bwd_fold(H, cuda):
+    """A 16-snapshot fold with dropout (each snapshot its seed), H = 1,
+    4 and 40 (two head groups)."""
+    _pairwalk_bwd_vs_plain(cuda, 16, H, 600, 16, 16, "euclidean", 0.1,
+                           seed=2)

@@ -36,10 +36,11 @@ Phases, in order; any failure raises and exits non-zero:
    over the plain version's largest entry: max error <= 2e-3 (bf16-class:
    an fp32 sum in another order may flip a bf16 rounding), mean error <=
    1e-5 (fp32-class), and the mean distance from the fp32 result at
-   least 100 times the mean error; (2i) the bf16 forms of B4, B5, B6,
-   B7a and B7b against their plain bf16 versions on 2c/2d's grid, (D,
-   Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), under the
-   same gates, dB at the mask's pairs; (2j) the bf16 forms of B1c, B3a c
+   least 100 times the mean error; (2i) the bf16 forms of B4 and B5 and
+   the bf16 biased backward's row walk (B6 and B7a) and key walk (B7b)
+   against their plain bf16 versions on 2c/2d's grid, (D, Dv) of (16,
+   16), (8, 8), (12, 12), (7, 3) and (128, 128), under the same gates, dB
+   at the mask's pairs; (2j) the bf16 forms of B1c, B3a c
    and B3b c against the compact plain bf16 versions on 2f's grid, both
    stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
    under the same gates (dead rows and the empty key strip exactly 0),
@@ -154,15 +155,21 @@ Phases, in order; any failure raises and exits non-zero:
    6e); and a density sweep at N = 10,000 (degree 16, 256 and 2,048): B1
    bf16, B4 bf16 and B2 bf16 held to the plain bf16 versions under the
    bf16 gates, beside the fp32 B1 and sdpa bf16 on the same masks, times
-   recorded, not gated; (5h) the bf16 forms of B4,
-   B5, B6, B7a and B7b at one snapshot of 3f's request, each beside its
-   fp32 form in turns, the plain bf16 versions, compiled
-   ``flex_attention`` on bf16 q, k, v at the scaled-dot metric as the
-   library yardstick (held against the bf16 B4 and B5 at that metric,
-   null with the reason if it does not build or differs; its backward
-   forward+backward minus forward), and their bounds; B4 bf16 and B5
-   bf16 (the pair walks) also over 3f's 16 folded snapshots, per
-   snapshot, at both metrics (timed in 3f); (5i) the bf16 forms
+   recorded, not gated; the sweep also holds the bf16 biased
+   backward's two walks to the plain bf16 version on each mask;
+   (5h) the bf16 forms of B4, B5 (pair walks) and B6, B7a and B7b (the
+   row walk, B6 and B7a bf16 in one kernel, and the key walk, B7b bf16)
+   at one snapshot of 3f's request, each beside its fp32 form in turns
+   (the row walk beside fp32 B6 + B7a, the two walks beside B6 + B7a +
+   B7b), the plain bf16 versions, compiled ``flex_attention`` on bf16 q,
+   k, v at the scaled-dot metric as the library yardstick (held against
+   the bf16 B4 and B5 at that metric, null with the reason if it does
+   not build or differs; its backward forward+backward minus forward,
+   its gradients held against the two walks' at that metric, recorded),
+   and their bounds; B4 bf16 and B5 bf16 also over 3f's 16 folded
+   snapshots, per snapshot, at both metrics (timed in 3f), and the two
+   walks over 6f's 8 folded snapshots beside the fp32 B6 + B7a + B7b
+   there (timed in 6f); (5i) the bf16 forms
    of B1c, B3a c and B3b c at one 131K snapshot of 6g, each beside its
    fp32 form in turns, the compact plain bf16 versions, compiled
    ``flex_attention`` on bf16 q, k, v under the compact plan's BlockMask
@@ -217,12 +224,14 @@ Phases, in order; any failure raises and exits non-zero:
    snapshot at full width against the plain bf16 backward, the plain bf16
    backward's own movement under a 1e-7 relative nudge of q and k logged
    beside it; (6f) phase 6b
-   with ``bf16_matmul=True``: the bf16 forms of B4-B7b each exactly once
-   per layer per step, nothing else; step times, split, peak memory, one
-   layer's bf16 B4 + B5 (and B4 alone) and B6 + B7a + B7b over the folded
-   snapshots and their share of the step, finite non-zero gradients (the
-   edge parameters' included), one snapshot at full width against the
-   plain bf16 biased backward;
+   with ``bf16_matmul=True``: the bf16 forms of B4 and B5 and the bf16
+   backward's row walk and key walk each exactly once per layer per
+   step, nothing else; step times, split, peak memory, one layer's bf16
+   B4 + B5 (and B4 alone) and the two walks (and each alone, and the fp32
+   B6 + B7a + B7b on the same fold) over the folded snapshots and their
+   share of the step, finite non-zero gradients (the edge parameters'
+   included), one snapshot at full width against the plain bf16 biased
+   backward;
    (6g) phase 6c with ``bf16_matmul=True`` over 6c's loaders and planned
    batches: one warm-up step, then 3 steps (the bf16 forms of B1c, B3a c
    and B3b c each exactly once per layer per step, the fp32 forms
@@ -451,13 +460,13 @@ def bf16_gates(label, got, want, f32, witness=True, mean=True):
 
 
 def biased_kernels(FG, bf16):
-    """The wrappers of B4, B5, B6, B7a and B7b: the fp32 or the bf16
-    forms."""
+    """The wrappers of B4, B5, B6, B7a and B7b: the fp32 forms, or the
+    bf16 forms of B4 and B5 and the bf16 backward's row walk (B6 and B7a)
+    and key walk (B7b)."""
     if bf16:
         return (FG.flash_lse1_bf16_kernel, FG.flash_biased_fwd_bf16_kernel,
-                FG.flash_biased_bwd_pre_bf16_kernel,
-                FG.flash_biased_bwd_dq_bf16_kernel,
-                FG.flash_biased_bwd_dkv_bf16_kernel)
+                FG.flash_biased_bwd_row_bf16_kernel,
+                FG.flash_biased_bwd_key_bf16_kernel)
     return (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
             FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
             FG.flash_biased_bwd_dkv_kernel)
@@ -806,10 +815,16 @@ def walked_pairs(FG, mask):
 def biased_bwd_kernels(FG, q, k, v, mask, bias, do, lse1, lse2, delta2,
                        plan, plan_t, metric, scale, seeds, rate, need,
                        bf16=False):
-    """B6, then B7a and B7b on B6's delta1 (their bf16 forms with
-    ``bf16``): (delta1, dB, dq, dscale, dk, dv)."""
-    _, _, pre, dq_k, dkv_k = biased_kernels(FG, bf16)
+    """B6, then B7a and B7b on B6's delta1, or with ``bf16`` the row walk
+    then the key walk on its delta1: (delta1, dB, dq, dscale, dk, dv)."""
     common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
+    if bf16:
+        row, key = biased_kernels(FG, True)[2:]
+        d1, db, dq, dsc = row(*common, *plan, metric, scale, seeds, rate,
+                              need)
+        dk, dv = key(*common, d1, *plan_t, metric, scale, seeds, rate)
+        return d1, db, dq, dsc, dk, dv
+    _, _, pre, dq_k, dkv_k = biased_kernels(FG, False)
     d1, db = pre(*common, *plan, metric, scale, seeds, rate)
     dq, dsc = dq_k(*common, d1, *plan, metric, scale, seeds, rate, need)
     dk, dv = dkv_k(*common, d1, *plan_t, metric, scale, seeds, rate)
@@ -835,10 +850,12 @@ def biased_bwd_errors(FG, label, got, q, k, v, mask, bias, do, lse1, lse2,
     plain parts on the same inputs: each output's max abs error over its
     largest entry (at least 1), dB at the mask's pairs; raises past TOL,
     on a non-finite output, or where dB is not 0 at the other pairs of
-    the walked blocks. ``bf16``: the bf16 forms against the plain bf16
-    parts under the bf16 gates (the plain fp32 parts the witness; dscale
-    the max gate alone); the errors are then each kernel's worst (max abs
-    error, max error, mean error, witness)."""
+    the walked blocks. ``bf16``: the row walk and the key walk against
+    the plain bf16 parts under the bf16 gates (the plain fp32 parts the
+    witness; dscale the max gate alone; dB at the mask's pairs, the only
+    ones the row walk writes); the errors are then each walk's worst (max
+    abs error, max error, mean error, witness), under "B6+B7a" and
+    "B7b"."""
     d1, db, dq, dsc, dk, dv = got
     common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
     plain = biased_bwd_plain_parts(FG, common, metric, scale, seeds, rate,
@@ -847,9 +864,6 @@ def biased_bwd_errors(FG, label, got, q, k, v, mask, bias, do, lse1, lse2,
     sync()
     on = mask != 0
     if bf16:
-        if not bool((db[walked_pairs(FG, mask) & ~on] == 0).all()):
-            raise AssertionError(f"{label}: dB not 0 off the mask in a "
-                                 f"walked block")
         f32 = biased_bwd_plain_parts(FG, common, metric, scale, seeds, rate,
                                      need)
         g = {n: bf16_gates(f"{label} {n}", a, b, c) for n, a, b, c in (
@@ -859,8 +873,8 @@ def biased_bwd_errors(FG, label, got, q, k, v, mask, bias, do, lse1, lse2,
         if need:
             g["dscale"] = bf16_gates(f"{label} dscale", dsc, p_dsc, f32[3],
                                      witness=False, mean=False)
-        return {"B6": max(g["delta1"], g["dB"]),
-                "B7a": max(g["dq"], g.get("dscale", g["dq"])),
+        return {"B6+B7a": max(g["delta1"], g["dB"], g["dq"],
+                              g.get("dscale", g["dq"])),
                 "B7b": max(g["dk"], g["dv"])}
     for name, t in (("delta1", d1), ("dq", dq), ("dk", dk), ("dv", dv),
                     ("dB", db[on])):
@@ -915,12 +929,12 @@ def phase_small_biased_bwd(FG):
 # -- phase 2i -----------------------------------------------------------------
 
 def biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
-    """B4, B5, B6, B7a and B7b in their bf16 forms against the plain bf16
-    versions on 2c's inputs and 2d's cotangent, under the bf16 gates (the
-    plain fp32 versions the witness): lse1, then out and lse2 (B5 on the
-    plain lse1, the plain B5 walking the same plan), then the backward
-    parts on the plain bf16 forward's statistics (dB at the mask's pairs,
-    0 at the other pairs of the walked blocks); dead rows exactly.
+    """B4, B5 and the backward's two walks in their bf16 forms against the
+    plain bf16 versions on 2c's inputs and 2d's cotangent, under the bf16
+    gates (the plain fp32 versions the witness): lse1, then out and lse2
+    (B5 on the plain lse1, the plain B5 walking the same plan), then the
+    backward parts on the plain bf16 forward's statistics (dB at the
+    mask's pairs); dead rows exactly.
     Returns {kernel: (max abs error, max error, mean error, witness)} of
     its worst output."""
     q, k, v, mask, bias, scale, seeds = biased_small_inputs(
@@ -978,7 +992,8 @@ def phase_small_biased_bf16(FG):
         for name, r in biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate,
                                             seed).items():
             worst[name] = max(worst.get(name, r), r)
-    log(f"[2i] bf16 forms of B4-B7b vs plain bf16: {len(cases)} cases; worst "
+    log(f"[2i] bf16 forms of B4, B5 and the row and key walks (B6+B7a, "
+        f"B7b) vs plain bf16: {len(cases)} cases; worst "
         f"(max abs err, max err, mean err, witness over the largest entry) "
         + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
                     for n, r in worst.items())
@@ -1787,10 +1802,14 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
     ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask,
     on the same inputs; B1 bf16 held to the plain bf16 version under the
     bf16 gates. B4 bf16 and B2 bf16 (the other pair walks) on the same
-    inputs, held to their plain bf16 versions likewise. Times are
-    recorded, not gated."""
+    inputs, held to their plain bf16 versions likewise, and the bf16
+    biased backward's row walk and key walk on B4 bf16's lse1 and B5
+    bf16's out and lse2 with a N(0, 1) bias at the mask's pairs, held to
+    the plain bf16 biased backward. Times are recorded, not gated."""
     b4 = FG.flash_lse1_bf16_kernel
     b2 = FG.flash_geometric_bwd_fused_bf16_kernel
+    b5, row, key = biased_kernels(FG, True)[1:]
+    seeds2 = torch.zeros(1, 2, dtype=torch.int32, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(13)
     q, k, v = (0.5 * torch.randn(1, H, N, w, device=DEV, generator=gen)
                for w in (D, D, Dv))
@@ -1838,6 +1857,26 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
             f_grads = FG.flash_geometric_backward_plain(
                 q, k, v, mask, p_out, p_lse, do, "euclidean", ones, 0.0,
                 seed0)[:3]
+            # the biased backward's walks
+            bias = torch.where(mask != 0, torch.randn(
+                mask.shape, device=DEV, generator=gen), 0.0)
+            out5, lse2 = b5(q, k, v, mask, bias, lse1, *plan, "euclidean",
+                            ones, seeds2, 0.0)
+            bcommon = (q, k, v, mask, bias, do, lse1, lse2,
+                       (do * out5).sum(-1))
+            plan_t = FG._transposed_plan(mask)
+            row_ms = cuda_ms(lambda: row(*bcommon, *plan, "euclidean", ones,
+                                         seeds2, 0.0, False), 10)
+            d1 = row(*bcommon, *plan, "euclidean", ones, seeds2, 0.0,
+                     False)[0]
+            key_ms = cuda_ms(lambda: key(*bcommon, d1, *plan_t, "euclidean",
+                                         ones, seeds2, 0.0), 10)
+            got = biased_bwd_kernels(FG, *bcommon, plan, plan_t, "euclidean",
+                                     ones, seeds2, 0.0, False, True)
+            walk_gates = biased_bwd_errors(FG, f"degree {deg} walks", got,
+                                           *bcommon, "euclidean", ones,
+                                           seeds2, 0.0, False, True)
+            del bias, out5, lse2, bcommon, d1, got
         gates = max(bf16_gates(f"degree {deg} out", out, p_out, f_out),
                     bf16_gates(f"degree {deg} lse", lse, p_lse, p_lse,
                                witness=False))
@@ -1849,15 +1888,20 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
         pairs = int(bmask.sum().item())
         res[deg] = dict(ms=[a16, b16], fp32_ms=[a32, b32], library_ms=lib,
                         valid_pairs=pairs, gates=gates, b4_ms=b4_ms,
-                        b4_gates=gates4, b2_ms=b2_ms, b2_gates=gates2)
+                        b4_gates=gates4, b2_ms=b2_ms, b2_gates=gates2,
+                        row_walk_ms=row_ms, key_walk_ms=key_ms,
+                        walk_gates=walk_gates)
         log(f"[5g] density: N={N}, degree {deg} ({pairs} valid pairs, "
             f"{int(plan[1].sum().item())} walked tiles): B1 bf16 ms "
             f"{a16:.4f} {b16:.4f}, fp32 B1 (dense template) ms {a32:.4f} "
             f"{b32:.4f}, sdpa bf16 ms {lib:.4f}; B4 bf16 ms {b4_ms:.4f}, B2 "
-            f"bf16 ms {b2_ms:.4f}; vs plain bf16 (max abs err, max err, mean "
-            f"err, witness) B1 {tuple(f'{x:.3e}' for x in gates)}, B4 "
+            f"bf16 ms {b2_ms:.4f}, biased backward row walk ms {row_ms:.4f}, "
+            f"key walk ms {key_ms:.4f}; vs plain bf16 (max abs err, max err, "
+            f"mean err, witness) B1 {tuple(f'{x:.3e}' for x in gates)}, B4 "
             f"{tuple(f'{x:.3e}' for x in gates4)}, B2 "
-            f"{tuple(f'{x:.3e}' for x in gates2)}")
+            f"{tuple(f'{x:.3e}' for x in gates2)}, walks "
+            + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
+                        for n, r in walk_gates.items()))
         del mask, bmask, plan, out, p_out, f_out, grads, p_grads, f_grads
     return res
 
@@ -2001,13 +2045,18 @@ def phase_times_biased(FG, args, graph):
 
 # -- phase 5c -----------------------------------------------------------------
 
-def flex_bwd_yardstick(q, k, v, mask, bias, do):
+def flex_bwd_yardstick(q, k, v, mask, bias, do, got=None):
     """The library's backward of B4 and B5's function at the scaled-dot
     metric: compiled ``flex_attention``, forward+backward minus forward
     of `flex_yardstick`'s two calls, with lse1 flowing from the first
     call into the second's score_mod and the bias requiring grad (PyTorch
     2.11 differentiates both). Where the installed PyTorch cannot, ms is
-    None and ``error`` says why."""
+    None and ``error`` says why. ``got``, the kernels' (delta1, dB, dq,
+    dscale, dk, dv) at that metric: ``grad_err`` holds the max abs error
+    of dq (rows with a valid key), dk, dv and dB (the mask's pairs)
+    against the library's gradients over each one's largest entry,
+    recorded, not gated: the library rounds its outputs and gradients to
+    bf16."""
     block_mask, flex = flex_setup(q, mask)
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
 
@@ -2030,9 +2079,19 @@ def flex_bwd_yardstick(q, k, v, mask, bias, do):
         sync()
     except Exception as e:          # the yardstick only: never the port
         return dict(ms=None, error=f"{type(e).__name__}: {e}"[:300])
-    return dict(ms=cuda_ms(fwd_bwd, 5) - cuda_ms(fwd, 5),
-                form="both calls; gradients of q, k, v and the bias, "
-                     "lse1 differentiated")
+    res = dict(ms=cuda_ms(fwd_bwd, 5) - cuda_ms(fwd, 5),
+               form="both calls; gradients of q, k, v and the bias, "
+                    "lse1 differentiated")
+    if got is not None:
+        want = [w.float() for w in torch.autograd.grad(two_calls(*leaves),
+                                                       leaves, do)]
+        live = (mask != 0).any(-1)[:, None].expand(q.shape[:3])
+        on = mask != 0
+        res["grad_err"] = {
+            "dq": rel_err(got[2][live], want[0][live]),
+            "dk": rel_err(got[4], want[1]), "dv": rel_err(got[5], want[2]),
+            "dB": rel_err(got[1][on], want[3][on])}
+    return res
 
 
 def biased_bwd_bounds(FG, q, v, mask, plan, plan_t):
@@ -2049,13 +2108,18 @@ def biased_bwd_bounds(FG, q, v, mask, plan, plan_t):
               + 4 * pairs + 4 * (H + 2 * G))
     plan_b = 4 * sum(t.numel() for t in plan)
     plan_tb = 4 * sum(t.numel() for t in plan_t)
+    f6, f7a = 2 * H * pairs * (D + Dv), 2 * H * pairs * (2 * D + Dv)
+    f7b = 2 * H * pairs * (2 * D + 2 * Dv)
     return pairs, {
-        "B6": bound(common + plan_b + 4 * HN + 4 * pairs,
-                    2 * H * pairs * (D + Dv)),              # q.k and do.v
-        "B7a": bound(common + 4 * HN + plan_b + 4 * HN * D,
-                     2 * H * pairs * (2 * D + Dv)),
-        "B7b": bound(common + 4 * HN + plan_tb + 4 * HN * (D + Dv),
-                     2 * H * pairs * (2 * D + 2 * Dv))}
+        "B6": bound(common + plan_b + 4 * HN + 4 * pairs, f6),  # q.k, do.v
+        "B7a": bound(common + 4 * HN + plan_b + 4 * HN * D, f7a),
+        "B7b": bound(common + 4 * HN + plan_tb + 4 * HN * (D + Dv), f7b),
+        # the bf16 row walk (B6 and B7a's outputs from one read of their
+        # inputs) and the two walks (delta1 between them is internal)
+        "B6+B7a": bound(common + plan_b + 4 * HN + 4 * pairs + 4 * HN * D,
+                        f6 + f7a),
+        "both": bound(common + plan_b + plan_tb + 4 * pairs
+                      + 4 * HN * (2 * D + Dv), f6 + f7a + f7b)}
 
 
 def phase_times_biased_bwd(FG, args):
@@ -2151,15 +2215,19 @@ def bound16(nbytes, flops):
 
 
 def phase_times_biased_bf16(FG, args):
-    """[5h] B4, B5, B6, B7a and B7b in their bf16 forms at one 10K
-    snapshot of the bf16 edge-feature request (3f), each beside its fp32
-    form in turns, the plain bf16 versions, and their bounds: the fp32
-    forms' bytes (the inputs stay fp32) and the valid pairs' operations at
-    the bf16 tensor-core rate. The library yardstick is compiled
-    ``flex_attention`` on bf16 q, k, v at the scaled-dot metric, as in 5b
-    and 5c: held against the bf16 B4 and B5 at that metric (null with
-    the reason where it does not build or differs); its backward is
-    forward+backward minus forward of B4 and B5's function."""
+    """[5h] B4 and B5 in their bf16 forms and the bf16 backward's two
+    walks (the row walk: B6 and B7a bf16; the key walk: B7b bf16; and the
+    two together) at one 10K snapshot of the bf16 edge-feature request
+    (3f), each beside its fp32 form in turns (the row walk beside fp32 B6
+    + B7a, the two walks beside B6 + B7a + B7b), the plain bf16 versions,
+    and their bounds: the fp32 forms' bytes (the inputs stay fp32) and
+    the valid pairs' operations at the bf16 tensor-core rate. The library
+    yardstick is compiled ``flex_attention`` on bf16 q, k, v at the
+    scaled-dot metric, as in 5b and 5c: held against the bf16 B4 and B5
+    at that metric (null with the reason where it does not build or
+    differs); its backward is forward+backward minus forward of B4 and
+    B5's function, and its gradients are held against the two walks' at
+    that metric (recorded)."""
     q, k, v, mask, bias, jlist, jcount = args
     G, H, N, D = q.shape
     Dv = v.shape[-1]
@@ -2176,22 +2244,39 @@ def phase_times_biased_bf16(FG, args):
                          generator=torch.Generator(device=DEV).manual_seed(7))
         delta2 = (do * out).sum(-1)
         common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
-        d1 = k16[2](*common, *plan, "euclidean", ones, seeds, 0.0)[0]
+        d1 = k16[2](*common, *plan, "euclidean", ones, seeds, 0.0, False)[0]
+        d1_32 = k32[2](*common, *plan, "euclidean", ones, seeds, 0.0)[0]
+
+        def fwd4(kern):
+            return lambda: kern(q, k, mask, *plan, "euclidean", ones)
+
+        def fwd5(kern):
+            return lambda: kern(q, k, v, mask, bias, lse1, *plan,
+                                "euclidean", ones, seeds, 0.0)
+
+        def row32():
+            k32[2](*common, *plan, "euclidean", ones, seeds, 0.0)
+            k32[3](*common, d1_32, *plan, "euclidean", ones, seeds, 0.0,
+                   False)
+
+        def both(bf16, metric="euclidean", stats=(lse1, lse2, delta2)):
+            return lambda: biased_bwd_kernels(
+                FG, q, k, v, mask, bias, do, *stats, plan, plan_t, metric,
+                ones, seeds, 0.0, False, bf16)
         calls = {
-            "B4": lambda kern: lambda: kern(q, k, mask, *plan, "euclidean",
-                                            ones),
-            "B5": lambda kern: lambda: kern(q, k, v, mask, bias, lse1, *plan,
-                                            "euclidean", ones, seeds, 0.0),
-            "B6": lambda kern: lambda: kern(*common, *plan, "euclidean",
-                                            ones, seeds, 0.0),
-            "B7a": lambda kern: lambda: kern(*common, d1, *plan, "euclidean",
-                                             ones, seeds, 0.0, False),
-            "B7b": lambda kern: lambda: kern(*common, d1, *plan_t,
-                                             "euclidean", ones, seeds, 0.0)}
+            "B4": (fwd4(k32[0]), fwd4(k16[0])),
+            "B5": (fwd5(k32[1]), fwd5(k16[1])),
+            "B6+B7a": (row32, lambda: k16[2](*common, *plan, "euclidean",
+                                             ones, seeds, 0.0, False)),
+            "B7b": (lambda: k32[4](*common, d1_32, *plan_t, "euclidean",
+                                   ones, seeds, 0.0),
+                    lambda: k16[3](*common, d1, *plan_t, "euclidean", ones,
+                                   seeds, 0.0)),
+            "both": (both(False), both(True))}
         times = {}
-        for i, (name, make) in enumerate(calls.items()):
-            a32, a16 = cuda_ms(make(k32[i]), 10), cuda_ms(make(k16[i]), 10)
-            b16, b32 = cuda_ms(make(k16[i]), 10), cuda_ms(make(k32[i]), 10)
+        for name, (f32, f16) in calls.items():
+            a32, a16 = cuda_ms(f32, 10), cuda_ms(f16, 10)
+            b16, b32 = cuda_ms(f16, 10), cuda_ms(f32, 10)
             times[name] = ([a16, b16], [a32, b32])
         plain4 = cuda_ms(lambda: FG.flash_lse1_plain(
             q, k, mask, "euclidean", ones, True), 2)
@@ -2207,6 +2292,9 @@ def phase_times_biased_bf16(FG, args):
         k4_sdp = cuda_ms(lambda: k16[0](q, k, mask, *plan, sdp, ones), 10)
         k5_sdp = cuda_ms(lambda: k16[1](q, k, v, mask, bias, l1_sdp, *plan,
                                         sdp, ones, seeds, 0.0), 10)
+        sdp_stats = (l1_sdp, l2_sdp, (do * out_sdp).sum(-1))
+        walks_sdp = cuda_ms(both(True, sdp, sdp_stats), 10)
+        got_sdp = both(True, sdp, sdp_stats)()
     bq, bk, bv = (t.bfloat16() for t in (q, k, v))
     live = (mask != 0).any(-1)[:, None].expand(G, H, N)
     lib = {"B4": None, "B5": None, "error": None}
@@ -2232,7 +2320,8 @@ def phase_times_biased_bf16(FG, args):
         lib["error"] = f"{type(e).__name__}: {e}"[:300]
     lib["setup_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lib_bwd = flex_bwd_yardstick(bq, bk, bv, mask, bias, do.bfloat16())
+    lib_bwd = flex_bwd_yardstick(bq, bk, bv, mask, bias, do.bfloat16(),
+                                 got_sdp)
     lib_bwd["setup_and_timing_s"] = time.perf_counter() - t0
     pairs, bounds = biased_bwd_bounds(FG, q, v, mask, plan, plan_t)
     plan_b = 4 * (jlist.numel() + jcount.numel())
@@ -2254,16 +2343,19 @@ def phase_times_biased_bf16(FG, args):
                          plain_ms=plain, library_ms=library,
                          **bound16(nbytes[name], flops[name]))
     res.update(library=lib, library_bwd=lib_bwd, valid_pairs=pairs,
-               b4_sdp_ms=k4_sdp, b5_sdp_ms=k5_sdp)
+               b4_sdp_ms=k4_sdp, b5_sdp_ms=k5_sdp, walks_sdp_ms=walks_sdp)
     log(f"[5h] bf16 edge bias, one snapshot: "
         + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])} (fp32 "
                     f"{' '.join(f'{x:.4f}' for x in t[1])})"
                     for n, t in times.items())
         + f"; plain bf16 ms B4 {plain4:.4f}, B5 {plain5:.4f}, backward "
-        f"{plain_b:.4f}")
+        f"{plain_b:.4f} (\"B6+B7a\": the row walk, fp32 B6 + B7a; \"B7b\": "
+        f"the key walk, fp32 B7b; \"both\": the two walks, fp32 B6 + B7a + "
+        f"B7b)")
     log(f"[5h] library: compiled flex_attention on bf16 q, k, v at the "
         f"scaled-dot metric: {lib} (bf16 B4 at that metric {k4_sdp:.4f} ms, "
-        f"B5 {k5_sdp:.4f}); backward of B4 and B5's function {lib_bwd}")
+        f"B5 {k5_sdp:.4f}, the two walks {walks_sdp:.4f}); backward of B4 "
+        f"and B5's function {lib_bwd}")
     for name in calls:
         r = res[name]
         log(f"[5h] {name} bf16 bound {r['bound_ms']:.5f} ms by "
@@ -2619,12 +2711,15 @@ def phase_train_edge(tt, FG, bf16=False):
         fold_bwd = cuda_ms(lambda: biased_bwd_kernels(
             FG, *args, plan, plan_t, "euclidean", ones, seeds, 0.0, False,
             bf16), 3)
+        walks = bf16 and fold_walk_times(FG, kerns, args, plan, plan_t,
+                                         ones, seeds)
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
     log(f"[{tag}] one layer's launches over the {G} folded snapshots: B4+B5 "
-        f"{fold_fwd:.3f} ms (B4 {fold_b4:.3f} ms), B6+B7a+B7b "
+        f"{fold_fwd:.3f} ms (B4 {fold_b4:.3f} ms), "
+        f"{'the row and key walks' if bf16 else 'B6+B7a+B7b'} "
         f"{fold_bwd:.3f} ms; {cfg.num_layers} "
-        f"layers' B6+B7a+B7b = {share:.3f} and with B4+B5 "
+        f"layers' backward kernels = {share:.3f} and with B4+B5 "
         f"{cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the fastest "
         f"step ({step:.3f} ms)")
 
@@ -2650,8 +2745,49 @@ def phase_train_edge(tt, FG, bf16=False):
                 loss=losses, launches=launched, peak_memory_gb=peak_gb,
                 held_gb=held_gb, edge_grad_max=edge_grads, moved=moved,
                 fold_b4_b5_ms=fold_fwd, fold_b4_ms=fold_b4,
-                fold_b6_b7_ms=fold_bwd,
+                fold_b6_b7_ms=fold_bwd, fold_walks=walks or None,
                 b6_b7_share_of_step=share, full_err=full)
+
+
+def fold_walk_times(FG, kerns, args, plan, plan_t, ones, seeds):
+    """[5h] The bf16 biased backward's walks over 6f's folded snapshots,
+    per snapshot: the row walk, the key walk and the two together at the
+    euclidean metric, the two at the scaled-dot metric (on B4 and B5
+    bf16's statistics there), and the fp32 B6 + B7a + B7b on the same
+    inputs, in turns."""
+    q, k, v, mask, bias, do, lse1, lse2, delta2 = args
+    G = q.shape[0]
+    common = args
+    d1 = kerns[2](*common, *plan, "euclidean", ones, seeds, 0.0, False)[0]
+    sdp = "scaled_dot_product"
+    l1 = kerns[0](q, k, mask, *plan, sdp, ones)
+    o, l2 = kerns[1](q, k, v, mask, bias, l1, *plan, sdp, ones, seeds, 0.0)
+    sdp_stats = (l1, l2, (do * o).sum(-1))
+    del o
+
+    def walks(metric="euclidean", stats=(lse1, lse2, delta2), bf16=True):
+        return lambda: biased_bwd_kernels(
+            FG, q, k, v, mask, bias, do, *stats, plan, plan_t, metric, ones,
+            seeds, 0.0, False, bf16)
+    row = cuda_ms(lambda: kerns[2](*common, *plan, "euclidean", ones, seeds,
+                                   0.0, False), 5)
+    key = cuda_ms(lambda: kerns[3](*common, d1, *plan_t, "euclidean", ones,
+                                   seeds, 0.0), 5)
+    f32a, both_a = cuda_ms(walks(bf16=False), 2), cuda_ms(walks(), 5)
+    both_b, f32b = cuda_ms(walks(), 5), cuda_ms(walks(bf16=False), 2)
+    both_sdp = cuda_ms(walks(sdp, sdp_stats), 5)
+    res = dict(G=G, row_ms=row / G, key_ms=key / G,
+               ms=min(both_a, both_b) / G, sdp_ms=both_sdp / G,
+               fp32_ms=min(f32a, f32b) / G,
+               turns_ms=[both_a / G, both_b / G],
+               fp32_turns_ms=[f32a / G, f32b / G])
+    log(f"[5h] the bf16 biased backward's walks over 6f's {G} folded "
+        f"snapshots, per snapshot: row walk {res['row_ms']:.5f} ms, key walk "
+        f"{res['key_ms']:.5f} ms, both "
+        f"{' '.join(f'{x:.5f}' for x in res['turns_ms'])} ms (scaled-dot "
+        f"metric {res['sdp_ms']:.5f}); fp32 B6 + B7a + B7b on the same fold "
+        f"{' '.join(f'{x:.4f}' for x in res['fp32_turns_ms'])} ms")
+    return res
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -5657,39 +5793,62 @@ def main() -> int:
             ("flash_pairwalk_fwd.cu", "flash_pairwalk_bwd.cu",
              "flash_geometric_bwd.cu", "flash_geometric_bwd.cu"),
             (259, 1590, 1455, 1534))]
-    # the bf16 forms of B4-B7b: launches on the bf16 edge-feature serving
-    # (3f) and training (6f) paths, times at one 10K snapshot of 3f's
-    # request (5h), each beside its fp32 form's in the same run
+    # the bf16 forms of B4 and B5: launches on the bf16 edge-feature
+    # serving path (3f), times at one 10K snapshot of 3f's request (5h),
+    # each beside its fp32 form's in the same run
     t16e = times_biased_bf16
     lib16 = t16e["library"]
     kernels += [
         dict(kernel_record(
-            FG, kern, source, line,
-            (serve_edge_bf16 if name in ("B4", "B5")
-             else train_edge_bf16)["launches"][kern.name],
-            max(small_biased_bf16[name], serve_edge_bf16["full_err"]
-                if name in ("B4", "B5") else train_edge_bf16["full_err"][name]),
+            FG, kern, "flash_pairwalk_fwd.cu", line,
+            serve_edge_bf16["launches"][kern.name],
+            max(small_biased_bf16[name], serve_edge_bf16["full_err"]),
             min(t16e[name]["ms"]), t16e[name]["plain_ms"], plain_of,
             t16e[name], t16e[name]["library_ms"]),
              fp32_ms=min(t16e[name]["fp32_ms"]),
              library_of=(
-                 ("compiled flex_attention on bf16 q, k, v, block mask from "
-                  "the int8 mask, scaled-dot metric"
-                  if lib16["error"] is None else lib16["error"])
-                 if name in ("B4", "B5") else
-                 t16e["library_bwd"].get("form",
-                                         t16e["library_bwd"].get("error"))),
-             **(pairwalk_fields(dict(t16e[name], sdp_ms=t16e[
-                 f"b{name[1]}_sdp_ms"]), serve_edge_bf16["fold"][name])
-                if name in ("B4", "B5") else {}))
-        for name, kern, source, line, plain_of in zip(
-            ("B4", "B5", "B6", "B7a", "B7b"), biased_kernels(FG, True),
-            ("flash_pairwalk_fwd.cu",) * 2 + ("flash_biased_bwd.cu",) * 3,
-            (885, 944, 1038, 1102, 1176),
+                 "compiled flex_attention on bf16 q, k, v, block mask from "
+                 "the int8 mask, scaled-dot metric"
+                 if lib16["error"] is None else lib16["error"]),
+             **pairwalk_fields(dict(t16e[name], sdp_ms=t16e[
+                 f"b{name[1]}_sdp_ms"]), serve_edge_bf16["fold"][name]))
+        for name, kern, line, plain_of in zip(
+            ("B4", "B5"), biased_kernels(FG, True)[:2], (885, 944),
             ("flash_lse1_plain with bf16=True",
-             "flash_biased_forward_plain with bf16=True (walks the plan)")
-            + ("flash_biased_backward_plain with bf16=True (dq, dk, dv and "
-               "dB)",) * 3)]
+             "flash_biased_forward_plain with bf16=True (walks the plan)"))]
+    # the bf16 biased backward's row walk (B6 and B7a bf16) and key walk
+    # (B7b bf16): launches on the bf16 edge-feature training path (6f),
+    # times at one 10K snapshot of 3f's request (5h) beside the fp32
+    # kernels of the same function in the same run, and over 6f's fold
+    fw = train_edge_bf16["fold_walks"]
+    lbwd = t16e["library_bwd"]
+    kernels += [
+        dict(kernel_record(
+            FG, kern, "flash_pairwalk_biased_bwd.cu", line,
+            train_edge_bf16["launches"][kern.name],
+            max(small_biased_bf16[name], train_edge_bf16["full_err"][name]),
+            min(t16e[name]["ms"]), t16e[name]["plain_ms"],
+            "flash_biased_backward_plain with bf16=True (dq, dk, dv and dB)",
+            t16e[name], t16e[name]["library_ms"]),
+             also_replaces=also, fp32_ms=min(t16e[name]["fp32_ms"]),
+             fp32_of=fp32_of,
+             library_of=lbwd.get("form", lbwd.get("error")),
+             library_grad_err=lbwd.get("grad_err"),
+             both_walks_ms=min(t16e["both"]["ms"]),
+             both_walks_fp32_ms=min(t16e["both"]["fp32_ms"]),
+             both_walks_bound_ms=t16e["both"]["bound_ms"],
+             both_walks_sdp_ms=t16e["walks_sdp_ms"],
+             fold_snapshots=fw["G"], fold_ms=fw[fold_key],
+             fold_both_ms=fw["ms"], fold_both_sdp_ms=fw["sdp_ms"],
+             fold_fp32_ms=fw["fp32_ms"],
+             library_factor=(None if lbwd["ms"] is None
+                             else lbwd["ms"] / fw["sdp_ms"]),
+             bound_share=t16e[name]["bound_ms"] / fw[fold_key])
+        for name, kern, line, also, fp32_of, fold_key in (
+            ("B6+B7a", FG.flash_biased_bwd_row_bf16_kernel, 1038,
+             f"{FG_SRC}:1102", "fp32 B6 + B7a", "row_ms"),
+            ("B7b", FG.flash_biased_bwd_key_bf16_kernel, 1176, None,
+             "fp32 B7b", "key_ms"))]
     # the bf16 forms of B1c, B3a c and B3b c: launches on the hybrid bf16
     # serving (3g) and training (6g) paths, times at one 131K snapshot of
     # 6g (5i), each beside its fp32 form's in the same run

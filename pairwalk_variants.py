@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the bf16 pair walks, B1's (``tagan_torch/csrc/flash_pairwalk_fwd.cu``)
-and B2's (``flash_pairwalk_bwd.cu``), against copies of their sources
-with one design constant changed, on one NVIDIA GPU, to see what bounds
-them:
+"""Time the bf16 pair walks, B1's (``tagan_torch/csrc/flash_pairwalk_fwd.cu``),
+B2's (``flash_pairwalk_bwd.cu``) and the bf16 biased backward's row walk
+and key walk (``flash_pairwalk_biased_bwd.cu``), against copies of their
+sources with one design constant changed, on one NVIDIA GPU, to see what
+bounds them:
 
     python3 pairwalk_variants.py
 
@@ -11,8 +12,11 @@ Each variant is the source, with the walk's header
 2 or 4 entries a lane at a time (UNROLL; B1's walk takes 2, B2's 1), a
 2- or 8-stage mask ring (NST),
 the flush removed (the walk then only streams the mask and lists the
-pairs; its output is not the function), and for B2 its dk and dv
-atomics removed (likewise). The copies are built beside the source into
+pairs; its output is not the function), for B2 its dk and dv
+atomics removed (likewise), and for the key walk each warp reading its
+keys' R-byte pieces of the mask tile's 64 rows instead of the block
+copying the whole tile (KEY_PIECES). The copies are built beside the
+source into
 ``tagan_torch/_build/`` and timed in turns (base first and last) with
 CUDA events, per snapshot, on uniform random graphs of 10,000 nodes:
 degree 16 (the model's) at one snapshot and over a 16-snapshot fold,
@@ -51,7 +55,17 @@ EDITS = {
             "0);\n", ""),
         noatomics=("float w, bool vec) {\n",
                    "float w, bool vec) {\n  return;\n")),
+    "flash_pairwalk_biased_bwd": dict(
+        noflush_row=("constexpr bool ROW_FLUSH = true;",
+                     "constexpr bool ROW_FLUSH = false;"),
+        noflush_key=("constexpr bool KEY_FLUSH = true;",
+                     "constexpr bool KEY_FLUSH = false;"),
+        pieces=("constexpr bool KEY_PIECES = false;",
+                "constexpr bool KEY_PIECES = true;")),
 }
+# the variants timed for each walk (all of its source's by default)
+WALK_VARIANTS = {"row walk": ("noflush_row",),
+                 "key walk": ("noflush_key", "pieces")}
 
 
 def variants(name: str, src: str, header: str):
@@ -69,6 +83,9 @@ def variants(name: str, src: str, header: str):
 
 
 def graph(G, deg, gen):
+    """(mask, jlist, jcount, ilist, icount): ``deg`` uniform random keys
+    a row and the diagonal, or (deg 0) the diagonal walked over every
+    tile."""
     mask = torch.zeros(G, N, N, dtype=torch.int8, device="cuda")
     rows = torch.arange(N, device="cuda").repeat_interleave(max(deg, 1))
     for g in range(G):
@@ -77,12 +94,14 @@ def graph(G, deg, gen):
                                         device="cuda", generator=gen)] = 1
         mask[g].fill_diagonal_(1)
     jlist, jcount = FG.make_block_plan(mask)
+    ilist, icount = FG._transposed_plan(mask)
     if deg == 0:     # every key tile of every row tile, as a dense graph
         n_i = jlist.shape[1]
         jlist = torch.arange(n_i, dtype=torch.int32, device="cuda").expand(
             G, n_i, n_i).contiguous()
         jcount = torch.full((G, n_i), n_i, dtype=torch.int32, device="cuda")
-    return mask, jlist, jcount
+        ilist, icount = jlist, jcount
+    return mask, jlist, jcount, ilist, icount
 
 
 def ms(fn, iters=10):
@@ -104,25 +123,32 @@ def main() -> int:
     csrc = Path(FG.__file__).resolve().parent.parent / "csrc"
     header = (csrc / "flash_pairwalk.cuh").read_text()
     walks = {"B1 bf16": FG.flash_geometric_fwd_bf16_kernel,
-             "B2 bf16": FG.flash_geometric_bwd_fused_bf16_kernel}
+             "B2 bf16": FG.flash_geometric_bwd_fused_bf16_kernel,
+             "row walk": FG.flash_biased_bwd_row_bf16_kernel,
+             "key walk": FG.flash_biased_bwd_key_bf16_kernel}
     kernels = {w: {"base": kern} for w, kern in walks.items()}
-    made = []
+    made = {}
     try:
         for w, base in walks.items():
-            src = (csrc / f"{base.source}.cu").read_text()
-            for name, text in variants(base.source, src, header):
-                path = csrc / f"pairwalk_variant_{base.source}_{name}.cu"
-                path.write_text(text)
-                made.append(path)
-                kernels[w][name] = type(base)()
-                kernels[w][name].source = path.stem
+            if base.source not in made:
+                src = (csrc / f"{base.source}.cu").read_text()
+                made[base.source] = {}
+                for name, text in variants(base.source, src, header):
+                    path = csrc / f"pairwalk_variant_{base.source}_{name}.cu"
+                    path.write_text(text)
+                    made[base.source][name] = path
+            for name, path in made[base.source].items():
+                if name in WALK_VARIANTS.get(w, (name,)):
+                    kernels[w][name] = type(base)()
+                    kernels[w][name].source = path.stem
         build.build(k.source for ks in kernels.values() for k in ks.values())
         for ks in kernels.values():
             for k in ks.values():
                 k._function()
     finally:
-        for path in made:
-            path.unlink()
+        for paths in made.values():
+            for path in paths.values():
+                path.unlink()
     print(torch.cuda.get_device_name(0), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     for label, G, deg in (("degree 16", 1, 16), ("degree 16, fold", 16, 16),
@@ -130,17 +156,35 @@ def main() -> int:
                           ("diagonal, every tile walked", 1, 0)):
         q, k, v, do = (0.5 * torch.randn(G, H, N, D, device="cuda",
                                          generator=gen) for _ in range(4))
-        mask, jlist, jcount = graph(G, deg, gen)
+        mask, jlist, jcount, ilist, icount = graph(G, deg, gen)
         ones = torch.ones(H, device="cuda")
         seed = torch.zeros(G, dtype=torch.int32, device="cuda")
+        seeds = torch.zeros(G, 2, dtype=torch.int32, device="cuda")
         with torch.inference_mode():
             out, lse = walks["B1 bf16"](q, k, v, mask, jlist, jcount,
                                         "euclidean", ones, seed, 0.0)
             delta = (do * out).sum(-1)
+            # the biased backward's inputs: B4 and B5 bf16's statistics
+            # with a N(0, 1) bias at the mask's pairs
+            bias = torch.where(mask != 0, torch.randn(
+                mask.shape, device="cuda", generator=gen), 0.0)
+            lse1 = FG.flash_lse1_bf16_kernel(q, k, mask, jlist, jcount,
+                                             "euclidean", ones)
+            out2, lse2 = FG.flash_biased_fwd_bf16_kernel(
+                q, k, v, mask, bias, lse1, jlist, jcount, "euclidean", ones,
+                seeds, 0.0)
+            common = (q, k, v, mask, bias, do, lse1, lse2,
+                      (do * out2).sum(-1))
+            delta1 = walks["row walk"](*common, jlist, jcount, "euclidean",
+                                       ones, seeds, 0.0, False)[0]
         args = {"B1 bf16": (q, k, v, mask, jlist, jcount, "euclidean", ones,
                             seed, 0.0),
                 "B2 bf16": (q, k, v, mask, do, lse, delta, jlist, jcount,
-                            "euclidean", ones, seed, 0.0, False)}
+                            "euclidean", ones, seed, 0.0, False),
+                "row walk": (*common, jlist, jcount, "euclidean", ones,
+                             seeds, 0.0, False),
+                "key walk": (*common, delta1, ilist, icount, "euclidean",
+                             ones, seeds, 0.0)}
         for w, ks in kernels.items():
             order = list(ks) + list(ks)[::-1]
             res = {}
@@ -150,7 +194,8 @@ def main() -> int:
                     res.setdefault(name, []).append(round(ms(
                         lambda: kern(*args[w])) / G, 5))
             print(f"{w}, {label}: ms a snapshot {res}", flush=True)
-        del q, k, v, do, mask, out, lse, delta
+        del q, k, v, do, mask, out, lse, delta, bias, lse1, out2, lse2
+        del common, delta1, args
     return 0
 
 

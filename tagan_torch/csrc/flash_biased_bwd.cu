@@ -43,8 +43,10 @@
 // templated on the 16-wide feature lanes. Thread (rg, lane) owns query rows
 // 4*rg..4*rg+3 and keys lane + 16*b (b < 4), as in every kernel here.
 //
-// The bf16 forms (kBf16, either mask form; the TPU kernels' bf16=True) round
-// the operands of every product as B3a's and B3b's bf16 forms do
+// The bf16 forms (kBf16; the TPU kernels' bf16=True), instantiated for the
+// compact forms only (the dense bf16 forms are the pair walks of
+// flash_pairwalk_biased_bwd.cu), round the operands of every product as
+// B3a's and B3b's bf16 forms do
 // (flash_geometric_common.cuh): q.k from tiles rounded in place after their
 // norms, do.v from do and v rounded as staged, the chain's W k and W q with
 // W = chain_weight_bf16 rounded as each product loads it (dq and dk sums
@@ -77,7 +79,8 @@
 // and dB is written at 16 KB per walked tile.
 //
 // The kernels and their entry templates live in flash_biased_bwd.cuh. This
-// file holds the entries of the dense forms and of the fp32 compact forms;
+// file holds the entries of the dense fp32 forms and of the fp32 compact
+// forms;
 // flash_biased_bwd_compact_bf16.cu holds the bf16 compact forms' entries, so
 // that nvcc builds their 24 instantiations beside this file's rather than
 // after them.
@@ -137,50 +140,6 @@ extern "C" int tagan_flash_biased_bwd_dkv(
                                delta1, ilist, icount, ilist, scale, seeds, dk,
                                dv, G, H, N, D, Dv, n_j, W, 0, metric, sqrt_d,
                                use_dropout, keep_thresh, inv_keep, stream);
-}
-
-// B6's bf16 form: the same arguments.
-extern "C" int tagan_flash_biased_bwd_pre_bf16(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* bias, const void* dout, const void* lse1, const void* lse2,
-    const void* delta2, const void* jlist, const void* jcount,
-    const void* scale, const void* seeds, void* delta1, void* dbias, int G,
-    int H, int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
-    int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
-  return pre_entry<DENSE_MASK, true>(
-      q, k, v, mask, bias, dout, lse1, lse2, delta2, jlist, jcount, jlist,
-      scale, seeds, delta1, dbias, G, H, N, D, Dv, n_i, W, 0, metric, sqrt_d,
-      use_dropout, keep_thresh, inv_keep, stream);
-}
-
-// B7a's bf16 form: the same arguments.
-extern "C" int tagan_flash_biased_bwd_dq_bf16(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* bias, const void* dout, const void* lse1, const void* lse2,
-    const void* delta2, const void* delta1, const void* jlist,
-    const void* jcount, const void* scale, const void* seeds, void* dq,
-    void* dscale_part, int G, int H, int N, int D, int Dv, int n_i, int W,
-    int metric, float sqrt_d, int use_dropout, unsigned int keep_thresh,
-    float inv_keep, int need_dscale, void* stream) {
-  return dq_entry<DENSE_MASK, true>(
-      q, k, v, mask, bias, dout, lse1, lse2, delta2, delta1, jlist, jcount,
-      jlist, scale, seeds, dq, dscale_part, G, H, N, D, Dv, n_i, W, 0, metric,
-      sqrt_d, use_dropout, keep_thresh, inv_keep, need_dscale, stream);
-}
-
-// B7b's bf16 form: the same arguments.
-extern "C" int tagan_flash_biased_bwd_dkv_bf16(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* bias, const void* dout, const void* lse1, const void* lse2,
-    const void* delta2, const void* delta1, const void* ilist,
-    const void* icount, const void* scale, const void* seeds, void* dk,
-    void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
-    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
-    void* stream) {
-  return dkv_entry<DENSE_MASK, true>(
-      q, k, v, mask, bias, dout, lse1, lse2, delta2, delta1, ilist, icount,
-      ilist, scale, seeds, dk, dv, G, H, N, D, Dv, n_j, W, 0, metric, sqrt_d,
-      use_dropout, keep_thresh, inv_keep, stream);
 }
 
 // B6c: B6 over the compact store of S slots per g, bits i64[G, S, 64]

@@ -1,7 +1,7 @@
 // The edge-biased backward's kernels (B6: delta1 and dB, B7a: dq, B7b: dk
 // and dv), their launchers and their entry templates, for every mask form
 // and precision (documented in flash_biased_bwd.cu). Included by
-// flash_biased_bwd.cu (the dense forms and the fp32 compact forms) and
+// flash_biased_bwd.cu (the dense fp32 forms and the fp32 compact forms) and
 // flash_biased_bwd_compact_bf16.cu (the bf16 compact forms): two libraries
 // that nvcc builds in parallel, each instantiating its own share of the
 // templates.

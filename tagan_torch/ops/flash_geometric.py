@@ -27,7 +27,9 @@ Every kernel above also has a bf16 form (the TPU kernels' ``bf16=True``:
 every product's operands rounded to bf16, float32 sums), in the same
 sources under its own entry point and launch count (B1's, B4's and
 B5's in csrc/flash_pairwalk_fwd.cu and B2's in csrc/flash_pairwalk_bwd.cu,
-pair walks that compute only the mask's valid pairs; B3a c's and B3b c's
+pair walks that compute only the mask's valid pairs; B6's and B7a's
+together as the row walk and B7b's as the key walk in
+csrc/flash_pairwalk_biased_bwd.cu, pair walks likewise; B3a c's and B3b c's
 in csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
 csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's in
 csrc/flash_biased_bwd_compact_bf16.cu, from those of
@@ -2067,22 +2069,49 @@ class _FlashBiasedBwdDkvKernel(_FlashBiasedBackwardKernel):
         return dk, dv
 
 
-class _FlashBiasedBwdPreBf16Kernel(_FlashBiasedBwdPreKernel):
-    """B6's bf16 form, ``tagan_flash_biased_bwd_pre_bf16``."""
-    name = "flash_biased_bwd_pre_bf16"
-    symbol = "tagan_flash_biased_bwd_pre_bf16"
+class _FlashBiasedBwdRowBf16Kernel(_FlashBiasedBackwardKernel):
+    """B6's and B7a's bf16 forms in one kernel, the row walk
+    ``tagan_flash_biased_bwd_row_bf16`` (csrc/flash_pairwalk_biased_bwd.cu):
+    (delta1 [G, H, N], dB [G, N, N], dq, dscale or None) over the forward
+    walk (jlist, jcount), a pair walk that reads each mask tile once for
+    all heads and computes only its valid pairs, twice: delta1 and dB,
+    then dq and dscale on the whole delta1. dB is written at the mask's
+    valid pairs only; elsewhere it is left unset. No atomics: repeated
+    calls are bit-identical."""
+    name = "flash_biased_bwd_row_bf16"
+    source = "flash_pairwalk_biased_bwd"
+    symbol = "tagan_flash_biased_bwd_row_bf16"
+    argtypes = (_P,) * 17 + (_I,) * 8 + (_F, _I, _U, _F, _I)
+
+    def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, jlist,
+                 jcount, metric: str, scale, seeds, dropout_rate: float,
+                 need_dscale: bool):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2))
+        dev, (G, H, N, D, Dv, n_i, W) = self._check(
+            q, k, v, mask, bias, do, rows, jlist, jcount, scale, seeds)
+        delta1 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        dbias = torch.empty((G, N, N), dtype=torch.float32, device=dev)
+        dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        part = torch.empty((G, H, N) if need_dscale else (1,),
+                           dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, mask, bias, do, lse1, lse2, delta2, jlist, jcount, scale,
+            seeds, delta1, dbias, dq, part)), G, H, N, D, Dv, n_i, W,
+            MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate), int(need_dscale))
+        return delta1, dbias, dq, (part.sum((0, 2)) if need_dscale else None)
 
 
-class _FlashBiasedBwdDqBf16Kernel(_FlashBiasedBwdDqKernel):
-    """B7a's bf16 form, ``tagan_flash_biased_bwd_dq_bf16``."""
-    name = "flash_biased_bwd_dq_bf16"
-    symbol = "tagan_flash_biased_bwd_dq_bf16"
-
-
-class _FlashBiasedBwdDkvBf16Kernel(_FlashBiasedBwdDkvKernel):
-    """B7b's bf16 form, ``tagan_flash_biased_bwd_dkv_bf16``."""
-    name = "flash_biased_bwd_dkv_bf16"
-    symbol = "tagan_flash_biased_bwd_dkv_bf16"
+class _FlashBiasedBwdKeyBf16Kernel(_FlashBiasedBwdDkvKernel):
+    """B7b's bf16 form, the key walk ``tagan_flash_biased_bwd_key_bf16``
+    (csrc/flash_pairwalk_biased_bwd.cu): dk and dv over the transposed
+    walk (ilist, icount), given the row walk's delta1; each walked mask
+    tile is copied whole and transposed in shared memory, and each key's
+    valid rows are summed in ascending order. No atomics: repeated calls
+    are bit-identical."""
+    name = "flash_biased_bwd_key_bf16"
+    source = "flash_pairwalk_biased_bwd"
+    symbol = "tagan_flash_biased_bwd_key_bf16"
 
 
 class _FlashBiasedBackwardCompactKernel(_CudaKernel):
@@ -2254,9 +2283,8 @@ flash_geometric_bwd_dq_bf16_kernel = _FlashBwdDqBf16Kernel()
 flash_geometric_bwd_dkv_bf16_kernel = _FlashBwdDkvBf16Kernel()
 flash_lse1_bf16_kernel = _FlashLse1Bf16Kernel()
 flash_biased_fwd_bf16_kernel = _FlashBiasedBf16Kernel()
-flash_biased_bwd_pre_bf16_kernel = _FlashBiasedBwdPreBf16Kernel()
-flash_biased_bwd_dq_bf16_kernel = _FlashBiasedBwdDqBf16Kernel()
-flash_biased_bwd_dkv_bf16_kernel = _FlashBiasedBwdDkvBf16Kernel()
+flash_biased_bwd_row_bf16_kernel = _FlashBiasedBwdRowBf16Kernel()
+flash_biased_bwd_key_bf16_kernel = _FlashBiasedBwdKeyBf16Kernel()
 flash_geometric_fwd_compact_bf16_kernel = _FlashForwardCompactBf16Kernel()
 flash_geometric_bwd_dq_compact_bf16_kernel = _FlashBwdDqCompactBf16Kernel()
 flash_geometric_bwd_dkv_compact_bf16_kernel = _FlashBwdDkvCompactBf16Kernel()
@@ -2283,8 +2311,8 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_bf16_kernel,
            flash_geometric_bwd_dkv_bf16_kernel,
            flash_lse1_bf16_kernel, flash_biased_fwd_bf16_kernel,
-           flash_biased_bwd_pre_bf16_kernel, flash_biased_bwd_dq_bf16_kernel,
-           flash_biased_bwd_dkv_bf16_kernel,
+           flash_biased_bwd_row_bf16_kernel,
+           flash_biased_bwd_key_bf16_kernel,
            flash_geometric_fwd_compact_bf16_kernel,
            flash_geometric_bwd_dq_compact_bf16_kernel,
            flash_geometric_bwd_dkv_compact_bf16_kernel,
@@ -2551,12 +2579,15 @@ def flash_biased_fwd(q, k, v, mask, bias, jlist, jcount, *, metric: str,
 def _biased_backward(q, k, v, mask, bias, out, lse1, lse2, do, plan, plan_t,
                      metric, scale, dropout_rate, seeds, need_dscale,
                      bf16=False):
-    """(dq, dk, dv, dB, dscale or None) of folded inputs: B6, B7a then B7b
-    for CUDA tensors (their bf16 forms with ``bf16``), the plain version
-    for CPU tensors; trusts the plans. ``plan_t`` None is built from the
-    mask. On CUDA, dB is set on the walked 64 x 64 blocks only (the TPU
-    kernels' contract: read it at the mask's pairs); the plain version
-    sets it everywhere."""
+    """(dq, dk, dv, dB, dscale or None) of folded inputs, the plain
+    version for CPU tensors; trusts the plans. ``plan_t`` None is built
+    from the mask. On CUDA, fp32 takes the three tile kernels B6, B7a then
+    B7b, and ``bf16`` the two pair walks: the row walk (B6 and B7a bf16:
+    delta1, dB, dq, dscale) then the key walk (B7b bf16: dk, dv), both
+    free of atomics. dB is the TPU kernels' contract, read at the mask's
+    pairs: the tile kernels set every pair of the walked 64 x 64 blocks
+    (0 off the mask), the row walk only the mask's pairs; the plain
+    version sets it everywhere."""
     if q.device.type == "cpu":
         return flash_biased_backward_plain(q, k, v, mask, bias, out, lse1,
                                            lse2, do, metric, scale,
@@ -2565,18 +2596,24 @@ def _biased_backward(q, k, v, mask, bias, out, lse1, lse2, do, plan, plan_t,
     delta2 = (do * out).sum(-1).contiguous()
     if plan_t is None:
         plan_t = _transposed_plan(mask)
-    pre, dq_kern, dkv_kern = (
-        (flash_biased_bwd_pre_bf16_kernel, flash_biased_bwd_dq_bf16_kernel,
-         flash_biased_bwd_dkv_bf16_kernel) if bf16 else
-        (flash_biased_bwd_pre_kernel, flash_biased_bwd_dq_kernel,
-         flash_biased_bwd_dkv_kernel))
     rows = (lse1, lse2, delta2)
-    delta1, dbias = pre(q, k, v, mask, bias, do, *rows, *plan, metric, scale,
-                        seeds, dropout_rate)
-    dq, dscale = dq_kern(q, k, v, mask, bias, do, *rows, delta1, *plan,
-                         metric, scale, seeds, dropout_rate, need_dscale)
-    dk, dv = dkv_kern(q, k, v, mask, bias, do, *rows, delta1, *plan_t,
-                      metric, scale, seeds, dropout_rate)
+    if bf16:
+        delta1, dbias, dq, dscale = flash_biased_bwd_row_bf16_kernel(
+            q, k, v, mask, bias, do, *rows, *plan, metric, scale, seeds,
+            dropout_rate, need_dscale)
+        dk, dv = flash_biased_bwd_key_bf16_kernel(
+            q, k, v, mask, bias, do, *rows, delta1, *plan_t, metric, scale,
+            seeds, dropout_rate)
+        return dq, dk, dv, dbias, dscale
+    delta1, dbias = flash_biased_bwd_pre_kernel(
+        q, k, v, mask, bias, do, *rows, *plan, metric, scale, seeds,
+        dropout_rate)
+    dq, dscale = flash_biased_bwd_dq_kernel(
+        q, k, v, mask, bias, do, *rows, delta1, *plan, metric, scale, seeds,
+        dropout_rate, need_dscale)
+    dk, dv = flash_biased_bwd_dkv_kernel(
+        q, k, v, mask, bias, do, *rows, delta1, *plan_t, metric, scale,
+        seeds, dropout_rate)
     return dq, dk, dv, dbias, dscale
 
 
@@ -2592,9 +2629,10 @@ def flash_biased_attention_bwd(
     lse1 and lse2 are the forward's, do the cotangent of out. Cosine
     metrics expect q/k already normalised. Plans given by the caller are
     checked; missing ones are built from the mask. CPU tensors take the
-    plain version, CUDA tensors B6, B7a and B7b (their bf16 forms with
-    ``bf16``). dB [G, N, N] is defined at the mask's pairs (and, on
-    CUDA, on every pair of a walked 64 x 64 block); read it there
+    plain version; CUDA tensors B6, B7a and B7b, and with ``bf16`` the
+    row walk (B6 and B7a bf16) and the key walk (B7b bf16), which sum in
+    a fixed order. dB [G, N, N] is defined at the mask's pairs (and, on
+    CUDA in fp32, on every pair of a walked 64 x 64 block); read it there
     only."""
     N = q.shape[2]
     if plan is None:
@@ -2615,8 +2653,9 @@ def flash_biased_attention_bwd(
 class _FlashBiasedAttention(torch.autograd.Function):
     """The edge-biased attention of folded inputs (the TPU package's
     ``_flash_diff_biased``): B4 then B5 forward, B6, B7a and B7b
-    backward (or the plain versions on the CPU), in their bf16 forms with
-    ``bf16``. The backward reads the dropout seeds saved by the forward.
+    backward (or the plain versions on the CPU); with ``bf16`` their bf16
+    forms, the backward as the row walk then the key walk. The backward
+    reads the dropout seeds saved by the forward.
     dscale is formed only when the scale requires grad, dB only when the
     bias does."""
 

@@ -1509,10 +1509,11 @@ def test_hybrid_bf16_trainer_step_on_gpu_matches_cpu(cuda):
 
 # -- the edge-biased bf16 forms (B4, B5, B6, B7a, B7b) --------------------------
 
+# B4 and B5 bf16, then the row walk (B6 and B7a bf16) and the key walk (B7b
+# bf16)
 BIASED_BF16 = (FG.flash_lse1_bf16_kernel, FG.flash_biased_fwd_bf16_kernel,
-               FG.flash_biased_bwd_pre_bf16_kernel,
-               FG.flash_biased_bwd_dq_bf16_kernel,
-               FG.flash_biased_bwd_dkv_bf16_kernel)
+               FG.flash_biased_bwd_row_bf16_kernel,
+               FG.flash_biased_bwd_key_bf16_kernel)
 
 
 def _biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
@@ -1521,8 +1522,8 @@ def _biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
     bf16=True) against the plain bf16 versions under the bf16 gates, the
     plain fp32 versions the witness: lse1, out and lse2 (B5 on the
     kernel's lse1, walking the same plan), dq, dk, dv, dB at the mask's
-    pairs (0 at the other pairs of the walked blocks) and dscale; dead
-    rows exactly; each bf16 entry launched once and nothing else."""
+    pairs (the row walk writes no other) and dscale; dead rows exactly;
+    each bf16 kernel launched once and nothing else."""
     args = [t.to(cuda) for t in _biased_inputs(G, H, N, D, Dv, metric, seed)]
     q, k, v, mask, bias, scale, seeds = args
     mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
@@ -1559,10 +1560,6 @@ def _biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
         _bf16_gates(g, w, f)
     on = mask != 0
     _bf16_gates(got[3][on], want[3][on], f32[3][on])
-    walked = FG._occ_from_mask(mask, FG.BLOCK_M, FG.BLOCK_N)
-    walked = walked.repeat_interleave(FG.BLOCK_M, 1).repeat_interleave(
-        FG.BLOCK_N, 2)[:, :N, :N]
-    assert torch.all(got[3][walked & ~on] == 0)
     if need:
         _bf16_gates(got[4], want[4], f32[4], witness=False, mean=False)
     launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
@@ -2201,3 +2198,166 @@ def test_pairwalk_bf16_bwd_fold(H, cuda):
     4 and 40 (two head groups)."""
     _pairwalk_bwd_vs_plain(cuda, 16, H, 600, 16, 16, "euclidean", 0.1,
                            seed=2)
+
+
+# -- the bf16 biased backward's pair walks (the row walk, the key walk) ----------
+
+def _pairwalk_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
+    """The row walk (B6 and B7a bf16) and the key walk (B7b bf16) through
+    ``flash_biased_attention_bwd(..., bf16=True)`` on the plain bf16
+    forward's out, lse1 and lse2 (walking the plan) at `sparse_mask`,
+    against the plain bf16 biased backward under the bf16 gates (dscale,
+    for gaussian and rbf, under the max gate alone), the plain fp32
+    backward the witness: dq, dk, dv, dB at the mask's pairs; dq exactly 0
+    on dead rows and dk, dv exactly 0 at keys no row reaches; each walk
+    launched once, nothing else."""
+    q, k, v, mask, bias, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, D, Dv, metric, seed))
+    # keys no row reaches, in a middle key tile and the ragged last one
+    mask[:, :, [150, 151, N - 5]] = 0
+    bias[:, :, [150, 151, N - 5]] = 0
+    do = torch.from_numpy(np.random.default_rng(seed + 600).standard_normal(
+        (G, H, N, Dv)).astype(np.float32)).to(cuda)
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    need = metric in FG.SCALED_METRICS
+    lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, True)
+    out, lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias, lse1,
+                                              metric, scale, rate, seeds,
+                                              True, plan)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    got = FG.flash_biased_attention_bwd(
+        q, k, v, bias, mask, out, lse1, lse2, do, metric=metric, scale=scale,
+        plan=plan, plan_t=plan_t, seeds=seeds, dropout_rate=rate,
+        need_dscale=need, bf16=True)
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect.update({k_.name: 1 for k_ in BIASED_BF16[2:]})
+    assert launched == expect
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    unreached = (mask == 0).all(-2)[:, None, :].expand(G, H, N)
+    assert dead.any() and unreached.any()
+    assert torch.all(got[0][dead] == 0)
+    assert torch.all(got[1][unreached] == 0)
+    assert torch.all(got[2][unreached] == 0)
+    stats = (q, k, v, mask, bias, out, lse1, lse2, do, metric, scale, rate,
+             seeds, need)
+    want = FG.flash_biased_backward_plain(*stats, bf16=True)
+    f32 = FG.flash_biased_backward_plain(*stats)
+    for g, w, f in zip(got[:3], want[:3], f32[:3]):
+        _bf16_gates(g, w, f)
+    on = mask != 0
+    _bf16_gates(got[3][on], want[3][on], f32[3][on])
+    assert len(got) == (5 if need else 4)
+    if need:
+        _bf16_gates(got[4], want[4], f32[4], witness=False, mean=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [330, 1008, 1536])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_pairwalk_biased_bf16_sparse(metric, rate, N, cuda):
+    """The two walks at sparse masks (`sparse_mask`): every metric,
+    dropout off and on, N = 330 (the mask's rows past 128 keys reach most
+    keys; byte loads), 1008 (16-byte loads, the last tile ragged) and
+    1536 (a multiple of 64), H = 4."""
+    _pairwalk_biased_vs_plain(cuda, 2, 4, N, 16, 16, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_pairwalk_biased_bf16_head_dims(D, Dv, metric, cuda):
+    """Head dims of the dense bf16 tests, dropout on, H = 3 (24 of a
+    warp's lanes hold items), N = 1008: widths not a multiple of 4 take
+    scalar gathers, and (128, 128) splits the key walk's 64-key tile over
+    blocks to fit its shared memory."""
+    _pairwalk_biased_vs_plain(cuda, 1, 3, 1008, D, Dv, metric, 0.1, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 4, 8, 40])
+def test_pairwalk_biased_bf16_fold(H, cuda):
+    """A 16-snapshot fold with dropout (each snapshot its seeds), H = 1
+    (32 rows a row walk warp, 2 warps a key walk block), 4, 8 (16 warps a
+    key walk block) and 40 (two row walk launches adding into dB, five key
+    walk head groups)."""
+    _pairwalk_biased_vs_plain(cuda, 16, H, 600, 16, 16, "gaussian_kernel",
+                              0.1, seed=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
+                                         ("gaussian_kernel", 0.1)])
+def test_pairwalk_biased_bf16_deterministic(metric, rate, cuda):
+    """dq, dk, dv, dB (at the mask's pairs) and dscale of the two walks are
+    bit-identical over 20 repeated calls: neither sums with atomics."""
+    G, H, N = 2, 4, 1008
+    q, k, v, mask, bias, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, 16, 16, metric, 3))
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (G, H, N, 16)).astype(np.float32)).to(cuda)
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    need = metric in FG.SCALED_METRICS
+    lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, True)
+    out, lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias, lse1,
+                                              metric, scale, rate, seeds,
+                                              True, plan)
+    on = mask != 0
+    first = None
+    for _ in range(20):
+        got = FG.flash_biased_attention_bwd(
+            q, k, v, bias, mask, out, lse1, lse2, do, metric=metric,
+            scale=scale, plan=plan, plan_t=plan_t, seeds=seeds,
+            dropout_rate=rate, need_dscale=need, bf16=True)
+        got = [t.clone() for t in got[:3]] + [got[3][on]] + list(got[4:])
+        if first is None:
+            first = got
+        for a, b in zip(got, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_pairwalk_biased_bf16_unset_db_never_read(cuda):
+    """The row walk leaves dB unset off the mask's pairs, and the model
+    reads it only at its valid edges (through `edge_bias_matrix`'s
+    select): with the allocator's memory filled with NaN first, one
+    TAGANTrainer step of the bf16 edge-feature model on a batch with
+    padded edges (at (0, 0)) and a padded snapshot gives finite gradients
+    within `BF16_EDGE_GRAD` of the CPU's, the plain contractions pinned to
+    fp32 on both sides as in `test_edge_bf16_trainer_step_on_gpu_matches_cpu`."""
+    from tagan_torch.core.module import default_matmul_precision
+    seqs = _edge_seqs(np.random.default_rng(6), 100, 800, 3, 2, short=True)
+    cfg = _bf16_model_cfg(edge_feature_dim=4, use_edge_features=True)
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        pt.TemporalGraphDataset(seqs, [1.0, 0.0]), batch_size=2,
+        dense_adj=False)))
+    assert not bool(batch.edge_mask[1, -1].any())
+    N = batch.max_nodes
+    nan = torch.full((4 * batch.x.shape[0] * batch.x.shape[1] * N * N,),
+                     float("nan"), device=cuda)
+    del nan
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        model.precision = lambda: default_matmul_precision("highest")
+        tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
+        row = FG.flash_biased_bwd_row_bf16_kernel
+        before = row.launches
+        loss, _ = tr._loss(batch, labels, smask, True)
+        loss.backward()
+        assert row.launches - before == (cfg.num_layers if dev == "cuda"
+                                         else 0)
+        got[dev] = {n_: p.grad.detach().cpu().clone()
+                    for n_, p in model.named_parameters()}
+    for name, g in got["cpu"].items():
+        if name in ("temporal_attention.k.b",
+                    "temporal_attention.time_encoding.basis_proj.b",
+                    "temporal_attention.time_q_proj.b"):
+            continue    # zero in exact arithmetic: fp32 noise
+        card = got["cuda"][name]
+        assert torch.isfinite(card).all(), name
+        assert (card - g).abs().max() <= BF16_EDGE_GRAD * g.abs().max(), name

@@ -8,12 +8,17 @@ Phases, in order; any failure raises and exits non-zero:
 1. the card's name and power limit; build the CUDA kernels from
    ``tagan_torch/csrc`` (all ``nvcc`` processes at once) and print each
    kernel's registers and spill from ptxas;
-2. the forward kernel B1 against its plain PyTorch version on the card at
-   small shapes: every metric, dead rows and an empty query tile, N not a
-   multiple of the tile, D != Dv, per-head scales, dropout 0 and 0.1;
-   (2b) the backward kernels, B2 and B3a + B3b, against the plain
-   backward on the same grid plus learnable scales (dscale), an empty key
-   strip, an lse cotangent and (D, Dv) of (7, 3), (40, 72), (128, 128);
+2. the forward kernel B1 (the fp32 pair walk) against its plain PyTorch
+   version on the card at small shapes: every metric, dead rows and an
+   empty query tile, N not a multiple of the tile, D != Dv, per-head
+   scales, dropout 0 and 0.1, and the same at the pair walks' sparse
+   masks (``tests/test_torch_gpu.py::sparse_mask``, N = 1,000, H = 4) and
+   (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3), (128, 128) there (N =
+   1,008, H = 3); (2b) the backward kernels, B2 (the fp32 backward pair
+   walk) and B3a + B3b, against the plain backward on the same grid plus
+   learnable scales (dscale), an empty key strip, an lse cotangent and
+   (D, Dv) of (7, 3), (40, 72), (128, 128), and at 2's sparse masks and
+   head dims;
    (2c) the edge-biased forward kernels B4 (lse1) and B5 (out, lse2)
    against their plain versions on the same grid with a bias that sums
    duplicate edges, and the three (D, Dv); (2d) the edge-biased backward
@@ -108,10 +113,15 @@ Phases, in order; any failure raises and exits non-zero:
    features; csr's autograd is an independent formula for dB), the edge
    parameters' gradients non-zero;
 5. times at the main path's shape (one snapshot, 4 heads, 10,000 nodes,
-   head dim 16) with CUDA events, in turns: B1, B2, B3a, B3b and
-   B3a + B3b against the plain versions, and ``scaled_dot_product_attention``
+   head dim 16) with CUDA events, in turns: B1, B2 (the fp32 pair walks;
+   B2 also at the scaled-dot metric), B3a, B3b and B3a + B3b against the
+   plain versions, and ``scaled_dot_product_attention`` on fp32 q, k, v
    (forward; backward = forward+backward - forward) with the boolean mask
    as the library yardstick; each kernel's bound from this run's inputs;
+   B1 also over 3's 16 folded snapshots, per snapshot, at the euclidean
+   and the scaled-dot metric beside sdpa fp32 over the same fold (timed
+   in 3), and B2 over 6's 8 folded snapshots at both metrics beside sdpa
+   fp32's backward over that fold (timed in 6);
    (5b) B4 and B5 at one snapshot of the edge-feature request against
    their plain versions, compiled ``flex_attention`` at the scaled-dot
    metric as the library yardstick (held against B4 and B5 at that
@@ -154,9 +164,11 @@ Phases, in order; any failure raises and exits non-zero:
    to bf16), and over 6e's 8 folded snapshots at both metrics (timed in
    6e); and a density sweep at N = 10,000 (degree 16, 256 and 2,048): B1
    bf16, B4 bf16 and B2 bf16 held to the plain bf16 versions under the
-   bf16 gates, beside the fp32 B1 and sdpa bf16 on the same masks, times
-   recorded, not gated; the sweep also holds the bf16 biased
-   backward's two walks to the plain bf16 version on each mask;
+   bf16 gates, B1 and B2 (the fp32 walks) to the plain fp32 versions
+   within TOL, beside sdpa bf16 and sdpa fp32 (forward, and fp32's
+   backward) on the same masks, times recorded, not gated; the sweep also
+   holds the bf16 biased backward's two walks to the plain bf16 version
+   on each mask;
    (5h) the bf16 forms of B4, B5 (pair walks) and B6, B7a and B7b (the
    row walk, B6 and B7a bf16 in one kernel, and the key walk, B7b bf16)
    at one snapshot of 3f's request, each beside its fp32 form in turns
@@ -192,7 +204,8 @@ Phases, in order; any failure raises and exits non-zero:
    just before each and read just after; step times (host clock around a
    synchronising step), the forward / backward / optimizer split (CUDA
    events), one layer's B1 and backward launches over the 8 folded
-   snapshots and their share of the step, finite losses, finite non-zero
+   snapshots (B2 also at the scaled-dot metric, and sdpa fp32's backward
+   over the fold) and their share of the step, finite losses, finite non-zero
    gradients and parameters moved after the warm-up; then one snapshot
    at full width, both backward forms against the plain backward, at the
    seeded weights and at those after the B3a+B3b steps (which sum in a
@@ -238,7 +251,11 @@ Phases, in order; any failure raises and exits non-zero:
    never), step times, split, peak memory, one layer's bf16 B3a c + B3b c
    over the folded snapshots and their share of the step, finite non-zero
    gradients, every parameter moved, and one snapshot at full width
-   against the compact plain bf16 backward under the bf16 gates; (6h)
+   against the compact plain bf16 backward under the bf16 gates, at the
+   weights the 3 steps left: the warm-up and the 3 steps run under
+   torch's deterministic algorithms, so that their sums run in a fixed
+   order, and the sha256 of the weights and of the check's inputs is
+   logged (6c logs it too); (6h)
    phase 6d with ``bf16_matmul=True`` over 6d's loaders and planned
    batches (the bf16 forms of B4c, B5c, B6c, B7a c and B7b c each exactly
    once per layer per step, the fp32 forms never): step times, split,
@@ -287,6 +304,8 @@ The last two lines are the ``{"kernels": [...]}`` record and
 ``chiprun_out/chip_smoke.json``. Exits non-zero without CUDA.
 """
 
+import contextlib
+import hashlib
 import json
 import re
 import subprocess
@@ -319,6 +338,8 @@ TOL_CSR = 2e-4
 TOL_HYB_CSR_GRAD = 1e-3
 REQUESTS, SEQS_PER_REQUEST = 3, 2
 N_MID = 1_000
+# (D, Dv) of the fp32 pair walks' checks at the sparse masks (2, 2b)
+SPARSE_DIMS = ((16, 16), (8, 8), (12, 12), (7, 3), (128, 128))
 TRAIN_STEPS = 3
 # gradients that are zero in exact arithmetic (a bias that adds one
 # constant to every score of a softmax row): fp32 noise on the card
@@ -565,11 +586,23 @@ def small_inputs(FG, G, H, N, D, Dv, metric, seed):
     return q, k, v, do, dlse, mask, scale, seeds
 
 
-def kernel_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
-    """B1 against the plain forward; returns the max abs error of out and
-    lse over live rows after checking dead rows exactly."""
+def sparse_cases(G, N, seed):
+    """`tests.test_torch_gpu.sparse_mask` on the card: the pair walks'
+    own cases (a whole tile, a tile of one pair, an empty tile between
+    walked ones, rows whose keys lie in their last walked tile, rows past
+    a list's 64 entries, dead rows and a dead query tile)."""
+    from tests.test_torch_gpu import sparse_mask
+    return torch.from_numpy(sparse_mask(G, N, seed)).to(DEV)
+
+
+def kernel_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0, sparse=False):
+    """B1 against the plain forward (at `sparse_cases` with ``sparse``);
+    returns the max abs error of out and lse over live rows after checking
+    dead rows exactly."""
     q, k, v, _, _, mask, scale, seeds = small_inputs(FG, G, H, N, D, Dv,
                                                      metric, seed)
+    if sparse:
+        mask = sparse_cases(G, N, seed)
     jlist, jcount = FG.make_block_plan(mask)
     out, lse = FG.flash_geometric_fwd_kernel(
         q, k, v, mask, jlist, jcount, metric, scale, seeds, rate)
@@ -595,11 +628,16 @@ def phase_small(FG):
     for metric in FG.MXU_METRICS:
         for rate in (0.0, 0.1):
             errs.append(kernel_vs_plain(FG, 2, 3, 150, 16, 8, metric, rate))
+            errs.append(kernel_vs_plain(FG, 2, 4, 1000, 16, 16, metric, rate,
+                                        sparse=True))
     for metric, D, Dv in (("euclidean", 40, 72), ("gaussian_kernel", 128, 128),
                           ("dot_product", 7, 3)):
         errs.append(kernel_vs_plain(FG, 2, 2, 200, D, Dv, metric, 0.1, 1))
-    log(f"[2] B1 vs plain: {len(errs)} cases, max abs err {max(errs):.3e}"
-        f" (tol {TOL})")
+    for D, Dv in SPARSE_DIMS:
+        errs.append(kernel_vs_plain(FG, 1, 3, 1008, D, Dv, "gaussian_kernel",
+                                    0.1, 1, sparse=True))
+    log(f"[2] B1 vs plain: {len(errs)} cases ({len(errs) - 19} at the sparse "
+        f"masks), max abs err {max(errs):.3e} (tol {TOL})")
     return max(errs)
 
 
@@ -628,11 +666,15 @@ def kernel_errors(res):
             "B3b": max(res[False]["dk"], res[False]["dv"])}
 
 
-def backward_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
-    """B2 and B3a + B3b against the plain backward on one input; returns
-    {fused: {output: error}} (`check_backward`)."""
+def backward_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0,
+                      sparse=False):
+    """B2 and B3a + B3b against the plain backward on one input (at
+    `sparse_cases` with ``sparse``); returns {fused: {output: error}}
+    (`check_backward`)."""
     q, k, v, do, dlse, mask, scale, seeds = small_inputs(
         FG, G, H, N, D, Dv, metric, seed)
+    if sparse:
+        mask = sparse_cases(G, N, seed)
     need = metric in FG.SCALED_METRICS
     out, lse = FG.flash_geometric_forward_plain(q, k, v, mask, metric, scale,
                                                 rate, seeds)
@@ -655,14 +697,20 @@ def phase_small_bwd(FG):
     for metric in FG.MXU_METRICS:
         for rate in (0.0, 0.1):
             errs.append(backward_vs_plain(FG, 2, 3, 150, 16, 8, metric, rate))
+            errs.append(backward_vs_plain(FG, 2, 4, 1000, 16, 16, metric,
+                                          rate, sparse=True))
     for D, Dv in ((7, 3), (40, 72), (128, 128)):
         errs.append(backward_vs_plain(FG, 2, 2, 200, D, Dv, "gaussian_kernel",
                                       0.1, 1))
+    for D, Dv in SPARSE_DIMS:
+        errs.append(backward_vs_plain(FG, 1, 3, 1008, D, Dv,
+                                      "gaussian_kernel", 0.1, 1, sparse=True))
     out = {name: max(kernel_errors(e)[name] for e in errs)
            for name in ("B2", "B3a", "B3b")}
-    log(f"[2b] backward vs plain: {len(errs)} cases; max err B2 (dq, dk, dv, "
-        f"dscale) {out['B2']:.3e}, B3a (dq, dscale) {out['B3a']:.3e}, B3b "
-        f"(dk, dv) {out['B3b']:.3e} (tol {TOL})")
+    log(f"[2b] backward vs plain: {len(errs)} cases ({len(errs) - 19} at the "
+        f"sparse masks); max err B2 (dq, dk, dv, dscale) {out['B2']:.3e}, B3a "
+        f"(dq, dscale) {out['B3a']:.3e}, B3b (dk, dv) {out['B3b']:.3e} (tol "
+        f"{TOL})")
     return out
 
 
@@ -1120,7 +1168,7 @@ def phase_serve(tt, FG, bf16=False):
     log(f"[{tag}] one layer's launch over the {G} folded snapshots: "
         f"{layer_ms:.3f} ms; {cfg.num_layers} layers = {share:.3f} of the "
         f"forward")
-    fold = fold_times_b1(fwd, folded, ones, seeds) if bf16 else None
+    fold = fold_times_b1(fwd, folded, ones, seeds, bf16)
     del folded
     if bf16:
         gates = max(bf16_gates("full-width out", out, p_out, f_out),
@@ -1144,39 +1192,46 @@ def phase_serve(tt, FG, bf16=False):
                 sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
 
 
-def fold_times_b1(fwd, folded, ones, seeds):
-    """[5g] B1's bf16 form at the grid its path launches, one layer's G
-    folded snapshots of 3e's request, per snapshot: at the model's
-    euclidean metric and at the scaled-dot metric, beside
-    ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask
-    over the same fold (the same function there), held to it within
-    FLEX_BF16_TOL on the rows with a valid key."""
+def fold_times_b1(fwd, folded, ones, seeds, bf16):
+    """[5] and with ``bf16`` [5g]: B1 (its bf16 form with ``bf16``) at the
+    grid its path launches, one layer's G folded snapshots of 3's (3e's)
+    request, per snapshot: at the model's euclidean metric and at the
+    scaled-dot metric, beside ``scaled_dot_product_attention`` with the
+    boolean mask over the same fold (the same function there) on fp32 q,
+    k, v (bf16 with ``bf16``). The bf16 library call is held to B1 bf16
+    within FLEX_BF16_TOL on the rows with a valid key; the fp32 one is
+    held to B1 within TOL there, else its time is recorded as null with
+    the reason."""
     G = folded[0].shape[0]
     sdp = "scaled_dot_product"
-    bq, bk, bv = (t.bfloat16() for t in folded[:3])
+    tag, name = ("5g", "B1 bf16") if bf16 else ("5", "B1")
+    lq, lk, lv = (t.bfloat16() if bf16 else t for t in folded[:3])
     bmask = folded[3][:, None] != 0
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.inference_mode():
         ms = cuda_ms(lambda: fwd(*folded[:6], "euclidean", ones, seeds,
                                  0.0), 10)
         sdp_ms = cuda_ms(lambda: fwd(*folded[:6], sdp, ones, seeds, 0.0), 10)
-        lib_ms = cuda_ms(lambda: sdpa(bq, bk, bv, attn_mask=bmask), 10)
+        lib_ms = cuda_ms(lambda: sdpa(lq, lk, lv, attn_mask=bmask), 10)
         out = fwd(*folded[:6], sdp, ones, seeds, 0.0)[0]
-        ref = sdpa(bq, bk, bv, attn_mask=bmask).float()
+        ref = sdpa(lq, lk, lv, attn_mask=bmask).float()
         live = bmask.any(-1).expand(-1, out.shape[1], -1)
         err = rel_err(out[live], ref[live])
-    del bq, bk, bv, bmask, out, ref
-    res = dict(G=G, ms=ms / G, sdp_ms=sdp_ms / G, library_ms=lib_ms / G,
-               library_err=err)
-    log(f"[5g] B1 bf16 over the {G} folded snapshots of 3e's layer, per "
-        f"snapshot: euclidean {res['ms']:.5f} ms, scaled-dot "
-        f"{res['sdp_ms']:.5f} ms; sdpa bf16 over the same fold "
-        f"{res['library_ms']:.5f} ms a snapshot, {err:.3e} from B1 bf16 at "
-        f"the scaled-dot metric")
-    if not err <= FLEX_BF16_TOL:
+    del lq, lk, lv, bmask, out, ref
+    tol = FLEX_BF16_TOL if bf16 else TOL
+    if bf16 and not err <= tol:
         raise AssertionError(f"sdpa on bf16 inputs differs from B1 bf16 at "
-                             f"the scaled-dot metric: {err} > "
-                             f"{FLEX_BF16_TOL}")
+                             f"the scaled-dot metric: {err} > {tol}")
+    error = None if err <= tol else \
+        f"sdpa fp32 differs from B1 at the scaled-dot metric: {err} > {tol}"
+    res = dict(G=G, ms=ms / G, sdp_ms=sdp_ms / G,
+               library_ms=None if error else lib_ms / G, library_err=err,
+               library_error=error)
+    log(f"[{tag}] {name} over the {G} folded snapshots of the layer, per "
+        f"snapshot: euclidean {res['ms']:.5f} ms, scaled-dot "
+        f"{res['sdp_ms']:.5f} ms; sdpa {'bf16' if bf16 else 'fp32'} over the "
+        f"same fold {lib_ms / G:.5f} ms a snapshot, {err:.3e} from {name} at "
+        f"the scaled-dot metric" + (f" ({error})" if error else ""))
     return res
 
 
@@ -1537,8 +1592,9 @@ def phase_times(FG, args):
         f"the same metric {k_sdp:.4f})")
     log(f"[5] B1 bound {res['bound_ms']:.5f} ms by {res['bound_by']} "
         f"({nbytes} bytes, {res['flops']} flops over {pairs} valid pairs); "
-        f"the walk visits {walk_pairs} pairs = {res['walk_flops_ms']:.5f} ms "
-        f"of fp32 math at peak")
+        f"the plan's 64 x 64 tiles hold {walk_pairs} pairs = "
+        f"{res['walk_flops_ms']:.5f} ms of fp32 math at peak (a dense tile "
+        f"walk's work; the pair walk computes the valid pairs alone)")
     res["bwd"] = backward_times(FG, args, out, lse, pairs)
     return res
 
@@ -1557,7 +1613,7 @@ def backward_times(FG, args, out, lse, pairs):
     common = (q, k, v, mask, do, lse, delta)
 
     def b2():
-        FG.flash_geometric_bwd_fused_kernel(*common, ilist, icount,
+        FG.flash_geometric_bwd_fused_kernel(*common, jlist, jcount,
                                             "euclidean", ones, seed0, 0.0,
                                             False)
 
@@ -1589,11 +1645,22 @@ def backward_times(FG, args, out, lse, pairs):
         with torch.no_grad():
             sdpa(*leaves, attn_mask=bmask)
 
+    # B2 at the scaled-dot metric, on B1's out and lse there
+    sdp = "scaled_dot_product"
+    with torch.no_grad():
+        out_s, lse_s = FG.flash_geometric_fwd_kernel(
+            q, k, v, mask, jlist, jcount, sdp, ones, seed0, 0.0)
+    sdp_args = (q, k, v, mask, do, lse_s, (do * out_s).sum(-1), jlist,
+                jcount, sdp, ones, seed0, 0.0, False)
+
     p1 = cuda_ms(plain, 3)
     f1, s1 = cuda_ms(b2, 10), cuda_ms(b3, 10)
     s2, f2 = cuda_ms(b3, 10), cuda_ms(b2, 10)
     p2 = cuda_ms(plain, 3)
     ta, tb = cuda_ms(b3a, 10), cuda_ms(b3b, 10)
+    f_sdp = cuda_ms(lambda: FG.flash_geometric_bwd_fused_kernel(*sdp_args),
+                    10)
+    del out_s, lse_s, sdp_args
     lib = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
     HN = G * H * N
     reads = (4 * HN * (2 * D + 2 * Dv) + 8 * HN          # q k v do lse delta
@@ -1601,17 +1668,18 @@ def backward_times(FG, args, out, lse, pairs):
     plan_b = 4 * (jlist.numel() + jcount.numel())
     plan_tb = 4 * (ilist.numel() + icount.numel())
     res = {
-        "B2": dict(ms=[f1, f2], **bound(
-            reads + plan_tb + 4 * HN * (2 * D + Dv),
+        "B2": dict(ms=[f1, f2], sdp_ms=f_sdp, **bound(
+            reads + plan_b + 4 * HN * (2 * D + Dv),
             2 * H * pairs * (3 * D + 2 * Dv))),
         "B3a": dict(ms=[ta], **bound(reads + plan_b + 4 * HN * D,
                                      2 * H * pairs * (2 * D + Dv))),
         "B3b": dict(ms=[tb], **bound(reads + plan_tb + 4 * HN * (D + Dv),
                                      2 * H * pairs * (2 * D + 2 * Dv))),
         "B3a+B3b_ms": [s1, s2], "plain_ms": [p1, p2], "library_ms": lib}
-    log(f"[5] backward, one snapshot: B2 ms {f1:.4f} {f2:.4f}; B3a+B3b ms "
-        f"{s1:.4f} {s2:.4f} (B3a {ta:.4f}, B3b {tb:.4f}); plain ms {p1:.4f} "
-        f"{p2:.4f}; sdpa backward ms {lib:.4f}")
+    log(f"[5] backward, one snapshot: B2 ms {f1:.4f} {f2:.4f} (at the "
+        f"scaled-dot metric {f_sdp:.4f}); B3a+B3b ms {s1:.4f} {s2:.4f} (B3a "
+        f"{ta:.4f}, B3b {tb:.4f}); plain ms {p1:.4f} {p2:.4f}; sdpa backward "
+        f"ms {lib:.4f}")
     for name in ("B2", "B3a", "B3b"):
         r = res[name]
         log(f"[5] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
@@ -1798,11 +1866,13 @@ DENSITY_DEGREES = (16, 256, 2048)
 def density_sweep(FG, f32, bf16, H, N, D, Dv):
     """[5g] B1 bf16 (the pair walk) at one snapshot of N nodes whose rows
     hold `DENSITY_DEGREES` uniform random keys (and their diagonal),
-    beside the fp32 B1 (the dense template) and
-    ``scaled_dot_product_attention`` on bf16 q, k, v with the boolean mask,
-    on the same inputs; B1 bf16 held to the plain bf16 version under the
-    bf16 gates. B4 bf16 and B2 bf16 (the other pair walks) on the same
-    inputs, held to their plain bf16 versions likewise, and the bf16
+    beside B1 (the fp32 pair walk) and ``scaled_dot_product_attention``
+    on bf16 and on fp32 q, k, v with the boolean mask, on the same
+    inputs; B1 bf16 held to the plain bf16 version under the bf16 gates,
+    B1 to the plain fp32 version within TOL. B4 bf16 and B2 bf16 (the
+    other pair walks) on the same inputs, held to their plain bf16
+    versions likewise, B2 (fp32) to the plain fp32 backward within TOL
+    beside sdpa fp32's backward, and the bf16
     biased backward's row walk and key walk on B4 bf16's lse1 and B5
     bf16's out and lse2 with a N(0, 1) bias at the mask's pairs, held to
     the plain bf16 biased backward. Times are recorded, not gated."""
@@ -1836,10 +1906,12 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
             a16, a32 = cuda_ms(call(bf16), 10), cuda_ms(call(f32), 5)
             b32, b16 = cuda_ms(call(f32), 5), cuda_ms(call(bf16), 10)
             lib = cuda_ms(lambda: sdpa(bq, bk, bv, attn_mask=bmask), 10)
+            lib32 = cuda_ms(lambda: sdpa(q, k, v, attn_mask=bmask), 10)
             out, lse = call(bf16)()
+            out32, lse32 = call(f32)()
             p_out, p_lse = FG.flash_geometric_forward_plain(
                 q, k, v, mask, "euclidean", ones, 0.0, seed0, True, plan)
-            f_out, _ = FG.flash_geometric_forward_plain(
+            f_out, f_lse = FG.flash_geometric_forward_plain(
                 q, k, v, mask, "euclidean", ones, 0.0, seed0)
             b4_ms = cuda_ms(lambda: b4(q, k, mask, *plan, "euclidean", ones),
                             10)
@@ -1851,6 +1923,9 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
                    seed0, 0.0, False)
             b2_ms = cuda_ms(lambda: b2(*bwd), 10)
             grads = b2(*bwd)[:3]
+            b2_32 = FG.flash_geometric_bwd_fused_kernel
+            b2_32_ms = cuda_ms(lambda: b2_32(*bwd), 10)
+            grads32 = b2_32(*bwd)[:3]
             p_grads = FG.flash_geometric_backward_plain(
                 q, k, v, mask, p_out, p_lse, do, "euclidean", ones, 0.0,
                 seed0, False, None, True)[:3]
@@ -1877,6 +1952,13 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
                                            *bcommon, "euclidean", ones,
                                            seeds2, 0.0, False, True)
             del bias, out5, lse2, bcommon, d1, got
+        # sdpa fp32's backward (forward+backward - forward)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib32_b = cuda_ms(lambda: torch.autograd.grad(
+            sdpa(*leaves, attn_mask=bmask), leaves, do), 5)
+        with torch.no_grad():
+            lib32_b -= cuda_ms(lambda: sdpa(*leaves, attn_mask=bmask), 5)
+        del leaves
         gates = max(bf16_gates(f"degree {deg} out", out, p_out, f_out),
                     bf16_gates(f"degree {deg} lse", lse, p_lse, p_lse,
                                witness=False))
@@ -1885,17 +1967,29 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
         gates2 = max(bf16_gates(f"degree {deg} {n}", g, w, f)
                      for n, g, w, f in zip(("dq", "dk", "dv"), grads,
                                            p_grads, f_grads))
+        live = f_lse < FG.LSE_DEAD
+        err32 = max(rel_err(out32, f_out), rel_err(lse32[live], f_lse[live]))
+        err2_32 = max(rel_err(g, w) for g, w in zip(grads32, f_grads))
+        if not (err32 <= TOL and err2_32 <= TOL):
+            raise AssertionError(f"degree {deg}: fp32 walks vs plain fp32: "
+                                 f"B1 {err32}, B2 {err2_32} > {TOL}")
         pairs = int(bmask.sum().item())
         res[deg] = dict(ms=[a16, b16], fp32_ms=[a32, b32], library_ms=lib,
+                        fp32_library_ms=lib32, fp32_err=err32,
                         valid_pairs=pairs, gates=gates, b4_ms=b4_ms,
                         b4_gates=gates4, b2_ms=b2_ms, b2_gates=gates2,
+                        b2_fp32_ms=b2_32_ms, b2_fp32_err=err2_32,
+                        b2_fp32_library_ms=lib32_b,
                         row_walk_ms=row_ms, key_walk_ms=key_ms,
                         walk_gates=walk_gates)
         log(f"[5g] density: N={N}, degree {deg} ({pairs} valid pairs, "
             f"{int(plan[1].sum().item())} walked tiles): B1 bf16 ms "
-            f"{a16:.4f} {b16:.4f}, fp32 B1 (dense template) ms {a32:.4f} "
-            f"{b32:.4f}, sdpa bf16 ms {lib:.4f}; B4 bf16 ms {b4_ms:.4f}, B2 "
-            f"bf16 ms {b2_ms:.4f}, biased backward row walk ms {row_ms:.4f}, "
+            f"{a16:.4f} {b16:.4f}, B1 (fp32 walk) ms {a32:.4f} {b32:.4f}, "
+            f"sdpa bf16 ms {lib:.4f}, sdpa fp32 ms {lib32:.4f}; B4 bf16 ms "
+            f"{b4_ms:.4f}, B2 bf16 ms {b2_ms:.4f}, B2 (fp32 walk) ms "
+            f"{b2_32_ms:.4f}, sdpa fp32 backward ms {lib32_b:.4f}; fp32 walks "
+            f"vs plain fp32 B1 {err32:.3e}, B2 {err2_32:.3e}; biased backward "
+            f"row walk ms {row_ms:.4f}, "
             f"key walk ms {key_ms:.4f}; vs plain bf16 (max abs err, max err, "
             f"mean err, witness) B1 {tuple(f'{x:.3e}' for x in gates)}, B4 "
             f"{tuple(f'{x:.3e}' for x in gates4)}, B2 "
@@ -1903,6 +1997,7 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
             + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
                         for n, r in walk_gates.items()))
         del mask, bmask, plan, out, p_out, f_out, grads, p_grads, f_grads
+        del out32, lse32, grads32, f_lse
     return res
 
 
@@ -2397,6 +2492,34 @@ def step_split(trainer, b, y, m):
     return splits
 
 
+@contextlib.contextmanager
+def fixed_order(on=True):
+    """With ``on``: torch's deterministic algorithms (index_add_,
+    scatter_add_ and the gathers' backward sum in a fixed order; an
+    operation with no such form warns), uninitialised memory left
+    unfilled so that nothing else changes."""
+    if not on:
+        yield
+        return
+    det = torch.utils.deterministic
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order (the first 16 hex digits)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def check_grads(model):
     """Names of the parameters whose gradient is missing, not finite, or
     zero where it is not zero in exact arithmetic."""
@@ -2513,24 +2636,37 @@ def phase_train(tt, FG, bf16=False):
                          generator=torch.Generator(device=DEV).manual_seed(6))
         delta = (do * out).sum(-1)
         common = (q, k, v, mask, do, lse, delta)
-        # B2's bf16 form is a pair walk over the forward plan
-        walk = (jlist, jcount) if bf16 else (ilist, icount)
-        fold_b2 = cuda_ms(lambda: b2(*common, *walk, "euclidean", ones,
-                                     seeds, 0.0, False), 3)
+        # B2 is a pair walk over the forward plan
+        fold_b2 = cuda_ms(lambda: b2(*common, jlist, jcount, "euclidean",
+                                     ones, seeds, 0.0, False), 3)
         fold_b3 = cuda_ms(lambda: (
             b3a(*common, jlist, jcount, "euclidean", ones, seeds, 0.0, False),
             b3b(*common, ilist, icount, "euclidean", ones, seeds, 0.0)), 3)
-        fold_b2_sdp = None
-        if bf16:
-            # [5g] B2 bf16 at the scaled-dot metric over the same fold, on
-            # B1 bf16's out and lse there
-            sdp = "scaled_dot_product"
-            out_s, lse_s = b1(q, k, v, mask, jlist, jcount, sdp, ones,
-                              seeds, 0.0)
-            sdp_args = (q, k, v, mask, do, lse_s, (do * out_s).sum(-1),
-                        jlist, jcount, sdp, ones, seeds, 0.0, False)
-            fold_b2_sdp = cuda_ms(lambda: b2(*sdp_args), 10)
-            del out_s, lse_s, sdp_args
+        # [5] / [5g] B2 at the scaled-dot metric over the same fold, on
+        # B1's out and lse there
+        sdp = "scaled_dot_product"
+        out_s, lse_s = b1(q, k, v, mask, jlist, jcount, sdp, ones, seeds,
+                          0.0)
+        sdp_args = (q, k, v, mask, do, lse_s, (do * out_s).sum(-1),
+                    jlist, jcount, sdp, ones, seeds, 0.0, False)
+        fold_b2_sdp = cuda_ms(lambda: b2(*sdp_args), 10)
+        del out_s, lse_s, sdp_args
+    fold_lib = None
+    if not bf16:
+        # [5] sdpa fp32's backward over the same fold (forward+backward -
+        # forward), with the boolean mask
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        bmask = mask[:, None] != 0
+
+        def lib_fb():
+            torch.autograd.grad(sdpa(*leaves, attn_mask=bmask), leaves, do)
+
+        def lib_f():
+            with torch.no_grad():
+                sdpa(*leaves, attn_mask=bmask)
+        fold_lib = cuda_ms(lib_fb, 3) - cuda_ms(lib_f, 3)
+        del leaves, bmask
     fold = {True: fold_b2, False: fold_b3}[default]
     step = min(runs[default]["step_ms"])
     share = cfg.num_layers * (fold_b1 + fold) / step
@@ -2538,8 +2674,9 @@ def phase_train(tt, FG, bf16=False):
         f"{fold_b1:.3f} ms; backward B2 {fold_b2:.3f} ms, B3a+B3b "
         f"{fold_b3:.3f} ms; {cfg.num_layers} layers' B1 and "
         f"{'B2' if default else 'B3a+B3b'} = {share:.3f} of the fastest step "
-        f"({step:.3f} ms)" + (f"; B2 bf16 at the scaled-dot metric over the "
-                               f"fold {fold_b2_sdp:.3f} ms" if bf16 else ""))
+        f"({step:.3f} ms); B2 at the scaled-dot metric over the fold "
+        f"{fold_b2_sdp:.3f} ms" + ("" if bf16 else f", sdpa fp32's backward "
+                                   f"over the fold {fold_lib:.3f} ms"))
 
     # one snapshot at full width, at the seeded and the trained weights:
     # both forms against the plain backward
@@ -2605,8 +2742,9 @@ def phase_train(tt, FG, bf16=False):
     return dict(pack_s=pack_s, runs={str(k): v for k, v in runs.items()},
                 default_fused=default, moved=moved, split_ms=splits,
                 fold_b1_ms=fold_b1, fold_b2_ms=fold_b2, fold_b3_ms=fold_b3,
-                fold_b2=dict(G=G, ms=fold_b2 / G, sdp_ms=(
-                    None if fold_b2_sdp is None else fold_b2_sdp / G)),
+                fold_b2=dict(G=G, ms=fold_b2 / G, sdp_ms=fold_b2_sdp / G,
+                             library_ms=(None if fold_lib is None
+                                         else fold_lib / G)),
                 kernel_share_of_step=share, full_err=full, peak_gb=peak_gb,
                 check_input_sums=sums, bf16_nudge_noise=noise,
                 launches={f: runs[f]["launches"] for f in runs})
@@ -3979,24 +4117,42 @@ def phase_train_hybrid(tt, FG, bf16=False, data=None):
             f"loaders and their planned batches (bucket pin "
             f"{loader.plan_pins})")
     trainer = tt.TAGANTrainer(model, exp)
-    trainer.train(warm, verbose=False)
-    sync()
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    # 6g's check runs at the weights these steps leave, where the plain
+    # bf16 backward's roundings flip with any change of its inputs: the
+    # residual's segment sums (index_add_) and the gathers' backward then
+    # sum in a fixed order, so that its inputs are the same in every run
+    with fixed_order(bf16):
+        trainer.train(warm, verbose=False)
+        sync()
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
-    held_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(FG)
-    t0 = time.perf_counter()
-    res = trainer.train(loader, verbose=False)
-    sync()
-    epoch_ms = (time.perf_counter() - t0) * 1e3
-    launched = counts(FG)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
-    want = {k.name: 0 for k in FG.KERNELS}
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(FG)
+        t0 = time.perf_counter()
+        res = trainer.train(loader, verbose=False)
+        sync()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        launched = counts(FG)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+        no_grad = check_grads(model)
+        # the full-width check's inputs: layer 0 of the first batch at the
+        # weights the measured steps left
+        b, y, m = batches[0]
+        trainer.optimizer.zero_grad()
+        q, k, v, store, plan, plan_t, rs, out, lse, do, dlse = \
+            hybrid_layer0_bwd(FG, model, b.to(DEV), bf16)
+        sync()
+    digests = dict(weights=digest(p for _, p in model.named_parameters()),
+                   check_inputs=digest((q[:1], k[:1], v[:1], out[:1],
+                                        lse[:1], do[:1], dlse[:1])))
+    log(f"[{tag}] sha256 of the trained weights and of the full-width "
+        f"check's inputs{' (steps in a fixed order)' if bf16 else ''}: "
+        f"{digests}")
+    want = {k_.name: 0 for k_ in FG.KERNELS}
     for kern in kerns:
         want[kern.name] = cfg.num_layers * TRAIN_STEPS
     losses = res["history"]["train_loss"]
-    no_grad = check_grads(model)
     still = [n for n, p in model.named_parameters()
              if torch.equal(p.detach(), before[n])]
     moved = len(before) - len(still)
@@ -4018,7 +4174,6 @@ def phase_train_hybrid(tt, FG, bf16=False, data=None):
         raise AssertionError(f"parameters not moved: {still}")
 
     step_ms = step_times(trainer, batches)
-    b, y, m = batches[0]
     splits = step_split(trainer, b, y, m)
     log(f"[{tag}] step ms (host clock, synchronised) "
         f"{[round(x, 3) for x in step_ms]}; split (CUDA events) forward / "
@@ -4026,9 +4181,6 @@ def phase_train_hybrid(tt, FG, bf16=False, data=None):
         f"{[[round(x, 3) for x in s] for s in splits]}")
 
     # one layer's compact launches over the batch's folded snapshots
-    trainer.optimizer.zero_grad()
-    q, k, v, store, plan, plan_t, rs, out, lse, do, dlse = \
-        hybrid_layer0_bwd(FG, model, b.to(DEV), bf16)
     G, H = q.shape[:2]
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(G, dtype=torch.int32, device=DEV)
@@ -4084,7 +4236,8 @@ def phase_train_hybrid(tt, FG, bf16=False, data=None):
                 pins={str(k): v for k, v in loader.plan_pins.items()},
                 epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
                 loss=losses, launches=launched, peak_memory_gb=peak_gb,
-                held_gb=held_gb, moved=moved, fold_b1c_ms=fold_fwd,
+                held_gb=held_gb, moved=moved, digests=digests,
+                fold_b1c_ms=fold_fwd,
                 fold_b3c_ms=fold_bwd, b3c_share_of_step=share, full_err=full,
                 args=(*one, plan1, plan_t1, res1, o1, l1, do1, dl1))
 
@@ -5652,21 +5805,31 @@ def main() -> int:
     # it is the plain version of each backward kernel, and its time is
     # that of the whole backward, not of B3a's or B3b's share
     plain_of = "flash_geometric_backward_plain (dq, dk and dv)"
+    # B1 and B2 (pair walks since PR 16): the one-snapshot times of 5
+    # beside sdpa fp32, and the folds of 3 and 6 (timed there)
     kernels = [
-        kernel_record(FG, FG.flash_geometric_fwd_kernel,
-                      "flash_geometric_fwd.cu", 259, serve["launches"],
-                      max(small_err, serve["full_err"]),
-                      min(times["kernel_ms"]), min(times["plain_ms"]),
-                      "flash_geometric_forward_plain", times,
-                      times["library_ms"]),
+        dict(kernel_record(FG, FG.flash_geometric_fwd_kernel,
+                           "flash_pairwalk_fwd.cu", 259, serve["launches"],
+                           max(small_err, serve["full_err"]),
+                           min(times["kernel_ms"]), min(times["plain_ms"]),
+                           "flash_geometric_forward_plain", times,
+                           times["library_ms"]),
+             library_of="scaled_dot_product_attention on fp32 q, k, v with "
+                        "the boolean mask",
+             **pairwalk_fields(dict(times, sdp_ms=times["kernel_sdp_ms"]),
+                               serve["fold"])),
     ] + [
-        kernel_record(FG, kern, source, line, launches[kern.name],
-                      max(small_bwd[name], train["full_err"][name]),
-                      min(bwd[name]["ms"]), plain_bwd, plain_of, bwd[name],
-                      bwd["library_ms"])
+        dict(kernel_record(FG, kern, source, line, launches[kern.name],
+                           max(small_bwd[name], train["full_err"][name]),
+                           min(bwd[name]["ms"]), plain_bwd, plain_of,
+                           bwd[name], bwd["library_ms"]),
+             library_of="scaled_dot_product_attention on fp32 q, k, v with "
+                        "the boolean mask, forward+backward - forward",
+             **(pairwalk_fields(dict(bwd[name], library_ms=bwd["library_ms"]),
+                                train["fold_b2"]) if name == "B2" else {}))
         for name, kern, source, line in (
             ("B2", FG.flash_geometric_bwd_fused_kernel,
-             "flash_geometric_bwd_fused.cu", 1590),
+             "flash_pairwalk_bwd.cu", 1590),
             ("B3a", FG.flash_geometric_bwd_dq_kernel,
              "flash_geometric_bwd.cu", 1455),
             ("B3b", FG.flash_geometric_bwd_dkv_kernel,

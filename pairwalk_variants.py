@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the bf16 pair walks, B1's (``tagan_torch/csrc/flash_pairwalk_fwd.cu``),
-B2's (``flash_pairwalk_bwd.cu``) and the bf16 biased backward's row walk
-and key walk (``flash_pairwalk_biased_bwd.cu``), against copies of their
-sources with one design constant changed, on one NVIDIA GPU, to see what
-bounds them:
+"""Time the pair walks, B1 and B1 bf16
+(``tagan_torch/csrc/flash_pairwalk_fwd.cu``), B2 and B2 bf16
+(``flash_pairwalk_bwd.cu``) and the bf16 biased backward's
+row walk and key walk (``flash_pairwalk_biased_bwd.cu``), against copies
+of their sources with one design constant changed, on one NVIDIA GPU, to
+see what bounds them:
 
     python3 pairwalk_variants.py
 
@@ -15,7 +16,9 @@ the flush removed (the walk then only streams the mask and lists the
 pairs; its output is not the function), for B2 its dk and dv
 atomics removed (likewise), and for the key walk each warp reading its
 keys' R-byte pieces of the mask tile's 64 rows instead of the block
-copying the whole tile (KEY_PIECES). The copies are built beside the
+copying the whole tile (KEY_PIECES). The fp32 walks, B1 and B2, take
+the flush's removal (their split into the mask stream and the pairs'
+work) and for B2 the atomics' removal. The copies are built beside the
 source into
 ``tagan_torch/_build/`` and timed in turns (base first and last) with
 CUDA events, per snapshot, on uniform random graphs of 10,000 nodes:
@@ -45,14 +48,15 @@ EDITS = {
         unroll1=("constexpr int UNROLL = 2;", "constexpr int UNROLL = 1;"),
         unroll4=("constexpr int UNROLL = 2;", "constexpr int UNROLL = 4;"),
         **NST, noflush=(
-            "    flush<kMode>(a, it, sm.lists + rl * CAPR, it.on ? "
-            "sm.rowcnt[rl] : 0,\n                 zbuf);\n", "")),
+            "    flush<kMode, kBf16>(a, it, sm.lists + rl * CAPR,\n"
+            "                        it.on ? sm.rowcnt[rl] : 0, zbuf);\n",
+            "")),
     "flash_pairwalk_bwd": dict(
         unroll2=("constexpr int UNROLL = 1;", "constexpr int UNROLL = 2;"),
         unroll4=("constexpr int UNROLL = 1;", "constexpr int UNROLL = 4;"),
         **NST, noflush=(
-            "    flush(a, it, sm.lists + rl * CAPR, it.on ? sm.rowcnt[rl] : "
-            "0);\n", ""),
+            "    flush<kBf16>(a, it, sm.lists + rl * CAPR, it.on ? "
+            "sm.rowcnt[rl] : 0);\n", ""),
         noatomics=("float w, bool vec) {\n",
                    "float w, bool vec) {\n  return;\n")),
     "flash_pairwalk_biased_bwd": dict(
@@ -64,7 +68,8 @@ EDITS = {
                 "constexpr bool KEY_PIECES = true;")),
 }
 # the variants timed for each walk (all of its source's by default)
-WALK_VARIANTS = {"row walk": ("noflush_row",),
+WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
+                 "row walk": ("noflush_row",),
                  "key walk": ("noflush_key", "pieces")}
 
 
@@ -122,7 +127,9 @@ def main() -> int:
         return 1
     csrc = Path(FG.__file__).resolve().parent.parent / "csrc"
     header = (csrc / "flash_pairwalk.cuh").read_text()
-    walks = {"B1 bf16": FG.flash_geometric_fwd_bf16_kernel,
+    walks = {"B1": FG.flash_geometric_fwd_kernel,
+             "B1 bf16": FG.flash_geometric_fwd_bf16_kernel,
+             "B2": FG.flash_geometric_bwd_fused_kernel,
              "B2 bf16": FG.flash_geometric_bwd_fused_bf16_kernel,
              "row walk": FG.flash_biased_bwd_row_bf16_kernel,
              "key walk": FG.flash_biased_bwd_key_bf16_kernel}
@@ -177,10 +184,10 @@ def main() -> int:
                       (do * out2).sum(-1))
             delta1 = walks["row walk"](*common, jlist, jcount, "euclidean",
                                        ones, seeds, 0.0, False)[0]
-        args = {"B1 bf16": (q, k, v, mask, jlist, jcount, "euclidean", ones,
-                            seed, 0.0),
-                "B2 bf16": (q, k, v, mask, do, lse, delta, jlist, jcount,
-                            "euclidean", ones, seed, 0.0, False),
+        fwd = (q, k, v, mask, jlist, jcount, "euclidean", ones, seed, 0.0)
+        bwd = (q, k, v, mask, do, lse, delta, jlist, jcount, "euclidean",
+               ones, seed, 0.0, False)
+        args = {"B1": fwd, "B1 bf16": fwd, "B2": bwd, "B2 bf16": bwd,
                 "row walk": (*common, jlist, jcount, "euclidean", ones,
                              seeds, 0.0, False),
                 "key walk": (*common, delta1, ilist, icount, "euclidean",
@@ -195,7 +202,7 @@ def main() -> int:
                         lambda: kern(*args[w])) / G, 5))
             print(f"{w}, {label}: ms a snapshot {res}", flush=True)
         del q, k, v, do, mask, out, lse, delta, bias, lse1, out2, lse2
-        del common, delta1, args
+        del common, delta1, args, fwd, bwd
     return 0
 
 

@@ -1,12 +1,12 @@
 // Device helpers shared by the flash geometric attention kernels:
-// flash_geometric_fwd.cu (forward), flash_geometric_bwd.cuh (two-walk
-// backward, built by flash_geometric_bwd.cu and
-// flash_geometric_bwd_compact_bf16.cu), flash_geometric_bwd_fused.cu
-// (single-walk backward), the edge-biased flash_biased_fwd.cu and
-// flash_biased_bwd.cuh (built by flash_biased_bwd.cu and
+// flash_geometric_fwd.cu (the compact forward), flash_geometric_bwd.cuh
+// (two-walk backward, built by flash_geometric_bwd.cu and
+// flash_geometric_bwd_compact_bf16.cu), the edge-biased flash_biased_fwd.cu
+// and flash_biased_bwd.cuh (built by flash_biased_bwd.cu and
 // flash_biased_bwd_compact_bf16.cu), and the pair walks of
-// flash_pairwalk_fwd.cu (B1's, B4's and B5's bf16 forms) and
-// flash_pairwalk_bwd.cu (B2's), through flash_pairwalk.cuh.
+// flash_pairwalk_fwd.cu (B1 and B1's, B4's and B5's bf16 forms),
+// flash_pairwalk_bwd.cu (B2 and B2's bf16 form) and
+// flash_pairwalk_biased_bwd.cu, through flash_pairwalk.cuh.
 //
 // The metric scores, the dropout hash and the backward's recompute of one
 // (64-query tile, 64-key tile) pair. Every kernel takes the folded layout

@@ -1,10 +1,11 @@
-// Block-sparse edge-masked geometric attention, forward, for Hopper (sm_90a).
+// Block-sparse edge-masked geometric attention, forward, over the compact
+// occupied-block store, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel tagan_tpu/ops/pallas/flash_geometric.py::
-// _flash_kernel (host side _flash_forward), in its dense-mask form (B1),
-// its compact occupied-block form (B1c, _flash_forward with a 3-tuple
-// plan) and B1c's bf16 form (bf16=True; B1's bf16 form is the pair walk
-// of flash_pairwalk_fwd.cu):
+// _flash_kernel (host side _flash_forward) in its compact occupied-block
+// form (B1c, _flash_forward with a 3-tuple plan) and B1c's bf16 form
+// (bf16=True). The dense-mask forms, B1 and B1 bf16, are the pair walks
+// of flash_pairwalk_fwd.cu:
 // for each query row i and head h,
 //
 //     s_ij  = metric score from q_i.k_j and the row norms (8 metrics)
@@ -18,7 +19,8 @@
 // Design. One thread block per (64-row query tile, head, folded batch index
 // g); the model folds snapshots and sequences into g, so one launch serves a
 // whole attention layer. The block walks jlist[g, tile, :jcount[g, tile]],
-// the occupied 64-key blocks of its query tile, staging K and V tiles in
+// the occupied 64-key blocks of its query tile (the mask tile read from the
+// store slot jslot[g, tile, t]), staging K and V tiles in
 // shared memory and keeping the running max, sum and output accumulator in
 // registers (the online-softmax recurrence of the TPU kernel's VMEM
 // scratch). 256 threads: thread (rg, c) owns query rows 4*rg..4*rg+3, keys
@@ -40,18 +42,10 @@
 //    as in the TPU kernel. p is rounded relative to the running
 //    max after each key tile, so the result depends on the walk, as the
 //    TPU kernel's does on its block size.
-//  - The compact form (B1c) is the same walk, the mask tile read from the
-//    store slot jslot[g, tile, t] (flash_geometric_common.cuh: int8 tiles or
-//    64 uint64 row words; the TPU's interleaved byte packing is a
-//    pltpu.repeat rule and is not carried over).
-//
-// What bounds it on the H100. The work the data needs is tiny (one score per
-// edge); what the kernel moves is the dense int8 mask, N^2 bytes per
-// snapshot, so the least possible time is the mask's bytes over the memory
-// rate. But with uniformly random edges nearly every 64x64 block holds an
-// edge, so the walk computes ~N^2 scores per head: the kernel is bound by
-// fp32 issue on the CUDA cores, far above that bound. Tensor cores and a
-// walk over edges instead of blocks are the next steps.
+//  - The mask tile of each step is read from the store slot
+//    jslot[g, tile, t] (flash_geometric_common.cuh: int8 tiles or 64 uint64
+//    row words; the TPU's interleaved byte packing is a pltpu.repeat rule
+//    and is not carried over).
 //
 // The compact form at the hybrid band (131,072 nodes, a band of +-512 slots):
 // ~18 of 2,048 key tiles per row tile are occupied, and all of a walked
@@ -97,15 +91,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Ps = Vs + BN * Dv;    // [BM][PS]
   float* qn_s = Ps + BM * PS;  // [BM]
   float* kn_s = qn_s + BM;     // [BN]
-  __shared__ uint64_t mrow[BM];  // the compact forms' mask tile
+  __shared__ uint64_t mrow[BM];  // the step's mask tile
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* kg = k + gh * N * D;
   const float* vg = v + gh * N * Dv;
-  constexpr bool dense = kForm == DENSE_MASK;
-  const uint8_t* mg =
-      static_cast<const uint8_t*>(mask) + (dense ? (size_t)g * N * N : 0);
   const int row0 = ib * BM;
 
   for (int idx = tid; idx < BM * D; idx += THREADS) {
@@ -142,8 +133,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < cnt; ++t) {
     const int col0 = jl[t] * BN;
     __syncthreads();  // the previous step is done with Ks, Vs, Ps and mrow
-    if constexpr (!dense)
-      load_mask_tile<kForm>(mrow, mask, (size_t)g * S + js[t]);
+    load_mask_tile<kForm>(mrow, mask, (size_t)g * S + js[t]);
     for (int idx = tid; idx < BN * D; idx += THREADS) {
       const int r = idx / D, d = idx - r * D, gc = col0 + r;
       Ks[r * DS + d] = gc < N ? kg[(size_t)gc * D + d] : 0.f;
@@ -188,7 +178,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int b = 0; b < COLS; ++b) {
         const int lc = lane + 16 * b, gc = col0 + lc;
-        const bool ok = pair_on<kForm>(mg, mrow, N, gr, gc, lr, lc);
+        const bool ok = pair_on<kForm>(nullptr, mrow, N, gr, gc, lr, lc);
         const float val = ok ? score_of(metric, s[a][b], qn_s[lr], kn_s[lc],
                                         sc, sqrt_d)
                              : NEG_INF;
@@ -267,7 +257,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            float inv_keep, void* stream) {
   if (G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
       Dv > 16 * MAX_DV_LANES || metric < 0 || metric > COS_DIST ||
-      n_i != (N + BM - 1) / BM || W < 0 || (kForm != DENSE_MASK && S < 1))
+      n_i != (N + BM - 1) / BM || W < 0 || S < 1)
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
   const size_t smem =
@@ -290,20 +280,6 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 }
 
 }  // namespace
-
-// B1: the dense int8 mask [G, N, N].
-extern "C" int tagan_flash_geometric_fwd(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* jlist, const void* jcount, const void* scale,
-    const void* seed, void* out, void* lse, int G, int H, int N, int D,
-    int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
-    unsigned int keep_thresh, float inv_keep, void* stream) {
-  using namespace tagan_flash;
-  return launch<DENSE_MASK>(q, k, v, mask, jlist, jcount, jlist, scale, seed,
-                            out, lse, G, H, N, D, Dv, n_i, W, 0, metric,
-                            sqrt_d, use_dropout, keep_thresh, inv_keep,
-                            stream);
-}
 
 // B1c: the compact store of S slots per g, bits i64[G, S, 64] (packed) or
 // int8 [G, S, 64, 64], and the slot of each walk step, jslot [G, n_i, W].

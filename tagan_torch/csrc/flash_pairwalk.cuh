@@ -1,5 +1,6 @@
-// The mask walk shared by the pair walks of flash_pairwalk_fwd.cu (B1's,
-// B4's and B5's bf16 forms) and flash_pairwalk_bwd.cu (B2's bf16 form).
+// The mask walk shared by the pair walks of flash_pairwalk_fwd.cu (B1 and
+// B1's, B4's and B5's bf16 forms), flash_pairwalk_bwd.cu (B2 and B2's bf16
+// form) and flash_pairwalk_biased_bwd.cu (its row walk).
 //
 // One warp walks R rows of one 64-row query tile of one snapshot's dense
 // int8 mask [N, N] over the key tiles of its plan, jlist[g, tile, :cnt].

@@ -1,42 +1,47 @@
-// Edge-masked geometric attention, backward in bf16, as a mask-driven pair
-// walk, for Hopper (sm_90a).
+// Edge-masked geometric attention, backward, as a mask-driven pair walk,
+// for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel tagan_tpu/ops/pallas/flash_geometric.py::
 // _flash_bwd_fused_kernel (B2; host side _bwd_fused_call, public
-// flash_geometric_attention_bwd(..., fused=True)) in its dense-mask bf16
-// form (bf16=True): dq, dk, dv and d(scale) in one walk. At every valid
-// pair (i, j) and head h it computes what B3a's and B3b's bf16 forms
-// (flash_geometric_bwd.cuh, over flash_geometric_common.cuh's
-// pair_weights<..., DENSE_MASK, true>) compute per pair, and the dense
-// template's bf16 B2 computed before it:
+// flash_geometric_attention_bwd(..., fused=True)) in its dense-mask forms,
+// bf16=False and bf16=True (the template flag kBf16): dq, dk, dv and
+// d(scale) in one walk. At every valid pair (i, j) and head h it computes
+// what B3a's and B3b's forms of the same precision (flash_geometric_bwd.cuh,
+// over flash_geometric_common.cuh's pair_weights) compute per pair:
 //
-//   s  = the metric score of q_i and k_j rounded to bf16 after their fp32
-//        norms,                      p  = exp(s - lse_i),
-//   dp = drop(do_i . v_j), do and v rounded,
-//   ds = p (dp - delta_i),           W  = chain_weight_bf16(ds, ...),
-//   dq_i += rd(W) k_j,  dk_j += rd(W) q_i  (k_j and q_i rounded),
-//   dv_j += rd(drop(p)) do_i  (do_i rounded),
+//   s  = the metric score of q_i and k_j,   p  = exp(s - lse_i),
+//   dp = drop(do_i . v_j),                  ds = p (dp - delta_i),
+//   dq_i += W k_j,  dk_j += W q_i,          dv_j += drop(p) do_i,
 //
-// and for the squared-distance metrics subtracts the fp32 row and column
-// sums of W times the unrounded q_i and k_j; the scaled dot divides the dq
-// and dk sums by sqrt(d) (`chain_finish`); d(scale) sums ds s sq. The
-// dropout is the coordinate hash (keep_hash) with seed[g]. p is normalised
-// by the forward's lse, with no running max, so the result depends on no
-// walk: rows and pairs may be taken in any order.
+// with W the pair's chain weight, and for the squared-distance metrics
+// subtracts the row and column sums of W times q_i and k_j; d(scale) sums
+// ds s sq. The dropout is the coordinate hash (keep_hash) with seed[g].
+//  - fp32 (bf16=False): every operand unrounded, W = chain_weight (the
+//    scaled dot's 1/sqrt(d) inside it). The CPU's fp32 function up to the
+//    order of the sums.
+//  - bf16 (bf16=True): q and k rounded to bf16 after their fp32 norms, do,
+//    v, W (chain_weight_bf16) and drop(p) rounded as operands of their
+//    products, the row and column sums of W and the squared-distance
+//    metrics' q and k terms fp32; the scaled dot divides the dq and dk sums
+//    by sqrt(d) (`chain_finish`).
+// p is normalised by the forward's lse, with no running max, so the result
+// depends on no walk: rows and pairs may be taken in any order.
 //
 // What bounds it on the H100. As for the forward pair walks
 // (flash_pairwalk_fwd.cu): each snapshot's int8 mask is N^2 bytes (100 MB
 // at N = 10,000), read once, and the rest (q, k, v, do, lse, delta and the
 // outputs) is small beside it, so the least time is the mask's bytes over
-// the memory rate. A dense tile walk (flash_geometric_bwd_fused.cu, the
-// fp32 B2) computes all 4,096 pairs of every walked 64 x 64 tile, once per
-// head; at 16 edges a row over 10,000 nodes a tile holds ~6.5 valid pairs.
+// the memory rate. A dense tile walk computes all 4,096 pairs of every
+// walked 64 x 64 tile, once per head; at 16 edges a row over 10,000 nodes a
+// tile holds ~6.5 valid pairs.
 //
 // Design. The forward pair walk's, over the forward plan (jlist, jcount):
 // one warp is one block and one unit, R rows of one 64-row query tile for
 // a group of HG heads (R * HG <= 32), each lane one (row, head) item whose
-// rounded q_i and do_i and whose dq_i accumulator stay in its shared slots,
-// so dq needs no atomics. The mask is read once for all the group's heads
+// q_i and do_i and whose dq_i accumulator stay in its shared slots, so dq
+// needs no atomics. (The fp32 form stages them in the same fp32 slots as
+// the bf16 form, which keeps its rounded values as floats: 66 KB a warp at
+// D = Dv = 128 and H = 1.) The mask is read once for all the group's heads
 // and each row's valid columns are listed (`walk_mask`,
 // flash_pairwalk.cuh). At a flush the warp steps through the rows' lists
 // together, UNROLL entries a lane at a time, so that the gathers of all
@@ -45,23 +50,23 @@
 // dp, then k_j again (now in L1) for dq_i and dk_j. dk_j and dv_j are added
 // into zeroed fp32 outputs with atomicAdd, four floats at a time where the
 // width is a multiple of 4 (`TAGAN_VEC4_ATOMICS`), the squared-distance
-// metrics' column term folded into each pair's dk_j addend (rd(W) q_i -
-// W k_j) and the scaled dot's 1/sqrt(d) into rd(W). Unlike the forward
-// there is no per-entry buffer: each pair is finished where it is formed.
-// d(scale) is reduced over the warp's rows and added per (g, h) with
-// atomicAdd. So dk, dv and d(scale), like dq of the dense form, vary in
-// their last bits from run to run; B3a + B3b bf16 (fused=False) are the
-// deterministic form.
+// metrics' column term folded into each pair's dk_j addend (W q_i - W k_j)
+// and the bf16 scaled dot's 1/sqrt(d) into its rounded W. Unlike the
+// forward there is no per-entry buffer: each pair is finished where it is
+// formed. d(scale) is reduced over the warp's rows and added per (g, h)
+// with atomicAdd. So dk, dv and d(scale) vary in their last bits from run
+// to run; B3a + B3b (fused=False) are the deterministic form in both
+// precisions.
 //
 // Why not a transposed walk, which would keep dk_j and dv_j in registers:
 // it reads each mask row in R-byte pieces of a 64-byte tile row, ~4x the
 // mask's sectors, and the mask stream is already most of the forward
 // walk's time.
 //
-// Interface: plain C, loaded with ctypes; the same entry point and
-// arguments as the dense template's bf16 form had, but the walk is the
-// forward plan and the d(scale) partials are [G, H]. Launches on the given
-// stream, allocates nothing (dk, dv and the partials must be zeroed by the
+// Interface: plain C, loaded with ctypes; the same entry points and
+// arguments as the dense template had, but the walk is the forward plan
+// and the d(scale) partials are [G, H]. Launches on the given stream,
+// allocates nothing (dk, dv and the partials must be zeroed by the
 // caller), returns the cudaError_t of the launch.
 
 #include "flash_pairwalk.cuh"
@@ -109,7 +114,8 @@ struct Bwd {
 };
 
 // Bytes of one warp's (one block's) shared memory: the walk's, then q and
-// do (rounded) and the dq accumulator, each [width][32 lanes].
+// do (rounded in the bf16 form) and the dq accumulator, each
+// [width][32 lanes].
 __host__ __device__ inline size_t warp_bytes(int R, int D, int Dv) {
   return walk_bytes(R) + (size_t)WARP * (2 * D + Dv) * 4;
 }
@@ -149,12 +155,15 @@ __device__ __forceinline__ void add4(float* dst, float x, float y, float z,
 // The flush of a row list of n entries: every listed pair's gradients,
 // UNROLL entries a lane at a time in step across the warp (to the longest
 // list).
+template <bool kBf16>
 __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
                                       int n) {
   const bool k4 = (a.D & 3) == 0 && aligned16(a.k) && aligned16(a.dk);
   const bool v4 = (a.Dv & 3) == 0 && aligned16(a.v) && aligned16(a.dv);
   const bool sqm = is_sq_metric(a.metric);
-  const float fin = a.metric == SCALED_DOT ? 1.f / a.sqrt_d : 1.f;
+  // the bf16 forms' scaled dot divides its dk sum by sqrt(d) here; the fp32
+  // chain weight holds 1/sqrt(d) already
+  const float fin = kBf16 && a.metric == SCALED_DOT ? 1.f / a.sqrt_d : 1.f;
   const float* kg = a.k + it.gh * a.N * a.D;
   const float* vg = a.v + it.gh * a.N * a.Dv;
   float* dkg = a.dk + it.gh * a.N * a.D;
@@ -174,7 +183,7 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
       vr[u] = vg + (size_t)gc[u] * a.Dv;
       qk[u] = kn[u] = dp[u] = 0.f;
     }
-    // q.k from rounded operands and |k|^2 from the unrounded row
+    // q.k (bf16: from rounded operands) and |k|^2 from the unrounded row
     if (k4) {
       for (int d = 0; d < a.D; d += 4) {
         float4 x[UNROLL];
@@ -187,13 +196,13 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
           kn[u] += x[u].x * x[u].x;
-          qk[u] = fmaf(q0, rd<true>(x[u].x), qk[u]);
+          qk[u] = fmaf(q0, rd<kBf16>(x[u].x), qk[u]);
           kn[u] += x[u].y * x[u].y;
-          qk[u] = fmaf(q1, rd<true>(x[u].y), qk[u]);
+          qk[u] = fmaf(q1, rd<kBf16>(x[u].y), qk[u]);
           kn[u] += x[u].z * x[u].z;
-          qk[u] = fmaf(q2, rd<true>(x[u].z), qk[u]);
+          qk[u] = fmaf(q2, rd<kBf16>(x[u].z), qk[u]);
           kn[u] += x[u].w * x[u].w;
-          qk[u] = fmaf(q3, rd<true>(x[u].w), qk[u]);
+          qk[u] = fmaf(q3, rd<kBf16>(x[u].w), qk[u]);
         }
       }
     } else {
@@ -205,11 +214,11 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
           kn[u] += x[u] * x[u];
-          qk[u] = fmaf(qd, rd<true>(x[u]), qk[u]);
+          qk[u] = fmaf(qd, rd<kBf16>(x[u]), qk[u]);
         }
       }
     }
-    // do.v from rounded operands
+    // do.v (bf16: from rounded operands)
     if (v4) {
       for (int e = 0; e < a.Dv; e += 4) {
         float4 y[UNROLL];
@@ -221,10 +230,10 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
                     o2 = it.dos[(e + 2) * WARP], o3 = it.dos[(e + 3) * WARP];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          dp[u] = fmaf(o0, rd<true>(y[u].x), dp[u]);
-          dp[u] = fmaf(o1, rd<true>(y[u].y), dp[u]);
-          dp[u] = fmaf(o2, rd<true>(y[u].z), dp[u]);
-          dp[u] = fmaf(o3, rd<true>(y[u].w), dp[u]);
+          dp[u] = fmaf(o0, rd<kBf16>(y[u].x), dp[u]);
+          dp[u] = fmaf(o1, rd<kBf16>(y[u].y), dp[u]);
+          dp[u] = fmaf(o2, rd<kBf16>(y[u].z), dp[u]);
+          dp[u] = fmaf(o3, rd<kBf16>(y[u].w), dp[u]);
         }
       }
     } else {
@@ -235,7 +244,7 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
         const float oe = it.dos[e * WARP];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u)
-          dp[u] = fmaf(oe, rd<true>(y[u]), dp[u]);
+          dp[u] = fmaf(oe, rd<kBf16>(y[u]), dp[u]);
       }
     }
     // the pair's weights: wq multiplies k_j into dq_i, wk q_i into dk_j,
@@ -258,15 +267,18 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
         pd = keep ? p * a.inv_keep : 0.f;
       }
       const float ds = p * (dpv - it.delta);
-      const float w = chain_weight_bf16(a.metric, ds, s, sq, qk[u], it.sc);
+      const float w =
+          kBf16 ? chain_weight_bf16(a.metric, ds, s, sq, qk[u], it.sc)
+                : chain_weight(a.metric, ds, s, sq, qk[u], it.sc, a.sqrt_d);
       it.dsc = fmaf(ds * s, sq, it.dsc);
       it.wsum += w;
-      wq[u] = rd<true>(w);
+      wq[u] = rd<kBf16>(w);
       wk[u] = wq[u] * fin;
       wc[u] = sqm ? w : 0.f;
-      pr[u] = rd<true>(pd);
+      pr[u] = rd<kBf16>(pd);
     }
-    // dq_i += rd(W) k_j and dk_j += rd(W) q_i - [sq] W k_j: k rows again
+    // dq_i += rd(W) k_j and dk_j += rd(W) q_i - [sq] W k_j (rd the bf16
+    // form's rounding): k rows again
     if (k4) {
       for (int d = 0; d < a.D; d += 4) {
         float4 x[UNROLL];
@@ -280,10 +292,10 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
               c2 = it.dq[(d + 2) * WARP], c3 = it.dq[(d + 3) * WARP];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          c0 = fmaf(wq[u], rd<true>(x[u].x), c0);
-          c1 = fmaf(wq[u], rd<true>(x[u].y), c1);
-          c2 = fmaf(wq[u], rd<true>(x[u].z), c2);
-          c3 = fmaf(wq[u], rd<true>(x[u].w), c3);
+          c0 = fmaf(wq[u], rd<kBf16>(x[u].x), c0);
+          c1 = fmaf(wq[u], rd<kBf16>(x[u].y), c1);
+          c2 = fmaf(wq[u], rd<kBf16>(x[u].z), c2);
+          c3 = fmaf(wq[u], rd<kBf16>(x[u].w), c3);
         }
         it.dq[d * WARP] = c0;
         it.dq[(d + 1) * WARP] = c1;
@@ -306,7 +318,7 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
         const float qd = it.qs[d * WARP];
         float c = it.dq[d * WARP];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) c = fmaf(wq[u], rd<true>(x[u]), c);
+        for (int u = 0; u < UNROLL; ++u) c = fmaf(wq[u], rd<kBf16>(x[u]), c);
         it.dq[d * WARP] = c;
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u)
@@ -333,7 +345,7 @@ __device__ __forceinline__ void flush(const Bwd& a, Item& it, const int* list,
   }
 }
 
-template <bool kVec16>
+template <bool kBf16, bool kVec16>
 __global__ void __launch_bounds__(WARP)
 pairwalk_bwd_kernel(const Bwd a) {
   const int lane = threadIdx.x;
@@ -364,14 +376,14 @@ pairwalk_bwd_kernel(const Bwd a) {
   const size_t row = it.gh * a.N + it.gr;
   if (it.on) {
     const float* qr = a.q + row * a.D;
-    for (int d = 0; d < a.D; ++d) {   // the norm, then the row rounded
+    for (int d = 0; d < a.D; ++d) {   // the norm, then the row (rounded)
       const float x = qr[d];
       it.qn += x * x;
-      q_s[d * WARP + lane] = rd<true>(x);
+      q_s[d * WARP + lane] = rd<kBf16>(x);
       dq_s[d * WARP + lane] = 0.f;
     }
     const float* dor = a.dout + row * a.Dv;
-    for (int e = 0; e < a.Dv; ++e) do_s[e * WARP + lane] = rd<true>(dor[e]);
+    for (int e = 0; e < a.Dv; ++e) do_s[e * WARP + lane] = rd<kBf16>(dor[e]);
     it.lse = a.lse[row];
     it.delta = a.delta[row];
     it.sc = a.scale[h];
@@ -382,7 +394,7 @@ pairwalk_bwd_kernel(const Bwd a) {
   const int* jl = a.jlist + ((size_t)g * a.n_i + ib) * a.W;
   const uint8_t* mg = a.mask + (size_t)g * a.N * a.N;
   walk_mask<kVec16>(sm, mg, a.N, row0, R, jl, cnt, lane, [&]() {
-    flush(a, it, sm.lists + rl * CAPR, it.on ? sm.rowcnt[rl] : 0);
+    flush<kBf16>(a, it, sm.lists + rl * CAPR, it.on ? sm.rowcnt[rl] : 0);
   });
 
   if (it.on) {   // dead rows: no pair, dq = 0
@@ -392,7 +404,7 @@ pairwalk_bwd_kernel(const Bwd a) {
     for (int d = 0; d < a.D; ++d) {
       const float x = dq_s[d * WARP + lane];
       og[d] = sqm ? x - it.wsum * qr[d]
-                  : chain_finish<true>(a.metric, x, a.sqrt_d);
+                  : chain_finish<kBf16>(a.metric, x, a.sqrt_d);
     }
   }
   if (a.need_dscale) {
@@ -408,6 +420,7 @@ pairwalk_bwd_kernel(const Bwd a) {
   }
 }
 
+template <bool kBf16>
 int launch(Bwd a, int G, void* stream) {
   if (G < 0 || a.H < 0 || a.N < 0 || a.D < 1 || a.D > MAX_D || a.Dv < 1 ||
       a.Dv > MAX_D || a.metric < 0 || a.metric > COS_DIST ||
@@ -420,8 +433,8 @@ int launch(Bwd a, int G, void* stream) {
   const size_t smem = warp_bytes(a.R, a.D, a.Dv);
   const bool vec16 = a.N % 16 == 0 &&
                      (reinterpret_cast<uintptr_t>(a.mask) & 15) == 0;
-  const auto kern = vec16 ? pairwalk_bwd_kernel<true>
-                          : pairwalk_bwd_kernel<false>;
+  const auto kern = vec16 ? pairwalk_bwd_kernel<kBf16, true>
+                          : pairwalk_bwd_kernel<kBf16, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -433,6 +446,42 @@ int launch(Bwd a, int G, void* stream) {
 }
 
 }  // namespace
+
+// B2: dq [G, H, N, D], dk [G, H, N, D] and dv [G, H, N, Dv]
+// (both summed into the caller's zeroed buffers) and, with need_dscale,
+// the d(scale) partials [G, H] (zeroed by the caller), over the forward
+// walk (jlist, jcount [G, n_i, W], [G, n_i]) of the dense int8 mask
+// [G, N, N], one hash seed per g.
+extern "C" int tagan_flash_geometric_bwd_fused(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* dout, const void* lse, const void* delta, const void* jlist,
+    const void* jcount, const void* scale, const void* seed, void* dq,
+    void* dk, void* dv, void* dscale_part, int G, int H, int N, int D,
+    int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, int need_dscale,
+    void* stream) {
+  Bwd a{};
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.mask = (const uint8_t*)mask;
+  a.dout = (const float*)dout;
+  a.lse = (const float*)lse;
+  a.delta = (const float*)delta;
+  a.jlist = (const int*)jlist;
+  a.jcount = (const int*)jcount;
+  a.scale = (const float*)scale;
+  a.seed = (const int*)seed;
+  a.dq = (float*)dq;
+  a.dk = (float*)dk;
+  a.dv = (float*)dv;
+  a.dscale = (float*)dscale_part;
+  a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
+  a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
+  a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
+  a.need_dscale = need_dscale;
+  return launch<false>(a, G, stream);
+}
 
 // B2's bf16 form: dq [G, H, N, D], dk [G, H, N, D] and dv [G, H, N, Dv]
 // (both summed into the caller's zeroed buffers) and, with need_dscale,
@@ -467,5 +516,5 @@ extern "C" int tagan_flash_geometric_bwd_fused_bf16(
   a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
   a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
   a.need_dscale = need_dscale;
-  return launch(a, G, stream);
+  return launch<true>(a, G, stream);
 }

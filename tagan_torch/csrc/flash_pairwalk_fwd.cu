@@ -1,22 +1,29 @@
-// Edge-masked geometric attention forwards in bf16, as mask-driven pair
-// walks, for Hopper (sm_90a).
+// Edge-masked geometric attention forwards as mask-driven pair walks, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
-// in their dense-mask bf16 form (bf16=True):
+// in their dense-mask forms:
 //
-//   B1 bf16  _flash_kernel         (host side _flash_forward)
+//   B1       _flash_kernel         (host side _flash_forward), bf16=False
+//   B1 bf16  _flash_kernel         bf16=True
 //   B4 bf16  _lse1_kernel          (host side _flash_biased_forward)
 //   B5 bf16  _flash_biased_kernel  (host side _flash_biased_forward)
 //
-// They compute what flash_geometric_fwd.cu (B1) and flash_biased_fwd.cu
-// (B4, B5) compute for bf16=True, over the same walk: for each query row i
-// and head h, the key tiles jlist[g, tile, :jcount[g, tile]] in that order, an
-// online softmax whose running max is updated once per 64-key tile, q.k
-// from q and k rounded to bf16 after their fp32 norms, drop(p) rounded to
-// bf16 relative to that running max and multiplied by v rounded to bf16,
-// fp32 sums, the un-dropped denominator, the coordinate-hash dropout
-// (keep_hash; B5's two seeds), out = 0 and lse = 1e30 on rows with no
-// valid key. B5 takes lse1 as an input, forms z = drop1(exp(s - lse1)) +
+// For each query row i and head h the walk takes the key tiles
+// jlist[g, tile, :jcount[g, tile]] in that order: an online softmax whose
+// running max is updated once per 64-key tile, the un-dropped denominator,
+// the coordinate-hash dropout (keep_hash; B5's two seeds), out = 0 and
+// lse = 1e30 on rows with no valid key. The squared-distance metrics use
+// the norm expansion, the cosine metrics take q and k L2-normalised by the
+// caller, gaussian and rbf a per-head scale (score_of). The precision is
+// the template flag kBf16:
+//  - fp32 (B1, bf16=False): q and k stay unrounded, q.k is an fp32 sum, p
+//    is not rounded and multiplies unrounded v. This is the CPU's fp32
+//    function up to the order of the sums.
+//  - bf16 (bf16=True): q.k from q and k rounded to bf16 after their fp32
+//    norms, drop(p) rounded to bf16 relative to the tile's running max and
+//    multiplied by v rounded to bf16, fp32 sums.
+// B5 takes lse1 as an input, forms z = drop1(exp(s - lse1)) +
 // bias[g, i, j] on valid pairs only (a dropped w1 enters as z = bias), and
 // runs the same online softmax over z. B4 keeps only the running max and
 // the un-dropped sum of exp(s) and writes lse1 (1e30 on rows with no
@@ -26,10 +33,10 @@
 // What bounds it on the H100. Each snapshot's int8 mask is N^2 bytes (100
 // MB at N = 10,000), more than the 50 MB L2, and the function needs it read
 // once; q, k, v, out (and B5's bias at the valid pairs) are small beside it.
-// So the least time is the mask's bytes over the memory rate. The dense
-// template walks every pair of every walked 64 x 64 tile in fp32 on the
-// CUDA cores, once per head, and reads the mask once per head: at 16 edges
-// a row over 10,000 nodes each tile holds ~6.5 valid pairs of its 4,096.
+// So the least time is the mask's bytes over the memory rate. A dense tile
+// walk computes every pair of every walked 64 x 64 tile, once per head, and
+// reads the mask once per head: at 16 edges a row over 10,000 nodes each
+// tile holds ~6.5 valid pairs of its 4,096.
 //
 // Design. One warp is one block and one unit of work: R rows of one
 // 64-row query tile of one folded snapshot g, for a group of HG heads
@@ -38,33 +45,36 @@
 // 10% slower: shared memory is then granted 4 warps at a time.)
 //  1. The mask is read once for all the group's heads, and each row's
 //     valid columns are listed in shared memory (`walk_mask`,
-//     flash_pairwalk.cuh, shared with B2's bf16 walk).
+//     flash_pairwalk.cuh, shared with B2's walk).
 //  2. When a row's list could overflow, and at the end, the warp flushes,
 //     computing only the valid pairs, in three passes (`flush`): the
-//     scores of all listed pairs (q.k over D from q in shared memory,
-//     rounded once, and k gathered from global memory: one snapshot's K
-//     and V stay in L2; score_of; for B5 w1, drop1 and the bias at that
-//     pair), then the online softmax tile by tile in shared memory, then
-//     drop(p) v into the row's accumulator. The gathering passes step
-//     through the entries together across the warp, 2 entries a lane at
-//     a time, so that the gathers of all lanes are in flight at once: a
-//     lane walking its own list alone left the warp's rows to diverge and
-//     their gathers to follow one another. Rows with no pair in a tile are
-//     not touched, which is exact (m unchanged, alpha = 1), so the dense
-//     template's "p = 1 garbage" before a row's first valid key does not
-//     arise. B4 takes the first pass only.
+//     scores of all listed pairs (q.k over D from q in shared memory and
+//     k gathered from global memory: one snapshot's K and V stay in L2;
+//     score_of; for B5 w1, drop1 and the bias at that pair), then the
+//     online softmax tile by tile in shared memory, then drop(p) v into
+//     the row's accumulator. The gathering passes step through the entries
+//     together across the warp, 2 entries a lane at a time, so that the
+//     gathers of all lanes are in flight at once: a lane walking its own
+//     list alone left the warp's rows to diverge and their gathers to
+//     follow one another. Rows with no pair in a tile are not touched,
+//     which is exact (m unchanged, alpha = 1), so the dense template's
+//     "p = 1 garbage" before a row's first valid key does not arise. B4
+//     takes the first pass only.
 //  3. Units are sub-tiles of R rows (8 at H = 4), so one 10K snapshot
 //     gives 1,250 warps: every SM is busy at G = 1 as at G = 16.
+// The fp32 form stages q and the accumulators in fp32 slots as the bf16
+// form does (the bf16 form keeps its rounded values as floats), so both
+// take the same shared memory: 57 KB a warp at D = Dv = 128 and H = 1.
 //
-// What it does not do yet: tensor cores for dense tiles. A tile whose rows
-// hold many pairs is walked pair by pair on the CUDA cores, each pair's k
-// and v rows gathered for each of its heads; it is correct at any density
-// and its speed there is recorded, not targeted. An mma.sync m16n8k16 path
-// with P in registers for dense tiles is later work.
+// What it does not do: tensor cores. A tile whose rows hold many pairs is
+// walked pair by pair on the CUDA cores, each pair's k and v rows gathered
+// for each of its heads; it is correct at any density and its speed there
+// is recorded, not targeted. For the fp32 form TF32's 10-bit mantissa
+// would also break the fp32 contract (the 1e-4 gate against the CPU).
 //
 // Interface: plain C, loaded with ctypes; the same entry points and
-// arguments as the dense templates' bf16 forms had. Launches on the given
-// stream, allocates nothing, returns the cudaError_t of the launch.
+// arguments as the dense templates had. Launches on the given stream,
+// allocates nothing, returns the cudaError_t of the launch.
 
 #include "flash_pairwalk.cuh"
 
@@ -79,9 +89,9 @@ constexpr int UNROLL = 2;         // entries a lane gathers at once
 enum Mode : int { OUT = 0, BIASED = 1, LSE = 2 };
 
 // Bytes of one warp's (one block's) shared memory: the mask ring, the
-// rows' lists and counts, and q (rounded), the accumulators and the
-// flush's per-entry values, each [width][32 lanes]. B4 passes Dv = 0: it
-// keeps no accumulator.
+// rows' lists and counts, and q (rounded in the bf16 form), the
+// accumulators and the flush's per-entry values, each [width][32 lanes].
+// B4 passes Dv = 0: it keeps no accumulator.
 __host__ __device__ inline size_t warp_bytes(int R, int D, int Dv) {
   return walk_bytes(R) + (size_t)WARP * (D + Dv + CAPR) * 4;
 }
@@ -119,10 +129,11 @@ struct Item {
 };
 
 // z of up to UNROLL pairs (the item's row, gc[u]) where on[u]: the score
-// from rounded q and k (norms from the unrounded rows), and for B5
+// from q and k (rounded in the bf16 form; the norms from the unrounded
+// rows), and for B5
 // drop1(exp(s - lse1)) + bias. The pairs' k rows are loaded together, so
 // that their gathers are in flight at once.
-template <bool kBiased>
+template <bool kBiased, bool kBf16>
 __device__ __forceinline__ void pair_z(const Walk& a, const Item& it,
                                        const int (&gc)[UNROLL],
                                        const bool (&on)[UNROLL], bool k4,
@@ -146,13 +157,13 @@ __device__ __forceinline__ void pair_z(const Walk& a, const Item& it,
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         kn[u] += x[u].x * x[u].x;
-        qk[u] = fmaf(q0, rd<true>(x[u].x), qk[u]);
+        qk[u] = fmaf(q0, rd<kBf16>(x[u].x), qk[u]);
         kn[u] += x[u].y * x[u].y;
-        qk[u] = fmaf(q1, rd<true>(x[u].y), qk[u]);
+        qk[u] = fmaf(q1, rd<kBf16>(x[u].y), qk[u]);
         kn[u] += x[u].z * x[u].z;
-        qk[u] = fmaf(q2, rd<true>(x[u].z), qk[u]);
+        qk[u] = fmaf(q2, rd<kBf16>(x[u].z), qk[u]);
         kn[u] += x[u].w * x[u].w;
-        qk[u] = fmaf(q3, rd<true>(x[u].w), qk[u]);
+        qk[u] = fmaf(q3, rd<kBf16>(x[u].w), qk[u]);
       }
     }
   } else {
@@ -164,7 +175,7 @@ __device__ __forceinline__ void pair_z(const Walk& a, const Item& it,
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         kn[u] += x[u] * x[u];
-        qk[u] = fmaf(qd, rd<true>(x[u]), qk[u]);
+        qk[u] = fmaf(qd, rd<kBf16>(x[u]), qk[u]);
       }
     }
   }
@@ -200,15 +211,15 @@ __device__ __forceinline__ void pair_z(const Walk& a, const Item& it,
 //  B. the online softmax, tile by tile, in shared memory only: for each
 //     key tile m_new = max(m, the tile's max z), alpha = exp(m - m_new),
 //     p = exp(z - m_new), l = l alpha + sum p (un-dropped), and the dropped
-//     p rounded to bf16 relative to that m_new, as the dense walk rounds
-//     it; zbuf takes that rounded p times exp(m_new - m_fin), m_fin =
-//     max(m, mA) the max after the flush, which is the product of the
-//     later tiles' alphas;
+//     p (rounded to bf16 relative to that m_new in the bf16 form, as the
+//     dense walk rounds it); zbuf takes that p times exp(m_new - m_fin),
+//     m_fin = max(m, mA) the max after the flush, which is the product of
+//     the later tiles' alphas;
 //  C. acc = acc exp(m_before - m_fin) + sum of zbuf's weights times v
-//     rounded to bf16, in the entries' order.
+//     (rounded to bf16 in the bf16 form), in the entries' order.
 // B4 (kMode LSE) takes pass A only, then l = l exp(m - m_fin) + sum
 // exp(z - m_fin) and m = m_fin.
-template <int kMode>
+template <int kMode, bool kBf16>
 __device__ __forceinline__ void flush(const Walk& a, Item& it,
                                       const int* list, int n, float* zbuf) {
   constexpr bool kBiased = kMode == BIASED;
@@ -227,7 +238,7 @@ __device__ __forceinline__ void flush(const Walk& a, Item& it,
       gc[u] = on[u] ? list[j0 + u] : 0;
     }
     float z[UNROLL];
-    pair_z<kBiased>(a, it, gc, on, k4, z);
+    pair_z<kBiased, kBf16>(a, it, gc, on, k4, z);
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u)
       if (on[u]) {
@@ -270,7 +281,7 @@ __device__ __forceinline__ void flush(const Walk& a, Item& it,
                                       (uint32_t)list[j]) < a.keep_thresh;
           p = keep ? p * a.inv_keep : 0.f;
         }
-        zbuf[j * WARP] = rd<true>(p) * later;
+        zbuf[j * WARP] = rd<kBf16>(p) * later;
       }
       it.l = it.l * alpha + rs;
       it.m = m_new;
@@ -301,10 +312,10 @@ __device__ __forceinline__ void flush(const Walk& a, Item& it,
               c2 = it.acc[(x + 2) * WARP], c3 = it.acc[(x + 3) * WARP];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          c0 = fmaf(w[u], rd<true>(y[u].x), c0);
-          c1 = fmaf(w[u], rd<true>(y[u].y), c1);
-          c2 = fmaf(w[u], rd<true>(y[u].z), c2);
-          c3 = fmaf(w[u], rd<true>(y[u].w), c3);
+          c0 = fmaf(w[u], rd<kBf16>(y[u].x), c0);
+          c1 = fmaf(w[u], rd<kBf16>(y[u].y), c1);
+          c2 = fmaf(w[u], rd<kBf16>(y[u].z), c2);
+          c3 = fmaf(w[u], rd<kBf16>(y[u].w), c3);
         }
         it.acc[x * WARP] = c0;
         it.acc[(x + 1) * WARP] = c1;
@@ -318,14 +329,14 @@ __device__ __forceinline__ void flush(const Walk& a, Item& it,
         for (int u = 0; u < UNROLL; ++u) y[u] = on[u] ? __ldg(vr[u] + x) : 0.f;
         float c = it.acc[x * WARP];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) c = fmaf(w[u], rd<true>(y[u]), c);
+        for (int u = 0; u < UNROLL; ++u) c = fmaf(w[u], rd<kBf16>(y[u]), c);
         it.acc[x * WARP] = c;
       }
     }
   }
 }
 
-template <int kMode, bool kVec16>
+template <int kMode, bool kBf16, bool kVec16>
 __global__ void __launch_bounds__(WARP)
 pairwalk_fwd_kernel(const Walk a) {
   const int lane = threadIdx.x;
@@ -358,10 +369,10 @@ pairwalk_fwd_kernel(const Walk a) {
   it.mix1 = it.mix2 = 0u;
   if (it.on) {
     const float* qr = a.q + (it.gh * a.N + it.gr) * a.D;
-    for (int d = 0; d < a.D; ++d) {   // the norm, then the row rounded
+    for (int d = 0; d < a.D; ++d) {   // the norm, then the row (rounded)
       const float x = qr[d];
       it.qn += x * x;
-      q_s[d * WARP + lane] = rd<true>(x);
+      q_s[d * WARP + lane] = rd<kBf16>(x);
     }
     for (int x = 0; x < a.Dv; ++x) acc_s[x * WARP + lane] = 0.f;
     it.sc = a.scale[h];
@@ -379,8 +390,8 @@ pairwalk_fwd_kernel(const Walk a) {
   const int* jl = a.jlist + ((size_t)g * a.n_i + ib) * a.W;
   const uint8_t* mg = a.mask + (size_t)g * a.N * a.N;
   walk_mask<kVec16>(sm, mg, a.N, row0, R, jl, cnt, lane, [&]() {
-    flush<kMode>(a, it, sm.lists + rl * CAPR, it.on ? sm.rowcnt[rl] : 0,
-                 zbuf);
+    flush<kMode, kBf16>(a, it, sm.lists + rl * CAPR,
+                        it.on ? sm.rowcnt[rl] : 0, zbuf);
   });
 
   if (it.on) {
@@ -395,7 +406,7 @@ pairwalk_fwd_kernel(const Walk a) {
   }
 }
 
-template <int kMode>
+template <int kMode, bool kBf16>
 int launch(Walk a, int G, void* stream) {
   const bool dv_ok = kMode == LSE ? a.Dv == 0 : a.Dv >= 1 && a.Dv <= MAX_D;
   if (G < 0 || a.H < 0 || a.N < 0 || a.D < 1 || a.D > MAX_D || !dv_ok ||
@@ -409,8 +420,8 @@ int launch(Walk a, int G, void* stream) {
   const size_t smem = warp_bytes(a.R, a.D, a.Dv);
   const bool vec16 = a.N % 16 == 0 &&
                      (reinterpret_cast<uintptr_t>(a.mask) & 15) == 0;
-  const auto kern = vec16 ? pairwalk_fwd_kernel<kMode, true>
-                          : pairwalk_fwd_kernel<kMode, false>;
+  const auto kern = vec16 ? pairwalk_fwd_kernel<kMode, kBf16, true>
+                          : pairwalk_fwd_kernel<kMode, kBf16, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -422,6 +433,31 @@ int launch(Walk a, int G, void* stream) {
 }
 
 }  // namespace
+
+// B1: out [G, H, N, Dv] and lse [G, H, N] of the forward walk
+// over the dense int8 mask [G, N, N], one hash seed per g.
+extern "C" int tagan_flash_geometric_fwd(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* jlist, const void* jcount, const void* scale,
+    const void* seed, void* out, void* lse, int G, int H, int N, int D,
+    int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, void* stream) {
+  Walk a{};
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.mask = (const uint8_t*)mask;
+  a.jlist = (const int*)jlist;
+  a.jcount = (const int*)jcount;
+  a.scale = (const float*)scale;
+  a.seeds = (const int*)seed;
+  a.out = (float*)out;
+  a.lse = (float*)lse;
+  a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
+  a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
+  a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
+  return launch<OUT, false>(a, G, stream);
+}
 
 // B1's bf16 form: out [G, H, N, Dv] and lse [G, H, N] of the forward walk
 // over the dense int8 mask [G, N, N], one hash seed per g.
@@ -445,7 +481,7 @@ extern "C" int tagan_flash_geometric_fwd_bf16(
   a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
   a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
   a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
-  return launch<OUT>(a, G, stream);
+  return launch<OUT, true>(a, G, stream);
 }
 
 // B5's bf16 form: out [G, H, N, Dv] and lse2 [G, H, N] of the second
@@ -473,7 +509,7 @@ extern "C" int tagan_flash_biased_fwd_bf16(
   a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
   a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
   a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
-  return launch<BIASED>(a, G, stream);
+  return launch<BIASED, true>(a, G, stream);
 }
 
 // B4's bf16 form: lse1 [G, H, N] of the forward walk over the dense int8
@@ -495,5 +531,5 @@ extern "C" int tagan_flash_lse1_bf16(const void* q, const void* k,
   a.H = H; a.N = N; a.D = D; a.Dv = 0; a.n_i = n_i; a.W = W;
   a.metric = metric; a.sqrt_d = sqrt_d;
   a.inv_keep = 1.f;
-  return launch<LSE>(a, G, stream);
+  return launch<LSE, true>(a, G, stream);
 }

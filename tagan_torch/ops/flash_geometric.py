@@ -5,8 +5,8 @@ helpers, the dropout hash, the block-plan builders, the plain PyTorch
 versions of the forward and the backward, the wrappers of the CUDA
 kernels that port the Pallas ones, and the differentiable entry point:
 
-    B1   _flash_kernel            csrc/flash_geometric_fwd.cu
-    B2   _flash_bwd_fused_kernel  csrc/flash_geometric_bwd_fused.cu
+    B1   _flash_kernel            csrc/flash_pairwalk_fwd.cu
+    B2   _flash_bwd_fused_kernel  csrc/flash_pairwalk_bwd.cu
     B3a  _flash_bwd_dq_kernel     csrc/flash_geometric_bwd.cu
     B3b  _flash_bwd_dkv_kernel    csrc/flash_geometric_bwd.cu
     B4   _lse1_kernel             csrc/flash_biased_fwd.cu
@@ -23,11 +23,12 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7a c  _biased_bwd_dq_kernel, compact   csrc/flash_biased_bwd.cu
     B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
 
-Every kernel above also has a bf16 form (the TPU kernels' ``bf16=True``:
-every product's operands rounded to bf16, float32 sums), in the same
-sources under its own entry point and launch count (B1's, B4's and
-B5's in csrc/flash_pairwalk_fwd.cu and B2's in csrc/flash_pairwalk_bwd.cu,
-pair walks that compute only the mask's valid pairs; B6's and B7a's
+B1 and B2 are pair walks that read each mask tile once for all heads and
+compute only the mask's valid pairs. Every kernel above also has a bf16
+form (the TPU kernels' ``bf16=True``: every product's operands rounded to
+bf16, float32 sums), in the same sources under its own entry point and
+launch count (B1's, B4's and B5's in csrc/flash_pairwalk_fwd.cu and B2's
+in csrc/flash_pairwalk_bwd.cu, pair walks likewise; B6's and B7a's
 together as the row walk and B7b's as the key walk in
 csrc/flash_pairwalk_biased_bwd.cu, pair walks likewise; B3a c's and B3b c's
 in csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
@@ -1490,8 +1491,11 @@ def _dropout_args(dropout_rate: float):
 
 
 class _FlashForwardKernel(_CudaKernel):
-    """B1, ``tagan_flash_geometric_fwd``: (out, lse) of the forward walk."""
-    name = source = "flash_geometric_fwd"
+    """B1, ``tagan_flash_geometric_fwd``: (out, lse) of the forward walk,
+    as a pair walk that reads each mask tile once for all heads and
+    computes only its valid pairs (csrc/flash_pairwalk_fwd.cu)."""
+    name = "flash_geometric_fwd"
+    source = "flash_pairwalk_fwd"
     symbol = "tagan_flash_geometric_fwd"
     argtypes = (_P,) * 10 + (_I,) * 8 + (_F, _I, _U, _F)
 
@@ -1600,49 +1604,15 @@ class _FlashBwdDkvKernel(_FlashBackwardKernel):
 
 class _FlashBwdFusedKernel(_FlashBackwardKernel):
     """B2, ``tagan_flash_geometric_bwd_fused``: dq, dk, dv (and dscale)
-    from one walk over the transposed plan (ilist, icount). dq is summed
-    with atomics, so its last bits vary from run to run."""
-    name = source = "flash_geometric_bwd_fused"
+    as a pair walk over the forward plan (jlist, jcount) that reads each
+    mask tile once for all heads and computes only its valid pairs
+    (csrc/flash_pairwalk_bwd.cu). dq is written by the lane that owns its
+    row; dk, dv and dscale are summed with atomics, so their last bits
+    vary from run to run."""
+    name = "flash_geometric_bwd_fused"
+    source = "flash_pairwalk_bwd"
     symbol = "tagan_flash_geometric_bwd_fused"
     argtypes = (_P,) * 15 + (_I,) * 8 + (_F, _I, _U, _F, _I)
-
-    def __call__(self, q, k, v, mask, do, lse, delta, ilist, icount,
-                 metric: str, scale, seed, dropout_rate: float,
-                 need_dscale: bool):
-        args = (q, k, v, mask, do, lse, delta, ilist, icount, scale, seed)
-        dev, (G, H, N, D, Dv, n_j, W) = self._check(*args)
-        dq = torch.zeros((G, H, N, D), dtype=torch.float32, device=dev)
-        dk = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
-        dv = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
-        part = torch.empty((G, H, n_j) if need_dscale else (1,),
-                           dtype=torch.float32, device=dev)
-        self._launch(dev, *self._inputs(*args), dq.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), part.data_ptr(), G, H, N, D, Dv, n_j, W,
-                     MXU_METRICS.index(metric), math.sqrt(D),
-                     *_dropout_args(dropout_rate), int(need_dscale))
-        return dq, dk, dv, (part.sum((0, 2)) if need_dscale else None)
-
-
-class _FlashForwardBf16Kernel(_FlashForwardKernel):
-    """B1's bf16 form, ``tagan_flash_geometric_fwd_bf16``: B1 with bf16
-    dot operands (the TPU kernel's ``bf16=True``), as a pair walk that
-    reads each mask tile once for all heads and computes only its valid
-    pairs (csrc/flash_pairwalk_fwd.cu)."""
-    name = "flash_geometric_fwd_bf16"
-    source = "flash_pairwalk_fwd"
-    symbol = "tagan_flash_geometric_fwd_bf16"
-
-
-class _FlashBwdFusedBf16Kernel(_FlashBwdFusedKernel):
-    """B2's bf16 form, ``tagan_flash_geometric_bwd_fused_bf16``: B2 with
-    bf16 product operands, as a pair walk over the forward plan (jlist,
-    jcount) that reads each mask tile once for all heads and computes
-    only its valid pairs (csrc/flash_pairwalk_bwd.cu). dq is written by
-    the lane that owns its row; dk, dv and dscale are summed with
-    atomics, so their last bits vary from run to run."""
-    name = "flash_geometric_bwd_fused_bf16"
-    source = "flash_pairwalk_bwd"
-    symbol = "tagan_flash_geometric_bwd_fused_bf16"
 
     def __call__(self, q, k, v, mask, do, lse, delta, jlist, jcount,
                  metric: str, scale, seed, dropout_rate: float,
@@ -1659,6 +1629,20 @@ class _FlashBwdFusedBf16Kernel(_FlashBwdFusedKernel):
                      MXU_METRICS.index(metric), math.sqrt(D),
                      *_dropout_args(dropout_rate), int(need_dscale))
         return dq, dk, dv, (part.sum(0) if need_dscale else None)
+
+
+class _FlashForwardBf16Kernel(_FlashForwardKernel):
+    """B1's bf16 form, ``tagan_flash_geometric_fwd_bf16``: B1 with bf16
+    dot operands (the TPU kernel's ``bf16=True``), the same pair walk."""
+    name = "flash_geometric_fwd_bf16"
+    symbol = "tagan_flash_geometric_fwd_bf16"
+
+
+class _FlashBwdFusedBf16Kernel(_FlashBwdFusedKernel):
+    """B2's bf16 form, ``tagan_flash_geometric_bwd_fused_bf16``: B2 with
+    bf16 product operands, the same pair walk over the forward plan."""
+    name = "flash_geometric_bwd_fused_bf16"
+    symbol = "tagan_flash_geometric_bwd_fused_bf16"
 
 
 class _FlashBwdDqBf16Kernel(_FlashBwdDqKernel):
@@ -2322,14 +2306,14 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_biased_bwd_dq_compact_bf16_kernel,
            flash_biased_bwd_dkv_compact_bf16_kernel)
 
-# The backward the picker takes on CUDA when ``fused`` is None: B2
-# (single walk, dq by atomics), the faster form at the model's shape (one
-# snapshot, H=4, N=10,000, head dim 16): 6.2 ms against 10.4 ms for
-# B3a + B3b on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 5;
-# PERF.md, Findings). B2's bf16 form is a pair walk over the forward plan
-# that computes only the valid pairs, dk, dv and dscale by atomics
-# (csrc/flash_pairwalk_bwd.cu; its times beside B3a + B3b bf16's in
-# chip_smoke.py phase 5g and PERF.md). ``fused=False`` is the
+# The backward the picker takes on CUDA when ``fused`` is None: B2, in
+# both precisions a pair walk over the forward plan that computes only the
+# mask's valid pairs, dq by the lane that owns its row and dk, dv and
+# dscale by atomics (csrc/flash_pairwalk_bwd.cu). It is the faster form at
+# the model's shape (one snapshot, H=4, N=10,000, head dim 16): 0.21 ms
+# against 10.5 ms for B3a + B3b in fp32 on an NVIDIA H100 80GB HBM3 at
+# 700 W (chip_smoke.py phase 5; bf16 in phase 5g; PERF.md, Findings).
+# ``fused=False`` (B3a + B3b, dense 64 x 64 tile walks) is the
 # deterministic form in both precisions.
 FUSED_BWD = True
 
@@ -2361,25 +2345,21 @@ def _transposed_plan(mask: torch.Tensor):
 def _backward(q, k, v, mask, out, lse, do, plan, plan_t, metric, scale,
               dropout_rate, seed, need_dscale, fused, dlse, bf16=False):
     """(dq, dk, dv, dscale or None) of folded inputs; trusts the plans.
-    ``plan_t`` None is built from the mask where a kernel walks it (B2's
-    bf16 form walks the forward plan). ``bf16`` takes the kernels' bf16
-    forms."""
+    ``plan_t`` None is built from the mask where a kernel walks it (B3b:
+    B2 walks the forward plan). ``bf16`` takes the kernels' bf16 forms."""
     if q.device.type == "cpu":
         return flash_geometric_backward_plain(
             q, k, v, mask, out, lse, do, metric, scale, dropout_rate, seed,
             need_dscale, dlse, bf16)
     delta = _delta(do, out, dlse).contiguous()
     fused = FUSED_BWD if fused is None else fused
-    if fused and bf16:
-        return flash_geometric_bwd_fused_bf16_kernel(
-            q, k, v, mask, do, lse, delta, *plan, metric, scale, seed,
-            dropout_rate, need_dscale)
+    if fused:
+        kern = flash_geometric_bwd_fused_bf16_kernel if bf16 \
+            else flash_geometric_bwd_fused_kernel
+        return kern(q, k, v, mask, do, lse, delta, *plan, metric, scale,
+                    seed, dropout_rate, need_dscale)
     if plan_t is None:
         plan_t = _transposed_plan(mask)
-    if fused:
-        return flash_geometric_bwd_fused_kernel(
-            q, k, v, mask, do, lse, delta, *plan_t, metric, scale, seed,
-            dropout_rate, need_dscale)
     dq_kern, dkv_kern = (
         (flash_geometric_bwd_dq_bf16_kernel,
          flash_geometric_bwd_dkv_bf16_kernel) if bf16 else
@@ -2432,23 +2412,19 @@ def flash_geometric_attention_bwd(
     checked; missing ones are built from the mask.
 
     CPU tensors take the plain version. CUDA tensors take B2
-    (``fused=True``: one walk over the transposed plan, dq by atomics) or
-    B3a then B3b (``fused=False``: the forward walk for dq and dscale, the
-    transposed walk for dk and dv). ``fused=None`` takes `FUSED_BWD`,
-    which is B2: at the model's shape B2 took 6.2 ms and B3a + B3b 10.4
-    ms on the H100, and one recompute of each pair should keep B2 ahead
-    at any shape whose walk visits many pairs. Unlike the TPU's rule (a
+    (``fused=True``: a pair walk over the forward plan that computes only
+    the mask's valid pairs, dq row by row, dk, dv and dscale by atomics)
+    or B3a then B3b (``fused=False``: 64 x 64 tile walks, the forward
+    walk for dq and dscale, the transposed walk for dk and dv).
+    ``fused=None`` takes `FUSED_BWD`, which is B2, the faster form at the
+    model's shape (chip_smoke.py phase 5). Unlike the TPU's rule (a
     scoped-VMEM budget) nothing depends on the size: both forms use
-    fixed 64 x 64 tiles and O(N D) memory besides the mask. B2 sums dq
-    with atomics, so its last bits vary from run to run; ``fused=False``
-    is deterministic.
+    O(N D) memory besides the mask. B2's dk, dv and dscale vary in their
+    last bits from run to run; ``fused=False`` is deterministic.
 
     ``bf16`` takes the bf16 forms (B2, B3a and B3b with bf16 dot
-    operands, or B3a c and B3b c's; the plain version on the CPU). B2's
-    bf16 form is a pair walk over the forward plan that computes only
-    the valid pairs: it writes dq row by row and sums dk, dv and dscale
-    with atomics, so those vary in their last bits from run to run;
-    ``fused=False`` (B3a + B3b bf16) stays deterministic.
+    operands, or B3a c and B3b c's; the plain version on the CPU), with
+    the same walks and the same determinism.
 
     3-tuple plans (jlist, jcount, jslot) and (ilist, icount, islot) take
     the compact form: ``mask`` is then the occupied-block store
@@ -2466,11 +2442,11 @@ def flash_geometric_attention_bwd(
             dropout_rate, seed, need_dscale, dlse, bf16)
         return (dq, dk, dv, dscale) if need_dscale else (dq, dk, dv)
     if plan is None:
-        plan, plan_t = make_block_plans_from_mask(mask)
+        plan = make_block_plan(mask)
     else:
         check_plan(*plan, N)
-        if plan_t is not None:
-            check_plan(*plan_t, N)
+    if plan_t is not None:
+        check_plan(*plan_t, N)
     scale, seed = _defaults(q, scale, seed)
     dq, dk, dv, dscale = _backward(q, k, v, mask, out, lse, do, plan, plan_t,
                                    metric, scale, dropout_rate, seed,

@@ -2200,6 +2200,168 @@ def test_pairwalk_bf16_bwd_fold(H, cuda):
                            seed=2)
 
 
+# -- the fp32 pair walks (B1, B2) at the same masks ---------------------------
+
+def _pairwalk_fp32_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
+    """B1 (the fp32 forward pair walk) through ``flash_geometric_fwd``
+    against the plain fp32 forward at `sparse_mask`, within TOL of each
+    output's largest entry (at least 1): fp32 on both sides, the walk's
+    sums in another order (64-key online-softmax steps against one dense
+    row); dead rows exactly 0 and LSE_DEAD; B1 launched once, nothing
+    else."""
+    q, k, v, mask, _, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, D, Dv, metric, seed))
+    seed1 = seeds[:, 0].contiguous()
+    plan = FG.make_block_plan(mask)
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    out, lse = FG.flash_geometric_fwd(q, k, v, mask, *plan, metric=metric,
+                                      scale=scale, seed=seed1,
+                                      dropout_rate=rate)
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect[FG.flash_geometric_fwd_kernel.name] = 1
+    assert launched == expect
+    assert dead.any()
+    assert torch.all(out[dead] == 0) and torch.all(lse[dead] == FG.LSE_DEAD)
+    p_out, p_lse = FG.flash_geometric_forward_plain(q, k, v, mask, metric,
+                                                    scale, rate, seed1)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _close(out, p_out) <= TOL
+    assert _close(lse[~dead], p_lse[~dead]) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1000, 1536])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_pairwalk_fp32_sparse(metric, rate, N, cuda):
+    """The fp32 forward pair walk at sparse masks (`sparse_mask`): every
+    metric, dropout off and on, N = 1000 (byte loads of the mask) and 1536
+    (16-byte cp.async), H = 4 (8 rows a warp)."""
+    _pairwalk_fp32_vs_plain(cuda, 2, 4, N, 16, 16, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_pairwalk_fp32_sparse_head_dims(D, Dv, metric, cuda):
+    """Head dims, dropout on, H = 3 (24 of a warp's lanes hold items), N =
+    1008 (16-byte loads, the last key tile ragged): widths not a multiple
+    of 4 take scalar gathers, and (128, 128) sets the warp's shared memory
+    past 48 KB."""
+    _pairwalk_fp32_vs_plain(cuda, 1, 3, 1008, D, Dv, metric, 0.1, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 4, 40])
+def test_pairwalk_fp32_fold(H, cuda):
+    """A 16-snapshot fold with dropout (each snapshot its seed), H = 1 (32
+    rows a warp), 4, and 40 (two head groups: the mask is read once per
+    group of 32 heads)."""
+    _pairwalk_fp32_vs_plain(cuda, 16, H, 600, 16, 16, "euclidean", 0.1,
+                            seed=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
+                                         ("gaussian_kernel", 0.1)])
+def test_pairwalk_fp32_deterministic(metric, rate, cuda):
+    """The fp32 forward walk's out and lse are bit-identical over 20
+    repeated calls: each row's sums run in its list's order, with no
+    atomics."""
+    G, H, N = 2, 4, 1008
+    q, k, v, mask, _, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, 16, 16, metric, 3))
+    seed1 = seeds[:, 0].contiguous()
+    plan = FG.make_block_plan(mask)
+    first = None
+    for _ in range(20):
+        got = FG.flash_geometric_fwd(q, k, v, mask, *plan, metric=metric,
+                                     scale=scale, seed=seed1,
+                                     dropout_rate=rate)
+        if first is None:
+            first = got
+        for a, b in zip(got, first):
+            assert torch.equal(a, b)
+
+
+def _pairwalk_fp32_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
+    """B2 (the fp32 backward pair walk) through
+    ``flash_geometric_attention_bwd(..., fused=True)`` with the forward
+    plan alone, on the plain fp32 forward's out and lse, against the plain
+    fp32 backward within TOL of each output's largest entry (at least 1):
+    fp32 on both sides, sums in another order (dk, dv and dscale by
+    atomics); an lse cotangent; dq exactly 0 on dead rows, dk and dv
+    exactly 0 at keys no row reaches; B2 launched once, nothing else."""
+    q, k, v, mask, _, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, D, Dv, metric, seed))
+    seed1 = seeds[:, 0].contiguous()
+    rng = np.random.default_rng(seed + 500)
+    do, dl = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda) for shape in ((G, H, N, Dv), (G, H, N)))
+    plan = FG.make_block_plan(mask)
+    need = metric in FG.SCALED_METRICS
+    out, lse = FG.flash_geometric_forward_plain(q, k, v, mask, metric, scale,
+                                                rate, seed1)
+    args = (q, k, v, mask, out, lse, do)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    got = FG.flash_geometric_attention_bwd(
+        *args, metric=metric, scale=scale, plan=plan, seed=seed1,
+        dropout_rate=rate, need_dscale=need, fused=True, dlse=dl)
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect[FG.flash_geometric_bwd_fused_kernel.name] = 1
+    assert launched == expect
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    unreached = (mask == 0).all(-2)[:, None, :].expand(G, H, N)
+    assert dead.any() and unreached.any()
+    assert torch.all(got[0][dead] == 0)
+    assert torch.all(got[1][unreached] == 0)
+    assert torch.all(got[2][unreached] == 0)
+    want = FG.flash_geometric_backward_plain(*args, metric, scale, rate,
+                                             seed1, need, dl)
+    assert len(got) == (4 if need else 3)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert _close(g, w) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1000, 1536])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_pairwalk_fp32_bwd_sparse(metric, rate, N, cuda):
+    """The fp32 backward pair walk at sparse masks (`sparse_mask`), as
+    `test_pairwalk_fp32_sparse`: every metric, dropout off and on, N =
+    1000 and 1536, H = 4, dscale for gaussian and rbf."""
+    _pairwalk_fp32_bwd_vs_plain(cuda, 2, 4, N, 16, 16, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_pairwalk_fp32_bwd_sparse_head_dims(D, Dv, metric, cuda):
+    """Head dims, dropout on, H = 3, N = 1008: widths not a multiple of 4
+    take scalar gathers and atomics, and (128, 128) sets the warp's
+    shared memory past 48 KB (53 KB at H = 3)."""
+    _pairwalk_fp32_bwd_vs_plain(cuda, 1, 3, 1008, D, Dv, metric, 0.1,
+                                seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 4, 40])
+def test_pairwalk_fp32_bwd_fold(H, cuda):
+    """A 16-snapshot fold with dropout (each snapshot its seed), H = 1,
+    4 and 40 (two head groups)."""
+    _pairwalk_fp32_bwd_vs_plain(cuda, 16, H, 600, 16, 16, "euclidean", 0.1,
+                                seed=2)
+
+
 # -- the bf16 biased backward's pair walks (the row walk, the key walk) ----------
 
 def _pairwalk_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):

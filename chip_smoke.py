@@ -19,9 +19,11 @@ Phases, in order; any failure raises and exits non-zero:
    learnable scales (dscale), an empty key strip, an lse cotangent and
    (D, Dv) of (7, 3), (40, 72), (128, 128), and at 2's sparse masks and
    head dims;
-   (2c) the edge-biased forward kernels B4 (lse1) and B5 (out, lse2)
-   against their plain versions on the same grid with a bias that sums
-   duplicate edges, and the three (D, Dv); (2d) the edge-biased backward
+   (2c) the edge-biased forward kernels B4 (lse1) and B5 (out, lse2),
+   the fp32 pair walks, against their plain versions on the same grid
+   with a bias that sums duplicate edges, and the three (D, Dv), and at
+   2's sparse masks and head dims with a N(0, 1) bias at the mask's
+   pairs; (2d) the edge-biased backward
    kernels B6 (delta1, dB), B7a (dq, dscale) and B7b (dk, dv) against
    their plain versions on 2c's grid, dB at the mask's pairs (and 0 at
    the other pairs of the walked blocks); (2e) the compact-store forward
@@ -67,8 +69,10 @@ Phases, in order; any failure raises and exits non-zero:
    features, ``use_edge_features=True``): 3 requests, launch counts set
    to 0 just before and read just after (B4 and B5 once per layer per
    request, B1 never); the forward, one layer's B4 and B5 over the
-   folded snapshots, and the first layer's B4 and B5 on one snapshot
-   against the plain versions at full width;
+   folded snapshots (and, for 5b, per snapshot at the euclidean and the
+   scaled-dot metric, each of the 16 snapshots held to the plain
+   versions), and the first layer's B4 and B5 on one snapshot against
+   the plain versions at full width;
    (3c) the hybrid backend at ``bench_partition_stress.py`` part C's
    width (131,072 nodes, 16 edges per node, 95% of them within +-512 of
    their source, 2 snapshots, node features 8, hidden 64, 4 heads, 2
@@ -122,11 +126,13 @@ Phases, in order; any failure raises and exits non-zero:
    and the scaled-dot metric beside sdpa fp32 over the same fold (timed
    in 3), and B2 over 6's 8 folded snapshots at both metrics beside sdpa
    fp32's backward over that fold (timed in 6);
-   (5b) B4 and B5 at one snapshot of the edge-feature request against
-   their plain versions, compiled ``flex_attention`` at the scaled-dot
-   metric as the library yardstick (held against B4 and B5 at that
-   metric), the csr ``edge_attention`` on the same graph and bias, and
-   their bounds; (5c) B6, B7a, B7b and the three together at the same
+   (5b) B4 and B5 (the fp32 pair walks) at one snapshot of the
+   edge-feature request against their plain versions in turns, held to
+   them at the euclidean and the scaled-dot metric, compiled
+   ``flex_attention`` at the scaled-dot metric as the library yardstick
+   (held against B4 and B5 at that metric), the csr ``edge_attention``
+   on the same graph and bias, and their bounds; B4 and B5 also over 3b's
+   16 folded snapshots, per snapshot, at both metrics (timed in 3b); (5c) B6, B7a, B7b and the three together at the same
    snapshot against the plain biased backward, compiled
    ``flex_attention``'s backward of B4 and B5's function at the
    scaled-dot metric as the library yardstick, and their bounds;
@@ -164,8 +170,8 @@ Phases, in order; any failure raises and exits non-zero:
    to bf16), and over 6e's 8 folded snapshots at both metrics (timed in
    6e); and a density sweep at N = 10,000 (degree 16, 256 and 2,048): B1
    bf16, B4 bf16 and B2 bf16 held to the plain bf16 versions under the
-   bf16 gates, B1 and B2 (the fp32 walks) to the plain fp32 versions
-   within TOL, beside sdpa bf16 and sdpa fp32 (forward, and fp32's
+   bf16 gates, B1, B2, B4 and B5 (the fp32 walks; B5 with a N(0, 1) bias
+   at the mask's pairs) to the plain fp32 versions within TOL, beside sdpa bf16 and sdpa fp32 (forward, and fp32's
    backward) on the same masks, times recorded, not gated; the sweep also
    holds the bf16 biased backward's two walks to the plain bf16 version
    on each mask;
@@ -338,7 +344,7 @@ TOL_CSR = 2e-4
 TOL_HYB_CSR_GRAD = 1e-3
 REQUESTS, SEQS_PER_REQUEST = 3, 2
 N_MID = 1_000
-# (D, Dv) of the fp32 pair walks' checks at the sparse masks (2, 2b)
+# (D, Dv) of the fp32 pair walks' checks at the sparse masks (2, 2b, 2c)
 SPARSE_DIMS = ((16, 16), (8, 8), (12, 12), (7, 3), (128, 128))
 TRAIN_STEPS = 3
 # gradients that are zero in exact arithmetic (a bias that adds one
@@ -806,12 +812,20 @@ def biased_small_inputs(FG, G, H, N, D, Dv, metric, seed):
     return q, k, v, mask, bias, scale, FG.biased_seeds(seeds, G, DEV)
 
 
-def biased_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
+def biased_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0,
+                    sparse=False):
     """B4 against the plain lse1, and B5 against the plain second walk
-    on the same lse1; returns the max abs error of out, lse1 and lse2
-    over live rows after checking dead rows exactly."""
+    on the same lse1 (at `sparse_cases` with a N(0, 1) bias at the mask's
+    pairs with ``sparse``); returns the max abs error of out, lse1 and
+    lse2 over live rows after checking dead rows exactly."""
     q, k, v, mask, bias, scale, seeds = biased_small_inputs(
         FG, G, H, N, D, Dv, metric, seed)
+    if sparse:
+        mask = sparse_cases(G, N, seed)
+        bias = torch.where(mask != 0, torch.randn(
+            mask.shape, device=DEV,
+            generator=torch.Generator(device=DEV).manual_seed(seed + 2)),
+            0.0)
     jlist, jcount = FG.make_block_plan(mask)
     lse1 = FG.flash_lse1_kernel(q, k, mask, jlist, jcount, metric, scale)
     p_lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale)
@@ -841,11 +855,17 @@ def phase_small_biased(FG):
     for metric in FG.MXU_METRICS:
         for rate in (0.0, 0.1):
             errs.append(biased_vs_plain(FG, 2, 3, 150, 16, 8, metric, rate))
+            errs.append(biased_vs_plain(FG, 2, 4, 1000, 16, 16, metric, rate,
+                                        sparse=True))
     for D, Dv in ((7, 3), (40, 72), (128, 128)):
         errs.append(biased_vs_plain(FG, 2, 2, 200, D, Dv, "gaussian_kernel",
                                     0.1, 1))
-    log(f"[2c] B4 and B5 vs plain: {len(errs)} cases, max abs err of out, "
-        f"lse1 and lse2 {max(errs):.3e} (tol {TOL})")
+    for D, Dv in SPARSE_DIMS:
+        errs.append(biased_vs_plain(FG, 1, 3, 1008, D, Dv, "gaussian_kernel",
+                                    0.1, 1, sparse=True))
+    log(f"[2c] B4 and B5 vs plain: {len(errs)} cases ({len(errs) - 19} at "
+        f"the sparse masks), max abs err of out, lse1 and lse2 "
+        f"{max(errs):.3e} (tol {TOL})")
     return max(errs)
 
 
@@ -1411,33 +1431,54 @@ def phase_serve_edge(tt, FG, bf16=False):
     # rest) outside inference mode: phase 5b hands it to torch.compile
     args = tuple(t[:1].clone() for t in folded)
     q1, k1, v1, m1, bias1, jl1, jc1 = args
-    fold = None
     with torch.inference_mode():
         b4_ms = cuda_ms(lambda: b4(q, k, mask, jlist, jcount, "euclidean",
                                    ones), 3)
         lse1 = b4(q, k, mask, jlist, jcount, "euclidean", ones)
         b5_ms = cuda_ms(lambda: b5(q, k, v, mask, bias, lse1, jlist, jcount,
                                    "euclidean", ones, seeds, 0.0), 3)
-        if bf16:
-            # [5h] B4's and B5's bf16 forms at the grid their path
-            # launches, per snapshot, at the model's metric and at the
-            # scaled-dot one
-            sdp = "scaled_dot_product"
-            l1_sdp = b4(q, k, mask, jlist, jcount, sdp, ones)
-            fold = {"B4": dict(G=G, ms=cuda_ms(lambda: b4(
-                q, k, mask, jlist, jcount, "euclidean", ones), 10) / G,
-                sdp_ms=cuda_ms(lambda: b4(q, k, mask, jlist, jcount, sdp,
-                                          ones), 10) / G),
-                "B5": dict(G=G, ms=cuda_ms(lambda: b5(
-                    q, k, v, mask, bias, lse1, jlist, jcount, "euclidean",
-                    ones, seeds, 0.0), 10) / G, sdp_ms=cuda_ms(lambda: b5(
-                        q, k, v, mask, bias, l1_sdp, jlist, jcount, sdp,
-                        ones, seeds, 0.0), 10) / G)}
-            del l1_sdp
-            log(f"[5h] over the {G} folded snapshots of 3f's layer, per "
-                f"snapshot: " + "; ".join(
-                    f"{n} bf16 euclidean {f['ms']:.5f} ms, scaled-dot "
-                    f"{f['sdp_ms']:.5f} ms" for n, f in fold.items()))
+        # [5b] / [5h] B4 and B5 (their bf16 forms with ``bf16``) at the
+        # grid their path launches, per snapshot, at the model's metric
+        # and at the scaled-dot one
+        sdp = "scaled_dot_product"
+        l1_sdp = b4(q, k, mask, jlist, jcount, sdp, ones)
+        fold = {"B4": dict(G=G, ms=cuda_ms(lambda: b4(
+            q, k, mask, jlist, jcount, "euclidean", ones), 10) / G,
+            sdp_ms=cuda_ms(lambda: b4(q, k, mask, jlist, jcount, sdp,
+                                      ones), 10) / G),
+            "B5": dict(G=G, ms=cuda_ms(lambda: b5(
+                q, k, v, mask, bias, lse1, jlist, jcount, "euclidean",
+                ones, seeds, 0.0), 10) / G, sdp_ms=cuda_ms(lambda: b5(
+                    q, k, v, mask, bias, l1_sdp, jlist, jcount, sdp, ones,
+                    seeds, 0.0), 10) / G)}
+        del l1_sdp
+        fold_err = None
+        if not bf16:
+            # the fp32 walks over the fold, each snapshot against the
+            # plain versions (B5 on the walk's lse1)
+            out_f, lse2_f = b5(q, k, v, mask, bias, lse1, jlist, jcount,
+                               "euclidean", ones, seeds, 0.0)
+            fold_err = 0.0
+            for g in range(G):
+                one = (q[g:g + 1], k[g:g + 1], v[g:g + 1], mask[g:g + 1])
+                p_l1 = FG.flash_lse1_plain(*one[:2], one[3], "euclidean",
+                                           ones)
+                p_o, p_l2 = FG.flash_biased_forward_plain(
+                    *one, bias[g:g + 1], lse1[g:g + 1], "euclidean", ones,
+                    0.0, seeds[g:g + 1])
+                fold_err = max(fold_err, rel_err(lse1[g:g + 1], p_l1),
+                               rel_err(out_f[g:g + 1], p_o),
+                               rel_err(lse2_f[g:g + 1], p_l2))
+            del out_f, lse2_f, p_l1, p_o, p_l2
+            if not fold_err <= TOL:
+                raise AssertionError(f"B4/B5 over the fold vs plain: "
+                                     f"{fold_err} > {TOL}")
+        log(f"[{'5h' if bf16 else '5b'}] over the {G} folded snapshots of "
+            f"{tag}'s layer, per snapshot: " + "; ".join(
+                f"{n}{' bf16' if bf16 else ''} euclidean {f['ms']:.5f} ms, "
+                f"scaled-dot {f['sdp_ms']:.5f} ms" for n, f in fold.items())
+            + ("" if bf16 else f"; each snapshot vs plain: max err of lse1, "
+               f"out and lse2 {fold_err:.3e} (tol {TOL})"))
         # one snapshot at full width against the plain versions (bf16:
         # the plain B5 walks the same plan)
         lse1_k = b4(q1, k1, m1, jl1, jc1, "euclidean", ones)
@@ -1483,6 +1524,7 @@ def phase_serve_edge(tt, FG, bf16=False):
                 b4_layer_launch_ms=b4_ms, b5_layer_launch_ms=b5_ms,
                 kernel_share_of_forward=share, full_err=err, args=args,
                 graph=graph, fp32_logits_gap=gap, fold=fold,
+                fold_err=fold_err,
                 sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
 
 
@@ -1872,7 +1914,9 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
     B1 to the plain fp32 version within TOL. B4 bf16 and B2 bf16 (the
     other pair walks) on the same inputs, held to their plain bf16
     versions likewise, B2 (fp32) to the plain fp32 backward within TOL
-    beside sdpa fp32's backward, and the bf16
+    beside sdpa fp32's backward, B4 and B5 (fp32, B5 with a N(0, 1) bias
+    at the mask's pairs) to their plain fp32 versions within TOL, and
+    the bf16
     biased backward's row walk and key walk on B4 bf16's lse1 and B5
     bf16's out and lse2 with a N(0, 1) bias at the mask's pairs, held to
     the plain bf16 biased backward. Times are recorded, not gated."""
@@ -1935,6 +1979,24 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
             # the biased backward's walks
             bias = torch.where(mask != 0, torch.randn(
                 mask.shape, device=DEV, generator=gen), 0.0)
+            # B4 and B5 (the fp32 walks), B5 on the walk's lse1
+            b4_32, b5_32 = biased_kernels(FG, False)[:2]
+            b4_32_ms = cuda_ms(lambda: b4_32(q, k, mask, *plan, "euclidean",
+                                             ones), 10)
+            lse1_32 = b4_32(q, k, mask, *plan, "euclidean", ones)
+            b5_32_ms = cuda_ms(lambda: b5_32(
+                q, k, v, mask, bias, lse1_32, *plan, "euclidean", ones,
+                seeds2, 0.0), 10)
+            out5_32, lse2_32 = b5_32(q, k, v, mask, bias, lse1_32, *plan,
+                                     "euclidean", ones, seeds2, 0.0)
+            f_lse1 = FG.flash_lse1_plain(q, k, mask, "euclidean", ones)
+            f_out5, f_lse2 = FG.flash_biased_forward_plain(
+                q, k, v, mask, bias, lse1_32, "euclidean", ones, 0.0, seeds2)
+            live = f_lse1 < FG.LSE_DEAD
+            err45_32 = max(rel_err(lse1_32[live], f_lse1[live]),
+                           rel_err(out5_32, f_out5),
+                           rel_err(lse2_32[live], f_lse2[live]))
+            del lse1_32, out5_32, lse2_32, f_lse1, f_out5, f_lse2
             out5, lse2 = b5(q, k, v, mask, bias, lse1, *plan, "euclidean",
                             ones, seeds2, 0.0)
             bcommon = (q, k, v, mask, bias, do, lse1, lse2,
@@ -1970,9 +2032,10 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
         live = f_lse < FG.LSE_DEAD
         err32 = max(rel_err(out32, f_out), rel_err(lse32[live], f_lse[live]))
         err2_32 = max(rel_err(g, w) for g, w in zip(grads32, f_grads))
-        if not (err32 <= TOL and err2_32 <= TOL):
+        if not (err32 <= TOL and err2_32 <= TOL and err45_32 <= TOL):
             raise AssertionError(f"degree {deg}: fp32 walks vs plain fp32: "
-                                 f"B1 {err32}, B2 {err2_32} > {TOL}")
+                                 f"B1 {err32}, B2 {err2_32}, B4 and B5 "
+                                 f"{err45_32} > {TOL}")
         pairs = int(bmask.sum().item())
         res[deg] = dict(ms=[a16, b16], fp32_ms=[a32, b32], library_ms=lib,
                         fp32_library_ms=lib32, fp32_err=err32,
@@ -1980,6 +2043,8 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
                         b4_gates=gates4, b2_ms=b2_ms, b2_gates=gates2,
                         b2_fp32_ms=b2_32_ms, b2_fp32_err=err2_32,
                         b2_fp32_library_ms=lib32_b,
+                        b4_fp32_ms=b4_32_ms, b5_fp32_ms=b5_32_ms,
+                        b4_b5_fp32_err=err45_32,
                         row_walk_ms=row_ms, key_walk_ms=key_ms,
                         walk_gates=walk_gates)
         log(f"[5g] density: N={N}, degree {deg} ({pairs} valid pairs, "
@@ -1987,8 +2052,10 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
             f"{a16:.4f} {b16:.4f}, B1 (fp32 walk) ms {a32:.4f} {b32:.4f}, "
             f"sdpa bf16 ms {lib:.4f}, sdpa fp32 ms {lib32:.4f}; B4 bf16 ms "
             f"{b4_ms:.4f}, B2 bf16 ms {b2_ms:.4f}, B2 (fp32 walk) ms "
-            f"{b2_32_ms:.4f}, sdpa fp32 backward ms {lib32_b:.4f}; fp32 walks "
-            f"vs plain fp32 B1 {err32:.3e}, B2 {err2_32:.3e}; biased backward "
+            f"{b2_32_ms:.4f}, sdpa fp32 backward ms {lib32_b:.4f}; B4 (fp32 "
+            f"walk) ms {b4_32_ms:.4f}, B5 (fp32 walk) ms {b5_32_ms:.4f}; fp32 "
+            f"walks vs plain fp32 B1 {err32:.3e}, B2 {err2_32:.3e}, B4 and B5 "
+            f"{err45_32:.3e}; biased backward "
             f"row walk ms {row_ms:.4f}, "
             f"key walk ms {key_ms:.4f}; vs plain bf16 (max abs err, max err, "
             f"mean err, witness) B1 {tuple(f'{x:.3e}' for x in gates)}, B4 "
@@ -2040,8 +2107,10 @@ def flex_yardstick(q, k, v, mask, bias):
 
 
 def phase_times_biased(FG, args, graph):
-    """B4 and B5 at one snapshot of the edge-feature request, against
-    their plain versions, with their bounds. The library yardstick is
+    """B4 and B5 (the fp32 pair walks) at one snapshot of the
+    edge-feature request, against their plain versions in turns and held
+    to them within TOL at the euclidean and the scaled-dot metric, with
+    their bounds. The library yardstick is
     ``flex_attention`` at the scaled-dot metric (B4 and B5 are timed at
     that metric too, and held against it); the csr ``edge_attention``
     with the same bias on the same graph is the port's own O(E) form."""
@@ -2085,6 +2154,25 @@ def phase_times_biased(FG, args, graph):
         out_sdp, lse2_sdp = FG.flash_biased_fwd_kernel(
             q, k, v, mask, bias, lse1_sdp, jlist, jcount, sdp, ones, seeds,
             0.0)
+        # the walks against the plain versions at both metrics (B5 on the
+        # walk's lse1)
+        live = (mask != 0).any(-1)[:, None].expand(G, H, N)
+        plain_err = {}
+        for metric, l1, o, l2 in (
+                ("euclidean", lse1, *FG.flash_biased_fwd_kernel(
+                    q, k, v, mask, bias, lse1, jlist, jcount, "euclidean",
+                    ones, seeds, 0.0)),
+                (sdp, lse1_sdp, out_sdp, lse2_sdp)):
+            p_l1 = FG.flash_lse1_plain(q, k, mask, metric, ones)
+            p_o, p_l2 = FG.flash_biased_forward_plain(
+                q, k, v, mask, bias, l1, metric, ones, 0.0, seeds)
+            plain_err[metric] = max(rel_err(l1[live], p_l1[live]),
+                                    rel_err(o, p_o),
+                                    rel_err(l2[live], p_l2[live]))
+        del o, l2, p_l1, p_o, p_l2
+    if not max(plain_err.values()) <= TOL:
+        raise AssertionError(f"B4/B5 vs plain at one snapshot: {plain_err} "
+                             f"> {TOL}")
     with torch.no_grad():
         t0 = time.perf_counter()
         lib4, lib5, f_lse1, f_out, f_lse2 = flex_yardstick(q, k, v, mask,
@@ -2094,7 +2182,6 @@ def phase_times_biased(FG, args, graph):
         lib4_ms, lib5_ms = cuda_ms(lib4, 20), cuda_ms(lib5, 20)
     # the library's function is the kernels' at this metric: rows with no
     # valid key excepted (flex gives lse -inf there, the kernels LSE_DEAD)
-    live = (mask != 0).any(-1)[:, None].expand(G, H, N)
     flex_err = max((f_lse1 - lse1_sdp)[live].abs().max().item(),
                    (f_lse2 - lse2_sdp)[live].abs().max().item(),
                    (f_out - out_sdp)[live].abs().max().item())
@@ -2116,12 +2203,14 @@ def phase_times_biased(FG, args, graph):
                        2 * H * pairs * (D + Dv))),        # q.k and p.v
         "csr_ms": csr_ms, "valid_pairs": pairs,
         "csr_edges": int(em.sum().item()), "flex_err": flex_err,
-        "flex_setup_s": flex_setup_s}
+        "flex_setup_s": flex_setup_s, "plain_err": plain_err}
     log(f"[5b] H={H} N={N} D={D} Dv={Dv}, one snapshot, edge bias: B4 ms "
         f"{k4a:.4f} {k4b:.4f} (plain {p4a:.4f} {p4b:.4f}); B5 ms {k5a:.4f} "
         f"{k5b:.4f} (plain {p5a:.4f} {p5b:.4f}); csr edge_attention with "
         f"the bias on the same graph ({res['csr_edges']} edges) ms "
-        f"{csr_ms[0]:.4f} {csr_ms[1]:.4f}")
+        f"{csr_ms[0]:.4f} {csr_ms[1]:.4f}; vs plain, max err of lse1, out "
+        f"and lse2: " + ", ".join(f"{m} {e:.3e}" for m, e in
+                                   plain_err.items()) + f" (tol {TOL})")
     log(f"[5b] library: compiled flex_attention at the scaled-dot metric "
         f"(block mask and compile {flex_setup_s:.3f} s): lse1 {lib4_ms:.4f} "
         f"ms (B4 at the same metric {k4_sdp:.4f}), out and lse2 "
@@ -5805,8 +5894,9 @@ def main() -> int:
     # it is the plain version of each backward kernel, and its time is
     # that of the whole backward, not of B3a's or B3b's share
     plain_of = "flash_geometric_backward_plain (dq, dk and dv)"
-    # B1 and B2 (pair walks since PR 16): the one-snapshot times of 5
-    # beside sdpa fp32, and the folds of 3 and 6 (timed there)
+    # the pair walks B1 and B2: the one-snapshot times of 5 beside sdpa
+    # fp32, and the folds of 3 and 6 (timed there); B4 and B5: the
+    # one-snapshot times of 5b beside flex fp32, and 3b's fold
     kernels = [
         dict(kernel_record(FG, FG.flash_geometric_fwd_kernel,
                            "flash_pairwalk_fwd.cu", 259, serve["launches"],
@@ -5835,12 +5925,18 @@ def main() -> int:
             ("B3b", FG.flash_geometric_bwd_dkv_kernel,
              "flash_geometric_bwd.cu", 1534))] + [
         dict(kernel_record(
-            FG, kern, "flash_biased_fwd.cu", line,
+            FG, kern, "flash_pairwalk_fwd.cu", line,
             serve_edge["launches"][kern.name],
-            max(small_biased, serve_edge["full_err"]),
+            max(small_biased, serve_edge["full_err"], serve_edge["fold_err"],
+                max(times_biased["plain_err"].values())),
             min(times_biased[name]["ms"]), min(times_biased[name]["plain_ms"]),
             plain_of, times_biased[name], times_biased[name]["library_ms"]),
-             csr_ms=min(times_biased["csr_ms"]))
+             csr_ms=min(times_biased["csr_ms"]),
+             library_of="compiled flex_attention on fp32 q, k, v, block mask "
+                        "from the int8 mask, scaled-dot metric, "
+                        + ("lse only" if name == "B4" else
+                           "exp(s - lse1) + bias"),
+             **pairwalk_fields(times_biased[name], serve_edge["fold"][name]))
         for name, kern, line, plain_of in (
             ("B4", FG.flash_lse1_kernel, 885, "flash_lse1_plain"),
             ("B5", FG.flash_biased_fwd_kernel, 944,

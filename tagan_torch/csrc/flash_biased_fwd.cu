@@ -1,60 +1,59 @@
-// Edge-biased geometric attention, forward, for Hopper (sm_90a): two kernels.
+// Edge-biased geometric attention, forward, over the compact occupied-block
+// store, for Hopper (sm_90a): two kernels.
 //
 // Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
-// that serve the dense path's double softmax (host side
-// _flash_biased_forward), in their dense-mask form (B4, B5), their compact
-// occupied-block form (B4c, B5c: hybrid_biased.py _band_lse1 and
-// _band_biased_main) and the bf16 form (bf16=True) of B4c and B5c (B4's
-// and B5's bf16 forms are the pair walks of flash_pairwalk_fwd.cu). For
-// each query row i and head h, over the valid keys j (mask[i, j] != 0),
-// with s_ij the metric score:
+// that serve the double softmax (host side _flash_biased_forward) in their
+// compact occupied-block form (B4c, B5c: hybrid_biased.py _band_lse1 and
+// _band_biased_main) and its bf16 form (bf16=True). The dense-mask forms,
+// B4 and B5 in both precisions, are the pair walks of
+// flash_pairwalk_fwd.cu. For each query row i and head h, over the valid
+// keys j (mask[i, j] != 0), with s_ij the metric score:
 //
-//   B4  _lse1_kernel          lse1_i = logsumexp_j s_ij
-//   B5  _flash_biased_kernel  w1_ij  = exp(s_ij - lse1_i)
-//                             w1d_ij = keep1_ij ? w1_ij / (1 - p) : 0
-//                             z_ij   = w1d_ij + bias[i, j]
-//                             out_i  = sum_j drop2(softmax_j z_ij) v_j
-//                             lse2_i = logsumexp_j z_ij
+//   B4c  _band_lse1          lse1_i = logsumexp_j s_ij
+//   B5c  _band_biased_main   w1_ij  = exp(s_ij - lse1_i)
+//                            w1d_ij = keep1_ij ? w1_ij / (1 - p) : 0
+//                            z_ij   = w1d_ij + bias[i, j]
+//                            out_i  = sum_j drop2(softmax_j z_ij) v_j
+//                            lse2_i = logsumexp_j z_ij
 //
 // with out = 0 and lse = 1e30 on rows that have no valid key. A dropped w1 is
 // not a masked pair: it enters the second softmax as z = bias. The
 // denominator of the second softmax is the un-dropped sum. keep1 and keep2
 // are the JAX package's coordinate hash (_keep_mask) with the snapshot's two
 // seeds, bit for bit. The bias is shared by the heads. lse1 is an input of
-// B5, not recomputed inside it: the hybrid backend passes a logsumexp over a
+// B5c, not recomputed inside it: the hybrid backend passes a logsumexp over a
 // superset of the walked pairs.
 //
-// Design. As B1 (flash_geometric_fwd.cu), whose layout both share: one
+// Design. As B1c (flash_geometric_fwd.cu), whose layout both share: one
 // thread block per (64-row query tile, head, folded batch index g) walks
-// jlist[g, tile, :jcount[g, tile]], staging K (and for B5 V) tiles in shared
-// memory, with the running max and sum (and for B5 the output accumulator)
-// in registers. One template serves both: B4 keeps only the max and sum; B5
-// turns each valid score into z before the same online softmax and adds the
+// jlist[g, tile, :jcount[g, tile]], staging K (and for B5c V) tiles in
+// shared memory, with the running max and sum (and for B5c the output
+// accumulator) in registers. One template serves both: B4c keeps only the
+// max and sum; B5c turns each valid score into z before the same online softmax and adds the
 // dropped weights times V. 256 threads: thread (rg, c) owns query rows
 // 4*rg..4*rg+3, keys c + 16*b (b < 4) of each step and output columns
 // c + 16*jj.
 //
-// What bounds it on the H100. The least traffic is the int8 mask (N^2 bytes
-// per snapshot), read once, and, for B5, the fp32 bias at the valid pairs
-// only (4 bytes each): the result depends on no other bias entry.
-// The walk reads a mask byte per walked pair and head, and, like B1, spends
-// fp32 issue on nearly every one of the N^2 pairs per head when the edges
-// are spread over all 64x64 blocks; the bias is read only on valid pairs,
-// but once per head. Reading each bias tile once, with the heads innermost
-// in one block, is the first thing a later redesign changes.
+// What bounds it on the H100. The least traffic is the store's occupied
+// tiles, read once, and, for B5c, the fp32 bias at the valid pairs only (4
+// bytes each): the result depends on no other bias entry. The walk spends
+// fp32 issue on every pair of every walked 64x64 tile, once per head, and
+// reads the mask and bias tiles once per head. Reading each tile once,
+// with the heads innermost in one block, is the first thing a later
+// redesign changes.
 //
-// The bf16 forms (kBf16, the compact mask forms; the TPU kernels'
-// bf16=True) round the operands of q.k and of P@V as B1's bf16 form does:
+// The bf16 forms (kBf16; the TPU kernels' bf16=True) round the operands of
+// q.k and of P@V as B1c's bf16 form does:
 // the q and k tiles in place once their norms are taken, v as staged, and
 // B5c's dropped p2 as it is stored for P@V. The norms, w1, z, the running
 // max and the un-dropped sum l stay fp32. B5c's p2 is rounded relative to
 // the running max after each key tile, so its result depends on the walk,
 // as the TPU kernel's does on its block size; B4c's does not.
 //
-// The compact form reads the mask tile from the store slot of each walk step
+// The walk reads the mask tile from the store slot of each walk step
 // (flash_geometric_common.cuh) and the bias from the same slot of a bias
-// store f32[G, S, 64, 64]: a contiguous 16 KB tile, not strided [N, N] rows.
-// At the hybrid band lse1 is the union of the band's and the residual's.
+// store f32[G, S, 64, 64]: a contiguous 16 KB tile. At the hybrid band
+// lse1 is the union of the band's and the residual's.
 //
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
@@ -69,7 +68,7 @@ constexpr int ROWS = BM / 16;     // query rows per thread
 constexpr int COLS = BN / 16;     // keys per thread and step
 constexpr int MAX_DV_LANES = 8;   // output columns per thread: Dv <= 128
 
-// Shared floats of one block: Q, K, |q|^2, |k|^2, and for B5 lse1, V and the
+// Shared floats of one block: Q, K, |q|^2, |k|^2, and for B5c lse1, V and the
 // dropped weights.
 __host__ inline size_t smem_floats(bool main_walk, int D, int Dv) {
   size_t n = (size_t)(BM + BN) * (D + 1) + BM + BN;
@@ -102,17 +101,14 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Ks = Qs + BM * DS;    // [BN][DS]
   float* qn_s = Ks + BN * DS;  // [BM]
   float* kn_s = qn_s + BM;     // [BN]
-  float* l1_s = kn_s + BN;     // [BM]      B5 only
-  float* Vs = l1_s + BM;       // [BN][Dv]  B5 only
-  float* Ps = Vs + BN * Dv;    // [BM][PS]  B5 only
-  __shared__ uint64_t mrow[BM];  // the compact forms' mask tile
+  float* l1_s = kn_s + BN;     // [BM]      B5c only
+  float* Vs = l1_s + BM;       // [BN][Dv]  B5c only
+  float* Ps = Vs + BN * Dv;    // [BM][PS]  B5c only
+  __shared__ uint64_t mrow[BM];  // the step's mask tile
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* kg = k + gh * N * D;
-  constexpr bool dense = kForm == DENSE_MASK;
-  const uint8_t* mg =
-      static_cast<const uint8_t*>(mask) + (dense ? (size_t)g * N * N : 0);
   const int row0 = ib * BM;
 
   for (int idx = tid; idx < BM * D; idx += THREADS) {
@@ -143,7 +139,6 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if constexpr (kMain) {
     mix1 = (uint32_t)seeds[2 * g] ^ hmix;
     mix2 = (uint32_t)seeds[2 * g + 1] ^ hmix;
-    if (dense) bg = bias + (size_t)g * N * N;
   }
   const int n_lanes = (Dv + 15) / 16;
 
@@ -162,11 +157,9 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < cnt; ++t) {
     const int col0 = jl[t] * BN;
     __syncthreads();  // the previous step is done with Ks, Vs, Ps and mrow
-    if constexpr (!dense) {
-      const size_t slot = (size_t)g * S + js[t];
-      load_mask_tile<kForm>(mrow, mask, slot);
-      if constexpr (kMain) bg = bias + slot * (BM * BN);
-    }
+    const size_t slot = (size_t)g * S + js[t];
+    load_mask_tile<kForm>(mrow, mask, slot);
+    if constexpr (kMain) bg = bias + slot * (BM * BN);
     for (int idx = tid; idx < BN * D; idx += THREADS) {
       const int r = idx / D, d = idx - r * D, gc = col0 + r;
       Ks[r * DS + d] = gc < N ? kg[(size_t)gc * D + d] : 0.f;
@@ -215,7 +208,7 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int b = 0; b < COLS; ++b) {
         const int lc = lane + 16 * b, gc = col0 + lc;
         float val = NEG_INF;
-        if (pair_on<kForm>(mg, mrow, N, gr, gc, lr, lc)) {
+        if (pair_on<kForm>(nullptr, mrow, N, gr, gc, lr, lc)) {
           val = score_of(metric, s[a][b], qn_s[lr], kn_s[lc], sc, sqrt_d);
           if constexpr (kMain) {
             // lse1 >= the row's valid scores, so w1 <= 1
@@ -225,7 +218,7 @@ biased_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   keep_hash(mix1, (uint32_t)gr, (uint32_t)gc) < keep_thresh;
               w1 = keep ? w1 * inv_keep : 0.f;
             }
-            val = w1 + (dense ? bg[(size_t)gr * N + gc] : bg[lr * BN + lc]);
+            val = w1 + bg[lr * BN + lc];
           }
         }
         s[a][b] = val;
@@ -313,8 +306,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
            void* stream) {
   if (G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D ||
       (kMain && (Dv < 1 || Dv > 16 * MAX_DV_LANES)) || metric < 0 ||
-      metric > COS_DIST || n_i != (N + BM - 1) / BM || W < 0 ||
-      (kForm != DENSE_MASK && S < 1))
+      metric > COS_DIST || n_i != (N + BM - 1) / BM || W < 0 || S < 1)
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
   const size_t smem = sizeof(float) * smem_floats(kMain, D, kMain ? Dv : 0);
@@ -338,35 +330,6 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 
 }  // namespace
 
-// B4: lse1 [G, H, N] of the forward walk.
-extern "C" int tagan_flash_lse1(const void* q, const void* k,
-                                const void* mask, const void* jlist,
-                                const void* jcount, const void* scale,
-                                void* lse1, int G, int H, int N, int D,
-                                int n_i, int W, int metric, float sqrt_d,
-                                void* stream) {
-  using namespace tagan_flash;
-  return launch<false, DENSE_MASK>(q, k, nullptr, mask, nullptr, nullptr,
-                                   jlist, jcount, jlist, scale, nullptr,
-                                   nullptr, lse1, G, H, N, D, 0, n_i, W, 0,
-                                   metric, sqrt_d, 0, 0u, 1.f, stream);
-}
-
-// B5: out [G, H, N, Dv] and lse2 [G, H, N] of the second softmax, given
-// lse1 [G, H, N], the bias [G, N, N] and two seeds per g, [G, 2].
-extern "C" int tagan_flash_biased_fwd(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* bias, const void* lse1, const void* jlist, const void* jcount,
-    const void* scale, const void* seeds, void* out, void* lse2, int G, int H,
-    int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
-    int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
-  using namespace tagan_flash;
-  return launch<true, DENSE_MASK>(q, k, v, mask, bias, lse1, jlist, jcount,
-                                  jlist, scale, seeds, out, lse2, G, H, N, D,
-                                  Dv, n_i, W, 0, metric, sqrt_d, use_dropout,
-                                  keep_thresh, inv_keep, stream);
-}
-
 // B4c: lse1 over the compact store (bits i64[G, S, 64] when packed, else
 // int8 [G, S, 64, 64]) with the slot of each walk step, jslot [G, n_i, W].
 extern "C" int tagan_flash_lse1_compact(
@@ -381,7 +344,8 @@ extern "C" int tagan_flash_lse1_compact(
       1.f, stream);
 }
 
-// B5c: B5 over the compact store, the bias in the same slots,
+// B5c: out [G, H, N, Dv] and lse2 [G, H, N] of the second softmax over the
+// compact store, given lse1, the bias in the same slots,
 // f32[G, S, 64, 64].
 extern "C" int tagan_flash_biased_fwd_compact(
     const void* q, const void* k, const void* v, const void* store,

@@ -2,9 +2,9 @@
 // flash_geometric_fwd.cu (the compact forward), flash_geometric_bwd.cuh
 // (two-walk backward, built by flash_geometric_bwd.cu and
 // flash_geometric_bwd_compact_bf16.cu), the edge-biased flash_biased_fwd.cu
-// and flash_biased_bwd.cuh (built by flash_biased_bwd.cu and
-// flash_biased_bwd_compact_bf16.cu), and the pair walks of
-// flash_pairwalk_fwd.cu (B1 and B1's, B4's and B5's bf16 forms),
+// (the compact forward) and flash_biased_bwd.cuh (built by
+// flash_biased_bwd.cu and flash_biased_bwd_compact_bf16.cu), and the pair
+// walks of flash_pairwalk_fwd.cu (B1, B4, B5 and their bf16 forms),
 // flash_pairwalk_bwd.cu (B2 and B2's bf16 form) and
 // flash_pairwalk_biased_bwd.cu, through flash_pairwalk.cuh.
 //

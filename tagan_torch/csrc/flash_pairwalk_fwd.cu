@@ -6,8 +6,10 @@
 //
 //   B1       _flash_kernel         (host side _flash_forward), bf16=False
 //   B1 bf16  _flash_kernel         bf16=True
-//   B4 bf16  _lse1_kernel          (host side _flash_biased_forward)
-//   B5 bf16  _flash_biased_kernel  (host side _flash_biased_forward)
+//   B4       _lse1_kernel          (host side _flash_biased_forward)
+//   B4 bf16  _lse1_kernel          bf16=True
+//   B5       _flash_biased_kernel  (host side _flash_biased_forward)
+//   B5 bf16  _flash_biased_kernel  bf16=True
 //
 // For each query row i and head h the walk takes the key tiles
 // jlist[g, tile, :jcount[g, tile]] in that order: an online softmax whose
@@ -17,9 +19,10 @@
 // the norm expansion, the cosine metrics take q and k L2-normalised by the
 // caller, gaussian and rbf a per-head scale (score_of). The precision is
 // the template flag kBf16:
-//  - fp32 (B1, bf16=False): q and k stay unrounded, q.k is an fp32 sum, p
-//    is not rounded and multiplies unrounded v. This is the CPU's fp32
-//    function up to the order of the sums.
+//  - fp32 (B1, B4, B5, bf16=False): q and k stay unrounded, q.k is an fp32
+//    sum, B5's w1 = exp(s - lse1) is not rounded, p is not rounded and
+//    multiplies unrounded v. This is the CPU's fp32 function up to the
+//    order of the sums.
 //  - bf16 (bf16=True): q.k from q and k rounded to bf16 after their fp32
 //    norms, drop(p) rounded to bf16 relative to the tile's running max and
 //    multiplied by v rounded to bf16, fp32 sums.
@@ -432,6 +435,54 @@ int launch(Walk a, int G, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// B1's walk arguments, one hash seed per g; B5's and B4's start from them.
+Walk out_walk(const void* q, const void* k, const void* v, const void* mask,
+              const void* jlist, const void* jcount, const void* scale,
+              const void* seed, void* out, void* lse, int H, int N, int D,
+              int Dv, int n_i, int W, int metric, float sqrt_d,
+              int use_dropout, unsigned int keep_thresh, float inv_keep) {
+  Walk a{};
+  a.q = (const float*)q;
+  a.k = (const float*)k;
+  a.v = (const float*)v;
+  a.mask = (const uint8_t*)mask;
+  a.jlist = (const int*)jlist;
+  a.jcount = (const int*)jcount;
+  a.scale = (const float*)scale;
+  a.seeds = (const int*)seed;
+  a.out = (float*)out;
+  a.lse = (float*)lse;
+  a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
+  a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
+  a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
+  return a;
+}
+
+// B5's: B1's with the bias, lse1 and two seeds per g, [G, 2].
+Walk biased_walk(const void* q, const void* k, const void* v,
+                 const void* mask, const void* bias, const void* lse1,
+                 const void* jlist, const void* jcount, const void* scale,
+                 const void* seeds, void* out, void* lse2, int H, int N,
+                 int D, int Dv, int n_i, int W, int metric, float sqrt_d,
+                 int use_dropout, unsigned int keep_thresh, float inv_keep) {
+  Walk a = out_walk(q, k, v, mask, jlist, jcount, scale, seeds, out, lse2, H,
+                    N, D, Dv, n_i, W, metric, sqrt_d, use_dropout,
+                    keep_thresh, inv_keep);
+  a.bias = (const float*)bias;
+  a.lse1 = (const float*)lse1;
+  return a;
+}
+
+// B4's: no v, no output rows (Dv = 0), no dropout.
+Walk lse1_walk(const void* q, const void* k, const void* mask,
+               const void* jlist, const void* jcount, const void* scale,
+               void* lse1, int H, int N, int D, int n_i, int W, int metric,
+               float sqrt_d) {
+  return out_walk(q, k, nullptr, mask, jlist, jcount, scale, nullptr,
+                  nullptr, lse1, H, N, D, 0, n_i, W, metric, sqrt_d, 0, 0u,
+                  1.f);
+}
+
 }  // namespace
 
 // B1: out [G, H, N, Dv] and lse [G, H, N] of the forward walk
@@ -442,94 +493,77 @@ extern "C" int tagan_flash_geometric_fwd(
     const void* seed, void* out, void* lse, int G, int H, int N, int D,
     int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
     unsigned int keep_thresh, float inv_keep, void* stream) {
-  Walk a{};
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
-  a.mask = (const uint8_t*)mask;
-  a.jlist = (const int*)jlist;
-  a.jcount = (const int*)jcount;
-  a.scale = (const float*)scale;
-  a.seeds = (const int*)seed;
-  a.out = (float*)out;
-  a.lse = (float*)lse;
-  a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
-  a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
-  a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
-  return launch<OUT, false>(a, G, stream);
+  return launch<OUT, false>(
+      out_walk(q, k, v, mask, jlist, jcount, scale, seed, out, lse, H, N, D,
+               Dv, n_i, W, metric, sqrt_d, use_dropout, keep_thresh,
+               inv_keep),
+      G, stream);
 }
 
-// B1's bf16 form: out [G, H, N, Dv] and lse [G, H, N] of the forward walk
-// over the dense int8 mask [G, N, N], one hash seed per g.
+// B1's bf16 form: the same arguments.
 extern "C" int tagan_flash_geometric_fwd_bf16(
     const void* q, const void* k, const void* v, const void* mask,
     const void* jlist, const void* jcount, const void* scale,
     const void* seed, void* out, void* lse, int G, int H, int N, int D,
     int Dv, int n_i, int W, int metric, float sqrt_d, int use_dropout,
     unsigned int keep_thresh, float inv_keep, void* stream) {
-  Walk a{};
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
-  a.mask = (const uint8_t*)mask;
-  a.jlist = (const int*)jlist;
-  a.jcount = (const int*)jcount;
-  a.scale = (const float*)scale;
-  a.seeds = (const int*)seed;
-  a.out = (float*)out;
-  a.lse = (float*)lse;
-  a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
-  a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
-  a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
-  return launch<OUT, true>(a, G, stream);
+  return launch<OUT, true>(
+      out_walk(q, k, v, mask, jlist, jcount, scale, seed, out, lse, H, N, D,
+               Dv, n_i, W, metric, sqrt_d, use_dropout, keep_thresh,
+               inv_keep),
+      G, stream);
 }
 
-// B5's bf16 form: out [G, H, N, Dv] and lse2 [G, H, N] of the second
-// softmax, given lse1 [G, H, N], the bias [G, N, N] and two seeds per g,
-// [G, 2].
+// B5: out [G, H, N, Dv] and lse2 [G, H, N] of the second softmax, given
+// lse1 [G, H, N], the bias [G, N, N] and two seeds per g, [G, 2].
+extern "C" int tagan_flash_biased_fwd(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* lse1, const void* jlist, const void* jcount,
+    const void* scale, const void* seeds, void* out, void* lse2, int G, int H,
+    int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
+  return launch<BIASED, false>(
+      biased_walk(q, k, v, mask, bias, lse1, jlist, jcount, scale, seeds, out,
+                  lse2, H, N, D, Dv, n_i, W, metric, sqrt_d, use_dropout,
+                  keep_thresh, inv_keep),
+      G, stream);
+}
+
+// B5's bf16 form: the same arguments.
 extern "C" int tagan_flash_biased_fwd_bf16(
     const void* q, const void* k, const void* v, const void* mask,
     const void* bias, const void* lse1, const void* jlist, const void* jcount,
     const void* scale, const void* seeds, void* out, void* lse2, int G, int H,
     int N, int D, int Dv, int n_i, int W, int metric, float sqrt_d,
     int use_dropout, unsigned int keep_thresh, float inv_keep, void* stream) {
-  Walk a{};
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.v = (const float*)v;
-  a.mask = (const uint8_t*)mask;
-  a.bias = (const float*)bias;
-  a.lse1 = (const float*)lse1;
-  a.jlist = (const int*)jlist;
-  a.jcount = (const int*)jcount;
-  a.scale = (const float*)scale;
-  a.seeds = (const int*)seeds;
-  a.out = (float*)out;
-  a.lse = (float*)lse2;
-  a.H = H; a.N = N; a.D = D; a.Dv = Dv; a.n_i = n_i; a.W = W;
-  a.metric = metric; a.sqrt_d = sqrt_d; a.use_dropout = use_dropout;
-  a.keep_thresh = keep_thresh; a.inv_keep = inv_keep;
-  return launch<BIASED, true>(a, G, stream);
+  return launch<BIASED, true>(
+      biased_walk(q, k, v, mask, bias, lse1, jlist, jcount, scale, seeds, out,
+                  lse2, H, N, D, Dv, n_i, W, metric, sqrt_d, use_dropout,
+                  keep_thresh, inv_keep),
+      G, stream);
 }
 
-// B4's bf16 form: lse1 [G, H, N] of the forward walk over the dense int8
-// mask [G, N, N].
+// B4: lse1 [G, H, N] of the forward walk over the dense int8 mask
+// [G, N, N].
+extern "C" int tagan_flash_lse1(const void* q, const void* k,
+                                const void* mask, const void* jlist,
+                                const void* jcount, const void* scale,
+                                void* lse1, int G, int H, int N, int D,
+                                int n_i, int W, int metric, float sqrt_d,
+                                void* stream) {
+  return launch<LSE, false>(lse1_walk(q, k, mask, jlist, jcount, scale, lse1,
+                                      H, N, D, n_i, W, metric, sqrt_d),
+                            G, stream);
+}
+
+// B4's bf16 form: the same arguments.
 extern "C" int tagan_flash_lse1_bf16(const void* q, const void* k,
                                      const void* mask, const void* jlist,
                                      const void* jcount, const void* scale,
                                      void* lse1, int G, int H, int N, int D,
                                      int n_i, int W, int metric, float sqrt_d,
                                      void* stream) {
-  Walk a{};
-  a.q = (const float*)q;
-  a.k = (const float*)k;
-  a.mask = (const uint8_t*)mask;
-  a.jlist = (const int*)jlist;
-  a.jcount = (const int*)jcount;
-  a.scale = (const float*)scale;
-  a.lse = (float*)lse1;
-  a.H = H; a.N = N; a.D = D; a.Dv = 0; a.n_i = n_i; a.W = W;
-  a.metric = metric; a.sqrt_d = sqrt_d;
-  a.inv_keep = 1.f;
-  return launch<LSE, true>(a, G, stream);
+  return launch<LSE, true>(lse1_walk(q, k, mask, jlist, jcount, scale, lse1,
+                                     H, N, D, n_i, W, metric, sqrt_d),
+                           G, stream);
 }

@@ -9,8 +9,8 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B2   _flash_bwd_fused_kernel  csrc/flash_pairwalk_bwd.cu
     B3a  _flash_bwd_dq_kernel     csrc/flash_geometric_bwd.cu
     B3b  _flash_bwd_dkv_kernel    csrc/flash_geometric_bwd.cu
-    B4   _lse1_kernel             csrc/flash_biased_fwd.cu
-    B5   _flash_biased_kernel     csrc/flash_biased_fwd.cu
+    B4   _lse1_kernel             csrc/flash_pairwalk_fwd.cu
+    B5   _flash_biased_kernel     csrc/flash_pairwalk_fwd.cu
     B6   _biased_bwd_pre_kernel   csrc/flash_biased_bwd.cu
     B7a  _biased_bwd_dq_kernel    csrc/flash_biased_bwd.cu
     B7b  _biased_bwd_dkv_kernel   csrc/flash_biased_bwd.cu
@@ -23,16 +23,16 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7a c  _biased_bwd_dq_kernel, compact   csrc/flash_biased_bwd.cu
     B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
 
-B1 and B2 are pair walks that read each mask tile once for all heads and
-compute only the mask's valid pairs. Every kernel above also has a bf16
-form (the TPU kernels' ``bf16=True``: every product's operands rounded to
-bf16, float32 sums), in the same sources under its own entry point and
-launch count (B1's, B4's and B5's in csrc/flash_pairwalk_fwd.cu and B2's
-in csrc/flash_pairwalk_bwd.cu, pair walks likewise; B6's and B7a's
-together as the row walk and B7b's as the key walk in
-csrc/flash_pairwalk_biased_bwd.cu, pair walks likewise; B3a c's and B3b c's
-in csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
-csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's in
+B1, B2, B4 and B5 are pair walks that read each mask tile once for all
+heads and compute only the mask's valid pairs. Every kernel above also
+has a bf16 form (the TPU kernels' ``bf16=True``: every product's operands
+rounded to bf16, float32 sums), in the same sources under its own entry
+point and launch count (B1's, B4's and B5's in
+csrc/flash_pairwalk_fwd.cu and B2's in csrc/flash_pairwalk_bwd.cu, pair
+walks likewise; B6's and B7a's together as the row walk and B7b's as the
+key walk in csrc/flash_pairwalk_biased_bwd.cu, pair walks likewise; B3a
+c's and B3b c's in csrc/flash_geometric_bwd_compact_bf16.cu, from the
+templates of csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's in
 csrc/flash_biased_bwd_compact_bf16.cu, from those of
 csrc/flash_biased_bwd.cuh); the model takes them under ``bf16_matmul``.
 
@@ -1671,9 +1671,11 @@ def _check_walk(name, dev, q, mask, jlist, jcount):
 
 
 class _FlashLse1Kernel(_CudaKernel):
-    """B4, ``tagan_flash_lse1``: lse1 [G, H, N] of the forward walk."""
+    """B4, ``tagan_flash_lse1``: lse1 [G, H, N] of the forward walk, as
+    B1's pair walk (csrc/flash_pairwalk_fwd.cu) keeping only the running
+    max and sum."""
     name = "flash_lse1"
-    source = "flash_biased_fwd"
+    source = "flash_pairwalk_fwd"
     symbol = "tagan_flash_lse1"
     argtypes = (_P,) * 7 + (_I,) * 7 + (_F,)
 
@@ -1696,10 +1698,11 @@ class _FlashLse1Kernel(_CudaKernel):
 
 class _FlashBiasedKernel(_CudaKernel):
     """B5, ``tagan_flash_biased_fwd``: (out, lse2) of the second softmax
-    over z = drop1(exp(s - lse1)) + bias, on the forward walk; lse1 is
-    an input."""
+    over z = drop1(exp(s - lse1)) + bias, as B1's pair walk
+    (csrc/flash_pairwalk_fwd.cu), which reads the bias at the valid pairs
+    only; lse1 is an input."""
     name = "flash_biased_fwd"
-    source = "flash_biased_fwd"
+    source = "flash_pairwalk_fwd"
     symbol = "tagan_flash_biased_fwd"
     argtypes = (_P,) * 12 + (_I,) * 8 + (_F, _I, _U, _F)
 
@@ -1811,19 +1814,15 @@ class _FlashLse1CompactKernel(_CudaKernel):
 
 class _FlashLse1Bf16Kernel(_FlashLse1Kernel):
     """B4's bf16 form, ``tagan_flash_lse1_bf16``: q.k from bf16
-    operands, as B1's bf16 form's pair walk (csrc/flash_pairwalk_fwd.cu),
-    keeping only the running max and sum."""
+    operands, the same pair walk."""
     name = "flash_lse1_bf16"
-    source = "flash_pairwalk_fwd"
     symbol = "tagan_flash_lse1_bf16"
 
 
 class _FlashBiasedBf16Kernel(_FlashBiasedKernel):
     """B5's bf16 form, ``tagan_flash_biased_fwd_bf16``: q.k and P@V from
-    bf16 operands, as B1's bf16 form's pair walk
-    (csrc/flash_pairwalk_fwd.cu)."""
+    bf16 operands, the same pair walk."""
     name = "flash_biased_fwd_bf16"
-    source = "flash_pairwalk_fwd"
     symbol = "tagan_flash_biased_fwd_bf16"
 
 

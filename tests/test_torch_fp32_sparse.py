@@ -1,9 +1,9 @@
-"""The plain fp32 forms of B1 and B2 against the Pallas kernels with
-``bf16=False`` (in interpret mode, at the port's 64 x 64 tile) at sparse
-masks: the functions that the fp32 pair walks of
-``csrc/flash_pairwalk_fwd.cu`` (B1) and ``csrc/flash_pairwalk_bwd.cu``
-(B2) are held to on the card, in the cases they handle differently from
-a dense tile walk. The masks come from `tests.test_torch_gpu.sparse_mask`,
+"""The plain fp32 forms of B1, B2, B4 and B5 against the Pallas kernels
+with ``bf16=False`` (in interpret mode, at the port's 64 x 64 tile) at
+sparse masks: the functions that the fp32 pair walks of
+``csrc/flash_pairwalk_fwd.cu`` (B1, B4, B5) and
+``csrc/flash_pairwalk_bwd.cu`` (B2) are held to on the card, in the
+cases they handle differently from a dense tile walk. The masks come from `tests.test_torch_gpu.sparse_mask`,
 which the card's tests of the pair walks share: a few keys a row over
 several tiles, a whole 64 x 64 tile, a tile holding one pair, an empty
 tile between walked ones, rows whose only keys lie in their row tile's
@@ -112,6 +112,26 @@ def _jax_bwd(metric, rate, scaled):
     return ref
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_biased_fwd(metric, rate, scaled):
+    @jax.jit
+    def ref(q, k, v, adj, bias, scale):
+        return JFG._flash_biased_forward(
+            q, k, v, adj, bias, metric=metric, block_m=64, block_n=64,
+            bf16=False, dropout_rate=rate, return_lse=True,
+            scale_param=scale if scaled else None,
+            seeds=jnp.asarray([SEED, SEED ^ 0x5BD1E995], jnp.int32))
+    return ref
+
+
+@pytest.fixture(scope="module")
+def sparse_bias(sparse_inputs):
+    """A N(0, 1) bias at the mask's pairs (0 elsewhere), f32 [N, N]."""
+    adj = sparse_inputs[-1]
+    rng = np.random.default_rng(17)
+    return np.where(adj, rng.standard_normal((N, N)), 0.0).astype(np.float32)
+
+
 def test_sparse_fp32_mask_cases(sparse_inputs):
     """The mask holds the cases it is named for, at 64 x 64 tiles: a whole
     tile, a tile of one pair, an empty tile, rows past 128 keys, dead rows
@@ -183,3 +203,36 @@ def test_plain_fp32_bwd_sparse_matches_jax(metric, rate, sparse_inputs,
     for g, w in zip(got[1:3], want[1:3]):
         assert torch.all(g[0][:, unreached] == 0)
         assert np.all(w[:, unreached] == 0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", TFG.MXU_METRICS)
+def test_plain_fp32_biased_sparse_matches_jax(metric, rate, sparse_inputs,
+                                              sparse_bias, interpret):
+    """B4's lse1 of the plain fp32 version, and B5's out and lse2 of the
+    plain fp32 second walk on JAX's lse1, against
+    ``_flash_biased_forward(..., bf16=False, return_lse=True)`` at 64 x 64
+    blocks: every metric, both dropouts off and on (the snapshot's two
+    seeds), per-head scales for gaussian and rbf, a N(0, 1) bias at the
+    mask's pairs; dead rows exactly 0 and LSE_DEAD on the port's side,
+    out exactly 0 there on both."""
+    q, k, v, _, _, adj, sc = _case(metric, sparse_inputs)
+    scaled = sc is not None
+    jout, jlse1, jlse2 = (np.asarray(a) for a in _jax_biased_fwd(
+        metric, rate, scaled)(
+        *(jnp.asarray(a) for a in (q, k, v, adj, sparse_bias)),
+        jnp.asarray(sc) if scaled else None))
+    q1, k1, v1, m1, b1 = (_t(a)[None] for a in (q, k, v, adj, sparse_bias))
+    scale = _t(sc) if scaled else None
+    lse1 = TFG.flash_lse1_plain(q1, k1, m1, metric, scale)
+    out, lse2 = TFG.flash_biased_forward_plain(
+        q1, k1, v1, m1, b1, _t(jlse1)[None], metric, scale, rate,
+        TFG.biased_seeds(SEED, 1, "cpu"))
+    live = adj.any(-1)
+    assert _err(lse1[0][:, live], jlse1[:, live]) <= TOL
+    assert _err(out[0], jout) <= TOL
+    assert _err(lse2[0][:, live], jlse2[:, live]) <= TOL
+    assert torch.all(out[0][:, ~live] == 0)
+    assert torch.all(lse1[0][:, ~live] == TFG.LSE_DEAD)
+    assert torch.all(lse2[0][:, ~live] == TFG.LSE_DEAD)
+    assert np.all(jout[:, ~live] == 0)

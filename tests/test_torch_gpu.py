@@ -2362,6 +2362,108 @@ def test_pairwalk_fp32_bwd_fold(H, cuda):
                                 seed=2)
 
 
+# -- the fp32 edge-biased forward's pair walks (B4, B5) at the same masks -----
+
+def _biased_fwd_fp32(q, k, v, mask, bias, plan, metric, scale, rate, seeds):
+    """(out, lse1, lse2) of the fp32 B4 and B5 walks through the public
+    entry ``flash_biased_fwd``."""
+    return FG.flash_biased_fwd(q, k, v, mask, bias, *plan, metric=metric,
+                               scale=scale, dropout_rate=rate, seeds=seeds)
+
+
+def _pairwalk_fp32_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate,
+                                   seed=0):
+    """B4 and B5 (the fp32 forward pair walks) through
+    ``flash_biased_fwd`` at `sparse_mask` with a N(0, 1) bias at the
+    mask's pairs: lse1 against the plain fp32 lse1, out and lse2 against
+    the plain fp32 second walk on the walk's lse1, each within TOL of its
+    largest entry (at least 1): fp32 on both sides, the walks' sums in
+    another order; dead rows exactly 0 and LSE_DEAD; B4 and B5 launched
+    once each, nothing else."""
+    q, k, v, mask, bias, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, D, Dv, metric, seed))
+    plan = FG.make_block_plan(mask)
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    out, lse1, lse2 = _biased_fwd_fp32(q, k, v, mask, bias, plan, metric,
+                                       scale, rate, seeds)
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    expect = {k_.name: 0 for k_ in FG.KERNELS}
+    expect.update({k_.name: 1 for k_ in (FG.flash_lse1_kernel,
+                                         FG.flash_biased_fwd_kernel)})
+    assert launched == expect
+    assert dead.any()
+    assert torch.all(out[dead] == 0)
+    assert torch.all(lse1[dead] == FG.LSE_DEAD)
+    assert torch.all(lse2[dead] == FG.LSE_DEAD)
+    p_lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale)
+    p_out, p_lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias, lse1,
+                                                  metric, scale, rate, seeds)
+    for t in (out, lse1, lse2):
+        assert torch.isfinite(t).all()
+    assert _close(lse1[~dead], p_lse1[~dead]) <= TOL
+    assert _close(out, p_out) <= TOL
+    assert _close(lse2[~dead], p_lse2[~dead]) <= TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1000, 1536])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_pairwalk_fp32_biased_fwd_sparse(metric, rate, N, cuda):
+    """The fp32 B4 and B5 walks at sparse masks (`sparse_mask`): every
+    metric, both dropouts off and on, N = 1000 (byte loads of the mask)
+    and 1536 (16-byte cp.async), H = 4 (8 rows a warp); rows past a
+    list's 64 entries flush before their end, so B5's running max moves
+    across flushes."""
+    _pairwalk_fp32_biased_vs_plain(cuda, 2, 4, N, 16, 16, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv,H", [(8, 8, 3), (12, 12, 3), (7, 3, 3),
+                                    (128, 128, 3), (128, 128, 1)])
+def test_pairwalk_fp32_biased_fwd_head_dims(D, Dv, H, metric, cuda):
+    """Head dims, dropout on, N = 1008 (16-byte loads, the last key tile
+    ragged): widths not a multiple of 4 take scalar gathers, and (128,
+    128) sets the warp's shared memory past 48 KB (57 KB at H = 1, the
+    largest)."""
+    _pairwalk_fp32_biased_vs_plain(cuda, 1, H, 1008, D, Dv, metric, 0.1,
+                                   seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 4, 40])
+def test_pairwalk_fp32_biased_fwd_fold(H, cuda):
+    """A 16-snapshot fold with dropout (each snapshot its two seeds), H =
+    1 (32 rows a warp), 4, and 40 (two head groups: the mask is read once
+    per group of 32 heads)."""
+    _pairwalk_fp32_biased_vs_plain(cuda, 16, H, 600, 16, 16, "euclidean",
+                                   0.1, seed=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
+                                         ("gaussian_kernel", 0.1)])
+def test_pairwalk_fp32_biased_fwd_deterministic(metric, rate, cuda):
+    """The fp32 B4 and B5 walks' out, lse1 and lse2 are bit-identical over
+    20 repeated calls: each row's sums run in its list's order, with no
+    atomics."""
+    G, H, N = 2, 4, 1008
+    q, k, v, mask, bias, scale, seeds = (
+        t.to(cuda) for t in _sparse_inputs(G, H, N, 16, 16, metric, 3))
+    plan = FG.make_block_plan(mask)
+    first = None
+    for _ in range(20):
+        got = _biased_fwd_fp32(q, k, v, mask, bias, plan, metric, scale,
+                               rate, seeds)
+        if first is None:
+            first = got
+        for a, b in zip(got, first):
+            assert torch.equal(a, b)
+
+
 # -- the bf16 biased backward's pair walks (the row walk, the key walk) ----------
 
 def _pairwalk_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):

@@ -23,10 +23,12 @@ Phases, in order; any failure raises and exits non-zero:
    the fp32 pair walks, against their plain versions on the same grid
    with a bias that sums duplicate edges, and the three (D, Dv), and at
    2's sparse masks and head dims with a N(0, 1) bias at the mask's
-   pairs; (2d) the edge-biased backward
-   kernels B6 (delta1, dB), B7a (dq, dscale) and B7b (dk, dv) against
-   their plain versions on 2c's grid, dB at the mask's pairs (and 0 at
-   the other pairs of the walked blocks); (2e) the compact-store forward
+   pairs; (2d) the edge-biased backward's
+   fp32 pair walks, the row walk (B6 and B7a: delta1, dB, dq, dscale)
+   and the key walk (B7b: dk, dv), against their plain versions on 2c's
+   grid and at its sparse masks and head dims, a fold of 40 heads (two
+   row walk launches adding into dB), dB at the mask's pairs, and nine
+   cases called twice, bit for bit; (2e) the compact-store forward
    kernels of the hybrid backend, B1c, B4c and B5c, against their compact
    plain versions on 2c's grid, with the bit and the int8 store (a row
    tile with jcount = 0 among the dead rows); (2f) the compact-store
@@ -132,10 +134,13 @@ Phases, in order; any failure raises and exits non-zero:
    ``flex_attention`` at the scaled-dot metric as the library yardstick
    (held against B4 and B5 at that metric), the csr ``edge_attention``
    on the same graph and bias, and their bounds; B4 and B5 also over 3b's
-   16 folded snapshots, per snapshot, at both metrics (timed in 3b); (5c) B6, B7a, B7b and the three together at the same
-   snapshot against the plain biased backward, compiled
+   16 folded snapshots, per snapshot, at both metrics (timed in 3b);
+   (5c) the fp32 row walk, the key walk and the two together at the
+   same snapshot against the plain biased backward, compiled
    ``flex_attention``'s backward of B4 and B5's function at the
-   scaled-dot metric as the library yardstick, and their bounds;
+   scaled-dot metric as the library yardstick (its gradients held
+   against the walks' there, recorded), and their bounds; the walks
+   over 6b's 8 folded snapshots are timed in 6b;
    (5d) B1c, B4c and B5c at one 131K snapshot of 3c/3d against their
    plain versions and bounds, compiled ``flex_attention`` under a block
    mask built from the compact plan (a bit-store mask_mod) at the
@@ -171,23 +176,23 @@ Phases, in order; any failure raises and exits non-zero:
    6e); and a density sweep at N = 10,000 (degree 16, 256 and 2,048): B1
    bf16, B4 bf16 and B2 bf16 held to the plain bf16 versions under the
    bf16 gates, B1, B2, B4 and B5 (the fp32 walks; B5 with a N(0, 1) bias
-   at the mask's pairs) to the plain fp32 versions within TOL, beside sdpa bf16 and sdpa fp32 (forward, and fp32's
-   backward) on the same masks, times recorded, not gated; the sweep also
+   at the mask's pairs) to the plain fp32 versions within TOL, beside
+   sdpa bf16 and sdpa fp32 (forward, and fp32's backward) on the same
+   masks, times recorded, not gated; the sweep also
    holds the bf16 biased backward's two walks to the plain bf16 version
-   on each mask;
+   and the fp32 walks to the plain fp32 version within TOL on each mask;
    (5h) the bf16 forms of B4, B5 (pair walks) and B6, B7a and B7b (the
    row walk, B6 and B7a bf16 in one kernel, and the key walk, B7b bf16)
-   at one snapshot of 3f's request, each beside its fp32 form in turns
-   (the row walk beside fp32 B6 + B7a, the two walks beside B6 + B7a +
-   B7b), the plain bf16 versions, compiled ``flex_attention`` on bf16 q,
+   at one snapshot of 3f's request, each beside its fp32 form in turns,
+   the plain bf16 versions, compiled ``flex_attention`` on bf16 q,
    k, v at the scaled-dot metric as the library yardstick (held against
    the bf16 B4 and B5 at that metric, null with the reason if it does
    not build or differs; its backward forward+backward minus forward,
    its gradients held against the two walks' at that metric, recorded),
    and their bounds; B4 bf16 and B5 bf16 also over 3f's 16 folded
    snapshots, per snapshot, at both metrics (timed in 3f), and the two
-   walks over 6f's 8 folded snapshots beside the fp32 B6 + B7a + B7b
-   there (timed in 6f); (5i) the bf16 forms
+   walks over 6f's 8 folded snapshots beside the fp32 walks there
+   (timed in 6f); (5i) the bf16 forms
    of B1c, B3a c and B3b c at one 131K snapshot of 6g, each beside its
    fp32 form in turns, the compact plain bf16 versions, compiled
    ``flex_attention`` on bf16 q, k, v under the compact plan's BlockMask
@@ -216,10 +221,11 @@ Phases, in order; any failure raises and exits non-zero:
    at full width, both backward forms against the plain backward, at the
    seeded weights and at those after the B3a+B3b steps (which sum in a
    fixed order, so the inputs are the same in every run);
-   (6b) the same for the edge-feature model (B4, B5 forward; B6, B7a,
-   B7b backward, each exactly once per layer per step, B1-B3 never):
-   step times, split, peak memory, one layer's B6+B7a+B7b over the
-   folded snapshots and its share of the step, finite non-zero
+   (6b) the same for the edge-feature model (B4, B5 forward; the row
+   walk and the key walk backward, each exactly once per layer per step,
+   B1-B3 never): step times, split, peak memory, one layer's two walks
+   (and each alone, and the bf16 walks on the same fold) over the folded
+   snapshots and their share of the step, finite non-zero
    gradients (``edge_embedding`` and each ``edge_bias`` included) and
    every parameter moved; one snapshot at full width against the plain
    backward; (6c) the hybrid model at part C's width over a
@@ -247,7 +253,7 @@ Phases, in order; any failure raises and exits non-zero:
    backward's row walk and key walk each exactly once per layer per
    step, nothing else; step times, split, peak memory, one layer's bf16
    B4 + B5 (and B4 alone) and the two walks (and each alone, and the fp32
-   B6 + B7a + B7b on the same fold) over the folded snapshots and their
+   walks on the same fold) over the folded snapshots and their
    share of the step, finite non-zero gradients (the edge parameters'
    included), one snapshot at full width against the plain bf16 biased
    backward;
@@ -280,11 +286,11 @@ Phases, in order; any failure raises and exits non-zero:
    witness, twice: with the kernels alone at bf16 (the plain
    contractions pinned to fp32) under model-level bf16 gates, and as
    the model runs, every contraction at bf16, at bf16-class tolerances;
-   (7f) the same for the edge-feature model on 7b's graphs (the bf16
-   forms of B4-B7b); (7g) the same for the hybrid model on 7c's graphs at
-   4,096 nodes (the bf16 forms of B1c, B3a c and B3b c), the CPU's own
-   flip noise measured beside it; (7h) the same for the edge-feature
-   hybrid model on 7d's graphs (the bf16 forms of B4c-B7b c);
+   (7f) the same for the edge-feature model on 7b's graphs (the bf16 forms
+   of B4, B5 and the two walks); (7g) the same for the hybrid model on 7c's
+   graphs at 4,096 nodes (the bf16 forms of B1c, B3a c and B3b c), the
+   CPU's own flip noise measured beside it; (7h) the same for the
+   edge-feature hybrid model on 7d's graphs (the bf16 forms of B4c-B7b c);
 8. the graph-sharded ring over g = 2, 4 and 8 virtual ranks of the card
    (``make_mesh(graph=g, devices=["cuda"] * g)``, each rank with a
    compute and a copy stream of its own): the main path is
@@ -487,16 +493,14 @@ def bf16_gates(label, got, want, f32, witness=True, mean=True):
 
 
 def biased_kernels(FG, bf16):
-    """The wrappers of B4, B5, B6, B7a and B7b: the fp32 forms, or the
-    bf16 forms of B4 and B5 and the bf16 backward's row walk (B6 and B7a)
-    and key walk (B7b)."""
+    """The wrappers of B4, B5, the backward's row walk (B6 and B7a) and
+    its key walk (B7b): the fp32 or the bf16 forms."""
     if bf16:
         return (FG.flash_lse1_bf16_kernel, FG.flash_biased_fwd_bf16_kernel,
                 FG.flash_biased_bwd_row_bf16_kernel,
                 FG.flash_biased_bwd_key_bf16_kernel)
     return (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
-            FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
-            FG.flash_biased_bwd_dkv_kernel)
+            FG.flash_biased_bwd_row_kernel, FG.flash_biased_bwd_key_kernel)
 
 
 def flash_kernels(FG, bf16):
@@ -871,31 +875,15 @@ def phase_small_biased(FG):
 
 # -- phase 2d -----------------------------------------------------------------
 
-def walked_pairs(FG, mask):
-    """bool [G, N, N]: the pairs of the 64 x 64 blocks the forward walk
-    visits."""
-    N = mask.shape[-1]
-    occ = FG._occ_from_mask(mask, FG.BLOCK_M, FG.BLOCK_N)
-    return occ.repeat_interleave(FG.BLOCK_M, 1).repeat_interleave(
-        FG.BLOCK_N, 2)[:, :N, :N]
-
-
 def biased_bwd_kernels(FG, q, k, v, mask, bias, do, lse1, lse2, delta2,
                        plan, plan_t, metric, scale, seeds, rate, need,
                        bf16=False):
-    """B6, then B7a and B7b on B6's delta1, or with ``bf16`` the row walk
-    then the key walk on its delta1: (delta1, dB, dq, dscale, dk, dv)."""
+    """The row walk, then the key walk on its delta1, in fp32 or with
+    ``bf16`` their bf16 forms: (delta1, dB, dq, dscale, dk, dv)."""
     common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
-    if bf16:
-        row, key = biased_kernels(FG, True)[2:]
-        d1, db, dq, dsc = row(*common, *plan, metric, scale, seeds, rate,
-                              need)
-        dk, dv = key(*common, d1, *plan_t, metric, scale, seeds, rate)
-        return d1, db, dq, dsc, dk, dv
-    _, _, pre, dq_k, dkv_k = biased_kernels(FG, False)
-    d1, db = pre(*common, *plan, metric, scale, seeds, rate)
-    dq, dsc = dq_k(*common, d1, *plan, metric, scale, seeds, rate, need)
-    dk, dv = dkv_k(*common, d1, *plan_t, metric, scale, seeds, rate)
+    row, key = biased_kernels(FG, bf16)[2:]
+    d1, db, dq, dsc = row(*common, *plan, metric, scale, seeds, rate, need)
+    dk, dv = key(*common, d1, *plan_t, metric, scale, seeds, rate)
     return d1, db, dq, dsc, dk, dv
 
 
@@ -914,16 +902,14 @@ def biased_bwd_plain_parts(FG, common, metric, scale, seeds, rate, need,
 
 def biased_bwd_errors(FG, label, got, q, k, v, mask, bias, do, lse1, lse2,
                       delta2, metric, scale, seeds, rate, need, bf16=False):
-    """{B6, B7a, B7b: error} of the kernels' outputs ``got`` against the
-    plain parts on the same inputs: each output's max abs error over its
-    largest entry (at least 1), dB at the mask's pairs; raises past TOL,
-    on a non-finite output, or where dB is not 0 at the other pairs of
-    the walked blocks. ``bf16``: the row walk and the key walk against
-    the plain bf16 parts under the bf16 gates (the plain fp32 parts the
-    witness; dscale the max gate alone; dB at the mask's pairs, the only
-    ones the row walk writes); the errors are then each walk's worst (max
-    abs error, max error, mean error, witness), under "B6+B7a" and
-    "B7b"."""
+    """{"B6+B7a": the row walk's error, "B7b": the key walk's} of the
+    walks' outputs ``got`` against the plain parts on the same inputs, dB
+    at the mask's pairs (the only ones the row walk writes): each output's
+    max abs error over its largest entry (at least 1), raising past TOL or
+    on a non-finite output. ``bf16``: the bf16 walks against the plain
+    bf16 parts under the bf16 gates (the plain fp32 parts the witness;
+    dscale the max gate alone); the errors are then each walk's worst
+    (max abs error, max error, mean error, witness)."""
     d1, db, dq, dsc, dk, dv = got
     common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
     plain = biased_bwd_plain_parts(FG, common, metric, scale, seeds, rate,
@@ -948,23 +934,30 @@ def biased_bwd_errors(FG, label, got, q, k, v, mask, bias, do, lse1, lse2,
                     ("dB", db[on])):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{label}: non-finite {name}")
-    if not bool((db[walked_pairs(FG, mask) & ~on] == 0).all()):
-        raise AssertionError(f"{label}: dB not 0 off the mask in a walked "
-                             f"block")
-    err = {"B6": max(rel_err(d1, p_d1), rel_err(db[on], p_db[on])),
-           "B7a": max(rel_err(dq, p_dq),
-                      rel_err(dsc, p_dsc) if need else 0.0),
+    err = {"B6+B7a": max(rel_err(d1, p_d1), rel_err(db[on], p_db[on]),
+                         rel_err(dq, p_dq),
+                         rel_err(dsc, p_dsc) if need else 0.0),
            "B7b": max(rel_err(dk, p_dk), rel_err(dv, p_dv))}
     if not max(err.values()) <= TOL:
         raise AssertionError(f"{label}: errors {err} > {TOL}")
     return err
 
 
-def biased_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
-    """B6, B7a and B7b against the plain parts on 2c's inputs, the plain
-    forward's statistics and the cotangent of `small_inputs`."""
+def biased_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0,
+                        sparse=False, repeat=False):
+    """The fp32 row and key walks against the plain parts on 2c's inputs
+    (at `sparse_cases` with a N(0, 1) bias at the mask's pairs with
+    ``sparse``), the plain forward's statistics and the cotangent of
+    `small_inputs`; with ``repeat``, a second call must give the same bits
+    (dB at the mask's pairs)."""
     q, k, v, mask, bias, scale, seeds = biased_small_inputs(
         FG, G, H, N, D, Dv, metric, seed)
+    if sparse:
+        mask = sparse_cases(G, N, seed)
+        bias = torch.where(mask != 0, torch.randn(
+            mask.shape, device=DEV,
+            generator=torch.Generator(device=DEV).manual_seed(seed + 2)),
+            0.0)
     do = small_inputs(FG, G, H, N, D, Dv, metric, seed)[3]
     need = metric in FG.SCALED_METRICS
     lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale)
@@ -972,25 +965,52 @@ def biased_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, seed=0):
                                               metric, scale, rate, seeds)
     delta2 = (do * out).sum(-1)
     args = (q, k, v, mask, bias, do, lse1, lse2, delta2)
-    got = biased_bwd_kernels(FG, *args, *FG.make_block_plans_from_mask(mask),
-                             metric, scale, seeds, rate, need)
-    return biased_bwd_errors(FG, f"biased {metric} rate={rate} D={D} Dv={Dv}",
-                             got, *args, metric, scale, seeds, rate, need)
+    plans = FG.make_block_plans_from_mask(mask)
+    got = biased_bwd_kernels(FG, *args, *plans, metric, scale, seeds, rate,
+                             need)
+    label = (f"biased {metric} rate={rate} G={G} H={H} N={N} D={D} Dv={Dv}"
+             + (" sparse" if sparse else ""))
+    if repeat:
+        on = mask != 0
+        again = biased_bwd_kernels(FG, *args, *plans, metric, scale, seeds,
+                                   rate, need)
+        for i, (a, b) in enumerate(zip(got, again)):
+            if a is not None and not torch.equal(
+                    a[on] if i == 1 else a, b[on] if i == 1 else b):
+                raise AssertionError(f"{label}: output {i} differs between "
+                                     f"two calls")
+    return biased_bwd_errors(FG, label, got, *args, metric, scale, seeds,
+                             rate, need)
 
 
 def phase_small_biased_bwd(FG):
+    """[2d] The fp32 row walk (B6 and B7a) and key walk (B7b): 2c's grid,
+    every metric with dropout 0 and 0.1 on the random masks and at the
+    sparse masks, head dims up to (128, 128), a fold past 32 heads (two
+    row walk launches adding into dB), two calls bit for bit."""
     errs = []
     for metric in FG.MXU_METRICS:
         for rate in (0.0, 0.1):
             errs.append(biased_bwd_vs_plain(FG, 2, 3, 150, 16, 8, metric,
                                             rate))
+            errs.append(biased_bwd_vs_plain(FG, 2, 4, 1000, 16, 16, metric,
+                                            rate, sparse=True,
+                                            repeat=rate > 0))
     for D, Dv in ((7, 3), (40, 72), (128, 128)):
         errs.append(biased_bwd_vs_plain(FG, 2, 2, 200, D, Dv,
                                         "gaussian_kernel", 0.1, 1))
-    out = {name: max(e[name] for e in errs) for name in ("B6", "B7a", "B7b")}
-    log(f"[2d] B6, B7a and B7b vs plain: {len(errs)} cases; max err B6 "
-        f"(delta1, dB at the mask's pairs) {out['B6']:.3e}, B7a (dq, dscale) "
-        f"{out['B7a']:.3e}, B7b (dk, dv) {out['B7b']:.3e} (tol {TOL})")
+    for D, Dv in SPARSE_DIMS:
+        errs.append(biased_bwd_vs_plain(FG, 1, 3, 1008, D, Dv,
+                                        "gaussian_kernel", 0.1, 1,
+                                        sparse=True))
+    errs.append(biased_bwd_vs_plain(FG, 2, 40, 600, 16, 16, "rbf_kernel",
+                                    0.1, 2, sparse=True, repeat=True))
+    out = {name: max(e[name] for e in errs) for name in ("B6+B7a", "B7b")}
+    log(f"[2d] the fp32 row walk (B6 and B7a) and key walk (B7b) vs plain: "
+        f"{len(errs)} cases ({len(errs) - 19} at the sparse masks, 9 of "
+        f"them called twice bit for bit); max err row walk (delta1, dB at "
+        f"the mask's pairs, dq, dscale) {out['B6+B7a']:.3e}, key walk (dk, "
+        f"dv) {out['B7b']:.3e} (tol {TOL})")
     return out
 
 
@@ -1919,7 +1939,9 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
     the bf16
     biased backward's row walk and key walk on B4 bf16's lse1 and B5
     bf16's out and lse2 with a N(0, 1) bias at the mask's pairs, held to
-    the plain bf16 biased backward. Times are recorded, not gated."""
+    the plain bf16 biased backward, and the fp32 walks on B4's and B5's
+    statistics, held to the plain fp32 backward within TOL. Times are
+    recorded, not gated."""
     b4 = FG.flash_lse1_bf16_kernel
     b2 = FG.flash_geometric_bwd_fused_bf16_kernel
     b5, row, key = biased_kernels(FG, True)[1:]
@@ -1996,12 +2018,29 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
             err45_32 = max(rel_err(lse1_32[live], f_lse1[live]),
                            rel_err(out5_32, f_out5),
                            rel_err(lse2_32[live], f_lse2[live]))
+            # the fp32 row and key walks on B4 and B5's statistics
+            plan_t = FG._transposed_plan(mask)
+            row32, key32 = biased_kernels(FG, False)[2:]
+            c32 = (q, k, v, mask, bias, do, lse1_32, lse2_32,
+                   (do * out5_32).sum(-1))
+            row32_ms = cuda_ms(lambda: row32(*c32, *plan, "euclidean", ones,
+                                             seeds2, 0.0, False), 10)
+            d1_32 = row32(*c32, *plan, "euclidean", ones, seeds2, 0.0,
+                          False)[0]
+            key32_ms = cuda_ms(lambda: key32(*c32, d1_32, *plan_t,
+                                             "euclidean", ones, seeds2, 0.0),
+                               10)
+            got32 = biased_bwd_kernels(FG, *c32, plan, plan_t, "euclidean",
+                                       ones, seeds2, 0.0, False)
+            walk32_err = biased_bwd_errors(FG, f"degree {deg} fp32 walks",
+                                           got32, *c32, "euclidean", ones,
+                                           seeds2, 0.0, False)
             del lse1_32, out5_32, lse2_32, f_lse1, f_out5, f_lse2
+            del c32, d1_32, got32
             out5, lse2 = b5(q, k, v, mask, bias, lse1, *plan, "euclidean",
                             ones, seeds2, 0.0)
             bcommon = (q, k, v, mask, bias, do, lse1, lse2,
                        (do * out5).sum(-1))
-            plan_t = FG._transposed_plan(mask)
             row_ms = cuda_ms(lambda: row(*bcommon, *plan, "euclidean", ones,
                                          seeds2, 0.0, False), 10)
             d1 = row(*bcommon, *plan, "euclidean", ones, seeds2, 0.0,
@@ -2046,7 +2085,8 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
                         b4_fp32_ms=b4_32_ms, b5_fp32_ms=b5_32_ms,
                         b4_b5_fp32_err=err45_32,
                         row_walk_ms=row_ms, key_walk_ms=key_ms,
-                        walk_gates=walk_gates)
+                        walk_gates=walk_gates, row_walk_fp32_ms=row32_ms,
+                        key_walk_fp32_ms=key32_ms, walk_fp32_err=walk32_err)
         log(f"[5g] density: N={N}, degree {deg} ({pairs} valid pairs, "
             f"{int(plan[1].sum().item())} walked tiles): B1 bf16 ms "
             f"{a16:.4f} {b16:.4f}, B1 (fp32 walk) ms {a32:.4f} {b32:.4f}, "
@@ -2055,9 +2095,11 @@ def density_sweep(FG, f32, bf16, H, N, D, Dv):
             f"{b2_32_ms:.4f}, sdpa fp32 backward ms {lib32_b:.4f}; B4 (fp32 "
             f"walk) ms {b4_32_ms:.4f}, B5 (fp32 walk) ms {b5_32_ms:.4f}; fp32 "
             f"walks vs plain fp32 B1 {err32:.3e}, B2 {err2_32:.3e}, B4 and B5 "
-            f"{err45_32:.3e}; biased backward "
-            f"row walk ms {row_ms:.4f}, "
-            f"key walk ms {key_ms:.4f}; vs plain bf16 (max abs err, max err, "
+            f"{err45_32:.3e}, row walk {walk32_err['B6+B7a']:.3e}, key walk "
+            f"{walk32_err['B7b']:.3e}; biased backward row walk bf16 ms "
+            f"{row_ms:.4f}, key walk bf16 ms {key_ms:.4f}, row walk (fp32) ms "
+            f"{row32_ms:.4f}, key walk (fp32) ms {key32_ms:.4f}; vs plain "
+            f"bf16 (max abs err, max err, "
             f"mean err, witness) B1 {tuple(f'{x:.3e}' for x in gates)}, B4 "
             f"{tuple(f'{x:.3e}' for x in gates4)}, B2 "
             f"{tuple(f'{x:.3e}' for x in gates2)}, walks "
@@ -2279,11 +2321,13 @@ def flex_bwd_yardstick(q, k, v, mask, bias, do, got=None):
 
 
 def biased_bwd_bounds(FG, q, v, mask, plan, plan_t):
-    """Each biased backward kernel's least time from these inputs: every
+    """The biased backward walks' least times from these inputs: every
     input read once (q, k, v, do, the row statistics, the int8 mask, the
     bias at the valid pairs only, the plan, scale, seeds) and every output
     written once (dB at the valid pairs), against the products on the
-    valid pairs at the fp32 peak."""
+    valid pairs at the fp32 peak: the row walk ("B6+B7a": delta1, dB, dq
+    from one read of their inputs), the key walk ("B7b", reading delta1)
+    and the two ("both": delta1 between them is internal)."""
     G, H, N, D = q.shape
     Dv = v.shape[-1]
     HN = G * H * N
@@ -2295,26 +2339,24 @@ def biased_bwd_bounds(FG, q, v, mask, plan, plan_t):
     f6, f7a = 2 * H * pairs * (D + Dv), 2 * H * pairs * (2 * D + Dv)
     f7b = 2 * H * pairs * (2 * D + 2 * Dv)
     return pairs, {
-        "B6": bound(common + plan_b + 4 * HN + 4 * pairs, f6),  # q.k, do.v
-        "B7a": bound(common + 4 * HN + plan_b + 4 * HN * D, f7a),
-        "B7b": bound(common + 4 * HN + plan_tb + 4 * HN * (D + Dv), f7b),
-        # the bf16 row walk (B6 and B7a's outputs from one read of their
-        # inputs) and the two walks (delta1 between them is internal)
         "B6+B7a": bound(common + plan_b + 4 * HN + 4 * pairs + 4 * HN * D,
                         f6 + f7a),
+        "B7b": bound(common + 4 * HN + plan_tb + 4 * HN * (D + Dv), f7b),
         "both": bound(common + plan_b + plan_tb + 4 * pairs
                       + 4 * HN * (2 * D + Dv), f6 + f7a + f7b)}
 
 
 def phase_times_biased_bwd(FG, args):
-    """B6, B7a, B7b and the three together at one snapshot of the
-    edge-feature request, against the plain backward, the library's
-    (`flex_bwd_yardstick`) and each kernel's bound."""
+    """[5c] The fp32 row walk (B6 and B7a), key walk (B7b) and the two
+    together at one snapshot of the edge-feature request, against the
+    plain backward, the library's (`flex_bwd_yardstick`) and each one's
+    bound."""
     q, k, v, mask, bias, jlist, jcount = args
     G, H, N, D = q.shape
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(G, 2, dtype=torch.int32, device=DEV)
     plan, plan_t = (jlist, jcount), FG._transposed_plan(mask)
+    row, key = biased_kernels(FG, False)[2:]
     sdp = "scaled_dot_product"
     stats = {}
     with torch.no_grad():
@@ -2331,22 +2373,15 @@ def phase_times_biased_bwd(FG, args):
                  for m, (o, l1, l2) in stats.items()}
         delta2 = stats["euclidean"][2]
         common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
-        d1 = FG.flash_biased_bwd_pre_kernel(*common, *plan, "euclidean",
-                                            ones, seeds, 0.0)[0]
+        d1 = row(*common, *plan, "euclidean", ones, seeds, 0.0, False)[0]
 
-        def b6():
-            FG.flash_biased_bwd_pre_kernel(*common, *plan, "euclidean", ones,
-                                           seeds, 0.0)
+        def row_walk():
+            row(*common, *plan, "euclidean", ones, seeds, 0.0, False)
 
-        def b7a():
-            FG.flash_biased_bwd_dq_kernel(*common, d1, *plan, "euclidean",
-                                          ones, seeds, 0.0, False)
+        def key_walk():
+            key(*common, d1, *plan_t, "euclidean", ones, seeds, 0.0)
 
-        def b7b():
-            FG.flash_biased_bwd_dkv_kernel(*common, d1, *plan_t, "euclidean",
-                                           ones, seeds, 0.0)
-
-        def all3(metric="euclidean"):
+        def both(metric="euclidean"):
             biased_bwd_kernels(FG, q, k, v, mask, bias, do, *stats[metric],
                                plan, plan_t, metric, ones, seeds, 0.0, False)
 
@@ -2355,35 +2390,33 @@ def phase_times_biased_bwd(FG, args):
                                            lse2, do, "euclidean", ones, 0.0,
                                            seeds)
 
-        p1, a1, a2, p2 = (cuda_ms(plain, 3), cuda_ms(all3, 10),
-                          cuda_ms(all3, 10), cuda_ms(plain, 3))
-        t6, t7a, t7b = cuda_ms(b6, 10), cuda_ms(b7a, 10), cuda_ms(b7b, 10)
-        a_sdp = cuda_ms(lambda: all3(sdp), 10)
+        p1, a1, a2, p2 = (cuda_ms(plain, 3), cuda_ms(both, 10),
+                          cuda_ms(both, 10), cuda_ms(plain, 3))
+        tr, tk = cuda_ms(row_walk, 10), cuda_ms(key_walk, 10)
+        a_sdp = cuda_ms(lambda: both(sdp), 10)
+        got_sdp = biased_bwd_kernels(FG, q, k, v, mask, bias, do,
+                                     *stats[sdp], plan, plan_t, sdp, ones,
+                                     seeds, 0.0, False)
     t0 = time.perf_counter()
-    lib = flex_bwd_yardstick(q, k, v, mask, bias, do)
+    lib = flex_bwd_yardstick(q, k, v, mask, bias, do, got_sdp)
     lib["setup_and_timing_s"] = time.perf_counter() - t0
     pairs, bounds = biased_bwd_bounds(FG, q, v, mask, plan, plan_t)
-    walked = int(jcount.sum().item()) * FG.BLOCK_M * FG.BLOCK_N
-    res = {"B6": dict(ms=[t6], **bounds["B6"]),
-           "B7a": dict(ms=[t7a], **bounds["B7a"]),
-           "B7b": dict(ms=[t7b], **bounds["B7b"]),
-           "B6+B7a+B7b_ms": [a1, a2], "B6+B7a+B7b_sdp_ms": a_sdp,
+    res = {"B6+B7a": dict(ms=[tr], **bounds["B6+B7a"]),
+           "B7b": dict(ms=[tk], **bounds["B7b"]),
+           "both": dict(ms=[a1, a2], sdp_ms=a_sdp, **bounds["both"]),
            "plain_ms": [p1, p2], "library": lib, "valid_pairs": pairs,
-           "walked_pairs": walked,
-           "db_whole_tile_write_ms": 4 * walked / PEAK_BYTES * 1e3}
-    log(f"[5c] H={H} N={N} D={D}, one snapshot, biased backward: B6 ms "
-        f"{t6:.4f}, B7a {t7a:.4f}, B7b {t7b:.4f}; B6+B7a+B7b ms {a1:.4f} "
-        f"{a2:.4f} (scaled-dot metric {a_sdp:.4f}); plain ms {p1:.4f} "
-        f"{p2:.4f}")
+           "walked_tiles": int(jcount.sum().item())}
+    log(f"[5c] H={H} N={N} D={D}, one snapshot, fp32 biased backward: row "
+        f"walk (B6+B7a) ms {tr:.4f}, key walk (B7b) {tk:.4f}; both ms "
+        f"{a1:.4f} {a2:.4f} (scaled-dot metric {a_sdp:.4f}); plain ms "
+        f"{p1:.4f} {p2:.4f}")
     log(f"[5c] library: compiled flex_attention backward of B4 and B5's "
         f"function at the scaled-dot metric: {lib}")
-    for name in ("B6", "B7a", "B7b"):
+    for name in ("B6+B7a", "B7b", "both"):
         r = res[name]
         log(f"[5c] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
             f"({r['bytes']} bytes, {r['flops']} flops over {pairs} valid "
             f"pairs)")
-    log(f"[5c] B6 writes dB on every pair of the {walked} walked: "
-        f"{res['db_whole_tile_write_ms']:.5f} ms of the memory rate")
     return res
 
 
@@ -2402,8 +2435,7 @@ def phase_times_biased_bf16(FG, args):
     """[5h] B4 and B5 in their bf16 forms and the bf16 backward's two
     walks (the row walk: B6 and B7a bf16; the key walk: B7b bf16; and the
     two together) at one 10K snapshot of the bf16 edge-feature request
-    (3f), each beside its fp32 form in turns (the row walk beside fp32 B6
-    + B7a, the two walks beside B6 + B7a + B7b), the plain bf16 versions,
+    (3f), each beside its fp32 form in turns, the plain bf16 versions,
     and their bounds: the fp32 forms' bytes (the inputs stay fp32) and
     the valid pairs' operations at the bf16 tensor-core rate. The library
     yardstick is compiled ``flex_attention`` on bf16 q, k, v at the
@@ -2429,7 +2461,8 @@ def phase_times_biased_bf16(FG, args):
         delta2 = (do * out).sum(-1)
         common = (q, k, v, mask, bias, do, lse1, lse2, delta2)
         d1 = k16[2](*common, *plan, "euclidean", ones, seeds, 0.0, False)[0]
-        d1_32 = k32[2](*common, *plan, "euclidean", ones, seeds, 0.0)[0]
+        d1_32 = k32[2](*common, *plan, "euclidean", ones, seeds, 0.0,
+                       False)[0]
 
         def fwd4(kern):
             return lambda: kern(q, k, mask, *plan, "euclidean", ones)
@@ -2438,11 +2471,6 @@ def phase_times_biased_bf16(FG, args):
             return lambda: kern(q, k, v, mask, bias, lse1, *plan,
                                 "euclidean", ones, seeds, 0.0)
 
-        def row32():
-            k32[2](*common, *plan, "euclidean", ones, seeds, 0.0)
-            k32[3](*common, d1_32, *plan, "euclidean", ones, seeds, 0.0,
-                   False)
-
         def both(bf16, metric="euclidean", stats=(lse1, lse2, delta2)):
             return lambda: biased_bwd_kernels(
                 FG, q, k, v, mask, bias, do, *stats, plan, plan_t, metric,
@@ -2450,9 +2478,11 @@ def phase_times_biased_bf16(FG, args):
         calls = {
             "B4": (fwd4(k32[0]), fwd4(k16[0])),
             "B5": (fwd5(k32[1]), fwd5(k16[1])),
-            "B6+B7a": (row32, lambda: k16[2](*common, *plan, "euclidean",
-                                             ones, seeds, 0.0, False)),
-            "B7b": (lambda: k32[4](*common, d1_32, *plan_t, "euclidean",
+            "B6+B7a": (lambda: k32[2](*common, *plan, "euclidean", ones,
+                                      seeds, 0.0, False),
+                       lambda: k16[2](*common, *plan, "euclidean", ones,
+                                      seeds, 0.0, False)),
+            "B7b": (lambda: k32[3](*common, d1_32, *plan_t, "euclidean",
                                    ones, seeds, 0.0),
                     lambda: k16[3](*common, d1, *plan_t, "euclidean", ones,
                                    seeds, 0.0)),
@@ -2533,9 +2563,8 @@ def phase_times_biased_bf16(FG, args):
                     f"{' '.join(f'{x:.4f}' for x in t[1])})"
                     for n, t in times.items())
         + f"; plain bf16 ms B4 {plain4:.4f}, B5 {plain5:.4f}, backward "
-        f"{plain_b:.4f} (\"B6+B7a\": the row walk, fp32 B6 + B7a; \"B7b\": "
-        f"the key walk, fp32 B7b; \"both\": the two walks, fp32 B6 + B7a + "
-        f"B7b)")
+        f"{plain_b:.4f} (\"B6+B7a\": the row walk; \"B7b\": the key walk; "
+        f"\"both\": the two walks; each beside its fp32 form)")
     log(f"[5h] library: compiled flex_attention on bf16 q, k, v at the "
         f"scaled-dot metric: {lib} (bf16 B4 at that metric {k4_sdp:.4f} ms, "
         f"B5 {k5_sdp:.4f}, the two walks {walks_sdp:.4f}); backward of B4 "
@@ -2938,14 +2967,13 @@ def phase_train_edge(tt, FG, bf16=False):
         fold_bwd = cuda_ms(lambda: biased_bwd_kernels(
             FG, *args, plan, plan_t, "euclidean", ones, seeds, 0.0, False,
             bf16), 3)
-        walks = bf16 and fold_walk_times(FG, kerns, args, plan, plan_t,
-                                         ones, seeds)
+        walks = fold_walk_times(FG, tag, args, plan, plan_t, ones, seeds,
+                                bf16)
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
     log(f"[{tag}] one layer's launches over the {G} folded snapshots: B4+B5 "
         f"{fold_fwd:.3f} ms (B4 {fold_b4:.3f} ms), "
-        f"{'the row and key walks' if bf16 else 'B6+B7a+B7b'} "
-        f"{fold_bwd:.3f} ms; {cfg.num_layers} "
+        f"the row and key walks {fold_bwd:.3f} ms; {cfg.num_layers} "
         f"layers' backward kernels = {share:.3f} and with B4+B5 "
         f"{cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the fastest "
         f"step ({step:.3f} ms)")
@@ -2966,24 +2994,25 @@ def phase_train_edge(tt, FG, bf16=False):
         full = {n: r[0] for n, r in full.items()}
     else:
         log(f"[{tag}] biased backward at N={N_FULL}, one snapshot, vs plain: "
-            f"max err B6 {full['B6']:.3e}, B7a {full['B7a']:.3e}, B7b "
+            f"max err row walk {full['B6+B7a']:.3e}, key walk "
             f"{full['B7b']:.3e}")
     return dict(epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
                 loss=losses, launches=launched, peak_memory_gb=peak_gb,
                 held_gb=held_gb, edge_grad_max=edge_grads, moved=moved,
                 fold_b4_b5_ms=fold_fwd, fold_b4_ms=fold_b4,
-                fold_b6_b7_ms=fold_bwd, fold_walks=walks or None,
+                fold_b6_b7_ms=fold_bwd, fold_walks=walks,
                 b6_b7_share_of_step=share, full_err=full)
 
 
-def fold_walk_times(FG, kerns, args, plan, plan_t, ones, seeds):
-    """[5h] The bf16 biased backward's walks over 6f's folded snapshots,
-    per snapshot: the row walk, the key walk and the two together at the
-    euclidean metric, the two at the scaled-dot metric (on B4 and B5
-    bf16's statistics there), and the fp32 B6 + B7a + B7b on the same
-    inputs, in turns."""
+def fold_walk_times(FG, tag, args, plan, plan_t, ones, seeds, bf16):
+    """The biased backward's walks over 6b's (6f's with ``bf16``) folded
+    snapshots, per snapshot: the row walk, the key walk and the two
+    together at the euclidean metric, the two at the scaled-dot metric (on
+    B4 and B5's statistics there), and the two walks of the other
+    precision on the same inputs, in turns."""
     q, k, v, mask, bias, do, lse1, lse2, delta2 = args
     G = q.shape[0]
+    kerns = biased_kernels(FG, bf16)
     common = args
     d1 = kerns[2](*common, *plan, "euclidean", ones, seeds, 0.0, False)[0]
     sdp = "scaled_dot_product"
@@ -2992,28 +3021,29 @@ def fold_walk_times(FG, kerns, args, plan, plan_t, ones, seeds):
     sdp_stats = (l1, l2, (do * o).sum(-1))
     del o
 
-    def walks(metric="euclidean", stats=(lse1, lse2, delta2), bf16=True):
+    def walks(metric="euclidean", stats=(lse1, lse2, delta2), b16=bf16):
         return lambda: biased_bwd_kernels(
             FG, q, k, v, mask, bias, do, *stats, plan, plan_t, metric, ones,
-            seeds, 0.0, False, bf16)
+            seeds, 0.0, False, b16)
     row = cuda_ms(lambda: kerns[2](*common, *plan, "euclidean", ones, seeds,
                                    0.0, False), 5)
     key = cuda_ms(lambda: kerns[3](*common, d1, *plan_t, "euclidean", ones,
                                    seeds, 0.0), 5)
-    f32a, both_a = cuda_ms(walks(bf16=False), 2), cuda_ms(walks(), 5)
-    both_b, f32b = cuda_ms(walks(), 5), cuda_ms(walks(bf16=False), 2)
+    other = "fp32" if bf16 else "bf16"
+    o_a, both_a = cuda_ms(walks(b16=not bf16), 5), cuda_ms(walks(), 5)
+    both_b, o_b = cuda_ms(walks(), 5), cuda_ms(walks(b16=not bf16), 5)
     both_sdp = cuda_ms(walks(sdp, sdp_stats), 5)
     res = dict(G=G, row_ms=row / G, key_ms=key / G,
                ms=min(both_a, both_b) / G, sdp_ms=both_sdp / G,
-               fp32_ms=min(f32a, f32b) / G,
                turns_ms=[both_a / G, both_b / G],
-               fp32_turns_ms=[f32a / G, f32b / G])
-    log(f"[5h] the bf16 biased backward's walks over 6f's {G} folded "
-        f"snapshots, per snapshot: row walk {res['row_ms']:.5f} ms, key walk "
-        f"{res['key_ms']:.5f} ms, both "
+               **{f"{other}_ms": min(o_a, o_b) / G,
+                  f"{other}_turns_ms": [o_a / G, o_b / G]})
+    log(f"[{tag}] the {'bf16' if bf16 else 'fp32'} biased backward's walks "
+        f"over the {G} folded snapshots, per snapshot: row walk "
+        f"{res['row_ms']:.5f} ms, key walk {res['key_ms']:.5f} ms, both "
         f"{' '.join(f'{x:.5f}' for x in res['turns_ms'])} ms (scaled-dot "
-        f"metric {res['sdp_ms']:.5f}); fp32 B6 + B7a + B7b on the same fold "
-        f"{' '.join(f'{x:.4f}' for x in res['fp32_turns_ms'])} ms")
+        f"metric {res['sdp_ms']:.5f}); the {other} walks on the same fold "
+        f"{' '.join(f'{x:.5f}' for x in res[f'{other}_turns_ms'])} ms")
     return res
 
 
@@ -3258,10 +3288,10 @@ def phase_train_mid_bf16(tt, FG, edge=False, hybrid=False):
 
 def phase_train_mid_edge(tt, FG):
     """The edge-feature flash model at 1,000 nodes: 3 AdamW steps on the
-    card (B4-B7) and on the CPU (plain versions) from the same weights and
-    batches, and its first-step gradients against its csr form on the card
-    (csr's autograd, an independent formula for dB), on distinct non-loop
-    edges."""
+    card (B4, B5, the row walk and the key walk) and on the CPU (plain
+    versions) from the same weights and batches, and its first-step
+    gradients against its csr form on the card (csr's autograd, an
+    independent formula for dB), on distinct non-loop edges."""
     rng = np.random.default_rng(9)
     ds = tt.TemporalGraphDataset(
         [make_edge_sequence(rng, N_MID, 16 * N_MID, T_FULL, unique=True)
@@ -3272,10 +3302,7 @@ def phase_train_mid_edge(tt, FG):
     res = card_vs_cpu("7b", card, cpu)
     csr_err, csr_zero = grad_errors(card["grads"], csr["grads"])
     launched = [r["launched"] for r in (card, cpu, csr)]
-    want = {k.name: 3 * 2 for k in (
-        FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
-        FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
-        FG.flash_biased_bwd_dkv_kernel)}
+    want = {k.name: 3 * 2 for k in biased_kernels(FG, False)}
     log(f"[7b] edge features: first-step gradients flash vs csr on the card "
         f"{csr_err:.3e} (tol {TOL_CSR}; at noise {csr_zero}); launches card, "
         f"cpu, csr {launched}")
@@ -5941,21 +5968,35 @@ def main() -> int:
             ("B4", FG.flash_lse1_kernel, 885, "flash_lse1_plain"),
             ("B5", FG.flash_biased_fwd_kernel, 944,
              "flash_biased_forward_plain"))]
-    # the plain biased backward, like the plain backward above, forms
-    # every output in one pass: its time is the whole backward's
-    tb = times_biased_bwd
+    # the fp32 biased backward's row walk (B6 and B7a) and key walk (B7b):
+    # launches on the edge-feature training path (6b), times at one 10K
+    # snapshot of 3b's request (5c) and over 6b's fold; the plain biased
+    # backward, like the plain backward above, forms every output in one
+    # pass: its time is the whole backward's
+    tb, fw32 = times_biased_bwd, train_edge["fold_walks"]
     kernels += [
         dict(kernel_record(
-            FG, kern, "flash_biased_bwd.cu", line,
+            FG, kern, "flash_pairwalk_biased_bwd.cu", line,
             train_edge["launches"][kern.name],
             max(small_biased_bwd[name], train_edge["full_err"][name]),
             min(tb[name]["ms"]), min(tb["plain_ms"]),
             "flash_biased_backward_plain (dq, dk, dv and dB)", tb[name],
-            tb["library"]["ms"]), library_of=tb["library"].get("form"))
-        for name, kern, line in (
-            ("B6", FG.flash_biased_bwd_pre_kernel, 1038),
-            ("B7a", FG.flash_biased_bwd_dq_kernel, 1102),
-            ("B7b", FG.flash_biased_bwd_dkv_kernel, 1176))]
+            tb["library"]["ms"]),
+             also_replaces=also, library_of=tb["library"].get("form"),
+             library_grad_err=tb["library"].get("grad_err"),
+             both_walks_ms=min(tb["both"]["ms"]),
+             both_walks_bound_ms=tb["both"]["bound_ms"],
+             both_walks_sdp_ms=tb["both"]["sdp_ms"],
+             fold_snapshots=fw32["G"], fold_ms=fw32[fold_key],
+             fold_both_ms=fw32["ms"], fold_both_sdp_ms=fw32["sdp_ms"],
+             fold_bf16_ms=fw32["bf16_ms"],
+             library_factor=(None if tb["library"]["ms"] is None
+                             else tb["library"]["ms"] / fw32["sdp_ms"]),
+             bound_share=tb[name]["bound_ms"] / fw32[fold_key])
+        for name, kern, line, also, fold_key in (
+            ("B6+B7a", FG.flash_biased_bwd_row_kernel, 1038,
+             f"{FG_SRC}:1102", "row_ms"),
+            ("B7b", FG.flash_biased_bwd_key_kernel, 1176, None, "key_ms"))]
     # the compact forms: launches on the hybrid serving paths (3c, 3d),
     # times at one 131K snapshot (5d), the library's compact walk or null
     th, lib = times_hyb, times_hyb["library"]
@@ -6078,7 +6119,7 @@ def main() -> int:
     # the bf16 biased backward's row walk (B6 and B7a bf16) and key walk
     # (B7b bf16): launches on the bf16 edge-feature training path (6f),
     # times at one 10K snapshot of 3f's request (5h) beside the fp32
-    # kernels of the same function in the same run, and over 6f's fold
+    # walks in the same run, and over 6f's fold
     fw = train_edge_bf16["fold_walks"]
     lbwd = t16e["library_bwd"]
     kernels += [
@@ -6105,9 +6146,9 @@ def main() -> int:
              bound_share=t16e[name]["bound_ms"] / fw[fold_key])
         for name, kern, line, also, fp32_of, fold_key in (
             ("B6+B7a", FG.flash_biased_bwd_row_bf16_kernel, 1038,
-             f"{FG_SRC}:1102", "fp32 B6 + B7a", "row_ms"),
+             f"{FG_SRC}:1102", "the fp32 row walk", "row_ms"),
             ("B7b", FG.flash_biased_bwd_key_bf16_kernel, 1176, None,
-             "fp32 B7b", "key_ms"))]
+             "the fp32 key walk", "key_ms"))]
     # the bf16 forms of B1c, B3a c and B3b c: launches on the hybrid bf16
     # serving (3g) and training (6g) paths, times at one 131K snapshot of
     # 6g (5i), each beside its fp32 form's in the same run

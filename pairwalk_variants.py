@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the pair walks, B1 and B1 bf16
 (``tagan_torch/csrc/flash_pairwalk_fwd.cu``), B2 and B2 bf16
-(``flash_pairwalk_bwd.cu``) and the bf16 biased backward's
-row walk and key walk (``flash_pairwalk_biased_bwd.cu``), against copies
+(``flash_pairwalk_bwd.cu``) and the biased backward's row walk and key
+walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), against copies
 of their sources with one design constant changed, on one NVIDIA GPU, to
 see what bounds them:
 
@@ -16,9 +16,10 @@ the flush removed (the walk then only streams the mask and lists the
 pairs; its output is not the function), for B2 its dk and dv
 atomics removed (likewise), and for the key walk each warp reading its
 keys' R-byte pieces of the mask tile's 64 rows instead of the block
-copying the whole tile (KEY_PIECES). The fp32 walks, B1 and B2, take
-the flush's removal (their split into the mask stream and the pairs'
-work) and for B2 the atomics' removal. The copies are built beside the
+copying the whole tile (KEY_PIECES). The fp32 walks B1 and B2 take the
+flush's removal (their split into the mask stream and the pairs' work)
+and for B2 the atomics' removal; the row and key walks take the same
+variants in both precisions. The copies are built beside the
 source into
 ``tagan_torch/_build/`` and timed in turns (base first and last) with
 CUDA events, per snapshot, on uniform random graphs of 10,000 nodes:
@@ -70,7 +71,9 @@ EDITS = {
 # the variants timed for each walk (all of its source's by default)
 WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
                  "row walk": ("noflush_row",),
-                 "key walk": ("noflush_key", "pieces")}
+                 "row walk bf16": ("noflush_row",),
+                 "key walk": ("noflush_key", "pieces"),
+                 "key walk bf16": ("noflush_key", "pieces")}
 
 
 def variants(name: str, src: str, header: str):
@@ -131,8 +134,10 @@ def main() -> int:
              "B1 bf16": FG.flash_geometric_fwd_bf16_kernel,
              "B2": FG.flash_geometric_bwd_fused_kernel,
              "B2 bf16": FG.flash_geometric_bwd_fused_bf16_kernel,
-             "row walk": FG.flash_biased_bwd_row_bf16_kernel,
-             "key walk": FG.flash_biased_bwd_key_bf16_kernel}
+             "row walk": FG.flash_biased_bwd_row_kernel,
+             "row walk bf16": FG.flash_biased_bwd_row_bf16_kernel,
+             "key walk": FG.flash_biased_bwd_key_kernel,
+             "key walk bf16": FG.flash_biased_bwd_key_bf16_kernel}
     kernels = {w: {"base": kern} for w, kern in walks.items()}
     made = {}
     try:
@@ -182,16 +187,17 @@ def main() -> int:
                 seeds, 0.0)
             common = (q, k, v, mask, bias, do, lse1, lse2,
                       (do * out2).sum(-1))
-            delta1 = walks["row walk"](*common, jlist, jcount, "euclidean",
-                                       ones, seeds, 0.0, False)[0]
+            delta1 = walks["row walk bf16"](*common, jlist, jcount,
+                                            "euclidean", ones, seeds, 0.0,
+                                            False)[0]
         fwd = (q, k, v, mask, jlist, jcount, "euclidean", ones, seed, 0.0)
         bwd = (q, k, v, mask, do, lse, delta, jlist, jcount, "euclidean",
                ones, seed, 0.0, False)
+        row = (*common, jlist, jcount, "euclidean", ones, seeds, 0.0, False)
+        key = (*common, delta1, ilist, icount, "euclidean", ones, seeds, 0.0)
         args = {"B1": fwd, "B1 bf16": fwd, "B2": bwd, "B2 bf16": bwd,
-                "row walk": (*common, jlist, jcount, "euclidean", ones,
-                             seeds, 0.0, False),
-                "key walk": (*common, delta1, ilist, icount, "euclidean",
-                             ones, seeds, 0.0)}
+                "row walk": row, "row walk bf16": row, "key walk": key,
+                "key walk bf16": key}
         for w, ks in kernels.items():
             order = list(ks) + list(ks)[::-1]
             res = {}
@@ -202,7 +208,7 @@ def main() -> int:
                         lambda: kern(*args[w])) / G, 5))
             print(f"{w}, {label}: ms a snapshot {res}", flush=True)
         del q, k, v, do, mask, out, lse, delta, bias, lse1, out2, lse2
-        del common, delta1, args, fwd, bwd
+        del common, delta1, args, fwd, bwd, row, key
     return 0
 
 

@@ -1,9 +1,9 @@
-// The edge-biased backward's kernels (B6: delta1 and dB, B7a: dq, B7b: dk
-// and dv), their launchers and their entry templates, for every mask form
-// and precision (documented in flash_biased_bwd.cu). Included by
-// flash_biased_bwd.cu (the dense fp32 forms and the fp32 compact forms) and
-// flash_biased_bwd_compact_bf16.cu (the bf16 compact forms): two libraries
-// that nvcc builds in parallel, each instantiating its own share of the
+// The edge-biased compact backward's kernels (B6c: delta1 and dB, B7a c:
+// dq, B7b c: dk and dv), their launchers and their entry templates, for
+// both compact store forms and both precisions (documented in
+// flash_biased_bwd.cu). Included by flash_biased_bwd.cu (the fp32 forms)
+// and flash_biased_bwd_compact_bf16.cu (the bf16 forms): two libraries that
+// nvcc builds in parallel, each instantiating its own share of the
 // templates.
 
 #pragma once
@@ -17,56 +17,37 @@ using namespace tagan_flash;
 enum Mode : int { PRE = 0, DQ = 1, DKV = 2 };
 
 // Shared floats: BwdTiles (t.lse holds lse1, t.delta delta1), then lse2 and
-// delta2 of the query rows, then for B6 the delta1 sums [H][BM]. The compact
-// forms' 64 mask-tile row words follow (an even count of floats before them,
-// so they are 8-byte aligned).
+// delta2 of the query rows, then for B6c the delta1 sums [H][BM]. The 64
+// mask-tile row words follow (an even count of floats before them, so they
+// are 8-byte aligned).
 __host__ __device__ inline size_t biased_smem_floats(int D, int Dv, int H,
                                                      bool pre) {
   return bwd_smem_floats(D, Dv) + 2 * BM + (pre ? (size_t)H * BM : 0);
 }
 
-template <int kForm>
 size_t smem_bytes(int D, int Dv, int H, bool pre) {
   return sizeof(float) * biased_smem_floats(D, Dv, H, pre) +
-         (kForm == DENSE_MASK ? 0 : sizeof(uint64_t) * BM);
+         sizeof(uint64_t) * BM;
 }
 
-// The mask of batch index g: the dense [N, N] bytes (compact forms: none).
+// One walk step's mask and bias tile: loads the store tile of `slot` into
+// `rows` (all threads, between barriers); returns the bias tile's origin,
+// slot * 64 * 64, row stride 64.
 template <int kForm>
-__device__ __forceinline__ const uint8_t* dense_mask(const void* mask, int g,
-                                                     int N) {
-  if constexpr (kForm == DENSE_MASK)
-    return static_cast<const uint8_t*>(mask) + (size_t)g * N * N;
-  else
-    return nullptr;
+__device__ __forceinline__ const float* step_tile(uint64_t* rows,
+                                                  const void* mask,
+                                                  const float* bias,
+                                                  size_t slot) {
+  __syncthreads();  // every thread is done with the previous step's rows
+  load_mask_tile<kForm>(rows, mask, slot);
+  __syncthreads();
+  return bias + slot * (BM * BN);
 }
 
-// One walk step's mask and bias tile: the compact forms load the store tile
-// of `slot` into `rows` (all threads, between barriers) and read the bias at
-// slot * 64 * 64 with row stride 64; the dense form reads the mask per pair
-// and the bias of batch index g at (row0, col0) with row stride N. Returns
-// the bias tile's origin; `bstride` gets its row stride.
+// The valid bits of this thread's 4 x 4 pairs of the step's tile: bit
+// 4a + b for query row 4*rg + a and key lane + 16*b.
 template <int kForm>
-__device__ __forceinline__ const float* step_tile(
-    uint64_t* rows, const void* mask, const float* bias, int g, int N,
-    size_t slot, int row0, int col0, int& bstride) {
-  if constexpr (kForm == DENSE_MASK) {
-    bstride = N;
-    return bias + (size_t)g * N * N + (size_t)row0 * N + col0;
-  } else {
-    __syncthreads();  // every thread is done with the previous step's rows
-    load_mask_tile<kForm>(rows, mask, slot);
-    __syncthreads();
-    bstride = BN;
-    return bias + slot * (BM * BN);
-  }
-}
-
-// The valid bits of this thread's 4 x 4 pairs of the block at (row0, col0):
-// bit 4a + b for query row 4*rg + a and key lane + 16*b.
-template <int kForm>
-__device__ __forceinline__ unsigned valid_bits(const uint8_t* __restrict__ mg,
-                                               const uint64_t* rows, int N,
+__device__ __forceinline__ unsigned valid_bits(const uint64_t* rows, int N,
                                                int row0, int col0) {
   const int rg = threadIdx.x >> 4, lane = threadIdx.x & 15;
   unsigned bits = 0;
@@ -76,7 +57,7 @@ __device__ __forceinline__ unsigned valid_bits(const uint8_t* __restrict__ mg,
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       const int lc = lane + 16 * b;
-      if (pair_on<kForm>(mg, rows, N, row0 + lr, col0 + lc, lr, lc))
+      if (pair_on<kForm>(nullptr, rows, N, row0 + lr, col0 + lc, lr, lc))
         bits |= 1u << (4 * a + b);
     }
   }
@@ -101,7 +82,7 @@ __device__ __forceinline__ void load_row_stats(
 }
 
 // The recompute of one pair of tiles, for the pairs set in `valid`; the bias
-// of pair (lr, lc) is bt[lr * bstride + lc]. PRE adds dz to db and w1 * dw1
+// of pair (lr, lc) is bt[lr * 64 + lc]. PRE adds dz to db and w1 * dw1
 // to this thread's row sums d1; DQ and DKV write the chain weight W of
 // ds = w1 (dw1 - delta1) to Ws (0 on other pairs), DKV also drop2(w2) to Ps,
 // and both return this thread's part of sum ds * s * sq. kBf16: W is
@@ -110,7 +91,7 @@ __device__ __forceinline__ void load_row_stats(
 template <int kMode, bool kBf16>
 __device__ __forceinline__ float biased_pairs(
     const BwdTiles& t, const float* lse2_s, const float* delta2_s,
-    const float* __restrict__ bt, int bstride, unsigned valid, int D, int Dv,
+    const float* __restrict__ bt, unsigned valid, int D, int Dv,
     int row0, int col0, int metric, float sc, float sqrt_d, int use_dropout,
     uint32_t mix1, uint32_t mix2, uint32_t keep_thresh, float inv_keep,
     float (&db)[4][4], float (&d1)[4]) {
@@ -140,7 +121,7 @@ __device__ __forceinline__ float biased_pairs(
           dpv = keep2 ? dpv * inv_keep : 0.f;
         }
         const float w2 =
-            expf(w1d + bt[(size_t)lr * bstride + lc] - lse2_s[lr]);
+            expf(w1d + bt[lr * BN + lc] - lse2_s[lr]);
         const float dz = w2 * (dpv - delta2_s[lr]);
         const float dw1 = use_dropout ? (keep1 ? dz * inv_keep : 0.f) : dz;
         if constexpr (kMode == PRE) {
@@ -162,7 +143,7 @@ __device__ __forceinline__ float biased_pairs(
   return dsc;
 }
 
-// B6 / B6c: one block per (query tile, g); heads innermost at each walked
+// B6c: one block per (query tile, g); heads innermost at each walked
 // block.
 template <int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
@@ -194,7 +175,6 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
       reinterpret_cast<uint64_t*>(smem + biased_smem_floats(D, Dv, H, true));
   for (int idx = tid; idx < H * BM; idx += THREADS) d1_s[idx] = 0.f;
 
-  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int row0 = ib * BM;
   const uint32_t s1 = (uint32_t)seeds[2 * g], s2 = (uint32_t)seeds[2 * g + 1];
   const size_t walk = (size_t)g * n_i + ib;
@@ -203,12 +183,9 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int* js = jslot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int col0 = jl[step] * BN;
-    const size_t slot =
-        kForm == DENSE_MASK ? 0 : (size_t)g * S + (size_t)js[step];
-    int bstride;
-    const float* bt = step_tile<kForm>(rows, mask, bias, g, N, slot, row0,
-                                       col0, bstride);
-    const unsigned valid = valid_bits<kForm>(mg, rows, N, row0, col0);
+    const size_t slot = (size_t)g * S + (size_t)js[step];
+    const float* bt = step_tile<kForm>(rows, mask, bias, slot);
+    const unsigned valid = valid_bits<kForm>(rows, N, row0, col0);
     float db[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
@@ -228,9 +205,10 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
       const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
       float d1[4] = {0.f, 0.f, 0.f, 0.f};
-      biased_pairs<PRE, kBf16>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv, row0,
-                        col0, metric, scale[h], sqrt_d, use_dropout,
-                        s1 ^ hmix, s2 ^ hmix, keep_thresh, inv_keep, db, d1);
+      biased_pairs<PRE, kBf16>(t, lse2_s, delta2_s, bt, valid, D, Dv, row0,
+                               col0, metric, scale[h], sqrt_d, use_dropout,
+                               s1 ^ hmix, s2 ^ hmix, keep_thresh, inv_keep,
+                               db, d1);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
 #pragma unroll
@@ -240,20 +218,12 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (lane == 0) d1_s[h * BM + rg * 4 + a] += d1[a];
       }
     }
-    // the whole tile, every pair: dz is 0 off the mask (the dense form
-    // stops at N; a compact slot holds the whole tile)
+    // the whole slot, every pair: dz is 0 off the mask
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const int lr = rg * 4 + a, gr = row0 + lr;
-      if (kForm == DENSE_MASK && gr >= N) continue;
-      float* o = kForm == DENSE_MASK
-                     ? dbias + ((size_t)g * N + gr) * N + col0
-                     : dbias + slot * (BM * BN) + (size_t)lr * BN;
+      float* o = dbias + slot * (BM * BN) + (size_t)(rg * 4 + a) * BN;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int lc = lane + 16 * b;
-        if (kForm != DENSE_MASK || col0 + lc < N) o[lc] = db[a][b];
-      }
+      for (int b = 0; b < 4; ++b) o[lane + 16 * b] = db[a][b];
     }
   }
   __syncthreads();
@@ -263,7 +233,7 @@ biased_bwd_pre_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B7a / B7a c: dq and the d(scale) partials over the forward walk.
+// B7a c: dq and the d(scale) partials over the forward walk.
 template <int LANES, int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -298,7 +268,6 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qg = q + gh * N * D;
   const float* kg = k + gh * N * D;
   const float* vg = v + gh * N * Dv;
-  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int row0 = ib * BM;
   load_rows(t.Qs, qg, row0, N, D);
   load_rows<kBf16>(t.dOs, dout + gh * N * Dv, row0, N, Dv);
@@ -326,21 +295,19 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int* js = jslot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int col0 = jl[step] * BN;
-    const size_t slot =
-        kForm == DENSE_MASK ? 0 : (size_t)g * S + (size_t)js[step];
-    int bstride;
-    const float* bt = step_tile<kForm>(rows, mask, bias, g, N, slot, row0,
-                                       col0, bstride);
-    const unsigned valid = valid_bits<kForm>(mg, rows, N, row0, col0);
+    const size_t slot = (size_t)g * S + (size_t)js[step];
+    const float* bt = step_tile<kForm>(rows, mask, bias, slot);
+    const unsigned valid = valid_bits<kForm>(rows, N, row0, col0);
     __syncthreads();  // the previous step is done with Ks, Vs and Ws
     load_rows(t.Ks, kg, col0, N, D);
     load_rows<kBf16>(t.Vs, vg, col0, N, Dv);
     __syncthreads();
     tile_norms<kBf16>(t, D, false, true);
     __syncthreads();
-    dsc += biased_pairs<DQ, kBf16>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv,
-                            row0, col0, metric, sc, sqrt_d, use_dropout, mix1,
-                            mix2, keep_thresh, inv_keep, db, d1);
+    dsc += biased_pairs<DQ, kBf16>(t, lse2_s, delta2_s, bt, valid, D, Dv,
+                                   row0, col0, metric, sc, sqrt_d,
+                                   use_dropout, mix1, mix2, keep_thresh,
+                                   inv_keep, db, d1);
     __syncthreads();
     for (int j = 0; j < BN; ++j) {
       float w[4];
@@ -383,7 +350,7 @@ biased_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B7b / B7b c: dk and dv over the transposed walk.
+// B7b c: dk and dv over the transposed walk.
 template <int LANES, int kForm, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -417,7 +384,6 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qg = q + gh * N * D;
   const float* dog = dout + gh * N * Dv;
   const float* kg = k + gh * N * D;
-  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
   const int col0 = jb * BN;
   load_rows(t.Ks, kg, col0, N, D);
   load_rows<kBf16>(t.Vs, v + gh * N * Dv, col0, N, Dv);
@@ -442,12 +408,9 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int* is = islot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int row0 = il[step] * BM;
-    const size_t slot =
-        kForm == DENSE_MASK ? 0 : (size_t)g * S + (size_t)is[step];
-    int bstride;
-    const float* bt = step_tile<kForm>(rows, mask, bias, g, N, slot, row0,
-                                       col0, bstride);
-    const unsigned valid = valid_bits<kForm>(mg, rows, N, row0, col0);
+    const size_t slot = (size_t)g * S + (size_t)is[step];
+    const float* bt = step_tile<kForm>(rows, mask, bias, slot);
+    const unsigned valid = valid_bits<kForm>(rows, N, row0, col0);
     __syncthreads();  // the previous step is done with the query side
     load_rows(t.Qs, qg, row0, N, D);
     load_rows<kBf16>(t.dOs, dog, row0, N, Dv);
@@ -456,9 +419,9 @@ biased_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     tile_norms<kBf16>(t, D, true, false);
     __syncthreads();
-    biased_pairs<DKV, kBf16>(t, lse2_s, delta2_s, bt, bstride, valid, D, Dv, row0,
-                      col0, metric, sc, sqrt_d, use_dropout, mix1, mix2,
-                      keep_thresh, inv_keep, db, d1);
+    biased_pairs<DKV, kBf16>(t, lse2_s, delta2_s, bt, valid, D, Dv, row0,
+                             col0, metric, sc, sqrt_d, use_dropout, mix1,
+                             mix2, keep_thresh, inv_keep, db, d1);
     __syncthreads();
     for (int i = 0; i < BM; ++i) {
       float w[4], p[4];
@@ -513,13 +476,11 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int kForm>
 bool bad_args(int G, int H, int N, int D, int Dv, int n_tiles, int W,
               int S, int metric) {
   return G < 0 || H < 0 || N < 0 || D < 1 || D > MAX_D || Dv < 1 ||
          Dv > MAX_D || metric < 0 || metric > COS_DIST ||
-         n_tiles != (N + BM - 1) / BM || W < 0 ||
-         (kForm != DENSE_MASK && S < 1);
+         n_tiles != (N + BM - 1) / BM || W < 0 || S < 1;
 }
 
 template <int kForm, bool kBf16 = false>
@@ -531,10 +492,10 @@ int pre_entry(const void* q, const void* k, const void* v, const void* mask,
               int N, int D, int Dv, int n_i, int W, int S, int metric,
               float sqrt_d, int use_dropout, unsigned int keep_thresh,
               float inv_keep, void* stream) {
-  if (bad_args<kForm>(G, H, N, D, Dv, n_i, W, S, metric))
+  if (bad_args(G, H, N, D, Dv, n_i, W, S, metric))
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = smem_bytes<kForm>(D, Dv, H, true);
+  const size_t smem = smem_bytes(D, Dv, H, true);
   const cudaError_t e = prepare(biased_bwd_pre_kernel<kForm, kBf16>, smem);
   if (e != cudaSuccess) return (int)e;
   biased_bwd_pre_kernel<kForm, kBf16><<<dim3(n_i, G), THREADS, smem,
@@ -558,10 +519,10 @@ int dq_entry(const void* q, const void* k, const void* v, const void* mask,
              int W, int S, int metric, float sqrt_d, int use_dropout,
              unsigned int keep_thresh, float inv_keep, int need_dscale,
              void* stream) {
-  if (bad_args<kForm>(G, H, N, D, Dv, n_i, W, S, metric))
+  if (bad_args(G, H, N, D, Dv, n_i, W, S, metric))
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = smem_bytes<kForm>(D, Dv, H, false);
+  const size_t smem = smem_bytes(D, Dv, H, false);
   const dim3 grid(n_i, H, G);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (lanes_for(D)) {
@@ -595,10 +556,10 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
               int G, int H, int N, int D, int Dv, int n_j, int W, int S,
               int metric, float sqrt_d, int use_dropout,
               unsigned int keep_thresh, float inv_keep, void* stream) {
-  if (bad_args<kForm>(G, H, N, D, Dv, n_j, W, S, metric))
+  if (bad_args(G, H, N, D, Dv, n_j, W, S, metric))
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
-  const size_t smem = smem_bytes<kForm>(D, Dv, H, false);
+  const size_t smem = smem_bytes(D, Dv, H, false);
   const dim3 grid(n_j, H, G);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (lanes_for(D > Dv ? D : Dv)) {

@@ -1,43 +1,48 @@
-// Edge-biased geometric attention, backward in bf16, as two mask-driven
-// pair walks, for Hopper (sm_90a): a row walk and a key walk.
+// Edge-biased geometric attention, backward, as two mask-driven pair walks,
+// for Hopper (sm_90a): a row walk and a key walk.
 //
 // Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
 // that differentiate the dense path's double softmax, in their dense-mask
-// bf16 form (bf16=True; host side flash_biased_attention_bwd):
+// forms bf16=False and bf16=True (the template flag kBf16; host side
+// flash_biased_attention_bwd):
 //
-//   row walk  B6 bf16   _biased_bwd_pre_kernel  delta1_i = sum_j w1 dw1,
-//                                               dB_ij = sum_h dz
-//             B7a bf16  _biased_bwd_dq_kernel   dq_i, and d(scale)
-//   key walk  B7b bf16  _biased_bwd_dkv_kernel  dk_j, dv_j
+//   row walk  B6   _biased_bwd_pre_kernel  delta1_i = sum_j w1 dw1,
+//                                          dB_ij = sum_h dz
+//             B7a  _biased_bwd_dq_kernel   dq_i, and d(scale)
+//   key walk  B7b  _biased_bwd_dkv_kernel  dk_j, dv_j
 //
 // Per valid pair (i, j) and head h they recompute what the forward (B4, B5:
-// flash_pairwalk_fwd.cu) formed, as _bwd_biased_common does, at the
-// rounding points of the plain bf16 version (flash_biased_backward_plain(...,
-// bf16=True)) and of the dense tile template's bf16 form before them:
+// flash_pairwalk_fwd.cu) formed, as _bwd_biased_common does:
 //
-//   s   = the metric score of q_i and k_j rounded to bf16 after their fp32
-//         norms,                       w1 = exp(s - lse1_i),
-//   z   = drop1(w1) + B_ij,            w2 = exp(z - lse2_i),
-//   dp2 = drop2(do_i . v_j), do and v rounded,
-//   dz  = w2 (dp2 - delta2_i),         dw1 = drop1(dz),
-//   ds  = w1 (dw1 - delta1_i),         W = chain_weight_bf16(ds, ...),
-//   dq_i += rd(W) k_j,  dk_j += rd(W) q_i  (k_j and q_i rounded),
-//   dv_j += rd(drop2(w2)) do_i  (do_i rounded),
+//   s   = the metric score of q_i and k_j,  w1 = exp(s - lse1_i),
+//   z   = drop1(w1) + B_ij,                 w2 = exp(z - lse2_i),
+//   dp2 = drop2(do_i . v_j),
+//   dz  = w2 (dp2 - delta2_i),              dw1 = drop1(dz),
+//   ds  = w1 (dw1 - delta1_i),              W = the chain weight of ds,
+//   dq_i += W k_j,  dk_j += W q_i,          dv_j += drop2(w2) do_i,
 //
-// with w1, z, w2, dz, delta1, dB, ds and W in fp32; the squared-distance
-// metrics subtract the fp32 row and column sums of W times the unrounded q_i
-// and k_j, and the scaled dot divides the dq and dk sums by sqrt(d)
-// (chain_finish). d(scale) sums ds s sq. The dropouts are the coordinate
-// hash (keep_hash) with seeds[g, 0] and seeds[g, 1]. A dropped w1 is not a
-// masked pair: z = B there, so dz and dB are set while dw1 = 0. Both
-// softmaxes are normalised by the forward's lse1 and lse2, so no walk order
-// enters the pairs' values; only the order of the sums does, and it is
-// fixed: neither kernel has an atomic, and repeated calls are bit-identical.
+// and the squared-distance metrics subtract the row and column sums of W
+// times the unrounded q_i and k_j; d(scale) sums ds s sq.
+//  - fp32 (bf16=False): every operand unrounded, W = chain_weight (the
+//    scaled dot's 1/sqrt(d) inside it), no TF32. The CPU's fp32 function
+//    (flash_biased_backward_plain) up to the order of the sums.
+//  - bf16 (bf16=True), at the rounding points of the plain bf16 version
+//    (flash_biased_backward_plain(..., bf16=True)): q and k rounded to bf16
+//    after their fp32 norms, do and v rounded, W = chain_weight_bf16 and
+//    drop2(w2) rounded as operands of their products; the scaled dot
+//    divides the dq and dk sums by sqrt(d) (chain_finish).
+// In both, w1, z, w2, dz, delta1, dB, ds and the sums of W are fp32. The
+// dropouts are the coordinate hash (keep_hash) with seeds[g, 0] and
+// seeds[g, 1]. A dropped w1 is not a masked pair: z = B there, so dz and dB
+// are set while dw1 = 0. Both softmaxes are normalised by the forward's
+// lse1 and lse2, so no walk order enters the pairs' values; only the order
+// of the sums does, and it is fixed: neither kernel has an atomic, and
+// repeated calls are bit-identical.
 //
-// The row walk (B6 and B7a bf16). B2 bf16's walk (flash_pairwalk_bwd.cu)
-// over the forward plan (jlist, jcount): one warp is one block, R rows of
-// one 64-row query tile for a group of HG heads, each lane one (row, head)
-// item whose rounded q_i and do_i and dq_i accumulator stay in its shared
+// The row walk (B6 and B7a). B2's walk (flash_pairwalk_bwd.cu) over the
+// forward plan (jlist, jcount): one warp is one block, R rows of one 64-row
+// query tile for a group of HG heads, each lane one (row, head) item whose
+// q_i and do_i (rounded in bf16) and dq_i accumulator stay in its shared
 // slots. The mask is read once for all the group's heads and each row's
 // valid columns are listed (`walk_mask`, flash_pairwalk.cuh).
 //  Pass 1 (B6) at every listed pair: w1, w2, dz and dw1 from k_j, v_j and
@@ -45,7 +50,7 @@
 //   i); delta1 += w1 dw1 in the lane; dB_ij = the row's HG lanes' dz summed
 //   in head order by shuffles, stored once by the row's first lane.
 //  Pass 2 (B7a), once delta1 is whole: the same recompute, then ds, W,
-//   dq_i += rd(W) rd(k_j) and the d(scale) term.
+//   dq_i += W k_j and the d(scale) term.
 //  When no list of the warp overflowed (CAPR entries a row), the lists are
 //  still in shared memory after pass 1 and pass 2 walks them; otherwise the
 //  warp walks its mask tiles again (the re-read comes from L2 where it
@@ -54,10 +59,10 @@
 //  once per group of 32 heads, in order on the stream, each group adding its
 //  heads' dz into dB: still no atomic.
 //
-// The key walk (B7b bf16), over the transposed plan (ilist, icount): one
-// block owns KB keys (all 64 at head dim 16) of one 64-key tile of one
-// snapshot for a group of HG heads (up to 8), each lane one (key, head)
-// item whose rounded k_j and v_j and dk_j and dv_j accumulators stay in its
+// The key walk (B7b), over the transposed plan (ilist, icount): one block
+// owns KB keys (all 64 at head dim 16) of one 64-key tile of one snapshot
+// for a group of HG heads (up to 8), each lane one (key, head) item whose
+// k_j and v_j (rounded in bf16) and dk_j and dv_j accumulators stay in its
 // shared slots; a warp holds R keys.
 //  1. Each walked [64 rows x 64 keys] mask tile is copied whole, 64-byte row
 //     segments (the sectors the row walk reads), by cp.async into an
@@ -75,7 +80,7 @@
 //     at (i, j) (one sector a valid pair), recompute w1, w2, dz, dw1, ds
 //     and W, and add into dk_j and dv_j in ascending row order.
 //  dk_j and dv_j are written once at the end, with the squared-distance
-//  column term and the scaled dot's 1/sqrt(d).
+//  column term (and, in bf16, the scaled dot's 1/sqrt(d)).
 //
 // Why the whole tile and not the R-byte pieces of each warp's keys (which
 // flash_pairwalk_bwd.cu rejected for B2 at ~4x the mask's sectors): the
@@ -184,7 +189,7 @@ __device__ __forceinline__ Pair recompute(const Bwd& a, float qk, float qn,
 // ---------------------------------------------------------------------------
 
 // Bytes of one warp's (one block's) shared memory: the walk's, then q and
-// do (rounded) and the dq accumulator, each [width][32 lanes].
+// do (rounded in bf16) and the dq accumulator, each [width][32 lanes].
 __host__ __device__ inline size_t row_bytes(int R, int D, int Dv) {
   return walk_bytes(R) + (size_t)WARP * (2 * D + Dv) * 4;
 }
@@ -205,7 +210,7 @@ struct RowItem {
 
 // One pass over a row list of n entries, every lane in step (to the
 // longest list): kPass 1 sums delta1 and stores dB, kPass 2 adds dq.
-template <int kPass>
+template <int kPass, bool kBf16>
 __device__ __forceinline__ void row_pass(const Bwd& a, RowItem& it,
                                          const int* list, int n, int HG) {
   const bool k4 = (a.D & 3) == 0 && aligned16(a.k);
@@ -219,41 +224,41 @@ __device__ __forceinline__ void row_pass(const Bwd& a, RowItem& it,
     const float* kr = kg + (size_t)gc * a.D;
     const float* vr = vg + (size_t)gc * a.Dv;
     float qk = 0.f, kn = 0.f, dp = 0.f;
-    // q.k from rounded operands and |k|^2 from the unrounded row
+    // q.k (bf16: of rounded operands) and |k|^2 of the unrounded row
     if (k4) {
       for (int d = 0; d < a.D; d += 4) {
         const float4 x = on ? __ldg(reinterpret_cast<const float4*>(kr + d))
                             : make_float4(0.f, 0.f, 0.f, 0.f);
         kn += x.x * x.x;
-        qk = fmaf(it.qs[d * WARP], rd<true>(x.x), qk);
+        qk = fmaf(it.qs[d * WARP], rd<kBf16>(x.x), qk);
         kn += x.y * x.y;
-        qk = fmaf(it.qs[(d + 1) * WARP], rd<true>(x.y), qk);
+        qk = fmaf(it.qs[(d + 1) * WARP], rd<kBf16>(x.y), qk);
         kn += x.z * x.z;
-        qk = fmaf(it.qs[(d + 2) * WARP], rd<true>(x.z), qk);
+        qk = fmaf(it.qs[(d + 2) * WARP], rd<kBf16>(x.z), qk);
         kn += x.w * x.w;
-        qk = fmaf(it.qs[(d + 3) * WARP], rd<true>(x.w), qk);
+        qk = fmaf(it.qs[(d + 3) * WARP], rd<kBf16>(x.w), qk);
       }
     } else {
       for (int d = 0; d < a.D; ++d) {
         const float x = on ? __ldg(kr + d) : 0.f;
         kn += x * x;
-        qk = fmaf(it.qs[d * WARP], rd<true>(x), qk);
+        qk = fmaf(it.qs[d * WARP], rd<kBf16>(x), qk);
       }
     }
-    // do.v from rounded operands
+    // do.v (bf16: of rounded operands)
     if (v4) {
       for (int c = 0; c < a.Dv; c += 4) {
         const float4 y = on ? __ldg(reinterpret_cast<const float4*>(vr + c))
                             : make_float4(0.f, 0.f, 0.f, 0.f);
-        dp = fmaf(it.dos[c * WARP], rd<true>(y.x), dp);
-        dp = fmaf(it.dos[(c + 1) * WARP], rd<true>(y.y), dp);
-        dp = fmaf(it.dos[(c + 2) * WARP], rd<true>(y.z), dp);
-        dp = fmaf(it.dos[(c + 3) * WARP], rd<true>(y.w), dp);
+        dp = fmaf(it.dos[c * WARP], rd<kBf16>(y.x), dp);
+        dp = fmaf(it.dos[(c + 1) * WARP], rd<kBf16>(y.y), dp);
+        dp = fmaf(it.dos[(c + 2) * WARP], rd<kBf16>(y.z), dp);
+        dp = fmaf(it.dos[(c + 3) * WARP], rd<kBf16>(y.w), dp);
       }
     } else {
       for (int c = 0; c < a.Dv; ++c) {
         const float y = on ? __ldg(vr + c) : 0.f;
-        dp = fmaf(it.dos[c * WARP], rd<true>(y), dp);
+        dp = fmaf(it.dos[c * WARP], rd<kBf16>(y), dp);
       }
     }
     float dz = 0.f, wq = 0.f;
@@ -266,10 +271,12 @@ __device__ __forceinline__ void row_pass(const Bwd& a, RowItem& it,
         it.d1 = fmaf(p.w1, p.dw1, it.d1);
       } else {
         const float ds = p.w1 * (p.dw1 - it.d1);
-        const float w = chain_weight_bf16(a.metric, ds, p.s, p.sq, qk, it.sc);
+        const float w =
+            kBf16 ? chain_weight_bf16(a.metric, ds, p.s, p.sq, qk, it.sc)
+                  : chain_weight(a.metric, ds, p.s, p.sq, qk, it.sc, a.sqrt_d);
         it.dsc = fmaf(ds * p.s, p.sq, it.dsc);
         it.wsum += w;
-        wq = rd<true>(w);
+        wq = rd<kBf16>(w);
       }
     }
     if constexpr (kPass == 1) {
@@ -281,14 +288,14 @@ __device__ __forceinline__ void row_pass(const Bwd& a, RowItem& it,
       if (on && (int)(threadIdx.x) == it.base)
         it.dbrow[gc] = a.hg ? it.dbrow[gc] + sum : sum;
     } else if (on) {
-      // dq_i += rd(W) k_j: the k row again, now in L1
+      // dq_i += W k_j (bf16: rounded): the k row again, now in L1
       for (int d = 0; d < a.D; ++d)
-        it.dq[d * WARP] = fmaf(wq, rd<true>(__ldg(kr + d)), it.dq[d * WARP]);
+        it.dq[d * WARP] = fmaf(wq, rd<kBf16>(__ldg(kr + d)), it.dq[d * WARP]);
     }
   }
 }
 
-template <bool kVec16>
+template <bool kBf16, bool kVec16>
 __global__ void __launch_bounds__(WARP) row_walk_kernel(const Bwd a) {
   const int lane = threadIdx.x;
   const int R = a.R, HG = a.HG;
@@ -319,14 +326,14 @@ __global__ void __launch_bounds__(WARP) row_walk_kernel(const Bwd a) {
   const size_t row = it.gh * a.N + it.gr;
   if (it.on) {
     const float* qr = a.q + row * a.D;
-    for (int d = 0; d < a.D; ++d) {   // the norm, then the row rounded
+    for (int d = 0; d < a.D; ++d) {   // the norm, then the row (bf16: rounded)
       const float x = qr[d];
       it.qn += x * x;
-      q_s[d * WARP + lane] = rd<true>(x);
+      q_s[d * WARP + lane] = rd<kBf16>(x);
       dq_s[d * WARP + lane] = 0.f;
     }
     const float* dor = a.dout + row * a.Dv;
-    for (int c = 0; c < a.Dv; ++c) do_s[c * WARP + lane] = rd<true>(dor[c]);
+    for (int c = 0; c < a.Dv; ++c) do_s[c * WARP + lane] = rd<kBf16>(dor[c]);
     it.lse1 = a.lse1[row];
     it.lse2 = a.lse2[row];
     it.delta2 = a.delta2[row];
@@ -344,15 +351,15 @@ __global__ void __launch_bounds__(WARP) row_walk_kernel(const Bwd a) {
   walk_mask<kVec16>(sm, mg, a.N, row0, R, jl, cnt, lane, [&]() {
     ++flushes;
     if constexpr (ROW_FLUSH)
-      row_pass<1>(a, it, list, it.on ? sm.rowcnt[rl] : 0, HG);
+      row_pass<1, kBf16>(a, it, list, it.on ? sm.rowcnt[rl] : 0, HG);
   });
   if (flushes == 1) {   // every list whole in shared memory: pass 2 there
     if constexpr (ROW_FLUSH)
-      row_pass<2>(a, it, list, it.on ? sm.rowcnt[rl] : 0, HG);
+      row_pass<2, kBf16>(a, it, list, it.on ? sm.rowcnt[rl] : 0, HG);
   } else {
     walk_mask<kVec16>(sm, mg, a.N, row0, R, jl, cnt, lane, [&]() {
       if constexpr (ROW_FLUSH)
-        row_pass<2>(a, it, list, it.on ? sm.rowcnt[rl] : 0, HG);
+        row_pass<2, kBf16>(a, it, list, it.on ? sm.rowcnt[rl] : 0, HG);
     });
   }
 
@@ -364,7 +371,7 @@ __global__ void __launch_bounds__(WARP) row_walk_kernel(const Bwd a) {
     for (int d = 0; d < a.D; ++d) {
       const float x = dq_s[d * WARP + lane];
       og[d] = sqm ? x - it.wsum * qr[d]
-                  : chain_finish<true>(a.metric, x, a.sqrt_d);
+                  : chain_finish<kBf16>(a.metric, x, a.sqrt_d);
     }
     if (a.need_dscale)
       a.dscale[row] = it.dsc * dscale_factor(a.metric, it.sc);
@@ -379,8 +386,8 @@ __host__ __device__ inline size_t key_walk_bytes(int KB) {
   return (size_t)NST * BM * KROW + (size_t)KB * CAPR * 4;
 }
 
-// Bytes of one block: the ring and the keys' lists, then rounded k and v
-// and the dk and dv accumulators, each [width][threads].
+// Bytes of one block: the ring and the keys' lists, then k and v (rounded
+// in bf16) and the dk and dv accumulators, each [width][threads].
 __host__ __device__ inline size_t key_bytes(int KB, int R, int D, int Dv) {
   return key_walk_bytes(KB) + (size_t)(KB / R) * WARP * (2 * D + 2 * Dv) * 4;
 }
@@ -454,6 +461,7 @@ __device__ __forceinline__ void cp_async_wait_key() {
 
 // The flush of a key list of n rows (ascending), every lane of the warp in
 // step (to the longest list): dk_j and dv_j in the lane's slots.
+template <bool kBf16>
 __device__ __forceinline__ void key_pass(const Bwd& a, KeyItem& it, int g,
                                          const int* list, int n, int nthr) {
   const bool q4 = (a.D & 3) == 0 && aligned16(a.q);
@@ -470,32 +478,32 @@ __device__ __forceinline__ void key_pass(const Bwd& a, KeyItem& it, int g,
       for (int d = 0; d < a.D; d += 4) {
         const float4 x = __ldg(reinterpret_cast<const float4*>(qr + d));
         qn += x.x * x.x;
-        qk = fmaf(rd<true>(x.x), it.ks[d * nthr], qk);
+        qk = fmaf(rd<kBf16>(x.x), it.ks[d * nthr], qk);
         qn += x.y * x.y;
-        qk = fmaf(rd<true>(x.y), it.ks[(d + 1) * nthr], qk);
+        qk = fmaf(rd<kBf16>(x.y), it.ks[(d + 1) * nthr], qk);
         qn += x.z * x.z;
-        qk = fmaf(rd<true>(x.z), it.ks[(d + 2) * nthr], qk);
+        qk = fmaf(rd<kBf16>(x.z), it.ks[(d + 2) * nthr], qk);
         qn += x.w * x.w;
-        qk = fmaf(rd<true>(x.w), it.ks[(d + 3) * nthr], qk);
+        qk = fmaf(rd<kBf16>(x.w), it.ks[(d + 3) * nthr], qk);
       }
     } else {
       for (int d = 0; d < a.D; ++d) {
         const float x = __ldg(qr + d);
         qn += x * x;
-        qk = fmaf(rd<true>(x), it.ks[d * nthr], qk);
+        qk = fmaf(rd<kBf16>(x), it.ks[d * nthr], qk);
       }
     }
     if (o4) {
       for (int c = 0; c < a.Dv; c += 4) {
         const float4 y = __ldg(reinterpret_cast<const float4*>(dor + c));
-        dp = fmaf(rd<true>(y.x), it.vs[c * nthr], dp);
-        dp = fmaf(rd<true>(y.y), it.vs[(c + 1) * nthr], dp);
-        dp = fmaf(rd<true>(y.z), it.vs[(c + 2) * nthr], dp);
-        dp = fmaf(rd<true>(y.w), it.vs[(c + 3) * nthr], dp);
+        dp = fmaf(rd<kBf16>(y.x), it.vs[c * nthr], dp);
+        dp = fmaf(rd<kBf16>(y.y), it.vs[(c + 1) * nthr], dp);
+        dp = fmaf(rd<kBf16>(y.z), it.vs[(c + 2) * nthr], dp);
+        dp = fmaf(rd<kBf16>(y.w), it.vs[(c + 3) * nthr], dp);
       }
     } else {
       for (int c = 0; c < a.Dv; ++c)
-        dp = fmaf(rd<true>(__ldg(dor + c)), it.vs[c * nthr], dp);
+        dp = fmaf(rd<kBf16>(__ldg(dor + c)), it.vs[c * nthr], dp);
     }
     const float b = __ldg(a.bias + ((size_t)g * a.N + gr) * a.N + it.gc);
     const Pair p = recompute(a, qk, qn, it.kn, dp, b, __ldg(a.lse1 + row),
@@ -503,20 +511,22 @@ __device__ __forceinline__ void key_pass(const Bwd& a, KeyItem& it, int g,
                              it.sc, it.mix1, it.mix2, (uint32_t)gr,
                              (uint32_t)it.gc);
     const float ds = p.w1 * (p.dw1 - __ldg(a.delta1 + row));
-    const float w = chain_weight_bf16(a.metric, ds, p.s, p.sq, qk, it.sc);
+    const float w =
+        kBf16 ? chain_weight_bf16(a.metric, ds, p.s, p.sq, qk, it.sc)
+              : chain_weight(a.metric, ds, p.s, p.sq, qk, it.sc, a.sqrt_d);
     it.wsum += w;
-    const float wk = rd<true>(w), pr = rd<true>(p.w2d);
-    // dk_j += rd(W) q_i and dv_j += rd(drop2(w2)) do_i: the rows again,
-    // now in L1
+    const float wk = rd<kBf16>(w), pr = rd<kBf16>(p.w2d);
+    // dk_j += W q_i and dv_j += drop2(w2) do_i (bf16: rounded): the rows
+    // again, now in L1
     for (int d = 0; d < a.D; ++d)
-      it.dk[d * nthr] = fmaf(wk, rd<true>(__ldg(qr + d)), it.dk[d * nthr]);
+      it.dk[d * nthr] = fmaf(wk, rd<kBf16>(__ldg(qr + d)), it.dk[d * nthr]);
     if (pr != 0.f)
       for (int c = 0; c < a.Dv; ++c)
-        it.dv[c * nthr] = fmaf(pr, rd<true>(__ldg(dor + c)), it.dv[c * nthr]);
+        it.dv[c * nthr] = fmaf(pr, rd<kBf16>(__ldg(dor + c)), it.dv[c * nthr]);
   }
 }
 
-template <bool kVec16>
+template <bool kBf16, bool kVec16>
 __global__ void __launch_bounds__(KEY_WARPS * WARP, 1)
 key_walk_kernel(const Bwd a) {
   const int tid = threadIdx.x, lane = tid & (WARP - 1), warp = tid / WARP;
@@ -554,15 +564,15 @@ key_walk_kernel(const Bwd a) {
   const size_t key = it.gh * a.N + it.gc;
   if (it.on) {
     const float* kr = a.k + key * a.D;
-    for (int d = 0; d < a.D; ++d) {   // the norm, then the row rounded
+    for (int d = 0; d < a.D; ++d) {   // the norm, then the row (bf16: rounded)
       const float x = kr[d];
       it.kn += x * x;
-      k_s[d * nthr + tid] = rd<true>(x);
+      k_s[d * nthr + tid] = rd<kBf16>(x);
       dk_s[d * nthr + tid] = 0.f;
     }
     const float* vr = a.v + key * a.Dv;
     for (int c = 0; c < a.Dv; ++c) {
-      v_s[c * nthr + tid] = rd<true>(vr[c]);
+      v_s[c * nthr + tid] = rd<kBf16>(vr[c]);
       dv_s[c * nthr + tid] = 0.f;
     }
     it.sc = a.scale[h];
@@ -611,7 +621,7 @@ key_walk_kernel(const Bwd a) {
                         il[tt] * BM, col0, kc0, R);
     cp_async_commit();
     if (full) {
-      if constexpr (KEY_FLUSH) key_pass(a, it, g, list, n, nthr);
+      if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, g, list, n, nthr);
       __syncwarp();
       n = 0;
     }
@@ -630,13 +640,13 @@ key_walk_kernel(const Bwd a) {
   }
   if (__any_sync(FULL, n + add > CAPR)) {
     __syncwarp();
-    if constexpr (KEY_FLUSH) key_pass(a, it, g, list, n, nthr);
+    if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, g, list, n, nthr);
     __syncwarp();
     n = 0;
   }
   append();
   __syncwarp();
-  if constexpr (KEY_FLUSH) key_pass(a, it, g, list, n, nthr);
+  if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, g, list, n, nthr);
 
   if (it.on) {   // keys no row reaches: no pair, dk = dv = 0
     const bool sqm = is_sq_metric(a.metric);
@@ -645,7 +655,7 @@ key_walk_kernel(const Bwd a) {
     for (int d = 0; d < a.D; ++d) {
       const float x = dk_s[d * nthr + tid];
       ok[d] = sqm ? x - it.wsum * kr[d]
-                  : chain_finish<true>(a.metric, x, a.sqrt_d);
+                  : chain_finish<kBf16>(a.metric, x, a.sqrt_d);
     }
     float* ov = a.dv + key * a.Dv;
     for (int c = 0; c < a.Dv; ++c) ov[c] = dv_s[c * nthr + tid];
@@ -669,14 +679,15 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <bool kBf16>
 int launch_rows(Bwd a, int G, void* stream) {
   if (bad_args(a, G)) return (int)cudaErrorInvalidValue;
   if (G == 0 || a.H == 0 || a.N == 0) return 0;
   warp_items(a.H, &a.HG, &a.R);
   const int n_hg = (a.H + a.HG - 1) / a.HG;
   const size_t smem = row_bytes(a.R, a.D, a.Dv);
-  const auto kern = vec16_mask(a) ? row_walk_kernel<true>
-                                  : row_walk_kernel<false>;
+  const auto kern = vec16_mask(a) ? row_walk_kernel<kBf16, true>
+                                  : row_walk_kernel<kBf16, false>;
   const cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)(a.n_t * (BM / a.R)), G);
@@ -689,6 +700,7 @@ int launch_rows(Bwd a, int G, void* stream) {
   return 0;
 }
 
+template <bool kBf16>
 int launch_keys(Bwd a, int G, void* stream) {
   if (bad_args(a, G)) return (int)cudaErrorInvalidValue;
   if (G == 0 || a.H == 0 || a.N == 0) return 0;
@@ -701,8 +713,8 @@ int launch_keys(Bwd a, int G, void* stream) {
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   a.n_kb = BN / a.KB;
   a.n_hg = (a.H + a.HG - 1) / a.HG;
-  const auto kern = vec16_mask(a) ? key_walk_kernel<true>
-                                  : key_walk_kernel<false>;
+  const auto kern = vec16_mask(a) ? key_walk_kernel<kBf16, true>
+                                  : key_walk_kernel<kBf16, false>;
   const cudaError_t e = prepare(kern, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)(a.n_t * a.n_kb * a.n_hg), G);
@@ -737,14 +749,69 @@ Bwd common_args(const void* q, const void* k, const void* v,
   return a;
 }
 
+template <bool kBf16>
+int row_entry(const void* q, const void* k, const void* v, const void* mask,
+              const void* bias, const void* dout, const void* lse1,
+              const void* lse2, const void* delta2, const void* jlist,
+              const void* jcount, const void* scale, const void* seeds,
+              void* delta1, void* dbias, void* dq, void* dscale_part, int G,
+              int H, int N, int D, int Dv, int n_i, int W, int metric,
+              float sqrt_d, int use_dropout, unsigned int keep_thresh,
+              float inv_keep, int need_dscale, void* stream) {
+  Bwd a = common_args(q, k, v, mask, bias, dout, lse1, lse2, delta2, jlist,
+                      jcount, scale, seeds, H, N, D, Dv, n_i, W, metric,
+                      sqrt_d, use_dropout, keep_thresh, inv_keep);
+  a.delta1_out = (float*)delta1;
+  a.dbias = (float*)dbias;
+  a.dq = (float*)dq;
+  a.dscale = (float*)dscale_part;
+  a.need_dscale = need_dscale;
+  return launch_rows<kBf16>(a, G, stream);
+}
+
+template <bool kBf16>
+int key_entry(const void* q, const void* k, const void* v, const void* mask,
+              const void* bias, const void* dout, const void* lse1,
+              const void* lse2, const void* delta2, const void* delta1,
+              const void* ilist, const void* icount, const void* scale,
+              const void* seeds, void* dk, void* dv, int G, int H, int N,
+              int D, int Dv, int n_j, int W, int metric, float sqrt_d,
+              int use_dropout, unsigned int keep_thresh, float inv_keep,
+              void* stream) {
+  Bwd a = common_args(q, k, v, mask, bias, dout, lse1, lse2, delta2, ilist,
+                      icount, scale, seeds, H, N, D, Dv, n_j, W, metric,
+                      sqrt_d, use_dropout, keep_thresh, inv_keep);
+  a.delta1 = (const float*)delta1;
+  a.dk = (float*)dk;
+  a.dv = (float*)dv;
+  return launch_keys<kBf16>(a, G, stream);
+}
+
 }  // namespace
 
-// The row walk, B6's and B7a's bf16 forms: delta1 [G, H, N], dB [G, N, N]
-// (written at the mask's valid pairs only), dq [G, H, N, D] and, with
-// need_dscale, each item's d(scale) term [G, H, N], over the forward walk
-// (jlist, jcount [G, n_i, W], [G, n_i]) of the dense int8 mask [G, N, N],
-// given lse1, lse2 and delta2 [G, H, N], the head-shared bias [G, N, N] and
-// two seeds per g, [G, 2].
+// The row walk, B6 and B7a: delta1 [G, H, N], dB [G, N, N] (written at the
+// mask's valid pairs only), dq [G, H, N, D] and, with need_dscale, each
+// item's d(scale) term [G, H, N], over the forward walk (jlist, jcount
+// [G, n_i, W], [G, n_i]) of the dense int8 mask [G, N, N], given lse1, lse2
+// and delta2 [G, H, N], the head-shared bias [G, N, N] and two seeds per g,
+// [G, 2].
+extern "C" int tagan_flash_biased_bwd_row(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* jlist, const void* jcount,
+    const void* scale, const void* seeds, void* delta1, void* dbias,
+    void* dq, void* dscale_part, int G, int H, int N, int D, int Dv,
+    int n_i, int W, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, int need_dscale,
+    void* stream) {
+  return row_entry<false>(q, k, v, mask, bias, dout, lse1, lse2, delta2,
+                          jlist, jcount, scale, seeds, delta1, dbias, dq,
+                          dscale_part, G, H, N, D, Dv, n_i, W, metric, sqrt_d,
+                          use_dropout, keep_thresh, inv_keep, need_dscale,
+                          stream);
+}
+
+// The row walk's bf16 form: the same arguments.
 extern "C" int tagan_flash_biased_bwd_row_bf16(
     const void* q, const void* k, const void* v, const void* mask,
     const void* bias, const void* dout, const void* lse1, const void* lse2,
@@ -754,20 +821,31 @@ extern "C" int tagan_flash_biased_bwd_row_bf16(
     int n_i, int W, int metric, float sqrt_d, int use_dropout,
     unsigned int keep_thresh, float inv_keep, int need_dscale,
     void* stream) {
-  Bwd a = common_args(q, k, v, mask, bias, dout, lse1, lse2, delta2, jlist,
-                      jcount, scale, seeds, H, N, D, Dv, n_i, W, metric,
-                      sqrt_d, use_dropout, keep_thresh, inv_keep);
-  a.delta1_out = (float*)delta1;
-  a.dbias = (float*)dbias;
-  a.dq = (float*)dq;
-  a.dscale = (float*)dscale_part;
-  a.need_dscale = need_dscale;
-  return launch_rows(a, G, stream);
+  return row_entry<true>(q, k, v, mask, bias, dout, lse1, lse2, delta2,
+                         jlist, jcount, scale, seeds, delta1, dbias, dq,
+                         dscale_part, G, H, N, D, Dv, n_i, W, metric, sqrt_d,
+                         use_dropout, keep_thresh, inv_keep, need_dscale,
+                         stream);
 }
 
-// The key walk, B7b's bf16 form: dk [G, H, N, D] and dv [G, H, N, Dv] over
-// the transposed walk (ilist, icount [G, n_j, W], [G, n_j]), given the row
+// The key walk, B7b: dk [G, H, N, D] and dv [G, H, N, Dv] over the
+// transposed walk (ilist, icount [G, n_j, W], [G, n_j]), given the row
 // walk's delta1.
+extern "C" int tagan_flash_biased_bwd_key(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* ilist,
+    const void* icount, const void* scale, const void* seeds, void* dk,
+    void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return key_entry<false>(q, k, v, mask, bias, dout, lse1, lse2, delta2,
+                          delta1, ilist, icount, scale, seeds, dk, dv, G, H,
+                          N, D, Dv, n_j, W, metric, sqrt_d, use_dropout,
+                          keep_thresh, inv_keep, stream);
+}
+
+// The key walk's bf16 form: the same arguments.
 extern "C" int tagan_flash_biased_bwd_key_bf16(
     const void* q, const void* k, const void* v, const void* mask,
     const void* bias, const void* dout, const void* lse1, const void* lse2,
@@ -776,11 +854,8 @@ extern "C" int tagan_flash_biased_bwd_key_bf16(
     void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
     float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
     void* stream) {
-  Bwd a = common_args(q, k, v, mask, bias, dout, lse1, lse2, delta2, ilist,
-                      icount, scale, seeds, H, N, D, Dv, n_j, W, metric,
-                      sqrt_d, use_dropout, keep_thresh, inv_keep);
-  a.delta1 = (const float*)delta1;
-  a.dk = (float*)dk;
-  a.dv = (float*)dv;
-  return launch_keys(a, G, stream);
+  return key_entry<true>(q, k, v, mask, bias, dout, lse1, lse2, delta2,
+                         delta1, ilist, icount, scale, seeds, dk, dv, G, H, N,
+                         D, Dv, n_j, W, metric, sqrt_d, use_dropout,
+                         keep_thresh, inv_keep, stream);
 }

@@ -11,9 +11,9 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B3b  _flash_bwd_dkv_kernel    csrc/flash_geometric_bwd.cu
     B4   _lse1_kernel             csrc/flash_pairwalk_fwd.cu
     B5   _flash_biased_kernel     csrc/flash_pairwalk_fwd.cu
-    B6   _biased_bwd_pre_kernel   csrc/flash_biased_bwd.cu
-    B7a  _biased_bwd_dq_kernel    csrc/flash_biased_bwd.cu
-    B7b  _biased_bwd_dkv_kernel   csrc/flash_biased_bwd.cu
+    B6   _biased_bwd_pre_kernel   csrc/flash_pairwalk_biased_bwd.cu (row walk)
+    B7a  _biased_bwd_dq_kernel    csrc/flash_pairwalk_biased_bwd.cu (row walk)
+    B7b  _biased_bwd_dkv_kernel   csrc/flash_pairwalk_biased_bwd.cu (key walk)
     B1c  _flash_kernel, compact   csrc/flash_geometric_fwd.cu
     B3a c  _flash_bwd_dq_kernel, compact   csrc/flash_geometric_bwd.cu
     B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_geometric_bwd.cu
@@ -24,13 +24,11 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
 
 B1, B2, B4 and B5 are pair walks that read each mask tile once for all
-heads and compute only the mask's valid pairs. Every kernel above also
-has a bf16 form (the TPU kernels' ``bf16=True``: every product's operands
+heads and compute only the mask's valid pairs; so are B6 and B7a, together
+as one row walk, and B7b as the key walk. Every kernel above also has a
+bf16 form (the TPU kernels' ``bf16=True``: every product's operands
 rounded to bf16, float32 sums), in the same sources under its own entry
-point and launch count (B1's, B4's and B5's in
-csrc/flash_pairwalk_fwd.cu and B2's in csrc/flash_pairwalk_bwd.cu, pair
-walks likewise; B6's and B7a's together as the row walk and B7b's as the
-key walk in csrc/flash_pairwalk_biased_bwd.cu, pair walks likewise; B3a
+point and launch count (the pair walks' in the same files; B3a
 c's and B3b c's in csrc/flash_geometric_bwd_compact_bf16.cu, from the
 templates of csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's in
 csrc/flash_biased_bwd_compact_bf16.cu, from those of
@@ -1957,11 +1955,11 @@ class _FlashBwdDkvCompactBf16Kernel(_FlashBwdDkvCompactKernel):
 
 
 class _FlashBiasedBackwardKernel(_CudaKernel):
-    """Shared checks of the biased backward kernels B6, B7a and B7b: q, k
+    """Shared checks of the biased backward's two walks: q, k
     [G, H, N, D], v, do [G, H, N, Dv], bias [G, N, N], lse1, lse2, delta2
     (and delta1) [G, H, N], the walk (lst, cnt), scale f32[H], seeds
     i32[G, 2]."""
-    source = "flash_biased_bwd"
+    source = "flash_pairwalk_biased_bwd"
 
     def _check(self, q, k, v, mask, bias, do, rows, lst, cnt, scale, seeds):
         dev = self._device_of(self.name, q)
@@ -1979,91 +1977,16 @@ class _FlashBiasedBackwardKernel(_CudaKernel):
         return dev, (G, H, N, D, Dv, n, W)
 
 
-class _FlashBiasedBwdPreKernel(_FlashBiasedBackwardKernel):
-    """B6, ``tagan_flash_biased_bwd_pre``: (delta1 [G, H, N], dB
-    [G, N, N]) over the forward walk, heads innermost. dB is written on
-    the walked 64 x 64 blocks only (every pair there, 0 off the mask);
-    elsewhere it is left unset. Deterministic."""
-    name = "flash_biased_bwd_pre"
-    symbol = "tagan_flash_biased_bwd_pre"
-    argtypes = (_P,) * 15 + (_I,) * 8 + (_F, _I, _U, _F)
-
-    def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, jlist,
-                 jcount, metric: str, scale, seeds, dropout_rate: float):
-        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2))
-        dev, (G, H, N, D, Dv, n_i, W) = self._check(
-            q, k, v, mask, bias, do, rows, jlist, jcount, scale, seeds)
-        delta1 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
-        dbias = torch.empty((G, N, N), dtype=torch.float32, device=dev)
-        self._launch(dev, *(t.data_ptr() for t in (
-            q, k, v, mask, bias, do, lse1, lse2, delta2, jlist, jcount, scale,
-            seeds, delta1, dbias)), G, H, N, D, Dv, n_i, W,
-            MXU_METRICS.index(metric), math.sqrt(D),
-            *_dropout_args(dropout_rate))
-        return delta1, dbias
-
-
-class _FlashBiasedBwdDqKernel(_FlashBiasedBackwardKernel):
-    """B7a, ``tagan_flash_biased_bwd_dq``: dq (and dscale) over the
-    forward walk, given B6's delta1. Deterministic."""
-    name = "flash_biased_bwd_dq"
-    symbol = "tagan_flash_biased_bwd_dq"
-    argtypes = (_P,) * 16 + (_I,) * 8 + (_F, _I, _U, _F, _I)
-
-    def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, delta1,
-                 jlist, jcount, metric: str, scale, seeds,
-                 dropout_rate: float, need_dscale: bool):
-        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
-                ("delta1", delta1))
-        dev, (G, H, N, D, Dv, n_i, W) = self._check(
-            q, k, v, mask, bias, do, rows, jlist, jcount, scale, seeds)
-        dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
-        part = torch.empty((G, H, n_i) if need_dscale else (1,),
-                           dtype=torch.float32, device=dev)
-        self._launch(dev, *(t.data_ptr() for t in (
-            q, k, v, mask, bias, do, lse1, lse2, delta2, delta1, jlist,
-            jcount, scale, seeds, dq, part)), G, H, N, D, Dv, n_i, W,
-            MXU_METRICS.index(metric), math.sqrt(D),
-            *_dropout_args(dropout_rate), int(need_dscale))
-        return dq, (part.sum((0, 2)) if need_dscale else None)
-
-
-class _FlashBiasedBwdDkvKernel(_FlashBiasedBackwardKernel):
-    """B7b, ``tagan_flash_biased_bwd_dkv``: dk and dv over the transposed
-    walk (ilist, icount), given B6's delta1. Deterministic."""
-    name = "flash_biased_bwd_dkv"
-    symbol = "tagan_flash_biased_bwd_dkv"
-    argtypes = (_P,) * 16 + (_I,) * 8 + (_F, _I, _U, _F)
-
-    def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, delta1,
-                 ilist, icount, metric: str, scale, seeds,
-                 dropout_rate: float):
-        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
-                ("delta1", delta1))
-        dev, (G, H, N, D, Dv, n_j, W) = self._check(
-            q, k, v, mask, bias, do, rows, ilist, icount, scale, seeds)
-        dk = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
-        dv = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
-        self._launch(dev, *(t.data_ptr() for t in (
-            q, k, v, mask, bias, do, lse1, lse2, delta2, delta1, ilist,
-            icount, scale, seeds, dk, dv)), G, H, N, D, Dv, n_j, W,
-            MXU_METRICS.index(metric), math.sqrt(D),
-            *_dropout_args(dropout_rate))
-        return dk, dv
-
-
-class _FlashBiasedBwdRowBf16Kernel(_FlashBiasedBackwardKernel):
-    """B6's and B7a's bf16 forms in one kernel, the row walk
-    ``tagan_flash_biased_bwd_row_bf16`` (csrc/flash_pairwalk_biased_bwd.cu):
-    (delta1 [G, H, N], dB [G, N, N], dq, dscale or None) over the forward
-    walk (jlist, jcount), a pair walk that reads each mask tile once for
-    all heads and computes only its valid pairs, twice: delta1 and dB,
-    then dq and dscale on the whole delta1. dB is written at the mask's
-    valid pairs only; elsewhere it is left unset. No atomics: repeated
-    calls are bit-identical."""
-    name = "flash_biased_bwd_row_bf16"
-    source = "flash_pairwalk_biased_bwd"
-    symbol = "tagan_flash_biased_bwd_row_bf16"
+class _FlashBiasedBwdRowKernel(_FlashBiasedBackwardKernel):
+    """B6 and B7a in one kernel, the row walk ``tagan_flash_biased_bwd_row``
+    (csrc/flash_pairwalk_biased_bwd.cu): (delta1 [G, H, N], dB [G, N, N],
+    dq, dscale or None) over the forward walk (jlist, jcount), a pair walk
+    that reads each mask tile once for all heads and computes only its
+    valid pairs, twice: delta1 and dB, then dq and dscale on the whole
+    delta1. dB is written at the mask's valid pairs only; elsewhere it is
+    left unset. No atomics: repeated calls are bit-identical."""
+    name = "flash_biased_bwd_row"
+    symbol = "tagan_flash_biased_bwd_row"
     argtypes = (_P,) * 17 + (_I,) * 8 + (_F, _I, _U, _F, _I)
 
     def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, jlist,
@@ -2085,15 +2008,43 @@ class _FlashBiasedBwdRowBf16Kernel(_FlashBiasedBackwardKernel):
         return delta1, dbias, dq, (part.sum((0, 2)) if need_dscale else None)
 
 
-class _FlashBiasedBwdKeyBf16Kernel(_FlashBiasedBwdDkvKernel):
-    """B7b's bf16 form, the key walk ``tagan_flash_biased_bwd_key_bf16``
+class _FlashBiasedBwdKeyKernel(_FlashBiasedBackwardKernel):
+    """B7b, the key walk ``tagan_flash_biased_bwd_key``
     (csrc/flash_pairwalk_biased_bwd.cu): dk and dv over the transposed
     walk (ilist, icount), given the row walk's delta1; each walked mask
     tile is copied whole and transposed in shared memory, and each key's
     valid rows are summed in ascending order. No atomics: repeated calls
     are bit-identical."""
+    name = "flash_biased_bwd_key"
+    symbol = "tagan_flash_biased_bwd_key"
+    argtypes = (_P,) * 16 + (_I,) * 8 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, mask, bias, do, lse1, lse2, delta2, delta1,
+                 ilist, icount, metric: str, scale, seeds,
+                 dropout_rate: float):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
+                ("delta1", delta1))
+        dev, (G, H, N, D, Dv, n_j, W) = self._check(
+            q, k, v, mask, bias, do, rows, ilist, icount, scale, seeds)
+        dk = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        dv = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, mask, bias, do, lse1, lse2, delta2, delta1, ilist,
+            icount, scale, seeds, dk, dv)), G, H, N, D, Dv, n_j, W,
+            MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate))
+        return dk, dv
+
+
+class _FlashBiasedBwdRowBf16Kernel(_FlashBiasedBwdRowKernel):
+    """The row walk's bf16 form, ``tagan_flash_biased_bwd_row_bf16``."""
+    name = "flash_biased_bwd_row_bf16"
+    symbol = "tagan_flash_biased_bwd_row_bf16"
+
+
+class _FlashBiasedBwdKeyBf16Kernel(_FlashBiasedBwdKeyKernel):
+    """The key walk's bf16 form, ``tagan_flash_biased_bwd_key_bf16``."""
     name = "flash_biased_bwd_key_bf16"
-    source = "flash_pairwalk_biased_bwd"
     symbol = "tagan_flash_biased_bwd_key_bf16"
 
 
@@ -2249,9 +2200,8 @@ flash_geometric_bwd_dq_kernel = _FlashBwdDqKernel()
 flash_geometric_bwd_dkv_kernel = _FlashBwdDkvKernel()
 flash_lse1_kernel = _FlashLse1Kernel()
 flash_biased_fwd_kernel = _FlashBiasedKernel()
-flash_biased_bwd_pre_kernel = _FlashBiasedBwdPreKernel()
-flash_biased_bwd_dq_kernel = _FlashBiasedBwdDqKernel()
-flash_biased_bwd_dkv_kernel = _FlashBiasedBwdDkvKernel()
+flash_biased_bwd_row_kernel = _FlashBiasedBwdRowKernel()
+flash_biased_bwd_key_kernel = _FlashBiasedBwdKeyKernel()
 flash_geometric_fwd_compact_kernel = _FlashForwardCompactKernel()
 flash_lse1_compact_kernel = _FlashLse1CompactKernel()
 flash_biased_fwd_compact_kernel = _FlashBiasedCompactKernel()
@@ -2281,8 +2231,8 @@ flash_biased_bwd_dkv_compact_bf16_kernel = \
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
-           flash_biased_bwd_pre_kernel, flash_biased_bwd_dq_kernel,
-           flash_biased_bwd_dkv_kernel, flash_geometric_fwd_compact_kernel,
+           flash_biased_bwd_row_kernel, flash_biased_bwd_key_kernel,
+           flash_geometric_fwd_compact_kernel,
            flash_lse1_compact_kernel, flash_biased_fwd_compact_kernel,
            flash_geometric_bwd_dq_compact_kernel,
            flash_geometric_bwd_dkv_compact_kernel,
@@ -2556,13 +2506,11 @@ def _biased_backward(q, k, v, mask, bias, out, lse1, lse2, do, plan, plan_t,
                      bf16=False):
     """(dq, dk, dv, dB, dscale or None) of folded inputs, the plain
     version for CPU tensors; trusts the plans. ``plan_t`` None is built
-    from the mask. On CUDA, fp32 takes the three tile kernels B6, B7a then
-    B7b, and ``bf16`` the two pair walks: the row walk (B6 and B7a bf16:
-    delta1, dB, dq, dscale) then the key walk (B7b bf16: dk, dv), both
-    free of atomics. dB is the TPU kernels' contract, read at the mask's
-    pairs: the tile kernels set every pair of the walked 64 x 64 blocks
-    (0 off the mask), the row walk only the mask's pairs; the plain
-    version sets it everywhere."""
+    from the mask. On CUDA, the two pair walks, in fp32 or with ``bf16``
+    their bf16 forms: the row walk (B6 and B7a: delta1, dB, dq, dscale)
+    then the key walk (B7b: dk, dv), both free of atomics. dB is the TPU
+    kernels' contract, read at the mask's pairs: the row walk sets it
+    there only, the plain version everywhere."""
     if q.device.type == "cpu":
         return flash_biased_backward_plain(q, k, v, mask, bias, out, lse1,
                                            lse2, do, metric, scale,
@@ -2572,23 +2520,14 @@ def _biased_backward(q, k, v, mask, bias, out, lse1, lse2, do, plan, plan_t,
     if plan_t is None:
         plan_t = _transposed_plan(mask)
     rows = (lse1, lse2, delta2)
-    if bf16:
-        delta1, dbias, dq, dscale = flash_biased_bwd_row_bf16_kernel(
-            q, k, v, mask, bias, do, *rows, *plan, metric, scale, seeds,
-            dropout_rate, need_dscale)
-        dk, dv = flash_biased_bwd_key_bf16_kernel(
-            q, k, v, mask, bias, do, *rows, delta1, *plan_t, metric, scale,
-            seeds, dropout_rate)
-        return dq, dk, dv, dbias, dscale
-    delta1, dbias = flash_biased_bwd_pre_kernel(
+    row, key = ((flash_biased_bwd_row_bf16_kernel,
+                 flash_biased_bwd_key_bf16_kernel) if bf16 else
+                (flash_biased_bwd_row_kernel, flash_biased_bwd_key_kernel))
+    delta1, dbias, dq, dscale = row(
         q, k, v, mask, bias, do, *rows, *plan, metric, scale, seeds,
-        dropout_rate)
-    dq, dscale = flash_biased_bwd_dq_kernel(
-        q, k, v, mask, bias, do, *rows, delta1, *plan, metric, scale, seeds,
         dropout_rate, need_dscale)
-    dk, dv = flash_biased_bwd_dkv_kernel(
-        q, k, v, mask, bias, do, *rows, delta1, *plan_t, metric, scale,
-        seeds, dropout_rate)
+    dk, dv = key(q, k, v, mask, bias, do, *rows, delta1, *plan_t, metric,
+                 scale, seeds, dropout_rate)
     return dq, dk, dv, dbias, dscale
 
 
@@ -2604,11 +2543,10 @@ def flash_biased_attention_bwd(
     lse1 and lse2 are the forward's, do the cotangent of out. Cosine
     metrics expect q/k already normalised. Plans given by the caller are
     checked; missing ones are built from the mask. CPU tensors take the
-    plain version; CUDA tensors B6, B7a and B7b, and with ``bf16`` the
-    row walk (B6 and B7a bf16) and the key walk (B7b bf16), which sum in
-    a fixed order. dB [G, N, N] is defined at the mask's pairs (and, on
-    CUDA in fp32, on every pair of a walked 64 x 64 block); read it there
-    only."""
+    plain version; CUDA tensors the row walk (B6 and B7a) and the key walk
+    (B7b), with ``bf16`` their bf16 forms, which sum in a fixed order. dB
+    [G, N, N] is defined at the mask's pairs only (on CUDA it is left
+    unset elsewhere); read it there only."""
     N = q.shape[2]
     if plan is None:
         plan, plan_t = make_block_plans_from_mask(mask)
@@ -2627,9 +2565,9 @@ def flash_biased_attention_bwd(
 
 class _FlashBiasedAttention(torch.autograd.Function):
     """The edge-biased attention of folded inputs (the TPU package's
-    ``_flash_diff_biased``): B4 then B5 forward, B6, B7a and B7b
-    backward (or the plain versions on the CPU); with ``bf16`` their bf16
-    forms, the backward as the row walk then the key walk. The backward
+    ``_flash_diff_biased``): B4 then B5 forward, the row walk (B6 and
+    B7a) then the key walk (B7b) backward (or the plain versions on the
+    CPU); with ``bf16`` their bf16 forms. The backward
     reads the dropout seeds saved by the forward.
     dscale is formed only when the scale requires grad, dB only when the
     bias does."""
@@ -2689,8 +2627,8 @@ def flash_geometric_attention(
     ``bias`` [..., N, N] (shared by the heads) takes the edge-biased
     variant, the dense path's double softmax: out = drop2(softmax(
     drop1(softmax(s)) + bias)) @ v over the mask, through kernels B4 and
-    B5 and, under autograd, B6, B7a and B7b
-    (`flash_biased_attention_bwd`), with the two dropout seeds of
+    B5 and, under autograd, the row walk (B6 and B7a) and the key walk
+    (B7b) (`flash_biased_attention_bwd`), with the two dropout seeds of
     `biased_seeds`. It returns out only; the bias gets its gradient at
     the mask's pairs, which are the only ones its result depends on
     (elsewhere it is unset on CUDA: read it there only).

@@ -428,11 +428,11 @@ def test_edge_predictor_on_gpu_matches_cpu(cuda):
 
 
 def _biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
-    """B6, B7a and B7b against the plain parts on the plain forward's
-    statistics, with an empty key strip (snapshot 0, keys 64..127): delta1,
-    dq, dscale (gaussian/rbf), dk and dv within TOL over their largest
-    entry, dB at the mask's pairs, 0 at the other pairs of the walked
-    blocks; one launch each."""
+    """The fp32 row walk (B6 and B7a) and key walk (B7b) against the
+    plain parts on the plain forward's statistics, with an empty key strip
+    (snapshot 0, keys 64..127): delta1, dq, dscale (gaussian/rbf), dk and
+    dv within TOL over their largest entry, dB at the mask's pairs (the
+    only ones the row walk writes); one launch each."""
     args = [t.to(cuda) for t in _biased_inputs(G, H, N, D, Dv, metric, seed)]
     q, k, v, mask, bias, scale, seeds = args
     mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
@@ -446,14 +446,11 @@ def _biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
     d2 = (do * out).sum(-1)
     common = (q, k, v, mask, bias, do, lse1, lse2, d2)
     plan, plan_t = FG.make_block_plans_from_mask(mask)
-    kernels = (FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
-               FG.flash_biased_bwd_dkv_kernel)
+    kernels = (FG.flash_biased_bwd_row_kernel, FG.flash_biased_bwd_key_kernel)
     before = [kern.launches for kern in kernels]
-    d1, db = FG.flash_biased_bwd_pre_kernel(*common, *plan, metric, scale,
-                                            seeds, rate)
-    dq, dsc = FG.flash_biased_bwd_dq_kernel(*common, d1, *plan, metric,
-                                            scale, seeds, rate, need)
-    dk, dv = FG.flash_biased_bwd_dkv_kernel(*common, d1, *plan_t, metric,
+    d1, db, dq, dsc = FG.flash_biased_bwd_row_kernel(
+        *common, *plan, metric, scale, seeds, rate, need)
+    dk, dv = FG.flash_biased_bwd_key_kernel(*common, d1, *plan_t, metric,
                                             scale, seeds, rate)
     torch.cuda.synchronize()
     assert [kern.launches for kern in kernels] == [n + 1 for n in before]
@@ -467,11 +464,8 @@ def _biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
         assert torch.isfinite(g).all()
         assert _close(g, w) <= TOL
     on = mask != 0
-    walked = FG._occ_from_mask(mask, FG.BLOCK_M, FG.BLOCK_N)
-    walked = walked.repeat_interleave(FG.BLOCK_M, 1).repeat_interleave(
-        FG.BLOCK_N, 2)[:, :N, :N]
+    assert torch.isfinite(db[on]).all()
     assert _close(db[on], p_db[on]) <= TOL
-    assert torch.all(db[walked & ~on] == 0)
     assert (dsc is None) == (not need)
     if need:
         assert _close(dsc, p_dsc) <= TOL
@@ -481,10 +475,10 @@ def _biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("metric", FG.MXU_METRICS)
 def test_biased_backward_kernels_match_plain(metric, rate, cuda):
-    """B6, B7a and B7b: N=150 (not a tile multiple), D != Dv, dead rows,
-    an empty query tile and an empty key strip, per-head scales with
-    their gradient, both dropouts from per-snapshot seed pairs, a bias
-    with duplicate-edge sums."""
+    """The fp32 row and key walks: N=150 (not a tile multiple), D != Dv,
+    dead rows, an empty query tile and an empty key strip, per-head scales
+    with their gradient, both dropouts from per-snapshot seed pairs, a
+    bias with duplicate-edge sums."""
     _biased_bwd_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate)
 
 
@@ -500,14 +494,13 @@ def test_biased_backward_kernel_head_dims(D, Dv, cuda):
                                          ("jcount", 4)])
 def test_biased_backward_bad_plan_raises_before_launch(field, value, cuda):
     """A forward or transposed plan pointing outside the 3 tiles of N=150
-    is refused on the host; none of B6, B7a, B7b is launched."""
+    is refused on the host; neither walk is launched."""
     q, k, v, mask, bias, _, _ = (t.to(cuda) for t in _biased_inputs(
         1, 2, 150, 16, 16, "dot_product"))
     plan, plan_t = FG.make_block_plans_from_mask(mask)
     out = torch.zeros_like(v)
     lse = torch.zeros(q.shape[:3], device=cuda)
-    kernels = (FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
-               FG.flash_biased_bwd_dkv_kernel)
+    kernels = (FG.flash_biased_bwd_row_kernel, FG.flash_biased_bwd_key_kernel)
     before = [kern.launches for kern in kernels]
     for which in (0, 1):
         bad = [t.clone() for t in (plan, plan_t)[which]]
@@ -557,7 +550,8 @@ def _edge_step(cfg, batch, labels, smask, dev):
 @pytest.mark.parametrize("metric", ["euclidean", "gaussian_kernel"])
 def test_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
     """One TAGANTrainer step of the flash model with edge features, card
-    (B4, B5, B6, B7a, B7b once per layer) vs CPU (plain versions): the
+    (B4, B5, the row walk and the key walk once per layer) vs CPU (plain
+    versions): the
     loss and every gradient, edge_embedding, edge_bias and a learnable
     sigma included."""
     seqs = _edge_seqs(np.random.default_rng(5), 100, 800, 3, 2)
@@ -574,8 +568,8 @@ def test_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
            for dev in ("cuda", "cpu")}
     want = {k.name: 0 for k in FG.KERNELS}
     for kern in (FG.flash_lse1_kernel, FG.flash_biased_fwd_kernel,
-                 FG.flash_biased_bwd_pre_kernel, FG.flash_biased_bwd_dq_kernel,
-                 FG.flash_biased_bwd_dkv_kernel):
+                 FG.flash_biased_bwd_row_kernel,
+                 FG.flash_biased_bwd_key_kernel):
         want[kern.name] = cfg.num_layers
     assert got["cuda"][2] == want
     assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
@@ -588,7 +582,8 @@ def test_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
 @pytest.mark.gpu
 def test_edge_padded_edges_on_unwalked_blocks(cuda):
     """A batch whose padded edges (at (0, 0)) lie in a padded snapshot
-    where the walk visits no block, so B6 leaves its dB unset: with the
+    where the walk visits no block, so the row walk leaves its dB unset
+    there: with the
     allocator's memory filled with NaN first, the gradients stay finite
     and equal the CPU's (the model reads dB at edges through a select)."""
     seqs = _edge_seqs(np.random.default_rng(6), 100, 800, 3, 2, short=True)
@@ -2464,17 +2459,25 @@ def test_pairwalk_fp32_biased_fwd_deterministic(metric, rate, cuda):
             assert torch.equal(a, b)
 
 
-# -- the bf16 biased backward's pair walks (the row walk, the key walk) ----------
+# -- the biased backward's pair walks (the row walk, the key walk), in bf16
+# and fp32 --------------------------------------------------------------------
 
-def _pairwalk_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
-    """The row walk (B6 and B7a bf16) and the key walk (B7b bf16) through
-    ``flash_biased_attention_bwd(..., bf16=True)`` on the plain bf16
-    forward's out, lse1 and lse2 (walking the plan) at `sparse_mask`,
+# the fp32 row walk (B6 and B7a) and key walk (B7b)
+BIASED_WALKS_FP32 = (FG.flash_biased_bwd_row_kernel,
+                     FG.flash_biased_bwd_key_kernel)
+
+
+def _pairwalk_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0,
+                              bf16=True):
+    """The row walk (B6 and B7a) and the key walk (B7b) through
+    ``flash_biased_attention_bwd(..., bf16=bf16)`` on the plain forward's
+    out, lse1 and lse2 (walking the plan) at `sparse_mask`: with ``bf16``
     against the plain bf16 biased backward under the bf16 gates (dscale,
     for gaussian and rbf, under the max gate alone), the plain fp32
-    backward the witness: dq, dk, dv, dB at the mask's pairs; dq exactly 0
-    on dead rows and dk, dv exactly 0 at keys no row reaches; each walk
-    launched once, nothing else."""
+    backward the witness; in fp32 against the plain fp32 backward within
+    TOL of each output's largest entry (at least 1). dq, dk, dv, dB at the
+    mask's pairs; dq exactly 0 on dead rows and dk, dv exactly 0 at keys
+    no row reaches; each walk launched once, nothing else."""
     q, k, v, mask, bias, scale, seeds = (
         t.to(cuda) for t in _sparse_inputs(G, H, N, D, Dv, metric, seed))
     # keys no row reaches, in a middle key tile and the ragged last one
@@ -2484,19 +2487,20 @@ def _pairwalk_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
         (G, H, N, Dv)).astype(np.float32)).to(cuda)
     plan, plan_t = FG.make_block_plans_from_mask(mask)
     need = metric in FG.SCALED_METRICS
-    lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, True)
+    lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, bf16)
     out, lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias, lse1,
                                               metric, scale, rate, seeds,
-                                              True, plan)
+                                              bf16, plan)
     before = {k_.name: k_.launches for k_ in FG.KERNELS}
     got = FG.flash_biased_attention_bwd(
         q, k, v, bias, mask, out, lse1, lse2, do, metric=metric, scale=scale,
         plan=plan, plan_t=plan_t, seeds=seeds, dropout_rate=rate,
-        need_dscale=need, bf16=True)
+        need_dscale=need, bf16=bf16)
     torch.cuda.synchronize()
     launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
     expect = {k_.name: 0 for k_ in FG.KERNELS}
-    expect.update({k_.name: 1 for k_ in BIASED_BF16[2:]})
+    expect.update({k_.name: 1 for k_ in (BIASED_BF16[2:] if bf16
+                                         else BIASED_WALKS_FP32)})
     assert launched == expect
     dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
     unreached = (mask == 0).all(-2)[:, None, :].expand(G, H, N)
@@ -2506,13 +2510,19 @@ def _pairwalk_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
     assert torch.all(got[2][unreached] == 0)
     stats = (q, k, v, mask, bias, out, lse1, lse2, do, metric, scale, rate,
              seeds, need)
-    want = FG.flash_biased_backward_plain(*stats, bf16=True)
+    want = FG.flash_biased_backward_plain(*stats, bf16=bf16)
+    on = mask != 0
+    assert len(got) == (5 if need else 4)
+    if not bf16:
+        for g, w in zip(got[:3] + (got[3][on],) + got[4:],
+                        want[:3] + (want[3][on],) + want[4:]):
+            assert torch.isfinite(g).all()
+            assert _close(g, w) <= TOL
+        return
     f32 = FG.flash_biased_backward_plain(*stats)
     for g, w, f in zip(got[:3], want[:3], f32[:3]):
         _bf16_gates(g, w, f)
-    on = mask != 0
     _bf16_gates(got[3][on], want[3][on], f32[3][on])
-    assert len(got) == (5 if need else 4)
     if need:
         _bf16_gates(got[4], want[4], f32[4], witness=False, mean=False)
 
@@ -2522,11 +2532,22 @@ def _pairwalk_biased_vs_plain(cuda, G, H, N, D, Dv, metric, rate, seed=0):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("metric", FG.MXU_METRICS)
 def test_pairwalk_biased_bf16_sparse(metric, rate, N, cuda):
-    """The two walks at sparse masks (`sparse_mask`): every metric,
+    """The two bf16 walks at sparse masks (`sparse_mask`): every metric,
     dropout off and on, N = 330 (the mask's rows past 128 keys reach most
     keys; byte loads), 1008 (16-byte loads, the last tile ragged) and
     1536 (a multiple of 64), H = 4."""
     _pairwalk_biased_vs_plain(cuda, 2, 4, N, 16, 16, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [330, 1008, 1536])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_pairwalk_fp32_biased_bwd_sparse(metric, rate, N, cuda):
+    """The two fp32 walks at `test_pairwalk_biased_bf16_sparse`'s masks,
+    held to the plain fp32 biased backward within TOL."""
+    _pairwalk_biased_vs_plain(cuda, 2, 4, N, 16, 16, metric, rate,
+                              bf16=False)
 
 
 @pytest.mark.gpu
@@ -2542,6 +2563,16 @@ def test_pairwalk_biased_bf16_head_dims(D, Dv, metric, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["scaled_dot_product", "gaussian_kernel"])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_pairwalk_fp32_biased_bwd_head_dims(D, Dv, metric, cuda):
+    """`test_pairwalk_biased_bf16_head_dims` for the fp32 walks."""
+    _pairwalk_biased_vs_plain(cuda, 1, 3, 1008, D, Dv, metric, 0.1, seed=1,
+                              bf16=False)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("H", [1, 4, 8, 40])
 def test_pairwalk_biased_bf16_fold(H, cuda):
     """A 16-snapshot fold with dropout (each snapshot its seeds), H = 1
@@ -2553,11 +2584,18 @@ def test_pairwalk_biased_bf16_fold(H, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
-                                         ("gaussian_kernel", 0.1)])
-def test_pairwalk_biased_bf16_deterministic(metric, rate, cuda):
-    """dq, dk, dv, dB (at the mask's pairs) and dscale of the two walks are
-    bit-identical over 20 repeated calls: neither sums with atomics."""
+@pytest.mark.parametrize("H", [1, 4, 8, 40])
+def test_pairwalk_fp32_biased_bwd_fold(H, cuda):
+    """`test_pairwalk_biased_bf16_fold` for the fp32 walks: at H = 40 two
+    row walk launches add into dB."""
+    _pairwalk_biased_vs_plain(cuda, 16, H, 600, 16, 16, "gaussian_kernel",
+                              0.1, seed=2, bf16=False)
+
+
+def _pairwalk_biased_repeats(cuda, metric, rate, bf16):
+    """dq, dk, dv, dB (at the mask's pairs) and dscale of the two walks
+    are bit-identical over 20 repeated calls: neither sums with
+    atomics."""
     G, H, N = 2, 4, 1008
     q, k, v, mask, bias, scale, seeds = (
         t.to(cuda) for t in _sparse_inputs(G, H, N, 16, 16, metric, 3))
@@ -2565,17 +2603,17 @@ def test_pairwalk_biased_bf16_deterministic(metric, rate, cuda):
         (G, H, N, 16)).astype(np.float32)).to(cuda)
     plan, plan_t = FG.make_block_plans_from_mask(mask)
     need = metric in FG.SCALED_METRICS
-    lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, True)
+    lse1 = FG.flash_lse1_plain(q, k, mask, metric, scale, bf16)
     out, lse2 = FG.flash_biased_forward_plain(q, k, v, mask, bias, lse1,
                                               metric, scale, rate, seeds,
-                                              True, plan)
+                                              bf16, plan)
     on = mask != 0
     first = None
     for _ in range(20):
         got = FG.flash_biased_attention_bwd(
             q, k, v, bias, mask, out, lse1, lse2, do, metric=metric,
             scale=scale, plan=plan, plan_t=plan_t, seeds=seeds,
-            dropout_rate=rate, need_dscale=need, bf16=True)
+            dropout_rate=rate, need_dscale=need, bf16=bf16)
         got = [t.clone() for t in got[:3]] + [got[3][on]] + list(got[4:])
         if first is None:
             first = got
@@ -2584,17 +2622,31 @@ def test_pairwalk_biased_bf16_deterministic(metric, rate, cuda):
 
 
 @pytest.mark.gpu
-def test_pairwalk_biased_bf16_unset_db_never_read(cuda):
+@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
+                                         ("gaussian_kernel", 0.1)])
+def test_pairwalk_biased_bf16_deterministic(metric, rate, cuda):
+    """The bf16 walks, 20 calls bit for bit (`_pairwalk_biased_repeats`)."""
+    _pairwalk_biased_repeats(cuda, metric, rate, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
+                                         ("gaussian_kernel", 0.1)])
+def test_pairwalk_fp32_biased_bwd_deterministic(metric, rate, cuda):
+    """The fp32 walks, 20 calls bit for bit (`_pairwalk_biased_repeats`)."""
+    _pairwalk_biased_repeats(cuda, metric, rate, False)
+
+
+def _unset_db_step(cuda, cfg, row):
     """The row walk leaves dB unset off the mask's pairs, and the model
     reads it only at its valid edges (through `edge_bias_matrix`'s
     select): with the allocator's memory filled with NaN first, one
-    TAGANTrainer step of the bf16 edge-feature model on a batch with
-    padded edges (at (0, 0)) and a padded snapshot gives finite gradients
-    within `BF16_EDGE_GRAD` of the CPU's, the plain contractions pinned to
-    fp32 on both sides as in `test_edge_bf16_trainer_step_on_gpu_matches_cpu`."""
+    TAGANTrainer step of the edge-feature model ``cfg`` on a batch with
+    padded edges (at (0, 0)) and a padded snapshot launches ``row`` once
+    a layer; returns the card's and the CPU's gradients, the plain
+    contractions pinned to fp32 on both sides."""
     from tagan_torch.core.module import default_matmul_precision
     seqs = _edge_seqs(np.random.default_rng(6), 100, 800, 3, 2, short=True)
-    cfg = _bf16_model_cfg(edge_feature_dim=4, use_edge_features=True)
     batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
         pt.TemporalGraphDataset(seqs, [1.0, 0.0]), batch_size=2,
         dense_adj=False)))
@@ -2609,7 +2661,6 @@ def test_pairwalk_biased_bf16_unset_db_never_read(cuda):
                          generator=torch.Generator().manual_seed(0))
         model.precision = lambda: default_matmul_precision("highest")
         tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
-        row = FG.flash_biased_bwd_row_bf16_kernel
         before = row.launches
         loss, _ = tr._loss(batch, labels, smask, True)
         loss.backward()
@@ -2617,11 +2668,32 @@ def test_pairwalk_biased_bf16_unset_db_never_read(cuda):
                                          else 0)
         got[dev] = {n_: p.grad.detach().cpu().clone()
                     for n_, p in model.named_parameters()}
-    for name, g in got["cpu"].items():
+    return got["cuda"], got["cpu"]
+
+
+@pytest.mark.gpu
+def test_pairwalk_biased_bf16_unset_db_never_read(cuda):
+    """`_unset_db_step` for the bf16 edge-feature model: finite gradients
+    within `BF16_EDGE_GRAD` of the CPU's, each over its largest entry, as
+    in `test_edge_bf16_trainer_step_on_gpu_matches_cpu`."""
+    card, cpu = _unset_db_step(cuda, _bf16_model_cfg(
+        edge_feature_dim=4, use_edge_features=True),
+        FG.flash_biased_bwd_row_bf16_kernel)
+    for name, g in cpu.items():
         if name in ("temporal_attention.k.b",
                     "temporal_attention.time_encoding.basis_proj.b",
                     "temporal_attention.time_q_proj.b"):
             continue    # zero in exact arithmetic: fp32 noise
-        card = got["cuda"][name]
-        assert torch.isfinite(card).all(), name
-        assert (card - g).abs().max() <= BF16_EDGE_GRAD * g.abs().max(), name
+        assert torch.isfinite(card[name]).all(), name
+        err = (card[name] - g).abs().max()
+        assert err <= BF16_EDGE_GRAD * g.abs().max(), name
+
+
+@pytest.mark.gpu
+def test_pairwalk_fp32_biased_bwd_unset_db_never_read(cuda):
+    """`_unset_db_step` for the fp32 edge-feature model: finite gradients
+    within TOL of the CPU's (`_grads_close`)."""
+    card, cpu = _unset_db_step(cuda, _bf16_model_cfg(
+        edge_feature_dim=4, use_edge_features=True, bf16_matmul=False),
+        FG.flash_biased_bwd_row_kernel)
+    _grads_close(card, cpu)

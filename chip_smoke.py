@@ -35,11 +35,16 @@ Phases, in order; any failure raises and exits non-zero:
    backward kernels B3a c (dq, dscale) and B3b c (dk, dv) against the
    compact plain backward on 2e's grid with an lse cotangent, dead rows
    and an empty key strip (icount = 0) exactly zero; (2g) the
-   compact-store biased backward kernels B6c (delta1, dB store), B7a c
-   (dq, dscale) and B7b c (dk, dv) against the compact plain parts on
-   2e's grid with union-like statistics (a residual's delta1 added, the
-   merge's NEG_INF lse2 on dead rows), both stores, the whole dB store
-   (0 in the slots no walk visits); (2h) the bf16 forms of B1, B2, B3a
+   compact-store biased backward's fp32 pair walks, the row walk (B6c
+   and B7a c: delta1, dB at the store's pairs, dq, dscale) and the key
+   walk (B7b c: dk, dv), against the compact plain parts on 2e's grid
+   with union-like statistics (a residual's delta1 added between the row
+   walk's passes, the merge's NEG_INF lse2 on dead rows), both stores,
+   and at `tests/test_torch_gpu.py::band_mask`'s cases over
+   `band_compact`'s walks (a walked slot with no bit, walk entries past
+   the counts, a key tile no row reaches, rows past 128 keys, N = 330),
+   folds of 8 and 40 heads, and nine cases called twice, bit for bit;
+   (2h) the bf16 forms of B1, B2, B3a
    and B3b (bf16 dot operands, fp32 sums) against the plain bf16
    versions on 2's grid and head dims 8, 12 and 128, under three gates
    over the plain version's largest entry: max error <= 2e-3 (bf16-class:
@@ -153,12 +158,14 @@ Phases, in order; any failure raises and exits non-zero:
    as the library yardstick (forward+backward minus forward; null with
    the reason if it does not build or differs), and csr
    ``edge_attention``'s autograd backward over the layer's whole edge set;
-   (5f) B6c, B7a c, B7b c and the three together at one 131K snapshot of
-   6d (union statistics) against the compact plain parts and their
-   bounds (the bias and dB at the valid pairs only), compiled
+   (5f) the compact row walk (B6c and B7a c), the key walk (B7b c) and
+   the two together at one 131K snapshot of 6d (union statistics)
+   against the compact plain parts and their bounds (the bias and dB at
+   the valid pairs only), the histogram of valid pairs per walked tile
+   on an earlier line, compiled
    ``flex_attention``'s backward of B4c and B5c's function under the
    compact plan's BlockMask at the scaled-dot metric as the library
-   yardstick (held against the kernels on band statistics; null with the
+   yardstick (held against the walks on band statistics; null with the
    reason if it does not build or differs), and csr ``edge_attention``'s
    biased autograd backward over the layer's whole edge set;
    (5g) B1, B2, B3a and B3b in their bf16 forms at one snapshot of 3e's
@@ -202,7 +209,8 @@ Phases, in order; any failure raises and exits non-zero:
    their bounds (the fp32 forms' bytes, operations at the bf16 rate);
    (5j) the bf16 forms of B4c, B5c, B6c, B7a c and B7b c at one 131K
    snapshot of 6h (union statistics), each beside its fp32 form in
-   turns, the compact plain bf16 versions, compiled ``flex_attention`` on
+   turns (bf16 B6c + B7a c beside the fp32 row walk, B7b c beside the
+   key walk), the compact plain bf16 versions, compiled ``flex_attention`` on
    bf16 q, k, v under the compact plan's BlockMask at the scaled-dot
    metric as the library yardstick (B4c's and B5c's functions, and the
    two calls' forward+backward minus forward; held against the bf16
@@ -236,9 +244,10 @@ Phases, in order; any failure raises and exits non-zero:
    snapshots and their share of the step, finite non-zero gradients,
    every parameter moved, and one snapshot at full width against the
    compact plain backward; (6d) the same for the edge-feature hybrid
-   model (Fe = 4: B4c, B5c, B6c, B7a c and B7b c each exactly once per
-   layer per step, nothing else), one layer's B6c + B7a c + B7b c over
-   the folded snapshots and their share of the step, the edge
+   model (Fe = 4: B4c, B5c, the compact row walk and the compact key
+   walk each exactly once per layer per step, nothing else: the bf16
+   tile kernels never), one layer's two walks over the folded snapshots
+   and their share of the step, the edge
    parameters' gradients non-zero, one snapshot at full width against
    the compact plain parts with the layer's union statistics;
    (6e) phase 6 with ``bf16_matmul=True``, ``bench.py``'s bf16 step
@@ -527,8 +536,9 @@ def compact_kernels(FG, bf16):
 
 
 def compact_biased_kernels(FG, bf16):
-    """The wrappers of B4c, B5c, B6c, B7a c and B7b c: the fp32 or the
-    bf16 forms."""
+    """The wrappers of B4c, B5c and the compact biased backward: in fp32
+    its row walk (B6c and B7a c) and key walk (B7b c), in bf16 the tile
+    kernels B6c, B7a c and B7b c."""
     if bf16:
         return (FG.flash_lse1_compact_bf16_kernel,
                 FG.flash_biased_fwd_compact_bf16_kernel,
@@ -536,9 +546,8 @@ def compact_biased_kernels(FG, bf16):
                 FG.flash_biased_bwd_dq_compact_bf16_kernel,
                 FG.flash_biased_bwd_dkv_compact_bf16_kernel)
     return (FG.flash_lse1_compact_kernel, FG.flash_biased_fwd_compact_kernel,
-            FG.flash_biased_bwd_pre_compact_kernel,
-            FG.flash_biased_bwd_dq_compact_kernel,
-            FG.flash_biased_bwd_dkv_compact_kernel)
+            FG.flash_biased_bwd_row_compact_kernel,
+            FG.flash_biased_bwd_key_compact_kernel)
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -4666,12 +4675,13 @@ def compact_biased_bwd_inputs(FG, G, H, N, D, Dv, metric, seed, pack, rate):
 def compact_biased_bwd_errors(FG, label, got, q, k, v, store, bias_store,
                               plan, metric, scale, seeds, rate, do, lse1,
                               lse2, delta2, d1_rest):
-    """{B6c, B7a c, B7b c: error} of `_biased_backward_compact`'s outputs
+    """{B6c+B7a c, B7b c: error} of `_biased_backward_compact`'s outputs
     ``got`` (dq, dk, dv, dB, dscale, delta1) against the compact plain
     parts on the same inputs (delta1 = B6c's plus ``d1_rest``): each
-    output's max abs error over its largest entry (at least 1), the whole
-    dB store; raises past TOL, on a non-finite output, or where dB is not
-    0 in the slots no walk visits."""
+    output's max abs error over its largest entry (at least 1), the row
+    walk's delta1, dB at the store's pairs (it sets no other entry), dq
+    and dscale, the key walk's dk and dv; raises past TOL or on a
+    non-finite output."""
     dq, dk, dv, db, dsc, d1 = got
     need = dsc is not None
     common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
@@ -4683,16 +4693,15 @@ def compact_biased_bwd_errors(FG, label, got, q, k, v, store, bias_store,
     p_dk, p_dv = FG.flash_biased_bwd_dkv_compact_plain(
         *common, d1u, *plan, metric, scale, rate, seeds)
     sync()
+    on = FG.store_pairs(store)
+    db, p_db = db[on], p_db[on]
     for name, t in (("delta1", d1), ("dB", db), ("dq", dq), ("dk", dk),
                     ("dv", dv)):
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{label}: non-finite {name}")
-    walked = plan[1].sum(-1).tolist()
-    if not all(bool((db[g, w:] == 0).all()) for g, w in enumerate(walked)):
-        raise AssertionError(f"{label}: dB not 0 in unvisited slots")
-    err = {"B6c": max(rel_err(d1, d1u), rel_err(db, p_db)),
-           "B7a c": max(rel_err(dq, p_dq),
-                        rel_err(dsc, p_dsc) if need else 0.0),
+    err = {"B6c+B7a c": max(rel_err(d1, d1u), rel_err(db, p_db),
+                            rel_err(dq, p_dq),
+                            rel_err(dsc, p_dsc) if need else 0.0),
            "B7b c": max(rel_err(dk, p_dk), rel_err(dv, p_dv))}
     if not max(err.values()) <= TOL:
         raise AssertionError(f"{label}: errors {err} > {TOL}")
@@ -4700,26 +4709,54 @@ def compact_biased_bwd_errors(FG, label, got, q, k, v, store, bias_store,
 
 
 def compact_biased_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack,
-                                seed=0):
-    """B6c, then B7a c and B7b c on B6c's delta1 plus a residual's
+                                seed=0, band=False, twice=False):
+    """The compact row walk (B6c and B7a c, the residual's delta1 added
+    between its passes), then the key walk (B7b c) on the union's delta1
     (`_biased_backward_compact`), against the compact plain parts; dq
-    exactly 0 on dead rows, dk and dv on the empty key strip."""
-    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
-     lse2, delta2, d1_rest) = compact_biased_bwd_inputs(
-        FG, G, H, N, D, Dv, metric, seed, pack, rate)
+    exactly 0 on dead rows, dk and dv on the empty key strip (keys 64-127,
+    or with ``band`` `tests.test_torch_gpu.band_mask`'s keys 192-255 over
+    `band_compact`'s walks); with ``twice``, a second call bit for
+    bit."""
+    if band:
+        from tests.test_torch_gpu import _compact_biased_bwd_inputs
+        (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do,
+         lse1, lse2, delta2, d1_rest) = (
+            t.to(DEV).contiguous() if torch.is_tensor(t)
+            else tuple(x.to(DEV).contiguous() for x in t)
+            for t in _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack,
+                                                rate, seed, band=True))
+        strip = slice(3 * FG.BLOCK_N, 4 * FG.BLOCK_N)
+    else:
+        (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do,
+         lse1, lse2, delta2, d1_rest) = compact_biased_bwd_inputs(
+            FG, G, H, N, D, Dv, metric, seed, pack, rate)
+        strip = slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
     need = metric in FG.SCALED_METRICS
-    got = FG._biased_backward_compact(q, k, v, store, bias_store, do, lse1,
-                                      lse2, delta2, plan, plan_t, metric,
-                                      scale, rate, seeds, need, d1_rest)
-    label = f"compact biased {metric} rate={rate} D={D} Dv={Dv} pack={pack}"
+
+    def call():
+        return FG._biased_backward_compact(
+            q, k, v, store, bias_store, do, lse1, lse2, delta2, plan, plan_t,
+            metric, scale, rate, seeds, need, d1_rest)
+    got = call()
+    label = (f"compact biased {metric} rate={rate} G={G} H={H} N={N} D={D} "
+             f"Dv={Dv} pack={pack} band={band}")
     dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
-    strip = slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
     if not (torch.all(got[0][dead] == 0)
             and (N <= 2 * FG.BLOCK_M or (torch.all(got[1][0, :, strip] == 0)
                                          and torch.all(got[2][0, :, strip]
                                                        == 0)))):
         raise AssertionError(f"{label}: dead rows or the empty key strip "
                              f"not exactly 0")
+    if twice:
+        on = FG.store_pairs(store)
+        again = call()
+        same = [torch.equal(a, b) for a, b in zip(got[:3], again[:3])] + [
+            torch.equal(got[3][on], again[3][on]), torch.equal(got[5],
+                                                               again[5])]
+        if need:
+            same.append(torch.equal(got[4], again[4]))
+        if not all(same):
+            raise AssertionError(f"{label}: a second call differs: {same}")
     return compact_biased_bwd_errors(FG, label, got, q, k, v, store,
                                      bias_store, plan, metric, scale, seeds,
                                      rate, do, lse1, lse2, delta2, d1_rest)
@@ -4735,10 +4772,25 @@ def phase_small_compact_biased_bwd(FG):
         for D, Dv in ((7, 3), (40, 72), (128, 128)):
             errs.append(compact_biased_bwd_vs_plain(
                 FG, 2, 2, 200, D, Dv, "gaussian_kernel", 0.1, pack, 1))
+        # the band's cases, each called twice
+        for metric, rate in (("euclidean", 0.0), ("gaussian_kernel", 0.1),
+                             ("scaled_dot_product", 0.1),
+                             ("cosine_distance", 0.0)):
+            errs.append(compact_biased_bwd_vs_plain(
+                FG, 2, 4, 330, 16, 16, metric, rate, pack, 3, True, True))
+    for H in (8, 40):
+        errs.append(compact_biased_bwd_vs_plain(
+            FG, 2, H, 330, 16, 16, "gaussian_kernel", 0.1, True, 5, True,
+            True))
+    errs.append(compact_biased_bwd_vs_plain(
+        FG, 1, 1, 330, 128, 128, "euclidean", 0.1, False, 4, True))
     out = {name: max(e[name] for e in errs)
-           for name in ("B6c", "B7a c", "B7b c")}
-    log(f"[2g] B6c (delta1, dB store), B7a c (dq, dscale) and B7b c (dk, dv) "
-        f"vs the compact plain parts, bit and int8 stores, union statistics: "
+           for name in ("B6c+B7a c", "B7b c")}
+    log(f"[2g] the compact row walk (B6c + B7a c: delta1, dB at the store's "
+        f"pairs, dq, dscale) and key walk (B7b c: dk, dv) vs the compact "
+        f"plain parts, bit and int8 stores, union statistics, the band's "
+        f"cases (a slot with no bit, walk entries past the counts), folds "
+        f"of 8 and 40 heads, nine cases called twice bit for bit: "
         f"{len(errs)} cases; max err {out} (tol {TOL})")
     return out
 
@@ -4772,7 +4824,7 @@ def compact_biased_bf16_errors(FG, label, got, q, k, v, store, bias_store,
                            dk=p_dk, dv=p_dv)
     sync()
     want, f32 = parts[True], parts[False]
-    on = FG.unpack_bits(store) if FG.store_packed(store) else store != 0
+    on = FG.store_pairs(store)
     if not bool((db[~on] == 0).all()):
         raise AssertionError(f"{label}: dB not 0 off the store's pairs")
     g = {n: bf16_gates(f"{label} {n}", x[sel], want[n][sel], f32[n][sel])
@@ -4987,11 +5039,12 @@ def phase_train_hybrid_edge(tt, FG, bf16=False, data=None):
     Fe = 4) over a ``plan="hybrid"`` loader, one sequence per batch: the
     loader's planning batch apart from the cached ones, one warm-up step,
     then 3 steps with launch counts set to 0 just before and read just
-    after; step times, split, peak memory, one layer's B6c + B7a c +
-    B7b c over the folded snapshots and their share of the step, finite
-    losses and non-zero gradients (the edge parameters included), every
-    parameter moved; one snapshot at full width against the compact plain
-    parts. With ``bf16`` [6h]: the model with bf16_matmul=True over 6d's
+    after (the compact row and key walks each once per layer per step);
+    step times, split, peak memory, one layer's two walks over the folded
+    snapshots and their share of the step, finite losses and non-zero
+    gradients (the edge parameters included), every parameter moved; one
+    snapshot at full width against the compact plain parts. With
+    ``bf16`` [6h]: the model with bf16_matmul=True over 6d's
     loaders and planned batches ``data`` (the bf16 forms of B4c, B5c,
     B6c, B7a c and B7b c each once per layer per step, the fp32 forms
     never), held to the compact plain bf16 parts under the bf16 gates.
@@ -5098,9 +5151,10 @@ def phase_train_hybrid_edge(tt, FG, bf16=False, data=None):
             seeds, False, d1_rest, bf16), 3)
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
+    bwd_name = "B6c+B7a c+B7b c" if bf16 else "the row and key walks"
     log(f"[{tag}] one layer's launches over the {G} folded snapshots: B4c+B5c "
-        f"{fold_fwd:.3f} ms, B6c+B7a c+B7b c {fold_bwd:.3f} ms; "
-        f"{cfg.num_layers} layers' B6c+B7a c+B7b c = {share:.3f} and with "
+        f"{fold_fwd:.3f} ms, {bwd_name} {fold_bwd:.3f} ms; "
+        f"{cfg.num_layers} layers' {bwd_name} = {share:.3f} and with "
         f"B4c+B5c {cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the "
         f"fastest step ({step:.3f} ms)")
 
@@ -5129,9 +5183,9 @@ def phase_train_hybrid_edge(tt, FG, bf16=False, data=None):
             FG, f"N={N_HYB}", got, *one, plan1, "euclidean", ones,
             seeds[:1], 0.0, *rows1)
         log(f"[6d] compact biased backward at N={N_HYB}, one snapshot, "
-            f"union statistics, vs the compact plain parts: max err B6c "
-            f"{full['B6c']:.3e}, B7a c {full['B7a c']:.3e}, B7b c "
-            f"{full['B7b c']:.3e}")
+            f"union statistics, vs the compact plain parts: max err the row "
+            f"walk (B6c + B7a c) {full['B6c+B7a c']:.3e}, the key walk "
+            f"(B7b c) {full['B7b c']:.3e}")
     del got
     return dict(data=(warm, loader, batches, batch_s, cached_epoch_s),
                 batch_s=batch_s, cached_epoch_s=cached_epoch_s,
@@ -5166,7 +5220,8 @@ def compact_biased_fwd_bounds(q, v, store, plan, pairs, bound_of=None):
 
 def compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs,
                               bound_of=None):
-    """B6c's, B7a c's and B7b c's least time from these inputs: q, k, v,
+    """The tile kernels B6c's, B7a c's and B7b c's (the bf16 forms)
+    least time from these inputs: q, k, v,
     dO, lse1, lse2 and delta2, the store, the bias at the valid pairs
     only (4 bytes each: the result depends on no other entry), the walk,
     scale and seeds read once; delta1 and dB at the valid pairs (B6c),
@@ -5189,14 +5244,66 @@ def compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs,
                               2 * H * pairs * (2 * D + 2 * Dv))}
 
 
+def compact_walk_bounds(FG, q, v, store, plan, plan_t, pairs):
+    """The compact row walk's (B6c and B7a c), the key walk's (B7b c) and
+    the two walks' least time from these inputs: q, k, v, dO, lse1, lse2
+    and delta2, the row walk's delta1_rest and the key walk's delta1, the
+    store, the bias at the valid pairs only (4 bytes each: the result
+    depends on no other entry), the walks, scale and seeds read once; the
+    row walk's delta1, dB at the valid pairs and dq, the key walk's dk
+    and dv written once; against the products on the valid pairs at the
+    fp32 peak (the row walk's two passes: q.k and do.v twice and W k;
+    the key walk's q.k, do.v, W q and drop2(w2) do)."""
+    G, H, N, D = q.shape
+    Dv = v.shape[-1]
+    HN = G * H * N
+    common = (4 * HN * (2 * D + 2 * Dv) + 3 * 4 * HN
+              + store.numel() * store.element_size() + 4 * pairs
+              + 4 * (H + 2 * G))
+    plan_b, plan_tb = (4 * sum(t.numel() for t in p) for p in (plan, plan_t))
+    row_b = 4 * HN + plan_b + 4 * HN + 4 * pairs + 4 * HN * D
+    key_b = 4 * HN + plan_tb + 4 * HN * (D + Dv)
+    row_f = 2 * H * pairs * (3 * D + 2 * Dv)
+    key_f = 2 * H * pairs * (2 * D + 2 * Dv)
+    return {"B6c+B7a c": bound(common + row_b, row_f),
+            "B7b c": bound(common + key_b, key_f),
+            "both": bound(common + row_b + plan_tb + 4 * HN * (D + Dv),
+                          row_f + key_f)}
+
+
+def tile_occupancy(FG, store, plan):
+    """The valid pairs of each walked 64 x 64 tile of snapshot 0, as a
+    histogram over power-of-two bins: {"0": tiles with no pair, "1",
+    "2-3", ..., "2048-4095", "4096"}, and the quantiles."""
+    jl, jc, js = (t[0] for t in plan)
+    live = torch.arange(jl.shape[-1], device=jl.device) < jc[:, None]
+    per = FG.store_pairs(store)[0][js[live].long()].sum((-1, -2))
+    per = per.cpu()
+    hist = {"0": int((per == 0).sum())}
+    lo = 1
+    while lo < 4096:
+        hist[f"{lo}" if lo == 1 else f"{lo}-{2 * lo - 1}"] = int(
+            ((per >= lo) & (per < 2 * lo)).sum())
+        lo *= 2
+    hist["4096"] = int((per == 4096).sum())
+    q = torch.quantile(per.double(), torch.tensor(
+        [0.1, 0.5, 0.9, 0.99], dtype=torch.float64)).tolist()
+    return dict(histogram=hist, tiles=int(per.numel()),
+                pairs=int(per.sum()), mean=float(per.double().mean()),
+                max=int(per.max()), quantiles_10_50_90_99=q,
+                rows_past_64=int((per > 64).sum()))
+
+
 def phase_times_hybrid_edge_bwd(FG, args):
-    """At one 131K snapshot of 6d, CUDA events: B6c, B7a c, B7b c and the
-    three together against the compact plain parts (pre, then dq and
-    dk/dv), compiled ``flex_attention``'s backward of B4c and B5c's
-    function under the compact plan's BlockMask at the scaled-dot metric
-    (forward+backward minus forward; held against the kernels at that
-    metric on band-only statistics), csr ``edge_attention``'s biased
-    autograd backward over the layer's whole edge set, and the bounds."""
+    """At one 131K snapshot of 6d, CUDA events: the compact row walk (B6c
+    and B7a c), the key walk (B7b c) and the two together
+    (`_biased_backward_compact`) against the compact plain parts (pre,
+    then dq and dk/dv), compiled ``flex_attention``'s backward of B4c and
+    B5c's function under the compact plan's BlockMask at the scaled-dot
+    metric (forward+backward minus forward; held against the walks at
+    that metric on band-only statistics), csr ``edge_attention``'s biased
+    autograd backward over the layer's whole edge set, and the bounds;
+    first, the histogram of valid pairs per walked tile."""
     from tagan_torch.ops.sparse import edge_attention
     (q, k, v, store, bst, plan, plan_t, ((res_eq, res_ek, res_em), rb),
      (do, lse1, lse2, delta2, d1_rest)) = args
@@ -5204,25 +5311,27 @@ def phase_times_hybrid_edge_bwd(FG, args):
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(1, 2, dtype=torch.int32, device=DEV)
     sdp = "scaled_dot_product"
+    d1_rest = d1_rest.contiguous()
+    occ = tile_occupancy(FG, store, plan)
+    log(f"[5f] valid pairs per walked 64x64 tile, one snapshot of N={N}: "
+        f"{occ['tiles']} walked tiles, {occ['pairs']} pairs, mean "
+        f"{occ['mean']:.2f}, max {occ['max']}, quantiles 10/50/90/99% "
+        f"{occ['quantiles_10_50_90_99']}; histogram {occ['histogram']}")
+    row_k, key_k = (FG.flash_biased_bwd_row_compact_kernel,
+                    FG.flash_biased_bwd_key_compact_kernel)
     with torch.no_grad():
         common = (q, k, v, store, bst, do, lse1, lse2, delta2)
-        d1 = (FG.flash_biased_bwd_pre_compact_kernel(
-            *common, *plan, "euclidean", ones, seeds, 0.0)[0]
-            + d1_rest).contiguous()
+        d1 = row_k(*common, d1_rest, *plan, "euclidean", ones, seeds, 0.0,
+                   False)[0]
 
-        def b6c():
-            FG.flash_biased_bwd_pre_compact_kernel(
-                *common, *plan, "euclidean", ones, seeds, 0.0)
+        def row():
+            row_k(*common, d1_rest, *plan, "euclidean", ones, seeds, 0.0,
+                  False)
 
-        def b7ac():
-            FG.flash_biased_bwd_dq_compact_kernel(
-                *common, d1, *plan, "euclidean", ones, seeds, 0.0, False)
+        def key():
+            key_k(*common, d1, *plan_t, "euclidean", ones, seeds, 0.0)
 
-        def b7bc():
-            FG.flash_biased_bwd_dkv_compact_kernel(
-                *common, d1, *plan_t, "euclidean", ones, seeds, 0.0)
-
-        def all3(metric="euclidean", c=common, rest=d1_rest):
+        def both(metric="euclidean", c=common, rest=d1_rest):
             return FG._biased_backward_compact(
                 *c, plan, plan_t, metric, ones, 0.0, seeds, False, rest)
 
@@ -5232,9 +5341,10 @@ def phase_times_hybrid_edge_bwd(FG, args):
             FG._biased_bwd_compact_plain(
                 *common, *plan, "euclidean", ones, 0.0, seeds,
                 p_d1 + d1_rest, False, ("dq", "dkv"))
-        p1, a1, a2, p2 = (cuda_ms(plain, 2), cuda_ms(all3, 10),
-                          cuda_ms(all3, 10), cuda_ms(plain, 2))
-        t6, t7a, t7b = cuda_ms(b6c, 10), cuda_ms(b7ac, 10), cuda_ms(b7bc, 10)
+        p1, a1, a2, p2 = (cuda_ms(plain, 2), cuda_ms(both, 10),
+                          cuda_ms(both, 10), cuda_ms(plain, 2))
+        t_row = [cuda_ms(row, 10), cuda_ms(row, 10)]
+        t_key = [cuda_ms(key, 10), cuda_ms(key, 10)]
         # the band alone at the scaled-dot metric: the function the
         # library computes
         l1_s = FG.flash_lse1_compact_kernel(q, k, store, *plan, sdp, ones)
@@ -5242,10 +5352,10 @@ def phase_times_hybrid_edge_bwd(FG, args):
             q, k, v, store, bst, l1_s, *plan, sdp, ones, seeds, 0.0)
         c_sdp = (q, k, v, store, bst, do, l1_s, l2_s,
                  (do * out_s).sum(-1).contiguous())
-        a_sdp = cuda_ms(lambda: all3(sdp, c_sdp, None), 10)
-        g_sdp = all3(sdp, c_sdp, None)
-        pairs = int(FG.unpack_bits(store).sum().item())
-        walked = int(plan[1].sum().item())
+        a_sdp = cuda_ms(lambda: both(sdp, c_sdp, None), 10)
+        g_sdp = both(sdp, c_sdp, None)
+        pairs = occ["pairs"]
+        walked = occ["tiles"]
 
         # the csr form of the layer's whole edge set: the band's pairs
         # with their store bias and the residual edges with theirs
@@ -5298,44 +5408,44 @@ def phase_times_hybrid_edge_bwd(FG, args):
                 two_calls(*fl)
         f_grads = lib_fb()
         sync()
+        # the walks set dB at the store's pairs only: compare there
+        on = FG.store_pairs(store)[0]
         flex_err = max(rel_err(f_grads[0], g_sdp[0]),
                        rel_err(f_grads[1], g_sdp[1]),
                        rel_err(f_grads[2], g_sdp[2]),
-                       rel_err(f_grads[3], g_sdp[3][0]))
+                       rel_err(f_grads[3][on], g_sdp[3][0][on]))
         del f_grads
         ms = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
         lib = dict(ms=ms if flex_err <= TOL else None, err=flex_err,
                    error=None if flex_err <= TOL else
-                   f"differs from B6c + B7a c + B7b c by {flex_err:.3e}")
+                   f"differs from the compact walks by {flex_err:.3e}")
     except Exception as e:          # the yardstick only: never the port
         lib = dict(ms=None, err=None, error=f"{type(e).__name__}: {e}"[:300])
     lib["setup_and_timing_s"] = time.perf_counter() - t0
-    bounds = compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs)
-    res = {"B6c": dict(ms=[t6], **bounds["B6c"]),
-           "B7a c": dict(ms=[t7a], **bounds["B7a c"]),
-           "B7b c": dict(ms=[t7b], **bounds["B7b c"]),
-           "B6c+B7a c+B7b c_ms": [a1, a2], "B6c+B7a c+B7b c_sdp_ms": a_sdp,
+    bounds = compact_walk_bounds(FG, q, v, store, plan, plan_t, pairs)
+    res = {"B6c+B7a c": dict(ms=t_row, **bounds["B6c+B7a c"]),
+           "B7b c": dict(ms=t_key, **bounds["B7b c"]),
+           "both": dict(ms=[a1, a2], sdp_ms=a_sdp, **bounds["both"]),
            "plain_ms": [p1, p2], "library": lib, "csr_ms": csr_ms,
            "csr_edges": int(eq.shape[-1]), "valid_pairs": pairs,
-           "walked_tiles": walked,
-           "db_whole_tile_write_ms": 4 * walked * FG.BLOCK_M * FG.BLOCK_N
-           / PEAK_BYTES * 1e3}
+           "walked_tiles": walked, "occupancy": occ}
     log(f"[5f] H={H} N={N} D={D}, one snapshot, compact biased backward "
-        f"(union statistics): B6c ms {t6:.4f}, B7a c {t7a:.4f}, B7b c "
-        f"{t7b:.4f}; the three ms {a1:.4f} {a2:.4f} (scaled-dot metric, band "
-        f"statistics {a_sdp:.4f}); compact plain parts ms {p1:.4f} {p2:.4f}; "
-        f"csr biased edge_attention backward over all {res['csr_edges']} "
-        f"edges ms {csr_ms[0]:.4f} {csr_ms[1]:.4f}")
+        f"(union statistics): the row walk (B6c + B7a c) ms "
+        f"{t_row[0]:.4f} {t_row[1]:.4f}, the key walk (B7b c) "
+        f"{t_key[0]:.4f} {t_key[1]:.4f}; the two ms {a1:.4f} {a2:.4f} "
+        f"(scaled-dot metric, band statistics {a_sdp:.4f}); compact plain "
+        f"parts ms {p1:.4f} {p2:.4f}; csr biased edge_attention backward "
+        f"over all {res['csr_edges']} edges ms {csr_ms[0]:.4f} "
+        f"{csr_ms[1]:.4f}")
     log(f"[5f] library: compiled flex_attention backward of B4c and B5c's "
         f"function under the compact plan's BlockMask at the scaled-dot "
         f"metric: {lib}")
-    for name in ("B6c", "B7a c", "B7b c"):
+    for name in ("B6c+B7a c", "B7b c", "both"):
         r = res[name]
         log(f"[5f] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
             f"({r['bytes']} bytes, {r['flops']} flops over {pairs} valid "
-            f"pairs on {walked} walked tiles per head)")
-    log(f"[5f] B6c writes dB on every pair of the {walked} walked tiles: "
-        f"{res['db_whole_tile_write_ms']:.5f} ms of the memory rate")
+            f"pairs on {walked} walked tiles per head); "
+            f"{r['bound_ms'] / min(r['ms']):.4f} of it reached")
     return res
 
 
@@ -5344,7 +5454,9 @@ def phase_times_hybrid_edge_bwd(FG, args):
 def phase_times_hybrid_edge_bf16(FG, args):
     """[5j] B4c, B5c, B6c, B7a c and B7b c in their bf16 forms at one 131K
     snapshot of 6h (union statistics), CUDA events, each beside its fp32
-    form in turns; the compact plain bf16 versions; compiled
+    form in turns (the bf16 tile kernels B6c + B7a c beside the fp32 row
+    walk, B7b c beside the fp32 key walk); the compact plain bf16
+    versions; compiled
     ``flex_attention`` on bf16 q, k, v under the compact plan's BlockMask
     at the scaled-dot metric as the library yardstick: B4c's function
     (lse only), B5c's (exp(s - lse1) + the bias store, lse1 given), and
@@ -5365,23 +5477,37 @@ def phase_times_hybrid_edge_bf16(FG, args):
         common = (q, k, v, store, bst, do, lse1, lse2, delta2)
         d1 = (k16[2](*common, *plan, "euclidean", ones, seeds, 0.0)[0]
               + d1_rest).contiguous()
+        row32, key32 = k32[2:]
+        d1_32 = row32(*common, d1_rest.contiguous(), *plan, "euclidean",
+                      ones, seeds, 0.0, False)[0]
         calls = {
-            "B4c": lambda kern: lambda: kern(q, k, store, *plan, "euclidean",
-                                             ones),
-            "B5c": lambda kern: lambda: kern(q, k, v, store, bst, lse1, *plan,
-                                             "euclidean", ones, seeds, 0.0),
-            "B6c": lambda kern: lambda: kern(*common, *plan, "euclidean",
-                                             ones, seeds, 0.0),
-            "B7a c": lambda kern: lambda: kern(*common, d1, *plan,
-                                               "euclidean", ones, seeds, 0.0,
-                                               False),
-            "B7b c": lambda kern: lambda: kern(*common, d1, *plan_t,
-                                               "euclidean", ones, seeds,
-                                               0.0)}
+            "B4c": (lambda: k16[0](q, k, store, *plan, "euclidean", ones),
+                    lambda: k32[0](q, k, store, *plan, "euclidean", ones)),
+            "B5c": (lambda: k16[1](q, k, v, store, bst, lse1, *plan,
+                                   "euclidean", ones, seeds, 0.0),
+                    lambda: k32[1](q, k, v, store, bst, lse1, *plan,
+                                   "euclidean", ones, seeds, 0.0)),
+            "B6c": (lambda: k16[2](*common, *plan, "euclidean", ones, seeds,
+                                   0.0), None),
+            "B7a c": (lambda: k16[3](*common, d1, *plan, "euclidean", ones,
+                                     seeds, 0.0, False), None),
+            "B7b c": (lambda: k16[4](*common, d1, *plan_t, "euclidean", ones,
+                                     seeds, 0.0),
+                      lambda: key32(*common, d1_32, *plan_t, "euclidean",
+                                    ones, seeds, 0.0))}
+        # the fp32 row walk does B6c's and B7a c's work in one kernel:
+        # it is timed beside the bf16 B6c + B7a c
+        row_pair = (lambda: (calls["B6c"][0](), calls["B7a c"][0]()),
+                    lambda: row32(*common, d1_rest.contiguous(), *plan,
+                                  "euclidean", ones, seeds, 0.0, False))
         times = {}
-        for i, (name, make) in enumerate(calls.items()):
-            a32, a16 = cuda_ms(make(k32[i]), 10), cuda_ms(make(k16[i]), 10)
-            b16, b32 = cuda_ms(make(k16[i]), 10), cuda_ms(make(k32[i]), 10)
+        for name, (f16, f32) in list(calls.items()) + [
+                ("B6c+B7a c", row_pair)]:
+            if f32 is None:
+                times[name] = ([cuda_ms(f16, 10), cuda_ms(f16, 10)], None)
+                continue
+            a32, a16 = cuda_ms(f32, 10), cuda_ms(f16, 10)
+            b16, b32 = cuda_ms(f16, 10), cuda_ms(f32, 10)
             times[name] = ([a16, b16], [a32, b32])
         plain4 = cuda_ms(lambda: FG.flash_lse1_compact_plain(
             q, k, store, *plan, "euclidean", ones, True), 2)
@@ -5470,17 +5596,22 @@ def phase_times_hybrid_edge_bf16(FG, args):
     res = {}
     for name in calls:
         fwd = name in ("B4c", "B5c")
-        res[name] = dict(ms=times[name][0], fp32_ms=times[name][1],
+        res[name] = dict(ms=times[name][0], fp32_ms=times[name][1] or
+                         times["B6c+B7a c"][1],
                          plain_ms=(plain4 if name == "B4c" else plain5
                                    if name == "B5c" else plain_b),
                          library_ms=lib[name] if fwd else lib["bwd"],
                          **bounds[name])
     res.update(library=lib, valid_pairs=pairs, b4c_sdp_ms=k4_sdp,
-               b5c_sdp_ms=k5_sdp)
+               b5c_sdp_ms=k5_sdp, b6c_b7ac_pair=dict(
+                   ms=times["B6c+B7a c"][0], fp32_ms=times["B6c+B7a c"][1]))
     log(f"[5j] bf16 compact biased forms, one snapshot of N={q.shape[2]}, "
         f"union statistics: "
-        + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])} (fp32 "
-                    f"{' '.join(f'{x:.4f}' for x in t[1])})"
+        + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])}"
+                    + ("" if t[1] is None else " (fp32 " + (
+                        "row walk " if n == "B6c+B7a c" else "key walk "
+                        if n == "B7b c" else "") + " ".join(
+                        f"{x:.4f}" for x in t[1]) + ")")
                     for n, t in times.items())
         + f"; compact plain bf16 ms B4c {plain4:.4f}, B5c {plain5:.4f}, "
         f"backward {plain_b:.4f}")
@@ -6040,29 +6171,36 @@ def main() -> int:
         for name, kern, line in (
             ("B3a c", FG.flash_geometric_bwd_dq_compact_kernel, 2009),
             ("B3b c", FG.flash_geometric_bwd_dkv_compact_kernel, 2074))]
-    # the compact biased backward: launches on the edge-feature hybrid
-    # training path (6d), times at one 131K snapshot (5f); the plain
-    # version is its three parts, so its time is the whole backward's
+    # the compact biased backward's fp32 walks, the row walk (B6c and B7a
+    # c) and the key walk (B7b c): launches on the edge-feature hybrid
+    # training path (6d), times at one 131K snapshot (5f) beside the two
+    # together; the plain version is the three compact plain parts, so its
+    # time is the whole backward's
     tbe = times_hyb_edge_bwd
     kernels += [
         dict(kernel_record(
-            FG, kern, "flash_biased_bwd.cu", line,
+            FG, kern, "flash_pairwalk_biased_bwd_compact.cu", line,
             train_hyb_edge["launches"][kern.name],
             max(small_compact_biased_bwd[name],
                 train_hyb_edge["full_err"][name]),
             min(tbe[name]["ms"]), min(tbe["plain_ms"]),
             "flash_biased_bwd_{pre,dq,dkv}_compact_plain (delta1, dB, dq, "
             "dk and dv)", tbe[name], tbe["library"]["ms"], HB_SRC),
-             csr_ms=min(tbe["csr_ms"]),
+             also_replaces=also, csr_ms=min(tbe["csr_ms"]),
+             both_walks_ms=min(tbe["both"]["ms"]),
+             both_walks_bound_ms=tbe["both"]["bound_ms"],
+             both_walks_sdp_ms=tbe["both"]["sdp_ms"],
+             bound_share=tbe[name]["bound_ms"] / min(tbe[name]["ms"]),
+             tile_occupancy=tbe["occupancy"]["histogram"],
              library_of=("compiled flex_attention fwd+bwd - fwd of B4c and "
                          "B5c's function, BlockMask from the compact plan, "
                          "scaled-dot metric"
                          if tbe["library"]["error"] is None
                          else tbe["library"]["error"]))
-        for name, kern, line in (
-            ("B6c", FG.flash_biased_bwd_pre_compact_kernel, 298),
-            ("B7a c", FG.flash_biased_bwd_dq_compact_kernel, 371),
-            ("B7b c", FG.flash_biased_bwd_dkv_compact_kernel, 405))]
+        for name, kern, line, also in (
+            ("B6c+B7a c", FG.flash_biased_bwd_row_compact_kernel, 298,
+             f"{HB_SRC}:371"),
+            ("B7b c", FG.flash_biased_bwd_key_compact_kernel, 405, None))]
     # the bf16 forms: launches on the bf16 serving (3e) and training (6e)
     # paths, times at one 10K snapshot of the bf16 request (5g), each
     # beside its fp32 form's in the same run
@@ -6192,6 +6330,10 @@ def main() -> int:
             min(t16he[name]["ms"]), t16he[name]["plain_ms"], plain_of,
             t16he[name], t16he[name]["library_ms"], HB_SRC),
              fp32_ms=min(t16he[name]["fp32_ms"]),
+             fp32_of=("the fp32 row walk (B6c + B7a c; the bf16 pair "
+                      f"{min(t16he['b6c_b7ac_pair']['ms']):.4f} ms)"
+                      if name in ("B6c", "B7a c") else
+                      "the fp32 key walk" if name == "B7b c" else None),
              library_of=(
                  ("compiled flex_attention on bf16 q, k, v, BlockMask from "
                   "the compact plan, scaled-dot metric, "

@@ -8,8 +8,9 @@ see what bounds them:
 
     python3 pairwalk_variants.py
 
-Each variant is the source, with the walk's header
-(``flash_pairwalk.cuh``) inlined, under one edit: the flush's gathers 1,
+Each variant is the source, with the walks' headers
+(``flash_pairwalk.cuh``, and for the biased backward
+``flash_pairwalk_biased_bwd.cuh``) inlined, under one edit: the flush's gathers 1,
 2 or 4 entries a lane at a time (UNROLL; B1's walk takes 2, B2's 1), a
 2- or 8-stage mask ring (NST),
 the flush removed (the walk then only streams the mask and lists the
@@ -76,13 +77,23 @@ WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
                  "key walk bf16": ("noflush_key", "pieces")}
 
 
-def variants(name: str, src: str, header: str):
-    """(variant, source): ``src`` with the walk's header inlined, under
-    each of ``EDITS[name]``."""
-    inline = '#include "flash_pairwalk.cuh"'
-    if inline not in src:
-        raise SystemExit(f"{name}: {inline!r} not in the source")
-    src = src.replace(inline, header.replace("#pragma once\n", ""))
+def inlined(src: str, csrc: Path) -> str:
+    """``src`` with the walks' headers inlined: the biased backward's
+    (``flash_pairwalk_biased_bwd.cuh``), where the source includes it,
+    and the walk's (``flash_pairwalk.cuh``), once."""
+    for header in ("flash_pairwalk_biased_bwd.cuh", "flash_pairwalk.cuh"):
+        text = (csrc / header).read_text().replace("#pragma once\n", "")
+        inline = f'#include "{header}"'
+        src = src.replace(inline, text, 1).replace(inline, "")
+    return src
+
+
+def variants(name: str, src: str, csrc: Path):
+    """(variant, source): ``src`` with the walks' headers inlined
+    (`inlined`), under each of ``EDITS[name]``."""
+    if '#include "flash_pairwalk.cuh"' not in src:
+        raise SystemExit(f"{name}: the walk's header is not included")
+    src = inlined(src, csrc)
     for variant, (old, new) in EDITS[name].items():
         if src.count(old) != 1:
             raise SystemExit(f"{name} {variant}: {old!r} not once in the "
@@ -129,7 +140,6 @@ def main() -> int:
         print("needs an NVIDIA GPU with CUDA", file=sys.stderr)
         return 1
     csrc = Path(FG.__file__).resolve().parent.parent / "csrc"
-    header = (csrc / "flash_pairwalk.cuh").read_text()
     walks = {"B1": FG.flash_geometric_fwd_kernel,
              "B1 bf16": FG.flash_geometric_fwd_bf16_kernel,
              "B2": FG.flash_geometric_bwd_fused_kernel,
@@ -145,7 +155,7 @@ def main() -> int:
             if base.source not in made:
                 src = (csrc / f"{base.source}.cu").read_text()
                 made[base.source] = {}
-                for name, text in variants(base.source, src, header):
+                for name, text in variants(base.source, src, csrc):
                     path = csrc / f"pairwalk_variant_{base.source}_{name}.cu"
                     path.write_text(text)
                     made[base.source][name] = path

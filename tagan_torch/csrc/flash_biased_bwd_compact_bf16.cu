@@ -6,9 +6,9 @@
 // with compact=True and bf16=True (host side tagan_tpu/ops/pallas/
 // hybrid_biased.py _band_bwd_pre, launched at :298, and _band_bwd_dq_dkv,
 // :371 and :405). The kernels are flash_biased_bwd.cuh's templates,
-// documented in flash_biased_bwd.cu, instantiated here with kBf16 for the
-// bit and the int8 store; this file only holds their entries, so that nvcc
-// builds these 24 instantiations beside that file's rather than after them.
+// documented there, instantiated here with kBf16 for the bit and the int8
+// store; this file only holds their entries. The fp32 forms are the pair
+// walks of flash_pairwalk_biased_bwd_compact.cu.
 //
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.

@@ -1,7 +1,8 @@
 // The mask walk shared by the pair walks of flash_pairwalk_fwd.cu (B1, B4,
 // B5 and their bf16 forms), flash_pairwalk_bwd.cu (B2 and B2's bf16 form)
 // and flash_pairwalk_biased_bwd.cu (its row walk, B6 and B7a in both
-// precisions).
+// precisions); its cp.async helpers also serve the compact walks of
+// flash_pairwalk_biased_bwd_compact.cu.
 //
 // One warp walks R rows of one 64-row query tile of one snapshot's dense
 // int8 mask [N, N] over the key tiles of its plan, jlist[g, tile, :cnt].

@@ -1,0 +1,511 @@
+// Edge-biased geometric attention, backward, over the hybrid band's compact
+// store, as two pair walks for Hopper (sm_90a): a row walk and a key walk.
+//
+// Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
+// that differentiate the double softmax, in their compact occupied-block
+// form with bf16=False (host side tagan_tpu/ops/pallas/hybrid_biased.py):
+//
+//   row walk  B6c    _band_bwd_pre, pallas_call :298   delta1_i, dB_ij
+//             B7a c  _band_bwd_dq_dkv, dq :371         dq_i, and d(scale)
+//   key walk  B7b c  _band_bwd_dq_dkv, dk/dv :405      dk_j, dv_j
+//
+// with the union row statistics that _hybrid_biased's backward threads
+// (hybrid_biased.py :596-660): lse1, lse2 and delta2 of the union of the
+// band and the residual are inputs, and B7a c and B7b c take the union's
+// delta1_U = delta1_band + delta1_res. They are the dense walks of
+// flash_pairwalk_biased_bwd.cu (B6 + B7a, B7b) with the same per-pair code
+// (flash_pairwalk_biased_bwd.cuh: the recompute, both flushes), over
+// another mask source and another bias address:
+//
+//  - The mask is the compact store: the band's occupied 64 x 64 tiles, slot
+//    s of batch index g at g * S + s, as 64 uint64 row words (bit c of word
+//    r for pair (r, c); COMPACT_BITS) or int8 [64][64] (COMPACT_I8). Each
+//    walk step names its slot (jslot, islot [G, n_t, W]); a step past the
+//    walk's count is not taken, and a slot whose bits are all 0 lists
+//    nothing.
+//  - The bias and dB of pair (i, j) lie at [g, slot, i % 64, j % 64] of
+//    the walked step's slot of the bias store f32[G, S, 64, 64], not at
+//    [g, i, j]. A list entry is (walk step t, column c) as t * 64 + c, and
+//    the flush reads the step's tile and slot back from the walk.
+//
+// The row walk (B6c and B7a c). One warp is one block: R rows of one
+// 64-row query tile for a group of HG heads, each lane one (row, head)
+// item. At each step, lane r < R copies its row's word (8 bytes) of the
+// step's slot by cp.async into an NST-stage ring, NST - 1 steps ahead (the
+// int8 store: reads its 64-byte row and puts the row's word there), reads
+// back only its own word and appends its set bits, ascending, to its row's
+// list in shared memory (CAPR entries a row: at the band's ~1 valid pair a
+// row and walked tile, the whole walk).
+//  Pass 1 (B6c) at every listed pair: w1, w2, dz and dw1, delta1 += w1 dw1
+//   in the lane; dB_ij = the row's HG lanes' dz summed in head order,
+//   stored once by the row's first lane, at the mask's pairs only (dB is
+//   never zeroed: its one reader gathers it at band edges).
+//  Then each lane adds its row's delta1_res (when given) to its delta1:
+//   pass 2 and the key walk take the union's, which the walk writes.
+//  Pass 2 (B7a c): the same recompute, then ds, W, dq_i += W k_j and the
+//   d(scale) term, from the lists in shared memory unless a warp's list
+//   overflowed (then it walks its slots again).
+// Past 32 heads the entry point launches the walk once per group of 32
+// heads, in order on the stream, each group adding its dz into dB.
+//
+// The key walk (B7b c), over the transposed walk (ilist, icount, islot):
+// one block owns KB keys of one 64-key tile for up to 8 heads, as the dense
+// key walk. Each walked slot's 64 row words (512 B) are copied whole by
+// cp.async into the block's ring (the int8 store's 4 KB read and turned
+// into the words as they are loaded), one block barrier a step; each warp
+// turns its R keys' columns into a 64-bit row word a key by two ballots
+// (rows 0-31 and 32-63) and appends the key's rows to its list; the flush
+// gathers q_i, do_i, the row statistics, delta1_U and the bias at the
+// valid pairs and sums dk_j and dv_j in the walk's row order.
+//
+// Neither walk has an atomic: repeated calls are bit-identical. Both
+// softmaxes are normalised by the given lse1 and lse2, so no walk order
+// enters the pairs' values.
+//
+// What bounds them on the H100. The store is 512 B a walked tile (17.8 MB
+// a 131K snapshot); q, k, v, do, the row statistics, the bias and dB at the
+// valid pairs (one 32-byte sector each) and the outputs are read or written
+// once; the pairs' products (~2 to 3 of head dim a pair and head) are far
+// below the fp32 rate. The band holds ~1 valid pair a row a walked tile,
+// so the flush's gathers set the pace, as in the dense walks.
+//
+// Interface: plain C, loaded with ctypes. Launches on the given stream,
+// allocates nothing, returns the cudaError_t of the last launch.
+
+#include "flash_pairwalk_biased_bwd.cuh"
+
+namespace {
+
+using namespace tagan_pairwalk;
+
+// Bytes of a row's (a tile's) mask in the store.
+template <int kForm>
+__host__ __device__ constexpr int row_store_bytes() {
+  return kForm == COMPACT_BITS ? 8 : BN;
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// The set bits of a 64-bit word, keeping only columns (rows) below `n`.
+__device__ __forceinline__ uint64_t below(uint64_t w, int n) {
+  return n >= 64 ? w : n <= 0 ? 0ull : w & ((1ull << n) - 1ull);
+}
+
+// Bit b of the result: byte b of x is nonzero (each byte's low 7 bits
+// carried into its top bit, or'd with the byte's own top bit).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
+  const uint32_t t = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  return ((t >> 7) & 1u) | ((t >> 14) & 2u) | ((t >> 21) & 4u) |
+         ((t >> 28) & 8u);
+}
+
+// Bit b of the result: byte b of the 16 bytes x is nonzero.
+__device__ __forceinline__ uint32_t nonzero_bits16(uint4 x) {
+  return nonzero_bytes(x.x) | (nonzero_bytes(x.y) << 4) |
+         (nonzero_bytes(x.z) << 8) | (nonzero_bytes(x.w) << 12);
+}
+
+// The 64-bit word of an int8 row of 64 bytes in device memory (16-byte
+// aligned): bit c for a nonzero byte c.
+__device__ __forceinline__ uint64_t i8_word(const uint8_t* row) {
+  uint64_t w = 0;
+#pragma unroll
+  for (int part = 0; part < 4; ++part)
+    w |= (uint64_t)nonzero_bits16(
+             __ldg(reinterpret_cast<const uint4*>(row) + part))
+         << (16 * part);
+  return w;
+}
+
+// The compact walks' list entries, t * 64 + c: walk step t (its tile
+// plan[t] and slot slot[t]) and the column (row) c in the tile.
+struct CompactRowPairs {
+  const int* jl;          // the walk's key tiles
+  const int* js;          // and slots
+  size_t g_s;             // g * S
+  int rloc;               // the row's place in its tile
+  __device__ __forceinline__ int index(int x) const {
+    return __ldg(jl + (x >> 6)) * BN + (x & (BN - 1));
+  }
+  __device__ __forceinline__ size_t bias(int x) const {
+    return ((g_s + __ldg(js + (x >> 6))) * BM + rloc) * BN + (x & (BN - 1));
+  }
+};
+
+struct CompactKeyPairs {
+  const int* il;          // the walk's row tiles
+  const int* isl;         // and slots
+  size_t g_s;
+  int cloc;               // the key's place in its tile
+  __device__ __forceinline__ int index(int x) const {
+    return __ldg(il + (x >> 6)) * BM + (x & (BM - 1));
+  }
+  __device__ __forceinline__ size_t bias(int x) const {
+    return ((g_s + __ldg(isl + (x >> 6))) * BM + (x & (BM - 1))) * BN + cloc;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The row walk
+// ---------------------------------------------------------------------------
+
+// Bytes of a warp's walk: the ring [NST][R] of row words, the rows' lists
+// and their counts.
+__host__ __device__ inline size_t row_walk_bytes(int R) {
+  return (size_t)NST * R * 8 + (size_t)R * CAPR * 4 + WARP * 4;
+}
+
+__host__ __device__ inline size_t row_bytes(int R, int D, int Dv) {
+  return row_walk_bytes(R) + row_item_bytes(D, Dv);
+}
+
+// Lane r < R: row r's word of step s (slot js[s] of the snapshot's store
+// st; rows from rr0 of the tile) into its place in ring stage s % NST: the
+// bit store's word by cp.async, the int8 store's row read and turned into
+// its word at once.
+template <int kForm>
+__device__ __forceinline__ void load_rows(uint64_t* ring, const uint8_t* st,
+                                          const int* js, int s, int rr0,
+                                          int R, int lane) {
+  constexpr int RB = row_store_bytes<kForm>();
+  if (lane >= R) return;
+  const uint8_t* src = st + ((size_t)__ldg(js + s) * BM + rr0 + lane) * RB;
+  uint64_t* dst = ring + (s % NST) * R + lane;
+  if constexpr (kForm == COMPACT_BITS)
+    cp_async8(dst, src);
+  else
+    *dst = i8_word(src);
+}
+
+// The walk of rows [row0, row0 + R) (rr0 their first place in their tile)
+// over the steps [0, cnt) of slots js in the snapshot's store st, by the
+// whole warp. flush() is called by every lane, after a __syncwarp, with
+// row r's list at lists + r * CAPR and its length at rowcnt[r], when a
+// list could overflow and at the end, from one place.
+template <int kForm, class Flush>
+__device__ __forceinline__ void walk_slots(uint64_t* ring, int* lists,
+                                           int* rowcnt, const uint8_t* st,
+                                           int N, int row0, int rr0, int R,
+                                           const int* jl, const int* js,
+                                           int cnt, int lane, Flush&& flush) {
+  int rcount = 0;       // lane r < R: entries of row r's list
+  const int rows_in = N - row0;   // rows of the warp before N
+
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < cnt) load_rows<kForm>(ring, st, js, s, rr0, R, lane);
+    cp_async_commit();
+  }
+  for (int t = 0;; ++t) {
+    const bool end = t == cnt;
+    uint64_t w = 0;
+    if (!end) {
+      if (t + NST - 1 < cnt)
+        load_rows<kForm>(ring, st, js, t + NST - 1, rr0, R, lane);
+      cp_async_commit();
+      cp_async_wait_ring();
+      if (lane < R && lane < rows_in)   // the lane's own copy
+        w = below(ring[(t % NST) * R + lane], N - __ldg(jl + t) * BN);
+    }
+    const int n = __popcll(w);
+    if (!end && !__any_sync(FULL, n != 0)) continue;
+    if (end || __any_sync(FULL, rcount + n > CAPR)) {
+      if (lane < R) rowcnt[lane] = rcount;
+      __syncwarp();
+      flush();
+      __syncwarp();
+      rcount = 0;
+    }
+    if (end) break;
+    if (n) {            // lanes past R hold no word
+      int* dst = lists + lane * CAPR + rcount;
+      for (; w; w &= w - 1) *dst++ = t * BN + __ffsll((long long)w) - 1;
+    }
+    rcount += n;
+  }
+}
+
+// At least 8 warps an SM: without a minimum, ptxas held the walk to 64-72
+// registers (the SM's 32 one-warp blocks) and spilled; with it, 156-158
+// registers and no spill (chip_smoke.py phase 1 logs ptxas's report).
+template <bool kBf16, int kForm>
+__global__ void __launch_bounds__(WARP, 8) row_walk_kernel(const Bwd a) {
+  const int lane = threadIdx.x;
+  const int R = a.R, HG = a.HG;
+  const int sub = (int)blockIdx.x, g = (int)blockIdx.y;
+  const int ib = sub / (BM / R), row0 = sub * R, rr0 = row0 - ib * BM;
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* ring = reinterpret_cast<uint64_t*>(smem);
+  int* lists = reinterpret_cast<int*>(smem + (size_t)NST * R * 8);
+  int* rowcnt = lists + R * CAPR;
+  float* q_s = reinterpret_cast<float*>(smem + row_walk_bytes(R));
+  float* do_s = q_s + WARP * a.D;
+  float* dq_s = do_s + WARP * a.Dv;
+
+  size_t row;
+  RowItem it = row_item<kBf16>(a, g, row0, lane, q_s, do_s, dq_s, &row);
+  const int rl = lane / HG;
+  const size_t walk = (size_t)g * a.n_t + ib;
+  const int cnt = a.pcount[walk];
+  const int* jl = a.plan + walk * a.W;
+  const int* js = a.pslot + walk * a.W;
+  const CompactRowPairs pairs{jl, js, (size_t)g * a.S, it.gr & (BM - 1)};
+  const uint8_t* st =
+      a.mask + (size_t)g * a.S * BM * row_store_bytes<kForm>();
+  const int* list = lists + (rl < R ? rl : 0) * CAPR;
+  int flushes = 0;
+  walk_slots<kForm>(ring, lists, rowcnt, st, a.N, row0, rr0, R, jl, js, cnt,
+                    lane, [&]() {
+                      ++flushes;
+                      row_pass<1, kBf16>(a, it, pairs, list,
+                                         it.on ? rowcnt[rl] : 0, HG);
+                    });
+  // the union's delta1: the band's row sums and the residual's
+  if (it.on && a.delta1_rest != nullptr) it.d1 += a.delta1_rest[row];
+  if (flushes == 1) {   // every list whole in shared memory: pass 2 there
+    row_pass<2, kBf16>(a, it, pairs, list, it.on ? rowcnt[rl] : 0, HG);
+  } else {
+    walk_slots<kForm>(ring, lists, rowcnt, st, a.N, row0, rr0, R, jl, js,
+                      cnt, lane, [&]() {
+                        row_pass<2, kBf16>(a, it, pairs, list,
+                                           it.on ? rowcnt[rl] : 0, HG);
+                      });
+  }
+  row_finish<kBf16>(a, it, row, dq_s, lane);
+}
+
+// ---------------------------------------------------------------------------
+// The key walk
+// ---------------------------------------------------------------------------
+
+// Bytes of a block's walk: the ring [NST][64] of the walked slots' row
+// words and the keys' lists.
+__host__ __device__ inline size_t key_walk_bytes(int KB) {
+  return (size_t)NST * BM * 8 + (size_t)KB * CAPR * 4;
+}
+
+__host__ __device__ inline size_t key_bytes(int KB, int R, int D, int Dv) {
+  return key_walk_bytes(KB) + key_item_bytes(KB, R, D, Dv);
+}
+
+// The slot's 64 row words into `stage`, by the block: the bit store's 512
+// bytes in 16-byte chunks by cp.async; the int8 store's rows read 16 bytes
+// a thread, each turned into 16 bits of its row's word at once.
+template <int kForm>
+__device__ __forceinline__ void load_slot(uint64_t* stage, const uint8_t* st,
+                                          size_t slot) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const uint8_t* src = st + slot * BM * row_store_bytes<kForm>();
+  if constexpr (kForm == COMPACT_BITS) {
+    for (int c = tid; c < BM * 8 / 16; c += nthr)
+      cp_async16(reinterpret_cast<uint8_t*>(stage) + 16 * c, src + 16 * c,
+                 true);
+  } else {
+    uint16_t* parts = reinterpret_cast<uint16_t*>(stage);   // 4 a word
+    for (int c = tid; c < BM * 4; c += nthr)
+      parts[c] = (uint16_t)nonzero_bits16(
+          __ldg(reinterpret_cast<const uint4*>(src) + c));
+  }
+}
+
+template <bool kBf16, int kForm>
+__global__ void __launch_bounds__(KEY_WARPS * WARP, 1)
+key_walk_kernel(const Bwd a) {
+  const int tid = threadIdx.x, lane = tid & (WARP - 1), warp = tid / WARP;
+  const int nthr = blockDim.x;
+  const int R = a.R, HG = a.HG;
+  // head groups innermost, then the key blocks of one tile: the blocks
+  // that read one slot run together
+  const int hg = (int)(blockIdx.x % a.n_hg);
+  const int rest = (int)(blockIdx.x / a.n_hg);
+  const int kb = rest % a.n_kb, jb = rest / a.n_kb;
+  const int g = (int)blockIdx.y;
+  const int col0 = jb * BN;
+  const int kc0 = kb * a.KB + warp * R;   // the warp's first key in the tile
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* ring = reinterpret_cast<uint64_t*>(smem);    // [NST][64]
+  int* lists = reinterpret_cast<int*>(smem + (size_t)NST * BM * 8);
+  float* k_s = reinterpret_cast<float*>(smem + key_walk_bytes(a.KB));
+  float* v_s = k_s + (size_t)nthr * a.D;
+  float* dk_s = v_s + (size_t)nthr * a.Dv;
+  float* dv_s = dk_s + (size_t)nthr * a.D;
+
+  const int kl = lane / HG, h = hg * HG + lane % HG;
+  KeyItem it = key_item<kBf16>(a, g, col0 + kc0 + kl, h, lane < R * HG, tid,
+                               nthr, k_s, v_s, dk_s, dv_s);
+  const size_t walk = (size_t)g * a.n_t + jb;
+  const int cnt = a.pcount[walk];
+  const int* il = a.plan + walk * a.W;
+  const int* isl = a.pslot + walk * a.W;
+  const CompactKeyPairs pairs{il, isl, (size_t)g * a.S, kc0 + kl};
+  const uint8_t* st =
+      a.mask + (size_t)g * a.S * BM * row_store_bytes<kForm>();
+  int* list = lists + (warp * R + (kl < R ? kl : 0)) * CAPR;
+  const bool writer = lane < R * HG && lane % HG == 0;
+  const bool key_in = col0 + kc0 + kl < a.N;
+  int n = 0;                    // entries of the lane's key list
+  // step t - 1's row word of the lane's key, appended at step t (after
+  // the block's vote on a flush), its popcount and its step's first entry
+  uint64_t word = 0;
+  int add = 0, e0 = 0;
+  auto append = [&]() {
+    if (writer && add) {
+      int* dst = list + n;
+      for (uint64_t w = word; w; w &= w - 1)
+        *dst++ = e0 + __ffsll((long long)w) - 1;
+    }
+    n += add;
+  };
+
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < cnt) load_slot<kForm>(ring + s * BM, st, __ldg(isl + s));
+    cp_async_commit();
+  }
+  for (int t = 0; t < cnt; ++t) {
+    cp_async_wait_key();        // this thread's copies of step t
+    // everyone's copies of step t, everyone done with step t - 1's stage,
+    // and the block's vote on a flush, as in the dense key walk
+    const bool full = __syncthreads_or(n + add > CAPR);
+    const int tt = t + NST - 1;   // into step t - 1's stage
+    if (tt < cnt)
+      load_slot<kForm>(ring + (tt % NST) * BM, st, __ldg(isl + tt));
+    cp_async_commit();
+    if (full) {
+      key_pass<kBf16>(a, it, pairs, list, n, nthr);
+      __syncwarp();
+      n = 0;
+    }
+    append();
+    // the row word of each of the warp's R keys: bit r for row r
+    const uint64_t* rows = ring + (t % NST) * BM;
+    const uint64_t wl = rows[lane], wh = rows[lane + WARP];
+    word = 0;
+    for (int c = 0; c < R; ++c) {
+      const int bit = kc0 + c;
+      const unsigned lo = __ballot_sync(FULL, (wl >> bit) & 1ull);
+      const unsigned hi = __ballot_sync(FULL, (wh >> bit) & 1ull);
+      if (c == kl) word = (uint64_t)lo | ((uint64_t)hi << 32);
+    }
+    // rows and keys past N carry no pair
+    word = key_in ? below(word, a.N - __ldg(il + t) * BM) : 0ull;
+    add = kl < R ? __popcll(word) : 0;
+    e0 = t * BM;
+  }
+  if (__any_sync(FULL, n + add > CAPR)) {
+    __syncwarp();
+    key_pass<kBf16>(a, it, pairs, list, n, nthr);
+    __syncwarp();
+    n = 0;
+  }
+  append();
+  __syncwarp();
+  key_pass<kBf16>(a, it, pairs, list, n, nthr);
+
+  key_finish<kBf16>(a, it, dk_s, dv_s, tid, nthr);
+}
+
+bool bad_compact(const Bwd& a, int G) {
+  return bad_args(a, G) || a.S < 1;
+}
+
+template <bool kBf16, int kForm>
+int launch_rows(Bwd a, int G, void* stream) {
+  if (bad_compact(a, G)) return (int)cudaErrorInvalidValue;
+  if (G == 0 || a.H == 0 || a.N == 0) return 0;
+  warp_items(a.H, &a.HG, &a.R);
+  const int n_hg = (a.H + a.HG - 1) / a.HG;
+  const size_t smem = row_bytes(a.R, a.D, a.Dv);
+  const auto kern = row_walk_kernel<kBf16, kForm>;
+  const cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)(a.n_t * (BM / a.R)), G);
+  // head groups one after another on the stream: each adds its dz into dB
+  for (a.hg = 0; a.hg < n_hg; ++a.hg) {
+    kern<<<grid, WARP, smem, (cudaStream_t)stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+template <bool kBf16, int kForm>
+int launch_keys(Bwd a, int G, void* stream) {
+  if (bad_compact(a, G)) return (int)cudaErrorInvalidValue;
+  if (G == 0 || a.H == 0 || a.N == 0) return 0;
+  if (!key_blocks(&a, [&](int KB) { return key_bytes(KB, a.R, a.D, a.Dv); }))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = key_bytes(a.KB, a.R, a.D, a.Dv);
+  const auto kern = key_walk_kernel<kBf16, kForm>;
+  const cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)(a.n_t * a.n_kb * a.n_hg), G);
+  kern<<<grid, (a.KB / a.R) * WARP, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The row walk, B6c and B7a c: delta1_U [G, H, N] (the band's row sums
+// plus delta1_rest [G, H, N] where that is not null), dB f32[G, S, 64, 64]
+// in the store's slots (written at the mask's valid pairs only), dq
+// [G, H, N, D] and, with need_dscale, each item's d(scale) term [G, H, N],
+// over the forward walk (jlist, jcount, jslot [G, n_i, W], [G, n_i],
+// [G, n_i, W]) of the compact store, bits i64[G, S, 64] (packed) or int8
+// [G, S, 64, 64], 16-byte aligned, given lse1, lse2 and delta2 [G, H, N]
+// (the union's), the bias store f32[G, S, 64, 64] and two seeds per g,
+// [G, 2].
+extern "C" int tagan_flash_biased_bwd_row_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1_rest, const void* jlist,
+    const void* jcount, const void* jslot, const void* scale,
+    const void* seeds, void* delta1, void* dbias, void* dq,
+    void* dscale_part, int G, int H, int N, int D, int Dv, int n_i, int W,
+    int S, int packed, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, int need_dscale,
+    void* stream) {
+  Bwd a = common_args(q, k, v, store, bias, dout, lse1, lse2, delta2, jlist,
+                      jcount, scale, seeds, H, N, D, Dv, n_i, W, metric,
+                      sqrt_d, use_dropout, keep_thresh, inv_keep);
+  a.delta1_rest = (const float*)delta1_rest;
+  a.pslot = (const int*)jslot;
+  a.S = S;
+  a.delta1_out = (float*)delta1;
+  a.dbias = (float*)dbias;
+  a.dq = (float*)dq;
+  a.dscale = (float*)dscale_part;
+  a.need_dscale = need_dscale;
+  return packed ? launch_rows<false, COMPACT_BITS>(a, G, stream)
+                : launch_rows<false, COMPACT_I8>(a, G, stream);
+}
+
+// The key walk, B7b c: dk [G, H, N, D] and dv [G, H, N, Dv] over the
+// transposed walk (ilist, icount, islot [G, n_j, W], [G, n_j], [G, n_j, W])
+// of the same store and bias store (islot names the same (row tile, key
+// tile) slots), given the row walk's delta1_U.
+extern "C" int tagan_flash_biased_bwd_key_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* ilist,
+    const void* icount, const void* islot, const void* scale,
+    const void* seeds, void* dk, void* dv, int G, int H, int N, int D, int Dv,
+    int n_j, int W, int S, int packed, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  Bwd a = common_args(q, k, v, store, bias, dout, lse1, lse2, delta2, ilist,
+                      icount, scale, seeds, H, N, D, Dv, n_j, W, metric,
+                      sqrt_d, use_dropout, keep_thresh, inv_keep);
+  a.delta1 = (const float*)delta1;
+  a.pslot = (const int*)islot;
+  a.S = S;
+  a.dk = (float*)dk;
+  a.dv = (float*)dv;
+  return packed ? launch_keys<false, COMPACT_BITS>(a, G, stream)
+                : launch_keys<false, COMPACT_I8>(a, G, stream);
+}

@@ -19,20 +19,24 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_geometric_bwd.cu
     B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
     B5c  _flash_biased_kernel, compact  csrc/flash_biased_fwd.cu
-    B6c  _biased_bwd_pre_kernel, compact  csrc/flash_biased_bwd.cu
-    B7a c  _biased_bwd_dq_kernel, compact   csrc/flash_biased_bwd.cu
-    B7b c  _biased_bwd_dkv_kernel, compact  csrc/flash_biased_bwd.cu
+    B6c  _biased_bwd_pre_kernel, compact  the compact row walk (*)
+    B7a c  _biased_bwd_dq_kernel, compact   the compact row walk (*)
+    B7b c  _biased_bwd_dkv_kernel, compact  the compact key walk (*)
+
+(*) csrc/flash_pairwalk_biased_bwd_compact.cu.
 
 B1, B2, B4 and B5 are pair walks that read each mask tile once for all
 heads and compute only the mask's valid pairs; so are B6 and B7a, together
-as one row walk, and B7b as the key walk. Every kernel above also has a
-bf16 form (the TPU kernels' ``bf16=True``: every product's operands
+as one row walk, and B7b as the key walk, and over the compact store B6c
+and B7a c (one row walk) and B7b c (a key walk). Every kernel above also
+has a bf16 form (the TPU kernels' ``bf16=True``: every product's operands
 rounded to bf16, float32 sums), in the same sources under its own entry
 point and launch count (the pair walks' in the same files; B3a
 c's and B3b c's in csrc/flash_geometric_bwd_compact_bf16.cu, from the
-templates of csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's in
-csrc/flash_biased_bwd_compact_bf16.cu, from those of
-csrc/flash_biased_bwd.cuh); the model takes them under ``bf16_matmul``.
+templates of csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's,
+still three tile kernels, in csrc/flash_biased_bwd_compact_bf16.cu, from
+those of csrc/flash_biased_bwd.cuh); the model takes them under
+``bf16_matmul``.
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
 dense path's double softmax, and B6, B7a and B7b its backward. The
@@ -374,6 +378,12 @@ def unpack_bits(words: torch.Tensor) -> torch.Tensor:
     return ((words[..., None] >> c) & 1) != 0
 
 
+def store_pairs(store: torch.Tensor) -> torch.Tensor:
+    """bool [..., S, 64, 64]: the valid pairs of a compact store (bits or
+    int8, `store_packed`) or of tiles gathered from one."""
+    return unpack_bits(store) if store_packed(store) else store != 0
+
+
 def pack_bits(rows: torch.Tensor) -> torch.Tensor:
     """int64 words of bool[..., 64] rows, the inverse of `unpack_bits`
     (bit 63 is the sign bit)."""
@@ -496,12 +506,10 @@ def _compact_steps(q, k, store, jlist, jcount, jslot, metric, scale,
     """The compact walk of the plain versions, all row tiles at once
     (`_walk_steps`, q.k at bf16 with ``bf16``): step w of row tile i
     reads the mask tile store[g, jslot[g, i, w]]."""
-    packed = store_packed(store)
     gi = torch.arange(q.shape[0], device=q.device)[:, None]
 
     def tile_of(w, jb):
-        tile = store[gi, jslot[..., w].long()]
-        return unpack_bits(tile) if packed else tile != 0
+        return store_pairs(store[gi, jslot[..., w].long()])
     return _walk_steps(q, k, tile_of, jlist, jcount, metric, scale, bf16)
 
 
@@ -2056,7 +2064,7 @@ class _FlashBiasedBackwardCompactKernel(_CudaKernel):
     [G, H, N, Dv], the bias store f32[G, S, 64, 64] in the store's slots,
     the row statistics ``rows`` [G, H, N], scale f32[H], seeds
     i32[G, 2]."""
-    source = "flash_biased_bwd"
+    source = "flash_pairwalk_biased_bwd_compact"
 
     def _check(self, q, k, v, store, bias_store, do, rows, lst, cnt, slot,
                scale, seeds):
@@ -2077,14 +2085,93 @@ class _FlashBiasedBackwardCompactKernel(_CudaKernel):
         return dev, (G, H, N, D, Dv, n, W, S, packed)
 
 
-class _FlashBiasedBwdPreCompactKernel(_FlashBiasedBackwardCompactKernel):
-    """B6c, ``tagan_flash_biased_bwd_pre_compact``: B6 over the compact
-    store, (delta1 [G, H, N], dB f32[G, S, 64, 64] in the store's slots)
-    over the forward walk (jlist, jcount, jslot). dB is allocated zeroed
-    and written on the walked slots, every pair (0 off the mask), so
-    slots no walk visits read 0. Deterministic."""
-    name = "flash_biased_bwd_pre_compact"
-    symbol = "tagan_flash_biased_bwd_pre_compact"
+class _FlashBiasedBwdRowCompactKernel(_FlashBiasedBackwardCompactKernel):
+    """B6c and B7a c in one kernel, the compact row walk
+    ``tagan_flash_biased_bwd_row_compact``
+    (csrc/flash_pairwalk_biased_bwd_compact.cu): (delta1_U [G, H, N], dB
+    f32[G, S, 64, 64] in the store's slots, dq, dscale or None) over the
+    forward walk (jlist, jcount, jslot), a pair walk that reads each
+    walked slot's row words once for all heads and computes only its
+    valid pairs, twice: the band's delta1 and dB, then, with
+    ``delta1_rest`` [G, H, N] (or None) added to delta1, dq and dscale
+    on the union's delta1, which it returns. dB is written at the mask's
+    valid pairs only; elsewhere, unvisited slots included, it is left
+    unset. No atomics: repeated calls are bit-identical."""
+    name = "flash_biased_bwd_row_compact"
+    symbol = "tagan_flash_biased_bwd_row_compact"
+    argtypes = (_P,) * 19 + (_I,) * 10 + (_F, _I, _U, _F, _I)
+
+    def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
+                 delta1_rest, jlist, jcount, jslot, metric: str, scale,
+                 seeds, dropout_rate: float, need_dscale: bool):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2)) + (
+            () if delta1_rest is None else (("delta1_rest", delta1_rest),))
+        dev, (G, H, N, D, Dv, n_i, W, S, packed) = self._check(
+            q, k, v, store, bias_store, do, rows, jlist, jcount, jslot,
+            scale, seeds)
+        delta1 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
+        dbias = torch.empty((G, S, BLOCK_M, BLOCK_N), dtype=torch.float32,
+                            device=dev)
+        dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        part = torch.empty((G, H, N) if need_dscale else (1,),
+                           dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, store, bias_store, do, lse1, lse2, delta2)),
+            None if delta1_rest is None else delta1_rest.data_ptr(),
+            *(t.data_ptr() for t in (jlist, jcount, jslot, scale, seeds,
+                                     delta1, dbias, dq, part)),
+            G, H, N, D, Dv, n_i, W, S, packed, MXU_METRICS.index(metric),
+            math.sqrt(D), *_dropout_args(dropout_rate), int(need_dscale))
+        return delta1, dbias, dq, (part.sum((0, 2)) if need_dscale else None)
+
+
+class _FlashBiasedBwdKeyCompactKernel(_FlashBiasedBackwardCompactKernel):
+    """B7b c, the compact key walk ``tagan_flash_biased_bwd_key_compact``
+    (csrc/flash_pairwalk_biased_bwd_compact.cu): dk and dv over the
+    transposed walk (ilist, icount, islot), whose slots name the same
+    tiles of both stores (row = query, column = key), given the row
+    walk's delta1_U; each walked slot is copied whole and each key's
+    valid rows are summed in the walk's order. No atomics: repeated calls
+    are bit-identical."""
+    name = "flash_biased_bwd_key_compact"
+    symbol = "tagan_flash_biased_bwd_key_compact"
+    argtypes = (_P,) * 17 + (_I,) * 10 + (_F, _I, _U, _F)
+
+    def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
+                 delta1, ilist, icount, islot, metric: str, scale, seeds,
+                 dropout_rate: float):
+        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
+                ("delta1", delta1))
+        dev, (G, H, N, D, Dv, n_j, W, S, packed) = self._check(
+            q, k, v, store, bias_store, do, rows, ilist, icount, islot,
+            scale, seeds)
+        dk = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
+        dv = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
+        self._launch(dev, *(t.data_ptr() for t in (
+            q, k, v, store, bias_store, do, lse1, lse2, delta2, delta1, ilist,
+            icount, islot, scale, seeds, dk, dv)), G, H, N, D, Dv, n_j, W, S,
+            packed, MXU_METRICS.index(metric), math.sqrt(D),
+            *_dropout_args(dropout_rate))
+        return dk, dv
+
+
+class _FlashBiasedBackwardCompactBf16Kernel(
+        _FlashBiasedBackwardCompactKernel):
+    """Shared checks of the bf16 forms of B6c, B7a c and B7b c: three
+    tile kernels (csrc/flash_biased_bwd_compact_bf16.cu, over the
+    templates of csrc/flash_biased_bwd.cuh)."""
+    source = "flash_biased_bwd_compact_bf16"
+
+
+class _FlashBiasedBwdPreCompactBf16Kernel(
+        _FlashBiasedBackwardCompactBf16Kernel):
+    """B6c's bf16 form, ``tagan_flash_biased_bwd_pre_compact_bf16``: B6
+    over the compact store, (delta1 [G, H, N], dB f32[G, S, 64, 64] in
+    the store's slots) over the forward walk (jlist, jcount, jslot). dB
+    is allocated zeroed and written on the walked slots, every pair (0
+    off the mask), so slots no walk visits read 0. Deterministic."""
+    name = "flash_biased_bwd_pre_compact_bf16"
+    symbol = "tagan_flash_biased_bwd_pre_compact_bf16"
     argtypes = (_P,) * 16 + (_I,) * 10 + (_F, _I, _U, _F)
 
     def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
@@ -2105,12 +2192,14 @@ class _FlashBiasedBwdPreCompactKernel(_FlashBiasedBackwardCompactKernel):
         return delta1, dbias
 
 
-class _FlashBiasedBwdDqCompactKernel(_FlashBiasedBackwardCompactKernel):
-    """B7a c, ``tagan_flash_biased_bwd_dq_compact``: B7a over the compact
-    store and the bias store, dq (and dscale) over the forward walk,
-    given delta1 (the hybrid band takes the union's). Deterministic."""
-    name = "flash_biased_bwd_dq_compact"
-    symbol = "tagan_flash_biased_bwd_dq_compact"
+class _FlashBiasedBwdDqCompactBf16Kernel(
+        _FlashBiasedBackwardCompactBf16Kernel):
+    """B7a c's bf16 form, ``tagan_flash_biased_bwd_dq_compact_bf16``: B7a
+    over the compact store and the bias store, dq (and dscale) over the
+    forward walk, given delta1 (the hybrid band takes the union's).
+    Deterministic."""
+    name = "flash_biased_bwd_dq_compact_bf16"
+    symbol = "tagan_flash_biased_bwd_dq_compact_bf16"
     argtypes = (_P,) * 17 + (_I,) * 10 + (_F, _I, _U, _F, _I)
 
     def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
@@ -2132,13 +2221,15 @@ class _FlashBiasedBwdDqCompactKernel(_FlashBiasedBackwardCompactKernel):
         return dq, (part.sum((0, 2)) if need_dscale else None)
 
 
-class _FlashBiasedBwdDkvCompactKernel(_FlashBiasedBackwardCompactKernel):
-    """B7b c, ``tagan_flash_biased_bwd_dkv_compact``: B7b over the
-    compact store and the bias store, dk and dv over the transposed walk
-    (ilist, icount, islot), whose slots name the same tiles of both
-    stores (row = query, column = key), given delta1. Deterministic."""
-    name = "flash_biased_bwd_dkv_compact"
-    symbol = "tagan_flash_biased_bwd_dkv_compact"
+class _FlashBiasedBwdDkvCompactBf16Kernel(
+        _FlashBiasedBackwardCompactBf16Kernel):
+    """B7b c's bf16 form, ``tagan_flash_biased_bwd_dkv_compact_bf16``: B7b
+    over the compact store and the bias store, dk and dv over the
+    transposed walk (ilist, icount, islot), whose slots name the same
+    tiles of both stores (row = query, column = key), given delta1.
+    Deterministic."""
+    name = "flash_biased_bwd_dkv_compact_bf16"
+    symbol = "tagan_flash_biased_bwd_dkv_compact_bf16"
     argtypes = (_P,) * 17 + (_I,) * 10 + (_F, _I, _U, _F)
 
     def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
@@ -2173,27 +2264,6 @@ class _FlashBiasedCompactBf16Kernel(_FlashBiasedCompactKernel):
     symbol = "tagan_flash_biased_fwd_compact_bf16"
 
 
-class _FlashBiasedBwdPreCompactBf16Kernel(_FlashBiasedBwdPreCompactKernel):
-    """B6c's bf16 form, ``tagan_flash_biased_bwd_pre_compact_bf16``."""
-    name = "flash_biased_bwd_pre_compact_bf16"
-    source = "flash_biased_bwd_compact_bf16"
-    symbol = "tagan_flash_biased_bwd_pre_compact_bf16"
-
-
-class _FlashBiasedBwdDqCompactBf16Kernel(_FlashBiasedBwdDqCompactKernel):
-    """B7a c's bf16 form, ``tagan_flash_biased_bwd_dq_compact_bf16``."""
-    name = "flash_biased_bwd_dq_compact_bf16"
-    source = "flash_biased_bwd_compact_bf16"
-    symbol = "tagan_flash_biased_bwd_dq_compact_bf16"
-
-
-class _FlashBiasedBwdDkvCompactBf16Kernel(_FlashBiasedBwdDkvCompactKernel):
-    """B7b c's bf16 form, ``tagan_flash_biased_bwd_dkv_compact_bf16``."""
-    name = "flash_biased_bwd_dkv_compact_bf16"
-    source = "flash_biased_bwd_compact_bf16"
-    symbol = "tagan_flash_biased_bwd_dkv_compact_bf16"
-
-
 flash_geometric_fwd_kernel = _FlashForwardKernel()
 flash_geometric_bwd_fused_kernel = _FlashBwdFusedKernel()
 flash_geometric_bwd_dq_kernel = _FlashBwdDqKernel()
@@ -2207,9 +2277,8 @@ flash_lse1_compact_kernel = _FlashLse1CompactKernel()
 flash_biased_fwd_compact_kernel = _FlashBiasedCompactKernel()
 flash_geometric_bwd_dq_compact_kernel = _FlashBwdDqCompactKernel()
 flash_geometric_bwd_dkv_compact_kernel = _FlashBwdDkvCompactKernel()
-flash_biased_bwd_pre_compact_kernel = _FlashBiasedBwdPreCompactKernel()
-flash_biased_bwd_dq_compact_kernel = _FlashBiasedBwdDqCompactKernel()
-flash_biased_bwd_dkv_compact_kernel = _FlashBiasedBwdDkvCompactKernel()
+flash_biased_bwd_row_compact_kernel = _FlashBiasedBwdRowCompactKernel()
+flash_biased_bwd_key_compact_kernel = _FlashBiasedBwdKeyCompactKernel()
 flash_geometric_fwd_bf16_kernel = _FlashForwardBf16Kernel()
 flash_geometric_bwd_fused_bf16_kernel = _FlashBwdFusedBf16Kernel()
 flash_geometric_bwd_dq_bf16_kernel = _FlashBwdDqBf16Kernel()
@@ -2236,9 +2305,8 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_lse1_compact_kernel, flash_biased_fwd_compact_kernel,
            flash_geometric_bwd_dq_compact_kernel,
            flash_geometric_bwd_dkv_compact_kernel,
-           flash_biased_bwd_pre_compact_kernel,
-           flash_biased_bwd_dq_compact_kernel,
-           flash_biased_bwd_dkv_compact_kernel,
+           flash_biased_bwd_row_compact_kernel,
+           flash_biased_bwd_key_compact_kernel,
            flash_geometric_fwd_bf16_kernel,
            flash_geometric_bwd_fused_bf16_kernel,
            flash_geometric_bwd_dq_bf16_kernel,
@@ -2823,13 +2891,19 @@ def _biased_backward_compact(q, k, v, store, bias_store, do, lse1, lse2,
                              delta1_rest=None, bf16=False):
     """(dq, dk, dv, dB, dscale or None, delta1) of folded inputs over the
     compact store, given the row statistics lse1, lse2 and delta2
-    [G, H, N]: B6c, then B7a c and B7b c (their bf16 forms with
-    ``bf16``) for CUDA tensors, the compact plain parts for CPU tensors.
-    delta1 is B6c's row sums plus
-    ``delta1_rest`` [G, H, N] where given (the hybrid band adds the
-    residual's, so that B7a c and B7b c take the union's). dB f32[G, S,
-    64, 64] is 0 in slots the walk does not visit. Raises ValueError
-    without the transposed walk ``plan_t``, which B7b c walks."""
+    [G, H, N]. delta1 is B6c's row sums plus ``delta1_rest`` [G, H, N]
+    where given (the hybrid band adds the residual's, so that B7a c and
+    B7b c take the union's). CUDA tensors: in fp32 the two pair walks,
+    the row walk (B6c and B7a c: delta1, dB, dq, dscale, the residual's
+    delta1 added between its two passes) then the key walk (B7b c: dk,
+    dv), both free of atomics; with ``bf16`` the bf16 forms' three tile
+    kernels, B6c then B7a c and B7b c. CPU tensors: the compact plain
+    parts, with ``delta1_rest`` added between B6c's and B7a c's. dB
+    f32[G, S, 64, 64] is the TPU kernels' contract, read at the mask's
+    pairs: the row walk sets it there only, the tile kernels and the
+    plain parts on every pair of the walked slots (0 off the mask and
+    in slots the walk does not visit). Raises ValueError without the
+    transposed walk ``plan_t``, which B7b c walks."""
     _need_transposed(plan_t, "B7b c")
     rows = (do, lse1, lse2, delta2)
     if q.device.type == "cpu":
@@ -2843,22 +2917,24 @@ def _biased_backward_compact(q, k, v, store, bias_store, do, lse1, lse2,
                                       seeds, delta1, need_dscale,
                                       ("dq", "dkv"), bf16)
         return r["dq"], r["dk"], r["dv"], dbias, r["dscale"], delta1
-    pre_kern, dq_kern, dkv_kern = (
-        (flash_biased_bwd_pre_compact_bf16_kernel,
-         flash_biased_bwd_dq_compact_bf16_kernel,
-         flash_biased_bwd_dkv_compact_bf16_kernel) if bf16 else
-        (flash_biased_bwd_pre_compact_kernel,
-         flash_biased_bwd_dq_compact_kernel,
-         flash_biased_bwd_dkv_compact_kernel))
-    delta1, dbias = pre_kern(
+    if not bf16:
+        delta1, dbias, dq, dscale = flash_biased_bwd_row_compact_kernel(
+            q, k, v, store, bias_store, *rows,
+            None if delta1_rest is None else delta1_rest.contiguous(),
+            *plan, metric, scale, seeds, dropout_rate, need_dscale)
+        dk, dv = flash_biased_bwd_key_compact_kernel(
+            q, k, v, store, bias_store, *rows, delta1, *plan_t, metric,
+            scale, seeds, dropout_rate)
+        return dq, dk, dv, dbias, dscale, delta1
+    delta1, dbias = flash_biased_bwd_pre_compact_bf16_kernel(
         q, k, v, store, bias_store, *rows, *plan, metric, scale, seeds,
         dropout_rate)
     if delta1_rest is not None:
         delta1 = (delta1 + delta1_rest).contiguous()
-    dq, dscale = dq_kern(
+    dq, dscale = flash_biased_bwd_dq_compact_bf16_kernel(
         q, k, v, store, bias_store, *rows, delta1, *plan, metric, scale,
         seeds, dropout_rate, need_dscale)
-    dk, dv = dkv_kern(
+    dk, dv = flash_biased_bwd_dkv_compact_bf16_kernel(
         q, k, v, store, bias_store, *rows, delta1, *plan_t, metric, scale,
         seeds, dropout_rate)
     return dq, dk, dv, dbias, dscale, delta1

@@ -922,46 +922,132 @@ def test_hybrid_predictor_on_gpu_matches_cpu(fe, cuda):
 
 # ---------------------------------------------------------------------------
 # B6c, B7a c, B7b c: the compact-store biased backward of the edge-feature
-# hybrid band
+# hybrid band; in fp32 the compact row walk (B6c and B7a c) and key walk
+# (B7b c)
 # ---------------------------------------------------------------------------
 
-COMPACT_BIASED_BWD = (FG.flash_biased_bwd_pre_compact_kernel,
-                      FG.flash_biased_bwd_dq_compact_kernel,
-                      FG.flash_biased_bwd_dkv_compact_kernel)
+COMPACT_BIASED_BWD = (FG.flash_biased_bwd_row_compact_kernel,
+                      FG.flash_biased_bwd_key_compact_kernel)
+
+
+def band_mask(G, N, seed=0, deg=4, width=150):
+    """int8 [G, N, N] like the hybrid backend's band: ~``deg`` keys a row
+    within ``width`` of it and the diagonal (~1 valid pair a row a walked
+    64 x 64 tile, over several tiles), and in every snapshot where N
+    allows: a whole 64 x 64 tile (rows 0-63, keys 64-127), a tile holding
+    one pair (rows 128-191, keys 0-63), a key tile no row reaches (keys
+    192-255: its transposed walk is empty), rows past 128 keys (rows
+    260-263, 150 keys each: the row walk's lists overflow and it walks
+    its slots again) and dead rows (300-304 and the last row). Shared by
+    the CPU test of the compact plain biased backward against JAX
+    (test_torch_fp32_compact_biased_bwd.py)."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((G, N, N), np.int8)
+    for g in range(G):
+        rows = np.repeat(np.arange(N), deg)
+        cols = np.clip(rows + rng.integers(-width, width + 1, rows.size), 0,
+                       N - 1)
+        mask[g, rows, cols] = 1
+        mask[g, np.arange(N), np.arange(N)] = 1
+        if N >= 128:
+            mask[g, :64, 64:128] = 1
+        if N >= 192:
+            mask[g, 128:192, :64] = 0
+            mask[g, 130, 17] = 1
+        if N >= 256:
+            mask[g, :, 192:256] = 0
+        if N >= 264:
+            keys = np.r_[0:192, 256:N]
+            for r in range(260, 264):
+                mask[g, r, rng.choice(keys, 150, replace=False)] = 1
+        if N >= 305:
+            mask[g, 300:305] = 0
+        mask[g, N - 1] = 0
+    return mask
+
+
+def band_compact(mask, pack, seed=0):
+    """The compact store and both walks of ``mask`` (`compact_from_mask`,
+    `compact_transposed_plan`) with two cases that a mask does not make:
+    a walked slot whose bits are all 0 (slot S, appended to every
+    snapshot's store, walked by row tile 0 at the last key tile that no
+    row of it reaches and that some row does, in both walks, each one
+    column wider), and walk entries past the counts naming random tiles
+    and occupied slots (a walk that read past its count would add their
+    pairs). Returns (store with S + 1 slots, plan, plan_t)."""
+    store, plan = FG.compact_from_mask(mask, pack=pack)
+    plan_t = FG.compact_transposed_plan(mask)
+    G, S = store.shape[:2]
+    store = torch.cat([store, torch.zeros_like(store[:, :1])], 1)
+    occ = FG._occ_from_mask(mask, FG.BLOCK_M, FG.BLOCK_N)
+    n_t = occ.shape[-1]
+    jb = max(j for j in range(n_t)
+             if not occ[:, 0, j].any() and occ[:, :, j].any(-1).all())
+    rng = np.random.default_rng(seed + 77)
+
+    def widen(p, tile, step):
+        lst, cnt, sl = (torch.nn.functional.pad(x, (0, 1)) if x.dim() == 3
+                        else x.clone() for x in p)
+        g = torch.arange(G)
+        at = cnt[g, tile].long()
+        lst[g, tile, at] = step
+        sl[g, tile, at] = S
+        cnt[:, tile] += 1
+        past = torch.arange(lst.shape[-1]) >= cnt[..., None]
+        lst = torch.where(past, torch.from_numpy(rng.integers(
+            0, n_t, lst.shape).astype(np.int32)), lst)
+        sl = torch.where(past, torch.from_numpy(rng.integers(
+            0, S, sl.shape).astype(np.int32)), sl)
+        return lst, cnt, sl
+    return store, widen(plan, 0, jb), widen(plan_t, jb, 0)
 
 
 def _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack, rate, seed=0,
-                               qk_scale=1.0):
+                               qk_scale=1.0, band=False):
     """`_biased_inputs` on the compact store with a key tile whose
     transposed walk is empty (snapshot 0, keys 64..127, icount = 0), the
     row tile with jcount = 0 and, in snapshot 1, fewer occupied tiles
-    than the store's S (slots no walk visits); union-like statistics as
-    the hybrid backward passes them: the compact plain forward's lse1 and
+    than the store's S (slots no walk visits); with ``band``, `band_mask`
+    and `band_compact`'s store and walks (its empty key tile keys
+    192..255 where N allows, a walked slot with no bit, walk entries past
+    the counts) and a bias at its pairs. Union-like statistics as the
+    hybrid backward passes them: the compact plain forward's lse1 and
     lse2 raised by a constant on live rows, lse2 = NEG_INF on dead rows
-    (the merge's mark), delta2 = rowsum(dO out) and a residual delta1.
+    (the merge's mark), delta2 = rowsum(dO out) and a residual delta1
+    (N(0, 1) on live rows), and dO 0 on rows with no pair (C10).
     ``qk_scale`` scales q and k (but cosine metrics' unit rows) before
     the statistics are formed."""
     q, k, v, mask, bias, scale, seeds = _biased_inputs(G, H, N, D, Dv,
                                                        metric, seed)
     if metric not in FG._COSINE:
         q, k = qk_scale * q, qk_scale * k
-    mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
-    if G > 1:
-        mask[1, :, 2 * FG.BLOCK_N:] = 0
-    bias = torch.where(mask != 0, bias, torch.zeros(()))
-    store, plan = FG.compact_from_mask(mask, pack=pack)
-    plan_t = FG.compact_transposed_plan(mask)
-    assert int(plan_t[1][0, 1]) == 0
-    bias_store = FG.compact_values(mask, bias)
+    rng = np.random.default_rng(seed + 400)
+    if band:
+        mask = torch.from_numpy(band_mask(G, N, seed))
+        bias = torch.from_numpy(rng.standard_normal((G, N, N)).astype(
+            np.float32)) * (mask != 0)
+        store, plan, plan_t = band_compact(mask, pack, seed)
+        bias_store = FG.compact_values(mask, bias)
+        bias_store = torch.cat([bias_store, torch.randn(
+            (G, 1) + bias_store.shape[2:],
+            generator=torch.Generator().manual_seed(seed))], 1)
+    else:
+        mask[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] = 0
+        if G > 1:
+            mask[1, :, 2 * FG.BLOCK_N:] = 0
+        bias = torch.where(mask != 0, bias, torch.zeros(()))
+        store, plan = FG.compact_from_mask(mask, pack=pack)
+        plan_t = FG.compact_transposed_plan(mask)
+        assert int(plan_t[1][0, 1]) == 0
+        bias_store = FG.compact_values(mask, bias)
     lse1 = FG.flash_lse1_compact_plain(q, k, store, *plan, metric, scale)
     live = lse1 < 1e29
     lse1 = torch.where(live, lse1 + 0.25, lse1)
     out, lse2 = FG.flash_biased_forward_compact_plain(
         q, k, v, store, bias_store, lse1, *plan, metric, scale, rate, seeds)
     lse2 = torch.where(live, lse2 + 0.1, torch.full_like(lse2, -1e30))
-    rng = np.random.default_rng(seed + 400)
     do = torch.from_numpy(rng.standard_normal((G, H, N, Dv)).astype(
-        np.float32))
+        np.float32)) * live[..., None]
     d1_rest = torch.from_numpy(rng.standard_normal((G, H, N)).astype(
         np.float32)) * live
     return (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do,
@@ -969,18 +1055,19 @@ def _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack, rate, seed=0,
 
 
 def _compact_biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
-                                 seed=0):
-    """B6c, then B7a c and B7b c on B6c's delta1 plus the residual's
+                                 seed=0, band=False):
+    """The row walk (B6c and B7a c, the residual's delta1 added between
+    its passes), then the key walk (B7b c) on the union's delta1
     (`_biased_backward_compact`), against the compact plain parts: delta1,
-    the whole dB store (0 off the mask and in the slots no walk visits),
-    dq, dk, dv and dscale within TOL of the largest entry; dq zero on dead
-    rows, dk and dv zero on the key tile with icount = 0; one launch
-    each."""
+    dB at the store's pairs, dq, dk, dv and dscale within TOL of the
+    largest entry; dq zero on dead rows, dk and dv zero on the key tile
+    with icount = 0; one launch each, and the union's delta1 away from
+    the band's alone."""
     (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
      lse2, delta2, d1_rest) = (
         t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
         for t in _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack,
-                                            rate, seed))
+                                            rate, seed, band=band))
     need = metric in FG.SCALED_METRICS
     rows = (do, lse1, lse2, delta2)
     before = [kern.launches for kern in COMPACT_BIASED_BWD]
@@ -999,21 +1086,22 @@ def _compact_biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
         *common, d1u, *plan, metric, scale, rate, seeds)
     torch.cuda.synchronize()
     dq, dk, dv, db, dsc, d1 = got
-    for g, w in ((d1, d1u), (db, p_db), (dq, p_dq), (dk, p_dk), (dv, p_dv)) \
-            + (((dsc, p_dsc),) if need else ()):
+    on = FG.store_pairs(store)
+    for g, w in ((d1, d1u), (db[on], p_db[on]), (dq, p_dq), (dk, p_dk),
+                 (dv, p_dv)) + (((dsc, p_dsc),) if need else ()):
         assert torch.isfinite(g).all()
         assert ((g - w).abs().max() / w.abs().max().clamp(min=1.0)).item() \
             <= TOL
     if not need:
         assert dsc is None
-    assert db.abs().max() > 0
-    walked = plan[1].sum(-1)
-    for g in range(G):
-        assert torch.all(db[g, int(walked[g]):] == 0)
+    assert db[on].abs().max() > 0
+    assert (d1u - p_d1).abs().max() > 100 * TOL
     dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
     assert torch.all(dq[dead] == 0)
-    assert torch.all(dk[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
-    assert torch.all(dv[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+    empty = slice(3 * FG.BLOCK_N, 4 * FG.BLOCK_N) if band \
+        else slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
+    assert torch.all(dk[0, :, empty] == 0)
+    assert torch.all(dv[0, :, empty] == 0)
 
 
 @pytest.mark.gpu
@@ -1022,12 +1110,26 @@ def _compact_biased_bwd_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
 @pytest.mark.parametrize("metric", FG.MXU_METRICS)
 def test_compact_biased_backward_kernels_match_plain(metric, rate, pack,
                                                      cuda):
-    """B6c, B7a c and B7b c, bit and int8 stores: N=150 (not a tile
-    multiple), D != Dv, dead rows (lse2 the merge's NEG_INF), a row tile
-    with jcount = 0, a key tile with icount = 0, unvisited slots,
+    """The compact row and key walks, bit and int8 stores: N=150 (not a
+    tile multiple), D != Dv, dead rows (lse2 the merge's NEG_INF), a row
+    tile with jcount = 0, a key tile with icount = 0, unvisited slots,
     per-head scales with dscale, both dropouts from per-snapshot seed
     pairs (negative included)."""
     _compact_biased_bwd_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_biased_backward_walks_band(metric, rate, pack, cuda):
+    """The compact walks at `band_mask`'s cases over `band_compact`'s
+    walks: N=330 (N % 16 = 10), ~1 pair a row a walked tile, a whole
+    tile, a one-pair tile, a walked slot with no bit, walk entries past
+    the counts, a key tile no row reaches, rows past 128 keys, dead rows
+    (dO 0 there), both stores, both dropouts."""
+    _compact_biased_bwd_vs_plain(cuda, 2, 4, 330, 16, 16, metric, rate, pack,
+                                 seed=3, band=True)
 
 
 @pytest.mark.gpu
@@ -1038,12 +1140,58 @@ def test_compact_biased_backward_head_dims(D, Dv, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+def test_compact_biased_backward_wide_heads_one_head(pack, cuda):
+    """(D, Dv) = (128, 128) with H = 1 at the band's cases: the widest
+    rows, one head a warp."""
+    _compact_biased_bwd_vs_plain(cuda, 1, 1, 330, 128, 128, "euclidean",
+                                 0.1, pack, seed=4, band=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 4, 8, 40])
+def test_compact_biased_backward_fold(H, cuda):
+    """Folds of 1, 4, 8 and 40 heads at the band's cases (past 32 heads
+    the row walk launches once per head group, each adding into dB, and
+    the key walk takes 8 heads a block)."""
+    _compact_biased_bwd_vs_plain(cuda, 2, H, 330, 16, 16, "gaussian_kernel",
+                                 0.1, True, seed=5, band=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
+                                         ("gaussian_kernel", 0.1)])
+def test_compact_biased_backward_deterministic(metric, rate, cuda):
+    """dq, dk, dv, dB (at the store's pairs), delta1 and dscale of the two
+    compact walks are bit-identical over 20 repeated calls: neither sums
+    with atomics."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, d1_rest) = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_biased_bwd_inputs(2, 4, 1008, 16, 16, metric,
+                                            True, rate, 3, band=True))
+    need = metric in FG.SCALED_METRICS
+    on = FG.store_pairs(store)
+    first = None
+    for _ in range(20):
+        got = FG._biased_backward_compact(
+            q, k, v, store, bias_store, do, lse1, lse2, delta2, plan, plan_t,
+            metric, scale, rate, seeds, need, d1_rest)
+        got = [t.clone() for t in got[:3]] + [got[3][on]] + [
+            t.clone() for t in got[4:] if t is not None]
+        if first is None:
+            first = got
+        for a, b in zip(got, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("fault", ["jslot", "jcount", "islot", "ilist"])
 def test_compact_biased_backward_bad_plan_raises_before_launch(fault, cuda):
-    """The wrappers of B6c, B7a c and B7b c check the walk's values: a
-    jslot or islot past the store, a count past the walk's width or a
-    tile past N raises ValueError on the host, and no kernel is
-    launched."""
+    """The wrappers of the compact row and key walks check the walk's
+    values: a jslot or islot past the store, a count past the walk's
+    width or a tile past N raises ValueError on the host, and no kernel
+    is launched."""
     (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
      lse2, delta2, _) = (
         t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
@@ -1062,28 +1210,29 @@ def test_compact_biased_backward_bad_plan_raises_before_launch(fault, cuda):
         il[0, 0, 0] = 3
     common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
     before = [kern.launches for kern in COMPACT_BIASED_BWD]
-    calls = [lambda: FG.flash_biased_bwd_dkv_compact_kernel(
+    calls = [lambda: FG.flash_biased_bwd_key_compact_kernel(
         *common, lse1, il, ic, isl, "dot_product", scale, seeds, 0.0)] \
         if fault in ("islot", "ilist") else [
-        lambda: FG.flash_biased_bwd_pre_compact_kernel(
-            *common, jl, jc, js, "dot_product", scale, seeds, 0.0),
-        lambda: FG.flash_biased_bwd_dq_compact_kernel(
-            *common, lse1, jl, jc, js, "dot_product", scale, seeds, 0.0,
-            False)]
+        lambda: FG.flash_biased_bwd_row_compact_kernel(
+            *common, None, jl, jc, js, "dot_product", scale, seeds, 0.0,
+            False),
+        lambda: FG._biased_backward_compact(
+            *common, (jl, jc, js), plan_t, "dot_product", scale, 0.0, seeds,
+            False, lse1)]
     for call in calls:
         with pytest.raises(ValueError):
             call()
     assert [kern.launches for kern in COMPACT_BIASED_BWD] == before
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("metric", ["euclidean", "gaussian_kernel"])
-def test_hybrid_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
+def _hybrid_edge_step(cuda, metric, nan_fill=False):
     """One training step of the edge-feature hybrid model over a
-    ``plan="hybrid"`` loader on the card (B4c, B5c, B6c, B7a c and B7b c
-    once per layer; no other kernel) and on the CPU (plain versions),
-    from the same weights: the loss and every gradient, the edge
-    embedding's and each layer's edge bias's included."""
+    ``plan="hybrid"`` loader on the card (B4c, B5c and the compact row
+    and key walks once per layer; no other kernel) and on the CPU (plain
+    versions), from the same weights: the loss and every gradient, the
+    edge embedding's and each layer's edge bias's included. With
+    ``nan_fill`` the card's allocator is first filled with NaN, so that a
+    dB entry the row walk leaves unset and the model read would show."""
     seqs = _hybrid_seqs(np.random.default_rng(9), 300, 2400, 2, 1, 4)
     cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
                          node_feature_dim=8, edge_feature_dim=4,
@@ -1093,6 +1242,9 @@ def test_hybrid_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
                          learnable_distance=metric == "gaussian_kernel")
     got = {}
     for dev in ("cuda", "cpu"):
+        if dev == "cuda" and nan_fill:
+            nan = torch.full((64 << 20,), float("nan"), device=cuda)
+            del nan
         model = pt.TAGAN(cfg, device=dev,
                          generator=torch.Generator().manual_seed(0))
         loader = pt.TemporalGraphDataLoader(
@@ -1119,6 +1271,23 @@ def test_hybrid_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
         assert torch.isfinite(got["cuda"][1][name]).all(), name
         assert (got["cuda"][1][name] - g).abs().max().item() <= TOL * scale, \
             name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("metric", ["euclidean", "gaussian_kernel"])
+def test_hybrid_edge_trainer_step_on_gpu_matches_cpu(metric, cuda):
+    """`_hybrid_edge_step`: one step on the card against the CPU."""
+    _hybrid_edge_step(cuda, metric)
+
+
+@pytest.mark.gpu
+def test_compact_biased_backward_unset_db_never_read(cuda):
+    """The compact row walk leaves dB unset off the store's pairs (its
+    `torch.empty` never zeroed), and the bias store's backward reads it
+    at band edges only: after the allocator's memory is filled with NaN,
+    one step's gradients are finite and within TOL of the CPU's
+    (`_hybrid_edge_step`)."""
+    _hybrid_edge_step(cuda, "euclidean", nan_fill=True)
 
 
 # -- the bf16 forms (bf16_matmul=True) ----------------------------------------

@@ -59,12 +59,17 @@ Phases, in order; any failure raises and exits non-zero:
    stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
    under the same gates (dead rows and the empty key strip exactly 0),
    and a jslot past the store raising before any launch; (2k) the bf16
-   forms of B4c, B5c, B6c, B7a c and B7b c against the compact plain
-   bf16 versions on 2g's grid and union-like statistics, both stores,
-   (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), under
-   the same gates (dB at the store's pairs and exactly 0 elsewhere, dead
-   rows and the empty key strip exactly 0), and a jslot past the store
-   raising before any launch at the five entries;
+   forms of B4c, B5c and the compact biased backward's row walk (B6c
+   and B7a c) and key walk (B7b c) against the compact plain bf16
+   versions on 2g's grid and union-like statistics with a residual
+   delta1 that is not 0, both stores, (D, Dv) of (16, 16), (8, 8), (12,
+   12), (7, 3) and (128, 128), and at 2g's band cases, under the same
+   gates (dB at the store's pairs, dead rows and the empty key strip
+   exactly 0), the backward's outputs allocated NaN-filled (every entry
+   set but dB's off the store's pairs, which stay NaN), one band case
+   20 times bit for bit; the walks given a zero delta1_rest failing the
+   gates (the witness); and a jslot past the store raising before any
+   launch at the four entries;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -207,16 +212,17 @@ Phases, in order; any failure raises and exits non-zero:
    forward+backward minus forward; held against the bf16 kernels at that
    metric, null with the reason if it does not build or differs), and
    their bounds (the fp32 forms' bytes, operations at the bf16 rate);
-   (5j) the bf16 forms of B4c, B5c, B6c, B7a c and B7b c at one 131K
-   snapshot of 6h (union statistics), each beside its fp32 form in
-   turns (bf16 B6c + B7a c beside the fp32 row walk, B7b c beside the
-   key walk), the compact plain bf16 versions, compiled ``flex_attention`` on
-   bf16 q, k, v under the compact plan's BlockMask at the scaled-dot
-   metric as the library yardstick (B4c's and B5c's functions, and the
-   two calls' forward+backward minus forward; held against the bf16
-   kernels at that metric, null with the reason if it does not build or
-   differs), and their bounds (the fp32 forms' bytes, operations at the
-   bf16 rate);
+   (5j) the bf16 forms of B4c, B5c, the compact row walk (B6c and
+   B7a c) and key walk (B7b c) at one 131K snapshot of 6h (union
+   statistics), each beside its fp32 form in turns, the compact plain
+   bf16 versions, compiled ``flex_attention`` on bf16 q, k, v under the
+   compact plan's BlockMask at the scaled-dot metric as the library
+   yardstick (B4c's and B5c's functions, held against the bf16 kernels
+   at that metric, null with the reason if it does not build or
+   differs; and the two calls' forward+backward minus forward, its
+   gradients' error against the bf16 walks' recorded, not gated), and
+   their bounds (the fp32 forms' bytes, operations at the bf16 rate) and
+   each walk's share of its bound;
 6. the training path at the same width: ``TAGANTrainer.train`` on one
    sequence per batch, one warm-up step and 3 steps with B3a+B3b, then 3
    with B2 (the picker's default), launch counts set to 0
@@ -245,8 +251,8 @@ Phases, in order; any failure raises and exits non-zero:
    every parameter moved, and one snapshot at full width against the
    compact plain backward; (6d) the same for the edge-feature hybrid
    model (Fe = 4: B4c, B5c, the compact row walk and the compact key
-   walk each exactly once per layer per step, nothing else: the bf16
-   tile kernels never), one layer's two walks over the folded snapshots
+   walk each exactly once per layer per step, nothing else: their bf16
+   forms never), one layer's two walks over the folded snapshots
    and their share of the step, the edge
    parameters' gradients non-zero, one snapshot at full width against
    the compact plain parts with the layer's union statistics;
@@ -278,10 +284,10 @@ Phases, in order; any failure raises and exits non-zero:
    order, and the sha256 of the weights and of the check's inputs is
    logged (6c logs it too); (6h)
    phase 6d with ``bf16_matmul=True`` over 6d's loaders and planned
-   batches (the bf16 forms of B4c, B5c, B6c, B7a c and B7b c each exactly
-   once per layer per step, the fp32 forms never): step times, split,
-   peak memory, one layer's bf16 B6c + B7a c + B7b c over the folded
-   snapshots and their share of the step, the edge parameters'
+   batches (the bf16 forms of B4c, B5c and the compact row and key
+   walks each exactly once per layer per step, the fp32 forms never):
+   step times, split, peak memory, one layer's two bf16 walks over the
+   folded snapshots and their share of the step, the edge parameters'
    gradients non-zero, every parameter moved, and one snapshot at full
    width against the compact plain bf16 parts under the bf16 gates;
 7. training at 1,000 nodes on the card and on the CPU from the same
@@ -536,15 +542,13 @@ def compact_kernels(FG, bf16):
 
 
 def compact_biased_kernels(FG, bf16):
-    """The wrappers of B4c, B5c and the compact biased backward: in fp32
-    its row walk (B6c and B7a c) and key walk (B7b c), in bf16 the tile
-    kernels B6c, B7a c and B7b c."""
+    """The wrappers of B4c, B5c and the compact biased backward's row walk
+    (B6c and B7a c) and key walk (B7b c): the fp32 or the bf16 forms."""
     if bf16:
         return (FG.flash_lse1_compact_bf16_kernel,
                 FG.flash_biased_fwd_compact_bf16_kernel,
-                FG.flash_biased_bwd_pre_compact_bf16_kernel,
-                FG.flash_biased_bwd_dq_compact_bf16_kernel,
-                FG.flash_biased_bwd_dkv_compact_bf16_kernel)
+                FG.flash_biased_bwd_row_compact_bf16_kernel,
+                FG.flash_biased_bwd_key_compact_bf16_kernel)
     return (FG.flash_lse1_compact_kernel, FG.flash_biased_fwd_compact_kernel,
             FG.flash_biased_bwd_row_compact_kernel,
             FG.flash_biased_bwd_key_compact_kernel)
@@ -4800,14 +4804,14 @@ def phase_small_compact_biased_bwd(FG):
 def compact_biased_bf16_errors(FG, label, got, q, k, v, store, bias_store,
                                plan, metric, scale, seeds, rate, do, lse1,
                                lse2, delta2, d1_rest):
-    """{B6c, B7a c, B7b c: (max abs error, max error, mean error,
+    """{B6c+B7a c, B7b c: (max abs error, max error, mean error,
     witness)} of `_biased_backward_compact`'s bf16 outputs ``got`` (dq,
     dk, dv, dB, dscale, delta1) against the compact plain bf16 parts on
     the same inputs (delta1 = B6c's plus ``d1_rest``) under the bf16
-    gates, the compact plain fp32 parts the witness: delta1, dB at the
-    store's pairs (and exactly 0 at every other entry of the store, the
-    slots no walk visits included), dq, dk, dv, dscale (the max gate
-    alone). Each kernel's worst output."""
+    gates, the compact plain fp32 parts the witness: the row walk's
+    delta1, dB at the store's pairs (the walk sets no other entry), dq
+    and dscale (the max gate alone), the key walk's dk and dv. Each
+    walk's worst output."""
     dq, dk, dv, db, dsc, d1 = got
     need = dsc is not None
     common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
@@ -4825,8 +4829,6 @@ def compact_biased_bf16_errors(FG, label, got, q, k, v, store, bias_store,
     sync()
     want, f32 = parts[True], parts[False]
     on = FG.store_pairs(store)
-    if not bool((db[~on] == 0).all()):
-        raise AssertionError(f"{label}: dB not 0 off the store's pairs")
     g = {n: bf16_gates(f"{label} {n}", x[sel], want[n][sel], f32[n][sel])
          for n, x, sel in (("delta1", d1, ...), ("dB", db, on),
                            ("dq", dq, ...), ("dk", dk, ...),
@@ -4834,35 +4836,68 @@ def compact_biased_bf16_errors(FG, label, got, q, k, v, store, bias_store,
     if need:
         g["dscale"] = bf16_gates(f"{label} dscale", dsc, want["dscale"],
                                  f32["dscale"], witness=False, mean=False)
-    return {"B6c": max(g["delta1"], g["dB"]),
-            "B7a c": max(g["dq"], g.get("dscale", g["dq"])),
+    return {"B6c+B7a c": max(g["delta1"], g["dB"], g["dq"],
+                             g.get("dscale", g["dq"])),
             "B7b c": max(g["dk"], g["dv"])}
 
 
+def compact_biased_bf16_inputs(FG, G, H, N, D, Dv, metric, rate, pack, seed,
+                               band):
+    """2g's inputs (`compact_biased_bwd_inputs`), or with ``band``
+    `tests.test_torch_gpu._compact_biased_bwd_inputs`' at `band_mask`'s
+    cases over `band_compact`'s walks, q and k at half scale as the card's
+    bf16 tests take them (``BF16_QK_SCALE``), on the card."""
+    if not band:
+        return compact_biased_bwd_inputs(FG, G, H, N, D, Dv, metric, seed,
+                                         pack, rate)
+    from tests.test_torch_gpu import _compact_biased_bf16_inputs
+    return _compact_biased_bf16_inputs(DEV, G, H, N, D, Dv, metric, pack,
+                                       rate, seed, band=True)
+
+
 def compact_biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack,
-                                 seed=0):
-    """B4c, B5c, B6c, B7a c and B7b c in their bf16 forms against the
-    compact plain bf16 versions on one input of 2g, under the bf16 gates
-    with the compact plain fp32 versions as the witness: lse1, then out
-    and lse2 on 2g's union-like lse1 (the plain B5c walking the same
-    plan), then the backward (`_biased_backward_compact` with bf16) on
-    2g's statistics (`compact_biased_bf16_errors`); dead rows, and dk and
-    dv on the empty key strip, exactly 0. Returns {kernel: (max abs
-    error, max error, mean error, witness)} of its worst output."""
+                                 seed=0, band=False, twice=False):
+    """B4c and B5c in their bf16 forms, then the bf16 row walk (B6c and
+    B7a c, the residual's delta1 added between its passes) and key walk
+    (B7b c) against the compact plain bf16 versions on one input of 2g
+    (``band``: at the band's cases), under the bf16 gates with the
+    compact plain fp32 versions as the witness: lse1, then out and lse2
+    on 2g's union-like lse1 (the plain B5c walking the same plan), then
+    the backward (`_biased_backward_compact` with bf16) on 2g's
+    statistics (`compact_biased_bf16_errors`), its outputs allocated
+    NaN-filled (`tests.test_torch_gpu.nan_empty`): every entry of delta1,
+    dq, dk, dv and dscale set, dB NaN exactly off the store's pairs (the
+    walk writes and reads nothing else); dead rows, and dk and dv on the
+    empty key strip, exactly 0. With ``twice``, 19 more calls of the
+    backward bit for bit. Returns {kernel: (max abs error, max error, mean
+    error, witness)} of its worst output."""
     (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
-     lse2, delta2, d1_rest) = compact_biased_bwd_inputs(
-        FG, G, H, N, D, Dv, metric, seed, pack, rate)
-    label = (f"compact biased bf16 {metric} rate={rate} D={D} Dv={Dv} "
-             f"pack={pack}")
+     lse2, delta2, d1_rest) = compact_biased_bf16_inputs(
+        FG, G, H, N, D, Dv, metric, rate, pack, seed, band)
+    label = (f"compact biased bf16 {metric} rate={rate} G={G} H={H} N={N} "
+             f"D={D} Dv={Dv} pack={pack} band={band}")
     need = metric in FG.SCALED_METRICS
     b4c, b5c = compact_biased_kernels(FG, True)[:2]
     l1 = b4c(q, k, store, *plan, metric, scale)
     out, l2 = b5c(q, k, v, store, bias_store, lse1, *plan, metric, scale,
                   seeds, rate)
-    got = FG._biased_backward_compact(q, k, v, store, bias_store, do, lse1,
-                                      lse2, delta2, plan, plan_t, metric,
-                                      scale, rate, seeds, need, d1_rest, True)
+
+    from tests.test_torch_gpu import nan_empty
+
+    def call():
+        with nan_empty():
+            return FG._biased_backward_compact(
+                q, k, v, store, bias_store, do, lse1, lse2, delta2, plan,
+                plan_t, metric, scale, rate, seeds, need, d1_rest, True)
+    got = call()
     sync()
+    on = FG.store_pairs(store)
+    set_ = [got[0], got[1], got[2], got[5]] + ([got[4]] if need else [])
+    if not (all(bool(torch.isfinite(t).all()) for t in set_)
+            and bool(torch.isfinite(got[3][on]).all())
+            and bool(torch.isnan(got[3][~on]).all())):
+        raise AssertionError(f"{label}: an output entry left unset, or dB "
+                             f"written off the store's pairs")
     fwd = {}
     for bf16 in (True, False):
         p_l1 = FG.flash_lse1_compact_plain(q, k, store, *plan, metric, scale,
@@ -4872,7 +4907,8 @@ def compact_biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack,
             seeds, bf16))
     (p_l1, p_out, p_l2), (f_l1, f_out, f_l2) = fwd[True], fwd[False]
     dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
-    strip = slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
+    strip = (slice(3 * FG.BLOCK_N, 4 * FG.BLOCK_N) if band
+             else slice(FG.BLOCK_N, 2 * FG.BLOCK_N))
     if not (torch.all(l1[dead] == FG.LSE_DEAD)
             and torch.all(l2[dead] == FG.LSE_DEAD)
             and torch.all(out[dead] == 0) and torch.all(got[0][dead] == 0)
@@ -4881,6 +4917,17 @@ def compact_biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack,
                                                        == 0)))):
         raise AssertionError(f"{label}: dead rows or the empty key strip "
                              f"not exactly 0")
+    if twice:
+        first = [t.clone() for t in got[:3]] + [got[3][on], got[5].clone()]
+        for _ in range(19):
+            again = call()
+            same = [torch.equal(a, b) for a, b in zip(
+                first, [*again[:3], again[3][on], again[5]])]
+            if need:
+                same.append(torch.equal(got[4], again[4]))
+            if not all(same):
+                raise AssertionError(f"{label}: a repeated call differs: "
+                                     f"{same}")
     live = ~dead
     res = {"B4c": bf16_gates(f"{label} lse1", l1[live], p_l1[live],
                              f_l1[live], witness=False),
@@ -4894,27 +4941,62 @@ def compact_biased_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack,
     return res
 
 
+def zero_rest_witness(FG, pack):
+    """The bf16 walks given a zero residual delta1 where the true one is
+    not 0, held to the plain bf16 parts on the true one: the gates must
+    fail (a walk that dropped ``delta1_rest`` would pass 2k only if they
+    could not tell). Returns the failure's message."""
+    (q, k, v, _, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, d1_rest) = compact_biased_bf16_inputs(
+        FG, 2, 4, 330, 16, 16, "euclidean", 0.0, pack, 3, True)
+    got = FG._biased_backward_compact(
+        q, k, v, store, bias_store, do, lse1, lse2, delta2, plan, plan_t,
+        "euclidean", scale, 0.0, seeds, False, torch.zeros_like(d1_rest),
+        True)
+    try:
+        compact_biased_bf16_errors(FG, "zero delta1_rest", got, q, k, v,
+                                   store, bias_store, plan, "euclidean",
+                                   scale, seeds, 0.0, do, lse1, lse2, delta2,
+                                   d1_rest)
+    except AssertionError as e:
+        return str(e)
+    raise AssertionError(f"pack={pack}: the bf16 walks given a zero "
+                         f"delta1_rest passed the gates against the true one")
+
+
 def phase_small_compact_biased_bf16(FG):
-    """[2k] the bf16 forms of B4c, B5c, B6c, B7a c and B7b c, bit and int8
-    stores: every metric with dropout 0 and 0.1 at (D, Dv) = (16, 8), and
-    (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), where
-    the compact biased backward's bias tile and tile-row words sit beside
-    the widest tiles in shared memory; 2g's union-like statistics,
-    dscale for gaussian/rbf, dead rows, a row tile with jcount = 0, an
-    empty key strip, unvisited slots. Then a jslot (islot) past the store
-    raises before any launch at each of the five bf16 entries."""
+    """[2k] the bf16 forms of B4c, B5c and the compact row walk (B6c and
+    B7a c) and key walk (B7b c), bit and int8 stores: every metric with
+    dropout 0 and 0.1 at (D, Dv) = (16, 8), and (D, Dv) of (16, 16), (8,
+    8), (12, 12), (7, 3) and (128, 128); 2g's union-like statistics with
+    a residual delta1 that is not 0, dscale for gaussian/rbf, dead rows,
+    a row tile with jcount = 0, an empty key strip, unvisited slots; the
+    band's cases (`tests.test_torch_gpu.band_mask` over `band_compact`'s
+    walks) at four metrics, one of them called 20 times bit for bit;
+    every backward output allocated NaN-filled. Then the witness: the
+    walks given a zero delta1_rest fail the gates, both stores. Then a
+    jslot (islot) past the store raises before any launch at each of the
+    four bf16 entries."""
     cases = [(metric, 16, 8, rate) for metric in FG.MXU_METRICS
              for rate in (0.0, 0.1)]
     cases += [("scaled_dot_product", 16, 16, 0.1), ("scaled_dot_product", 8,
                                                     8, 0.1),
               ("gaussian_kernel", 12, 12, 0.0), ("dot_product", 7, 3, 0.1),
               ("euclidean", 128, 128, 0.1)]
+    band_cases = [("euclidean", 0.0), ("gaussian_kernel", 0.1),
+                  ("scaled_dot_product", 0.1), ("cosine_distance", 0.0)]
     worst = {}
+    n = 0
     for pack in (True, False):
-        for metric, D, Dv, rate in cases:
-            for name, r in compact_biased_bf16_vs_plain(
-                    FG, 2, 3, 150, D, Dv, metric, rate, pack).items():
+        runs = [(2, 3, 150, D, Dv, metric, rate, pack, 0, False, False)
+                for metric, D, Dv, rate in cases]
+        runs += [(2, 4, 330, 16, 16, metric, rate, pack, 3, True, i == 0)
+                 for i, (metric, rate) in enumerate(band_cases)]
+        for run in runs:
+            for name, r in compact_biased_bf16_vs_plain(FG, *run).items():
                 worst[name] = max(worst.get(name, r), r)
+            n += 1
+    witness = [zero_rest_witness(FG, pack) for pack in (True, False)]
     (q, k, v, _, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
      lse2, delta2, _) = compact_biased_bwd_inputs(
         FG, 1, 2, 150, 16, 16, "dot_product", 0, True, 0.0)
@@ -4922,7 +5004,7 @@ def phase_small_compact_biased_bf16(FG):
     il, ic, isl = (p.clone() for p in plan_t)
     js[0, 0, 0] = isl[0, 0, 0] = store.shape[1]
     common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
-    _, _, pre, dq_k, dkv_k = compact_biased_kernels(FG, True)
+    _, _, row_k, key_k = compact_biased_kernels(FG, True)
     before = counts(FG)
     refused = 0
     for call in (
@@ -4931,28 +5013,31 @@ def phase_small_compact_biased_bf16(FG):
             lambda: FG.flash_biased_fwd_compact(
                 q, k, v, store, bias_store, lse1, jl, jc, js,
                 metric="dot_product", bf16=True),
-            lambda: pre(*common, jl, jc, js, "dot_product", scale, seeds,
-                        0.0),
-            lambda: dq_k(*common, lse1, jl, jc, js, "dot_product", scale,
-                         seeds, 0.0, False),
-            lambda: dkv_k(*common, lse1, il, ic, isl, "dot_product", scale,
+            lambda: row_k(*common, None, jl, jc, js, "dot_product", scale,
+                          seeds, 0.0, False),
+            lambda: key_k(*common, lse1, il, ic, isl, "dot_product", scale,
                           seeds, 0.0)):
         try:
             call()
         except ValueError:
             refused += 1
-    if refused != 5 or counts(FG) != before:
-        raise AssertionError(f"a bad jslot: {refused} of 5 entries refused "
+    if refused != 4 or counts(FG) != before:
+        raise AssertionError(f"a bad jslot: {refused} of 4 entries refused "
                              f"it; launches {counts(FG)} vs {before}")
-    log(f"[2k] bf16 forms of B4c, B5c, B6c, B7a c and B7b c vs the compact "
-        f"plain bf16 versions, bit and int8 stores, union statistics: "
-        f"{2 * len(cases)} cases; worst (max abs err, max err, mean err, "
-        f"witness over the largest entry) "
-        + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
-                    for n, r in worst.items())
+    log(f"[2k] bf16 forms of B4c, B5c, the row walk (B6c + B7a c) and the "
+        f"key walk (B7b c) vs the compact plain bf16 versions, bit and int8 "
+        f"stores, union statistics with a residual delta1, the band's "
+        f"cases, outputs allocated NaN-filled (dB NaN exactly off the "
+        f"store's pairs), one band case 20 times bit for bit: {n} cases; "
+        f"worst (max abs err, max err, mean err, witness over the largest "
+        f"entry) "
+        + "; ".join(f"{n_} {tuple(f'{x:.3e}' for x in r)}"
+                    for n_, r in worst.items())
         + f" (tol {BF16_MAX_TOL}, {BF16_MEAN_TOL}, witness {BF16_WITNESS}x);"
-        f" a bad jslot raised before launch at all 5 entries")
-    return {n: r[0] for n, r in worst.items()}
+        f" given a zero delta1_rest the gates fail (bit, int8 store): "
+        f"{[w[:160] for w in witness]}; a bad jslot raised before launch "
+        f"at all 4 entries")
+    return {n_: r[0] for n_, r in worst.items()}
 
 
 # -- phases 4f, 5f, 6d, 7d: training the edge-feature hybrid model ------------
@@ -5151,7 +5236,8 @@ def phase_train_hybrid_edge(tt, FG, bf16=False, data=None):
             seeds, False, d1_rest, bf16), 3)
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
-    bwd_name = "B6c+B7a c+B7b c" if bf16 else "the row and key walks"
+    bwd_name = "the bf16 row and key walks" if bf16 \
+        else "the row and key walks"
     log(f"[{tag}] one layer's launches over the {G} folded snapshots: B4c+B5c "
         f"{fold_fwd:.3f} ms, {bwd_name} {fold_bwd:.3f} ms; "
         f"{cfg.num_layers} layers' {bwd_name} = {share:.3f} and with "
@@ -5218,33 +5304,8 @@ def compact_biased_fwd_bounds(q, v, store, plan, pairs, bound_of=None):
                             + rows, 2 * H * pairs * (D + Dv))}
 
 
-def compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t, pairs,
-                              bound_of=None):
-    """The tile kernels B6c's, B7a c's and B7b c's (the bf16 forms)
-    least time from these inputs: q, k, v,
-    dO, lse1, lse2 and delta2, the store, the bias at the valid pairs
-    only (4 bytes each: the result depends on no other entry), the walk,
-    scale and seeds read once; delta1 and dB at the valid pairs (B6c),
-    dq (B7a c, which also reads delta1) or dk and dv (B7b c) written
-    once; against the products on the valid pairs at the fp32 peak
-    (``bound_of``: `bound16` for the bf16 rate)."""
-    bound_of = bound_of or bound
-    G, H, N, D = q.shape
-    Dv = v.shape[-1]
-    HN = G * H * N
-    common = (4 * HN * (2 * D + 2 * Dv) + 3 * 4 * HN
-              + store.numel() * store.element_size() + 4 * pairs
-              + 4 * (H + 2 * G))
-    plan_b, plan_tb = (4 * sum(t.numel() for t in p) for p in (plan, plan_t))
-    return {"B6c": bound_of(common + plan_b + 4 * HN + 4 * pairs,
-                            2 * H * pairs * (D + Dv)),
-            "B7a c": bound_of(common + 4 * HN + plan_b + 4 * HN * D,
-                              2 * H * pairs * (2 * D + Dv)),
-            "B7b c": bound_of(common + 4 * HN + plan_tb + 4 * HN * (D + Dv),
-                              2 * H * pairs * (2 * D + 2 * Dv))}
-
-
-def compact_walk_bounds(FG, q, v, store, plan, plan_t, pairs):
+def compact_walk_bounds(FG, q, v, store, plan, plan_t, pairs,
+                        bound_of=None):
     """The compact row walk's (B6c and B7a c), the key walk's (B7b c) and
     the two walks' least time from these inputs: q, k, v, dO, lse1, lse2
     and delta2, the row walk's delta1_rest and the key walk's delta1, the
@@ -5253,7 +5314,9 @@ def compact_walk_bounds(FG, q, v, store, plan, plan_t, pairs):
     row walk's delta1, dB at the valid pairs and dq, the key walk's dk
     and dv written once; against the products on the valid pairs at the
     fp32 peak (the row walk's two passes: q.k and do.v twice and W k;
-    the key walk's q.k, do.v, W q and drop2(w2) do)."""
+    the key walk's q.k, do.v, W q and drop2(w2) do; ``bound_of``:
+    `bound16` for the bf16 rate)."""
+    bound_of = bound_of or bound
     G, H, N, D = q.shape
     Dv = v.shape[-1]
     HN = G * H * N
@@ -5265,10 +5328,10 @@ def compact_walk_bounds(FG, q, v, store, plan, plan_t, pairs):
     key_b = 4 * HN + plan_tb + 4 * HN * (D + Dv)
     row_f = 2 * H * pairs * (3 * D + 2 * Dv)
     key_f = 2 * H * pairs * (2 * D + 2 * Dv)
-    return {"B6c+B7a c": bound(common + row_b, row_f),
-            "B7b c": bound(common + key_b, key_f),
-            "both": bound(common + row_b + plan_tb + 4 * HN * (D + Dv),
-                          row_f + key_f)}
+    return {"B6c+B7a c": bound_of(common + row_b, row_f),
+            "B7b c": bound_of(common + key_b, key_f),
+            "both": bound_of(common + row_b + plan_tb + 4 * HN * (D + Dv),
+                             row_f + key_f)}
 
 
 def tile_occupancy(FG, store, plan):
@@ -5452,34 +5515,41 @@ def phase_times_hybrid_edge_bwd(FG, args):
 # -- phase 5j -----------------------------------------------------------------
 
 def phase_times_hybrid_edge_bf16(FG, args):
-    """[5j] B4c, B5c, B6c, B7a c and B7b c in their bf16 forms at one 131K
-    snapshot of 6h (union statistics), CUDA events, each beside its fp32
-    form in turns (the bf16 tile kernels B6c + B7a c beside the fp32 row
-    walk, B7b c beside the fp32 key walk); the compact plain bf16
-    versions; compiled
-    ``flex_attention`` on bf16 q, k, v under the compact plan's BlockMask
-    at the scaled-dot metric as the library yardstick: B4c's function
-    (lse only), B5c's (exp(s - lse1) + the bias store, lse1 given), and
-    the backward of the two calls (forward+backward minus forward), held
-    against the bf16 kernels at that metric on band statistics (null
-    with the reason where it does not build or differs); the bounds: the
-    fp32 forms' bytes (the inputs stay fp32) and the valid pairs'
-    operations at the bf16 tensor-core rate."""
+    """[5j] B4c and B5c in their bf16 forms and the bf16 compact row walk
+    (B6c and B7a c) and key walk (B7b c) at one 131K snapshot of 6h
+    (union statistics, the residual's delta1 added by the row walk), CUDA
+    events, each beside its fp32 form in turns; the compact plain bf16
+    versions; compiled ``flex_attention`` on bf16 q, k, v under the
+    compact plan's BlockMask at the scaled-dot metric as the library
+    yardstick: B4c's function (lse only) and B5c's (exp(s - lse1) + the
+    bias store, lse1 given), held against the bf16 kernels at that metric
+    on band statistics (null with the reason where it does not build or
+    differs), and the backward of the two calls (forward+backward minus
+    forward), its gradients' error against the bf16 walks' at that metric
+    recorded, not gated (flex rounds its outputs and gradients to bf16);
+    the bounds: the fp32 forms' bytes (the inputs stay fp32) and the
+    valid pairs' operations at the bf16 tensor-core rate, and each walk's
+    share of its bound."""
     (q, k, v, store, bst, plan, plan_t, _,
      (do, lse1, lse2, delta2, d1_rest)) = args
     H = q.shape[1]
     ones = torch.ones(H, device=DEV)
     seeds = torch.zeros(1, 2, dtype=torch.int32, device=DEV)
     sdp = "scaled_dot_product"
+    d1_rest = d1_rest.contiguous()
     k32, k16 = compact_biased_kernels(FG, False), compact_biased_kernels(
         FG, True)
     with torch.no_grad():
         common = (q, k, v, store, bst, do, lse1, lse2, delta2)
-        d1 = (k16[2](*common, *plan, "euclidean", ones, seeds, 0.0)[0]
-              + d1_rest).contiguous()
-        row32, key32 = k32[2:]
-        d1_32 = row32(*common, d1_rest.contiguous(), *plan, "euclidean",
-                      ones, seeds, 0.0, False)[0]
+
+        def row(kern):
+            return lambda: kern(*common, d1_rest, *plan, "euclidean", ones,
+                                seeds, 0.0, False)
+        d1_16, d1_32 = (row(kern[2])()[0] for kern in (k16, k32))
+
+        def key(kern, d1):
+            return lambda: kern(*common, d1, *plan_t, "euclidean", ones,
+                                seeds, 0.0)
         calls = {
             "B4c": (lambda: k16[0](q, k, store, *plan, "euclidean", ones),
                     lambda: k32[0](q, k, store, *plan, "euclidean", ones)),
@@ -5487,25 +5557,10 @@ def phase_times_hybrid_edge_bf16(FG, args):
                                    "euclidean", ones, seeds, 0.0),
                     lambda: k32[1](q, k, v, store, bst, lse1, *plan,
                                    "euclidean", ones, seeds, 0.0)),
-            "B6c": (lambda: k16[2](*common, *plan, "euclidean", ones, seeds,
-                                   0.0), None),
-            "B7a c": (lambda: k16[3](*common, d1, *plan, "euclidean", ones,
-                                     seeds, 0.0, False), None),
-            "B7b c": (lambda: k16[4](*common, d1, *plan_t, "euclidean", ones,
-                                     seeds, 0.0),
-                      lambda: key32(*common, d1_32, *plan_t, "euclidean",
-                                    ones, seeds, 0.0))}
-        # the fp32 row walk does B6c's and B7a c's work in one kernel:
-        # it is timed beside the bf16 B6c + B7a c
-        row_pair = (lambda: (calls["B6c"][0](), calls["B7a c"][0]()),
-                    lambda: row32(*common, d1_rest.contiguous(), *plan,
-                                  "euclidean", ones, seeds, 0.0, False))
+            "B6c+B7a c": (row(k16[2]), row(k32[2])),
+            "B7b c": (key(k16[3], d1_16), key(k32[3], d1_32))}
         times = {}
-        for name, (f16, f32) in list(calls.items()) + [
-                ("B6c+B7a c", row_pair)]:
-            if f32 is None:
-                times[name] = ([cuda_ms(f16, 10), cuda_ms(f16, 10)], None)
-                continue
+        for name, (f16, f32) in calls.items():
             a32, a16 = cuda_ms(f32, 10), cuda_ms(f16, 10)
             b16, b32 = cuda_ms(f16, 10), cuda_ms(f32, 10)
             times[name] = ([a16, b16], [a32, b32])
@@ -5530,14 +5585,19 @@ def phase_times_hybrid_edge_bf16(FG, args):
         k4_sdp = cuda_ms(lambda: k16[0](q, k, store, *plan, sdp, ones), 10)
         k5_sdp = cuda_ms(lambda: k16[1](q, k, v, store, bst, l1_s, *plan,
                                         sdp, ones, seeds, 0.0), 10)
+        c_sdp = (q, k, v, store, bst, do, l1_s, l2_s,
+                 (do * out_s).sum(-1).contiguous())
+        walks_sdp = cuda_ms(lambda: FG._biased_backward_compact(
+            *c_sdp, plan, plan_t, sdp, ones, 0.0, seeds, False, None, True),
+            10)
         g_sdp = FG._biased_backward_compact(
-            q, k, v, store, bst, do, l1_s, l2_s,
-            (do * out_s).sum(-1).contiguous(), plan, plan_t, sdp, ones, 0.0,
-            seeds, False, None, True)
+            *c_sdp, plan, plan_t, sdp, ones, 0.0, seeds, False, None, True)
         pairs = int(FG.unpack_bits(store).sum().item())
     bq, bk, bv = (t.bfloat16() for t in (q, k, v))
     live = l1_s < 1e29
-    lib = {"B4c": None, "B5c": None, "bwd": None, "error": None}
+    lib = {"B4c": None, "B5c": None, "error": None}
+    lib_bwd = {"ms": None, "error": None}
+    band = None
     # 5d-5i compiled flex_attention under other functions and dtypes: past
     # dynamo's recompile limit it would run unfused
     torch._dynamo.reset()
@@ -5562,6 +5622,22 @@ def phase_times_hybrid_edge_bf16(FG, args):
             lib["B4c"] = cuda_ms(lambda: flex(bq, bk, bv, block_mask=bmask,
                                               return_lse=True), 20)
             lib["B5c"] = cuda_ms(lambda: band(bq, bk, bv, bst[0], f_l1), 20)
+        flex_err = max(rel_err(f_l1.float()[live], l1_s[live]),
+                       rel_err(f_l2.float()[live], l2_s[live]),
+                       rel_err(f_out.float()[live], out_s[live]))
+        lib["err"] = flex_err
+        if not flex_err <= FLEX_BF16_TOL:
+            lib.update(B4c=None, B5c=None, error=(
+                f"flex_attention on bf16 inputs differs from the bf16 "
+                f"B4c/B5c at the scaled-dot metric: {flex_err} > "
+                f"{FLEX_BF16_TOL}"))
+    except Exception as e:
+        lib["error"] = f"{type(e).__name__}: {e}"[:300]
+    lib["setup_and_timing_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:                            # the yardstick only: never the port
+        if band is None:
+            raise RuntimeError(f"no flex_attention setup: {lib['error']}")
         fl = [t.detach().clone().requires_grad_()
               for t in (bq, bk, bv, bst[0])]
         bdo = do.bfloat16()
@@ -5574,56 +5650,54 @@ def phase_times_hybrid_edge_bf16(FG, args):
                 band(*fl)
         f_grads = lib_fb()
         sync()
-        lib["bwd"] = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
-        flex_err = max([rel_err(f_l1.float()[live], l1_s[live]),
-                        rel_err(f_l2.float()[live], l2_s[live]),
-                        rel_err(f_out.float()[live], out_s[live])]
-                       + [rel_err(f.float(), g) for f, g in
-                          zip(f_grads, (*g_sdp[:3], g_sdp[3][0]))])
-        lib["err"] = flex_err
-        if not flex_err <= FLEX_BF16_TOL:
-            lib.update(B4c=None, B5c=None, bwd=None, error=(
-                f"flex_attention on bf16 inputs differs from the bf16 "
-                f"B4c-B7b c at the scaled-dot metric: {flex_err} > "
-                f"{FLEX_BF16_TOL}"))
+        lib_bwd["ms"] = cuda_ms(lib_fb, 5) - cuda_ms(lib_f, 5)
+        lib_bwd["form"] = ("both calls; gradients of q, k, v and the bias "
+                           "store, lse1 differentiated")
+        # the walks set dB at the store's pairs only: compare there
+        on = FG.store_pairs(store)[0]
+        lib_bwd["grad_err"] = {
+            "dq": rel_err(g_sdp[0], f_grads[0].float()),
+            "dk": rel_err(g_sdp[1], f_grads[1].float()),
+            "dv": rel_err(g_sdp[2], f_grads[2].float()),
+            "dB": rel_err(g_sdp[3][0][on], f_grads[3].float()[on])}
         del f_grads, fl
     except Exception as e:
-        lib["error"] = f"{type(e).__name__}: {e}"[:300]
-    lib["setup_and_timing_s"] = time.perf_counter() - t0
+        lib_bwd["error"] = f"{type(e).__name__}: {e}"[:300]
+    lib_bwd["setup_and_timing_s"] = time.perf_counter() - t0
     bounds = {**compact_biased_fwd_bounds(q, v, store, plan, pairs, bound16),
-              **compact_biased_bwd_bounds(FG, q, v, store, plan, plan_t,
-                                          pairs, bound16)}
+              **compact_walk_bounds(FG, q, v, store, plan, plan_t, pairs,
+                                    bound16)}
     res = {}
     for name in calls:
         fwd = name in ("B4c", "B5c")
-        res[name] = dict(ms=times[name][0], fp32_ms=times[name][1] or
-                         times["B6c+B7a c"][1],
+        res[name] = dict(ms=times[name][0], fp32_ms=times[name][1],
                          plain_ms=(plain4 if name == "B4c" else plain5
                                    if name == "B5c" else plain_b),
-                         library_ms=lib[name] if fwd else lib["bwd"],
+                         library_ms=lib[name] if fwd else lib_bwd["ms"],
                          **bounds[name])
-    res.update(library=lib, valid_pairs=pairs, b4c_sdp_ms=k4_sdp,
-               b5c_sdp_ms=k5_sdp, b6c_b7ac_pair=dict(
-                   ms=times["B6c+B7a c"][0], fp32_ms=times["B6c+B7a c"][1]))
+        res[name]["bound_share"] = res[name]["bound_ms"] / min(
+            times[name][0])
+    res.update(library=lib, library_bwd=lib_bwd, valid_pairs=pairs,
+               b4c_sdp_ms=k4_sdp, b5c_sdp_ms=k5_sdp, walks_sdp_ms=walks_sdp)
     log(f"[5j] bf16 compact biased forms, one snapshot of N={q.shape[2]}, "
         f"union statistics: "
-        + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])}"
-                    + ("" if t[1] is None else " (fp32 " + (
-                        "row walk " if n == "B6c+B7a c" else "key walk "
-                        if n == "B7b c" else "") + " ".join(
-                        f"{x:.4f}" for x in t[1]) + ")")
+        + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])} "
+                    f"(fp32 {' '.join(f'{x:.4f}' for x in t[1])})"
                     for n, t in times.items())
         + f"; compact plain bf16 ms B4c {plain4:.4f}, B5c {plain5:.4f}, "
-        f"backward {plain_b:.4f}")
+        f"backward {plain_b:.4f} (\"B6c+B7a c\": the row walk, \"B7b c\": "
+        f"the key walk)")
     log(f"[5j] library: compiled flex_attention on bf16 q, k, v under the "
         f"compact plan's BlockMask at the scaled-dot metric (B4c's and B5c's "
-        f"functions, and forward+backward - forward of the two): {lib} "
-        f"(bf16 B4c at that metric {k4_sdp:.4f} ms, B5c {k5_sdp:.4f})")
+        f"functions): {lib} (bf16 B4c at that metric {k4_sdp:.4f} ms, B5c "
+        f"{k5_sdp:.4f}, the two bf16 walks {walks_sdp:.4f}); forward+"
+        f"backward - forward of the two calls {lib_bwd}")
     for name in calls:
         r = res[name]
         log(f"[5j] {name} bf16 bound {r['bound_ms']:.5f} ms by "
             f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops over "
-            f"{pairs} valid pairs at the bf16 rate)")
+            f"{pairs} valid pairs at the bf16 rate); {r['bound_share']:.4f} "
+            f"of it reached")
     return res
 
 
@@ -6315,43 +6389,59 @@ def main() -> int:
             ("flash_geometric_forward_compact_plain with bf16=True (walks "
              "the plan)",) + ("flash_geometric_backward_compact_plain with "
                               "bf16=True (dq, dk and dv)",) * 2)]
-    # the bf16 forms of B4c-B7b c: launches on the edge-feature hybrid bf16
-    # serving (3h) and training (6h) paths, times at one 131K snapshot of
-    # 6h (5j), each beside its fp32 form's in the same run
+    # the bf16 forms of B4c and B5c: launches on the edge-feature hybrid
+    # bf16 serving path (3h), times at one 131K snapshot of 6h (5j), each
+    # beside its fp32 form's in the same run
     t16he = times_hyb_edge_bf16
     lib16he = t16he["library"]
     kernels += [
         dict(kernel_record(
-            FG, kern, source, line,
-            (serve_hyb_edge_bf16 if fwd else
-             train_hyb_edge_bf16)["launches"][kern.name],
-            max(small_compact_biased_bf16[name], serve_hyb_edge_bf16[
-                "full_err"] if fwd else train_hyb_edge_bf16["full_err"][name]),
+            FG, kern, "flash_biased_fwd.cu", line,
+            serve_hyb_edge_bf16["launches"][kern.name],
+            max(small_compact_biased_bf16[name],
+                serve_hyb_edge_bf16["full_err"]),
             min(t16he[name]["ms"]), t16he[name]["plain_ms"], plain_of,
             t16he[name], t16he[name]["library_ms"], HB_SRC),
              fp32_ms=min(t16he[name]["fp32_ms"]),
-             fp32_of=("the fp32 row walk (B6c + B7a c; the bf16 pair "
-                      f"{min(t16he['b6c_b7ac_pair']['ms']):.4f} ms)"
-                      if name in ("B6c", "B7a c") else
-                      "the fp32 key walk" if name == "B7b c" else None),
              library_of=(
-                 ("compiled flex_attention on bf16 q, k, v, BlockMask from "
-                  "the compact plan, scaled-dot metric, "
-                  + ("lse only" if name == "B4c" else
-                     "exp(s - lse1) + bias store" if fwd else
-                     "fwd+bwd - fwd of B4c and B5c's calls"))
+                 "compiled flex_attention on bf16 q, k, v, BlockMask from "
+                 "the compact plan, scaled-dot metric, "
+                 + ("lse only" if name == "B4c" else
+                    "exp(s - lse1) + bias store")
                  if lib16he["error"] is None else lib16he["error"]))
-        for name, kern, source, line, plain_of, fwd in zip(
-            ("B4c", "B5c", "B6c", "B7a c", "B7b c"),
-            compact_biased_kernels(FG, True),
-            ("flash_biased_fwd.cu",) * 2
-            + ("flash_biased_bwd_compact_bf16.cu",) * 3,
-            (197, 236, 298, 371, 405),
+        for name, kern, line, plain_of in zip(
+            ("B4c", "B5c"), compact_biased_kernels(FG, True)[:2], (197, 236),
             ("flash_lse1_compact_plain with bf16=True",
              "flash_biased_forward_compact_plain with bf16=True (walks the "
-             "plan)") + ("flash_biased_bwd_{pre,dq,dkv}_compact_plain with "
-                         "bf16=True (delta1, dB, dq, dk and dv)",) * 3,
-            (True, True, False, False, False))]
+             "plan)"))]
+    # the bf16 compact row walk (B6c and B7a c bf16) and key walk (B7b c
+    # bf16): launches on the edge-feature hybrid bf16 training path (6h),
+    # times at one 131K snapshot of 6h (5j) beside the fp32 walks in the
+    # same run
+    lb16he = t16he["library_bwd"]
+    kernels += [
+        dict(kernel_record(
+            FG, kern, "flash_pairwalk_biased_bwd_compact.cu", line,
+            train_hyb_edge_bf16["launches"][kern.name],
+            max(small_compact_biased_bf16[name],
+                train_hyb_edge_bf16["full_err"][name]),
+            min(t16he[name]["ms"]), t16he[name]["plain_ms"],
+            "flash_biased_bwd_{pre,dq,dkv}_compact_plain with bf16=True "
+            "(delta1, dB, dq, dk and dv)", t16he[name],
+            t16he[name]["library_ms"], HB_SRC),
+             also_replaces=also, fp32_ms=min(t16he[name]["fp32_ms"]),
+             fp32_of=fp32_of, bound_share=t16he[name]["bound_share"],
+             both_walks_sdp_ms=t16he["walks_sdp_ms"],
+             library_of=("compiled flex_attention on bf16 q, k, v, "
+                         "BlockMask from the compact plan, scaled-dot "
+                         "metric, fwd+bwd - fwd of B4c and B5c's calls"
+                         if lb16he["error"] is None else lb16he["error"]),
+             library_grad_err=lb16he.get("grad_err"))
+        for name, kern, line, also, fp32_of in (
+            ("B6c+B7a c", FG.flash_biased_bwd_row_compact_bf16_kernel, 298,
+             f"{HB_SRC}:371", "the fp32 compact row walk"),
+            ("B7b c", FG.flash_biased_bwd_key_compact_bf16_kernel, 405, None,
+             "the fp32 compact key walk"))]
     # the ring (phase 8): launches over phase 8's main path (B8's count
     # includes the chunk moves of B9's rings), times and bounds at
     # g = RING_G_RECORD virtual ranks (every g in chip_smoke.json), B8 at

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the pair walks, B1 and B1 bf16
 (``tagan_torch/csrc/flash_pairwalk_fwd.cu``), B2 and B2 bf16
-(``flash_pairwalk_bwd.cu``) and the biased backward's row walk and key
-walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), against copies
-of their sources with one design constant changed, on one NVIDIA GPU, to
-see what bounds them:
+(``flash_pairwalk_bwd.cu``), the biased backward's row walk and key
+walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), and their compact
+forms over the hybrid band's store, fp32 and bf16
+(``flash_pairwalk_biased_bwd_compact.cu``), against copies of their
+sources with one design constant changed, on one NVIDIA GPU, to see what
+bounds them:
 
     python3 pairwalk_variants.py
 
@@ -25,20 +27,31 @@ source into
 ``tagan_torch/_build/`` and timed in turns (base first and last) with
 CUDA events, per snapshot, on uniform random graphs of 10,000 nodes:
 degree 16 (the model's) at one snapshot and over a 16-snapshot fold,
-degree 256, and a diagonal-only mask walked over every key tile. Prints
-one line a graph and walk; writes nothing else. Exits non-zero without
-CUDA.
+degree 256, and a diagonal-only mask walked over every key tile. The
+compact walks take the flush's removal (the row walk then only walks its
+slots and lists each row's pairs, the key walk only copies the walked
+slots and lists each key's rows): they are timed on one snapshot of the
+hybrid model's band (131,072 nodes, 16 edges a node, 95% of them within
++-512 of their source, the band those within the 95% quantile of the
+distance; ``benchmarks/bench_partition_stress.py`` part C's graph), with
+a N(0, 1) bias at the band's pairs and a residual delta1 that is not 0.
+Prints one line a graph and walk; writes nothing else. Exits non-zero
+without CUDA.
 """
 
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from tagan_torch.core import graph as TGR
 from tagan_torch.ops import build
 from tagan_torch.ops import flash_geometric as FG
 
 N, H, D = 10_000, 4, 16
+# the hybrid model's band (bench_partition_stress.py part C)
+N_BAND, DEG_BAND = 131_072, 16
 
 
 NST = {
@@ -68,13 +81,24 @@ EDITS = {
                      "constexpr bool KEY_FLUSH = false;"),
         pieces=("constexpr bool KEY_PIECES = false;",
                 "constexpr bool KEY_PIECES = true;")),
+    "flash_pairwalk_biased_bwd_compact": dict(
+        noflush_row=("constexpr bool ROW_FLUSH = true;",
+                     "constexpr bool ROW_FLUSH = false;"),
+        noflush_key=("constexpr bool KEY_FLUSH = true;",
+                     "constexpr bool KEY_FLUSH = false;")),
 }
 # the variants timed for each walk (all of its source's by default)
 WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
                  "row walk": ("noflush_row",),
                  "row walk bf16": ("noflush_row",),
                  "key walk": ("noflush_key", "pieces"),
-                 "key walk bf16": ("noflush_key", "pieces")}
+                 "key walk bf16": ("noflush_key", "pieces"),
+                 "compact row walk": ("noflush_row",),
+                 "compact row walk bf16": ("noflush_row",),
+                 "compact key walk": ("noflush_key",),
+                 "compact key walk bf16": ("noflush_key",)}
+COMPACT = ("compact row walk", "compact row walk bf16", "compact key walk",
+           "compact key walk bf16")
 
 
 def inlined(src: str, csrc: Path) -> str:
@@ -91,7 +115,7 @@ def inlined(src: str, csrc: Path) -> str:
 def variants(name: str, src: str, csrc: Path):
     """(variant, source): ``src`` with the walks' headers inlined
     (`inlined`), under each of ``EDITS[name]``."""
-    if '#include "flash_pairwalk.cuh"' not in src:
+    if '#include "flash_pairwalk' not in src:
         raise SystemExit(f"{name}: the walk's header is not included")
     src = inlined(src, csrc)
     for variant, (old, new) in EDITS[name].items():
@@ -123,6 +147,30 @@ def graph(G, deg, gen):
     return mask, jlist, jcount, ilist, icount
 
 
+def band_graph(seed):
+    """(store, plan, plan_t) of one snapshot of the hybrid model's band,
+    the bit store, built as ``SnapshotSequence.with_hybrid_plan`` builds
+    it (host-side numpy), on the card."""
+    rng = np.random.default_rng(seed)
+    n, e = N_BAND, N_BAND * DEG_BAND
+    w = max(n // 256, 8)
+    src = rng.integers(0, n, e)
+    dst = np.where(rng.random(e) < 0.95,
+                   np.clip(src + rng.integers(-w, w + 1, e), 0, n - 1),
+                   rng.integers(0, n, e))
+    src, dst = src[None], dst[None]
+    em, nm = np.ones(src.shape, bool), np.ones((1, n), bool)
+    band, res = TGR._hybrid_split(src, dst, em, None, 0.95)
+    layout = (src, dst, nm, band, res,
+              TGR._band_occupancy(src, dst, band, nm, n))
+    dims = TGR._plan_dims(layout, transposed=True)
+    built = TGR._build_hybrid(*layout, True, dims["S"], dims["Wj"],
+                              dims["Er"], dims["Wi"])
+    return (built["hyb_mask_blocks"].cuda(),
+            *(tuple(t.cuda() for t in built[k])
+              for k in ("hyb_plan", "hyb_plan_t")))
+
+
 def ms(fn, iters=10):
     fn()
     torch.cuda.synchronize()
@@ -147,7 +195,13 @@ def main() -> int:
              "row walk": FG.flash_biased_bwd_row_kernel,
              "row walk bf16": FG.flash_biased_bwd_row_bf16_kernel,
              "key walk": FG.flash_biased_bwd_key_kernel,
-             "key walk bf16": FG.flash_biased_bwd_key_bf16_kernel}
+             "key walk bf16": FG.flash_biased_bwd_key_bf16_kernel,
+             "compact row walk": FG.flash_biased_bwd_row_compact_kernel,
+             "compact row walk bf16":
+                 FG.flash_biased_bwd_row_compact_bf16_kernel,
+             "compact key walk": FG.flash_biased_bwd_key_compact_kernel,
+             "compact key walk bf16":
+                 FG.flash_biased_bwd_key_compact_bf16_kernel}
     kernels = {w: {"base": kern} for w, kern in walks.items()}
     made = {}
     try:
@@ -209,6 +263,8 @@ def main() -> int:
                 "row walk": row, "row walk bf16": row, "key walk": key,
                 "key walk bf16": key}
         for w, ks in kernels.items():
+            if w in COMPACT:
+                continue
             order = list(ks) + list(ks)[::-1]
             res = {}
             with torch.inference_mode():
@@ -219,7 +275,48 @@ def main() -> int:
             print(f"{w}, {label}: ms a snapshot {res}", flush=True)
         del q, k, v, do, mask, out, lse, delta, bias, lse1, out2, lse2
         del common, delta1, args, fwd, bwd, row, key
+    compact_times(kernels, gen)
     return 0
+
+
+def compact_times(kernels, gen):
+    """The compact walks and their variants on one snapshot of the band,
+    each precision's key walk on its own row walk's delta1."""
+    store, plan, plan_t = band_graph(7)
+    S = store.shape[1]
+    q, k, v, do = (0.5 * torch.randn(1, H, N_BAND, D, device="cuda",
+                                     generator=gen) for _ in range(4))
+    bias = torch.randn(1, S, FG.BLOCK_M, FG.BLOCK_N, device="cuda",
+                       generator=gen)
+    rest = torch.randn(1, H, N_BAND, device="cuda", generator=gen)
+    ones = torch.ones(H, device="cuda")
+    seeds = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+    pairs = int(FG.unpack_bits(store).sum())
+    with torch.inference_mode():
+        lse1 = FG.flash_lse1_compact_kernel(q, k, store, *plan, "euclidean",
+                                            ones)
+        out, lse2 = FG.flash_biased_fwd_compact_kernel(
+            q, k, v, store, bias, lse1, *plan, "euclidean", ones, seeds, 0.0)
+        common = (q, k, v, store, bias, do, lse1, lse2, (do * out).sum(-1))
+        row = (*common, rest, *plan, "euclidean", ones, seeds, 0.0, False)
+        args = {}
+        for prec in ("", " bf16"):
+            d1 = kernels[f"compact row walk{prec}"]["base"](*row)[0]
+            args[f"compact row walk{prec}"] = row
+            args[f"compact key walk{prec}"] = (*common, d1, *plan_t,
+                                              "euclidean", ones, seeds, 0.0)
+    label = (f"hybrid band, N={N_BAND}, one snapshot: {S} walked slots, "
+             f"{pairs} valid pairs")
+    for w in COMPACT:
+        ks = kernels[w]
+        order = list(ks) + list(ks)[::-1]
+        res = {}
+        with torch.inference_mode():
+            for name in order:
+                kern = ks[name]
+                res.setdefault(name, []).append(round(ms(
+                    lambda: kern(*args[w])), 5))
+        print(f"{w}, {label}: ms {res}", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 // The per-pair work of the edge-biased backward's pair walks, shared by
-// flash_pairwalk_biased_bwd.cu (the dense mask's row and key walks, fp32
-// and bf16) and flash_pairwalk_biased_bwd_compact.cu (the hybrid band's
-// row and key walks over the compact store, fp32): the walks' arguments,
+// flash_pairwalk_biased_bwd.cu (the dense mask's row and key walks) and
+// flash_pairwalk_biased_bwd_compact.cu (the hybrid band's row and key walks
+// over the compact store), each in fp32 and bf16: the walks' arguments,
 // one pair's recompute, and the two flushes that gather a row's (a key's)
 // listed pairs, recompute them and sum into the lane's accumulators.
 //

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
 // that differentiate the double softmax, in their compact occupied-block
-// form with bf16=False (host side tagan_tpu/ops/pallas/hybrid_biased.py):
+// forms bf16=False and bf16=True (the template flag kBf16; host side
+// tagan_tpu/ops/pallas/hybrid_biased.py):
 //
 //   row walk  B6c    _band_bwd_pre, pallas_call :298   delta1_i, dB_ij
 //             B7a c  _band_bwd_dq_dkv, dq :371         dq_i, and d(scale)
@@ -14,8 +15,9 @@
 // band and the residual are inputs, and B7a c and B7b c take the union's
 // delta1_U = delta1_band + delta1_res. They are the dense walks of
 // flash_pairwalk_biased_bwd.cu (B6 + B7a, B7b) with the same per-pair code
-// (flash_pairwalk_biased_bwd.cuh: the recompute, both flushes), over
-// another mask source and another bias address:
+// (flash_pairwalk_biased_bwd.cuh: the recompute, both flushes, and in bf16
+// their rounding points), over another mask source and another bias
+// address:
 //
 //  - The mask is the compact store: the band's occupied 64 x 64 tiles, slot
 //    s of batch index g at g * S + s, as 64 uint64 row words (bit c of word
@@ -77,6 +79,11 @@
 namespace {
 
 using namespace tagan_pairwalk;
+
+// the flushes: false leaves each walk walking the slots and listing the
+// pairs alone (pairwalk_variants.py; its outputs are then not the function)
+constexpr bool ROW_FLUSH = true;
+constexpr bool KEY_FLUSH = true;
 
 // Bytes of a row's (a tile's) mask in the store.
 template <int kForm>
@@ -230,8 +237,9 @@ __device__ __forceinline__ void walk_slots(uint64_t* ring, int* lists,
 }
 
 // At least 8 warps an SM: without a minimum, ptxas held the walk to 64-72
-// registers (the SM's 32 one-warp blocks) and spilled; with it, 156-158
-// registers and no spill (chip_smoke.py phase 1 logs ptxas's report).
+// registers (the SM's 32 one-warp blocks) and spilled; with it, 154-157
+// registers in fp32 and 113-116 in bf16, no spill (chip_smoke.py phase 1
+// logs ptxas's report).
 template <bool kBf16, int kForm>
 __global__ void __launch_bounds__(WARP, 8) row_walk_kernel(const Bwd a) {
   const int lane = threadIdx.x;
@@ -262,18 +270,21 @@ __global__ void __launch_bounds__(WARP, 8) row_walk_kernel(const Bwd a) {
   walk_slots<kForm>(ring, lists, rowcnt, st, a.N, row0, rr0, R, jl, js, cnt,
                     lane, [&]() {
                       ++flushes;
-                      row_pass<1, kBf16>(a, it, pairs, list,
-                                         it.on ? rowcnt[rl] : 0, HG);
+                      if constexpr (ROW_FLUSH)
+                        row_pass<1, kBf16>(a, it, pairs, list,
+                                           it.on ? rowcnt[rl] : 0, HG);
                     });
   // the union's delta1: the band's row sums and the residual's
   if (it.on && a.delta1_rest != nullptr) it.d1 += a.delta1_rest[row];
   if (flushes == 1) {   // every list whole in shared memory: pass 2 there
-    row_pass<2, kBf16>(a, it, pairs, list, it.on ? rowcnt[rl] : 0, HG);
+    if constexpr (ROW_FLUSH)
+      row_pass<2, kBf16>(a, it, pairs, list, it.on ? rowcnt[rl] : 0, HG);
   } else {
     walk_slots<kForm>(ring, lists, rowcnt, st, a.N, row0, rr0, R, jl, js,
                       cnt, lane, [&]() {
-                        row_pass<2, kBf16>(a, it, pairs, list,
-                                           it.on ? rowcnt[rl] : 0, HG);
+                        if constexpr (ROW_FLUSH)
+                          row_pass<2, kBf16>(a, it, pairs, list,
+                                             it.on ? rowcnt[rl] : 0, HG);
                       });
   }
   row_finish<kBf16>(a, it, row, dq_s, lane);
@@ -377,7 +388,7 @@ key_walk_kernel(const Bwd a) {
       load_slot<kForm>(ring + (tt % NST) * BM, st, __ldg(isl + tt));
     cp_async_commit();
     if (full) {
-      key_pass<kBf16>(a, it, pairs, list, n, nthr);
+      if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
       __syncwarp();
       n = 0;
     }
@@ -399,13 +410,13 @@ key_walk_kernel(const Bwd a) {
   }
   if (__any_sync(FULL, n + add > CAPR)) {
     __syncwarp();
-    key_pass<kBf16>(a, it, pairs, list, n, nthr);
+    if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
     __syncwarp();
     n = 0;
   }
   append();
   __syncwarp();
-  key_pass<kBf16>(a, it, pairs, list, n, nthr);
+  if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
 
   key_finish<kBf16>(a, it, dk_s, dv_s, tid, nthr);
 }
@@ -449,6 +460,52 @@ int launch_keys(Bwd a, int G, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <bool kBf16>
+int row_entry(const void* q, const void* k, const void* v, const void* store,
+              const void* bias, const void* dout, const void* lse1,
+              const void* lse2, const void* delta2, const void* delta1_rest,
+              const void* jlist, const void* jcount, const void* jslot,
+              const void* scale, const void* seeds, void* delta1,
+              void* dbias, void* dq, void* dscale_part, int G, int H, int N,
+              int D, int Dv, int n_i, int W, int S, int packed, int metric,
+              float sqrt_d, int use_dropout, unsigned int keep_thresh,
+              float inv_keep, int need_dscale, void* stream) {
+  Bwd a = common_args(q, k, v, store, bias, dout, lse1, lse2, delta2, jlist,
+                      jcount, scale, seeds, H, N, D, Dv, n_i, W, metric,
+                      sqrt_d, use_dropout, keep_thresh, inv_keep);
+  a.delta1_rest = (const float*)delta1_rest;
+  a.pslot = (const int*)jslot;
+  a.S = S;
+  a.delta1_out = (float*)delta1;
+  a.dbias = (float*)dbias;
+  a.dq = (float*)dq;
+  a.dscale = (float*)dscale_part;
+  a.need_dscale = need_dscale;
+  return packed ? launch_rows<kBf16, COMPACT_BITS>(a, G, stream)
+                : launch_rows<kBf16, COMPACT_I8>(a, G, stream);
+}
+
+template <bool kBf16>
+int key_entry(const void* q, const void* k, const void* v, const void* store,
+              const void* bias, const void* dout, const void* lse1,
+              const void* lse2, const void* delta2, const void* delta1,
+              const void* ilist, const void* icount, const void* islot,
+              const void* scale, const void* seeds, void* dk, void* dv, int G,
+              int H, int N, int D, int Dv, int n_j, int W, int S, int packed,
+              int metric, float sqrt_d, int use_dropout,
+              unsigned int keep_thresh, float inv_keep, void* stream) {
+  Bwd a = common_args(q, k, v, store, bias, dout, lse1, lse2, delta2, ilist,
+                      icount, scale, seeds, H, N, D, Dv, n_j, W, metric,
+                      sqrt_d, use_dropout, keep_thresh, inv_keep);
+  a.delta1 = (const float*)delta1;
+  a.pslot = (const int*)islot;
+  a.S = S;
+  a.dk = (float*)dk;
+  a.dv = (float*)dv;
+  return packed ? launch_keys<kBf16, COMPACT_BITS>(a, G, stream)
+                : launch_keys<kBf16, COMPACT_I8>(a, G, stream);
+}
+
 }  // namespace
 
 // The row walk, B6c and B7a c: delta1_U [G, H, N] (the band's row sums
@@ -470,19 +527,29 @@ extern "C" int tagan_flash_biased_bwd_row_compact(
     int S, int packed, int metric, float sqrt_d, int use_dropout,
     unsigned int keep_thresh, float inv_keep, int need_dscale,
     void* stream) {
-  Bwd a = common_args(q, k, v, store, bias, dout, lse1, lse2, delta2, jlist,
-                      jcount, scale, seeds, H, N, D, Dv, n_i, W, metric,
-                      sqrt_d, use_dropout, keep_thresh, inv_keep);
-  a.delta1_rest = (const float*)delta1_rest;
-  a.pslot = (const int*)jslot;
-  a.S = S;
-  a.delta1_out = (float*)delta1;
-  a.dbias = (float*)dbias;
-  a.dq = (float*)dq;
-  a.dscale = (float*)dscale_part;
-  a.need_dscale = need_dscale;
-  return packed ? launch_rows<false, COMPACT_BITS>(a, G, stream)
-                : launch_rows<false, COMPACT_I8>(a, G, stream);
+  return row_entry<false>(q, k, v, store, bias, dout, lse1, lse2, delta2,
+                          delta1_rest, jlist, jcount, jslot, scale, seeds,
+                          delta1, dbias, dq, dscale_part, G, H, N, D, Dv, n_i,
+                          W, S, packed, metric, sqrt_d, use_dropout,
+                          keep_thresh, inv_keep, need_dscale, stream);
+}
+
+// The row walk's bf16 form: the same arguments.
+extern "C" int tagan_flash_biased_bwd_row_compact_bf16(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1_rest, const void* jlist,
+    const void* jcount, const void* jslot, const void* scale,
+    const void* seeds, void* delta1, void* dbias, void* dq,
+    void* dscale_part, int G, int H, int N, int D, int Dv, int n_i, int W,
+    int S, int packed, int metric, float sqrt_d, int use_dropout,
+    unsigned int keep_thresh, float inv_keep, int need_dscale,
+    void* stream) {
+  return row_entry<true>(q, k, v, store, bias, dout, lse1, lse2, delta2,
+                         delta1_rest, jlist, jcount, jslot, scale, seeds,
+                         delta1, dbias, dq, dscale_part, G, H, N, D, Dv, n_i,
+                         W, S, packed, metric, sqrt_d, use_dropout,
+                         keep_thresh, inv_keep, need_dscale, stream);
 }
 
 // The key walk, B7b c: dk [G, H, N, D] and dv [G, H, N, Dv] over the
@@ -498,14 +565,24 @@ extern "C" int tagan_flash_biased_bwd_key_compact(
     int n_j, int W, int S, int packed, int metric, float sqrt_d,
     int use_dropout, unsigned int keep_thresh, float inv_keep,
     void* stream) {
-  Bwd a = common_args(q, k, v, store, bias, dout, lse1, lse2, delta2, ilist,
-                      icount, scale, seeds, H, N, D, Dv, n_j, W, metric,
-                      sqrt_d, use_dropout, keep_thresh, inv_keep);
-  a.delta1 = (const float*)delta1;
-  a.pslot = (const int*)islot;
-  a.S = S;
-  a.dk = (float*)dk;
-  a.dv = (float*)dv;
-  return packed ? launch_keys<false, COMPACT_BITS>(a, G, stream)
-                : launch_keys<false, COMPACT_I8>(a, G, stream);
+  return key_entry<false>(q, k, v, store, bias, dout, lse1, lse2, delta2,
+                          delta1, ilist, icount, islot, scale, seeds, dk, dv,
+                          G, H, N, D, Dv, n_j, W, S, packed, metric, sqrt_d,
+                          use_dropout, keep_thresh, inv_keep, stream);
+}
+
+// The key walk's bf16 form: the same arguments.
+extern "C" int tagan_flash_biased_bwd_key_compact_bf16(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* bias, const void* dout, const void* lse1, const void* lse2,
+    const void* delta2, const void* delta1, const void* ilist,
+    const void* icount, const void* islot, const void* scale,
+    const void* seeds, void* dk, void* dv, int G, int H, int N, int D, int Dv,
+    int n_j, int W, int S, int packed, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return key_entry<true>(q, k, v, store, bias, dout, lse1, lse2, delta2,
+                         delta1, ilist, icount, islot, scale, seeds, dk, dv,
+                         G, H, N, D, Dv, n_j, W, S, packed, metric, sqrt_d,
+                         use_dropout, keep_thresh, inv_keep, stream);
 }

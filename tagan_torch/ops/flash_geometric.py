@@ -33,9 +33,7 @@ has a bf16 form (the TPU kernels' ``bf16=True``: every product's operands
 rounded to bf16, float32 sums), in the same sources under its own entry
 point and launch count (the pair walks' in the same files; B3a
 c's and B3b c's in csrc/flash_geometric_bwd_compact_bf16.cu, from the
-templates of csrc/flash_geometric_bwd.cuh; B6c's, B7a c's and B7b c's,
-still three tile kernels, in csrc/flash_biased_bwd_compact_bf16.cu, from
-those of csrc/flash_biased_bwd.cuh); the model takes them under
+templates of csrc/flash_geometric_bwd.cuh); the model takes them under
 ``bf16_matmul``.
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
@@ -2155,99 +2153,18 @@ class _FlashBiasedBwdKeyCompactKernel(_FlashBiasedBackwardCompactKernel):
         return dk, dv
 
 
-class _FlashBiasedBackwardCompactBf16Kernel(
-        _FlashBiasedBackwardCompactKernel):
-    """Shared checks of the bf16 forms of B6c, B7a c and B7b c: three
-    tile kernels (csrc/flash_biased_bwd_compact_bf16.cu, over the
-    templates of csrc/flash_biased_bwd.cuh)."""
-    source = "flash_biased_bwd_compact_bf16"
+class _FlashBiasedBwdRowCompactBf16Kernel(_FlashBiasedBwdRowCompactKernel):
+    """The compact row walk's bf16 form (B6c and B7a c bf16),
+    ``tagan_flash_biased_bwd_row_compact_bf16``."""
+    name = "flash_biased_bwd_row_compact_bf16"
+    symbol = "tagan_flash_biased_bwd_row_compact_bf16"
 
 
-class _FlashBiasedBwdPreCompactBf16Kernel(
-        _FlashBiasedBackwardCompactBf16Kernel):
-    """B6c's bf16 form, ``tagan_flash_biased_bwd_pre_compact_bf16``: B6
-    over the compact store, (delta1 [G, H, N], dB f32[G, S, 64, 64] in
-    the store's slots) over the forward walk (jlist, jcount, jslot). dB
-    is allocated zeroed and written on the walked slots, every pair (0
-    off the mask), so slots no walk visits read 0. Deterministic."""
-    name = "flash_biased_bwd_pre_compact_bf16"
-    symbol = "tagan_flash_biased_bwd_pre_compact_bf16"
-    argtypes = (_P,) * 16 + (_I,) * 10 + (_F, _I, _U, _F)
-
-    def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
-                 jlist, jcount, jslot, metric: str, scale, seeds,
-                 dropout_rate: float):
-        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2))
-        dev, (G, H, N, D, Dv, n_i, W, S, packed) = self._check(
-            q, k, v, store, bias_store, do, rows, jlist, jcount, jslot,
-            scale, seeds)
-        delta1 = torch.empty((G, H, N), dtype=torch.float32, device=dev)
-        dbias = torch.zeros((G, S, BLOCK_M, BLOCK_N), dtype=torch.float32,
-                            device=dev)
-        self._launch(dev, *(t.data_ptr() for t in (
-            q, k, v, store, bias_store, do, lse1, lse2, delta2, jlist, jcount,
-            jslot, scale, seeds, delta1, dbias)), G, H, N, D, Dv, n_i, W, S,
-            packed, MXU_METRICS.index(metric), math.sqrt(D),
-            *_dropout_args(dropout_rate))
-        return delta1, dbias
-
-
-class _FlashBiasedBwdDqCompactBf16Kernel(
-        _FlashBiasedBackwardCompactBf16Kernel):
-    """B7a c's bf16 form, ``tagan_flash_biased_bwd_dq_compact_bf16``: B7a
-    over the compact store and the bias store, dq (and dscale) over the
-    forward walk, given delta1 (the hybrid band takes the union's).
-    Deterministic."""
-    name = "flash_biased_bwd_dq_compact_bf16"
-    symbol = "tagan_flash_biased_bwd_dq_compact_bf16"
-    argtypes = (_P,) * 17 + (_I,) * 10 + (_F, _I, _U, _F, _I)
-
-    def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
-                 delta1, jlist, jcount, jslot, metric: str, scale, seeds,
-                 dropout_rate: float, need_dscale: bool):
-        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
-                ("delta1", delta1))
-        dev, (G, H, N, D, Dv, n_i, W, S, packed) = self._check(
-            q, k, v, store, bias_store, do, rows, jlist, jcount, jslot,
-            scale, seeds)
-        dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
-        part = torch.empty((G, H, n_i) if need_dscale else (1,),
-                           dtype=torch.float32, device=dev)
-        self._launch(dev, *(t.data_ptr() for t in (
-            q, k, v, store, bias_store, do, lse1, lse2, delta2, delta1, jlist,
-            jcount, jslot, scale, seeds, dq, part)), G, H, N, D, Dv, n_i, W,
-            S, packed, MXU_METRICS.index(metric), math.sqrt(D),
-            *_dropout_args(dropout_rate), int(need_dscale))
-        return dq, (part.sum((0, 2)) if need_dscale else None)
-
-
-class _FlashBiasedBwdDkvCompactBf16Kernel(
-        _FlashBiasedBackwardCompactBf16Kernel):
-    """B7b c's bf16 form, ``tagan_flash_biased_bwd_dkv_compact_bf16``: B7b
-    over the compact store and the bias store, dk and dv over the
-    transposed walk (ilist, icount, islot), whose slots name the same
-    tiles of both stores (row = query, column = key), given delta1.
-    Deterministic."""
-    name = "flash_biased_bwd_dkv_compact_bf16"
-    symbol = "tagan_flash_biased_bwd_dkv_compact_bf16"
-    argtypes = (_P,) * 17 + (_I,) * 10 + (_F, _I, _U, _F)
-
-    def __call__(self, q, k, v, store, bias_store, do, lse1, lse2, delta2,
-                 delta1, ilist, icount, islot, metric: str, scale, seeds,
-                 dropout_rate: float):
-        rows = (("lse1", lse1), ("lse2", lse2), ("delta2", delta2),
-                ("delta1", delta1))
-        dev, (G, H, N, D, Dv, n_j, W, S, packed) = self._check(
-            q, k, v, store, bias_store, do, rows, ilist, icount, islot,
-            scale, seeds)
-        dk = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
-        dv = torch.empty((G, H, N, Dv), dtype=torch.float32, device=dev)
-        self._launch(dev, *(t.data_ptr() for t in (
-            q, k, v, store, bias_store, do, lse1, lse2, delta2, delta1, ilist,
-            icount, islot, scale, seeds, dk, dv)), G, H, N, D, Dv, n_j, W, S,
-            packed, MXU_METRICS.index(metric), math.sqrt(D),
-            *_dropout_args(dropout_rate))
-        return dk, dv
+class _FlashBiasedBwdKeyCompactBf16Kernel(_FlashBiasedBwdKeyCompactKernel):
+    """The compact key walk's bf16 form (B7b c bf16),
+    ``tagan_flash_biased_bwd_key_compact_bf16``."""
+    name = "flash_biased_bwd_key_compact_bf16"
+    symbol = "tagan_flash_biased_bwd_key_compact_bf16"
 
 
 class _FlashLse1CompactBf16Kernel(_FlashLse1CompactKernel):
@@ -2292,11 +2209,10 @@ flash_geometric_bwd_dq_compact_bf16_kernel = _FlashBwdDqCompactBf16Kernel()
 flash_geometric_bwd_dkv_compact_bf16_kernel = _FlashBwdDkvCompactBf16Kernel()
 flash_lse1_compact_bf16_kernel = _FlashLse1CompactBf16Kernel()
 flash_biased_fwd_compact_bf16_kernel = _FlashBiasedCompactBf16Kernel()
-flash_biased_bwd_pre_compact_bf16_kernel = \
-    _FlashBiasedBwdPreCompactBf16Kernel()
-flash_biased_bwd_dq_compact_bf16_kernel = _FlashBiasedBwdDqCompactBf16Kernel()
-flash_biased_bwd_dkv_compact_bf16_kernel = \
-    _FlashBiasedBwdDkvCompactBf16Kernel()
+flash_biased_bwd_row_compact_bf16_kernel = \
+    _FlashBiasedBwdRowCompactBf16Kernel()
+flash_biased_bwd_key_compact_bf16_kernel = \
+    _FlashBiasedBwdKeyCompactBf16Kernel()
 KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dq_kernel, flash_geometric_bwd_dkv_kernel,
            flash_lse1_kernel, flash_biased_fwd_kernel,
@@ -2319,9 +2235,8 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
            flash_geometric_bwd_dkv_compact_bf16_kernel,
            flash_lse1_compact_bf16_kernel,
            flash_biased_fwd_compact_bf16_kernel,
-           flash_biased_bwd_pre_compact_bf16_kernel,
-           flash_biased_bwd_dq_compact_bf16_kernel,
-           flash_biased_bwd_dkv_compact_bf16_kernel)
+           flash_biased_bwd_row_compact_bf16_kernel,
+           flash_biased_bwd_key_compact_bf16_kernel)
 
 # The backward the picker takes on CUDA when ``fused`` is None: B2, in
 # both precisions a pair walk over the forward plan that computes only the
@@ -2893,17 +2808,17 @@ def _biased_backward_compact(q, k, v, store, bias_store, do, lse1, lse2,
     compact store, given the row statistics lse1, lse2 and delta2
     [G, H, N]. delta1 is B6c's row sums plus ``delta1_rest`` [G, H, N]
     where given (the hybrid band adds the residual's, so that B7a c and
-    B7b c take the union's). CUDA tensors: in fp32 the two pair walks,
-    the row walk (B6c and B7a c: delta1, dB, dq, dscale, the residual's
-    delta1 added between its two passes) then the key walk (B7b c: dk,
-    dv), both free of atomics; with ``bf16`` the bf16 forms' three tile
-    kernels, B6c then B7a c and B7b c. CPU tensors: the compact plain
-    parts, with ``delta1_rest`` added between B6c's and B7a c's. dB
-    f32[G, S, 64, 64] is the TPU kernels' contract, read at the mask's
-    pairs: the row walk sets it there only, the tile kernels and the
-    plain parts on every pair of the walked slots (0 off the mask and
-    in slots the walk does not visit). Raises ValueError without the
-    transposed walk ``plan_t``, which B7b c walks."""
+    B7b c take the union's). CUDA tensors: the two pair walks, in both
+    precisions (``bf16`` their bf16 forms), the row walk (B6c and B7a c:
+    delta1, dB, dq, dscale, the residual's delta1 added between its two
+    passes) then the key walk (B7b c: dk, dv), both free of atomics. CPU
+    tensors: the compact plain parts, with ``delta1_rest`` added between
+    B6c's and B7a c's. dB f32[G, S, 64, 64] is the TPU kernels' contract,
+    read at the mask's pairs: the walks set it there only and leave every
+    other entry unset (`torch.empty`); the plain parts set every pair of
+    the walked slots (0 off the mask and in slots the walk does not
+    visit). Raises ValueError without the transposed walk ``plan_t``,
+    which B7b c walks."""
     _need_transposed(plan_t, "B7b c")
     rows = (do, lse1, lse2, delta2)
     if q.device.type == "cpu":
@@ -2917,26 +2832,16 @@ def _biased_backward_compact(q, k, v, store, bias_store, do, lse1, lse2,
                                       seeds, delta1, need_dscale,
                                       ("dq", "dkv"), bf16)
         return r["dq"], r["dk"], r["dv"], dbias, r["dscale"], delta1
-    if not bf16:
-        delta1, dbias, dq, dscale = flash_biased_bwd_row_compact_kernel(
-            q, k, v, store, bias_store, *rows,
-            None if delta1_rest is None else delta1_rest.contiguous(),
-            *plan, metric, scale, seeds, dropout_rate, need_dscale)
-        dk, dv = flash_biased_bwd_key_compact_kernel(
-            q, k, v, store, bias_store, *rows, delta1, *plan_t, metric,
-            scale, seeds, dropout_rate)
-        return dq, dk, dv, dbias, dscale, delta1
-    delta1, dbias = flash_biased_bwd_pre_compact_bf16_kernel(
-        q, k, v, store, bias_store, *rows, *plan, metric, scale, seeds,
-        dropout_rate)
-    if delta1_rest is not None:
-        delta1 = (delta1 + delta1_rest).contiguous()
-    dq, dscale = flash_biased_bwd_dq_compact_bf16_kernel(
-        q, k, v, store, bias_store, *rows, delta1, *plan, metric, scale,
-        seeds, dropout_rate, need_dscale)
-    dk, dv = flash_biased_bwd_dkv_compact_bf16_kernel(
-        q, k, v, store, bias_store, *rows, delta1, *plan_t, metric, scale,
-        seeds, dropout_rate)
+    row_k, key_k = ((flash_biased_bwd_row_compact_bf16_kernel,
+                     flash_biased_bwd_key_compact_bf16_kernel) if bf16 else
+                    (flash_biased_bwd_row_compact_kernel,
+                     flash_biased_bwd_key_compact_kernel))
+    delta1, dbias, dq, dscale = row_k(
+        q, k, v, store, bias_store, *rows,
+        None if delta1_rest is None else delta1_rest.contiguous(), *plan,
+        metric, scale, seeds, dropout_rate, need_dscale)
+    dk, dv = key_k(q, k, v, store, bias_store, *rows, delta1, *plan_t,
+                   metric, scale, seeds, dropout_rate)
     return dq, dk, dv, dbias, dscale, delta1
 
 

@@ -28,9 +28,10 @@ Backward, given d(out) only, with union statistics throughout:
     band       B6c: delta1_band and dB in the store's slots, set at the
                mask's pairs (the only entries the bias store's backward
                gathers: band edges); delta1_U = delta1_band + delta1_res;
-               B7a c (dq, dscale) and B7b c (dk, dv) with delta1_U. In
-               fp32 on CUDA, B6c and B7a c are one row walk, which adds
-               delta1_res between its two passes, and B7b c a key walk
+               B7a c (dq, dscale) and B7b c (dk, dv) with delta1_U. On
+               CUDA, in both precisions, B6c and B7a c are one row walk,
+               which adds delta1_res between its two passes, and B7b c a
+               key walk
     res finish ds = w1 (dw1 - delta1_U): dq, dk, dv and dscale of the
                residual edges by segment sums over edge_q and edge_k; the
                residual bias's gradient is dz summed over the heads
@@ -226,14 +227,14 @@ class _HybridBiasedAttention(torch.autograd.Function):
     package's ``_hybrid_biased`` custom_vjp): B4c, the residual lse1,
     B5c, the residual partial and the merge forward; B6c, B7a c and
     B7b c with the residual's two sides backward, all with union
-    statistics (the compact plain parts on the CPU; in fp32 on CUDA the
-    compact row and key walks); ``bf16`` takes the band kernels' bf16
-    forms. Returns out; the residual's keep factors (kap1, kap2) are the
-    forward's. dscale is formed only when the scale requires grad, dB and
-    the residual bias's gradient only when theirs do. dB is the bias
-    store's cotangent at the mask's pairs; the walks leave its other
-    entries unset, and `hybrid_bias_store`'s backward reads it at band
-    edges only."""
+    statistics (the compact plain parts on the CPU; on CUDA the compact
+    row and key walks, in both precisions); ``bf16`` takes the band
+    kernels' bf16 forms. Returns out; the residual's keep factors (kap1,
+    kap2) are the forward's. dscale is formed only when the scale
+    requires grad, dB and the residual bias's gradient only when theirs
+    do. dB is the bias store's cotangent at the mask's pairs; the walks
+    leave its other entries unset, and `hybrid_bias_store`'s backward
+    reads it at band edges only."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, bias_store, res_bias, store, jlist,

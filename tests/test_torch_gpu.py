@@ -8,6 +8,8 @@ machine without JAX, skipping the JAX-side conftest:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1472,14 +1474,14 @@ def test_bf16_trainer_step_on_gpu_matches_cpu(fused, cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["lse1", "fwd", "pre", "dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["lse1", "fwd", "row", "key"])
 def test_bf16_refused_before_launch(kernel, cuda):
     """Every bf16 form has an entry now, and the edge-feature hybrid bf16
     model builds on the card; what is refused before any launch is a bad
     walk: a jslot (islot) past the store raises ValueError on the host at
     each compact edge-biased bf16 entry (B4c and B5c through their public
-    entries, B6c, B7a c and B7b c at their wrappers), and no kernel is
-    launched."""
+    entries, the bf16 row walk (B6c and B7a c) and key walk (B7b c) at
+    their wrappers), and no kernel is launched."""
     (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
      lse2, delta2, _) = (
         t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
@@ -1498,12 +1500,10 @@ def test_bf16_refused_before_launch(kernel, cuda):
         "fwd": lambda: FG.flash_biased_fwd_compact(
             q, k, v, store, bias_store, lse1, jl, jc, js,
             metric="dot_product", bf16=True),
-        "pre": lambda: FG.flash_biased_bwd_pre_compact_bf16_kernel(
-            *common, jl, jc, js, "dot_product", scale, seeds, 0.0),
-        "dq": lambda: FG.flash_biased_bwd_dq_compact_bf16_kernel(
+        "row": lambda: FG.flash_biased_bwd_row_compact_bf16_kernel(
             *common, lse1, jl, jc, js, "dot_product", scale, seeds, 0.0,
             False),
-        "dkv": lambda: FG.flash_biased_bwd_dkv_compact_bf16_kernel(
+        "key": lambda: FG.flash_biased_bwd_key_compact_bf16_kernel(
             *common, lse1, il, ic, isl, "dot_product", scale, seeds, 0.0)}
     before = {k_.name: k_.launches for k_ in FG.KERNELS}
     with pytest.raises(ValueError, match="jslot"):
@@ -1858,28 +1858,54 @@ def test_edge_bf16_trainer_step_on_gpu_matches_cpu(cuda):
 BF16_QK_SCALE = 0.5
 COMPACT_BIASED_BF16 = (FG.flash_lse1_compact_bf16_kernel,
                        FG.flash_biased_fwd_compact_bf16_kernel,
-                       FG.flash_biased_bwd_pre_compact_bf16_kernel,
-                       FG.flash_biased_bwd_dq_compact_bf16_kernel,
-                       FG.flash_biased_bwd_dkv_compact_bf16_kernel)
+                       FG.flash_biased_bwd_row_compact_bf16_kernel,
+                       FG.flash_biased_bwd_key_compact_bf16_kernel)
+
+
+@contextlib.contextmanager
+def nan_empty():
+    """``torch.empty`` returning NaN-filled float tensors, so that an
+    output entry a kernel leaves unset reads NaN (chip_smoke.py's 2k
+    takes it too)."""
+    real = torch.empty
+
+    def empty(*a, **kw):
+        t = real(*a, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+    torch.empty = empty
+    try:
+        yield
+    finally:
+        torch.empty = real
+
+
+def _compact_biased_bf16_inputs(cuda, G, H, N, D, Dv, metric, pack, rate,
+                                seed=0, band=False):
+    return tuple(
+        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
+        for t in _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack,
+                                            rate, seed, BF16_QK_SCALE,
+                                            band=band))
 
 
 def _compact_biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
-                                  seed=0):
+                                  seed=0, band=False):
     """B4c and B5c in their bf16 forms through the public entries
     (``flash_lse1_compact``, ``flash_biased_fwd_compact`` with bf16=True),
-    then B6c, B7a c and B7b c (``_biased_backward_compact`` with bf16, on
-    `_compact_biased_bwd_inputs`' union-like statistics), against the
-    compact plain bf16 versions under the bf16 gates, the plain fp32
-    versions the witness: lse1, out and lse2 (dead rows exactly), delta1,
-    dB at the mask's pairs (0 elsewhere in the store, the unvisited slots
-    included), dq (0 on dead rows), dk and dv (0 on the key tile with
-    icount = 0) and dscale (the max gate alone); each of the five
-    entries launched once and nothing else."""
+    then the bf16 row walk (B6c and B7a c, the residual's delta1 added
+    between its passes) and key walk (B7b c) (``_biased_backward_compact``
+    with bf16, on `_compact_biased_bwd_inputs`' union-like statistics, at
+    `band_mask`'s cases with ``band``), against the compact plain bf16
+    versions under the bf16 gates, the plain fp32 versions the witness:
+    lse1, out and lse2 (dead rows exactly), delta1, dB at the store's
+    pairs, dq (0 on dead rows), dk and dv (0 on the key tile no row
+    reaches) and dscale (the max gate alone); the backward's outputs
+    allocated NaN-filled: every entry set but dB's off the store's pairs,
+    which stay NaN (the walks write and read nothing there); each of the
+    four entries launched once and nothing else."""
     (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
-     lse2, delta2, d1_rest) = (
-        t.to(cuda) if torch.is_tensor(t) else tuple(p.to(cuda) for p in t)
-        for t in _compact_biased_bwd_inputs(G, H, N, D, Dv, metric, pack,
-                                            rate, seed, BF16_QK_SCALE))
+     lse2, delta2, d1_rest) = _compact_biased_bf16_inputs(
+        cuda, G, H, N, D, Dv, metric, pack, rate, seed, band)
     need = metric in FG.SCALED_METRICS
     before = {k_.name: k_.launches for k_ in FG.KERNELS}
     l1 = FG.flash_lse1_compact(q, k, store, *plan, metric=metric,
@@ -1887,9 +1913,10 @@ def _compact_biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
     out, l2 = FG.flash_biased_fwd_compact(
         q, k, v, store, bias_store, lse1, *plan, metric=metric, scale=scale,
         dropout_rate=rate, seeds=seeds, bf16=True)
-    got = FG._biased_backward_compact(q, k, v, store, bias_store, do, lse1,
-                                      lse2, delta2, plan, plan_t, metric,
-                                      scale, rate, seeds, need, d1_rest, True)
+    with nan_empty():
+        got = FG._biased_backward_compact(
+            q, k, v, store, bias_store, do, lse1, lse2, delta2, plan, plan_t,
+            metric, scale, rate, seeds, need, d1_rest, True)
     torch.cuda.synchronize()
     launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
     expect = {k_.name: 0 for k_ in FG.KERNELS}
@@ -1920,10 +1947,12 @@ def _compact_biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
     _bf16_gates(out[~dead], p_out[~dead], f32[1][~dead])
     _bf16_gates(l2[~dead], p_l2[~dead], f32[2][~dead], witness=False)
     dq, dk, dv, db, dsc, d1 = got
-    on = FG.compact_values(mask, mask != 0)
+    on = FG.store_pairs(store)
+    assert torch.isnan(db[~on]).all()
+    for t in (d1, dq, dk, dv) + ((dsc,) if need else ()):
+        assert torch.isfinite(t).all()
     _bf16_gates(d1, p_d1, f32[3])
     _bf16_gates(db[on], p_db[on], f32[4][on])
-    assert torch.all(db[~on] == 0)
     for g, w, f in ((dq, p_dq, f32[5]), (dk, p_dk, f32[7]),
                     (dv, p_dv, f32[8])):
         _bf16_gates(g, w, f)
@@ -1932,8 +1961,10 @@ def _compact_biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
     else:
         assert dsc is None
     assert torch.all(dq[dead] == 0)
-    assert torch.all(dk[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
-    assert torch.all(dv[0, :, FG.BLOCK_N:2 * FG.BLOCK_N] == 0)
+    empty = slice(3 * FG.BLOCK_N, 4 * FG.BLOCK_N) if band \
+        else slice(FG.BLOCK_N, 2 * FG.BLOCK_N)
+    assert torch.all(dk[0, :, empty] == 0)
+    assert torch.all(dv[0, :, empty] == 0)
 
 
 @pytest.mark.gpu
@@ -1941,13 +1972,27 @@ def _compact_biased_bf16_vs_plain(cuda, G, H, N, D, Dv, metric, rate, pack,
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("metric", FG.MXU_METRICS)
 def test_compact_biased_bf16_kernels_match_plain(metric, rate, pack, cuda):
-    """The bf16 forms of B4c, B5c, B6c, B7a c and B7b c, bit and int8
-    stores: N=150 (not a tile multiple), D != Dv, dead rows (lse2 the
-    merge's NEG_INF), a row tile with jcount = 0, a key tile with
-    icount = 0, unvisited slots, per-head scales with dscale, both
+    """The bf16 forms of B4c, B5c and the compact row and key walks, bit
+    and int8 stores: N=150 (not a tile multiple), D != Dv, dead rows
+    (lse2 the merge's NEG_INF), a row tile with jcount = 0, a key tile
+    with icount = 0, unvisited slots, per-head scales with dscale, both
     dropouts from per-snapshot seed pairs."""
-    _compact_biased_bf16_vs_plain(cuda, 2, 3, 150, 16, 8, metric, rate,
-                                  pack)
+    _compact_biased_bf16_vs_plain(cuda, 2, 3, 150, 16, 8,
+                                  metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_biased_bf16_walks_band(metric, rate, pack, cuda):
+    """The bf16 walks at `band_mask`'s cases over `band_compact`'s walks:
+    N=330, ~1 pair a row a walked tile, a whole tile, a one-pair tile, a
+    walked slot with no bit, walk entries past the counts, a key tile no
+    row reaches, rows past 128 keys (the row walk walks its slots again),
+    dead rows (dO 0 there), both stores, both dropouts."""
+    _compact_biased_bf16_vs_plain(cuda, 2, 4, 330, 16, 16,
+                                  metric, rate, pack, seed=3, band=True)
 
 
 @pytest.mark.gpu
@@ -1956,10 +2001,85 @@ def test_compact_biased_bf16_kernels_match_plain(metric, rate, pack, cuda):
                                   (128, 128)])
 def test_compact_biased_bf16_kernel_head_dims(D, Dv, pack, cuda):
     """Head dims whose sqrt is not a power of two, D != Dv, and the
-    widest, (128, 128), where the compact backward's bias tile and
-    tile-row words sit beside the widest tiles in shared memory."""
-    _compact_biased_bf16_vs_plain(cuda, 1, 2, 200, D, Dv, "gaussian_kernel",
-                                  0.1, pack, seed=1)
+    widest, (128, 128), where the walks' rounded q and do (row walk) and
+    k and v (key walk) and their accumulators fill shared memory, at the
+    band's cases."""
+    _compact_biased_bf16_vs_plain(cuda, 1, 2, 330, D, Dv,
+                                  "gaussian_kernel", 0.1, pack, seed=1,
+                                  band=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 8, 40])
+def test_compact_biased_bf16_fold(H, cuda):
+    """Folds of 1, 8 and 40 heads at the band's cases (past 32 heads the
+    bf16 row walk launches once per head group, each adding into dB)."""
+    _compact_biased_bf16_vs_plain(cuda, 2, H, 330, 16, 16,
+                                  "gaussian_kernel", 0.1, True, seed=5,
+                                  band=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
+                                         ("gaussian_kernel", 0.1)])
+def test_compact_biased_bf16_deterministic(metric, rate, pack, cuda):
+    """dq, dk, dv, dB (at the store's pairs), delta1 and dscale of the two
+    bf16 walks are bit-identical over 20 repeated calls: neither sums with
+    atomics."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, d1_rest) = _compact_biased_bf16_inputs(
+        cuda, 2, 4, 1008, 16, 16, metric, pack, rate, 3, band=True)
+    need = metric in FG.SCALED_METRICS
+    on = FG.store_pairs(store)
+    first = None
+    for _ in range(20):
+        got = FG._biased_backward_compact(
+            q, k, v, store, bias_store, do, lse1, lse2, delta2, plan, plan_t,
+            metric, scale, rate, seeds, need, d1_rest, True)
+        got = [t.clone() for t in got[:3]] + [got[3][on]] + [
+            t.clone() for t in got[4:] if t is not None]
+        if first is None:
+            first = got
+        for a, b in zip(got, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["jslot", "jcount", "islot", "ilist"])
+def test_compact_biased_bf16_bad_plan_raises_before_launch(fault, cuda):
+    """The bf16 walks' wrappers check the walk's values: a jslot or islot
+    past the store, a count past the walk's width or a tile past N raises
+    ValueError on the host, and no kernel is launched."""
+    (q, k, v, mask, store, bias_store, plan, plan_t, scale, seeds, do, lse1,
+     lse2, delta2, _) = _compact_biased_bf16_inputs(
+        cuda, 1, 2, 150, 16, 16, "dot_product", True, 0.0)
+    jl, jc, js = (p.clone() for p in plan)
+    il, ic, isl = (p.clone() for p in plan_t)
+    S = store.shape[1]
+    if fault == "jslot":
+        js[0, 0, 0] = S
+    elif fault == "jcount":
+        jc[0, 0] = jl.shape[-1] + 1
+    elif fault == "islot":
+        isl[0, 0, 0] = -1
+    else:
+        il[0, 0, 0] = 3
+    common = (q, k, v, store, bias_store, do, lse1, lse2, delta2)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    calls = [lambda: FG.flash_biased_bwd_key_compact_bf16_kernel(
+        *common, lse1, il, ic, isl, "dot_product", scale, seeds, 0.0)] \
+        if fault in ("islot", "ilist") else [
+        lambda: FG.flash_biased_bwd_row_compact_bf16_kernel(
+            *common, None, jl, jc, js, "dot_product", scale, seeds, 0.0,
+            False),
+        lambda: FG._biased_backward_compact(
+            *common, (jl, jc, js), plan_t, "dot_product", scale, 0.0, seeds,
+            False, lse1, True)]
+    for call in calls:
+        with pytest.raises(ValueError):
+            call()
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
 
 
 @pytest.mark.gpu

@@ -31,9 +31,14 @@ Phases, in order; any failure raises and exits non-zero:
    cases called twice, bit for bit; (2e) the compact-store forward
    kernels of the hybrid backend, B1c, B4c and B5c, against their compact
    plain versions on 2c's grid, with the bit and the int8 store (a row
-   tile with jcount = 0 among the dead rows); (2f) the compact-store
-   backward kernels B3a c (dq, dscale) and B3b c (dk, dv) against the
-   compact plain backward on 2e's grid with an lse cotangent, dead rows
+   tile with jcount = 0 among the dead rows), and B5c (the compact
+   forward pair walk) at `tests/test_torch_gpu.py::band_mask`'s cases
+   over `band_compact`'s walks (every metric, dropouts off and on, both
+   stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
+   folds of 1, 4 and 33 heads; its outputs allocated NaN-filled and set
+   everywhere, two cases called 20 times bit for bit); (2f) the
+   compact-store backward kernels B3a c (dq, dscale) and B3b c (dk,
+   dv) against the compact plain backward on 2e's grid with an lse cotangent, dead rows
    and an empty key strip (icount = 0) exactly zero; (2g) the
    compact-store biased backward's fp32 pair walks, the row walk (B6c
    and B7a c: delta1, dB at the store's pairs, dq, dscale) and the key
@@ -68,8 +73,9 @@ Phases, in order; any failure raises and exits non-zero:
    exactly 0), the backward's outputs allocated NaN-filled (every entry
    set but dB's off the store's pairs, which stay NaN), one band case
    20 times bit for bit; the walks given a zero delta1_rest failing the
-   gates (the witness); and a jslot past the store raising before any
-   launch at the four entries;
+   gates (the witness); a jslot past the store raising before any
+   launch at the four entries; and B5c bf16's walk at 2e's band cases
+   under the bf16 gates;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -152,9 +158,9 @@ Phases, in order; any failure raises and exits non-zero:
    against the walks' there, recorded), and their bounds; the walks
    over 6b's 8 folded snapshots are timed in 6b;
    (5d) B1c, B4c and B5c at one 131K snapshot of 3c/3d against their
-   plain versions and bounds, compiled ``flex_attention`` under a block
-   mask built from the compact plan (a bit-store mask_mod) at the
-   scaled-dot metric as the library yardstick (held against the kernels
+   plain versions and bounds (and each one's share of its bound),
+   compiled ``flex_attention`` under a block mask built from the compact
+   plan (a bit-store mask_mod) at the scaled-dot metric as the library yardstick (held against the kernels
    at that metric; null with the reason if it does not build), and the
    csr ``edge_attention`` over the layer's whole edge set; (5e) B3a c,
    B3b c and the two together at one 131K snapshot of 6c against the
@@ -3380,6 +3386,41 @@ def compact_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
     return err
 
 
+def compact_fwd_walk_runs(FG):
+    """The band cases at which 2e and 2k hold B5c's compact forward walk
+    (`tests.test_torch_gpu.compact_fwd_walk_check`'s arguments after the
+    precision): every metric with the dropouts off and on, both stores;
+    (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), both
+    stores; folds of 1, 4 and 33 heads; and two cases called 20 times,
+    bit for bit."""
+    runs = [(2, 4, 330, 16, 16, metric, rate, pack)
+            for pack in (True, False) for metric in FG.MXU_METRICS
+            for rate in (0.0, 0.1)]
+    runs += [(1, 2, 330, D, Dv, "gaussian_kernel", 0.1, pack, 1)
+             for pack in (True, False)
+             for D, Dv in ((16, 16), (8, 8), (12, 12), (7, 3), (128, 128))]
+    runs += [(2, H, 330, 16, 16, "gaussian_kernel", 0.1, True, 5)
+             for H in (1, 4, 33)]
+    runs += [(2, 4, 1008, 16, 16, "gaussian_kernel", 0.1, pack, 3, 20)
+             for pack in (True, False)]
+    return runs
+
+
+def phase_compact_fwd_walk(FG, bf16):
+    """B5c's compact forward pair walk (``bf16``: its bf16 form) at
+    `compact_fwd_walk_runs`' band cases, outputs allocated NaN-filled and
+    set everywhere, dead rows exactly 0 and LSE_DEAD, one launch each,
+    against the compact plain version: within TOL, or under the bf16
+    gates. Returns (cases, worst error)."""
+    from tests.test_torch_gpu import compact_fwd_walk_check
+    errs = [compact_fwd_walk_check(DEV, bf16, *run)
+            for run in compact_fwd_walk_runs(FG)]
+    if bf16:
+        return len(errs), tuple(max(e[i] for e in errs) if i < 3 else
+                                min(e[i] for e in errs) for i in range(4))
+    return len(errs), max(errs)
+
+
 def phase_small_compact(FG):
     errs = []
     for pack in (True, False):
@@ -3391,8 +3432,14 @@ def phase_small_compact(FG):
             errs.append(compact_vs_plain(FG, 2, 2, 200, D, Dv,
                                          "gaussian_kernel", 0.1, pack, 1))
     out = {name: max(e[name] for e in errs) for name in ("B1c", "B4c", "B5c")}
+    n_band, band_err = phase_compact_fwd_walk(FG, False)
+    out["B5c"] = max(out["B5c"], band_err)
     log(f"[2e] B1c, B4c and B5c vs their compact plain versions, bit and "
-        f"int8 stores: {len(errs)} cases; max abs err {out} (tol {TOL})")
+        f"int8 stores: {len(errs)} cases; B5c's walk at the band's cases "
+        f"(every metric, dropouts off and on, head dims, folds of 1, 4 and "
+        f"33 heads, outputs allocated NaN-filled, two cases 20 times bit "
+        f"for bit): {n_band} cases, max abs err {band_err:.3e}; max abs err "
+        f"{out} (tol {TOL})")
     return out
 
 
@@ -4126,11 +4173,13 @@ def phase_times_hybrid(FG, plain_args, edge_args):
     for name in ("B1c", "B4c", "B5c"):
         r = res[name]
         r["library_ms"] = lib[name]
+        r["bound_share"] = r["bound_ms"] / min(r["ms"])
         log(f"[5d] {name} one snapshot of N={N}: ms {r['ms'][0]:.4f} "
             f"{r['ms'][1]:.4f} (scaled-dot {r['sdp_ms']:.4f}); plain ms "
             f"{r['plain_ms'][0]:.4f} {r['plain_ms'][1]:.4f}; library "
             f"{r['library_ms']}; bound {r['bound_ms']:.5f} ms by "
-            f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops)")
+            f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops), "
+            f"{r['bound_share']:.4f} of it reached")
     log(f"[5d] {pairs} valid band pairs ({pairs_e} on the edge-feature "
         f"snapshot) on {walked} walked tiles per head; csr edge_attention "
         f"over all {res['csr_edges']} edges ms {csr_ms[0]:.4f} "
@@ -5024,6 +5073,8 @@ def phase_small_compact_biased_bf16(FG):
     if refused != 4 or counts(FG) != before:
         raise AssertionError(f"a bad jslot: {refused} of 4 entries refused "
                              f"it; launches {counts(FG)} vs {before}")
+    n_band, band = phase_compact_fwd_walk(FG, True)
+    worst["B5c"] = max(worst["B5c"], band)
     log(f"[2k] bf16 forms of B4c, B5c, the row walk (B6c + B7a c) and the "
         f"key walk (B7b c) vs the compact plain bf16 versions, bit and int8 "
         f"stores, union statistics with a residual delta1, the band's "
@@ -5036,7 +5087,10 @@ def phase_small_compact_biased_bf16(FG):
         + f" (tol {BF16_MAX_TOL}, {BF16_MEAN_TOL}, witness {BF16_WITNESS}x);"
         f" given a zero delta1_rest the gates fail (bit, int8 store): "
         f"{[w[:160] for w in witness]}; a bad jslot raised before launch "
-        f"at all 4 entries")
+        f"at all 4 entries; B5c bf16's walk at the band's cases (every "
+        f"metric, dropouts off and on, head dims, folds of 1, 4 and 33 "
+        f"heads, outputs allocated NaN-filled, two cases 20 times bit for "
+        f"bit): {n_band} cases, worst {tuple(f'{x:.3e}' for x in band)}")
     return {n_: r[0] for n_, r in worst.items()}
 
 
@@ -6212,6 +6266,7 @@ def main() -> int:
             min(th[name]["ms"]), min(th[name]["plain_ms"]), plain_of,
             th[name], th[name]["library_ms"], src),
              csr_ms=min(th["csr_biased_ms" if name != "B1c" else "csr_ms"]),
+             bound_share=th[name]["bound_share"],
              library_of=("compiled flex_attention, BlockMask from the compact "
                          "plan, bit-store mask_mod, scaled-dot metric"
                          if lib["error"] is None else lib["error"]))
@@ -6221,8 +6276,8 @@ def main() -> int:
              "flash_geometric_forward_compact_plain"),
             ("B4c", FG.flash_lse1_compact_kernel, "flash_biased_fwd.cu",
              HB_SRC, 197, serve_hyb_edge, "flash_lse1_compact_plain"),
-            ("B5c", FG.flash_biased_fwd_compact_kernel, "flash_biased_fwd.cu",
-             HB_SRC, 236, serve_hyb_edge,
+            ("B5c", FG.flash_biased_fwd_compact_kernel,
+             "flash_pairwalk_fwd_compact.cu", HB_SRC, 236, serve_hyb_edge,
              "flash_biased_forward_compact_plain"))]
     # the compact backward: launches on the hybrid training path (6c),
     # times at one 131K snapshot (5e); the plain version forms dq, dk and
@@ -6396,21 +6451,24 @@ def main() -> int:
     lib16he = t16he["library"]
     kernels += [
         dict(kernel_record(
-            FG, kern, "flash_biased_fwd.cu", line,
+            FG, kern, source, line,
             serve_hyb_edge_bf16["launches"][kern.name],
             max(small_compact_biased_bf16[name],
                 serve_hyb_edge_bf16["full_err"]),
             min(t16he[name]["ms"]), t16he[name]["plain_ms"], plain_of,
             t16he[name], t16he[name]["library_ms"], HB_SRC),
              fp32_ms=min(t16he[name]["fp32_ms"]),
+             bound_share=t16he[name]["bound_share"],
              library_of=(
                  "compiled flex_attention on bf16 q, k, v, BlockMask from "
                  "the compact plan, scaled-dot metric, "
                  + ("lse only" if name == "B4c" else
                     "exp(s - lse1) + bias store")
                  if lib16he["error"] is None else lib16he["error"]))
-        for name, kern, line, plain_of in zip(
-            ("B4c", "B5c"), compact_biased_kernels(FG, True)[:2], (197, 236),
+        for name, kern, source, line, plain_of in zip(
+            ("B4c", "B5c"), compact_biased_kernels(FG, True)[:2],
+            ("flash_biased_fwd.cu", "flash_pairwalk_fwd_compact.cu"),
+            (197, 236),
             ("flash_lse1_compact_plain with bf16=True",
              "flash_biased_forward_compact_plain with bf16=True (walks the "
              "plan)"))]

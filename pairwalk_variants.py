@@ -2,17 +2,20 @@
 """Time the pair walks, B1 and B1 bf16
 (``tagan_torch/csrc/flash_pairwalk_fwd.cu``), B2 and B2 bf16
 (``flash_pairwalk_bwd.cu``), the biased backward's row walk and key
-walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), and their compact
+walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), their compact
 forms over the hybrid band's store, fp32 and bf16
-(``flash_pairwalk_biased_bwd_compact.cu``), against copies of their
+(``flash_pairwalk_biased_bwd_compact.cu``), and B5c's compact forward walk,
+fp32 and bf16 (``flash_pairwalk_fwd_compact.cu``), against copies of their
 sources with one design constant changed, on one NVIDIA GPU, to see what
 bounds them:
 
     python3 pairwalk_variants.py
 
 Each variant is the source, with the walks' headers
-(``flash_pairwalk.cuh``, and for the biased backward
-``flash_pairwalk_biased_bwd.cuh``) inlined, under one edit: the flush's gathers 1,
+(``flash_pairwalk.cuh``, for the forward walks ``flash_pairwalk_fwd.cuh``,
+for the biased backward ``flash_pairwalk_biased_bwd.cuh``, and for the
+compact walks ``flash_pairwalk_slots.cuh``) inlined, under one edit: the
+flush's gathers 1,
 2 or 4 entries a lane at a time (UNROLL; B1's walk takes 2, B2's 1), a
 2- or 8-stage mask ring (NST),
 the flush removed (the walk then only streams the mask and lists the
@@ -28,9 +31,10 @@ source into
 CUDA events, per snapshot, on uniform random graphs of 10,000 nodes:
 degree 16 (the model's) at one snapshot and over a 16-snapshot fold,
 degree 256, and a diagonal-only mask walked over every key tile. The
-compact walks take the flush's removal (the row walk then only walks its
-slots and lists each row's pairs, the key walk only copies the walked
-slots and lists each key's rows): they are timed on one snapshot of the
+compact walks take the flush's removal (the row walk and the forward walk
+then only walk their slots and list each row's pairs, the key walk only
+copies the walked slots and lists each key's rows): they are timed on one
+snapshot of the
 hybrid model's band (131,072 nodes, 16 edges a node, 95% of them within
 +-512 of their source, the band those within the 95% quantile of the
 distance; ``benchmarks/bench_partition_stress.py`` part C's graph), with
@@ -63,7 +67,7 @@ EDITS = {
         unroll1=("constexpr int UNROLL = 2;", "constexpr int UNROLL = 1;"),
         unroll4=("constexpr int UNROLL = 2;", "constexpr int UNROLL = 4;"),
         **NST, noflush=(
-            "    flush<kMode, kBf16>(a, it, sm.lists + rl * CAPR,\n"
+            "    flush<kMode, kBf16>(a, it, pairs, sm.lists + rl * CAPR,\n"
             "                        it.on ? sm.rowcnt[rl] : 0, zbuf);\n",
             "")),
     "flash_pairwalk_bwd": dict(
@@ -86,6 +90,9 @@ EDITS = {
                      "constexpr bool ROW_FLUSH = false;"),
         noflush_key=("constexpr bool KEY_FLUSH = true;",
                      "constexpr bool KEY_FLUSH = false;")),
+    "flash_pairwalk_fwd_compact": dict(
+        noflush=("constexpr bool FWD_FLUSH = true;",
+                 "constexpr bool FWD_FLUSH = false;")),
 }
 # the variants timed for each walk (all of its source's by default)
 WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
@@ -96,16 +103,22 @@ WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
                  "compact row walk": ("noflush_row",),
                  "compact row walk bf16": ("noflush_row",),
                  "compact key walk": ("noflush_key",),
-                 "compact key walk bf16": ("noflush_key",)}
+                 "compact key walk bf16": ("noflush_key",),
+                 "compact fwd walk": ("noflush",),
+                 "compact fwd walk bf16": ("noflush",)}
 COMPACT = ("compact row walk", "compact row walk bf16", "compact key walk",
-           "compact key walk bf16")
+           "compact key walk bf16", "compact fwd walk",
+           "compact fwd walk bf16")
 
 
 def inlined(src: str, csrc: Path) -> str:
-    """``src`` with the walks' headers inlined: the biased backward's
-    (``flash_pairwalk_biased_bwd.cuh``), where the source includes it,
-    and the walk's (``flash_pairwalk.cuh``), once."""
-    for header in ("flash_pairwalk_biased_bwd.cuh", "flash_pairwalk.cuh"):
+    """``src`` with the walks' headers inlined: the forward walks'
+    (``flash_pairwalk_fwd.cuh``), the biased backward's
+    (``flash_pairwalk_biased_bwd.cuh``) and the compact walks'
+    (``flash_pairwalk_slots.cuh``), where the source includes them, and
+    the walk's (``flash_pairwalk.cuh``), once."""
+    for header in ("flash_pairwalk_fwd.cuh", "flash_pairwalk_biased_bwd.cuh",
+                   "flash_pairwalk_slots.cuh", "flash_pairwalk.cuh"):
         text = (csrc / header).read_text().replace("#pragma once\n", "")
         inline = f'#include "{header}"'
         src = src.replace(inline, text, 1).replace(inline, "")
@@ -201,7 +214,10 @@ def main() -> int:
                  FG.flash_biased_bwd_row_compact_bf16_kernel,
              "compact key walk": FG.flash_biased_bwd_key_compact_kernel,
              "compact key walk bf16":
-                 FG.flash_biased_bwd_key_compact_bf16_kernel}
+                 FG.flash_biased_bwd_key_compact_bf16_kernel,
+             "compact fwd walk": FG.flash_biased_fwd_compact_kernel,
+             "compact fwd walk bf16":
+                 FG.flash_biased_fwd_compact_bf16_kernel}
     kernels = {w: {"base": kern} for w, kern in walks.items()}
     made = {}
     try:
@@ -281,7 +297,8 @@ def main() -> int:
 
 def compact_times(kernels, gen):
     """The compact walks and their variants on one snapshot of the band,
-    each precision's key walk on its own row walk's delta1."""
+    each precision's key walk on its own row walk's delta1, the forward
+    walk on B4c's lse1."""
     store, plan, plan_t = band_graph(7)
     S = store.shape[1]
     q, k, v, do = (0.5 * torch.randn(1, H, N_BAND, D, device="cuda",
@@ -297,9 +314,11 @@ def compact_times(kernels, gen):
                                             ones)
         out, lse2 = FG.flash_biased_fwd_compact_kernel(
             q, k, v, store, bias, lse1, *plan, "euclidean", ones, seeds, 0.0)
+        fwd = (q, k, v, store, bias, lse1, *plan, "euclidean", ones, seeds,
+               0.0)
         common = (q, k, v, store, bias, do, lse1, lse2, (do * out).sum(-1))
         row = (*common, rest, *plan, "euclidean", ones, seeds, 0.0, False)
-        args = {}
+        args = {"compact fwd walk": fwd, "compact fwd walk bf16": fwd}
         for prec in ("", " bf16"):
             d1 = kernels[f"compact row walk{prec}"]["base"](*row)[0]
             args[f"compact row walk{prec}"] = row

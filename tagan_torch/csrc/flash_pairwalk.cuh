@@ -2,6 +2,7 @@
 // B5 and their bf16 forms), flash_pairwalk_bwd.cu (B2 and B2's bf16 form)
 // and flash_pairwalk_biased_bwd.cu (its row walk, B6 and B7a in both
 // precisions); its cp.async helpers also serve the compact walks of
+// flash_pairwalk_slots.cuh, flash_pairwalk_fwd_compact.cu and
 // flash_pairwalk_biased_bwd_compact.cu.
 //
 // One warp walks R rows of one 64-row query tile of one snapshot's dense
@@ -97,6 +98,16 @@ struct WalkSmem {
   int* lists;       // [R][CAPR]
   int* rowcnt;      // [WARP]: entries of row r's list at a flush
   uint8_t* rest;
+};
+
+// The dense row walks' list entries: the key index itself; a pair's
+// bias lies at [g, i, j] of the bias [G, N, N]. A walk over another mask
+// source lists other entries and maps them through a policy of the same
+// shape (`CompactRowPairs`, flash_pairwalk_slots.cuh).
+struct DenseRowPairs {
+  size_t brow;            // (g * N + i) * N
+  __device__ __forceinline__ int index(int x) const { return x; }
+  __device__ __forceinline__ size_t bias(int x) const { return brow + x; }
 };
 
 // A warp's items: HG heads (all H up to 32) of R rows, R the largest power

@@ -12,7 +12,8 @@
 // walks list the index itself, with the bias [G, N, N] (`DenseRowPairs`,
 // `DenseKeyPairs`); the compact walks list (walk step, column in the tile)
 // and read the step's slot of the bias store [G, S, 64, 64]
-// (flash_pairwalk_biased_bwd_compact.cu).
+// (`CompactRowPairs`, flash_pairwalk_slots.cuh; `CompactKeyPairs`,
+// flash_pairwalk_biased_bwd_compact.cu).
 
 #pragma once
 
@@ -95,14 +96,8 @@ __device__ __forceinline__ Pair recompute(const Bwd& a, float qk, float qn,
   return p;
 }
 
-// The dense walks' list entries: the key (row) index; the bias is
-// [G, N, N].
-struct DenseRowPairs {
-  size_t brow;            // (g * N + i) * N
-  __device__ __forceinline__ int index(int x) const { return x; }
-  __device__ __forceinline__ size_t bias(int x) const { return brow + x; }
-};
-
+// The dense key walk's list entries: the row index; the bias is
+// [G, N, N] (the row walk's are `DenseRowPairs`, flash_pairwalk.cuh).
 struct DenseKeyPairs {
   size_t g_n;             // g * N
   int N, gc;

@@ -37,7 +37,8 @@
 // int8 store: reads its 64-byte row and puts the row's word there), reads
 // back only its own word and appends its set bits, ascending, to its row's
 // list in shared memory (CAPR entries a row: at the band's ~1 valid pair a
-// row and walked tile, the whole walk).
+// row and walked tile, the whole walk): the slot walk of
+// flash_pairwalk_slots.cuh, which the compact forward walk shares.
 //  Pass 1 (B6c) at every listed pair: w1, w2, dz and dw1, delta1 += w1 dw1
 //   in the lane; dB_ij = the row's HG lanes' dz summed in head order,
 //   stored once by the row's first lane, at the mask's pairs only (dB is
@@ -75,6 +76,7 @@
 // allocates nothing, returns the cudaError_t of the last launch.
 
 #include "flash_pairwalk_biased_bwd.cuh"
+#include "flash_pairwalk_slots.cuh"
 
 namespace {
 
@@ -85,65 +87,8 @@ using namespace tagan_pairwalk;
 constexpr bool ROW_FLUSH = true;
 constexpr bool KEY_FLUSH = true;
 
-// Bytes of a row's (a tile's) mask in the store.
-template <int kForm>
-__host__ __device__ constexpr int row_store_bytes() {
-  return kForm == COMPACT_BITS ? 8 : BN;
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-// The set bits of a 64-bit word, keeping only columns (rows) below `n`.
-__device__ __forceinline__ uint64_t below(uint64_t w, int n) {
-  return n >= 64 ? w : n <= 0 ? 0ull : w & ((1ull << n) - 1ull);
-}
-
-// Bit b of the result: byte b of x is nonzero (each byte's low 7 bits
-// carried into its top bit, or'd with the byte's own top bit).
-__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
-  const uint32_t t = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
-  return ((t >> 7) & 1u) | ((t >> 14) & 2u) | ((t >> 21) & 4u) |
-         ((t >> 28) & 8u);
-}
-
-// Bit b of the result: byte b of the 16 bytes x is nonzero.
-__device__ __forceinline__ uint32_t nonzero_bits16(uint4 x) {
-  return nonzero_bytes(x.x) | (nonzero_bytes(x.y) << 4) |
-         (nonzero_bytes(x.z) << 8) | (nonzero_bytes(x.w) << 12);
-}
-
-// The 64-bit word of an int8 row of 64 bytes in device memory (16-byte
-// aligned): bit c for a nonzero byte c.
-__device__ __forceinline__ uint64_t i8_word(const uint8_t* row) {
-  uint64_t w = 0;
-#pragma unroll
-  for (int part = 0; part < 4; ++part)
-    w |= (uint64_t)nonzero_bits16(
-             __ldg(reinterpret_cast<const uint4*>(row) + part))
-         << (16 * part);
-  return w;
-}
-
-// The compact walks' list entries, t * 64 + c: walk step t (its tile
-// plan[t] and slot slot[t]) and the column (row) c in the tile.
-struct CompactRowPairs {
-  const int* jl;          // the walk's key tiles
-  const int* js;          // and slots
-  size_t g_s;             // g * S
-  int rloc;               // the row's place in its tile
-  __device__ __forceinline__ int index(int x) const {
-    return __ldg(jl + (x >> 6)) * BN + (x & (BN - 1));
-  }
-  __device__ __forceinline__ size_t bias(int x) const {
-    return ((g_s + __ldg(js + (x >> 6))) * BM + rloc) * BN + (x & (BN - 1));
-  }
-};
-
+// The key walk's list entries, t * 64 + r: walk step t (its row tile
+// il[t] and slot isl[t]) and the row r in the tile.
 struct CompactKeyPairs {
   const int* il;          // the walk's row tiles
   const int* isl;         // and slots
@@ -161,79 +106,9 @@ struct CompactKeyPairs {
 // The row walk
 // ---------------------------------------------------------------------------
 
-// Bytes of a warp's walk: the ring [NST][R] of row words, the rows' lists
-// and their counts.
-__host__ __device__ inline size_t row_walk_bytes(int R) {
-  return (size_t)NST * R * 8 + (size_t)R * CAPR * 4 + WARP * 4;
-}
-
+// Bytes of a row walk warp: its slot walk and its items.
 __host__ __device__ inline size_t row_bytes(int R, int D, int Dv) {
-  return row_walk_bytes(R) + row_item_bytes(D, Dv);
-}
-
-// Lane r < R: row r's word of step s (slot js[s] of the snapshot's store
-// st; rows from rr0 of the tile) into its place in ring stage s % NST: the
-// bit store's word by cp.async, the int8 store's row read and turned into
-// its word at once.
-template <int kForm>
-__device__ __forceinline__ void load_rows(uint64_t* ring, const uint8_t* st,
-                                          const int* js, int s, int rr0,
-                                          int R, int lane) {
-  constexpr int RB = row_store_bytes<kForm>();
-  if (lane >= R) return;
-  const uint8_t* src = st + ((size_t)__ldg(js + s) * BM + rr0 + lane) * RB;
-  uint64_t* dst = ring + (s % NST) * R + lane;
-  if constexpr (kForm == COMPACT_BITS)
-    cp_async8(dst, src);
-  else
-    *dst = i8_word(src);
-}
-
-// The walk of rows [row0, row0 + R) (rr0 their first place in their tile)
-// over the steps [0, cnt) of slots js in the snapshot's store st, by the
-// whole warp. flush() is called by every lane, after a __syncwarp, with
-// row r's list at lists + r * CAPR and its length at rowcnt[r], when a
-// list could overflow and at the end, from one place.
-template <int kForm, class Flush>
-__device__ __forceinline__ void walk_slots(uint64_t* ring, int* lists,
-                                           int* rowcnt, const uint8_t* st,
-                                           int N, int row0, int rr0, int R,
-                                           const int* jl, const int* js,
-                                           int cnt, int lane, Flush&& flush) {
-  int rcount = 0;       // lane r < R: entries of row r's list
-  const int rows_in = N - row0;   // rows of the warp before N
-
-  for (int s = 0; s < NST - 1; ++s) {
-    if (s < cnt) load_rows<kForm>(ring, st, js, s, rr0, R, lane);
-    cp_async_commit();
-  }
-  for (int t = 0;; ++t) {
-    const bool end = t == cnt;
-    uint64_t w = 0;
-    if (!end) {
-      if (t + NST - 1 < cnt)
-        load_rows<kForm>(ring, st, js, t + NST - 1, rr0, R, lane);
-      cp_async_commit();
-      cp_async_wait_ring();
-      if (lane < R && lane < rows_in)   // the lane's own copy
-        w = below(ring[(t % NST) * R + lane], N - __ldg(jl + t) * BN);
-    }
-    const int n = __popcll(w);
-    if (!end && !__any_sync(FULL, n != 0)) continue;
-    if (end || __any_sync(FULL, rcount + n > CAPR)) {
-      if (lane < R) rowcnt[lane] = rcount;
-      __syncwarp();
-      flush();
-      __syncwarp();
-      rcount = 0;
-    }
-    if (end) break;
-    if (n) {            // lanes past R hold no word
-      int* dst = lists + lane * CAPR + rcount;
-      for (; w; w &= w - 1) *dst++ = t * BN + __ffsll((long long)w) - 1;
-    }
-    rcount += n;
-  }
+  return slot_walk_bytes(R) + row_item_bytes(D, Dv);
 }
 
 // At least 8 warps an SM: without a minimum, ptxas held the walk to 64-72
@@ -251,7 +126,7 @@ __global__ void __launch_bounds__(WARP, 8) row_walk_kernel(const Bwd a) {
   uint64_t* ring = reinterpret_cast<uint64_t*>(smem);
   int* lists = reinterpret_cast<int*>(smem + (size_t)NST * R * 8);
   int* rowcnt = lists + R * CAPR;
-  float* q_s = reinterpret_cast<float*>(smem + row_walk_bytes(R));
+  float* q_s = reinterpret_cast<float*>(smem + slot_walk_bytes(R));
   float* do_s = q_s + WARP * a.D;
   float* dq_s = do_s + WARP * a.Dv;
 

@@ -18,7 +18,7 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B3a c  _flash_bwd_dq_kernel, compact   csrc/flash_geometric_bwd.cu
     B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_geometric_bwd.cu
     B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
-    B5c  _flash_biased_kernel, compact  csrc/flash_biased_fwd.cu
+    B5c  _flash_biased_kernel, compact  csrc/flash_pairwalk_fwd_compact.cu
     B6c  _biased_bwd_pre_kernel, compact  the compact row walk (*)
     B7a c  _biased_bwd_dq_kernel, compact   the compact row walk (*)
     B7b c  _biased_bwd_dkv_kernel, compact  the compact key walk (*)
@@ -27,13 +27,14 @@ kernels that port the Pallas ones, and the differentiable entry point:
 
 B1, B2, B4 and B5 are pair walks that read each mask tile once for all
 heads and compute only the mask's valid pairs; so are B6 and B7a, together
-as one row walk, and B7b as the key walk, and over the compact store B6c
-and B7a c (one row walk) and B7b c (a key walk). Every kernel above also
-has a bf16 form (the TPU kernels' ``bf16=True``: every product's operands
-rounded to bf16, float32 sums), in the same sources under its own entry
-point and launch count (the pair walks' in the same files; B3a
-c's and B3b c's in csrc/flash_geometric_bwd_compact_bf16.cu, from the
-templates of csrc/flash_geometric_bwd.cuh); the model takes them under
+as one row walk, and B7b as the key walk, and over the compact store B5c
+(the forward walk), B6c and B7a c (one row walk) and B7b c (a key walk).
+Every kernel above also has a bf16 form (the TPU kernels' ``bf16=True``:
+every product's operands rounded to bf16, float32 sums), in the same
+sources under its own entry point and launch count (the pair walks' in
+the same files; B3a c's and B3b c's in
+csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
+csrc/flash_geometric_bwd.cuh); the model takes them under
 ``bf16_matmul``.
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
@@ -1833,9 +1834,10 @@ class _FlashBiasedBf16Kernel(_FlashBiasedKernel):
 class _FlashBiasedCompactKernel(_CudaKernel):
     """B5c, ``tagan_flash_biased_fwd_compact``: B5 over the compact
     store, the bias in the same slots (f32[G, S, 64, 64]); (out,
-    lse2)."""
+    lse2). B5's pair walk over the store's slots, which reads the bias at
+    the valid pairs only (csrc/flash_pairwalk_fwd_compact.cu)."""
     name = "flash_biased_fwd_compact"
-    source = "flash_biased_fwd"
+    source = "flash_pairwalk_fwd_compact"
     symbol = "tagan_flash_biased_fwd_compact"
     argtypes = (_P,) * 13 + (_I,) * 10 + (_F, _I, _U, _F)
 

@@ -1227,21 +1227,32 @@ def test_compact_biased_backward_bad_plan_raises_before_launch(fault, cuda):
     assert [kern.launches for kern in COMPACT_BIASED_BWD] == before
 
 
-def _hybrid_edge_step(cuda, metric, nan_fill=False):
+def _hybrid_edge_step(cuda, metric, nan_fill=False, bf16=False):
     """One training step of the edge-feature hybrid model over a
     ``plan="hybrid"`` loader on the card (B4c, B5c and the compact row
     and key walks once per layer; no other kernel) and on the CPU (plain
     versions), from the same weights: the loss and every gradient, the
     edge embedding's and each layer's edge bias's included. With
-    ``nan_fill`` the card's allocator is first filled with NaN, so that a
-    dB entry the row walk leaves unset and the model read would show."""
+    ``nan_fill`` the card's allocator is first filled with NaN, so that an
+    output entry a kernel leaves unset and the model reads (a dB entry of
+    the row walk, an out or lse2 row of B5c's walk) would show. With
+    ``bf16`` the model takes ``bf16_matmul=True`` (the bf16 forms of the
+    five kernels), its plain contractions pinned to fp32, and is held to
+    `test_hybrid_edge_bf16_trainer_step_on_gpu_matches_cpu`'s gates for
+    that case: the loss within the max gate, each gradient within
+    `BF16_EDGE_GRAD` of its largest entry."""
+    from tagan_torch.core.module import default_matmul_precision
     seqs = _hybrid_seqs(np.random.default_rng(9), 300, 2400, 2, 1, 4)
     cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
                          node_feature_dim=8, edge_feature_dim=4,
                          use_edge_features=True, output_dim=1,
                          loss_type="bce", dropout=0.0,
                          spatial_backend="hybrid", distance_metric=metric,
-                         learnable_distance=metric == "gaussian_kernel")
+                         learnable_distance=metric == "gaussian_kernel",
+                         bf16_matmul=bf16)
+    kernels = COMPACT_BIASED_BF16 if bf16 else (
+        FG.flash_lse1_compact_kernel, FG.flash_biased_fwd_compact_kernel) \
+        + COMPACT_BIASED_BWD
     got = {}
     for dev in ("cuda", "cpu"):
         if dev == "cuda" and nan_fill:
@@ -1249,6 +1260,8 @@ def _hybrid_edge_step(cuda, metric, nan_fill=False):
             del nan
         model = pt.TAGAN(cfg, device=dev,
                          generator=torch.Generator().manual_seed(0))
+        if bf16:
+            model.precision = lambda: default_matmul_precision("highest")
         loader = pt.TemporalGraphDataLoader(
             pt.TemporalGraphDataset(seqs, [1.0]), batch_size=1,
             dense_adj=False, plan="hybrid")
@@ -1259,16 +1272,26 @@ def _hybrid_edge_step(cuda, metric, nan_fill=False):
         launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
         want = {k.name: 0 for k in FG.KERNELS}
         if dev == "cuda":
-            for kern in (FG.flash_lse1_compact_kernel,
-                         FG.flash_biased_fwd_compact_kernel) \
-                    + COMPACT_BIASED_BWD:
+            for kern in kernels:
                 want[kern.name] = cfg.num_layers
         assert launched == want
         got[dev] = (loss.item(), {n: p.grad.cpu()
                                   for n, p in model.named_parameters()})
+    assert got["cpu"][1]["edge_embedding.w"].abs().max() > 0
+    if bf16:
+        assert abs(got["cuda"][0] - got["cpu"][0]) <= BF16_MAX_TOL
+        for name, g in got["cpu"][1].items():
+            card = got["cuda"][1][name]
+            assert torch.isfinite(card).all(), name
+            if name in ("temporal_attention.k.b",
+                        "temporal_attention.time_encoding.basis_proj.b",
+                        "temporal_attention.time_q_proj.b"):
+                continue    # zero in exact arithmetic: fp32 noise
+            assert (card - g).abs().max() <= BF16_EDGE_GRAD * \
+                g.abs().max(), name
+        return
     assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
     scale = max(g.abs().max().item() for g in got["cpu"][1].values())
-    assert got["cpu"][1]["edge_embedding.w"].abs().max() > 0
     for name, g in got["cpu"][1].items():
         assert torch.isfinite(got["cuda"][1][name]).all(), name
         assert (got["cuda"][1][name] - g).abs().max().item() <= TOL * scale, \
@@ -1290,6 +1313,18 @@ def test_compact_biased_backward_unset_db_never_read(cuda):
     one step's gradients are finite and within TOL of the CPU's
     (`_hybrid_edge_step`)."""
     _hybrid_edge_step(cuda, "euclidean", nan_fill=True)
+
+
+@pytest.mark.gpu
+def test_hybrid_edge_bf16_step_over_nan_filled_memory(cuda):
+    """`test_compact_biased_backward_unset_db_never_read` with
+    ``bf16_matmul=True``: after the allocator's memory is filled with NaN,
+    one step through the bf16 forms of B4c, B5c and the compact row and
+    key walks gives finite gradients within the bf16 step's gates of the
+    CPU's (`_hybrid_edge_step`). The bf16 row walk leaves dB unset off the
+    store's pairs, and B5c's walk must set every out and lse2 entry the
+    model reads."""
+    _hybrid_edge_step(cuda, "euclidean", nan_fill=True, bf16=True)
 
 
 # -- the bf16 forms (bf16_matmul=True) ----------------------------------------
@@ -2137,6 +2172,148 @@ def test_hybrid_edge_bf16_trainer_step_on_gpu_matches_cpu(cuda):
             card = got["cuda"][1][name]
             assert torch.isfinite(card).all(), name
             assert (card - g).abs().max() <= grad_tol * g.abs().max(), name
+
+
+# -- B5c's compact forward pair walk, fp32 and bf16 ---------------------------
+
+def compact_fwd_walk_check(dev, bf16, G, H, N, D, Dv, metric, rate, pack,
+                           seed=3, repeats=1):
+    """B5c (``bf16``: its bf16 form), the compact forward pair walk, at
+    `band_mask`'s cases over `band_compact`'s walks (a whole tile, a
+    one-pair tile, rows past 128 keys, dead rows, a walked slot with no
+    bit, walk entries past the counts; N = 330 has a ragged last tile),
+    on `_compact_biased_bwd_inputs`' union-like lse1 (the band's raised
+    by 0.25; q and k at ``BF16_QK_SCALE`` in bf16), against the compact
+    plain version: out and lse2 within TOL of it over live rows in fp32,
+    under the bf16 gates in bf16 (the plain fp32 version the witness).
+    Its outputs are allocated NaN-filled (`nan_empty`) and come back set
+    everywhere, dead rows exactly 0 and ``LSE_DEAD``; each call launches
+    the walk once and nothing else; ``repeats`` calls are bit-identical.
+    Shared by chip_smoke.py's phases 2e and 2k. Returns the max abs error
+    over live rows (fp32) or the worst (max abs error, max error, mean
+    error, witness) over the largest entry (bf16)."""
+    (q, k, v, mask, store, bias_store, plan, _, scale, seeds, _, lse1, _,
+     _, _) = (
+        t.to(dev).contiguous() if torch.is_tensor(t)
+        else tuple(p_.to(dev).contiguous() for p_ in t)
+        for t in _compact_biased_bwd_inputs(
+            G, H, N, D, Dv, metric, pack, rate, seed,
+            BF16_QK_SCALE if bf16 else 1.0, band=True))
+    kern = FG.flash_biased_fwd_compact_bf16_kernel if bf16 \
+        else FG.flash_biased_fwd_compact_kernel
+
+    def call():
+        with nan_empty():
+            return kern(q, k, v, store, bias_store, lse1, *plan, metric,
+                        scale, seeds, rate)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    out, lse2 = call()
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    assert launched == {k_.name: int(k_ is kern) for k_ in FG.KERNELS}
+    assert torch.isfinite(out).all() and torch.isfinite(lse2).all()
+    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
+    assert dead.any() and (~dead).any()
+    assert torch.all(out[dead] == 0) and torch.all(lse2[dead] == FG.LSE_DEAD)
+    for _ in range(repeats - 1):
+        again = call()
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse2)
+    plain = {b: FG.flash_biased_forward_compact_plain(
+        q, k, v, store, bias_store, lse1, *plan, metric, scale, rate, seeds,
+        b) for b in {bf16, False}}
+    live = ~dead
+    p_out, p_l2 = plain[bf16]
+    if not bf16:
+        err = max((out - p_out)[live].abs().max().item(),
+                  (lse2 - p_l2)[live].abs().max().item())
+        assert err <= TOL, err
+        return err
+    res = []
+    for got, want, f32, wit in ((out, p_out, plain[False][0], True),
+                                (lse2, p_l2, plain[False][1], False)):
+        g, w, f = got[live], want[live], f32[live]
+        _bf16_gates(g, w, f, witness=wit)
+        m = w.abs().max().clamp(min=1e-30)
+        e = (g - w).abs()
+        res.append(((e.max()).item(), (e.max() / m).item(),
+                    (e.mean() / m).item(), ((f - w).abs().mean() / m).item()
+                    if wit else float("inf")))
+    return tuple(max(r[i] for r in res) if i < 3 else min(r[i] for r in res)
+                 for i in range(4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_fwd_walk_band(metric, rate, pack, bf16, cuda):
+    """B5c's walk in both precisions at the band's cases, bit and int8
+    stores, every metric, both dropouts on and off (their hashes at the
+    global (row, key), as the plain version's)
+    (`compact_fwd_walk_check`)."""
+    compact_fwd_walk_check(cuda, bf16, 2, 4, 330, 16, 16, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_compact_fwd_walk_head_dims(D, Dv, pack, bf16, cuda):
+    """Head dims whose sqrt is not a power of two, D != Dv, odd widths (no
+    16-byte gathers), and the widest, (128, 128), where q, the
+    accumulators and the flush's values pass 48 KB a warp at one head."""
+    compact_fwd_walk_check(cuda, bf16, 1, 2, 330, D, Dv, "gaussian_kernel",
+                           0.1, pack, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("H", [1, 4, 33])
+def test_compact_fwd_walk_fold(H, bf16, cuda):
+    """Folds of 1, 4 and 33 heads (32 rows a warp at one head; two head
+    groups, the second of one head, past 32)."""
+    compact_fwd_walk_check(cuda, bf16, 2, H, 330, 16, 16, "gaussian_kernel",
+                           0.1, True, seed=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+def test_compact_fwd_walk_deterministic(pack, bf16, cuda):
+    """out and lse2 are bit-identical over 20 calls: the walk sums in the
+    list's order and has no atomic."""
+    compact_fwd_walk_check(cuda, bf16, 2, 4, 1008, 16, 16, "gaussian_kernel",
+                           0.1, pack, repeats=20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fault", ["jslot", "jcount", "jlist", "bias"])
+def test_compact_fwd_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
+    """The public entry checks the walk's values and the wrapper the
+    shapes: a jslot past the store, a count past the walk's width, a key
+    tile past N, a bias store of another slot count raise ValueError on
+    the host, and no kernel is launched."""
+    (q, k, v, _, store, bias_store, plan, _, scale, seeds, _, lse1, _, _,
+     _) = _compact_biased_bf16_inputs(cuda, 1, 2, 150, 16, 16,
+                                      "dot_product", True, 0.0)
+    jl, jc, js = (p.clone() for p in plan)
+    if fault == "jslot":
+        js[0, 0, 0] = store.shape[1]
+    elif fault == "jcount":
+        jc[0, 0] = jl.shape[-1] + 1
+    elif fault == "jlist":
+        jl[0, 0, 0] = 3
+    else:
+        bias_store = bias_store[:, 1:].contiguous()
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    with pytest.raises(ValueError):
+        FG.flash_biased_fwd_compact(
+            q, k, v, store, bias_store, lse1, jl, jc, js,
+            metric="dot_product", scale=scale, seeds=seeds, bf16=bf16)
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
 
 
 # -- the ring: B8 (all-gather) and B9 (ring flash) over virtual ranks ---------

@@ -38,8 +38,16 @@ Phases, in order; any failure raises and exits non-zero:
    folds of 1, 4 and 33 heads; its outputs allocated NaN-filled and set
    everywhere, two cases called 20 times bit for bit); (2f) the
    compact-store backward kernels B3a c (dq, dscale) and B3b c (dk,
-   dv) against the compact plain backward on 2e's grid with an lse cotangent, dead rows
-   and an empty key strip (icount = 0) exactly zero; (2g) the
+   dv; the compact key pair walk) against the compact plain backward on
+   2e's grid with an lse cotangent, dead rows and an empty key strip
+   (icount = 0) exactly zero, and B3b c at
+   `tests/test_torch_gpu.py::band_mask`'s cases over `band_compact`'s
+   walks (`compact_bwd_walk_check`: every metric, dropout off and on,
+   both stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128,
+   128), folds of 1, 4 and 12 heads and 12 at head dim 128, a row whose
+   lse is LSE_DEAD though the store lists its pairs; its outputs
+   allocated NaN-filled and set everywhere, two cases called 20 times
+   bit for bit); (2g) the
    compact-store biased backward's fp32 pair walks, the row walk (B6c
    and B7a c: delta1, dB at the store's pairs, dq, dscale) and the key
    walk (B7b c: dk, dv), against the compact plain parts on 2e's grid
@@ -63,7 +71,8 @@ Phases, in order; any failure raises and exits non-zero:
    and B3b c against the compact plain bf16 versions on 2f's grid, both
    stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
    under the same gates (dead rows and the empty key strip exactly 0),
-   and a jslot past the store raising before any launch; (2k) the bf16
+   B3b c bf16's walk at 2f's band cases under the bf16 gates, and a
+   jslot past the store raising before any launch; (2k) the bf16
    forms of B4c, B5c and the compact biased backward's row walk (B6c
    and B7a c) and key walk (B7b c) against the compact plain bf16
    versions on 2g's grid and union-like statistics with a residual
@@ -163,8 +172,9 @@ Phases, in order; any failure raises and exits non-zero:
    plan (a bit-store mask_mod) at the scaled-dot metric as the library yardstick (held against the kernels
    at that metric; null with the reason if it does not build), and the
    csr ``edge_attention`` over the layer's whole edge set; (5e) B3a c,
-   B3b c and the two together at one 131K snapshot of 6c against the
-   compact plain backward and their bounds, compiled ``flex_attention``'s
+   B3b c (the compact key pair walk) and the two together at one 131K
+   snapshot of 6c against the compact plain backward and their bounds
+   (and each one's share of its bound), compiled ``flex_attention``'s
    backward under the compact plan's block mask at the scaled-dot metric
    as the library yardstick (forward+backward minus forward; null with
    the reason if it does not build or differs), and csr
@@ -217,7 +227,8 @@ Phases, in order; any failure raises and exits non-zero:
    at the scaled-dot metric as the library yardstick (forward, and
    forward+backward minus forward; held against the bf16 kernels at that
    metric, null with the reason if it does not build or differs), and
-   their bounds (the fp32 forms' bytes, operations at the bf16 rate);
+   their bounds (the fp32 forms' bytes, operations at the bf16 rate) and
+   each one's share of its bound;
    (5j) the bf16 forms of B4c, B5c, the compact row walk (B6c and
    B7a c) and key walk (B7b c) at one 131K snapshot of 6h (union
    statistics), each beside its fp32 form in turns, the compact plain
@@ -252,8 +263,9 @@ Phases, in order; any failure raises and exits non-zero:
    ``plan="hybrid"`` loader: the loader's planning batch apart from its
    cached ones, one warm-up step, then 3 steps (B1c, B3a c and B3b c
    each exactly once per layer per step, nothing else), step times,
-   split, peak memory, one layer's B3a c + B3b c over the folded
-   snapshots and their share of the step, finite non-zero gradients,
+   split, peak memory, one layer's B3a c + B3b c (and each alone) over
+   the folded snapshots and their share of the step, finite non-zero
+   gradients,
    every parameter moved, and one snapshot at full width against the
    compact plain backward; (6d) the same for the edge-feature hybrid
    model (Fe = 4: B4c, B5c, the compact row walk and the compact key
@@ -3494,6 +3506,41 @@ def compact_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
     return compact_errors(check_backward(label, got, want, False))
 
 
+def compact_bwd_walk_runs(FG):
+    """The band cases at which 2f and 2j hold B3b c's compact key walk
+    (`tests.test_torch_gpu.compact_bwd_walk_check`'s arguments after the
+    precision): every metric with dropout off and on, both stores; (D, Dv)
+    of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), both stores;
+    folds of 1, 4 and 12 heads (two head groups) and 12 at head dim 128;
+    and two cases called 20 times, bit for bit."""
+    runs = [(2, 4, 330, 16, 16, metric, rate, pack)
+            for pack in (True, False) for metric in FG.MXU_METRICS
+            for rate in (0.0, 0.1)]
+    runs += [(1, 2, 330, D, Dv, "gaussian_kernel", 0.1, pack, 1)
+             for pack in (True, False)
+             for D, Dv in ((16, 16), (8, 8), (12, 12), (7, 3), (128, 128))]
+    runs += [(2, H, 330, D, D, "gaussian_kernel", 0.1, True, 5)
+             for H, D in ((1, 16), (4, 16), (12, 16), (12, 128))]
+    runs += [(2, 4, 1008, 16, 16, "gaussian_kernel", 0.1, pack, 3, 20)
+             for pack in (True, False)]
+    return runs
+
+
+def phase_compact_bwd_walk(FG, bf16):
+    """B3b c's compact key pair walk (``bf16``: its bf16 form) at
+    `compact_bwd_walk_runs`' band cases, outputs allocated NaN-filled and
+    set everywhere, keys no row reaches exactly 0, one launch each,
+    against the compact plain backward's dk and dv: within TOL, or under
+    the bf16 gates. Returns (cases, worst error)."""
+    from tests.test_torch_gpu import compact_bwd_walk_check
+    errs = [compact_bwd_walk_check(DEV, bf16, *run)
+            for run in compact_bwd_walk_runs(FG)]
+    if bf16:
+        return len(errs), tuple(max(e[i] for e in errs) if i < 3 else
+                                min(e[i] for e in errs) for i in range(4))
+    return len(errs), max(errs)
+
+
 def phase_small_compact_bwd(FG):
     errs = []
     for pack in (True, False):
@@ -3505,9 +3552,14 @@ def phase_small_compact_bwd(FG):
             errs.append(compact_bwd_vs_plain(FG, 2, 2, 200, D, Dv,
                                              "gaussian_kernel", 0.1, pack, 1))
     out = {name: max(e[name] for e in errs) for name in ("B3a c", "B3b c")}
+    n_band, band_err = phase_compact_bwd_walk(FG, False)
+    out["B3b c"] = max(out["B3b c"], band_err)
     log(f"[2f] B3a c (dq, dscale) and B3b c (dk, dv) vs the compact plain "
         f"backward, bit and int8 stores, lse cotangent: {len(errs)} cases; "
-        f"max err {out} (tol {TOL})")
+        f"B3b c's walk at the band's cases (every metric, dropout off and "
+        f"on, head dims, folds of 1, 4 and 12 heads, outputs allocated "
+        f"NaN-filled, two cases 20 times bit for bit): {n_band} cases, max "
+        f"abs err {band_err:.3e}; max err {out} (tol {TOL})")
     return out
 
 
@@ -3563,12 +3615,12 @@ def compact_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
 def phase_small_compact_bf16(FG):
     """[2j] B1c, B3a c and B3b c's bf16 forms, bit and int8 stores: every
     metric with dropout 0 and 0.1 at (D, Dv) = (16, 8), and (D, Dv) of
-    (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), where the compact
-    backward's 64 tile-row words sit past the dense tiles in shared
-    memory; an lse cotangent, dscale for gaussian/rbf, dead rows, a row
-    tile with jcount = 0, an empty key strip. Then a jslot past the store
-    raises before any launch, at the forward's entry and at B3a c's and
-    B3b c's bf16 wrappers."""
+    (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), where B3a c's 64
+    tile-row words sit past the dense tiles in shared memory; an lse
+    cotangent, dscale for gaussian/rbf, dead rows, a row tile with jcount
+    = 0, an empty key strip; B3b c bf16's walk at 2f's band cases. Then a
+    jslot past the store raises before any launch, at the forward's entry
+    and at B3a c's and B3b c's bf16 wrappers."""
     cases = [(metric, 16, 8, rate) for metric in FG.MXU_METRICS
              for rate in (0.0, 0.1)]
     cases += [("scaled_dot_product", 16, 16, 0.1), ("scaled_dot_product", 8,
@@ -3581,6 +3633,8 @@ def phase_small_compact_bf16(FG):
             for name, r in compact_bf16_vs_plain(FG, 2, 3, 150, D, Dv, metric,
                                                  rate, pack).items():
                 worst[name] = max(worst.get(name, r), r)
+    n_band, band = phase_compact_bwd_walk(FG, True)
+    worst["B3b c"] = max(worst["B3b c"], band)
     q, k, v, do, _, _, store, plan, plan_t, scale, seeds = \
         compact_bwd_inputs(FG, 1, 2, 150, 16, 16, "dot_product", 0, True)
     jl, jc, js = (p.clone() for p in plan)
@@ -3606,7 +3660,9 @@ def phase_small_compact_bf16(FG):
         raise AssertionError(f"a bad jslot: {refused} of 3 entries refused "
                              f"it; launches {counts(FG)} vs {before}")
     log(f"[2j] bf16 forms of B1c, B3a c and B3b c vs the compact plain bf16 "
-        f"versions, bit and int8 stores: {2 * len(cases)} cases; worst (max "
+        f"versions, bit and int8 stores: {2 * len(cases)} cases; B3b c bf16's "
+        f"walk at 2f's band cases: {n_band} cases, worst "
+        f"{tuple(f'{x:.3e}' for x in band)}; worst (max "
         f"abs err, max err, mean err, witness over the largest entry) "
         + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
                     for n, r in worst.items())
@@ -4368,10 +4424,18 @@ def phase_train_hybrid(tt, FG, bf16=False, data=None):
         fold_bwd = cuda_ms(lambda: FG._backward_compact(
             q, k, v, store, out, lse, do, plan, plan_t, "euclidean", ones,
             0.0, seeds, False, dlse, bf16), 3)
+        common = (q, k, v, store, do, lse, FG._delta(do, out, dlse)
+                  .contiguous())
+        fold_b3a = cuda_ms(lambda: kerns[1](
+            *common, *plan, "euclidean", ones, seeds, 0.0, False), 3)
+        fold_b3b = cuda_ms(lambda: kerns[2](
+            *common, *plan_t, "euclidean", ones, seeds, 0.0), 3)
+        del common
     step = min(step_ms)
     share = cfg.num_layers * fold_bwd / step
     log(f"[{tag}] one layer's launches over the {G} folded snapshots: B1c "
-        f"{fold_fwd:.3f} ms, B3a c+B3b c {fold_bwd:.3f} ms; {cfg.num_layers} "
+        f"{fold_fwd:.3f} ms, B3a c+B3b c {fold_bwd:.3f} ms (B3a c alone "
+        f"{fold_b3a:.3f}, B3b c alone {fold_b3b:.3f}); {cfg.num_layers} "
         f"layers' B3a c+B3b c = {share:.3f} and with B1c "
         f"{cfg.num_layers * (fold_fwd + fold_bwd) / step:.3f} of the fastest "
         f"step ({step:.3f} ms)")
@@ -4415,7 +4479,8 @@ def phase_train_hybrid(tt, FG, bf16=False, data=None):
                 epoch_ms=epoch_ms, step_ms=step_ms, split_ms=splits,
                 loss=losses, launches=launched, peak_memory_gb=peak_gb,
                 held_gb=held_gb, moved=moved, digests=digests,
-                fold_b1c_ms=fold_fwd,
+                fold_b1c_ms=fold_fwd, fold_b3a_c_ms=fold_b3a,
+                fold_b3b_c_ms=fold_b3b,
                 fold_b3c_ms=fold_bwd, b3c_share_of_step=share, full_err=full,
                 args=(*one, plan1, plan_t1, res1, o1, l1, do1, dl1))
 
@@ -4530,8 +4595,10 @@ def phase_times_hybrid_bwd(FG, args):
         lib = dict(ms=None, err=None, error=f"{type(e).__name__}: {e}"[:300])
     lib["setup_and_timing_s"] = time.perf_counter() - t0
     bounds = compact_bwd_bounds(FG, q, v, store, plan, plan_t, pairs)
-    res = {"B3a c": dict(ms=[ta], **bounds["B3a c"]),
-           "B3b c": dict(ms=[tb], **bounds["B3b c"]),
+    res = {"B3a c": dict(ms=[ta], bound_share=bounds["B3a c"]["bound_ms"]
+                         / ta, **bounds["B3a c"]),
+           "B3b c": dict(ms=[tb], bound_share=bounds["B3b c"]["bound_ms"]
+                         / tb, **bounds["B3b c"]),
            "B3a c+B3b c_ms": [a1, a2], "B3a c+B3b c_sdp_ms": a_sdp,
            "plain_ms": [p1, p2], "library": lib, "csr_ms": csr_ms,
            "csr_edges": int(eq.shape[-1]), "valid_pairs": pairs,
@@ -4547,7 +4614,8 @@ def phase_times_hybrid_bwd(FG, args):
         r = res[name]
         log(f"[5e] {name} bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
             f"({r['bytes']} bytes, {r['flops']} flops over {pairs} valid "
-            f"pairs on {walked} walked tiles per head)")
+            f"pairs on {walked} walked tiles per head), "
+            f"{r['bound_share']:.4f} of it reached")
     return res
 
 
@@ -4652,7 +4720,8 @@ def phase_times_hybrid_bf16(FG, args):
         res[name] = dict(ms=times[name][0], fp32_ms=times[name][1],
                          plain_ms=plain_f if fwd else plain_b,
                          library_ms=lib["B1c"] if fwd else lib["bwd"],
-                         **bounds[name])
+                         bound_share=bounds[name]["bound_ms"]
+                         / min(times[name][0]), **bounds[name])
     res.update(library=lib, valid_pairs=pairs, b1c_sdp_ms=k1_sdp)
     log(f"[5i] bf16 compact forms, one snapshot of N={N}: "
         + "; ".join(f"{n} bf16 ms {' '.join(f'{x:.4f}' for x in t[0])} (fp32 "
@@ -4668,7 +4737,8 @@ def phase_times_hybrid_bf16(FG, args):
         r = res[name]
         log(f"[5i] {name} bf16 bound {r['bound_ms']:.5f} ms by "
             f"{r['bound_by']} ({r['bytes']} bytes, {r['flops']} flops over "
-            f"{pairs} valid pairs at the bf16 rate)")
+            f"{pairs} valid pairs at the bf16 rate), {r['bound_share']:.4f} "
+            f"of it reached")
     return res
 
 
@@ -6285,21 +6355,25 @@ def main() -> int:
     tbh = times_hyb_bwd
     kernels += [
         dict(kernel_record(
-            FG, kern, "flash_geometric_bwd.cu", line,
+            FG, kern, source, line,
             train_hyb["launches"][kern.name],
             max(small_compact_bwd[name], train_hyb["full_err"][name]),
             min(tbh[name]["ms"]), min(tbh["plain_ms"]),
             "flash_geometric_backward_compact_plain (dq, dk and dv)",
             tbh[name], tbh["library"]["ms"]),
              csr_ms=min(tbh["csr_ms"]),
+             bound_share=tbh[name]["bound_share"],
+             fold_ms=train_hyb[f"fold_{name.lower().replace(' ', '_')}_ms"],
              library_of=("compiled flex_attention fwd+bwd - fwd, BlockMask "
                          "from the compact plan, bit-store mask_mod, "
                          "scaled-dot metric"
                          if tbh["library"]["error"] is None
                          else tbh["library"]["error"]))
-        for name, kern, line in (
-            ("B3a c", FG.flash_geometric_bwd_dq_compact_kernel, 2009),
-            ("B3b c", FG.flash_geometric_bwd_dkv_compact_kernel, 2074))]
+        for name, kern, source, line in (
+            ("B3a c", FG.flash_geometric_bwd_dq_compact_kernel,
+             "flash_geometric_bwd.cu", 2009),
+            ("B3b c", FG.flash_geometric_bwd_dkv_compact_kernel,
+             "flash_pairwalk_bwd_compact.cu", 2074))]
     # the compact biased backward's fp32 walks, the row walk (B6c and B7a
     # c) and the key walk (B7b c): launches on the edge-feature hybrid
     # training path (6d), times at one 131K snapshot (5f) beside the two
@@ -6431,6 +6505,7 @@ def main() -> int:
             min(t16h[name]["ms"]), t16h[name]["plain_ms"], plain_of,
             t16h[name], t16h[name]["library_ms"]),
              fp32_ms=min(t16h[name]["fp32_ms"]),
+             bound_share=t16h[name]["bound_share"],
              library_of=(
                  ("compiled flex_attention on bf16 q, k, v, BlockMask from "
                   "the compact plan, bit-store mask_mod, scaled-dot metric"
@@ -6438,8 +6513,8 @@ def main() -> int:
                  if lib16h["error"] is None else lib16h["error"]))
         for name, kern, source, line, plain_of in zip(
             ("B1c", "B3a c", "B3b c"), compact_kernels(FG, True),
-            ("flash_geometric_fwd.cu",)
-            + ("flash_geometric_bwd_compact_bf16.cu",) * 2,
+            ("flash_geometric_fwd.cu", "flash_geometric_bwd_compact_bf16.cu",
+             "flash_pairwalk_bwd_compact.cu"),
             (1315, 2009, 2074),
             ("flash_geometric_forward_compact_plain with bf16=True (walks "
              "the plan)",) + ("flash_geometric_backward_compact_plain with "

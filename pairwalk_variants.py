@@ -4,10 +4,12 @@
 (``flash_pairwalk_bwd.cu``), the biased backward's row walk and key
 walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), their compact
 forms over the hybrid band's store, fp32 and bf16
-(``flash_pairwalk_biased_bwd_compact.cu``), and B5c's compact forward walk,
-fp32 and bf16 (``flash_pairwalk_fwd_compact.cu``), against copies of their
-sources with one design constant changed, on one NVIDIA GPU, to see what
-bounds them:
+(``flash_pairwalk_biased_bwd_compact.cu``), B5c's compact forward walk,
+fp32 and bf16 (``flash_pairwalk_fwd_compact.cu``), and B3b c's compact
+key walk of the unbiased backward ("compact plain key walk"), fp32 and
+bf16 (``flash_pairwalk_bwd_compact.cu``), against copies of their sources
+with one design constant changed, on one NVIDIA GPU, to see what bounds
+them:
 
     python3 pairwalk_variants.py
 
@@ -32,8 +34,8 @@ CUDA events, per snapshot, on uniform random graphs of 10,000 nodes:
 degree 16 (the model's) at one snapshot and over a 16-snapshot fold,
 degree 256, and a diagonal-only mask walked over every key tile. The
 compact walks take the flush's removal (the row walk and the forward walk
-then only walk their slots and list each row's pairs, the key walk only
-copies the walked slots and lists each key's rows): they are timed on one
+then only walk their slots and list each row's pairs, the key walks only
+copy the walked slots and list each key's rows): they are timed on one
 snapshot of the
 hybrid model's band (131,072 nodes, 16 edges a node, 95% of them within
 +-512 of their source, the band those within the 95% quantile of the
@@ -93,6 +95,9 @@ EDITS = {
     "flash_pairwalk_fwd_compact": dict(
         noflush=("constexpr bool FWD_FLUSH = true;",
                  "constexpr bool FWD_FLUSH = false;")),
+    "flash_pairwalk_bwd_compact": dict(
+        noflush_key=("constexpr bool KEY_FLUSH = true;",
+                     "constexpr bool KEY_FLUSH = false;")),
 }
 # the variants timed for each walk (all of its source's by default)
 WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
@@ -105,10 +110,13 @@ WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
                  "compact key walk": ("noflush_key",),
                  "compact key walk bf16": ("noflush_key",),
                  "compact fwd walk": ("noflush",),
-                 "compact fwd walk bf16": ("noflush",)}
+                 "compact fwd walk bf16": ("noflush",),
+                 "compact plain key walk": ("noflush_key",),
+                 "compact plain key walk bf16": ("noflush_key",)}
 COMPACT = ("compact row walk", "compact row walk bf16", "compact key walk",
            "compact key walk bf16", "compact fwd walk",
-           "compact fwd walk bf16")
+           "compact fwd walk bf16", "compact plain key walk",
+           "compact plain key walk bf16")
 
 
 def inlined(src: str, csrc: Path) -> str:
@@ -217,7 +225,11 @@ def main() -> int:
                  FG.flash_biased_bwd_key_compact_bf16_kernel,
              "compact fwd walk": FG.flash_biased_fwd_compact_kernel,
              "compact fwd walk bf16":
-                 FG.flash_biased_fwd_compact_bf16_kernel}
+                 FG.flash_biased_fwd_compact_bf16_kernel,
+             "compact plain key walk":
+                 FG.flash_geometric_bwd_dkv_compact_kernel,
+             "compact plain key walk bf16":
+                 FG.flash_geometric_bwd_dkv_compact_bf16_kernel}
     kernels = {w: {"base": kern} for w, kern in walks.items()}
     made = {}
     try:
@@ -298,7 +310,8 @@ def main() -> int:
 def compact_times(kernels, gen):
     """The compact walks and their variants on one snapshot of the band,
     each precision's key walk on its own row walk's delta1, the forward
-    walk on B4c's lse1."""
+    walk on B4c's lse1, the plain key walk (B3b c) on B1c's lse and
+    delta = rowsum(dO out)."""
     store, plan, plan_t = band_graph(7)
     S = store.shape[1]
     q, k, v, do = (0.5 * torch.randn(1, H, N_BAND, D, device="cuda",
@@ -324,6 +337,13 @@ def compact_times(kernels, gen):
             args[f"compact row walk{prec}"] = row
             args[f"compact key walk{prec}"] = (*common, d1, *plan_t,
                                               "euclidean", ones, seeds, 0.0)
+        seed = torch.zeros(1, dtype=torch.int32, device="cuda")
+        out1, lse = FG.flash_geometric_fwd_compact_kernel(
+            q, k, v, store, *plan, "euclidean", ones, seed, 0.0)
+        dkv = (q, k, v, store, do, lse, (do * out1).sum(-1), *plan_t,
+               "euclidean", ones, seed, 0.0)
+        args["compact plain key walk"] = args[
+            "compact plain key walk bf16"] = dkv
     label = (f"hybrid band, N={N_BAND}, one snapshot: {S} walked slots, "
              f"{pairs} valid pairs")
     for w in COMPACT:

@@ -3,10 +3,11 @@
 //
 // Replaces the Pallas TPU kernels tagan_tpu/ops/pallas/flash_geometric.py::
 // _flash_bwd_dq_kernel (B3a) and _flash_bwd_dkv_kernel (B3b), host side
-// flash_geometric_attention_bwd with fused=False, in their dense-mask form,
-// their compact occupied-block form (B3a c, B3b c: 3-tuple plans, the
-// hybrid backend's band) and the bf16 form (bf16=True) of each. For query
-// row i, key j, head h, with
+// flash_geometric_attention_bwd with fused=False, in their dense-mask form
+// and the bf16 form (bf16=True) of each, and B3a's compact occupied-block
+// form (B3a c: 3-tuple plans, the hybrid backend's band) in fp32. B3b's
+// compact form (B3b c, both precisions) is the key pair walk of
+// flash_pairwalk_bwd_compact.cu. For query row i, key j, head h, with
 // p_ij = exp(s_ij - lse_i) on the mask,
 //
 //     dp_ij = drop(do_i . v_j),   ds_ij = p_ij (dp_ij - delta_i)
@@ -43,18 +44,16 @@
 // never the store slot), and the d(scale) sum stay fp32.
 //
 // The kernels and their launchers are in flash_geometric_bwd.cuh. This
-// file instantiates them for the dense forms and the fp32 compact forms;
-// flash_geometric_bwd_compact_bf16.cu instantiates the bf16 compact forms
-// as a library of its own, which nvcc builds in parallel with this one.
+// file instantiates them for the dense forms and B3a c in fp32;
+// flash_geometric_bwd_compact_bf16.cu instantiates B3a c's bf16 form as a
+// library of its own, which nvcc builds in parallel with this one.
 //
-// The compact forms are the same walks templated on the mask form
+// The compact form is the same walk templated on the mask form
 // (flash_geometric_common.cuh: MaskForm). Each step first loads its store
-// tile (slot g * S + jslot or islot, bits or int8) into 64 row words in
-// dynamic shared memory past the dense form's tiles, so the dense form's
-// layout and code are unchanged. Both walks read the same tile, row =
-// query and column = key: B3b c names it through islot, no transposed copy
-// of the store exists. Store offsets are size_t: a folded int8 store
-// passes 2^31 bytes at a few 131K snapshots.
+// tile (slot g * S + jslot, bits or int8) into 64 row words in dynamic
+// shared memory past the dense form's tiles, so the dense form's layout and
+// code are unchanged. Store offsets are size_t: a folded int8 store passes
+// 2^31 bytes at a few 131K snapshots.
 //
 // What bounds it on the H100. The work the data needs is ~5 products of
 // head dim per valid pair; what must move is q, k, v, do, lse, delta, the
@@ -66,8 +65,9 @@
 // H=4, N=10,000, head dim 16) the bound is 0.034 ms for each kernel
 // (~113-116 MB at 3.35 TB/s); chip_smoke.py phase 5 times both kernels
 // against it, and phase 5e the compact forms at one 131K hybrid snapshot
-// (~35K walked tiles per head, ~1/60 of their pairs valid). Tensor cores,
-// TMA and a walk over edges are later steps.
+// (~35K walked tiles per head, ~1/60 of their pairs valid; B3b c's key
+// walk computes only those). Tensor cores, TMA and a walk over edges are
+// later steps.
 //
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
@@ -101,10 +101,9 @@ extern "C" int tagan_flash_geometric_bwd_dkv(
     void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
     float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
     void* stream) {
-  return dkv_entry<DENSE_MASK>(q, k, v, mask, dout, lse, delta, ilist,
-                               icount, ilist, scale, seed, dk, dv, G, H, N, D,
-                               Dv, n_j, W, 0, metric, sqrt_d, use_dropout,
-                               keep_thresh, inv_keep, stream);
+  return dkv_entry(q, k, v, mask, dout, lse, delta, ilist, icount, scale,
+                   seed, dk, dv, G, H, N, D, Dv, n_j, W, metric, sqrt_d,
+                   use_dropout, keep_thresh, inv_keep, stream);
 }
 
 // B3a's bf16 form: the same arguments.
@@ -130,11 +129,9 @@ extern "C" int tagan_flash_geometric_bwd_dkv_bf16(
     void* dv, int G, int H, int N, int D, int Dv, int n_j, int W, int metric,
     float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
     void* stream) {
-  return dkv_entry<DENSE_MASK, true>(q, k, v, mask, dout, lse, delta, ilist,
-                                     icount, ilist, scale, seed, dk, dv, G, H,
-                                     N, D, Dv, n_j, W, 0, metric, sqrt_d,
-                                     use_dropout, keep_thresh, inv_keep,
-                                     stream);
+  return dkv_entry<true>(q, k, v, mask, dout, lse, delta, ilist, icount,
+                         scale, seed, dk, dv, G, H, N, D, Dv, n_j, W, metric,
+                         sqrt_d, use_dropout, keep_thresh, inv_keep, stream);
 }
 
 // B3a c: B3a over the compact store of S slots per g, bits i64[G, S, 64]
@@ -152,20 +149,4 @@ extern "C" int tagan_flash_geometric_bwd_dq_compact(
       q, k, v, store, dout, lse, delta, jlist, jcount, jslot, scale, seed, dq,
       dscale_part, G, H, N, D, Dv, n_i, W, S, metric, sqrt_d, use_dropout,
       keep_thresh, inv_keep, need_dscale, stream);
-}
-
-// B3b c: B3b over the compact store, the transposed walk (ilist, icount)
-// naming each step's slot of the same store, islot [G, n_j, W].
-extern "C" int tagan_flash_geometric_bwd_dkv_compact(
-    const void* q, const void* k, const void* v, const void* store,
-    const void* dout, const void* lse, const void* delta, const void* ilist,
-    const void* icount, const void* islot, const void* scale,
-    const void* seed, void* dk, void* dv, int G, int H, int N, int D, int Dv,
-    int n_j, int W, int S, int packed, int metric, float sqrt_d,
-    int use_dropout, unsigned int keep_thresh, float inv_keep,
-    void* stream) {
-  return (packed ? dkv_entry<COMPACT_BITS> : dkv_entry<COMPACT_I8>)(
-      q, k, v, store, dout, lse, delta, ilist, icount, islot, scale, seed, dk,
-      dv, G, H, N, D, Dv, n_j, W, S, metric, sqrt_d, use_dropout, keep_thresh,
-      inv_keep, stream);
 }

@@ -1,10 +1,10 @@
-// The two-walk backward's kernels (B3a: dq, B3b: dk and dv), their
-// launchers and their entry templates, for every mask form and precision
-// (documented in flash_geometric_bwd.cu). Included by
-// flash_geometric_bwd.cu (the dense forms and the fp32 compact forms) and
-// flash_geometric_bwd_compact_bf16.cu (the bf16 compact forms): two
-// libraries that nvcc builds in parallel, each instantiating its own
-// share of the templates.
+// The two-walk backward's kernels (B3a: dq, for every mask form; B3b: dk
+// and dv, dense mask), their launchers and their entry templates, in both
+// precisions (documented in flash_geometric_bwd.cu). Included by
+// flash_geometric_bwd.cu (the dense forms and B3a c) and
+// flash_geometric_bwd_compact_bf16.cu (B3a c's bf16 form): two libraries
+// that nvcc builds in parallel, each instantiating its own share of the
+// templates.
 
 #pragma once
 
@@ -136,34 +136,34 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int LANES, int kForm, bool kBf16>
+// B3b over the dense mask (B3b c, the compact form, is the key pair walk
+// of flash_pairwalk_bwd_compact.cu).
+template <int LANES, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
-                     const void* __restrict__ mask,
+                     const uint8_t* __restrict__ mask,
                      const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
                      const int* __restrict__ ilist,
                      const int* __restrict__ icount,
-                     const int* __restrict__ islot,
                      const float* __restrict__ scale,
                      const int* __restrict__ seed, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int N, int D, int Dv,
-                     int n_j, int W, int S, int metric, float sqrt_d,
+                     int n_j, int W, int metric, float sqrt_d,
                      int use_dropout, uint32_t keep_thresh, float inv_keep) {
   const int jb = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
   const int tid = threadIdx.x, rg = tid >> 4, lane = tid & 15;
   const int DS = D + 1, VS = Dv + 1, PS = BN + 1;
   extern __shared__ float smem[];
   const BwdTiles t = bwd_tiles(smem, D, Dv);
-  uint64_t* rows = tile_rows(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
   const float* dog = dout + gh * N * Dv;
   const float* kg = k + gh * N * D;
-  const uint8_t* mg = dense_mask<kForm>(mask, g, N);
+  const uint8_t* mg = mask + (size_t)g * N * N;
   const int col0 = jb * BN;
   load_rows(t.Ks, kg, col0, N, D);
   load_rows<kBf16>(t.Vs, v + gh * N * Dv, col0, N, Dv);
@@ -183,20 +183,18 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t walk = (size_t)g * n_j + jb;
   const int cnt = icount[walk];
   const int* il = ilist + walk * W;
-  const int* is = islot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int row0 = il[step] * BM;
-    __syncthreads();  // the previous step is done with Qs, dOs, Ws, Ps, rows
-    if constexpr (kForm != DENSE_MASK)
-      load_mask_tile<kForm>(rows, mask, (size_t)g * S + is[step]);
+    __syncthreads();  // the previous step is done with Qs, dOs, Ws and Ps
     load_query_side<kBf16>(t, qg, dog, lse + gh * N, delta + gh * N, row0, N,
                            D, Dv);
     __syncthreads();
     tile_norms<kBf16>(t, D, true, false);
     __syncthreads();
-    pair_weights<true, kForm, kBf16>(t, mg, rows, N, D, Dv, row0, col0,
-                                     metric, sc, sqrt_d, use_dropout, mix,
-                                     keep_thresh, inv_keep);
+    pair_weights<true, DENSE_MASK, kBf16>(t, mg, nullptr, N, D, Dv, row0,
+                                          col0, metric, sc, sqrt_d,
+                                          use_dropout, mix, keep_thresh,
+                                          inv_keep);
     __syncthreads();
     for (int i = 0; i < BM; ++i) {
       float w[4], p[4];
@@ -290,26 +288,24 @@ cudaError_t launch_dq(const dim3& grid, cudaStream_t stream, const void* q,
   return cudaGetLastError();
 }
 
-template <int LANES, int kForm, bool kBf16>
+template <int LANES, bool kBf16>
 cudaError_t launch_dkv(const dim3& grid, cudaStream_t stream, const void* q,
                        const void* k, const void* v, const void* mask,
                        const void* dout, const void* lse, const void* delta,
                        const void* ilist, const void* icount,
-                       const void* islot, const void* scale, const void* seed,
-                       void* dk, void* dv, int H, int N, int D, int Dv,
-                       int n_j, int W, int S, int metric, float sqrt_d,
-                       int use_dropout, unsigned int thresh, float inv_keep) {
-  const size_t smem = smem_bytes<kForm, kBf16>(D, Dv);
-  const cudaError_t e =
-      prepare(flash_bwd_dkv_kernel<LANES, kForm, kBf16>, smem);
+                       const void* scale, const void* seed, void* dk,
+                       void* dv, int H, int N, int D, int Dv, int n_j, int W,
+                       int metric, float sqrt_d, int use_dropout,
+                       unsigned int thresh, float inv_keep) {
+  const size_t smem = smem_bytes<DENSE_MASK, kBf16>(D, Dv);
+  const cudaError_t e = prepare(flash_bwd_dkv_kernel<LANES, kBf16>, smem);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkv_kernel<LANES, kForm, kBf16>
-      <<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, mask,
-      (const float*)dout, (const float*)lse, (const float*)delta,
-      (const int*)ilist, (const int*)icount, (const int*)islot,
+  flash_bwd_dkv_kernel<LANES, kBf16><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v,
+      (const uint8_t*)mask, (const float*)dout, (const float*)lse,
+      (const float*)delta, (const int*)ilist, (const int*)icount,
       (const float*)scale, (const int*)seed, (float*)dk, (float*)dv, H, N,
-      D, Dv, n_j, W, S, metric, sqrt_d, use_dropout, thresh, inv_keep);
+      D, Dv, n_j, W, metric, sqrt_d, use_dropout, thresh, inv_keep);
   return cudaGetLastError();
 }
 
@@ -341,16 +337,15 @@ int dq_entry(const void* q, const void* k, const void* v, const void* mask,
   return (int)cudaErrorInvalidValue;
 }
 
-template <int kForm, bool kBf16 = false>
+template <bool kBf16 = false>
 int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
               const void* dout, const void* lse, const void* delta,
-              const void* ilist, const void* icount, const void* islot,
-              const void* scale, const void* seed, void* dk, void* dv, int G,
-              int H, int N, int D, int Dv, int n_j, int W, int S, int metric,
-              float sqrt_d, int use_dropout, unsigned int keep_thresh,
-              float inv_keep, void* stream) {
-  if (bad_args(G, H, N, D, Dv, n_j, W, metric) ||
-      (kForm != DENSE_MASK && S < 1))
+              const void* ilist, const void* icount, const void* scale,
+              const void* seed, void* dk, void* dv, int G, int H, int N,
+              int D, int Dv, int n_j, int W, int metric, float sqrt_d,
+              int use_dropout, unsigned int keep_thresh, float inv_keep,
+              void* stream) {
+  if (bad_args(G, H, N, D, Dv, n_j, W, metric))
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
   const dim3 grid(n_j, H, G);
@@ -358,10 +353,10 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* mask,
   switch (lanes_for(D > Dv ? D : Dv)) {
 #define TAGAN_DKV(L)                                                       \
   case L:                                                                  \
-    return (int)launch_dkv<L, kForm, kBf16>(                               \
-        grid, s, q, k, v, mask, dout, lse, delta, ilist, icount, islot,    \
-        scale, seed, dk, dv, H, N, D, Dv, n_j, W, S, metric, sqrt_d,       \
-        use_dropout, keep_thresh, inv_keep);
+    return (int)launch_dkv<L, kBf16>(                                      \
+        grid, s, q, k, v, mask, dout, lse, delta, ilist, icount, scale,    \
+        seed, dk, dv, H, N, D, Dv, n_j, W, metric, sqrt_d, use_dropout,    \
+        keep_thresh, inv_keep);
     TAGAN_DKV(1) TAGAN_DKV(2) TAGAN_DKV(4) TAGAN_DKV(8)
 #undef TAGAN_DKV
   }

@@ -5,9 +5,10 @@
 // (the compact lse1, B4c), and the pair walks of flash_pairwalk_fwd.cu (B1,
 // B4, B5 and their bf16 forms), flash_pairwalk_fwd_compact.cu (B5c and its
 // bf16 form), flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
-// flash_pairwalk_biased_bwd.cu (B6, B7a, B7b and their bf16 forms) and
+// flash_pairwalk_biased_bwd.cu (B6, B7a, B7b and their bf16 forms),
 // flash_pairwalk_biased_bwd_compact.cu (B6c, B7a c, B7b c and their bf16
-// forms), through flash_pairwalk.cuh.
+// forms) and flash_pairwalk_bwd_compact.cu (B3b c and its bf16 form),
+// through flash_pairwalk.cuh.
 //
 // The metric scores, the dropout hash and the backward's recompute of one
 // (64-query tile, 64-key tile) pair. Every kernel takes the folded layout

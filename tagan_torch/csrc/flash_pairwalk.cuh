@@ -2,8 +2,8 @@
 // B5 and their bf16 forms), flash_pairwalk_bwd.cu (B2 and B2's bf16 form)
 // and flash_pairwalk_biased_bwd.cu (its row walk, B6 and B7a in both
 // precisions); its cp.async helpers also serve the compact walks of
-// flash_pairwalk_slots.cuh, flash_pairwalk_fwd_compact.cu and
-// flash_pairwalk_biased_bwd_compact.cu.
+// flash_pairwalk_slots.cuh, flash_pairwalk_fwd_compact.cu,
+// flash_pairwalk_biased_bwd_compact.cu and flash_pairwalk_bwd_compact.cu.
 //
 // One warp walks R rows of one 64-row query tile of one snapshot's dense
 // int8 mask [N, N] over the key tiles of its plan, jlist[g, tile, :cnt].
@@ -48,6 +48,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(NST - 1) : "memory");
+}
+
+// The key walks' wait: they commit step t + NST - 1's copies after their
+// wait for step t's, so NST - 2 groups may still be in flight.
+__device__ __forceinline__ void cp_async_wait_key() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(NST - 2) : "memory");
 }
 
 // Step tt's chunks of this lane into ring stage `stage`: chunk c = lane +

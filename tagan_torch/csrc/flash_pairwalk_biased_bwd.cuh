@@ -3,7 +3,10 @@
 // flash_pairwalk_biased_bwd_compact.cu (the hybrid band's row and key walks
 // over the compact store), each in fp32 and bf16: the walks' arguments,
 // one pair's recompute, and the two flushes that gather a row's (a key's)
-// listed pairs, recompute them and sum into the lane's accumulators.
+// listed pairs, recompute them and sum into the lane's accumulators. The
+// unbiased compact key walk (flash_pairwalk_bwd_compact.cu, B3b c) takes
+// the arguments, the key walk's block (`key_blocks`), its item and its
+// outputs from here, with a flush of its own.
 //
 // A walk lists each row's (key's) valid pairs as ints; where the pair's key
 // (row) and its bias entry lie is the walk's own: a policy object turns a
@@ -12,8 +15,7 @@
 // walks list the index itself, with the bias [G, N, N] (`DenseRowPairs`,
 // `DenseKeyPairs`); the compact walks list (walk step, column in the tile)
 // and read the step's slot of the bias store [G, S, 64, 64]
-// (`CompactRowPairs`, flash_pairwalk_slots.cuh; `CompactKeyPairs`,
-// flash_pairwalk_biased_bwd_compact.cu).
+// (`CompactRowPairs`, `CompactKeyPairs`: flash_pairwalk_slots.cuh).
 
 #pragma once
 
@@ -312,8 +314,10 @@ struct KeyItem {
 
 // The key item of thread `tid` for key gc of batch index g, head h: k (the
 // norm, then the row, bf16: rounded) and v into their slots, dk's and dv's
-// slots zeroed, the scale and the dropout mixes.
-template <bool kBf16>
+// slots zeroed, the scale and the dropout mixes: kSeeds seeds a batch
+// index, two here (mix1, mix2 from seeds [G, 2]), one for the unbiased
+// key walk (mix1 from seeds [G]; flash_pairwalk_bwd_compact.cu).
+template <bool kBf16, int kSeeds = 2>
 __device__ __forceinline__ KeyItem key_item(const Bwd& a, int g, int gc,
                                             int h, bool lane_on, int tid,
                                             int nthr, float* k_s, float* v_s,
@@ -345,8 +349,12 @@ __device__ __forceinline__ KeyItem key_item(const Bwd& a, int g, int gc,
     }
     it.sc = a.scale[h];
     const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
-    it.mix1 = (uint32_t)a.seeds[2 * g] ^ hmix;
-    it.mix2 = (uint32_t)a.seeds[2 * g + 1] ^ hmix;
+    if constexpr (kSeeds == 1) {
+      it.mix1 = (uint32_t)a.seeds[g] ^ hmix;
+    } else {
+      it.mix1 = (uint32_t)a.seeds[2 * g] ^ hmix;
+      it.mix2 = (uint32_t)a.seeds[2 * g + 1] ^ hmix;
+    }
   }
   return it;
 }
@@ -439,10 +447,6 @@ __device__ __forceinline__ void key_finish(const Bwd& a, const KeyItem& it,
   }
   float* ov = a.dv + key * a.Dv;
   for (int c = 0; c < a.Dv; ++c) ov[c] = dv_s[c * nthr + tid];
-}
-
-__device__ __forceinline__ void cp_async_wait_key() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(NST - 2) : "memory");
 }
 
 // ---------------------------------------------------------------------------

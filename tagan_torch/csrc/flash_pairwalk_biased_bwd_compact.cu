@@ -57,7 +57,9 @@
 // cp.async into the block's ring (the int8 store's 4 KB read and turned
 // into the words as they are loaded), one block barrier a step; each warp
 // turns its R keys' columns into a 64-bit row word a key by two ballots
-// (rows 0-31 and 32-63) and appends the key's rows to its list; the flush
+// (rows 0-31 and 32-63) and appends the key's rows to its list (the key
+// slot walk of flash_pairwalk_slots.cuh, which the unbiased compact key
+// walk of flash_pairwalk_bwd_compact.cu shares); the flush
 // gathers q_i, do_i, the row statistics, delta1_U and the bias at the
 // valid pairs and sums dk_j and dv_j in the walk's row order.
 //
@@ -86,21 +88,6 @@ using namespace tagan_pairwalk;
 // pairs alone (pairwalk_variants.py; its outputs are then not the function)
 constexpr bool ROW_FLUSH = true;
 constexpr bool KEY_FLUSH = true;
-
-// The key walk's list entries, t * 64 + r: walk step t (its row tile
-// il[t] and slot isl[t]) and the row r in the tile.
-struct CompactKeyPairs {
-  const int* il;          // the walk's row tiles
-  const int* isl;         // and slots
-  size_t g_s;
-  int cloc;               // the key's place in its tile
-  __device__ __forceinline__ int index(int x) const {
-    return __ldg(il + (x >> 6)) * BM + (x & (BM - 1));
-  }
-  __device__ __forceinline__ size_t bias(int x) const {
-    return ((g_s + __ldg(isl + (x >> 6))) * BM + (x & (BM - 1))) * BN + cloc;
-  }
-};
 
 // ---------------------------------------------------------------------------
 // The row walk
@@ -169,34 +156,9 @@ __global__ void __launch_bounds__(WARP, 8) row_walk_kernel(const Bwd a) {
 // The key walk
 // ---------------------------------------------------------------------------
 
-// Bytes of a block's walk: the ring [NST][64] of the walked slots' row
-// words and the keys' lists.
-__host__ __device__ inline size_t key_walk_bytes(int KB) {
-  return (size_t)NST * BM * 8 + (size_t)KB * CAPR * 4;
-}
-
+// Bytes of a key walk block: its slot walk (ring and lists) and its items.
 __host__ __device__ inline size_t key_bytes(int KB, int R, int D, int Dv) {
-  return key_walk_bytes(KB) + key_item_bytes(KB, R, D, Dv);
-}
-
-// The slot's 64 row words into `stage`, by the block: the bit store's 512
-// bytes in 16-byte chunks by cp.async; the int8 store's rows read 16 bytes
-// a thread, each turned into 16 bits of its row's word at once.
-template <int kForm>
-__device__ __forceinline__ void load_slot(uint64_t* stage, const uint8_t* st,
-                                          size_t slot) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const uint8_t* src = st + slot * BM * row_store_bytes<kForm>();
-  if constexpr (kForm == COMPACT_BITS) {
-    for (int c = tid; c < BM * 8 / 16; c += nthr)
-      cp_async16(reinterpret_cast<uint8_t*>(stage) + 16 * c, src + 16 * c,
-                 true);
-  } else {
-    uint16_t* parts = reinterpret_cast<uint16_t*>(stage);   // 4 a word
-    for (int c = tid; c < BM * 4; c += nthr)
-      parts[c] = (uint16_t)nonzero_bits16(
-          __ldg(reinterpret_cast<const uint4*>(src) + c));
-  }
+  return slot_key_walk_bytes(KB) + key_item_bytes(KB, R, D, Dv);
 }
 
 template <bool kBf16, int kForm>
@@ -217,7 +179,7 @@ key_walk_kernel(const Bwd a) {
   extern __shared__ __align__(16) uint8_t smem[];
   uint64_t* ring = reinterpret_cast<uint64_t*>(smem);    // [NST][64]
   int* lists = reinterpret_cast<int*>(smem + (size_t)NST * BM * 8);
-  float* k_s = reinterpret_cast<float*>(smem + key_walk_bytes(a.KB));
+  float* k_s = reinterpret_cast<float*>(smem + slot_key_walk_bytes(a.KB));
   float* v_s = k_s + (size_t)nthr * a.D;
   float* dk_s = v_s + (size_t)nthr * a.Dv;
   float* dv_s = dk_s + (size_t)nthr * a.D;
@@ -235,64 +197,11 @@ key_walk_kernel(const Bwd a) {
   int* list = lists + (warp * R + (kl < R ? kl : 0)) * CAPR;
   const bool writer = lane < R * HG && lane % HG == 0;
   const bool key_in = col0 + kc0 + kl < a.N;
-  int n = 0;                    // entries of the lane's key list
-  // step t - 1's row word of the lane's key, appended at step t (after
-  // the block's vote on a flush), its popcount and its step's first entry
-  uint64_t word = 0;
-  int add = 0, e0 = 0;
-  auto append = [&]() {
-    if (writer && add) {
-      int* dst = list + n;
-      for (uint64_t w = word; w; w &= w - 1)
-        *dst++ = e0 + __ffsll((long long)w) - 1;
-    }
-    n += add;
-  };
-
-  for (int s = 0; s < NST - 1; ++s) {
-    if (s < cnt) load_slot<kForm>(ring + s * BM, st, __ldg(isl + s));
-    cp_async_commit();
-  }
-  for (int t = 0; t < cnt; ++t) {
-    cp_async_wait_key();        // this thread's copies of step t
-    // everyone's copies of step t, everyone done with step t - 1's stage,
-    // and the block's vote on a flush, as in the dense key walk
-    const bool full = __syncthreads_or(n + add > CAPR);
-    const int tt = t + NST - 1;   // into step t - 1's stage
-    if (tt < cnt)
-      load_slot<kForm>(ring + (tt % NST) * BM, st, __ldg(isl + tt));
-    cp_async_commit();
-    if (full) {
-      if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
-      __syncwarp();
-      n = 0;
-    }
-    append();
-    // the row word of each of the warp's R keys: bit r for row r
-    const uint64_t* rows = ring + (t % NST) * BM;
-    const uint64_t wl = rows[lane], wh = rows[lane + WARP];
-    word = 0;
-    for (int c = 0; c < R; ++c) {
-      const int bit = kc0 + c;
-      const unsigned lo = __ballot_sync(FULL, (wl >> bit) & 1ull);
-      const unsigned hi = __ballot_sync(FULL, (wh >> bit) & 1ull);
-      if (c == kl) word = (uint64_t)lo | ((uint64_t)hi << 32);
-    }
-    // rows and keys past N carry no pair
-    word = key_in ? below(word, a.N - __ldg(il + t) * BM) : 0ull;
-    add = kl < R ? __popcll(word) : 0;
-    e0 = t * BM;
-  }
-  if (__any_sync(FULL, n + add > CAPR)) {
-    __syncwarp();
-    if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
-    __syncwarp();
-    n = 0;
-  }
-  append();
-  __syncwarp();
-  if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
-
+  walk_key_slots<kForm>(ring, list, st, a.N, kc0, kl, R, writer, key_in, il,
+                        isl, cnt, [&](int n) {
+                          if constexpr (KEY_FLUSH)
+                            key_pass<kBf16>(a, it, pairs, list, n, nthr);
+                        });
   key_finish<kBf16>(a, it, dk_s, dv_s, tid, nthr);
 }
 

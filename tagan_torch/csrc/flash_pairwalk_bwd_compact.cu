@@ -1,0 +1,271 @@
+// Geometric attention's backward over the hybrid band's compact store, as
+// pair walks for Hopper (sm_90a): the key walk B3b c (dk, dv), in fp32 and
+// bf16 (the template flag kBf16).
+//
+// Replaces the Pallas TPU kernel tagan_tpu/ops/pallas/flash_geometric.py::
+// _flash_bwd_dkv_kernel (pallas_call :1534) in its compact occupied-block
+// form (3-tuple plans: the hybrid backend's band; host side
+// flash_geometric_attention_bwd, launched :2074), bf16=False and
+// bf16=True. For each key j and head h, over the store's valid pairs
+// (i, j) of the transposed walk (ilist, icount, islot):
+//
+//     p_ij  = exp(s_ij - lse_i),          dp_ij = drop(do_i . v_j),
+//     ds_ij = p_ij (dp_ij - delta_i),     W_ij  = the chain weight of ds,
+//     dk_j  = sum_i W_ij q_i,             dv_j  = sum_i drop(p_ij) do_i,
+//
+// and the squared-distance metrics subtract (sum_i W_ij) k_j, k_j read
+// unrounded at its global column. delta_i = do_i . out_i - dlse_i comes
+// from the caller; a dead row (lse = 1e30) gives p = 0. drop is the JAX
+// package's coordinate hash (keep_hash) at the global (i, j) with mix =
+// seed[g] ^ h * 0xC2B2AE3D: the forward's dropout.
+//  - fp32: every operand unrounded, W = chain_weight (the scaled dot's
+//    1/sqrt(d) inside it), no TF32.
+//  - bf16: q and k rounded to bf16 after their fp32 norms, do and v
+//    rounded, W = chain_weight_bf16 and drop(p) rounded as operands of
+//    their products; the scaled dot divides dk by sqrt(d) at the end
+//    (chain_finish). The norms, sum_i W_ij, the k term and every sum stay
+//    fp32.
+// p is normalised by the given lse and has no running max, so no walk
+// order enters a pair's value; only the order of the fp32 sums does. The
+// plain version is flash_geometric_backward_compact_plain's dk and dv.
+//
+// Design. The compact biased backward's key walk (B7b c,
+// flash_pairwalk_biased_bwd_compact.cu) with the unbiased per-pair
+// function. One block owns KB keys of one 64-key tile for up to KEY_HG = 8
+// heads (`key_blocks`: KB halved until the block's shared memory fits),
+// each lane one (key, head) item whose k_j and v_j (rounded in bf16) and
+// dk_j and dv_j accumulators stay in its shared slots (`key_item`,
+// `key_finish`); head groups are innermost in the grid, so the blocks that
+// read one slot run together. The key slot walk of flash_pairwalk_slots.cuh
+// (`walk_key_slots`, shared with B7b c) copies each walked slot's 64 row
+// words (512 B) by cp.async NST - 1 steps ahead, one block barrier a step,
+// ballots each key's row word and lists its rows; the flush (`dkv_pass`
+// below) gathers q_i and do_i (16 bytes at a time where aligned), lse_i
+// and delta_i at the listed pairs only, recomputes s, p and dp and sums dk_j
+// and dv_j in the walk's row order. No atomic: each output element is
+// written by one lane, so repeated calls are bit-identical, and every key
+// before N is written, keys no row reaches (an empty walk, slots whose
+// bits are all 0) as 0.
+//
+// What bounds it on the H100. The store is 512 B a walked tile (17.8 MB a
+// 131K snapshot); q, k, v, do, lse, delta and the walk are read once and
+// dk and dv written once: ~0.067 ms at 3.35 TB/s. The pairs' products (~4
+// of head dim a pair and head) are far below the fp32 rate. The band holds
+// ~61 valid pairs a walked tile (~1 a row), so the flush's gathers set the
+// pace, where a tile walk computes all 4,096 pairs of every walked tile
+// once per head.
+//
+// Interface: plain C, loaded with ctypes. Launches on the given stream,
+// allocates nothing, returns the cudaError_t of the launch.
+
+#include "flash_pairwalk_biased_bwd.cuh"
+#include "flash_pairwalk_slots.cuh"
+
+namespace {
+
+using namespace tagan_pairwalk;
+
+// the flush: false leaves the walk copying the slots and listing each key's
+// rows alone (pairwalk_variants.py; its outputs are then not the function)
+constexpr bool KEY_FLUSH = true;
+
+// The flush of a key list of n rows (ascending), every lane of the warp in
+// step (to the longest list): dk_j and dv_j in the lane's slots. The
+// walk's arguments carry lse in `lse1` and delta in `delta1`.
+template <bool kBf16>
+__device__ __forceinline__ void dkv_pass(const Bwd& a, KeyItem& it,
+                                         const CompactKeyPairs& pairs,
+                                         const int* list, int n, int nthr) {
+  const bool q4 = (a.D & 3) == 0 && aligned16(a.q);
+  const bool o4 = (a.Dv & 3) == 0 && aligned16(a.dout);
+  const int nmax = __reduce_max_sync(FULL, n);
+  for (int e = 0; e < nmax; ++e) {
+    if (!(it.on && e < n)) continue;
+    const int gr = pairs.index(list[e]);
+    const size_t row = it.gh * a.N + gr;
+    const float* qr = a.q + row * a.D;
+    const float* dor = a.dout + row * a.Dv;
+    // q.k (bf16: of rounded operands), |q|^2 of the unrounded row, do.v
+    float qk = 0.f, qn = 0.f, dp = 0.f;
+    if (q4) {
+      for (int d = 0; d < a.D; d += 4) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(qr + d));
+        qn += x.x * x.x;
+        qk = fmaf(rd<kBf16>(x.x), it.ks[d * nthr], qk);
+        qn += x.y * x.y;
+        qk = fmaf(rd<kBf16>(x.y), it.ks[(d + 1) * nthr], qk);
+        qn += x.z * x.z;
+        qk = fmaf(rd<kBf16>(x.z), it.ks[(d + 2) * nthr], qk);
+        qn += x.w * x.w;
+        qk = fmaf(rd<kBf16>(x.w), it.ks[(d + 3) * nthr], qk);
+      }
+    } else {
+      for (int d = 0; d < a.D; ++d) {
+        const float x = __ldg(qr + d);
+        qn += x * x;
+        qk = fmaf(rd<kBf16>(x), it.ks[d * nthr], qk);
+      }
+    }
+    if (o4) {
+      for (int c = 0; c < a.Dv; c += 4) {
+        const float4 y = __ldg(reinterpret_cast<const float4*>(dor + c));
+        dp = fmaf(rd<kBf16>(y.x), it.vs[c * nthr], dp);
+        dp = fmaf(rd<kBf16>(y.y), it.vs[(c + 1) * nthr], dp);
+        dp = fmaf(rd<kBf16>(y.z), it.vs[(c + 2) * nthr], dp);
+        dp = fmaf(rd<kBf16>(y.w), it.vs[(c + 3) * nthr], dp);
+      }
+    } else {
+      for (int c = 0; c < a.Dv; ++c)
+        dp = fmaf(rd<kBf16>(__ldg(dor + c)), it.vs[c * nthr], dp);
+    }
+    const float s = score_of(a.metric, qk, qn, it.kn, it.sc, a.sqrt_d);
+    const float sq = fmaxf(qn + it.kn - 2.f * qk, 0.f);
+    const float p = expf(s - __ldg(a.lse1 + row));   // lse >= the row's s
+    float pd = p, dpv = dp;
+    if (a.use_dropout) {
+      const bool keep = keep_hash(it.mix1, (uint32_t)gr, (uint32_t)it.gc) <
+                        a.keep_thresh;
+      pd = keep ? p * a.inv_keep : 0.f;
+      dpv = keep ? dp * a.inv_keep : 0.f;
+    }
+    const float ds = p * (dpv - __ldg(a.delta1 + row));
+    const float w =
+        kBf16 ? chain_weight_bf16(a.metric, ds, s, sq, qk, it.sc)
+              : chain_weight(a.metric, ds, s, sq, qk, it.sc, a.sqrt_d);
+    it.wsum += w;
+    const float wk = rd<kBf16>(w), pr = rd<kBf16>(pd);
+    // dk_j += W q_i and dv_j += drop(p) do_i (bf16: rounded): the rows
+    // again, now in L1
+    for (int d = 0; d < a.D; ++d)
+      it.dk[d * nthr] = fmaf(wk, rd<kBf16>(__ldg(qr + d)), it.dk[d * nthr]);
+    if (pr != 0.f)
+      for (int c = 0; c < a.Dv; ++c)
+        it.dv[c * nthr] = fmaf(pr, rd<kBf16>(__ldg(dor + c)), it.dv[c * nthr]);
+  }
+}
+
+// Bytes of a key walk block: its slot walk (ring and lists) and its items.
+__host__ __device__ inline size_t key_bytes(int KB, int R, int D, int Dv) {
+  return slot_key_walk_bytes(KB) + key_item_bytes(KB, R, D, Dv);
+}
+
+// One block of up to KEY_WARPS warps an SM at least, as the biased key
+// walks (chip_smoke.py phase 1 logs ptxas's report).
+template <bool kBf16, int kForm>
+__global__ void __launch_bounds__(KEY_WARPS * WARP, 1)
+dkv_key_walk_kernel(const Bwd a) {
+  const int tid = threadIdx.x, lane = tid & (WARP - 1), warp = tid / WARP;
+  const int nthr = blockDim.x;
+  const int R = a.R, HG = a.HG;
+  // head groups innermost, then the key blocks of one tile: the blocks
+  // that read one slot run together
+  const int hg = (int)(blockIdx.x % a.n_hg);
+  const int rest = (int)(blockIdx.x / a.n_hg);
+  const int kb = rest % a.n_kb, jb = rest / a.n_kb;
+  const int g = (int)blockIdx.y;
+  const int col0 = jb * BN;
+  const int kc0 = kb * a.KB + warp * R;   // the warp's first key in the tile
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* ring = reinterpret_cast<uint64_t*>(smem);    // [NST][64]
+  int* lists = reinterpret_cast<int*>(smem + (size_t)NST * BM * 8);
+  float* k_s = reinterpret_cast<float*>(smem + slot_key_walk_bytes(a.KB));
+  float* v_s = k_s + (size_t)nthr * a.D;
+  float* dk_s = v_s + (size_t)nthr * a.Dv;
+  float* dv_s = dk_s + (size_t)nthr * a.D;
+
+  // the item: one seed a batch index, [G]
+  const int kl = lane / HG, h = hg * HG + lane % HG;
+  KeyItem it = key_item<kBf16, 1>(a, g, col0 + kc0 + kl, h, lane < R * HG,
+                                  tid, nthr, k_s, v_s, dk_s, dv_s);
+  const size_t walk = (size_t)g * a.n_t + jb;
+  const int cnt = a.pcount[walk];
+  const int* il = a.plan + walk * a.W;
+  const int* isl = a.pslot + walk * a.W;
+  const CompactKeyPairs pairs{il, isl, (size_t)g * a.S, kc0 + kl};
+  const uint8_t* st =
+      a.mask + (size_t)g * a.S * BM * row_store_bytes<kForm>();
+  int* list = lists + (warp * R + (kl < R ? kl : 0)) * CAPR;
+  const bool writer = lane < R * HG && lane % HG == 0;
+  const bool key_in = col0 + kc0 + kl < a.N;
+  walk_key_slots<kForm>(ring, list, st, a.N, kc0, kl, R, writer, key_in, il,
+                        isl, cnt, [&](int n) {
+                          if constexpr (KEY_FLUSH)
+                            dkv_pass<kBf16>(a, it, pairs, list, n, nthr);
+                        });
+  key_finish<kBf16>(a, it, dk_s, dv_s, tid, nthr);
+}
+
+template <bool kBf16, int kForm>
+int launch_keys(Bwd a, int G, void* stream) {
+  if (bad_args(a, G) || a.S < 1) return (int)cudaErrorInvalidValue;
+  if (G == 0 || a.H == 0 || a.N == 0) return 0;
+  if (!key_blocks(&a, [&](int KB) { return key_bytes(KB, a.R, a.D, a.Dv); }))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = key_bytes(a.KB, a.R, a.D, a.Dv);
+  const auto kern = dkv_key_walk_kernel<kBf16, kForm>;
+  const cudaError_t e = prepare(kern, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)(a.n_t * a.n_kb * a.n_hg), G);
+  kern<<<grid, (a.KB / a.R) * WARP, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <bool kBf16>
+int dkv_entry(const void* q, const void* k, const void* v, const void* store,
+              const void* dout, const void* lse, const void* delta,
+              const void* ilist, const void* icount, const void* islot,
+              const void* scale, const void* seed, void* dk, void* dv, int G,
+              int H, int N, int D, int Dv, int n_j, int W, int S, int packed,
+              int metric, float sqrt_d, int use_dropout,
+              unsigned int keep_thresh, float inv_keep, void* stream) {
+  // lse and delta ride in the biased walk's lse1 and delta1 (the key
+  // walk's row statistics); no bias, lse2 or delta2
+  Bwd a = common_args(q, k, v, store, nullptr, dout, lse, nullptr, nullptr,
+                      ilist, icount, scale, seed, H, N, D, Dv, n_j, W, metric,
+                      sqrt_d, use_dropout, keep_thresh, inv_keep);
+  a.delta1 = (const float*)delta;
+  a.pslot = (const int*)islot;
+  a.S = S;
+  a.dk = (float*)dk;
+  a.dv = (float*)dv;
+  return packed ? launch_keys<kBf16, COMPACT_BITS>(a, G, stream)
+                : launch_keys<kBf16, COMPACT_I8>(a, G, stream);
+}
+
+}  // namespace
+
+// B3b c: dk [G, H, N, D] and dv [G, H, N, Dv] over the transposed walk
+// (ilist, icount, islot [G, n_j, W], [G, n_j], [G, n_j, W]) of the compact
+// store, bits i64[G, S, 64] (packed) or int8 [G, S, 64, 64], 16-byte
+// aligned (islot names the same (row tile, key tile) slots as the forward
+// walk), given q, k [G, H, N, D], v, do [G, H, N, Dv], lse and delta
+// [G, H, N], scale f32[H] and one seed per g, i32[G].
+extern "C" int tagan_flash_geometric_bwd_dkv_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* dout, const void* lse, const void* delta, const void* ilist,
+    const void* icount, const void* islot, const void* scale,
+    const void* seed, void* dk, void* dv, int G, int H, int N, int D, int Dv,
+    int n_j, int W, int S, int packed, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return dkv_entry<false>(q, k, v, store, dout, lse, delta, ilist, icount,
+                          islot, scale, seed, dk, dv, G, H, N, D, Dv, n_j, W,
+                          S, packed, metric, sqrt_d, use_dropout, keep_thresh,
+                          inv_keep, stream);
+}
+
+// B3b c's bf16 form: the same arguments.
+extern "C" int tagan_flash_geometric_bwd_dkv_compact_bf16(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* dout, const void* lse, const void* delta, const void* ilist,
+    const void* icount, const void* islot, const void* scale,
+    const void* seed, void* dk, void* dv, int G, int H, int N, int D, int Dv,
+    int n_j, int W, int S, int packed, int metric, float sqrt_d,
+    int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return dkv_entry<true>(q, k, v, store, dout, lse, delta, ilist, icount,
+                         islot, scale, seed, dk, dv, G, H, N, D, Dv, n_j, W, S,
+                         packed, metric, sqrt_d, use_dropout, keep_thresh,
+                         inv_keep, stream);
+}

@@ -1,8 +1,12 @@
-// The slot walk over the hybrid band's compact store, shared by the walks
-// that take one row list a lane group: the compact forward walk of
-// flash_pairwalk_fwd_compact.cu (B5c in both precisions) and the compact
-// row walk of flash_pairwalk_biased_bwd_compact.cu (B6c and B7a c in both
-// precisions).
+// The slot walks over the hybrid band's compact store. The row slot walk
+// (`walk_slots`) is shared by the walks that take one row list a lane
+// group: the compact forward walk of flash_pairwalk_fwd_compact.cu (B5c in
+// both precisions) and the compact row walk of
+// flash_pairwalk_biased_bwd_compact.cu (B6c and B7a c in both precisions).
+// The key slot walk (`walk_key_slots`, at the end) is shared by the key
+// walks over the transposed walk: the compact biased key walk of
+// flash_pairwalk_biased_bwd_compact.cu (B7b c) and the unbiased one of
+// flash_pairwalk_bwd_compact.cu (B3b c), both in both precisions.
 //
 // The store holds a snapshot's occupied 64 x 64 tiles, slot s of batch
 // index g at g * S + s, as 64 uint64 row words (bit c of word r for pair
@@ -156,6 +160,130 @@ __device__ __forceinline__ void walk_slots(uint64_t* ring, int* lists,
     }
     rcount += n;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The key slot walk
+// ---------------------------------------------------------------------------
+
+// A key walk's list entries, t * 64 + r: walk step t (its row tile il[t]
+// and slot isl[t]) and the row r in the tile; `bias` is the offset of the
+// pair in an array shaped as the store, [G, S, 64, 64].
+struct CompactKeyPairs {
+  const int* il;          // the walk's row tiles
+  const int* isl;         // and slots
+  size_t g_s;
+  int cloc;               // the key's place in its tile
+  __device__ __forceinline__ int index(int x) const {
+    return __ldg(il + (x >> 6)) * BM + (x & (BM - 1));
+  }
+  __device__ __forceinline__ size_t bias(int x) const {
+    return ((g_s + __ldg(isl + (x >> 6))) * BM + (x & (BM - 1))) * BN + cloc;
+  }
+};
+
+// Bytes of a key walk block's walk: the ring [NST][64] of the walked slots'
+// row words and the keys' lists.
+__host__ __device__ inline size_t slot_key_walk_bytes(int KB) {
+  return (size_t)NST * BM * 8 + (size_t)KB * CAPR * 4;
+}
+
+// The slot's 64 row words into `stage`, by the block: the bit store's 512
+// bytes in 16-byte chunks by cp.async; the int8 store's rows read 16 bytes
+// a thread, each turned into 16 bits of its row's word at once.
+template <int kForm>
+__device__ __forceinline__ void load_slot(uint64_t* stage, const uint8_t* st,
+                                          size_t slot) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const uint8_t* src = st + slot * BM * row_store_bytes<kForm>();
+  if constexpr (kForm == COMPACT_BITS) {
+    for (int c = tid; c < BM * 8 / 16; c += nthr)
+      cp_async16(reinterpret_cast<uint8_t*>(stage) + 16 * c, src + 16 * c,
+                 true);
+  } else {
+    uint16_t* parts = reinterpret_cast<uint16_t*>(stage);   // 4 a word
+    for (int c = tid; c < BM * 4; c += nthr)
+      parts[c] = (uint16_t)nonzero_bits16(
+          __ldg(reinterpret_cast<const uint4*>(src) + c));
+  }
+}
+
+// The walk of a key walk block over the steps [0, cnt) of the transposed
+// walk, row tiles il and slots isl of the snapshot's store st. Each walked
+// slot's 64 row words are copied whole into the block's ring (NST stages,
+// NST - 1 steps ahead), one block barrier a step; each warp turns its R
+// keys' columns (kc0 + [0, R) of the tile) into a 64-bit row word a key by
+// two ballots (rows 0-31 and 32-63), keeps the rows before N (none for a
+// key past N: key_in false) and, one step later, appends its lane's key's
+// rows (key kl = lane / HG, written by the key's `writer` lane), ascending,
+// to `list` as entries t * 64 + r. flush(n) is called by every lane with
+// its key's list of n entries: by every warp at once when the block votes
+// at a step's barrier that a list could pass CAPR (a warp flushing alone
+// held the others at the next barrier), and by each warp at the end.
+template <int kForm, class Flush>
+__device__ __forceinline__ void walk_key_slots(
+    uint64_t* ring, int* list, const uint8_t* st, int N, int kc0, int kl,
+    int R, bool writer, bool key_in, const int* il, const int* isl, int cnt,
+    Flush&& flush) {
+  const int lane = threadIdx.x & (WARP - 1);
+  int n = 0;                    // entries of the lane's key list
+  // step t - 1's row word of the lane's key, appended at step t (after
+  // the block's vote on a flush), its popcount and its step's first entry
+  uint64_t word = 0;
+  int add = 0, e0 = 0;
+  auto append = [&]() {
+    if (writer && add) {
+      int* dst = list + n;
+      for (uint64_t w = word; w; w &= w - 1)
+        *dst++ = e0 + __ffsll((long long)w) - 1;
+    }
+    n += add;
+  };
+
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < cnt) load_slot<kForm>(ring + s * BM, st, __ldg(isl + s));
+    cp_async_commit();
+  }
+  for (int t = 0; t < cnt; ++t) {
+    cp_async_wait_key();        // this thread's copies of step t
+    // everyone's copies of step t, everyone done with step t - 1's stage,
+    // and the block's vote on a flush
+    const bool full = __syncthreads_or(n + add > CAPR);
+    const int tt = t + NST - 1;   // into step t - 1's stage
+    if (tt < cnt)
+      load_slot<kForm>(ring + (tt % NST) * BM, st, __ldg(isl + tt));
+    cp_async_commit();
+    if (full) {
+      flush(n);
+      __syncwarp();
+      n = 0;
+    }
+    append();
+    // the row word of each of the warp's R keys: bit r for row r
+    const uint64_t* rows = ring + (t % NST) * BM;
+    const uint64_t wl = rows[lane], wh = rows[lane + WARP];
+    word = 0;
+    for (int c = 0; c < R; ++c) {
+      const int bit = kc0 + c;
+      const unsigned lo = __ballot_sync(FULL, (wl >> bit) & 1ull);
+      const unsigned hi = __ballot_sync(FULL, (wh >> bit) & 1ull);
+      if (c == kl) word = (uint64_t)lo | ((uint64_t)hi << 32);
+    }
+    // rows and keys past N carry no pair
+    word = key_in ? below(word, N - __ldg(il + t) * BM) : 0ull;
+    add = kl < R ? __popcll(word) : 0;
+    e0 = t * BM;
+  }
+  if (__any_sync(FULL, n + add > CAPR)) {
+    __syncwarp();
+    flush(n);
+    __syncwarp();
+    n = 0;
+  }
+  append();
+  __syncwarp();
+  flush(n);
 }
 
 }  // namespace tagan_pairwalk

@@ -16,7 +16,7 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7b  _biased_bwd_dkv_kernel   csrc/flash_pairwalk_biased_bwd.cu (key walk)
     B1c  _flash_kernel, compact   csrc/flash_geometric_fwd.cu
     B3a c  _flash_bwd_dq_kernel, compact   csrc/flash_geometric_bwd.cu
-    B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_geometric_bwd.cu
+    B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_pairwalk_bwd_compact.cu
     B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
     B5c  _flash_biased_kernel, compact  csrc/flash_pairwalk_fwd_compact.cu
     B6c  _biased_bwd_pre_kernel, compact  the compact row walk (*)
@@ -28,12 +28,12 @@ kernels that port the Pallas ones, and the differentiable entry point:
 B1, B2, B4 and B5 are pair walks that read each mask tile once for all
 heads and compute only the mask's valid pairs; so are B6 and B7a, together
 as one row walk, and B7b as the key walk, and over the compact store B5c
-(the forward walk), B6c and B7a c (one row walk) and B7b c (a key walk).
-Every kernel above also has a bf16 form (the TPU kernels' ``bf16=True``:
-every product's operands rounded to bf16, float32 sums), in the same
-sources under its own entry point and launch count (the pair walks' in
-the same files; B3a c's and B3b c's in
-csrc/flash_geometric_bwd_compact_bf16.cu, from the templates of
+(the forward walk), B6c and B7a c (one row walk), B7b c and B3b c (key
+walks). Every kernel above also has a bf16 form (the TPU kernels'
+``bf16=True``: every product's operands rounded to bf16, float32 sums),
+in the same sources under its own entry point and launch count (the pair
+walks' in the same files; B3a c's in
+csrc/flash_geometric_bwd_compact_bf16.cu, from the template of
 csrc/flash_geometric_bwd.cuh); the model takes them under
 ``bf16_matmul``.
 
@@ -1923,9 +1923,13 @@ class _FlashBwdDkvCompactKernel(_FlashBackwardCompactKernel):
     """B3b c, ``tagan_flash_geometric_bwd_dkv_compact``: B3b over the
     compact store, dk and dv over the transposed walk (ilist, icount,
     islot), whose slots name the same store tiles (row = query, column =
-    key). Deterministic."""
+    key), as a key pair walk: a block owns up to 64 keys of a key tile
+    for up to 8 heads, copies each walked slot's row words, lists each
+    key's rows and computes only the store's valid pairs. Every entry of
+    dk and dv is written (keys no row reaches: 0). Deterministic: no
+    atomics."""
     name = "flash_geometric_bwd_dkv_compact"
-    source = "flash_geometric_bwd"
+    source = "flash_pairwalk_bwd_compact"
     symbol = "tagan_flash_geometric_bwd_dkv_compact"
     argtypes = (_P,) * 14 + (_I,) * 10 + (_F, _I, _U, _F)
 
@@ -1956,9 +1960,9 @@ class _FlashBwdDqCompactBf16Kernel(_FlashBwdDqCompactKernel):
 
 
 class _FlashBwdDkvCompactBf16Kernel(_FlashBwdDkvCompactKernel):
-    """B3b c's bf16 form, ``tagan_flash_geometric_bwd_dkv_compact_bf16``."""
+    """B3b c's bf16 form, ``tagan_flash_geometric_bwd_dkv_compact_bf16``:
+    the same key pair walk with bf16 operands."""
     name = "flash_geometric_bwd_dkv_compact_bf16"
-    source = "flash_geometric_bwd_compact_bf16"
     symbol = "tagan_flash_geometric_bwd_dkv_compact_bf16"
 
 

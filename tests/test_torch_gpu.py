@@ -2316,6 +2316,159 @@ def test_compact_fwd_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
     assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
 
 
+
+# -- B3b c's compact key pair walk, fp32 and bf16 ---------------------------
+
+def compact_bwd_walk_check(dev, bf16, G, H, N, D, Dv, metric, rate, pack,
+                           seed=3, repeats=1):
+    """B3b c (``bf16``: its bf16 form), the compact key pair walk, at
+    `band_mask`'s cases over `band_compact`'s walks (a whole tile, whose
+    keys' lists pass CAPR so that the walk flushes more than once; a
+    one-pair tile; a key tile no row reaches, icount = 0; rows past 128
+    keys; dead rows; a walked slot with no bit; walk entries past the
+    counts; N = 330 has a ragged last tile), q and k at ``BF16_QK_SCALE``
+    in bf16, on the compact plain forward's (out, lse) with an lse
+    cotangent, and one live row's lse set to ``LSE_DEAD`` though the store
+    lists its pairs (p = 0 there, not NaN), against the compact plain
+    backward's dk and dv: within TOL of the largest entry in fp32, under
+    the bf16 gates in bf16 (the plain fp32 backward the witness). Its
+    outputs are allocated NaN-filled (`nan_empty`) and come back set
+    everywhere, the keys no row reaches exactly 0; each call launches the
+    walk once and nothing else; ``repeats`` calls are bit-identical.
+    Shared by chip_smoke.py's phases 2f and 2j. Returns the max abs
+    error (fp32) or the worst (max abs error, max error, mean error,
+    witness) over the largest entry (bf16)."""
+    (q, k, v, mask, store, _, plan, plan_t, scale, seeds, do, _, _, _,
+     _) = (t.to(dev).contiguous() if torch.is_tensor(t)
+           else tuple(p_.to(dev).contiguous() for p_ in t)
+           for t in _compact_biased_bwd_inputs(
+               G, H, N, D, Dv, metric, pack, rate, seed,
+               BF16_QK_SCALE if bf16 else 1.0, band=True))
+    seed1 = seeds[:, 0].contiguous()
+    out, lse = (t.contiguous() for t in
+                FG.flash_geometric_forward_compact_plain(
+                    q, k, v, store, *plan, metric, scale, rate, seed1,
+                    bf16=bf16))
+    live = (mask != 0).any(-1)
+    assert live[:, 7].all()
+    lse[:, :, 7] = FG.LSE_DEAD
+    gen = torch.Generator().manual_seed(seed + 500)
+    dlse = (0.25 * torch.randn(lse.shape, generator=gen)).to(dev) \
+        * live[:, None]
+    delta = FG._delta(do, out, dlse).contiguous()
+    kern = FG.flash_geometric_bwd_dkv_compact_bf16_kernel if bf16 \
+        else FG.flash_geometric_bwd_dkv_compact_kernel
+
+    def call():
+        with nan_empty():
+            return kern(q, k, v, store, do, lse, delta, *plan_t, metric,
+                        scale, seed1, rate)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    dk, dv = call()
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    assert launched == {k_.name: int(k_ is kern) for k_ in FG.KERNELS}
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+    unreached = slice(192, 256) if N >= 256 else slice(N, N)
+    assert N < 256 or not mask[:, :, unreached].any()
+    assert torch.all(dk[:, :, unreached] == 0)
+    assert torch.all(dv[:, :, unreached] == 0)
+    for _ in range(repeats - 1):
+        again = call()
+        assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    rest = (q, k, v, store, out, lse, do, *plan, metric, scale, rate, seed1,
+            False, dlse)
+    want = FG.flash_geometric_backward_compact_plain(*rest, bf16=bf16)[1:3]
+    if not bf16:
+        err = max((g - w).abs().max().item() for g, w in zip((dk, dv), want))
+        for g, w in zip((dk, dv), want):
+            assert ((g - w).abs().max() / w.abs().max().clamp(min=1.0)
+                    ).item() <= TOL
+        return err
+    f32 = FG.flash_geometric_backward_compact_plain(*rest)[1:3]
+    res = []
+    for got, w, f in zip((dk, dv), want, f32):
+        _bf16_gates(got, w, f)
+        m = w.abs().max().clamp(min=1e-30)
+        e = (got - w).abs()
+        res.append((e.max().item(), (e.max() / m).item(),
+                    (e.mean() / m).item(), ((f - w).abs().mean() / m).item()))
+    return tuple(max(r[i] for r in res) if i < 3 else min(r[i] for r in res)
+                 for i in range(4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_bwd_walk_band(metric, rate, pack, bf16, cuda):
+    """B3b c's walk in both precisions at the band's cases, bit and int8
+    stores, every metric, dropout on and off (the hash at the global
+    (row, key), as the plain version's) (`compact_bwd_walk_check`)."""
+    compact_bwd_walk_check(cuda, bf16, 2, 4, 330, 16, 16, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_compact_bwd_walk_head_dims(D, Dv, pack, bf16, cuda):
+    """Head dims whose sqrt is not a power of two, D != Dv, odd widths (no
+    16-byte gathers), and the widest, (128, 128), where the block's items
+    pass 227 KB at 64 keys and the block is halved until they fit."""
+    compact_bwd_walk_check(cuda, bf16, 1, 2, 330, D, Dv, "gaussian_kernel",
+                           0.1, pack, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("H,D", [(1, 16), (4, 16), (12, 16), (12, 128)])
+def test_compact_bwd_walk_fold(H, D, bf16, cuda):
+    """Folds of 1, 4 and 12 heads: 12 is more than a block's 8, so two head
+    groups, the second of 4 heads; and 12 heads at head dim 128, where
+    the block is halved to 8 keys."""
+    compact_bwd_walk_check(cuda, bf16, 2, H, 330, D, D, "gaussian_kernel",
+                           0.1, True, seed=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+def test_compact_bwd_walk_deterministic(pack, bf16, cuda):
+    """dk and dv are bit-identical over 20 calls: the walk sums in the
+    list's order and has no atomic."""
+    compact_bwd_walk_check(cuda, bf16, 2, 4, 1008, 16, 16, "gaussian_kernel",
+                           0.1, pack, repeats=20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fault", ["islot", "icount", "ilist"])
+def test_compact_bwd_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
+    """The walk's wrapper checks the transposed walk's values: an islot
+    past the store, a count past the walk's width or a row tile past N
+    raise ValueError on the host, and no kernel is launched."""
+    (q, k, v, _, store, _, _, plan_t, scale, seeds, do, lse, _, delta, _) = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p_.to(cuda) for p_ in t)
+        for t in _compact_biased_bwd_inputs(1, 2, 330, 16, 16, "dot_product",
+                                            True, 0.0, band=True))
+    il, ic, isl = (p_.clone() for p_ in plan_t)
+    if fault == "islot":
+        isl[0, 0, 0] = store.shape[1]
+    elif fault == "icount":
+        ic[0, 0] = il.shape[-1] + 1
+    else:
+        il[0, 0, 0] = 6
+    kern = FG.flash_geometric_bwd_dkv_compact_bf16_kernel if bf16 \
+        else FG.flash_geometric_bwd_dkv_compact_kernel
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    with pytest.raises(ValueError):
+        kern(q, k, v, store, do, lse, delta.contiguous(), il, ic, isl,
+             "dot_product", scale, seeds[:, 0].contiguous(), 0.0)
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
+
 # -- the ring: B8 (all-gather) and B9 (ring flash) over virtual ranks ---------
 
 # each ring is run this many times in a row: rows sent on before they

@@ -37,17 +37,19 @@ Phases, in order; any failure raises and exits non-zero:
    stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
    folds of 1, 4 and 33 heads; its outputs allocated NaN-filled and set
    everywhere, two cases called 20 times bit for bit); (2f) the
-   compact-store backward kernels B3a c (dq, dscale) and B3b c (dk,
-   dv; the compact key pair walk) against the compact plain backward on
-   2e's grid with an lse cotangent, dead rows and an empty key strip
-   (icount = 0) exactly zero, and B3b c at
+   compact-store backward kernels B3a c (dq, dscale; the compact row
+   pair walk) and B3b c (dk, dv; the compact key pair walk) against the
+   compact plain backward on 2e's grid with an lse cotangent, dead rows
+   and an empty key strip (icount = 0) exactly zero, and B3b c at
    `tests/test_torch_gpu.py::band_mask`'s cases over `band_compact`'s
    walks (`compact_bwd_walk_check`: every metric, dropout off and on,
    both stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128,
    128), folds of 1, 4 and 12 heads and 12 at head dim 128, a row whose
    lse is LSE_DEAD though the store lists its pairs; its outputs
    allocated NaN-filled and set everywhere, two cases called 20 times
-   bit for bit); (2g) the
+   bit for bit), and B3a c at the same cases (`compact_dq_walk_check`:
+   dscale at gaussian and rbf, folds of 1, 4 and 33 heads and 33 at head
+   dim 128, rows whose walks list more than 128 pairs); (2g) the
    compact-store biased backward's fp32 pair walks, the row walk (B6c
    and B7a c: delta1, dB at the store's pairs, dq, dscale) and the key
    walk (B7b c: dk, dv), against the compact plain parts on 2e's grid
@@ -71,8 +73,9 @@ Phases, in order; any failure raises and exits non-zero:
    and B3b c against the compact plain bf16 versions on 2f's grid, both
    stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
    under the same gates (dead rows and the empty key strip exactly 0),
-   B3b c bf16's walk at 2f's band cases under the bf16 gates, and a
-   jslot past the store raising before any launch; (2k) the bf16
+   B3b c bf16's and B3a c bf16's walks at 2f's band cases under the
+   bf16 gates, and a jslot past the store raising before any launch;
+   (2k) the bf16
    forms of B4c, B5c and the compact biased backward's row walk (B6c
    and B7a c) and key walk (B7b c) against the compact plain bf16
    versions on 2g's grid and union-like statistics with a residual
@@ -171,8 +174,9 @@ Phases, in order; any failure raises and exits non-zero:
    compiled ``flex_attention`` under a block mask built from the compact
    plan (a bit-store mask_mod) at the scaled-dot metric as the library yardstick (held against the kernels
    at that metric; null with the reason if it does not build), and the
-   csr ``edge_attention`` over the layer's whole edge set; (5e) B3a c,
-   B3b c (the compact key pair walk) and the two together at one 131K
+   csr ``edge_attention`` over the layer's whole edge set; (5e) B3a c
+   (the compact row pair walk), B3b c (the compact key pair walk) and
+   the two together at one 131K
    snapshot of 6c against the compact plain backward and their bounds
    (and each one's share of its bound), compiled ``flex_attention``'s
    backward under the compact plan's block mask at the scaled-dot metric
@@ -294,7 +298,8 @@ Phases, in order; any failure raises and exits non-zero:
    batches: one warm-up step, then 3 steps (the bf16 forms of B1c, B3a c
    and B3b c each exactly once per layer per step, the fp32 forms
    never), step times, split, peak memory, one layer's bf16 B3a c + B3b c
-   over the folded snapshots and their share of the step, finite non-zero
+   (and each alone) over the folded snapshots and their share of the
+   step, finite non-zero
    gradients, every parameter moved, and one snapshot at full width
    against the compact plain bf16 backward under the bf16 gates, at the
    weights the 3 steps left: the warm-up and the 3 steps run under
@@ -3506,13 +3511,13 @@ def compact_bwd_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
     return compact_errors(check_backward(label, got, want, False))
 
 
-def compact_bwd_walk_runs(FG):
-    """The band cases at which 2f and 2j hold B3b c's compact key walk
-    (`tests.test_torch_gpu.compact_bwd_walk_check`'s arguments after the
-    precision): every metric with dropout off and on, both stores; (D, Dv)
-    of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), both stores;
-    folds of 1, 4 and 12 heads (two head groups) and 12 at head dim 128;
-    and two cases called 20 times, bit for bit."""
+def compact_walk_runs(FG, folds, seed):
+    """The band cases at which 2f and 2j hold a compact backward walk
+    (the arguments of `tests.test_torch_gpu`'s `compact_bwd_walk_check`
+    and `compact_dq_walk_check` after the precision): every metric with
+    dropout off and on, both stores; (D, Dv) of (16, 16), (8, 8), (12,
+    12), (7, 3) and (128, 128), both stores; ``folds``' (H, D); and two
+    cases called 20 times, bit for bit, at ``seed``."""
     runs = [(2, 4, 330, 16, 16, metric, rate, pack)
             for pack in (True, False) for metric in FG.MXU_METRICS
             for rate in (0.0, 0.1)]
@@ -3520,25 +3525,36 @@ def compact_bwd_walk_runs(FG):
              for pack in (True, False)
              for D, Dv in ((16, 16), (8, 8), (12, 12), (7, 3), (128, 128))]
     runs += [(2, H, 330, D, D, "gaussian_kernel", 0.1, True, 5)
-             for H, D in ((1, 16), (4, 16), (12, 16), (12, 128))]
-    runs += [(2, 4, 1008, 16, 16, "gaussian_kernel", 0.1, pack, 3, 20)
+             for H, D in folds]
+    runs += [(2, 4, 1008, 16, 16, "gaussian_kernel", 0.1, pack, seed, 20)
              for pack in (True, False)]
     return runs
 
 
-def phase_compact_bwd_walk(FG, bf16):
-    """B3b c's compact key pair walk (``bf16``: its bf16 form) at
-    `compact_bwd_walk_runs`' band cases, outputs allocated NaN-filled and
-    set everywhere, keys no row reaches exactly 0, one launch each,
-    against the compact plain backward's dk and dv: within TOL, or under
-    the bf16 gates. Returns (cases, worst error)."""
-    from tests.test_torch_gpu import compact_bwd_walk_check
-    errs = [compact_bwd_walk_check(DEV, bf16, *run)
-            for run in compact_bwd_walk_runs(FG)]
-    if bf16:
-        return len(errs), tuple(max(e[i] for e in errs) if i < 3 else
-                                min(e[i] for e in errs) for i in range(4))
-    return len(errs), max(errs)
+def phase_compact_walks(FG, bf16):
+    """B3b c's compact key pair walk and B3a c's compact row pair walk
+    (``bf16``: their bf16 forms) at `compact_walk_runs`' band cases: the
+    key walk with folds of 1, 4 and 12 heads (two head groups of its
+    block's 8) and 12 at head dim 128, the row walk with 1, 4 and 33 heads
+    (two groups of a warp's 32) and 33 at head dim 128, and its 20-call
+    cases at seed 4 (`test_compact_dq_walk_deterministic`'s); outputs
+    allocated NaN-filled and set everywhere, one launch each, against the
+    compact plain backward: within TOL, or under the bf16 gates. Returns
+    {kernel: (cases, worst error)}."""
+    from tests.test_torch_gpu import (compact_bwd_walk_check,
+                                      compact_dq_walk_check)
+    out = {}
+    for name, check, folds, seed in (
+            ("B3b c", compact_bwd_walk_check,
+             ((1, 16), (4, 16), (12, 16), (12, 128)), 3),
+            ("B3a c", compact_dq_walk_check,
+             ((1, 16), (4, 16), (33, 16), (33, 128)), 4)):
+        errs = [check(DEV, bf16, *run)
+                for run in compact_walk_runs(FG, folds, seed)]
+        out[name] = (len(errs), tuple(
+            max(e[i] for e in errs) if i < 3 else min(e[i] for e in errs)
+            for i in range(4)) if bf16 else max(errs))
+    return out
 
 
 def phase_small_compact_bwd(FG):
@@ -3552,14 +3568,20 @@ def phase_small_compact_bwd(FG):
             errs.append(compact_bwd_vs_plain(FG, 2, 2, 200, D, Dv,
                                              "gaussian_kernel", 0.1, pack, 1))
     out = {name: max(e[name] for e in errs) for name in ("B3a c", "B3b c")}
-    n_band, band_err = phase_compact_bwd_walk(FG, False)
+    walks = phase_compact_walks(FG, False)
+    (n_band, band_err), (n_rows, row_err) = walks["B3b c"], walks["B3a c"]
     out["B3b c"] = max(out["B3b c"], band_err)
+    out["B3a c"] = max(out["B3a c"], row_err)
     log(f"[2f] B3a c (dq, dscale) and B3b c (dk, dv) vs the compact plain "
         f"backward, bit and int8 stores, lse cotangent: {len(errs)} cases; "
         f"B3b c's walk at the band's cases (every metric, dropout off and "
         f"on, head dims, folds of 1, 4 and 12 heads, outputs allocated "
         f"NaN-filled, two cases 20 times bit for bit): {n_band} cases, max "
-        f"abs err {band_err:.3e}; max err {out} (tol {TOL})")
+        f"abs err {band_err:.3e}; B3a c's walk at the band's cases (every "
+        f"metric, dropout off and on, dscale, head dims, folds of 1, 4 and "
+        f"33 heads, outputs allocated NaN-filled, two cases 20 times bit "
+        f"for bit): {n_rows} cases, max abs err {row_err:.3e}; max err "
+        f"{out} (tol {TOL})")
     return out
 
 
@@ -3615,12 +3637,11 @@ def compact_bf16_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
 def phase_small_compact_bf16(FG):
     """[2j] B1c, B3a c and B3b c's bf16 forms, bit and int8 stores: every
     metric with dropout 0 and 0.1 at (D, Dv) = (16, 8), and (D, Dv) of
-    (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), where B3a c's 64
-    tile-row words sit past the dense tiles in shared memory; an lse
-    cotangent, dscale for gaussian/rbf, dead rows, a row tile with jcount
-    = 0, an empty key strip; B3b c bf16's walk at 2f's band cases. Then a
-    jslot past the store raises before any launch, at the forward's entry
-    and at B3a c's and B3b c's bf16 wrappers."""
+    (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128); an lse cotangent,
+    dscale for gaussian/rbf, dead rows, a row tile with jcount = 0, an
+    empty key strip; B3b c bf16's and B3a c bf16's walks at 2f's band
+    cases. Then a jslot past the store raises before any launch, at the
+    forward's entry and at B3a c's and B3b c's bf16 wrappers."""
     cases = [(metric, 16, 8, rate) for metric in FG.MXU_METRICS
              for rate in (0.0, 0.1)]
     cases += [("scaled_dot_product", 16, 16, 0.1), ("scaled_dot_product", 8,
@@ -3633,8 +3654,10 @@ def phase_small_compact_bf16(FG):
             for name, r in compact_bf16_vs_plain(FG, 2, 3, 150, D, Dv, metric,
                                                  rate, pack).items():
                 worst[name] = max(worst.get(name, r), r)
-    n_band, band = phase_compact_bwd_walk(FG, True)
+    walks = phase_compact_walks(FG, True)
+    (n_band, band), (n_rows, rows) = walks["B3b c"], walks["B3a c"]
     worst["B3b c"] = max(worst["B3b c"], band)
+    worst["B3a c"] = max(worst["B3a c"], rows)
     q, k, v, do, _, _, store, plan, plan_t, scale, seeds = \
         compact_bwd_inputs(FG, 1, 2, 150, 16, 16, "dot_product", 0, True)
     jl, jc, js = (p.clone() for p in plan)
@@ -3662,7 +3685,8 @@ def phase_small_compact_bf16(FG):
     log(f"[2j] bf16 forms of B1c, B3a c and B3b c vs the compact plain bf16 "
         f"versions, bit and int8 stores: {2 * len(cases)} cases; B3b c bf16's "
         f"walk at 2f's band cases: {n_band} cases, worst "
-        f"{tuple(f'{x:.3e}' for x in band)}; worst (max "
+        f"{tuple(f'{x:.3e}' for x in band)}; B3a c bf16's walk there: "
+        f"{n_rows} cases, worst {tuple(f'{x:.3e}' for x in rows)}; worst (max "
         f"abs err, max err, mean err, witness over the largest entry) "
         + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
                     for n, r in worst.items())
@@ -6371,7 +6395,7 @@ def main() -> int:
                          else tbh["library"]["error"]))
         for name, kern, source, line in (
             ("B3a c", FG.flash_geometric_bwd_dq_compact_kernel,
-             "flash_geometric_bwd.cu", 2009),
+             "flash_pairwalk_bwd_compact.cu", 2009),
             ("B3b c", FG.flash_geometric_bwd_dkv_compact_kernel,
              "flash_pairwalk_bwd_compact.cu", 2074))]
     # the compact biased backward's fp32 walks, the row walk (B6c and B7a
@@ -6513,8 +6537,8 @@ def main() -> int:
                  if lib16h["error"] is None else lib16h["error"]))
         for name, kern, source, line, plain_of in zip(
             ("B1c", "B3a c", "B3b c"), compact_kernels(FG, True),
-            ("flash_geometric_fwd.cu", "flash_geometric_bwd_compact_bf16.cu",
-             "flash_pairwalk_bwd_compact.cu"),
+            ("flash_geometric_fwd.cu",)
+            + ("flash_pairwalk_bwd_compact.cu",) * 2,
             (1315, 2009, 2074),
             ("flash_geometric_forward_compact_plain with bf16=True (walks "
              "the plan)",) + ("flash_geometric_backward_compact_plain with "

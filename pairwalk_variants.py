@@ -5,9 +5,10 @@
 walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), their compact
 forms over the hybrid band's store, fp32 and bf16
 (``flash_pairwalk_biased_bwd_compact.cu``), B5c's compact forward walk,
-fp32 and bf16 (``flash_pairwalk_fwd_compact.cu``), and B3b c's compact
-key walk of the unbiased backward ("compact plain key walk"), fp32 and
-bf16 (``flash_pairwalk_bwd_compact.cu``), against copies of their sources
+fp32 and bf16 (``flash_pairwalk_fwd_compact.cu``), and the unbiased
+backward's compact walks, B3a c's row walk ("compact plain row walk") and
+B3b c's key walk ("compact plain key walk"), fp32 and bf16
+(``flash_pairwalk_bwd_compact.cu``), against copies of their sources
 with one design constant changed, on one NVIDIA GPU, to see what bounds
 them:
 
@@ -96,6 +97,8 @@ EDITS = {
         noflush=("constexpr bool FWD_FLUSH = true;",
                  "constexpr bool FWD_FLUSH = false;")),
     "flash_pairwalk_bwd_compact": dict(
+        noflush_row=("constexpr bool ROW_FLUSH = true;",
+                     "constexpr bool ROW_FLUSH = false;"),
         noflush_key=("constexpr bool KEY_FLUSH = true;",
                      "constexpr bool KEY_FLUSH = false;")),
 }
@@ -111,11 +114,14 @@ WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
                  "compact key walk bf16": ("noflush_key",),
                  "compact fwd walk": ("noflush",),
                  "compact fwd walk bf16": ("noflush",),
+                 "compact plain row walk": ("noflush_row",),
+                 "compact plain row walk bf16": ("noflush_row",),
                  "compact plain key walk": ("noflush_key",),
                  "compact plain key walk bf16": ("noflush_key",)}
 COMPACT = ("compact row walk", "compact row walk bf16", "compact key walk",
            "compact key walk bf16", "compact fwd walk",
-           "compact fwd walk bf16", "compact plain key walk",
+           "compact fwd walk bf16", "compact plain row walk",
+           "compact plain row walk bf16", "compact plain key walk",
            "compact plain key walk bf16")
 
 
@@ -226,6 +232,10 @@ def main() -> int:
              "compact fwd walk": FG.flash_biased_fwd_compact_kernel,
              "compact fwd walk bf16":
                  FG.flash_biased_fwd_compact_bf16_kernel,
+             "compact plain row walk":
+                 FG.flash_geometric_bwd_dq_compact_kernel,
+             "compact plain row walk bf16":
+                 FG.flash_geometric_bwd_dq_compact_bf16_kernel,
              "compact plain key walk":
                  FG.flash_geometric_bwd_dkv_compact_kernel,
              "compact plain key walk bf16":
@@ -310,8 +320,8 @@ def main() -> int:
 def compact_times(kernels, gen):
     """The compact walks and their variants on one snapshot of the band,
     each precision's key walk on its own row walk's delta1, the forward
-    walk on B4c's lse1, the plain key walk (B3b c) on B1c's lse and
-    delta = rowsum(dO out)."""
+    walk on B4c's lse1, the plain row and key walks (B3a c, B3b c) on
+    B1c's lse and delta = rowsum(dO out)."""
     store, plan, plan_t = band_graph(7)
     S = store.shape[1]
     q, k, v, do = (0.5 * torch.randn(1, H, N_BAND, D, device="cuda",
@@ -340,8 +350,13 @@ def compact_times(kernels, gen):
         seed = torch.zeros(1, dtype=torch.int32, device="cuda")
         out1, lse = FG.flash_geometric_fwd_compact_kernel(
             q, k, v, store, *plan, "euclidean", ones, seed, 0.0)
-        dkv = (q, k, v, store, do, lse, (do * out1).sum(-1), *plan_t,
-               "euclidean", ones, seed, 0.0)
+        delta = (do * out1).sum(-1)
+        dq = (q, k, v, store, do, lse, delta, *plan, "euclidean", ones, seed,
+              0.0, False)
+        dkv = (q, k, v, store, do, lse, delta, *plan_t, "euclidean", ones,
+               seed, 0.0)
+        args["compact plain row walk"] = args[
+            "compact plain row walk bf16"] = dq
         args["compact plain key walk"] = args[
             "compact plain key walk bf16"] = dkv
     label = (f"hybrid band, N={N_BAND}, one snapshot: {S} walked slots, "

@@ -4,10 +4,10 @@
 // Replaces the Pallas TPU kernels tagan_tpu/ops/pallas/flash_geometric.py::
 // _flash_bwd_dq_kernel (B3a) and _flash_bwd_dkv_kernel (B3b), host side
 // flash_geometric_attention_bwd with fused=False, in their dense-mask form
-// and the bf16 form (bf16=True) of each, and B3a's compact occupied-block
-// form (B3a c: 3-tuple plans, the hybrid backend's band) in fp32. B3b's
-// compact form (B3b c, both precisions) is the key pair walk of
-// flash_pairwalk_bwd_compact.cu. For query row i, key j, head h, with
+// and the bf16 form (bf16=True) of each. Their compact occupied-block forms
+// (B3a c and B3b c: 3-tuple plans, the hybrid backend's band) are the row
+// and key pair walks of flash_pairwalk_bwd_compact.cu. For query row i,
+// key j, head h, with
 // p_ij = exp(s_ij - lse_i) on the mask,
 //
 //     dp_ij = drop(do_i . v_j),   ds_ij = p_ij (dp_ij - delta_i)
@@ -35,39 +35,27 @@
 // accumulators are templated on the 16-wide feature lanes (D, Dv <= 16,
 // 32, 64 or 128) so head dim 16 holds one lane.
 //
-// The bf16 forms (kBf16, either mask form) are the same walks with every
+// The bf16 forms (kBf16) are the same walks with every
 // product's operands rounded to bf16 (flash_geometric_common.cuh: rd,
 // chain_weight_bf16): q.k, do.v, W k, W q and drop(p) do, from q and k
 // tiles rounded in place after their norms and do and v rounded as staged;
 // the row norms, the squared-distance metrics' sums of W and their q and k
-// terms (read unrounded from global memory at the global row or column,
-// never the store slot), and the d(scale) sum stay fp32.
+// terms (read unrounded from global memory at the global row or
+// column), and the d(scale) sum stay fp32.
 //
-// The kernels and their launchers are in flash_geometric_bwd.cuh. This
-// file instantiates them for the dense forms and B3a c in fp32;
-// flash_geometric_bwd_compact_bf16.cu instantiates B3a c's bf16 form as a
-// library of its own, which nvcc builds in parallel with this one.
-//
-// The compact form is the same walk templated on the mask form
-// (flash_geometric_common.cuh: MaskForm). Each step first loads its store
-// tile (slot g * S + jslot, bits or int8) into 64 row words in dynamic
-// shared memory past the dense form's tiles, so the dense form's layout and
-// code are unchanged. Store offsets are size_t: a folded int8 store passes
-// 2^31 bytes at a few 131K snapshots.
+// The kernels and their launchers are in flash_geometric_bwd.cuh; this
+// file instantiates them.
 //
 // What bounds it on the H100. The work the data needs is ~5 products of
 // head dim per valid pair; what must move is q, k, v, do, lse, delta, the
-// mask (dense int8 [N, N], or the compact store) and dq, dk, dv, so the
+// mask (dense int8 [N, N]) and dq, dk, dv, so the
 // least time is those bytes over the memory rate. With uniformly random
 // edges nearly every 64 x 64 block is occupied and both walks visit ~N^2
 // pairs per head, so like B1 the kernels are bound by fp32 issue on the
 // CUDA cores, far above that bound. At the model's shape (one snapshot,
 // H=4, N=10,000, head dim 16) the bound is 0.034 ms for each kernel
 // (~113-116 MB at 3.35 TB/s); chip_smoke.py phase 5 times both kernels
-// against it, and phase 5e the compact forms at one 131K hybrid snapshot
-// (~35K walked tiles per head, ~1/60 of their pairs valid; B3b c's key
-// walk computes only those). Tensor cores, TMA and a walk over edges are
-// later steps.
+// against it. Tensor cores, TMA and a walk over edges are later steps.
 //
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
@@ -132,21 +120,4 @@ extern "C" int tagan_flash_geometric_bwd_dkv_bf16(
   return dkv_entry<true>(q, k, v, mask, dout, lse, delta, ilist, icount,
                          scale, seed, dk, dv, G, H, N, D, Dv, n_j, W, metric,
                          sqrt_d, use_dropout, keep_thresh, inv_keep, stream);
-}
-
-// B3a c: B3a over the compact store of S slots per g, bits i64[G, S, 64]
-// (packed) or int8 [G, S, 64, 64], with the slot of each walk step,
-// jslot [G, n_i, W].
-extern "C" int tagan_flash_geometric_bwd_dq_compact(
-    const void* q, const void* k, const void* v, const void* store,
-    const void* dout, const void* lse, const void* delta, const void* jlist,
-    const void* jcount, const void* jslot, const void* scale,
-    const void* seed, void* dq, void* dscale_part, int G, int H, int N,
-    int D, int Dv, int n_i, int W, int S, int packed, int metric,
-    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
-    int need_dscale, void* stream) {
-  return (packed ? dq_entry<COMPACT_BITS> : dq_entry<COMPACT_I8>)(
-      q, k, v, store, dout, lse, delta, jlist, jcount, jslot, scale, seed, dq,
-      dscale_part, G, H, N, D, Dv, n_i, W, S, metric, sqrt_d, use_dropout,
-      keep_thresh, inv_keep, need_dscale, stream);
 }

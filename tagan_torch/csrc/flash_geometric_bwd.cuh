@@ -1,10 +1,10 @@
-// The two-walk backward's kernels (B3a: dq, for every mask form; B3b: dk
-// and dv, dense mask), their launchers and their entry templates, in both
-// precisions (documented in flash_geometric_bwd.cu). Included by
-// flash_geometric_bwd.cu (the dense forms and B3a c) and
-// flash_geometric_bwd_compact_bf16.cu (B3a c's bf16 form): two libraries
-// that nvcc builds in parallel, each instantiating its own share of the
-// templates.
+// The two-walk backward's kernels over the dense mask (B3a: dq; B3b: dk
+// and dv), their launchers and their entry templates, in both precisions
+// (documented in flash_geometric_bwd.cu, which includes this file). The
+// compact forms B3a c and B3b c are the pair walks of
+// flash_pairwalk_bwd_compact.cu. The dq kernel keeps its mask-form
+// parameter and the compact forms' arguments (jslot, S), instantiated for
+// DENSE_MASK alone: without them ptxas spilled its LANES = 8 forms.
 
 #pragma once
 
@@ -14,19 +14,12 @@ namespace {
 
 using namespace tagan_flash;
 
-// The mask of batch index g: the dense [N, N] bytes (compact forms: none).
+// The mask of batch index g: the dense [N, N] bytes.
 template <int kForm>
 __device__ __forceinline__ const uint8_t* dense_mask(const void* mask, int g,
                                                      int N) {
-  if constexpr (kForm == DENSE_MASK)
-    return static_cast<const uint8_t*>(mask) + (size_t)g * N * N;
-  else
-    return nullptr;
-}
-
-// The compact forms' 64 mask-tile row words, past the dense tiles.
-__device__ __forceinline__ uint64_t* tile_rows(float* smem, int D, int Dv) {
-  return reinterpret_cast<uint64_t*>(smem + bwd_smem_floats(D, Dv));
+  static_assert(kForm == DENSE_MASK, "the dense mask alone");
+  return static_cast<const uint8_t*>(mask) + (size_t)g * N * N;
 }
 
 template <int LANES, int kForm, bool kBf16>
@@ -51,7 +44,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int DS = D + 1, PS = BN + 1;
   extern __shared__ float smem[];
   const BwdTiles t = bwd_tiles(smem, D, Dv);
-  uint64_t* rows = tile_rows(smem, D, Dv);
 
   const size_t gh = (size_t)g * H + h;
   const float* qg = q + gh * N * D;
@@ -78,18 +70,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t walk = (size_t)g * n_i + ib;
   const int cnt = jcount[walk];
   const int* jl = jlist + walk * W;
-  const int* js = jslot + walk * W;
   for (int step = 0; step < cnt; ++step) {
     const int col0 = jl[step] * BN;
-    __syncthreads();  // the previous step is done with Ks, Vs, Ws and rows
-    if constexpr (kForm != DENSE_MASK)
-      load_mask_tile<kForm>(rows, mask, (size_t)g * S + js[step]);
+    __syncthreads();  // the previous step is done with Ks, Vs and Ws
     load_rows(t.Ks, kg, col0, N, D);
     load_rows<kBf16>(t.Vs, vg, col0, N, Dv);
     __syncthreads();
     tile_norms<kBf16>(t, D, false, true);
     __syncthreads();
-    dsc += pair_weights<false, kForm, kBf16>(t, mg, rows, N, D, Dv, row0,
+    dsc += pair_weights<false, kForm, kBf16>(t, mg, nullptr, N, D, Dv, row0,
                                              col0, metric, sc, sqrt_d,
                                              use_dropout, mix, keep_thresh,
                                              inv_keep);
@@ -136,8 +125,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// B3b over the dense mask (B3b c, the compact form, is the key pair walk
-// of flash_pairwalk_bwd_compact.cu).
 template <int LANES, bool kBf16>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -256,12 +243,10 @@ bool bad_args(int G, int H, int N, int D, int Dv, int n_tiles, int W,
          n_tiles != (N + BM - 1) / BM || W < 0;
 }
 
-// Dynamic shared memory: the dense form's tiles, and the compact forms'
-// mask-tile row words past them.
+// Dynamic shared memory: the tiles.
 template <int kForm, bool kBf16>
 size_t smem_bytes(int D, int Dv) {
-  return sizeof(float) * bwd_smem_floats(D, Dv) +
-         (kForm == DENSE_MASK ? 0 : sizeof(uint64_t) * BM);
+  return sizeof(float) * bwd_smem_floats(D, Dv);
 }
 
 template <int LANES, int kForm, bool kBf16>
@@ -318,8 +303,7 @@ int dq_entry(const void* q, const void* k, const void* v, const void* mask,
              int W, int S, int metric, float sqrt_d, int use_dropout,
              unsigned int keep_thresh, float inv_keep, int need_dscale,
              void* stream) {
-  if (bad_args(G, H, N, D, Dv, n_i, W, metric) ||
-      (kForm != DENSE_MASK && S < 1))
+  if (bad_args(G, H, N, D, Dv, n_i, W, metric))
     return (int)cudaErrorInvalidValue;
   if (G == 0 || H == 0 || N == 0) return 0;
   const dim3 grid(n_i, H, G);

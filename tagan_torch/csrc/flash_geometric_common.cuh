@@ -1,14 +1,14 @@
 // Device helpers shared by the flash geometric attention kernels:
 // flash_geometric_fwd.cu (the compact forward), flash_geometric_bwd.cuh
-// (two-walk backward, built by flash_geometric_bwd.cu and
-// flash_geometric_bwd_compact_bf16.cu), the edge-biased flash_biased_fwd.cu
-// (the compact lse1, B4c), and the pair walks of flash_pairwalk_fwd.cu (B1,
-// B4, B5 and their bf16 forms), flash_pairwalk_fwd_compact.cu (B5c and its
-// bf16 form), flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
+// (the dense two-walk backward, built by flash_geometric_bwd.cu), the
+// edge-biased flash_biased_fwd.cu (the compact lse1, B4c), and the pair
+// walks of flash_pairwalk_fwd.cu (B1, B4, B5 and their bf16 forms),
+// flash_pairwalk_fwd_compact.cu (B5c and its bf16 form),
+// flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
 // flash_pairwalk_biased_bwd.cu (B6, B7a, B7b and their bf16 forms),
 // flash_pairwalk_biased_bwd_compact.cu (B6c, B7a c, B7b c and their bf16
-// forms) and flash_pairwalk_bwd_compact.cu (B3b c and its bf16 form),
-// through flash_pairwalk.cuh.
+// forms) and flash_pairwalk_bwd_compact.cu (B3a c, B3b c and their bf16
+// forms), through flash_pairwalk.cuh.
 //
 // The metric scores, the dropout hash and the backward's recompute of one
 // (64-query tile, 64-key tile) pair. Every kernel takes the folded layout

@@ -141,7 +141,8 @@ __global__ void __launch_bounds__(WARP) row_walk_kernel(const Bwd a) {
   float* dq_s = do_s + WARP * a.Dv;
 
   size_t row;
-  RowItem it = row_item<kBf16>(a, g, row0, lane, q_s, do_s, dq_s, &row);
+  RowItem it =
+      row_item<kBf16>(a, g, row0, lane, a.hg, q_s, do_s, dq_s, &row);
   const int rl = lane / HG;
   const DenseRowPairs pairs{((size_t)g * a.N + (it.on ? it.gr : 0)) * a.N};
 

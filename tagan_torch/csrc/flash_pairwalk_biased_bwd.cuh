@@ -6,7 +6,8 @@
 // listed pairs, recompute them and sum into the lane's accumulators. The
 // unbiased compact key walk (flash_pairwalk_bwd_compact.cu, B3b c) takes
 // the arguments, the key walk's block (`key_blocks`), its item and its
-// outputs from here, with a flush of its own.
+// outputs from here, with a flush of its own, and so does its unbiased
+// compact row walk (B3a c) the row walk's item and outputs.
 //
 // A walk lists each row's (key's) valid pairs as ints; where the pair's key
 // (row) and its bias entry lie is the walk's own: a policy object turns a
@@ -61,7 +62,8 @@ struct Bwd {
   float inv_keep;
   int need_dscale;
   int hg;                 // row walk: this launch's head group
-  int KB, n_kb, n_hg;     // key walk: keys a block, blocks a key tile, groups
+  int KB, n_kb;           // key walk: keys a block, blocks a key tile
+  int n_hg;               // key walk, unbiased row walk: head groups
 };
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -119,7 +121,8 @@ __host__ __device__ inline size_t row_item_bytes(int D, int Dv) {
   return (size_t)WARP * (2 * D + Dv) * 4;
 }
 
-// One lane's (row, head) item.
+// One lane's (row, head) item. d1: the biased walks' delta1 (pass 1's
+// sum), the unbiased dq walk's delta.
 struct RowItem {
   bool on;
   int gr, base;          // base: the row's first lane
@@ -223,16 +226,21 @@ __device__ __forceinline__ void row_pass(const Bwd& a, RowItem& it,
   }
 }
 
-// The row item of lane `lane` for rows [row0, row0 + R) of batch index g:
-// q (the norm, then the row, bf16: rounded) and do into their slots, dq's
-// slots zeroed, the row statistics, the scale and the dropout mixes.
-template <bool kBf16>
+// The row item of lane `lane` for rows [row0, row0 + R) of batch index g
+// and head group hg: q (the norm, then the row, bf16: rounded) and do into
+// their slots, dq's slots zeroed, the row statistics, the scale and the
+// dropout mixes: kSeeds seeds a batch index, two here (mix1, mix2 from
+// seeds [G, 2]; lse1, lse2 and delta2 read, delta1 summed from 0), one for
+// the unbiased compact row walk (mix1 from seeds [G]; lse in lse1, delta
+// read into d1; flash_pairwalk_bwd_compact.cu).
+template <bool kBf16, int kSeeds = 2>
 __device__ __forceinline__ RowItem row_item(const Bwd& a, int g, int row0,
-                                            int lane, float* q_s, float* do_s,
-                                            float* dq_s, size_t* row_out) {
+                                            int lane, int hg, float* q_s,
+                                            float* do_s, float* dq_s,
+                                            size_t* row_out) {
   RowItem it;
   const int R = a.R, HG = a.HG;
-  const int rl = lane / HG, h = a.hg * HG + lane % HG;
+  const int rl = lane / HG, h = hg * HG + lane % HG;
   it.gr = row0 + rl;
   it.base = rl * HG;
   it.on = lane < R * HG && h < a.H && it.gr < a.N;
@@ -256,25 +264,33 @@ __device__ __forceinline__ RowItem row_item(const Bwd& a, int g, int row0,
     const float* dor = a.dout + row * a.Dv;
     for (int c = 0; c < a.Dv; ++c) do_s[c * WARP + lane] = rd<kBf16>(dor[c]);
     it.lse1 = a.lse1[row];
-    it.lse2 = a.lse2[row];
-    it.delta2 = a.delta2[row];
+    if constexpr (kSeeds == 1) {
+      it.d1 = a.delta1[row];
+    } else {
+      it.lse2 = a.lse2[row];
+      it.delta2 = a.delta2[row];
+    }
     it.sc = a.scale[h];
     const uint32_t hmix = (uint32_t)h * 0xC2B2AE3Du;
-    it.mix1 = (uint32_t)a.seeds[2 * g] ^ hmix;
-    it.mix2 = (uint32_t)a.seeds[2 * g + 1] ^ hmix;
+    if constexpr (kSeeds == 1) {
+      it.mix1 = (uint32_t)a.seeds[g] ^ hmix;
+    } else {
+      it.mix1 = (uint32_t)a.seeds[2 * g] ^ hmix;
+      it.mix2 = (uint32_t)a.seeds[2 * g + 1] ^ hmix;
+    }
   }
   return it;
 }
 
-// The row item's outputs: delta1, dq (the squared-distance row term, or
-// the chain's finish) and the d(scale) term. Dead rows: no pair, delta1 =
-// dq = 0.
-template <bool kBf16>
+// The row item's outputs: delta1 (not for the one-seed unbiased walk),
+// dq (the squared-distance row term, or the chain's finish) and the
+// d(scale) term. Dead rows: no pair, delta1 = dq = 0.
+template <bool kBf16, int kSeeds = 2>
 __device__ __forceinline__ void row_finish(const Bwd& a, const RowItem& it,
                                            size_t row, const float* dq_s,
                                            int lane) {
   if (!it.on) return;
-  a.delta1_out[row] = it.d1;
+  if constexpr (kSeeds == 2) a.delta1_out[row] = it.d1;
   const bool sqm = is_sq_metric(a.metric);
   const float* qr = a.q + row * a.D;
   float* og = a.dq + row * a.D;

@@ -118,7 +118,8 @@ __global__ void __launch_bounds__(WARP, 8) row_walk_kernel(const Bwd a) {
   float* dq_s = do_s + WARP * a.Dv;
 
   size_t row;
-  RowItem it = row_item<kBf16>(a, g, row0, lane, q_s, do_s, dq_s, &row);
+  RowItem it =
+      row_item<kBf16>(a, g, row0, lane, a.hg, q_s, do_s, dq_s, &row);
   const int rl = lane / HG;
   const size_t walk = (size_t)g * a.n_t + ib;
   const int cnt = a.pcount[walk];

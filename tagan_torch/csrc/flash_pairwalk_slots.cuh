@@ -1,8 +1,10 @@
 // The slot walks over the hybrid band's compact store. The row slot walk
 // (`walk_slots`) is shared by the walks that take one row list a lane
 // group: the compact forward walk of flash_pairwalk_fwd_compact.cu (B5c in
-// both precisions) and the compact row walk of
-// flash_pairwalk_biased_bwd_compact.cu (B6c and B7a c in both precisions).
+// both precisions), the compact row walk of
+// flash_pairwalk_biased_bwd_compact.cu (B6c and B7a c in both precisions)
+// and the unbiased one of flash_pairwalk_bwd_compact.cu (B3a c, both
+// precisions).
 // The key slot walk (`walk_key_slots`, at the end) is shared by the key
 // walks over the transposed walk: the compact biased key walk of
 // flash_pairwalk_biased_bwd_compact.cu (B7b c) and the unbiased one of

@@ -15,7 +15,7 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B7a  _biased_bwd_dq_kernel    csrc/flash_pairwalk_biased_bwd.cu (row walk)
     B7b  _biased_bwd_dkv_kernel   csrc/flash_pairwalk_biased_bwd.cu (key walk)
     B1c  _flash_kernel, compact   csrc/flash_geometric_fwd.cu
-    B3a c  _flash_bwd_dq_kernel, compact   csrc/flash_geometric_bwd.cu
+    B3a c  _flash_bwd_dq_kernel, compact   csrc/flash_pairwalk_bwd_compact.cu
     B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_pairwalk_bwd_compact.cu
     B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
     B5c  _flash_biased_kernel, compact  csrc/flash_pairwalk_fwd_compact.cu
@@ -28,14 +28,11 @@ kernels that port the Pallas ones, and the differentiable entry point:
 B1, B2, B4 and B5 are pair walks that read each mask tile once for all
 heads and compute only the mask's valid pairs; so are B6 and B7a, together
 as one row walk, and B7b as the key walk, and over the compact store B5c
-(the forward walk), B6c and B7a c (one row walk), B7b c and B3b c (key
-walks). Every kernel above also has a bf16 form (the TPU kernels'
-``bf16=True``: every product's operands rounded to bf16, float32 sums),
-in the same sources under its own entry point and launch count (the pair
-walks' in the same files; B3a c's in
-csrc/flash_geometric_bwd_compact_bf16.cu, from the template of
-csrc/flash_geometric_bwd.cuh); the model takes them under
-``bf16_matmul``.
+(the forward walk), B6c and B7a c (one row walk), B3a c (the unbiased row
+walk), B7b c and B3b c (key walks). Every kernel above also has a bf16
+form (the TPU kernels' ``bf16=True``: every product's operands rounded
+to bf16, float32 sums), in the same source under its own entry point and
+launch count; the model takes them under ``bf16_matmul``.
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
 dense path's double softmax, and B6, B7a and B7b its backward. The
@@ -1898,9 +1895,14 @@ class _FlashBackwardCompactKernel(_CudaKernel):
 class _FlashBwdDqCompactKernel(_FlashBackwardCompactKernel):
     """B3a c, ``tagan_flash_geometric_bwd_dq_compact``: B3a over the
     compact store, dq (and dscale) over the forward walk (jlist, jcount,
-    jslot). Deterministic."""
+    jslot), as a row pair walk: a warp owns up to 32 (row, head) items of
+    a row tile, reads each walked slot's row words once for its heads,
+    lists each row's keys and computes only the store's valid pairs. Every
+    row of dq is written (dead rows and rows with an empty walk: 0), and
+    with ``need_dscale`` each item's d(scale) term [G, H, N], which the
+    wrapper sums. Deterministic: no atomics."""
     name = "flash_geometric_bwd_dq_compact"
-    source = "flash_geometric_bwd"
+    source = "flash_pairwalk_bwd_compact"
     symbol = "tagan_flash_geometric_bwd_dq_compact"
     argtypes = (_P,) * 14 + (_I,) * 10 + (_F, _I, _U, _F, _I)
 
@@ -1910,7 +1912,7 @@ class _FlashBwdDqCompactKernel(_FlashBackwardCompactKernel):
         dev, (G, H, N, D, Dv, n_i, W, S, packed), ptrs = self._check(
             q, k, v, store, do, lse, delta, jlist, jcount, jslot, scale, seed)
         dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
-        part = torch.empty((G, H, n_i) if need_dscale else (1,),
+        part = torch.empty((G, H, N) if need_dscale else (1,),
                            dtype=torch.float32, device=dev)
         self._launch(dev, *ptrs, dq.data_ptr(), part.data_ptr(), G, H, N, D,
                      Dv, n_i, W, S, packed, MXU_METRICS.index(metric),
@@ -1953,9 +1955,9 @@ class _FlashForwardCompactBf16Kernel(_FlashForwardCompactKernel):
 
 
 class _FlashBwdDqCompactBf16Kernel(_FlashBwdDqCompactKernel):
-    """B3a c's bf16 form, ``tagan_flash_geometric_bwd_dq_compact_bf16``."""
+    """B3a c's bf16 form, ``tagan_flash_geometric_bwd_dq_compact_bf16``:
+    the same row pair walk with bf16 operands."""
     name = "flash_geometric_bwd_dq_compact_bf16"
-    source = "flash_geometric_bwd_compact_bf16"
     symbol = "tagan_flash_geometric_bwd_dq_compact_bf16"
 
 

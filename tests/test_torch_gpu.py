@@ -2469,6 +2469,163 @@ def test_compact_bwd_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
              "dot_product", scale, seeds[:, 0].contiguous(), 0.0)
     assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
 
+
+def compact_dq_walk_check(dev, bf16, G, H, N, D, Dv, metric, rate, pack,
+                          seed=3, repeats=1):
+    """B3a c (``bf16``: its bf16 form), the compact row pair walk, at
+    `band_mask`'s cases over `band_compact`'s walks (a whole tile, whose
+    rows' lists pass CAPR so that the walk flushes more than once; rows
+    past 128 keys, whose walks list more than 2 CAPR pairs; a one-pair
+    tile; dead rows; a walked slot with no bit; walk entries past the
+    counts; N = 330 has a ragged last tile), q and k at ``BF16_QK_SCALE``
+    in bf16, on the compact plain forward's (out, lse) with an lse
+    cotangent, and one live row's lse set to ``LSE_DEAD`` though the store
+    lists its pairs (p = 0 there, not NaN), against the compact plain
+    backward's dq and, where the metric has a scale, dscale: within TOL
+    of the largest entry in fp32, under the bf16 gates in bf16 (the plain
+    fp32 backward the witness; dscale, a sum of terms that cancel, under
+    the max gate alone). Its outputs are allocated NaN-filled
+    (`nan_empty`) and come back set everywhere, dead rows' dq exactly 0;
+    each call launches the walk once and nothing else; ``repeats`` calls
+    are bit-identical. Shared by chip_smoke.py's phases 2f and 2j.
+    Returns the max abs error (fp32) or the worst (max abs error, max
+    error, mean error, witness) over the largest entry of dq (bf16)."""
+    (q, k, v, mask, store, _, plan, _, scale, seeds, do, _, _, _,
+     _) = (t.to(dev).contiguous() if torch.is_tensor(t)
+           else tuple(p_.to(dev).contiguous() for p_ in t)
+           for t in _compact_biased_bwd_inputs(
+               G, H, N, D, Dv, metric, pack, rate, seed,
+               BF16_QK_SCALE if bf16 else 1.0, band=True))
+    seed1 = seeds[:, 0].contiguous()
+    out, lse = (t.contiguous() for t in
+                FG.flash_geometric_forward_compact_plain(
+                    q, k, v, store, *plan, metric, scale, rate, seed1,
+                    bf16=bf16))
+    live = (mask != 0).any(-1)
+    assert live[:, 7].all()
+    lse[:, :, 7] = FG.LSE_DEAD
+    gen = torch.Generator().manual_seed(seed + 500)
+    dlse = (0.25 * torch.randn(lse.shape, generator=gen)).to(dev) \
+        * live[:, None]
+    delta = FG._delta(do, out, dlse).contiguous()
+    need = metric in FG.SCALED_METRICS
+    kern = FG.flash_geometric_bwd_dq_compact_bf16_kernel if bf16 \
+        else FG.flash_geometric_bwd_dq_compact_kernel
+
+    def call():
+        with nan_empty():
+            return kern(q, k, v, store, do, lse, delta, *plan, metric, scale,
+                        seed1, rate, need)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    dq, dsc = call()
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    assert launched == {k_.name: int(k_ is kern) for k_ in FG.KERNELS}
+    assert torch.isfinite(dq).all()
+    assert (dsc is not None) == need
+    assert not need or torch.isfinite(dsc).all()
+    dead = ~live[:, None, :].expand(G, H, N)
+    assert dead.any() and torch.all(dq[dead] == 0)
+    for _ in range(repeats - 1):
+        again = call()
+        assert torch.equal(again[0], dq)
+        assert not need or torch.equal(again[1], dsc)
+    rest = (q, k, v, store, out, lse, do, *plan, metric, scale, rate, seed1,
+            need, dlse)
+    want = FG.flash_geometric_backward_compact_plain(*rest, bf16=bf16)
+    if not bf16:
+        pairs = ((dq, want[0]),) + (((dsc, want[3]),) if need else ())
+        for g, w in pairs:
+            assert ((g - w).abs().max() / w.abs().max().clamp(min=1.0)
+                    ).item() <= TOL
+        return max((g - w).abs().max().item() for g, w in pairs)
+    f32 = FG.flash_geometric_backward_compact_plain(*rest)
+    _bf16_gates(dq, want[0], f32[0])
+    if need:
+        _bf16_gates(dsc, want[3], f32[3], witness=False, mean=False)
+    m = want[0].abs().max().clamp(min=1e-30)
+    e = (dq - want[0]).abs()
+    return (e.max().item(), (e.max() / m).item(), (e.mean() / m).item(),
+            ((f32[0] - want[0]).abs().mean() / m).item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_dq_walk_band(metric, rate, pack, bf16, cuda):
+    """B3a c's walk in both precisions at the band's cases, bit and int8
+    stores, every metric, dropout on and off (the hash at the global
+    (row, key), as the plain version's), dscale at gaussian and rbf
+    (`compact_dq_walk_check`)."""
+    compact_dq_walk_check(cuda, bf16, 2, 4, 330, 16, 16, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_compact_dq_walk_head_dims(D, Dv, pack, bf16, cuda):
+    """Head dims whose sqrt is not a power of two, D != Dv, odd widths (no
+    16-byte gathers), and the widest, (128, 128), whose items take 48 KB
+    of a warp's shared memory."""
+    compact_dq_walk_check(cuda, bf16, 1, 2, 330, D, Dv, "gaussian_kernel",
+                          0.1, pack, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("H,D", [(1, 16), (4, 16), (33, 16), (33, 128)])
+def test_compact_dq_walk_fold(H, D, bf16, cuda):
+    """Folds of 1, 4 and 33 heads: 33 is more than a warp's 32 items, so
+    two head groups as grid blocks, the second of one head; and 33 heads
+    at head dim 128."""
+    compact_dq_walk_check(cuda, bf16, 2, H, 330, D, D, "gaussian_kernel",
+                          0.1, True, seed=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+def test_compact_dq_walk_deterministic(pack, bf16, cuda):
+    """dq and dscale are bit-identical over 20 calls: the walk sums in the
+    list's order and has no atomic. Seed 4: at seed 3 one dq term of this
+    case lies on a bf16 rounding midpoint, where the plain bf16 version
+    itself moves by 3.2e-3 of the largest entry under a 1e-7 relative
+    nudge of q and k, past the 2e-3 max gate that no sum in another order
+    can then meet (seed 4: 2.9e-4)."""
+    compact_dq_walk_check(cuda, bf16, 2, 4, 1008, 16, 16, "gaussian_kernel",
+                          0.1, pack, seed=4, repeats=20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fault", ["jslot", "jcount", "jlist"])
+def test_compact_dq_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
+    """The walk's wrapper checks the forward walk's values: a jslot past
+    the store, a count past the walk's width or a key tile past N raise
+    ValueError on the host, and no kernel is launched."""
+    (q, k, v, _, store, _, plan, _, scale, seeds, do, lse, _, delta, _) = (
+        t.to(cuda) if torch.is_tensor(t) else tuple(p_.to(cuda) for p_ in t)
+        for t in _compact_biased_bwd_inputs(1, 2, 330, 16, 16, "dot_product",
+                                            True, 0.0, band=True))
+    jl, jc, js = (p_.clone() for p_ in plan)
+    if fault == "jslot":
+        js[0, 0, 0] = store.shape[1]
+    elif fault == "jcount":
+        jc[0, 0] = jl.shape[-1] + 1
+    else:
+        jl[0, 0, 0] = 6
+    kern = FG.flash_geometric_bwd_dq_compact_bf16_kernel if bf16 \
+        else FG.flash_geometric_bwd_dq_compact_kernel
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    with pytest.raises(ValueError):
+        kern(q, k, v, store, do, lse, delta.contiguous(), jl, jc, js,
+             "dot_product", scale, seeds[:, 0].contiguous(), 0.0, False)
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
+
 # -- the ring: B8 (all-gather) and B9 (ring flash) over virtual ranks ---------
 
 # each ring is run this many times in a row: rows sent on before they

@@ -31,8 +31,10 @@ Phases, in order; any failure raises and exits non-zero:
    cases called twice, bit for bit; (2e) the compact-store forward
    kernels of the hybrid backend, B1c, B4c and B5c, against their compact
    plain versions on 2c's grid, with the bit and the int8 store (a row
-   tile with jcount = 0 among the dead rows), and B5c (the compact
-   forward pair walk) at `tests/test_torch_gpu.py::band_mask`'s cases
+   tile with jcount = 0 among the dead rows), and the compact forward
+   pair walk in its two modes, B5c (`compact_fwd_walk_check`) and B1c
+   (`compact_out_walk_check`: with dropout, far from the plain version
+   at another seed), at `tests/test_torch_gpu.py::band_mask`'s cases
    over `band_compact`'s walks (every metric, dropouts off and on, both
    stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
    folds of 1, 4 and 33 heads; its outputs allocated NaN-filled and set
@@ -86,8 +88,8 @@ Phases, in order; any failure raises and exits non-zero:
    set but dB's off the store's pairs, which stay NaN), one band case
    20 times bit for bit; the walks given a zero delta1_rest failing the
    gates (the witness); a jslot past the store raising before any
-   launch at the four entries; and B5c bf16's walk at 2e's band cases
-   under the bf16 gates;
+   launch at the four entries; and the bf16 compact forward walk, B5c
+   bf16 and B1c bf16, at 2e's band cases under the bf16 gates;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -3404,8 +3406,9 @@ def compact_vs_plain(FG, G, H, N, D, Dv, metric, rate, pack, seed=0):
 
 
 def compact_fwd_walk_runs(FG):
-    """The band cases at which 2e and 2k hold B5c's compact forward walk
-    (`tests.test_torch_gpu.compact_fwd_walk_check`'s arguments after the
+    """The band cases at which 2e and 2k hold the compact forward walk,
+    B5c and B1c (the arguments of `tests.test_torch_gpu`'s
+    `compact_fwd_walk_check` and `compact_out_walk_check` after the
     precision): every metric with the dropouts off and on, both stores;
     (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), both
     stores; folds of 1, 4 and 33 heads; and two cases called 20 times,
@@ -3424,18 +3427,23 @@ def compact_fwd_walk_runs(FG):
 
 
 def phase_compact_fwd_walk(FG, bf16):
-    """B5c's compact forward pair walk (``bf16``: its bf16 form) at
-    `compact_fwd_walk_runs`' band cases, outputs allocated NaN-filled and
-    set everywhere, dead rows exactly 0 and LSE_DEAD, one launch each,
-    against the compact plain version: within TOL, or under the bf16
-    gates. Returns (cases, worst error)."""
-    from tests.test_torch_gpu import compact_fwd_walk_check
-    errs = [compact_fwd_walk_check(DEV, bf16, *run)
-            for run in compact_fwd_walk_runs(FG)]
-    if bf16:
-        return len(errs), tuple(max(e[i] for e in errs) if i < 3 else
-                                min(e[i] for e in errs) for i in range(4))
-    return len(errs), max(errs)
+    """The compact forward pair walk (``bf16``: its bf16 form) in its two
+    modes, B5c and B1c (with dropout, far from the plain version at
+    another seed), at `compact_fwd_walk_runs`' band cases, outputs
+    allocated NaN-filled and set everywhere, dead rows exactly 0 and
+    LSE_DEAD, one launch each, against the compact plain versions: within
+    TOL, or under the bf16 gates. Returns {kernel: (cases, worst
+    error)}."""
+    from tests.test_torch_gpu import (compact_fwd_walk_check,
+                                      compact_out_walk_check)
+    out = {}
+    for name, check in (("B5c", compact_fwd_walk_check),
+                        ("B1c", compact_out_walk_check)):
+        errs = [check(DEV, bf16, *run) for run in compact_fwd_walk_runs(FG)]
+        out[name] = (len(errs), tuple(
+            max(e[i] for e in errs) if i < 3 else min(e[i] for e in errs)
+            for i in range(4)) if bf16 else max(errs))
+    return out
 
 
 def phase_small_compact(FG):
@@ -3449,14 +3457,17 @@ def phase_small_compact(FG):
             errs.append(compact_vs_plain(FG, 2, 2, 200, D, Dv,
                                          "gaussian_kernel", 0.1, pack, 1))
     out = {name: max(e[name] for e in errs) for name in ("B1c", "B4c", "B5c")}
-    n_band, band_err = phase_compact_fwd_walk(FG, False)
-    out["B5c"] = max(out["B5c"], band_err)
+    walks = phase_compact_fwd_walk(FG, False)
+    for name, (_, err) in walks.items():
+        out[name] = max(out[name], err)
     log(f"[2e] B1c, B4c and B5c vs their compact plain versions, bit and "
-        f"int8 stores: {len(errs)} cases; B5c's walk at the band's cases "
-        f"(every metric, dropouts off and on, head dims, folds of 1, 4 and "
-        f"33 heads, outputs allocated NaN-filled, two cases 20 times bit "
-        f"for bit): {n_band} cases, max abs err {band_err:.3e}; max abs err "
-        f"{out} (tol {TOL})")
+        f"int8 stores: {len(errs)} cases; the compact forward walk at the "
+        f"band's cases (every metric, dropouts off and on, head dims, folds "
+        f"of 1, 4 and 33 heads, outputs allocated NaN-filled, two cases 20 "
+        f"times bit for bit): "
+        + ", ".join(f"{n} {c} cases, max abs err {e:.3e}"
+                    for n, (c, e) in walks.items())
+        + f"; max abs err {out} (tol {TOL})")
     return out
 
 
@@ -5167,8 +5178,9 @@ def phase_small_compact_biased_bf16(FG):
     if refused != 4 or counts(FG) != before:
         raise AssertionError(f"a bad jslot: {refused} of 4 entries refused "
                              f"it; launches {counts(FG)} vs {before}")
-    n_band, band = phase_compact_fwd_walk(FG, True)
-    worst["B5c"] = max(worst["B5c"], band)
+    walks = phase_compact_fwd_walk(FG, True)
+    worst["B5c"] = max(worst["B5c"], walks["B5c"][1])
+    worst["B1c"] = walks["B1c"][1]
     log(f"[2k] bf16 forms of B4c, B5c, the row walk (B6c + B7a c) and the "
         f"key walk (B7b c) vs the compact plain bf16 versions, bit and int8 "
         f"stores, union statistics with a residual delta1, the band's "
@@ -5181,10 +5193,12 @@ def phase_small_compact_biased_bf16(FG):
         + f" (tol {BF16_MAX_TOL}, {BF16_MEAN_TOL}, witness {BF16_WITNESS}x);"
         f" given a zero delta1_rest the gates fail (bit, int8 store): "
         f"{[w[:160] for w in witness]}; a bad jslot raised before launch "
-        f"at all 4 entries; B5c bf16's walk at the band's cases (every "
-        f"metric, dropouts off and on, head dims, folds of 1, 4 and 33 "
-        f"heads, outputs allocated NaN-filled, two cases 20 times bit for "
-        f"bit): {n_band} cases, worst {tuple(f'{x:.3e}' for x in band)}")
+        f"at all 4 entries; the bf16 compact forward walk at the band's "
+        f"cases (every metric, dropouts off and on, head dims, folds of 1, "
+        f"4 and 33 heads, outputs allocated NaN-filled, two cases 20 times "
+        f"bit for bit): "
+        + ", ".join(f"{n_} {c} cases, worst {tuple(f'{x:.3e}' for x in e)}"
+                    for n_, (c, e) in walks.items()))
     return {n_: r[0] for n_, r in worst.items()}
 
 
@@ -6366,7 +6380,7 @@ def main() -> int:
                          if lib["error"] is None else lib["error"]))
         for name, kern, source, src, line, serving, plain_of in (
             ("B1c", FG.flash_geometric_fwd_compact_kernel,
-             "flash_geometric_fwd.cu", FG_SRC, 1315, serve_hyb,
+             "flash_pairwalk_fwd_compact.cu", FG_SRC, 1369, serve_hyb,
              "flash_geometric_forward_compact_plain"),
             ("B4c", FG.flash_lse1_compact_kernel, "flash_biased_fwd.cu",
              HB_SRC, 197, serve_hyb_edge, "flash_lse1_compact_plain"),
@@ -6524,8 +6538,9 @@ def main() -> int:
             FG, kern, source, line,
             (serve_hyb_bf16 if name == "B1c" else
              train_hyb_bf16)["launches"][kern.name],
-            max(small_compact_bf16[name], serve_hyb_bf16["full_err"]
-                if name == "B1c" else train_hyb_bf16["full_err"][name]),
+            max(small_compact_bf16[name], serve_hyb_bf16["full_err"],
+                small_compact_biased_bf16["B1c"]) if name == "B1c" else
+            max(small_compact_bf16[name], train_hyb_bf16["full_err"][name]),
             min(t16h[name]["ms"]), t16h[name]["plain_ms"], plain_of,
             t16h[name], t16h[name]["library_ms"]),
              fp32_ms=min(t16h[name]["fp32_ms"]),
@@ -6537,9 +6552,9 @@ def main() -> int:
                  if lib16h["error"] is None else lib16h["error"]))
         for name, kern, source, line, plain_of in zip(
             ("B1c", "B3a c", "B3b c"), compact_kernels(FG, True),
-            ("flash_geometric_fwd.cu",)
+            ("flash_pairwalk_fwd_compact.cu",)
             + ("flash_pairwalk_bwd_compact.cu",) * 2,
-            (1315, 2009, 2074),
+            (1369, 2009, 2074),
             ("flash_geometric_forward_compact_plain with bf16=True (walks "
              "the plan)",) + ("flash_geometric_backward_compact_plain with "
                               "bf16=True (dq, dk and dv)",) * 2)]

@@ -4,7 +4,8 @@
 (``flash_pairwalk_bwd.cu``), the biased backward's row walk and key
 walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), their compact
 forms over the hybrid band's store, fp32 and bf16
-(``flash_pairwalk_biased_bwd_compact.cu``), B5c's compact forward walk,
+(``flash_pairwalk_biased_bwd_compact.cu``), the compact forward walk in
+its two modes, B5c ("compact fwd walk") and B1c ("compact out walk"),
 fp32 and bf16 (``flash_pairwalk_fwd_compact.cu``), and the unbiased
 backward's compact walks, B3a c's row walk ("compact plain row walk") and
 B3b c's key walk ("compact plain key walk"), fp32 and bf16
@@ -114,13 +115,16 @@ WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
                  "compact key walk bf16": ("noflush_key",),
                  "compact fwd walk": ("noflush",),
                  "compact fwd walk bf16": ("noflush",),
+                 "compact out walk": ("noflush",),
+                 "compact out walk bf16": ("noflush",),
                  "compact plain row walk": ("noflush_row",),
                  "compact plain row walk bf16": ("noflush_row",),
                  "compact plain key walk": ("noflush_key",),
                  "compact plain key walk bf16": ("noflush_key",)}
 COMPACT = ("compact row walk", "compact row walk bf16", "compact key walk",
            "compact key walk bf16", "compact fwd walk",
-           "compact fwd walk bf16", "compact plain row walk",
+           "compact fwd walk bf16", "compact out walk",
+           "compact out walk bf16", "compact plain row walk",
            "compact plain row walk bf16", "compact plain key walk",
            "compact plain key walk bf16")
 
@@ -232,6 +236,9 @@ def main() -> int:
              "compact fwd walk": FG.flash_biased_fwd_compact_kernel,
              "compact fwd walk bf16":
                  FG.flash_biased_fwd_compact_bf16_kernel,
+             "compact out walk": FG.flash_geometric_fwd_compact_kernel,
+             "compact out walk bf16":
+                 FG.flash_geometric_fwd_compact_bf16_kernel,
              "compact plain row walk":
                  FG.flash_geometric_bwd_dq_compact_kernel,
              "compact plain row walk bf16":
@@ -320,8 +327,8 @@ def main() -> int:
 def compact_times(kernels, gen):
     """The compact walks and their variants on one snapshot of the band,
     each precision's key walk on its own row walk's delta1, the forward
-    walk on B4c's lse1, the plain row and key walks (B3a c, B3b c) on
-    B1c's lse and delta = rowsum(dO out)."""
+    walk on B4c's lse1 (B5c) and without it (B1c), the plain row and key
+    walks (B3a c, B3b c) on B1c's lse and delta = rowsum(dO out)."""
     store, plan, plan_t = band_graph(7)
     S = store.shape[1]
     q, k, v, do = (0.5 * torch.randn(1, H, N_BAND, D, device="cuda",
@@ -348,8 +355,10 @@ def compact_times(kernels, gen):
             args[f"compact key walk{prec}"] = (*common, d1, *plan_t,
                                               "euclidean", ones, seeds, 0.0)
         seed = torch.zeros(1, dtype=torch.int32, device="cuda")
-        out1, lse = FG.flash_geometric_fwd_compact_kernel(
+        args["compact out walk"] = args["compact out walk bf16"] = (
             q, k, v, store, *plan, "euclidean", ones, seed, 0.0)
+        out1, lse = FG.flash_geometric_fwd_compact_kernel(
+            *args["compact out walk"])
         delta = (do * out1).sum(-1)
         dq = (q, k, v, store, do, lse, delta, *plan, "euclidean", ones, seed,
               0.0, False)

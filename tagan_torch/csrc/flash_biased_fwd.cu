@@ -14,11 +14,14 @@
 // in both precisions, and the second walk, B5 and its compact form B5c,
 // are pair walks (flash_pairwalk_fwd.cu, flash_pairwalk_fwd_compact.cu).
 //
-// Design. As B1c (flash_geometric_fwd.cu), whose layout it shares: one
-// thread block per (64-row query tile, head, folded batch index g) walks
-// jlist[g, tile, :jcount[g, tile]], staging K tiles in shared memory, with
-// the running max and sum in registers. 256 threads: thread (rg, c) owns
-// query rows 4*rg..4*rg+3 and keys c + 16*b (b < 4) of each step.
+// Design. One thread block per (64-row query tile, head, folded batch
+// index g) walks jlist[g, tile, :jcount[g, tile]]: it stages its Q tile
+// once and each step's K tile in shared memory (odd row stride, so the
+// 16 lanes of a row group read K without bank conflicts), loads the
+// step's mask tile from its store slot as 64 row words, and keeps each
+// row's running max and sum in registers. 256 threads: thread (rg, c)
+// owns query rows 4*rg..4*rg+3 and keys c + 16*b (b < 4) of each step;
+// a row's max and sum reduce over its 16 lanes by shuffles.
 //
 // What bounds it on the H100. The least traffic is the store's occupied
 // tiles, read once, with q and k. The walk spends fp32 instructions on
@@ -28,7 +31,8 @@
 // mode), not built yet.
 //
 // The bf16 form (kBf16; the TPU kernel's bf16=True) rounds the q and k
-// tiles in place once their norms are taken, as B1c's bf16 form does. The
+// tiles in place once their norms are taken, as the pair walks' bf16
+// forms round q and k after theirs. The
 // norms, the running max and the sum stay fp32; the result depends on no
 // walk.
 //

@@ -1,9 +1,9 @@
 // Device helpers shared by the flash geometric attention kernels:
-// flash_geometric_fwd.cu (the compact forward), flash_geometric_bwd.cuh
-// (the dense two-walk backward, built by flash_geometric_bwd.cu), the
-// edge-biased flash_biased_fwd.cu (the compact lse1, B4c), and the pair
-// walks of flash_pairwalk_fwd.cu (B1, B4, B5 and their bf16 forms),
-// flash_pairwalk_fwd_compact.cu (B5c and its bf16 form),
+// flash_geometric_bwd.cuh (the dense two-walk backward, built by
+// flash_geometric_bwd.cu), the edge-biased flash_biased_fwd.cu (the
+// compact lse1, B4c), and the pair walks of flash_pairwalk_fwd.cu (B1,
+// B4, B5 and their bf16 forms), flash_pairwalk_fwd_compact.cu (B1c, B5c
+// and their bf16 forms),
 // flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
 // flash_pairwalk_biased_bwd.cu (B6, B7a, B7b and their bf16 forms),
 // flash_pairwalk_biased_bwd_compact.cu (B6c, B7a c, B7b c and their bf16
@@ -60,7 +60,9 @@ enum Metric : int {
 // bit c of word r for pair (r, c). A compact step first loads its tile into
 // shared memory as 64 row words (`load_mask_tile`); `pair_on` then tests one
 // bit. The plan sets no bit past N; `pair_on` masks the ragged edge
-// anyway.
+// anyway. Of the tile kernels only B4c (flash_biased_fwd.cu) still walks
+// the compact store this way; the pair walks read it through
+// flash_pairwalk_slots.cuh.
 // ---------------------------------------------------------------------------
 
 enum MaskForm : int { DENSE_MASK = 0, COMPACT_I8 = 1, COMPACT_BITS = 2 };

@@ -45,8 +45,8 @@
 // past 32 heads the head groups are grid blocks, innermost, as in the
 // compact forward walk, so the groups of one sub-tile walk its slots
 // together (no cross-head sum: nothing is shared between heads). The slot
-// walk of flash_pairwalk_slots.cuh (`walk_slots`, shared with B5c and
-// B6c + B7a c) copies each step's row words by cp.async NST - 1 steps
+// walk of flash_pairwalk_slots.cuh (`walk_slots`, shared with B1c, B5c
+// and B6c + B7a c) copies each step's row words by cp.async NST - 1 steps
 // ahead and lists each row's valid columns; when a row's list could pass
 // CAPR, and at the end, the flush (`dq_pass` below) gathers k_j and v_j
 // (16 bytes at a time where aligned) at the listed pairs only, recomputes

@@ -63,7 +63,7 @@
 //     which is exact (m unchanged, alpha = 1), so the dense template's
 //     "p = 1 garbage" before a row's first valid key does not arise. B4
 //     takes the first pass only. The flush lives in
-//     flash_pairwalk_fwd.cuh, shared with B5c's compact walk
+//     flash_pairwalk_fwd.cuh, shared with B1c's and B5c's compact walk
 //     (flash_pairwalk_fwd_compact.cu), a list entry being the key
 //     itself here (`DenseRowPairs`).
 //  3. Units are sub-tiles of R rows (8 at H = 4), so one 10K snapshot

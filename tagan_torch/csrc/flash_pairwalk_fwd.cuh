@@ -1,9 +1,10 @@
 // The per-pair work of the forward pair walks, shared by
 // flash_pairwalk_fwd.cu (B1, B4 and B5 over the dense mask) and
-// flash_pairwalk_fwd_compact.cu (B5c over the hybrid band's compact
-// store), each in fp32 and bf16: the walks' arguments, one lane's (row,
-// head) item, the scores of a lane's listed pairs, and the flush that
-// turns a row's list into the online softmax and the output accumulator.
+// flash_pairwalk_fwd_compact.cu (B1c and B5c over the hybrid band's
+// compact store), each in fp32 and bf16: the walks' arguments, one lane's
+// (row, head) item, the scores of a lane's listed pairs, and the flush
+// that turns a row's list into the online softmax and the output
+// accumulator.
 // Each kernel sets up and writes out its items itself: with that done by
 // shared helpers, ptxas gave the dense B4 bf16 walk 96 registers, or 80
 // and a spill (chip_smoke.py phase 1).

@@ -1,41 +1,48 @@
-// Edge-biased geometric attention, forward, over the hybrid band's compact
-// store, as a pair walk for Hopper (sm_90a).
+// Geometric attention forwards over the hybrid band's compact store, as
+// pair walks for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel of tagan_tpu/ops/pallas/flash_geometric.py
-// that serves the double softmax's second walk (_flash_biased_kernel) in
-// its compact occupied-block form, bf16=False and bf16=True (the template
-// flag kBf16; host side tagan_tpu/ops/pallas/hybrid_biased.py):
+// Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
+// in their compact occupied-block forms (a 3-tuple plan), bf16=False and
+// bf16=True (the template flag kBf16), as two modes of one walk (kMode):
 //
-//   B5c  _band_biased_main, pallas_call :236   out_i, lse2_i
+//   B1c  _flash_kernel (host side _flash_forward), pallas_call :1369
+//        kMode OUT: out_i, lse_i
+//   B5c  _flash_biased_kernel (host side tagan_tpu/ops/pallas/
+//        hybrid_biased.py _band_biased_main), pallas_call :236
+//        kMode BIASED: out_i, lse2_i
 //
 // For each query row i and head h, over the band's valid keys j (the
-// store's bits), with s_ij the metric score and lse1 the union's (a
-// logsumexp over a superset of the walked pairs, an input):
+// store's bits), with s_ij the metric score:
 //
-//   w1_ij  = exp(s_ij - lse1_i)
-//   w1d_ij = keep1_ij ? w1_ij / (1 - p) : 0
-//   z_ij   = w1d_ij + bias[g, slot, i % 64, j % 64]
-//   out_i  = sum_j drop2(softmax_j z_ij) v_j,  lse2_i = logsumexp_j z_ij
+//   B1c  w_ij   = softmax_j s_ij
+//        out_i  = sum_j drop(w_ij) v_j,   lse_i = logsumexp_j s_ij
+//   B5c  given lse1 (the union's: a logsumexp over a superset of the
+//        walked pairs, an input),
+//        w1_ij  = exp(s_ij - lse1_i)
+//        w1d_ij = keep1_ij ? w1_ij / (1 - p) : 0
+//        z_ij   = w1d_ij + bias[g, slot, i % 64, j % 64]
+//        out_i  = sum_j drop2(softmax_j z_ij) v_j,  lse2_i = logsumexp_j z_ij
 //
-// with out = 0 and lse2 = 1e30 on rows that have no valid key. A dropped
-// w1 is not a masked pair: it enters the second softmax as z = bias. The
-// denominator of the second softmax is the un-dropped sum. keep1 and keep2
-// are the JAX package's coordinate hash (_keep_mask) with the snapshot's
-// two seeds at the global (i, j), bit for bit. The bias is shared by the
-// heads. The bf16 form rounds q and k after their fp32 norms, drop2(p2)
-// relative to the running max after each walk step, in jlist order, and
-// v; the sums are fp32. So its result depends on the walk (ROADMAP
-// C11(b)), and a unit never splits a row's walk.
+// with out = 0 and lse = 1e30 on rows that have no valid key. A dropped
+// w1 is not a masked pair: it enters the second softmax as z = bias. Each
+// softmax's denominator is the un-dropped sum. The keep masks are the JAX
+// package's coordinate hash (_keep_mask) at the global (i, j), bit for
+// bit: B1c's with the snapshot's one seed, B5c's keep1 and keep2 with its
+// two. The bias is shared by the heads. The bf16 form rounds q and k
+// after their fp32 norms, drop(p) relative to the running max after each
+// walk step, in jlist order, and v; the sums are fp32. So its result
+// depends on the walk (ROADMAP C11(b)), and a unit never splits a row's
+// walk.
 //
 // It is the dense forward walk (flash_pairwalk_fwd.cu) over another mask
 // source and another bias address, with the same per-pair code
 // (flash_pairwalk_fwd.cuh: the scores, the flush and its rounding points):
 //  - The mask is the compact store, bits i64[G, S, 64] or int8
 //    [G, S, 64, 64]: the slot walk of flash_pairwalk_slots.cuh, which the
-//    compact row walk of the backward shares. A list entry is (walk step
+//    compact row walks of the backward share. A list entry is (walk step
 //    t, column c) as t * 64 + c, and `CompactRowPairs` reads the step's
 //    key tile and slot back from the walk.
-//  - The bias of pair (i, j) lies at [g, slot, i % 64, j % 64] of the
+//  - B5c's bias of pair (i, j) lies at [g, slot, i % 64, j % 64] of the
 //    walked step's slot of the bias store f32[G, S, 64, 64], not at
 //    [g, i, j]: one 4-byte read a valid pair, the HG lanes of a row
 //    reading the same word.
@@ -45,30 +52,29 @@
 // 32, each lane one (row, head) item (`warp_items`); past 32 heads the
 // head groups are grid blocks, innermost, so that the groups of one
 // sub-tile walk its slots together. No block barrier and no atomic:
-// out and lse2 are written once per live row, dead rows included, and
-// repeated calls are bit-identical. The flush runs when a row's list
-// (CAPR entries) could overflow and at the end, over the valid pairs only:
-// k gathered UNROLL entries a lane at once for the scores, w1, drop1 and
-// the bias; the online softmax one walk step at a time (entry >> 6); v
-// gathered for drop2(p) v.
+// out and lse are written once per live row, dead rows and rows with an
+// empty walk included, and repeated calls are bit-identical. The flush
+// runs when a row's list (CAPR entries) could overflow and at the end,
+// over the valid pairs only: k gathered UNROLL entries a lane at once for
+// the scores (B5c: w1, drop1 and the bias); the online softmax one walk
+// step at a time (entry >> 6); v gathered for drop(p) v.
 //
 // What bounds it on the H100. The store is 512 B a walked tile (17.8 MB a
-// 131K snapshot); q, k, v, lse1, out and lse2 are read or written once,
-// and the bias at the valid pairs only (4 bytes each): ~0.05 ms at 3.35
-// TB/s. The pairs' products (~2 to 3 of head dim a pair and head) are far
-// below the fp32 rate. The band holds ~1 valid pair a row a walked tile
-// (60.6 a tile), so the flush's gathers set the pace, as in the compact
-// row walk. The tile template it replaces computed all 4,096 pairs of
-// every walked tile once per head and staged each 16 KB bias tile per
-// head.
+// 131K snapshot); q, k, v, out and lse (B5c: lse1) are read or written
+// once, B5c's bias at the valid pairs only (4 bytes each): ~0.05 ms at
+// 3.35 TB/s. The pairs' products (~2 to 3 of head dim a pair and head)
+// are far below the fp32 rate. The band holds ~1 valid pair a row a walked
+// tile (60.6 a tile), so the flush's gathers set the pace, as in the
+// compact row walks. The tile templates it replaces computed all 4,096
+// pairs of every walked tile once per head (68 times the valid pairs),
+// and B5c's staged each 16 KB bias tile per head.
 //
-// The walk's mode is a template parameter, as in the dense walk: B4c's
-// lse1 (kMode LSE, the flush's first pass) is not built here; it is still
-// the tile template of flash_biased_fwd.cu.
+// B4c's lse1 (kMode LSE, the flush's first pass) is not built here; it is
+// still the tile template of flash_biased_fwd.cu.
 //
 // Interface: plain C, loaded with ctypes; the entry points and arguments of
-// the tile template's B5c entries. Launches on the given stream, allocates
-// nothing, returns the cudaError_t of the launch.
+// the tile templates' B1c and B5c entries. Launches on the given stream,
+// allocates nothing, returns the cudaError_t of the launch.
 
 #include "flash_pairwalk_fwd.cuh"
 #include "flash_pairwalk_slots.cuh"
@@ -107,7 +113,8 @@ compact_fwd_kernel(const Walk a) {
   float* zbuf = acc_s + WARP * a.Dv + lane;
 
   // the lane's item, as the dense walk's: its row of q (rounded after its
-  // norm in bf16), its accumulator zeroed, its scale, lse1 and hash mixes
+  // norm in bf16), its accumulator zeroed, its scale, B5c's lse1 and the
+  // hash mixes (B1c: one seed a g; B5c: two)
   Item it;
   const int rl = lane / a.HG, h = hg * a.HG + lane % a.HG;
   it.gr = row0 + rl;
@@ -136,6 +143,8 @@ compact_fwd_kernel(const Walk a) {
       it.l1 = a.lse1[it.gh * a.N + it.gr];
       it.mix1 = (uint32_t)a.seeds[2 * g] ^ hmix;
       it.mix2 = (uint32_t)a.seeds[2 * g + 1] ^ hmix;
+    } else if constexpr (kMode == OUT) {
+      it.mix1 = (uint32_t)a.seeds[g] ^ hmix;
     }
   }
   const size_t walk = (size_t)g * a.n_i + ib;
@@ -185,6 +194,22 @@ int launch(Walk a, int G, void* stream) {
 }
 
 template <bool kBf16>
+int out_entry(const void* q, const void* k, const void* v, const void* store,
+              const void* jlist, const void* jcount, const void* jslot,
+              const void* scale, const void* seed, void* out, void* lse,
+              int G, int H, int N, int D, int Dv, int n_i, int W, int S,
+              int packed, int metric, float sqrt_d, int use_dropout,
+              unsigned int keep_thresh, float inv_keep, void* stream) {
+  Walk a = out_walk(q, k, v, store, jlist, jcount, scale, seed, out, lse, H,
+                    N, D, Dv, n_i, W, metric, sqrt_d, use_dropout,
+                    keep_thresh, inv_keep);
+  a.jslot = (const int*)jslot;
+  a.S = S;
+  return packed ? launch<OUT, kBf16, COMPACT_BITS>(a, G, stream)
+                : launch<OUT, kBf16, COMPACT_I8>(a, G, stream);
+}
+
+template <bool kBf16>
 int biased_entry(const void* q, const void* k, const void* v,
                  const void* store, const void* bias, const void* lse1,
                  const void* jlist, const void* jcount, const void* jslot,
@@ -202,6 +227,36 @@ int biased_entry(const void* q, const void* k, const void* v,
 }
 
 }  // namespace
+
+// B1c: out [G, H, N, Dv] and lse [G, H, N] of the forward over the compact
+// store (bits i64[G, S, 64] when packed, else int8 [G, S, 64, 64], 16-byte
+// aligned) along the walk (jlist, jcount, jslot [G, n_i, W], [G, n_i],
+// [G, n_i, W]), one hash seed per g, [G].
+extern "C" int tagan_flash_geometric_fwd_compact(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* jlist, const void* jcount, const void* jslot,
+    const void* scale, const void* seed, void* out, void* lse, int G, int H,
+    int N, int D, int Dv, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return out_entry<false>(q, k, v, store, jlist, jcount, jslot, scale, seed,
+                          out, lse, G, H, N, D, Dv, n_i, W, S, packed,
+                          metric, sqrt_d, use_dropout, keep_thresh, inv_keep,
+                          stream);
+}
+
+// B1c's bf16 form: the same arguments.
+extern "C" int tagan_flash_geometric_fwd_compact_bf16(
+    const void* q, const void* k, const void* v, const void* store,
+    const void* jlist, const void* jcount, const void* jslot,
+    const void* scale, const void* seed, void* out, void* lse, int G, int H,
+    int N, int D, int Dv, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, int use_dropout, unsigned int keep_thresh, float inv_keep,
+    void* stream) {
+  return out_entry<true>(q, k, v, store, jlist, jcount, jslot, scale, seed,
+                         out, lse, G, H, N, D, Dv, n_i, W, S, packed, metric,
+                         sqrt_d, use_dropout, keep_thresh, inv_keep, stream);
+}
 
 // B5c: out [G, H, N, Dv] and lse2 [G, H, N] of the second softmax over the
 // compact store (bits i64[G, S, 64] when packed, else int8 [G, S, 64, 64],

@@ -1,7 +1,7 @@
 // The slot walks over the hybrid band's compact store. The row slot walk
 // (`walk_slots`) is shared by the walks that take one row list a lane
-// group: the compact forward walk of flash_pairwalk_fwd_compact.cu (B5c in
-// both precisions), the compact row walk of
+// group: the compact forward walk of flash_pairwalk_fwd_compact.cu (B1c and
+// B5c in both precisions), the compact row walk of
 // flash_pairwalk_biased_bwd_compact.cu (B6c and B7a c in both precisions)
 // and the unbiased one of flash_pairwalk_bwd_compact.cu (B3a c, both
 // precisions).

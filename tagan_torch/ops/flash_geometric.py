@@ -14,7 +14,7 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B6   _biased_bwd_pre_kernel   csrc/flash_pairwalk_biased_bwd.cu (row walk)
     B7a  _biased_bwd_dq_kernel    csrc/flash_pairwalk_biased_bwd.cu (row walk)
     B7b  _biased_bwd_dkv_kernel   csrc/flash_pairwalk_biased_bwd.cu (key walk)
-    B1c  _flash_kernel, compact   csrc/flash_geometric_fwd.cu
+    B1c  _flash_kernel, compact   csrc/flash_pairwalk_fwd_compact.cu
     B3a c  _flash_bwd_dq_kernel, compact   csrc/flash_pairwalk_bwd_compact.cu
     B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_pairwalk_bwd_compact.cu
     B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
@@ -27,12 +27,13 @@ kernels that port the Pallas ones, and the differentiable entry point:
 
 B1, B2, B4 and B5 are pair walks that read each mask tile once for all
 heads and compute only the mask's valid pairs; so are B6 and B7a, together
-as one row walk, and B7b as the key walk, and over the compact store B5c
-(the forward walk), B6c and B7a c (one row walk), B3a c (the unbiased row
-walk), B7b c and B3b c (key walks). Every kernel above also has a bf16
-form (the TPU kernels' ``bf16=True``: every product's operands rounded
-to bf16, float32 sums), in the same source under its own entry point and
-launch count; the model takes them under ``bf16_matmul``.
+as one row walk, and B7b as the key walk, and over the compact store B1c
+and B5c (the forward walk's two modes), B6c and B7a c (one row walk),
+B3a c (the unbiased row walk), B7b c and B3b c (key walks). Every kernel
+above also has a bf16 form (the TPU kernels' ``bf16=True``: every
+product's operands rounded to bf16, float32 sums), in the same source
+under its own entry point and launch count; the model takes them under
+``bf16_matmul``.
 
 B4 and B5 are the forward of the edge-biased variant (``bias=``), the
 dense path's double softmax, and B6, B7a and B7b its backward. The
@@ -69,8 +70,8 @@ from ..ops import build
 NEG_INF = -1e30
 LSE_DEAD = 1e30   # lse of a row with no valid key
 
-# The CUDA kernel's tile (csrc/flash_geometric_fwd.cu: BM, BN). Plans fed
-# to the kernel are built at this tile.
+# The CUDA kernels' tile (csrc/flash_geometric_common.cuh: BM, BN). Plans
+# fed to the kernels are built at this tile.
 BLOCK_M = 64
 BLOCK_N = 64
 
@@ -1761,9 +1762,14 @@ def _check_compact(name, dev, q, store, jlist, jcount, jslot):
 
 class _FlashForwardCompactKernel(_CudaKernel):
     """B1c, ``tagan_flash_geometric_fwd_compact``: B1 over the compact
-    store, (out, lse)."""
+    store, (out, lse). The compact forward pair walk's OUT mode
+    (csrc/flash_pairwalk_fwd_compact.cu, B5c's walk): a warp owns up to
+    32 (row, head) items of a row tile, reads each walked slot's row words
+    once for its heads, lists each row's keys and computes only the
+    store's valid pairs. Every row of out and lse is written (dead rows: 0
+    and ``LSE_DEAD``). Deterministic: no atomics."""
     name = "flash_geometric_fwd_compact"
-    source = "flash_geometric_fwd"
+    source = "flash_pairwalk_fwd_compact"
     symbol = "tagan_flash_geometric_fwd_compact"
     argtypes = (_P,) * 11 + (_I,) * 10 + (_F, _I, _U, _F)
 
@@ -1948,8 +1954,8 @@ class _FlashBwdDkvCompactKernel(_FlashBackwardCompactKernel):
 
 
 class _FlashForwardCompactBf16Kernel(_FlashForwardCompactKernel):
-    """B1c's bf16 form, ``tagan_flash_geometric_fwd_compact_bf16``: B1c
-    with bf16 dot operands."""
+    """B1c's bf16 form, ``tagan_flash_geometric_fwd_compact_bf16``: the
+    same pair walk with bf16 dot operands."""
     name = "flash_geometric_fwd_compact_bf16"
     symbol = "tagan_flash_geometric_fwd_compact_bf16"
 

@@ -2201,37 +2201,53 @@ def compact_fwd_walk_check(dev, bf16, G, H, N, D, Dv, metric, rate, pack,
             BF16_QK_SCALE if bf16 else 1.0, band=True))
     kern = FG.flash_biased_fwd_compact_bf16_kernel if bf16 \
         else FG.flash_biased_fwd_compact_kernel
-
-    def call():
-        with nan_empty():
-            return kern(q, k, v, store, bias_store, lse1, *plan, metric,
-                        scale, seeds, rate)
-    before = {k_.name: k_.launches for k_ in FG.KERNELS}
-    out, lse2 = call()
-    torch.cuda.synchronize()
-    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
-    assert launched == {k_.name: int(k_ is kern) for k_ in FG.KERNELS}
-    assert torch.isfinite(out).all() and torch.isfinite(lse2).all()
-    dead = (mask == 0).all(-1)[:, None, :].expand(G, H, N)
-    assert dead.any() and (~dead).any()
-    assert torch.all(out[dead] == 0) and torch.all(lse2[dead] == FG.LSE_DEAD)
-    for _ in range(repeats - 1):
-        again = call()
-        assert torch.equal(again[0], out) and torch.equal(again[1], lse2)
+    got, live = _fwd_walk_run(kern, (
+        q, k, v, store, bias_store, lse1, *plan, metric, scale, seeds, rate),
+        mask, H, repeats)
     plain = {b: FG.flash_biased_forward_compact_plain(
         q, k, v, store, bias_store, lse1, *plan, metric, scale, rate, seeds,
         b) for b in {bf16, False}}
-    live = ~dead
-    p_out, p_l2 = plain[bf16]
+    return _fwd_walk_errors(got, plain[bf16], plain[False], live, bf16)
+
+
+def _fwd_walk_run(kern, args, mask, H, repeats):
+    """(out, lse) of the compact forward walk ``kern`` on ``args``, its
+    outputs allocated NaN-filled (`nan_empty`): each call launches ``kern``
+    once and nothing else, out and lse come back finite everywhere, dead
+    rows exactly 0 and ``LSE_DEAD``, and ``repeats`` calls bit-identical.
+    Returns them with the live rows [G, H, N]."""
+    def call():
+        with nan_empty():
+            return kern(*args)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    out, lse = call()
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    assert launched == {k_.name: int(k_ is kern) for k_ in FG.KERNELS}
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    dead = (mask == 0).all(-1)[:, None, :].expand(-1, H, -1)
+    assert dead.any() and (~dead).any()
+    assert torch.all(out[dead] == 0) and torch.all(lse[dead] == FG.LSE_DEAD)
+    for _ in range(repeats - 1):
+        again = call()
+        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    return (out, lse), ~dead
+
+
+def _fwd_walk_errors(got, want, f32, live, bf16):
+    """The walk's (out, lse) against the plain version's ``want`` over
+    live rows: within TOL in fp32, returning the max abs error; under the
+    bf16 gates in bf16 (``f32``, the plain fp32 version, the witness of
+    out), returning the worst (max abs error, max error, mean error,
+    witness) over the largest entry."""
     if not bf16:
-        err = max((out - p_out)[live].abs().max().item(),
-                  (lse2 - p_l2)[live].abs().max().item())
+        err = max((g - w)[live].abs().max().item()
+                  for g, w in zip(got, want))
         assert err <= TOL, err
         return err
     res = []
-    for got, want, f32, wit in ((out, p_out, plain[False][0], True),
-                                (lse2, p_l2, plain[False][1], False)):
-        g, w, f = got[live], want[live], f32[live]
+    for g, w, f, wit in zip(got, want, f32, (True, False)):
+        g, w, f = g[live], w[live], f[live]
         _bf16_gates(g, w, f, witness=wit)
         m = w.abs().max().clamp(min=1e-30)
         e = (g - w).abs()
@@ -2313,6 +2329,124 @@ def test_compact_fwd_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
         FG.flash_biased_fwd_compact(
             q, k, v, store, bias_store, lse1, jl, jc, js,
             metric="dot_product", scale=scale, seeds=seeds, bf16=bf16)
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
+
+
+# -- B1c: the compact forward pair walk's OUT mode, fp32 and bf16 ------------
+
+def compact_out_walk_check(dev, bf16, G, H, N, D, Dv, metric, rate, pack,
+                           seed=3, repeats=1):
+    """B1c (``bf16``: its bf16 form), the compact forward pair walk's OUT
+    mode, at `band_mask`'s cases over `band_compact`'s walks (a whole
+    tile, a one-pair tile, rows past 128 keys, dead rows, a walked slot
+    with no bit, walk entries past the counts; N = 330 has a ragged last
+    tile), one hash seed a snapshot (q and k at ``BF16_QK_SCALE`` in
+    bf16), against the compact plain version: out and lse within TOL of
+    it over live rows in fp32, under the bf16 gates in bf16 (the plain
+    fp32 version the witness). With dropout, the plain version at
+    another seed, and without dropout, lies far from the walk's out: the
+    walk dropped the pairs the snapshot's seed drops (a hash mix left at
+    0 would not). Its outputs are allocated NaN-filled (`nan_empty`) and
+    come back set everywhere, dead rows exactly 0 and ``LSE_DEAD``; each
+    call launches the walk once and nothing else; ``repeats`` calls are
+    bit-identical. Shared by chip_smoke.py's phases 2e and 2k. Returns
+    the max abs error over live rows (fp32) or the worst (max abs error,
+    max error, mean error, witness) over the largest entry (bf16)."""
+    (q, k, v, mask, store, _, plan, _, scale, seeds, _, _, _, _, _) = (
+        t.to(dev).contiguous() if torch.is_tensor(t)
+        else tuple(p_.to(dev).contiguous() for p_ in t)
+        for t in _compact_biased_bwd_inputs(
+            G, H, N, D, Dv, metric, pack, rate, seed,
+            BF16_QK_SCALE if bf16 else 1.0, band=True))
+    seed1 = seeds[:, 0].contiguous()
+    kern = FG.flash_geometric_fwd_compact_bf16_kernel if bf16 \
+        else FG.flash_geometric_fwd_compact_kernel
+    got, live = _fwd_walk_run(
+        kern, (q, k, v, store, *plan, metric, scale, seed1, rate), mask, H,
+        repeats)
+
+    def plain(b, r=rate, sd=seed1):
+        return FG.flash_geometric_forward_compact_plain(
+            q, k, v, store, *plan, metric, scale, r, sd, b)
+    if rate > 0:
+        for other in (plain(bf16, sd=seed1 + 1)[0], plain(bf16, 0.0)[0]):
+            assert (got[0] - other)[live].abs().max() > 100 * TOL
+    return _fwd_walk_errors(got, plain(bf16), plain(False), live, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_out_walk_band(metric, rate, pack, bf16, cuda):
+    """B1c's walk in both precisions at the band's cases, bit and int8
+    stores, every metric, dropout off and on (its hash at the global
+    (row, key) with the snapshot's seed, as the plain version's)
+    (`compact_out_walk_check`)."""
+    compact_out_walk_check(cuda, bf16, 2, 4, 330, 16, 16, metric, rate, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("D,Dv", [(16, 16), (8, 8), (12, 12), (7, 3),
+                                  (128, 128)])
+def test_compact_out_walk_head_dims(D, Dv, pack, bf16, cuda):
+    """Head dims whose sqrt is not a power of two, D != Dv, odd widths (no
+    16-byte gathers), and the widest, (128, 128), where q, the
+    accumulators and the flush's values pass 48 KB a warp at one head."""
+    compact_out_walk_check(cuda, bf16, 1, 2, 330, D, Dv, "gaussian_kernel",
+                           0.1, pack, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("H", [1, 4, 33])
+def test_compact_out_walk_fold(H, bf16, cuda):
+    """Folds of 1, 4 and 33 heads (32 rows a warp at one head; two head
+    groups, the second of one head, past 32), each head's hash mix its
+    own."""
+    compact_out_walk_check(cuda, bf16, 2, H, 330, 16, 16, "gaussian_kernel",
+                           0.1, True, seed=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+def test_compact_out_walk_deterministic(pack, bf16, cuda):
+    """out and lse are bit-identical over 20 calls: the walk sums in the
+    list's order and has no atomic."""
+    compact_out_walk_check(cuda, bf16, 2, 4, 1008, 16, 16, "gaussian_kernel",
+                           0.1, pack, repeats=20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fault", ["jslot", "jcount", "jlist", "seed"])
+def test_compact_out_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
+    """The public entry checks the walk's values and the wrapper the
+    shapes: a jslot past the store, a count past the walk's width, a key
+    tile past N, a seed of another length raise ValueError on the host,
+    and no kernel is launched."""
+    (q, k, v, _, store, _, plan, _, scale, seeds, _, _, _, _,
+     _) = _compact_biased_bf16_inputs(cuda, 1, 2, 150, 16, 16,
+                                      "dot_product", True, 0.0)
+    seed = seeds[:, 0].contiguous()
+    jl, jc, js = (p.clone() for p in plan)
+    if fault == "jslot":
+        js[0, 0, 0] = store.shape[1]
+    elif fault == "jcount":
+        jc[0, 0] = jl.shape[-1] + 1
+    elif fault == "jlist":
+        jl[0, 0, 0] = 3
+    else:
+        seed = torch.cat([seed, seed])
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    with pytest.raises(ValueError):
+        FG.flash_geometric_fwd_compact(
+            q, k, v, store, jl, jc, js, metric="dot_product", scale=scale,
+            seed=seed, dropout_rate=0.1, bf16=bf16)
     assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
 
 

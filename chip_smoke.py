@@ -32,9 +32,10 @@ Phases, in order; any failure raises and exits non-zero:
    kernels of the hybrid backend, B1c, B4c and B5c, against their compact
    plain versions on 2c's grid, with the bit and the int8 store (a row
    tile with jcount = 0 among the dead rows), and the compact forward
-   pair walk in its two modes, B5c (`compact_fwd_walk_check`) and B1c
+   pair walk in its three modes, B5c (`compact_fwd_walk_check`), B1c
    (`compact_out_walk_check`: with dropout, far from the plain version
-   at another seed), at `tests/test_torch_gpu.py::band_mask`'s cases
+   at another seed) and B4c (`compact_lse_walk_check`: no dropout, the
+   cases' head dims D), at `tests/test_torch_gpu.py::band_mask`'s cases
    over `band_compact`'s walks (every metric, dropouts off and on, both
    stores, (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128),
    folds of 1, 4 and 33 heads; its outputs allocated NaN-filled and set
@@ -89,7 +90,8 @@ Phases, in order; any failure raises and exits non-zero:
    20 times bit for bit; the walks given a zero delta1_rest failing the
    gates (the witness); a jslot past the store raising before any
    launch at the four entries; and the bf16 compact forward walk, B5c
-   bf16 and B1c bf16, at 2e's band cases under the bf16 gates;
+   bf16, B1c bf16 and B4c bf16 (the max and mean gates), at 2e's band
+   cases under the bf16 gates;
 3. the serving path: ``Predictor`` serving 3 requests of 2 sequences at
    the width ``bench.py`` runs (10,000 nodes, 160,000 random edges per
    snapshot, 8 snapshots, hidden 64, 4 heads, 2 flash layers) with random
@@ -3409,7 +3411,9 @@ def compact_fwd_walk_runs(FG):
     """The band cases at which 2e and 2k hold the compact forward walk,
     B5c and B1c (the arguments of `tests.test_torch_gpu`'s
     `compact_fwd_walk_check` and `compact_out_walk_check` after the
-    precision): every metric with the dropouts off and on, both stores;
+    precision; B4c's, `compact_lse_walk_check`'s, are these without Dv
+    and the dropout rate): every metric with the dropouts off and on,
+    both stores;
     (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3) and (128, 128), both
     stores; folds of 1, 4 and 33 heads; and two cases called 20 times,
     bit for bit."""
@@ -3427,19 +3431,24 @@ def compact_fwd_walk_runs(FG):
 
 
 def phase_compact_fwd_walk(FG, bf16):
-    """The compact forward pair walk (``bf16``: its bf16 form) in its two
-    modes, B5c and B1c (with dropout, far from the plain version at
-    another seed), at `compact_fwd_walk_runs`' band cases, outputs
+    """The compact forward pair walk (``bf16``: its bf16 form) in its three
+    modes, B5c, B1c (with dropout, far from the plain version at another
+    seed) and B4c, at `compact_fwd_walk_runs`' band cases, outputs
     allocated NaN-filled and set everywhere, dead rows exactly 0 and
     LSE_DEAD, one launch each, against the compact plain versions: within
-    TOL, or under the bf16 gates. Returns {kernel: (cases, worst
-    error)}."""
+    TOL, or under the bf16 gates (B4c: the max and mean gates). Returns
+    {kernel: (cases, worst error)}."""
     from tests.test_torch_gpu import (compact_fwd_walk_check,
+                                      compact_lse_walk_check,
                                       compact_out_walk_check)
+    runs = compact_fwd_walk_runs(FG)
+    lse_runs = list(dict.fromkeys(r[:4] + (r[5], r[7]) + r[8:]
+                                  for r in runs))
     out = {}
-    for name, check in (("B5c", compact_fwd_walk_check),
-                        ("B1c", compact_out_walk_check)):
-        errs = [check(DEV, bf16, *run) for run in compact_fwd_walk_runs(FG)]
+    for name, check, cases in (("B5c", compact_fwd_walk_check, runs),
+                               ("B1c", compact_out_walk_check, runs),
+                               ("B4c", compact_lse_walk_check, lse_runs)):
+        errs = [check(DEV, bf16, *run) for run in cases]
         out[name] = (len(errs), tuple(
             max(e[i] for e in errs) if i < 3 else min(e[i] for e in errs)
             for i in range(4)) if bf16 else max(errs))
@@ -5180,6 +5189,7 @@ def phase_small_compact_biased_bf16(FG):
                              f"it; launches {counts(FG)} vs {before}")
     walks = phase_compact_fwd_walk(FG, True)
     worst["B5c"] = max(worst["B5c"], walks["B5c"][1])
+    worst["B4c"] = max(worst["B4c"], walks["B4c"][1])
     worst["B1c"] = walks["B1c"][1]
     log(f"[2k] bf16 forms of B4c, B5c, the row walk (B6c + B7a c) and the "
         f"key walk (B7b c) vs the compact plain bf16 versions, bit and int8 "
@@ -6382,8 +6392,9 @@ def main() -> int:
             ("B1c", FG.flash_geometric_fwd_compact_kernel,
              "flash_pairwalk_fwd_compact.cu", FG_SRC, 1369, serve_hyb,
              "flash_geometric_forward_compact_plain"),
-            ("B4c", FG.flash_lse1_compact_kernel, "flash_biased_fwd.cu",
-             HB_SRC, 197, serve_hyb_edge, "flash_lse1_compact_plain"),
+            ("B4c", FG.flash_lse1_compact_kernel,
+             "flash_pairwalk_fwd_compact.cu", HB_SRC, 197, serve_hyb_edge,
+             "flash_lse1_compact_plain"),
             ("B5c", FG.flash_biased_fwd_compact_kernel,
              "flash_pairwalk_fwd_compact.cu", HB_SRC, 236, serve_hyb_edge,
              "flash_biased_forward_compact_plain"))]
@@ -6581,7 +6592,7 @@ def main() -> int:
                  if lib16he["error"] is None else lib16he["error"]))
         for name, kern, source, line, plain_of in zip(
             ("B4c", "B5c"), compact_biased_kernels(FG, True)[:2],
-            ("flash_biased_fwd.cu", "flash_pairwalk_fwd_compact.cu"),
+            ("flash_pairwalk_fwd_compact.cu",) * 2,
             (197, 236),
             ("flash_lse1_compact_plain with bf16=True",
              "flash_biased_forward_compact_plain with bf16=True (walks the "

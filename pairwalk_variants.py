@@ -5,10 +5,11 @@
 walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), their compact
 forms over the hybrid band's store, fp32 and bf16
 (``flash_pairwalk_biased_bwd_compact.cu``), the compact forward walk in
-its two modes, B5c ("compact fwd walk") and B1c ("compact out walk"),
-fp32 and bf16 (``flash_pairwalk_fwd_compact.cu``), and the unbiased
-backward's compact walks, B3a c's row walk ("compact plain row walk") and
-B3b c's key walk ("compact plain key walk"), fp32 and bf16
+its three modes, B5c ("compact fwd walk"), B1c ("compact out walk") and
+B4c ("compact lse walk"), fp32 and bf16
+(``flash_pairwalk_fwd_compact.cu``), and the unbiased backward's compact
+walks, B3a c's row walk ("compact plain row walk") and B3b c's key walk
+("compact plain key walk"), fp32 and bf16
 (``flash_pairwalk_bwd_compact.cu``), against copies of their sources
 with one design constant changed, on one NVIDIA GPU, to see what bounds
 them:
@@ -117,6 +118,8 @@ WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
                  "compact fwd walk bf16": ("noflush",),
                  "compact out walk": ("noflush",),
                  "compact out walk bf16": ("noflush",),
+                 "compact lse walk": ("noflush",),
+                 "compact lse walk bf16": ("noflush",),
                  "compact plain row walk": ("noflush_row",),
                  "compact plain row walk bf16": ("noflush_row",),
                  "compact plain key walk": ("noflush_key",),
@@ -124,7 +127,8 @@ WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
 COMPACT = ("compact row walk", "compact row walk bf16", "compact key walk",
            "compact key walk bf16", "compact fwd walk",
            "compact fwd walk bf16", "compact out walk",
-           "compact out walk bf16", "compact plain row walk",
+           "compact out walk bf16", "compact lse walk",
+           "compact lse walk bf16", "compact plain row walk",
            "compact plain row walk bf16", "compact plain key walk",
            "compact plain key walk bf16")
 
@@ -239,6 +243,8 @@ def main() -> int:
              "compact out walk": FG.flash_geometric_fwd_compact_kernel,
              "compact out walk bf16":
                  FG.flash_geometric_fwd_compact_bf16_kernel,
+             "compact lse walk": FG.flash_lse1_compact_kernel,
+             "compact lse walk bf16": FG.flash_lse1_compact_bf16_kernel,
              "compact plain row walk":
                  FG.flash_geometric_bwd_dq_compact_kernel,
              "compact plain row walk bf16":
@@ -327,8 +333,9 @@ def main() -> int:
 def compact_times(kernels, gen):
     """The compact walks and their variants on one snapshot of the band,
     each precision's key walk on its own row walk's delta1, the forward
-    walk on B4c's lse1 (B5c) and without it (B1c), the plain row and key
-    walks (B3a c, B3b c) on B1c's lse and delta = rowsum(dO out)."""
+    walk on B4c's lse1 (B5c), without it (B1c) and forming it (B4c), the
+    plain row and key walks (B3a c, B3b c) on B1c's lse and delta =
+    rowsum(dO out)."""
     store, plan, plan_t = band_graph(7)
     S = store.shape[1]
     q, k, v, do = (0.5 * torch.randn(1, H, N_BAND, D, device="cuda",
@@ -348,7 +355,10 @@ def compact_times(kernels, gen):
                0.0)
         common = (q, k, v, store, bias, do, lse1, lse2, (do * out).sum(-1))
         row = (*common, rest, *plan, "euclidean", ones, seeds, 0.0, False)
-        args = {"compact fwd walk": fwd, "compact fwd walk bf16": fwd}
+        args = {"compact fwd walk": fwd, "compact fwd walk bf16": fwd,
+                "compact lse walk": (q, k, store, *plan, "euclidean", ones),
+                "compact lse walk bf16": (q, k, store, *plan, "euclidean",
+                                          ones)}
         for prec in ("", " bf16"):
             d1 = kernels[f"compact row walk{prec}"]["base"](*row)[0]
             args[f"compact row walk{prec}"] = row

@@ -1,9 +1,8 @@
 // Device helpers shared by the flash geometric attention kernels:
 // flash_geometric_bwd.cuh (the dense two-walk backward, built by
-// flash_geometric_bwd.cu), the edge-biased flash_biased_fwd.cu (the
-// compact lse1, B4c), and the pair walks of flash_pairwalk_fwd.cu (B1,
-// B4, B5 and their bf16 forms), flash_pairwalk_fwd_compact.cu (B1c, B5c
-// and their bf16 forms),
+// flash_geometric_bwd.cu), and the pair walks of flash_pairwalk_fwd.cu
+// (B1, B4, B5 and their bf16 forms), flash_pairwalk_fwd_compact.cu (B1c,
+// B4c, B5c and their bf16 forms),
 // flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
 // flash_pairwalk_biased_bwd.cu (B6, B7a, B7b and their bf16 forms),
 // flash_pairwalk_biased_bwd_compact.cu (B6c, B7a c, B7b c and their bf16
@@ -52,55 +51,23 @@ enum Metric : int {
 };
 
 // ---------------------------------------------------------------------------
-// Mask forms of the forward walks. DENSE: an int8 [N, N] mask per folded
-// batch index, read per pair. The compact occupied-block store of the hybrid
-// backend's band holds only the occupied 64 x 64 tiles, slot s of batch
-// index g at (g * S + s), and the walk names each step's slot (jslot):
-// COMPACT_I8 stores a tile as int8 [64][64], COMPACT_BITS as 64 uint64 words,
-// bit c of word r for pair (r, c). A compact step first loads its tile into
-// shared memory as 64 row words (`load_mask_tile`); `pair_on` then tests one
-// bit. The plan sets no bit past N; `pair_on` masks the ragged edge
-// anyway. Of the tile kernels only B4c (flash_biased_fwd.cu) still walks
-// the compact store this way; the pair walks read it through
-// flash_pairwalk_slots.cuh.
+// Mask forms. DENSE: an int8 [N, N] mask per folded batch index, read per
+// pair. The compact occupied-block store of the hybrid backend's band holds
+// only the occupied 64 x 64 tiles, slot s of batch index g at (g * S + s),
+// and the walk names each step's slot (jslot): COMPACT_I8 stores a tile as
+// int8 [64][64], COMPACT_BITS as 64 uint64 words, bit c of word r for pair
+// (r, c). The pair walks read the compact store through
+// flash_pairwalk_slots.cuh; the tile kernels here take the dense mask
+// alone.
 // ---------------------------------------------------------------------------
 
 enum MaskForm : int { DENSE_MASK = 0, COMPACT_I8 = 1, COMPACT_BITS = 2 };
 
-// The tile of `slot` (g * S + s) into rows[0..64), by all THREADS threads.
-// COMPACT_I8: each thread turns 16 bytes of a row (one 16-byte load) into
-// 16 bits; the store is 16-byte aligned (the wrapper checks it).
-template <int kForm>
-__device__ __forceinline__ void load_mask_tile(uint64_t* rows,
-                                               const void* store,
-                                               size_t slot) {
-  const int tid = threadIdx.x;
-  if constexpr (kForm == COMPACT_BITS) {
-    if (tid < BM)
-      rows[tid] = static_cast<const uint64_t*>(store)[slot * BM + tid];
-  } else if constexpr (kForm == COMPACT_I8) {
-    static_assert(THREADS == BM * BN / 16, "one 16-byte load per thread");
-    const int r = tid >> 2, part = tid & 3;
-    const uint4 w = reinterpret_cast<const uint4*>(
-        static_cast<const uint8_t*>(store) + slot * (BM * BN) + r * BN)[part];
-    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-    uint32_t bits = 0;
-#pragma unroll
-    for (int b = 0; b < 16; ++b)
-      bits |= ((words[b >> 2] >> (8 * (b & 3))) & 0xffu) != 0 ? 1u << b : 0u;
-    reinterpret_cast<uint16_t*>(rows)[r * 4 + part] = (uint16_t)bits;
-  }
-}
-
-// Whether pair (gr, gc) (tile row lr, column lc) is on the mask: the dense
-// byte, or the bit of the tile loaded by `load_mask_tile`.
-template <int kForm>
+// Whether pair (gr, gc) is on the dense mask mg [N, N]; false past N.
 __device__ __forceinline__ bool pair_on(const uint8_t* __restrict__ mg,
-                                        const uint64_t* rows, int N, int gr,
-                                        int gc, int lr, int lc) {
+                                        int N, int gr, int gc) {
   if (gr >= N || gc >= N) return false;
-  if constexpr (kForm == DENSE_MASK) return mg[(size_t)gr * N + gc] != 0;
-  else return (rows[lr] >> lc) & 1ull;
+  return mg[(size_t)gr * N + gc] != 0;
 }
 
 // x rounded to the nearest bf16 (ties to even) under kBf16, else x.
@@ -362,8 +329,9 @@ __device__ __forceinline__ void tile_products(const BwdTiles& t, int D, int Dv,
 // and writes W_ij to Ws and, with kWantP, drop(p)_ij to Ps; invalid pairs
 // write 0. p is formed only on valid pairs, where lse_i >= s_ij, so no
 // exp of a large positive number is taken (dead rows have no valid pair).
-// The pair test is `pair_on<kForm>`: the dense mask mg, or the tile's row
-// words `rows` of the compact forms (loaded by `load_mask_tile`).
+// The pair test is `pair_on` over the dense mask mg: kForm is DENSE_MASK
+// and `rows` nullptr (the dense B3a's kForm stays a template parameter:
+// without it ptxas spilled).
 // kBf16 (the tiles staged for it by load_rows, load_query_side and
 // tile_norms): W is `chain_weight_bf16`'s (unrounded: the squared-distance
 // metrics' row and column sums of W are fp32, and the product loops round
@@ -388,7 +356,7 @@ __device__ __forceinline__ float pair_weights(
     for (int b = 0; b < 4; ++b) {
       const int lc = lane + 16 * b, gc = col0 + lc;
       float w = 0.f, pd = 0.f;
-      if (pair_on<kForm>(mg, rows, N, gr, gc, lr, lc)) {
+      if (pair_on(mg, N, gr, gc)) {
         const float qk = s[a][b];
         const float qn = t.qn[lr], kn = t.kn[lc];
         const float sv = score_of(metric, qk, qn, kn, sc, sqrt_d);

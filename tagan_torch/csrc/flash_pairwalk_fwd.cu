@@ -63,8 +63,8 @@
 //     which is exact (m unchanged, alpha = 1), so the dense template's
 //     "p = 1 garbage" before a row's first valid key does not arise. B4
 //     takes the first pass only. The flush lives in
-//     flash_pairwalk_fwd.cuh, shared with B1c's and B5c's compact walk
-//     (flash_pairwalk_fwd_compact.cu), a list entry being the key
+//     flash_pairwalk_fwd.cuh, shared with B1c's, B4c's and B5c's compact
+//     walk (flash_pairwalk_fwd_compact.cu), a list entry being the key
 //     itself here (`DenseRowPairs`).
 //  3. Units are sub-tiles of R rows (8 at H = 4), so one 10K snapshot
 //     gives 1,250 warps: every SM is busy at G = 1 as at G = 16.
@@ -185,16 +185,6 @@ int launch(Walk a, int G, void* stream) {
   const dim3 grid((unsigned)a.n_sub * a.n_hg, G);
   kern<<<grid, WARP, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-// B4's: no v, no output rows (Dv = 0), no dropout.
-Walk lse1_walk(const void* q, const void* k, const void* mask,
-               const void* jlist, const void* jcount, const void* scale,
-               void* lse1, int H, int N, int D, int n_i, int W, int metric,
-               float sqrt_d) {
-  return out_walk(q, k, nullptr, mask, jlist, jcount, scale, nullptr,
-                  nullptr, lse1, H, N, D, 0, n_i, W, metric, sqrt_d, 0, 0u,
-                  1.f);
 }
 
 }  // namespace

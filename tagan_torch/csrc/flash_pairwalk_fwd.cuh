@@ -1,6 +1,6 @@
 // The per-pair work of the forward pair walks, shared by
 // flash_pairwalk_fwd.cu (B1, B4 and B5 over the dense mask) and
-// flash_pairwalk_fwd_compact.cu (B1c and B5c over the hybrid band's
+// flash_pairwalk_fwd_compact.cu (B1c, B4c and B5c over the hybrid band's
 // compact store), each in fp32 and bf16: the walks' arguments, one lane's
 // (row, head) item, the scores of a lane's listed pairs, and the flush
 // that turns a row's list into the online softmax and the output
@@ -294,7 +294,8 @@ __host__ inline bool bad_walk(const Walk& a, int G) {
          a.n_i != (a.N + BM - 1) / BM || a.W < 0;
 }
 
-// B1's walk arguments, one hash seed per g; B5's and B4's start from them.
+// B1's walk arguments, one hash seed per g; B5's and B4's start from them
+// (B1c's, B4c's and B5c's too, with the walk's jslot and S).
 __host__ inline Walk out_walk(const void* q, const void* k, const void* v,
                               const void* mask, const void* jlist,
                               const void* jcount, const void* scale,
@@ -334,6 +335,17 @@ __host__ inline Walk biased_walk(const void* q, const void* k, const void* v,
   a.bias = (const float*)bias;
   a.lse1 = (const float*)lse1;
   return a;
+}
+
+// B4's: no v, no output rows (Dv = 0), no dropout.
+__host__ inline Walk lse1_walk(const void* q, const void* k, const void* mask,
+                               const void* jlist, const void* jcount,
+                               const void* scale, void* lse1, int H, int N,
+                               int D, int n_i, int W, int metric,
+                               float sqrt_d) {
+  return out_walk(q, k, nullptr, mask, jlist, jcount, scale, nullptr,
+                  nullptr, lse1, H, N, D, 0, n_i, W, metric, sqrt_d, 0, 0u,
+                  1.f);
 }
 
 }  // namespace tagan_pairwalk

@@ -3,10 +3,13 @@
 //
 // Replaces the Pallas TPU kernels of tagan_tpu/ops/pallas/flash_geometric.py
 // in their compact occupied-block forms (a 3-tuple plan), bf16=False and
-// bf16=True (the template flag kBf16), as two modes of one walk (kMode):
+// bf16=True (the template flag kBf16), as three modes of one walk (kMode):
 //
 //   B1c  _flash_kernel (host side _flash_forward), pallas_call :1369
 //        kMode OUT: out_i, lse_i
+//   B4c  _lse1_kernel (host side tagan_tpu/ops/pallas/hybrid_biased.py
+//        _band_lse1), pallas_call :197
+//        kMode LSE: lse1_i
 //   B5c  _flash_biased_kernel (host side tagan_tpu/ops/pallas/
 //        hybrid_biased.py _band_biased_main), pallas_call :236
 //        kMode BIASED: out_i, lse2_i
@@ -16,6 +19,7 @@
 //
 //   B1c  w_ij   = softmax_j s_ij
 //        out_i  = sum_j drop(w_ij) v_j,   lse_i = logsumexp_j s_ij
+//   B4c  lse1_i = logsumexp_j s_ij   (no v, no bias, no dropout)
 //   B5c  given lse1 (the union's: a logsumexp over a superset of the
 //        walked pairs, an input),
 //        w1_ij  = exp(s_ij - lse1_i)
@@ -23,16 +27,18 @@
 //        z_ij   = w1d_ij + bias[g, slot, i % 64, j % 64]
 //        out_i  = sum_j drop2(softmax_j z_ij) v_j,  lse2_i = logsumexp_j z_ij
 //
-// with out = 0 and lse = 1e30 on rows that have no valid key. A dropped
-// w1 is not a masked pair: it enters the second softmax as z = bias. Each
-// softmax's denominator is the un-dropped sum. The keep masks are the JAX
-// package's coordinate hash (_keep_mask) at the global (i, j), bit for
-// bit: B1c's with the snapshot's one seed, B5c's keep1 and keep2 with its
-// two. The bias is shared by the heads. The bf16 form rounds q and k
-// after their fp32 norms, drop(p) relative to the running max after each
-// walk step, in jlist order, and v; the sums are fp32. So its result
-// depends on the walk (ROADMAP C11(b)), and a unit never splits a row's
-// walk.
+// with out = 0 and lse (lse1, lse2) = 1e30 on rows that have no valid
+// key. A dropped w1 is not a masked pair: it enters the second softmax as
+// z = bias. Each softmax's denominator is the un-dropped sum. The keep
+// masks are the JAX package's coordinate hash (_keep_mask) at the global
+// (i, j), bit for bit: B1c's with the snapshot's one seed, B5c's keep1
+// and keep2 with its two. The bias is shared by the heads. The bf16 form
+// rounds q and k after their fp32 norms, drop(p) relative to the running
+// max after each walk step, in jlist order, and v; the sums are fp32. So
+// its result depends on the walk (ROADMAP C11(b)), and a unit never
+// splits a row's walk. B4c rounds q and k alone: its running max and sum
+// are fp32, so its result depends on no walk order beyond fp32 summation
+// order.
 //
 // It is the dense forward walk (flash_pairwalk_fwd.cu) over another mask
 // source and another bias address, with the same per-pair code
@@ -57,24 +63,24 @@
 // runs when a row's list (CAPR entries) could overflow and at the end,
 // over the valid pairs only: k gathered UNROLL entries a lane at once for
 // the scores (B5c: w1, drop1 and the bias); the online softmax one walk
-// step at a time (entry >> 6); v gathered for drop(p) v.
+// step at a time (entry >> 6); v gathered for drop(p) v. B4c takes the
+// scores' pass alone and folds exp(z - m) into the running (m, l): it
+// reads no v, bias, lse1 or seed and keeps no accumulator (Dv = 0).
 //
 // What bounds it on the H100. The store is 512 B a walked tile (17.8 MB a
 // 131K snapshot); q, k, v, out and lse (B5c: lse1) are read or written
 // once, B5c's bias at the valid pairs only (4 bytes each): ~0.05 ms at
-// 3.35 TB/s. The pairs' products (~2 to 3 of head dim a pair and head)
+// 3.35 TB/s (B4c, which reads q, k and the store and writes lse1: ~0.026
+// ms). The pairs' products (~2 to 3 of head dim a pair and head)
 // are far below the fp32 rate. The band holds ~1 valid pair a row a walked
 // tile (60.6 a tile), so the flush's gathers set the pace, as in the
 // compact row walks. The tile templates it replaces computed all 4,096
 // pairs of every walked tile once per head (68 times the valid pairs),
 // and B5c's staged each 16 KB bias tile per head.
 //
-// B4c's lse1 (kMode LSE, the flush's first pass) is not built here; it is
-// still the tile template of flash_biased_fwd.cu.
-//
 // Interface: plain C, loaded with ctypes; the entry points and arguments of
-// the tile templates' B1c and B5c entries. Launches on the given stream,
-// allocates nothing, returns the cudaError_t of the launch.
+// the tile templates' B1c, B4c and B5c entries. Launches on the given
+// stream, allocates nothing, returns the cudaError_t of the launch.
 
 #include "flash_pairwalk_fwd.cuh"
 #include "flash_pairwalk_slots.cuh"
@@ -114,7 +120,7 @@ compact_fwd_kernel(const Walk a) {
 
   // the lane's item, as the dense walk's: its row of q (rounded after its
   // norm in bf16), its accumulator zeroed, its scale, B5c's lse1 and the
-  // hash mixes (B1c: one seed a g; B5c: two)
+  // hash mixes (B1c: one seed a g; B5c: two; B4c: none)
   Item it;
   const int rl = lane / a.HG, h = hg * a.HG + lane % a.HG;
   it.gr = row0 + rl;
@@ -145,7 +151,7 @@ compact_fwd_kernel(const Walk a) {
       it.mix2 = (uint32_t)a.seeds[2 * g + 1] ^ hmix;
     } else if constexpr (kMode == OUT) {
       it.mix1 = (uint32_t)a.seeds[g] ^ hmix;
-    }
+    }   // LSE: the mixes stay 0; its flush never reads them
   }
   const size_t walk = (size_t)g * a.n_i + ib;
   const int cnt = a.jcount[walk];
@@ -210,6 +216,20 @@ int out_entry(const void* q, const void* k, const void* v, const void* store,
 }
 
 template <bool kBf16>
+int lse_entry(const void* q, const void* k, const void* store,
+              const void* jlist, const void* jcount, const void* jslot,
+              const void* scale, void* lse1, int G, int H, int N, int D,
+              int n_i, int W, int S, int packed, int metric, float sqrt_d,
+              void* stream) {
+  Walk a = lse1_walk(q, k, store, jlist, jcount, scale, lse1, H, N, D, n_i,
+                     W, metric, sqrt_d);
+  a.jslot = (const int*)jslot;
+  a.S = S;
+  return packed ? launch<LSE, kBf16, COMPACT_BITS>(a, G, stream)
+                : launch<LSE, kBf16, COMPACT_I8>(a, G, stream);
+}
+
+template <bool kBf16>
 int biased_entry(const void* q, const void* k, const void* v,
                  const void* store, const void* bias, const void* lse1,
                  const void* jlist, const void* jcount, const void* jslot,
@@ -256,6 +276,28 @@ extern "C" int tagan_flash_geometric_fwd_compact_bf16(
   return out_entry<true>(q, k, v, store, jlist, jcount, jslot, scale, seed,
                          out, lse, G, H, N, D, Dv, n_i, W, S, packed, metric,
                          sqrt_d, use_dropout, keep_thresh, inv_keep, stream);
+}
+
+// B4c: lse1 [G, H, N] over the compact store (bits i64[G, S, 64] when
+// packed, else int8 [G, S, 64, 64], 16-byte aligned) along the walk
+// (jlist, jcount, jslot [G, n_i, W], [G, n_i], [G, n_i, W]).
+extern "C" int tagan_flash_lse1_compact(
+    const void* q, const void* k, const void* store, const void* jlist,
+    const void* jcount, const void* jslot, const void* scale, void* lse1,
+    int G, int H, int N, int D, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, void* stream) {
+  return lse_entry<false>(q, k, store, jlist, jcount, jslot, scale, lse1, G,
+                          H, N, D, n_i, W, S, packed, metric, sqrt_d, stream);
+}
+
+// B4c's bf16 form: the same arguments.
+extern "C" int tagan_flash_lse1_compact_bf16(
+    const void* q, const void* k, const void* store, const void* jlist,
+    const void* jcount, const void* jslot, const void* scale, void* lse1,
+    int G, int H, int N, int D, int n_i, int W, int S, int packed, int metric,
+    float sqrt_d, void* stream) {
+  return lse_entry<true>(q, k, store, jlist, jcount, jslot, scale, lse1, G,
+                         H, N, D, n_i, W, S, packed, metric, sqrt_d, stream);
 }
 
 // B5c: out [G, H, N, Dv] and lse2 [G, H, N] of the second softmax over the

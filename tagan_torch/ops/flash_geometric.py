@@ -17,7 +17,7 @@ kernels that port the Pallas ones, and the differentiable entry point:
     B1c  _flash_kernel, compact   csrc/flash_pairwalk_fwd_compact.cu
     B3a c  _flash_bwd_dq_kernel, compact   csrc/flash_pairwalk_bwd_compact.cu
     B3b c  _flash_bwd_dkv_kernel, compact  csrc/flash_pairwalk_bwd_compact.cu
-    B4c  _lse1_kernel, compact    csrc/flash_biased_fwd.cu
+    B4c  _lse1_kernel, compact    csrc/flash_pairwalk_fwd_compact.cu
     B5c  _flash_biased_kernel, compact  csrc/flash_pairwalk_fwd_compact.cu
     B6c  _biased_bwd_pre_kernel, compact  the compact row walk (*)
     B7a c  _biased_bwd_dq_kernel, compact   the compact row walk (*)
@@ -27,8 +27,8 @@ kernels that port the Pallas ones, and the differentiable entry point:
 
 B1, B2, B4 and B5 are pair walks that read each mask tile once for all
 heads and compute only the mask's valid pairs; so are B6 and B7a, together
-as one row walk, and B7b as the key walk, and over the compact store B1c
-and B5c (the forward walk's two modes), B6c and B7a c (one row walk),
+as one row walk, and B7b as the key walk, and over the compact store B1c,
+B4c and B5c (the forward walk's three modes), B6c and B7a c (one row walk),
 B3a c (the unbiased row walk), B7b c and B3b c (key walks). Every kernel
 above also has a bf16 form (the TPU kernels' ``bf16=True``: every
 product's operands rounded to bf16, float32 sums), in the same source
@@ -1797,9 +1797,15 @@ class _FlashForwardCompactKernel(_CudaKernel):
 
 class _FlashLse1CompactKernel(_CudaKernel):
     """B4c, ``tagan_flash_lse1_compact``: B4 over the compact store,
-    lse1 [G, H, N]."""
+    lse1 [G, H, N]. The compact forward pair walk's LSE mode
+    (csrc/flash_pairwalk_fwd_compact.cu, B1c's and B5c's walk): a warp
+    owns up to 32 (row, head) items of a row tile, reads each walked
+    slot's row words once for its heads, lists each row's keys and
+    computes the scores of the store's valid pairs only. Every row of
+    lse1 is written (dead rows: ``LSE_DEAD``). Deterministic: no
+    atomics."""
     name = "flash_lse1_compact"
-    source = "flash_biased_fwd"
+    source = "flash_pairwalk_fwd_compact"
     symbol = "tagan_flash_lse1_compact"
     argtypes = (_P,) * 8 + (_I,) * 9 + (_F,)
 
@@ -2182,8 +2188,8 @@ class _FlashBiasedBwdKeyCompactBf16Kernel(_FlashBiasedBwdKeyCompactKernel):
 
 
 class _FlashLse1CompactBf16Kernel(_FlashLse1CompactKernel):
-    """B4c's bf16 form, ``tagan_flash_lse1_compact_bf16``: B4c with bf16
-    q.k operands."""
+    """B4c's bf16 form, ``tagan_flash_lse1_compact_bf16``: the same pair
+    walk with bf16 q.k operands."""
     name = "flash_lse1_compact_bf16"
     symbol = "tagan_flash_lse1_compact_bf16"
 

@@ -2211,42 +2211,46 @@ def compact_fwd_walk_check(dev, bf16, G, H, N, D, Dv, metric, rate, pack,
 
 
 def _fwd_walk_run(kern, args, mask, H, repeats):
-    """(out, lse) of the compact forward walk ``kern`` on ``args``, its
-    outputs allocated NaN-filled (`nan_empty`): each call launches ``kern``
-    once and nothing else, out and lse come back finite everywhere, dead
-    rows exactly 0 and ``LSE_DEAD``, and ``repeats`` calls bit-identical.
-    Returns them with the live rows [G, H, N]."""
+    """(out, lse) of the compact forward walk ``kern`` on ``args`` (the LSE
+    mode: (lse1,)), its outputs allocated NaN-filled (`nan_empty`): each
+    call launches ``kern`` once and nothing else, out and lse come back
+    finite everywhere, dead rows exactly 0 and ``LSE_DEAD``, and
+    ``repeats`` calls bit-identical. Returns them with the live rows
+    [G, H, N]."""
     def call():
         with nan_empty():
-            return kern(*args)
+            got = kern(*args)
+        return got if isinstance(got, tuple) else (got,)
     before = {k_.name: k_.launches for k_ in FG.KERNELS}
-    out, lse = call()
+    got = call()
     torch.cuda.synchronize()
     launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
     assert launched == {k_.name: int(k_ is kern) for k_ in FG.KERNELS}
-    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    *out, lse = got
+    assert all(torch.isfinite(t).all() for t in got)
     dead = (mask == 0).all(-1)[:, None, :].expand(-1, H, -1)
     assert dead.any() and (~dead).any()
-    assert torch.all(out[dead] == 0) and torch.all(lse[dead] == FG.LSE_DEAD)
+    assert all(torch.all(o[dead] == 0) for o in out)
+    assert torch.all(lse[dead] == FG.LSE_DEAD)
     for _ in range(repeats - 1):
         again = call()
-        assert torch.equal(again[0], out) and torch.equal(again[1], lse)
-    return (out, lse), ~dead
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+    return got, ~dead
 
 
-def _fwd_walk_errors(got, want, f32, live, bf16):
+def _fwd_walk_errors(got, want, f32, live, bf16, witness=(True, False)):
     """The walk's (out, lse) against the plain version's ``want`` over
     live rows: within TOL in fp32, returning the max abs error; under the
     bf16 gates in bf16 (``f32``, the plain fp32 version, the witness of
-    out), returning the worst (max abs error, max error, mean error,
-    witness) over the largest entry."""
+    the outputs that ``witness`` flags: out), returning the worst (max abs
+    error, max error, mean error, witness) over the largest entry."""
     if not bf16:
         err = max((g - w)[live].abs().max().item()
                   for g, w in zip(got, want))
         assert err <= TOL, err
         return err
     res = []
-    for g, w, f, wit in zip(got, want, f32, (True, False)):
+    for g, w, f, wit in zip(got, want, f32, witness):
         g, w, f = g[live], w[live], f[live]
         _bf16_gates(g, w, f, witness=wit)
         m = w.abs().max().clamp(min=1e-30)
@@ -2449,6 +2453,106 @@ def test_compact_out_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
             seed=seed, dropout_rate=0.1, bf16=bf16)
     assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
 
+
+
+# -- B4c: the compact forward pair walk's LSE mode, fp32 and bf16 ------------
+
+def compact_lse_walk_check(dev, bf16, G, H, N, D, metric, pack, seed=3,
+                           repeats=1):
+    """B4c (``bf16``: its bf16 form), the compact forward pair walk's LSE
+    mode, at `band_mask`'s cases over `band_compact`'s walks (a whole
+    tile, a one-pair tile, rows past 128 keys, dead rows, a walked slot
+    with no bit, walk entries past the counts; N = 330 has a ragged last
+    tile), q and k at ``BF16_QK_SCALE`` in bf16, against the compact plain
+    version: lse1 within TOL of it over live rows in fp32, under the bf16
+    max and mean gates in bf16 (the plain fp32 version beside it). Its
+    output is allocated NaN-filled (`nan_empty`) and comes back set
+    everywhere, dead rows exactly ``LSE_DEAD``; each call launches the
+    walk once and nothing else; ``repeats`` calls are bit-identical.
+    Shared by chip_smoke.py's phases 2e and 2k. Returns the max abs error
+    over live rows (fp32) or the worst (max abs error, max error, mean
+    error, witness: inf, none is taken) over the largest entry (bf16)."""
+    (q, k, _, mask, store, _, plan, _, scale, _, _, _, _, _, _) = (
+        t.to(dev).contiguous() if torch.is_tensor(t)
+        else tuple(p_.to(dev).contiguous() for p_ in t)
+        for t in _compact_biased_bwd_inputs(
+            G, H, N, D, D, metric, pack, 0.0, seed,
+            BF16_QK_SCALE if bf16 else 1.0, band=True))
+    kern = FG.flash_lse1_compact_bf16_kernel if bf16 \
+        else FG.flash_lse1_compact_kernel
+    got, live = _fwd_walk_run(kern, (q, k, store, *plan, metric, scale),
+                              mask, H, repeats)
+    plain = {b: (FG.flash_lse1_compact_plain(q, k, store, *plan, metric,
+                                             scale, b),)
+             for b in {bf16, False}}
+    return _fwd_walk_errors(got, plain[bf16], plain[False], live, bf16,
+                            witness=(False,))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_compact_lse_walk_band(metric, pack, bf16, cuda):
+    """B4c's walk in both precisions at the band's cases, bit and int8
+    stores, every metric (`compact_lse_walk_check`)."""
+    compact_lse_walk_check(cuda, bf16, 2, 4, 330, 16, metric, pack)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+@pytest.mark.parametrize("D", [16, 8, 12, 7, 128])
+def test_compact_lse_walk_head_dims(D, pack, bf16, cuda):
+    """Head dims whose sqrt is not a power of two, odd widths (no 16-byte
+    gathers), and the widest, 128."""
+    compact_lse_walk_check(cuda, bf16, 1, 2, 330, D, "gaussian_kernel", pack,
+                           seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("H", [1, 4, 33])
+def test_compact_lse_walk_fold(H, bf16, cuda):
+    """Folds of 1, 4 and 33 heads (32 rows a warp at one head; two head
+    groups, the second of one head, past 32), each head's scale its
+    own."""
+    compact_lse_walk_check(cuda, bf16, 2, H, 330, 16, "gaussian_kernel",
+                           True, seed=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("pack", [True, False])
+def test_compact_lse_walk_deterministic(pack, bf16, cuda):
+    """lse1 is bit-identical over 20 calls: the walk sums in the list's
+    order and has no atomic."""
+    compact_lse_walk_check(cuda, bf16, 2, 4, 1008, 16, "gaussian_kernel",
+                           pack, repeats=20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fault", ["jslot", "jcount", "jlist"])
+def test_compact_lse_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
+    """The public entry checks the walk's values: a jslot past the store,
+    a count past the walk's width, a key tile past N raise ValueError on
+    the host, and no kernel is launched."""
+    (q, k, _, _, store, _, plan, _, scale, _, _, _, _, _,
+     _) = _compact_biased_bf16_inputs(cuda, 1, 2, 150, 16, 16,
+                                      "dot_product", True, 0.0)
+    jl, jc, js = (p.clone() for p in plan)
+    if fault == "jslot":
+        js[0, 0, 0] = store.shape[1]
+    elif fault == "jcount":
+        jc[0, 0] = jl.shape[-1] + 1
+    else:
+        jl[0, 0, 0] = 3
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    with pytest.raises(ValueError):
+        FG.flash_lse1_compact(q, k, store, jl, jc, js, metric="dot_product",
+                              scale=scale, bf16=bf16)
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
 
 
 # -- B3b c's compact key pair walk, fp32 and bf16 ---------------------------

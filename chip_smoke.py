@@ -349,9 +349,14 @@ Phases, in order; any failure raises and exits non-zero:
    (``dist.edge_partition.ring_edge_attention``) on the card, repeated
    rings identical, ms per snapshot beside SDPA with the boolean mask at
    the scaled-dot metric (held to B9 there within 1e-4, else its time is
-   null with the reason); (8c) B9's bf16 form at g = 4 under the bf16
-   gates, the fp32 form's ms in the same run, SDPA on bf16 q, k, v as its
-   yardstick (within ``FLEX_BF16_TOL``).
+   null with the reason), the host's time to issue a ring and, at g = 4,
+   the ms of one fold launch alone (rank 0's hop 0); (8c) B9's bf16 form
+   at g = 4 under the bf16 gates, the fp32 form's ms in the same run, SDPA
+   on bf16 q, k, v as its yardstick (within ``FLEX_BF16_TOL``), its issue
+   and fold times likewise; (8d) B9 and its bf16 form at g = 4 on random
+   masks of 256 and 2,048 keys a row (each within its gates against the
+   plain version) beside SDPA at both precisions: where the pair walk
+   meets the tensor cores.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. A copy of the measurements goes to
@@ -498,6 +503,21 @@ def host_ms(fn, iters):
     return ms
 
 
+def idle_issue_ms(fn, iters):
+    """The least ms of the host's clock to issue ``fn`` once onto an idle
+    card (synchronised before each issue), over ``iters`` tries: unlike
+    `host_ms`, no queue of earlier work can hold the host back."""
+    fn()
+    best = float("inf")
+    for _ in range(iters):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    sync()
+    return best
+
+
 def reset_counts(FG):
     for k in FG.KERNELS:
         k.launches = 0
@@ -583,6 +603,11 @@ def compact_biased_kernels(FG, bf16):
 
 # -- phase 1 ------------------------------------------------------------------
 
+# each built source's ptxas lines, "kernel<template args>: report", from
+# phase 1 (the kernels line carries the ring's)
+PTXAS = {}
+
+
 def phase_build(build, FG):
     TG, TF = ring_modules()[2:]
     t0 = time.perf_counter()
@@ -603,6 +628,7 @@ def phase_build(build, FG):
                                                     k.group(2))) + ">"
             elif "registers" in line or "spill" in line:
                 log(f"[1] {name} {fn}: {line.strip()}")
+                PTXAS.setdefault(name, []).append(f"{fn}: {line.strip()}")
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -5902,6 +5928,8 @@ RING_GS = (2, 4, 8)
 # the g whose numbers stand in the kernels line (every g is in the json)
 RING_G_RECORD = 4
 RING_REPEATS = 50
+# 8d's random masks, keys a row: where the pair walk meets SDPA
+RING_DEGREES = (256, 2048)
 # the hybrid model's node count, where a graph-sharded mesh matters
 N_RING_WIDE, D_RING = 131_072, 64
 
@@ -5963,6 +5991,8 @@ def phase_ring(FG, args):
     del gathered
     res["flash"] = phase_ring_flash(FG, TM, TE, TF, meshes, args, flash,
                                     scale)
+    res["density"] = phase_ring_density(TM, TF, meshes[RING_G_RECORD],
+                                        *args[:3])
     return res
 
 
@@ -6027,9 +6057,11 @@ def phase_ring_flash(FG, TM, TE, TF, meshes, args, flash, scale):
     """[8b] B9 on the 10K model's layer-0 q/k/v and snapshot mask: its
     plain version on the card, B1 on the same inputs (live rows; B9's dead
     rows exactly 0) and the port's collective ring on the card; repeated
-    rings identical; ms per snapshot beside SDPA at the scaled-dot metric.
-    [8c] the bf16 form at g = RING_G_RECORD under the bf16 gates, the fp32
-    form's ms in the same run."""
+    rings identical; ms per snapshot beside SDPA at the scaled-dot metric,
+    the host's ms to issue one ring (in a run of rings, and onto an idle
+    card) and, at g = RING_G_RECORD, the ms of one fold launch alone (rank
+    0's hop 0, its own chunk). [8c] the bf16 form at g = RING_G_RECORD
+    under the bf16 gates, the fp32 form's ms in the same run."""
     q, k, v, mask = (t[0].contiguous() for t in args[:4])
     H, N, D = q.shape
     ones = torch.ones(H, device=DEV)
@@ -6119,9 +6151,14 @@ def phase_ring_flash(FG, TM, TE, TF, meshes, args, flash, scale):
             k1 = cuda_ms(ring, 10)
             k2 = cuda_ms(ring, 10)
             p2 = cuda_ms(plain, 2)
+            r["host_issue_ms"] = host_ms(ring, 10)
+            r["idle_issue_ms"] = idle_issue_ms(ring, 10)
             if bf16:
                 r["fp32_ms"] = [cuda_ms(lambda: ring(b16=False), 10)
                                 for _ in range(2)]
+            if g == RING_G_RECORD:
+                r["fold_ms"] = fold_alone_ms(TF, qs, ks, vs, masks, ones,
+                                             bf16)
             # the library: SDPA with the boolean mask on the full q, k, v
             # (bf16 for the bf16 form), B9 at its scaled-dot metric beside
             qf, kf, vf = (t[None].to(torch.bfloat16 if bf16 else t.dtype)
@@ -6144,15 +6181,13 @@ def phase_ring_flash(FG, TM, TE, TF, meshes, args, flash, scale):
                 lib = None
             del want
         # q, k, v read once, the mask's N^2 bytes, out written; q.k and p.v
-        # over the valid pairs (the kernel walks every pair of every
-        # [per, per] block by design: ``walked_flops``)
+        # over the valid pairs, the pairs the walk computes
         nbytes = 4 * 4 * H * N * D + N * N
         flops = 2 * H * pairs * (D + D)
-        walked = 2 * H * N * N * (D + D)
         b = bound16(nbytes, flops) if bf16 else bound(nbytes, flops)
         r.update(ms=[k1, k2], plain_ms=[p1, p2], library_ms=lib,
                  ring_sdp_ms=k_sdp, sdpa_err_live=sdpa_err,
-                 valid_pairs=pairs, walked_flops=walked, **b)
+                 valid_pairs=pairs, **b)
         res[f"g={g}" + (" bf16" if bf16 else "")] = r
         log(f"[{tag}] B9{' bf16' if bf16 else ''} at N={N}, H={H}, D={D} "
             f"over {g} virtual ranks ({N // g} rows each): "
@@ -6167,13 +6202,103 @@ def phase_ring_flash(FG, TM, TE, TF, meshes, args, flash, scale):
             f"identical; ms per snapshot {k1:.4f} {k2:.4f}"
             + (f" (fp32 {' '.join(f'{x:.4f}' for x in r['fp32_ms'])})"
                if bf16 else "")
-            + f", plain ms {p1:.4f} {p2:.4f}; SDPA ({'bf16' if bf16 else 'fp32'}"
+            + f", plain ms {p1:.4f} {p2:.4f}; host clock to issue one "
+            f"{r['host_issue_ms']:.4f} ms (one onto an idle card "
+            f"{r['idle_issue_ms']:.4f})"
+            + (f"; one fold launch alone (rank 0, hop 0) "
+               f"{' '.join(f'{x:.4f}' for x in r['fold_ms'])} ms"
+               if "fold_ms" in r else "")
+            + f"; SDPA ({'bf16' if bf16 else 'fp32'}"
             f" q, k, v, bool mask) {lib} ms, B9 at the scaled-dot metric "
             f"{k_sdp:.4f} ms, SDPA vs B9 there on live rows {sdpa_err:.3e} "
             f"of the largest entry (tolerance {sdpa_tol}); bound "
             f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({nbytes} bytes, "
-            f"{flops} flops over the {pairs} valid pairs; the walk scores all "
-            f"{N}^2 pairs, {walked} flops)")
+            f"{flops} flops over the {pairs} valid pairs, the pairs the "
+            f"walk computes)")
+    return res
+
+
+def fold_alone_ms(TF, qs, ks, vs, masks, scale, bf16):
+    """CUDA-event ms of one B9 fold launch alone, twice: rank 0's hop 0
+    (its own chunk, column block 0) on the current stream, the state
+    written as between hops."""
+    fold = TF.ring_flash_fold_bf16_kernel if bf16 else \
+        TF.ring_flash_fold_kernel
+    q = qs[0]
+    H, per, _ = q.shape
+    state = (torch.empty(H, per, device=DEV), torch.empty(H, per, device=DEV),
+             torch.empty_like(q))
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream()
+
+    def one():
+        fold(q, ks[0], vs[0], masks[0], scale, state, out, 0, "euclidean",
+             True, False, stream)
+    return [cuda_ms(one, 20) for _ in range(2)]
+
+
+def phase_ring_density(TM, TF, mesh, q, k, v):
+    """[8d] B9 and its bf16 form over the mesh's ranks on uniform random
+    masks of RING_DEGREES keys a row (self loops) on the 10K layer-0 q, k,
+    v: each against its plain version (fp32 within TOL, bf16 under the
+    bf16 gates), ms beside SDPA with the boolean mask at each precision."""
+    q, k, v = (t[0].contiguous() for t in (q, k, v))      # [H, N, D]
+    H, N, _ = q.shape
+    g = mesh.shape[TM.GRAPH_AXIS]
+    ones = torch.ones(H, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(88)
+    res = {}
+    with torch.inference_mode():
+        qs, ks, vs = (TM.shard_rows(mesh, t, dim=1) for t in (q, k, v))
+        for deg in RING_DEGREES:
+            mask = torch.rand(N, N, device=DEV, generator=gen) < deg / N
+            mask.fill_diagonal_(True)
+            bmask = mask[None, None]
+            mask = mask.to(torch.int8)
+            masks = TM.shard_rows(mesh, mask)
+            pairs = int(mask.count_nonzero().item())
+            for bf16 in (False, True):
+                def ring():
+                    return TF.ring_flash_attention_local(
+                        mesh, qs, ks, vs, masks, metric="euclidean",
+                        bf16=bf16)
+
+                def plain(b16):
+                    return torch.cat([TF.ring_flash_attention_local_plain(
+                        qs[r], ks, vs, masks[r], r, "euclidean", ones, b16)
+                        for r in range(g)], 1)
+                got, want = torch.cat(ring(), 1), plain(bf16)
+                if bf16:
+                    # the fp32 distance is recorded, not gated: a sample,
+                    # not a gate of B9's model inputs (8c)
+                    gates = bf16_gates(f"[8d] degree {deg}", got, want,
+                                       plain(False), witness=False)
+                    err = gates[0]
+                else:
+                    err = (got - want).abs().max().item()
+                    if not err <= TOL:
+                        raise AssertionError(f"[8d] degree {deg}: vs plain "
+                                             f"{err} > {TOL}")
+                qf, kf, vf = (t[None].to(torch.bfloat16 if bf16 else
+                                         t.dtype) for t in (q, k, v))
+
+                def library():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        qf, kf, vf, attn_mask=bmask)
+                ms = [cuda_ms(ring, 5) for _ in range(2)]
+                lib = cuda_ms(library, 5)
+                tag = f"degree {deg}" + (" bf16" if bf16 else "")
+                res[tag] = dict(valid_pairs=pairs, max_abs_err=err, ms=ms,
+                                library_ms=lib)
+                if bf16:
+                    res[tag]["bf16_gates"] = gates[1:]
+                log(f"[8d] B9{' bf16' if bf16 else ''} over {g} virtual "
+                    f"ranks, {pairs} valid pairs ({pairs / N:.1f} a row): "
+                    f"vs plain {err:.3e}; ring ms "
+                    f"{' '.join(f'{x:.4f}' for x in ms)}, SDPA "
+                    f"({'bf16' if bf16 else 'fp32'} q, k, v, bool mask) "
+                    f"{lib:.4f} ms")
+            del mask, bmask, masks
     return res
 
 
@@ -6653,6 +6778,9 @@ def main() -> int:
              library_of="scaled_dot_product_attention on the full q, k, v "
                         "with the boolean mask, scaled-dot",
              library_error=r9.get("library_error"),
+             fold_ms=min(r9["fold_ms"]), host_issue_ms=r9["host_issue_ms"],
+             idle_issue_ms=r9["idle_issue_ms"],
+             ptxas=PTXAS.get("ring_flash"),
              shape=f"one 10K snapshot over {RING_G_RECORD} virtual ranks"),
         dict(kernel_record(
             FG, TF.ring_flash_fold_bf16_kernel, "ring_flash.cu", 177,
@@ -6664,6 +6792,9 @@ def main() -> int:
              library_of="scaled_dot_product_attention on the full q, k, v "
                         "cast to bf16 with the boolean mask, scaled-dot",
              library_error=r9b.get("library_error"),
+             fold_ms=min(r9b["fold_ms"]), host_issue_ms=r9b["host_issue_ms"],
+             idle_issue_ms=r9b["idle_issue_ms"],
+             ptxas=PTXAS.get("ring_flash"),
              shape=f"one 10K snapshot over {RING_G_RECORD} virtual ranks")]
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)

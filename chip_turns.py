@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the hybrid model's phases of two source trees in turns on one GPU.
 
-    python3 chip_turns.py A_DIR B_DIR [--train]
+    python3 chip_turns.py A_DIR B_DIR [--train | --ring]
 
 Each directory holds a tree of this repository (say, the parent commit
 unpacked by ``git archive`` beside the working tree). The script runs its
@@ -25,6 +25,16 @@ kernels built, no ptxas report), in six turns, A, B, B, A, A, B, and no
 variants: the training steps are host-bound and vary by +-10 ms from
 run to run, so they take more turns than one call of all phases gives.
 Its files are ``chiprun_out/train_<n>_<A or B>.log`` and ``.json``.
+
+With ``--ring`` each turn, A, B, B, A, runs the build with ptxas's
+report, the 10K flash model's serving phase 3 (whose layer-0 q, k, v and
+snapshot mask the ring takes) and the ring's phase 8 (B8 and B9 over 2, 4
+and 8 virtual ranks, B9's fold alone and its issue time, the density
+sample 8d where the tree has it), B9 at 4 ranks as both trees can time
+it (the ring, its issue and one fold launch alone), then each tree's
+``pairwalk_variants.py`` (the other walks' times, B1 and B1c among them).
+Its files are ``chiprun_out/ring_<n>_<A or B>.log`` and ``.json`` and
+``variants_<A or B>.log``.
 """
 
 import subprocess
@@ -87,6 +97,50 @@ with open(sys.argv[1], "w") as f:
 """
 
 
+RING = r"""
+import json, sys, torch
+import chip_smoke as C
+import tagan_torch as tt
+from tagan_torch.ops import build, flash_geometric as FG
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+C.log(f"[1] card: {C.card_line()}")
+C.phase_build(build, FG)
+serve = C.phase_serve(tt, FG)
+args = serve.pop("args")
+ring = C.phase_ring(FG, args)
+# B9 at 4 ranks as either tree can time it: the ring, the host's time to
+# issue it, and one fold launch alone (rank 0's hop 0, the state written)
+TM, TF = C.ring_modules()[0], C.ring_modules()[3]
+q, k, v = (t[0].contiguous() for t in args[:3])
+H, N, _ = q.shape
+mesh = TM.make_mesh(graph=4, devices=[C.DEV] * 4)
+qs, ks, vs = (TM.shard_rows(mesh, t, dim=1) for t in (q, k, v))
+masks = TM.shard_rows(mesh, args[3][0])
+ones = torch.ones(H, device=C.DEV)
+state = (torch.empty(H, N // 4, device=C.DEV),
+         torch.empty(H, N // 4, device=C.DEV), torch.empty_like(qs[0]))
+out = torch.empty_like(qs[0])
+b9 = {}
+with torch.inference_mode():
+    for bf16 in (False, True):
+        fold = TF.KERNELS[int(bf16)]
+        def ring9():
+            TF.ring_flash_attention_local(mesh, qs, ks, vs, masks,
+                                          metric="euclidean", bf16=bf16)
+        def one():
+            fold(qs[0], ks[0], vs[0], masks[0], ones, state, out, 0,
+                 "euclidean", True, False, torch.cuda.current_stream())
+        b9["bf16" if bf16 else "fp32"] = r = dict(
+            ring_ms=[C.cuda_ms(ring9, 10) for _ in range(2)],
+            host_issue_ms=[C.host_ms(ring9, 10) for _ in range(2)],
+            fold_ms=[C.cuda_ms(one, 20) for _ in range(2)])
+        C.log(f"[turn] B9{' bf16' if bf16 else ''} g=4: {r}")
+with open(sys.argv[1], "w") as f:
+    json.dump({"3": serve, "8": ring, "b9": b9}, f, indent=1, default=str)
+"""
+
+
 def run(cmd, cwd, log):
     with open(log, "w") as f:
         rc = subprocess.call(cmd, cwd=cwd, stdout=f, stderr=subprocess.STDOUT)
@@ -104,10 +158,13 @@ def main() -> int:
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     train = "--train" in sys.argv[3:]
+    mode = "train" if train else "ring" if "--ring" in sys.argv[3:] \
+        else "turn"
+    script = {"train": TRAIN, "ring": RING, "turn": TURN}[mode]
     for n, name in enumerate("ABBAAB" if train else "ABBA", 1):
-        stem = out / f"{'train' if train else 'turn'}_{n}_{name}"
-        run([sys.executable, "-c", TRAIN if train else TURN,
-             f"{stem}.json"], trees[name], f"{stem}.log")
+        stem = out / f"{mode}_{n}_{name}"
+        run([sys.executable, "-c", script, f"{stem}.json"], trees[name],
+            f"{stem}.log")
     if train:
         return 0
     for name, tree in trees.items():

@@ -6,8 +6,9 @@
 // flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
 // flash_pairwalk_biased_bwd.cu (B6, B7a, B7b and their bf16 forms),
 // flash_pairwalk_biased_bwd_compact.cu (B6c, B7a c, B7b c and their bf16
-// forms) and flash_pairwalk_bwd_compact.cu (B3a c, B3b c and their bf16
-// forms), through flash_pairwalk.cuh.
+// forms), flash_pairwalk_bwd_compact.cu (B3a c, B3b c and their bf16
+// forms) and ring_flash.cu (B9 and its bf16 form), through
+// flash_pairwalk.cuh.
 //
 // The metric scores, the dropout hash and the backward's recompute of one
 // (64-query tile, 64-key tile) pair. Every kernel takes the folded layout

@@ -1,7 +1,8 @@
 // The mask walk shared by the pair walks of flash_pairwalk_fwd.cu (B1, B4,
-// B5 and their bf16 forms), flash_pairwalk_bwd.cu (B2 and B2's bf16 form)
-// and flash_pairwalk_biased_bwd.cu (its row walk, B6 and B7a in both
-// precisions); its cp.async helpers also serve the compact walks of
+// B5 and their bf16 forms), flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
+// flash_pairwalk_biased_bwd.cu (its row walk, B6 and B7a in both
+// precisions) and ring_flash.cu (B9's fold over one hop's column block, in
+// both precisions); its cp.async helpers also serve the compact walks of
 // flash_pairwalk_slots.cuh, flash_pairwalk_fwd_compact.cu,
 // flash_pairwalk_biased_bwd_compact.cu and flash_pairwalk_bwd_compact.cu.
 //
@@ -16,7 +17,9 @@
 // 4 lanes append the tile's valid columns to the row's list in shared
 // memory (ascending, CAPR entries a row). When a row's list could overflow,
 // and at the end, the walk calls the kernel's flush, which computes the
-// listed pairs.
+// listed pairs. The ring's fold walks a column window of a row slice of the
+// mask instead (`ColumnWindow`): the walk then reads the tiles at absolute
+// multiples of 64 columns and drops the bits outside the window.
 
 #pragma once
 
@@ -58,12 +61,13 @@ __device__ __forceinline__ void cp_async_wait_key() {
 
 // Step tt's chunks of this lane into ring stage `stage`: chunk c = lane +
 // 32 i holds bytes [16 p, 16 p + 16) of the tile's row r (c = 4 r + p).
-// Rows and columns past N read as 0.
+// The mask's rows are N bytes long; rows past `rows` and columns past N
+// read as 0.
 template <bool kVec16>
 __device__ __forceinline__ void load_chunks(uint8_t* stage,
                                             const uint8_t* mg, int N,
-                                            int row0, int R, int col0,
-                                            int lane) {
+                                            int rows, int row0, int R,
+                                            int col0, int lane) {
 #pragma unroll
   for (int i = 0; i < MAX_CPL; ++i) {
     const int c = lane + WARP * i;
@@ -71,11 +75,11 @@ __device__ __forceinline__ void load_chunks(uint8_t* stage,
     const int gr = row0 + (c >> 2), gc = col0 + 16 * (c & 3);
     uint8_t* dst = stage + c * 16;
     if constexpr (kVec16) {
-      const bool ok = gr < N && gc < N;   // N % 16 == 0: all 16 or none
+      const bool ok = gr < rows && gc < N;   // N % 16 == 0: 16 or none
       cp_async16(dst, ok ? mg + (size_t)gr * N + gc : mg, ok);
     } else {
       uint32_t w[4] = {0u, 0u, 0u, 0u};
-      if (gr < N) {
+      if (gr < rows) {
         const uint8_t* src = mg + (size_t)gr * N;
         for (int b = 0; b < 16 && gc + b < N; ++b)
           if (src[gc + b]) w[b >> 2] |= 0xffu << (8 * (b & 3));
@@ -96,6 +100,27 @@ __device__ __forceinline__ uint32_t chunk_bits(const uint8_t* stage, int c) {
     if ((ws[b >> 2] >> (8 * (b & 3))) & 0xffu) bits |= 1u << b;
   return bits;
 }
+
+// The columns a walk lists: every column of its N x N mask (the dense
+// walks), or those of a column window of a row slice (B9's hop).
+struct WholeMask {
+  __device__ __forceinline__ int rows(int N) const { return N; }
+  __device__ __forceinline__ uint32_t keep(uint32_t bits, int) const {
+    return bits;
+  }
+};
+
+// Rows [0, n_rows) of a mask slice whose rows are N bytes long, columns
+// [lo, hi).
+struct ColumnWindow {
+  int n_rows, lo, hi;
+  __device__ __forceinline__ int rows(int) const { return n_rows; }
+  // bit b of a chunk's bits stands for column base + b
+  __device__ __forceinline__ uint32_t keep(uint32_t bits, int base) const {
+    const int a = max(lo - base, 0), b = min(hi - base, 16);
+    return a < b ? bits & ((1u << b) - 1u) & ~((1u << a) - 1u) : 0u;
+  }
+};
 
 // A warp's shared memory begins with the walk's: the mask ring, the rows'
 // lists and their counts; the kernel's own part follows, 16-byte aligned.
@@ -140,12 +165,15 @@ __device__ __forceinline__ WalkSmem walk_smem(uint8_t* smem, int R) {
 // The walk of rows [row0, row0 + R) of the snapshot's mask mg over the key
 // tiles jl[0..cnt), by the whole warp (lane = threadIdx.x). flush() is
 // called by every lane, after a __syncwarp, with row r's list at
-// sm.lists + r * CAPR and its length at sm.rowcnt[r].
-template <bool kVec16, class Flush>
+// sm.lists + r * CAPR and its length at sm.rowcnt[r]. jl is the plan's
+// row of tile indices, or any object whose [t] gives step t's tile; win
+// says which rows and columns of mg the walk lists.
+template <bool kVec16, class Flush, class Tiles, class Window = WholeMask>
 __device__ __forceinline__ void walk_mask(const WalkSmem& sm,
                                           const uint8_t* mg, int N, int row0,
-                                          int R, const int* jl, int cnt,
-                                          int lane, Flush&& flush) {
+                                          int R, const Tiles& jl, int cnt,
+                                          int lane, Flush&& flush,
+                                          const Window& win = Window{}) {
   uint8_t* ring = sm.ring;
   int* lists = sm.lists;
   int* rowcnt = sm.rowcnt;
@@ -173,15 +201,15 @@ __device__ __forceinline__ void walk_mask(const WalkSmem& sm,
 
   for (int s = 0; s < NST - 1; ++s) {
     if (s < cnt)
-      load_chunks<kVec16>(ring + s * stage_bytes, mg, N, row0, R,
-                          jl[s] * BN, lane);
+      load_chunks<kVec16>(ring + s * stage_bytes, mg, N, win.rows(N), row0,
+                          R, jl[s] * BN, lane);
     cp_async_commit();
   }
   for (int t = 0; t < cnt; ++t) {
     const int tt = t + NST - 1;
     if (tt < cnt)
-      load_chunks<kVec16>(ring + (tt % NST) * stage_bytes, mg, N, row0, R,
-                          jl[tt] * BN, lane);
+      load_chunks<kVec16>(ring + (tt % NST) * stage_bytes, mg, N,
+                          win.rows(N), row0, R, jl[tt] * BN, lane);
     cp_async_commit();
     cp_async_wait_ring();
     const uint8_t* stage = ring + (t % NST) * stage_bytes;
@@ -191,7 +219,9 @@ __device__ __forceinline__ void walk_mask(const WalkSmem& sm,
     for (int i = 0; i < MAX_CPL; ++i) {
       if (i >= cpl) break;
       const int c = lane + WARP * i;
-      bits[i] = c < R * 4 ? chunk_bits(stage, c) : 0u;
+      bits[i] = c < R * 4
+                    ? win.keep(chunk_bits(stage, c), jl[t] * BN + 16 * (c & 3))
+                    : 0u;
       any |= bits[i] != 0u;
     }
     if (!__any_sync(FULL, any)) continue;

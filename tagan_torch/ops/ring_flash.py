@@ -9,7 +9,9 @@ own queries, scored with the metric expansion of the flash kernels
 the chunk's keys own. At hop s rank ``my`` holds rank (my - s) mod g's
 chunk. Rows that no key reaches give exactly 0. Forward only, as on the
 TPU. The TPU kernel is block-dense by design: it scores every pair of
-every [per, per] block, and so does the port.
+every [per, per] block. The port's fold is a pair walk: it lists the
+valid columns of the hop's block from the mask rows and scores only
+those pairs (``csrc/ring_flash.cu``).
 
 The TPU kernel ``_ring_flash_kernel`` circulates the chunks with remote
 DMAs and folds them in one Pallas call. Here each rank of a `Mesh` (often
@@ -33,7 +35,8 @@ between hops.
 operands with fp32 sums, and p = exp(sc - m_new) is rounded against
 m_new, the running max after the whole chunk, so the result depends on
 the walk: the plain version and the kernel both take each hop's
-chunk-wide row max before forming p, in each rank's own ring order.
+chunk-wide row max before forming p, in each rank's own ring order (the
+kernel walks the hop's block twice in one launch, first for that max).
 
 CPU tensors take the plain version (`ring_flash_attention_local_plain`,
 per rank); CUDA tensors launch the kernels or raise.
@@ -93,7 +96,8 @@ def ring_flash_attention_local_plain(
 
 
 class _RingFlashFoldKernel(_CudaKernel):
-    """B9, ``tagan_ring_flash_fold``: one hop of one rank."""
+    """B9, ``tagan_ring_flash_fold``: one hop of one rank, a pair walk
+    over the hop's column block of the rank's mask rows."""
     name = "ring_flash"
     source = "ring_flash"
     symbol = "tagan_ring_flash_fold"

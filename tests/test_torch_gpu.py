@@ -2921,12 +2921,41 @@ def _ring_inputs(cuda, g, H, per, D, seed, qk_scale):
         torch.from_numpy(mask.astype(np.int8)).to(cuda),)
 
 
-def _ring_flash_vs_plain(cuda, g, metric, D, bf16, per=75, H=3):
+def ring_walk_mask(g, per, seed=0, deg=8):
+    """bool [N, N], N = g * per, for B9's pair walk over each hop's column
+    block: ~``deg`` uniform random keys a row and self loops, and on every
+    rank r (its rows r * per + i, per >= 8): row 0 dead; rows 1-2 90% dense
+    in the chunk of rank (r + 1) mod g, the one that arrives last (hop
+    g - 1), and rows 3-4 in their own chunk (hop 0), past 2 CAPR = 128
+    keys in one hop where per >= 143, so that a hop spans several flushes;
+    row 5 whose only keys (3) lie in the chunk that arrives last, and row
+    6 whose only keys (3) lie in its own chunk."""
+    N = g * per
+    rng = np.random.default_rng(seed)
+    mask = rng.random((N, N)) < deg / N
+    mask[np.arange(N), np.arange(N)] = True
+    for r in range(g):
+        base, own, last = r * per, r * per, (r + 1) % g * per
+        mask[base] = False
+        for i, c0 in ((1, last), (2, last), (3, own), (4, own)):
+            mask[base + i, c0:c0 + per] |= rng.random(per) < 0.9
+        for i, c0 in ((5, last), (6, own)):
+            mask[base + i] = False
+            mask[base + i, c0 + rng.choice(per, 3, replace=False)] = True
+    return mask
+
+
+def _ring_flash_vs_plain(cuda, g, metric, D, bf16, per=75, H=3, walk=False,
+                         repeats=3):
     """B9 on g virtual ranks against the plain version of each rank, run
-    three times in a row: identical results, one fold per rank and hop,
-    two copies (k and v) per rank and hop but the last, dead rows 0."""
+    ``repeats`` times in a row: identical results, one fold per rank and
+    hop, two copies (k and v) per rank and hop but the last, dead rows 0.
+    ``walk`` takes `ring_walk_mask`'s mask."""
     q, k, v, mask = _ring_inputs(cuda, g, H, per, D, seed=g * 100 + D,
                                  qk_scale=BF16_QK_SCALE if bf16 else 1.0)
+    if walk:
+        mask = torch.from_numpy(ring_walk_mask(g, per, seed=g * 10 + per)
+                                .astype(np.int8)).to(cuda)
     mesh = _virtual_mesh(cuda, g)
     qs, ks, vs = (TM.shard_rows(mesh, t, dim=1) for t in (q, k, v))
     masks = TM.shard_rows(mesh, mask)
@@ -2935,10 +2964,10 @@ def _ring_flash_vs_plain(cuda, g, metric, D, bf16, per=75, H=3):
     before = (fold.launches, TG.ring_copy_kernel.launches)
     runs = [torch.cat(TF.ring_flash_attention_local(
         mesh, qs, ks, vs, masks, metric=metric, scale_param=scale,
-        bf16=bf16), 1) for _ in range(3)]
+        bf16=bf16), 1) for _ in range(repeats)]
     torch.cuda.synchronize()
     assert (fold.launches - before[0], TG.ring_copy_kernel.launches
-            - before[1]) == (3 * g * g, 3 * 2 * g * (g - 1))
+            - before[1]) == (repeats * g * g, repeats * 2 * g * (g - 1))
     for run in runs[1:]:
         assert torch.equal(run, runs[0])
     if metric in FG._COSINE:
@@ -2976,6 +3005,81 @@ def test_ring_flash_head_dims(D, bf16, cuda):
     """Head dims up to the kernels' 128, at 4 ranks of 150 rows (a dead
     query tile on rank 0)."""
     _ring_flash_vs_plain(cuda, 4, "euclidean", D, bf16, per=150)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("per", [150, 75, 200])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_ring_flash_walk_cases(g, per, bf16, cuda):
+    """The pair walk's own cases (`ring_walk_mask`): rows past 2 CAPR keys
+    in the first and in the last hop (several flushes in one hop, where the
+    bf16 form must round p against the hop's max), rows valid only in the
+    last or only in their own chunk, dead rows; per = 75 (N = 75 g, never
+    a multiple of 16: the mask walk's byte loads), 150 (N = 1200 at g = 8)
+    and 200 (N a multiple of 16 from g = 2: its 16-byte loads, hop column
+    blocks off the 16-byte grid); 20 rings bit for bit, the gaussian metric
+    with per-head scales."""
+    _ring_flash_vs_plain(cuda, g, "gaussian_kernel", 16, bf16, per=per,
+                         walk=True, repeats=RING_REPEATS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("H", [1, 4, 40])
+def test_ring_flash_walk_heads(H, bf16, cuda):
+    """One head (32 rows a warp), four (8 rows) and 40 (two head groups a
+    row, the second of 8 heads) at the walk's cases over 4 ranks."""
+    _ring_flash_vs_plain(cuda, 4, "euclidean", 16, bf16, per=150, H=H,
+                         walk=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("bad", ["col0", "negative col0", "mask rows",
+                                 "mask dtype", "q dtype", "k shape", "D",
+                                 "state", "state shape", "metric", "device"])
+def test_ring_flash_walk_refused_before_launch(bad, bf16, cuda):
+    """Each bad argument of one hop raises ValueError before any launch,
+    in both precisions."""
+    H, per, D, N = 3, 70, 16, 140
+    fold = TF.ring_flash_fold_bf16_kernel if bf16 else TF.ring_flash_fold_kernel
+    q = torch.zeros(H, per, D, device=cuda)
+    k = torch.zeros_like(q)
+    mask = torch.ones(per, N, dtype=torch.int8, device=cuda)
+    scale = torch.ones(H, device=cuda)
+    state = (torch.zeros(H, per, device=cuda),
+             torch.zeros(H, per, device=cuda), torch.zeros_like(q))
+    col0, metric = per, "euclidean"
+    if bad == "col0":
+        col0 = N - per + 1
+    elif bad == "negative col0":
+        col0 = -1
+    elif bad == "mask rows":
+        mask = mask[:-1]
+    elif bad == "mask dtype":
+        mask = mask.float()
+    elif bad == "q dtype":
+        q = q.double()
+    elif bad == "k shape":
+        k = k[:, :-1]
+    elif bad == "D":
+        q = k = torch.zeros(H, per, 129, device=cuda)
+        state = state[:2] + (torch.zeros_like(q),)
+    elif bad == "state":
+        state = None
+    elif bad == "state shape":
+        state = (state[0][:, :-1],) + state[1:]
+    elif bad == "metric":
+        metric = "manhattan"
+    elif bad == "device":
+        scale = scale.cpu()
+    stream = torch.cuda.current_stream(cuda)
+    before = fold.launches
+    with pytest.raises(ValueError):
+        fold(q, k, q, mask, scale, state, q, col0, metric, False, False,
+             stream)
+    assert fold.launches == before
 
 
 @pytest.mark.gpu

@@ -340,17 +340,19 @@ Phases, in order; any failure raises and exits non-zero:
    [10,000, 64] fp32 and over [131,072, 64] fp32 and bf16 rows, and
    ``ring_flash_attention`` on that layer's q, k, v and snapshot mask,
    fp32 at every g and bf16 at g = 4, launch counts set to 0 just before
-   and read just after; (8a) B8 bit for bit against the rank-order
-   concatenation on every rank and identical over 50 rings, its ms beside
-   each rank's ``torch.cat`` of the shards and the host's time to issue
-   a ring; (8b) B9 within 1e-4 of its
+   and read just after; (8a) B8, one launch of the ring kernel a ring,
+   bit for bit against the rank-order concatenation on every rank and
+   identical over 50 rings, its ms beside each rank's ``torch.cat`` of the
+   shards and the host's time to issue a ring (in a run of rings and onto
+   an idle card); (8b) B9 within 1e-4 of its
    plain version on the card and of B1 on the live rows (its dead rows
    exactly 0), within 2e-4 of the port's collective ring
    (``dist.edge_partition.ring_edge_attention``) on the card, repeated
    rings identical, ms per snapshot beside SDPA with the boolean mask at
    the scaled-dot metric (held to B9 there within 1e-4, else its time is
    null with the reason), the host's time to issue a ring and, at g = 4,
-   the ms of one fold launch alone (rank 0's hop 0); (8c) B9's bf16 form
+   the ms of one fold launch alone (rank 0's hop 0) and of one
+   ``ring_copy`` of a K chunk beside ``Tensor.copy_``; (8c) B9's bf16 form
    at g = 4 under the bf16 gates, the fp32 form's ms in the same run, SDPA
    on bf16 q, k, v as its yardstick (within ``FLEX_BF16_TOL``), its issue
    and fold times likewise; (8d) B9 and its bf16 form at g = 4 on random
@@ -501,6 +503,22 @@ def host_ms(fn, iters):
     ms = (time.perf_counter() - t0) * 1e3 / iters
     sync()
     return ms
+
+
+def device_ms(fn, iters):
+    """The card's ms of one call of ``fn``: the device time of every
+    kernel it launched over ``iters`` calls, by ``torch.profiler``, over
+    ``iters`` (unlike `cuda_ms`, no gap in which the card waits for the
+    host counts)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    return sum(e.device_time_total for e in prof.key_averages()) \
+        / iters / 1e3
 
 
 def idle_issue_ms(fn, iters):
@@ -5948,7 +5966,7 @@ def phase_ring(FG, args):
     10K flash model's layer 0 (q, k, v [1, H, N, Dh], its flash mask)."""
     TM, TE, TG, TF = ring_modules()
     kernels = TG.KERNELS + TF.KERNELS
-    copy, fold, fold16 = TG.ring_copy_kernel, *TF.KERNELS
+    gather, copy, fold, fold16 = *TG.KERNELS, *TF.KERNELS
     q, k, v = (t[0].contiguous() for t in args[:3])        # [H, N, Dh]
     mask = args[3][0]                                      # int8 [N, N]
     H, N, Dh = q.shape
@@ -5975,9 +5993,11 @@ def phase_ring(FG, args):
             bf16=True)
         sync()
     launched = {k.name: k.launches for k in kernels}
+    # B8: one launch a ring (every rank on the card); the copies are B9's,
+    # k and v a rank and hop but the last
     hops = sum(2 * g * (g - 1) for g in RING_GS)
-    want = {copy.name: len(gathers) * sum(g * g for g in RING_GS) + hops
-            + 2 * RING_G_RECORD * (RING_G_RECORD - 1),
+    want = {gather.name: len(gathers) * len(RING_GS),
+            copy.name: hops + 2 * RING_G_RECORD * (RING_G_RECORD - 1),
             fold.name: sum(g * g for g in RING_GS),
             fold16.name: RING_G_RECORD ** 2}
     log(f"[8] main path: ring_all_gather_sharded over "
@@ -5987,23 +6007,29 @@ def phase_ring(FG, args):
     if launched != want or not all(launched.values()):
         raise AssertionError(f"ring launches {launched}, expected {want}")
     res = dict(launches=launched)
-    res["gather"] = phase_ring_gather(TM, TG, meshes, gathers, gathered)
+    res["gather"], profiled = phase_ring_gather(TM, TG, meshes, gathers,
+                                                gathered)
     del gathered
     res["flash"] = phase_ring_flash(FG, TM, TE, TF, meshes, args, flash,
                                     scale)
+    res["copy"] = phase_ring_copy(TM, TG, meshes[RING_G_RECORD], k)
     res["density"] = phase_ring_density(TM, TF, meshes[RING_G_RECORD],
                                         *args[:3])
+    # the profiler last, so that it cannot touch the host's launches,
+    # which set B9's times
+    ring_device_ms(res["gather"], profiled)
     return res
 
 
 def phase_ring_gather(TM, TG, meshes, gathers, gathered):
     """[8a] B8 against the rank-order concatenation, bit for bit on every
     rank, RING_REPEATS rings identical; CUDA-event ms of one ring, and the
-    host's ms to issue one (its launches and events); the
-    bound: each rank reads the g - 1 chunks it does not own and writes
-    all N rows, at the memory rate; the library: each rank's torch.cat of
-    the shards."""
-    res = {}
+    host's ms to issue one (its one launch), in a run of rings and onto an
+    idle card; the bound: each rank reads the g - 1 chunks it does not
+    own and writes all N rows, at the memory rate; the library: each
+    rank's torch.cat of the shards. Returns the results and, for
+    `ring_device_ms`, each case's ring and torch.cats."""
+    res, profiled = {}, []
     with torch.inference_mode():
         for name, x in gathers.items():
             for g, mesh in meshes.items():
@@ -6022,13 +6048,14 @@ def phase_ring_gather(TM, TG, meshes, gathers, gathered):
                                          f"{exact}, {RING_REPEATS} repeats "
                                          f"identical {stable}")
 
-                def ring():
+                # bound to this case: `ring_device_ms` calls them later
+                def ring(shards=shards, mesh=mesh):
                     TG.ring_all_gather(shards, mesh)
 
                 def plain():
                     TG.ring_all_gather_plain(shards)
 
-                def library():
+                def library(shards=shards, g=g):
                     for _ in range(g):
                         torch.cat(shards)
                 p1 = cuda_ms(plain, 10)
@@ -6037,20 +6064,38 @@ def phase_ring_gather(TM, TG, meshes, gathers, gathered):
                 p2 = cuda_ms(plain, 10)
                 lib = cuda_ms(library, 20)
                 issue = host_ms(ring, 20)
+                idle = idle_issue_ms(ring, 20)
                 rows, e = x.shape[0], x.element_size() * x.shape[1]
                 chunk = rows // g
                 b = bound(g * ((g - 1) * chunk + rows) * e, 0)
                 res[f"{name} g={g}"] = dict(
                     ms=[k1, k2], plain_ms=[p1, p2], library_ms=lib,
-                    host_issue_ms=issue, max_abs_err=0.0,
+                    host_issue_ms=issue, idle_issue_ms=idle,
+                    max_abs_err=0.0,
                     repeats_identical=RING_REPEATS, **b)
+                profiled.append((f"{name} g={g}", ring, library))
                 log(f"[8a] B8 {name} over {g} virtual ranks: bit-exact, "
                     f"{RING_REPEATS} repeats identical; ring ms {k1:.4f} "
-                    f"{k2:.4f} (host clock to issue one {issue:.4f}), plain ms {p1:.4f} {p2:.4f}, each rank's "
-                    f"torch.cat {lib:.4f}; bound {b['bound_ms']:.5f} ms by "
-                    f"{b['bound_by']} ({b['bytes']} bytes)")
+                    f"{k2:.4f} (host clock to issue one {issue:.4f}, onto "
+                    f"an idle card {idle:.4f}), plain ms {p1:.4f} "
+                    f"{p2:.4f}, each rank's torch.cat {lib:.4f}; bound "
+                    f"{b['bound_ms']:.5f} ms by {b['bound_by']} "
+                    f"({b['bytes']} bytes)")
                 del shards, want
-    return res
+    return res, profiled
+
+
+def ring_device_ms(res, profiled):
+    """[8a] the card's ms of each gather's ring and of its torch.cats by
+    the profiler (`device_ms`), after the rest of phase 8."""
+    with torch.inference_mode():
+        for key, ring, library in profiled:
+            r = res[key]
+            r["device_ms"] = device_ms(ring, 20)
+            r["library_device_ms"] = device_ms(library, 20)
+            log(f"[8a] B8 {key}: the card's ms of a ring {r['device_ms']:.4f}"
+                f", of the torch.cats {r['library_device_ms']:.4f} (the "
+                f"profiler's, after 8b-8d)")
 
 
 def phase_ring_flash(FG, TM, TE, TF, meshes, args, flash, scale):
@@ -6216,6 +6261,36 @@ def phase_ring_flash(FG, TM, TE, TF, meshes, args, flash, scale):
             f"{flops} flops over the {pairs} valid pairs, the pairs the "
             f"walk computes)")
     return res
+
+
+def phase_ring_copy(TM, TG, mesh, k):
+    """[8b] B9's chunk mover alone: one ``ring_copy`` launch of rank 0's K
+    chunk ([H, N / g, Dh] of the 10K layer 0) into a slot on the current
+    stream, bit for bit, its CUDA-event ms beside ``Tensor.copy_`` (the
+    plain version and the library call alike); bound: the chunk read and
+    written once."""
+    src = TM.shard_rows(mesh, k, dim=1)[0]
+    dst = torch.empty_like(src)
+    stream = torch.cuda.current_stream()
+    with torch.inference_mode():
+        def copy():
+            TG.ring_copy_kernel(dst, src, stream)
+
+        def plain():
+            dst.copy_(src)
+        dst.zero_()
+        copy()
+        sync()
+        if not torch.equal(dst, src):
+            raise AssertionError("[8b] ring_copy differs from its source")
+        p1, k1, k2, p2 = (cuda_ms(f, 50) for f in (plain, copy, copy, plain))
+    n = src.numel() * src.element_size()
+    b = bound(2 * n, 0)
+    log(f"[8b] ring_copy of a {tuple(src.shape)} fp32 K chunk: bit-exact; "
+        f"ms {k1:.4f} {k2:.4f}, Tensor.copy_ {p1:.4f} {p2:.4f}; bound "
+        f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({2 * n} bytes)")
+    return dict(ms=[k1, k2], plain_ms=[p1, p2], library_ms=min(p1, p2),
+                max_abs_err=0.0, shape=list(src.shape), **b)
 
 
 def fold_alone_ms(TF, qs, ks, vs, masks, scale, bf16):
@@ -6758,16 +6833,31 @@ def main() -> int:
     rgat, rfl = ring["gather"], ring["flash"]
     r8 = rgat[f"[131072, 64] fp32 g={RING_G_RECORD}"]
     r9, r9b = rfl[f"g={RING_G_RECORD}"], rfl[f"g={RING_G_RECORD} bf16"]
+    rcopy = ring["copy"]
     kernels += [
         dict(kernel_record(
-            FG, TG.ring_copy_kernel, "ring_gather.cu", 92,
-            ring["launches"][TG.ring_copy_kernel.name],
+            FG, TG.ring_gather_kernel, "ring_gather.cu", 92,
+            ring["launches"][TG.ring_gather_kernel.name],
             max(r["max_abs_err"] for r in rgat.values()), min(r8["ms"]),
             min(r8["plain_ms"]), "ring_all_gather_plain (each rank's "
             "rank-order concatenation)", r8, r8["library_ms"], RG_SRC),
              library_of="torch.cat of the shards, once per rank",
              host_issue_ms=r8["host_issue_ms"],
+             idle_issue_ms=r8["idle_issue_ms"], device_ms=r8["device_ms"],
+             library_device_ms=r8["library_device_ms"],
+             ptxas=[p for p in PTXAS.get("ring_gather", [])
+                    if "ring_gather_kernel" in p],
              shape=f"[131072, 64] fp32 over {RING_G_RECORD} virtual ranks"),
+        dict(kernel_record(
+            FG, TG.ring_copy_kernel, "ring_gather.cu", 72,
+            ring["launches"][TG.ring_copy_kernel.name], rcopy["max_abs_err"],
+            min(rcopy["ms"]), min(rcopy["plain_ms"]), "Tensor.copy_", rcopy,
+            rcopy["library_ms"], RF_SRC),
+             library_of="Tensor.copy_",
+             ptxas=[p for p in PTXAS.get("ring_gather", [])
+                    if "copy_kernel" in p],
+             shape=f"one K chunk {rcopy['shape']} fp32 of B9 at "
+                   f"{RING_G_RECORD} virtual ranks"),
         dict(kernel_record(
             FG, TF.ring_flash_fold_kernel, "ring_flash.cu", 177,
             ring["launches"][TF.ring_flash_fold_kernel.name],

@@ -17,7 +17,7 @@ The TPU kernel ``_ring_flash_kernel`` circulates the chunks with remote
 DMAs and folds them in one Pallas call. Here each rank of a `Mesh` (often
 virtual ranks of one card) has a compute stream and a copy stream: at hop
 s the rank's copy stream sends the resident chunk to the right
-neighbour's slot (s + 1) mod 3 with the ring all-gather's copy kernel
+neighbour's slot (s + 1) mod 3 with the copy kernel ``ring_copy``
 (``ops.ring_gather``, ``csrc/ring_gather.cu``), started before hop s's
 fold, while its compute stream runs the fold kernel
 (``csrc/ring_flash.cu``) on the resident chunk. Unlike the all-gather,

@@ -2885,22 +2885,203 @@ def _virtual_mesh(cuda, g):
 def test_ring_all_gather_matches_plain(g, D, dtype, chunk, cuda):
     """B8 on g virtual ranks against the rank-order concatenation, bit for
     bit on every rank, over RING_REPEATS rings in a row; odd chunk lengths
-    (at D = 7 the rank blocks of out start off the 16-byte grid); one copy
-    launch per move: g own chunks, then one per rank and hop."""
+    (at D = 7 the rank blocks of out start off the 16-byte grid); one
+    launch of the ring kernel a ring, the card's only one, and no copy
+    launch."""
     chunk = 37 + 2 * g if chunk == "odd" else chunk
     x = torch.randn(g * chunk, D, generator=torch.Generator().manual_seed(g))
     mesh = _virtual_mesh(cuda, g)
     shards = TM.shard_rows(mesh, x.to(dtype).to(cuda))
     want = TG.ring_all_gather_plain(shards)
-    before = TG.ring_copy_kernel.launches
+    before = _ring_launches()
     runs = [TG.ring_all_gather(shards, mesh) for _ in range(RING_REPEATS)]
     torch.cuda.synchronize()
-    assert TG.ring_copy_kernel.launches - before == \
-        RING_REPEATS * g * g
+    assert _ring_launches(before) == (RING_REPEATS, 0)
     for outs in runs:
         assert len(outs) == g
         for out, w in zip(outs, want):
             assert out.dtype == dtype and torch.equal(out, w)
+
+
+def _ring_launches(before=(0, 0)):
+    """(ring all-gather launches, ring copy launches) since ``before``."""
+    return (TG.ring_gather_kernel.launches - before[0],
+            TG.ring_copy_kernel.launches - before[1])
+
+
+def _distinct_shards(cuda, mesh, n, rows, D, dtype=torch.float32):
+    """``n`` sets of shards with different values, and each set's plain
+    gather."""
+    gen = torch.Generator(device=cuda).manual_seed(rows + D)
+    sets = [TM.shard_rows(mesh, torch.randn(
+        mesh.shape["graph"] * rows, D, device=cuda, generator=gen).to(dtype))
+        for _ in range(n)]
+    return sets, [TG.ring_all_gather_plain(s) for s in sets]
+
+
+@pytest.mark.gpu
+def test_ring_all_gather_back_to_back(cuda):
+    """200 rings at g = 8 with no synchronise between them, on two sets of
+    shards in turn (a ring that read a flag of an earlier epoch as its own
+    would read rows not yet written, or the other set's), each checked on
+    the card as it goes while its outs are freed for the next rings."""
+    g, rings = 8, 200
+    mesh = _virtual_mesh(cuda, g)
+    sets, wants = _distinct_shards(cuda, mesh, 2, 1001, 64)
+    wrong = torch.zeros((), dtype=torch.int64, device=cuda)
+    before = _ring_launches()
+    for i in range(rings):
+        outs = TG.ring_all_gather(sets[i % 2], mesh)
+        for out, w in zip(outs, wants[i % 2]):
+            wrong += (out != w).sum()
+        del outs
+    torch.cuda.synchronize()
+    assert _ring_launches(before) == (rings, 0)
+    assert int(wrong) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_all_gather_after_a_long_kernel(dtype, cuda):
+    """A ring issued right after the current stream spins ~10 ms and then
+    writes the shards: it gathers the new values, not the old."""
+    g = 4
+    mesh = _virtual_mesh(cuda, g)
+    (old, new), (_, want) = _distinct_shards(cuda, mesh, 2, 5003, 7, dtype)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        torch.cuda._sleep(20_000_000)
+        for o, n_ in zip(old, new):
+            o.copy_(n_)
+        outs = TG.ring_all_gather(old, mesh)
+        torch.cuda.synchronize()
+        for out, w in zip(outs, want):
+            assert torch.equal(out, w)
+        old = [o - 1 for o in old]
+
+
+@pytest.mark.gpu
+def test_ring_all_gather_two_meshes_interleaved(cuda):
+    """Rings of two meshes of the card (4 and 3 ranks, each with its own
+    flags and epochs) issued in turn, 40 each, without a synchronise."""
+    meshes = [_virtual_mesh(cuda, 4), _virtual_mesh(cuda, 3)]
+    data = [_distinct_shards(cuda, m, 2, 20_001, 64) for m in meshes]
+    runs = []
+    before = _ring_launches()
+    for i in range(80):
+        m = i % 2
+        runs.append((m, i // 2 % 2, TG.ring_all_gather(
+            data[m][0][i // 2 % 2], meshes[m])))
+    torch.cuda.synchronize()
+    assert _ring_launches(before) == (80, 0)
+    for m, k, outs in runs:
+        for out, w in zip(outs, data[m][1][k]):
+            assert torch.equal(out, w)
+
+
+@pytest.mark.gpu
+def test_ring_all_gather_on_two_streams(cuda):
+    """Rings of one mesh issued in turn on a side stream, each held back by
+    a ~10 ms spin, and on the current stream, without a synchronise: a
+    ring waits for the mesh's last one whatever stream that went on, so
+    none takes a later ring's flag for its own."""
+    mesh = _virtual_mesh(cuda, 4)
+    sets, wants = _distinct_shards(cuda, mesh, 2, 20_001, 64)
+    main, side = torch.cuda.current_stream(cuda), torch.cuda.Stream(cuda)
+    side.wait_stream(main)
+    runs = []
+    before = _ring_launches()
+    for i in range(20):
+        with torch.cuda.stream(side if i % 2 == 0 else main):
+            if i % 2 == 0:
+                torch.cuda._sleep(20_000_000)
+            runs.append((i // 2 % 2, TG.ring_all_gather(sets[i // 2 % 2],
+                                                         mesh)))
+    torch.cuda.synchronize()
+    assert _ring_launches(before) == (20, 0)
+    for k, outs in runs:
+        for out, w in zip(outs, wants[k]):
+            assert torch.equal(out, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,D", [(41, 7), (20_001, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cards", [(0, 1), (0, 1, 2, 3),
+                                   (0, 0, 1, 1, 2, 2, 3, 3),
+                                   (0, 1, 2, 3, 0, 1, 2, 3)])
+def test_ring_all_gather_several_cards(cards, dtype, rows, D):
+    """Ranks on several cards (skipped with fewer): one launch a card a
+    ring, the left rank's rows and flags read through peer pointers;
+    RING_REPEATS rings in a row, bit for bit on every rank, then 20 more
+    alternating with `torch.cat`s that write each card's memory."""
+    if torch.cuda.device_count() <= max(cards):
+        pytest.skip(f"needs {max(cards) + 1} cards")
+    mesh = TM.make_mesh(graph=len(cards),
+                        devices=[torch.device("cuda", c) for c in cards])
+    x = torch.randn(len(cards) * rows, D,
+                    generator=torch.Generator().manual_seed(rows + D))
+    shards = TM.shard_rows(mesh, x.to(dtype))
+    want = TG.ring_all_gather_plain(shards)
+    before = _ring_launches()
+    runs = [TG.ring_all_gather(shards, mesh) for _ in range(RING_REPEATS)]
+    for _ in range(20):
+        runs.append(TG.ring_all_gather(shards, mesh))
+        TG.ring_all_gather_plain(shards)
+    torch.cuda.synchronize()
+    assert _ring_launches(before) == ((RING_REPEATS + 20)
+                                      * len(set(cards)), 0)
+    for outs in runs:
+        for out, w in zip(outs, want):
+            assert out.device == w.device and torch.equal(out, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_all_gather_wide(dtype, cuda):
+    """[131,072, 64] rows over 4 virtual ranks (256 tiles a chunk in fp32),
+    bit for bit, RING_REPEATS rings, one launch each."""
+    mesh = _virtual_mesh(cuda, 4)
+    x = torch.randn(131_072, 64, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    shards = TM.shard_rows(mesh, x.to(dtype))
+    want = TG.ring_all_gather_plain(shards)
+    before = _ring_launches()
+    for _ in range(RING_REPEATS):
+        outs = TG.ring_all_gather(shards, mesh)
+        assert all(torch.equal(o, w) for o, w in zip(outs, want))
+    assert _ring_launches(before) == (RING_REPEATS, 0)
+
+
+@pytest.mark.gpu
+def test_ring_all_gather_one_card_issues_only_its_launch(cuda, monkeypatch):
+    """With every rank on one card the ring records no event and makes no
+    stream wait: it is its launch alone."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the ring touched an event or a stream wait")
+    for cls, attr in ((torch.cuda.Event, "record"),
+                      (torch.cuda.Stream, "wait_event"),
+                      (torch.cuda.Stream, "wait_stream")):
+        monkeypatch.setattr(cls, attr, refuse)
+    mesh = _virtual_mesh(cuda, 4)
+    shards = TM.shard_rows(mesh, torch.arange(4 * 999 * 7, device=cuda,
+                                              dtype=torch.float32)
+                           .reshape(-1, 7))
+    outs = TG.ring_all_gather(shards, mesh)
+    monkeypatch.undo()
+    for out, w in zip(outs, TG.ring_all_gather_plain(shards)):
+        assert torch.equal(out, w)
+
+
+@pytest.mark.gpu
+def test_ring_all_gather_raises(cuda):
+    """A shard that is not contiguous raises before any launch."""
+    mesh = _virtual_mesh(cuda, 2)
+    shards = [torch.zeros(8, 6, device=cuda)[:, ::2] for _ in range(2)]
+    before = _ring_launches()
+    with pytest.raises(ValueError):
+        TG.ring_all_gather(shards, mesh)
+    assert _ring_launches(before) == (0, 0)
 
 
 def _ring_inputs(cuda, g, H, per, D, seed, qk_scale):

@@ -15,10 +15,16 @@ Phases, in order; any failure raises and exits non-zero:
    masks (``tests/test_torch_gpu.py::sparse_mask``, N = 1,000, H = 4) and
    (D, Dv) of (16, 16), (8, 8), (12, 12), (7, 3), (128, 128) there (N =
    1,008, H = 3); (2b) the backward kernels, B2 (the fp32 backward pair
-   walk) and B3a + B3b, against the plain backward on the same grid plus
-   learnable scales (dscale), an empty key strip, an lse cotangent and
-   (D, Dv) of (7, 3), (40, 72), (128, 128), and at 2's sparse masks and
-   head dims;
+   walk) and B3a + B3b (the two-walk backward: a row pair walk over the
+   forward plan, a key pair walk over the transposed plan), against the
+   plain backward on the same grid plus learnable scales (dscale), an
+   empty key strip, an lse cotangent and (D, Dv) of (7, 3), (40, 72),
+   (128, 128), and at 2's sparse masks and head dims; and B3a + B3b at
+   ``tests/test_torch_gpu.py::two_walk_mask``'s cases
+   (`dense_two_walk_check`: every metric, dropout 0 and 0.1, rows and
+   keys past 128 entries, an empty key strip, a live row whose lse is
+   LSE_DEAD, a fold of 33 heads, outputs allocated NaN-filled and set
+   everywhere, one case 20 times bit for bit);
    (2c) the edge-biased forward kernels B4 (lse1) and B5 (out, lse2),
    the fp32 pair walks, against their plain versions on the same grid
    with a bias that sums duplicate edges, and the three (D, Dv), and at
@@ -64,7 +70,8 @@ Phases, in order; any failure raises and exits non-zero:
    folds of 8 and 40 heads, and nine cases called twice, bit for bit;
    (2h) the bf16 forms of B1, B2, B3a
    and B3b (bf16 dot operands, fp32 sums) against the plain bf16
-   versions on 2's grid and head dims 8, 12 and 128, under three gates
+   versions on 2's grid and head dims 8, 12 and 128 (and B3a + B3b bf16
+   at 2b's two-walk cases), under three gates
    over the plain version's largest entry: max error <= 2e-3 (bf16-class:
    an fp32 sum in another order may flip a bf16 rounding), mean error <=
    1e-5 (fp32-class), and the mean distance from the fp32 result at
@@ -801,11 +808,37 @@ def phase_small_bwd(FG):
                                       "gaussian_kernel", 0.1, 1, sparse=True))
     out = {name: max(kernel_errors(e)[name] for e in errs)
            for name in ("B2", "B3a", "B3b")}
+    walks = two_walk_cases(FG, False)
+    for name, parts in (("B3a", ("dq", "dscale")), ("B3b", ("dk", "dv"))):
+        out[name] = max(out[name], max(w.get(n, 0.0) for w in walks
+                                       for n in parts))
     log(f"[2b] backward vs plain: {len(errs)} cases ({len(errs) - 19} at the "
-        f"sparse masks); max err B2 (dq, dk, dv, dscale) {out['B2']:.3e}, B3a "
-        f"(dq, dscale) {out['B3a']:.3e}, B3b (dk, dv) {out['B3b']:.3e} (tol "
-        f"{TOL})")
+        f"sparse masks), and B3a + B3b at the two walks' {len(walks)} cases "
+        f"(`two_walk_cases`); max err B2 (dq, dk, dv, dscale) "
+        f"{out['B2']:.3e}, B3a (dq, dscale) {out['B3a']:.3e}, B3b (dk, dv) "
+        f"{out['B3b']:.3e} (tol {TOL})")
     return out
+
+
+def two_walk_cases(FG, bf16):
+    """[2b], [2h] B3a then B3b (``bf16``: their bf16 forms) at
+    `tests.test_torch_gpu.two_walk_mask`'s cases (rows and keys past 2
+    CAPR, a whole tile, a tile of one pair, an empty key strip, dead rows,
+    a live row whose lse is LSE_DEAD) through `dense_two_walk_check`:
+    every metric with dropout off and on at N = 1,000 (byte loads of the
+    mask) and H = 4, a fold of 33 heads (two row walk head groups, five
+    key walk ones) at N = 1,008, and 20 calls bit for bit; outputs
+    allocated NaN-filled, each call launching each walk once. Returns the
+    checks' {output: error} (bf16: the max abs error)."""
+    from tests.test_torch_gpu import dense_two_walk_check
+    res = [dense_two_walk_check(DEV, bf16, 2, 4, 1000, 16, 16, metric, rate)
+           for metric in FG.MXU_METRICS for rate in (0.0, 0.1)]
+    res.append(dense_two_walk_check(DEV, bf16, 2, 33, 1008, 16, 16,
+                                    "gaussian_kernel", 0.1, seed=5))
+    res.append(dense_two_walk_check(DEV, bf16, 2, 4, 1008, 16, 16,
+                                    "gaussian_kernel", 0.1, seed=4,
+                                    repeats=20))
+    return [{n: e[0] if bf16 else e for n, e in r.items()} for r in res]
 
 
 # -- phase 2h -----------------------------------------------------------------
@@ -875,7 +908,13 @@ def phase_small_bf16(FG):
         for name, r in bf16_vs_plain(FG, 2, 3, 150, D, Dv, metric,
                                      rate).items():
             worst[name] = max(worst.get(name, r), r)
-    log(f"[2h] bf16 forms vs plain bf16: {len(cases)} cases; worst (max abs "
+    walks = two_walk_cases(FG, True)
+    for name, parts in (("B3a", ("dq", "dscale")), ("B3b", ("dk", "dv"))):
+        err = max(w.get(n, 0.0) for w in walks for n in parts)
+        worst[name] = max(worst[name], (err,) + worst[name][1:])
+    log(f"[2h] bf16 forms vs plain bf16: {len(cases)} cases, and B3a + B3b "
+        f"bf16 at the two walks' {len(walks)} cases (`two_walk_cases`, "
+        f"max abs err folded into theirs); worst (max abs "
         f"err, max err, mean err, witness over the largest entry) "
         + "; ".join(f"{n} {tuple(f'{x:.3e}' for x in r)}"
                     for n, r in worst.items())
@@ -6525,9 +6564,9 @@ def main() -> int:
             ("B2", FG.flash_geometric_bwd_fused_kernel,
              "flash_pairwalk_bwd.cu", 1590),
             ("B3a", FG.flash_geometric_bwd_dq_kernel,
-             "flash_geometric_bwd.cu", 1455),
+             "flash_pairwalk_two_walk.cu", 1455),
             ("B3b", FG.flash_geometric_bwd_dkv_kernel,
-             "flash_geometric_bwd.cu", 1534))] + [
+             "flash_pairwalk_two_walk.cu", 1534))] + [
         dict(kernel_record(
             FG, kern, "flash_pairwalk_fwd.cu", line,
             serve_edge["launches"][kern.name],
@@ -6681,7 +6720,7 @@ def main() -> int:
         for name, kern, source, line in zip(
             ("B1", "B2", "B3a", "B3b"), flash_kernels(FG, True),
             ("flash_pairwalk_fwd.cu", "flash_pairwalk_bwd.cu",
-             "flash_geometric_bwd.cu", "flash_geometric_bwd.cu"),
+             "flash_pairwalk_two_walk.cu", "flash_pairwalk_two_walk.cu"),
             (259, 1590, 1455, 1534))]
     # the bf16 forms of B4 and B5: launches on the bf16 edge-feature
     # serving path (3f), times at one 10K snapshot of 3f's request (5h),

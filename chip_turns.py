@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the hybrid model's phases of two source trees in turns on one GPU.
+"""Time chip_smoke.py's phases of two source trees in turns on one GPU.
 
-    python3 chip_turns.py A_DIR B_DIR [--train | --ring]
+    python3 chip_turns.py A_DIR B_DIR [--train | --ring | --flash]
 
 Each directory holds a tree of this repository (say, the parent commit
 unpacked by ``git archive`` beside the working tree). The script runs its
@@ -34,6 +34,16 @@ sample 8d where the tree has it), B9 at 4 ranks as both trees can time
 it (the ring, its issue and one fold launch alone), then each tree's
 ``pairwalk_variants.py`` (the other walks' times, B1 and B1c among them).
 Its files are ``chiprun_out/ring_<n>_<A or B>.log`` and ``.json`` and
+``variants_<A or B>.log``.
+
+With ``--flash`` each turn, A, B, B, A, runs the build with ptxas's
+report and the 10K flash model's phases: serving 3 and 3e (whose layer-0
+inputs 5 and 5g take), the kernels at one snapshot 5 and 5g (B1, B2, B3a,
+B3b and B3a + B3b, fp32 and bf16, beside the plain versions, SDPA and
+their bounds; 5g's density sweep), and training 6 and 6e (3 steps with
+B3a + B3b, then 3 with B2, each layer's backward over the 8-snapshot
+fold, the full-width checks), then each tree's ``pairwalk_variants.py``.
+Its files are ``chiprun_out/flash_<n>_<A or B>.log`` and ``.json`` and
 ``variants_<A or B>.log``.
 """
 
@@ -140,6 +150,26 @@ with open(sys.argv[1], "w") as f:
     json.dump({"3": serve, "8": ring, "b9": b9}, f, indent=1, default=str)
 """
 
+FLASH = r"""
+import json, sys, torch
+import chip_smoke as C
+import tagan_torch as tt
+from tagan_torch.ops import build, flash_geometric as FG
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+C.log(f"[1] card: {C.card_line()}")
+C.phase_build(build, FG)
+serve = C.phase_serve(tt, FG)
+times = C.phase_times(FG, serve.pop("args"))
+serve16 = C.phase_serve(tt, FG, bf16=True)
+times16 = C.phase_times_bf16(FG, serve16.pop("args"))
+train = C.phase_train(tt, FG)
+train16 = C.phase_train(tt, FG, bf16=True)
+with open(sys.argv[1], "w") as f:
+    json.dump({"3": serve, "5": times, "3e": serve16, "5g": times16,
+               "6": train, "6e": train16}, f, indent=1, default=str)
+"""
+
 
 def run(cmd, cwd, log):
     with open(log, "w") as f:
@@ -159,8 +189,9 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     train = "--train" in sys.argv[3:]
     mode = "train" if train else "ring" if "--ring" in sys.argv[3:] \
-        else "turn"
-    script = {"train": TRAIN, "ring": RING, "turn": TURN}[mode]
+        else "flash" if "--flash" in sys.argv[3:] else "turn"
+    script = {"train": TRAIN, "ring": RING, "flash": FLASH,
+              "turn": TURN}[mode]
     for n, name in enumerate("ABBAAB" if train else "ABBA", 1):
         stem = out / f"{mode}_{n}_{name}"
         run([sys.executable, "-c", script, f"{stem}.json"], trees[name],

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Time the pair walks, B1 and B1 bf16
 (``tagan_torch/csrc/flash_pairwalk_fwd.cu``), B2 and B2 bf16
-(``flash_pairwalk_bwd.cu``), the biased backward's row walk and key
+(``flash_pairwalk_bwd.cu``), the two-walk backward's row walk B3a
+("plain row walk") and key walk B3b ("plain key walk"), fp32 and bf16
+(``flash_pairwalk_two_walk.cu``), the biased backward's row walk and key
 walk, fp32 and bf16 (``flash_pairwalk_biased_bwd.cu``), their compact
 forms over the hybrid band's store, fp32 and bf16
 (``flash_pairwalk_biased_bwd_compact.cu``), the compact forward walk in
@@ -18,8 +20,9 @@ them:
 
 Each variant is the source, with the walks' headers
 (``flash_pairwalk.cuh``, for the forward walks ``flash_pairwalk_fwd.cuh``,
-for the biased backward ``flash_pairwalk_biased_bwd.cuh``, and for the
-compact walks ``flash_pairwalk_slots.cuh``) inlined, under one edit: the
+for the backward walks ``flash_pairwalk_biased_bwd.cuh`` and
+``flash_pairwalk_two_walk.cuh``, and for the compact walks
+``flash_pairwalk_slots.cuh``) inlined, under one edit: the
 flush's gathers 1,
 2 or 4 entries a lane at a time (UNROLL; B1's walk takes 2, B2's 1), a
 2- or 8-stage mask ring (NST),
@@ -30,7 +33,8 @@ keys' R-byte pieces of the mask tile's 64 rows instead of the block
 copying the whole tile (KEY_PIECES). The fp32 walks B1 and B2 take the
 flush's removal (their split into the mask stream and the pairs' work)
 and for B2 the atomics' removal; the row and key walks take the same
-variants in both precisions. The copies are built beside the
+variants in both precisions, the two-walk backward's the flush's
+removal. The copies are built beside the
 source into
 ``tagan_torch/_build/`` and timed in turns (base first and last) with
 CUDA events, per snapshot, on uniform random graphs of 10,000 nodes:
@@ -90,6 +94,15 @@ EDITS = {
                      "constexpr bool KEY_FLUSH = false;"),
         pieces=("constexpr bool KEY_PIECES = false;",
                 "constexpr bool KEY_PIECES = true;")),
+    "flash_pairwalk_two_walk": dict(
+        noflush_row=("constexpr bool ROW_FLUSH = true;",
+                     "constexpr bool ROW_FLUSH = false;"),
+        # the row walk with a minimum of 8 warps an SM, as the compact
+        # row walk (ptxas then takes 135-189 registers)
+        rows8=("__launch_bounds__(WARP) dq_walk_kernel",
+               "__launch_bounds__(WARP, 8) dq_walk_kernel"),
+        noflush_key=("constexpr bool KEY_FLUSH = true;",
+                     "constexpr bool KEY_FLUSH = false;")),
     "flash_pairwalk_biased_bwd_compact": dict(
         noflush_row=("constexpr bool ROW_FLUSH = true;",
                      "constexpr bool ROW_FLUSH = false;"),
@@ -106,6 +119,10 @@ EDITS = {
 }
 # the variants timed for each walk (all of its source's by default)
 WALK_VARIANTS = {"B1": ("noflush",), "B2": ("noflush", "noatomics"),
+                 "plain row walk": ("noflush_row", "rows8"),
+                 "plain row walk bf16": ("noflush_row", "rows8"),
+                 "plain key walk": ("noflush_key",),
+                 "plain key walk bf16": ("noflush_key",),
                  "row walk": ("noflush_row",),
                  "row walk bf16": ("noflush_row",),
                  "key walk": ("noflush_key", "pieces"),
@@ -134,12 +151,14 @@ COMPACT = ("compact row walk", "compact row walk bf16", "compact key walk",
 
 
 def inlined(src: str, csrc: Path) -> str:
-    """``src`` with the walks' headers inlined: the forward walks'
+    """``src`` with the walks' headers inlined: the two-walk backward's
+    flushes (``flash_pairwalk_two_walk.cuh``), the forward walks'
     (``flash_pairwalk_fwd.cuh``), the biased backward's
     (``flash_pairwalk_biased_bwd.cuh``) and the compact walks'
     (``flash_pairwalk_slots.cuh``), where the source includes them, and
     the walk's (``flash_pairwalk.cuh``), once."""
-    for header in ("flash_pairwalk_fwd.cuh", "flash_pairwalk_biased_bwd.cuh",
+    for header in ("flash_pairwalk_two_walk.cuh", "flash_pairwalk_fwd.cuh",
+                   "flash_pairwalk_biased_bwd.cuh",
                    "flash_pairwalk_slots.cuh", "flash_pairwalk.cuh"):
         text = (csrc / header).read_text().replace("#pragma once\n", "")
         inline = f'#include "{header}"'
@@ -227,6 +246,10 @@ def main() -> int:
              "B1 bf16": FG.flash_geometric_fwd_bf16_kernel,
              "B2": FG.flash_geometric_bwd_fused_kernel,
              "B2 bf16": FG.flash_geometric_bwd_fused_bf16_kernel,
+             "plain row walk": FG.flash_geometric_bwd_dq_kernel,
+             "plain row walk bf16": FG.flash_geometric_bwd_dq_bf16_kernel,
+             "plain key walk": FG.flash_geometric_bwd_dkv_kernel,
+             "plain key walk bf16": FG.flash_geometric_bwd_dkv_bf16_kernel,
              "row walk": FG.flash_biased_bwd_row_kernel,
              "row walk bf16": FG.flash_biased_bwd_row_bf16_kernel,
              "key walk": FG.flash_biased_bwd_key_kernel,
@@ -308,9 +331,13 @@ def main() -> int:
         fwd = (q, k, v, mask, jlist, jcount, "euclidean", ones, seed, 0.0)
         bwd = (q, k, v, mask, do, lse, delta, jlist, jcount, "euclidean",
                ones, seed, 0.0, False)
+        bwd_t = (q, k, v, mask, do, lse, delta, ilist, icount, "euclidean",
+                 ones, seed, 0.0)
         row = (*common, jlist, jcount, "euclidean", ones, seeds, 0.0, False)
         key = (*common, delta1, ilist, icount, "euclidean", ones, seeds, 0.0)
         args = {"B1": fwd, "B1 bf16": fwd, "B2": bwd, "B2 bf16": bwd,
+                "plain row walk": bwd, "plain row walk bf16": bwd,
+                "plain key walk": bwd_t, "plain key walk bf16": bwd_t,
                 "row walk": row, "row walk bf16": row, "key walk": key,
                 "key walk bf16": key}
         for w, ks in kernels.items():
@@ -325,7 +352,7 @@ def main() -> int:
                         lambda: kern(*args[w])) / G, 5))
             print(f"{w}, {label}: ms a snapshot {res}", flush=True)
         del q, k, v, do, mask, out, lse, delta, bias, lse1, out2, lse2
-        del common, delta1, args, fwd, bwd, row, key
+        del common, delta1, args, fwd, bwd, bwd_t, row, key
     compact_times(kernels, gen)
     return 0
 

@@ -1,8 +1,13 @@
-// The mask walk shared by the pair walks of flash_pairwalk_fwd.cu (B1, B4,
-// B5 and their bf16 forms), flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
+// The mask walks shared by the dense pair walks. The row walk
+// (`walk_mask`) serves flash_pairwalk_fwd.cu (B1, B4, B5 and their bf16
+// forms), flash_pairwalk_bwd.cu (B2 and B2's bf16 form),
 // flash_pairwalk_biased_bwd.cu (its row walk, B6 and B7a in both
-// precisions) and ring_flash.cu (B9's fold over one hop's column block, in
-// both precisions); its cp.async helpers also serve the compact walks of
+// precisions), flash_pairwalk_two_walk.cu (B3a in both precisions) and
+// ring_flash.cu (B9's fold over one hop's column block, in both
+// precisions); the key walk (`walk_key_mask`, at the end) serves the key
+// walks over the transposed plan, B7b's of flash_pairwalk_biased_bwd.cu
+// and B3b's of flash_pairwalk_two_walk.cu, both in both precisions. The
+// cp.async helpers also serve the compact walks of
 // flash_pairwalk_slots.cuh, flash_pairwalk_fwd_compact.cu,
 // flash_pairwalk_biased_bwd_compact.cu and flash_pairwalk_bwd_compact.cu.
 //
@@ -261,6 +266,159 @@ __device__ __forceinline__ void walk_mask(const WalkSmem& sm,
   }
   do_flush();
 
+}
+
+// ---------------------------------------------------------------------------
+// The key walk
+// ---------------------------------------------------------------------------
+
+constexpr int KROW = BN + 16;     // key walk ring row stride: 16-byte aligned,
+                                  // and a warp's column reads spread banks
+// the key walk's mask read: false copies each walked tile whole, true each
+// warp's R-byte column pieces of its 64 rows (pairwalk_variants.py)
+constexpr bool KEY_PIECES = false;
+
+// Bytes of a key walk block's walk: the ring [NST][64][KROW] of mask tiles
+// and the keys' lists.
+__host__ __device__ inline size_t key_walk_bytes(int KB) {
+  return (size_t)NST * BM * KROW + (size_t)KB * CAPR * 4;
+}
+
+// Step t's mask tile, rows [row0, row0 + 64) x keys [col0, col0 + 64), into
+// `stage` (row stride KROW): the whole tile by all threads in 16-byte
+// chunks, or (KEY_PIECES) each warp its keys' R-byte pieces of the 64 rows
+// in 4-byte words. Rows and columns past N read as 0.
+template <bool kVec16>
+__device__ __forceinline__ void load_key_tile(uint8_t* stage,
+                                              const uint8_t* mg, int N,
+                                              int row0, int col0, int kc0,
+                                              int R) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  if constexpr (KEY_PIECES) {
+    const int lane = tid & (WARP - 1);
+    const int wpr = R >= 4 ? R / 4 : 1;     // words a row piece
+    for (int c = lane; c < BM * wpr; c += WARP) {
+      const int r = c / wpr, off = kc0 + 4 * (c - r * wpr);
+      const int gr = row0 + r, gcol = col0 + off;
+      uint8_t* dst = stage + r * KROW + off;
+      if (kVec16 && R >= 4) {
+        const bool ok = gr < N && gcol < N;  // N % 16 == 0: all 4 or none
+        const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                     "l"(ok ? mg + (size_t)gr * N + gcol : mg),
+                     "r"(ok ? 4 : 0)
+                     : "memory");
+      } else {
+        for (int b = 0; b < (R >= 4 ? 4 : R); ++b)
+          dst[b] = gr < N && gcol + b < N
+                       ? (uint8_t)(mg[(size_t)gr * N + gcol + b] != 0) : 0;
+      }
+    }
+  } else {
+    for (int c = tid; c < BM * 4; c += nthr) {
+      const int r = c >> 2, off = 16 * (c & 3);
+      const int gr = row0 + r, gcol = col0 + off;
+      uint8_t* dst = stage + r * KROW + off;
+      if constexpr (kVec16) {
+        const bool ok = gr < N && gcol < N;  // N % 16 == 0: all 16 or none
+        cp_async16(dst, ok ? mg + (size_t)gr * N + gcol : mg, ok);
+      } else {
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (gr < N) {
+          const uint8_t* src = mg + (size_t)gr * N;
+          for (int b = 0; b < 16 && gcol + b < N; ++b)
+            if (src[gcol + b]) w[b >> 2] |= 0xffu << (8 * (b & 3));
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+  }
+}
+
+// The walk of a key walk block over the steps [0, cnt) of the transposed
+// plan, row tiles il, of the snapshot's mask mg, for keys [col0, col0 + 64)
+// of which each warp owns R from kc0 (its first in the tile), the lane's
+// key kl = lane / HG (written by the key's `writer` lane).
+//  1. Each walked [64 rows x 64 keys] mask tile is copied whole, 64-byte
+//     row segments (the sectors the row walk reads), by cp.async into an
+//     NST-stage ring, NST - 1 steps ahead, one block barrier a step (6
+//     stages measured the same as 4 on the H100).
+//  2. Each warp turns its R columns of the tile into a 64-bit row word a
+//     key (two ballots a key: rows 0-31 and 32-63) and appends the key's
+//     valid rows, ascending, to `list` in shared memory, one step later.
+//  3. flush(n) is called by every lane with its key's list of n rows: by
+//     every warp at once when the block votes at a step's barrier that a
+//     list could pass CAPR (a warp flushing alone held the others at the
+//     next barrier), and by each warp at the end.
+// Rows and keys past N read as 0 and list nothing.
+template <bool kVec16, class Flush>
+__device__ __forceinline__ void walk_key_mask(uint8_t* ring, int* list,
+                                              const uint8_t* mg, int N,
+                                              int col0, int kc0, int kl,
+                                              int R, bool writer,
+                                              const int* il, int cnt,
+                                              Flush&& flush) {
+  const int lane = threadIdx.x & (WARP - 1);
+  const int stage_bytes = BM * KROW;
+  int n = 0;                    // entries of the lane's key list
+  // step t - 1's row word of the lane's key, appended at step t (after
+  // the block's vote on a flush), and its popcount and first row
+  uint64_t word = 0;
+  int add = 0, row0 = 0;
+  auto append = [&]() {
+    if (writer && add) {
+      int* dst = list + n;
+      for (uint64_t w = word; w; w &= w - 1)
+        *dst++ = row0 + __ffsll((long long)w) - 1;
+    }
+    n += add;
+  };
+
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < cnt)
+      load_key_tile<kVec16>(ring + s * stage_bytes, mg, N, il[s] * BM, col0,
+                            kc0, R);
+    cp_async_commit();
+  }
+  for (int t = 0; t < cnt; ++t) {
+    cp_async_wait_key();        // this thread's copies of step t
+    // everyone's copies of step t, everyone done with step t - 1's stage,
+    // and the block's vote: could a list overflow with step t - 1's rows?
+    // Then every warp flushes now, together, rather than one at a time
+    // while the others wait at the next barrier
+    const bool full = __syncthreads_or(n + add > CAPR);
+    const int tt = t + NST - 1;   // into step t - 1's stage
+    if (tt < cnt)
+      load_key_tile<kVec16>(ring + (tt % NST) * stage_bytes, mg, N,
+                            il[tt] * BM, col0, kc0, R);
+    cp_async_commit();
+    if (full) {
+      flush(n);
+      __syncwarp();
+      n = 0;
+    }
+    append();
+    const uint8_t* stage = ring + (t % NST) * stage_bytes + kc0;
+    // the row word of each of the warp's R keys: bit r for row r
+    word = 0;
+    for (int c = 0; c < R; ++c) {
+      const unsigned lo = __ballot_sync(FULL, stage[lane * KROW + c] != 0);
+      const unsigned hi =
+          __ballot_sync(FULL, stage[(lane + WARP) * KROW + c] != 0);
+      if (c == kl) word = (uint64_t)lo | ((uint64_t)hi << 32);
+    }
+    add = kl < R ? __popcll(word) : 0;
+    row0 = il[t] * BM;
+  }
+  if (__any_sync(FULL, n + add > CAPR)) {
+    __syncwarp();
+    flush(n);
+    __syncwarp();
+    n = 0;
+  }
+  append();
+  __syncwarp();
+  flush(n);
 }
 
 }  // namespace tagan_pairwalk

@@ -64,21 +64,16 @@
 // for a group of HG heads (up to 8), each lane one (key, head) item whose
 // k_j and v_j (rounded in bf16) and dk_j and dv_j accumulators stay in its
 // shared slots; a warp holds R keys.
-//  1. Each walked [64 rows x 64 keys] mask tile is copied whole, 64-byte row
-//     segments (the sectors the row walk reads), by cp.async into an
-//     NST-stage ring, NST - 1 steps ahead, one block barrier a step
-//     (6 stages measured the same as 4 on the H100).
-//  2. Each warp turns its R columns of the tile into a 64-bit row word a
-//     key (two ballots a key: rows 0-31 and 32-63) and appends the key's
-//     valid rows, ascending, to its list in shared memory, one step later.
-//  3. When a key's list could overflow (the block votes at the step's
-//     barrier, so that all warps flush together: a warp flushing alone
-//     held the others at the next barrier), and at the end, the warp
-//     flushes: its lanes step through their keys' lists together,
-//     gathering q_i,
-//     do_i, lse1_i, lse2_i, delta2_i, delta1_i (the row walk's) and the bias
-//     at (i, j) (one sector a valid pair), recompute w1, w2, dz, dw1, ds
-//     and W, and add into dk_j and dv_j in ascending row order.
+//  The walk (`walk_key_mask`, flash_pairwalk.cuh, shared with B3b's key
+//  walk in flash_pairwalk_two_walk.cu) copies each walked [64 rows x 64
+//  keys] mask tile whole by cp.async into an NST-stage ring, one block
+//  barrier a step, ballots each key's 64-bit row word and lists its valid
+//  rows. When a key's list could overflow (the block votes at the step's
+//  barrier, so that all warps flush together), and at the end, the warp
+//  flushes: its lanes step through their keys' lists together, gathering
+//  q_i, do_i, lse1_i, lse2_i, delta2_i, delta1_i (the row walk's) and the
+//  bias at (i, j) (one sector a valid pair), recompute w1, w2, dz, dw1, ds
+//  and W, and add into dk_j and dv_j in ascending row order.
 //  dk_j and dv_j are written once at the end, with the squared-distance
 //  column term (and, in bf16, the scaled dot's 1/sqrt(d)).
 //
@@ -113,9 +108,6 @@ using namespace tagan_pairwalk;
 // (pairwalk_variants.py; its outputs are then not the function)
 constexpr bool ROW_FLUSH = true;
 constexpr bool KEY_FLUSH = true;
-// the key walk's mask read: false copies each walked tile whole, true each
-// warp's R-byte column pieces of its 64 rows (pairwalk_variants.py)
-constexpr bool KEY_PIECES = false;
 
 // ---------------------------------------------------------------------------
 // The row walk
@@ -173,64 +165,10 @@ __global__ void __launch_bounds__(WARP) row_walk_kernel(const Bwd a) {
 // The key walk
 // ---------------------------------------------------------------------------
 
-__host__ __device__ inline size_t key_walk_bytes(int KB) {
-  return (size_t)NST * BM * KROW + (size_t)KB * CAPR * 4;
-}
-
 // Bytes of one block: the ring and the keys' lists, then k and v (rounded
 // in bf16) and the dk and dv accumulators, each [width][threads].
 __host__ __device__ inline size_t key_bytes(int KB, int R, int D, int Dv) {
   return key_walk_bytes(KB) + key_item_bytes(KB, R, D, Dv);
-}
-
-// Step t's mask tile, rows [row0, row0 + 64) x keys [col0, col0 + 64), into
-// `stage` (row stride KROW): the whole tile by all threads in 16-byte
-// chunks, or (KEY_PIECES) each warp its keys' R-byte pieces of the 64 rows
-// in 4-byte words. Rows and columns past N read as 0.
-template <bool kVec16>
-__device__ __forceinline__ void load_tile(uint8_t* stage, const uint8_t* mg,
-                                          int N, int row0, int col0, int kc0,
-                                          int R) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  if constexpr (KEY_PIECES) {
-    const int lane = tid & (WARP - 1);
-    const int wpr = R >= 4 ? R / 4 : 1;     // words a row piece
-    for (int c = lane; c < BM * wpr; c += WARP) {
-      const int r = c / wpr, off = kc0 + 4 * (c - r * wpr);
-      const int gr = row0 + r, gcol = col0 + off;
-      uint8_t* dst = stage + r * KROW + off;
-      if (kVec16 && R >= 4) {
-        const bool ok = gr < N && gcol < N;  // N % 16 == 0: all 4 or none
-        const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                     "l"(ok ? mg + (size_t)gr * N + gcol : mg),
-                     "r"(ok ? 4 : 0)
-                     : "memory");
-      } else {
-        for (int b = 0; b < (R >= 4 ? 4 : R); ++b)
-          dst[b] = gr < N && gcol + b < N
-                       ? (uint8_t)(mg[(size_t)gr * N + gcol + b] != 0) : 0;
-      }
-    }
-  } else {
-    for (int c = tid; c < BM * 4; c += nthr) {
-      const int r = c >> 2, off = 16 * (c & 3);
-      const int gr = row0 + r, gcol = col0 + off;
-      uint8_t* dst = stage + r * KROW + off;
-      if constexpr (kVec16) {
-        const bool ok = gr < N && gcol < N;  // N % 16 == 0: all 16 or none
-        cp_async16(dst, ok ? mg + (size_t)gr * N + gcol : mg, ok);
-      } else {
-        uint32_t w[4] = {0u, 0u, 0u, 0u};
-        if (gr < N) {
-          const uint8_t* src = mg + (size_t)gr * N;
-          for (int b = 0; b < 16 && gcol + b < N; ++b)
-            if (src[gcol + b]) w[b >> 2] |= 0xffu << (8 * (b & 3));
-        }
-        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-      }
-    }
-  }
 }
 
 template <bool kBf16, bool kVec16>
@@ -265,74 +203,15 @@ key_walk_kernel(const Bwd a) {
   const int cnt = a.pcount[walk];
   const int* il = a.plan + walk * a.W;
   const uint8_t* mg = a.mask + (size_t)g * a.N * a.N;
-  const int stage_bytes = BM * KROW;
   int* list = lists + (warp * R + (kl < R ? kl : 0)) * CAPR;
   const bool writer = lane < R * HG && lane % HG == 0;
-  int n = 0;                    // entries of the lane's key list
-  // step t - 1's row word of the lane's key, appended at step t (after
-  // the block's vote on a flush), and its popcount and first row
-  uint64_t word = 0;
-  int add = 0, row0 = 0;
-  auto append = [&]() {
-    if (writer && add) {
-      int* dst = list + n;
-      for (uint64_t w = word; w; w &= w - 1)
-        *dst++ = row0 + __ffsll((long long)w) - 1;
-    }
-    n += add;
-  };
-
-  for (int s = 0; s < NST - 1; ++s) {
-    if (s < cnt)
-      load_tile<kVec16>(ring + s * stage_bytes, mg, a.N, il[s] * BM, col0,
-                        kc0, R);
-    cp_async_commit();
-  }
-  for (int t = 0; t < cnt; ++t) {
-    cp_async_wait_key();        // this thread's copies of step t
-    // everyone's copies of step t, everyone done with step t - 1's stage,
-    // and the block's vote: could a list overflow with step t - 1's rows?
-    // Then every warp flushes now, together, rather than one at a time
-    // while the others wait at the next barrier
-    const bool full = __syncthreads_or(n + add > CAPR);
-    const int tt = t + NST - 1;   // into step t - 1's stage
-    if (tt < cnt)
-      load_tile<kVec16>(ring + (tt % NST) * stage_bytes, mg, a.N,
-                        il[tt] * BM, col0, kc0, R);
-    cp_async_commit();
-    if (full) {
-      if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
-      __syncwarp();
-      n = 0;
-    }
-    append();
-    const uint8_t* stage = ring + (t % NST) * stage_bytes + kc0;
-    // the row word of each of the warp's R keys: bit r for row r
-    word = 0;
-    for (int c = 0; c < R; ++c) {
-      const unsigned lo = __ballot_sync(FULL, stage[lane * KROW + c] != 0);
-      const unsigned hi =
-          __ballot_sync(FULL, stage[(lane + WARP) * KROW + c] != 0);
-      if (c == kl) word = (uint64_t)lo | ((uint64_t)hi << 32);
-    }
-    add = kl < R ? __popcll(word) : 0;
-    row0 = il[t] * BM;
-  }
-  if (__any_sync(FULL, n + add > CAPR)) {
-    __syncwarp();
-    if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
-    __syncwarp();
-    n = 0;
-  }
-  append();
-  __syncwarp();
-  if constexpr (KEY_FLUSH) key_pass<kBf16>(a, it, pairs, list, n, nthr);
+  walk_key_mask<kVec16>(ring, list, mg, a.N, col0, kc0, kl, R, writer, il,
+                        cnt, [&](int n) {
+                          if constexpr (KEY_FLUSH)
+                            key_pass<kBf16>(a, it, pairs, list, n, nthr);
+                        });
 
   key_finish<kBf16>(a, it, dk_s, dv_s, tid, nthr);
-}
-
-bool vec16_mask(const Bwd& a) {
-  return a.N % 16 == 0 && (reinterpret_cast<uintptr_t>(a.mask) & 15) == 0;
 }
 
 template <bool kBf16>

@@ -24,8 +24,6 @@
 
 namespace tagan_pairwalk {
 
-constexpr int KROW = BN + 16;     // key walk ring row stride: 16-byte aligned,
-                                  // and a warp's column reads spread banks
 constexpr int KEY_WARPS = 16;     // warps of a key walk block, at most
 constexpr int KEY_HG = 8;         // heads of a key walk block, at most
 constexpr size_t MAX_SMEM = 227 * 1024;
@@ -473,6 +471,11 @@ __host__ inline bool bad_args(const Bwd& a, int G) {
   return G < 0 || a.H < 0 || a.N < 0 || a.D < 1 || a.D > MAX_D ||
          a.Dv < 1 || a.Dv > MAX_D || a.metric < 0 || a.metric > COS_DIST ||
          a.n_t != (a.N + BM - 1) / BM || a.W < 0;
+}
+
+// Whether the dense walks may copy the mask [G, N, N] in 16-byte chunks.
+__host__ inline bool vec16_mask(const Bwd& a) {
+  return a.N % 16 == 0 && (reinterpret_cast<uintptr_t>(a.mask) & 15) == 0;
 }
 
 template <typename Kernel>

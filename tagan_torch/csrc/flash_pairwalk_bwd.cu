@@ -6,8 +6,8 @@
 // flash_geometric_attention_bwd(..., fused=True)) in its dense-mask forms,
 // bf16=False and bf16=True (the template flag kBf16): dq, dk, dv and
 // d(scale) in one walk. At every valid pair (i, j) and head h it computes
-// what B3a's and B3b's forms of the same precision (flash_geometric_bwd.cuh,
-// over flash_geometric_common.cuh's pair_weights) compute per pair:
+// what B3a's and B3b's forms of the same precision (the flushes `dq_pass`
+// and `dkv_pass` of flash_pairwalk_two_walk.cuh) compute per pair:
 //
 //   s  = the metric score of q_i and k_j,   p  = exp(s - lse_i),
 //   dp = drop(do_i . v_j),                  ds = p (dp - delta_i),

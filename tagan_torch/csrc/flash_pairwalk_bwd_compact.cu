@@ -48,7 +48,8 @@
 // walk of flash_pairwalk_slots.cuh (`walk_slots`, shared with B1c, B5c
 // and B6c + B7a c) copies each step's row words by cp.async NST - 1 steps
 // ahead and lists each row's valid columns; when a row's list could pass
-// CAPR, and at the end, the flush (`dq_pass` below) gathers k_j and v_j
+// CAPR, and at the end, the flush (`dq_pass`, flash_pairwalk_two_walk.cuh,
+// shared with the dense B3a) gathers k_j and v_j
 // (16 bytes at a time where aligned) at the listed pairs only, recomputes
 // s, p and dp, and sums dq_i and the d(scale) term in the walk's order.
 //
@@ -62,7 +63,8 @@
 // of flash_pairwalk_slots.cuh (`walk_key_slots`, shared with B7b c) copies
 // each walked slot's 64 row words (512 B) by cp.async NST - 1 steps ahead,
 // one block barrier a step, ballots each key's row word and lists its
-// rows; the flush (`dkv_pass` below) gathers q_i and do_i (16 bytes at a
+// rows; the flush (`dkv_pass`, flash_pairwalk_two_walk.cuh, shared with
+// the dense B3b) gathers q_i and do_i (16 bytes at a
 // time where aligned), lse_i and delta_i at the listed pairs only,
 // recomputes s, p and dp and sums dk_j and dv_j in the walk's row order.
 //
@@ -82,8 +84,8 @@
 // Interface: plain C, loaded with ctypes. Launches on the given stream,
 // allocates nothing, returns the cudaError_t of the launch.
 
-#include "flash_pairwalk_biased_bwd.cuh"
 #include "flash_pairwalk_slots.cuh"
+#include "flash_pairwalk_two_walk.cuh"
 
 namespace {
 
@@ -98,78 +100,6 @@ constexpr bool KEY_FLUSH = true;
 // ---------------------------------------------------------------------------
 // The row walk (B3a c)
 // ---------------------------------------------------------------------------
-
-// The flush of a row list of n entries (ascending), every lane of the warp
-// in step (to the longest list): dq_i in the lane's slots, the sum of W and
-// the d(scale) term. The item carries lse in `lse1` and delta in `d1`.
-template <bool kBf16>
-__device__ __forceinline__ void dq_pass(const Bwd& a, RowItem& it,
-                                        const CompactRowPairs& pairs,
-                                        const int* list, int n) {
-  const bool k4 = (a.D & 3) == 0 && aligned16(a.k);
-  const bool v4 = (a.Dv & 3) == 0 && aligned16(a.v);
-  const float* kg = a.k + it.gh * a.N * a.D;
-  const float* vg = a.v + it.gh * a.N * a.Dv;
-  const int nmax = __reduce_max_sync(FULL, n);
-  for (int e = 0; e < nmax; ++e) {
-    if (e >= n) continue;
-    const int gc = pairs.index(list[e]);
-    const float* kr = kg + (size_t)gc * a.D;
-    const float* vr = vg + (size_t)gc * a.Dv;
-    // q.k (bf16: of rounded operands), |k|^2 of the unrounded row, do.v
-    float qk = 0.f, kn = 0.f, dp = 0.f;
-    if (k4) {
-      for (int d = 0; d < a.D; d += 4) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(kr + d));
-        kn += x.x * x.x;
-        qk = fmaf(it.qs[d * WARP], rd<kBf16>(x.x), qk);
-        kn += x.y * x.y;
-        qk = fmaf(it.qs[(d + 1) * WARP], rd<kBf16>(x.y), qk);
-        kn += x.z * x.z;
-        qk = fmaf(it.qs[(d + 2) * WARP], rd<kBf16>(x.z), qk);
-        kn += x.w * x.w;
-        qk = fmaf(it.qs[(d + 3) * WARP], rd<kBf16>(x.w), qk);
-      }
-    } else {
-      for (int d = 0; d < a.D; ++d) {
-        const float x = __ldg(kr + d);
-        kn += x * x;
-        qk = fmaf(it.qs[d * WARP], rd<kBf16>(x), qk);
-      }
-    }
-    if (v4) {
-      for (int c = 0; c < a.Dv; c += 4) {
-        const float4 y = __ldg(reinterpret_cast<const float4*>(vr + c));
-        dp = fmaf(it.dos[c * WARP], rd<kBf16>(y.x), dp);
-        dp = fmaf(it.dos[(c + 1) * WARP], rd<kBf16>(y.y), dp);
-        dp = fmaf(it.dos[(c + 2) * WARP], rd<kBf16>(y.z), dp);
-        dp = fmaf(it.dos[(c + 3) * WARP], rd<kBf16>(y.w), dp);
-      }
-    } else {
-      for (int c = 0; c < a.Dv; ++c)
-        dp = fmaf(it.dos[c * WARP], rd<kBf16>(__ldg(vr + c)), dp);
-    }
-    const float s = score_of(a.metric, qk, it.qn, kn, it.sc, a.sqrt_d);
-    const float sq = fmaxf(it.qn + kn - 2.f * qk, 0.f);
-    const float p = expf(s - it.lse1);   // lse >= the row's s; dead: 0
-    float dpv = dp;
-    if (a.use_dropout)
-      dpv = keep_hash(it.mix1, (uint32_t)it.gr, (uint32_t)gc) <
-                    a.keep_thresh
-                ? dp * a.inv_keep
-                : 0.f;
-    const float ds = p * (dpv - it.d1);
-    const float w =
-        kBf16 ? chain_weight_bf16(a.metric, ds, s, sq, qk, it.sc)
-              : chain_weight(a.metric, ds, s, sq, qk, it.sc, a.sqrt_d);
-    it.dsc = fmaf(ds * s, sq, it.dsc);
-    it.wsum += w;
-    const float wq = rd<kBf16>(w);
-    // dq_i += W k_j (bf16: rounded): the k row again, now in L1
-    for (int d = 0; d < a.D; ++d)
-      it.dq[d * WARP] = fmaf(wq, rd<kBf16>(__ldg(kr + d)), it.dq[d * WARP]);
-  }
-}
 
 // Bytes of a row walk warp: its slot walk and its items.
 __host__ __device__ inline size_t row_bytes(int R, int D, int Dv) {
@@ -261,81 +191,6 @@ int dq_entry(const void* q, const void* k, const void* v, const void* store,
 // ---------------------------------------------------------------------------
 // The key walk (B3b c)
 // ---------------------------------------------------------------------------
-
-// The flush of a key list of n rows (ascending), every lane of the warp in
-// step (to the longest list): dk_j and dv_j in the lane's slots. The
-// walk's arguments carry lse in `lse1` and delta in `delta1`.
-template <bool kBf16>
-__device__ __forceinline__ void dkv_pass(const Bwd& a, KeyItem& it,
-                                         const CompactKeyPairs& pairs,
-                                         const int* list, int n, int nthr) {
-  const bool q4 = (a.D & 3) == 0 && aligned16(a.q);
-  const bool o4 = (a.Dv & 3) == 0 && aligned16(a.dout);
-  const int nmax = __reduce_max_sync(FULL, n);
-  for (int e = 0; e < nmax; ++e) {
-    if (!(it.on && e < n)) continue;
-    const int gr = pairs.index(list[e]);
-    const size_t row = it.gh * a.N + gr;
-    const float* qr = a.q + row * a.D;
-    const float* dor = a.dout + row * a.Dv;
-    // q.k (bf16: of rounded operands), |q|^2 of the unrounded row, do.v
-    float qk = 0.f, qn = 0.f, dp = 0.f;
-    if (q4) {
-      for (int d = 0; d < a.D; d += 4) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(qr + d));
-        qn += x.x * x.x;
-        qk = fmaf(rd<kBf16>(x.x), it.ks[d * nthr], qk);
-        qn += x.y * x.y;
-        qk = fmaf(rd<kBf16>(x.y), it.ks[(d + 1) * nthr], qk);
-        qn += x.z * x.z;
-        qk = fmaf(rd<kBf16>(x.z), it.ks[(d + 2) * nthr], qk);
-        qn += x.w * x.w;
-        qk = fmaf(rd<kBf16>(x.w), it.ks[(d + 3) * nthr], qk);
-      }
-    } else {
-      for (int d = 0; d < a.D; ++d) {
-        const float x = __ldg(qr + d);
-        qn += x * x;
-        qk = fmaf(rd<kBf16>(x), it.ks[d * nthr], qk);
-      }
-    }
-    if (o4) {
-      for (int c = 0; c < a.Dv; c += 4) {
-        const float4 y = __ldg(reinterpret_cast<const float4*>(dor + c));
-        dp = fmaf(rd<kBf16>(y.x), it.vs[c * nthr], dp);
-        dp = fmaf(rd<kBf16>(y.y), it.vs[(c + 1) * nthr], dp);
-        dp = fmaf(rd<kBf16>(y.z), it.vs[(c + 2) * nthr], dp);
-        dp = fmaf(rd<kBf16>(y.w), it.vs[(c + 3) * nthr], dp);
-      }
-    } else {
-      for (int c = 0; c < a.Dv; ++c)
-        dp = fmaf(rd<kBf16>(__ldg(dor + c)), it.vs[c * nthr], dp);
-    }
-    const float s = score_of(a.metric, qk, qn, it.kn, it.sc, a.sqrt_d);
-    const float sq = fmaxf(qn + it.kn - 2.f * qk, 0.f);
-    const float p = expf(s - __ldg(a.lse1 + row));   // lse >= the row's s
-    float pd = p, dpv = dp;
-    if (a.use_dropout) {
-      const bool keep = keep_hash(it.mix1, (uint32_t)gr, (uint32_t)it.gc) <
-                        a.keep_thresh;
-      pd = keep ? p * a.inv_keep : 0.f;
-      dpv = keep ? dp * a.inv_keep : 0.f;
-    }
-    const float ds = p * (dpv - __ldg(a.delta1 + row));
-    const float w =
-        kBf16 ? chain_weight_bf16(a.metric, ds, s, sq, qk, it.sc)
-              : chain_weight(a.metric, ds, s, sq, qk, it.sc, a.sqrt_d);
-    it.wsum += w;
-    const float wk = rd<kBf16>(w), pr = rd<kBf16>(pd);
-    // dk_j += W q_i and dv_j += drop(p) do_i (bf16: rounded): the rows
-    // again, now in L1
-    for (int d = 0; d < a.D; ++d)
-      it.dk[d * nthr] = fmaf(wk, rd<kBf16>(__ldg(qr + d)), it.dk[d * nthr]);
-    if (pr != 0.f)
-      for (int c = 0; c < a.Dv; ++c)
-        it.dv[c * nthr] = fmaf(pr, rd<kBf16>(__ldg(dor + c)), it.dv[c * nthr]);
-  }
-}
 
 // Bytes of a key walk block: its slot walk (ring and lists) and its items.
 __host__ __device__ inline size_t key_bytes(int KB, int R, int D, int Dv) {

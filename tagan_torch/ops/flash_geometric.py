@@ -7,8 +7,8 @@ kernels that port the Pallas ones, and the differentiable entry point:
 
     B1   _flash_kernel            csrc/flash_pairwalk_fwd.cu
     B2   _flash_bwd_fused_kernel  csrc/flash_pairwalk_bwd.cu
-    B3a  _flash_bwd_dq_kernel     csrc/flash_geometric_bwd.cu
-    B3b  _flash_bwd_dkv_kernel    csrc/flash_geometric_bwd.cu
+    B3a  _flash_bwd_dq_kernel     csrc/flash_pairwalk_two_walk.cu (row walk)
+    B3b  _flash_bwd_dkv_kernel    csrc/flash_pairwalk_two_walk.cu (key walk)
     B4   _lse1_kernel             csrc/flash_pairwalk_fwd.cu
     B5   _flash_biased_kernel     csrc/flash_pairwalk_fwd.cu
     B6   _biased_bwd_pre_kernel   csrc/flash_pairwalk_biased_bwd.cu (row walk)
@@ -26,8 +26,9 @@ kernels that port the Pallas ones, and the differentiable entry point:
 (*) csrc/flash_pairwalk_biased_bwd_compact.cu.
 
 B1, B2, B4 and B5 are pair walks that read each mask tile once for all
-heads and compute only the mask's valid pairs; so are B6 and B7a, together
-as one row walk, and B7b as the key walk, and over the compact store B1c,
+heads and compute only the mask's valid pairs; so are B3a (a row walk) and
+B3b (a key walk), B6 and B7a, together as one row walk, and B7b as the key
+walk, and over the compact store B1c,
 B4c and B5c (the forward walk's three modes), B6c and B7a c (one row walk),
 B3a c (the unbiased row walk), B7b c and B3b c (key walks). Every kernel
 above also has a bf16 form (the TPU kernels' ``bf16=True``: every
@@ -1564,9 +1565,15 @@ class _FlashBackwardKernel(_CudaKernel):
 
 class _FlashBwdDqKernel(_FlashBackwardKernel):
     """B3a, ``tagan_flash_geometric_bwd_dq``: dq (and dscale) over the
-    forward walk (jlist, jcount). Deterministic."""
+    forward walk (jlist, jcount), as a row pair walk: a warp owns up to 32
+    (row, head) items of a row tile, reads each walked mask tile once for
+    its heads, lists each row's keys and computes only the mask's valid
+    pairs (csrc/flash_pairwalk_two_walk.cu). Every row of dq is written
+    (dead rows and rows with an empty walk: 0), and with ``need_dscale``
+    each item's d(scale) term [G, H, N], which the wrapper sums.
+    Deterministic: no atomics."""
     name = "flash_geometric_bwd_dq"
-    source = "flash_geometric_bwd"
+    source = "flash_pairwalk_two_walk"
     symbol = "tagan_flash_geometric_bwd_dq"
     argtypes = (_P,) * 13 + (_I,) * 8 + (_F, _I, _U, _F, _I)
 
@@ -1576,7 +1583,7 @@ class _FlashBwdDqKernel(_FlashBackwardKernel):
         args = (q, k, v, mask, do, lse, delta, jlist, jcount, scale, seed)
         dev, (G, H, N, D, Dv, n_i, W) = self._check(*args)
         dq = torch.empty((G, H, N, D), dtype=torch.float32, device=dev)
-        part = torch.empty((G, H, n_i) if need_dscale else (1,),
+        part = torch.empty((G, H, N) if need_dscale else (1,),
                            dtype=torch.float32, device=dev)
         self._launch(dev, *self._inputs(*args), dq.data_ptr(),
                      part.data_ptr(), G, H, N, D, Dv, n_i, W,
@@ -1587,9 +1594,13 @@ class _FlashBwdDqKernel(_FlashBackwardKernel):
 
 class _FlashBwdDkvKernel(_FlashBackwardKernel):
     """B3b, ``tagan_flash_geometric_bwd_dkv``: dk and dv over the
-    transposed walk (ilist, icount). Deterministic."""
+    transposed walk (ilist, icount), as a key pair walk: a block owns up
+    to 64 keys of a key tile for up to 8 heads, copies each walked mask
+    tile whole, lists each key's rows and computes only the mask's valid
+    pairs (csrc/flash_pairwalk_two_walk.cu). Every entry of dk and dv is
+    written (keys no row reaches: 0). Deterministic: no atomics."""
     name = "flash_geometric_bwd_dkv"
-    source = "flash_geometric_bwd"
+    source = "flash_pairwalk_two_walk"
     symbol = "tagan_flash_geometric_bwd_dkv"
     argtypes = (_P,) * 13 + (_I,) * 8 + (_F, _I, _U, _F)
 
@@ -1649,13 +1660,15 @@ class _FlashBwdFusedBf16Kernel(_FlashBwdFusedKernel):
 
 
 class _FlashBwdDqBf16Kernel(_FlashBwdDqKernel):
-    """B3a's bf16 form, ``tagan_flash_geometric_bwd_dq_bf16``."""
+    """B3a's bf16 form, ``tagan_flash_geometric_bwd_dq_bf16``: B3a with
+    bf16 product operands, the same row pair walk."""
     name = "flash_geometric_bwd_dq_bf16"
     symbol = "tagan_flash_geometric_bwd_dq_bf16"
 
 
 class _FlashBwdDkvBf16Kernel(_FlashBwdDkvKernel):
-    """B3b's bf16 form, ``tagan_flash_geometric_bwd_dkv_bf16``."""
+    """B3b's bf16 form, ``tagan_flash_geometric_bwd_dkv_bf16``: B3b with
+    bf16 product operands, the same key pair walk."""
     name = "flash_geometric_bwd_dkv_bf16"
     symbol = "tagan_flash_geometric_bwd_dkv_bf16"
 
@@ -2262,11 +2275,13 @@ KERNELS = (flash_geometric_fwd_kernel, flash_geometric_bwd_fused_kernel,
 # both precisions a pair walk over the forward plan that computes only the
 # mask's valid pairs, dq by the lane that owns its row and dk, dv and
 # dscale by atomics (csrc/flash_pairwalk_bwd.cu). It is the faster form at
-# the model's shape (one snapshot, H=4, N=10,000, head dim 16): 0.21 ms
-# against 10.5 ms for B3a + B3b in fp32 on an NVIDIA H100 80GB HBM3 at
-# 700 W (chip_smoke.py phase 5; bf16 in phase 5g; PERF.md, Findings).
-# ``fused=False`` (B3a + B3b, dense 64 x 64 tile walks) is the
-# deterministic form in both precisions.
+# the model's shape (one snapshot, H=4, N=10,000, head dim 16): 0.21-0.24
+# ms against 0.57-0.59 ms for B3a + B3b in fp32 on an NVIDIA H100 80GB
+# HBM3 at 700 W (chip_smoke.py phase 5; bf16 in phase 5g; PERF.md,
+# Findings).
+# ``fused=False`` (B3a + B3b: a row pair walk over the forward plan and a
+# key pair walk over the transposed plan, csrc/flash_pairwalk_two_walk.cu,
+# no atomics) is the deterministic form in both precisions.
 FUSED_BWD = True
 
 
@@ -2366,8 +2381,9 @@ def flash_geometric_attention_bwd(
     CPU tensors take the plain version. CUDA tensors take B2
     (``fused=True``: a pair walk over the forward plan that computes only
     the mask's valid pairs, dq row by row, dk, dv and dscale by atomics)
-    or B3a then B3b (``fused=False``: 64 x 64 tile walks, the forward
-    walk for dq and dscale, the transposed walk for dk and dv).
+    or B3a then B3b (``fused=False``: pair walks without atomics, a row
+    walk over the forward plan for dq and dscale, a key walk over the
+    transposed plan for dk and dv).
     ``fused=None`` takes `FUSED_BWD`, which is B2, the faster form at the
     model's shape (chip_smoke.py phase 5). Unlike the TPU's rule (a
     scoped-VMEM budget) nothing depends on the size: both forms use

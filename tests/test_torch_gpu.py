@@ -3996,3 +3996,227 @@ def test_pairwalk_fp32_biased_bwd_unset_db_never_read(cuda):
         edge_feature_dim=4, use_edge_features=True, bf16_matmul=False),
         FG.flash_biased_bwd_row_kernel)
     _grads_close(card, cpu)
+
+
+# -- the dense two-walk backward (B3a, B3b): a row walk and a key walk --------
+
+def two_walk_mask(G, N, seed=0):
+    """`sparse_mask` with the key walk's cases besides the row walk's: an
+    empty key strip (keys 128-191, for N >= 320; rows 260-263 then draw
+    their 150 keys outside it, so that their lists still pass 2 CAPR) and
+    keys past 128 rows (the 4 keys after the first of the last key tile,
+    each in 150 live rows, so that the key walk flushes before its end).
+    Shared by the CPU test of the plain two-walk backward against JAX
+    (test_torch_dense_two_walk.py) and chip_smoke.py's phases 2b and 2h."""
+    mask = sparse_mask(G, N, seed)
+    rng = np.random.default_rng(seed + 900)
+    last = (N - 1) // 64 * 64
+    assert N >= 320 and N - last >= 5
+    for g in range(G):
+        mask[g, :, 128:192] = 0
+        outside = np.r_[0:128, 192:N]
+        for r in range(260, 264):
+            mask[g, r] = 0
+            mask[g, r, rng.choice(outside, 150, replace=False)] = 1
+        live = np.flatnonzero(mask[g].any(-1))
+        for c in range(last + 1, last + 5):
+            mask[g, rng.choice(live, 150, replace=False), c] = 1
+    return mask
+
+
+def _two_walk_inputs(G, H, N, D, Dv, metric, rand, seed, qk_scale):
+    """q and k (times ``qk_scale``), v, dO, the mask (`two_walk_mask`,
+    or with ``rand`` `_bwd_inputs`'s: ~10% density, dead rows, an empty
+    query tile and key strip), per-head scales, one seed a snapshot, and
+    an lse cotangent (0.25 N(0, 1)), CPU tensors."""
+    rng = np.random.default_rng(seed + 400)
+    q, k = (qk_scale * rng.standard_normal((G, H, N, D)).astype(np.float32)
+            for _ in range(2))
+    v, do = (rng.standard_normal((G, H, N, Dv)).astype(np.float32)
+             for _ in range(2))
+    dlse = 0.25 * rng.standard_normal((G, H, N)).astype(np.float32)
+    mask = (_bwd_inputs(G, H, N, D, Dv, seed)[3].numpy() if rand
+            else two_walk_mask(G, N, seed))
+    q, k, v, do, dlse, mask = (torch.from_numpy(a)
+                               for a in (q, k, v, do, dlse, mask))
+    if metric in FG._COSINE:
+        q, k = FG._l2_normalize(q), FG._l2_normalize(k)
+    scale = torch.linspace(0.7, 2.0, H)
+    seeds = torch.tensor([-7, 12345, 3, 99] * (G // 4 + 1),
+                         dtype=torch.int32)[:G]
+    return q, k, v, do, dlse, mask, scale, seeds
+
+
+def dense_two_walk_check(dev, bf16, G, H, N, D, Dv, metric, rate, seed=3,
+                         repeats=1, rand=False):
+    """B3a then B3b (``bf16``: their bf16 forms), the row and key pair
+    walks, on `_two_walk_inputs` (q and k at ``BF16_QK_SCALE`` in bf16),
+    the plain forward's (out, lse) with an lse cotangent on live rows and
+    one live row's lse set to ``LSE_DEAD`` (p = 0 there, not NaN), the
+    forward plan and the transposed plan from the mask, against the plain
+    backward's dq, dk, dv and, where the metric has a scale, dscale:
+    within TOL of each output's largest entry (at least 1) in fp32, under
+    the bf16 gates in bf16 (the plain fp32 backward the witness; dscale,
+    a sum of terms that cancel, under the max gate alone). Their outputs
+    are allocated NaN-filled (`nan_empty`) and come back set everywhere:
+    dq exactly 0 on dead rows, dk and dv exactly 0 at keys no row
+    reaches; the call launches each walk once and nothing else;
+    ``repeats`` calls are bit-identical. Shared by chip_smoke.py's phases
+    2b and 2h. Returns {output: max abs error} (fp32) or {output: (max
+    abs error, max error, mean error, witness)} (bf16)."""
+    q, k, v, do, dlse, mask, scale, seeds = (
+        t.to(dev) for t in _two_walk_inputs(
+            G, H, N, D, Dv, metric, rand, seed,
+            BF16_QK_SCALE if bf16 else 1.0))
+    plan, plan_t = FG.make_block_plans_from_mask(mask)
+    out, lse = (t.contiguous() for t in FG.flash_geometric_forward_plain(
+        q, k, v, mask, metric, scale, rate, seeds, bf16, plan))
+    live = (mask != 0).any(-1)
+    dead_listed = int(live[0].nonzero()[0])
+    lse[:, :, dead_listed] = FG.LSE_DEAD
+    dlse = dlse * live[:, None]
+    delta = FG._delta(do, out, dlse).contiguous()
+    need = metric in FG.SCALED_METRICS
+    dq_k, dkv_k = (
+        (FG.flash_geometric_bwd_dq_bf16_kernel,
+         FG.flash_geometric_bwd_dkv_bf16_kernel) if bf16 else
+        (FG.flash_geometric_bwd_dq_kernel, FG.flash_geometric_bwd_dkv_kernel))
+
+    def call():
+        common = (q, k, v, mask, do, lse, delta)
+        with nan_empty():
+            dq, dsc = dq_k(*common, *plan, metric, scale, seeds, rate, need)
+            dk, dv = dkv_k(*common, *plan_t, metric, scale, seeds, rate)
+        return dq, dk, dv, dsc
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    got = call()
+    torch.cuda.synchronize()
+    launched = {k_.name: k_.launches - before[k_.name] for k_ in FG.KERNELS}
+    assert launched == {k_.name: int(k_ in (dq_k, dkv_k))
+                        for k_ in FG.KERNELS}
+    assert all(bool(torch.isfinite(t).all()) for t in got[:3])
+    assert (got[3] is not None) == need
+    assert not need or torch.isfinite(got[3]).all()
+    dead = ~live[:, None, :].expand(G, H, N)
+    unreached = ~(mask != 0).any(-2)[:, None, :].expand(G, H, N)
+    assert dead.any() and unreached.any()
+    assert torch.all(got[0][dead] == 0)
+    assert torch.all(got[1][unreached] == 0)
+    assert torch.all(got[2][unreached] == 0)
+    for _ in range(repeats - 1):
+        again = call()
+        for a, b in zip(again, got):
+            assert (a is None and b is None) or torch.equal(a, b)
+    rest = (q, k, v, mask, out, lse, do, metric, scale, rate, seeds, need,
+            dlse)
+    want = FG.flash_geometric_backward_plain(*rest, bf16)
+    names = ("dq", "dk", "dv", "dscale")[:4 if need else 3]
+    if not bf16:
+        for g, w in zip(got, want[:len(names)]):
+            assert _close(g, w) <= TOL
+        return {n: (g - w).abs().max().item()
+                for n, g, w in zip(names, got, want)}
+    f32 = FG.flash_geometric_backward_plain(*rest)
+    res = {}
+    for i, n in enumerate(names):
+        _bf16_gates(got[i], want[i], f32[i], witness=i < 3, mean=i < 3)
+        m = want[i].abs().max().clamp(min=1e-30)
+        e = (got[i] - want[i]).abs()
+        res[n] = (e.max().item(), (e.max() / m).item(),
+                  (e.mean() / m).item(),
+                  ((f32[i] - want[i]).abs().mean() / m).item())
+    return res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("N", [1000, 1536])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_two_walk_sparse(metric, rate, N, bf16, cuda):
+    """B3a and B3b in both precisions at `two_walk_mask`'s cases: every
+    metric, dropout off and on, N = 1000 (byte loads of the mask) and 1536
+    (16-byte copies), H = 4, dscale at gaussian and rbf
+    (`dense_two_walk_check`)."""
+    dense_two_walk_check(cuda, bf16, 2, 4, N, 16, 16, metric, rate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("metric", FG.MXU_METRICS)
+def test_two_walk_random_mask(metric, rate, bf16, cuda):
+    """The same at `_backward_vs_plain`'s inputs' mask (~10% density:
+    every tile walked, rows past 2 CAPR keys; dead rows, an empty query
+    tile and key strip), N = 150 (a ragged last tile), D != Dv."""
+    dense_two_walk_check(cuda, bf16, 2, 3, 150, 16, 8, metric, rate,
+                         rand=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D,Dv", [(7, 3), (8, 8), (12, 12), (40, 72),
+                                  (128, 128)])
+def test_two_walk_head_dims(D, Dv, bf16, cuda):
+    """Head dims whose sqrt is not a power of two, D != Dv, odd widths (no
+    16-byte gathers), and the widest, (128, 128), whose items take a
+    row warp's shared memory past 48 KB and halve the key walk's block."""
+    dense_two_walk_check(cuda, bf16, 1, 3, 1008, D, Dv, "gaussian_kernel",
+                         0.1, seed=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("D,metric", [(16, "gaussian_kernel"),
+                                      (128, "scaled_dot_product")])
+def test_two_walk_fold(D, metric, bf16, cuda):
+    """A fold of 33 heads: two head groups of the row walk (a warp's 32
+    items, the second group of one head, grid blocks) and five of the key
+    walk (KEY_HG = 8 heads a block), at head dim 16 with dscale, and at
+    128 at the scaled dot: there the gaussian's scores exp(-|q - k|^2 /
+    2 sigma^2) vanish (|q - k|^2 ~ 64 at q and k of 0.5 N(0, 1)), so
+    over 33 heads its bf16 and fp32 gradients lie closer than the bf16
+    witness's floor (a mean 7.8e-6 of the largest entry, against 1e-5),
+    while the scaled dot's scores stay of order 1."""
+    dense_two_walk_check(cuda, bf16, 2, 33, 1008, D, D, metric, 0.1,
+                         seed=5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("metric,rate", [("euclidean", 0.0),
+                                         ("gaussian_kernel", 0.1)])
+def test_two_walk_deterministic(metric, rate, bf16, cuda):
+    """dq, dk, dv and dscale are bit-identical over 20 calls: the walks
+    sum in their lists' order and have no atomic."""
+    dense_two_walk_check(cuda, bf16, 2, 4, 1008, 16, 16, metric, rate,
+                         seed=4, repeats=20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("fault", ["jlist", "jcount", "ilist", "icount"])
+def test_two_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
+    """N = 330 gives 6 tiles: a forward or transposed plan naming a tile
+    past them, or a count past its width, is refused by
+    ``flash_geometric_attention_bwd(..., fused=False)`` on the host, and
+    no kernel is launched."""
+    q, k, v, do, dlse, mask, scale, seeds = (
+        t.to(cuda) for t in _two_walk_inputs(1, 2, 330, 16, 16,
+                                             "dot_product", False, 0, 1.0))
+    plan, plan_t = (tuple(p.clone() for p in pl)
+                    for pl in FG.make_block_plans_from_mask(mask))
+    lst, cnt = plan if fault[0] == "j" else plan_t
+    if fault.endswith("list"):
+        lst[0, 0, 0] = 6
+    else:
+        cnt[0, 0] = lst.shape[-1] + 1
+    out, lse = FG.flash_geometric_forward_plain(q, k, v, mask, "dot_product",
+                                                scale, 0.0, seeds)
+    before = {k_.name: k_.launches for k_ in FG.KERNELS}
+    with pytest.raises(ValueError, match="plan"):
+        FG.flash_geometric_attention_bwd(
+            q, k, v, mask, out, lse, do, metric="dot_product", scale=scale,
+            plan=plan, plan_t=plan_t, seed=seeds, fused=False, dlse=dlse,
+            bf16=bf16)
+    assert {k_.name: k_.launches for k_ in FG.KERNELS} == before

@@ -143,7 +143,21 @@ Phases, in order; any failure raises and exits non-zero:
    nothing else): host packing and planning, the forward, the peak
    memory, the fp32 edge-feature hybrid model's logits beside the bf16
    model's, and the first layer's bf16 B4c and B5c on one 131K snapshot
-   against the plain bf16 versions under the bf16 gates;
+   against the plain bf16 versions under the bf16 gates; (3i) phase 3's
+   requests served by ``Predictor(reorder="rcm")`` (B1 once per layer
+   per request, nothing else), held to phase 3's probabilities within
+   TOL; the host time of ``build_sequence`` on one of its requests with
+   and without the reorder and of the RCM order alone, and on one 3c
+   request (the median and range of 5 rounds, the order alternating),
+   and the flash plan's walked tiles with and without the reorder; (3j) one part C sequence (131,072 nodes, 16 N edges a
+   snapshot, 2 snapshots) with its node IDs relabelled by a seeded
+   permutation (the same x rows and edges: the same graph), served on
+   the hybrid model with ``reorder="rcm"`` (B1c once per layer, nothing
+   else) and held within TOL to the sequence with its IDs as they were
+   and no reorder; the plan's S, Wj, Er and the band's share of edges
+   beside the unrelabelled sequence's, the band the relabelled one would
+   get without RCM, and the RCM, packing and planning seconds and the
+   forward;
 4. end to end at 1,000 nodes: the same Predictor's probabilities on the
    card (kernels) and on the CPU (plain versions), and the per-node
    features after the attention layers (``encode_spatial``); (4b) the
@@ -156,7 +170,11 @@ Phases, in order; any failure raises and exits non-zero:
    csr form's on the card (within 1e-3 of each tensor's largest entry);
    (4f) the same for the edge-feature hybrid model (4 N(0, 1) edge
    features; csr's autograd is an independent formula for dB), the edge
-   parameters' gradients non-zero;
+   parameters' gradients non-zero; (4g) ``infer_with_attention`` of one
+   of phase 4's sequences packed with ``dense_adj=True`` (the dense path
+   by JAX's rule: no kernel launched), card against CPU, the weights and
+   logits within TOL; packed with ``dense_adj=False`` it raises
+   ValueError;
 5. times at the main path's shape (one snapshot, 4 heads, 10,000 nodes,
    head dim 16) with CUDA events, in turns: B1, B2 (the fp32 pair walks;
    B2 also at the scaled-dot metric), B3a, B3b and B3a + B3b against the
@@ -324,6 +342,13 @@ Phases, in order; any failure raises and exits non-zero:
    folded snapshots and their share of the step, the edge parameters'
    gradients non-zero, every parameter moved, and one snapshot at full
    width against the compact plain bf16 parts under the bf16 gates;
+   (6i) at 1,000 nodes, one training step of each loss family that
+   ``compute_loss`` routes (focal with one output and with three,
+   regression, multi_label, sequence, huber and quantile), card against
+   CPU on the loss and the gradients within TOL, B1 and B2 once per layer
+   on the card; then one step of phase 6's 10K flash trainer over a
+   ``reorder="rcm"`` loader, its loss within TOL of the same step over the
+   loader without reorder;
 7. training at 1,000 nodes on the card and on the CPU from the same
    weights and batches: the first step's gradients and the losses and
    parameters of 3 AdamW steps; (7b) the same for the edge-feature
@@ -1351,6 +1376,7 @@ def phase_serve(tt, FG, bf16=False):
     return dict(latency_ms=lat, launches=launches, expected=expected,
                 forward_ms=fwd_ms, layer_launch_ms=layer_ms,
                 kernel_share_of_forward=share, full_err=err, args=args,
+                probs=probs.ravel().tolist(),
                 peak_gb=peak_gb, fp32_logits_gap=gap, fold=fold,
                 sequences_per_s=REQUESTS * SEQS_PER_REQUEST / (sum(lat) / 1e3))
 
@@ -5977,6 +6003,327 @@ def phase_train_mid_hybrid_edge(tt, FG):
     return res
 
 
+# -- phases 3i, 3j, 4g, 6i: host packing and the RCM slot order, attention ----
+# -- weights, the loss families -----------------------------------------------
+
+def seconds(fn):
+    """(host seconds of ``fn()``, its result)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def repeated(fns: dict, reps: int = 5) -> dict:
+    """Host seconds of each of ``fns`` over ``reps`` rounds, the order of
+    the functions alternating from round to round: {name: {"median",
+    "min", "max"}}."""
+    times = {k: [] for k in fns}
+    names = list(fns)
+    for r in range(reps):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            times[k].append(seconds(fns[k])[0])
+    return {k: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
+            for k, v in times.items()}
+
+
+def spread(t: dict) -> str:
+    return f"{t['median']:.4f} s ({t['min']:.4f}-{t['max']:.4f})"
+
+
+def nonzero(launched: dict) -> dict:
+    return {k: v for k, v in launched.items() if v}
+
+
+def walked_tiles(FG, seq) -> int:
+    """The 64 x 64 tiles the flash plan of a packed sequence walks, over
+    its snapshots."""
+    seq = seq.to(DEV)
+    plan, _ = FG.make_block_plans_from_edges(
+        seq.edge_src, seq.edge_dst, seq.edge_mask, seq.node_mask,
+        seq.max_nodes)
+    return int(plan[1].sum())
+
+
+def phase_serve_rcm(tt, FG, serve):
+    """[3i] Phase 3's requests through ``Predictor(reorder="rcm")``, held
+    to phase 3's probabilities (``serve["probs"]``); the host times of
+    packing one of its requests with and without the reorder and of the
+    RCM order alone, and of packing one 3c request; the flash plan's
+    walked tiles with and without the reorder."""
+    from tagan_torch.core import graph as G
+    t_phase = time.perf_counter()
+    cfg = model_config(tt)
+    model = tt.TAGAN(cfg, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    requests = [[make_sequence(rng, N_FULL, E_FULL, T_FULL)
+                 for _ in range(SEQS_PER_REQUEST)] for _ in range(REQUESTS)]
+    pred = tt.Predictor(model, dims=(T_FULL, N_FULL, E_FULL, 0),
+                        batch_size=SEQS_PER_REQUEST, reorder="rcm")
+    fwd = FG.flash_geometric_fwd_kernel
+    reset_counts(FG)
+    lat, probs = [], []
+    for req in requests:
+        t0 = time.perf_counter()
+        probs.append(pred.predict_proba(req))   # host copy: synchronises
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launched = counts(FG)
+    expected = {k.name: 0 for k in FG.KERNELS}
+    expected[fwd.name] = cfg.num_layers * REQUESTS
+    probs = np.concatenate(probs)
+    err = float(np.abs(probs.ravel() - np.asarray(serve["probs"])).max())
+
+    kw = dict(max_nodes=N_FULL, max_edges=E_FULL, max_time=T_FULL,
+              edge_feature_dim=0, dense_adj=False)
+    req = requests[0]
+    pack = repeated({
+        "sorted IDs": lambda: [tt.build_sequence(s, **kw) for s in req],
+        "rcm": lambda: [tt.build_sequence(s, reorder="rcm", **kw)
+                        for s in req],
+        "rcm order alone": lambda: [G.locality_order(
+            [G._unpack_snapshot(snap) for snap in s]) for s in req]})
+    walked = {"sorted IDs": walked_tiles(FG, tt.build_sequence(req[0], **kw)),
+              "rcm": walked_tiles(FG, tt.build_sequence(
+                  req[0], reorder="rcm", **kw))}
+    hkw = dict(max_nodes=N_HYB, max_edges=N_HYB * DEG_HYB, max_time=T_HYB,
+               edge_feature_dim=0, dense_adj=False)
+    hreq = hybrid_requests(False, 100)[0][0]      # 3c's first request
+    h_pack = repeated({"sorted IDs": lambda: [tt.build_sequence(s, **hkw)
+                                              for s in hreq]})
+    res = dict(latency_ms=lat, launches=launched, prob_err=err,
+               request_pack_s=pack, walked_tiles_per_sequence=walked,
+               hybrid_request_pack_s=h_pack,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[3i] Predictor(reorder='rcm') on phase 3's {REQUESTS} requests: "
+        f"latency ms {[round(x, 3) for x in lat]}; launches "
+        f"{nonzero(launched)} (expected {nonzero(expected)}, no other); "
+        f"probabilities {probs.ravel().tolist()} vs "
+        f"phase 3's, max abs err {err:.3e}; one request ({SEQS_PER_REQUEST} "
+        f"sequences of {T_FULL} x {N_FULL} nodes, {E_FULL} edges) packed, "
+        f"median (range) of 5 alternating rounds: sorted IDs "
+        f"{spread(pack['sorted IDs'])}, with RCM {spread(pack['rcm'])}, the "
+        f"RCM order alone {spread(pack['rcm order alone'])}; flash tiles "
+        f"walked by one sequence's plan: {walked} (uniform random edges "
+        f"leave RCM no locality to find); one 3c request ({SEQS_PER_REQUEST} "
+        f"sequences of {T_HYB} x {N_HYB} nodes, {N_HYB * DEG_HYB} edges) "
+        f"packed in {spread(h_pack['sorted IDs'])}; phase "
+        f"{res['seconds']:.1f} s")
+    if launched != expected:
+        raise AssertionError(f"launches {launched} != {expected}")
+    if not (np.isfinite(probs).all() and err <= TOL):
+        raise AssertionError(f"reordered serving: err {err} > {TOL}")
+    return res
+
+
+def phase_serve_hybrid_rcm(tt, FG, serve_hyb):
+    """[3j] One part C sequence with its node IDs relabelled by a seeded
+    permutation (the same x rows and edge_index: the same graph), served
+    on the hybrid model with ``reorder="rcm"``, against the sequence with
+    its IDs unchanged served without reorder (3c's form); plan sizes and
+    band shares of both beside 3c's pin, and the band the relabelled
+    sequence would get without RCM."""
+    from tagan_torch.core import graph as G
+    t_phase = time.perf_counter()
+    cfg = hybrid_config(tt)
+    model = tt.TAGAN(cfg, device=DEV,
+                     generator=torch.Generator().manual_seed(0))
+    seq = hybrid_snaps(N_HYB, DEG_HYB, T_HYB, 100)
+    perm = np.random.default_rng(29).permutation(N_HYB)
+    relabelled = [dict(s, node_ids=perm) for s in seq]
+    dims = (T_HYB, N_HYB, N_HYB * DEG_HYB, 0)
+    b1c = compact_kernels(FG, False)[0]
+    pred = tt.Predictor(model, dims=dims, batch_size=1, reorder="rcm")
+    reset_counts(FG)
+    lat_s, probs = seconds(lambda: pred.predict_proba([relabelled]))
+    launched = counts(FG)
+    expected = {k.name: 0 for k in FG.KERNELS}
+    expected[b1c.name] = cfg.num_layers
+    base = tt.Predictor(model, dims=dims, batch_size=1).predict_proba([seq])
+    err = float(np.abs(probs - base).max())
+
+    hkw = dict(max_nodes=N_HYB, max_edges=N_HYB * DEG_HYB, max_time=T_HYB,
+               edge_feature_dim=0, dense_adj=False)
+    rcm_s, _ = seconds(lambda: G.locality_order(
+        [G._unpack_snapshot(s) for s in relabelled]))
+    pack_s, packed = seconds(lambda: tt.build_sequence(
+        relabelled, reorder="rcm", **hkw))
+    plan_s, (planned, pin) = seconds(lambda: G.attach_hybrid_plans(
+        [packed]))
+    base_planned, base_pin = G.attach_hybrid_plans(
+        [tt.build_sequence(seq, **hkw)])
+
+    def band_share(s):
+        return float((s.hyb_band_slot >= 0).sum() / s.edge_mask.sum())
+    # the relabelled sequence in sorted-ID slots: its band (the 95%
+    # quantile of |src - dst|) and its occupied tiles, counted in numpy
+    # (planning it would need a store of most of the 2,048^2 tiles)
+    scr = tt.build_sequence(relabelled, **hkw)
+    src, dst, em = (t.numpy().astype(np.int64) for t in (
+        scr.edge_src, scr.edge_dst, scr.edge_mask))
+    em = em.astype(bool)
+    gap = np.abs(src - dst)
+    width = int(np.quantile(gap[em], 0.95))
+    n_t = -(-N_HYB // 64)
+    tiles = max(np.unique((src[t] // 64 * n_t + dst[t] // 64)[
+        em[t] & (gap[t] <= width)]).size for t in range(T_HYB))
+    batch = tt.batch_sequences(planned).to(DEV)
+    with torch.inference_mode():
+        model(batch)
+        sync()
+        fwd_ms, _ = seconds(lambda: (model(batch), sync()))
+    fwd_ms *= 1e3
+    res = dict(latency_s=lat_s, launches=launched, prob_err=err,
+               rcm_s=rcm_s, pack_with_rcm_s=pack_s, plan_s=plan_s, pin=pin,
+               band_share=band_share(planned[0]), unrelabelled_pin=base_pin,
+               unrelabelled_band_share=band_share(base_planned[0]),
+               serve_3c_pin=serve_hyb["pin"],
+               without_rcm={"band_width": width, "max_band_tiles": tiles,
+                            "all_tiles": n_t * n_t},
+               forward_ms=fwd_ms, seconds=time.perf_counter() - t_phase)
+    log(f"[3j] part C sequence ({T_HYB} x {N_HYB} nodes, {N_HYB * DEG_HYB} "
+        f"edges a snapshot) with its IDs permuted, Predictor(reorder='rcm') "
+        f"on the hybrid model: {lat_s:.3f} s; launches {nonzero(launched)} "
+        f"(expected {nonzero(expected)}, no other); probabilities "
+        f"{probs.ravel().tolist()} vs "
+        f"{base.ravel().tolist()} with the IDs unchanged and no reorder, max "
+        f"abs err {err:.3e}; RCM {rcm_s:.3f} s, packing with RCM "
+        f"{pack_s:.3f} s (RCM included), planning {plan_s:.3f} s; plan "
+        f"{pin}, band share {res['band_share']:.4f}, beside the unchanged "
+        f"IDs' {base_pin}, band share {res['unrelabelled_band_share']:.4f}, "
+        f"and 3c's request pin {serve_hyb['pin']}; the permuted IDs without "
+        f"RCM: band width {width}, {tiles} band tiles of {n_t * n_t}; "
+        f"forward on the packed sequence {fwd_ms:.3f} ms; phase "
+        f"{res['seconds']:.1f} s")
+    if launched != expected:
+        raise AssertionError(f"launches {launched} != {expected}")
+    if not (np.isfinite(probs).all() and err <= TOL):
+        raise AssertionError(f"reordered hybrid serving: err {err} > {TOL}")
+    return res
+
+
+def phase_mid_attention(tt, FG):
+    """[4g] ``infer_with_attention`` on one of phase 4's sequences packed
+    with its dense adjacency, card against CPU (the dense path on both:
+    no kernel launched); packed without it, ValueError."""
+    t_phase = time.perf_counter()
+    cfg = model_config(tt)
+    seq = make_sequence(np.random.default_rng(1), N_MID, 16 * N_MID, T_FULL)
+    kw = dict(max_nodes=N_MID, max_edges=16 * N_MID, max_time=T_FULL)
+    packed = tt.build_sequence(seq, **kw)
+    sparse = tt.build_sequence(seq, dense_adj=False, **kw)
+    got, launched, raised = {}, {}, {}
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        model = tt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        reset_counts(FG)
+        got[side] = {k: v.cpu() for k, v in
+                     model.infer_with_attention(packed).items()}
+        launched[side] = sum(counts(FG).values())
+        try:
+            model.infer_with_attention(sparse)
+            raised[side] = False
+        except ValueError:
+            raised[side] = True
+    errs = {k: (got["card"][k] - w).abs().max().item()
+            for k, w in got["cpu"].items()}
+    shapes = {k: tuple(v.shape) for k, v in got["card"].items()}
+    res = dict(errs=errs, shapes=shapes, launches=launched, raised=raised,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[4g] infer_with_attention at N={N_MID} (dense_adj=True, the dense "
+        f"path), card vs cpu: max abs err {errs}; shapes {shapes}; kernel "
+        f"launches {launched}; dense_adj=False raises ValueError: {raised}; "
+        f"phase {res['seconds']:.1f} s")
+    if launched != {"card": 0, "cpu": 0} or not all(raised.values()):
+        raise AssertionError(f"launches {launched}, raised {raised}")
+    if not max(errs.values()) <= TOL:
+        raise AssertionError(f"attention weights card vs cpu {errs} > {TOL}")
+    return res
+
+
+# (loss_type, output_dim, label of the one sequence) of each family that
+# compute_loss routes, beside bce and ce (phases 6 and 7)
+LOSS_FAMILIES = (
+    ("focal", 1, 1.0),
+    ("focal", 3, np.array([0.0, 1.0, 0.0], np.float32)),
+    ("regression", 2, np.array([0.4, -1.3], np.float32)),
+    ("multi_label", 3, np.array([1.0, 0.0, 1.0], np.float32)),
+    ("sequence", 1, 0.7),
+    ("huber", 2, np.array([1.5, -2.0], np.float32)),
+    ("quantile", 1, -0.3))
+
+
+def phase_train_losses(tt, FG):
+    """[6i] One training step of each loss family at N_MID, card against
+    CPU (loss and first-step gradients within TOL, B1 and B2 once per
+    layer on the card); then one step of phase 6's trainer over a
+    ``reorder="rcm"`` loader against the loader without reorder."""
+    t_phase = time.perf_counter()
+    seq = make_sequence(np.random.default_rng(11), N_MID, 16 * N_MID, T_FULL)
+    b1, b2 = flash_kernels(FG, False)[:2]
+    want = {b1.name: 2, b2.name: 2}
+    fam = {}
+    for loss_type, od, label in LOSS_FAMILIES:
+        cfg = tt.TAGANConfig(hidden_dim=64, num_heads=4, num_layers=2,
+                             node_feature_dim=F_NODE, output_dim=od,
+                             loss_type=loss_type, dropout=0.0,
+                             spatial_backend="flash")
+        ds = tt.TemporalGraphDataset([seq], [label])
+        card = train_steps(tt, FG, cfg, DEV, ds)
+        cpu = train_steps(tt, FG, cfg, "cpu", ds)
+        grad_err, zero = grad_errors(card["grads"], cpu["grads"])
+        loss_err = abs(card["losses"][0] - cpu["losses"][0])
+        fam[f"{loss_type} x{od}"] = dict(
+            loss={"card": card["losses"][0], "cpu": cpu["losses"][0]},
+            loss_err=loss_err, grad_err=grad_err, noise_tensors=zero,
+            launches={"card": card["launched"], "cpu": cpu["launched"]})
+        if card["launched"] != want or cpu["launched"] or \
+                not (grad_err <= TOL and loss_err <= TOL) or \
+                not np.isfinite(card["losses"][0]):
+            raise AssertionError(f"[6i] {loss_type} x{od}: "
+                                 f"{fam[f'{loss_type} x{od}']}")
+    log("[6i] one step at N=" + str(N_MID) + " per loss family, card vs "
+        "cpu: " + "; ".join(
+            f"{k}: loss {r['loss']['card']:.6f} (err {r['loss_err']:.2e}), "
+            f"gradients {r['grad_err']:.2e}, launches {r['launches']['card']}"
+            for k, r in fam.items()))
+
+    # phase 6's trainer and first training sequence, with and without the
+    # reorder
+    cfg = model_config(tt)
+    rng = np.random.default_rng(2)
+    seq6 = [make_sequence(rng, N_FULL, E_FULL, T_FULL) for _ in range(2)][1]
+    ds = tt.TemporalGraphDataset([seq6], [0.0])
+    kw = dict(batch_size=1, dense_adj=False, max_time=T_FULL,
+              max_nodes=N_FULL, max_edges=E_FULL)
+    steps = {}
+    for reorder in (None, "rcm"):
+        pack_s, (b, y, m) = seconds(lambda: next(iter(
+            tt.TemporalGraphDataLoader(ds, reorder=reorder, **kw))))
+        model = tt.TAGAN(cfg, device=DEV,
+                         generator=torch.Generator().manual_seed(0))
+        trainer = tt.TAGANTrainer(model, tt.ExperimentConfig(
+            model=cfg, batch_size=1, seed=0))
+        start = counts(FG)
+        trainer.optimizer.zero_grad()
+        loss, _ = trainer._loss(b, y, m, True)
+        loss.backward()
+        trainer.optimizer.step()
+        steps[str(reorder)] = dict(
+            loss=loss.item(), pack_s=pack_s, walked_tiles=walked_tiles(FG, b),
+            launches={n: c - start[n] for n, c in counts(FG).items()
+                      if c != start[n]})
+    loss_err = abs(steps["None"]["loss"] - steps["rcm"]["loss"])
+    res = dict(families=fam, rcm_step=steps, rcm_loss_err=loss_err,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[6i] phase 6's step at N={N_FULL} over a reorder='rcm' loader vs "
+        f"the loader without: {steps} (loss err {loss_err:.3e}); phase "
+        f"{res['seconds']:.1f} s")
+    if not loss_err <= TOL or any(r["launches"] != want
+                                  for r in steps.values()):
+        raise AssertionError(f"[6i] reordered step {steps}")
+    return res
+
+
 # -- phase 8: the graph-sharded ring over virtual ranks (B8, B9) ---------------
 
 RG_SRC = "tagan_tpu/ops/pallas/ring_gather.py"
@@ -6483,10 +6830,13 @@ def main() -> int:
     del serve_hyb_edge_bf16["reqs"], serve_hyb_edge_bf16["args"]
     mid = phase_mid(tt, FG)
     mid_edge = phase_mid_edge(tt, FG)
+    serve_rcm = phase_serve_rcm(tt, FG, serve)
+    serve_hyb_rcm = phase_serve_hybrid_rcm(tt, FG, serve_hyb)
     mid_hyb = phase_mid_hybrid(tt, FG)
     hyb_csr = phase_hybrid_vs_csr(tt, FG)
     hyb_train_csr = phase_hybrid_train_vs_csr(tt, FG)
     hyb_edge_train_csr = phase_hybrid_edge_train_vs_csr(tt, FG)
+    mid_attention = phase_mid_attention(tt, FG)
     ring_args = serve["args"]
     times = phase_times(FG, serve.pop("args"))
     times_bf16 = phase_times_bf16(FG, serve_bf16.pop("args"))
@@ -6526,6 +6876,7 @@ def main() -> int:
     train_mid_hyb_edge = phase_train_mid_hybrid_edge(tt, FG)
     train_mid_hyb_edge_bf16 = phase_train_mid_bf16(tt, FG, edge=True,
                                                     hybrid=True)
+    train_losses = phase_train_losses(tt, FG)
     ring = phase_ring(FG, ring_args)
     del ring_args
 
@@ -6928,7 +7279,8 @@ def main() -> int:
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
-        ring=ring,
+        ring=ring, serve_rcm=serve_rcm, serve_hybrid_rcm=serve_hyb_rcm,
+        mid_attention=mid_attention, train_losses=train_losses,
         small_compact_biased_bf16_err=small_compact_biased_bf16,
         serve_hybrid_edge_bf16=serve_hyb_edge_bf16,
         train_hybrid_edge_bf16=train_hyb_edge_bf16,

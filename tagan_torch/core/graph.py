@@ -1,16 +1,18 @@
 """Snapshot sequences in slot space.
 
 Counterpart of ``tagan_tpu.core.graph`` (``SnapshotSequence``,
-``build_sequence``, ``batch_sequences``, ``pad_dims_for``): T graph
-snapshots over a shared node-ID space, packed host-side with numpy into
-static-shape arrays. The union of node IDs is sorted and assigned slots
-``0..n_unique-1``; arrays are padded to ``max_nodes``/``max_edges``/
+``build_sequence``, ``locality_order``, ``batch_sequences``,
+``pad_dims_for``, ``CSRSnapshots``/``coo_to_csr``): T graph snapshots
+over a shared node-ID space, packed host-side into static-shape arrays.
+The union of node IDs is sorted and assigned slots ``0..n_unique-1``
+(or, with ``reorder="rcm"``, slots in reverse Cuthill-McKee order of the
+union graph); arrays are padded to ``max_nodes``/``max_edges``/
 ``max_time`` with validity masks. The port returns CPU tensors; the
 model moves them to its device.
 
-Only the numpy packing path is ported (the JAX package's C++ packer is
-an accelerator of the same semantics). Besides the base fields, a
-sequence carries the hybrid backend's band + residual plan
+The packing runs in numpy; the reverse Cuthill-McKee order runs in C++
+(`tagan_torch.native`, built with g++ at first use of ``reorder="rcm"``).
+Besides the base fields, a sequence carries the hybrid backend's band + residual plan
 (`SnapshotSequence.with_hybrid_plan`, `attach_hybrid_plans`); the ring
 plan belongs to a backend the port does not have yet.
 """
@@ -402,41 +404,92 @@ def _unpack_snapshot(snap: SnapshotLike):
     return x, edge_index, edge_attr, node_ids, t
 
 
-def build_sequence(
-    snapshots: Sequence[SnapshotLike],
-    max_nodes: Optional[int] = None,
-    max_edges: Optional[int] = None,
-    max_time: Optional[int] = None,
-    edge_feature_dim: Optional[int] = None,
-    dense_adj: bool = True,
-) -> SnapshotSequence:
-    """Pack a ragged snapshot list into a static-shape
-    `SnapshotSequence` of CPU tensors. ``dense_adj=False`` stores a
-    [T, 1, 1] placeholder instead of the [T, N, N] adjacency (the flash
-    backend rebuilds its masks from the edge lists)."""
-    unpacked = [_unpack_snapshot(s) for s in snapshots]
-    T = len(unpacked)
+def _union_graph(unpacked):
+    """(sorted unique IDs int64[n], src, dst int64[E]): every
+    snapshot's edges in the index space of the union's IDs."""
+    id_arr = np.unique(np.concatenate(
+        [ids for (_, _, _, ids, _) in unpacked] or [np.zeros(0, np.int64)]))
+    srcs = [ids[ei[0]] for (_, ei, _, ids, _) in unpacked if ei.size]
+    dsts = [ids[ei[1]] for (_, ei, _, ids, _) in unpacked if ei.size]
+    if not srcs:
+        return id_arr, np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return (id_arr, np.searchsorted(id_arr, np.concatenate(srcs)),
+            np.searchsorted(id_arr, np.concatenate(dsts)))
 
+
+def _rcm_order_python(src: np.ndarray, dst: np.ndarray, n: int) -> list:
+    """Reverse Cuthill-McKee order of an undirected [0, n) index graph,
+    a BFS over Python sets: the plain version of ``rcm.cpp``'s
+    ``tagan_rcm_order`` (the JAX package's fallback, line for line)."""
+    import collections
+    adjd = [set() for _ in range(n)]
+    for a, b in zip(src.tolist(), dst.tolist()):
+        if a != b:
+            adjd[a].add(b)
+            adjd[b].add(a)
+    deg = [len(s) for s in adjd]
+    visited = [False] * n
+    order = []
+    for start in sorted(range(n), key=lambda i: (deg[i], i)):
+        if visited[start]:
+            continue
+        visited[start] = True
+        queue = collections.deque([start])
+        while queue:
+            u = queue.popleft()
+            order.append(u)
+            for w in sorted(adjd[u], key=lambda i: (deg[i], i)):
+                if not visited[w]:
+                    visited[w] = True
+                    queue.append(w)
+    return order[::-1]
+
+
+def locality_order(unpacked) -> np.ndarray:
+    """Reverse Cuthill-McKee order of the union graph's node IDs,
+    int64[n_unique] (``unpacked``: `_unpack_snapshot`'s tuples).
+
+    Slot assignment is semantically arbitrary (every slot-space op is
+    permutation-equivariant), but it decides the block structure: RCM
+    puts each node's neighbours in nearby slots, so the flash plans walk
+    fewer occupied 64 x 64 tiles and the hybrid band holds more of the
+    edges. The BFS runs in C++ (`tagan_torch.native`); `_rcm_order_python`
+    is its plain version."""
+    from .. import native
+    id_arr, src, dst = _union_graph(unpacked)
+    return id_arr[native.rcm_order_native(src, dst, len(id_arr))]
+
+
+def _resolve_dims(unpacked, max_nodes, max_edges, max_time,
+                  edge_feature_dim):
+    """(N, Emax, Tmax, Fe, sorted unique IDs) of a sequence; raises
+    ValueError past the given maxima."""
     all_ids = np.unique(np.concatenate(
         [ids for (_, _, _, ids, _) in unpacked] or [np.zeros(0, np.int64)]))
     n_unique = len(all_ids)
-
     N = max_nodes or n_unique
     if n_unique > N:
-        raise ValueError(f"sequence has {n_unique} unique nodes > max_nodes={N}")
-    Emax = max_edges or max((u[1].shape[1] for u in unpacked), default=1) or 1
+        raise ValueError(
+            f"sequence has {n_unique} unique nodes > max_nodes={N}")
+    Emax = max_edges or max((u[1].shape[1] for u in unpacked),
+                            default=1) or 1
+    T = len(unpacked)
     Tmax = max_time or T
     if T > Tmax:
         raise ValueError(f"sequence has {T} steps > max_time={Tmax}")
-    F_node = unpacked[0][0].shape[1]
     if edge_feature_dim is None:
         edge_feature_dim = 0
         for (_, _, ea, _, _) in unpacked:
             if ea is not None and ea.ndim == 2:
                 edge_feature_dim = ea.shape[1]
                 break
-    Fe = edge_feature_dim
+    return N, Emax, Tmax, edge_feature_dim, all_ids
 
+
+def _pack(unpacked, N, Emax, Tmax, Fe, all_ids, dense_adj):
+    """The packed arrays in `_BASE_FIELDS` order."""
+    n_unique = len(all_ids)
+    F_node = unpacked[0][0].shape[1]
     x = np.zeros((Tmax, N, F_node), np.float32)
     node_mask = np.zeros((Tmax, N), bool)
     adj = np.zeros((Tmax, N if dense_adj else 1,
@@ -470,15 +523,57 @@ def build_sequence(
                 edge_attr[t, :E, :] = ea[:E, :Fe]
         times[t] = float(tv) if tv is not None else float(t)
         time_mask[t] = True
+    return (x, node_mask, adj, edge_src, edge_dst, edge_mask, edge_attr,
+            times, time_mask, node_ids_arr)
 
-    return SnapshotSequence(
-        x=torch.from_numpy(x), node_mask=torch.from_numpy(node_mask),
-        adj=torch.from_numpy(adj), edge_src=torch.from_numpy(edge_src),
-        edge_dst=torch.from_numpy(edge_dst),
-        edge_mask=torch.from_numpy(edge_mask),
-        edge_attr=torch.from_numpy(edge_attr),
-        times=torch.from_numpy(times), time_mask=torch.from_numpy(time_mask),
-        node_ids=torch.from_numpy(node_ids_arr))
+
+_BASE_FIELDS = ("x", "node_mask", "adj", "edge_src", "edge_dst",
+                "edge_mask", "edge_attr", "times", "time_mask", "node_ids")
+
+
+def build_sequence(
+    snapshots: Sequence[SnapshotLike],
+    max_nodes: Optional[int] = None,
+    max_edges: Optional[int] = None,
+    max_time: Optional[int] = None,
+    edge_feature_dim: Optional[int] = None,
+    dense_adj: bool = True,
+    reorder: Optional[str] = None,
+) -> SnapshotSequence:
+    """Pack a ragged snapshot list into a static-shape
+    `SnapshotSequence` of CPU tensors. ``dense_adj=False`` stores a
+    [T, 1, 1] placeholder instead of the [T, N, N] adjacency (the flash
+    and hybrid backends build their masks from the edge lists).
+
+    ``reorder="rcm"`` assigns slots in reverse Cuthill-McKee order of
+    the union graph (`locality_order`) instead of sorted-ID order: the
+    IDs are ranked by that order, packed, and ``node_ids`` gets the
+    original IDs back. The outputs are the same up to the permutation of
+    slots; the flash and hybrid plans walk fewer tiles on graphs with
+    locality."""
+    unpacked = [_unpack_snapshot(s) for s in snapshots]
+    order = None
+    if reorder is not None:
+        if reorder != "rcm":
+            raise ValueError(f"unknown reorder {reorder!r} (use 'rcm')")
+        order = locality_order(unpacked)
+        # rank of each ID in the order: the packer's sorted-ID slots are
+        # then the RCM order
+        by_id = np.argsort(order, kind="stable")
+        sorted_ids = order[by_id]
+        unpacked = [(xt, ei, ea, by_id[np.searchsorted(sorted_ids, ids)], tv)
+                    for (xt, ei, ea, ids, tv) in unpacked]
+    N, Emax, Tmax, Fe, all_ids = _resolve_dims(
+        unpacked, max_nodes, max_edges, max_time, edge_feature_dim)
+    fields = dict(zip(_BASE_FIELDS, _pack(unpacked, N, Emax, Tmax, Fe,
+                                          all_ids, dense_adj)))
+    if order is not None:
+        ids = fields["node_ids"]
+        fields["node_ids"] = np.where(
+            ids >= 0, order[np.clip(ids, 0, len(order) - 1)],
+            -1).astype(np.int32)
+    return SnapshotSequence(**{k: torch.from_numpy(v)
+                               for k, v in fields.items()})
 
 
 def batch_sequences(seqs: Sequence[SnapshotSequence]) -> SnapshotSequence:
@@ -515,3 +610,42 @@ def pad_dims_for(
                 Fe = max(Fe, ea.shape[1])
         Nm = max(Nm, len(ids))
     return Tm, Nm, Em, Fe
+
+
+# ---------------------------------------------------------------------------
+# CSR conversion (the JAX package's CSRSnapshots / coo_to_csr)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CSRSnapshots:
+    """Per-snapshot CSR with query-sorted edges.
+
+    row_ptr    i32[T, N+1]  CSR offsets over queries
+    col        i32[T, E]    key slot per edge (sorted by query)
+    perm       i32[T, E]    sorted order -> original COO position
+    edge_mask  bool[T, E]
+    """
+    row_ptr: torch.Tensor
+    col: torch.Tensor
+    perm: torch.Tensor
+    edge_mask: torch.Tensor
+
+
+def coo_to_csr(edge_q: torch.Tensor, edge_k: torch.Tensor,
+               edge_mask: torch.Tensor, num_nodes: int) -> CSRSnapshots:
+    """Sort padded COO edges [T, E] by query node (a stable sort, on the
+    tensors' own device) and build the row pointers; padded edges go to
+    the end."""
+    qkey = torch.where(edge_mask, edge_q.long(),
+                       torch.full_like(edge_q, num_nodes, dtype=torch.long))
+    order = torch.argsort(qkey, dim=-1, stable=True)
+    q_sorted = qkey.gather(-1, order)
+    counts = torch.zeros(qkey.shape[:-1] + (num_nodes + 1,),
+                         dtype=torch.int32, device=qkey.device)
+    counts.scatter_add_(-1, q_sorted.clamp(max=num_nodes),
+                        torch.ones_like(q_sorted, dtype=torch.int32))
+    cum = counts[..., :num_nodes].cumsum(-1, dtype=torch.int32)
+    row_ptr = torch.cat([torch.zeros_like(counts[..., :1]), cum], -1)
+    return CSRSnapshots(row_ptr=row_ptr, col=edge_k.gather(-1, order),
+                        perm=order.to(torch.int32),
+                        edge_mask=edge_mask.gather(-1, order))

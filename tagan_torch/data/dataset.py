@@ -14,9 +14,11 @@ Counterpart of ``tagan_tpu.data.dataset``:
 For the same seed the loader gives the JAX package's batches in the same
 order: the same numpy permutations, the same buckets, the same padding.
 ``plan="hybrid"`` attaches the hybrid backend's plan, with the transposed
-walk that training's backward reads, at pinned sizes per bucket. The ring
-plan (``plan="ring"``) and the slot reordering (``reorder="rcm"``) belong
-to a backend that is not ported and raise `NotImplementedError`.
+walk that training's backward reads, at pinned sizes per bucket.
+``reorder="rcm"`` packs each sequence in reverse Cuthill-McKee slot order
+(`core.graph.build_sequence`), before any plan is built. The ring plan
+(``plan="ring"``) belongs to a backend that is not ported and raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -125,7 +127,11 @@ class TemporalGraphDataLoader:
     batch that needs a bucket plans every member of the bucket once, at
     the sizes the bucket needs, records the bucket's pin
     (``plan_pins[bucket]``) and caches the planned sequences, so later
-    batches and epochs never plan again."""
+    batches and epochs never plan again.
+
+    ``reorder="rcm"`` assigns each sequence's slots in reverse
+    Cuthill-McKee order of its union graph (`core.graph.build_sequence`);
+    with ``plan="hybrid"`` the reordered sequence is planned."""
 
     def __init__(self, dataset: TemporalGraphDataset, batch_size: int = 16,
                  shuffle: bool = False, seed: int = 0,
@@ -141,9 +147,6 @@ class TemporalGraphDataLoader:
                  dense_adj: bool = True,
                  plan: Optional[str] = None,
                  plan_kwargs: Optional[dict] = None):
-        if reorder is not None:
-            raise NotImplementedError(
-                f"reorder={reorder!r}: the slot reordering is not ported")
         if plan not in (None, "hybrid"):
             raise NotImplementedError(
                 f"plan={plan!r}: only the hybrid plan is ported")
@@ -165,6 +168,7 @@ class TemporalGraphDataLoader:
         self.num_workers = max(0, num_workers)
         self.prefetch = max(1, prefetch)
         self.dense_adj = dense_adj
+        self.reorder = reorder
         self.plan = plan
         self.plan_kwargs = dict(plan_kwargs or {})
         self.plan_pins: Dict[int, dict] = {}
@@ -204,7 +208,7 @@ class TemporalGraphDataLoader:
         return build_sequence(
             self.dataset.sequences[i], max_nodes=Nm, max_edges=Em,
             max_time=Tm, edge_feature_dim=self.edge_feature_dim,
-            dense_adj=self.dense_adj)
+            dense_adj=self.dense_adj, reorder=self.reorder)
 
     def _plan_bucket(self, b: int) -> None:
         """Plan every member of bucket ``b`` at the bucket's shared sizes

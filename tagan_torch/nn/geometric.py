@@ -113,14 +113,15 @@ class GeometricAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                geometric_bias: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                geometric_bias: Optional[torch.Tensor] = None,
+                return_weights: bool = False):
         """Dense path. x [..., N, hidden], attention_mask bool
         [..., N, N]; dropout from ``generator`` when given.
         ``geometric_bias`` [..., N, N] (shared by the heads) adds the
         re-softmax: the dropped weights plus the bias go through a second
         masked softmax (restricted to the mask, so padding gets no
-        weight) and a second dropout."""
+        weight) and a second dropout. ``return_weights`` also returns the
+        attention weights [..., H, N, N] as they multiply V."""
         q, k, v = self._qkv(x)
         sigma, gamma, cov_inv = self._metric_params()
         scores = D.pairwise_scores(self.distance_metric, q, k, sigma=sigma,
@@ -136,7 +137,8 @@ class GeometricAttention(nn.Module):
                 gb = gb[..., None, :, :]
             weights = dropout(masked_softmax(weights + gb, mask),
                               self.dropout, generator)
-        return self._finish(M.matmul(weights, v), x, generator)
+        out = self._finish(M.matmul(weights, v), x, generator)
+        return (out, weights) if return_weights else out
 
     def apply_flash(self, x: torch.Tensor, mask: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
@@ -295,15 +297,17 @@ class GraphAttention(nn.Module):
     def forward(self, x: torch.Tensor, adj_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 edge_features: Optional[torch.Tensor] = None,
-                edge_presence: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                edge_presence: Optional[torch.Tensor] = None,
+                return_weights: bool = False):
         """Dense path. ``edge_features`` [..., N, N, hidden] (the embedded
         edge features scattered per pair); the bias exists only where
         ``edge_presence`` (default: the mask) marks a real edge, so the
-        implicit self loops carry none."""
+        implicit self loops carry none. ``return_weights``: (out, the
+        attention weights [..., H, N, N])."""
         bias = None
         if self.use_edge_bias and edge_features is not None:
             bias = self.edge_bias(edge_features)[..., 0]
             present = adj_mask if edge_presence is None else edge_presence
             bias = torch.where(present, bias, torch.zeros_like(bias))
-        return self.attn(x, adj_mask, generator, geometric_bias=bias)
+        return self.attn(x, adj_mask, generator, geometric_bias=bias,
+                         return_weights=return_weights)

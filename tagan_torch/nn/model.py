@@ -62,6 +62,11 @@ class TAGANOutput(NamedTuple):
     predictions: torch.Tensor
     loss: Optional[torch.Tensor]
     memory: Optional[MemoryState]
+    # with return_attention_weights: the temporal attention's weights
+    # [B, N, H, T, T] and the first geometric layer's [B, T, H, N, N]
+    # (no leading B for one sequence)
+    temporal_attention_weights: Optional[torch.Tensor] = None
+    geometric_attention_weights: Optional[torch.Tensor] = None
 
 
 def check_in_slice(c: TAGANConfig) -> None:
@@ -204,17 +209,23 @@ class TAGAN(nn.Module):
 
     # -- forward ----------------------------------------------------------
     def encode_spatial(self, seq: SnapshotSequence,
-                       generator: Optional[torch.Generator] = None
-                       ) -> torch.Tensor:
+                       generator: Optional[torch.Generator] = None,
+                       return_weights: bool = False):
         """Node embedding + geometric attention per snapshot of a batched
         sequence; [B, T, N, hidden]. Dropout from ``generator`` when
         given. With edge features, each layer's bias comes from the
         embedded ``edge_attr``: scattered per pair over hidden on the
         dense backend, projected per edge to a scalar on csr and flash.
         Under ``bf16_matmul`` its contractions run at bf16
-        (`precision`)."""
+        (`precision`).
+
+        ``return_weights`` also returns the first layer's attention
+        weights [B, T, H, N, N]. Only the dense path forms them: the
+        other backends take it when the sequence carries its dense
+        adjacency (then the [T, N, N] tensors fit by construction) and
+        raise ValueError when it was packed with ``dense_adj=False``."""
         with self.precision():
-            return self._encode_spatial(seq, generator)
+            return self._encode_spatial(seq, generator, return_weights)
 
     def precision(self):
         """The contraction precision of the config: JAX's
@@ -223,13 +234,25 @@ class TAGAN(nn.Module):
         return default_matmul_precision(
             "bfloat16" if self.config.bf16_matmul else "highest")
 
-    def _encode_spatial(self, seq, generator):
+    def _encode_spatial(self, seq, generator, return_weights=False):
         c = self.config
+        backend = c.spatial_backend
+        if return_weights and backend != "dense":
+            if not seq.has_dense_adj:
+                raise ValueError(
+                    f"return_attention_weights=True is not supported on "
+                    f"spatial_backend={backend!r} for sequences built with "
+                    "dense_adj=False: returning weights requires the dense "
+                    "O(N^2)-per-snapshot attention path (at this scale the "
+                    "[T, N, N] weight tensors would not fit device memory). "
+                    "Rebuild the sequence with dense_adj=True on a small "
+                    "graph to introspect, or run without attention weights.")
+            backend = "dense"
         x = self.node_embedding(seq.x)
         skip = x
         layers = list(self.geometric_layers.values())
         ea = self.edge_embedding(seq.edge_attr) if self.edge_bias_on else None
-        if c.spatial_backend == "hybrid":
+        if backend == "hybrid":
             if seq.hyb_mask_blocks is None:
                 raise ValueError(
                     "spatial_backend='hybrid' requires sequences built "
@@ -248,7 +271,7 @@ class TAGAN(nn.Module):
                     xx, seq.hyb_mask_blocks, seq.hyb_plan, seq.hyb_res,
                     seq.node_mask, generator, bb, rb, seq.hyb_plan_t,
                     bf16=c.bf16_matmul)
-        elif c.spatial_backend == "flash":
+        elif backend == "flash":
             mask, plan, plan_t = flash_structures(
                 seq.edge_src, seq.edge_dst, seq.edge_mask, seq.node_mask,
                 seq.max_nodes)
@@ -260,7 +283,7 @@ class TAGAN(nn.Module):
                 return layer.attn._apply_flash(xx, mask, plan, plan_t,
                                                generator, bias,
                                                bf16=c.bf16_matmul)
-        elif c.spatial_backend == "csr":
+        elif backend == "csr":
             eq, ek, em = add_self_loops(seq.edge_src, seq.edge_dst,
                                         seq.edge_mask, seq.node_mask)
 
@@ -287,20 +310,26 @@ class TAGAN(nn.Module):
 
             def attend(layer, xx):
                 return layer(xx, adj, generator, feats,
-                             None if feats is None else seq.adj)
+                             None if feats is None else seq.adj,
+                             return_weights=return_weights)
+        first = None
         for i, layer in enumerate(layers):
             x = attend(layer, x)
+            if return_weights:
+                x, w = x
+                first = w if i == 0 else first
             if i == 0:
                 x = x + (self.skip_layer_norm(skip) if c.use_layer_norm
                          else skip)
-        return x
+        return (x, first) if return_weights else x
 
     def forward(self, seq: SnapshotSequence,
                 labels: Optional[torch.Tensor] = None,
                 memory: Optional[MemoryState] = None, *,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None,
-                reduction: str = "mean") -> TAGANOutput:
+                reduction: str = "mean",
+                return_attention_weights: bool = False) -> TAGANOutput:
         """Forward of one sequence (x [T, N, F]) or a batch (x
         [B, T, N, F]); logits [C] or [B, C]. With ``labels`` the loss is
         the mean over the batch, or with ``reduction="none"`` one loss
@@ -308,13 +337,16 @@ class TAGAN(nn.Module):
         package's per-sequence forward under ``vmap`` gives it. Dropout
         runs only when ``not deterministic and generator is not None``.
         Under ``bf16_matmul`` every contraction, the flash kernels' too,
-        takes bf16 operands (`precision`)."""
+        takes bf16 operands (`precision`). ``return_attention_weights``
+        fills the output's two weight fields (`encode_spatial`'s rule for
+        the geometric layer's)."""
         with self.precision():
             return self._forward(seq, labels, memory, deterministic,
-                                 generator, reduction)
+                                 generator, reduction,
+                                 return_attention_weights)
 
     def _forward(self, seq, labels, memory, deterministic, generator,
-                 reduction):
+                 reduction, return_weights=False):
         single = not seq.is_batched
         if single:
             seq = seq.map(lambda t: t[None])
@@ -328,7 +360,10 @@ class TAGAN(nn.Module):
         zero = torch.zeros((), device=self.device)
         g = None if deterministic else generator
 
-        x = self.encode_spatial(seq, g)
+        geo_w = temp_w = None
+        x = self.encode_spatial(seq, g, return_weights)
+        if return_weights:
+            x, geo_w = x
         x = torch.where(nmask[..., None], x, zero)
         prop = self.temporal_propagation(
             x, nmask, seq.times if c.time_aware else None, memory,
@@ -340,7 +375,10 @@ class TAGAN(nn.Module):
         tmask = seq.time_mask
         attn_mask = (tmask[:, None, :] & tmask[:, :, None])[:, None]
         nt = self.temporal_attention(nt, seq.times[:, None, :], attn_mask,
-                                     batch_dims=1, generator=g)
+                                     batch_dims=1, generator=g,
+                                     return_weights=return_weights)
+        if return_weights:
+            nt, temp_w = nt
 
         head = self.classification_head
         if c.node_pooling == "logit":
@@ -383,27 +421,39 @@ class TAGAN(nn.Module):
             logits, predictions = logits[0], predictions[0]
             new_memory = MemoryState(*(getattr(new_memory, f.name)[0]
                                        for f in dataclasses.fields(new_memory)))
-        return TAGANOutput(logits, predictions, loss, new_memory)
+            if return_weights:
+                temp_w, geo_w = temp_w[0], geo_w[0]
+        return TAGANOutput(logits, predictions, loss, new_memory, temp_w,
+                           geo_w)
 
     def compute_loss(self, logits: torch.Tensor, labels: torch.Tensor,
                      reduction: str = "mean") -> torch.Tensor:
-        """Loss of logits [C] or [B, C] against a label per sequence:
+        """Loss of logits [C] or [B, C] against each sequence's label (a
+        scalar, or [C] for multi_label, one-hot or regression targets):
         the mean, or with ``reduction="none"`` the loss of each sequence
-        [B] (the mean over its own entries)."""
+        [B] (the mean over its own entries). Every ``loss_type`` of the
+        config routes as the JAX package's per-sequence loss does, with
+        the config's ``focal_alpha`` and ``focal_gamma``."""
         c = self.config
         lg = logits if logits.dim() > 1 else logits[None]
         lb = labels if labels.dim() > 0 else labels[None]
         task = {"ce": "multi_class", "bce": "classification"}.get(
             c.loss_type, c.loss_type)
+        focal = dict(focal_alpha=c.focal_alpha, focal_gamma=c.focal_gamma)
         if c.output_dim > 1 and lb.dim() == lg.dim() - 1:
             loss = temporal_loss(lg, lb, task_type="multi_class",
                                  reduction="none")
         elif c.output_dim == 1 and task in ("classification", "focal"):
             sq = lg[..., 0] if lg.dim() == lb.dim() + 1 else lg
             loss = temporal_loss(sq, lb.to(sq.dtype), task_type=task,
-                                 reduction="none")
+                                 reduction="none", **focal)
         else:
-            loss = temporal_loss(lg, lb, task_type=task, reduction="none")
+            if lb.dim() == lg.dim() - 1:
+                # one label per sequence against [B, 1] logits: the JAX
+                # package's [1] label against its [1, 1] logits
+                lb = lb[..., None]
+            loss = temporal_loss(lg, lb, task_type=task, reduction="none",
+                                 **focal)
         if reduction == "none":
             return loss.reshape(lg.shape[0], -1).mean(1)
         return loss.mean()
@@ -417,6 +467,16 @@ class TAGAN(nn.Module):
             hard = out.predictions.argmax(-1)
         return {"logits": out.logits, "predictions": out.predictions,
                 "labels": hard}
+
+    @torch.no_grad()
+    def infer_with_attention(self, seq: SnapshotSequence) -> dict:
+        """Logits, predictions and both attention weights
+        (`forward`'s ``return_attention_weights``)."""
+        out = self(seq, return_attention_weights=True)
+        return {"logits": out.logits, "predictions": out.predictions,
+                "temporal_attention_weights": out.temporal_attention_weights,
+                "geometric_attention_weights":
+                    out.geometric_attention_weights}
 
 
 def batched_forward(model: TAGAN, batch: SnapshotSequence,

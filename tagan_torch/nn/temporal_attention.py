@@ -71,7 +71,8 @@ class TemporalAttention(nn.Module):
     def _scores(self, q, k):
         return M.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.head_dim)
 
-    def _softmax_finish(self, scores, mask, v, x, generator):
+    def _softmax_finish(self, scores, mask, v, x, generator,
+                        return_weights=False):
         t = x.shape[-2]
         if self.causal:
             cm = causal_mask(t, x.device)
@@ -80,17 +81,19 @@ class TemporalAttention(nn.Module):
             mask = mask[..., None, :, :]
         weights = dropout(masked_softmax(scores, mask), self.dropout,
                           generator)
-        return self._finish(weights, v, x, generator)
+        out = self._finish(weights, v, x, generator)
+        return (out, weights) if return_weights else out
 
     def forward(self, x: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_weights: bool = False):
         """x [..., T, hidden], attention_mask bool [T, T] or
-        [..., T, T]; dropout from ``generator`` when given."""
+        [..., T, T]; dropout from ``generator`` when given.
+        ``return_weights``: (out, the weights [..., H, T, T])."""
         q, k, v = self._qkv(x)
         return self._softmax_finish(self._scores(q, k), attention_mask, v, x,
-                                    generator)
+                                    generator, return_weights)
 
 
 class AsymmetricTemporalAttention(TemporalAttention):
@@ -155,13 +158,15 @@ class AsymmetricTemporalAttention(TemporalAttention):
                 time_stamps: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 batch_dims: int = 0,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                return_weights: bool = False):
         """x [..., T, hidden], time_stamps [..., T] (broadcast against
         x's leading dims), attention_mask bool [..., T, T]. The first
         ``batch_dims`` dims of ``time_stamps`` are independent sequences
         for the time encoding's normalisation. Dropout (time encoding,
-        weights, output) from ``generator`` when given."""
+        weights, output) from ``generator`` when given.
+        ``return_weights``: (out, the weights [..., H, T, T] as they
+        multiply V)."""
         t = x.shape[-2]
         q, k, v = self._qkv(x)
         scores = self._scores(q, k)                       # [..., H, T, T]
@@ -186,4 +191,5 @@ class AsymmetricTemporalAttention(TemporalAttention):
             if self.use_time_masks:
                 tm = self.time_mask(time_stamps)
                 mask = tm if mask is None else mask & tm
-        return self._softmax_finish(scores, mask, v, x, generator)
+        return self._softmax_finish(scores, mask, v, x, generator,
+                                    return_weights)

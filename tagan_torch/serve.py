@@ -30,6 +30,10 @@ class Predictor:
     batch_size: sequences per forward.
     dense_adj:  pack the dense adjacency (default: only for the dense
                 backend, which needs it).
+    reorder:    ``"rcm"`` packs each sequence in reverse Cuthill-McKee
+                slot order (`core.graph.build_sequence`), before its
+                hybrid plan is built; the probabilities are those of the
+                sorted-ID order.
     plan_pin, plan_kwargs:
                 the hybrid backend's plan, attached at pack time
                 (`attach_hybrid_plans`; ``plan_kwargs`` are its
@@ -42,6 +46,7 @@ class Predictor:
     def __init__(self, model: TAGAN, *,
                  dims: Optional[Tuple[int, int, int, int]] = None,
                  batch_size: int = 8, dense_adj: Optional[bool] = None,
+                 reorder: Optional[str] = None,
                  plan_pin: Optional[dict] = None,
                  plan_kwargs: Optional[dict] = None):
         self.model = model
@@ -50,6 +55,7 @@ class Predictor:
         if dense_adj is None:
             dense_adj = model.config.spatial_backend == "dense"
         self.dense_adj = dense_adj
+        self.reorder = reorder
         self.plan_pin = plan_pin
         self.plan_kwargs = dict(plan_kwargs or {})
 
@@ -67,7 +73,8 @@ class Predictor:
         T, N, E, Fe = self.dims or pad_dims_for(sequences)
         seqs = [build_sequence(s, max_nodes=N, max_edges=max(E, 1),
                                max_time=T, edge_feature_dim=Fe,
-                               dense_adj=self.dense_adj)
+                               dense_adj=self.dense_adj,
+                               reorder=self.reorder)
                 for s in sequences]
         if self.model.config.spatial_backend == "hybrid":
             seqs, _ = attach_hybrid_plans(seqs, pin=self.plan_pin,

@@ -4220,3 +4220,142 @@ def test_two_walk_bad_plan_raises_before_launch(fault, bf16, cuda):
             plan=plan, plan_t=plan_t, seed=seeds, fused=False, dlse=dlse,
             bf16=bf16)
     assert {k_.name: k_.launches for k_ in FG.KERNELS} == before
+
+
+# ---------------------------------------------------------------------------
+# The reverse Cuthill-McKee slot order, the loss families and the
+# attention weights on the card
+# ---------------------------------------------------------------------------
+
+def _banded_shuffled(n, band, T, seed):
+    """A banded graph whose IDs are a seeded permutation of its rows: the
+    sorted-ID slots scatter the band, RCM slots restore it."""
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(n)
+    rows = np.arange(n)
+    src = np.concatenate([rows[:-d] for d in range(1, band + 1)])
+    dst = np.concatenate([rows[d:] for d in range(1, band + 1)])
+    return [{"x": rng.standard_normal((n, 8)).astype(np.float32),
+             "edge_index": np.stack([src, dst]), "node_ids": ids,
+             "timestep": float(t)} for t in range(T)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["flash", "hybrid"])
+def test_reordered_predictor_on_gpu_matches_cpu(backend, cuda):
+    """``Predictor(reorder="rcm")``, card (kernels) vs CPU (plain
+    versions), and against the sorted-ID slots on the card; B1 (B1c on
+    the hybrid backend) once per layer per batch."""
+    seqs = [_banded_shuffled(300, 4, 3, s) for s in range(3)]
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, output_dim=1, loss_type="bce",
+                         dropout=0.0, spatial_backend=backend)
+    kern = FG.flash_geometric_fwd_kernel if backend == "flash" \
+        else FG.flash_geometric_fwd_compact_kernel
+    got = {}
+    for dev, reorder in (("cuda", "rcm"), ("cpu", "rcm"), ("cuda", None)):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        before = {k.name: k.launches for k in FG.KERNELS}
+        got[dev, reorder] = pt.Predictor(
+            model, batch_size=2, reorder=reorder).predict_proba(seqs)
+        launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
+        want = {k.name: 0 for k in FG.KERNELS}
+        if dev == "cuda":
+            want[kern.name] = 2 * cfg.num_layers
+        assert launched == want
+    card = got["cuda", "rcm"]
+    assert np.isfinite(card).all() and card.shape == (3, 1)
+    np.testing.assert_allclose(card, got["cpu", "rcm"], rtol=0, atol=TOL)
+    np.testing.assert_allclose(card, got["cuda", None], rtol=0, atol=TOL)
+
+
+def _loss_labels(loss_type, od, rng, n):
+    if loss_type == "multi_label" or (loss_type == "focal" and od > 1):
+        return [(rng.random(od) < 0.5).astype(np.float32) if loss_type ==
+                "multi_label" else np.eye(od, dtype=np.float32)[i % od]
+                for i in range(n)]
+    if loss_type in ("bce", "classification", "focal"):
+        return [float(i % 2) for i in range(n)]
+    if od > 1:
+        return [rng.standard_normal(od).astype(np.float32) for _ in range(n)]
+    return [float(v) for v in rng.standard_normal(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_type,od", [
+    ("focal", 1), ("focal", 3), ("mse", 1), ("regression", 2),
+    ("multi_label", 3), ("sequence", 1), ("huber", 2), ("quantile", 1)])
+def test_loss_family_trainer_step_on_gpu_matches_cpu(loss_type, od, cuda):
+    """One TAGANTrainer step of the flash model with each loss family that
+    ``compute_loss`` routes, card (kernels) vs CPU (plain versions): the
+    loss and every gradient; B1 and the backward once per layer."""
+    rng = np.random.default_rng(5)
+    n, e, T = 100, 800, 3
+    seqs = [[{"x": rng.standard_normal((n, 8)).astype(np.float32),
+              "edge_index": rng.integers(0, n, (2, e)),
+              "node_ids": np.arange(n), "timestep": float(t)}
+             for t in range(T)] for _ in range(2)]
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, output_dim=od,
+                         loss_type=loss_type, dropout=0.0,
+                         spatial_backend="flash", focal_alpha=0.3)
+    ds = pt.TemporalGraphDataset(seqs, _loss_labels(loss_type, od, rng, 2))
+    batch, labels, smask = next(iter(pt.TemporalGraphDataLoader(
+        ds, batch_size=2, dense_adj=False)))
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        tr = pt.TAGANTrainer(model, pt.ExperimentConfig(model=cfg))
+        before = {k.name: k.launches for k in FG.KERNELS}
+        loss, _ = tr._loss(batch, labels, smask, True)
+        loss.backward()
+        launched = {k.name: k.launches - before[k.name] for k in FG.KERNELS}
+        got[dev] = (loss.item(), {name: p.grad.detach().cpu().clone()
+                                  for name, p in model.named_parameters()})
+        want = {k.name: 0 for k in FG.KERNELS}
+        if dev == "cuda":
+            for kern in ((FG.flash_geometric_fwd_kernel,
+                          FG.flash_geometric_bwd_fused_kernel)
+                         if FG.FUSED_BWD else
+                         (FG.flash_geometric_fwd_kernel,
+                          FG.flash_geometric_bwd_dq_kernel,
+                          FG.flash_geometric_bwd_dkv_kernel)):
+                want[kern.name] = cfg.num_layers
+        assert launched == want
+    assert np.isfinite(got["cuda"][0])
+    assert abs(got["cuda"][0] - got["cpu"][0]) <= TOL
+    _grads_close(got["cuda"][1], got["cpu"][1])
+
+
+@pytest.mark.gpu
+def test_infer_with_attention_on_gpu_matches_cpu(cuda):
+    """``infer_with_attention`` of the flash model on a sequence packed
+    with its dense adjacency (the dense path on both sides, no kernel),
+    card vs CPU; without the adjacency it raises ValueError."""
+    rng = np.random.default_rng(6)
+    n, e, T = 120, 900, 3
+    seq = [{"x": rng.standard_normal((n, 8)).astype(np.float32),
+            "edge_index": rng.integers(0, n, (2, e)),
+            "node_ids": np.arange(n), "timestep": float(t)}
+           for t in range(T)]
+    cfg = pt.TAGANConfig(hidden_dim=32, num_heads=2, num_layers=2,
+                         node_feature_dim=8, output_dim=1, loss_type="bce",
+                         dropout=0.0, spatial_backend="flash")
+    packed = pt.build_sequence(seq)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model = pt.TAGAN(cfg, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+        before = {k.name: k.launches for k in FG.KERNELS}
+        got[dev] = {k: v.cpu() for k, v in
+                    model.infer_with_attention(packed).items()}
+        assert {k.name: k.launches for k in FG.KERNELS} == before
+        with pytest.raises(ValueError, match="dense_adj=False"):
+            model.infer_with_attention(pt.build_sequence(seq,
+                                                         dense_adj=False))
+    assert got["cuda"]["geometric_attention_weights"].shape == (T, 2, n, n)
+    assert got["cuda"]["temporal_attention_weights"].shape == (n, 2, T, T)
+    for k, want in got["cpu"].items():
+        assert (got["cuda"][k] - want).abs().max().item() <= TOL, k

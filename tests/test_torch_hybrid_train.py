@@ -471,9 +471,12 @@ def test_loader_plans_each_sequence_once(monkeypatch):
     assert sorted(loader.plan_pins) == [0, 1]
     assert all("Wi" in pin and not pin["pack"]
                for pin in loader.plan_pins.values())
-    for bad in ({"plan": "ring"}, {"reorder": "rcm"}):
-        with pytest.raises(NotImplementedError):
-            pt.TemporalGraphDataLoader(ds, **bad)
+    with pytest.raises(NotImplementedError):
+        pt.TemporalGraphDataLoader(ds, plan="ring")
+    # the slot reordering is ported: a reordered loader plans too
+    rcm = pt.TemporalGraphDataLoader(ds, batch_size=1, dense_adj=False,
+                                     plan="hybrid", reorder="rcm")
+    assert rcm.reorder == "rcm" and next(iter(rcm))[0].hyb_plan_t is not None
 
 
 # ---------------------------------------------------------------------------

@@ -177,10 +177,16 @@ def test_dataset_split_kfold_and_unported_options():
         assert a.labels == b.labels
     for (ta, va), (tb, vb) in zip(td.kfold(4, seed=2), jd.kfold(4, seed=2)):
         assert ta.labels == tb.labels and va.labels == vb.labels
-    for bad in ({"plan": "ring"}, {"reorder": "rcm"}):
-        with pytest.raises(NotImplementedError):
-            pt.TemporalGraphDataLoader(td, **bad)
+    with pytest.raises(NotImplementedError):
+        pt.TemporalGraphDataLoader(td, plan="ring")
     assert pt.TemporalGraphDataLoader(td, plan="hybrid").plan == "hybrid"
+    # the slot reordering is ported: it packs what JAX's loader packs
+    for (tb, _, _), (jb, _, _) in zip(
+            pt.TemporalGraphDataLoader(td, batch_size=4, reorder="rcm"),
+            JLoader(jd, batch_size=4, reorder="rcm")):
+        np.testing.assert_array_equal(tb.node_ids.numpy(),
+                                      np.asarray(jb.node_ids))
+        np.testing.assert_array_equal(tb.x.numpy(), np.asarray(jb.x))
 
 
 @pytest.mark.parametrize("multi", [False, True])
